@@ -17,6 +17,8 @@ Phases, each printing one JSON line:
    layers, random bf16 weights from seed 0) serves 8 requests, one of
    them sampled and two sharing a 1024-token header through the prefix
    cache, and must launch the kernel 32 times per unified step;
+   ``step_profile`` then reads where a step's device time goes
+   (``torch.profiler`` over two more requests);
 5. oracle: a 2-layer fp32 model at the same widths, where the engine's
    temperature-0 tokens must equal the port's dense ``generate``.
 
@@ -33,6 +35,15 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
+
+from hetu_tpu_torch.csrc.build import build
+from hetu_tpu_torch.models import llama3_8b_config
+from hetu_tpu_torch.models.convert import random_state
+from hetu_tpu_torch.models.generate import generate
+from hetu_tpu_torch.ops.ragged_paged_attention import (
+    ragged_paged_attention_cuda, ragged_paged_attention_reference)
+from hetu_tpu_torch.serving import Engine
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth, H100 SXM
@@ -71,28 +82,33 @@ def phase_device():
 
 
 def phase_build():
-    from hetu_tpu_torch.csrc.build import build
     t0 = time.perf_counter()
     built = build()
     report = {}
     for name, info in built.items():
         entries = []
         for block in info["ptxas"].split("Compiling entry function")[1:]:
-            m = re.search(r"kernelI(\w+?)Li(\d+)E", block)
+            head = block.splitlines()[0]
+            hd = re.search(r"Li(\d+)E", head)
             regs = re.search(r"Used (\d+) registers", block)
+            smem = re.search(r"(\d+) bytes smem", block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", block)
             entries.append({
-                "instance": f"{m.group(1)},hd={m.group(2)}" if m else "?",
+                "kernel": ("mma_bf16" if "_mma_kernel" in head
+                           else "scalar_f32"),
+                "head_dim": int(hd.group(1)) if hd else None,
                 "registers": int(regs.group(1)) if regs else None,
+                "static_smem_bytes": int(smem.group(1)) if smem else 0,
                 "spill_stores": int(spill.group(1)) if spill else None,
                 "spill_loads": int(spill.group(2)) if spill else None})
         report[name] = {"so": info["so"], "cached": info["cached"],
                         "entries": entries}
+    # the scalar fp32 kernel's tiles are dynamic shared memory
+    scalar_smem = {hd: (hd * 64 + hd * 36 + 32 * hd + 32 * 68) * 4
+                   for hd in (64, 128)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": report,
-          "dynamic_smem_bytes_hd128": (128 * 64 + 128 * 36 + 32 * 128
-                                       + 32 * 68) * 4})
+          "kernels": report, "scalar_f32_dynamic_smem_bytes": scalar_smem})
     return report
 
 
@@ -114,8 +130,6 @@ def ragged_work(q_lens, ctx_lens, maxp, nh, kvh, hd, itemsize):
 
 
 def phase_kernel():
-    from hetu_tpu_torch.ops.ragged_paged_attention import (
-        ragged_paged_attention_cuda, ragged_paged_attention_reference)
     nh, kvh, hd, ps, max_q, maxp = 32, 8, 128, 64, 512, 128
     dev = torch.device("cuda")
     # the engine's layout: 8 decode slots, then one 512-token chunk slot
@@ -135,11 +149,17 @@ def phase_kernel():
         k += need
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rnd = lambda *s: torch.randn(s, generator=gen, device=dev,  # noqa: E731
-                                 dtype=torch.bfloat16)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
     q = rnd(t, nh, hd)
     kp, vp = rnd(num_pages, ps, kvh, hd), rnd(num_pages, ps, kvh, hd)
-    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
     args = (q, kp, vp, i32(q_lens), i32(cu), i32(pt), i32(ctx_lens))
     got = ragged_paged_attention_cuda(*args, max_q=max_q)
     torch.cuda.synchronize()
@@ -190,7 +210,6 @@ def profile_steps(eng, rng, v):
     chunks beside a decoding one), after the measured run.  Sums the
     CUDA kernels' own times by name; the idle share is 1 - busy / wall,
     with the profiler's own host cost inside the wall time."""
-    from torch.profiler import ProfilerActivity, profile
     eng.add_request(rng.randint(1, v, size=100).tolist(), 24)
     eng.add_request(rng.randint(1, v, size=1000).tolist(), 8)
     steps = 0
@@ -224,11 +243,6 @@ def profile_steps(eng, rng, v):
 
 
 def phase_main_path():
-    from hetu_tpu_torch.models import llama3_8b_config
-    from hetu_tpu_torch.models.convert import random_state
-    from hetu_tpu_torch.ops.ragged_paged_attention import \
-        ragged_paged_attention_cuda
-    from hetu_tpu_torch.serving import Engine
     cfg = llama3_8b_config()
     t0 = time.perf_counter()
     state = random_state(cfg, seed=0, device="cuda")
@@ -301,10 +315,6 @@ def phase_main_path():
 
 
 def phase_oracle():
-    from hetu_tpu_torch.models import llama3_8b_config
-    from hetu_tpu_torch.models.convert import random_state
-    from hetu_tpu_torch.models.generate import generate
-    from hetu_tpu_torch.serving import Engine
     # full fp32 products on both sides
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

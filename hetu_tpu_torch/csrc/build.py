@@ -10,7 +10,8 @@ library with a plain C interface under ``csrc/_build/`` (listed in
 The file name carries a hash of the source and the flags, so an edited
 source never loads a stale library.  ``build()`` starts one ``nvcc`` per
 source, all at once, and returns what ``-Xptxas -v`` reported
-(registers, shared memory, spills) for each.
+(registers, shared memory, spills) for each; the report is kept beside
+the library (``<name>-<hash>.ptxas.txt``) for later calls.
 """
 from __future__ import annotations
 
@@ -58,7 +59,12 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     for name in names:
         so = _target(name)
         if os.path.exists(so):
-            out[name] = {"so": so, "ptxas": "", "seconds": 0.0,
+            log = so[:-len(".so")] + ".ptxas.txt"
+            text = ""
+            if os.path.exists(log):
+                with open(log) as f:
+                    text = f.read()
+            out[name] = {"so": so, "ptxas": text, "seconds": 0.0,
                          "cached": True}
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
@@ -72,6 +78,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
                                f"(exit {proc.returncode}):\n{log}")
+        with open(so[:-len(".so")] + ".ptxas.txt", "w") as f:
+            f.write(log)
         os.replace(tmp, so)
         out[name] = {"so": so, "ptxas": log,
                      "seconds": time.perf_counter() - t0, "cached": False}

@@ -24,8 +24,9 @@
 //    block owns (KV head, row, a tile of 64 (token, query-head) pairs of
 //    the row) and runs the page loop itself, with the softmax state of its
 //    64 pairs in registers.
-//  - Each block stages a 32-position K/V tile in shared memory once and
-//    uses it for all g query heads of its KV head, so GQA's saving is kept:
+//  - Each block stages a K/V tile (64 positions; 32 in the fp32 kernel)
+//    in shared memory once and uses it for all g query heads of its KV
+//    head, so GQA's saving is kept:
 //    K/V bytes are read once per KV head and query tile, not once per
 //    query head.
 //  - The KV loop stops at the last position any pair of the tile can see,
@@ -33,9 +34,17 @@
 //    rows with q_len == 0 and idle tiles exit at once.
 //  - Each block writes only its own tokens (no read-modify-write of the
 //    output as on the TPU).  Offsets are 64-bit.
-//  - This first version multiplies with scalar fp32 FMAs from shared
-//    memory (no tensor cores, TMA or wgmma), which also makes fp32 inputs
-//    exact; decode rows get no split over the KV axis.  Both are later work.
+//  - bf16 inputs (the serving path) multiply on the tensor cores with
+//    mma.sync m16n8k16 (fp32 accumulate), FlashAttention-2 style: each of
+//    the 4 warps owns 16 pairs, keeps its Q fragments, scores and output
+//    in registers, and feeds the probabilities to the second product
+//    straight from the score registers (rounded to bf16).  A warp whose
+//    16 pairs are all padding skips the arithmetic.
+//  - fp32 inputs take a scalar-FMA kernel, so fp32 stays exact to fp32
+//    rounding (no TF32).
+//  - Not yet: TMA / cp.async pipelining of the K/V tiles, wgmma, and a
+//    split over the KV axis for long-context decode (8 KV heads x a few
+//    decode rows give fewer blocks than the card's 132 SMs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,15 +61,6 @@ constexpr int kKStride = kBK + 4;    // K^T row stride in floats
 constexpr int kPStride = kRows + 4;  // P^T row stride in floats
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 template <int HD>
 constexpr int smem_floats() {
   return HD * kRows + HD * kKStride + kBK * HD + kBK * kPStride;
@@ -70,18 +70,18 @@ constexpr int smem_floats() {
 // 4*(t%8) .. +3 and output columns (HD/8)*(t%8) .. +HD/8-1.  The eight
 // threads that share rows are eight neighbouring lanes of one warp, so row
 // maxima and sums reduce with three shuffles.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-ragged_paged_attention_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k_pages,
-                              const T* __restrict__ v_pages,
-                              T* __restrict__ out,
-                              const int* __restrict__ q_lens,
-                              const int* __restrict__ cu_q,
-                              const int* __restrict__ page_tables,
-                              const int* __restrict__ ctx_lens, int n_tokens,
-                              int nh, int kvh, int ps, int maxp, int max_q,
-                              float scale) {
+ragged_paged_attention_fp32_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ k_pages,
+                                   const float* __restrict__ v_pages,
+                                   float* __restrict__ out,
+                                   const int* __restrict__ q_lens,
+                                   const int* __restrict__ cu_q,
+                                   const int* __restrict__ page_tables,
+                                   const int* __restrict__ ctx_lens,
+                                   int n_tokens, int nh, int kvh, int ps,
+                                   int maxp, int max_q, float scale) {
   constexpr int kDPer = HD / 8;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -117,8 +117,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     if (p < n_pairs) {
       const int j = p / g;
       const int head = h * g + p % g;
-      val = to_float(q[static_cast<int64_t>(start + j) * tok_stride +
-                       static_cast<int64_t>(head) * HD + d]);
+      val = q[static_cast<int64_t>(start + j) * tok_stride +
+              static_cast<int64_t>(head) * HD + d];
     }
     q_t[d * kRows + r] = val;
   }
@@ -150,8 +150,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
         const int64_t page = pt[pos / ps];
         const int64_t off =
             ((page * ps + pos % ps) * kvh + h) * static_cast<int64_t>(HD) + d;
-        kval = to_float(k_pages[off]);
-        vval = to_float(v_pages[off]);
+        kval = k_pages[off];
+        vval = v_pages[off];
       }
       k_t[d * kKStride + c] = kval;
       v_s[c * HD + d] = vval;
@@ -165,7 +165,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
       for (int cc = 0; cc < 4; ++cc) s[rr][cc] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < HD; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&q_t[d * kRows + tr * 4]);
+      const float4 qa =
+          *reinterpret_cast<const float4*>(&q_t[d * kRows + tr * 4]);
       const float4 ka =
           *reinterpret_cast<const float4*>(&k_t[d * kKStride + tc * 4]);
       const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
@@ -237,20 +238,254 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     const float denom = l[rr] == 0.f ? 1.f : l[rr];
     const int j = p / g;
     const int head = h * g + p % g;
-    T* dst = out + static_cast<int64_t>(start + j) * tok_stride +
+    float* dst = out + static_cast<int64_t>(start + j) * tok_stride +
              static_cast<int64_t>(head) * HD + tc * kDPer;
 #pragma unroll
-    for (int dd = 0; dd < kDPer; ++dd) store(dst + dd, acc[rr][dd] / denom);
+    for (int dd = 0; dd < kDPer; ++dd) dst[dd] = acc[rr][dd] / denom;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   void* out, const int* q_lens, const int* cu_q,
-                   const int* page_tables, const int* ctx_lens, int n_tokens,
-                   int nh, int kvh, int ps, int n_rows, int maxp, int max_q,
-                   float scale, cudaStream_t stream) {
-  auto kernel = ragged_paged_attention_kernel<T, HD>;
+// ---------------------------------------------------------------------------
+// bf16 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaBK = 64;  // KV positions per tile
+
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragment layout of mma.m16n8k16 (lane = 4 * gq + tq): A holds rows gq
+// and gq + 8, columns 2tq, 2tq+1 (+8); B holds k rows 2tq, 2tq+1 (+8) of
+// column gq; C holds rows gq and gq + 8, columns 2tq, 2tq+1.  Warp w owns
+// pairs pair0 + 16w .. +15 of the block's 64.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k_pages,
+                                  const __nv_bfloat16* __restrict__ v_pages,
+                                  __nv_bfloat16* __restrict__ out,
+                                  const int* __restrict__ q_lens,
+                                  const int* __restrict__ cu_q,
+                                  const int* __restrict__ page_tables,
+                                  const int* __restrict__ ctx_lens,
+                                  int n_tokens, int nh, int kvh, int ps,
+                                  int maxp, int max_q, float scale) {
+  constexpr int kStride = HD + 8;     // smem row stride (bf16), 16 B pad
+  constexpr int kQSteps = HD / 16;    // k-steps of Q K^T
+  constexpr int kSTiles = kMmaBK / 8; // n-tiles of S
+  constexpr int kOTiles = HD / 8;     // n-tiles of O
+  __shared__ __align__(16) __nv_bfloat16 ks[kMmaBK * kStride];
+  __shared__ __align__(16) __nv_bfloat16 vs[kMmaBK * kStride];
+
+  const int row = blockIdx.y;
+  const int h = blockIdx.z;
+  const int g = nh / kvh;
+  const int start = cu_q[row];
+  const int qlen_row = q_lens[row];
+  const int qlen = min(min(qlen_row, max_q), n_tokens - start);
+  const int n_pairs = qlen > 0 ? qlen * g : 0;
+  const int pair0 = blockIdx.x * kRows;
+  if (pair0 >= n_pairs) return;  // padding row or idle tile: whole block
+
+  const int qpos0 = ctx_lens[row] - qlen_row;  // position of query 0
+  const int last_pair = min(n_pairs, pair0 + kRows) - 1;
+  const int kv_end = min(qpos0 + last_pair / g + 1, maxp * ps);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int64_t tok_stride = static_cast<int64_t>(nh) * HD;
+  const int wrow0 = pair0 + warp * 16;
+  const bool warp_live = wrow0 < n_pairs;
+
+  // the lane's two rows: lo = wrow0 + gq, hi = lo + 8
+  int qpos[2];
+  int64_t qbase[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int p = wrow0 + gq + 8 * hr;
+    const bool ok = p < n_pairs;
+    qpos[hr] = ok ? qpos0 + p / g : -1;
+    qbase[hr] = ok ? static_cast<int64_t>(start + p / g) * tok_stride +
+                         static_cast<int64_t>(h * g + p % g) * HD
+                   : -1;
+  }
+  uint32_t qf[kQSteps][4];
+#pragma unroll
+  for (int kt = 0; kt < kQSteps; ++kt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int64_t base = qbase[r & 1];
+      const int col = kt * 16 + 2 * tq + (r & 2 ? 8 : 0);
+      qf[kt][r] = base < 0 ? 0u
+                           : *reinterpret_cast<const uint32_t*>(q + base + col);
+    }
+
+  float o[kOTiles][4];
+#pragma unroll
+  for (int nt = 0; nt < kOTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[nt][i] = 0.f;
+  float m[2] = {kMaskValue, kMaskValue};
+  float l[2] = {0.f, 0.f};
+
+  const int* pt = page_tables + static_cast<int64_t>(row) * maxp;
+  constexpr int kVecs = HD / 8;       // 16-byte vectors per position
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kMmaBK) {
+    __syncthreads();  // the previous tile's K and V are consumed
+    for (int e = tid; e < kMmaBK * kVecs; e += kThreads) {
+      const int c = e / kVecs;
+      const int d8 = (e % kVecs) * 8;
+      const int pos = kv0 + c;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (pos < kv_end) {
+        const int64_t page = pt[pos / ps];
+        const int64_t off =
+            ((page * ps + pos % ps) * kvh + h) * static_cast<int64_t>(HD) +
+            d8;
+        kv = *reinterpret_cast<const uint4*>(k_pages + off);
+        vv = *reinterpret_cast<const uint4*>(v_pages + off);
+      }
+      *reinterpret_cast<uint4*>(&ks[c * kStride + d8]) = kv;
+      *reinterpret_cast<uint4*>(&vs[c * kStride + d8]) = vv;
+    }
+    __syncthreads();
+    if (!warp_live) continue;  // warp-uniform; the next sync is at the top
+
+    float s[kSTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kSTiles; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < kQSteps; ++kt)
+#pragma unroll
+      for (int nt = 0; nt < kSTiles; ++nt) {
+        const __nv_bfloat16* kr = &ks[(nt * 8 + gq) * kStride + kt * 16 +
+                                      2 * tq];
+        mma_bf16_16816(s[nt], qf[kt], *reinterpret_cast<const uint32_t*>(kr),
+                       *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
+
+    float mx[2] = {kMaskValue, kMaskValue};
+#pragma unroll
+    for (int nt = 0; nt < kSTiles; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int hr = i >> 1;
+        const int pos = kv0 + nt * 8 + 2 * tq + (i & 1);
+        s[nt][i] = (pos <= qpos[hr] && pos < kv_end) ? s[nt][i] * scale
+                                                     : kMaskValue;
+        mx[hr] = fmaxf(mx[hr], s[nt][i]);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      const float m_new = fmaxf(m[hr], mx[hr]);
+      alpha[hr] = expf(m[hr] - m_new);
+      m[hr] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kSTiles; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[nt][i] = expf(s[nt][i] - m[i >> 1]);
+        sum[i >> 1] += s[nt][i];
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
+      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
+      l[hr] = l[hr] * alpha[hr] + sum[hr];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kOTiles; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const __nv_bfloat16* v0 = &vs[(kk * 16 + 2 * tq) * kStride + gq];
+#pragma unroll
+      for (int nt = 0; nt < kOTiles; ++nt) {
+        const __nv_bfloat16* vr = v0 + nt * 8;
+        mma_bf16_16816(o[nt], a, pack_bf16(vr[0], vr[kStride]),
+                       pack_bf16(vr[8 * kStride], vr[9 * kStride]));
+      }
+    }
+  }
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (qbase[hr] < 0) continue;
+    const float denom = l[hr] == 0.f ? 1.f : l[hr];
+    // out and q share the [T, nh, hd] layout, so the row's q offset is
+    // its output offset
+    __nv_bfloat16* dst = out + qbase[hr] + 2 * tq;
+#pragma unroll
+    for (int nt = 0; nt < kOTiles; ++nt)
+      *reinterpret_cast<uint32_t*>(dst + nt * 8) =
+          pack_bf16(o[nt][2 * hr] / denom, o[nt][2 * hr + 1] / denom);
+  }
+}
+
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* k_pages,
+                       const void* v_pages, void* out, const int* q_lens,
+                       const int* cu_q, const int* page_tables,
+                       const int* ctx_lens, int n_tokens, int nh, int kvh,
+                       int ps, int n_rows, int maxp, int max_q, float scale,
+                       cudaStream_t stream) {
+  const int g = nh / kvh;
+  const dim3 grid((max_q * g + kRows - 1) / kRows, n_rows, kvh);
+  ragged_paged_attention_mma_kernel<HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pages),
+      static_cast<const __nv_bfloat16*>(v_pages),
+      static_cast<__nv_bfloat16*>(out), q_lens, cu_q, page_tables, ctx_lens,
+      n_tokens, nh, kvh, ps, maxp, max_q, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_scalar(const void* q, const void* k_pages,
+                          const void* v_pages, void* out, const int* q_lens,
+                          const int* cu_q, const int* page_tables,
+                          const int* ctx_lens, int n_tokens, int nh, int kvh,
+                          int ps, int n_rows, int maxp, int max_q,
+                          float scale, cudaStream_t stream) {
+  auto kernel = ragged_paged_attention_fp32_kernel<HD>;
   const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -259,9 +494,9 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const int tiles = (max_q * g + kRows - 1) / kRows;
   const dim3 grid(tiles, n_rows, kvh);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<T*>(out), q_lens, cu_q,
-      page_tables, ctx_lens, n_tokens, nh, kvh, ps, maxp, max_q, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k_pages),
+      static_cast<const float*>(v_pages), static_cast<float*>(out), q_lens,
+      cu_q, page_tables, ctx_lens, n_tokens, nh, kvh, ps, maxp, max_q, scale);
   return cudaGetLastError();
 }
 
@@ -289,21 +524,21 @@ int hetu_ragged_paged_attention(const void* q, const void* k_pages,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 128)
-    err = launch<float, 128>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
+    err = launch_scalar<128>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
                              n_tokens, nh, kvh, ps, n_rows, maxp, max_q,
                              scale, st);
   else if (dtype == 0 && head_dim == 64)
-    err = launch<float, 64>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
+    err = launch_scalar<64>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
                             n_tokens, nh, kvh, ps, n_rows, maxp, max_q,
                             scale, st);
   else if (dtype == 1 && head_dim == 128)
-    err = launch<__nv_bfloat16, 128>(q, k_pages, v_pages, out, ql, cu, ptab,
-                                     cl, n_tokens, nh, kvh, ps, n_rows, maxp,
-                                     max_q, scale, st);
+    err = launch_mma<128>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
+                          n_tokens, nh, kvh, ps, n_rows, maxp, max_q, scale,
+                          st);
   else if (dtype == 1 && head_dim == 64)
-    err = launch<__nv_bfloat16, 64>(q, k_pages, v_pages, out, ql, cu, ptab,
-                                    cl, n_tokens, nh, kvh, ps, n_rows, maxp,
-                                    max_q, scale, st);
+    err = launch_mma<64>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
+                         n_tokens, nh, kvh, ps, n_rows, maxp, max_q, scale,
+                         st);
   return static_cast<int>(err);
 }
 

@@ -165,11 +165,9 @@ def _lm_head(p: _Params, x):
     return x.float() @ w.float().T
 
 
-def _forward(cfg: GPTConfig, p: _Params, ids, caches, pos: int, cos, sin,
-             return_hidden: bool = False):
+def _forward(cfg: GPTConfig, p: _Params, ids, caches, pos: int, cos, sin):
     """Stack forward for ``ids [b, s_new]`` at absolute position
-    ``pos``: last-position logits ``[b, V]`` (caches written in place),
-    plus the final-norm hidden states when ``return_hidden``."""
+    ``pos``: last-position logits ``[b, V]`` (caches written in place)."""
     c = cfg
     x = p("wte.weight")[ids.long()].to(
         torch.bfloat16 if c.dtype == "bfloat16" else torch.float32)
@@ -185,18 +183,15 @@ def _forward(cfg: GPTConfig, p: _Params, ids, caches, pos: int, cos, sin,
                         p.layer(i, "ln_2.bias"), x)
         x = x + _mlp(c, p, i, h)
     x = _norm_apply(c, p("ln_f.weight"), p("ln_f.bias"), x)
-    logits = _lm_head(p, x[:, -1])
-    if return_hidden:
-        return logits, x
-    return logits
+    return _lm_head(p, x[:, -1])
 
 
 def decode_step(cfg: GPTConfig, p: _Params, tokens, caches, pos: int, cos,
-                sin, return_hidden: bool = False):
+                sin):
     """Single decode step against dense ``[b, max_len, kvh, hd]``
     caches: ``tokens [b, s_new]`` at absolute position ``pos`` ->
     last-position logits ``[b, V]``; the caches are written in place."""
-    return _forward(cfg, p, tokens, caches, pos, cos, sin, return_hidden)
+    return _forward(cfg, p, tokens, caches, pos, cos, sin)
 
 
 @torch.no_grad()

@@ -39,7 +39,7 @@ from ..models.generate import _Params
 from ..models.gpt import GPTConfig, check_serving_config
 from ..utils.metrics import make_instrument, render_prometheus
 from .decode import build_unified_step_fn
-from .kv_pool import TRASH_PAGE, PagedKVPool, protocol_seq
+from .kv_pool import TRASH_PAGE, PagedKVPool
 from .prefix_cache import PrefixCache
 from .request import FINISHED, RUNNING, Request, RequestQueue
 from .scheduler import Scheduler
@@ -105,10 +105,6 @@ class Engine:
         self._next_id = 0
         self.steps = 0
         self._calls = 0
-        # host logits round-trips: sampling runs on the device and the
-        # engine reads [rows] int32s per step, so this stays 0
-        self.host_logit_fetches = 0
-        self.protocol_log: List[Dict[str, Any]] = []
         m = metrics
         self.counters = {k: make_instrument("counter", k, m) for k in
                          ("tokens_generated", "prefill_tokens",
@@ -180,9 +176,6 @@ class Engine:
         req.submit_time = max(now, req.arrival_time)
         self._next_id += 1
         self.queue.push(req)
-        self.protocol_log.append({"ev": "req.queued",
-                                  "key": f"req:{req.req_id}",
-                                  "seq": protocol_seq()})
         return req
 
     # -- loop ----------------------------------------------------------------
@@ -286,13 +279,9 @@ class Engine:
             else:
                 self.counters["prefix_cache_misses"].inc()
         req.pages = req.pages + pages
-        req.peak_pages = max(req.peak_pages, len(req.pages))
         req.state = RUNNING
         self.counters[f"admitted_{req.slo_class}"].inc()
         self.running.append(req)
-        self.protocol_log.append({"ev": "req.admit",
-                                  "key": f"req:{req.req_id}",
-                                  "seq": protocol_seq()})
 
     def abort_all(self) -> List[int]:
         """Abort every queued + running request: owned pages return to
@@ -412,9 +401,6 @@ class Engine:
         req.pages = []
         req.state = FINISHED
         req.finish_time = self._now()
-        self.protocol_log.append({"ev": "req.finish",
-                                  "key": f"req:{req.req_id}",
-                                  "seq": protocol_seq()})
         if req in self.running:
             self.running.remove(req)
         self.finished[req.req_id] = req
@@ -440,7 +426,6 @@ class Engine:
         out["ttft_buckets"] = self.histograms["ttft"].bucket_counts()
         out["tbt_buckets"] = self.histograms["tbt"].bucket_counts()
         out["executable_calls"] = self.executable_calls
-        out["host_logit_fetches"] = self.host_logit_fetches
         hits = self.counters["prefix_cache_hits"].value
         miss = self.counters["prefix_cache_misses"].value
         out["prefix_cache_hit_rate"] = hits / max(hits + miss, 1.0)

@@ -189,13 +189,6 @@ class PagedKVPool:
     def cached_pages(self) -> int:
         return len(self._cached)
 
-    def refcount(self, pg: int) -> int:
-        """0 = free, 1 = exclusively owned (allocated, or cached with no
-        sharer), 1+n = cached and shared by n live requests."""
-        if pg in self._cached:
-            return 1 + self._cached[pg]
-        return 1 if pg in self._allocated else 0
-
     def cache_page(self, pg: int) -> None:
         """allocated -> cached (refcount 0), read-only from here."""
         if pg not in self._allocated:
@@ -227,18 +220,6 @@ class PagedKVPool:
         del self._cached[pg]
         self._free.append(pg)
         self.event_log.append((protocol_seq(), "uncache", [pg]))
-
-    def reset(self, clear_pages: bool = False) -> None:
-        """Return the pool to its post-construction allocator state.
-        The rebuilt free list excludes the trash page 0.
-        ``clear_pages`` additionally zeroes the page storage in place."""
-        self._free = list(range(self.num_pages - 1, 0, -1))
-        self._allocated = set()
-        self._cached = {}
-        self.event_log = [(protocol_seq(), "reset", [])]
-        if clear_pages:
-            for p in self.k_pages + self.v_pages:
-                p.zero_()
 
     def check_invariants(self, force: bool = False) -> None:
         """Allocator bookkeeping invariants (see

@@ -118,9 +118,6 @@ class PrefixCache:
         self._next_id = 0
         self._tick = 0
 
-    def __len__(self) -> int:
-        return len(self._index)
-
     @property
     def evictable_pages(self) -> int:
         """Pages an eviction sweep could reclaim right now: exactly the
@@ -228,10 +225,6 @@ class PrefixCache:
         if e.parent != ROOT:
             self._by_id[e.parent].children -= 1
         self.pool.uncache_page(e.page)
-
-    def clear(self) -> None:
-        """Evict everything evictable."""
-        self.evict(len(self._index))
 
     # -- invariants ----------------------------------------------------------
 

@@ -49,7 +49,6 @@ class Request:
     pos: int = 0                 # KV entries committed (next write index)
     state: str = WAITING
     n_preemptions: int = 0
-    peak_pages: int = 0
     submit_time: float = 0.0
     first_token_time: Optional[float] = None
     last_token_time: Optional[float] = None
@@ -106,10 +105,6 @@ class RequestQueue:
                 return heapq.heappop(heap)[2]
         return None
 
-    def next_arrival(self) -> Optional[float]:
-        heads = [h[0][0] for h in self._heaps.values() if h]
-        return min(heads) if heads else None
-
     def requests(self) -> Iterator[Request]:
         """All queued requests, rank-major (heap order within a class)."""
         for c in SLO_CLASSES:
@@ -119,9 +114,6 @@ class RequestQueue:
     def clear(self) -> None:
         for heap in self._heaps.values():
             heap.clear()
-
-    def depth_by_class(self) -> dict:
-        return {c: len(h) for c, h in self._heaps.items()}
 
     def __len__(self) -> int:
         return sum(len(h) for h in self._heaps.values())

@@ -40,11 +40,6 @@ class Scheduler:
         # preemption releases shared pages instead of freeing them
         self.cache = prefix_cache
 
-    @property
-    def token_budget(self) -> int:
-        """Tokens one packed step can carry."""
-        return self.max_batch + self.prefill_rows * self.chunk
-
     # -- admission -----------------------------------------------------------
 
     def admit(self, queue: RequestQueue, running: List[Request],
@@ -139,7 +134,6 @@ class Scheduler:
                                       - len(req.pages))
                 if got is not None:
                     req.pages.extend(got)
-                    req.peak_pages = max(req.peak_pages, len(req.pages))
                     break
                 # lowest class first, then latest arrival; the requester
                 # itself is a candidate

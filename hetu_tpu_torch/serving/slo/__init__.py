@@ -1,3 +1,3 @@
-from .classes import CLASS_RANK, DEFAULT_TARGETS, SLO_CLASSES, class_rank
+from .classes import CLASS_RANK, SLO_CLASSES, class_rank
 
-__all__ = ["SLO_CLASSES", "CLASS_RANK", "DEFAULT_TARGETS", "class_rank"]
+__all__ = ["SLO_CLASSES", "CLASS_RANK", "class_rank"]

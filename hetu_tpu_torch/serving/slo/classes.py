@@ -16,14 +16,6 @@ SLO_CLASSES = ("interactive", "standard", "batch")
 
 CLASS_RANK: Dict[str, int] = {c: i for i, c in enumerate(SLO_CLASSES)}
 
-#: per-class latency targets (seconds): TTFT = submit -> first token,
-#: TBT = gap between consecutive tokens.  ``None`` = no promise.
-DEFAULT_TARGETS: Dict[str, Dict[str, float]] = {
-    "interactive": {"ttft_s": 0.5, "tbt_s": 0.1},
-    "standard": {"ttft_s": 2.0, "tbt_s": 0.5},
-    "batch": {"ttft_s": None, "tbt_s": None},
-}
-
 
 def class_rank(slo_class: str) -> int:
     """Priority rank of ``slo_class`` (0 = most urgent).  Raises on an

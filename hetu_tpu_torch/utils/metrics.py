@@ -161,16 +161,11 @@ def _prom_value(v: float) -> str:
     return str(int(f)) if f == int(f) else repr(f)
 
 
-def render_prometheus(instruments) -> str:
-    """Prometheus text exposition (v0.0.4) for ``{name: instrument}``
-    or an iterable of instruments.  No-op instruments are skipped."""
-    if isinstance(instruments, dict):
-        items = list(instruments.items())
-    else:
-        items = [(getattr(inst, "name", "") or f"metric_{i}", inst)
-                 for i, inst in enumerate(instruments)]
+def render_prometheus(instruments: Dict[str, object]) -> str:
+    """Prometheus text exposition (v0.0.4) for ``{name: instrument}``.
+    No-op instruments are skipped."""
     lines: List[str] = []
-    for name, inst in items:
+    for name, inst in instruments.items():
         if isinstance(inst, _NullInstrument):
             continue
         name = _prom_name(name)

@@ -16,7 +16,7 @@ from hetu_tpu.ops.ragged_paged_attention import (
     ragged_paged_attention_reference as jax_reference)
 from hetu_tpu_torch.ops.ragged_paged_attention import (
     DEFAULT_MASK_VALUE, ragged_paged_attention,
-    ragged_paged_attention_reference, sample_rows)
+    ragged_paged_attention_reference, sample_row, sample_rows)
 
 # (q_lens, ctx_lens, maxp, ps, nh, kvh, max_q): the four RAGGED_CASES of
 # tests/test_serving_unified.py (nh 4, kvh 2, max_q 8), a g = 4 GQA
@@ -152,6 +152,8 @@ def test_sampler_truncation_and_greedy_rows():
     assert sample_rows(tie, *_rows(1, 0.0), ctxs[:1]).item() == 1
     assert sample_rows(tie, *_rows(1, 0.0), ctxs[:1],
                        sampled=False).item() == 1
+    assert sample_row(tie[0], 0.0, 0.0, 0, 0, 0).item() == 1
+    assert sample_row(logits[0], 1.0, 1e-6, 0, 5, 9).item() == 1
 
 
 def test_sampler_draw_depends_only_on_seed_and_position():

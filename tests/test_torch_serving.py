@@ -120,7 +120,6 @@ def test_sampled_request_independent_of_chunking_and_companions(tiny):
         req = eng.add_request(prompt, 8, temperature=0.8, top_p=0.95,
                               top_k=40, seed=7, arrival_time=0.0)
         eng.run()
-        assert eng.host_logit_fetches == 0
         runs.append(req.out_tokens)
     assert runs[0] == runs[1]
 
