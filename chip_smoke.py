@@ -47,7 +47,17 @@ from hetu_tpu_torch.serving import Engine
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth, H100 SXM
-BF16_TOL = 2e-2              # 2.5 bf16 ulps at |x| in [1, 2); fp32 sums
+# bf16 agreement, element by element within each row of the batch:
+# |got - want| <= 2**-7 * |want| + rms(want over the row) / 32.  Both
+# sides round their fp32 results to bf16, which differ by at most one
+# ulp, at most 2**-7 of the value; the kernel also rounds its
+# probabilities to bf16 before the second product, an error of about
+# 0.2 % of the row's output RMS (about 1 % at its largest), well inside
+# the floor.  The limit scales with each row's outputs, which shrink as
+# 1 / sqrt(context): a fixed absolute limit would be as large as the
+# outputs of the long rows.
+BF16_REL = 2.0 ** -7
+BF16_RMS_FLOOR = 1.0 / 32
 
 
 def emit(obj):
@@ -104,11 +114,8 @@ def phase_build():
                 "spill_loads": int(spill.group(2)) if spill else None})
         report[name] = {"so": info["so"], "cached": info["cached"],
                         "entries": entries}
-    # the scalar fp32 kernel's tiles are dynamic shared memory
-    scalar_smem = {hd: (hd * 64 + hd * 36 + 32 * hd + 32 * 68) * 4
-                   for hd in (64, 128)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": report, "scalar_f32_dynamic_smem_bytes": scalar_smem})
+          "kernels": report})
     return report
 
 
@@ -127,6 +134,23 @@ def ragged_work(q_lens, ctx_lens, maxp, nh, kvh, hd, itemsize):
     return {"bytes": kv_bytes + qo_bytes + meta, "flops": flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bf16_agreement(got, want, cu, q_lens):
+    """Each row's largest |got - want| over its limit (BF16_REL * |want|
+    + BF16_RMS_FLOOR * the row's output RMS), and the max abs error over
+    every real token."""
+    ratios, err = [], 0.0
+    for i, n in enumerate(q_lens):
+        if n == 0:
+            continue
+        g = got[int(cu[i]):int(cu[i]) + n].float()
+        w = want[int(cu[i]):int(cu[i]) + n].float()
+        d = (g - w).abs()
+        limit = BF16_REL * w.abs() + BF16_RMS_FLOOR * w.pow(2).mean().sqrt()
+        ratios.append((d / limit.clamp_min(1e-30)).max().item())
+        err = max(err, d.max().item())
+    return ratios, err
 
 
 def phase_kernel():
@@ -167,11 +191,12 @@ def phase_kernel():
     real = torch.zeros(t, dtype=torch.bool, device=dev)
     for i in range(rows):
         real[int(cu[i]):int(cu[i]) + q_lens[i]] = True
-    err = (got.float() - want.float())[real].abs().max().item()
+    ratios, err = bf16_agreement(got, want, cu, q_lens)
     pad_nonzero = int(torch.count_nonzero(got[~real]).item())
-    if not err <= BF16_TOL:
-        raise AssertionError(f"kernel vs plain max abs err {err} > "
-                             f"{BF16_TOL}")
+    if not max(ratios) <= 1.0:
+        raise AssertionError(
+            f"kernel vs plain: error over the bf16 limit by {max(ratios)} "
+            f"(per live row {ratios}); max abs err {err}")
     if pad_nonzero:
         raise AssertionError(f"{pad_nonzero} nonzero padding outputs")
     ms = cuda_time_ms(lambda: ragged_paged_attention_cuda(*args,
@@ -191,7 +216,10 @@ def phase_kernel():
             "ms": cuda_time_ms(lambda: ragged_paged_attention_cuda(
                 *pargs, max_q=max_q), warmup=3, iters=20),
             "bound_ms": pw["bound_ms"], "bound_by": pw["bound_by"]}
-    out = {"max_abs_err": err, "tolerance": BF16_TOL, "parts": parts,
+    out = {"max_abs_err": err,
+           "limit": f"|got - want| <= {BF16_REL} * |want| + "
+                    f"{BF16_RMS_FLOOR} * rms(want over the row)",
+           "err_over_limit_by_row": ratios, "parts": parts,
            "padding_nonzero": pad_nonzero, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
            "bytes": work["bytes"], "flops": work["flops"],

@@ -170,6 +170,11 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("ragged_paged_attention_cuda needs contiguous "
                          "tensors")
+    # the bf16 kernel reads K/V in 16-byte vectors and q in 4-byte words;
+    # a misaligned address would fault asynchronously, at a later sync
+    if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
+        raise ValueError("ragged_paged_attention_cuda needs q, k_pages and "
+                         "v_pages aligned to 16 bytes")
     lib = _kernel_lib()
     out = torch.zeros_like(q)
     if s == 0 or t == 0:
@@ -274,17 +279,17 @@ def _sampled_draw(logits, temps, top_ps, top_ks, seeds, ctxs):
 
 
 def sample_rows(logits, temps, top_ps, top_ks, seeds, ctxs,
-                sampled: Optional[bool] = None) -> torch.Tensor:
+                sampled: bool) -> torch.Tensor:
     """Next token for every row of ``[N, V]`` fp32 logits.
 
     Greedy rows (``temp == 0``) take ``torch.argmax`` (the first
     maximum, like ``jnp.argmax``); sampled rows draw as described above.
     ``sampled`` is the caller's host-side knowledge of whether any row
     samples: ``False`` skips the sort-based path (the common all-greedy
-    step), ``None`` always computes it.  Deciding it here from ``temps``
-    would read a device tensor back to the host."""
+    step).  Deciding it here from ``temps`` would read a device tensor
+    back to the host."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    if sampled is False:
+    if not sampled:
         return greedy
     samp = _sampled_draw(logits, temps, top_ps, top_ks, seeds, ctxs)
     return torch.where(temps == 0.0, greedy, samp)
@@ -296,4 +301,5 @@ def sample_row(logits, temp, top_p, top_k, seed, ctx) -> torch.Tensor:
     as1 = lambda x, dt: torch.as_tensor([x], dtype=dt, device=dev)  # noqa: E731
     return sample_rows(logits[None], as1(temp, torch.float32),
                        as1(top_p, torch.float32), as1(top_k, torch.int32),
-                       as1(seed, torch.int32), as1(ctx, torch.int32))[0]
+                       as1(seed, torch.int32), as1(ctx, torch.int32),
+                       sampled=temp > 0)[0]

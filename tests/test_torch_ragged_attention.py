@@ -132,7 +132,7 @@ def test_sampler_draws_from_the_softmax():
     logits = torch.tensor([[2.0, 1.0, 0.5, -1.0]]).repeat(n, 1)
     temps, tps, tks, seeds = _rows(n, 0.7)
     ctxs = torch.arange(n, dtype=torch.int32)
-    toks = sample_rows(logits, temps, tps, tks, seeds, ctxs)
+    toks = sample_rows(logits, temps, tps, tks, seeds, ctxs, sampled=True)
     freq = np.bincount(toks.numpy(), minlength=4) / n
     want = torch.softmax(logits[0] / 0.7, -1).numpy()
     np.testing.assert_allclose(freq, want, atol=0.025)
@@ -143,13 +143,15 @@ def test_sampler_truncation_and_greedy_rows():
     logits = torch.tensor([[0.1, 3.0, 2.9, 0.0, 2.8]]).repeat(n, 1)
     ctxs = torch.arange(n, dtype=torch.int32)
     # top_k = 2 keeps ids 1 and 2 only; top_p tiny keeps the argmax only
-    toks = sample_rows(logits, *_rows(n, 1.0, top_k=2), ctxs)
+    toks = sample_rows(logits, *_rows(n, 1.0, top_k=2), ctxs, sampled=True)
     assert set(toks.tolist()) == {1, 2}
-    toks = sample_rows(logits, *_rows(n, 1.0, top_p=1e-6), ctxs)
+    toks = sample_rows(logits, *_rows(n, 1.0, top_p=1e-6), ctxs,
+                       sampled=True)
     assert set(toks.tolist()) == {1}
     # greedy rows take the first maximum, like jnp.argmax
     tie = torch.tensor([[1.0, 5.0, 5.0, 0.0]])
-    assert sample_rows(tie, *_rows(1, 0.0), ctxs[:1]).item() == 1
+    assert sample_rows(tie, *_rows(1, 0.0), ctxs[:1],
+                       sampled=True).item() == 1
     assert sample_rows(tie, *_rows(1, 0.0), ctxs[:1],
                        sampled=False).item() == 1
     assert sample_row(tie[0], 0.0, 0.0, 0, 0, 0).item() == 1
@@ -163,15 +165,16 @@ def test_sampler_draw_depends_only_on_seed_and_position():
     g = torch.Generator().manual_seed(0)
     row = torch.randn(v, generator=g)
     ctxs = torch.arange(40, dtype=torch.int32)
-    alone = [sample_rows(row[None], *_rows(1, 0.9), ctxs[i:i + 1]).item()
-             for i in range(40)]
+    alone = [sample_rows(row[None], *_rows(1, 0.9), ctxs[i:i + 1],
+                         sampled=True).item() for i in range(40)]
     batch = torch.cat([row[None].repeat(40, 1),
                        torch.randn(7, v, generator=g)])
     temps, tps, tks, seeds = _rows(47, 0.9)
     temps[40:] = 0.0                            # greedy companions
     both = sample_rows(batch, temps, tps, tks, seeds,
-                       torch.cat([ctxs, torch.zeros(7, dtype=torch.int32)]))
+                       torch.cat([ctxs, torch.zeros(7, dtype=torch.int32)]),
+                       sampled=True)
     assert both[:40].tolist() == alone
     other = sample_rows(row[None].repeat(40, 1), *_rows(40, 0.9, seed=4),
-                        ctxs)
+                        ctxs, sampled=True)
     assert other.tolist() != alone
