@@ -20,13 +20,36 @@ Phases, each printing one JSON line:
    ``step_profile`` then reads where a step's device time goes
    (``torch.profiler`` over two more requests);
 5. oracle: a 2-layer fp32 model at the same widths, where the engine's
-   temperature-0 tokens must equal the port's dense ``generate``.
+   temperature-0 tokens must equal the port's dense ``generate``;
+6. flash_vs_plain: the four flash-attention kernels (forward, fused
+   backward, split dq and dk/dv backward) against their plain PyTorch
+   versions at the training path's shapes -- Llama-3-8B widths (b 2,
+   s 4096, h 32, d 128) with the (fp32, fp32, bf16), all-fp32 and
+   all-bf16 q/k/v the LLaMA path and its peers feed, GPT-2 widths (b 4,
+   s 1024, h 12, d 64, bf16) -- and on small masked cases (segment-id
+   tuples, causal offsets, sq != sk, fully-masked rows, s = 1000); times
+   each kernel, its plain version and PyTorch's own attention
+   (``scaled_dot_product_attention``, only as a yardstick) with CUDA
+   events;
+7. train_main_path: ``graph("define_and_run")`` -> placeholders ->
+   ``GPTLMHeadModel`` -> ``AdamOptimizer(lr=3e-4).minimize`` ->
+   ``g.run(loss, [loss, train_op], feeds, num_micro_batches=2)`` for six
+   steps on one seeded batch, at Llama-3-8B widths (4 layers, seq 4096,
+   global batch 4) and GPT-2 small (12 layers, seq 1024, global batch 8),
+   random bf16 weights; the loss must fall and each flash kernel launch
+   once per layer, micro-batch and step on the backward the byte rule
+   picks (``train_profile`` then reads two more steps with
+   ``torch.profiler``);
+8. train_oracle: 2-layer fp32 models at both widths train three steps on
+   the card (kernels) and on the CPU (plain versions) from the same
+   weights and batches; losses and parameters must agree.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero; without a CUDA device it exits non-zero before
 printing any result.
 """
+import gc
 import json
 import re
 import subprocess
@@ -37,15 +60,18 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import hetu_tpu_torch as ht
 from hetu_tpu_torch.csrc.build import build
-from hetu_tpu_torch.models import llama3_8b_config
-from hetu_tpu_torch.models.convert import random_state
+from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel, llama3_8b_config
+from hetu_tpu_torch.models.convert import load_state, random_state, state_numpy
 from hetu_tpu_torch.models.generate import generate
+from hetu_tpu_torch.ops import flash_attention as fa
 from hetu_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention_cuda, ragged_paged_attention_reference)
 from hetu_tpu_torch.serving import Engine
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
+H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth, H100 SXM
 # bf16 agreement, element by element within each row of the batch:
 # |got - want| <= 2**-7 * |want| + rms(want over the row) / 32.  Both
@@ -104,10 +130,13 @@ def phase_build():
             smem = re.search(r"(\d+) bytes smem", block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", block)
+            kind = re.search(r"(flash_\w+?_kernel|ragged_paged_attention_"
+                             r"\w+?_kernel)", head)
             entries.append({
-                "kernel": ("mma_bf16" if "_mma_kernel" in head
-                           else "scalar_f32"),
+                "kernel": kind.group(1) if kind else head[:80],
                 "head_dim": int(hd.group(1)) if hd else None,
+                "bf16": "nv_bfloat16" in head,
+                "fused": ("Lb1E" in head) if "dkv" in head else None,
                 "registers": int(regs.group(1)) if regs else None,
                 "static_smem_bytes": int(smem.group(1)) if smem else 0,
                 "spill_stores": int(spill.group(1)) if spill else None,
@@ -364,6 +393,436 @@ def phase_oracle():
           "requests": len(prompts), "equal": True, "tokens": got})
 
 
+# ---------------------------------------------------------------------------
+# flash attention: kernels 1-4 against their plain versions (phase 6)
+# ---------------------------------------------------------------------------
+
+# (q/k dtype, v dtype) of the mixes the training path feeds: the bf16 LLaMA
+# model's first layer (fp32 rotary tables promote q/k), its later layers
+# (the fp32 attention output promotes the residual stream), GPT-2
+FLASH_TYPES = {"fp32_qk_bf16_v": (torch.float32, torch.bfloat16),
+               "fp32": (torch.float32, torch.float32),
+               "bf16": (torch.bfloat16, torch.bfloat16)}
+LLAMA_ATTN = (2, 4096, 32, 128)    # b (one micro-batch), s, h, d
+GPT2_ATTN = (4, 1024, 12, 64)
+# fp32 agreement, |got - want| <= tol * (1 + |want|): sums in another
+# order over up to 4096 keys (forward), and over 4096 queries of products
+# of products (backward)
+FP32_FWD_TOL = 1e-4
+FP32_BWD_TOL = 1e-3
+# rows whose exact value cancels to 0 leave only the order of two fp32
+# sums (the first causal row's dq: p = 1, dp = delta, ds = 0): they are
+# held to 2**-16 of the tensor's RMS, far below one bf16 ulp
+CANCEL_FLOOR = 2.0 ** -16
+FLASH_REPLACES = {
+    "flash_fwd": "hetu_tpu/ops/pallas/flash_attention.py:178",
+    "flash_bwd_fused": "hetu_tpu/ops/pallas/flash_attention.py:325",
+    "flash_bwd_dq": "hetu_tpu/ops/pallas/flash_attention.py:466",
+    "flash_bwd_dkv": "hetu_tpu/ops/pallas/flash_attention.py:510"}
+
+
+def flash_wrappers():
+    return {"flash_fwd": fa.flash_fwd_cuda,
+            "flash_bwd_fused": fa.flash_bwd_fused_cuda,
+            "flash_bwd_dq": fa.flash_bwd_dq_cuda,
+            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda}
+
+
+def flash_work(kernel, b, sq, sk, h, d, qk_dtype, v_dtype, causal=True,
+               offset=0):
+    """Bytes the function must move (each input read once, each output
+    written once), operations over the (query, key) pairs this mask lets
+    through, and the least time an H100 could take for them."""
+    pairs = b * h * (sum(max(0, min(sk, i + offset + 1)) for i in range(sq))
+                     if causal else sq * sk)
+    qi = torch.empty((), dtype=qk_dtype).element_size()
+    vi = torch.empty((), dtype=v_dtype).element_size()
+    qo, kv, row = b * sq * h * d, b * sk * h * d, b * h * sq * 4
+
+    def rate(dt):
+        return H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
+    # products of 2*d operations per pair: forward s = q.k (q's type) and
+    # o = p.v (v's type); backward s, dp = do.v, then dq = ds.k, dv = p.do,
+    # dk = ds.q, all in q's type (do and ds take q's type)
+    per = {"flash_fwd": [qk_dtype, v_dtype],
+           "flash_bwd_dq": [qk_dtype] * 3,
+           "flash_bwd_dkv": [qk_dtype] * 4,
+           "flash_bwd_fused": [qk_dtype] * 5}[kernel]
+    t_ops = sum(2 * d * pairs / rate(dt) for dt in per)
+    nbytes = {"flash_fwd": qo * qi * 2 + kv * (qi + vi) + row,
+              "flash_bwd_dq": qo * qi * 3 + kv * (qi + vi) + 2 * row,
+              "flash_bwd_dkv": qo * qi * 2 + kv * (qi + vi) * 2 + 2 * row,
+              "flash_bwd_fused": qo * qi * 4 + kv * (qi + vi) * 2 + row
+              }[kernel]
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return {"bytes": nbytes, "flops": 2 * d * pairs * len(per),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def flash_inputs(b, sq, sk, h, d, types, seed):
+    qk, vt = FLASH_TYPES[types]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(n, dt):
+        return torch.randn((b, n, h, d), generator=gen, device="cuda").to(dt)
+    return rnd(sq, qk), rnd(sk, qk), rnd(sk, vt), rnd(sq, qk)
+
+
+def flash_agreement(got, want, dims, scaled, tol):
+    """Largest |got - want| over its limit, and the max abs error.  The
+    bf16 limit (``scaled``) is BF16_REL * |want| + BF16_RMS_FLOOR * the
+    RMS of want over ``dims`` (each query's row of out/dq, each key's row
+    of dk/dv: a causal key's gradient grows with the number of queries
+    that see it, so one (batch, head) RMS would under-cover the first
+    keys): one output ulp plus the probabilities the kernel rounds to
+    bf16; plus CANCEL_FLOOR * the whole tensor's RMS for rows that cancel
+    to rounding noise.  Else tol * (1 + |want|)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if scaled:
+        limit = BF16_REL * w.abs() + BF16_RMS_FLOOR * \
+            w.pow(2).mean(dim=dims, keepdim=True).sqrt() + \
+            CANCEL_FLOOR * w.pow(2).mean().sqrt()
+    else:
+        limit = tol * (1 + w.abs())
+    return (d / limit.clamp_min(1e-30)).max().item(), d.max().item()
+
+
+def flash_ratios(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
+    """Runs kernels 1-4 once on these inputs and holds each output against
+    the plain versions: ``({kernel: (error over limit, max abs err)},
+    (plain out, lse, delta), {name: the kernels' out, lse and dq})``.
+    The backward kernels get the plain forward's out/lse, so each is
+    checked on its own."""
+    bf16_qk, bf16_v = q.dtype == torch.bfloat16, v.dtype == torch.bfloat16
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_fwd_cuda(q, k, v, scale, causal, segs, offset)
+    torch.cuda.synchronize()
+    ro, rl = fa.flash_fwd_reference(q, k, v, scale, causal, segs, offset)
+    if not torch.equal(torch.isinf(lse), torch.isinf(rl)):
+        raise AssertionError(f"{tag} forward: -inf rows of lse differ")
+    res = {}
+    live = torch.isfinite(rl)
+    ratios = [flash_agreement(out, ro, (3,), bf16_v, FP32_FWD_TOL),
+              flash_agreement(lse[live], rl[live], (0,), False, FP32_FWD_TOL)]
+    res["flash_fwd"] = (max(r[0] for r in ratios), ratios[0][1])
+    want = fa.flash_bwd_reference(q, k, v, ro, rl, do, scale, causal, segs,
+                                  offset)
+    delta = torch.einsum("bshd,bshd->bsh", do.float(), ro.float())
+    got = {"flash_bwd_fused": fa.flash_bwd_fused_cuda(
+        q, k, v, ro, rl, do, scale, causal, segs, offset),
+        "flash_bwd_dq": (fa.flash_bwd_dq_cuda(
+            q, k, v, do, rl, delta, scale, causal, segs, offset),),
+        "flash_bwd_dkv": fa.flash_bwd_dkv_cuda(
+            q, k, v, do, rl, delta, scale, causal, segs, offset)}
+    torch.cuda.synchronize()
+    picks = {"flash_bwd_fused": (0, 1, 2), "flash_bwd_dq": (0,),
+             "flash_bwd_dkv": (1, 2)}
+    for name, outs in got.items():
+        rs = [flash_agreement(g, want[i], (3,),
+                              bf16_qk or (i == 2 and bf16_v), FP32_BWD_TOL)
+              for g, i in zip(outs, picks[name])]
+        res[name] = (max(r[0] for r in rs), max(r[1] for r in rs))
+    kernel_outs = {"out": out, "lse": lse,
+                   "dq_fused": got["flash_bwd_fused"][0],
+                   "dq_split": got["flash_bwd_dq"][0]}
+    return res, (ro, rl, delta), kernel_outs
+
+
+def check_flash(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
+    """:func:`flash_ratios`, raising on any kernel over its limit."""
+    res, plain, kernel_outs = flash_ratios(q, k, v, do, causal, segs,
+                                           offset, tag)
+    for name, (ratio, err) in res.items():
+        if not ratio <= 1.0:
+            raise AssertionError(f"{tag} {name}: error over the limit by "
+                                 f"{ratio} (max abs err {err})")
+    return res, plain, kernel_outs
+
+
+def library_times(b, s, h, d, seed=5):
+    """PyTorch's own attention on all-bf16 inputs at this shape (only as
+    a yardstick: the port never calls it): forward, and
+    ``torch.autograd.grad`` through it for the backward."""
+    q, k, v, do = flash_inputs(b, s, s, h, d, "bf16", seed)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = cuda_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                       warmup=3, iters=20)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dot, retain_graph=True), warmup=3, iters=20)
+    return {"fwd_ms": fwd, "bwd_ms": bwd}
+
+
+def phase_flash():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = {"llama": library_times(*LLAMA_ATTN),
+           "gpt2": library_times(*GPT2_ATTN)}
+    shapes = {}
+    for shape_name, (b, s, h, d), mixes in (
+            ("llama", LLAMA_ATTN, ("fp32_qk_bf16_v", "fp32", "bf16")),
+            ("gpt2", GPT2_ATTN, ("bf16",))):
+        for types in mixes:
+            q, k, v, do = flash_inputs(b, s, s, h, d, types, seed=1)
+            scale = d ** -0.5
+            res, (ro, rl, delta), _ = check_flash(
+                q, k, v, do, tag=f"{shape_name}/{types}")
+            plain_fwd = cuda_time_ms(lambda: fa.flash_fwd_reference(
+                q, k, v, scale, True), warmup=1, iters=2)
+            plain_bwd = cuda_time_ms(lambda: fa.flash_bwd_reference(
+                q, k, v, ro, rl, do, scale, True), warmup=1, iters=2)
+            calls = {
+                "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, scale, True),
+                "flash_bwd_fused": lambda: fa.flash_bwd_fused_cuda(
+                    q, k, v, ro, rl, do, scale, True),
+                "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(
+                    q, k, v, do, rl, delta, scale, True),
+                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
+                    q, k, v, do, rl, delta, scale, True)}
+            row = {}
+            for name, fn in calls.items():
+                work = flash_work(name, b, s, s, h, d, q.dtype, v.dtype)
+                row[name] = {
+                    "ms": cuda_time_ms(fn, warmup=2, iters=5),
+                    "plain_ms": plain_fwd if name == "flash_fwd"
+                    else plain_bwd,
+                    "library_ms": lib[shape_name]["fwd_ms"]
+                    if name == "flash_fwd" else lib[shape_name]["bwd_ms"],
+                    "max_abs_err": res[name][1],
+                    "err_over_limit": res[name][0], **work}
+            shapes[f"{shape_name}/{types}"] = row
+            del q, k, v, do, ro, rl, delta
+            torch.cuda.empty_cache()
+    # small masked cases: every kernel, every type mix
+    small = []
+    for b, sq, sk, h, d, seg, offset in (
+            (1, 64, 192, 2, 64, "tuple", 128),
+            (2, 128, 128, 2, 128, "masked", 0),
+            (1, 1000, 1000, 2, 128, None, 0),
+            (1, 1000, 1000, 2, 64, "offset", -24)):
+        for types in FLASH_TYPES:
+            q, k, v, do = flash_inputs(b, sq, sk, h, d, types, seed=2)
+            segs = None
+            if seg in ("tuple", "masked"):
+                kv = torch.arange(sk, device="cuda", dtype=torch.int32) \
+                    // (sk // 2)
+                kv = kv[None].expand(b, sk).contiguous()
+                qi = kv[:, sk - sq:].clone()
+                if seg == "masked":
+                    qi[:, sq // 2:] = 7          # ids that no key has
+                segs = (qi, kv)
+            res, _, got = check_flash(q, k, v, do, True, segs, offset,
+                                      tag=f"small {seg} {types}")
+            empty = 0
+            if seg == "masked" or offset < 0:
+                # rows that see no key: out = 0, lse = -inf, dq = 0 exactly
+                rows = slice(sq // 2, None) if seg == "masked" \
+                    else slice(0, -offset)
+                empty = sum(int(torch.count_nonzero(got[n][:, rows]).item())
+                            for n in ("out", "dq_fused", "dq_split"))
+                empty += int((got["lse"][:, :, rows] != float("-inf"))
+                             .sum().item())
+                if empty:
+                    raise AssertionError(f"small {seg} {types}: {empty} "
+                                         f"values of the empty rows are not "
+                                         f"out = 0, lse = -inf, dq = 0")
+            small.append({"b": b, "sq": sq, "sk": sk, "h": h, "d": d,
+                          "segments": seg, "causal_offset": offset,
+                          "types": types, "empty_rows_nonzero": empty,
+                          "err_over_limit": {n: r[0] for n, r in res.items()}})
+    emit({"phase": "flash_vs_plain", "shapes": shapes, "small_cases": small,
+          "library": lib})
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# the training step (phases 7 and 8)
+# ---------------------------------------------------------------------------
+
+def train_config(name):
+    """(config, global batch, seq) of each main-path run."""
+    if name == "llama3_8b_4_layers":
+        # Adam at all 32 layers needs 8.03 B params x 12 B = 96 GB; depth
+        # is cut to 4 (1.92 B params), widths are Meta's
+        return llama3_8b_config(num_layers=4), 4, 4096
+    return GPTConfig(dtype="bfloat16"), 8, 1024     # GPT-2 small, 124 M
+
+
+def build_trainer(cfg, batch, seq, device, lr, seed=0):
+    with ht.graph("define_and_run", create_new=True, device=device,
+                  seed=seed) as g:
+        ids = ht.parallel_placeholder("int32", (batch, seq), name="input_ids")
+        labels = ht.parallel_placeholder("int32", (batch, seq),
+                                         name="labels")
+        model = GPTLMHeadModel(cfg)
+        loss = model(ids, labels)
+        train_op = ht.optim.AdamOptimizer(lr=lr).minimize(loss)
+    return g, ids, labels, model, loss, train_op
+
+
+def seeded_batch(vocab, batch, seq, seed):
+    toks = np.random.RandomState(seed).randint(0, vocab, (batch, seq + 1))
+    return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
+
+
+def profile_train(g, loss, train_op, feeds, steps=2):
+    """Where a training step's device time goes: ``torch.profiler`` over
+    ``steps`` more steps; kernel time by name and the idle share (1 -
+    busy / wall, the profiler's own host cost inside the wall)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            g.run(loss, [loss, train_op], feeds, num_micro_batches=2)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us, e.key, e.count))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels) / 1e6
+    flash = sum(k[0] for k in kernels if "flash_" in k[1]) / 1e6
+    gemm = sum(k[0] for k in kernels
+               if any(t in k[1] for t in ("gemm", "nvjet", "xmma"))) / 1e6
+    return {"steps": steps, "wall_s": wall, "device_busy_s": busy,
+            "idle_share": (1.0 - busy / wall) if busy else None,
+            "flash_attention_s": flash, "matmul_s": gemm,
+            "flash_share_of_busy": flash / busy if busy else None,
+            "matmul_share_of_busy": gemm / busy if busy else None,
+            "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": n}
+                    for us, k, n in kernels[:12]]}
+
+
+def phase_train(name, steps=6, micro=2):
+    cfg, batch, seq = train_config(name)
+    t0 = time.perf_counter()
+    g, ids, labels, model, loss, train_op = build_trainer(
+        cfg, batch, seq, "cuda", lr=3e-4)
+    # materializes the seeded random init (a loop variable here would keep
+    # the last parameter, and so the whole graph, alive after the phase)
+    n_params = sum(p.get_data().numel() for p in model.parameters())
+    x, y = seeded_batch(cfg.vocab_size, batch, seq, seed=0)
+    feeds = {ids: x, labels: y}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = flash_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        l, upd = g.run(loss, [loss, train_op], feeds,
+                       num_micro_batches=micro)
+        losses.append(float(l))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        if upd is not None:
+            raise AssertionError("the update op's fetch is not None")
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses {losses} not finite and falling")
+    # the byte rule on the first layer's k: fp32 for the LLaMA model (its
+    # fp32 rotary tables promote q/k; later layers run fp32 throughout),
+    # bf16 for GPT-2
+    k_dtype = torch.float32 if cfg.position == "rotary" else torch.bfloat16
+    fused = fa._use_fused(seq, cfg.head_dim, k_dtype)
+    each = cfg.num_layers * micro * steps
+    want = {"flash_fwd": each, "flash_bwd_fused": each if fused else 0,
+            "flash_bwd_dq": 0 if fused else each,
+            "flash_bwd_dkv": 0 if fused else each}
+    if launches != want:
+        raise AssertionError(f"{name}: flash launches {launches} != {want}")
+    steady = step_s[1:]
+    out = {"config": name, "params": n_params, "layers": cfg.num_layers,
+           "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
+           "global_batch": batch, "seq": seq, "micro_batches": micro,
+           "dtype": cfg.dtype, "setup_s": setup_s, "losses": losses,
+           "step_s": step_s, "ms_per_step": 1e3 * float(np.mean(steady)),
+           "tokens_per_s": batch * seq / float(np.mean(steady)),
+           "peak_memory_bytes": peak, "flash_launches": launches,
+           "backward": "fused" if fused else "split"}
+    emit({"phase": "train_main_path", **out})
+    emit({"phase": "train_profile", "config": name,
+          **profile_train(g, loss, train_op, feeds)})
+    del g, ids, labels, model, loss, train_op, feeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_oracle(steps=3, micro=2, lr=1e-6):
+    """2-layer fp32 models train on the card (kernels) and on the CPU
+    (plain versions) from the same weights and batches.  Losses within
+    1e-4 relative (lr is small because one Adam step of 1e-4 on a
+    full-width matrix already drives the loss on one batch from 7.7 to
+    3e-4, where a relative comparison reads rounding noise).  Parameters: for every tensor the card's update agrees
+    with the CPU's to 1 % (|p_card - p_cpu| <= 0.01 |p_cpu - p_init|),
+    and no element differs by more than 2 * lr * steps -- Adam moves an
+    element by about lr a step whatever its gradient's size, so where a
+    gradient cancels to rounding noise its sign, and so that step, can
+    differ between the two sums."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    for name, cfg in (
+            ("llama_widths", llama3_8b_config(num_layers=2, vocab_size=1024,
+                                              dtype="float32")),
+            ("gpt2_widths", GPTConfig(num_layers=2, vocab_size=1024,
+                                      dtype="float32"))):
+        batch, seq = 2, 256
+        x, y = seeded_batch(cfg.vocab_size, batch, seq, seed=1)
+        runs, init = {}, None
+        for dev in ("cpu", "cuda"):
+            g, ids, labels, model, loss, train_op = build_trainer(
+                cfg, batch, seq, dev, lr=lr, seed=1)
+            if init is None:
+                init = state_numpy(model)
+            else:
+                load_state(model, init)
+            t0 = time.perf_counter()
+            losses = [float(g.run(loss, [loss, train_op], {ids: x, labels: y},
+                                  num_micro_batches=micro)[0])
+                      for _ in range(steps)]
+            runs[dev] = (losses, state_numpy(model),
+                         time.perf_counter() - t0)
+            del g, model
+            gc.collect()
+        (lc, pc, tc), (lg, pg, tg) = runs["cpu"], runs["cuda"]
+        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+        upd_rel, max_abs = 0.0, 0.0
+        for k in pc:
+            diff = np.abs(pg[k] - pc[k])
+            max_abs = max(max_abs, float(diff.max()))
+            moved = float(np.linalg.norm(pc[k] - init[k]))
+            if moved > 0:
+                upd_rel = max(upd_rel, float(np.linalg.norm(diff)) / moved)
+        ok = loss_rel <= 1e-4 and upd_rel <= 1e-2 and \
+            max_abs <= 2 * lr * steps
+        report[name] = {"losses_cpu": lc, "losses_card": lg,
+                        "loss_rel_diff": loss_rel,
+                        "param_update_rel_diff": upd_rel,
+                        "param_max_abs_diff": max_abs,
+                        "cpu_s": tc, "card_s": tg}
+        if not ok:
+            raise AssertionError(f"train oracle {name}: {report[name]}")
+    emit({"phase": "train_oracle", "layers": 2, "dtype": "float32",
+          "seq": 256, "steps": steps, "lr": lr, **report})
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -374,14 +833,36 @@ def main():
     kern = phase_kernel()
     main_out = phase_main_path()
     phase_oracle()
-    emit({"kernels": [{
+    flash = phase_flash()
+    train = [phase_train(name) for name in ("llama3_8b_4_layers",
+                                            "gpt2_small")]
+    phase_train_oracle()
+    rows = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "hetu_tpu/ops/ragged_paged_attention.py:142",
         "launches": main_out["kernel_launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": None}]})
+        "bound_by": kern["bound_by"], "library_ms": None}]
+    # each flash kernel at the main path's shape where it runs most: the
+    # LLaMA layer-0 mix for the forward and the split backward, GPT-2 for
+    # the fused backward; launches over both training runs
+    where = {"flash_fwd": "llama/fp32_qk_bf16_v",
+             "flash_bwd_dq": "llama/fp32_qk_bf16_v",
+             "flash_bwd_dkv": "llama/fp32_qk_bf16_v",
+             "flash_bwd_fused": "gpt2/bf16"}
+    for name, at in where.items():
+        r = flash[at][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "hetu_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name],
+            "launches": sum(t["flash_launches"][name] for t in train),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})
     return 0

@@ -10,7 +10,19 @@ Entry points take an explicit ``device=`` that defaults to ``"cuda"``
 and raise when no card is present, unless the caller asked for
 ``"cpu"``: on CPU tensors each kernel wrapper runs its plain PyTorch
 version, on CUDA tensors it launches the kernel or raises.
-"""
-from .core.device import resolve_device, torch_dtype
 
-__all__ = ["resolve_device", "torch_dtype"]
+Training reads as in the JAX package::
+
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    with ht.graph("define_and_run", device="cuda") as g:
+        ids = ht.parallel_placeholder("int32", (8, 1024))
+        ...
+"""
+from . import optim
+from .core.device import resolve_device
+from .core.dtype import torch_dtype
+from .graph import graph, parallel_placeholder, placeholder
+
+__all__ = ["graph", "optim", "parallel_placeholder", "placeholder",
+           "resolve_device", "torch_dtype"]

@@ -1,4 +1,4 @@
-"""Device and dtype resolution for the port's entry points.
+"""Device resolution for the port's entry points.
 
 Every entry point (``Engine``, ``generate``, the weight converter)
 takes ``device=`` defaulting to ``"cuda"``.  A missing card is an
@@ -10,9 +10,6 @@ from __future__ import annotations
 from typing import Union
 
 import torch
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda"
@@ -29,13 +26,3 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
         raise ValueError(f"unsupported device {device!r}")
     return dev
 
-
-def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
-    """``GPTConfig.dtype`` string -> ``torch.dtype``."""
-    if isinstance(name, torch.dtype):
-        return name
-    try:
-        return _DTYPES[name]
-    except KeyError:
-        raise ValueError(f"unknown dtype {name!r}; have "
-                         f"{sorted(_DTYPES)}") from None

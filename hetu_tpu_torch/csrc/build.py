@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(CSRC, "_build")
-SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu"}
+SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -5,6 +5,8 @@ arrays, either naming convention) across; ``random_state`` draws the
 same names and shapes directly on the device from a seeded
 ``torch.Generator``, so a full-width model never passes through host
 numpy.  Both return tensors under the normalised names (``h0.attn...``).
+``load_state`` writes such a dict into the training model
+(``GPTLMHeadModel``) and ``state_numpy`` reads it back out.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..core.device import resolve_device, torch_dtype
+from ..core.device import resolve_device
+from ..core.dtype import torch_dtype
 from .generate import _Params
 from .gpt import GPTConfig
 
@@ -73,3 +76,26 @@ def random_state(cfg: GPTConfig, seed: int = 0, device="cuda",
             out[name] = torch.randn(shape, generator=gen, dtype=dt,
                                     device=dev).mul_(std)
     return out
+
+
+def load_state(model, state: Dict[str, object]) -> None:
+    """Writes a state dict (numpy arrays or tensors, either naming
+    convention, e.g. a JAX ``model.state_dict()``) into the training
+    model's variables, cast to each parameter's dtype.  Every parameter
+    must be given and every entry used; otherwise ``KeyError``."""
+    params = {_Params._norm(n): p for n, p in model.named_parameters()}
+    given = {_Params._norm(k): v for k, v in state.items()}
+    missing = sorted(set(params) - set(given))
+    unexpected = sorted(set(given) - set(params))
+    if missing or unexpected:
+        raise KeyError(f"missing={missing} unexpected={unexpected}")
+    for name, p in params.items():
+        p.graph.reset_variable(p, given[name])
+
+
+def state_numpy(model) -> Dict[str, np.ndarray]:
+    """The training model's weights as numpy under the normalised names
+    (``h0.attn.qkv.weight``); bf16 and fp16 widen to fp32.  The dict
+    feeds ``state_from_numpy`` and so the serving ``Engine`` and
+    ``generate``."""
+    return {_Params._norm(n): p.numpy() for n, p in model.named_parameters()}

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.device import resolve_device, torch_dtype
+from ..core.device import resolve_device
+from ..core.dtype import torch_dtype
 from .gpt import GPTConfig, check_serving_config
 
 

@@ -2,14 +2,22 @@
 
 ``GPTConfig`` is a field-for-field copy of ``hetu_tpu.models.gpt``'s, so
 one set of keyword arguments describes a model to both packages and a
-state dict carries across unchanged.  The training model comes with the
-training slice of the port; serving and ``generate`` need only the
-config.
+state dict carries across unchanged.  Serving and ``generate`` need only
+the config; ``GPTLMHeadModel`` and its blocks are the training model,
+built from ``hetu_tpu_torch.nn`` modules on a define-and-run graph, with
+the JAX package's parameter names.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
+
+import numpy as np
+
+from .. import nn
+from ..ops import functional as ops
+from ..graph.ctor import NormalInitializer, parallel_parameter
 
 
 @dataclass
@@ -127,3 +135,205 @@ def check_serving_config(cfg: GPTConfig) -> None:
     if cfg.num_experts > 0:
         raise NotImplementedError(
             "MoE layers (num_experts > 0) are ported in the MoE slice")
+
+
+# ---------------------------------------------------------------------------
+# the training model (``hetu_tpu.models.gpt`` GPTLMHeadModel and its blocks)
+# ---------------------------------------------------------------------------
+
+def check_training_config(cfg: GPTConfig) -> None:
+    """The training model of this slice is the dense, single-device one;
+    the other layouts are refused by name."""
+    if cfg.is_mla:
+        raise NotImplementedError(
+            "MLA (kv_latent_dim) is a serving cache layout, ported with the "
+            "MLA serving slice")
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "MoE layers (num_experts > 0) are ported in the MoE slice")
+    if cfg.cp_axis:
+        raise NotImplementedError(
+            "context parallelism (cp_axis) is ported in slice 3 (the "
+            "multi-GPU mesh)")
+    if cfg.fused_lm_ce:
+        raise NotImplementedError(
+            "fused_lm_ce is ported in a later slice (fused cross entropy)")
+
+
+def _norm(config: GPTConfig, name: str):
+    if config.norm == "rmsnorm":
+        return nn.ParallelRMSNorm(config.hidden_size, dtype=config.dtype,
+                               name=name)
+    return nn.ParallelLayerNorm(config.hidden_size, dtype=config.dtype,
+                                name=name)
+
+
+class ParallelAttentionBlock(nn.Module):
+    """Self-attention: fused QKV projection, rotary (LLaMA), GQA
+    expansion, attention and the output projection."""
+
+    def __init__(self, config: GPTConfig, layer_idx: int = 0):
+        super().__init__()
+        check_training_config(config)
+        c = self.config = config
+        q_size = c.num_heads * c.head_dim
+        kv_size = c.kv_heads * c.head_dim
+        self.qkv = nn.ColumnParallelLinear(
+            c.hidden_size, q_size + 2 * kv_size, bias=(c.activation == "gelu"),
+            dtype=c.dtype, init=NormalInitializer(0.0, c.init_std),
+            name=f"h{layer_idx}.attn.qkv")
+        self.out = nn.RowParallelLinear(
+            q_size, c.hidden_size, bias=(c.activation == "gelu"),
+            dtype=c.dtype,
+            init=NormalInitializer(0.0, c.init_std / math.sqrt(2 * c.num_layers)),
+            name=f"h{layer_idx}.attn.out")
+        self.dropout = nn.Dropout(c.dropout) if c.dropout else None
+        self._rotary_cache = {}
+
+    def _rotary(self, seq_len: int):
+        """fp32 numpy tables [1, s, 1, d], as the JAX package keeps them:
+        they promote bf16 q/k to fp32."""
+        if seq_len not in self._rotary_cache:
+            d = self.config.head_dim
+            inv = 1.0 / (10000.0 ** (np.arange(0, d, 2, dtype=np.float32) / d))
+            ang = np.outer(np.arange(seq_len, dtype=np.float32), inv)
+            emb = np.concatenate([ang, ang], axis=-1)
+            self._rotary_cache[seq_len] = (
+                np.cos(emb)[None, :, None, :].astype(np.float32),
+                np.sin(emb)[None, :, None, :].astype(np.float32))
+        return self._rotary_cache[seq_len]
+
+    def forward(self, x, seq_len: int, segment_ids=None):
+        c = self.config
+        qkv = self.qkv(x)
+        q_size = c.num_heads * c.head_dim
+        kv_size = c.kv_heads * c.head_dim
+        q = ops.getitem(qkv, (Ellipsis, slice(0, q_size)))
+        k = ops.getitem(qkv, (Ellipsis, slice(q_size, q_size + kv_size)))
+        v = ops.getitem(qkv, (Ellipsis, slice(q_size + kv_size, None)))
+        q = q.reshape((-1, seq_len, c.num_heads, c.head_dim))
+        k = k.reshape((-1, seq_len, c.kv_heads, c.head_dim))
+        v = v.reshape((-1, seq_len, c.kv_heads, c.head_dim))
+        if c.position == "rotary":
+            cos, sin = self._rotary(seq_len)
+            q = ops.rotary_embed(q, cos, sin)
+            k = ops.rotary_embed(k, cos, sin)
+        if c.kv_heads != c.num_heads:
+            k = ops.repeat_kv(k, c.num_heads // c.kv_heads)
+            v = ops.repeat_kv(v, c.num_heads // c.kv_heads)
+        attn = ops.attention(q, k, v, causal=True, segment_ids=segment_ids)
+        out = self.out(attn.reshape((-1, seq_len, q_size)))
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return out
+
+
+class ParallelMLP(nn.Module):
+    def __init__(self, config: GPTConfig, layer_idx: int = 0):
+        super().__init__()
+        c = config
+        mult = 2 if c.activation == "swiglu" else 1
+        self.up = nn.ColumnParallelLinear(
+            c.hidden_size, c.ffn_size * mult, bias=(c.activation == "gelu"),
+            dtype=c.dtype, init=NormalInitializer(0.0, c.init_std),
+            name=f"h{layer_idx}.mlp.up")
+        self.down = nn.RowParallelLinear(
+            c.ffn_size, c.hidden_size, bias=(c.activation == "gelu"),
+            dtype=c.dtype,
+            init=NormalInitializer(0.0, c.init_std / math.sqrt(2 * c.num_layers)),
+            name=f"h{layer_idx}.mlp.down")
+        self.activation = c.activation
+        self.dropout = nn.Dropout(c.dropout) if c.dropout else None
+
+    def forward(self, x):
+        h = self.up(x)
+        if self.activation == "swiglu":
+            h = ops.swiglu(h)
+        elif self.activation == "gelu":
+            h = ops.gelu(h)
+        else:
+            raise NotImplementedError(
+                f"activation {self.activation!r}: this slice has gelu and "
+                f"swiglu")
+        out = self.down(h)
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return out
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, config: GPTConfig, layer_idx: int):
+        super().__init__()
+        self.ln_1 = _norm(config, f"h{layer_idx}.ln_1")
+        self.attn = ParallelAttentionBlock(config, layer_idx)
+        self.ln_2 = _norm(config, f"h{layer_idx}.ln_2")
+        self.mlp = ParallelMLP(config, layer_idx)
+
+    def forward(self, x, seq_len: int, segment_ids=None):
+        x = x + self.attn(self.ln_1(x), seq_len, segment_ids=segment_ids)
+        return x + self.mlp(self.ln_2(x))
+
+
+class GPTModel(nn.Module):
+    """Embeddings, blocks and the final norm."""
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        check_training_config(config)
+        c = self.config = config
+        self.wte = nn.VocabParallelEmbedding(
+            c.vocab_size, c.hidden_size, dtype=c.dtype,
+            init=NormalInitializer(0.0, c.init_std), name="wte")
+        if c.position == "learned":
+            self.wpe = parallel_parameter(
+                NormalInitializer(0.0, c.init_std),
+                (c.max_seq_len, c.hidden_size), dtype=c.dtype, name="wpe")
+        self.drop = nn.Dropout(c.dropout) if c.dropout else None
+        self.h = nn.ModuleList([GPTBlock(c, i) for i in range(c.num_layers)])
+        self.ln_f = _norm(config, "ln_f")
+
+    def forward(self, input_ids, seq_len: Optional[int] = None,
+                segment_ids=None):
+        if seq_len is None:
+            seq_len = input_ids.shape[-1]
+        x = self.wte(input_ids)
+        if self.config.position == "learned":
+            x = x + ops.getitem(self.wpe, slice(0, seq_len))
+        if self.drop is not None:
+            x = self.drop(x)
+        for block in self.h:
+            x = block(x, seq_len, segment_ids=segment_ids)
+        return self.ln_f(x)
+
+
+class GPTLMHeadModel(nn.Module):
+    """LM head and cross-entropy loss (``ignore_index=-100``)."""
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        check_training_config(config)
+        c = self.config = config
+        self.transformer = GPTModel(config)
+        if c.tie_embeddings:
+            self.lm_head = None
+        else:
+            self.lm_head = nn.ColumnParallelLinear(
+                c.hidden_size, c.vocab_size, bias=False, dtype=c.dtype,
+                init=NormalInitializer(0.0, c.init_std), name="lm_head")
+
+    def logits(self, input_ids, seq_len: Optional[int] = None,
+               segment_ids=None):
+        x = self.transformer(input_ids, seq_len, segment_ids=segment_ids)
+        if self.lm_head is None:
+            return ops.matmul(x, self.transformer.wte.weight, trans_b=True)
+        return self.lm_head(x)
+
+    def forward(self, input_ids, labels=None, seq_len: Optional[int] = None,
+                segment_ids=None):
+        """``segment_ids``: [b, s] packed document ids."""
+        logits = self.logits(input_ids, seq_len, segment_ids=segment_ids)
+        if labels is None:
+            return logits
+        return nn.vocab_parallel_cross_entropy(
+            logits, labels, ignore_index=-100)
+

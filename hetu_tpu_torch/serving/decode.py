@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.device import torch_dtype
+from ..core.dtype import torch_dtype
 from ..models.generate import (_act, _lm_head, _linear, _norm_apply,
                                _Params, _rotary_tables)
 from ..models.gpt import GPTConfig, check_serving_config

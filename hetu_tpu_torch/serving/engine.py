@@ -34,7 +34,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..core.device import resolve_device, torch_dtype
+from ..core.device import resolve_device
+from ..core.dtype import torch_dtype
 from ..models.generate import _Params
 from ..models.gpt import GPTConfig, check_serving_config
 from ..utils.metrics import make_instrument, render_prometheus

@@ -1,4 +1,6 @@
-"""Card-only tests of the port's CUDA kernel against its plain version.
+"""Card-only tests of the port's CUDA kernels against their plain versions
+(ragged paged attention; flash attention forward, fused backward and
+split dq / dk-dv backward).
 
 Marked ``cuda``; they skip where no CUDA device is present (the check
 runs inside the fixture, never at import).  The file imports neither
@@ -117,3 +119,138 @@ def test_kernel_rejects_misaligned_pages(cuda_device):
     bad = args[:1] + (shifted,) + args[2:]
     with pytest.raises(ValueError, match="aligned to 16 bytes"):
         ragged_paged_attention_cuda(*bad, max_q=max_q)
+
+
+# ---------------------------------------------------------------------------
+# flash attention kernels 1-4 (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+from hetu_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+F32, B16 = torch.float32, torch.bfloat16
+FLASH_DTYPES = {"fp32": (F32, F32), "bf16": (B16, B16),
+                "fp32_qk_bf16_v": (F32, B16)}
+# (b, sq, sk, h, d, causal, segments, causal_offset)
+FLASH_CASES = [
+    (2, 128, 128, 2, 64, True, None, 0),
+    (1, 200, 200, 3, 128, True, None, 0),        # ragged edge tile
+    (2, 96, 96, 2, 64, False, None, 0),
+    (2, 128, 128, 2, 128, True, "array", 0),
+    (1, 64, 192, 2, 64, True, "tuple", 128),     # sq != sk, offset
+    (2, 128, 128, 2, 64, True, "masked", 0),     # fully-masked rows
+    (1, 1000, 1000, 2, 128, True, None, 0),      # irregular length
+]
+
+
+def _flash_inputs(case, dtypes, device, seed=0):
+    b, sq, sk, h, d, causal, seg, offset = case
+    qk, vt = FLASH_DTYPES[dtypes]
+    rng = np.random.RandomState(seed)
+
+    def t(shape, dt):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)) \
+            .to(device=device, dtype=dt)
+
+    q, k, v = t((b, sq, h, d), qk), t((b, sk, h, d), qk), t((b, sk, h, d), vt)
+    do = t((b, sq, h, d), qk)
+    segs = None
+    if seg == "array":
+        segs = torch.from_numpy(np.repeat(np.arange(4), sq // 4)[None]
+                                .repeat(b, 0).astype(np.int32)).to(device)
+    elif seg in ("tuple", "masked"):
+        kv = np.repeat(np.arange(2), sk // 2)[None].repeat(b, 0) \
+            .astype(np.int32)
+        qi = kv[:, sk - sq:].copy()
+        if seg == "masked":
+            qi[:, sq // 2:] = 7
+        segs = (torch.from_numpy(qi).to(device), torch.from_numpy(kv).to(device))
+    return q, k, v, do, segs, causal, offset, d ** -0.5
+
+
+def _assert_close(got, want, reduce_dims, bf16, fp32_tol, what):
+    """fp32: |got - want| <= tol (1 + |want|).  With a bf16 operand: within
+    each row (a query's out/dq, a key's dk/dv), one bf16 ulp of the value
+    plus 1/32 of the row's RMS, for the products that the kernel rounds to
+    bf16 (both sides accumulate in fp32), plus 2**-16 of
+    the whole tensor's RMS for rows that cancel to rounding noise (the
+    first causal row's dq: p = 1 and dp = delta, so ds = 0 up to the
+    order of two fp32 sums)."""
+    g, w = got.float(), want.float()
+    if bf16:
+        rms = w.pow(2).mean(dim=reduce_dims, keepdim=True).sqrt()
+        limit = 2.0 ** -7 * w.abs() + rms / 32 + \
+            2.0 ** -16 * w.pow(2).mean().sqrt()
+    else:
+        limit = fp32_tol * (1 + w.abs())
+    over = ((g - w).abs() - limit).max().item()
+    assert over <= 0, f"{what}: over the limit by {over}"
+
+
+@pytest.mark.parametrize("dtypes", sorted(FLASH_DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, segs, causal, off, scale = _flash_inputs(case, dtypes,
+                                                          cuda_device)
+    bf16 = dtypes != "fp32"
+    n0 = fa.flash_fwd_cuda.launches
+    out, lse = fa.flash_fwd_cuda(q, k, v, scale, causal, segs, off)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_cuda.launches == n0 + 1
+    ro, rl = fa.flash_fwd_reference(q, k, v, scale, causal, segs, off)
+    assert out.dtype == q.dtype and lse.dtype == F32
+    _assert_close(out, ro, (3,), bf16, 1e-4, "out")
+    assert torch.equal(torch.isinf(lse), torch.isinf(rl))
+    live = torch.isfinite(rl)
+    _assert_close(lse[live], rl[live], (0,), False, 1e-4, "lse")
+    if case[6] == "masked":
+        assert torch.count_nonzero(out[:, case[1] // 2:]).item() == 0
+
+    # the backward kernels from the same residuals (the plain forward's)
+    want = fa.flash_bwd_reference(q, k, v, ro, rl, do, scale, causal, segs,
+                                  off)
+    fused = fa.flash_bwd_fused_cuda(q, k, v, ro, rl, do, scale, causal, segs,
+                                    off)
+    delta = torch.einsum("bshd,bshd->bsh", do.float(), ro.float())
+    split = (fa.flash_bwd_dq_cuda(q, k, v, do, rl, delta, scale, causal,
+                                  segs, off),
+             *fa.flash_bwd_dkv_cuda(q, k, v, do, rl, delta, scale, causal,
+                                    segs, off))
+    torch.cuda.synchronize()
+    for kind, got in (("fused", fused), ("split", split)):
+        for name, g, w, dims in zip(("dq", "dk", "dv"), got, want,
+                                    ((3,), (3,), (3,))):
+            assert g.dtype == w.dtype, (kind, name)
+            _assert_close(g, w, dims, bf16, 1e-3, f"{kind} {name}")
+        if case[6] == "masked":
+            assert torch.count_nonzero(got[0][:, case[1] // 2:]).item() == 0
+
+
+def test_flash_dispatch_takes_the_byte_rule_on_cuda(cuda_device):
+    q, k, v, do, *_ = _flash_inputs(FLASH_CASES[0], "bf16", cuda_device)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    counts = (fa.flash_bwd_fused_cuda.launches, fa.flash_bwd_dq_cuda.launches)
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.autograd.grad(out, (q, k, v), do)
+    assert fa.flash_bwd_fused_cuda.launches == counts[0] + 1   # sk*d small
+    assert fa.flash_bwd_dq_cuda.launches == counts[1]
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, do, *_ = _flash_inputs(FLASH_CASES[0], "fp32", cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_fwd_cuda(q.half(), k.half(), v.half(), 0.1, True)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        fa.flash_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                          v[..., :32].contiguous(), 0.1, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
+                          k, v, 0.1, True)
+    shifted = torch.empty(q.numel() + 2, dtype=q.dtype,
+                          device=cuda_device)[2:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        fa.flash_fwd_cuda(shifted, k, v, 0.1, True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_fwd_cuda(q.cpu(), k, v, 0.1, True)

@@ -15,7 +15,8 @@ import jax.numpy as jnp
 
 import hetu_tpu as ht
 from hetu_tpu.models import GPTConfig as JaxGPTConfig, GPTLMHeadModel
-from hetu_tpu_torch.core.device import resolve_device, torch_dtype
+from hetu_tpu_torch.core.device import resolve_device
+from hetu_tpu_torch.core.dtype import torch_dtype
 from hetu_tpu_torch.models import GPTConfig, llama3_8b_config
 from hetu_tpu_torch.models import generate as port_gen
 from hetu_tpu_torch.models.convert import (random_state, state_from_numpy,

@@ -211,7 +211,9 @@ def test_port_sources_import_no_jax_and_no_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, hetu_tpu_torch.serving, hetu_tpu_torch.models."
-            "convert\n"
+            "convert, hetu_tpu_torch.graph, hetu_tpu_torch.optim, "
+            "hetu_tpu_torch.ops.flash_attention, hetu_tpu_torch.models.gpt"
+            "\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'hetu_tpu')]\n"
             "print(bad)")
