@@ -42,7 +42,27 @@ Phases, each printing one JSON line:
    ``torch.profiler``);
 8. train_oracle: 2-layer fp32 models at both widths train three steps on
    the card (kernels) and on the CPU (plain versions) from the same
-   weights and batches; losses and parameters must agree.
+   weights and batches; losses and parameters must agree;
+9. latent_kernel_vs_plain: the latent (MLA) ragged paged attention kernel
+   against its plain version at the serving shapes of Llama-3-8B's widths
+   in the MLA layout (nh 32, d_c 512, d_r 64, page 64, bf16 pages; the
+   batch of phase 3), then at GPT-2 small's (nh 12, d_c 256, no rope) with
+   bf16, int8 and nf4 pages written by ``quantize_rows``; times both;
+10. paged_decode_vs_plain: the paged decode kernel against its plain
+    version at Llama-3-8B's shapes (nh 32, kvh 8, hd 128, page 64), batch
+    8 and 64, contexts 1 to 4096 with one empty request and partial last
+    pages, bf16 and fp32; times both; then ``ops.paged_attention_decode``
+    itself is driven for 8 decode steps of 32 layers at batch 8;
+11. mla_main_path: phase 4's traffic on Llama-3-8B's widths in the MLA
+    layout (``mla_config(llama3_8b_config(), 512, 64)``, all 32 layers,
+    random bf16 weights from seed 0): the latent kernel 32 times per
+    unified step, the full-head kernel never; then a ``step_profile``;
+12. mla_quant_path: GPT-2 small's widths with ``kv_latent_dim=256`` and
+    ``page_quant="int8"``, then ``"nf4"``: every request finishes, two
+    fresh engines give equal tokens, 12 launches per unified step;
+13. mla_oracle: 2-layer fp32 MLA models at both widths (one converted
+    from a full-head state by ``mla_state_from``), where the engine's
+    temperature-0 tokens must equal the port's dense ``generate``.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -62,12 +82,20 @@ from torch.profiler import ProfilerActivity, profile
 
 import hetu_tpu_torch as ht
 from hetu_tpu_torch.csrc.build import build
-from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel, llama3_8b_config
+import hetu_tpu_torch.ops as port_ops
+from hetu_tpu_torch.models import (GPTConfig, GPTLMHeadModel,
+                                   llama3_8b_config, mla_config,
+                                   mla_state_from)
 from hetu_tpu_torch.models.convert import load_state, random_state, state_numpy
 from hetu_tpu_torch.models.generate import generate
 from hetu_tpu_torch.ops import flash_attention as fa
+from hetu_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                paged_attention_reference)
+from hetu_tpu_torch.ops.quantization import quantize_rows
 from hetu_tpu_torch.ops.ragged_paged_attention import (
-    ragged_paged_attention_cuda, ragged_paged_attention_reference)
+    latent_ragged_paged_attention_cuda,
+    latent_ragged_paged_attention_reference, ragged_paged_attention_cuda,
+    ragged_paged_attention_reference)
 from hetu_tpu_torch.serving import Engine
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
@@ -130,10 +158,15 @@ def phase_build():
             smem = re.search(r"(\d+) bytes smem", block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", block)
-            kind = re.search(r"(flash_\w+?_kernel|ragged_paged_attention_"
-                             r"\w+?_kernel)", head)
+            # the mangled name: <length><kernel name> after the file's hash
+            kind = re.search(r"\d((?:flash|latent_ragged|ragged|paged)"
+                             r"\w*?_kernel)", head)
             entries.append({
                 "kernel": kind.group(1) if kind else head[:80],
+                # flash, ragged: head_dim; latent: accumulator columns per
+                # lane, then the page kind; paged decode: head_dim / 32
+                "template_ints": [int(x) for x in
+                                  re.findall(r"Li(\d+)E", head)],
                 "head_dim": int(hd.group(1)) if hd else None,
                 "bf16": "nv_bfloat16" in head,
                 "fused": ("Lb1E" in head) if "dkv" in head else None,
@@ -299,8 +332,36 @@ def profile_steps(eng, rng, v):
                     for us, k, n in kernels[:8]]}
 
 
-def phase_main_path():
-    cfg = llama3_8b_config()
+def make_mix(rng, v, lens, header_len, tail):
+    """Phase 4's prompts: one per entry of ``lens``, the third a
+    ``header_len``-token header (whole pages) plus ``tail`` more, and a
+    late prompt that shares the header."""
+    header = rng.randint(1, v, size=header_len).tolist()
+    prompts = [rng.randint(1, v, size=n).tolist() for n in lens]
+    prompts[2] = header + prompts[2][:tail]
+    return prompts, header + rng.randint(1, v, size=77).tolist()
+
+
+def serve_mix(eng, prompts, late_prompt, new=32):
+    """Serves ``prompts`` (the fourth sampled), then the late prompt once
+    the header's first user has finished, so that its header pages come
+    from the prefix cache.  Returns the requests."""
+    reqs = [eng.add_request(p, new, temperature=0.8 if i == 3 else 0.0,
+                            top_p=0.95 if i == 3 else 0.0,
+                            seed=7 if i == 3 else 0)
+            for i, p in enumerate(prompts)]
+    while reqs[2].state != "finished":
+        eng.step()
+    reqs.append(eng.add_request(late_prompt, new))
+    eng.run()
+    torch.cuda.synchronize()
+    return reqs
+
+
+def phase_main_path(cfg, phase, model, counter, other_counter):
+    """Serves phase 4's traffic at ``cfg``; ``counter`` is the attention
+    kernel this layout must launch once per layer and unified step,
+    ``other_counter`` the one it must never launch."""
     t0 = time.perf_counter()
     state = random_state(cfg, seed=0, device="cuda")
     n_params = sum(v.numel() for v in state.values())
@@ -311,32 +372,19 @@ def phase_main_path():
     setup_s = time.perf_counter() - t0
     rng = np.random.RandomState(0)
     v = cfg.vocab_size
-    header = rng.randint(1, v, size=1024).tolist()   # 16 whole pages
-    lens = [32, 3000, 700, 1500, 64, 2200, 400]
-    prompts = [rng.randint(1, v, size=n).tolist() for n in lens]
-    prompts[2] = header + prompts[2][:200]
-    late_prompt = header + rng.randint(1, v, size=77).tolist()
+    mix = make_mix(rng, v, [32, 3000, 700, 1500, 64, 2200, 400],
+                   header_len=1024, tail=200)       # 16 whole header pages
     # warm-up outside the measured run: one short request
     eng.add_request(rng.randint(1, v, size=16).tolist(), 2)
     eng.run()
     torch.cuda.synchronize()
     calls0 = eng.executable_calls
     torch.cuda.reset_peak_memory_stats()
-    ragged_paged_attention_cuda.launches = 0
+    counter.launches = other_counter.launches = 0
     t0 = time.perf_counter()
-    reqs = [eng.add_request(p, 32, temperature=0.8 if i == 3 else 0.0,
-                            top_p=0.95 if i == 3 else 0.0,
-                            seed=7 if i == 3 else 0)
-            for i, p in enumerate(prompts)]
-    # the header's second user arrives once the first has finished, so
-    # its 16 header pages come from the prefix cache
-    while reqs[2].state != "finished":
-        eng.step()
-    reqs.append(eng.add_request(late_prompt, 32))
-    eng.run()
-    torch.cuda.synchronize()
+    reqs = serve_mix(eng, *mix)
     wall = time.perf_counter() - t0
-    launches = ragged_paged_attention_cuda.launches
+    launches = counter.launches
     calls = eng.executable_calls - calls0
     summary = eng.metrics_summary()
     if not all(r.state == "finished" and len(r.out_tokens) == 32
@@ -347,12 +395,14 @@ def phase_main_path():
         raise AssertionError("token id outside the vocabulary")
     if summary["prefix_cache_hits"] < 1:
         raise AssertionError("the shared header missed the prefix cache")
-    if launches != cfg.num_layers * calls:
-        raise AssertionError(f"kernel launches {launches} != "
-                             f"{cfg.num_layers} x {calls} unified steps")
+    if launches != cfg.num_layers * calls or other_counter.launches:
+        raise AssertionError(
+            f"kernel launches {launches} != {cfg.num_layers} x {calls} "
+            f"unified steps, or the other layout's kernel ran "
+            f"({other_counter.launches} launches)")
     ttfts = sorted(r.first_token_time - r.submit_time for r in reqs)
-    out = {"model": "Llama-3-8B widths, random bf16 weights (seed 0)",
-           "params": n_params, "layers": cfg.num_layers,
+    out = {"model": model, "params": n_params, "layers": cfg.num_layers,
+           "kv_bytes_per_token": eng.pool.kv_bytes_per_token,
            "setup_s": setup_s, "requests": len(reqs),
            "prompt_tokens": [len(r.prompt) for r in reqs],
            "generated_tokens": len(toks), "wall_s": wall,
@@ -364,8 +414,9 @@ def phase_main_path():
                summary["prefix_cache_tokens_saved"],
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "sampled_tokens": reqs[3].out_tokens[:8]}
-    emit({"phase": "main_path", **out})
-    emit({"phase": "step_profile", **profile_steps(eng, rng, v)})
+    emit({"phase": phase, **out})
+    emit({"phase": "step_profile", "of": phase,
+          **profile_steps(eng, rng, v)})
     del eng, state
     torch.cuda.empty_cache()
     return out
@@ -823,6 +874,375 @@ def phase_train_oracle(steps=3, micro=2, lr=1e-6):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# MLA latent serving and the paged decode op (phases 9-13)
+# ---------------------------------------------------------------------------
+
+# fp32 agreement of the latent and the paged decode kernels, |got - want| <=
+# tol * (1 + |want|).  The latent q is fp32 and both sides multiply it in
+# fp32 with the same dequantized page values, so only the order of up to
+# 4096 fp32 sums differs, for bf16, int8 and nf4 pages alike
+PAGED_FP32_TOL = 1e-4
+# the engine's token layout: 8 decode slots, then one 512-token chunk slot
+LATENT_Q_LENS = [1, 1, 1, 1, 1, 1, 0, 0, 512]
+LATENT_CU = [0, 1, 2, 3, 4, 5, 6, 7, 8, 520]
+
+
+def latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, r_bytes,
+                quantized):
+    """Bytes the function must move (the pages each live row spans, q in,
+    out), operations over the causally visible (query, key) pairs, and the
+    least time an H100 could take: against the fp32 peak, the arithmetic
+    the reference defines, with the bf16 tensor-core figure beside it."""
+    per_pos = c_bytes + d_r * r_bytes + (4 if quantized else 0)
+    kv_bytes = sum(-(-c // ps) * ps * per_pos
+                   for c, q in zip(ctx_lens, q_lens) if q > 0)
+    live = sum(q_lens)
+    qo_bytes = live * nh * ((d_c + d_r) + d_c) * 4
+    pairs = sum(c - q + j + 1 for q, c in zip(q_lens, ctx_lens)
+                for j in range(q))
+    flops = 2 * nh * (2 * d_c + d_r) * pairs
+    t_bytes = (kv_bytes + qo_bytes) / H100_BYTES_PER_S
+    t_ops = flops / H100_FP32_FLOPS
+    return {"bytes": kv_bytes + qo_bytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_at_bf16_peak":
+                max(t_bytes, flops / H100_BF16_FLOPS) * 1e3}
+
+
+def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
+                time_parts=False, check=True):
+    """One latent batch at the engine's layout: kernel against plain
+    version, padding tokens zero, times and bound.  ``check=False`` only
+    reads the error over the limit (for kernels with planted faults)."""
+    ps, max_q = 64, 512
+    q_lens, cu, t = LATENT_Q_LENS, np.asarray(LATENT_CU, np.int32), 520
+    rows = len(q_lens)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    perm = rng.permutation(np.arange(1, num_pages))
+    pt = np.zeros((rows, maxp), np.int32)        # trash-page padding
+    k = 0
+    for i, c in enumerate(ctx_lens):
+        need = -(-c // ps)
+        pt[i, :need] = perm[k:k + need]
+        k += need
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    q = rnd(t, nh, d_c + d_r)
+    lat = rnd(num_pages, ps, 1, d_c)
+    quant = None if kind == "bf16" else kind
+    r_pages = scale_pages = None
+    if quant:
+        c_pages, scale_pages = quantize_rows(lat, quant)
+    else:
+        c_pages = lat.bfloat16()
+        if d_r:
+            r_pages = rnd(num_pages, ps, 1, d_r).bfloat16()
+    kw = dict(max_q=max_q, softmax_scale=(hd + d_r) ** -0.5,
+              scale_pages=scale_pages, quant=quant, latent_dim=d_c)
+
+    def run(fn, ql):
+        return fn(q, c_pages, r_pages, i32(ql), i32(cu), i32(pt),
+                  i32(ctx_lens), **kw)
+
+    got = run(latent_ragged_paged_attention_cuda, q_lens)
+    torch.cuda.synchronize()
+    want = run(latent_ragged_paged_attention_reference, q_lens)
+    real = torch.zeros(t, dtype=torch.bool, device=dev)
+    for i in range(rows):
+        real[int(cu[i]):int(cu[i]) + q_lens[i]] = True
+    d = (got - want).abs()
+    ratio = (d / (PAGED_FP32_TOL * (1 + want.abs())))[real].max().item()
+    err = d[real].max().item()
+    pad_nonzero = int(torch.count_nonzero(got[~real]).item())
+    if not check:
+        return {"max_abs_err": err, "err_over_limit": ratio}
+    if not ratio <= 1.0 or not torch.isfinite(got).all():
+        raise AssertionError(f"latent kernel vs plain, {name}: error over "
+                             f"the fp32 limit by {ratio} (max abs {err})")
+    if pad_nonzero:
+        raise AssertionError(f"{name}: {pad_nonzero} nonzero padding outputs")
+    c_bytes = c_pages.shape[-1] * c_pages.element_size()
+    work = latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, 2,
+                       quant is not None)
+    out = {"max_abs_err": err, "err_over_limit": ratio,
+           "limit": f"|got - want| <= {PAGED_FP32_TOL} * (1 + |want|)",
+           "padding_nonzero": pad_nonzero,
+           "ms": cuda_time_ms(lambda: run(latent_ragged_paged_attention_cuda,
+                                          q_lens), warmup=2, iters=5),
+           "plain_ms": cuda_time_ms(lambda: run(
+               latent_ragged_paged_attention_reference, q_lens),
+               warmup=1, iters=2),
+           **work, "library_ms": None,
+           "shapes": {"q_lens": q_lens, "ctx_lens": ctx_lens, "nh": nh,
+                      "d_c": d_c, "d_r": d_r, "ps": ps, "max_q": max_q,
+                      "maxp": maxp, "pages": kind}}
+    if time_parts:
+        # the same batch split: its decode rows alone, its chunk alone
+        out["parts"] = {}
+        for part, keep in (("decode_rows", lambda i: i < 8),
+                           ("chunk_row", lambda i: i == 8)):
+            ql = [n if keep(i) else 0 for i, n in enumerate(q_lens)]
+            pw = latent_work(ql, ctx_lens, ps, nh, d_c, d_r, c_bytes, 2,
+                             quant is not None)
+            out["parts"][part] = {
+                "ms": cuda_time_ms(lambda: run(
+                    latent_ragged_paged_attention_cuda, ql),
+                    warmup=2, iters=5),
+                "bound_ms": pw["bound_ms"], "bound_by": pw["bound_by"]}
+    return out
+
+
+# name -> (nh, d_c, d_r, head_dim, ctx_lens, maxp, num_pages, page kind)
+LATENT_CASES = {"llama3_8b_mla/bf16": (
+    32, 512, 64, 128, [4096, 3001, 1500, 65, 64, 1, 0, 0, 3000], 128, 1024,
+    "bf16")}
+LATENT_CASES.update({f"gpt2_mla/{kind}": (
+    12, 256, 0, 64, [1024, 1000, 700, 65, 64, 1, 0, 0, 900], 16, 128, kind)
+    for kind in ("bf16", "int8", "nf4")})
+
+
+def phase_latent_kernel():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {}
+    for name, shape in LATENT_CASES.items():
+        cases[name] = latent_case(name, *shape,
+                                  time_parts=name.startswith("llama"))
+        torch.cuda.empty_cache()
+    emit({"phase": "latent_kernel_vs_plain",
+          "kernel": {"latent_ragged_paged_attention": cases}})
+    return cases["llama3_8b_mla/bf16"]
+
+
+def paged_work(seq_lens, nh, kvh, hd, itemsize):
+    """Bytes (K and V of every cached token once, q in, out) and
+    operations of a paged decode batch, and the least time for them."""
+    tokens = sum(seq_lens)
+    nbytes = 2 * tokens * kvh * hd * itemsize \
+        + 2 * len(seq_lens) * nh * hd * itemsize
+    flops = 4 * nh * hd * tokens
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / H100_FP32_FLOPS
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def paged_inputs(batch, dtype, seed):
+    """A decode batch at Llama-3-8B's shapes: contexts 1 to 4096, one
+    empty request, a partial last page, trash-page table slots."""
+    nh, kvh, hd, ps, maxp = 32, 8, 128, 64, 64
+    rng = np.random.RandomState(seed)
+    seq_lens = rng.randint(1, 4097, size=batch)
+    seq_lens[:5] = [4096, 1, 0, 4001, 65]
+    num_pages = 1 + int(sum(-(-c // ps) for c in seq_lens))
+    perm = rng.permutation(np.arange(1, num_pages))
+    pt = np.zeros((batch, maxp), np.int32)
+    k = 0
+    for i, c in enumerate(seq_lens):
+        need = -(-int(c) // ps)
+        pt[i, :need] = perm[k:k + need]
+        k += need
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    args = (rnd(batch, nh, hd), rnd(num_pages, ps, kvh, hd),
+            rnd(num_pages, ps, kvh, hd), torch.from_numpy(pt).cuda(),
+            torch.from_numpy(seq_lens.astype(np.int32)).cuda())
+    return args, [int(c) for c in seq_lens], (nh, kvh, hd)
+
+
+def paged_agreement(got, want, seq_lens, dtype):
+    """Largest |got - want| over its limit over the live requests (fp32:
+    PAGED_FP32_TOL * (1 + |want|); bf16: the per-row bf16 limit, BF16_REL *
+    |want| + BF16_RMS_FLOOR * the request's output RMS), the max abs
+    error, and the number of nonzero outputs of empty requests."""
+    live = torch.tensor([c > 0 for c in seq_lens], device=got.device)
+    g, w = got[live].float(), want[live].float()
+    d = (g - w).abs()
+    if dtype == torch.bfloat16:
+        limit = BF16_REL * w.abs() + BF16_RMS_FLOOR * \
+            w.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()
+    else:
+        limit = PAGED_FP32_TOL * (1 + w.abs())
+    return ((d / limit.clamp_min(1e-30)).max().item(), d.max().item(),
+            int(torch.count_nonzero(got[~live]).item()))
+
+
+def phase_paged_decode():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {}
+    for batch in (8, 64):
+        for name, dtype in (("bf16", torch.bfloat16),
+                            ("fp32", torch.float32)):
+            args, seq_lens, (nh, kvh, hd) = paged_inputs(batch, dtype,
+                                                         seed=batch)
+            got = paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            want = paged_attention_reference(*args)
+            ratio, err, empty = paged_agreement(got, want, seq_lens, dtype)
+            if not ratio <= 1.0 or empty or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"paged decode kernel vs plain, batch {batch} {name}: "
+                    f"over the limit by {ratio} (max abs {err}), {empty} "
+                    f"nonzero outputs of the empty request")
+            cases[f"batch{batch}/{name}"] = {
+                "max_abs_err": err, "err_over_limit": ratio,
+                "empty_request_nonzero": empty,
+                "ms": cuda_time_ms(lambda: paged_attention_cuda(*args),
+                                   warmup=3, iters=20),
+                "plain_ms": cuda_time_ms(
+                    lambda: paged_attention_reference(*args),
+                    warmup=1, iters=3),
+                **paged_work(seq_lens, nh, kvh, hd, args[0].element_size()),
+                "library_ms": None, "seq_lens_max": max(seq_lens),
+                "tokens": sum(seq_lens)}
+            del args, got, want
+            torch.cuda.empty_cache()
+    # the op's own entry point, as a decoder would call it: 8 steps of a
+    # 32-layer model at batch 8, every request one token longer each step
+    (q, kp, vp, pt, sl), seq_lens, (nh, kvh, hd) = paged_inputs(
+        8, torch.bfloat16, seed=1)
+    sl = torch.clamp(sl, max=4000)             # room to grow within 4096
+    paged_attention_cuda.launches = 0
+    steps, layers = 8, 32
+    for _ in range(steps):
+        sl = sl + 1
+        for _ in range(layers):
+            out = port_ops.paged_attention_decode(q, kp, vp, pt, sl)
+    torch.cuda.synchronize()
+    launches = paged_attention_cuda.launches
+    want = paged_attention_reference(q, kp, vp, pt, sl)
+    ratio, err, _ = paged_agreement(out, want, sl.tolist(), torch.bfloat16)
+    if launches != steps * layers or tuple(out.shape) != (8, nh, hd) or \
+            out.dtype != torch.bfloat16 or not ratio <= 1.0 or \
+            not torch.isfinite(out).all():
+        raise AssertionError(
+            f"paged_attention_decode entry point: {launches} launches for "
+            f"{steps} x {layers} calls, shape {tuple(out.shape)}, error "
+            f"over the limit by {ratio}")
+    emit({"phase": "paged_decode_vs_plain",
+          "limit": {"bf16": f"|got - want| <= {BF16_REL} * |want| + "
+                            f"{BF16_RMS_FLOOR} * rms(want over the request)",
+                    "fp32": f"|got - want| <= {PAGED_FP32_TOL} * (1 + |want|)"},
+          "kernel": {"paged_attention_decode": cases},
+          "entry_point": {"steps": steps, "layers": layers, "batch": 8,
+                          "launches": launches, "err_over_limit": ratio}})
+    return cases["batch8/bf16"], launches
+
+
+def phase_mla_quant():
+    """GPT-2 small's widths in the MLA layout with quantized latent pages:
+    the phase-4 traffic scaled to the 1024-token position table."""
+    cfg = mla_config(GPTConfig(dtype="bfloat16"), kv_latent_dim=256)
+    state = random_state(cfg, seed=0, device="cuda")
+    v = cfg.vocab_size
+    report = {}
+    for quant in ("int8", "nf4"):
+        runs = []
+        for _ in range(2):
+            eng = Engine(state, cfg, num_pages=256, page_size=64,
+                         max_batch=8, chunk_size=512, prefill_rows=1,
+                         device="cuda", page_quant=quant)
+            rng = np.random.RandomState(0)
+            mix = make_mix(rng, v, [32, 900, 300, 500, 64, 700, 400],
+                           header_len=256, tail=100)
+            latent_ragged_paged_attention_cuda.launches = 0
+            ragged_paged_attention_cuda.launches = 0
+            t0 = time.perf_counter()
+            reqs = serve_mix(eng, *mix)
+            wall = time.perf_counter() - t0
+            launches = latent_ragged_paged_attention_cuda.launches
+            calls = eng.executable_calls
+            toks = [r.out_tokens for r in reqs]
+            if not all(r.state == "finished" and len(r.out_tokens) == 32
+                       for r in reqs):
+                raise AssertionError(f"{quant}: not every request finished "
+                                     f"with 32 tokens")
+            if not all(0 <= t < v for ts in toks for t in ts):
+                raise AssertionError(f"{quant}: token id outside the "
+                                     f"vocabulary")
+            if launches != cfg.num_layers * calls or \
+                    ragged_paged_attention_cuda.launches:
+                raise AssertionError(
+                    f"{quant}: latent launches {launches} != "
+                    f"{cfg.num_layers} x {calls} unified steps")
+            runs.append(toks)
+            summary = eng.metrics_summary()
+            ttfts = sorted(r.first_token_time - r.submit_time for r in reqs)
+        if runs[0] != runs[1]:
+            raise AssertionError(f"{quant}: two fresh engines disagree")
+        report[quant] = {
+            "requests": len(reqs), "generated_tokens": 32 * len(reqs),
+            "unified_steps": calls, "kernel_launches": launches,
+            "launches_per_step": launches / calls,
+            "kv_bytes_per_token": eng.pool.kv_bytes_per_token,
+            "page_dtype": str(eng.pool.k_pages[0].dtype),
+            "prefix_cache_hits": summary["prefix_cache_hits"],
+            "wall_s": wall, "tokens_per_s": 32 * len(reqs) / wall,
+            "ttft_p50_s": float(np.percentile(ttfts, 50)),
+            "two_engines_equal": True}
+        del eng
+    emit({"phase": "mla_quant_path",
+          "model": "GPT-2 small widths, kv_latent_dim 256, random bf16 "
+                   "weights (seed 0)", **report})
+    del state
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_mla_oracle():
+    # full fp32 products on both sides
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    llama = mla_config(llama3_8b_config(num_layers=2, dtype="float32"),
+                       kv_latent_dim=512, kv_rope_dim=64)
+    gpt2 = GPTConfig(num_layers=2, dtype="float32")
+    # the GPT-2 widths go through the converter from a full-head state
+    gpt2_state, gpt2_mla = mla_state_from(
+        random_state(gpt2, seed=1, device="cuda"), gpt2, kv_latent_dim=256)
+    for name, cfg, state, lens in (
+            ("llama3_8b_widths", llama,
+             random_state(llama, seed=1, device="cuda"), (300, 17, 129)),
+            ("gpt2_widths_converted", gpt2_mla, gpt2_state, (300, 17, 129))):
+        rng = np.random.RandomState(1)
+        prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist()
+                   for n in lens]
+        latent_ragged_paged_attention_cuda.launches = 0
+        eng = Engine(state, cfg, num_pages=64, page_size=64, max_batch=4,
+                     chunk_size=128, device="cuda")
+        reqs = [eng.add_request(p, 8) for p in prompts]
+        eng.run()
+        want = [generate(state, cfg, [p], 8, device="cuda")[0, len(p):]
+                .tolist() for p in prompts]
+        got = [r.out_tokens for r in reqs]
+        if got != want:
+            raise AssertionError(f"{name}: engine {got} != generate {want}")
+        if latent_ragged_paged_attention_cuda.launches != \
+                cfg.num_layers * eng.executable_calls:
+            raise AssertionError(f"{name}: the latent kernel did not run "
+                                 f"once per layer and step")
+        report[name] = {"equal": True, "tokens": got,
+                        "d_c": cfg.kv_latent_dim, "d_r": cfg.rope_dim}
+        del eng, state
+        torch.cuda.empty_cache()
+    emit({"phase": "mla_oracle", "layers": 2, "dtype": "float32",
+          "requests": 3, **report})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -831,12 +1251,25 @@ def main():
     dev = phase_device()
     phase_build()
     kern = phase_kernel()
-    main_out = phase_main_path()
+    main_out = phase_main_path(
+        llama3_8b_config(), "main_path",
+        "Llama-3-8B widths, random bf16 weights (seed 0)",
+        ragged_paged_attention_cuda, latent_ragged_paged_attention_cuda)
     phase_oracle()
     flash = phase_flash()
     train = [phase_train(name) for name in ("llama3_8b_4_layers",
                                             "gpt2_small")]
     phase_train_oracle()
+    latent = phase_latent_kernel()
+    paged, paged_launches = phase_paged_decode()
+    mla_out = phase_main_path(
+        mla_config(llama3_8b_config(), kv_latent_dim=512, kv_rope_dim=64),
+        "mla_main_path",
+        "Llama-3-8B widths in the MLA layout (kv_latent_dim 512, "
+        "kv_rope_dim 64), random bf16 weights (seed 0)",
+        latent_ragged_paged_attention_cuda, ragged_paged_attention_cuda)
+    phase_mla_quant()
+    phase_mla_oracle()
     rows = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -862,6 +1295,26 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the latent kernel at the MLA engine's unified-step batch, the paged
+    # decode kernel at the engine's decode batch of 8 in bf16; no PyTorch
+    # call attends through a page table, so no library time
+    for name, source, replaces, launches, r in (
+            ("latent_ragged_paged_attention",
+             "hetu_tpu_torch/csrc/latent_ragged_paged_attention.cu",
+             "hetu_tpu/ops/ragged_paged_attention.py:420",
+             mla_out["kernel_launches"], latent),
+            ("paged_attention_decode",
+             "hetu_tpu_torch/csrc/paged_attention.cu",
+             "hetu_tpu/ops/paged_attention.py:113", paged_launches, paged)):
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    if not all(r["launches"] > 0 for r in rows):
+        raise AssertionError(f"a kernel of the path was never launched: "
+                             f"{[(r['name'], r['launches']) for r in rows]}")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -7,6 +7,7 @@ caller names it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -26,3 +27,15 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
         raise ValueError(f"unsupported device {device!r}")
     return dev
 
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (a kernel wrapper sizes
+    its grid by it on every call, so the query is cached)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

@@ -1,10 +1,12 @@
 """Weights into the port.
 
 ``state_from_numpy`` carries a ``hetu_tpu`` ``state_dict()`` (numpy
-arrays, either naming convention) across; ``random_state`` draws the
-same names and shapes directly on the device from a seeded
-``torch.Generator``, so a full-width model never passes through host
-numpy.  Both return tensors under the normalised names (``h0.attn...``).
+arrays, either naming convention) across, the MLA schema of
+``mla_state_from`` included (``h{i}.attn.q``, ``attn.kv_a``,
+``attn.k_up``, ``attn.v_up``); ``random_state`` draws the same names and
+shapes directly on the device from a seeded ``torch.Generator``, so a
+full-width model never passes through host numpy (nor, for an MLA
+config, through one SVD per layer).  Both return tensors under the normalised names (``h0.attn...``).
 ``load_state`` writes such a dict into the training model
 (``GPTLMHeadModel``) and ``state_numpy`` reads it back out.
 """
@@ -39,7 +41,8 @@ def state_from_numpy(state: Dict[str, np.ndarray], cfg: GPTConfig,
 
 def state_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
     """Name -> shape of every weight the serving path reads (no
-    biases; norms are weight-only)."""
+    biases; norms are weight-only).  An MLA config has the
+    weight-absorbed attention schema in place of the fused qkv."""
     H, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
     hd, nh, kvh = cfg.head_dim, cfg.num_heads, cfg.kv_heads
     mult = 2 if cfg.activation == "swiglu" else 1
@@ -49,7 +52,14 @@ def state_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
     for i in range(L):
         shapes[f"h{i}.ln_1.weight"] = (H,)
         shapes[f"h{i}.ln_2.weight"] = (H,)
-        shapes[f"h{i}.attn.qkv.weight"] = ((nh + 2 * kvh) * hd, H)
+        if cfg.is_mla:
+            d_c, d_r = cfg.kv_latent_dim, cfg.rope_dim
+            shapes[f"h{i}.attn.q.weight"] = (nh * (hd + d_r), H)
+            shapes[f"h{i}.attn.kv_a.weight"] = (d_c + d_r, H)
+            shapes[f"h{i}.attn.k_up.weight"] = (nh, hd, d_c)
+            shapes[f"h{i}.attn.v_up.weight"] = (nh, hd, d_c)
+        else:
+            shapes[f"h{i}.attn.qkv.weight"] = ((nh + 2 * kvh) * hd, H)
         shapes[f"h{i}.attn.out.weight"] = (H, nh * hd)
         shapes[f"h{i}.mlp.up.weight"] = (cfg.ffn_size * mult, H)
         shapes[f"h{i}.mlp.down.weight"] = (H, cfg.ffn_size)

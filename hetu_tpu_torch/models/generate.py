@@ -12,8 +12,10 @@ Weight layouts are the training layouts (``W [out, in]``,
 activation against fp32 weights computes in fp32.
 
 Supported configs: learned or rotary positions, layernorm/rmsnorm,
-gelu/swiglu/silu/relu MLPs, GQA, tied or untied lm_head.  MLA and MoE
-configs come with later slices of the port and raise.
+gelu/swiglu/silu/relu MLPs, GQA, tied or untied lm_head, and MLA (one
+latent cache ``[b, max_len, 1, d_c]`` plus the decoupled rope key
+``[b, max_len, 1, d_r]`` per layer).  MoE configs come with a later
+slice of the port and raise.
 """
 from __future__ import annotations
 
@@ -60,8 +62,10 @@ def _act(cfg: GPTConfig, h):
 
 
 def _rotary_tables(cfg: GPTConfig, max_len: int, device=None):
-    """fp32 ``(cos, sin)`` tables ``[max_len, head_dim]`` (base 10000)."""
-    d = cfg.head_dim
+    """fp32 ``(cos, sin)`` tables ``[max_len, d]`` (base 10000).  MLA
+    rotates only the decoupled rope slice (``d = cfg.rope_dim``);
+    full-head rotates the whole head."""
+    d = cfg.rope_dim if cfg.is_mla else cfg.head_dim
     inv = 1.0 / (10000.0 ** (np.arange(0, d, 2, dtype=np.float32) / d))
     ang = np.outer(np.arange(max_len, dtype=np.float32), inv)
     emb = np.concatenate([ang, ang], axis=-1)
@@ -158,6 +162,47 @@ def _attn_step(cfg: GPTConfig, p: _Params, i: int, x, k_cache, v_cache,
     return _linear(p, i, "attn.out", attn)
 
 
+def _mla_attn_step(cfg: GPTConfig, p: _Params, i: int, x, c_cache, r_cache,
+                   pos: int, cos, sin):
+    """MLA twin of :func:`_attn_step` over LATENT caches: ``c_cache``
+    [b, max_len, 1, d_c] holds the shared compressed KV stream,
+    ``r_cache`` [b, max_len, 1, d_r] the decoupled rotated key (width 0
+    for learned positions).  Weight absorption: scores are ``(q_nope @
+    k_up) . c`` per query head and the attention output stays latent
+    until one ``v_up`` product per QUERY token, so no cached token is
+    ever decompressed.  The serving step computes the same
+    contractions.  The caches are updated in place."""
+    b, s_new, _ = x.shape
+    c = cfg
+    hd, nh = c.head_dim, c.num_heads
+    d_c, d_r = c.kv_latent_dim, c.rope_dim
+    q = _linear(p, i, "attn.q", x).reshape(b, s_new, nh, hd + d_r)
+    kv = _linear(p, i, "attn.kv_a", x)
+    k_up = p.layer(i, "attn.k_up.weight")                 # [nh, hd, d_c]
+    v_up = p.layer(i, "attn.v_up.weight")
+    q_abs = torch.einsum("bshd,hdc->bshc", q[..., :hd].float(), k_up.float())
+    c_cache[:, pos:pos + s_new] = kv[..., None, :d_c].to(c_cache.dtype)
+    if d_r:
+        idx = torch.arange(pos, pos + s_new, device=x.device)
+        q_rope = _rope(q[..., hd:], cos[idx], sin[idx])
+        k_rope = _rope(kv[..., None, d_c:], cos[idx], sin[idx])
+        r_cache[:, pos:pos + s_new] = k_rope.to(r_cache.dtype)
+        q_cat = torch.cat([q_abs, q_rope.float()], dim=-1)
+        k_cat = torch.cat([c_cache, r_cache], dim=-1)[:, :, 0]
+    else:
+        q_cat, k_cat = q_abs, c_cache[:, :, 0]            # [b, L, d_c]
+    L = c_cache.shape[1]
+    scores = torch.einsum("bshc,bkc->bhsk", q_cat,
+                          k_cat.float()) / math.sqrt(hd + d_r)
+    kpos = torch.arange(L, device=x.device)[None, None, None, :]
+    qpos = (pos + torch.arange(s_new, device=x.device))[None, None, :, None]
+    scores = scores.masked_fill(kpos > qpos, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhsk,bkc->bshc", probs, c_cache[:, :, 0].float())
+    attn = torch.einsum("bshc,hdc->bshd", o_lat, v_up.float()).to(x.dtype)
+    return _linear(p, i, "attn.out", attn.reshape(b, s_new, nh * hd))
+
+
 def _lm_head(p: _Params, x):
     """LM-head projection for already-normed hidden states ``x [b, H]``
     -> fp32 logits ``[b, V]``."""
@@ -179,7 +224,8 @@ def _forward(cfg: GPTConfig, p: _Params, ids, caches, pos: int, cos, sin):
         k_cache, v_cache = caches[i]
         h = _norm_apply(c, p.layer(i, "ln_1.weight"),
                         p.layer(i, "ln_1.bias"), x)
-        x = x + _attn_step(c, p, i, h, k_cache, v_cache, pos, cos, sin)
+        step = _mla_attn_step if c.is_mla else _attn_step
+        x = x + step(c, p, i, h, k_cache, v_cache, pos, cos, sin)
         h = _norm_apply(c, p.layer(i, "ln_2.weight"),
                         p.layer(i, "ln_2.bias"), x)
         x = x + _mlp(c, p, i, h)
@@ -190,7 +236,7 @@ def _forward(cfg: GPTConfig, p: _Params, ids, caches, pos: int, cos, sin):
 def decode_step(cfg: GPTConfig, p: _Params, tokens, caches, pos: int, cos,
                 sin):
     """Single decode step against dense ``[b, max_len, kvh, hd]``
-    caches: ``tokens [b, s_new]`` at absolute position ``pos`` ->
+    caches (MLA: the latent and rope caches): ``tokens [b, s_new]`` at absolute position ``pos`` ->
     last-position logits ``[b, V]``; the caches are written in place."""
     return _forward(cfg, p, tokens, caches, pos, cos, sin)
 
@@ -224,10 +270,14 @@ def generate(state: Dict[str, Any], cfg: GPTConfig, prompt_ids,
     cdt = torch_dtype("bfloat16" if cfg.dtype == "bfloat16" else "float32")
     cos, sin = (_rotary_tables(cfg, max_len, dev)
                 if cfg.position == "rotary" else (None, None))
-    caches = [(torch.zeros(b, max_len, cfg.kv_heads, cfg.head_dim,
-                           dtype=cdt, device=dev),
-               torch.zeros(b, max_len, cfg.kv_heads, cfg.head_dim,
-                           dtype=cdt, device=dev))
+    if cfg.is_mla:
+        # one shared latent stream and the (optional) decoupled rope key,
+        # as the paged pool's latent k/v pages
+        shapes = ((b, max_len, 1, cfg.kv_latent_dim),
+                  (b, max_len, 1, cfg.rope_dim))
+    else:
+        shapes = ((b, max_len, cfg.kv_heads, cfg.head_dim),) * 2
+    caches = [tuple(torch.zeros(s, dtype=cdt, device=dev) for s in shapes)
               for _ in range(cfg.num_layers)]
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))

@@ -125,13 +125,102 @@ def llama3_8b_config(**kw) -> GPTConfig:
     return llama_config(**base)
 
 
+def mla_config(cfg: GPTConfig, kv_latent_dim: int,
+               kv_rope_dim: Optional[int] = None) -> GPTConfig:
+    """The MLA twin of a full-head config: identical everywhere except
+    the cache layout fields."""
+    import dataclasses
+    return dataclasses.replace(cfg, kv_latent_dim=int(kv_latent_dim),
+                               kv_rope_dim=kv_rope_dim)
+
+
+def mla_state_from(state, cfg: GPTConfig, kv_latent_dim: int,
+                   kv_rope_dim: Optional[int] = None, seed: int = 0):
+    """Convert a full-head checkpoint (numpy arrays or tensors on the
+    CPU) into an MLA ``(state, config)``; the state is numpy under the
+    normalised names.
+
+    Per layer, the fused ``attn.qkv`` projection is split and re-factored
+    into the weight-absorbed MLA schema:
+
+    - ``attn.q.weight``  [nh*(hd+d_r), H]: per-head ``[q_nope | q_rope]``
+      rows; the nope rows are the source query projection verbatim.
+    - ``attn.kv_a.weight`` [d_c+d_r, H]: shared latent down-projection
+      (plus the decoupled rope key rows when d_r > 0).
+    - ``attn.k_up.weight`` / ``attn.v_up.weight`` [nh, hd, d_c]: the
+      up-projections that decode ABSORBS into q / out: ``score_h = (q_h @
+      k_up_h) . c`` and ``out_h = (probs @ C) @ v_up_h.T``, so no cached
+      token is ever decompressed.
+
+    The factorization is the truncated SVD of the stacked per-head
+    ``[W_k; W_v]``, exact (up to fp rounding) whenever that stack has
+    rank <= d_c.  Learned-position configs convert losslessly; rotary
+    sources are approximate by construction (the decoupled rope rows are
+    freshly drawn from ``np.random.RandomState(seed)``, as the JAX
+    package draws them).  K/V projection biases are least-squares-folded
+    into ``kv_a.bias``.
+    """
+    from .generate import _Params
+    d_c = int(kv_latent_dim)
+    ncfg = mla_config(cfg, d_c, kv_rope_dim)
+    d_r = ncfg.rope_dim
+    nh, kvh, hd, H = (cfg.num_heads, cfg.kv_heads, cfg.head_dim,
+                      cfg.hidden_size)
+    g = nh // kvh
+    q_size, kv_size = nh * hd, kvh * hd
+    rng = np.random.RandomState(seed)
+
+    def as_np(v):
+        return v.detach().float().cpu().numpy() if hasattr(v, "detach") \
+            else np.asarray(v)
+
+    flat = {_Params._norm(k): as_np(v) for k, v in state.items()}
+    out = {k: v for k, v in flat.items() if ".attn.qkv." not in k}
+    for i in range(cfg.num_layers):
+        w = np.asarray(flat[f"h{i}.attn.qkv.weight"], np.float32)
+        b = flat.get(f"h{i}.attn.qkv.bias")
+        b = None if b is None else np.asarray(b, np.float32)
+        wq, wk, wv = (w[:q_size], w[q_size:q_size + kv_size],
+                      w[q_size + kv_size:])
+        # latent factorization: [W_k; W_v] = U @ (S Vt), keep d_c
+        m = np.concatenate([wk, wv], axis=0)          # [2*kv_size, H]
+        u, s, vt = np.linalg.svd(m, full_matrices=False)
+        r = min(d_c, s.shape[0])
+        kv_a = np.zeros((d_c + d_r, H), np.float32)
+        kv_a[:r] = s[:r, None] * vt[:r]
+        up = np.zeros((2 * kv_size, d_c), np.float32)
+        up[:, :r] = u[:, :r]
+        k_up = up[:kv_size].reshape(kvh, hd, d_c)
+        v_up = up[kv_size:].reshape(kvh, hd, d_c)
+        # GQA: expand kv-head up-projections to query heads so decode
+        # absorbs per query head against the single shared latent
+        k_up = np.repeat(k_up, g, axis=0)
+        v_up = np.repeat(v_up, g, axis=0)
+        # query: source nope rows + fresh decoupled-rope rows
+        q_w = np.zeros((nh, hd + d_r, H), np.float32)
+        q_w[:, :hd] = wq.reshape(nh, hd, H)
+        if d_r:
+            q_w[:, hd:] = rng.normal(
+                0.0, cfg.init_std, (nh, d_r, H)).astype(np.float32)
+            kv_a[d_c:] = rng.normal(
+                0.0, cfg.init_std, (d_r, H)).astype(np.float32)
+        out[f"h{i}.attn.q.weight"] = q_w.reshape(nh * (hd + d_r), H)
+        out[f"h{i}.attn.kv_a.weight"] = kv_a
+        out[f"h{i}.attn.k_up.weight"] = k_up
+        out[f"h{i}.attn.v_up.weight"] = v_up
+        if b is not None:
+            q_b = np.zeros((nh, hd + d_r), np.float32)
+            q_b[:, :hd] = b[:q_size].reshape(nh, hd)
+            out[f"h{i}.attn.q.bias"] = q_b.reshape(-1)
+            kv_b = np.zeros((d_c + d_r,), np.float32)
+            kv_b[:d_c] = up.T @ b[q_size:]   # least-squares fold
+            out[f"h{i}.attn.kv_a.bias"] = kv_b
+    return out, ncfg
+
+
 def check_serving_config(cfg: GPTConfig) -> None:
-    """The port serves the plain (non-MLA), dense configuration; the
-    other layouts come with later slices and are refused by name."""
-    if cfg.is_mla:
-        raise NotImplementedError(
-            "MLA (kv_latent_dim) serving is ported in the MLA serving "
-            "slice (latent ragged paged attention)")
+    """The port serves dense configurations, full-head or MLA; MoE comes
+    with a later slice and is refused by name."""
     if cfg.num_experts > 0:
         raise NotImplementedError(
             "MoE layers (num_experts > 0) are ported in the MoE slice")
@@ -142,12 +231,13 @@ def check_serving_config(cfg: GPTConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def check_training_config(cfg: GPTConfig) -> None:
-    """The training model of this slice is the dense, single-device one;
-    the other layouts are refused by name."""
+    """The training model is the dense, single-device one.  MLA is a
+    serving layout that no package trains (``ValueError``); the layouts
+    still to be ported are refused by name."""
     if cfg.is_mla:
-        raise NotImplementedError(
-            "MLA (kv_latent_dim) is a serving cache layout, ported with the "
-            "MLA serving slice")
+        raise ValueError(
+            "MLA (kv_latent_dim) is a decode/serving cache layout; "
+            "train full-head and convert with models.gpt.mla_state_from")
     if cfg.num_experts > 0:
         raise NotImplementedError(
             "MoE layers (num_experts > 0) are ported in the MoE slice")

@@ -29,6 +29,19 @@ Two implementations with that contract:
 version for CPU tensors, the kernel for CUDA tensors.  A kernel that
 fails to build or launch raises; there is no fallback.
 
+The MLA latent variants (``latent_*``) run the same ragged contract
+against ONE compressed KV stream per layer: ``c_pages [P, ps, 1, w]``
+(bf16/fp32 latents, int8 codes, or packed 4-bit codes at ``w = d_c / 2``,
+the quantized ones with a per-token absmax sidecar ``scale_pages [P, ps,
+1, 1]``) and an optional decoupled-rope key stream ``r_pages [P, ps, 1,
+d_r]``.  The query arrives weight-absorbed, ``q [T, nh, d_c + d_r]``, so
+scores are MQA dot products in latent space and the output stays latent
+(``[T, nh, d_c]`` fp32); the caller folds ``v_up`` in per query token.
+``latent_ragged_paged_attention`` dispatches like the full-head entry
+point: the plain version for CPU tensors, the CUDA kernel
+(``csrc/latent_ragged_paged_attention.cu``) for CUDA tensors, no
+fallback.
+
 The module also holds the serving step's on-device sampler
 (``sample_rows``).
 """
@@ -39,6 +52,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..core.device import sm_count
 
 # finite mask value of the TPU kernels (-0.7 * float32 max): masked
 # scores stay finite, so a fully-masked row never produces NaN
@@ -215,6 +230,298 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             q, k_pages, v_pages, q_lens, cu_q, page_tables, ctx_lens,
             max_q=max_q, softmax_scale=softmax_scale)
     raise ValueError(f"no ragged paged attention for device {q.device}")
+
+
+# ---------------------------------------------------------------------------
+# MLA latent path
+# ---------------------------------------------------------------------------
+
+def _dequant_latent(codes, scales, quant, latent_dim):
+    """fp32 view of a gathered latent window: a cast when ``quant`` is
+    None, else per-token absmax dequant (codes ``[..., w]`` + scales
+    ``[..., 1]`` -> ``[..., latent_dim]``)."""
+    if quant is None:
+        return codes.float()
+    from .quantization import dequantize_rows
+    return dequantize_rows(codes, scales, quant, latent_dim)
+
+
+def _check_latent_shapes(q, c_pages, r_pages, quant, latent_dim):
+    nh, dq = q.shape[-2], q.shape[-1]
+    p_, ps, one, wc = c_pages.shape
+    if one != 1:
+        raise ValueError(f"latent c_pages carry ONE shared stream, got "
+                         f"{tuple(c_pages.shape)}")
+    d_c = int(latent_dim) if latent_dim is not None else wc
+    if quant in ("nf4", "fp4"):
+        if wc * 2 != d_c:
+            raise ValueError(f"{quant} codes width {wc} != latent_dim/2 "
+                             f"({d_c})")
+    elif wc != d_c:
+        raise ValueError(f"c_pages width {wc} != latent_dim {d_c}")
+    d_r = 0
+    if r_pages is not None and r_pages.shape[-1] > 0:
+        if tuple(r_pages.shape[:2]) != (p_, ps) or r_pages.shape[2] != 1:
+            raise ValueError(f"r_pages {tuple(r_pages.shape)} incompatible "
+                             f"with c_pages {tuple(c_pages.shape)}")
+        d_r = r_pages.shape[-1]
+    if dq != d_c + d_r:
+        raise ValueError(f"absorbed q width {dq} != d_c + d_r "
+                         f"({d_c}+{d_r})")
+    return nh, ps, d_c, d_r
+
+
+def _latent_keys(c_pages, r_pages, scale_pages, pt, quant, d_c, d_r):
+    """Gather the pages ``pt [..., n]`` names in position order:
+    ``(k [..., n*ps, d_c + d_r], c [..., n*ps, d_c])`` in fp32, ``c`` the
+    dequantized latent and ``k`` the latent beside the rope key."""
+    lead = tuple(pt.shape[:-1])
+    kk = pt.shape[-1] * c_pages.shape[1]
+    c = c_pages[pt].reshape(*lead, kk, c_pages.shape[-1])
+    sc = None if scale_pages is None else \
+        scale_pages[pt].reshape(*lead, kk, 1)
+    cd = _dequant_latent(c, sc, quant, d_c)
+    if not d_r:
+        return cd, cd
+    r = r_pages[pt].reshape(*lead, kk, d_r)
+    return torch.cat([cd, r.float()], dim=-1), cd
+
+
+def latent_paged_attention_reference(
+        q: torch.Tensor, c_pages: torch.Tensor,
+        r_pages: Optional[torch.Tensor], page_tables: torch.Tensor,
+        seq_lens: torch.Tensor, *, softmax_scale: float,
+        scale_pages: Optional[torch.Tensor] = None,
+        quant: Optional[str] = None,
+        latent_dim: Optional[int] = None) -> torch.Tensor:
+    """Decode-slot version over latent pages: absorbed ``q [B, nh,
+    d_c+d_r]`` (one token per request), ``seq_lens`` counting the token
+    just written -> latent output ``[B, nh, d_c]`` fp32.  Gathers and
+    masks with ``-inf`` like ``paged_attention_reference``."""
+    nh, ps, d_c, d_r = _check_latent_shapes(q, c_pages, r_pages, quant,
+                                            latent_dim)
+    pt = page_tables.long()
+    kk = pt.shape[1] * ps
+    k, cd = _latent_keys(c_pages, r_pages, scale_pages, pt, quant, d_c, d_r)
+    s = torch.einsum("bhc,bkc->bhk", q.float(), k) * softmax_scale
+    valid = torch.arange(kk, device=q.device)[None] < seq_lens[:, None]
+    s = s.masked_fill(~valid[:, None, :], float("-inf"))
+    return torch.einsum("bhk,bkc->bhc", torch.softmax(s, dim=-1), cd)
+
+
+def latent_ragged_paged_attention_reference(
+        q: torch.Tensor, c_pages: torch.Tensor,
+        r_pages: Optional[torch.Tensor], q_lens: torch.Tensor,
+        cu_q: torch.Tensor, page_tables: torch.Tensor,
+        ctx_lens: torch.Tensor, *, max_q: int, softmax_scale: float,
+        scale_pages: Optional[torch.Tensor] = None,
+        quant: Optional[str] = None,
+        latent_dim: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of the latent kernel (the ragged contract of
+    :func:`ragged_paged_attention_reference`, ``DEFAULT_MASK_VALUE``
+    masking): absorbed ``q [T, nh, d_c+d_r]`` -> latent ``[T, nh, d_c]``
+    fp32, 0 on tokens that belong to no row."""
+    nh, ps, d_c, d_r = _check_latent_shapes(q, c_pages, r_pages, quant,
+                                            latent_dim)
+    if quant is not None and scale_pages is None:
+        raise ValueError("quantized latent pages need scale_pages")
+    t = q.shape[0]
+    kk = page_tables.shape[1] * ps
+    kv_pos = torch.arange(kk, device=q.device)
+    out = torch.zeros((t, nh, d_c), dtype=torch.float32, device=q.device)
+    ql, cu, cl = q_lens.tolist(), cu_q.tolist(), ctx_lens.tolist()
+    for i in range(len(ql)):
+        start, ctx = int(cu[i]), int(cl[i])
+        n = min(int(ql[i]), int(max_q), t - start)
+        if n <= 0:
+            continue
+        k, cd = _latent_keys(c_pages, r_pages, scale_pages,
+                             page_tables[i].long(), quant, d_c, d_r)
+        s = torch.einsum("qhc,kc->qhk", q[start:start + n].float(),
+                         k) * softmax_scale
+        qpos = (ctx - int(ql[i])) + torch.arange(n, device=q.device)
+        valid = kv_pos[None, :] <= qpos[:, None]
+        s = s.masked_fill(~valid[:, None, :], DEFAULT_MASK_VALUE)
+        out[start:start + n] = torch.einsum(
+            "qhk,kc->qhc", torch.softmax(s, dim=-1), cd)
+    return out
+
+
+# page kinds of the latent kernel: how it reads c_pages (and r_pages)
+_LATENT_KINDS = {(None, torch.float32): 0, (None, torch.bfloat16): 1,
+                 ("int8", torch.int8): 2, ("nf4", torch.uint8): 3,
+                 ("fp4", torch.uint8): 3}
+_LATENT_MAX_DC = 512          # accumulator columns a block holds
+_LATENT_MAX_WIDTH = 640       # d_c + d_r: q and K tiles in shared memory
+_LATENT_SPLIT_PAIRS = 128     # kSplitPairs: rows this short split the KV axis
+_LATENT_MIN_SPLIT_LEN = 128   # KV positions a slice holds at least
+_LATENT_MAX_SPLITS = 16
+
+
+def _latent_kv_splits(device, n_rows: int, capacity: int) -> int:
+    """Slices of the KV axis for the short (decode) rows: two blocks per SM
+    if every row is short, none shorter than ``_LATENT_MIN_SPLIT_LEN``
+    positions of the page table's capacity."""
+    want = 2 * sm_count(device) // n_rows
+    return max(1, min(want, capacity // _LATENT_MIN_SPLIT_LEN,
+                      _LATENT_MAX_SPLITS))
+
+
+def _latent_kernel_lib():
+    from ..csrc.build import load_library
+    lib = load_library("latent_ragged_paged_attention")
+    fn = lib.hetu_latent_ragged_paged_attention
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.hetu_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.hetu_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def latent_ragged_paged_attention_cuda(
+        q: torch.Tensor, c_pages: torch.Tensor,
+        r_pages: Optional[torch.Tensor], q_lens: torch.Tensor,
+        cu_q: torch.Tensor, page_tables: torch.Tensor,
+        ctx_lens: torch.Tensor, *, max_q: int, softmax_scale: float,
+        scale_pages: Optional[torch.Tensor] = None,
+        quant: Optional[str] = None,
+        latent_dim: Optional[int] = None) -> torch.Tensor:
+    """The CUDA latent kernel (same contract as the plain version).
+    Every tensor must lie on one CUDA device.  ``q`` is fp32 (the absorbed
+    query is fp32 by construction); unquantized ``c_pages`` and
+    ``r_pages`` share a dtype (bf16 or fp32); int8 and 4-bit pages come
+    with fp32 ``scale_pages`` and no rope stream.  ``d_c`` and ``d_r`` are
+    multiples of 4 with ``d_c <= 512`` and ``d_c + d_r <= 640``; other
+    widths raise.  The output is allocated zeroed here and the kernel
+    writes only real tokens; rows of at most 128 (token, head) pairs
+    (decode rows) are split over the KV axis through an fp32 workspace.
+    ``latent_ragged_paged_attention_cuda.launches`` counts the launches."""
+    nh, ps, d_c, d_r = _check_latent_shapes(q, c_pages, r_pages, quant,
+                                            latent_dim)
+    if q.dim() != 3:
+        raise ValueError(f"q must be [T, nh, d_c+d_r], got "
+                         f"{tuple(q.shape)}")
+    t = q.shape[0]
+    s = q_lens.shape[0]
+    if tuple(cu_q.shape) != (s + 1,):
+        raise ValueError(f"cu_q must be [S+1]={s + 1}, got "
+                         f"{tuple(cu_q.shape)}")
+    if page_tables.ndim != 2 or page_tables.shape[0] != s:
+        raise ValueError(f"page_tables must be [S, maxp], got "
+                         f"{tuple(page_tables.shape)}")
+    if tuple(ctx_lens.shape) != (s,):
+        raise ValueError(f"ctx_lens must be [S], got "
+                         f"{tuple(ctx_lens.shape)}")
+    if not 1 <= int(max_q):
+        raise ValueError(f"max_q must be >= 1, got {max_q}")
+    maxp = page_tables.shape[1]
+    if not d_r:
+        r_pages = None
+    if quant is not None:
+        if scale_pages is None:
+            raise ValueError("quantized latent pages need scale_pages")
+        if r_pages is not None:
+            raise ValueError("quantized latent pages carry no rope stream")
+        if tuple(scale_pages.shape) != (c_pages.shape[0], ps, 1, 1) or \
+                scale_pages.dtype != torch.float32:
+            raise ValueError(f"scale_pages must be fp32 [P, ps, 1, 1], got "
+                             f"{scale_pages.dtype} "
+                             f"{tuple(scale_pages.shape)}")
+    else:
+        scale_pages = None
+    kind = _LATENT_KINDS.get((quant, c_pages.dtype))
+    if kind is None:
+        raise ValueError(f"no latent kernel for quant={quant!r} with "
+                         f"c_pages of {c_pages.dtype}")
+    if q.dtype != torch.float32:
+        raise ValueError(f"the absorbed q must be float32, got {q.dtype}")
+    if r_pages is not None and r_pages.dtype != c_pages.dtype:
+        raise ValueError(f"r_pages {r_pages.dtype} != c_pages "
+                         f"{c_pages.dtype}")
+    if d_c % 4 or d_r % 4 or d_c > _LATENT_MAX_DC or \
+            d_c + d_r > _LATENT_MAX_WIDTH:
+        raise ValueError(
+            f"latent widths (d_c={d_c}, d_r={d_r}) not covered by the "
+            f"kernel: multiples of 4, d_c <= {_LATENT_MAX_DC}, d_c + d_r "
+            f"<= {_LATENT_MAX_WIDTH}")
+    tensors = [q, c_pages, q_lens, cu_q, page_tables, ctx_lens]
+    tensors += [x for x in (r_pages, scale_pages) if x is not None]
+    if any(x.device != q.device or x.device.type != "cuda"
+           for x in tensors):
+        raise ValueError("latent_ragged_paged_attention_cuda needs every "
+                         "tensor on one CUDA device")
+    for name, x in zip(("q_lens", "cu_q", "page_tables", "ctx_lens"),
+                       tensors[2:6]):
+        if x.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {x.dtype}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("latent_ragged_paged_attention_cuda needs "
+                         "contiguous tensors")
+    # the kernel reads q in 16-byte vectors and the pages in vectors of 4
+    # elements; a misaligned address would fault asynchronously
+    if any(x.data_ptr() % 16 for x in (q, c_pages, r_pages)
+           if x is not None):
+        raise ValueError("latent_ragged_paged_attention_cuda needs q, "
+                         "c_pages and r_pages aligned to 16 bytes")
+    lib = _latent_kernel_lib()
+    out = torch.zeros((t, nh, d_c), dtype=torch.float32, device=q.device)
+    if s == 0 or t == 0:
+        return out
+    from .quantization import _CODES
+    code = (ctypes.c_float * 16)(*_CODES.get(quant, _CODES["nf4"]).tolist())
+    n_splits = _latent_kv_splits(q.device, s, maxp * ps)
+    ws_acc = ws_ml = None
+    if n_splits > 1:
+        ws_acc = torch.empty((s, _LATENT_SPLIT_PAIRS, n_splits, d_c),
+                             dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((s, _LATENT_SPLIT_PAIRS, n_splits, 2),
+                            dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hetu_latent_ragged_paged_attention(
+            q.data_ptr(), c_pages.data_ptr(),
+            r_pages.data_ptr() if r_pages is not None else None,
+            scale_pages.data_ptr() if scale_pages is not None else None,
+            ctypes.cast(code, ctypes.c_void_p), out.data_ptr(),
+            q_lens.data_ptr(), cu_q.data_ptr(), page_tables.data_ptr(),
+            ctx_lens.data_ptr(),
+            ws_acc.data_ptr() if ws_acc is not None else None,
+            ws_ml.data_ptr() if ws_ml is not None else None,
+            t, nh, d_c, d_r, ps, s, maxp, int(max_q), kind, n_splits,
+            float(softmax_scale), stream)
+    if err != 0:
+        raise RuntimeError(
+            "latent ragged paged attention kernel failed: "
+            f"{lib.hetu_cuda_error_string(err).decode()} (cudaError {err})")
+    latent_ragged_paged_attention_cuda.launches += 1
+    return out
+
+
+latent_ragged_paged_attention_cuda.launches = 0
+
+
+def latent_ragged_paged_attention(
+        q: torch.Tensor, c_pages: torch.Tensor,
+        r_pages: Optional[torch.Tensor], q_lens: torch.Tensor,
+        cu_q: torch.Tensor, page_tables: torch.Tensor,
+        ctx_lens: torch.Tensor, *, max_q: int, softmax_scale: float,
+        scale_pages: Optional[torch.Tensor] = None,
+        quant: Optional[str] = None,
+        latent_dim: Optional[int] = None) -> torch.Tensor:
+    """Dispatch on q's device: the plain version for CPU tensors, the
+    CUDA kernel for CUDA tensors."""
+    kw = dict(max_q=max_q, softmax_scale=softmax_scale,
+              scale_pages=scale_pages, quant=quant, latent_dim=latent_dim)
+    if q.device.type == "cpu":
+        return latent_ragged_paged_attention_reference(
+            q, c_pages, r_pages, q_lens, cu_q, page_tables, ctx_lens, **kw)
+    if q.device.type == "cuda":
+        return latent_ragged_paged_attention_cuda(
+            q, c_pages, r_pages, q_lens, cu_q, page_tables, ctx_lens, **kw)
+    raise ValueError(f"no latent ragged paged attention for device "
+                     f"{q.device}")
 
 
 # ---------------------------------------------------------------------------

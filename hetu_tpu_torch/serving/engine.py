@@ -1,6 +1,6 @@
 """Continuous-batching inference engine over the paged KV pool (port of
-``hetu_tpu.serving.engine`` for the plain, dense, non-speculative
-configuration).
+``hetu_tpu.serving.engine`` for the dense, non-speculative
+configurations: full-head and MLA latent pages).
 
 Every ``step()`` admits arrived requests, packs ALL live work (prefill
 chunks + decode tokens) into one ragged token batch, runs the unified
@@ -22,10 +22,12 @@ device decides the attention path: the CUDA kernel on the card, the
 plain version on the CPU.
 
 Prefix reuse (``serving/prefix_cache.py``, on by default) and the
-metrics (``utils/metrics.py``) are as in the JAX engine.  Speculative
-decoding, MLA page layouts, the host KV tier, meshes, the tracer and the
-analysis tap come with later slices of the port; the options that select
-them raise ``NotImplementedError``.
+metrics (``utils/metrics.py``) are as in the JAX engine.  An MLA config
+(``cfg.is_mla``) gets latent pages, with a decoupled rope stream for
+rotary configs and, under ``page_quant="int8"|"nf4"`` (learned-position
+configs), per-token absmax codes.  Speculative decoding, the host KV
+tier, meshes, the tracer and the analysis tap come with later slices of
+the port; the options that select them raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,7 +52,6 @@ DEFAULT_LATENCY_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                            10.0)
 
 _LATER_SLICES = {"spec": "speculative decoding",
-                 "page_quant": "MLA serving (quantized latent pages)",
                  "host_tier": "SLO traffic plane (host KV tier)",
                  "mesh": "parallelism (sharded KV pool)"}
 
@@ -66,14 +67,18 @@ class Engine:
                  prefix_cache: bool = True, debug: bool = False,
                  device="cuda", spec=None, page_quant=None,
                  host_tier=None, mesh=None):
-        for name, val in (("spec", spec), ("page_quant", page_quant),
-                          ("host_tier", host_tier), ("mesh", mesh)):
+        for name, val in (("spec", spec), ("host_tier", host_tier),
+                          ("mesh", mesh)):
             if val is not None and val is not False:
                 raise NotImplementedError(
                     f"Engine({name}=...) is ported with the "
                     f"{_LATER_SLICES[name]} slice")
         check_serving_config(cfg)
+        if page_quant is not None and not cfg.is_mla:
+            raise ValueError("page_quant requires an MLA config "
+                             "(kv_latent_dim set)")
         self.cfg = cfg
+        self.page_quant = page_quant
         self.device = resolve_device(device)
         self.params = _Params(state, cfg, self.device).s
         if max_model_len is None:
@@ -88,7 +93,8 @@ class Engine:
             cfg.head_dim,
             torch_dtype("bfloat16" if cfg.dtype == "bfloat16"
                         else "float32"),
-            device=self.device, debug=debug)
+            device=self.device, debug=debug, latent_dim=cfg.kv_latent_dim,
+            rope_dim=cfg.rope_dim, quant=page_quant)
         self.prefix_cache: Optional[PrefixCache] = \
             PrefixCache(self.pool) if prefix_cache else None
         if self.prefix_cache is not None:
@@ -135,7 +141,7 @@ class Engine:
                     self.scheduler.chunk)
         self._step_fn = build_unified_step_fn(
             cfg, s, ck, r, self.max_pages_per_seq, page_size,
-            device=self.device)
+            device=self.device, page_quant=page_quant)
         self.n_rows = s + r
         self.n_tokens = s + r * ck
         self._cu_q = np.concatenate([np.arange(s, dtype=np.int32),

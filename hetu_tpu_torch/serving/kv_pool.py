@@ -1,11 +1,12 @@
 """Paged KV-cache pool: preallocated page storage + free-list allocator
-(port of ``hetu_tpu.serving.kv_pool``, full-head layout).
+(port of ``hetu_tpu.serving.kv_pool``).
 
 The pool preallocates ``num_pages`` fixed ``page_size``-token pages per
-layer, ``[num_pages, page_size, kv_heads, head_dim]`` tensors on the
-engine's device, and hands them out on demand: a request holds
-``ceil(len / page_size)`` pages, so mixed-length traffic shares device
-memory in proportion to what it uses.
+layer on the engine's device and hands them out on demand: a request
+holds ``ceil(len / page_size)`` pages, so mixed-length traffic shares
+device memory in proportion to what it uses.  Full-head pages are
+``[num_pages, page_size, kv_heads, head_dim]`` for k and v; the latent
+(MLA) layouts are described at :class:`PagedKVPool`.
 
 Page 0 is the reserved **trash page**: every padded page-table slot and
 every padding token's KV write points at it, so the serving step can
@@ -40,6 +41,10 @@ _PROTOCOL_SEQ = itertools.count(1)
 def protocol_seq() -> int:
     """Next value of the process-global event sequence counter."""
     return next(_PROTOCOL_SEQ)
+
+
+# page_quant codes for the layout tag (order is part of the tag)
+_QUANT_CODES = {None: 0, "int8": 1, "nf4": 2}
 
 
 def page_shape_bytes(shape: Sequence[int], dtype: torch.dtype) -> int:
@@ -83,30 +88,76 @@ def page_partition_problems(num_pages: int, free_list, allocated,
 
 
 class PagedKVPool:
-    """Free-list page allocator over per-layer k/v page tensors
-    ``[P, ps, kv_heads, head_dim]``."""
+    """Free-list page allocator over per-layer k/v page tensors.
+
+    Two layouts share every allocator and bookkeeping path:
+
+    - **full-head** (default): k and v pages are both
+      ``[P, ps, kv_heads, head_dim]``.
+    - **latent** (MLA, ``latent_dim`` set): k_pages hold ONE compressed
+      stream ``[P, ps, 1, latent_dim]`` and v_pages carry the decoupled
+      rotated key ``[P, ps, 1, rope_dim]`` (width 0 for learned
+      positions).  With ``quant`` set (int8/nf4, learned-position MLA
+      only), k_pages store codes (int8, or packed uint8 at
+      ``latent_dim // 2``) and v_pages become the per-token fp32 absmax
+      sidecar ``[P, ps, 1, 1]``.
+
+    Page-table math, the allocator, the refcounts and the prefix cache
+    never look inside a page; only ``page_bytes`` and ``layout_tag``
+    observe the difference.
+    """
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  kv_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32, device=None,
-                 debug: bool = False):
+                 debug: bool = False, latent_dim: Optional[int] = None,
+                 rope_dim: int = 0, quant: Optional[str] = None):
         if num_pages < 2:
             raise ValueError(f"num_pages must be >= 2 (page 0 is the "
                              f"reserved trash page), got {num_pages}")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if quant is not None:
+            if quant not in ("int8", "nf4"):
+                raise ValueError(f"page quant must be int8|nf4, "
+                                 f"got {quant!r}")
+            if latent_dim is None or rope_dim:
+                raise ValueError("page quantization requires the latent "
+                                 "(MLA) layout with rope_dim == 0 — the "
+                                 "v-page slot carries the absmax sidecar")
+            if quant == "nf4" and latent_dim % 2:
+                raise ValueError(f"nf4 pages need even latent_dim, got "
+                                 f"{latent_dim}")
         self.num_layers = int(num_layers)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.kv_heads = int(kv_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype
-        shape = (num_pages, page_size, kv_heads, head_dim)
+        self.latent_dim = None if latent_dim is None else int(latent_dim)
+        self.rope_dim = int(rope_dim)
+        self.quant = quant
+        if latent_dim is not None:
+            if quant == "int8":
+                k_shape = (num_pages, page_size, 1, self.latent_dim)
+                k_dtype = torch.int8
+            elif quant == "nf4":
+                k_shape = (num_pages, page_size, 1, self.latent_dim // 2)
+                k_dtype = torch.uint8
+            else:
+                k_shape = (num_pages, page_size, 1, self.latent_dim)
+                k_dtype = dtype
+            # rope stream, or the per-token absmax sidecar when quantized
+            v_shape = (num_pages, page_size, 1, 1 if quant else self.rope_dim)
+            v_dtype = torch.float32 if quant else dtype
+        else:
+            k_shape = v_shape = (num_pages, page_size, kv_heads, head_dim)
+            k_dtype = v_dtype = dtype
         self.k_pages: Tuple[torch.Tensor, ...] = tuple(
-            torch.zeros(shape, dtype=dtype, device=device)
+            torch.zeros(k_shape, dtype=k_dtype, device=device)
             for _ in range(num_layers))
         self.v_pages: Tuple[torch.Tensor, ...] = tuple(
-            torch.zeros(shape, dtype=dtype, device=device)
+            torch.zeros(v_shape, dtype=v_dtype, device=device)
             for _ in range(num_layers))
         # LIFO free list: recently-freed pages are re-issued first;
         # page 0 reserved
@@ -235,8 +286,19 @@ class PagedKVPool:
     # -- accounting ----------------------------------------------------------
 
     @property
+    def is_latent(self) -> bool:
+        return self.latent_dim is not None
+
+    def page_array_shapes(self):
+        """Per-layer (k, v) page-tensor shapes, read from the live
+        tensors, so they are right for every layout."""
+        return (tuple(tuple(p.shape) for p in self.k_pages),
+                tuple(tuple(p.shape) for p in self.v_pages))
+
+    @property
     def page_bytes(self) -> int:
-        """Device bytes one page holds across k+v and all layers."""
+        """Device bytes one page holds across k+v and all layers, summed
+        from the live page tensors."""
         return sum(page_shape_bytes(p.shape, p.dtype)
                    for p in self.k_pages + self.v_pages)
 
@@ -244,3 +306,13 @@ class PagedKVPool:
     def kv_bytes_per_token(self) -> int:
         """KV bytes ONE cached token costs across all layers."""
         return self.page_bytes // self.page_size
+
+    @property
+    def layout_tag(self) -> Tuple[int, ...]:
+        """Compact int tuple identifying the page LAYOUT (not contents):
+        two pools agree on it iff a page of one can be placed in the
+        other and read back identically."""
+        if self.is_latent:
+            return (1, self.latent_dim, self.rope_dim,
+                    _QUANT_CODES[self.quant], self.dtype.itemsize)
+        return (0, self.kv_heads, self.head_dim, 0, self.dtype.itemsize)

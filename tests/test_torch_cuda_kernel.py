@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels against their plain versions
 (ragged paged attention; flash attention forward, fused backward and
-split dq / dk-dv backward).
+split dq / dk-dv backward; latent ragged paged attention; paged decode
+attention).
 
 Marked ``cuda``; they skip where no CUDA device is present (the check
 runs inside the fixture, never at import).  The file imports neither
@@ -254,3 +255,205 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         fa.flash_fwd_cuda(shifted, k, v, 0.1, True)
     with pytest.raises(ValueError, match="one CUDA device"):
         fa.flash_fwd_cuda(q.cpu(), k, v, 0.1, True)
+
+
+# ---------------------------------------------------------------------------
+# latent ragged paged attention, kernel 6 (csrc/latent_ragged_paged_attention.cu)
+# ---------------------------------------------------------------------------
+
+from hetu_tpu_torch.ops import ragged_paged_attention as rpa  # noqa: E402
+from hetu_tpu_torch.ops.quantization import quantize_rows  # noqa: E402
+
+# (q_lens, ctx_lens, maxp, ps, nh, d_c, d_r, max_q)
+LATENT_CASES = [
+    ([1, 5, 0, 6], [13, 10, 0, 6], 3, 8, 4, 16, 4, 8),
+    ([1, 5, 0, 6], [13, 10, 0, 6], 3, 8, 4, 16, 0, 8),
+    ([1, 1, 1, 1], [9, 3, 17, 1], 3, 8, 5, 16, 4, 8),     # one-token context
+    ([8, 8], [8, 24], 4, 8, 5, 16, 0, 8),                 # nh 5: ragged tiles
+    ([3, 0, 0, 7], [20, 0, 0, 7], 4, 8, 12, 256, 0, 8),
+    ([1, 1, 0, 37], [300, 64, 0, 200], 5, 64, 32, 512, 64, 64),
+    ([40, 1, 3], [40, 130, 3], 3, 64, 12, 128, 32, 40),
+    # short rows split over the KV axis, one slice wholly masked for the
+    # first tokens of the 4-token row
+    ([1, 2, 4, 1], [500, 130, 257, 1], 8, 64, 12, 256, 0, 8),
+]
+# page kinds: (quant, page dtype)
+LATENT_KINDS = {"fp32": (None, torch.float32), "bf16": (None, torch.bfloat16),
+                "int8": ("int8", None), "nf4": ("nf4", None)}
+
+
+def _latent_inputs(case, kind, device, seed=0):
+    q_lens, ctx_lens, maxp, ps, nh, d_c, d_r, max_q = case
+    quant, page_dtype = LATENT_KINDS[kind]
+    rng = np.random.RandomState(seed)
+    s = len(q_lens)
+    cu = np.zeros(s + 1, np.int32)
+    cu[1:] = np.cumsum(q_lens)
+    t = max(int(cu[-1]), 1) + 3                  # trailing padding tokens
+    num_pages = 1 + sum(-(-c // ps) for c in ctx_lens) + 2
+    perm = rng.permutation(np.arange(1, num_pages))
+    pt = np.zeros((s, maxp), np.int32)           # padding slots -> page 0
+    k = 0
+    for i in range(s):
+        need = -(-ctx_lens[i] // ps)
+        pt[i, :need] = perm[k:k + need]
+        k += need
+
+    def dev(a, dt=None):
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return x.to(device=device, dtype=dt) if dt else x.to(device)
+
+    q = dev(rng.randn(t, nh, d_c + d_r).astype(np.float32))
+    lat = dev(rng.randn(num_pages, ps, 1, d_c).astype(np.float32))
+    lat[3, 1] = 0                                # a zero row: absmax 0
+    r_pages = scale_pages = None
+    if quant:
+        c_pages, scale_pages = quantize_rows(lat, quant)
+    else:
+        c_pages = lat.to(page_dtype)
+        if d_r:
+            r_pages = dev(rng.randn(num_pages, ps, 1, d_r), page_dtype)
+    args = (q, c_pages, r_pages, dev(np.asarray(q_lens, np.int32)), dev(cu),
+            dev(pt), dev(np.asarray(ctx_lens, np.int32)))
+    kw = dict(max_q=max_q, softmax_scale=(d_c // 4 + d_r) ** -0.5,
+              scale_pages=scale_pages, quant=quant, latent_dim=d_c)
+    mask = np.zeros(t, bool)
+    for i in range(s):
+        mask[cu[i]:cu[i] + min(q_lens[i], max_q)] = True
+    return args, kw, torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.parametrize("kind", sorted(LATENT_KINDS))
+@pytest.mark.parametrize("case", LATENT_CASES)
+def test_latent_kernel_matches_plain_version(cuda_device, case, kind):
+    """fp32 products on both sides against the same dequantized values:
+    |got - want| <= 1e-4 (1 + |want|), the order of fp32 sums."""
+    if LATENT_KINDS[kind][0] and case[6]:
+        pytest.skip("quantized latent pages carry no rope stream")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, kw, mask = _latent_inputs(case, kind, cuda_device)
+    before = rpa.latent_ragged_paged_attention_cuda.launches
+    got = rpa.latent_ragged_paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert rpa.latent_ragged_paged_attention_cuda.launches == before + 1
+    want = rpa.latent_ragged_paged_attention_reference(*args, **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    over = ((got - want).abs() - 1e-4 * (1 + want.abs()))[mask]
+    assert over.max().item() <= 0, over.max().item()
+    assert torch.count_nonzero(got[~mask]).item() == 0
+
+
+def test_latent_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    args, kw, _ = _latent_inputs(LATENT_CASES[0], "fp32", cuda_device)
+    q, c_pages, r_pages = args[:3]
+    with pytest.raises(ValueError, match="must be float32"):
+        rpa.latent_ragged_paged_attention_cuda(q.bfloat16(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="r_pages torch.bfloat16"):
+        rpa.latent_ragged_paged_attention_cuda(
+            q, c_pages, r_pages.bfloat16(), *args[3:], **kw)
+    with pytest.raises(ValueError, match="no latent kernel"):
+        rpa.latent_ragged_paged_attention_cuda(
+            q, c_pages.half(), r_pages.half(), *args[3:], **kw)
+    # a width the kernel does not cover raises instead of falling back
+    wide = torch.zeros(4, 8, 1, 516, device=cuda_device)
+    with pytest.raises(ValueError, match="not covered by the kernel"):
+        rpa.latent_ragged_paged_attention(
+            torch.zeros(q.shape[0], 4, 516, device=cuda_device), wide, None,
+            *args[3:], **{**kw, "latent_dim": 516})
+    odd = torch.zeros(4, 8, 1, 18, device=cuda_device)
+    with pytest.raises(ValueError, match="not covered by the kernel"):
+        rpa.latent_ragged_paged_attention(
+            torch.zeros(q.shape[0], 4, 18, device=cuda_device), odd, None,
+            *args[3:], **{**kw, "latent_dim": 18})
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rpa.latent_ragged_paged_attention_cuda(q, c_pages.cpu(), *args[2:],
+                                               **kw)
+    with pytest.raises(ValueError, match="need scale_pages"):
+        rpa.latent_ragged_paged_attention_cuda(
+            q[..., :16].contiguous(), c_pages.to(torch.int8), None,
+            *args[3:], **{**kw, "quant": "int8"})
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention, kernel 7 (csrc/paged_attention.cu)
+# ---------------------------------------------------------------------------
+
+from hetu_tpu_torch.ops import paged_attention as pa  # noqa: E402
+
+# (seq_lens, maxp, ps, nh, kvh, hd)
+PAGED_CASES = [
+    ([13, 5, 24], 3, 8, 8, 2, 32),
+    ([19, 8], 4, 8, 4, 2, 64),
+    ([9, 17, 0, 1], 3, 8, 4, 4, 128),            # MHA, seq_len 0 and 1
+    ([1, 8, 2], 2, 4, 10, 2, 64),                # g = 5: two head chunks
+    ([300, 64, 0, 1000, 513], 16, 64, 32, 8, 128),     # split KV axis
+    ([70, 129], 3, 64, 24, 2, 64),               # g = 12: three head chunks
+]
+
+
+def _paged_inputs(case, dtype, device, seed=0):
+    seq_lens, maxp, ps, nh, kvh, hd = case
+    rng = np.random.RandomState(seed)
+    b = len(seq_lens)
+    num_pages = 1 + sum(-(-c // ps) for c in seq_lens) + 2
+    perm = rng.permutation(np.arange(1, num_pages))
+    pt = np.zeros((b, maxp), np.int32)           # padding slots -> page 0
+    k = 0
+    for i in range(b):
+        need = -(-seq_lens[i] // ps)
+        pt[i, :need] = perm[k:k + need]
+        k += need
+
+    def dev(a, dt=None):
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return x.to(device=device, dtype=dt) if dt else x.to(device)
+
+    return (dev(rng.randn(b, nh, hd), dtype),
+            dev(rng.randn(num_pages, ps, kvh, hd), dtype),
+            dev(rng.randn(num_pages, ps, kvh, hd), dtype), dev(pt),
+            dev(np.asarray(seq_lens, np.int32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernel_matches_plain_version(cuda_device, case, dtype):
+    """fp32: 2e-5 (sum order only).  bf16: both sides accumulate in fp32
+    and round the output once, so within each request one bf16 ulp of the
+    value (2**-7) plus 1/32 of the request's output RMS.  A request with
+    seq_len == 0 gives a zero row (the plain version gives NaN there)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _paged_inputs(case, dtype, cuda_device)
+    before = pa.paged_attention_cuda.launches
+    got = pa.paged_attention_decode(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_cuda.launches == before + 1
+    assert got.dtype == dtype
+    want = pa.paged_attention_reference(*args)
+    live = args[4] > 0
+    assert torch.count_nonzero(got[~live]).item() == 0
+    g, w = got[live].float(), want[live].float()
+    if dtype == torch.float32:
+        limit = torch.full_like(w, 2e-5)
+    else:
+        limit = 2.0 ** -7 * w.abs() + \
+            w.pow(2).mean(dim=(1, 2), keepdim=True).sqrt() / 32
+    over = ((g - w).abs() - limit).max().item()
+    assert over <= 0, over
+
+
+def test_paged_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    q, kp, vp, pt, sl = _paged_inputs(PAGED_CASES[0], torch.float32,
+                                      cuda_device)
+    with pytest.raises(ValueError, match="share a dtype"):
+        pa.paged_attention_cuda(q.bfloat16(), kp, vp, pt, sl)
+    with pytest.raises(ValueError, match="head_dim 16"):
+        pa.paged_attention_decode(q[..., :16].contiguous(),
+                                  kp[..., :16].contiguous(),
+                                  vp[..., :16].contiguous(), pt, sl)
+    with pytest.raises(ValueError, match="must be int32"):
+        pa.paged_attention_cuda(q, kp, vp, pt.long(), sl)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_attention_cuda(q.transpose(0, 1).contiguous().transpose(0, 1),
+                                kp, vp, pt, sl)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pa.paged_attention_cuda(q.cpu(), kp, vp, pt, sl)

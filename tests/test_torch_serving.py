@@ -171,12 +171,16 @@ def test_pool_and_cache_invariants_catch_corruption():
 
 def test_later_slices_are_refused(tiny):
     cfg, st = tiny
-    for kw in (dict(spec=object()), dict(page_quant="int8"),
-               dict(host_tier=True)):
+    for kw in (dict(spec=object()), dict(host_tier=True),
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             Engine(st, cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        Engine(st, GPTConfig(**{**CFG_KW, "kv_latent_dim": 8}),
+    # quantized pages exist only in the MLA layout, which this config
+    # does not have
+    with pytest.raises(ValueError, match="MLA"):
+        Engine(st, cfg, device="cpu", page_quant="int8")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        Engine(st, GPTConfig(**{**CFG_KW, "num_experts": 2}),
                device="cpu")
 
 
