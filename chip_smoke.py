@@ -6,7 +6,8 @@ Phases, each printing one JSON line:
 
 1. device: the card's name, count and power limit;
 2. build: compiles every CUDA kernel of the port from source (``nvcc``
-   for sm_90a) and reports registers, shared memory and spills;
+   for sm_90a) and reports registers, shared memory and spills; the
+   bf16 tensor-core flash kernels must not spill;
 3. kernel_vs_plain: the ragged paged attention kernel against its plain
    PyTorch version at the serving shapes of Llama-3-8B (nh 32, kvh 8,
    hd 128, page 64, bf16): a 512-token prefill chunk over a context of
@@ -29,8 +30,11 @@ Phases, each printing one JSON line:
    s 1024, h 12, d 64, bf16) -- and on small masked cases (segment-id
    tuples, causal offsets, sq != sk, fully-masked rows, s = 1000); times
    each kernel, its plain version and PyTorch's own attention
-   (``scaled_dot_product_attention``, only as a yardstick) with CUDA
-   events;
+   (``scaled_dot_product_attention`` on all-bf16 and on all-fp32 inputs,
+   only as a yardstick; it takes no mixed types) with CUDA events around
+   the calls, host work included, and the kernels and SDPA's forward
+   also around replays of a CUDA graph of one call (``device_ms``, the
+   device's time alone);
 7. train_main_path: ``graph("define_and_run")`` -> placeholders ->
    ``GPTLMHeadModel`` -> ``AdamOptimizer(lr=3e-4).minimize`` ->
    ``g.run(loss, [loss, train_op], feeds, num_micro_batches=2)`` for six
@@ -38,7 +42,8 @@ Phases, each printing one JSON line:
    global batch 4) and GPT-2 small (12 layers, seq 1024, global batch 8),
    random bf16 weights; the loss must fall and each flash kernel launch
    once per layer, micro-batch and step on the backward the byte rule
-   picks (``train_profile`` then reads two more steps with
+   picks, the bf16 forward and dk/dv launches (GPT-2) being the
+   tensor-core kernels (``train_profile`` then reads two more steps with
    ``torch.profiler``);
 8. train_oracle: 2-layer fp32 models at both widths train three steps on
    the card (kernels) and on the CPU (plain versions) from the same
@@ -132,6 +137,26 @@ def cuda_time_ms(fn, warmup=2, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=10):
+    """Device time of one call of ``fn``: the call is captured once in a
+    CUDA graph (after warm-up calls on a side stream) and the replays are
+    timed with CUDA events, which leaves out the host's work between
+    launches that ``cuda_time_ms`` counts when it outlasts the kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    ms = cuda_time_ms(g.replay, warmup=2, iters=iters)
+    del g
+    return ms
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -178,6 +203,13 @@ def phase_build():
                         "entries": entries}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": report})
+    mma = [e for e in report["flash_attention"]["entries"]
+           if "_mma_" in e["kernel"]]
+    if len(mma) != 6 or any(e["spill_stores"] or e["spill_loads"]
+                            for e in mma):
+        raise AssertionError(f"the bf16 tensor-core flash kernels (forward "
+                             f"and dk/dv, fused and split, at head dims 64 "
+                             f"and 128) must build without spills: {mma}")
     return report
 
 
@@ -463,7 +495,11 @@ FP32_FWD_TOL = 1e-4
 FP32_BWD_TOL = 1e-3
 # rows whose exact value cancels to 0 leave only the order of two fp32
 # sums (the first causal row's dq: p = 1, dp = delta, ds = 0): they are
-# held to 2**-16 of the tensor's RMS, far below one bf16 ulp
+# held to 2**-16 of the tensor's RMS, far below one bf16 ulp.  A query row
+# that sees exactly one key has dq = 0 exactly, and there the kernel's dq
+# is held against 0: on an H100 the plain version's own fp32 noise in that
+# row (1.04e-6 at the Llama shape in bf16) is above the floor (9.3e-7);
+# phase 6 prints both
 CANCEL_FLOOR = 2.0 ** -16
 FLASH_REPLACES = {
     "flash_fwd": "hetu_tpu/ops/pallas/flash_attention.py:178",
@@ -541,6 +577,20 @@ def flash_agreement(got, want, dims, scaled, tol):
     return (d / limit.clamp_min(1e-30)).max().item(), d.max().item()
 
 
+def single_key_rows(b, sq, sk, causal, segs, offset, device):
+    """[b, sq] bool: the query rows that see exactly one key.  Their p is
+    1 on that key and out is its v, so delta = dp and dq is exactly 0."""
+    split = fa._split_segments(segs, sq, sk)
+    rows = torch.zeros((b, sq), dtype=torch.bool, device=device)
+    for bi in range(b):
+        mask = fa._visible(bi, sq, sk, causal, offset, split, device)
+        if mask is not None:
+            rows[bi] = mask.sum(dim=1) == 1
+        elif sk == 1:
+            rows[bi] = True
+    return rows
+
+
 def flash_ratios(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
     """Runs kernels 1-4 once on these inputs and holds each output against
     the plain versions: ``({kernel: (error over limit, max abs err)},
@@ -556,11 +606,29 @@ def flash_ratios(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
         raise AssertionError(f"{tag} forward: -inf rows of lse differ")
     res = {}
     live = torch.isfinite(rl)
+    # the bf16 kernel rounds q * scale * log2(e) to bf16 as the reference
+    # does (flash_attention.py:274), which moves lse by up to 2**-9 of the
+    # scores: its lse is held at the fp32 limit against the plain version
+    # on that rounded operand
+    rl_q = rl if not bf16_qk else fa.flash_fwd_reference(
+        (q.float() * (scale * fa.LOG2E)).to(q.dtype), k, v, 1 / fa.LOG2E,
+        causal, segs, offset)[1]
     ratios = [flash_agreement(out, ro, (3,), bf16_v, FP32_FWD_TOL),
-              flash_agreement(lse[live], rl[live], (0,), False, FP32_FWD_TOL)]
+              flash_agreement(lse[live], rl_q[live], (0,), False,
+                              FP32_FWD_TOL)]
     res["flash_fwd"] = (max(r[0] for r in ratios), ratios[0][1])
-    want = fa.flash_bwd_reference(q, k, v, ro, rl, do, scale, causal, segs,
-                                  offset)
+    want = list(fa.flash_bwd_reference(q, k, v, ro, rl, do, scale, causal,
+                                       segs, offset))
+    one = single_key_rows(q.shape[0], q.shape[1], k.shape[1], causal, segs,
+                          offset, q.device)
+    # the plain version's own distance from the exact 0 there, beside the
+    # floor the gate allows such rows
+    single = {"rows": int(one.sum().item()),
+              "plain_dq_max_abs": want[0][one].abs().max().item()
+              if one.any() else 0.0,
+              "floor": CANCEL_FLOOR * want[0].float().pow(2).mean()
+              .sqrt().item()}
+    want[0][one] = 0
     delta = torch.einsum("bshd,bshd->bsh", do.float(), ro.float())
     got = {"flash_bwd_fused": fa.flash_bwd_fused_cuda(
         q, k, v, ro, rl, do, scale, causal, segs, offset),
@@ -578,7 +646,8 @@ def flash_ratios(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
         res[name] = (max(r[0] for r in rs), max(r[1] for r in rs))
     kernel_outs = {"out": out, "lse": lse,
                    "dq_fused": got["flash_bwd_fused"][0],
-                   "dq_split": got["flash_bwd_dq"][0]}
+                   "dq_split": got["flash_bwd_dq"][0],
+                   "single_key_rows": single}
     return res, (ro, rl, delta), kernel_outs
 
 
@@ -593,26 +662,36 @@ def check_flash(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
     return res, plain, kernel_outs
 
 
-def library_times(b, s, h, d, seed=5):
-    """PyTorch's own attention on all-bf16 inputs at this shape (only as
-    a yardstick: the port never calls it): forward, and
-    ``torch.autograd.grad`` through it for the backward."""
-    q, k, v, do = flash_inputs(b, s, s, h, d, "bf16", seed)
+def library_times(b, s, h, d, types, seed=5):
+    """PyTorch's own attention at this shape on ``types`` ("bf16" or
+    "fp32", its default backend with TF32 off; only as a yardstick: the
+    port never calls it): forward, and ``torch.autograd.grad`` through it
+    for the backward.  SDPA takes no (fp32, fp32, bf16) q/k/v, so the
+    mixed rows have no library time."""
+    q, k, v, do = flash_inputs(b, s, s, h, d, types, seed)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    fwd = cuda_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
-                       warmup=3, iters=20)
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
     out = sdpa(qg, kg, vg, is_causal=True)
-    bwd = cuda_time_ms(lambda: torch.autograd.grad(
-        out, (qg, kg, vg), dot, retain_graph=True), warmup=3, iters=20)
-    return {"fwd_ms": fwd, "bwd_ms": bwd}
+
+    def fwd():
+        return sdpa(qt, kt, vt, is_causal=True)
+
+    # the backward does not capture in a graph of its own (autograd runs it
+    # against the forward's stream), so it has no device time here
+    return {"fwd_ms": cuda_time_ms(fwd, warmup=3, iters=20),
+            "bwd_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), dot, retain_graph=True),
+                warmup=3, iters=20),
+            "fwd_device_ms": graph_ms(fwd, iters=20)}
 
 
 def phase_flash():
     torch.backends.cuda.matmul.allow_tf32 = False
-    lib = {"llama": library_times(*LLAMA_ATTN),
-           "gpt2": library_times(*GPT2_ATTN)}
+    torch.backends.cudnn.allow_tf32 = False
+    lib = {"llama/bf16": library_times(*LLAMA_ATTN, "bf16"),
+           "llama/fp32": library_times(*LLAMA_ATTN, "fp32"),
+           "gpt2/bf16": library_times(*GPT2_ATTN, "bf16")}
     shapes = {}
     for shape_name, (b, s, h, d), mixes in (
             ("llama", LLAMA_ATTN, ("fp32_qk_bf16_v", "fp32", "bf16")),
@@ -620,7 +699,7 @@ def phase_flash():
         for types in mixes:
             q, k, v, do = flash_inputs(b, s, s, h, d, types, seed=1)
             scale = d ** -0.5
-            res, (ro, rl, delta), _ = check_flash(
+            res, (ro, rl, delta), outs = check_flash(
                 q, k, v, do, tag=f"{shape_name}/{types}")
             plain_fwd = cuda_time_ms(lambda: fa.flash_fwd_reference(
                 q, k, v, scale, True), warmup=1, iters=2)
@@ -635,16 +714,19 @@ def phase_flash():
                 "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
                     q, k, v, do, rl, delta, scale, True)}
             row = {}
+            yard = lib.get(f"{shape_name}/{types}")
             for name, fn in calls.items():
                 work = flash_work(name, b, s, s, h, d, q.dtype, v.dtype)
                 row[name] = {
                     "ms": cuda_time_ms(fn, warmup=2, iters=5),
+                    "device_ms": graph_ms(fn, iters=5),
                     "plain_ms": plain_fwd if name == "flash_fwd"
                     else plain_bwd,
-                    "library_ms": lib[shape_name]["fwd_ms"]
-                    if name == "flash_fwd" else lib[shape_name]["bwd_ms"],
+                    "library_ms": None if yard is None else
+                    yard["fwd_ms" if name == "flash_fwd" else "bwd_ms"],
                     "max_abs_err": res[name][1],
                     "err_over_limit": res[name][0], **work}
+            row["single_key_rows"] = outs["single_key_rows"]
             shapes[f"{shape_name}/{types}"] = row
             del q, k, v, do, ro, rl, delta
             torch.cuda.empty_cache()
@@ -769,7 +851,7 @@ def phase_train(name, steps=6, micro=2):
     torch.cuda.reset_peak_memory_stats()
     wrappers = flash_wrappers()
     for fn in wrappers.values():
-        fn.launches = 0
+        fn.launches = fn.tensor_core_launches = 0
     losses, step_s = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -782,6 +864,7 @@ def phase_train(name, steps=6, micro=2):
         if upd is not None:
             raise AssertionError("the update op's fetch is not None")
     launches = {n: fn.launches for n, fn in wrappers.items()}
+    tensor_core = {n: fn.tensor_core_launches for n, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name}: losses {losses} not finite and falling")
@@ -796,6 +879,14 @@ def phase_train(name, steps=6, micro=2):
             "flash_bwd_dkv": 0 if fused else each}
     if launches != want:
         raise AssertionError(f"{name}: flash launches {launches} != {want}")
+    # all-bf16 attention (GPT-2) runs the tensor-core forward and dk/dv
+    # kernels; the LLaMA path's fp32 and mixed attention the scalar ones
+    mma = k_dtype == torch.bfloat16
+    want_tc = {n: c if mma and n != "flash_bwd_dq" else 0
+               for n, c in want.items()}
+    if tensor_core != want_tc:
+        raise AssertionError(f"{name}: tensor-core flash launches "
+                             f"{tensor_core} != {want_tc}")
     steady = step_s[1:]
     out = {"config": name, "params": n_params, "layers": cfg.num_layers,
            "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
@@ -804,6 +895,7 @@ def phase_train(name, steps=6, micro=2):
            "step_s": step_s, "ms_per_step": 1e3 * float(np.mean(steady)),
            "tokens_per_s": batch * seq / float(np.mean(steady)),
            "peak_memory_bytes": peak, "flash_launches": launches,
+           "tensor_core_launches": tensor_core,
            "backward": "fused" if fused else "split"}
     emit({"phase": "train_main_path", **out})
     emit({"phase": "train_profile", "config": name,
@@ -1287,14 +1379,21 @@ def main():
              "flash_bwd_fused": "gpt2/bf16"}
     for name, at in where.items():
         r = flash[at][name]
+        # the all-bf16 readings (the tensor-core kernels but dq's) at both
+        # training shapes
+        bf16 = {shape: {k: flash[f"{shape}/bf16"][name][k]
+                        for k in ("ms", "device_ms", "bound_ms", "library_ms",
+                                  "max_abs_err")}
+                for shape in ("llama", "gpt2")}
         rows.append({
             "name": name, "route": "cuda",
             "source": "hetu_tpu_torch/csrc/flash_attention.cu",
-            "replaces": FLASH_REPLACES[name],
+            "replaces": FLASH_REPLACES[name], "types": at,
             "launches": sum(t["flash_launches"][name] for t in train),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "bf16": bf16})
     # the latent kernel at the MLA engine's unified-step batch, the paged
     # decode kernel at the engine's decode batch of 8 in bf16; no PyTorch
     # call attends through a page table, so no library time

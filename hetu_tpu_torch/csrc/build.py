@@ -5,13 +5,15 @@ library with a plain C interface under ``csrc/_build/`` (listed in
 ``.gitignore``), at first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v -I csrc -o _build/<name>-<hash>.so
+         <name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source never loads a stale library.  ``build()`` starts one ``nvcc`` per
-source, all at once, and returns what ``-Xptxas -v`` reported
-(registers, shared memory, spills) for each; the report is kept beside
-the library (``<name>-<hash>.ptxas.txt``) for later calls.
+Sources share the headers of this directory (``mma_bf16.cuh``).  The
+file name carries a hash of the source, every header and the flags, so
+an edited source or header never loads a stale library.  ``build()``
+starts one ``nvcc`` per source, all at once, and returns what ``-Xptxas
+-v`` reported (registers, shared memory, spills) for each; the report is
+kept beside the library (``<name>-<hash>.ptxas.txt``) for later calls.
 """
 from __future__ import annotations
 
@@ -46,9 +48,17 @@ def nvcc_path() -> str:
                        "PATH); the CUDA kernels are built from source")
 
 
+def nvcc_command(src: str, out: str) -> list:
+    """The ``nvcc`` command line that builds ``src`` into ``out``."""
+    return [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", out, src]
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -72,8 +82,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                          "cached": True}
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, SOURCES[name])]
+        cmd = nvcc_command(os.path.join(CSRC, SOURCES[name]), tmp)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), so, tmp)

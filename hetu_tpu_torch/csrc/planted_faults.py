@@ -15,9 +15,17 @@ kernels (or page kinds) a fault touches.  The flash faults:
 
 - ``kv_tile``: the dq kernel's KV loop stops one tile early for q rows
   at or past 2048;
-- ``mask``: the causal mask of the backward kernels shifted by one (a
-  query no longer sees its own key), in the dq kernel and in the dk/dv
-  template that the fused kernel shares.
+- ``mask``: the causal mask of the scalar backward kernels shifted by
+  one (a query no longer sees its own key), in the dq kernel and in the
+  scalar dk/dv template that the fused kernel shares (bf16 dq, and every
+  backward kernel of the other type mixes);
+- ``mask_fwd_mma``: the causal mask of the bf16 tensor-core forward
+  shifted by one (a query also sees the next key);
+- ``mask_dkv_mma``: the same in the bf16 tensor-core dk/dv template
+  (split and fused);
+- ``prefetch``: the bf16 forward's cp.async double buffer skips the copy
+  of the last KV tile for q tiles at or past row 2048, so that tile is
+  read from the buffer of two tiles before.
 
 The latent faults, which the short rows of a batch cannot catch:
 
@@ -58,9 +66,34 @@ def _mutants(src: str):
     tile = _within(src, *dq,
                    "kv_tiles_for(q0, sq, sk, causal, offset);",
                    "kv_tiles_for(q0, sq, sk, causal, offset) - (q0 >= 2048);")
+    fwd_mma = ("flash_fwd_mma_kernel(const bf16*", "dkv_mma_smem_bytes")
+    dkv_mma = ("flash_bwd_dkv_mma_kernel(const bf16*", "// launchers")
     mask = _within(src, *dq, "j <= qi[r] + offset", "j < qi[r] + offset")
     mask = _within(mask, *dkv, "kj[r] <= i + offset", "kj[r] < i + offset")
-    return {"kv_tile": tile, "mask": mask}
+    mask_fwd = _within(src, *fwd_mma, "j <= row + offset",
+                       "j <= row + offset + 1")
+    mask_dkv = _within(src, *dkv_mma, "key <= qi + offset",
+                       "key <= qi + offset + 1")
+    prefetch = _within(src, *fwd_mma, "if (t + 1 < n_kv) {",
+                       "if (t + 1 < n_kv - (q0 >= 2048)) {")
+    return {"kv_tile": tile, "mask": mask, "mask_fwd_mma": mask_fwd,
+            "mask_dkv_mma": mask_dkv, "prefetch": prefetch}
+
+
+def _touched(fault: str, tag: str, s: int):
+    """The kernels that ``fault`` changes at shape ``tag`` (sequence
+    length ``s``): the bf16 forward and dk/dv kernels are the tensor-core
+    ones, every other kernel and type mix the scalar ones."""
+    bf16 = tag.endswith("/bf16")
+    return {"clean": (),
+            "kv_tile": ("flash_bwd_dq",) if s > 2048 else (),
+            "mask": ("flash_bwd_dq",) if bf16 else
+                    ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused"),
+            "mask_fwd_mma": ("flash_fwd",) if bf16 else (),
+            "mask_dkv_mma": ("flash_bwd_dkv", "flash_bwd_fused") if bf16
+                            else (),
+            "prefetch": ("flash_fwd",) if bf16 and s > 2048 else (),
+            }[fault]
 
 
 def _latent_mutants(src: str):
@@ -88,8 +121,8 @@ def _build_mutant(name: str, text: str) -> str:
     so = os.path.join(build.BUILD_DIR, f"mutant-{name}.so")
     with open(src, "w") as f:
         f.write(text)
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, src],
-                   check=True, capture_output=True, text=True)
+    subprocess.run(build.nvcc_command(src, so), check=True,
+                   capture_output=True, text=True)
     return so
 
 
@@ -144,11 +177,7 @@ def main() -> int:
                               "err_over_limit": ratios,
                               "max_abs_err": {n: r[1] for n, r in
                                               res.items()}}), flush=True)
-            touched = {"clean": (), "kv_tile": ("flash_bwd_dq",),
-                       "mask": ("flash_bwd_dq", "flash_bwd_dkv",
-                                "flash_bwd_fused")}[name]
-            if name == "kv_tile" and s <= 2048:
-                touched = ()           # no q row at or past 2048
+            touched = _touched(name, tag, s)
             if name == "clean":
                 missed += [f"clean {tag} {n}" for n, r in ratios.items()
                            if not r <= 1.0]

@@ -52,6 +52,8 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kRows = 64;            // (token, query head) pairs per block
@@ -251,31 +253,7 @@ ragged_paged_attention_fp32_kernel(const float* __restrict__ q,
 
 constexpr int kMmaBK = 64;  // KV positions per tile
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layout of mma.m16n8k16 (lane = 4 * gq + tq): A holds rows gq
-// and gq + 8, columns 2tq, 2tq+1 (+8); B holds k rows 2tq, 2tq+1 (+8) of
-// column gq; C holds rows gq and gq + 8, columns 2tq, 2tq+1.  Warp w owns
+// mma.sync m16n8k16 in the layout of mma_bf16.cuh.  Warp w owns
 // pairs pair0 + 16w .. +15 of the block's 64.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)

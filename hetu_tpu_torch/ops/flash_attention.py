@@ -17,8 +17,12 @@ Two implementations of each function:
   the CPU path.
 - ``flash_fwd_cuda``, ``flash_bwd_fused_cuda``, ``flash_bwd_dq_cuda`` and
   ``flash_bwd_dkv_cuda``: the CUDA kernels of ``csrc/flash_attention.cu``
-  (kernels 1-4 of the JAX package).  Each counts its launches in
-  ``.launches``.
+  (kernels 1-4 of the JAX package).  bf16 q/k/v take the tensor-core
+  forward and dk/dv kernels (the fused backward is the dk/dv kernel with
+  dq atomics); fp32 and (fp32, fp32, bf16) q/k/v, and dq in every type,
+  the scalar ones.  Each wrapper counts its launches in ``.launches``
+  and, of those, the tensor-core ones (as the library reports them) in
+  ``.tensor_core_launches``.
 
 ``_flash_fwd`` and ``_flash_bwd`` dispatch on the tensors' device: the
 plain versions for CPU tensors, the kernels for CUDA tensors, with no
@@ -185,6 +189,8 @@ def _kernel_lib():
         for fn in (lib.hetu_flash_fwd, lib.hetu_flash_bwd_dq,
                    lib.hetu_flash_bwd_dkv):
             fn.restype = ctypes.c_int
+        lib.hetu_flash_uses_tensor_cores.argtypes = [i32] * 3
+        lib.hetu_flash_uses_tensor_cores.restype = ctypes.c_int
         lib.hetu_flash_error_string.argtypes = [ctypes.c_int]
         lib.hetu_flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -259,6 +265,17 @@ def _raise_on(err: int, lib, what: str) -> None:
                            f"(cudaError {err})")
 
 
+# the C entry each wrapper calls, as hetu_flash_uses_tensor_cores numbers
+# them
+_ENTRY_FWD, _ENTRY_DQ, _ENTRY_DKV = 0, 1, 2
+
+
+def _count_launch(wrapper, lib, entry: int, d: int, code: int) -> None:
+    wrapper.launches += 1
+    if lib.hetu_flash_uses_tensor_cores(entry, d, code) == 1:
+        wrapper.tensor_core_launches += 1
+
+
 def flash_fwd_cuda(q, k, v, scale: float, causal: bool, segment_ids=None,
                    causal_offset: int = 0):
     """Kernel 1, the forward (same contract as ``flash_fwd_reference``)."""
@@ -275,11 +292,12 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool, segment_ids=None,
             lse.data_ptr(), qs_ptr, ks_ptr, b, sq, sk, h, d, float(scale),
             int(bool(causal)), int(causal_offset), code, stream)
     _raise_on(err, lib, "flash attention forward")
-    flash_fwd_cuda.launches += 1
+    _count_launch(flash_fwd_cuda, lib, _ENTRY_FWD, d, code)
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.tensor_core_launches = 0
 
 
 def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
@@ -303,11 +321,12 @@ def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
             float(scale), int(bool(causal)), int(causal_offset), code, 1,
             stream)
     _raise_on(err, lib, "flash attention fused backward")
-    flash_bwd_fused_cuda.launches += 1
+    _count_launch(flash_bwd_fused_cuda, lib, _ENTRY_DKV, d, code)
     return dq_acc.to(q.dtype), dk, dv
 
 
 flash_bwd_fused_cuda.launches = 0
+flash_bwd_fused_cuda.tensor_core_launches = 0
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
@@ -331,11 +350,12 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
             b, sq, sk, h, d, float(scale), int(bool(causal)),
             int(causal_offset), code, stream)
     _raise_on(err, lib, "flash attention dq backward")
-    flash_bwd_dq_cuda.launches += 1
+    _count_launch(flash_bwd_dq_cuda, lib, _ENTRY_DQ, d, code)
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.tensor_core_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
@@ -358,11 +378,12 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
             dv.data_ptr(), qs_ptr, ks_ptr, b, sq, sk, h, d, float(scale),
             int(bool(causal)), int(causal_offset), code, 0, stream)
     _raise_on(err, lib, "flash attention dk/dv backward")
-    flash_bwd_dkv_cuda.launches += 1
+    _count_launch(flash_bwd_dkv_cuda, lib, _ENTRY_DKV, d, code)
     return dk, dv
 
 
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.tensor_core_launches = 0
 
 
 # ---------------------------------------------------------------------------

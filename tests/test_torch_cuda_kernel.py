@@ -140,6 +140,13 @@ FLASH_CASES = [
     (1, 64, 192, 2, 64, True, "tuple", 128),     # sq != sk, offset
     (2, 128, 128, 2, 64, True, "masked", 0),     # fully-masked rows
     (1, 1000, 1000, 2, 128, True, None, 0),      # irregular length
+    # across the 64-row tiles and 16-row warp slices of the bf16 kernels
+    (1, 65, 65, 2, 64, True, None, 0),           # one row past a tile
+    (1, 127, 127, 2, 128, True, None, 0),        # one row short of two
+    (1, 100, 300, 2, 128, True, None, 200),      # sq != sk, causal offset
+    (1, 200, 136, 2, 128, True, None, -40),      # rows that see no key
+    (5, 128, 128, 16, 64, True, None, 0),        # b * h = 80 blocks a tile
+    (2, 130, 130, 3, 64, False, None, 0),        # h = 3: token stride 192
 ]
 
 
@@ -194,16 +201,26 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
     q, k, v, do, segs, causal, off, scale = _flash_inputs(case, dtypes,
                                                           cuda_device)
     bf16 = dtypes != "fp32"
-    n0 = fa.flash_fwd_cuda.launches
+    wrappers = (fa.flash_fwd_cuda, fa.flash_bwd_fused_cuda,
+                fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    n0 = [(w.launches, w.tensor_core_launches) for w in wrappers]
     out, lse = fa.flash_fwd_cuda(q, k, v, scale, causal, segs, off)
     torch.cuda.synchronize()
-    assert fa.flash_fwd_cuda.launches == n0 + 1
+    assert fa.flash_fwd_cuda.launches == n0[0][0] + 1
     ro, rl = fa.flash_fwd_reference(q, k, v, scale, causal, segs, off)
     assert out.dtype == q.dtype and lse.dtype == F32
     _assert_close(out, ro, (3,), bf16, 1e-4, "out")
     assert torch.equal(torch.isinf(lse), torch.isinf(rl))
     live = torch.isfinite(rl)
-    _assert_close(lse[live], rl[live], (0,), False, 1e-4, "lse")
+    rl_q = rl
+    if dtypes == "bf16":
+        # the bf16 kernel rounds q * scale * log2(e) to bf16 as the
+        # reference does (flash_attention.py:274); its lse is the plain
+        # version's on that rounded operand
+        rl_q = fa.flash_fwd_reference(
+            (q.float() * (scale * fa.LOG2E)).to(q.dtype), k, v, 1 / fa.LOG2E,
+            causal, segs, off)[1]
+    _assert_close(lse[live], rl_q[live], (0,), False, 1e-4, "lse")
     if case[6] == "masked":
         assert torch.count_nonzero(out[:, case[1] // 2:]).item() == 0
 
@@ -225,6 +242,20 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
             _assert_close(g, w, dims, bf16, 1e-3, f"{kind} {name}")
         if case[6] == "masked":
             assert torch.count_nonzero(got[0][:, case[1] // 2:]).item() == 0
+        if case[7] < 0:
+            # queries that see no key: zero gradients
+            rows = slice(0, -case[7])
+            assert torch.count_nonzero(got[0][:, rows]).item() == 0
+    if case[7] < 0:
+        assert torch.count_nonzero(out[:, :-case[7]]).item() == 0
+        assert bool((lse[:, :, :-case[7]] == float("-inf")).all())
+    # bf16 q/k/v launch the tensor-core forward and dk/dv kernels (the
+    # fused backward is the dk/dv template); dq, and every kernel of the
+    # other type mixes, the scalar ones
+    mma = dtypes == "bf16"
+    assert [(w.launches - a, w.tensor_core_launches - t)
+            for w, (a, t) in zip(wrappers, n0)] == \
+        [(1, int(mma)), (1, int(mma)), (1, 0), (1, int(mma))]
 
 
 def test_flash_dispatch_takes_the_byte_rule_on_cuda(cuda_device):

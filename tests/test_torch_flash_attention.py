@@ -6,7 +6,8 @@ Inputs are fp32 from numpy seeds.  Forward ``(out, lse)`` within 1e-4
 and backward ``(dq, dk, dv)`` within 1e-3 (the tolerances of
 tests/test_flash_attention.py): both sides accumulate in fp32, in other
 orders, and the JAX kernels work in base-2 logits with the scale folded
-into q.
+into q.  The bf16 cases hold the same pairs at the card gate's bf16
+limit (``_bf16_limit_ratio``).
 """
 import types
 
@@ -122,6 +123,70 @@ def test_backward_matches_jax_kernels(case, kernel):
                                    atol=1e-3, err_msg=name)
     if case[7] == "masked":
         assert np.all(got[0].numpy()[:, case[2] // 2:] == 0)
+
+
+# bf16 inputs: (name, b, s, h, d, segments); causal, sq == sk
+BF16_CASES = [
+    ("causal_s200_d128", 1, 200, 2, 128, None),
+    ("segments_tuple_s384_d64", 1, 384, 2, 64, "tuple"),
+]
+
+
+def _bf16_limit_ratio(got, want, dims):
+    """Largest |got - want| over the card gate's bf16 limit: 2**-7 *
+    |want| + rms(want over ``dims``) / 32 + 2**-16 * rms(want).  The
+    Pallas kernels round q * scale * log2(e), p and ds to bf16 before
+    their products (flash_attention.py:274, :249, :377, :383); the plain
+    versions keep every product in fp32, so this is the distance between
+    the two roundings that the card kernels are allowed."""
+    g = np.asarray(got, np.float32)
+    w = np.asarray(want, np.float32)
+    rms = np.sqrt((w ** 2).mean(axis=dims, keepdims=True))
+    limit = 2.0 ** -7 * np.abs(w) + rms / 32 + \
+        2.0 ** -16 * np.sqrt((w ** 2).mean())
+    return float((np.abs(g - w) / np.maximum(limit, 1e-30)).max())
+
+
+@pytest.mark.parametrize("kernel", ["forward", "fused", "split"])
+@pytest.mark.parametrize("case", BF16_CASES, ids=[c[0] for c in BF16_CASES])
+def test_plain_versions_match_jax_kernels_in_bf16(case, kernel):
+    """bf16 q/k/v/do (values exact in bf16, from numpy): the plain
+    versions against the interpret-mode Pallas kernels, each output row
+    (a query's out/dq, a key's dk/dv) within the card gate's bf16 limit.
+    Both backward versions get the Pallas forward's out and lse."""
+    _, b, s, h, d, seg_kind = case
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _inputs(b, s, s, h, d, seed=3))
+    segs = _segments(seg_kind, b, s, s)
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                       for x in (q, k, v, do))
+    jo, jl = jfa._flash_fwd(jq, jk, jv, scale, True, _to_jax(segs), 0)
+    if kernel == "forward":
+        po, pl = pfa.flash_fwd_reference(q, k, v, scale, True,
+                                         _to_torch(segs))
+        assert po.dtype == torch.bfloat16
+        assert _bf16_limit_ratio(po.float(), np.asarray(jo, np.float32),
+                                 (3,)) <= 1.0
+        # lse moves with the bf16 rounding of q * scale * log2(e): 2**-9
+        # of each score, a few thousandths for these scores of size ~5
+        jl = np.asarray(jl)
+        np.testing.assert_array_equal(np.isinf(pl.numpy()), np.isinf(jl))
+        live = np.isfinite(jl)
+        np.testing.assert_allclose(pl.numpy()[live], jl[live], rtol=1e-2,
+                                   atol=1e-2)
+        return
+    bwd = jfa._flash_bwd_fused if kernel == "fused" else jfa._flash_bwd_split
+    want = bwd(scale, True, _to_jax(segs), (jq, jk, jv, jo, jl), jdo, 0)
+    out = torch.from_numpy(np.asarray(jo, np.float32)).bfloat16()
+    lse = torch.from_numpy(np.array(jl, np.float32))
+    got = pfa.flash_bwd_reference(q, k, v, out, lse, do, scale, True,
+                                  _to_torch(segs))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        ratio = _bf16_limit_ratio(g.float(), np.asarray(w, np.float32),
+                                  (3,))
+        assert ratio <= 1.0, (name, ratio)
 
 
 def test_autograd_function_uses_the_plain_backward():
