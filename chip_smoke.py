@@ -6,8 +6,10 @@ Phases, each printing one JSON line:
 
 1. device: the card's name, count and power limit;
 2. build: compiles every CUDA kernel of the port from source (``nvcc``
-   for sm_90a) and reports registers, shared memory and spills; the
-   bf16 tensor-core flash kernels must not spill;
+   for sm_90a) and reports registers, shared memory and spills, and each
+   flash kernel's dynamic shared memory and blocks an SM; the tensor-core
+   flash kernels (the forward and dq in every type mix, bf16 and 3xTF32,
+   and the bf16 dk/dv template, at head dims 64 and 128) must not spill;
 3. kernel_vs_plain: the ragged paged attention kernel against its plain
    PyTorch version at the serving shapes of Llama-3-8B (nh 32, kvh 8,
    hd 128, page 64, bf16): a 512-token prefill chunk over a context of
@@ -42,8 +44,10 @@ Phases, each printing one JSON line:
    global batch 4) and GPT-2 small (12 layers, seq 1024, global batch 8),
    random bf16 weights; the loss must fall and each flash kernel launch
    once per layer, micro-batch and step on the backward the byte rule
-   picks, the bf16 forward and dk/dv launches (GPT-2) being the
-   tensor-core kernels (``train_profile`` then reads two more steps with
+   picks, the forward and dq launches being the tensor-core kernels on
+   their routes (3xTF32 for the LLaMA path's fp32 and mixed attention,
+   bf16 for GPT-2) and the dk/dv template on the tensor cores for bf16
+   only (``train_profile`` then reads two more steps with
    ``torch.profiler``);
 8. train_oracle: 2-layer fp32 models at both widths train three steps on
    the card (kernels) and on the CPU (plain versions) from the same
@@ -104,8 +108,24 @@ from hetu_tpu_torch.ops.ragged_paged_attention import (
 from hetu_tpu_torch.serving import Engine
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
-H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, H100 SXM
+H100_TF32_FLOPS = 495e12     # dense TF32 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth, H100 SXM
+
+
+def product_rate(a, b):
+    """The highest rate an H100 has for a product of operands of types
+    ``a`` and ``b`` to the reference's accuracy (fp32 accumulation).
+    bf16 by bf16 runs on the bf16 tensor cores.  An fp32 operand splits
+    into two TF32 parts (3xTF32); a bf16 operand is exact in TF32 and has
+    no second part, so fp32 by bf16 takes two TF32 products and fp32 by
+    fp32 three: 495/2 and 495/3 TFLOP/s, both faster than fp32 FMA
+    outside the tensor cores (67).  Dequantized int8/nf4 pages count as
+    fp32."""
+    if a == b == torch.bfloat16:
+        return H100_BF16_FLOPS
+    return H100_TF32_FLOPS / (2 if torch.bfloat16 in (a, b) else 3)
+
+
 # bf16 agreement, element by element within each row of the batch:
 # |got - want| <= 2**-7 * |want| + rms(want over the row) / 32.  Both
 # sides round their fp32 results to bf16, which differ by at most one
@@ -170,6 +190,45 @@ def phase_device():
     return dev
 
 
+# the flash kernels on the tensor cores: (kernel, head dim, q/k and v
+# types); the dk/dv template has no type arguments (bf16 only), and its
+# split and fused instantiations share a key, so phase 2 also counts 16
+FLASH_MMA_KERNELS = {
+    *((kernel, hd, types) for kernel in ("flash_fwd_mma_kernel",
+                                         "flash_bwd_dq_mma_kernel")
+      for hd in (64, 128) for types in ("fp32/fp32", "bf16/bf16",
+                                        "fp32/bf16")),
+    *(("flash_bwd_dkv_mma_kernel", hd, None) for hd in (64, 128))}
+# the flash type codes of ops/flash_attention.py
+FLASH_CODES = {"fp32/fp32": 0, "bf16/bf16": 1, "fp32/bf16": 2}
+
+
+def _template_types(head):
+    """The q/k and v types of a flash kernel's mangled name ("fp32/bf16"),
+    or None where it has no type arguments.  A repeated __nv_bfloat16 is
+    mangled as a substitution (S<n>_)."""
+    m = re.search(r"ILi\d+E(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\w*?_)",
+                  head)
+    if not m:
+        return None
+    return "/".join("fp32" if t == "f" else "bf16" for t in m.groups())
+
+
+def flash_occupancy():
+    """Dynamic shared memory and blocks an SM of every flash kernel the
+    entries launch, as the card's occupancy calculator reports them."""
+    rows = []
+    for entry, name in enumerate(("forward", "dq", "dk/dv")):
+        for fused in ((False, True) if entry == 2 else (False,)):
+            for types, code in FLASH_CODES.items():
+                for hd in (64, 128):
+                    smem, blocks = fa._kernel_info(entry, hd, code, fused)
+                    rows.append({"entry": name + (" fused" if fused else ""),
+                                 "head_dim": hd, "types": types,
+                                 "smem_bytes": smem, "blocks_per_sm": blocks})
+    return rows
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = build()
@@ -183,6 +242,7 @@ def phase_build():
             smem = re.search(r"(\d+) bytes smem", block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", block)
+            frame = re.search(r"(\d+) bytes stack frame", block)
             # the mangled name: <length><kernel name> after the file's hash
             kind = re.search(r"\d((?:flash|latent_ragged|ragged|paged)"
                              r"\w*?_kernel)", head)
@@ -193,23 +253,27 @@ def phase_build():
                 "template_ints": [int(x) for x in
                                   re.findall(r"Li(\d+)E", head)],
                 "head_dim": int(hd.group(1)) if hd else None,
+                "types": _template_types(head),
                 "bf16": "nv_bfloat16" in head,
                 "fused": ("Lb1E" in head) if "dkv" in head else None,
                 "registers": int(regs.group(1)) if regs else None,
                 "static_smem_bytes": int(smem.group(1)) if smem else 0,
+                "stack_frame_bytes": int(frame.group(1)) if frame else None,
                 "spill_stores": int(spill.group(1)) if spill else None,
                 "spill_loads": int(spill.group(2)) if spill else None})
         report[name] = {"so": info["so"], "cached": info["cached"],
                         "entries": entries}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": report})
+          "kernels": report, "flash_occupancy": flash_occupancy()})
     mma = [e for e in report["flash_attention"]["entries"]
            if "_mma_" in e["kernel"]]
-    if len(mma) != 6 or any(e["spill_stores"] or e["spill_loads"]
-                            for e in mma):
-        raise AssertionError(f"the bf16 tensor-core flash kernels (forward "
-                             f"and dk/dv, fused and split, at head dims 64 "
-                             f"and 128) must build without spills: {mma}")
+    got = {(e["kernel"], e["head_dim"], e["types"]) for e in mma}
+    if len(mma) != 16 or got != FLASH_MMA_KERNELS or \
+            any(e["spill_stores"] or e["spill_loads"] for e in mma):
+        raise AssertionError(
+            f"the tensor-core flash kernels (forward and dq in every type "
+            f"mix, dk/dv fused and split on bf16, at head dims 64 and 128) "
+            f"must build without spills: {mma}")
     return report
 
 
@@ -526,16 +590,16 @@ def flash_work(kernel, b, sq, sk, h, d, qk_dtype, v_dtype, causal=True,
     vi = torch.empty((), dtype=v_dtype).element_size()
     qo, kv, row = b * sq * h * d, b * sk * h * d, b * h * sq * 4
 
-    def rate(dt):
-        return H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
-    # products of 2*d operations per pair: forward s = q.k (q's type) and
-    # o = p.v (v's type); backward s, dp = do.v, then dq = ds.k, dv = p.do,
-    # dk = ds.q, all in q's type (do and ds take q's type)
-    per = {"flash_fwd": [qk_dtype, v_dtype],
-           "flash_bwd_dq": [qk_dtype] * 3,
-           "flash_bwd_dkv": [qk_dtype] * 4,
-           "flash_bwd_fused": [qk_dtype] * 5}[kernel]
-    t_ops = sum(2 * d * pairs / rate(dt) for dt in per)
+    # products of 2*d operations per pair, by their operand types: forward
+    # s = q.k and o = p.v (p rounded to v's type); backward s, dp = do.v
+    # (do in q's type), then dq = ds.k, dv = p.do, dk = ds.q (p and ds in
+    # q's type)
+    s, pv, dp = (qk_dtype, qk_dtype), (v_dtype, v_dtype), (qk_dtype, v_dtype)
+    per = {"flash_fwd": [s, pv],
+           "flash_bwd_dq": [s, dp, s],
+           "flash_bwd_dkv": [s, dp, s, s],
+           "flash_bwd_fused": [s, dp, s, s, s]}[kernel]
+    t_ops = sum(2 * d * pairs / product_rate(*ab) for ab in per)
     nbytes = {"flash_fwd": qo * qi * 2 + kv * (qi + vi) + row,
               "flash_bwd_dq": qo * qi * 3 + kv * (qi + vi) + 2 * row,
               "flash_bwd_dkv": qo * qi * 2 + kv * (qi + vi) * 2 + 2 * row,
@@ -851,7 +915,7 @@ def phase_train(name, steps=6, micro=2):
     torch.cuda.reset_peak_memory_stats()
     wrappers = flash_wrappers()
     for fn in wrappers.values():
-        fn.launches = fn.tensor_core_launches = 0
+        fn.launches = fn.tensor_core_launches = fn.tf32_launches = 0
     losses, step_s = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -865,6 +929,7 @@ def phase_train(name, steps=6, micro=2):
             raise AssertionError("the update op's fetch is not None")
     launches = {n: fn.launches for n, fn in wrappers.items()}
     tensor_core = {n: fn.tensor_core_launches for n, fn in wrappers.items()}
+    tf32 = {n: fn.tf32_launches for n, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name}: losses {losses} not finite and falling")
@@ -879,14 +944,18 @@ def phase_train(name, steps=6, micro=2):
             "flash_bwd_dkv": 0 if fused else each}
     if launches != want:
         raise AssertionError(f"{name}: flash launches {launches} != {want}")
-    # all-bf16 attention (GPT-2) runs the tensor-core forward and dk/dv
-    # kernels; the LLaMA path's fp32 and mixed attention the scalar ones
-    mma = k_dtype == torch.bfloat16
-    want_tc = {n: c if mma and n != "flash_bwd_dq" else 0
+    # the forward and dq run on the tensor cores in every type: bf16
+    # mma.sync for all-bf16 attention (GPT-2), 3xTF32 for the LLaMA path's
+    # fp32 and mixed attention (the mixed forward's P.V on bf16); the dk/dv
+    # template (split and fused) on the tensor cores for bf16 only
+    bf16 = k_dtype == torch.bfloat16
+    want_tc = {n: c if bf16 or n in ("flash_fwd", "flash_bwd_dq") else 0
                for n, c in want.items()}
-    if tensor_core != want_tc:
+    want_tf32 = {n: 0 if bf16 else c for n, c in want_tc.items()}
+    if tensor_core != want_tc or tf32 != want_tf32:
         raise AssertionError(f"{name}: tensor-core flash launches "
-                             f"{tensor_core} != {want_tc}")
+                             f"{tensor_core} (3xTF32 {tf32}) != {want_tc} "
+                             f"(3xTF32 {want_tf32})")
     steady = step_s[1:]
     out = {"config": name, "params": n_params, "layers": cfg.num_layers,
            "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
@@ -895,7 +964,7 @@ def phase_train(name, steps=6, micro=2):
            "step_s": step_s, "ms_per_step": 1e3 * float(np.mean(steady)),
            "tokens_per_s": batch * seq / float(np.mean(steady)),
            "peak_memory_bytes": peak, "flash_launches": launches,
-           "tensor_core_launches": tensor_core,
+           "tensor_core_launches": tensor_core, "tf32_launches": tf32,
            "backward": "fused" if fused else "split"}
     emit({"phase": "train_main_path", **out})
     emit({"phase": "train_profile", "config": name,
@@ -981,11 +1050,14 @@ LATENT_CU = [0, 1, 2, 3, 4, 5, 6, 7, 8, 520]
 
 
 def latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, r_bytes,
-                quantized):
+                c_dtype):
     """Bytes the function must move (the pages each live row spans, q in,
     out), operations over the causally visible (query, key) pairs, and the
-    least time an H100 could take: against the fp32 peak, the arithmetic
-    the reference defines, with the bf16 tensor-core figure beside it."""
+    least time an H100 could take for the arithmetic the reference defines
+    (fp32 q and p by the pages' values, as ``product_rate``; ``c_dtype`` is
+    the latent pages' type, None for int8/nf4 codes), with the bf16
+    tensor-core figure beside it."""
+    quantized = c_dtype is None
     per_pos = c_bytes + d_r * r_bytes + (4 if quantized else 0)
     kv_bytes = sum(-(-c // ps) * ps * per_pos
                    for c, q in zip(ctx_lens, q_lens) if q > 0)
@@ -995,7 +1067,12 @@ def latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, r_bytes,
                 for j in range(q))
     flops = 2 * nh * (2 * d_c + d_r) * pairs
     t_bytes = (kv_bytes + qo_bytes) / H100_BYTES_PER_S
-    t_ops = flops / H100_FP32_FLOPS
+    # q.c and p.c on the latent pages, q.r on the bf16 rope pages
+    c_as = torch.float32 if quantized else c_dtype
+    r_as = torch.bfloat16 if r_bytes == 2 else torch.float32
+    t_ops = 2 * nh * pairs * (
+        2 * d_c / product_rate(torch.float32, c_as)
+        + d_r / product_rate(torch.float32, r_as))
     return {"bytes": kv_bytes + qo_bytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1064,8 +1141,9 @@ def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
     if pad_nonzero:
         raise AssertionError(f"{name}: {pad_nonzero} nonzero padding outputs")
     c_bytes = c_pages.shape[-1] * c_pages.element_size()
+    c_dtype = None if quant is not None else c_pages.dtype
     work = latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, 2,
-                       quant is not None)
+                       c_dtype)
     out = {"max_abs_err": err, "err_over_limit": ratio,
            "limit": f"|got - want| <= {PAGED_FP32_TOL} * (1 + |want|)",
            "padding_nonzero": pad_nonzero,
@@ -1085,7 +1163,7 @@ def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
                            ("chunk_row", lambda i: i == 8)):
             ql = [n if keep(i) else 0 for i, n in enumerate(q_lens)]
             pw = latent_work(ql, ctx_lens, ps, nh, d_c, d_r, c_bytes, 2,
-                             quant is not None)
+                             c_dtype)
             out["parts"][part] = {
                 "ms": cuda_time_ms(lambda: run(
                     latent_ragged_paged_attention_cuda, ql),
@@ -1115,15 +1193,18 @@ def phase_latent_kernel():
     return cases["llama3_8b_mla/bf16"]
 
 
-def paged_work(seq_lens, nh, kvh, hd, itemsize):
+def paged_work(seq_lens, nh, kvh, hd, dtype):
     """Bytes (K and V of every cached token once, q in, out) and
-    operations of a paged decode batch, and the least time for them."""
+    operations of a paged decode batch, and the least time for them: q.k
+    in q's and k's type, p.v with fp32 p."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
     tokens = sum(seq_lens)
     nbytes = 2 * tokens * kvh * hd * itemsize \
         + 2 * len(seq_lens) * nh * hd * itemsize
     flops = 4 * nh * hd * tokens
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = flops / H100_FP32_FLOPS
+    t_ops = 2 * nh * hd * tokens * (1 / product_rate(dtype, dtype)
+                                    + 1 / product_rate(torch.float32, dtype))
     return {"bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1198,7 +1279,7 @@ def phase_paged_decode():
                 "plain_ms": cuda_time_ms(
                     lambda: paged_attention_reference(*args),
                     warmup=1, iters=3),
-                **paged_work(seq_lens, nh, kvh, hd, args[0].element_size()),
+                **paged_work(seq_lens, nh, kvh, hd, args[0].dtype),
                 "library_ms": None, "seq_lens_max": max(seq_lens),
                 "tokens": sum(seq_lens)}
             del args, got, want
@@ -1379,12 +1460,12 @@ def main():
              "flash_bwd_fused": "gpt2/bf16"}
     for name, at in where.items():
         r = flash[at][name]
-        # the all-bf16 readings (the tensor-core kernels but dq's) at both
-        # training shapes
-        bf16 = {shape: {k: flash[f"{shape}/bf16"][name][k]
-                        for k in ("ms", "device_ms", "bound_ms", "library_ms",
-                                  "max_abs_err")}
+        # the all-bf16 readings at both training shapes, the all-fp32 ones
+        # at the Llama shape
+        keys = ("ms", "device_ms", "bound_ms", "library_ms", "max_abs_err")
+        bf16 = {shape: {k: flash[f"{shape}/bf16"][name][k] for k in keys}
                 for shape in ("llama", "gpt2")}
+        fp32 = {"llama": {k: flash["llama/fp32"][name][k] for k in keys}}
         rows.append({
             "name": name, "route": "cuda",
             "source": "hetu_tpu_torch/csrc/flash_attention.cu",
@@ -1393,7 +1474,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "bf16": bf16})
+            "device_ms": r["device_ms"], "bf16": bf16, "fp32": fp32})
     # the latent kernel at the MLA engine's unified-step batch, the paged
     # decode kernel at the engine's decode batch of 8 in bf16; no PyTorch
     # call attends through a page table, so no library time

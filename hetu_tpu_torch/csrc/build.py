@@ -8,12 +8,13 @@ library with a plain C interface under ``csrc/_build/`` (listed in
          -Xcompiler -fPIC -Xptxas -v -I csrc -o _build/<name>-<hash>.so
          <name>.cu
 
-Sources share the headers of this directory (``mma_bf16.cuh``).  The
-file name carries a hash of the source, every header and the flags, so
-an edited source or header never loads a stale library.  ``build()``
-starts one ``nvcc`` per source, all at once, and returns what ``-Xptxas
--v`` reported (registers, shared memory, spills) for each; the report is
-kept beside the library (``<name>-<hash>.ptxas.txt``) for later calls.
+Sources share the headers of this directory (``mma_bf16.cuh``,
+``mma_tf32.cuh``).  The file name carries a hash of the source, every
+header and the flags, so an edited source or header never loads a stale
+library.  ``build()`` starts one ``nvcc`` per source, all at once, and
+returns what ``-Xptxas -v`` reported (registers, shared memory, spills)
+for each; the report is kept beside the library
+(``<name>-<hash>.ptxas.txt``) for later calls.
 """
 from __future__ import annotations
 

@@ -3,11 +3,11 @@
 //
 // Replaces the four Pallas TPU kernels of
 // hetu_tpu/ops/pallas/flash_attention.py:
-//   flash_fwd_kernel / flash_fwd_mma_kernel   <- :178 `_fwd_kernel`
+//   flash_fwd_mma_kernel                      <- :178 `_fwd_kernel`
 //       (`_flash_fwd`)
 //   flash_bwd_dkv_kernel<..., true> / flash_bwd_dkv_mma_kernel<..., true>
 //       <- :325 `_bwd_fused_kernel` (`_flash_bwd_fused`)
-//   flash_bwd_dq_kernel                       <- :466 `_bwd_dq_kernel`
+//   flash_bwd_dq_mma_kernel                   <- :466 `_bwd_dq_kernel`
 //       (`_flash_bwd_split`)
 //   flash_bwd_dkv_kernel<..., false> / flash_bwd_dkv_mma_kernel<..., false>
 //       <- :510 `_bwd_dkv_kernel` (`_flash_bwd_split`)
@@ -20,19 +20,21 @@
 // gives out = 0 and lse = -inf, and in the backward p = 0 wherever the key
 // is masked or the row's lse is -inf, so such rows get zero gradients.
 // Rounding follows the TPU kernels: q * scale * log2(e) is rounded to q's
-// type (:274, :405; the scalar kernels keep it in fp32), p to v's type
-// before p.v (:249), to do's type before p^T.do (:377), and ds to q's
-// type before ds.k and ds^T.q (:383); every product accumulates in fp32.
-// Types: q/k/do/out share one type and v may differ: (fp32, fp32, fp32),
-// (bf16, bf16, bf16) and (fp32, fp32, bf16), the last being what the
-// bf16 LLaMA model feeds (its rotary tables are fp32).  Head dims 64, 128.
+// type (:274, :405, :564; the scalar dk/dv kernel keeps it in fp32), p to
+// v's type before p.v (:249), to do's type before p^T.do (:377), and ds to
+// q's type before ds.k and ds^T.q (:383, :502); every product accumulates
+// in fp32.  Types: q/k/do/out share one type and v may differ: (fp32,
+// fp32, fp32), (bf16, bf16, bf16) and (fp32, fp32, bf16), the last being
+// what the bf16 LLaMA model feeds (its rotary tables are fp32).  Head dims
+// 64, 128.
 //
-// What bounds them on an H100 (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
-// fp32 outside them, 3.35 TB/s): causal attention does 4*b*h*sq*sk*d/2
-// FLOPs forward -- at the Llama-3-8B training shape (b 2, s 4096, h 32,
-// d 128) 275 GFLOP, 0.28 ms on the tensor cores -- and 2.5 times that
-// backward, against q/k/v/o/do/lse/dq/dk/dv traffic of about 0.4 GB
-// (0.13 ms).  So they are bound by operations.
+// What bounds them on an H100 (989 TFLOP/s bf16 tensor cores, 495 TF32,
+// so 165 for an fp32 product in 3xTF32; 3.35 TB/s): causal attention does
+// 4*b*h*sq*sk*d/2 FLOPs forward -- at the Llama-3-8B training shape (b 2,
+// s 4096, h 32, d 128) 275 GFLOP, 0.28 ms on the bf16 tensor cores, 1.67
+// ms in 3xTF32 -- and 2.5 times that backward, against q/k/v/o/do/lse/dq/
+// dk/dv traffic of about 0.4 GB (0.13 ms).  So they are bound by
+// operations.
 //
 // What the design does about it:
 //  - One block owns one (batch, head) and one tile of 64 rows, and loops
@@ -51,30 +53,44 @@
 //    adds its share of dq into an fp32 workspace with atomics (summed in
 //    an order that changes from run to run).  The split kernels are
 //    deterministic and take delta from one torch op outside.
-//  - bf16 q/k/v (the forward and the dk/dv template, split and fused) run
-//    on the tensor cores: mma.sync m16n8k16 with fp32 accumulation
-//    (mma_bf16.cuh), 4 warps of 16 rows each.  Tiles sit in shared memory
-//    in bf16 with rows padded by 16 bytes, so that ldmatrix (.trans for
-//    V, dO and Q as the B operand of P.V, P^T.dO and dS^T.Q) reads them
-//    without bank conflicts; the next K/V (forward) or Q/dO/lse/delta
-//    (dk/dv) tile is copied by cp.async into a second buffer while the
-//    current one is multiplied, rows past sq/sk zero-filled.  The forward
-//    keeps Q's fragments, S and O in registers and feeds P to P.V
-//    straight from the S registers; masks are applied only to tiles that
-//    cross the diagonal or an edge (or with segments).  The dk/dv kernel
-//    keeps dK and dV in registers and works through each q tile in
-//    column chunks (32 q rows at d = 128, so that S^T and dP^T fit beside
-//    the accumulators without spills); the fused one stages dS^T in
-//    shared memory for dQ = dS.K and adds dQ with 8-byte vector atomics.
-//    87 KB (forward) and 106-115 KB (dk/dv) of shared memory at d = 128:
-//    two blocks an SM.
-//  - fp32 and (fp32, fp32, bf16) q/k/v, and dq in every type, run scalar
-//    fp32 FMA on the CUDA cores (fp32 tiles, 4 x 4 register blocks): the
-//    fp32 path stays exact to fp32 rounding (no TF32), at one block an SM.
-//  - Not yet: wgmma with TMA and warp specialisation for the bf16 kernels;
-//    the bf16 dq kernel on the tensor cores; the fp32 and mixed kernels on
-//    the tensor cores (3xTF32), which would need a gate that says it
-//    computes the same function.
+//  - The forward and dq in every type, and the dk/dv template (split and
+//    fused) on bf16, run on the tensor cores with mma.sync, 4 warps of 16
+//    rows each.  bf16 operands: m16n8k16 with fp32 accumulation
+//    (mma_bf16.cuh).  fp32 operands: 3xTF32 (mma_tf32.cuh), each product
+//    as three m16n8k8 TF32 products of the operands' high and low parts,
+//    which keeps about 21 of fp32's 24 mantissa bits (errors near 1e-6 of
+//    the values, against fp32 gates of 1e-4 forward and 1e-3 backward);
+//    the mixed forward's P.V rounds p to v's bf16 as the reference does
+//    and runs on bf16 m16n8k16, and its dq's dO.V^T takes two TF32 terms
+//    (bf16 v is exact in TF32).  Tiles sit in shared memory in their own
+//    type with rows padded by 16 bytes, so that ldmatrix (.trans for bf16
+//    B operands stored [k][n]) and the 32-bit loads of fp32 B operands
+//    stored [k][n] hit distinct banks; the next K/V (forward, dq) or
+//    Q/dO/lse/delta (dk/dv) tile is copied by cp.async into a second
+//    buffer while the current one is multiplied, rows past sq/sk
+//    zero-filled.  The forward and dq keep S, dP and their accumulators in
+//    registers and feed P and dS to the next product straight from the S
+//    registers; masks are applied only to tiles (dq: 32- or 64-key
+//    chunks) that cross the diagonal or an edge, or with segments.  The
+//    bf16 forward keeps Q's fragments in registers; the others read Q and
+//    dO from shared memory for each tile.  dq (d 128) and dk/dv (d 128)
+//    work through a tile in column chunks of 32 so that S and dP fit
+//    beside the accumulators without spills; the fused kernel stages dS^T
+//    in shared memory for dQ = dS.K and adds dQ with 8-byte vector
+//    atomics.  3xTF32 sums chain at most a tile (S) or two k-steps (P.V,
+//    dS.K, dP: one) in the tensor cores' accumulator and are added in
+//    fp32 (mma_tf32.cuh).  fp32 tiles are twice the bytes of bf16 ones:
+//    at d 128 the fp32/mixed forward takes 32-key KV tiles and the dq one
+//    32-key buffer (fwd_kv_tile, dq_kv_tile), so that two blocks fit an
+//    SM.  Shared memory a block at d 128, as the card's occupancy
+//    calculator reports it: 88 KB (bf16 forward), 105 KB (bf16 dq),
+//    106-115 KB (bf16 dk/dv), 102 KB (fp32 forward), 85 KB (mixed
+//    forward), 102 KB (fp32 dq), 93 KB (mixed dq): two blocks an SM.
+//  - The dk/dv template in fp32 and (fp32, fp32, bf16) types still runs
+//    scalar fp32 FMA on the CUDA cores (fp32 tiles, 4 x 4 register
+//    blocks), at one block an SM at d 128.
+//  - Not yet: wgmma with TMA and warp specialisation for the bf16
+//    kernels; the fp32 and mixed dk/dv template in 3xTF32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,6 +100,7 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -111,9 +128,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 }
 
 __device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
@@ -235,20 +249,6 @@ __device__ __forceinline__ void mm_ab(const float* p, const float* v,
   }
 }
 
-// max and sum over the 16 lanes that share a tile row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // Writes the thread's 4 x HD/16 block of a 64-row output tile (rows
 // row0 + tr + 16r, columns 4tc + 64j .. +3) times `mul`.
 template <int HD, typename T>
@@ -269,218 +269,17 @@ __device__ __forceinline__ void store_tile(T* dst, const float (&acc)[4][HD / 16
   }
 }
 
-// the number of 64-key tiles that q rows [q0, q0 + 64) can see
+// the number of `tile`-key tiles that q rows [q0, q0 + 64) can see
 __device__ __forceinline__ int kv_tiles_for(int q0, int sq, int sk, int causal,
-                                            int offset) {
+                                            int offset, int tile = kB) {
   int kv_end = sk;
   if (causal) kv_end = min(sk, min(q0 + kB, sq) - 1 + offset + 1);
-  return kv_end > 0 ? (kv_end + kB - 1) / kB : 0;
+  return kv_end > 0 ? (kv_end + tile - 1) / tile : 0;
 }
 
 // the first 64-row q tile that can see keys [k0, k0 + 64)
 __device__ __forceinline__ int first_q_tile(int k0, int causal, int offset) {
   return causal ? max(0, k0 - offset) / kB : 0;
-}
-
-// ---------------------------------------------------------------------------
-// kernel 1: forward
-// ---------------------------------------------------------------------------
-
-template <int HD>
-constexpr int fwd_smem_bytes() {
-  return (3 * kB * (HD + 4) + kB * kPS) * 4 + kB * 4;
-}
-
-template <int HD, typename TQ, typename TV>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
-                 const TV* __restrict__ v, TQ* __restrict__ out,
-                 float* __restrict__ lse, const int* __restrict__ q_seg,
-                 const int* __restrict__ kv_seg, int sq, int sk, int nh,
-                 float scale_log2, int causal, int offset) {
-  constexpr int LD = HD + 4;
-  constexpr int kD = HD / 16;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // q * scale * log2(e)
-  float* k_s = q_s + kB * LD;
-  float* v_s = k_s + kB * LD;
-  float* p_s = v_s + kB * LD;                    // p rounded to v's type
-  int* kseg_s = reinterpret_cast<int*>(p_s + kB * kPS);
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // longest rows first
-  const int b = blockIdx.y / nh;
-  const int h = blockIdx.y % nh;
-  const int64_t tok = static_cast<int64_t>(nh) * HD;
-  const int tr = threadIdx.x >> 4;
-  const int tc = threadIdx.x & 15;
-  const TQ* qb = q + static_cast<int64_t>(b) * sq * tok + h * HD;
-  const TQ* kb = k + static_cast<int64_t>(b) * sk * tok + h * HD;
-  const TV* vb = v + static_cast<int64_t>(b) * sk * tok + h * HD;
-
-  load_tile<HD>(q_s, qb, q0, sq, tok, scale_log2);
-  int qi[4], qsg[4];
-  float m[4], l[4], acc[4][kD];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    qi[r] = q0 + tr + 16 * r;
-    qsg[r] = (q_seg != nullptr && qi[r] < sq)
-                 ? q_seg[static_cast<int64_t>(b) * sq + qi[r]] : 0;
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kD; ++e) acc[r][e] = 0.f;
-  }
-
-  const int n_kv = kv_tiles_for(q0, sq, sk, causal, offset);
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kB;
-    __syncthreads();  // the previous tile's k_s, v_s and p_s are consumed
-    load_tile<HD>(k_s, kb, k0, sk, tok, 1.f);
-    load_tile<HD>(v_s, vb, k0, sk, tok, 1.f);
-    if (kv_seg != nullptr && threadIdx.x < kB)
-      kseg_s[threadIdx.x] =
-          k0 + threadIdx.x < sk
-              ? kv_seg[static_cast<int64_t>(b) * sk + k0 + threadIdx.x] : 0;
-    __syncthreads();
-
-    float s[4][4];
-    mm_abt<HD>(q_s, k_s, s);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = k0 + tc + 16 * c;
-        bool ok = qi[r] < sq && j < sk;
-        if (causal) ok = ok && j <= qi[r] + offset;
-        if (kv_seg != nullptr) ok = ok && qsg[r] == kseg_s[tc + 16 * c];
-        s[r][c] = ok ? s[r][c] : -INFINITY;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      const float m_new = fmaxf(m[r], row_max(mx));
-      // a row that has seen no key yet keeps m = -inf, p = 0 and alpha = 0
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m[r] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = exp2f(s[r][c] - m_use);
-        sum += p;
-        p_s[(tr + 16 * r) * kPS + tc + 16 * c] = round_to<TV>(p);
-      }
-      l[r] = l[r] * alpha + row_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < kD; ++e) acc[r][e] *= alpha;
-    }
-    __syncthreads();
-    mm_ab<HD>(p_s, v_s, acc);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    if (qi[r] >= sq) continue;
-    const bool empty = l[r] == 0.f;
-    const float inv = empty ? 0.f : 1.f / l[r];
-    TQ* dst = out + (static_cast<int64_t>(b) * sq + qi[r]) * tok + h * HD;
-#pragma unroll
-    for (int j = 0; j < HD / 64; ++j)
-      store4(dst + 4 * tc + 64 * j,
-             make_float4(acc[r][4 * j] * inv, acc[r][4 * j + 1] * inv,
-                         acc[r][4 * j + 2] * inv, acc[r][4 * j + 3] * inv));
-    if (tc == 0)
-      lse[(static_cast<int64_t>(b) * nh + h) * sq + qi[r]] =
-          empty ? -INFINITY : (m[r] + log2f(l[r])) * kLn2;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// kernel 3: dq of the split backward
-// ---------------------------------------------------------------------------
-
-template <int HD>
-constexpr int dq_smem_bytes() {
-  return (4 * kB * (HD + 4) + kB * kPS) * 4 + kB * 4;
-}
-
-template <int HD, typename TQ, typename TV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
-                    const TV* __restrict__ v, const TQ* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, TQ* __restrict__ dq,
-                    const int* __restrict__ q_seg,
-                    const int* __restrict__ kv_seg, int sq, int sk, int nh,
-                    float scale, int causal, int offset) {
-  constexpr int LD = HD + 4;
-  constexpr int kD = HD / 16;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // q * scale * log2(e)
-  float* do_s = q_s + kB * LD;
-  float* k_s = do_s + kB * LD;
-  float* v_s = k_s + kB * LD;
-  float* ds_s = v_s + kB * LD;                   // ds rounded to q's type
-  int* kseg_s = reinterpret_cast<int*>(ds_s + kB * kPS);
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;
-  const int b = blockIdx.y / nh;
-  const int h = blockIdx.y % nh;
-  const int64_t tok = static_cast<int64_t>(nh) * HD;
-  const int tr = threadIdx.x >> 4;
-  const int tc = threadIdx.x & 15;
-  const int64_t qoff = static_cast<int64_t>(b) * sq * tok + h * HD;
-  const int64_t koff = static_cast<int64_t>(b) * sk * tok + h * HD;
-
-  load_tile<HD>(q_s, q + qoff, q0, sq, tok, scale * kLog2e);
-  load_tile<HD>(do_s, dout + qoff, q0, sq, tok, 1.f);
-  int qi[4], qsg[4];
-  float lse2[4], dlt[4], acc[4][kD];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    qi[r] = q0 + tr + 16 * r;
-    const bool live = qi[r] < sq;
-    qsg[r] = (q_seg != nullptr && live)
-                 ? q_seg[static_cast<int64_t>(b) * sq + qi[r]] : 0;
-    lse2[r] = live ? lse[(static_cast<int64_t>(b) * nh + h) * sq + qi[r]] *
-                         kLog2e
-                   : -INFINITY;
-    dlt[r] = live ? delta[(static_cast<int64_t>(b) * sq + qi[r]) * nh + h]
-                  : 0.f;
-#pragma unroll
-    for (int e = 0; e < kD; ++e) acc[r][e] = 0.f;
-  }
-
-  const int n_kv = kv_tiles_for(q0, sq, sk, causal, offset);
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kB;
-    __syncthreads();
-    load_tile<HD>(k_s, k + koff, k0, sk, tok, 1.f);
-    load_tile<HD>(v_s, v + koff, k0, sk, tok, 1.f);
-    if (kv_seg != nullptr && threadIdx.x < kB)
-      kseg_s[threadIdx.x] =
-          k0 + threadIdx.x < sk
-              ? kv_seg[static_cast<int64_t>(b) * sk + k0 + threadIdx.x] : 0;
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    mm_abt<HD>(q_s, k_s, s);
-    mm_abt<HD>(do_s, v_s, dp);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = k0 + tc + 16 * c;
-        bool ok = qi[r] < sq && j < sk && lse2[r] != -INFINITY;
-        if (causal) ok = ok && j <= qi[r] + offset;
-        if (kv_seg != nullptr) ok = ok && qsg[r] == kseg_s[tc + 16 * c];
-        const float p = ok ? exp2f(s[r][c] - lse2[r]) : 0.f;
-        ds_s[(tr + 16 * r) * kPS + tc + 16 * c] =
-            round_to<TQ>(p * (dp[r][c] - dlt[r]));
-      }
-    __syncthreads();
-    mm_ab<HD>(ds_s, k_s, acc);
-  }
-  store_tile<HD>(dq + qoff, acc, q0, sq, tok, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -628,11 +427,16 @@ flash_bwd_dkv_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernels: kernel 1 and the dk/dv template (kernels 2, 4)
+// tensor-core kernels: kernels 1 and 3 in every type, the dk/dv template
+// (kernels 2, 4) on bf16
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of a 64-row tile each
+// k-steps of 8 that a 3xTF32 sum of P V or dS K chains in the tensor cores'
+// accumulator before it is added to O or dQ in fp32 (mma_tf32.cuh): longer
+// chains lose bits, a zeroed accumulator for every k-step costs registers
+constexpr int kTf32Chain = 2;
 
 // dst[0] += a, dst[1] += b in device memory: one 8-byte vector atomic
 // where the toolkit has it (sm_90, CUDA 12.1 on), else two
@@ -645,60 +449,83 @@ __device__ __forceinline__ void add2(float* dst, float a, float b) {
 #endif
 }
 
-// bf16 tiles in shared memory: 64 rows of HD values, a row stride of HD + 8
-// (16 bytes of pad: ldmatrix and the 16-byte copies hit distinct banks)
-template <int HD>
-__host__ __device__ constexpr int mma_tile_elems() {
-  return kB * (HD + 8);
+// Tiles in shared memory: 64 rows of HD values of type T with 16 bytes of
+// pad a row (HD + 8 bf16, HD + 4 fp32), so that ldmatrix, the 16-byte
+// copies and the 32-bit loads of load_b_f32_trans hit distinct banks.
+template <int HD, typename T>
+__host__ __device__ constexpr int tile_ld() {
+  return HD + 16 / static_cast<int>(sizeof(T));
 }
 
-// Issues cp.async copies of rows row0 .. row0+63 of one head of a
-// [b, s, h, HD] bf16 tensor (src at (batch, token 0, head, 0)) into dst
-// [64][HD+8]; rows at or past n_rows are zero-filled.  Thread t copies the
-// 16-byte chunks t, t + 128, ... (scale_own_chunks walks the same ones).
+template <int HD, typename T>
+__host__ __device__ constexpr int tile_bytes() {
+  return kB * tile_ld<HD, T>() * static_cast<int>(sizeof(T));
+}
+
 template <int HD>
-__device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src,
+__host__ __device__ constexpr int mma_tile_elems() {
+  return kB * tile_ld<HD, bf16>();
+}
+
+// Issues cp.async copies of rows row0 .. row0+kRows-1 of one head of a
+// [b, s, h, HD] tensor (src at (batch, token 0, head, 0)) into dst
+// [kRows][tile_ld]; rows at or past n_rows are zero-filled.  Thread t
+// copies the 16-byte chunks t, t + 128, ... (scale_own_chunks walks the
+// same ones of a 64-row tile).
+template <int HD, int kRows = kB, typename T>
+__device__ __forceinline__ void copy_tile_async(T* dst, const T* src,
                                                 int row0, int n_rows,
                                                 int64_t tok_stride) {
-  constexpr int kChunks = HD / 8;
-  for (int e = threadIdx.x; e < kB * kChunks; e += kMmaThreads) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  constexpr int kChunks = HD / kPer;
+  for (int e = threadIdx.x; e < kRows * kChunks; e += kMmaThreads) {
     const int r = e / kChunks;
-    const int c = (e % kChunks) * 8;
+    const int c = (e % kChunks) * kPer;
     const bool live = row0 + r < n_rows;
-    cp_async16(dst + r * (HD + 8) + c,
+    cp_async16(dst + r * tile_ld<HD, T>() + c,
                src + (live ? static_cast<int64_t>(row0 + r) * tok_stride + c
                            : 0),
                live);
   }
 }
 
-// x * mul rounded to bf16, in place, for the chunks this thread copied
-// with copy_tile_async (visible to it after its cp_async_wait).
-template <int HD>
-__device__ __forceinline__ void scale_own_chunks(bf16* tile, float mul) {
-  constexpr int kChunks = HD / 8;
+// x * mul rounded to T, in place, for the chunks this thread copied with
+// copy_tile_async (visible to it after its cp_async_wait).
+template <int HD, typename T>
+__device__ __forceinline__ void scale_own_chunks(T* tile, float mul) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  constexpr int kChunks = HD / kPer;
   for (int e = threadIdx.x; e < kB * kChunks; e += kMmaThreads) {
-    uint4* p = reinterpret_cast<uint4*>(tile + (e / kChunks) * (HD + 8) +
-                                        (e % kChunks) * 8);
-    uint4 u = *p;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+    T* chunk = tile + (e / kChunks) * tile_ld<HD, T>() + (e % kChunks) * kPer;
+    if constexpr (std::is_same<T, float>::value) {
+      float4 f = *reinterpret_cast<float4*>(chunk);
+      f.x *= mul;
+      f.y *= mul;
+      f.z *= mul;
+      f.w *= mul;
+      *reinterpret_cast<float4*>(chunk) = f;
+    } else {
+      uint4* p = reinterpret_cast<uint4*>(chunk);
+      uint4 u = *p;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&u);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      w[i] = pack_bf16(f.x * mul, f.y * mul);
+      for (int i = 0; i < 4; ++i) {
+        const float2 f =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+        w[i] = pack_bf16(f.x * mul, f.y * mul);
+      }
+      *p = u;
     }
-    *p = u;
   }
 }
 
-// 4-byte values src[(row0 + i) * stride], i < 64, into dst[i] by cp.async;
-// zero at or past n_rows.  Threads 0 .. 63 issue them.
-template <typename T>
+// 4-byte values src[(row0 + i) * stride], i < kRows, into dst[i] by
+// cp.async; zero at or past n_rows.  Threads 0 .. kRows-1 issue them.
+template <int kRows = kB, typename T>
 __device__ __forceinline__ void copy_row_values_async(T* dst, const T* src,
                                                       int row0, int n_rows,
                                                       int stride) {
-  if (threadIdx.x < kB) {
+  if (threadIdx.x < kRows) {
     const int i = row0 + threadIdx.x;
     const bool live = i < n_rows;
     cp_async4(dst + threadIdx.x,
@@ -706,37 +533,70 @@ __device__ __forceinline__ void copy_row_values_async(T* dst, const T* src,
   }
 }
 
-template <int HD>
-constexpr int fwd_mma_smem_bytes() {
-  return 5 * mma_tile_elems<HD>() * 2 + 2 * kB * 4;
+// Two values of an output row: one 4-byte bf16 pair or one 8-byte fp32 pair.
+__device__ __forceinline__ void store2(bf16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
 }
 
-// Kernel 1 on bf16 q/k/v.  One block per (batch * head, 64-row q tile),
-// longest rows first; warp w owns q rows 16w .. 16w+15.  q * scale *
-// log2(e) is rounded to bf16 once (the reference's :274) and its A
-// fragments stay in registers.  Per 64-key tile, with the next K/V tile
-// in flight by cp.async into the other buffer: S = Q K^T on the tensor
-// cores, the mask only where the tile crosses the diagonal or an edge or
-// segments are given, the online softmax in base 2 on the accumulator
-// registers (row max and sum over the 4 lanes of a row group), and
-// O += P V with P rounded to bf16 (v's type, :249) straight from the S
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+// Keys a KV tile of the forward: 64, but 32 for fp32 q/k at d 128, whose
+// 64-key tiles would leave room for one block an SM (169 KB of shared
+// memory; 102 KB with 32 keys, two blocks an SM, which the card runs
+// faster; at d 64 two blocks fit either way and 64 keys run faster).
+template <int HD, typename TQ>
+__host__ __device__ constexpr int fwd_kv_tile() {
+  return std::is_same<TQ, bf16>::value || HD == 64 ? kB : 32;
+}
+
+template <int HD, typename TQ, typename TV>
+constexpr int fwd_mma_smem_bytes() {
+  // Q (64 rows); K x 2 in q's type and V x 2 in v's type (fwd_kv_tile
+  // rows); kv ids x 2
+  constexpr int kBK = fwd_kv_tile<HD, TQ>();
+  return tile_bytes<HD, TQ>() +
+         2 * kBK * (tile_ld<HD, TQ>() * static_cast<int>(sizeof(TQ)) +
+                    tile_ld<HD, TV>() * static_cast<int>(sizeof(TV))) +
+         2 * kBK * 4;
+}
+
+// Kernel 1.  One block per (batch * head, 64-row q tile), longest rows
+// first; warp w owns q rows 16w .. 16w+15.  Per KV tile (fwd_kv_tile
+// keys), with the next K/V tile in flight by cp.async into the other
+// buffer: S = Q K^T on the tensor cores, the mask only where the tile
+// crosses the diagonal or an edge or segments are given, the online
+// softmax in base 2 on the accumulator registers (row max and sum over
+// the 4 lanes of a row group), and O += P V with P straight from the S
 // registers.
-template <int HD>
+// bf16 q/k/v: m16n8k16; q * scale * log2(e) is rounded to bf16 once (the
+// reference's :274) and its A fragments stay in registers; P is rounded to
+// bf16 (v's type, :249).
+// fp32 q/k: S in 3xTF32, with q * scale * log2(e) in fp32 (:274 rounds to
+// q's type) in shared memory, its fragments split for each tile (their
+// high and low parts would take 4 * HD / 8 registers); P.V in 3xTF32 for
+// fp32 v, and for bf16 v on bf16 m16n8k16 with P rounded to bf16.
+template <int HD, typename TQ, typename TV>
 __global__ void __launch_bounds__(kMmaThreads, 2)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
+flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                     const TV* __restrict__ v, TQ* __restrict__ out,
                      float* __restrict__ lse, const int* __restrict__ q_seg,
                      const int* __restrict__ kv_seg, int sq, int sk, int nh,
                      float scale_log2, int causal, int offset) {
-  constexpr int LD = HD + 8;
-  constexpr int kTile = mma_tile_elems<HD>();
-  constexpr int kSteps = HD / 16;  // k-steps of Q K^T
+  constexpr bool kBf16 = std::is_same<TQ, bf16>::value;
+  constexpr int LD = tile_ld<HD, TQ>();
+  constexpr int LDV = tile_ld<HD, TV>();
+  constexpr int kBK = fwd_kv_tile<HD, TQ>();  // keys a KV tile
+  constexpr int kTile = kBK * LD;
+  constexpr int kVTile = kBK * LDV;
+  constexpr int kSteps = HD / 16;  // k-steps of Q K^T on bf16
   constexpr int kOTiles = HD / 8;  // n-tiles of O
   extern __shared__ uint4 smem_u4[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_u4);
-  bf16* k_s = q_s + kTile;          // [2][64][LD]
-  bf16* v_s = k_s + 2 * kTile;      // [2][64][LD]
-  int* kseg_s = reinterpret_cast<int*>(v_s + 2 * kTile);  // [2][64]
+  TQ* q_s = reinterpret_cast<TQ*>(smem_u4);                // [64][LD]
+  TQ* k_s = q_s + kB * LD;                                 // [2][kBK][LD]
+  TV* v_s = reinterpret_cast<TV*>(k_s + 2 * kTile);        // [2][kBK][LDV]
+  int* kseg_s = reinterpret_cast<int*>(v_s + 2 * kVTile);  // [2][kBK]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // longest rows first
   const int b = blockIdx.y / nh;
@@ -747,43 +607,46 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int gq = lane >> 2;
   const int tq = lane & 3;
   const int wrow0 = q0 + 16 * warp;
-  const bf16* qb = q + static_cast<int64_t>(b) * sq * tok + h * HD;
-  const bf16* kb = k + static_cast<int64_t>(b) * sk * tok + h * HD;
-  const bf16* vb = v + static_cast<int64_t>(b) * sk * tok + h * HD;
+  const TQ* qb = q + static_cast<int64_t>(b) * sq * tok + h * HD;
+  const TQ* kb = k + static_cast<int64_t>(b) * sk * tok + h * HD;
+  const TV* vb = v + static_cast<int64_t>(b) * sk * tok + h * HD;
   const int* ksb = kv_seg != nullptr ? kv_seg + static_cast<int64_t>(b) * sk
                                      : nullptr;
 
-  const int n_kv = kv_tiles_for(q0, sq, sk, causal, offset);
+  const int n_kv = kv_tiles_for(q0, sq, sk, causal, offset, kBK);
   if (n_kv > 0) {
-    copy_tile_async<HD>(k_s, kb, 0, sk, tok);
-    copy_tile_async<HD>(v_s, vb, 0, sk, tok);
-    if (ksb != nullptr) copy_row_values_async(kseg_s, ksb, 0, sk, 1);
+    if constexpr (!kBf16) copy_tile_async<HD>(q_s, qb, q0, sq, tok);
+    copy_tile_async<HD, kBK>(k_s, kb, 0, sk, tok);
+    copy_tile_async<HD, kBK>(v_s, vb, 0, sk, tok);
+    if (ksb != nullptr) copy_row_values_async<kBK>(kseg_s, ksb, 0, sk, 1);
   }
   cp_async_commit();
 
-  // q * scale * log2(e), rounded to bf16, into q_s; rows past sq are 0
-  for (int e = threadIdx.x; e < kB * HD / 8; e += kMmaThreads) {
-    const int r = e / (HD / 8);
-    const int c = (e % (HD / 8)) * 8;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (q0 + r < sq) {
-      u = *reinterpret_cast<const uint4*>(
-          qb + static_cast<int64_t>(q0 + r) * tok + c);
-      uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+  uint32_t qf[kBf16 ? kSteps : 1][4];
+  if constexpr (kBf16) {
+    // q * scale * log2(e), rounded to bf16, into q_s; rows past sq are 0
+    for (int e = threadIdx.x; e < kB * HD / 8; e += kMmaThreads) {
+      const int r = e / (HD / 8);
+      const int c = (e % (HD / 8)) * 8;
+      uint4 u = make_uint4(0, 0, 0, 0);
+      if (q0 + r < sq) {
+        u = *reinterpret_cast<const uint4*>(
+            qb + static_cast<int64_t>(q0 + r) * tok + c);
+        uint32_t* w = reinterpret_cast<uint32_t*>(&u);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-        w[i] = pack_bf16(f.x * scale_log2, f.y * scale_log2);
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+          w[i] = pack_bf16(f.x * scale_log2, f.y * scale_log2);
+        }
       }
+      *reinterpret_cast<uint4*>(q_s + r * LD + c) = u;
     }
-    *reinterpret_cast<uint4*>(q_s + r * LD + c) = u;
-  }
-  __syncthreads();
-  uint32_t qf[kSteps][4];
+    __syncthreads();
 #pragma unroll
-  for (int kt = 0; kt < kSteps; ++kt)
-    load_a(qf[kt], q_s, LD, 16 * warp, 16 * kt, lane);
+    for (int kt = 0; kt < kSteps; ++kt)
+      load_a(qf[kt], q_s, LD, 16 * warp, 16 * kt, lane);
+  }
 
   // the lane's two rows: wrow0 + gq and wrow0 + gq + 8
   int qsg[2] = {0, 0};
@@ -806,43 +669,66 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // tile t has landed and every warp is done with tile t - 1, whose
     // buffer now takes tile t + 1
     cp_async_wait<0>();
+    if constexpr (!kBf16) {
+      // Q came with tile 0: q * scale * log2(e) in fp32
+      if (t == 0) scale_own_chunks<HD>(q_s, scale_log2);
+    }
     __syncthreads();
     if (t + 1 < n_kv) {
       const int nb = buf ^ 1;
-      copy_tile_async<HD>(k_s + nb * kTile, kb, (t + 1) * kB, sk, tok);
-      copy_tile_async<HD>(v_s + nb * kTile, vb, (t + 1) * kB, sk, tok);
+      copy_tile_async<HD, kBK>(k_s + nb * kTile, kb, (t + 1) * kBK, sk, tok);
+      copy_tile_async<HD, kBK>(v_s + nb * kVTile, vb, (t + 1) * kBK, sk,
+                               tok);
       if (ksb != nullptr)
-        copy_row_values_async(kseg_s + nb * kB, ksb, (t + 1) * kB, sk, 1);
+        copy_row_values_async<kBK>(kseg_s + nb * kBK, ksb, (t + 1) * kBK,
+                                   sk, 1);
     }
     cp_async_commit();
 
-    const int k0 = t * kB;
+    const int k0 = t * kBK;
     // warp-uniform: rows past sq, or a tile wholly above this warp's part
     // of the diagonal, add nothing
     if (wrow0 >= sq || (causal && k0 > wrow0 + 15 + offset)) continue;
-    const bf16* kt_s = k_s + buf * kTile;
-    const bf16* vt_s = v_s + buf * kTile;
+    const TQ* kt_s = k_s + buf * kTile;
+    const TV* vt_s = v_s + buf * kVTile;
 
-    float s[kB / 8][4];
+    float s[kBK / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kB / 8; ++nt)
+    for (int nt = 0; nt < kBK / 8; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+    if constexpr (kBf16) {
 #pragma unroll
-    for (int kt = 0; kt < kSteps; ++kt)
+      for (int kt = 0; kt < kSteps; ++kt)
 #pragma unroll
-      for (int np = 0; np < kB / 16; ++np) {
-        uint32_t bf[4];
-        load_b(bf, kt_s, LD, 16 * np, 16 * kt, lane);
-        mma_bf16_16816(s[2 * np], qf[kt], bf[0], bf[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[kt], bf[2], bf[3]);
+        for (int np = 0; np < kBK / 16; ++np) {
+          uint32_t bf[4];
+          load_b(bf, kt_s, LD, 16 * np, 16 * kt, lane);
+          mma_bf16_16816(s[2 * np], qf[kt], bf[0], bf[1]);
+          mma_bf16_16816(s[2 * np + 1], qf[kt], bf[2], bf[3]);
+        }
+    } else {
+#pragma unroll 2
+      for (int kt = 0; kt < HD / 8; ++kt) {
+        uint32_t a[4], ahi[4], alo[4];
+        load_a_f32(a, q_s, LD, 16 * warp, 8 * kt, lane);
+        split_tf32(a, ahi, alo);
+#pragma unroll
+        for (int np = 0; np < kBK / 16; ++np) {
+          uint32_t bf[4], bhi[4], blo[4];
+          load_b_f32(bf, kt_s, LD, 16 * np, 8 * kt, lane);
+          split_tf32(bf, bhi, blo);
+          mma_3xtf32(s[2 * np], ahi, alo, bhi, blo);
+          mma_3xtf32(s[2 * np + 1], ahi, alo, bhi + 2, blo + 2);
+        }
       }
+    }
 
-    if (ksb != nullptr || k0 + kB > sk ||
-        (causal && k0 + kB - 1 > wrow0 + offset)) {
-      const int* ks = kseg_s + buf * kB;
+    if (ksb != nullptr || k0 + kBK > sk ||
+        (causal && k0 + kBK - 1 > wrow0 + offset)) {
+      const int* ks = kseg_s + buf * kBK;
 #pragma unroll
-      for (int nt = 0; nt < kB / 8; ++nt)
+      for (int nt = 0; nt < kBK / 8; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int row = wrow0 + gq + 8 * (i >> 1);
@@ -860,7 +746,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int hr = 0; hr < 2; ++hr) {
       float mx = m[hr];
 #pragma unroll
-      for (int nt = 0; nt < kB / 8; ++nt)
+      for (int nt = 0; nt < kBK / 8; ++nt)
         mx = fmaxf(mx, fmaxf(s[nt][2 * hr], s[nt][2 * hr + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -870,7 +756,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m[hr] = mx;
       float sum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < kB / 8; ++nt) {
+      for (int nt = 0; nt < kBK / 8; ++nt) {
         s[nt][2 * hr] = exp2f(s[nt][2 * hr] - m_use);
         s[nt][2 * hr + 1] = exp2f(s[nt][2 * hr + 1] - m_use);
         sum += s[nt][2 * hr] + s[nt][2 * hr + 1];
@@ -885,19 +771,46 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       o[nt][3] *= alpha[1];
     }
 
+    if constexpr (std::is_same<TV, bf16>::value) {
 #pragma unroll
-    for (int kk = 0; kk < kB / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t bf[4];
-        load_b_trans(bf, vt_s, LD, 16 * dp, 16 * kk, lane);
-        mma_bf16_16816(o[2 * dp], a, bf[0], bf[1]);
-        mma_bf16_16816(o[2 * dp + 1], a, bf[2], bf[3]);
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          uint32_t bf[4];
+          load_b_trans(bf, vt_s, LDV, 16 * dp, 16 * kk, lane);
+          mma_bf16_16816(o[2 * dp], a, bf[0], bf[1]);
+          mma_bf16_16816(o[2 * dp + 1], a, bf[2], bf[3]);
+        }
       }
+    } else {
+      // P V for each 8 columns of O, kTf32Chain k-steps at a time in a
+      // zeroed accumulator added to O in fp32
+      uint32_t phi[kBK / 8][4], plo[kBK / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; ++kk) {
+        float a[4];
+        a_from_c(a, s[kk]);
+        split_tf32(a, phi[kk], plo[kk]);
+      }
+#pragma unroll
+      for (int dn = 0; dn < kOTiles; ++dn)
+#pragma unroll
+        for (int kc = 0; kc < kBK / 8; kc += kTf32Chain) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = kc; kk < kc + kTf32Chain; ++kk) {
+            float bv[2];
+            uint32_t bhi[2], blo[2];
+            load_b_f32_trans(bv, vt_s, LDV, 8 * dn, 8 * kk, lane);
+            split_tf32(bv, bhi, blo);
+            mma_3xtf32(t, phi[kk], plo[kk], bhi, blo);
+          }
+          add_c(o[dn], t);
+        }
     }
   }
 
@@ -911,15 +824,347 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (row >= sq) continue;
     const bool empty = lsum == 0.f;
     const float inv = empty ? 0.f : 1.f / lsum;
-    bf16* dst = out + (static_cast<int64_t>(b) * sq + row) * tok + h * HD +
-                2 * tq;
+    TQ* dst = out + (static_cast<int64_t>(b) * sq + row) * tok + h * HD +
+              2 * tq;
 #pragma unroll
     for (int nt = 0; nt < kOTiles; ++nt)
-      *reinterpret_cast<uint32_t*>(dst + nt * 8) =
-          pack_bf16(o[nt][2 * hr] * inv, o[nt][2 * hr + 1] * inv);
+      store2(dst + nt * 8, o[nt][2 * hr] * inv, o[nt][2 * hr + 1] * inv);
     if (tq == 0)
       lse[(static_cast<int64_t>(b) * nh + h) * sq + row] =
           empty ? -INFINITY : (m[hr] + log2f(lsum)) * kLn2;
+  }
+}
+
+// Keys a KV tile of dq, and its buffers: 64 keys in two buffers (the next
+// tile in flight while the current one is multiplied), but for fp32 q/k at
+// d 128 32 keys in one buffer: Q and dO take 68 KB there, two buffers
+// would leave room for one block an SM (203 KB with 64 keys, 135 KB with
+// 32), one lets two blocks fit (101 KB; 93 KB mixed), each hiding the
+// other's copies.
+template <int HD, typename TQ>
+__host__ __device__ constexpr int dq_kv_tile() {
+  return std::is_same<TQ, bf16>::value || HD == 64 ? kB : 32;
+}
+
+template <int HD, typename TQ>
+__host__ __device__ constexpr int dq_kv_buffers() {
+  return dq_kv_tile<HD, TQ>() == kB ? 2 : 1;
+}
+
+template <int HD, typename TQ, typename TV>
+constexpr int dq_mma_smem_bytes() {
+  // Q, dO (64 rows); K in q's type and V in v's type (dq_kv_buffers of
+  // dq_kv_tile rows); kv ids a buffer
+  constexpr int kBK = dq_kv_tile<HD, TQ>();
+  constexpr int kBuf = dq_kv_buffers<HD, TQ>();
+  return 2 * tile_bytes<HD, TQ>() +
+         kBuf * kBK * (tile_ld<HD, TQ>() * static_cast<int>(sizeof(TQ)) +
+                       tile_ld<HD, TV>() * static_cast<int>(sizeof(TV)) + 4);
+}
+
+// Kernel 3, dq of the split backward, in the forward's shape: one block
+// per (batch * head, 64-row q tile), longest rows first; warp w owns q rows
+// 16w .. 16w+15 and their dQ accumulators in registers.  Q (scaled by scale
+// * log2(e) in q's type, :564) and dO come with the first KV tile and stay
+// in shared memory; the next K/V tile is in flight by cp.async while the
+// current one is multiplied (with one buffer, dq_kv_tile, the other block
+// on the SM covers the copy), and the KV loop ends at the tile's last
+// visible key.  Per KV tile, in chunks of kKC keys (32 at d 128, so that S
+// and dP fit beside the 64 dQ registers without spills): S = Q K^T;
+// P = exp2(S - lse2), masked only where the chunk crosses the diagonal or
+// an edge, or with segments, and 0 where lse is -inf; dP = dO V^T;
+// dS = P (dP - delta) in q's type (:502); dQ += dS K.  dQ is multiplied by
+// scale and stored in q's type.
+// dP is summed from the products over k = 8 added in fp32: a query row
+// that sees one key has dS = P (dP - delta) = 0 exactly, and the tensor
+// cores' fp32 accumulation chained over HD keeps fewer bits than an FMA
+// chain.
+// bf16: m16n8k16 (m16n8k8 for dP), dS rounded to bf16 when packed into A
+// fragments and K read as the B operand of dS K by ldmatrix.trans.  fp32
+// q/k: 3xTF32 products with dS in fp32; with bf16 v, dO V^T takes two TF32
+// terms (v is exact in TF32).
+template <int HD, typename TQ, typename TV>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_bwd_dq_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                        const TV* __restrict__ v,
+                        const TQ* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, TQ* __restrict__ dq,
+                        const int* __restrict__ q_seg,
+                        const int* __restrict__ kv_seg, int sq, int sk,
+                        int nh, float scale, int causal, int offset) {
+  constexpr bool kBf16 = std::is_same<TQ, bf16>::value;
+  constexpr int LD = tile_ld<HD, TQ>();
+  constexpr int LDV = tile_ld<HD, TV>();
+  constexpr int kBK = dq_kv_tile<HD, TQ>();      // keys a KV tile
+  constexpr int kBuf = dq_kv_buffers<HD, TQ>();  // KV tile buffers
+  constexpr int kTile = kBK * LD;
+  constexpr int kVTile = kBK * LDV;
+  constexpr int kDTiles = HD / 8;           // n-tiles of dQ
+  constexpr int kKC = HD == 128 ? 32 : 64;  // keys a chunk
+  constexpr int kCT = kKC / 8;              // n-tiles of a chunk's S, dP
+  extern __shared__ uint4 smem_u4[];
+  TQ* q_s = reinterpret_cast<TQ*>(smem_u4);  // [64][LD]
+  TQ* do_s = q_s + kB * LD;                  // [64][LD]
+  TQ* k_s = do_s + kB * LD;                  // [kBuf][kBK][LD]
+  TV* v_s = reinterpret_cast<TV*>(k_s + kBuf * kTile);        // [..][LDV]
+  int* kseg_s = reinterpret_cast<int*>(v_s + kBuf * kVTile);  // [kBuf][kBK]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // longest rows first
+  const int b = blockIdx.y / nh;
+  const int h = blockIdx.y % nh;
+  const int64_t tok = static_cast<int64_t>(nh) * HD;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int wrow0 = q0 + 16 * warp;
+  const int64_t qoff = static_cast<int64_t>(b) * sq * tok + h * HD;
+  const TQ* kb = k + static_cast<int64_t>(b) * sk * tok + h * HD;
+  const TV* vb = v + static_cast<int64_t>(b) * sk * tok + h * HD;
+  const int* ksb = kv_seg != nullptr ? kv_seg + static_cast<int64_t>(b) * sk
+                                     : nullptr;
+
+  const int n_kv = kv_tiles_for(q0, sq, sk, causal, offset, kBK);
+  auto issue_kv_tile = [&](int t, int nb) {
+    copy_tile_async<HD, kBK>(k_s + nb * kTile, kb, t * kBK, sk, tok);
+    copy_tile_async<HD, kBK>(v_s + nb * kVTile, vb, t * kBK, sk, tok);
+    if (ksb != nullptr)
+      copy_row_values_async<kBK>(kseg_s + nb * kBK, ksb, t * kBK, sk, 1);
+  };
+  if (n_kv > 0) {
+    copy_tile_async<HD>(q_s, q + qoff, q0, sq, tok);
+    copy_tile_async<HD>(do_s, dout + qoff, q0, sq, tok);
+    issue_kv_tile(0, 0);
+  }
+  cp_async_commit();
+
+  // the lane's two rows, wrow0 + gq and wrow0 + gq + 8: lse in base 2
+  // (+inf past sq and where the row sees no key, so that exp2(s - l2) is
+  // 0 there), delta and q ids
+  float l2[2], dlt[2];
+  int qsg[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = wrow0 + gq + 8 * hr;
+    const bool live = row < sq;
+    const float ls =
+        live ? lse[(static_cast<int64_t>(b) * nh + h) * sq + row] : -INFINITY;
+    l2[hr] = ls == -INFINITY ? INFINITY : ls * kLog2e;
+    dlt[hr] = live ? delta[(static_cast<int64_t>(b) * sq + row) * nh + h]
+                   : 0.f;
+    qsg[hr] = (q_seg != nullptr && live)
+                  ? q_seg[static_cast<int64_t>(b) * sq + row] : 0;
+  }
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int nt = 0; nt < kDTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int buf = kBuf == 2 ? t & 1 : 0;
+    if (kBuf == 1 && t > 0) {
+      // one buffer: every warp is done with tile t - 1, which tile t
+      // replaces
+      __syncthreads();
+      issue_kv_tile(t, 0);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    if (t == 0) scale_own_chunks<HD>(q_s, scale * kLog2e);
+    // tile t (and, at t = 0, Q and dO) is in place for the block; with two
+    // buffers every warp is done with tile t - 1, whose buffer takes tile
+    // t + 1
+    __syncthreads();
+    if (kBuf == 2 && t + 1 < n_kv) issue_kv_tile(t + 1, buf ^ 1);
+    cp_async_commit();
+
+    const int k0 = t * kBK;
+    if (wrow0 >= sq || (causal && k0 > wrow0 + 15 + offset)) continue;
+    const TQ* kt_s = k_s + buf * kTile;
+    const TV* vt_s = v_s + buf * kVTile;
+    const int* ks = kseg_s + buf * kBK;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBK; c0 += kKC) {
+      const int j0 = k0 + c0;
+      if (causal && j0 > wrow0 + 15 + offset) break;
+      float s[kCT][4], dp[kCT][4];
+#pragma unroll
+      for (int nt = 0; nt < kCT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+
+      // S = Q K^T
+      if constexpr (kBf16) {
+#pragma unroll 2
+        for (int kt = 0; kt < HD / 16; ++kt) {
+          uint32_t af[4];
+          load_a(af, q_s, LD, 16 * warp, 16 * kt, lane);
+#pragma unroll
+          for (int np = 0; np < kCT / 2; ++np) {
+            uint32_t bf[4];
+            load_b(bf, kt_s, LD, c0 + 16 * np, 16 * kt, lane);
+            mma_bf16_16816(s[2 * np], af, bf[0], bf[1]);
+            mma_bf16_16816(s[2 * np + 1], af, bf[2], bf[3]);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int kt = 0; kt < HD / 8; ++kt) {
+          uint32_t a[4], ahi[4], alo[4];
+          load_a_f32(a, q_s, LD, 16 * warp, 8 * kt, lane);
+          split_tf32(a, ahi, alo);
+#pragma unroll
+          for (int np = 0; np < kCT / 2; ++np) {
+            uint32_t bf[4], bhi[4], blo[4];
+            load_b_f32(bf, kt_s, LD, c0 + 16 * np, 8 * kt, lane);
+            split_tf32(bf, bhi, blo);
+            mma_3xtf32(s[2 * np], ahi, alo, bhi, blo);
+            mma_3xtf32(s[2 * np + 1], ahi, alo, bhi + 2, blo + 2);
+          }
+        }
+      }
+
+      // P = exp2(S - lse2), 0 where the key is masked
+      const bool masked = ksb != nullptr || j0 + kKC > sk ||
+                          (causal && j0 + kKC - 1 > wrow0 + offset);
+#pragma unroll
+      for (int nt = 0; nt < kCT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = c0 + nt * 8 + 2 * tq + (i & 1);
+          bool ok = true;
+          if (masked) {
+            const int j = k0 + col;
+            ok = j < sk;
+            if (causal) ok = ok && j <= wrow0 + gq + 8 * (i >> 1) + offset;
+            if (ksb != nullptr) ok = ok && qsg[i >> 1] == ks[col];
+          }
+          s[nt][i] = ok ? exp2f(s[nt][i] - l2[i >> 1]) : 0.f;
+        }
+
+      // dP = dO V^T
+      if constexpr (kBf16) {
+#pragma unroll 2
+        for (int kt = 0; kt < HD / 16; ++kt) {
+          uint32_t af[4];
+          load_a(af, do_s, LD, 16 * warp, 16 * kt, lane);
+#pragma unroll
+          for (int np = 0; np < kCT / 2; ++np) {
+            uint32_t bf[4];
+            load_b(bf, vt_s, LDV, c0 + 16 * np, 16 * kt, lane);
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16_1688(t0, af[2 * half], af[2 * half + 1], bf[half]);
+              mma_bf16_1688(t1, af[2 * half], af[2 * half + 1], bf[2 + half]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                dp[2 * np][e] += t0[e];
+                dp[2 * np + 1][e] += t1[e];
+              }
+            }
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int kt = 0; kt < HD / 8; ++kt) {
+          uint32_t a[4], ahi[4], alo[4];
+          load_a_f32(a, do_s, LD, 16 * warp, 8 * kt, lane);
+          split_tf32(a, ahi, alo);
+          if constexpr (std::is_same<TV, float>::value) {
+#pragma unroll
+            for (int np = 0; np < kCT / 2; ++np) {
+              uint32_t bf[4], bhi[4], blo[4];
+              load_b_f32(bf, vt_s, LDV, c0 + 16 * np, 8 * kt, lane);
+              split_tf32(bf, bhi, blo);
+              float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_3xtf32(t0, ahi, alo, bhi, blo);
+              mma_3xtf32(t1, ahi, alo, bhi + 2, blo + 2);
+              add_c(dp[2 * np], t0);
+              add_c(dp[2 * np + 1], t1);
+            }
+          } else {
+#pragma unroll
+            for (int nt = 0; nt < kCT; ++nt) {
+              const TV* vr = vt_s + (c0 + 8 * nt + gq) * LDV + 8 * kt + tq;
+              const uint32_t b0 = bf16_as_tf32(vr[0]);
+              const uint32_t b1 = bf16_as_tf32(vr[4]);
+              float t0[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32_1688(t0, alo, b0, b1);
+              mma_tf32_1688(t0, ahi, b0, b1);
+              add_c(dp[nt], t0);
+            }
+          }
+        }
+      }
+
+      // dS = P (dP - delta), then dQ += dS K
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int kk = 0; kk < kCT / 2; ++kk) {
+          uint32_t a[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float* sp = s[2 * kk + (r >> 1)];
+            const float* dpp = dp[2 * kk + (r >> 1)];
+            const int e = 2 * (r & 1);
+            const float d = dlt[r & 1];
+            a[r] = pack_bf16(sp[e] * (dpp[e] - d),
+                             sp[e + 1] * (dpp[e + 1] - d));
+          }
+#pragma unroll
+          for (int dn = 0; dn < HD / 16; ++dn) {
+            uint32_t bf[4];
+            load_b_trans(bf, kt_s, LD, 16 * dn, c0 + 16 * kk, lane);
+            mma_bf16_16816(acc[2 * dn], a, bf[0], bf[1]);
+            mma_bf16_16816(acc[2 * dn + 1], a, bf[2], bf[3]);
+          }
+        }
+      } else {
+        // dS K for each 8 columns of dQ, kTf32Chain k-steps at a time in
+        // a zeroed accumulator added to dQ in fp32
+        uint32_t dhi[kCT][4], dlo[kCT][4];
+#pragma unroll
+        for (int kk = 0; kk < kCT; ++kk) {
+          float ds[4], a[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ds[i] = s[kk][i] * (dp[kk][i] - dlt[i >> 1]);
+          a_from_c(a, ds);
+          split_tf32(a, dhi[kk], dlo[kk]);
+        }
+#pragma unroll
+        for (int dn = 0; dn < kDTiles; ++dn)
+#pragma unroll
+          for (int kc = 0; kc < kCT; kc += kTf32Chain) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int kk = kc; kk < kc + kTf32Chain; ++kk) {
+              float bk[2];
+              uint32_t bhi[2], blo[2];
+              load_b_f32_trans(bk, kt_s, LD, 8 * dn, c0 + 8 * kk, lane);
+              split_tf32(bk, bhi, blo);
+              mma_3xtf32(t, dhi[kk], dlo[kk], bhi, blo);
+            }
+            add_c(acc[dn], t);
+          }
+      }
+    }
+  }
+
+  if (wrow0 >= sq) return;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = wrow0 + gq + 8 * hr;
+    if (row >= sq) continue;
+    TQ* dst = dq + qoff + static_cast<int64_t>(row) * tok + 2 * tq;
+#pragma unroll
+    for (int nt = 0; nt < kDTiles; ++nt)
+      store2(dst + nt * 8, acc[nt][2 * hr] * scale,
+             acc[nt][2 * hr + 1] * scale);
   }
 }
 
@@ -1245,11 +1490,18 @@ struct Tag {
   using type = T;
 };
 
-// bf16 q/k/v take the tensor-core forward and dk/dv kernels; every other
-// type mix, and the dq kernel, the scalar ones
-template <typename TQ, typename TV>
-constexpr bool uses_tensor_cores() {
-  return std::is_same<TQ, bf16>::value && std::is_same<TV, bf16>::value;
+// The C entries, as hetu_flash_uses_tensor_cores numbers them, and the
+// routes their kernels take: bf16 q/k/v run every entry on bf16 mma.sync;
+// fp32 q/k (fp32 or bf16 v) run the forward and dq in 3xTF32 (the mixed
+// forward's P.V on bf16 mma.sync) and the dk/dv template scalar.
+constexpr int kEntryFwd = 0, kEntryDq = 1, kEntryDkv = 2;
+constexpr int kRouteScalar = 0, kRouteBf16 = 1, kRouteTf32 = 2;
+
+template <typename TQ>
+constexpr int route(int entry) {
+  return std::is_same<TQ, bf16>::value
+             ? kRouteBf16
+             : (entry == kEntryDkv ? kRouteScalar : kRouteTf32);
 }
 
 // Calls f(int_constant<HD>, Tag<TQ>, Tag<TV>) for the supported head dims and
@@ -1277,6 +1529,26 @@ bool bad_shape(int b, int sq, int sk, int nh) {
          static_cast<int64_t>(b) * nh > 65535;
 }
 
+// Calls g(kernel, threads, dynamic shared memory bytes) with the dk/dv
+// template that hetu_flash_bwd_dkv launches for these types (`fused` picks
+// kernel 2 over 4).
+template <int HD, typename TQ, typename TV, typename G>
+cudaError_t with_dkv_kernel(int fused, G&& g) {
+  if constexpr (route<TQ>(kEntryDkv) == kRouteBf16) {
+    if (fused)
+      return g(flash_bwd_dkv_mma_kernel<HD, true>, kMmaThreads,
+               dkv_mma_smem_bytes<HD, true>());
+    return g(flash_bwd_dkv_mma_kernel<HD, false>, kMmaThreads,
+             dkv_mma_smem_bytes<HD, false>());
+  } else {
+    if (fused)
+      return g(flash_bwd_dkv_kernel<HD, TQ, TV, true>, kThreads,
+               dkv_smem_bytes<HD, true>());
+    return g(flash_bwd_dkv_kernel<HD, TQ, TV, false>, kThreads,
+             dkv_smem_bytes<HD, false>());
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1299,34 +1571,19 @@ int hetu_flash_fwd(const void* q, const void* k, const void* v, void* out,
     constexpr int HD = decltype(hd)::value;
     using TQ = typename decltype(tq)::type;
     using TV = typename decltype(tv)::type;
+    auto kernel = flash_fwd_mma_kernel<HD, TQ, TV>;
+    constexpr int smem = fwd_mma_smem_bytes<HD, TQ, TV>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
     const dim3 grid((sq + kB - 1) / kB, b * nh);
-    if constexpr (uses_tensor_cores<TQ, TV>()) {
-      auto kernel = flash_fwd_mma_kernel<HD>;
-      constexpr int smem = fwd_mma_smem_bytes<HD>();
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, kMmaThreads, smem, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<bf16*>(out),
-          static_cast<float*>(lse), static_cast<const int*>(q_seg),
-          static_cast<const int*>(kv_seg), sq, sk, nh, scale * kLog2e,
-          causal, offset);
-      return cudaGetLastError();
-    } else {
-      auto kernel = flash_fwd_kernel<HD, TQ, TV>;
-      constexpr int smem = fwd_smem_bytes<HD>();
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, kThreads, smem, st>>>(
-          static_cast<const TQ*>(q), static_cast<const TQ*>(k),
-          static_cast<const TV*>(v), static_cast<TQ*>(out),
-          static_cast<float*>(lse), static_cast<const int*>(q_seg),
-          static_cast<const int*>(kv_seg), sq, sk, nh, scale * kLog2e,
-          causal, offset);
-      return cudaGetLastError();
-    }
+    kernel<<<grid, kMmaThreads, smem, st>>>(
+        static_cast<const TQ*>(q), static_cast<const TQ*>(k),
+        static_cast<const TV*>(v), static_cast<TQ*>(out),
+        static_cast<float*>(lse), static_cast<const int*>(q_seg),
+        static_cast<const int*>(kv_seg), sq, sk, nh, scale * kLog2e, causal,
+        offset);
+    return cudaGetLastError();
   }));
 }
 
@@ -1342,13 +1599,13 @@ int hetu_flash_bwd_dq(const void* q, const void* k, const void* v,
     constexpr int HD = decltype(hd)::value;
     using TQ = typename decltype(tq)::type;
     using TV = typename decltype(tv)::type;
-    auto kernel = flash_bwd_dq_kernel<HD, TQ, TV>;
-    constexpr int smem = dq_smem_bytes<HD>();
+    auto kernel = flash_bwd_dq_mma_kernel<HD, TQ, TV>;
+    constexpr int smem = dq_mma_smem_bytes<HD, TQ, TV>();
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((sq + kB - 1) / kB, b * nh);
-    kernel<<<grid, kThreads, smem, st>>>(
+    kernel<<<grid, kMmaThreads, smem, st>>>(
         static_cast<const TQ*>(q), static_cast<const TQ*>(k),
         static_cast<const TV*>(v), static_cast<const TQ*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1375,45 +1632,64 @@ int hetu_flash_bwd_dkv(const void* q, const void* k, const void* v,
     using TQ = typename decltype(tq)::type;
     using TV = typename decltype(tv)::type;
     const dim3 grid((sk + kB - 1) / kB, b * nh);
-    auto launch = [&](auto kernel, int threads, int smem) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, threads, smem, st>>>(
-          static_cast<const TQ*>(q), static_cast<const TQ*>(k),
-          static_cast<const TV*>(v), static_cast<const TQ*>(out),
-          static_cast<const TQ*>(dout), static_cast<const float*>(lse),
-          static_cast<const float*>(delta), static_cast<float*>(dq_acc),
-          static_cast<TQ*>(dk), static_cast<TV*>(dv),
-          static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
-          sq, sk, nh, scale, causal, offset);
-      return cudaGetLastError();
-    };
-    if constexpr (uses_tensor_cores<TQ, TV>()) {
-      if (fused)
-        return launch(flash_bwd_dkv_mma_kernel<HD, true>, kMmaThreads,
-                      dkv_mma_smem_bytes<HD, true>());
-      return launch(flash_bwd_dkv_mma_kernel<HD, false>, kMmaThreads,
-                    dkv_mma_smem_bytes<HD, false>());
-    } else {
-      if (fused)
-        return launch(flash_bwd_dkv_kernel<HD, TQ, TV, true>, kThreads,
-                      dkv_smem_bytes<HD, true>());
-      return launch(flash_bwd_dkv_kernel<HD, TQ, TV, false>, kThreads,
-                    dkv_smem_bytes<HD, false>());
-    }
+    return with_dkv_kernel<HD, TQ, TV>(
+        fused, [&](auto kernel, int threads, int smem) {
+          cudaError_t err = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          if (err != cudaSuccess) return err;
+          kernel<<<grid, threads, smem, st>>>(
+              static_cast<const TQ*>(q), static_cast<const TQ*>(k),
+              static_cast<const TV*>(v), static_cast<const TQ*>(out),
+              static_cast<const TQ*>(dout), static_cast<const float*>(lse),
+              static_cast<const float*>(delta), static_cast<float*>(dq_acc),
+              static_cast<TQ*>(dk), static_cast<TV*>(dv),
+              static_cast<const int*>(q_seg),
+              static_cast<const int*>(kv_seg), sq, sk, nh, scale, causal,
+              offset);
+          return cudaGetLastError();
+        });
   }));
 }
 
-// 1 if `entry` (0: hetu_flash_fwd, 1: hetu_flash_bwd_dq, 2:
-// hetu_flash_bwd_dkv) launches a bf16 tensor-core kernel for these type
-// codes and head dim, 0 if a scalar one, -1 if it takes neither.
+// The route `entry` (0: hetu_flash_fwd, 1: hetu_flash_bwd_dq, 2:
+// hetu_flash_bwd_dkv) takes for these type codes and head dim: 1 bf16
+// tensor cores, 2 3xTF32 tensor cores, 0 scalar FMA; -1 if it takes none.
 int hetu_flash_uses_tensor_cores(int entry, int head_dim, int dtypes) {
-  if (entry < 0 || entry > 2 || (head_dim != 64 && head_dim != 128) ||
-      dtypes < 0 || dtypes > 2)
+  if (entry < kEntryFwd || entry > kEntryDkv ||
+      (head_dim != 64 && head_dim != 128) || dtypes < 0 || dtypes > 2)
     return -1;
-  // type code 1 is the (bf16, bf16) pair of `dispatch`
-  return uses_tensor_cores<bf16, bf16>() && dtypes == 1 && entry != 1;
+  // type code 1 is the (bf16, bf16) pair of `dispatch`, 0 and 2 have fp32 q
+  return dtypes == 1 ? route<bf16>(entry) : route<float>(entry);
+}
+
+// The dynamic shared memory bytes and the blocks an SM of the kernel that
+// `entry` launches for these types and head dim (fused as in
+// hetu_flash_bwd_dkv); returns a cudaError_t.
+int hetu_flash_kernel_info(int entry, int head_dim, int dtypes, int fused,
+                           int* smem_bytes, int* blocks_per_sm) {
+  if (entry < kEntryFwd || entry > kEntryDkv)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(head_dim, dtypes, [&](auto hd, auto tq,
+                                                         auto tv) {
+    constexpr int HD = decltype(hd)::value;
+    using TQ = typename decltype(tq)::type;
+    using TV = typename decltype(tv)::type;
+    auto info = [&](auto kernel, int threads, int smem) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      *smem_bytes = smem;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, kernel, threads, smem);
+    };
+    if (entry == kEntryFwd)
+      return info(flash_fwd_mma_kernel<HD, TQ, TV>, kMmaThreads,
+                  fwd_mma_smem_bytes<HD, TQ, TV>());
+    if (entry == kEntryDq)
+      return info(flash_bwd_dq_mma_kernel<HD, TQ, TV>, kMmaThreads,
+                  dq_mma_smem_bytes<HD, TQ, TV>());
+    return with_dkv_kernel<HD, TQ, TV>(fused, info);
+  }));
 }
 
 const char* hetu_flash_error_string(int err) {

@@ -13,19 +13,22 @@ library; the kernels then run at the main paths' shapes and
 kernel's error over its limit.  A gate that works reads above 1 for the
 kernels (or page kinds) a fault touches.  The flash faults:
 
-- ``kv_tile``: the dq kernel's KV loop stops one tile early for q rows
-  at or past 2048;
-- ``mask``: the causal mask of the scalar backward kernels shifted by
-  one (a query no longer sees its own key), in the dq kernel and in the
-  scalar dk/dv template that the fused kernel shares (bf16 dq, and every
-  backward kernel of the other type mixes);
-- ``mask_fwd_mma``: the causal mask of the bf16 tensor-core forward
-  shifted by one (a query also sees the next key);
+- ``q_tile``: the scalar dk/dv template's q loop stops one tile early for
+  KV tiles at or past key 2048 (the split dk/dv and the fused backward in
+  the fp32 and mixed types);
+- ``mask``: the causal mask of the scalar dk/dv template shifted by one (a
+  query no longer sees its own key), which the fused kernel shares (dk/dv
+  and the fused backward in the fp32 and mixed types);
+- ``mask_fwd_mma`` and ``mask_fwd_tf32``: the causal mask of the
+  tensor-core forward shifted by one (a query also sees the next key), in
+  its bf16 instantiations, or in its fp32 and mixed (3xTF32) ones;
+- ``mask_dq_mma`` and ``mask_dq_tf32``: the same in the tensor-core dq
+  kernel;
 - ``mask_dkv_mma``: the same in the bf16 tensor-core dk/dv template
   (split and fused);
-- ``prefetch``: the bf16 forward's cp.async double buffer skips the copy
-  of the last KV tile for q tiles at or past row 2048, so that tile is
-  read from the buffer of two tiles before.
+- ``prefetch``: the forward's cp.async double buffer skips the copy of the
+  last KV tile for q tiles at or past row 2048, so that tile is read from
+  the buffer of two tiles before (every type mix).
 
 The latent faults, which the short rows of a batch cannot catch:
 
@@ -61,38 +64,45 @@ def _within(src: str, start: str, end: str, old: str, new: str) -> str:
 
 
 def _mutants(src: str):
-    dq = ("flash_bwd_dq_kernel(const TQ*", "// kernels 4")
-    dkv = ("flash_bwd_dkv_kernel(const TQ*", "// launchers")
-    tile = _within(src, *dq,
-                   "kv_tiles_for(q0, sq, sk, causal, offset);",
-                   "kv_tiles_for(q0, sq, sk, causal, offset) - (q0 >= 2048);")
-    fwd_mma = ("flash_fwd_mma_kernel(const bf16*", "dkv_mma_smem_bytes")
+    fwd = ("flash_fwd_mma_kernel(const TQ*", "dq_mma_smem_bytes")
+    dq = ("flash_bwd_dq_mma_kernel(const TQ*", "dkv_mma_smem_bytes")
+    dkv = ("flash_bwd_dkv_kernel(const TQ*", "// tensor-core kernels")
     dkv_mma = ("flash_bwd_dkv_mma_kernel(const bf16*", "// launchers")
-    mask = _within(src, *dq, "j <= qi[r] + offset", "j < qi[r] + offset")
-    mask = _within(mask, *dkv, "kj[r] <= i + offset", "kj[r] < i + offset")
-    mask_fwd = _within(src, *fwd_mma, "j <= row + offset",
-                       "j <= row + offset + 1")
-    mask_dkv = _within(src, *dkv_mma, "key <= qi + offset",
-                       "key <= qi + offset + 1")
-    prefetch = _within(src, *fwd_mma, "if (t + 1 < n_kv) {",
-                       "if (t + 1 < n_kv - (q0 >= 2048)) {")
-    return {"kv_tile": tile, "mask": mask, "mask_fwd_mma": mask_fwd,
-            "mask_dkv_mma": mask_dkv, "prefetch": prefetch}
+    fwd_mask = "if (causal) ok = ok && j <= row + offset;"
+    dq_mask = "if (causal) ok = ok && j <= wrow0 + gq + 8 * (i >> 1) + offset;"
+    out = {
+        "q_tile": _within(src, *dkv, "q0 < sq; q0 += kB)",
+                          "q0 < sq - (k0 >= 2048) * kB; q0 += kB)"),
+        "mask": _within(src, *dkv, "kj[r] <= i + offset", "kj[r] < i + offset"),
+        "mask_dkv_mma": _within(src, *dkv_mma, "key <= qi + offset",
+                                "key <= qi + offset + 1"),
+        "prefetch": _within(src, *fwd, "if (t + 1 < n_kv) {",
+                            "if (t + 1 < n_kv - (q0 >= 2048)) {")}
+    for kernel, where, old in (("fwd", fwd, fwd_mask), ("dq", dq, dq_mask)):
+        for route, on in (("mma", "kBf16"), ("tf32", "!kBf16")):
+            out[f"mask_{kernel}_{route}"] = _within(
+                src, *where, old, old.replace("+ offset;",
+                                              f"+ offset + {on};"))
+    return out
 
 
 def _touched(fault: str, tag: str, s: int):
     """The kernels that ``fault`` changes at shape ``tag`` (sequence
-    length ``s``): the bf16 forward and dk/dv kernels are the tensor-core
-    ones, every other kernel and type mix the scalar ones."""
+    length ``s``): the forward and dq are the tensor-core kernels in every
+    type mix (bf16, or 3xTF32 for fp32 q/k), the dk/dv template (split and
+    fused) the tensor-core one on bf16 and the scalar one otherwise."""
     bf16 = tag.endswith("/bf16")
+    scalar_dkv = () if bf16 else ("flash_bwd_dkv", "flash_bwd_fused")
     return {"clean": (),
-            "kv_tile": ("flash_bwd_dq",) if s > 2048 else (),
-            "mask": ("flash_bwd_dq",) if bf16 else
-                    ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused"),
+            "q_tile": scalar_dkv if s > 2048 else (),
+            "mask": scalar_dkv,
             "mask_fwd_mma": ("flash_fwd",) if bf16 else (),
+            "mask_fwd_tf32": () if bf16 else ("flash_fwd",),
+            "mask_dq_mma": ("flash_bwd_dq",) if bf16 else (),
+            "mask_dq_tf32": () if bf16 else ("flash_bwd_dq",),
             "mask_dkv_mma": ("flash_bwd_dkv", "flash_bwd_fused") if bf16
                             else (),
-            "prefetch": ("flash_fwd",) if bf16 and s > 2048 else (),
+            "prefetch": ("flash_fwd",) if s > 2048 else (),
             }[fault]
 
 
@@ -115,15 +125,26 @@ def _latent_mutants(src: str):
     return {"nf4_nibbles": nibbles, "last_page": last_page}
 
 
-def _build_mutant(name: str, text: str) -> str:
+def _build_mutants(texts: dict) -> dict:
+    """Builds each ``{name: source}`` under ``csrc/_build/``, one ``nvcc``
+    per mutant, all at once; returns ``{name: library path}``."""
     os.makedirs(build.BUILD_DIR, exist_ok=True)
-    src = os.path.join(build.BUILD_DIR, f"mutant-{name}.cu")
-    so = os.path.join(build.BUILD_DIR, f"mutant-{name}.so")
-    with open(src, "w") as f:
-        f.write(text)
-    subprocess.run(build.nvcc_command(src, so), check=True,
-                   capture_output=True, text=True)
-    return so
+    procs = {}
+    for name, text in texts.items():
+        src = os.path.join(build.BUILD_DIR, f"mutant-{name}.cu")
+        so = os.path.join(build.BUILD_DIR, f"mutant-{name}.so")
+        with open(src, "w") as f:
+            f.write(text)
+        procs[name] = (subprocess.Popen(
+            build.nvcc_command(src, so), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    out = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for mutant {name}:\n{log}")
+        out[name] = so
+    return out
 
 
 def _latent_faults(cs):
@@ -136,9 +157,10 @@ def _latent_faults(cs):
                "last_page": ("llama3_8b_mla/bf16",)}
     missed = []
     real = build.load_library(name)
-    for fault, text in [("clean", src), *_latent_mutants(src).items()]:
+    libs = _build_mutants(_latent_mutants(src))
+    for fault in ("clean", *libs):
         build._LOADED[name] = real if fault == "clean" else ctypes.CDLL(
-            _build_mutant(fault, text))
+            libs[fault])
         for case, shape in cs.LATENT_CASES.items():
             res = cs.latent_case(case, *shape, check=False)
             print(json.dumps({"fault": fault, "shape": case, **res}),
@@ -163,11 +185,12 @@ def main() -> int:
     missed = []
     real = build.load_library("flash_attention")
     shapes = (("llama/fp32_qk_bf16_v", cs.LLAMA_ATTN, "fp32_qk_bf16_v"),
+              ("llama/fp32", cs.LLAMA_ATTN, "fp32"),
               ("llama/bf16", cs.LLAMA_ATTN, "bf16"),
               ("gpt2/bf16", cs.GPT2_ATTN, "bf16"))
-    for name, text in [("clean", src), *_mutants(src).items()]:
-        lib = real if name == "clean" else ctypes.CDLL(
-            _build_mutant(name, text))
+    libs = _build_mutants(_mutants(src))
+    for name in ("clean", *libs):
+        lib = real if name == "clean" else ctypes.CDLL(libs[name])
         build._LOADED["flash_attention"] = lib
         for tag, (b, s, h, d), types in shapes:
             q, k, v, do = cs.flash_inputs(b, s, s, h, d, types, seed=1)

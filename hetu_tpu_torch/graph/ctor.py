@@ -87,8 +87,9 @@ def _fans(shape):
 def _check_pspec(pspec, what: str) -> None:
     if pspec is not None and any(e is not None for e in pspec):
         raise NotImplementedError(
-            f"{what}: sharded partition specs ({pspec!r}) are ported in "
-            f"slice 3 (the multi-GPU mesh); at one device use None")
+            f"{what}: sharded partition specs ({pspec!r}) are ported with "
+            f"the multi-GPU mesh (ROADMAP queue 1, items 10-14); at one "
+            f"device use None")
 
 
 def placeholder(dtype=None, shape: Sequence = (), name: str = "",
@@ -120,8 +121,9 @@ def parallel_placeholder(dtype, global_shape: Sequence, ds_hierarchy=None,
     """A placeholder at one device: ``pspec`` must be ``None`` or all
     ``None``."""
     if ds_hierarchy is not None:
-        raise NotImplementedError("ds_hierarchy annotations are ported in "
-                                  "slice 3 (the multi-GPU mesh)")
+        raise NotImplementedError("ds_hierarchy annotations are ported "
+                                  "with the multi-GPU mesh (ROADMAP queue "
+                                  "1, items 10-14)")
     _check_pspec(pspec, "parallel_placeholder")
     return placeholder(dtype, global_shape, name, graph)
 
@@ -133,7 +135,8 @@ def parallel_parameter(init: Union[Initializer, Any], global_shape: Sequence,
     """A parameter at one device: ``pspec`` must be ``None`` or all
     ``None``."""
     if ds_hierarchy is not None:
-        raise NotImplementedError("ds_hierarchy annotations are ported in "
-                                  "slice 3 (the multi-GPU mesh)")
+        raise NotImplementedError("ds_hierarchy annotations are ported "
+                                  "with the multi-GPU mesh (ROADMAP queue "
+                                  "1, items 10-14)")
     _check_pspec(pspec, "parallel_parameter")
     return parameter(init, global_shape, dtype, name, trainable, graph=graph)

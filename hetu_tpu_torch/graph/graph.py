@@ -265,7 +265,8 @@ class DefineAndRunGraph(Graph):
 
     def switch_strategy(self, *args, **kwargs):
         raise NotImplementedError("switch_strategy (hot switching) is ported "
-                                  "in slice 3 (the multi-GPU mesh)")
+                                  "with the multi-GPU mesh (ROADMAP queue "
+                                  "1, items 10-14)")
 
     def set_shape_buckets(self, *args, **kwargs):
         raise NotImplementedError("shape buckets come with symbolic dims, "
@@ -342,8 +343,8 @@ class DefineAndRunGraph(Graph):
                 f"'compute_only'")
         if cur_strategy_id not in (None, 0):
             raise NotImplementedError(
-                "strategy switching (cur_strategy_id) is ported in slice 3 "
-                "(the multi-GPU mesh)")
+                "strategy switching (cur_strategy_id) is ported with the "
+                "multi-GPU mesh (ROADMAP queue 1, items 10-14)")
         if save_checkpoint:
             raise NotImplementedError(
                 "checkpoints are ported in a later slice (safetensors_io)")
@@ -461,8 +462,8 @@ class graph:
                  seed: int = 0):
         if mesh is not None or num_strategy > 1:
             raise NotImplementedError(
-                "meshes and multiple strategies are ported in slice 3 "
-                "(the multi-GPU mesh)")
+                "meshes and multiple strategies are ported with the "
+                "multi-GPU mesh (ROADMAP queue 1, items 10-14)")
         if isinstance(kind, Graph):
             self.g = kind
             return

@@ -243,8 +243,8 @@ def check_training_config(cfg: GPTConfig) -> None:
             "MoE layers (num_experts > 0) are ported in the MoE slice")
     if cfg.cp_axis:
         raise NotImplementedError(
-            "context parallelism (cp_axis) is ported in slice 3 (the "
-            "multi-GPU mesh)")
+            "context parallelism (cp_axis) is ported with the multi-GPU "
+            "mesh (ROADMAP queue 1, items 10-14)")
     if cfg.fused_lm_ce:
         raise NotImplementedError(
             "fused_lm_ce is ported in a later slice (fused cross entropy)")

@@ -5,7 +5,7 @@ The layers keep the JAX package's constructor arguments (``dp_axis``,
 ``tp_axis``, ``seq_axis``, ``sp``) and parameter names, so a model reads
 the same; at one device the partition annotations are identities
 (``sharded`` returns its input).  Sharding over several cards comes with
-slice 3.
+the multi-GPU mesh (ROADMAP queue 1, items 10-14).
 """
 from __future__ import annotations
 

@@ -17,12 +17,14 @@ Two implementations of each function:
   the CPU path.
 - ``flash_fwd_cuda``, ``flash_bwd_fused_cuda``, ``flash_bwd_dq_cuda`` and
   ``flash_bwd_dkv_cuda``: the CUDA kernels of ``csrc/flash_attention.cu``
-  (kernels 1-4 of the JAX package).  bf16 q/k/v take the tensor-core
-  forward and dk/dv kernels (the fused backward is the dk/dv kernel with
-  dq atomics); fp32 and (fp32, fp32, bf16) q/k/v, and dq in every type,
-  the scalar ones.  Each wrapper counts its launches in ``.launches``
-  and, of those, the tensor-core ones (as the library reports them) in
-  ``.tensor_core_launches``.
+  (kernels 1-4 of the JAX package).  The forward and dq run on the tensor
+  cores in every type: bf16 ``mma.sync`` for bf16 q/k/v, 3xTF32 for fp32
+  q/k (the mixed forward's P.V on bf16 ``mma.sync``).  The dk/dv template
+  (the split dk/dv kernel, and the fused backward, which adds dq atomics)
+  runs on bf16 ``mma.sync`` for bf16 q/k/v and scalar FMA otherwise.  Each
+  wrapper counts its launches in ``.launches`` and, of those, the
+  tensor-core ones (as the library reports them) in
+  ``.tensor_core_launches`` and the 3xTF32 ones in ``.tf32_launches``.
 
 ``_flash_fwd`` and ``_flash_bwd`` dispatch on the tensors' device: the
 plain versions for CPU tensors, the kernels for CUDA tensors, with no
@@ -191,6 +193,9 @@ def _kernel_lib():
             fn.restype = ctypes.c_int
         lib.hetu_flash_uses_tensor_cores.argtypes = [i32] * 3
         lib.hetu_flash_uses_tensor_cores.restype = ctypes.c_int
+        lib.hetu_flash_kernel_info.argtypes = [i32] * 4 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.hetu_flash_kernel_info.restype = ctypes.c_int
         lib.hetu_flash_error_string.argtypes = [ctypes.c_int]
         lib.hetu_flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -266,14 +271,33 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 
 # the C entry each wrapper calls, as hetu_flash_uses_tensor_cores numbers
-# them
+# them, and the routes it reports
 _ENTRY_FWD, _ENTRY_DQ, _ENTRY_DKV = 0, 1, 2
+_ROUTE_BF16, _ROUTE_TF32 = 1, 2
 
 
 def _count_launch(wrapper, lib, entry: int, d: int, code: int) -> None:
     wrapper.launches += 1
-    if lib.hetu_flash_uses_tensor_cores(entry, d, code) == 1:
+    route = lib.hetu_flash_uses_tensor_cores(entry, d, code)
+    if route in (_ROUTE_BF16, _ROUTE_TF32):
         wrapper.tensor_core_launches += 1
+    if route == _ROUTE_TF32:
+        wrapper.tf32_launches += 1
+
+
+def _kernel_info(entry: int, head_dim: int, code: int, fused: bool = False):
+    """``(dynamic shared memory bytes, blocks an SM)`` of the kernel that
+    C entry ``entry`` (0 forward, 1 dq, 2 dk/dv) launches for type code
+    ``code`` (as ``_KERNEL_DTYPES``) and ``head_dim``, as the card's
+    occupancy calculator reports them; only ``chip_smoke.py`` prints it.
+    Needs a CUDA device."""
+    lib = _kernel_lib()
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(lib.hetu_flash_kernel_info(entry, head_dim, code, int(fused),
+                                         ctypes.byref(smem),
+                                         ctypes.byref(blocks)),
+              lib, "flash attention kernel info")
+    return smem.value, blocks.value
 
 
 def flash_fwd_cuda(q, k, v, scale: float, causal: bool, segment_ids=None,
@@ -298,6 +322,7 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool, segment_ids=None,
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.tensor_core_launches = 0
+flash_fwd_cuda.tf32_launches = 0
 
 
 def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
@@ -327,6 +352,7 @@ def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
 
 flash_bwd_fused_cuda.launches = 0
 flash_bwd_fused_cuda.tensor_core_launches = 0
+flash_bwd_fused_cuda.tf32_launches = 0
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
@@ -356,6 +382,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.tensor_core_launches = 0
+flash_bwd_dq_cuda.tf32_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
@@ -384,6 +411,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
 
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.tensor_core_launches = 0
+flash_bwd_dkv_cuda.tf32_launches = 0
 
 
 # ---------------------------------------------------------------------------

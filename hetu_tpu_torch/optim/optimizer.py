@@ -37,8 +37,8 @@ class Optimizer:
             raise ValueError(f"zero level must be 0..3, got {zero}")
         if self.zero or grad_comm is not None or flat_state:
             raise NotImplementedError(
-                "ZeRO (zero > 0), flat_state and grad_comm are ported in "
-                "slice 3 (the multi-GPU mesh)")
+                "ZeRO (zero > 0), flat_state and grad_comm are ported with "
+                "the multi-GPU mesh (ROADMAP queue 1, items 10-14)")
         if sentry:
             raise NotImplementedError(
                 "the numeric sentry is ported in a later slice (resilience)")

@@ -203,7 +203,8 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
     bf16 = dtypes != "fp32"
     wrappers = (fa.flash_fwd_cuda, fa.flash_bwd_fused_cuda,
                 fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
-    n0 = [(w.launches, w.tensor_core_launches) for w in wrappers]
+    n0 = [(w.launches, w.tensor_core_launches, w.tf32_launches)
+          for w in wrappers]
     out, lse = fa.flash_fwd_cuda(q, k, v, scale, causal, segs, off)
     torch.cuda.synchronize()
     assert fa.flash_fwd_cuda.launches == n0[0][0] + 1
@@ -249,13 +250,14 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
     if case[7] < 0:
         assert torch.count_nonzero(out[:, :-case[7]]).item() == 0
         assert bool((lse[:, :, :-case[7]] == float("-inf")).all())
-    # bf16 q/k/v launch the tensor-core forward and dk/dv kernels (the
-    # fused backward is the dk/dv template); dq, and every kernel of the
-    # other type mixes, the scalar ones
+    # the forward and dq launch tensor-core kernels in every type mix (bf16
+    # mma.sync for bf16 q/k/v, 3xTF32 for fp32 q/k); the dk/dv template
+    # (split, and the fused backward) on bf16 only, scalar otherwise
     mma = dtypes == "bf16"
-    assert [(w.launches - a, w.tensor_core_launches - t)
-            for w, (a, t) in zip(wrappers, n0)] == \
-        [(1, int(mma)), (1, int(mma)), (1, 0), (1, int(mma))]
+    assert [(w.launches - a, w.tensor_core_launches - t, w.tf32_launches - f)
+            for w, (a, t, f) in zip(wrappers, n0)] == \
+        [(1, 1, int(not mma)), (1, int(mma), 0), (1, 1, int(not mma)),
+         (1, int(mma), 0)]
 
 
 def test_flash_dispatch_takes_the_byte_rule_on_cuda(cuda_device):

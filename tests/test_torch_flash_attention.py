@@ -253,3 +253,128 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                            0.125, True)
     with pytest.raises(ValueError, match="dtypes"):
         pfa.flash_fwd_cuda(tq.bfloat16(), tk, tv, 0.125, True)
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32: the arithmetic of the fp32 and mixed tensor-core kernels
+# ---------------------------------------------------------------------------
+
+# the card gates (chip_smoke.py, phase 6): |got - want| <= tol (1 + |want|)
+FP32_FWD_TOL = 1e-4
+FP32_BWD_TOL = 1e-3
+
+
+def _tf32(x):
+    """x rounded to TF32 as the tensor cores' cvt.rna.tf32.f32 does: to
+    nearest on 10 mantissa bits, ties away from zero (add half of the 13
+    dropped bits to the magnitude, then clear them)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_tf32(a, b, terms, b_exact=False):
+    """a @ b from TF32 parts: three terms (lo.hi + hi.lo + hi.hi), or one
+    (hi.hi); ``b_exact`` (a bf16 operand, exact in TF32): lo.b + hi.b."""
+    ah, al = _split(a)
+    if b_exact:
+        return ah @ b if terms == 1 else al @ b + ah @ b
+    bh, bl = _split(b)
+    return ah @ bh if terms == 1 else al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32_kernels(q, k, v, do, scale, causal, segs, lse_in, out_in, terms):
+    """The tensor-core kernels' arithmetic for fp32 q/k: the forward
+    ``(out, lse)`` and, from the given ``(out_in, lse_in)``, dq.  q * scale
+    * log2(e) stays fp32, S = Q K^T and dQ = dS K in TF32 parts; P.V in TF32
+    parts for fp32 v, on P rounded to bf16 for bf16 v (the reference's
+    :249); dO V^T in TF32 parts (two for bf16 v); dS in fp32."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    split_segs = pfa._split_segments(segs, sq, sk)
+    bf16_v = v.dtype == torch.bfloat16
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq))
+    dq = torch.empty_like(q)
+    for bi in range(b):
+        mask = pfa._visible(bi, sq, sk, causal, 0, split_segs, "cpu")
+        qs = (q[bi] * (scale * pfa.LOG2E)).transpose(0, 1)    # [h, sq, d]
+        kf = k[bi].transpose(0, 1)
+        vf = v[bi].float().transpose(0, 1)
+        dof = do[bi].transpose(0, 1)
+        s = _mm_tf32(qs, kf.transpose(1, 2), terms)           # base 2
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        live = torch.isfinite(m)
+        p = torch.exp2(s - torch.where(live, m, 0.0))
+        l = torch.where(live, p.sum(-1, keepdim=True), 1.0)
+        pv = p.bfloat16().float() @ vf if bf16_v else _mm_tf32(p, vf, terms)
+        out[bi] = torch.where(live, pv / l, 0.0).transpose(0, 1)
+        lse[bi] = torch.where(live, (m + torch.log2(l)) / pfa.LOG2E,
+                              float("-inf"))[..., 0]
+        # dq from the given forward residuals
+        l2 = lse_in[bi][..., None] * pfa.LOG2E
+        keep = torch.isfinite(l2) if mask is None else \
+            torch.isfinite(l2) & mask
+        p = torch.where(keep, torch.exp2(s - torch.where(keep, l2, 0.0)), 0.0)
+        dp = _mm_tf32(dof, vf.transpose(1, 2), terms, b_exact=bf16_v)
+        delta = (dof * out_in[bi].transpose(0, 1)).sum(-1, keepdim=True)
+        dq[bi] = (_mm_tf32(p * (dp - delta), kf, terms) * scale) \
+            .transpose(0, 1)
+    return out, lse, dq
+
+
+def _fp32_ratio(got, want, tol):
+    return float(((got - want).abs() / (tol * (1 + want.abs()))).max())
+
+
+# (name, d, v dtype, segments), causal, b 1, s 200, h 2
+TF32_CASES = [
+    ("fp32_d64", 64, torch.float32, None),
+    ("fp32_d128", 128, torch.float32, None),
+    ("mixed_d128_segments_tuple", 128, torch.bfloat16, "tuple"),
+    ("mixed_d64", 64, torch.bfloat16, None),
+]
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "1xtf32"])
+@pytest.mark.parametrize("case", TF32_CASES, ids=[c[0] for c in TF32_CASES])
+def test_3xtf32_meets_the_fp32_gates_and_1xtf32_does_not(case, terms):
+    """fp32 q/k (v fp32 or bf16) from numpy seeds: the 3xTF32 arithmetic of
+    the card's forward and dq kernels against the plain fp32 versions at
+    the card's fp32 gates (out at the bf16 limit for bf16 v, whose P.V
+    rounds p to bf16 as the reference does), within them; one-term TF32 on
+    the same inputs is over the forward's gate, so the gate tells the two
+    apart.  This covers the rounding of the operands only: the TF32 parts
+    are summed here by fp32 CPU products, not by the tensor cores'
+    accumulator, whose bit loss over long chains (what ``kTf32Chain``
+    bounds) shows only on the card, in the smoke's kernel and training
+    checks."""
+    _, d, v_dtype, seg_kind = case
+    b, s, h = 1, 200, 2
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(b, s, s, h, d,
+                                                          seed=4))
+    v = v.to(v_dtype)
+    segs = _to_torch(_segments(seg_kind, b, 200, 200))
+    scale = d ** -0.5
+    ro, rl = pfa.flash_fwd_reference(q, k, v, scale, True, segs)
+    rdq = pfa.flash_bwd_reference(q, k, v, ro, rl, do, scale, True, segs)[0]
+    out, lse, dq = _tf32_kernels(q, k, v, do, scale, True, segs, rl, ro,
+                                 terms)
+    live = torch.isfinite(rl)
+    assert torch.equal(torch.isinf(lse), torch.isinf(rl))
+    fwd = [_fp32_ratio(lse[live], rl[live], FP32_FWD_TOL)]
+    if v_dtype == torch.float32:
+        fwd.append(_fp32_ratio(out, ro, FP32_FWD_TOL))
+    else:
+        fwd.append(_bf16_limit_ratio(out, ro.numpy(), (3,)))
+    bwd = _fp32_ratio(dq, rdq, FP32_BWD_TOL)
+    if terms == 3:
+        assert max(fwd) <= 1.0 and bwd <= 1.0, (fwd, bwd)
+    else:
+        assert max(fwd) > 1.0, fwd
