@@ -7,15 +7,17 @@ Phases, each printing one JSON line:
 1. device: the card's name, count and power limit;
 2. build: compiles every CUDA kernel of the port from source (``nvcc``
    for sm_90a) and reports registers, shared memory and spills, and each
-   flash kernel's dynamic shared memory and blocks an SM; the tensor-core
-   flash kernels (the forward and dq in every type mix, bf16 and 3xTF32,
-   and the bf16 dk/dv template, at head dims 64 and 128) must not spill;
+   flash kernel's dynamic shared memory and blocks an SM; every flash
+   kernel (the forward, dq and the dk/dv template, split and fused, in
+   every type mix, bf16 and 3xTF32, at head dims 32, 64 and 128) runs on
+   the tensor cores and must not spill;
 3. kernel_vs_plain: the ragged paged attention kernel against its plain
    PyTorch version at the serving shapes of Llama-3-8B (nh 32, kvh 8,
    hd 128, page 64, bf16): a 512-token prefill chunk over a context of
    many pages, decode rows up to 4096 tokens of context, padding rows, a
    partial last page and trash-page table slots; times both with CUDA
-   events;
+   events; then a smaller batch at head dim 32 (nh 8, kvh 8) in bf16 and
+   fp32;
 4. main_path: the serving ``Engine`` at Llama-3-8B widths (all 32
    layers, random bf16 weights from seed 0) serves 8 requests, one of
    them sampled and two sharing a 1024-token header through the prefix
@@ -29,8 +31,10 @@ Phases, each printing one JSON line:
    versions at the training path's shapes -- Llama-3-8B widths (b 2,
    s 4096, h 32, d 128) with the (fp32, fp32, bf16), all-fp32 and
    all-bf16 q/k/v the LLaMA path and its peers feed, GPT-2 widths (b 4,
-   s 1024, h 12, d 64, bf16) -- and on small masked cases (segment-id
-   tuples, causal offsets, sq != sk, fully-masked rows, s = 1000); times
+   s 1024, h 12, d 64, every type mix) -- and on small masked cases
+   (segment-id tuples, causal offsets, sq != sk, fully-masked rows,
+   s = 1000; head dims 64 and 128, 32, and 96 through the wrappers' zero
+   padding to 128); times
    each kernel, its plain version and PyTorch's own attention
    (``scaled_dot_product_attention`` on all-bf16 and on all-fp32 inputs,
    only as a yardstick; it takes no mixed types) with CUDA events around
@@ -44,10 +48,9 @@ Phases, each printing one JSON line:
    global batch 4) and GPT-2 small (12 layers, seq 1024, global batch 8),
    random bf16 weights; the loss must fall and each flash kernel launch
    once per layer, micro-batch and step on the backward the byte rule
-   picks, the forward and dq launches being the tensor-core kernels on
-   their routes (3xTF32 for the LLaMA path's fp32 and mixed attention,
-   bf16 for GPT-2) and the dk/dv template on the tensor cores for bf16
-   only (``train_profile`` then reads two more steps with
+   picks, every launch a tensor-core kernel on its route (3xTF32 for the
+   LLaMA path's fp32 and mixed attention, bf16 for GPT-2)
+   (``train_profile`` then reads two more steps with
    ``torch.profiler``);
 8. train_oracle: 2-layer fp32 models at both widths train three steps on
    the card (kernels) and on the CPU (plain versions) from the same
@@ -71,7 +74,14 @@ Phases, each printing one JSON line:
     fresh engines give equal tokens, 12 launches per unified step;
 13. mla_oracle: 2-layer fp32 MLA models at both widths (one converted
     from a full-head state by ``mla_state_from``), where the engine's
-    temperature-0 tokens must equal the port's dense ``generate``.
+    temperature-0 tokens must equal the port's dense ``generate``;
+14. graft_entry: the LLaMA configuration of ``__graft_entry__.entry()``
+    (vocab 1024, hidden 256, 4 layers, 8 heads of head dim 32, seq 128,
+    batch 4, fp32) trains three steps on the card and on the CPU from the
+    same weights, within phase 8's limits, through the 3xTF32 flash
+    forward and fused backward at head dim 32; the same widths in bf16
+    serve three requests through ``Engine`` (the ragged kernel at head dim
+    32), whose temperature-0 tokens must equal ``generate``.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -93,8 +103,8 @@ import hetu_tpu_torch as ht
 from hetu_tpu_torch.csrc.build import build
 import hetu_tpu_torch.ops as port_ops
 from hetu_tpu_torch.models import (GPTConfig, GPTLMHeadModel,
-                                   llama3_8b_config, mla_config,
-                                   mla_state_from)
+                                   llama3_8b_config, llama_config,
+                                   mla_config, mla_state_from)
 from hetu_tpu_torch.models.convert import load_state, random_state, state_numpy
 from hetu_tpu_torch.models.generate import generate
 from hetu_tpu_torch.ops import flash_attention as fa
@@ -190,15 +200,19 @@ def phase_device():
     return dev
 
 
-# the flash kernels on the tensor cores: (kernel, head dim, q/k and v
-# types); the dk/dv template has no type arguments (bf16 only), and its
-# split and fused instantiations share a key, so phase 2 also counts 16
-FLASH_MMA_KERNELS = {
+# the flash kernels, all on the tensor cores: (kernel, head dim, q/k and v
+# types); the bf16 dk/dv template has no type arguments, the 3xTF32 one
+# only v's (q/k are fp32); split and fused instantiations of the dk/dv
+# templates share a key, so phase 2 also counts 36
+FLASH_HEAD_DIMS = (32, 64, 128)
+FLASH_KERNELS = {
     *((kernel, hd, types) for kernel in ("flash_fwd_mma_kernel",
                                          "flash_bwd_dq_mma_kernel")
-      for hd in (64, 128) for types in ("fp32/fp32", "bf16/bf16",
-                                        "fp32/bf16")),
-    *(("flash_bwd_dkv_mma_kernel", hd, None) for hd in (64, 128))}
+      for hd in FLASH_HEAD_DIMS for types in ("fp32/fp32", "bf16/bf16",
+                                              "fp32/bf16")),
+    *(("flash_bwd_dkv_mma_kernel", hd, None) for hd in FLASH_HEAD_DIMS),
+    *(("flash_bwd_dkv_tf32_kernel", hd, types) for hd in FLASH_HEAD_DIMS
+      for types in ("fp32/fp32", "fp32/bf16"))}
 # the flash type codes of ops/flash_attention.py
 FLASH_CODES = {"fp32/fp32": 0, "bf16/bf16": 1, "fp32/bf16": 2}
 
@@ -206,12 +220,16 @@ FLASH_CODES = {"fp32/fp32": 0, "bf16/bf16": 1, "fp32/bf16": 2}
 def _template_types(head):
     """The q/k and v types of a flash kernel's mangled name ("fp32/bf16"),
     or None where it has no type arguments.  A repeated __nv_bfloat16 is
-    mangled as a substitution (S<n>_)."""
+    mangled as a substitution (S<n>_); the 3xTF32 dk/dv template names
+    v's type alone (its q/k are fp32)."""
     m = re.search(r"ILi\d+E(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\w*?_)",
                   head)
-    if not m:
-        return None
-    return "/".join("fp32" if t == "f" else "bf16" for t in m.groups())
+    if m:
+        return "/".join("fp32" if t == "f" else "bf16" for t in m.groups())
+    m = re.search(r"dkv_tf32_kernelILi\d+E(f|13__nv_bfloat16)Lb", head)
+    if m:
+        return "fp32/" + ("fp32" if m.group(1) == "f" else "bf16")
+    return None
 
 
 def flash_occupancy():
@@ -221,7 +239,7 @@ def flash_occupancy():
     for entry, name in enumerate(("forward", "dq", "dk/dv")):
         for fused in ((False, True) if entry == 2 else (False,)):
             for types, code in FLASH_CODES.items():
-                for hd in (64, 128):
+                for hd in FLASH_HEAD_DIMS:
                     smem, blocks = fa._kernel_info(entry, hd, code, fused)
                     rows.append({"entry": name + (" fused" if fused else ""),
                                  "head_dim": hd, "types": types,
@@ -265,15 +283,15 @@ def phase_build():
                         "entries": entries}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": report, "flash_occupancy": flash_occupancy()})
-    mma = [e for e in report["flash_attention"]["entries"]
-           if "_mma_" in e["kernel"]]
-    got = {(e["kernel"], e["head_dim"], e["types"]) for e in mma}
-    if len(mma) != 16 or got != FLASH_MMA_KERNELS or \
-            any(e["spill_stores"] or e["spill_loads"] for e in mma):
+    flash = [e for e in report["flash_attention"]["entries"]
+             if e["kernel"].startswith("flash_")]
+    got = {(e["kernel"], e["head_dim"], e["types"]) for e in flash}
+    if len(flash) != 36 or got != FLASH_KERNELS or \
+            any(e["spill_stores"] or e["spill_loads"] for e in flash):
         raise AssertionError(
-            f"the tensor-core flash kernels (forward and dq in every type "
-            f"mix, dk/dv fused and split on bf16, at head dims 64 and 128) "
-            f"must build without spills: {mma}")
+            f"the tensor-core flash kernels (forward, dq, and dk/dv fused "
+            f"and split, in every type mix, at head dims 32, 64 and 128) "
+            f"must build without spills: {flash}")
     return report
 
 
@@ -309,6 +327,62 @@ def bf16_agreement(got, want, cu, q_lens):
         ratios.append((d / limit.clamp_min(1e-30)).max().item())
         err = max(err, d.max().item())
     return ratios, err
+
+
+# fp32 agreement of the ragged kernel: |got - want| <= 2e-5 (the order of
+# fp32 sums; both sides multiply in fp32)
+RAGGED_FP32_TOL = 2e-5
+
+
+def ragged_head_dim_32():
+    """The ragged kernel at head dim 32, the widths of the LLaMA config of
+    ``__graft_entry__`` (nh 8, kvh 8), in bf16 and fp32: decode rows, a
+    whole 64-token chunk, a row whose chunk is its whole context, a padding
+    row and partial pages, against the plain version."""
+    nh, kvh, hd, ps, max_q, maxp = 8, 8, 32, 16, 64, 16
+    q_lens = [1, 1, 0, 64, 37]
+    ctx_lens = [200, 17, 0, 128, 37]
+    cu = np.zeros(len(q_lens) + 1, np.int32)
+    cu[1:] = np.cumsum(q_lens)
+    t = int(cu[-1]) + 3                       # trailing padding tokens
+    rng = np.random.RandomState(3)
+    num_pages = 1 + sum(-(-c // ps) for c in ctx_lens) + 2
+    perm = rng.permutation(np.arange(1, num_pages))
+    pt = np.zeros((len(q_lens), maxp), np.int32)
+    k = 0
+    for i, c in enumerate(ctx_lens):
+        need = -(-c // ps)
+        pt[i, :need] = perm[k:k + need]
+        k += need
+    real = np.zeros(t, bool)
+    for i, n in enumerate(q_lens):
+        real[cu[i]:cu[i] + n] = True
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        def dev(a, dt=None):
+            x = torch.from_numpy(np.ascontiguousarray(a))
+            return x.to(device="cuda", dtype=dt) if dt else x.cuda()
+        args = (dev(rng.randn(t, nh, hd), dtype),
+                dev(rng.randn(num_pages, ps, kvh, hd), dtype),
+                dev(rng.randn(num_pages, ps, kvh, hd), dtype),
+                dev(np.asarray(q_lens, np.int32)), dev(cu), dev(pt),
+                dev(np.asarray(ctx_lens, np.int32)))
+        got = ragged_paged_attention_cuda(*args, max_q=max_q)
+        torch.cuda.synchronize()
+        want = ragged_paged_attention_reference(*args, max_q=max_q)
+        mask = torch.from_numpy(real).cuda()
+        pad_nonzero = int(torch.count_nonzero(got[~mask]).item())
+        if dtype == torch.bfloat16:
+            ratio = max(bf16_agreement(got, want, cu, q_lens)[0])
+        else:
+            ratio = ((got - want).abs()[mask].max() / RAGGED_FP32_TOL).item()
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        out[name] = {"err_over_limit": ratio, "padding_nonzero": pad_nonzero}
+        if not ratio <= 1.0 or pad_nonzero:
+            raise AssertionError(f"ragged kernel at head dim 32, {name}: "
+                                 f"{out[name]}")
+    return {"q_lens": q_lens, "ctx_lens": ctx_lens, "nh": nh, "kvh": kvh,
+            "hd": hd, "ps": ps, **out}
 
 
 def phase_kernel():
@@ -384,7 +458,8 @@ def phase_kernel():
            "library_ms": None,
            "shapes": {"q_lens": q_lens, "ctx_lens": ctx_lens,
                       "nh": nh, "kvh": kvh, "hd": hd, "ps": ps,
-                      "max_q": max_q, "maxp": maxp, "dtype": "bfloat16"}}
+                      "max_q": max_q, "maxp": maxp, "dtype": "bfloat16"},
+           "head_dim_32": ragged_head_dim_32()}
     emit({"phase": "kernel_vs_plain",
           "kernel": {"ragged_paged_attention": out}})
     return out
@@ -755,11 +830,12 @@ def phase_flash():
     torch.backends.cudnn.allow_tf32 = False
     lib = {"llama/bf16": library_times(*LLAMA_ATTN, "bf16"),
            "llama/fp32": library_times(*LLAMA_ATTN, "fp32"),
-           "gpt2/bf16": library_times(*GPT2_ATTN, "bf16")}
+           "gpt2/bf16": library_times(*GPT2_ATTN, "bf16"),
+           "gpt2/fp32": library_times(*GPT2_ATTN, "fp32")}
     shapes = {}
     for shape_name, (b, s, h, d), mixes in (
             ("llama", LLAMA_ATTN, ("fp32_qk_bf16_v", "fp32", "bf16")),
-            ("gpt2", GPT2_ATTN, ("bf16",))):
+            ("gpt2", GPT2_ATTN, ("bf16", "fp32_qk_bf16_v", "fp32"))):
         for types in mixes:
             q, k, v, do = flash_inputs(b, s, s, h, d, types, seed=1)
             scale = d ** -0.5
@@ -794,13 +870,18 @@ def phase_flash():
             shapes[f"{shape_name}/{types}"] = row
             del q, k, v, do, ro, rl, delta
             torch.cuda.empty_cache()
-    # small masked cases: every kernel, every type mix
+    # small masked cases: every kernel, every type mix; head dim 32 (the
+    # kernels' own) and 96 (zero-padded to 128 by the wrappers)
     small = []
     for b, sq, sk, h, d, seg, offset in (
             (1, 64, 192, 2, 64, "tuple", 128),
             (2, 128, 128, 2, 128, "masked", 0),
             (1, 1000, 1000, 2, 128, None, 0),
-            (1, 1000, 1000, 2, 64, "offset", -24)):
+            (1, 1000, 1000, 2, 64, "offset", -24),
+            (2, 128, 128, 8, 32, "masked", 0),
+            (1, 1000, 1000, 8, 32, "offset", -24),
+            (1, 64, 192, 2, 96, "tuple", 128),
+            (1, 1000, 1000, 2, 96, None, 0)):
         for types in FLASH_TYPES:
             q, k, v, do = flash_inputs(b, sq, sk, h, d, types, seed=2)
             segs = None
@@ -944,13 +1025,11 @@ def phase_train(name, steps=6, micro=2):
             "flash_bwd_dkv": 0 if fused else each}
     if launches != want:
         raise AssertionError(f"{name}: flash launches {launches} != {want}")
-    # the forward and dq run on the tensor cores in every type: bf16
-    # mma.sync for all-bf16 attention (GPT-2), 3xTF32 for the LLaMA path's
-    # fp32 and mixed attention (the mixed forward's P.V on bf16); the dk/dv
-    # template (split and fused) on the tensor cores for bf16 only
+    # every launch runs on the tensor cores: bf16 mma.sync for all-bf16
+    # attention (GPT-2), 3xTF32 for the LLaMA path's fp32 and mixed
+    # attention (the mixed forward's P.V on bf16)
     bf16 = k_dtype == torch.bfloat16
-    want_tc = {n: c if bf16 or n in ("flash_fwd", "flash_bwd_dq") else 0
-               for n, c in want.items()}
+    want_tc = dict(want)
     want_tf32 = {n: 0 if bf16 else c for n, c in want_tc.items()}
     if tensor_core != want_tc or tf32 != want_tf32:
         raise AssertionError(f"{name}: tensor-core flash launches "
@@ -975,17 +1054,57 @@ def phase_train(name, steps=6, micro=2):
     return out
 
 
+def train_oracle_case(name, cfg, batch, seq, steps=3, micro=2, lr=1e-6,
+                      check=True):
+    """``cfg`` trains ``steps`` steps on the CPU (plain versions) and on
+    the card (kernels) from the same weights and batch.  Losses within 1e-4
+    relative (lr is small because one Adam step of 1e-4 on a full-width
+    matrix already drives the loss on one batch from 7.7 to 3e-4, where a
+    relative comparison reads rounding noise).  Parameters: for every
+    tensor the card's update agrees with the CPU's to 1 % (|p_card - p_cpu|
+    <= 0.01 |p_cpu - p_init|), and no element differs by more than 2 * lr
+    * steps -- Adam moves an element by about lr a step whatever its
+    gradient's size, so where a gradient cancels to rounding noise its
+    sign, and so that step, can differ between the two sums.  Returns the
+    report with ``within_limits``; raises past a limit if ``check``."""
+    x, y = seeded_batch(cfg.vocab_size, batch, seq, seed=1)
+    runs, init = {}, None
+    for dev in ("cpu", "cuda"):
+        g, ids, labels, model, loss, train_op = build_trainer(
+            cfg, batch, seq, dev, lr=lr, seed=1)
+        if init is None:
+            init = state_numpy(model)
+        else:
+            load_state(model, init)
+        t0 = time.perf_counter()
+        losses = [float(g.run(loss, [loss, train_op], {ids: x, labels: y},
+                              num_micro_batches=micro)[0])
+                  for _ in range(steps)]
+        runs[dev] = (losses, state_numpy(model), time.perf_counter() - t0)
+        del g, model
+        gc.collect()
+    (lc, pc, tc), (lg, pg, tg) = runs["cpu"], runs["cuda"]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    upd_rel, max_abs = 0.0, 0.0
+    for k in pc:
+        diff = np.abs(pg[k] - pc[k])
+        max_abs = max(max_abs, float(diff.max()))
+        moved = float(np.linalg.norm(pc[k] - init[k]))
+        if moved > 0:
+            upd_rel = max(upd_rel, float(np.linalg.norm(diff)) / moved)
+    report = {"losses_cpu": lc, "losses_card": lg, "loss_rel_diff": loss_rel,
+              "param_update_rel_diff": upd_rel, "param_max_abs_diff": max_abs,
+              "cpu_s": tc, "card_s": tg,
+              "within_limits": loss_rel <= 1e-4 and upd_rel <= 1e-2 and
+              max_abs <= 2 * lr * steps}
+    if check and not report["within_limits"]:
+        raise AssertionError(f"train oracle {name}: {report}")
+    return report
+
+
 def phase_train_oracle(steps=3, micro=2, lr=1e-6):
-    """2-layer fp32 models train on the card (kernels) and on the CPU
-    (plain versions) from the same weights and batches.  Losses within
-    1e-4 relative (lr is small because one Adam step of 1e-4 on a
-    full-width matrix already drives the loss on one batch from 7.7 to
-    3e-4, where a relative comparison reads rounding noise).  Parameters: for every tensor the card's update agrees
-    with the CPU's to 1 % (|p_card - p_cpu| <= 0.01 |p_cpu - p_init|),
-    and no element differs by more than 2 * lr * steps -- Adam moves an
-    element by about lr a step whatever its gradient's size, so where a
-    gradient cancels to rounding noise its sign, and so that step, can
-    differ between the two sums."""
+    """2-layer fp32 models at Llama-3-8B's and GPT-2's widths train on the
+    card and on the CPU (``train_oracle_case``), seq 256, batch 2."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {}
@@ -994,42 +1113,7 @@ def phase_train_oracle(steps=3, micro=2, lr=1e-6):
                                               dtype="float32")),
             ("gpt2_widths", GPTConfig(num_layers=2, vocab_size=1024,
                                       dtype="float32"))):
-        batch, seq = 2, 256
-        x, y = seeded_batch(cfg.vocab_size, batch, seq, seed=1)
-        runs, init = {}, None
-        for dev in ("cpu", "cuda"):
-            g, ids, labels, model, loss, train_op = build_trainer(
-                cfg, batch, seq, dev, lr=lr, seed=1)
-            if init is None:
-                init = state_numpy(model)
-            else:
-                load_state(model, init)
-            t0 = time.perf_counter()
-            losses = [float(g.run(loss, [loss, train_op], {ids: x, labels: y},
-                                  num_micro_batches=micro)[0])
-                      for _ in range(steps)]
-            runs[dev] = (losses, state_numpy(model),
-                         time.perf_counter() - t0)
-            del g, model
-            gc.collect()
-        (lc, pc, tc), (lg, pg, tg) = runs["cpu"], runs["cuda"]
-        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
-        upd_rel, max_abs = 0.0, 0.0
-        for k in pc:
-            diff = np.abs(pg[k] - pc[k])
-            max_abs = max(max_abs, float(diff.max()))
-            moved = float(np.linalg.norm(pc[k] - init[k]))
-            if moved > 0:
-                upd_rel = max(upd_rel, float(np.linalg.norm(diff)) / moved)
-        ok = loss_rel <= 1e-4 and upd_rel <= 1e-2 and \
-            max_abs <= 2 * lr * steps
-        report[name] = {"losses_cpu": lc, "losses_card": lg,
-                        "loss_rel_diff": loss_rel,
-                        "param_update_rel_diff": upd_rel,
-                        "param_max_abs_diff": max_abs,
-                        "cpu_s": tc, "card_s": tg}
-        if not ok:
-            raise AssertionError(f"train oracle {name}: {report[name]}")
+        report[name] = train_oracle_case(name, cfg, 2, 256, steps, micro, lr)
     emit({"phase": "train_oracle", "layers": 2, "dtype": "float32",
           "seq": 256, "steps": steps, "lr": lr, **report})
     torch.cuda.empty_cache()
@@ -1416,6 +1500,69 @@ def phase_mla_oracle():
           "requests": 3, **report})
 
 
+def graft_config(dtype):
+    """The LLaMA configuration of ``__graft_entry__.entry()``: vocab 1024,
+    hidden 256, 4 layers, 8 heads (head dim 32), seq 128."""
+    return llama_config(vocab_size=1024, hidden_size=256, num_layers=4,
+                        num_heads=8, max_seq_len=128, sp=False, dtype=dtype)
+
+
+def phase_graft_entry(steps=3, micro=2):
+    """Phase 14: the graft entry's LLaMA trains on the card against the CPU
+    (``train_oracle_case``, batch 4, seq 128, fp32: 3xTF32 flash forward
+    and, by the byte rule, the fused backward, at head dim 32), then serves
+    in bf16 through ``Engine`` (the ragged kernel at head dim 32) with
+    temperature-0 tokens equal to ``generate``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = graft_config("float32")
+    wrappers = flash_wrappers()
+    for fn in wrappers.values():
+        fn.launches = fn.tensor_core_launches = fn.tf32_launches = 0
+    train = train_oracle_case("graft_entry", cfg, 4, 128, steps, micro)
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    tf32 = {n: fn.tf32_launches for n, fn in wrappers.items()}
+    each = cfg.num_layers * micro * steps
+    fused = fa._use_fused(128, cfg.head_dim, torch.float32)
+    want = {"flash_fwd": each, "flash_bwd_fused": each if fused else 0,
+            "flash_bwd_dq": 0 if fused else each,
+            "flash_bwd_dkv": 0 if fused else each}
+    if launches != want or tf32 != want:
+        raise AssertionError(f"graft entry: flash launches {launches} "
+                             f"(3xTF32 {tf32}) != {want}")
+
+    cfg16 = graft_config("bfloat16")
+    state = random_state(cfg16, seed=0, device="cuda")
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, cfg16.vocab_size, size=n).tolist()
+               for n in (100, 17, 64)]
+    ragged_paged_attention_cuda.launches = 0
+    eng = Engine(state, cfg16, num_pages=64, page_size=16, max_batch=4,
+                 chunk_size=64, device="cuda")
+    reqs = [eng.add_request(p, 8) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    serve_launches = ragged_paged_attention_cuda.launches
+    want_tokens = [generate(state, cfg16, [p], 8, device="cuda")[0, len(p):]
+                   .tolist() for p in prompts]
+    got = [r.out_tokens for r in reqs]
+    if got != want_tokens:
+        raise AssertionError(f"graft entry bf16: engine {got} != generate "
+                             f"{want_tokens}")
+    if serve_launches != cfg16.num_layers * eng.executable_calls:
+        raise AssertionError(f"graft entry bf16: {serve_launches} ragged "
+                             f"launches for {eng.executable_calls} steps")
+    emit({"phase": "graft_entry", "head_dim": cfg.head_dim,
+          "train": {"dtype": "float32", "batch": 4, "seq": 128,
+                    "steps": steps, "flash_launches": launches,
+                    "tf32_launches": tf32, **train},
+          "serve": {"dtype": "bfloat16", "requests": len(prompts),
+                    "equal": True, "tokens": got,
+                    "ragged_launches": serve_launches}})
+    del eng, state
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1443,6 +1590,7 @@ def main():
         latent_ragged_paged_attention_cuda, ragged_paged_attention_cuda)
     phase_mla_quant()
     phase_mla_oracle()
+    phase_graft_entry()
     rows = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -1460,12 +1608,12 @@ def main():
              "flash_bwd_fused": "gpt2/bf16"}
     for name, at in where.items():
         r = flash[at][name]
-        # the all-bf16 readings at both training shapes, the all-fp32 ones
-        # at the Llama shape
+        # the all-bf16 and the all-fp32 readings at both training shapes
         keys = ("ms", "device_ms", "bound_ms", "library_ms", "max_abs_err")
-        bf16 = {shape: {k: flash[f"{shape}/bf16"][name][k] for k in keys}
-                for shape in ("llama", "gpt2")}
-        fp32 = {"llama": {k: flash["llama/fp32"][name][k] for k in keys}}
+        bf16, fp32 = ({shape: {k: flash[f"{shape}/{types}"][name][k]
+                               for k in keys}
+                       for shape in ("llama", "gpt2")}
+                      for types in ("bf16", "fp32"))
         rows.append({
             "name": name, "route": "cuda",
             "source": "hetu_tpu_torch/csrc/flash_attention.cu",

@@ -5,12 +5,14 @@
 // hetu_tpu/ops/pallas/flash_attention.py:
 //   flash_fwd_mma_kernel                      <- :178 `_fwd_kernel`
 //       (`_flash_fwd`)
-//   flash_bwd_dkv_kernel<..., true> / flash_bwd_dkv_mma_kernel<..., true>
-//       <- :325 `_bwd_fused_kernel` (`_flash_bwd_fused`)
+//   flash_bwd_dkv_mma_kernel<..., true> / flash_bwd_dkv_tf32_kernel<...,
+//       true>                                 <- :325 `_bwd_fused_kernel`
+//       (`_flash_bwd_fused`)
 //   flash_bwd_dq_mma_kernel                   <- :466 `_bwd_dq_kernel`
 //       (`_flash_bwd_split`)
-//   flash_bwd_dkv_kernel<..., false> / flash_bwd_dkv_mma_kernel<..., false>
-//       <- :510 `_bwd_dkv_kernel` (`_flash_bwd_split`)
+//   flash_bwd_dkv_mma_kernel<..., false> / flash_bwd_dkv_tf32_kernel<...,
+//       false>                                <- :510 `_bwd_dkv_kernel`
+//       (`_flash_bwd_split`)
 // Same functions: q [b, sq, h, d], k/v [b, sk, h, d] (equal head counts),
 // scores q.k * scale taken as base-2 logits (scale * log2(e) folded into
 // q), causal with a diagonal offset (key j is visible to query i iff
@@ -20,13 +22,13 @@
 // gives out = 0 and lse = -inf, and in the backward p = 0 wherever the key
 // is masked or the row's lse is -inf, so such rows get zero gradients.
 // Rounding follows the TPU kernels: q * scale * log2(e) is rounded to q's
-// type (:274, :405, :564; the scalar dk/dv kernel keeps it in fp32), p to
-// v's type before p.v (:249), to do's type before p^T.do (:377), and ds to
-// q's type before ds.k and ds^T.q (:383, :502); every product accumulates
-// in fp32.  Types: q/k/do/out share one type and v may differ: (fp32,
-// fp32, fp32), (bf16, bf16, bf16) and (fp32, fp32, bf16), the last being
-// what the bf16 LLaMA model feeds (its rotary tables are fp32).  Head dims
-// 64, 128.
+// type (:274, :405, :564), p to v's type before p.v (:249), to do's type
+// before p^T.do (:377), and ds to q's type before ds.k and ds^T.q (:383,
+// :502); every product accumulates in fp32.  Types: q/k/do/out share one
+// type and v may differ: (fp32, fp32, fp32), (bf16, bf16, bf16) and (fp32,
+// fp32, bf16), the last being what the bf16 LLaMA model feeds (its rotary
+// tables are fp32).  Head dims 32, 64, 128 (ops/flash_attention.py pads
+// any other head dim up to 128 with zero columns).
 //
 // What bounds them on an H100 (989 TFLOP/s bf16 tensor cores, 495 TF32,
 // so 165 for an fp32 product in 3xTF32; 3.35 TB/s): causal attention does
@@ -53,44 +55,37 @@
 //    adds its share of dq into an fp32 workspace with atomics (summed in
 //    an order that changes from run to run).  The split kernels are
 //    deterministic and take delta from one torch op outside.
-//  - The forward and dq in every type, and the dk/dv template (split and
-//    fused) on bf16, run on the tensor cores with mma.sync, 4 warps of 16
+//  - Every kernel runs on the tensor cores with mma.sync, 4 warps of 16
 //    rows each.  bf16 operands: m16n8k16 with fp32 accumulation
 //    (mma_bf16.cuh).  fp32 operands: 3xTF32 (mma_tf32.cuh), each product
 //    as three m16n8k8 TF32 products of the operands' high and low parts,
 //    which keeps about 21 of fp32's 24 mantissa bits (errors near 1e-6 of
 //    the values, against fp32 gates of 1e-4 forward and 1e-3 backward);
 //    the mixed forward's P.V rounds p to v's bf16 as the reference does
-//    and runs on bf16 m16n8k16, and its dq's dO.V^T takes two TF32 terms
-//    (bf16 v is exact in TF32).  Tiles sit in shared memory in their own
-//    type with rows padded by 16 bytes, so that ldmatrix (.trans for bf16
-//    B operands stored [k][n]) and the 32-bit loads of fp32 B operands
+//    and runs on bf16 m16n8k16, and the mixed dq's dO.V^T and dk/dv's
+//    V.dO^T take two TF32 terms (bf16 v is exact in TF32).  Tiles sit in
+//    shared memory in their own type (v in fp32 in the 3xTF32 dk/dv
+//    template) with rows padded by 16 bytes, so that ldmatrix (.trans for
+//    bf16 B operands stored [k][n]) and the 32-bit loads of fp32 B operands
 //    stored [k][n] hit distinct banks; the next K/V (forward, dq) or
 //    Q/dO/lse/delta (dk/dv) tile is copied by cp.async into a second
 //    buffer while the current one is multiplied, rows past sq/sk
-//    zero-filled.  The forward and dq keep S, dP and their accumulators in
-//    registers and feed P and dS to the next product straight from the S
-//    registers; masks are applied only to tiles (dq: 32- or 64-key
-//    chunks) that cross the diagonal or an edge, or with segments.  The
-//    bf16 forward keeps Q's fragments in registers; the others read Q and
-//    dO from shared memory for each tile.  dq (d 128) and dk/dv (d 128)
-//    work through a tile in column chunks of 32 so that S and dP fit
-//    beside the accumulators without spills; the fused kernel stages dS^T
-//    in shared memory for dQ = dS.K and adds dQ with 8-byte vector
-//    atomics.  3xTF32 sums chain at most a tile (S) or two k-steps (P.V,
-//    dS.K, dP: one) in the tensor cores' accumulator and are added in
-//    fp32 (mma_tf32.cuh).  fp32 tiles are twice the bytes of bf16 ones:
-//    at d 128 the fp32/mixed forward takes 32-key KV tiles and the dq one
-//    32-key buffer (fwd_kv_tile, dq_kv_tile), so that two blocks fit an
-//    SM.  Shared memory a block at d 128, as the card's occupancy
-//    calculator reports it: 88 KB (bf16 forward), 105 KB (bf16 dq),
-//    106-115 KB (bf16 dk/dv), 102 KB (fp32 forward), 85 KB (mixed
-//    forward), 102 KB (fp32 dq), 93 KB (mixed dq): two blocks an SM.
-//  - The dk/dv template in fp32 and (fp32, fp32, bf16) types still runs
-//    scalar fp32 FMA on the CUDA cores (fp32 tiles, 4 x 4 register
-//    blocks), at one block an SM at d 128.
-//  - Not yet: wgmma with TMA and warp specialisation for the bf16
-//    kernels; the fp32 and mixed dk/dv template in 3xTF32.
+//    zero-filled.  S, dP and the accumulators stay in registers, and P and
+//    dS feed the next product straight from the S registers; masks are
+//    applied only to tiles (dq: 32- or 64-key chunks) that cross the
+//    diagonal or an edge, or with segments.  The bf16 forward keeps Q's
+//    fragments in registers; the others read Q and dO from shared memory
+//    for each tile.  dq (d 128) and the bf16 dk/dv (d 128) work through a
+//    tile in column chunks of 32 so that S and dP fit beside the
+//    accumulators without spills; the fused kernels stage dS in shared
+//    memory for dQ = dS.K and add dQ with 8-byte vector atomics.  3xTF32
+//    sums chain at most a tile (S) or two k-steps (P.V, dS.K, P^T.dO,
+//    dS^T.Q; dP: one) in the tensor cores' accumulator and are added in
+//    fp32 (mma_tf32.cuh).  fp32 tiles are twice the bytes of bf16 ones: at
+//    d 128 the fp32/mixed forward takes 32-key KV tiles, the dq one 32-key
+//    buffer (fwd_kv_tile, dq_kv_tile) and the dk/dv template 16-row q
+//    tiles (dkv_tf32_rows), so that two blocks fit an SM.
+//  - Not yet: wgmma with TMA and warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,169 +100,8 @@
 namespace {
 
 constexpr int kB = 64;           // rows of a q tile and of a KV tile
-constexpr int kThreads = 256;    // 16 x 16 threads
-constexpr int kPS = kB + 4;      // row stride (floats) of a 64 x 64 tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// ---------------------------------------------------------------------------
-// element access
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// x rounded to T's precision and back (the TPU kernels' `.astype`)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (std::is_same<T, float>::value) {
-    return x;
-  } else {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// tiles and products in shared memory
-// ---------------------------------------------------------------------------
-
-// Rows row0 .. row0+63 of one head of a [b, s, h, HD] tensor (src points at
-// (batch, token 0, head, 0)) into dst [64][HD+4] as fp32 times `mul`; rows
-// at or past n_rows are zero.
-template <int HD, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int n_rows, int64_t tok_stride,
-                                          float mul) {
-  constexpr int kPerRow = HD / 4;
-  for (int e = threadIdx.x; e < kB * kPerRow; e += kThreads) {
-    const int r = e / kPerRow;
-    const int c = (e % kPerRow) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) {
-      v = load4(src + static_cast<int64_t>(row0 + r) * tok_stride + c);
-      v.x *= mul;
-      v.y *= mul;
-      v.z *= mul;
-      v.w *= mul;
-    }
-    store4(dst + r * (HD + 4) + c, v);
-  }
-}
-
-// s[r][c] = sum_d a[tr + 16r][d] * b[tc + 16c][d]; a and b are [64][HD+4].
-template <int HD>
-__device__ __forceinline__ void mm_abt(const float* a, const float* b,
-                                       float (&s)[4][4]) {
-  constexpr int LD = HD + 4;
-  const int tr = threadIdx.x >> 4;
-  const int tc = threadIdx.x & 15;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      av[r] = *reinterpret_cast<const float4*>(a + (tr + 16 * r) * LD + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      bv[c] = *reinterpret_cast<const float4*>(b + (tc + 16 * c) * LD + d);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = fmaf(av[r].x, bv[c].x, s[r][c]);
-        s[r][c] = fmaf(av[r].y, bv[c].y, s[r][c]);
-        s[r][c] = fmaf(av[r].z, bv[c].z, s[r][c]);
-        s[r][c] = fmaf(av[r].w, bv[c].w, s[r][c]);
-      }
-  }
-}
-
-// acc[r][4j + e] += sum_k p[tr + 16r][k] * v[k][4tc + 64j + e]; p is
-// [64][kPS], v is [64][HD+4].
-template <int HD>
-__device__ __forceinline__ void mm_ab(const float* p, const float* v,
-                                      float (&acc)[4][HD / 16]) {
-  constexpr int LD = HD + 4;
-  constexpr int kJ = HD / 64;
-  const int tr = threadIdx.x >> 4;
-  const int tc = threadIdx.x & 15;
-#pragma unroll 2
-  for (int k = 0; k < kB; k += 4) {
-    float pr[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float4 pv =
-          *reinterpret_cast<const float4*>(p + (tr + 16 * r) * kPS + k);
-      pr[r][0] = pv.x;
-      pr[r][1] = pv.y;
-      pr[r][2] = pv.z;
-      pr[r][3] = pv.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const float4 vv = *reinterpret_cast<const float4*>(
-            v + (k + kk) * LD + 4 * tc + 64 * j);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc[r][4 * j + 0] = fmaf(pr[r][kk], vv.x, acc[r][4 * j + 0]);
-          acc[r][4 * j + 1] = fmaf(pr[r][kk], vv.y, acc[r][4 * j + 1]);
-          acc[r][4 * j + 2] = fmaf(pr[r][kk], vv.z, acc[r][4 * j + 2]);
-          acc[r][4 * j + 3] = fmaf(pr[r][kk], vv.w, acc[r][4 * j + 3]);
-        }
-      }
-  }
-}
-
-// Writes the thread's 4 x HD/16 block of a 64-row output tile (rows
-// row0 + tr + 16r, columns 4tc + 64j .. +3) times `mul`.
-template <int HD, typename T>
-__device__ __forceinline__ void store_tile(T* dst, const float (&acc)[4][HD / 16],
-                                           int row0, int n_rows,
-                                           int64_t tok_stride, float mul) {
-  const int tr = threadIdx.x >> 4;
-  const int tc = threadIdx.x & 15;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = row0 + tr + 16 * r;
-    if (row >= n_rows) continue;
-#pragma unroll
-    for (int j = 0; j < HD / 64; ++j)
-      store4(dst + static_cast<int64_t>(row) * tok_stride + 4 * tc + 64 * j,
-             make_float4(acc[r][4 * j] * mul, acc[r][4 * j + 1] * mul,
-                         acc[r][4 * j + 2] * mul, acc[r][4 * j + 3] * mul));
-  }
-}
 
 // the number of `tile`-key tiles that q rows [q0, q0 + 64) can see
 __device__ __forceinline__ int kv_tiles_for(int q0, int sq, int sk, int causal,
@@ -277,158 +111,15 @@ __device__ __forceinline__ int kv_tiles_for(int q0, int sq, int sk, int causal,
   return kv_end > 0 ? (kv_end + tile - 1) / tile : 0;
 }
 
-// the first 64-row q tile that can see keys [k0, k0 + 64)
-__device__ __forceinline__ int first_q_tile(int k0, int causal, int offset) {
-  return causal ? max(0, k0 - offset) / kB : 0;
-}
-
-// ---------------------------------------------------------------------------
-// kernels 4 (dk/dv of the split backward) and 2 (fused dq/dk/dv)
-// ---------------------------------------------------------------------------
-
-template <int HD, bool kFused>
-constexpr int dkv_smem_bytes() {
-  return (4 * kB * (HD + 4) + (kFused ? 3 : 2) * kB * kPS) * 4 + 3 * kB * 4;
-}
-
-// One block per (batch, head, KV tile): dk and dv of the tile in registers,
-// a loop over the q tiles that see it.  kFused also computes delta from o
-// and do, and adds dq into dq_acc (fp32, [b, sq, h, d]) with atomics.
-template <int HD, typename TQ, typename TV, bool kFused>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
-                     const TV* __restrict__ v, const TQ* __restrict__ out,
-                     const TQ* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dq_acc, TQ* __restrict__ dk,
-                     TV* __restrict__ dv, const int* __restrict__ q_seg,
-                     const int* __restrict__ kv_seg, int sq, int sk, int nh,
-                     float scale, int causal, int offset) {
-  constexpr int LD = HD + 4;
-  constexpr int kD = HD / 16;
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + kB * LD;
-  float* q_s = v_s + kB * LD;      // q * scale * log2(e)
-  float* do_s = q_s + kB * LD;
-  float* p_t = do_s + kB * LD;     // [kv][q] p rounded to do's type
-  float* ds_t = p_t + kB * kPS;    // [kv][q] ds rounded to q's type
-  float* ds_s = ds_t + kB * kPS;   // [q][kv] the same ds (fused only)
-  float* lse_s = ds_t + (kFused ? 2 : 1) * kB * kPS;
-  float* dlt_s = lse_s + kB;
-  int* qseg_s = reinterpret_cast<int*>(dlt_s + kB);
-
-  const int k0 = blockIdx.x * kB;  // the low tiles see the most q rows
-  const int b = blockIdx.y / nh;
-  const int h = blockIdx.y % nh;
-  const int64_t tok = static_cast<int64_t>(nh) * HD;
-  const int tr = threadIdx.x >> 4;
-  const int tc = threadIdx.x & 15;
-  const int64_t qoff = static_cast<int64_t>(b) * sq * tok + h * HD;
-  const int64_t koff = static_cast<int64_t>(b) * sk * tok + h * HD;
-  const float sl = scale * kLog2e;
-
-  load_tile<HD>(k_s, k + koff, k0, sk, tok, 1.f);
-  load_tile<HD>(v_s, v + koff, k0, sk, tok, 1.f);
-  int kj[4], ksg[4];
-  float dk_acc[4][kD], dv_acc[4][kD];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    kj[r] = k0 + tr + 16 * r;
-    ksg[r] = (kv_seg != nullptr && kj[r] < sk)
-                 ? kv_seg[static_cast<int64_t>(b) * sk + kj[r]] : 0;
-#pragma unroll
-    for (int e = 0; e < kD; ++e) dk_acc[r][e] = dv_acc[r][e] = 0.f;
-  }
-
-  for (int q0 = first_q_tile(k0, causal, offset) * kB; q0 < sq; q0 += kB) {
-    __syncthreads();  // the previous q tile's smem is consumed
-    load_tile<HD>(q_s, q + qoff, q0, sq, tok, sl);
-    load_tile<HD>(do_s, dout + qoff, q0, sq, tok, 1.f);
-    if (threadIdx.x < kB) {
-      const int i = q0 + threadIdx.x;
-      const bool live = i < sq;
-      lse_s[threadIdx.x] =
-          live ? lse[(static_cast<int64_t>(b) * nh + h) * sq + i] * kLog2e
-               : -INFINITY;
-      if (!kFused)
-        dlt_s[threadIdx.x] =
-            live ? delta[(static_cast<int64_t>(b) * sq + i) * nh + h] : 0.f;
-      qseg_s[threadIdx.x] = (q_seg != nullptr && live)
-                                ? q_seg[static_cast<int64_t>(b) * sq + i] : 0;
-    }
-    __syncthreads();
-    if (kFused) {
-      // delta = rowsum(do * o): warp w takes rows 8w .. 8w + 7
-      const int warp = threadIdx.x >> 5;
-      const int lane = threadIdx.x & 31;
-      for (int rr = 0; rr < kB / 8; ++rr) {
-        const int row = warp * (kB / 8) + rr;
-        const int i = q0 + row;
-        float part = 0.f;
-        if (i < sq)
-          for (int d = lane; d < HD; d += 32)
-            part += do_s[row * LD + d] *
-                    load1(out + qoff + static_cast<int64_t>(i) * tok + d);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, o);
-        if (lane == 0) dlt_s[row] = part;
-      }
-      __syncthreads();
-    }
-
-    // transposed tiles: rows are this block's keys, columns the q rows
-    float st[4][4], dpt[4][4];
-    mm_abt<HD>(k_s, q_s, st);
-    mm_abt<HD>(v_s, do_s, dpt);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tc + 16 * c;
-        const int i = q0 + col;
-        bool ok = i < sq && kj[r] < sk && lse_s[col] != -INFINITY;
-        if (causal) ok = ok && kj[r] <= i + offset;
-        if (q_seg != nullptr) ok = ok && qseg_s[col] == ksg[r];
-        const float p = ok ? exp2f(st[r][c] - lse_s[col]) : 0.f;
-        const float ds = round_to<TQ>(p * (dpt[r][c] - dlt_s[col]));
-        p_t[(tr + 16 * r) * kPS + col] = round_to<TQ>(p);
-        ds_t[(tr + 16 * r) * kPS + col] = ds;
-        if (kFused) ds_s[col * kPS + tr + 16 * r] = ds;
-      }
-    __syncthreads();
-    mm_ab<HD>(p_t, do_s, dv_acc);
-    mm_ab<HD>(ds_t, q_s, dk_acc);
-    if (kFused) {
-      float dq_part[4][kD];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int e = 0; e < kD; ++e) dq_part[r][e] = 0.f;
-      mm_ab<HD>(ds_s, k_s, dq_part);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = q0 + tr + 16 * r;
-        if (i >= sq) continue;
-        float* dst = dq_acc + qoff + static_cast<int64_t>(i) * tok;
-#pragma unroll
-        for (int j = 0; j < HD / 64; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            atomicAdd(dst + 4 * tc + 64 * j + e, dq_part[r][4 * j + e] * scale);
-      }
-    }
-  }
-  // dk was accumulated against q * scale * log2(e): divide the log2(e) out
-  store_tile<HD>(dk + koff, dk_acc, k0, sk, tok, 1.f / kLog2e);
-  store_tile<HD>(dv + koff, dv_acc, k0, sk, tok, 1.f);
+// the first `rows`-row q tile that can see keys [k0, k0 + 64)
+__device__ __forceinline__ int first_q_tile(int k0, int causal, int offset,
+                                            int rows = kB) {
+  return causal ? max(0, k0 - offset) / rows : 0;
 }
 
 // ---------------------------------------------------------------------------
 // tensor-core kernels: kernels 1 and 3 in every type, the dk/dv template
-// (kernels 2, 4) on bf16
+// (kernels 2, 4) on bf16 and in 3xTF32
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -490,12 +181,12 @@ __device__ __forceinline__ void copy_tile_async(T* dst, const T* src,
 }
 
 // x * mul rounded to T, in place, for the chunks this thread copied with
-// copy_tile_async (visible to it after its cp_async_wait).
-template <int HD, typename T>
+// copy_tile_async<HD, kRows> (visible to it after its cp_async_wait).
+template <int HD, int kRows = kB, typename T>
 __device__ __forceinline__ void scale_own_chunks(T* tile, float mul) {
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));
   constexpr int kChunks = HD / kPer;
-  for (int e = threadIdx.x; e < kB * kChunks; e += kMmaThreads) {
+  for (int e = threadIdx.x; e < kRows * kChunks; e += kMmaThreads) {
     T* chunk = tile + (e / kChunks) * tile_ld<HD, T>() + (e % kChunks) * kPer;
     if constexpr (std::is_same<T, float>::value) {
       float4 f = *reinterpret_cast<float4*>(chunk);
@@ -545,10 +236,11 @@ __device__ __forceinline__ void store2(float* dst, float a, float b) {
 // Keys a KV tile of the forward: 64, but 32 for fp32 q/k at d 128, whose
 // 64-key tiles would leave room for one block an SM (169 KB of shared
 // memory; 102 KB with 32 keys, two blocks an SM, which the card runs
-// faster; at d 64 two blocks fit either way and 64 keys run faster).
+// faster; at d 64 and below two blocks fit either way and 64 keys run
+// faster).
 template <int HD, typename TQ>
 __host__ __device__ constexpr int fwd_kv_tile() {
-  return std::is_same<TQ, bf16>::value || HD == 64 ? kB : 32;
+  return std::is_same<TQ, bf16>::value || HD <= 64 ? kB : 32;
 }
 
 template <int HD, typename TQ, typename TV>
@@ -843,7 +535,7 @@ flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 // other's copies.
 template <int HD, typename TQ>
 __host__ __device__ constexpr int dq_kv_tile() {
-  return std::is_same<TQ, bf16>::value || HD == 64 ? kB : 32;
+  return std::is_same<TQ, bf16>::value || HD <= 64 ? kB : 32;
 }
 
 template <int HD, typename TQ>
@@ -1187,7 +879,7 @@ constexpr int dkv_mma_smem_bytes() {
 // = rowsum(dO * O) is computed here, dS^T goes through shared memory and
 // dQ_part = dS K (warp w: q rows 16w .. 16w+15) is added into the fp32
 // dq_acc with atomics.  dK is divided by log2(e) and dQ multiplied by
-// scale, as in the scalar kernel.
+// scale.
 template <int HD, bool kFused>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
@@ -1430,12 +1122,13 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 
     if (kFused) {
       __syncthreads();  // every warp's dS^T rows are in ds_s
-      // dQ_part = dS K for q rows 16w .. 16w+15, 64 columns at a time
+      // dQ_part = dS K for q rows 16w .. 16w+15, kDC columns at a time
+      constexpr int kDC = HD < 64 ? HD : 64;
 #pragma unroll 1
-      for (int d0 = 0; d0 < HD; d0 += 64) {
-        float acc[8][4];
+      for (int d0 = 0; d0 < HD; d0 += kDC) {
+        float acc[kDC / 8][4];
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < kDC / 8; ++nt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
 #pragma unroll
@@ -1443,7 +1136,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
           uint32_t af[4];
           load_a_trans(af, ds_s, kDsLD, 16 * warp, 16 * kk, lane);
 #pragma unroll
-          for (int dp = 0; dp < 4; ++dp) {
+          for (int dp = 0; dp < kDC / 16; ++dp) {
             uint32_t bf[4];
             load_b_trans(bf, k_s, LD, d0 + 16 * dp, 16 * kk, lane);
             mma_bf16_16816(acc[2 * dp], af, bf[0], bf[1]);
@@ -1457,7 +1150,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
           float* dst = dq_acc + qoff + static_cast<int64_t>(i) * tok + d0 +
                        2 * tq;
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
+          for (int nt = 0; nt < kDC / 8; ++nt)
             add2(dst + nt * 8, acc[nt][2 * hr] * scale,
                  acc[nt][2 * hr + 1] * scale);
         }
@@ -1481,6 +1174,385 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   }
 }
 
+// q rows a tile of the 3xTF32 dk/dv template streams.  fp32 tiles are
+// twice the bytes of bf16 ones: at d 128, K and V take 67.6 KB, and 64-row
+// Q and dO tiles in two buffers another 135 KB, one block an SM.  32 rows
+// at d 64 and 32; 16 at d 128, where S^T and dP^T of 32 q columns beside
+// the 128 registers of the dK/dV accumulators spill, and where 16-row
+// tiles in two buffers still leave room for two blocks an SM.
+template <int HD>
+__host__ __device__ constexpr int dkv_tf32_rows() {
+  return HD == 128 ? 16 : 32;
+}
+// the most dynamic shared memory a block may take for two blocks to fit an
+// SM (228 KB, less the 1 KB the card reserves for each block)
+constexpr int kTwoBlockSmem = 113 * 1024;
+
+template <int HD, bool kFused>
+__host__ __device__ constexpr int dkv_tf32_smem_bytes() {
+  // K, V (fp32, 64 rows); Q, dO, lse, delta, q ids (two buffers of
+  // dkv_tf32_rows rows); dS [dkv_tf32_rows][64 + 4] (fused)
+  return 2 * tile_bytes<HD, float>() +
+         2 * dkv_tf32_rows<HD>() * (2 * tile_ld<HD, float>() + 3) * 4 +
+         (kFused ? dkv_tf32_rows<HD>() * (kB + 4) * 4 : 0);
+}
+
+// acc[dn] (16 rows, columns n0 + 8 dn ..) += A t over kSteps k-steps of 8
+// in 3xTF32: a_of(kk, a) gives A's fragment of k-step kk in the k order of
+// a_from_c, t is an fp32 tile stored [k][n] (row stride ld) read by
+// load_b_f32_trans; kTf32Chain k-steps at a time in a zeroed accumulator
+// added to acc in fp32.
+template <int kNT, int kSteps, typename AOf>
+__device__ __forceinline__ void mma_tf32_kn(float (&acc)[kNT][4], AOf&& a_of,
+                                            const float* t, int ld, int n0,
+                                            int lane) {
+  static_assert(kSteps % kTf32Chain == 0, "whole chains");
+#pragma unroll
+  for (int kc = 0; kc < kSteps; kc += kTf32Chain) {
+    uint32_t ahi[kTf32Chain][4], alo[kTf32Chain][4];
+#pragma unroll
+    for (int j = 0; j < kTf32Chain; ++j) {
+      float a[4];
+      a_of(kc + j, a);
+      split_tf32(a, ahi[j], alo[j]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < kNT; ++dn) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kTf32Chain; ++j) {
+        float bv[2];
+        uint32_t bhi[2], blo[2];
+        load_b_f32_trans(bv, t, ld, n0 + 8 * dn, 8 * (kc + j), lane);
+        split_tf32(bv, bhi, blo);
+        mma_3xtf32(s, ahi[j], alo[j], bhi, blo);
+      }
+      add_c(acc[dn], s);
+    }
+  }
+}
+
+// The dk/dv template (kernel 4, and kernel 2 with kFused) on fp32 q/k, with
+// v in fp32 or bf16, in 3xTF32, in the shape of the bf16 template: one
+// block per (batch * head, 64-key tile), warp w owns keys 16w .. 16w+15 and
+// their dK and dV accumulators in registers.  K and V stay in shared memory
+// in fp32 (bf16 v widened, exact in TF32); q tiles of dkv_tf32_rows rows (Q,
+// dO, lse, delta, q ids) stream through two buffers by cp.async, the next
+// in flight while the current one is multiplied, Q scaled by scale * log2(e) in fp32 in place (the reference's
+// :405 rounds to q's type).  Per q tile: S^T = K Q^T, chained over the head
+// dim as the forward's S; P^T = exp2(S^T - lse2) masked, in fp32 (do's
+// type, :377); dV += P^T dO; dP^T = V dO^T from products over k = 8
+// added in fp32 (the single-key row's cancellation, see the bf16
+// template), in two TF32 terms for bf16 v; dS^T = P^T (dP^T - delta) in
+// fp32 (q's type, :383); dK += dS^T Q.  P^T and dS^T are the A operands of their products
+// straight from the S^T registers (a_from_c), dO and Q the B operands
+// stored [k][n] (load_b_f32_trans), kTf32Chain k-steps a chain.  With
+// kFused, delta = rowsum(dO * O) is computed here in fp64, dS goes through
+// shared memory and dQ_part = dS K (each warp a 16-row m-tile and a share
+// of the head columns) is added into the fp32 dq_acc with 8-byte atomics.
+// dK is divided by log2(e) and dQ multiplied by scale.
+template <int HD, typename TV, bool kFused>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const TV* __restrict__ v,
+                          const float* __restrict__ out,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dq_acc, float* __restrict__ dk,
+                          TV* __restrict__ dv, const int* __restrict__ q_seg,
+                          const int* __restrict__ kv_seg, int sq, int sk,
+                          int nh, float scale, int causal, int offset) {
+  constexpr int LD = tile_ld<HD, float>();
+  constexpr int kBQ = dkv_tf32_rows<HD>();  // q rows a tile
+  constexpr int kQTile = kBQ * LD;
+  static_assert(dkv_tf32_smem_bytes<HD, kFused>() <= kTwoBlockSmem,
+                "two blocks an SM");
+  constexpr int kDTiles = HD / 8;  // n-tiles of dK and dV
+  constexpr int kQT = kBQ / 8;     // n-tiles of S^T and dP^T
+  constexpr int kDsLD = kB + 4;
+  // dQ_part: warp w takes m-tile w % kMT and kDqSpan head columns
+  constexpr int kMT = kBQ / 16;
+  constexpr int kDqSpan = HD * kMT / 4;
+  constexpr int kDqCols = kDqSpan < 32 ? kDqSpan : 32;  // dQ columns a pass
+  constexpr int kTpr = kMmaThreads / kBQ;  // threads a row of delta
+  extern __shared__ uint4 smem_u4[];
+  float* k_s = reinterpret_cast<float*>(smem_u4);   // [64][LD]
+  float* v_s = k_s + kB * LD;                        // [64][LD]
+  float* q_s = v_s + kB * LD;                        // [2][kBQ][LD]
+  float* do_s = q_s + 2 * kQTile;                    // [2][kBQ][LD]
+  float* ds_s = do_s + 2 * kQTile;                   // [kBQ][kDsLD] (fused)
+  float* lse_s = ds_s + (kFused ? kBQ * kDsLD : 0);  // [2][kBQ]
+  float* dlt_s = lse_s + 2 * kBQ;                    // [2][kBQ]
+  int* qseg_s = reinterpret_cast<int*>(dlt_s + 2 * kBQ);  // [2][kBQ]
+
+  const int k0 = blockIdx.x * kB;
+  const int b = blockIdx.y / nh;
+  const int h = blockIdx.y % nh;
+  const int64_t tok = static_cast<int64_t>(nh) * HD;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int64_t qoff = static_cast<int64_t>(b) * sq * tok + h * HD;
+  const int64_t koff = static_cast<int64_t>(b) * sk * tok + h * HD;
+  const float* lseb = lse + (static_cast<int64_t>(b) * nh + h) * sq;
+  const float* dltb =
+      kFused ? nullptr : delta + static_cast<int64_t>(b) * sq * nh + h;
+  const int* qsb =
+      q_seg != nullptr ? q_seg + static_cast<int64_t>(b) * sq : nullptr;
+
+  const int first = first_q_tile(k0, causal, offset, kBQ) * kBQ;
+  const int n_q = first < sq ? (sq - first + kBQ - 1) / kBQ : 0;
+  auto issue_q_tile = [&](int q0, int nb) {
+    copy_tile_async<HD, kBQ>(q_s + nb * kQTile, q + qoff, q0, sq, tok);
+    copy_tile_async<HD, kBQ>(do_s + nb * kQTile, dout + qoff, q0, sq, tok);
+    copy_row_values_async<kBQ>(lse_s + nb * kBQ, lseb, q0, sq, 1);
+    if (!kFused)
+      copy_row_values_async<kBQ>(dlt_s + nb * kBQ, dltb, q0, sq, nh);
+    if (qsb != nullptr)
+      copy_row_values_async<kBQ>(qseg_s + nb * kBQ, qsb, q0, sq, 1);
+  };
+  copy_tile_async<HD>(k_s, k + koff, k0, sk, tok);
+  if constexpr (std::is_same<TV, float>::value) {
+    copy_tile_async<HD>(v_s, v + koff, k0, sk, tok);
+  } else {
+    // bf16 v widened to fp32 (visible to the block after the first
+    // barrier); rows past sk are 0
+    for (int e = threadIdx.x; e < kB * HD / 8; e += kMmaThreads) {
+      const int r = e / (HD / 8);
+      const int c = (e % (HD / 8)) * 8;
+      uint4 u = make_uint4(0, 0, 0, 0);
+      if (k0 + r < sk)
+        u = *reinterpret_cast<const uint4*>(
+            v + koff + static_cast<int64_t>(k0 + r) * tok + c);
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(&u);
+      float f[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 p = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+        f[2 * i] = p.x;
+        f[2 * i + 1] = p.y;
+      }
+      float* dst = v_s + r * LD + c;
+      *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(f[4], f[5], f[6], f[7]);
+    }
+  }
+  if (n_q > 0) issue_q_tile(first, 0);
+  cp_async_commit();
+
+  // the lane's two keys: k0 + 16w + gq and k0 + 16w + gq + 8
+  int kj[2], ksg[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    kj[hr] = k0 + 16 * warp + gq + 8 * hr;
+    ksg[hr] = (kv_seg != nullptr && kj[hr] < sk)
+                  ? kv_seg[static_cast<int64_t>(b) * sk + kj[hr]] : 0;
+  }
+  float dk_acc[kDTiles][4], dv_acc[kDTiles][4];
+#pragma unroll
+  for (int nt = 0; nt < kDTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[nt][i] = dv_acc[nt][i] = 0.f;
+
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = first + it * kBQ;
+    const int buf = it & 1;
+    float* qt_s = q_s + buf * kQTile;
+    const float* dot_s = do_s + buf * kQTile;
+    const float* lt_s = lse_s + buf * kBQ;
+    float* dt_s = dlt_s + buf * kBQ;
+    const int* st_s = qseg_s + buf * kBQ;
+    cp_async_wait<0>();
+    scale_own_chunks<HD, kBQ>(qt_s, scale * kLog2e);
+    // tile it is in place for the block, and every warp is done with tile
+    // it - 1, whose buffer takes tile it + 1
+    __syncthreads();
+    if (it + 1 < n_q) issue_q_tile(q0 + kBQ, buf ^ 1);
+    cp_async_commit();
+
+    if (kFused) {
+      // delta = rowsum(dO * O), kTpr lanes a row with HD / kTpr columns
+      // each, in fp64
+      const int row = threadIdx.x / kTpr;
+      const int i = q0 + row;
+      const int c0 = (threadIdx.x % kTpr) * (HD / kTpr);
+      double part = 0.;
+      if (i < sq) {
+#pragma unroll
+        for (int c = c0; c < c0 + HD / kTpr; c += 4) {
+          const float4 d4 =
+              *reinterpret_cast<const float4*>(dot_s + row * LD + c);
+          const float4 o4 = *reinterpret_cast<const float4*>(
+              out + qoff + static_cast<int64_t>(i) * tok + c);
+          part += static_cast<double>(d4.x) * o4.x +
+                  static_cast<double>(d4.y) * o4.y +
+                  static_cast<double>(d4.z) * o4.z +
+                  static_cast<double>(d4.w) * o4.w;
+        }
+      }
+#pragma unroll
+      for (int o = kTpr / 2; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (threadIdx.x % kTpr == 0) dt_s[row] = static_cast<float>(part);
+      __syncthreads();
+    }
+
+    const bool masked = qsb != nullptr || q0 + kBQ > sq || k0 + kB > sk ||
+                        (causal && k0 + 16 * warp + 15 > q0 + offset);
+    // S^T = K Q^T: rows the warp's 16 keys, columns the tile's q rows
+    float st[kQT][4];
+#pragma unroll
+    for (int nt = 0; nt < kQT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[nt][i] = 0.f;
+#pragma unroll 2
+    for (int kt = 0; kt < HD / 8; ++kt) {
+      uint32_t a[4], ahi[4], alo[4];
+      load_a_f32(a, k_s, LD, 16 * warp, 8 * kt, lane);
+      split_tf32(a, ahi, alo);
+#pragma unroll
+      for (int np = 0; np < kQT / 2; ++np) {
+        uint32_t bf[4], bhi[4], blo[4];
+        load_b_f32(bf, qt_s, LD, 16 * np, 8 * kt, lane);
+        split_tf32(bf, bhi, blo);
+        mma_3xtf32(st[2 * np], ahi, alo, bhi, blo);
+        mma_3xtf32(st[2 * np + 1], ahi, alo, bhi + 2, blo + 2);
+      }
+    }
+    // P^T = exp2(S^T - lse2), 0 where the pair is masked
+#pragma unroll
+    for (int nt = 0; nt < kQT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = nt * 8 + 2 * tq + (i & 1);
+        const int qi = q0 + col;
+        const int key = kj[i >> 1];
+        const float l2 = lt_s[col] * kLog2e;
+        bool ok = true;
+        if (masked) {
+          ok = qi < sq && key < sk && l2 != -INFINITY;
+          if (causal) ok = ok && key <= qi + offset;
+          if (qsb != nullptr) ok = ok && st_s[col] == ksg[i >> 1];
+        }
+        st[nt][i] = ok ? exp2f(st[nt][i] - l2) : 0.f;
+      }
+
+    // dV += P^T dO
+    mma_tf32_kn<kDTiles, kQT>(
+        dv_acc, [&](int kk, float (&a)[4]) { a_from_c(a, st[kk]); }, dot_s,
+        LD, 0, lane);
+
+    // dP^T = V dO^T, each k-step's product added in fp32
+    float dpt[kQT][4];
+#pragma unroll
+    for (int nt = 0; nt < kQT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dpt[nt][i] = 0.f;
+#pragma unroll 2
+    for (int kt = 0; kt < HD / 8; ++kt) {
+      uint32_t a[4], ahi[4], alo[4];
+      load_a_f32(a, v_s, LD, 16 * warp, 8 * kt, lane);
+      if constexpr (std::is_same<TV, float>::value) split_tf32(a, ahi, alo);
+#pragma unroll
+      for (int np = 0; np < kQT / 2; ++np) {
+        uint32_t bf[4], bhi[4], blo[4];
+        load_b_f32(bf, dot_s, LD, 16 * np, 8 * kt, lane);
+        split_tf32(bf, bhi, blo);
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (std::is_same<TV, float>::value) {
+          mma_3xtf32(t0, ahi, alo, bhi, blo);
+          mma_3xtf32(t1, ahi, alo, bhi + 2, blo + 2);
+        } else {
+          // v is exact in TF32: v.dO_lo + v.dO_hi
+          mma_tf32_1688(t0, a, blo[0], blo[1]);
+          mma_tf32_1688(t0, a, bhi[0], bhi[1]);
+          mma_tf32_1688(t1, a, blo[2], blo[3]);
+          mma_tf32_1688(t1, a, bhi[2], bhi[3]);
+        }
+        add_c(dpt[2 * np], t0);
+        add_c(dpt[2 * np + 1], t1);
+      }
+    }
+
+    // dS^T = P^T (dP^T - delta), in place of P^T
+#pragma unroll
+    for (int nt = 0; nt < kQT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        st[nt][i] *= dpt[nt][i] - dt_s[nt * 8 + 2 * tq + (i & 1)];
+    if (kFused) {
+      // dS [q][key] for dQ_part = dS K, each 8 keys in the k order of
+      // load_b_f32_trans (key 2j at column j, 2j + 1 at j + 4), so that
+      // load_a_f32 reads dS's A fragments in that order
+      float* dst = ds_s + 16 * warp + (gq >> 1) + 4 * (gq & 1);
+#pragma unroll
+      for (int nt = 0; nt < kQT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dst[(nt * 8 + 2 * tq + (i & 1)) * kDsLD + 8 * (i >> 1)] = st[nt][i];
+    }
+
+    // dK += dS^T Q (Q scaled by scale * log2(e))
+    mma_tf32_kn<kDTiles, kQT>(
+        dk_acc, [&](int kk, float (&a)[4]) { a_from_c(a, st[kk]); }, qt_s,
+        LD, 0, lane);
+
+    if (kFused) {
+      __syncthreads();  // every warp's dS rows are in ds_s
+      // dQ_part = dS K: warp w takes q rows 16 (w % kMT) .. + 15 and head
+      // columns (w / kMT) kDqSpan .., kDqCols at a time
+      const int m0 = 16 * (warp % kMT);
+      const int c0 = (warp / kMT) * kDqSpan;
+#pragma unroll 1
+      for (int n0 = c0; n0 < c0 + kDqSpan; n0 += kDqCols) {
+        float acc[kDqCols / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < kDqCols / 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+        mma_tf32_kn<kDqCols / 8, kB / 8>(
+            acc,
+            [&](int kk, float (&a)[4]) {
+              uint32_t u[4];
+              load_a_f32(u, ds_s, kDsLD, m0, 8 * kk, lane);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) a[e] = __uint_as_float(u[e]);
+            },
+            k_s, LD, n0, lane);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = q0 + m0 + gq + 8 * hr;
+          if (i >= sq) continue;
+          float* dst =
+              dq_acc + qoff + static_cast<int64_t>(i) * tok + n0 + 2 * tq;
+#pragma unroll
+          for (int nt = 0; nt < kDqCols / 8; ++nt)
+            add2(dst + nt * 8, acc[nt][2 * hr] * scale,
+                 acc[nt][2 * hr + 1] * scale);
+        }
+      }
+    }
+  }
+
+  // dk was accumulated against q * scale * log2(e): divide the log2(e) out
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (kj[hr] >= sk) continue;
+    const int64_t row = koff + static_cast<int64_t>(kj[hr]) * tok + 2 * tq;
+#pragma unroll
+    for (int nt = 0; nt < kDTiles; ++nt) {
+      store2(dk + row + nt * 8, dk_acc[nt][2 * hr] / kLog2e,
+             dk_acc[nt][2 * hr + 1] / kLog2e);
+      store2(dv + row + nt * 8, dv_acc[nt][2 * hr], dv_acc[nt][2 * hr + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -1491,28 +1563,26 @@ struct Tag {
 };
 
 // The C entries, as hetu_flash_uses_tensor_cores numbers them, and the
-// routes their kernels take: bf16 q/k/v run every entry on bf16 mma.sync;
-// fp32 q/k (fp32 or bf16 v) run the forward and dq in 3xTF32 (the mixed
-// forward's P.V on bf16 mma.sync) and the dk/dv template scalar.
+// routes their kernels take: bf16 q/k/v run every entry on bf16 mma.sync,
+// fp32 q/k (fp32 or bf16 v) every entry in 3xTF32 (the mixed forward's P.V
+// on bf16 mma.sync).
 constexpr int kEntryFwd = 0, kEntryDq = 1, kEntryDkv = 2;
-constexpr int kRouteScalar = 0, kRouteBf16 = 1, kRouteTf32 = 2;
-
-template <typename TQ>
-constexpr int route(int entry) {
-  return std::is_same<TQ, bf16>::value
-             ? kRouteBf16
-             : (entry == kEntryDkv ? kRouteScalar : kRouteTf32);
-}
+constexpr int kRouteBf16 = 1, kRouteTf32 = 2;
 
 // Calls f(int_constant<HD>, Tag<TQ>, Tag<TV>) for the supported head dims and
 // type codes (0: all fp32, 1: all bf16, 2: fp32 q/k with bf16 v).
 template <typename F>
 cudaError_t dispatch(int head_dim, int dtypes, F&& f) {
+  using I32 = std::integral_constant<int, 32>;
   using I64 = std::integral_constant<int, 64>;
   using I128 = std::integral_constant<int, 128>;
   using F32 = Tag<float>;
   using B16 = Tag<__nv_bfloat16>;
-  if (head_dim == 64) {
+  if (head_dim == 32) {
+    if (dtypes == 0) return f(I32{}, F32{}, F32{});
+    if (dtypes == 1) return f(I32{}, B16{}, B16{});
+    if (dtypes == 2) return f(I32{}, F32{}, B16{});
+  } else if (head_dim == 64) {
     if (dtypes == 0) return f(I64{}, F32{}, F32{});
     if (dtypes == 1) return f(I64{}, B16{}, B16{});
     if (dtypes == 2) return f(I64{}, F32{}, B16{});
@@ -1534,7 +1604,7 @@ bool bad_shape(int b, int sq, int sk, int nh) {
 // kernel 2 over 4).
 template <int HD, typename TQ, typename TV, typename G>
 cudaError_t with_dkv_kernel(int fused, G&& g) {
-  if constexpr (route<TQ>(kEntryDkv) == kRouteBf16) {
+  if constexpr (std::is_same<TQ, bf16>::value) {
     if (fused)
       return g(flash_bwd_dkv_mma_kernel<HD, true>, kMmaThreads,
                dkv_mma_smem_bytes<HD, true>());
@@ -1542,10 +1612,10 @@ cudaError_t with_dkv_kernel(int fused, G&& g) {
              dkv_mma_smem_bytes<HD, false>());
   } else {
     if (fused)
-      return g(flash_bwd_dkv_kernel<HD, TQ, TV, true>, kThreads,
-               dkv_smem_bytes<HD, true>());
-    return g(flash_bwd_dkv_kernel<HD, TQ, TV, false>, kThreads,
-             dkv_smem_bytes<HD, false>());
+      return g(flash_bwd_dkv_tf32_kernel<HD, TV, true>, kMmaThreads,
+               dkv_tf32_smem_bytes<HD, true>());
+    return g(flash_bwd_dkv_tf32_kernel<HD, TV, false>, kMmaThreads,
+             dkv_tf32_smem_bytes<HD, false>());
   }
 }
 
@@ -1558,7 +1628,7 @@ extern "C" {
 // [b, sq, h, d], k/v/dk/dv [b, sk, h, d], lse [b, h, sq] fp32, delta
 // [b, sq, h] fp32; q_seg [b, sq] and kv_seg [b, sk] int32, or both null.
 // dtypes: 0 = fp32 q/k/v, 1 = bf16 q/k/v, 2 = fp32 q/k with bf16 v
-// (out/do/dq in q's type, dk in k's, dv in v's).  head_dim 64 or 128.
+// (out/do/dq in q's type, dk in k's, dv in v's).  head_dim 32, 64 or 128.
 
 int hetu_flash_fwd(const void* q, const void* k, const void* v, void* out,
                    void* lse, const void* q_seg, const void* kv_seg, int b,
@@ -1653,13 +1723,14 @@ int hetu_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // The route `entry` (0: hetu_flash_fwd, 1: hetu_flash_bwd_dq, 2:
 // hetu_flash_bwd_dkv) takes for these type codes and head dim: 1 bf16
-// tensor cores, 2 3xTF32 tensor cores, 0 scalar FMA; -1 if it takes none.
+// tensor cores, 2 3xTF32 tensor cores; -1 if it takes none.
 int hetu_flash_uses_tensor_cores(int entry, int head_dim, int dtypes) {
   if (entry < kEntryFwd || entry > kEntryDkv ||
-      (head_dim != 64 && head_dim != 128) || dtypes < 0 || dtypes > 2)
+      (head_dim != 32 && head_dim != 64 && head_dim != 128) || dtypes < 0 ||
+      dtypes > 2)
     return -1;
   // type code 1 is the (bf16, bf16) pair of `dispatch`, 0 and 2 have fp32 q
-  return dtypes == 1 ? route<bf16>(entry) : route<float>(entry);
+  return dtypes == 1 ? kRouteBf16 : kRouteTf32;
 }
 
 // The dynamic shared memory bytes and the blocks an SM of the kernel that

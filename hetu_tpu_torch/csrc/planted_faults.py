@@ -13,22 +13,25 @@ library; the kernels then run at the main paths' shapes and
 kernel's error over its limit.  A gate that works reads above 1 for the
 kernels (or page kinds) a fault touches.  The flash faults:
 
-- ``q_tile``: the scalar dk/dv template's q loop stops one tile early for
+- ``q_tile``: the 3xTF32 dk/dv template's q loop stops one tile early for
   KV tiles at or past key 2048 (the split dk/dv and the fused backward in
   the fp32 and mixed types);
-- ``mask``: the causal mask of the scalar dk/dv template shifted by one (a
-  query no longer sees its own key), which the fused kernel shares (dk/dv
-  and the fused backward in the fp32 and mixed types);
 - ``mask_fwd_mma`` and ``mask_fwd_tf32``: the causal mask of the
   tensor-core forward shifted by one (a query also sees the next key), in
   its bf16 instantiations, or in its fp32 and mixed (3xTF32) ones;
 - ``mask_dq_mma`` and ``mask_dq_tf32``: the same in the tensor-core dq
   kernel;
-- ``mask_dkv_mma``: the same in the bf16 tensor-core dk/dv template
-  (split and fused);
+- ``mask_dkv_mma`` and ``mask_dkv_tf32``: the same in the tensor-core
+  dk/dv template (split and fused), in its bf16 instantiations, or in its
+  fp32 and mixed (3xTF32) ones;
 - ``prefetch``: the forward's cp.async double buffer skips the copy of the
   last KV tile for q tiles at or past row 2048, so that tile is read from
-  the buffer of two tiles before (every type mix).
+  the buffer of two tiles before (every type mix);
+- ``tf32_1term_dkv``: the 3xTF32 dk/dv template's products cut to their
+  hi.hi term (one-term TF32; v.dO of bf16 v to v.dO_hi), in the split
+  dk/dv and the fused backward of the fp32 and mixed types.  Besides
+  phase 6's gates, phase 8's training oracle at GPT-2 widths (its fused
+  fp32 backward) must refuse it.
 
 The latent faults, which the short rows of a batch cannot catch:
 
@@ -66,16 +69,18 @@ def _within(src: str, start: str, end: str, old: str, new: str) -> str:
 def _mutants(src: str):
     fwd = ("flash_fwd_mma_kernel(const TQ*", "dq_mma_smem_bytes")
     dq = ("flash_bwd_dq_mma_kernel(const TQ*", "dkv_mma_smem_bytes")
-    dkv = ("flash_bwd_dkv_kernel(const TQ*", "// tensor-core kernels")
-    dkv_mma = ("flash_bwd_dkv_mma_kernel(const bf16*", "// launchers")
+    dkv_mma = ("flash_bwd_dkv_mma_kernel(const bf16*",
+               "flash_bwd_dkv_tf32_kernel(const float*")
+    dkv_tf32 = ("flash_bwd_dkv_tf32_kernel(const float*", "// launchers")
     fwd_mask = "if (causal) ok = ok && j <= row + offset;"
     dq_mask = "if (causal) ok = ok && j <= wrow0 + gq + 8 * (i >> 1) + offset;"
     out = {
-        "q_tile": _within(src, *dkv, "q0 < sq; q0 += kB)",
-                          "q0 < sq - (k0 >= 2048) * kB; q0 += kB)"),
-        "mask": _within(src, *dkv, "kj[r] <= i + offset", "kj[r] < i + offset"),
+        "q_tile": _within(src, *dkv_tf32, "it < n_q; ++it)",
+                          "it < n_q - (k0 >= 2048); ++it)"),
         "mask_dkv_mma": _within(src, *dkv_mma, "key <= qi + offset",
                                 "key <= qi + offset + 1"),
+        "mask_dkv_tf32": _within(src, *dkv_tf32, "key <= qi + offset",
+                                 "key <= qi + offset + 1"),
         "prefetch": _within(src, *fwd, "if (t + 1 < n_kv) {",
                             "if (t + 1 < n_kv - (q0 >= 2048)) {")}
     for kernel, where, old in (("fwd", fwd, fwd_mask), ("dq", dq, dq_mask)):
@@ -83,25 +88,49 @@ def _mutants(src: str):
             out[f"mask_{kernel}_{route}"] = _within(
                 src, *where, old, old.replace("+ offset;",
                                               f"+ offset + {on};"))
+    out["tf32_1term_dkv"] = _one_term(src, "template <int kNT, int kSteps",
+                                      "// launchers")
     return out
+
+
+def _one_term(src: str, start: str, end: str) -> str:
+    """``src`` with every 3xTF32 product between ``start`` and ``end`` cut
+    to its hi.hi term, and the two-term v.dO of bf16 v to v.dO_hi: one-term
+    TF32, about 11 of fp32's 24 mantissa bits in each operand."""
+    i = src.index(start)
+    j = src.index(end, i)
+    body = src[i:j].replace("mma_3xtf32(", "mma_1xtf32(")
+    for t, lo in (("t0", "blo[0], blo[1]"), ("t1", "blo[2], blo[3]")):
+        old = f"mma_tf32_1688({t}, a, {lo});"
+        if old not in body:
+            raise ValueError(f"{old!r} not found")
+        body = body.replace(old, "")
+    if "mma_1xtf32(" not in body:
+        raise ValueError("no 3xTF32 product in the region")
+    one = ("__device__ __forceinline__ void mma_1xtf32(float* c, "
+           "const uint32_t* a_hi, const uint32_t*, const uint32_t* b_hi, "
+           "const uint32_t*) { mma_tf32_1688(c, a_hi, b_hi[0], b_hi[1]); }"
+           "\n\n")
+    return src[:i] + one + body + src[j:]
 
 
 def _touched(fault: str, tag: str, s: int):
     """The kernels that ``fault`` changes at shape ``tag`` (sequence
-    length ``s``): the forward and dq are the tensor-core kernels in every
-    type mix (bf16, or 3xTF32 for fp32 q/k), the dk/dv template (split and
-    fused) the tensor-core one on bf16 and the scalar one otherwise."""
+    length ``s``): every kernel runs on the tensor cores, bf16 ``mma.sync``
+    for bf16 q/k/v and 3xTF32 for fp32 q/k; the dk/dv template serves the
+    split dk/dv and the fused backward."""
     bf16 = tag.endswith("/bf16")
-    scalar_dkv = () if bf16 else ("flash_bwd_dkv", "flash_bwd_fused")
+    tf32_dkv = () if bf16 else ("flash_bwd_dkv", "flash_bwd_fused")
     return {"clean": (),
-            "q_tile": scalar_dkv if s > 2048 else (),
-            "mask": scalar_dkv,
+            "q_tile": tf32_dkv if s > 2048 else (),
             "mask_fwd_mma": ("flash_fwd",) if bf16 else (),
             "mask_fwd_tf32": () if bf16 else ("flash_fwd",),
             "mask_dq_mma": ("flash_bwd_dq",) if bf16 else (),
             "mask_dq_tf32": () if bf16 else ("flash_bwd_dq",),
             "mask_dkv_mma": ("flash_bwd_dkv", "flash_bwd_fused") if bf16
                             else (),
+            "mask_dkv_tf32": tf32_dkv,
+            "tf32_1term_dkv": tf32_dkv,
             "prefetch": ("flash_fwd",) if s > 2048 else (),
             }[fault]
 
@@ -208,6 +237,18 @@ def main() -> int:
                        if not ratios[n] > 1.0]
             del q, k, v, do
             torch.cuda.empty_cache()
+        if name == "tf32_1term_dkv":
+            rep = cs.train_oracle_case(
+                "gpt2_widths", cs.GPTConfig(num_layers=2, vocab_size=1024,
+                                            dtype="float32"), 2, 256,
+                check=False)
+            print(json.dumps({"fault": name, "train_oracle": "gpt2_widths",
+                              **{k: rep[k] for k in (
+                                  "loss_rel_diff", "param_update_rel_diff",
+                                  "param_max_abs_diff", "within_limits")}}),
+                  flush=True)
+            if rep["within_limits"]:
+                missed.append(f"{name} train oracle gpt2_widths")
     build._LOADED["flash_attention"] = real
     missed += _latent_faults(cs)
     if missed:

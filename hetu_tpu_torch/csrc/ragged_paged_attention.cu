@@ -51,6 +51,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -84,6 +85,8 @@ ragged_paged_attention_fp32_kernel(const float* __restrict__ q,
                                    const int* __restrict__ ctx_lens,
                                    int n_tokens, int nh, int kvh, int ps,
                                    int maxp, int max_q, float scale) {
+  // each thread's HD / 8 output columns are read from V as float4s
+  static_assert(HD % 32 == 0, "HD / 8 columns a thread, in float4s");
   constexpr int kDPer = HD / 8;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -483,7 +486,7 @@ cudaError_t launch_scalar(const void* q, const void* k_pages,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128.  The output
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64 or 128.  The output
 // must be zeroed by the caller; the kernel allocates nothing.
 int hetu_ragged_paged_attention(const void* q, const void* k_pages,
                                 const void* v_pages, void* out,
@@ -500,23 +503,22 @@ int hetu_ragged_paged_attention(const void* q, const void* k_pages,
   const auto* ptab = static_cast<const int*>(page_tables);
   const auto* cl = static_cast<const int*>(ctx_lens);
   auto st = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return dtype == 0
+               ? launch_scalar<HD>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
+                                   n_tokens, nh, kvh, ps, n_rows, maxp,
+                                   max_q, scale, st)
+               : launch_mma<HD>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
+                                n_tokens, nh, kvh, ps, n_rows, maxp, max_q,
+                                scale, st);
+  };
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 128)
-    err = launch_scalar<128>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
-                             n_tokens, nh, kvh, ps, n_rows, maxp, max_q,
-                             scale, st);
-  else if (dtype == 0 && head_dim == 64)
-    err = launch_scalar<64>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
-                            n_tokens, nh, kvh, ps, n_rows, maxp, max_q,
-                            scale, st);
-  else if (dtype == 1 && head_dim == 128)
-    err = launch_mma<128>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
-                          n_tokens, nh, kvh, ps, n_rows, maxp, max_q, scale,
-                          st);
-  else if (dtype == 1 && head_dim == 64)
-    err = launch_mma<64>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
-                         n_tokens, nh, kvh, ps, n_rows, maxp, max_q, scale,
-                         st);
+  if (dtype == 0 || dtype == 1) {
+    if (head_dim == 32) err = launch(std::integral_constant<int, 32>{});
+    if (head_dim == 64) err = launch(std::integral_constant<int, 64>{});
+    if (head_dim == 128) err = launch(std::integral_constant<int, 128>{});
+  }
   return static_cast<int>(err);
 }
 

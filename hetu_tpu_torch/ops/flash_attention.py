@@ -17,13 +17,13 @@ Two implementations of each function:
   the CPU path.
 - ``flash_fwd_cuda``, ``flash_bwd_fused_cuda``, ``flash_bwd_dq_cuda`` and
   ``flash_bwd_dkv_cuda``: the CUDA kernels of ``csrc/flash_attention.cu``
-  (kernels 1-4 of the JAX package).  The forward and dq run on the tensor
-  cores in every type: bf16 ``mma.sync`` for bf16 q/k/v, 3xTF32 for fp32
-  q/k (the mixed forward's P.V on bf16 ``mma.sync``).  The dk/dv template
-  (the split dk/dv kernel, and the fused backward, which adds dq atomics)
-  runs on bf16 ``mma.sync`` for bf16 q/k/v and scalar FMA otherwise.  Each
-  wrapper counts its launches in ``.launches`` and, of those, the
-  tensor-core ones (as the library reports them) in
+  (kernels 1-4 of the JAX package).  Every kernel runs on the tensor cores
+  in every type: bf16 ``mma.sync`` for bf16 q/k/v, 3xTF32 for fp32 q/k
+  (the mixed forward's P.V on bf16 ``mma.sync``).  The kernels take head
+  dims 32, 64 and 128; the wrappers zero-pad any other head dim up to 128
+  to the next of those (``_pad_heads``) and slice the results back, which
+  is exact.  Each wrapper counts its launches in ``.launches`` and, of
+  those, the tensor-core ones (as the library reports them) in
   ``.tensor_core_launches`` and the 3xTF32 ones in ``.tf32_launches``.
 
 ``_flash_fwd`` and ``_flash_bwd`` dispatch on the tensors' device: the
@@ -174,7 +174,34 @@ def flash_bwd_reference(q, k, v, out, lse, do, scale: float, causal: bool,
 _KERNEL_DTYPES = {(torch.float32, torch.float32): 0,
                   (torch.bfloat16, torch.bfloat16): 1,
                   (torch.float32, torch.bfloat16): 2}
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (32, 64, 128)
+
+
+def _kernel_head_dim(name: str, d: int) -> int:
+    """The kernels' head dim that ``d`` is padded to: the smallest of
+    ``_KERNEL_HEAD_DIMS`` that holds it; raises ``ValueError`` above."""
+    for width in _KERNEL_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"{name}: head_dim {d} not supported; the kernels take "
+                     f"head dims 1 to {_KERNEL_HEAD_DIMS[-1]} (padded to one "
+                     f"of {_KERNEL_HEAD_DIMS})")
+
+
+def _pad_heads(width: int, *xs: torch.Tensor):
+    """``xs`` with the head (last) axis zero-padded to ``width``, on any
+    device.  Exact for flash attention: zero columns add nothing to q.k,
+    give zero columns of out, dq, dk and dv, and leave lse as it was (the
+    caller keeps the scale of the true head dim)."""
+    return tuple(x if x.shape[-1] == width else
+                 torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+                 for x in xs)
+
+
+def _unpad_heads(d: int, *xs: torch.Tensor):
+    """``xs`` cut back to head dim ``d`` (contiguous)."""
+    return tuple(x if x.shape[-1] == d else x[..., :d].contiguous()
+                 for x in xs)
 
 
 def _kernel_lib():
@@ -203,7 +230,8 @@ def _kernel_lib():
 
 def _check_kernel_inputs(name: str, q, k, v, same_as_q=(), fp32=()):
     """Validates what every kernel needs and returns ``(b, sq, sk, h, d,
-    type code)``; raises ``ValueError`` on anything it does not take."""
+    the kernels' head dim d is padded to, type code)``; raises
+    ``ValueError`` on anything it does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q, k, v must be [b, s, h, d]")
     b, sq, h, d = q.shape
@@ -219,9 +247,7 @@ def _check_kernel_inputs(name: str, q, k, v, same_as_q=(), fp32=()):
             f"not supported; the kernels take (float32, float32, float32), "
             f"(bfloat16, bfloat16, bfloat16) and (float32, float32, "
             f"bfloat16)")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {d} not supported; the kernels "
-                         f"take {_KERNEL_HEAD_DIMS}")
+    width = _kernel_head_dim(name, d)
     for x in same_as_q:
         if tuple(x.shape) != tuple(q.shape) or x.dtype != q.dtype:
             raise ValueError(f"{name}: out/do must match q's shape and "
@@ -241,7 +267,7 @@ def _check_kernel_inputs(name: str, q, k, v, same_as_q=(), fp32=()):
     if any(x.data_ptr() % 16 for x in (q, k, v, *same_as_q)):
         raise ValueError(f"{name} needs q, k, v, out and do aligned to 16 "
                          f"bytes")
-    return b, sq, sk, h, d, code
+    return b, sq, sk, h, d, width, code
 
 
 def _segment_pointers(name: str, segment_ids, b: int, sq: int, sk: int,
@@ -303,9 +329,11 @@ def _kernel_info(entry: int, head_dim: int, code: int, fused: bool = False):
 def flash_fwd_cuda(q, k, v, scale: float, causal: bool, segment_ids=None,
                    causal_offset: int = 0):
     """Kernel 1, the forward (same contract as ``flash_fwd_reference``)."""
-    b, sq, sk, h, d, code = _check_kernel_inputs("flash_fwd_cuda", q, k, v)
+    b, sq, sk, h, d0, d, code = _check_kernel_inputs(
+        "flash_fwd_cuda", q, k, v)
     segs, qs_ptr, ks_ptr = _segment_pointers("flash_fwd_cuda", segment_ids,
                                              b, sq, sk, q.device)
+    q, k, v = _pad_heads(d, q, k, v)
     lib = _kernel_lib()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -317,7 +345,7 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool, segment_ids=None,
             int(bool(causal)), int(causal_offset), code, stream)
     _raise_on(err, lib, "flash attention forward")
     _count_launch(flash_fwd_cuda, lib, _ENTRY_FWD, d, code)
-    return out, lse
+    return _unpad_heads(d0, out)[0], lse
 
 
 flash_fwd_cuda.launches = 0
@@ -330,10 +358,11 @@ def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
     """Kernel 2, the fused backward: ``(dq, dk, dv)``.  dq is summed
     across KV tiles with fp32 atomics into a zeroed workspace allocated
     here, then cast to q's dtype."""
-    b, sq, sk, h, d, code = _check_kernel_inputs(
+    b, sq, sk, h, d0, d, code = _check_kernel_inputs(
         "flash_bwd_fused_cuda", q, k, v, same_as_q=(out, do), fp32=(lse,))
     segs, qs_ptr, ks_ptr = _segment_pointers(
         "flash_bwd_fused_cuda", segment_ids, b, sq, sk, q.device)
+    q, k, v, out, do = _pad_heads(d, q, k, v, out, do)
     lib = _kernel_lib()
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -347,7 +376,7 @@ def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
             stream)
     _raise_on(err, lib, "flash attention fused backward")
     _count_launch(flash_bwd_fused_cuda, lib, _ENTRY_DKV, d, code)
-    return dq_acc.to(q.dtype), dk, dv
+    return _unpad_heads(d0, dq_acc.to(q.dtype), dk, dv)
 
 
 flash_bwd_fused_cuda.launches = 0
@@ -359,13 +388,14 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
                       segment_ids=None, causal_offset: int = 0):
     """Kernel 3, dq of the split backward; ``delta`` is rowsum(do * out)
     as ``[b, sq, h]`` fp32."""
-    b, sq, sk, h, d, code = _check_kernel_inputs(
+    b, sq, sk, h, d0, d, code = _check_kernel_inputs(
         "flash_bwd_dq_cuda", q, k, v, same_as_q=(do,), fp32=(lse, delta))
     if tuple(delta.shape) != (b, sq, h) or tuple(lse.shape) != (b, h, sq):
         raise ValueError("flash_bwd_dq_cuda: lse must be [b, h, sq] and "
                          "delta [b, sq, h]")
     segs, qs_ptr, ks_ptr = _segment_pointers(
         "flash_bwd_dq_cuda", segment_ids, b, sq, sk, q.device)
+    q, k, v, do = _pad_heads(d, q, k, v, do)
     lib = _kernel_lib()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -377,7 +407,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
             int(causal_offset), code, stream)
     _raise_on(err, lib, "flash attention dq backward")
     _count_launch(flash_bwd_dq_cuda, lib, _ENTRY_DQ, d, code)
-    return dq
+    return _unpad_heads(d0, dq)[0]
 
 
 flash_bwd_dq_cuda.launches = 0
@@ -388,13 +418,14 @@ flash_bwd_dq_cuda.tf32_launches = 0
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
                        segment_ids=None, causal_offset: int = 0):
     """Kernel 4, dk and dv of the split backward."""
-    b, sq, sk, h, d, code = _check_kernel_inputs(
+    b, sq, sk, h, d0, d, code = _check_kernel_inputs(
         "flash_bwd_dkv_cuda", q, k, v, same_as_q=(do,), fp32=(lse, delta))
     if tuple(delta.shape) != (b, sq, h) or tuple(lse.shape) != (b, h, sq):
         raise ValueError("flash_bwd_dkv_cuda: lse must be [b, h, sq] and "
                          "delta [b, sq, h]")
     segs, qs_ptr, ks_ptr = _segment_pointers(
         "flash_bwd_dkv_cuda", segment_ids, b, sq, sk, q.device)
+    q, k, v, do = _pad_heads(d, q, k, v, do)
     lib = _kernel_lib()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -406,7 +437,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
             int(bool(causal)), int(causal_offset), code, 0, stream)
     _raise_on(err, lib, "flash attention dk/dv backward")
     _count_launch(flash_bwd_dkv_cuda, lib, _ENTRY_DKV, d, code)
-    return dk, dv
+    return _unpad_heads(d0, dk, dv)
 
 
 flash_bwd_dkv_cuda.launches = 0
@@ -439,7 +470,8 @@ def _flash_bwd(scale, causal, segment_ids, res, g, causal_offset=0):
     lse)`` and the output cotangent ``g``.  On CUDA: the fused kernel 2
     when the JAX package's byte rule picks it (``_use_fused``), else the
     split kernels 3 and 4 with delta from one torch op; on the CPU the
-    plain version."""
+    plain version.  A head dim the kernels do not take is padded here
+    once, for both split kernels, and the gradients cut back."""
     do = g[0] if isinstance(g, (tuple, list)) else g
     q, k, v, out, lse = res
     if q.device.type == "cpu":
@@ -447,16 +479,20 @@ def _flash_bwd(scale, causal, segment_ids, res, g, causal_offset=0):
                                    segment_ids, causal_offset)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
-    do = do.to(q.dtype).contiguous()
-    if _use_fused(k.shape[1], k.shape[3], k.dtype):
-        return flash_bwd_fused_cuda(q, k, v, out, lse, do, scale, causal,
-                                    segment_ids, causal_offset)
+    d = q.shape[-1]
+    use_fused = _use_fused(k.shape[1], d, k.dtype)
+    q, k, v, out, do = _pad_heads(_kernel_head_dim("flash_attention", d),
+                                  q, k, v, out, do.to(q.dtype).contiguous())
+    if use_fused:
+        return _unpad_heads(d, *flash_bwd_fused_cuda(
+            q, k, v, out, lse, do, scale, causal, segment_ids,
+            causal_offset))
     delta = torch.einsum("bshd,bshd->bsh", do.float(), out.float())
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal,
                            segment_ids, causal_offset)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal,
                                 segment_ids, causal_offset)
-    return dq, dk, dv
+    return _unpad_heads(d, dq, dk, dv)
 
 
 class _Flash(torch.autograd.Function):

@@ -135,7 +135,7 @@ def ragged_paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
 def _kernel_lib():

@@ -27,6 +27,9 @@ CASES = [
     ([3, 0, 0, 7], [20, 0, 0, 7], 4, 8, 8, 2, 128, 8),
     ([1, 1, 0, 37], [300, 64, 0, 200], 5, 64, 32, 8, 128, 64),
     ([40, 1, 3], [40, 130, 3], 3, 64, 12, 4, 64, 40),
+    # head dim 32 (the LLaMA config of __graft_entry__: 8 heads of 32)
+    ([1, 5, 0, 6], [13, 10, 0, 6], 3, 8, 4, 2, 32, 8),
+    ([40, 1, 3], [40, 130, 3], 3, 64, 8, 8, 32, 40),
 ]
 
 
@@ -147,6 +150,12 @@ FLASH_CASES = [
     (1, 200, 136, 2, 128, True, None, -40),      # rows that see no key
     (5, 128, 128, 16, 64, True, None, 0),        # b * h = 80 blocks a tile
     (2, 130, 130, 3, 64, False, None, 0),        # h = 3: token stride 192
+    # head dim 32 natively, and 96 zero-padded to 128 by the wrappers
+    (2, 128, 128, 4, 32, True, "array", 0),
+    (1, 200, 136, 2, 32, True, None, -40),
+    (2, 130, 130, 3, 32, False, None, 0),
+    (1, 200, 200, 2, 96, True, None, 0),
+    (1, 64, 192, 2, 96, True, "tuple", 128),
 ]
 
 
@@ -250,14 +259,11 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
     if case[7] < 0:
         assert torch.count_nonzero(out[:, :-case[7]]).item() == 0
         assert bool((lse[:, :, :-case[7]] == float("-inf")).all())
-    # the forward and dq launch tensor-core kernels in every type mix (bf16
-    # mma.sync for bf16 q/k/v, 3xTF32 for fp32 q/k); the dk/dv template
-    # (split, and the fused backward) on bf16 only, scalar otherwise
-    mma = dtypes == "bf16"
+    # every kernel launches on the tensor cores in every type mix: bf16
+    # mma.sync for bf16 q/k/v, 3xTF32 for fp32 q/k
+    tf32 = int(dtypes != "bf16")
     assert [(w.launches - a, w.tensor_core_launches - t, w.tf32_launches - f)
-            for w, (a, t, f) in zip(wrappers, n0)] == \
-        [(1, 1, int(not mma)), (1, int(mma), 0), (1, 1, int(not mma)),
-         (1, int(mma), 0)]
+            for w, (a, t, f) in zip(wrappers, n0)] == [(1, 1, tf32)] * 4
 
 
 def test_flash_dispatch_takes_the_byte_rule_on_cuda(cuda_device):
@@ -270,13 +276,38 @@ def test_flash_dispatch_takes_the_byte_rule_on_cuda(cuda_device):
     assert fa.flash_bwd_dq_cuda.launches == counts[1]
 
 
+@pytest.mark.parametrize("sk,fused", [(200, True), (2816, False)])
+def test_flash_dispatch_pads_a_head_dim_once(cuda_device, sk, fused):
+    """Head dim 96 through the autograd op: the backward pads q, k, v,
+    out and do to 128 once for whichever path the byte rule picks (fused
+    at sk 200, split at 2816 in fp32) and cuts the gradients back."""
+    case = (1, sk, sk, 2, 96, True, None, 0)
+    q, k, v, do, _, _, _, scale = _flash_inputs(case, "fp32", cuda_device)
+    wrappers = (fa.flash_bwd_fused_cuda, fa.flash_bwd_dq_cuda,
+                fa.flash_bwd_dkv_cuda)
+    n0 = [w.launches for w in wrappers]
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, causal=True)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(wrappers, n0)] == \
+        ([1, 0, 0] if fused else [0, 1, 1])
+    ro, rl = fa.flash_fwd_reference(q, k, v, scale, True)
+    want = fa.flash_bwd_reference(q, k, v, ro, rl, do, scale, True)
+    _assert_close(out, ro, (3,), False, 1e-4, "out")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.is_contiguous(), name
+        _assert_close(g, w, (3,), False, 1e-3, name)
+
+
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q, k, v, do, *_ = _flash_inputs(FLASH_CASES[0], "fp32", cuda_device)
     with pytest.raises(ValueError, match="dtypes"):
         fa.flash_fwd_cuda(q.half(), k.half(), v.half(), 0.1, True)
-    with pytest.raises(ValueError, match="head_dim 32"):
-        fa.flash_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                          v[..., :32].contiguous(), 0.1, True)
+    # head dims up to 128 are padded to the kernels' 32, 64 or 128
+    wide = q.new_zeros(q.shape[:3] + (256,))
+    with pytest.raises(ValueError, match="head_dim 256 not supported"):
+        fa.flash_fwd_cuda(wide, wide, wide, 0.1, True)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
                           k, v, 0.1, True)
