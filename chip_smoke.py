@@ -9,15 +9,16 @@ Phases, each printing one JSON line:
    for sm_90a) and reports registers, shared memory and spills, and each
    flash kernel's dynamic shared memory and blocks an SM; every flash
    kernel (the forward, dq and the dk/dv template, split and fused, in
-   every type mix, bf16 and 3xTF32, at head dims 32, 64 and 128) runs on
-   the tensor cores and must not spill;
+   every type mix, bf16 and 3xTF32, at head dims 32, 64, 128 and 256)
+   runs on the tensor cores, and no kernel of the port may spill;
 3. kernel_vs_plain: the ragged paged attention kernel against its plain
    PyTorch version at the serving shapes of Llama-3-8B (nh 32, kvh 8,
    hd 128, page 64, bf16): a 512-token prefill chunk over a context of
    many pages, decode rows up to 4096 tokens of context, padding rows, a
    partial last page and trash-page table slots; times both with CUDA
-   events; then a smaller batch at head dim 32 (nh 8, kvh 8) in bf16 and
-   fp32;
+   events; then a smaller batch at head dims 32 (nh 8, kvh 8), 80, 96,
+   100 and 256, which the kernel reads in place at a template width at or
+   above them, in bf16 and fp32;
 4. main_path: the serving ``Engine`` at Llama-3-8B widths (all 32
    layers, random bf16 weights from seed 0) serves 8 requests, one of
    them sampled and two sharing a 1024-token header through the prefix
@@ -33,8 +34,8 @@ Phases, each printing one JSON line:
    all-bf16 q/k/v the LLaMA path and its peers feed, GPT-2 widths (b 4,
    s 1024, h 12, d 64, every type mix) -- and on small masked cases
    (segment-id tuples, causal offsets, sq != sk, fully-masked rows,
-   s = 1000; head dims 64 and 128, 32, and 96 through the wrappers' zero
-   padding to 128); times
+   s = 1000; head dims 64, 128, 32 and 256, and 96 and 200 through the
+   wrappers' zero padding to 128 and 256); times
    each kernel, its plain version and PyTorch's own attention
    (``scaled_dot_product_attention`` on all-bf16 and on all-fp32 inputs,
    only as a yardstick; it takes no mixed types) with CUDA events around
@@ -56,15 +57,18 @@ Phases, each printing one JSON line:
    the card (kernels) and on the CPU (plain versions) from the same
    weights and batches; losses and parameters must agree;
 9. latent_kernel_vs_plain: the latent (MLA) ragged paged attention kernel
-   against its plain version at the serving shapes of Llama-3-8B's widths
-   in the MLA layout (nh 32, d_c 512, d_r 64, page 64, bf16 pages; the
-   batch of phase 3), then at GPT-2 small's (nh 12, d_c 256, no rope) with
-   bf16, int8 and nf4 pages written by ``quantize_rows``; times both;
+   (TF32 tensor cores, split terms) against its plain version at the
+   serving shapes of Llama-3-8B's widths in the MLA layout (nh 32, d_c
+   512, d_r 64, page 64, bf16 pages; the batch of phase 3), then at GPT-2
+   small's (nh 12, d_c 256, no rope) with bf16, int8 and nf4 pages written
+   by ``quantize_rows``; times both;
 10. paged_decode_vs_plain: the paged decode kernel against its plain
     version at Llama-3-8B's shapes (nh 32, kvh 8, hd 128, page 64), batch
     8 and 64, contexts 1 to 4096 with one empty request and partial last
-    pages, bf16 and fp32; times both; then ``ops.paged_attention_decode``
-    itself is driven for 8 decode steps of 32 layers at batch 8;
+    pages, bf16 and fp32; times both; small batches at head dims 80, 96,
+    100 and 256 (read in place at a template width at or above them);
+    then ``ops.paged_attention_decode`` itself is driven for 8 decode
+    steps of 32 layers at batch 8;
 11. mla_main_path: phase 4's traffic on Llama-3-8B's widths in the MLA
     layout (``mla_config(llama3_8b_config(), 512, 64)``, all 32 layers,
     random bf16 weights from seed 0): the latent kernel 32 times per
@@ -129,8 +133,8 @@ def product_rate(a, b):
     into two TF32 parts (3xTF32); a bf16 operand is exact in TF32 and has
     no second part, so fp32 by bf16 takes two TF32 products and fp32 by
     fp32 three: 495/2 and 495/3 TFLOP/s, both faster than fp32 FMA
-    outside the tensor cores (67).  Dequantized int8/nf4 pages count as
-    fp32."""
+    outside the tensor cores (67).  Quantized latent pages are priced by
+    the terms the latent kernel takes (``LATENT_TERMS``)."""
     if a == b == torch.bfloat16:
         return H100_BF16_FLOPS
     return H100_TF32_FLOPS / (2 if torch.bfloat16 in (a, b) else 3)
@@ -203,8 +207,8 @@ def phase_device():
 # the flash kernels, all on the tensor cores: (kernel, head dim, q/k and v
 # types); the bf16 dk/dv template has no type arguments, the 3xTF32 one
 # only v's (q/k are fp32); split and fused instantiations of the dk/dv
-# templates share a key, so phase 2 also counts 36
-FLASH_HEAD_DIMS = (32, 64, 128)
+# templates share a key, so phase 2 also counts 48
+FLASH_HEAD_DIMS = (32, 64, 128, 256)
 FLASH_KERNELS = {
     *((kernel, hd, types) for kernel in ("flash_fwd_mma_kernel",
                                          "flash_bwd_dq_mma_kernel")
@@ -286,12 +290,16 @@ def phase_build():
     flash = [e for e in report["flash_attention"]["entries"]
              if e["kernel"].startswith("flash_")]
     got = {(e["kernel"], e["head_dim"], e["types"]) for e in flash}
-    if len(flash) != 36 or got != FLASH_KERNELS or \
-            any(e["spill_stores"] or e["spill_loads"] for e in flash):
+    if len(flash) != 48 or got != FLASH_KERNELS:
         raise AssertionError(
             f"the tensor-core flash kernels (forward, dq, and dk/dv fused "
-            f"and split, in every type mix, at head dims 32, 64 and 128) "
-            f"must build without spills: {flash}")
+            f"and split, in every type mix, at head dims 32, 64, 128 and "
+            f"256) must all be built: {flash}")
+    spills = [(name, e["kernel"], e["template_ints"], e["types"])
+              for name, r in report.items() for e in r["entries"]
+              if e["spill_stores"] or e["spill_loads"]]
+    if spills:
+        raise AssertionError(f"kernels that spill: {spills}")
     return report
 
 
@@ -334,12 +342,18 @@ def bf16_agreement(got, want, cu, q_lens):
 RAGGED_FP32_TOL = 2e-5
 
 
-def ragged_head_dim_32():
-    """The ragged kernel at head dim 32, the widths of the LLaMA config of
-    ``__graft_entry__`` (nh 8, kvh 8), in bf16 and fp32: decode rows, a
-    whole 64-token chunk, a row whose chunk is its whole context, a padding
-    row and partial pages, against the plain version."""
-    nh, kvh, hd, ps, max_q, maxp = 8, 8, 32, 16, 64, 16
+# head dims of phase 3's small batches: 32 (the LLaMA config of
+# ``__graft_entry__``, nh 8, kvh 8), and 80, 96, 100 and 256 (nh 8, kvh 2),
+# which the kernel runs at the template width at or above them
+RAGGED_SMALL_HEAD_DIMS = {32: (8, 8), 80: (8, 2), 96: (8, 2), 100: (8, 2),
+                          256: (8, 2)}
+
+
+def ragged_small_batch(hd, nh, kvh):
+    """The ragged kernel at head dim ``hd`` in bf16 and fp32: decode rows,
+    a whole 64-token chunk, a row whose chunk is its whole context, a
+    padding row and partial pages, against the plain version."""
+    ps, max_q, maxp = 16, 64, 16
     q_lens = [1, 1, 0, 64, 37]
     ctx_lens = [200, 17, 0, 128, 37]
     cu = np.zeros(len(q_lens) + 1, np.int32)
@@ -379,7 +393,7 @@ def ragged_head_dim_32():
         name = "bf16" if dtype == torch.bfloat16 else "fp32"
         out[name] = {"err_over_limit": ratio, "padding_nonzero": pad_nonzero}
         if not ratio <= 1.0 or pad_nonzero:
-            raise AssertionError(f"ragged kernel at head dim 32, {name}: "
+            raise AssertionError(f"ragged kernel at head dim {hd}, {name}: "
                                  f"{out[name]}")
     return {"q_lens": q_lens, "ctx_lens": ctx_lens, "nh": nh, "kvh": kvh,
             "hd": hd, "ps": ps, **out}
@@ -459,7 +473,8 @@ def phase_kernel():
            "shapes": {"q_lens": q_lens, "ctx_lens": ctx_lens,
                       "nh": nh, "kvh": kvh, "hd": hd, "ps": ps,
                       "max_q": max_q, "maxp": maxp, "dtype": "bfloat16"},
-           "head_dim_32": ragged_head_dim_32()}
+           "head_dims": {str(hd): ragged_small_batch(hd, *heads) for hd, heads
+                         in RAGGED_SMALL_HEAD_DIMS.items()}}
     emit({"phase": "kernel_vs_plain",
           "kernel": {"ragged_paged_attention": out}})
     return out
@@ -870,8 +885,9 @@ def phase_flash():
             shapes[f"{shape_name}/{types}"] = row
             del q, k, v, do, ro, rl, delta
             torch.cuda.empty_cache()
-    # small masked cases: every kernel, every type mix; head dim 32 (the
-    # kernels' own) and 96 (zero-padded to 128 by the wrappers)
+    # small masked cases: every kernel, every type mix; head dims 32 and
+    # 256 (the kernels' own), 96 and 200 (zero-padded to 128 and 256 by
+    # the wrappers)
     small = []
     for b, sq, sk, h, d, seg, offset in (
             (1, 64, 192, 2, 64, "tuple", 128),
@@ -881,7 +897,11 @@ def phase_flash():
             (2, 128, 128, 8, 32, "masked", 0),
             (1, 1000, 1000, 8, 32, "offset", -24),
             (1, 64, 192, 2, 96, "tuple", 128),
-            (1, 1000, 1000, 2, 96, None, 0)):
+            (1, 1000, 1000, 2, 96, None, 0),
+            (2, 128, 128, 2, 256, "masked", 0),
+            (1, 1000, 1000, 2, 256, "offset", -24),
+            (1, 64, 192, 2, 200, "tuple", 128),
+            (1, 1000, 1000, 2, 200, None, 0)):
         for types in FLASH_TYPES:
             q, k, v, do = flash_inputs(b, sq, sk, h, d, types, seed=2)
             segs = None
@@ -1124,24 +1144,33 @@ def phase_train_oracle(steps=3, micro=2, lr=1e-6):
 # ---------------------------------------------------------------------------
 
 # fp32 agreement of the latent and the paged decode kernels, |got - want| <=
-# tol * (1 + |want|).  The latent q is fp32 and both sides multiply it in
-# fp32 with the same dequantized page values, so only the order of up to
-# 4096 fp32 sums differs, for bf16, int8 and nf4 pages alike
+# tol * (1 + |want|).  The paged decode kernel multiplies in fp32; the
+# latent kernel in split TF32 terms (about 21 of fp32's 24 bits a product,
+# errors near 1e-6 of the values), for bf16, int8 and nf4 pages alike; and
+# the order of up to 4096 fp32 sums differs
 PAGED_FP32_TOL = 1e-4
 # the engine's token layout: 8 decode slots, then one 512-token chunk slot
 LATENT_Q_LENS = [1, 1, 1, 1, 1, 1, 0, 0, 512]
 LATENT_CU = [0, 1, 2, 3, 4, 5, 6, 7, 8, 520]
 
 
+# TF32 products that fp32 q or p takes against latent pages of each kind
+# to the reference's accuracy: bf16 values and int8 codes are exact in TF32
+# (int8's scale/127 is folded into the scores and into P in fp32), so only
+# the fp32 side splits (2); fp32 values and nf4's codebook values are not,
+# so both split (3)
+LATENT_TERMS = {"bf16": 2, "int8": 2, "nf4": 3, "fp32": 3}
+
+
 def latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, r_bytes,
-                c_dtype):
+                kind):
     """Bytes the function must move (the pages each live row spans, q in,
     out), operations over the causally visible (query, key) pairs, and the
     least time an H100 could take for the arithmetic the reference defines
-    (fp32 q and p by the pages' values, as ``product_rate``; ``c_dtype`` is
-    the latent pages' type, None for int8/nf4 codes), with the bf16
+    (fp32 q and p by the latent pages of ``kind`` in ``LATENT_TERMS[kind]``
+    TF32 products, q by the rope pages as ``product_rate``), with the bf16
     tensor-core figure beside it."""
-    quantized = c_dtype is None
+    quantized = kind in ("int8", "nf4")
     per_pos = c_bytes + d_r * r_bytes + (4 if quantized else 0)
     kv_bytes = sum(-(-c // ps) * ps * per_pos
                    for c, q in zip(ctx_lens, q_lens) if q > 0)
@@ -1152,10 +1181,9 @@ def latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, r_bytes,
     flops = 2 * nh * (2 * d_c + d_r) * pairs
     t_bytes = (kv_bytes + qo_bytes) / H100_BYTES_PER_S
     # q.c and p.c on the latent pages, q.r on the bf16 rope pages
-    c_as = torch.float32 if quantized else c_dtype
     r_as = torch.bfloat16 if r_bytes == 2 else torch.float32
     t_ops = 2 * nh * pairs * (
-        2 * d_c / product_rate(torch.float32, c_as)
+        2 * d_c * LATENT_TERMS[kind] / H100_TF32_FLOPS
         + d_r / product_rate(torch.float32, r_as))
     return {"bytes": kv_bytes + qo_bytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1225,9 +1253,8 @@ def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
     if pad_nonzero:
         raise AssertionError(f"{name}: {pad_nonzero} nonzero padding outputs")
     c_bytes = c_pages.shape[-1] * c_pages.element_size()
-    c_dtype = None if quant is not None else c_pages.dtype
     work = latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, 2,
-                       c_dtype)
+                       kind)
     out = {"max_abs_err": err, "err_over_limit": ratio,
            "limit": f"|got - want| <= {PAGED_FP32_TOL} * (1 + |want|)",
            "padding_nonzero": pad_nonzero,
@@ -1247,7 +1274,7 @@ def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
                            ("chunk_row", lambda i: i == 8)):
             ql = [n if keep(i) else 0 for i, n in enumerate(q_lens)]
             pw = latent_work(ql, ctx_lens, ps, nh, d_c, d_r, c_bytes, 2,
-                             c_dtype)
+                             kind)
             out["parts"][part] = {
                 "ms": cuda_time_ms(lambda: run(
                     latent_ragged_paged_attention_cuda, ql),
@@ -1338,6 +1365,53 @@ def paged_agreement(got, want, seq_lens, dtype):
             int(torch.count_nonzero(got[~live]).item()))
 
 
+# (seq_lens, nh, kvh, head dim) of phase 10's small batches: head dims the
+# kernel runs at the template width at or above them, 100 with rows off
+# the vector boundaries; seq_len 0, partial pages, and the longer batch
+# split over the KV axis
+PAGED_SMALL_CASES = [([13, 5, 0, 24], 8, 2, 80),
+                     ([300, 64, 0, 1000, 513], 8, 2, 96),
+                     ([19, 8, 1], 4, 2, 100),
+                     ([9, 17, 0, 1], 4, 4, 256),
+                     ([300, 64, 0, 1000, 513], 8, 8, 256)]
+
+
+def paged_small_head_dims():
+    """The paged decode kernel on ``PAGED_SMALL_CASES`` in bf16 and fp32
+    against its plain version (page size 16)."""
+    out = []
+    ps = 16
+    for seq_lens, nh, kvh, hd in PAGED_SMALL_CASES:
+        rng = np.random.RandomState(hd)
+        maxp = -(-max(seq_lens) // ps)
+        num_pages = 1 + sum(-(-c // ps) for c in seq_lens)
+        perm = rng.permutation(np.arange(1, num_pages))
+        pt = np.zeros((len(seq_lens), maxp), np.int32)
+        k = 0
+        for i, c in enumerate(seq_lens):
+            need = -(-c // ps)
+            pt[i, :need] = perm[k:k + need]
+            k += need
+        for dtype in (torch.bfloat16, torch.float32):
+            def rnd(*shape):
+                return torch.from_numpy(rng.randn(*shape).astype(
+                    np.float32)).to(device="cuda", dtype=dtype)
+            args = (rnd(len(seq_lens), nh, hd), rnd(num_pages, ps, kvh, hd),
+                    rnd(num_pages, ps, kvh, hd), torch.from_numpy(pt).cuda(),
+                    torch.tensor(seq_lens, dtype=torch.int32, device="cuda"))
+            got = paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            want = paged_attention_reference(*args)
+            ratio, err, empty = paged_agreement(got, want, seq_lens, dtype)
+            row = {"seq_lens": seq_lens, "nh": nh, "kvh": kvh, "hd": hd,
+                   "dtype": str(dtype), "err_over_limit": ratio,
+                   "max_abs_err": err, "empty_request_nonzero": empty}
+            if not ratio <= 1.0 or empty or not torch.isfinite(got).all():
+                raise AssertionError(f"paged decode kernel vs plain: {row}")
+            out.append(row)
+    return out
+
+
 def phase_paged_decode():
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = {}
@@ -1368,6 +1442,7 @@ def phase_paged_decode():
                 "tokens": sum(seq_lens)}
             del args, got, want
             torch.cuda.empty_cache()
+    small = paged_small_head_dims()
     # the op's own entry point, as a decoder would call it: 8 steps of a
     # 32-layer model at batch 8, every request one token longer each step
     (q, kp, vp, pt, sl), seq_lens, (nh, kvh, hd) = paged_inputs(
@@ -1395,6 +1470,7 @@ def phase_paged_decode():
                             f"{BF16_RMS_FLOOR} * rms(want over the request)",
                     "fp32": f"|got - want| <= {PAGED_FP32_TOL} * (1 + |want|)"},
           "kernel": {"paged_attention_decode": cases},
+          "small_head_dims": small,
           "entry_point": {"steps": steps, "layers": layers, "batch": 8,
                           "launches": launches, "err_over_limit": ratio}})
     return cases["batch8/bf16"], launches

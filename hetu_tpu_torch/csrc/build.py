@@ -33,6 +33,9 @@ SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu",
            "latent_ragged_paged_attention":
                "latent_ragged_paged_attention.cu",
            "paged_attention": "paged_attention.cu"}
+# head dims the attention kernels are instantiated at (their template HD);
+# the wrappers run a head dim of 1 to 256 at the next of these at or above it
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

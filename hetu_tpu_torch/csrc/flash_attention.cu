@@ -27,8 +27,9 @@
 // :502); every product accumulates in fp32.  Types: q/k/do/out share one
 // type and v may differ: (fp32, fp32, fp32), (bf16, bf16, bf16) and (fp32,
 // fp32, bf16), the last being what the bf16 LLaMA model feeds (its rotary
-// tables are fp32).  Head dims 32, 64, 128 (ops/flash_attention.py pads
-// any other head dim up to 128 with zero columns).
+// tables are fp32).  Head dims 32, 64, 128, 256 (ops/flash_attention.py
+// pads any other head dim up to 256 with zero columns to the next of
+// them).
 //
 // What bounds them on an H100 (989 TFLOP/s bf16 tensor cores, 495 TF32,
 // so 165 for an fp32 product in 3xTF32; 3.35 TB/s): causal attention does
@@ -237,20 +238,23 @@ __device__ __forceinline__ void store2(float* dst, float a, float b) {
 // 64-key tiles would leave room for one block an SM (169 KB of shared
 // memory; 102 KB with 32 keys, two blocks an SM, which the card runs
 // faster; at d 64 and below two blocks fit either way and 64 keys run
-// faster).
+// faster); at d 256 32 for bf16 q/k (85 KB, two blocks an SM) and 16 for
+// fp32 q/k, whose S and P parts at 32 keys spill beside O (117 KB).
 template <int HD, typename TQ>
 __host__ __device__ constexpr int fwd_kv_tile() {
+  if (HD > 128) return std::is_same<TQ, bf16>::value ? 32 : 16;
   return std::is_same<TQ, bf16>::value || HD <= 64 ? kB : 32;
 }
 
 template <int HD, typename TQ, typename TV>
 constexpr int fwd_mma_smem_bytes() {
   // Q (64 rows); K x 2 in q's type and V x 2 in v's type (fwd_kv_tile
-  // rows); kv ids x 2
+  // rows; V only the block's out_cols columns); kv ids x 2
   constexpr int kBK = fwd_kv_tile<HD, TQ>();
   return tile_bytes<HD, TQ>() +
          2 * kBK * (tile_ld<HD, TQ>() * static_cast<int>(sizeof(TQ)) +
-                    tile_ld<HD, TV>() * static_cast<int>(sizeof(TV))) +
+                    tile_ld<out_cols<HD>(), TV>() *
+                        static_cast<int>(sizeof(TV))) +
          2 * kBK * 4;
 }
 
@@ -269,6 +273,8 @@ constexpr int fwd_mma_smem_bytes() {
 // q's type) in shared memory, its fragments split for each tile (their
 // high and low parts would take 4 * HD / 8 registers); P.V in 3xTF32 for
 // fp32 v, and for bf16 v on bf16 m16n8k16 with P rounded to bf16.
+// At d 256 the block holds O for the columns of its blockIdx.z half
+// (out_cols) and loads only those columns of V.
 template <int HD, typename TQ, typename TV>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
@@ -277,13 +283,14 @@ flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                      const int* __restrict__ kv_seg, int sq, int sk, int nh,
                      float scale_log2, int causal, int offset) {
   constexpr bool kBf16 = std::is_same<TQ, bf16>::value;
+  constexpr int kOC = out_cols<HD>();         // columns of O a block holds
   constexpr int LD = tile_ld<HD, TQ>();
-  constexpr int LDV = tile_ld<HD, TV>();
+  constexpr int LDV = tile_ld<kOC, TV>();
   constexpr int kBK = fwd_kv_tile<HD, TQ>();  // keys a KV tile
   constexpr int kTile = kBK * LD;
   constexpr int kVTile = kBK * LDV;
-  constexpr int kSteps = HD / 16;  // k-steps of Q K^T on bf16
-  constexpr int kOTiles = HD / 8;  // n-tiles of O
+  constexpr int kSteps = HD / 16;   // k-steps of Q K^T on bf16
+  constexpr int kOTiles = kOC / 8;  // n-tiles of O
   extern __shared__ uint4 smem_u4[];
   TQ* q_s = reinterpret_cast<TQ*>(smem_u4);                // [64][LD]
   TQ* k_s = q_s + kB * LD;                                 // [2][kBK][LD]
@@ -293,6 +300,8 @@ flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // longest rows first
   const int b = blockIdx.y / nh;
   const int h = blockIdx.y % nh;
+  // the block's first column of O (blockIdx.z's half at d 256)
+  const int col0 = col_blocks<HD>() > 1 ? blockIdx.z * kOC : 0;
   const int64_t tok = static_cast<int64_t>(nh) * HD;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -301,7 +310,7 @@ flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   const int wrow0 = q0 + 16 * warp;
   const TQ* qb = q + static_cast<int64_t>(b) * sq * tok + h * HD;
   const TQ* kb = k + static_cast<int64_t>(b) * sk * tok + h * HD;
-  const TV* vb = v + static_cast<int64_t>(b) * sk * tok + h * HD;
+  const TV* vb = v + static_cast<int64_t>(b) * sk * tok + h * HD + col0;
   const int* ksb = kv_seg != nullptr ? kv_seg + static_cast<int64_t>(b) * sk
                                      : nullptr;
 
@@ -309,7 +318,7 @@ flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   if (n_kv > 0) {
     if constexpr (!kBf16) copy_tile_async<HD>(q_s, qb, q0, sq, tok);
     copy_tile_async<HD, kBK>(k_s, kb, 0, sk, tok);
-    copy_tile_async<HD, kBK>(v_s, vb, 0, sk, tok);
+    copy_tile_async<kOC, kBK>(v_s, vb, 0, sk, tok);
     if (ksb != nullptr) copy_row_values_async<kBK>(kseg_s, ksb, 0, sk, 1);
   }
   cp_async_commit();
@@ -369,8 +378,8 @@ flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
     if (t + 1 < n_kv) {
       const int nb = buf ^ 1;
       copy_tile_async<HD, kBK>(k_s + nb * kTile, kb, (t + 1) * kBK, sk, tok);
-      copy_tile_async<HD, kBK>(v_s + nb * kVTile, vb, (t + 1) * kBK, sk,
-                               tok);
+      copy_tile_async<kOC, kBK>(v_s + nb * kVTile, vb, (t + 1) * kBK, sk,
+                                tok);
       if (ksb != nullptr)
         copy_row_values_async<kBK>(kseg_s + nb * kBK, ksb, (t + 1) * kBK,
                                    sk, 1);
@@ -471,7 +480,7 @@ flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
+        for (int dp = 0; dp < kOC / 16; ++dp) {
           uint32_t bf[4];
           load_b_trans(bf, vt_s, LDV, 16 * dp, 16 * kk, lane);
           mma_bf16_16816(o[2 * dp], a, bf[0], bf[1]);
@@ -517,11 +526,11 @@ flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
     const bool empty = lsum == 0.f;
     const float inv = empty ? 0.f : 1.f / lsum;
     TQ* dst = out + (static_cast<int64_t>(b) * sq + row) * tok + h * HD +
-              2 * tq;
+              col0 + 2 * tq;
 #pragma unroll
     for (int nt = 0; nt < kOTiles; ++nt)
       store2(dst + nt * 8, o[nt][2 * hr] * inv, o[nt][2 * hr + 1] * inv);
-    if (tq == 0)
+    if (tq == 0 && col0 == 0)
       lse[(static_cast<int64_t>(b) * nh + h) * sq + row] =
           empty ? -INFINITY : (m[hr] + log2f(lsum)) * kLn2;
   }
@@ -532,10 +541,11 @@ flash_fwd_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 // d 128 32 keys in one buffer: Q and dO take 68 KB there, two buffers
 // would leave room for one block an SM (203 KB with 64 keys, 135 KB with
 // 32), one lets two blocks fit (101 KB; 93 KB mixed), each hiding the
-// other's copies.
+// other's copies.  At d 256 32 keys in one buffer too (bf16 101 KB, two
+// blocks an SM; fp32 195 KB, one).
 template <int HD, typename TQ>
 __host__ __device__ constexpr int dq_kv_tile() {
-  return std::is_same<TQ, bf16>::value || HD <= 64 ? kB : 32;
+  return HD <= 128 && (std::is_same<TQ, bf16>::value || HD <= 64) ? kB : 32;
 }
 
 template <int HD, typename TQ>
@@ -566,7 +576,8 @@ constexpr int dq_mma_smem_bytes() {
 // P = exp2(S - lse2), masked only where the chunk crosses the diagonal or
 // an edge, or with segments, and 0 where lse is -inf; dP = dO V^T;
 // dS = P (dP - delta) in q's type (:502); dQ += dS K.  dQ is multiplied by
-// scale and stored in q's type.
+// scale and stored in q's type.  At d 256 the block holds dQ for the
+// columns of its blockIdx.z half (out_cols).
 // dP is summed from the products over k = 8 added in fp32: a query row
 // that sees one key has dS = P (dP - delta) = 0 exactly, and the tensor
 // cores' fp32 accumulation chained over HD keeps fewer bits than an FMA
@@ -592,8 +603,9 @@ flash_bwd_dq_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   constexpr int kBuf = dq_kv_buffers<HD, TQ>();  // KV tile buffers
   constexpr int kTile = kBK * LD;
   constexpr int kVTile = kBK * LDV;
-  constexpr int kDTiles = HD / 8;           // n-tiles of dQ
-  constexpr int kKC = HD == 128 ? 32 : 64;  // keys a chunk
+  constexpr int kOC = out_cols<HD>();       // columns of dQ a block holds
+  constexpr int kDTiles = kOC / 8;          // n-tiles of dQ
+  constexpr int kKC = HD >= 128 ? 32 : 64;  // keys a chunk
   constexpr int kCT = kKC / 8;              // n-tiles of a chunk's S, dP
   extern __shared__ uint4 smem_u4[];
   TQ* q_s = reinterpret_cast<TQ*>(smem_u4);  // [64][LD]
@@ -605,6 +617,8 @@ flash_bwd_dq_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // longest rows first
   const int b = blockIdx.y / nh;
   const int h = blockIdx.y % nh;
+  // the block's first column of dQ (blockIdx.z's half at d 256)
+  const int col0 = col_blocks<HD>() > 1 ? blockIdx.z * kOC : 0;
   const int64_t tok = static_cast<int64_t>(nh) * HD;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -808,9 +822,9 @@ flash_bwd_dq_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                              sp[e + 1] * (dpp[e + 1] - d));
           }
 #pragma unroll
-          for (int dn = 0; dn < HD / 16; ++dn) {
+          for (int dn = 0; dn < kOC / 16; ++dn) {
             uint32_t bf[4];
-            load_b_trans(bf, kt_s, LD, 16 * dn, c0 + 16 * kk, lane);
+            load_b_trans(bf, kt_s, LD, col0 + 16 * dn, c0 + 16 * kk, lane);
             mma_bf16_16816(acc[2 * dn], a, bf[0], bf[1]);
             mma_bf16_16816(acc[2 * dn + 1], a, bf[2], bf[3]);
           }
@@ -837,7 +851,8 @@ flash_bwd_dq_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
             for (int kk = kc; kk < kc + kTf32Chain; ++kk) {
               float bk[2];
               uint32_t bhi[2], blo[2];
-              load_b_f32_trans(bk, kt_s, LD, 8 * dn, c0 + 8 * kk, lane);
+              load_b_f32_trans(bk, kt_s, LD, col0 + 8 * dn, c0 + 8 * kk,
+                               lane);
               split_tf32(bk, bhi, blo);
               mma_3xtf32(t, dhi[kk], dlo[kk], bhi, blo);
             }
@@ -852,7 +867,7 @@ flash_bwd_dq_mma_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   for (int hr = 0; hr < 2; ++hr) {
     const int row = wrow0 + gq + 8 * hr;
     if (row >= sq) continue;
-    TQ* dst = dq + qoff + static_cast<int64_t>(row) * tok + 2 * tq;
+    TQ* dst = dq + qoff + static_cast<int64_t>(row) * tok + col0 + 2 * tq;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt)
       store2(dst + nt * 8, acc[nt][2 * hr] * scale,
@@ -879,7 +894,8 @@ constexpr int dkv_mma_smem_bytes() {
 // = rowsum(dO * O) is computed here, dS^T goes through shared memory and
 // dQ_part = dS K (warp w: q rows 16w .. 16w+15) is added into the fp32
 // dq_acc with atomics.  dK is divided by log2(e) and dQ multiplied by
-// scale.
+// scale.  At d 256 the block holds dK, dV and dQ_part for the columns of
+// its blockIdx.z half (out_cols), and takes one block an SM (213 KB).
 template <int HD, bool kFused>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
@@ -896,8 +912,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   constexpr int LD = HD + 8;
   constexpr int kTile = mma_tile_elems<HD>();
   constexpr int kSteps = HD / 16;
-  constexpr int kDTiles = HD / 8;         // n-tiles of dK and dV
-  constexpr int kQC = HD == 128 ? 32 : 64;  // q columns per chunk
+  constexpr int kOC = out_cols<HD>();       // columns a block holds
+  constexpr int kDTiles = kOC / 8;          // n-tiles of dK and dV
+  constexpr int kQC = HD >= 128 ? 32 : 64;  // q columns per chunk
   constexpr int kDsLD = kB + 8;
   extern __shared__ uint4 smem_u4[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_u4);
@@ -912,6 +929,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   const int k0 = blockIdx.x * kB;
   const int b = blockIdx.y / nh;
   const int h = blockIdx.y % nh;
+  // the block's first column (blockIdx.z's half at d 256)
+  const int col0 = col_blocks<HD>() > 1 ? blockIdx.z * kOC : 0;
   const int64_t tok = static_cast<int64_t>(nh) * HD;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -976,7 +995,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       const int c0 = (lane & 1) * (HD / 2);
       double part = 0.;
       if (i < sq) {
-#pragma unroll
+#pragma unroll 8
         for (int c = c0; c < c0 + HD / 2; c += 8) {
           const uint4 du = *reinterpret_cast<const uint4*>(dot_s + row * LD +
                                                            c);
@@ -1048,9 +1067,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
             pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
             pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
 #pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
+        for (int dp = 0; dp < kOC / 16; ++dp) {
           uint32_t bf[4];
-          load_b_trans(bf, dot_s, LD, 16 * dp, qc + 16 * kk, lane);
+          load_b_trans(bf, dot_s, LD, col0 + 16 * dp, qc + 16 * kk, lane);
           mma_bf16_16816(dv_acc[2 * dp], a, bf[0], bf[1]);
           mma_bf16_16816(dv_acc[2 * dp + 1], a, bf[2], bf[3]);
         }
@@ -1111,9 +1130,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
         const uint32_t a[4] = {dsf[2 * kk][0], dsf[2 * kk][1],
                                dsf[2 * kk + 1][0], dsf[2 * kk + 1][1]};
 #pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
+        for (int dp = 0; dp < kOC / 16; ++dp) {
           uint32_t bf[4];
-          load_b_trans(bf, qt_s, LD, 16 * dp, qc + 16 * kk, lane);
+          load_b_trans(bf, qt_s, LD, col0 + 16 * dp, qc + 16 * kk, lane);
           mma_bf16_16816(dk_acc[2 * dp], a, bf[0], bf[1]);
           mma_bf16_16816(dk_acc[2 * dp + 1], a, bf[2], bf[3]);
         }
@@ -1125,7 +1144,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       // dQ_part = dS K for q rows 16w .. 16w+15, kDC columns at a time
       constexpr int kDC = HD < 64 ? HD : 64;
 #pragma unroll 1
-      for (int d0 = 0; d0 < HD; d0 += kDC) {
+      for (int d0 = col0; d0 < col0 + kOC; d0 += kDC) {
         float acc[kDC / 8][4];
 #pragma unroll
         for (int nt = 0; nt < kDC / 8; ++nt)
@@ -1162,7 +1181,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (kj[hr] >= sk) continue;
-    const int64_t row = koff + static_cast<int64_t>(kj[hr]) * tok + 2 * tq;
+    const int64_t row =
+        koff + static_cast<int64_t>(kj[hr]) * tok + col0 + 2 * tq;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
       *reinterpret_cast<uint32_t*>(dk + row + nt * 8) =
@@ -1179,10 +1199,11 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 // Q and dO tiles in two buffers another 135 KB, one block an SM.  32 rows
 // at d 64 and 32; 16 at d 128, where S^T and dP^T of 32 q columns beside
 // the 128 registers of the dK/dV accumulators spill, and where 16-row
-// tiles in two buffers still leave room for two blocks an SM.
+// tiles in two buffers still leave room for two blocks an SM; 16 at d 256
+// (K and V alone take 133 KB: one block an SM).
 template <int HD>
 __host__ __device__ constexpr int dkv_tf32_rows() {
-  return HD == 128 ? 16 : 32;
+  return HD >= 128 ? 16 : 32;
 }
 // the most dynamic shared memory a block may take for two blocks to fit an
 // SM (228 KB, less the 1 KB the card reserves for each block)
@@ -1250,7 +1271,9 @@ __device__ __forceinline__ void mma_tf32_kn(float (&acc)[kNT][4], AOf&& a_of,
 // kFused, delta = rowsum(dO * O) is computed here in fp64, dS goes through
 // shared memory and dQ_part = dS K (each warp a 16-row m-tile and a share
 // of the head columns) is added into the fp32 dq_acc with 8-byte atomics.
-// dK is divided by log2(e) and dQ multiplied by scale.
+// dK is divided by log2(e) and dQ multiplied by scale.  At d 256 the block
+// holds dK, dV and dQ_part for the columns of its blockIdx.z half
+// (out_cols).
 template <int HD, typename TV, bool kFused>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
@@ -1267,15 +1290,18 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   constexpr int LD = tile_ld<HD, float>();
   constexpr int kBQ = dkv_tf32_rows<HD>();  // q rows a tile
   constexpr int kQTile = kBQ * LD;
-  static_assert(dkv_tf32_smem_bytes<HD, kFused>() <= kTwoBlockSmem,
+  static_assert(HD > 128 || dkv_tf32_smem_bytes<HD, kFused>() <=
+                                kTwoBlockSmem,
                 "two blocks an SM");
-  constexpr int kDTiles = HD / 8;  // n-tiles of dK and dV
-  constexpr int kQT = kBQ / 8;     // n-tiles of S^T and dP^T
+  constexpr int kOC = out_cols<HD>();  // columns a block holds
+  constexpr int kDTiles = kOC / 8;     // n-tiles of dK and dV
+  constexpr int kQT = kBQ / 8;         // n-tiles of S^T and dP^T
   constexpr int kDsLD = kB + 4;
   // dQ_part: warp w takes m-tile w % kMT and kDqSpan head columns
   constexpr int kMT = kBQ / 16;
-  constexpr int kDqSpan = HD * kMT / 4;
-  constexpr int kDqCols = kDqSpan < 32 ? kDqSpan : 32;  // dQ columns a pass
+  constexpr int kDqSpan = kOC * kMT / 4;
+  // dQ columns a pass: 32, 16 at d 256 (a column offset more is live)
+  constexpr int kDqCols = kDqSpan < 32 ? kDqSpan : HD > 128 ? 16 : 32;
   constexpr int kTpr = kMmaThreads / kBQ;  // threads a row of delta
   extern __shared__ uint4 smem_u4[];
   float* k_s = reinterpret_cast<float*>(smem_u4);   // [64][LD]
@@ -1290,6 +1316,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   const int k0 = blockIdx.x * kB;
   const int b = blockIdx.y / nh;
   const int h = blockIdx.y % nh;
+  // the block's first column (blockIdx.z's half at d 256)
+  const int col0 = col_blocks<HD>() > 1 ? blockIdx.z * kOC : 0;
   const int64_t tok = static_cast<int64_t>(nh) * HD;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1383,7 +1411,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
       const int c0 = (threadIdx.x % kTpr) * (HD / kTpr);
       double part = 0.;
       if (i < sq) {
-#pragma unroll
+#pragma unroll 4
         for (int c = c0; c < c0 + HD / kTpr; c += 4) {
           const float4 d4 =
               *reinterpret_cast<const float4*>(dot_s + row * LD + c);
@@ -1445,7 +1473,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
     // dV += P^T dO
     mma_tf32_kn<kDTiles, kQT>(
         dv_acc, [&](int kk, float (&a)[4]) { a_from_c(a, st[kk]); }, dot_s,
-        LD, 0, lane);
+        LD, col0, lane);
 
     // dP^T = V dO^T, each k-step's product added in fp32
     float dpt[kQT][4];
@@ -1500,14 +1528,14 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
     // dK += dS^T Q (Q scaled by scale * log2(e))
     mma_tf32_kn<kDTiles, kQT>(
         dk_acc, [&](int kk, float (&a)[4]) { a_from_c(a, st[kk]); }, qt_s,
-        LD, 0, lane);
+        LD, col0, lane);
 
     if (kFused) {
       __syncthreads();  // every warp's dS rows are in ds_s
       // dQ_part = dS K: warp w takes q rows 16 (w % kMT) .. + 15 and head
       // columns (w / kMT) kDqSpan .., kDqCols at a time
       const int m0 = 16 * (warp % kMT);
-      const int c0 = (warp / kMT) * kDqSpan;
+      const int c0 = col0 + (warp / kMT) * kDqSpan;
 #pragma unroll 1
       for (int n0 = c0; n0 < c0 + kDqSpan; n0 += kDqCols) {
         float acc[kDqCols / 8][4];
@@ -1543,7 +1571,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (kj[hr] >= sk) continue;
-    const int64_t row = koff + static_cast<int64_t>(kj[hr]) * tok + 2 * tq;
+    const int64_t row =
+        koff + static_cast<int64_t>(kj[hr]) * tok + col0 + 2 * tq;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
       store2(dk + row + nt * 8, dk_acc[nt][2 * hr] / kLog2e,
@@ -1576,6 +1605,7 @@ cudaError_t dispatch(int head_dim, int dtypes, F&& f) {
   using I32 = std::integral_constant<int, 32>;
   using I64 = std::integral_constant<int, 64>;
   using I128 = std::integral_constant<int, 128>;
+  using I256 = std::integral_constant<int, 256>;
   using F32 = Tag<float>;
   using B16 = Tag<__nv_bfloat16>;
   if (head_dim == 32) {
@@ -1590,6 +1620,10 @@ cudaError_t dispatch(int head_dim, int dtypes, F&& f) {
     if (dtypes == 0) return f(I128{}, F32{}, F32{});
     if (dtypes == 1) return f(I128{}, B16{}, B16{});
     if (dtypes == 2) return f(I128{}, F32{}, B16{});
+  } else if (head_dim == 256) {
+    if (dtypes == 0) return f(I256{}, F32{}, F32{});
+    if (dtypes == 1) return f(I256{}, B16{}, B16{});
+    if (dtypes == 2) return f(I256{}, F32{}, B16{});
   }
   return cudaErrorInvalidValue;
 }
@@ -1628,7 +1662,8 @@ extern "C" {
 // [b, sq, h, d], k/v/dk/dv [b, sk, h, d], lse [b, h, sq] fp32, delta
 // [b, sq, h] fp32; q_seg [b, sq] and kv_seg [b, sk] int32, or both null.
 // dtypes: 0 = fp32 q/k/v, 1 = bf16 q/k/v, 2 = fp32 q/k with bf16 v
-// (out/do/dq in q's type, dk in k's, dv in v's).  head_dim 32, 64 or 128.
+// (out/do/dq in q's type, dk in k's, dv in v's).  head_dim 32, 64, 128 or
+// 256.
 
 int hetu_flash_fwd(const void* q, const void* k, const void* v, void* out,
                    void* lse, const void* q_seg, const void* kv_seg, int b,
@@ -1646,7 +1681,7 @@ int hetu_flash_fwd(const void* q, const void* k, const void* v, void* out,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((sq + kB - 1) / kB, b * nh);
+    const dim3 grid((sq + kB - 1) / kB, b * nh, col_blocks<HD>());
     kernel<<<grid, kMmaThreads, smem, st>>>(
         static_cast<const TQ*>(q), static_cast<const TQ*>(k),
         static_cast<const TV*>(v), static_cast<TQ*>(out),
@@ -1674,7 +1709,7 @@ int hetu_flash_bwd_dq(const void* q, const void* k, const void* v,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((sq + kB - 1) / kB, b * nh);
+    const dim3 grid((sq + kB - 1) / kB, b * nh, col_blocks<HD>());
     kernel<<<grid, kMmaThreads, smem, st>>>(
         static_cast<const TQ*>(q), static_cast<const TQ*>(k),
         static_cast<const TV*>(v), static_cast<const TQ*>(dout),
@@ -1701,7 +1736,7 @@ int hetu_flash_bwd_dkv(const void* q, const void* k, const void* v,
     constexpr int HD = decltype(hd)::value;
     using TQ = typename decltype(tq)::type;
     using TV = typename decltype(tv)::type;
-    const dim3 grid((sk + kB - 1) / kB, b * nh);
+    const dim3 grid((sk + kB - 1) / kB, b * nh, col_blocks<HD>());
     return with_dkv_kernel<HD, TQ, TV>(
         fused, [&](auto kernel, int threads, int smem) {
           cudaError_t err = cudaFuncSetAttribute(
@@ -1726,7 +1761,8 @@ int hetu_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // tensor cores, 2 3xTF32 tensor cores; -1 if it takes none.
 int hetu_flash_uses_tensor_cores(int entry, int head_dim, int dtypes) {
   if (entry < kEntryFwd || entry > kEntryDkv ||
-      (head_dim != 32 && head_dim != 64 && head_dim != 128) || dtypes < 0 ||
+      (head_dim != 32 && head_dim != 64 && head_dim != 128 &&
+       head_dim != 256) || dtypes < 0 ||
       dtypes > 2)
     return -1;
   // type code 1 is the (bf16, bf16) pair of `dispatch`, 0 and 2 have fp32 q

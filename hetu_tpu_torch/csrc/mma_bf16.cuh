@@ -142,4 +142,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
+// Output columns (of O, dQ or dK/dV) that a block of an attention kernel
+// accumulates: all HD up to 128; at HD 256 one half of them, picked by
+// blockIdx.z (col_blocks() blocks along z), so that the accumulators keep
+// the registers of HD 128, while S and dP are still formed over all HD
+// columns from shared memory (each half forms them again).
+template <int HD>
+__host__ __device__ constexpr int out_cols() {
+  return HD > 128 ? HD / 2 : HD;
+}
+
+template <int HD>
+__host__ __device__ constexpr int col_blocks() {
+  return HD / out_cols<HD>();
+}
+
 }  // namespace

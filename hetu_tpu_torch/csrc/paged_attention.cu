@@ -45,6 +45,10 @@ constexpr float kMaskValue = -0.7f * FLT_MAX;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void from_float(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ float load_one(const float* p) { return *p; }
+__device__ __forceinline__ float load_one(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
 __device__ __forceinline__ void from_float(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16_rn(x);
 }
@@ -53,7 +57,10 @@ __device__ __forceinline__ void from_float(__nv_bfloat16* dst, float x) {
 // fp32, read with one load instruction.
 template <int EPL>
 __device__ __forceinline__ void load_vec(const float* p, float* dst) {
-  if constexpr (EPL == 4) {
+  if constexpr (EPL == 8) {
+    load_vec<4>(p, dst);
+    load_vec<4>(p + 4, dst + 4);
+  } else if constexpr (EPL == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     dst[0] = v.x;
     dst[1] = v.y;
@@ -76,7 +83,13 @@ __device__ __forceinline__ void unpack_bf16x2(unsigned w, float* dst) {
 
 template <int EPL>
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* dst) {
-  if constexpr (EPL == 4) {
+  if constexpr (EPL == 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    unpack_bf16x2(v.x, dst);
+    unpack_bf16x2(v.y, dst + 2);
+    unpack_bf16x2(v.z, dst + 4);
+    unpack_bf16x2(v.w, dst + 6);
+  } else if constexpr (EPL == 4) {
     const uint2 v = *reinterpret_cast<const uint2*>(p);
     unpack_bf16x2(v.x, dst);
     unpack_bf16x2(v.y, dst + 2);
@@ -87,9 +100,32 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* dst) {
   }
 }
 
-// EPL: elements per lane, head_dim = 32 * EPL.
+// The lane's EPL elements of a row of hd values (elements lane * EPL ..):
+// one vector load where hd is a multiple of EPL (the row and the lane's
+// slice then start on a vector boundary), else element loads; elements
+// at or past hd are 0.
+template <int EPL, typename T>
+__device__ __forceinline__ void load_lane(const T* row, int lane, int hd,
+                                          bool vec, float* dst) {
+  const int e0 = lane * EPL;
+  if (vec) {
+    if (e0 < hd) {
+      load_vec<EPL>(row + e0, dst);
+      return;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e)
+      dst[e] = e0 + e < hd ? load_one(row + e0 + e) : 0.f;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) dst[e] = 0.f;
+}
+
+// EPL: elements per lane, a head dim hd <= 32 * EPL (the template width).
 template <typename T, int EPL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 paged_attention_decode_kernel(const T* __restrict__ q,
                               const T* __restrict__ k_pages,
                               const T* __restrict__ v_pages,
@@ -97,8 +133,8 @@ paged_attention_decode_kernel(const T* __restrict__ q,
                               float* __restrict__ ws_ml,
                               const int* __restrict__ page_tables,
                               const int* __restrict__ seq_lens, int nh,
-                              int kvh, int ps, int maxp, int split_len,
-                              int n_splits, float scale) {
+                              int kvh, int hd, int ps, int maxp,
+                              int split_len, int n_splits, float scale) {
   constexpr int HD = 32 * EPL;
   __shared__ float sm_m[kWarps][kHeads];
   __shared__ float sm_l[kWarps][kHeads];
@@ -118,6 +154,7 @@ paged_attention_decode_kernel(const T* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const bool vec = hd % EPL == 0;
 
   float qr[kHeads][EPL];
 #pragma unroll
@@ -125,9 +162,8 @@ paged_attention_decode_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) qr[hh][e] = 0.f;
     if (hh < n_heads)
-      load_vec<EPL>(
-          q + (static_cast<int64_t>(b) * nh + head0 + hh) * HD + lane * EPL,
-          qr[hh]);
+      load_lane<EPL>(q + (static_cast<int64_t>(b) * nh + head0 + hh) * hd,
+                     lane, hd, vec, qr[hh]);
   }
 
   float m[kHeads], l[kHeads], acc[kHeads][EPL];
@@ -149,10 +185,9 @@ paged_attention_decode_kernel(const T* __restrict__ q,
       for (int e = 0; e < EPL; ++e) kf[u][e] = vf[u][e] = 0.f;
       if (pos < end) {
         const int64_t page = pt[pos / ps];
-        const int64_t off =
-            ((page * ps + pos % ps) * kvh + h) * HD + lane * EPL;
-        load_vec<EPL>(k_pages + off, kf[u]);
-        load_vec<EPL>(v_pages + off, vf[u]);
+        const int64_t off = ((page * ps + pos % ps) * kvh + h) * hd;
+        load_lane<EPL>(k_pages + off, lane, hd, vec, kf[u]);
+        load_lane<EPL>(v_pages + off, lane, hd, vec, vf[u]);
       }
     }
     float s[kHeads][kUnroll];
@@ -209,9 +244,9 @@ paged_attention_decode_kernel(const T* __restrict__ q,
     for (int e = 0; e < EPL; ++e) sm_acc[warp][hh][lane * EPL + e] = acc[hh][e];
   }
   __syncthreads();
-  for (int idx = tid; idx < n_heads * HD; idx += kThreads) {
-    const int hh = idx / HD;
-    const int d = idx % HD;
+  for (int idx = tid; idx < n_heads * hd; idx += kThreads) {
+    const int hh = idx / hd;
+    const int d = idx % hd;
     float mm = kMaskValue;
 #pragma unroll
     for (int w2 = 0; w2 < kWarps; ++w2) mm = fmaxf(mm, sm_m[w2][hh]);
@@ -224,10 +259,10 @@ paged_attention_decode_kernel(const T* __restrict__ q,
     }
     const int64_t head = static_cast<int64_t>(b) * nh + head0 + hh;
     if (n_splits == 1) {
-      from_float(out + head * HD + d, aa / (ll == 0.f ? 1.f : ll));
+      from_float(out + head * hd + d, aa / (ll == 0.f ? 1.f : ll));
     } else {
       const int64_t slot = head * n_splits + split;
-      ws_acc[slot * HD + d] = aa;
+      ws_acc[slot * hd + d] = aa;
       if (d == 0) {
         ws_ml[slot * 2] = mm;
         ws_ml[slot * 2 + 1] = ll;
@@ -236,7 +271,7 @@ paged_attention_decode_kernel(const T* __restrict__ q,
   }
 }
 
-// Merges the KV slices of one (request, query head): grid (nh, B), HD threads.
+// Merges the KV slices of one (request, query head): grid (nh, B), hd threads.
 template <typename T>
 __global__ void paged_attention_merge_kernel(const float* __restrict__ ws_acc,
                                              const float* __restrict__ ws_ml,
@@ -261,7 +296,7 @@ template <typename T, int EPL>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    void* out, float* ws_acc, float* ws_ml,
                    const int* page_tables, const int* seq_lens, int batch,
-                   int nh, int kvh, int ps, int maxp, int n_splits,
+                   int nh, int kvh, int hd, int ps, int maxp, int n_splits,
                    float scale, cudaStream_t stream) {
   const int g = nh / kvh;
   const int chunks = (g + kHeads - 1) / kHeads;
@@ -270,14 +305,16 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   paged_attention_decode_kernel<T, EPL><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<T*>(out), ws_acc, ws_ml,
-      page_tables, seq_lens, nh, kvh, ps, maxp, split_len, n_splits, scale);
+      page_tables, seq_lens, nh, kvh, hd, ps, maxp, split_len, n_splits,
+      scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
-  paged_attention_merge_kernel<T><<<dim3(nh, batch), 32 * EPL, 0, stream>>>(
-      ws_acc, ws_ml, static_cast<T*>(out), nh, 32 * EPL, n_splits);
+  paged_attention_merge_kernel<T><<<dim3(nh, batch), hd, 0, stream>>>(
+      ws_acc, ws_ml, static_cast<T*>(out), nh, hd, n_splits);
   return cudaGetLastError();
 }
 
+// The template width at or above head_dim: 32 * EPL for EPL 1, 2, 4, 8.
 template <typename T>
 cudaError_t launch_hd(int head_dim, const void* q, const void* k_pages,
                       const void* v_pages, void* out, float* ws_acc,
@@ -285,21 +322,16 @@ cudaError_t launch_hd(int head_dim, const void* q, const void* k_pages,
                       const int* seq_lens, int batch, int nh, int kvh, int ps,
                       int maxp, int n_splits, float scale,
                       cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch<T, 1>(q, k_pages, v_pages, out, ws_acc, ws_ml,
-                          page_tables, seq_lens, batch, nh, kvh, ps, maxp,
-                          n_splits, scale, stream);
-    case 64:
-      return launch<T, 2>(q, k_pages, v_pages, out, ws_acc, ws_ml,
-                          page_tables, seq_lens, batch, nh, kvh, ps, maxp,
-                          n_splits, scale, stream);
-    case 128:
-      return launch<T, 4>(q, k_pages, v_pages, out, ws_acc, ws_ml,
-                          page_tables, seq_lens, batch, nh, kvh, ps, maxp,
-                          n_splits, scale, stream);
-  }
-  return cudaErrorInvalidValue;
+#define HETU_PAGED_LAUNCH(EPL)                                               \
+  return launch<T, EPL>(q, k_pages, v_pages, out, ws_acc, ws_ml,             \
+                        page_tables, seq_lens, batch, nh, kvh, head_dim, ps, \
+                        maxp, n_splits, scale, stream)
+  if (head_dim < 1 || head_dim > 256) return cudaErrorInvalidValue;
+  if (head_dim <= 32) HETU_PAGED_LAUNCH(1);
+  if (head_dim <= 64) HETU_PAGED_LAUNCH(2);
+  if (head_dim <= 128) HETU_PAGED_LAUNCH(4);
+  HETU_PAGED_LAUNCH(8);
+#undef HETU_PAGED_LAUNCH
 }
 
 }  // namespace
@@ -307,7 +339,7 @@ cudaError_t launch_hd(int head_dim, const void* q, const void* k_pages,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64 or 128.  With
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: 1 to 256.  With
 // n_splits > 1 the caller gives fp32 workspaces ws_acc [B, nh, n_splits,
 // head_dim] and ws_ml [B, nh, n_splits, 2]; the kernels allocate nothing.
 int hetu_paged_attention_decode(const void* q, const void* k_pages,

@@ -33,13 +33,15 @@ kernels (or page kinds) a fault touches.  The flash faults:
   phase 6's gates, phase 8's training oracle at GPT-2 widths (its fused
   fp32 backward) must refuse it.
 
-The latent faults, which the short rows of a batch cannot catch:
+The latent faults, in the tensor-core latent kernel:
 
 - ``nf4_nibbles``: the two 4-bit codes of a byte swapped when the latent
   kernel dequantizes packed pages (touches the nf4 pages only);
 - ``last_page``: the last page of a decode row whose context is longer
   than 1024 tokens dropped (touches the Llama-width batch only: its
-  decode rows reach 4096 tokens, the GPT-2-width ones 1024).
+  decode rows reach 4096 tokens, the GPT-2-width ones 1024);
+- ``tf32_1term_latent``: every latent product (Q K^T and P V, every page
+  kind) cut to its hi.hi term, one-term TF32 (touches every batch).
 
 Prints one JSON line per fault and shape; exits non-zero if a gate
 misses a fault.
@@ -151,7 +153,18 @@ def _latent_mutants(src: str):
     last_page = src.replace(
         old, "const int kv_end = min(qpos0 + last_pair / nh + 1, maxp * ps)"
              " - ((qlen_row == 1 && qpos0 >= 1024) ? ps : 0);")
-    return {"nf4_nibbles": nibbles, "last_page": last_page}
+    # latent_mma, through which every product goes, reduced to hi.hi
+    one_term = _within(
+        src, "latent_mma(float* c", "// the B operand bits",
+        "  if constexpr (TERMS == 3) {\n"
+        "    mma_3xtf32(c, a_hi, a_lo, b_hi, b_lo);\n"
+        "  } else {\n"
+        "    mma_tf32_1688(c, a_lo, b_hi[0], b_hi[1]);\n"
+        "    mma_tf32_1688(c, a_hi, b_hi[0], b_hi[1]);\n"
+        "  }\n",
+        "  mma_tf32_1688(c, a_hi, b_hi[0], b_hi[1]);\n")
+    return {"nf4_nibbles": nibbles, "last_page": last_page,
+            "tf32_1term_latent": one_term}
 
 
 def _build_mutants(texts: dict) -> dict:
@@ -183,7 +196,8 @@ def _latent_faults(cs):
     with open(os.path.join(build.CSRC, build.SOURCES[name])) as f:
         src = f.read()
     touched = {"clean": (), "nf4_nibbles": ("gpt2_mla/nf4",),
-               "last_page": ("llama3_8b_mla/bf16",)}
+               "last_page": ("llama3_8b_mla/bf16",),
+               "tf32_1term_latent": tuple(cs.LATENT_CASES)}
     missed = []
     real = build.load_library(name)
     libs = _build_mutants(_latent_mutants(src))

@@ -69,12 +69,14 @@ constexpr int smem_floats() {
   return HD * kRows + HD * kKStride + kBK * HD + kBK * kPStride;
 }
 
-// Thread t owns score rows 4*(t/8) .. +3 of the tile, score columns
-// 4*(t%8) .. +3 and output columns (HD/8)*(t%8) .. +HD/8-1.  The eight
-// threads that share rows are eight neighbouring lanes of one warp, so row
-// maxima and sums reduce with three shuffles.
+// HD: the template width, at or above the true head dim hd; columns past
+// hd are 0 in shared memory and never written.  Thread t owns score rows
+// 4*(t/8) .. +3 of the tile, score columns 4*(t%8) .. +3 and output
+// columns (HD/8)*(t%8) .. +HD/8-1.  The eight threads that share rows are
+// eight neighbouring lanes of one warp, so row maxima and sums reduce with
+// three shuffles.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 ragged_paged_attention_fp32_kernel(const float* __restrict__ q,
                                    const float* __restrict__ k_pages,
                                    const float* __restrict__ v_pages,
@@ -83,8 +85,8 @@ ragged_paged_attention_fp32_kernel(const float* __restrict__ q,
                                    const int* __restrict__ cu_q,
                                    const int* __restrict__ page_tables,
                                    const int* __restrict__ ctx_lens,
-                                   int n_tokens, int nh, int kvh, int ps,
-                                   int maxp, int max_q, float scale) {
+                                   int n_tokens, int nh, int kvh, int hd,
+                                   int ps, int maxp, int max_q, float scale) {
   // each thread's HD / 8 output columns are read from V as float4s
   static_assert(HD % 32 == 0, "HD / 8 columns a thread, in float4s");
   constexpr int kDPer = HD / 8;
@@ -112,18 +114,18 @@ ragged_paged_attention_fp32_kernel(const float* __restrict__ q,
   const int tid = threadIdx.x;
   const int tr = tid >> 3;
   const int tc = tid & 7;
-  const int64_t tok_stride = static_cast<int64_t>(nh) * HD;
+  const int64_t tok_stride = static_cast<int64_t>(nh) * hd;
 
   for (int e = tid; e < kRows * HD; e += kThreads) {
     const int r = e / HD;
     const int d = e % HD;
     const int p = pair0 + r;
     float val = 0.f;
-    if (p < n_pairs) {
+    if (p < n_pairs && d < hd) {
       const int j = p / g;
       const int head = h * g + p % g;
       val = q[static_cast<int64_t>(start + j) * tok_stride +
-              static_cast<int64_t>(head) * HD + d];
+              static_cast<int64_t>(head) * hd + d];
     }
     q_t[d * kRows + r] = val;
   }
@@ -151,10 +153,10 @@ ragged_paged_attention_fp32_kernel(const float* __restrict__ q,
       const int d = e % HD;
       const int pos = kv0 + c;
       float kval = 0.f, vval = 0.f;
-      if (pos < kv_end) {
+      if (pos < kv_end && d < hd) {
         const int64_t page = pt[pos / ps];
         const int64_t off =
-            ((page * ps + pos % ps) * kvh + h) * static_cast<int64_t>(HD) + d;
+            ((page * ps + pos % ps) * kvh + h) * static_cast<int64_t>(hd) + d;
         kval = k_pages[off];
         vval = v_pages[off];
       }
@@ -244,9 +246,10 @@ ragged_paged_attention_fp32_kernel(const float* __restrict__ q,
     const int j = p / g;
     const int head = h * g + p % g;
     float* dst = out + static_cast<int64_t>(start + j) * tok_stride +
-             static_cast<int64_t>(head) * HD + tc * kDPer;
+             static_cast<int64_t>(head) * hd;
 #pragma unroll
-    for (int dd = 0; dd < kDPer; ++dd) dst[dd] = acc[rr][dd] / denom;
+    for (int dd = 0; dd < kDPer; ++dd)
+      if (tc * kDPer + dd < hd) dst[tc * kDPer + dd] = acc[rr][dd] / denom;
   }
 }
 
@@ -254,12 +257,17 @@ ragged_paged_attention_fp32_kernel(const float* __restrict__ q,
 // bf16 tensor-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaBK = 64;  // KV positions per tile
+// KV positions per tile: 64, but 32 at HD 256, where two 64-position K and
+// V tiles would pass the 48 KB of static shared memory
+template <int HD>
+__host__ __device__ constexpr int mma_kv_tile() {
+  return HD > 128 ? 32 : 64;
+}
 
 // mma.sync m16n8k16 in the layout of mma_bf16.cuh.  Warp w owns
 // pairs pair0 + 16w .. +15 of the block's 64.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                   const __nv_bfloat16* __restrict__ k_pages,
                                   const __nv_bfloat16* __restrict__ v_pages,
@@ -268,17 +276,21 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                   const int* __restrict__ cu_q,
                                   const int* __restrict__ page_tables,
                                   const int* __restrict__ ctx_lens,
-                                  int n_tokens, int nh, int kvh, int ps,
-                                  int maxp, int max_q, float scale) {
+                                  int n_tokens, int nh, int kvh, int hd,
+                                  int ps, int maxp, int max_q, float scale) {
+  constexpr int kMmaBK = mma_kv_tile<HD>();   // KV positions per tile
+  constexpr int kDC = out_cols<HD>();         // output columns of a block
   constexpr int kStride = HD + 8;     // smem row stride (bf16), 16 B pad
   constexpr int kQSteps = HD / 16;    // k-steps of Q K^T
   constexpr int kSTiles = kMmaBK / 8; // n-tiles of S
-  constexpr int kOTiles = HD / 8;     // n-tiles of O
+  constexpr int kOTiles = kDC / 8;    // n-tiles of O
   __shared__ __align__(16) __nv_bfloat16 ks[kMmaBK * kStride];
   __shared__ __align__(16) __nv_bfloat16 vs[kMmaBK * kStride];
 
   const int row = blockIdx.y;
-  const int h = blockIdx.z;
+  const int h = blockIdx.z / col_blocks<HD>();
+  // the first output column of the block (its half at HD 256)
+  const int c0 = (blockIdx.z % col_blocks<HD>()) * kDC;
   const int g = nh / kvh;
   const int start = cu_q[row];
   const int qlen_row = q_lens[row];
@@ -286,6 +298,7 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_pairs = qlen > 0 ? qlen * g : 0;
   const int pair0 = blockIdx.x * kRows;
   if (pair0 >= n_pairs) return;  // padding row or idle tile: whole block
+  if (c0 >= hd) return;          // a half that holds no column of hd
 
   const int qpos0 = ctx_lens[row] - qlen_row;  // position of query 0
   const int last_pair = min(n_pairs, pair0 + kRows) - 1;
@@ -296,9 +309,13 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int gq = lane >> 2;
   const int tq = lane & 3;
-  const int64_t tok_stride = static_cast<int64_t>(nh) * HD;
+  const int64_t tok_stride = static_cast<int64_t>(nh) * hd;
   const int wrow0 = pair0 + warp * 16;
   const bool warp_live = wrow0 < n_pairs;
+  // rows of hd bf16 values start on 4-byte (hd even) and 16-byte (hd a
+  // multiple of 8) boundaries; other head dims take element loads
+  const bool even = hd % 2 == 0;
+  const bool vec16 = hd % 8 == 0;
 
   // the lane's two rows: lo = wrow0 + gq, hi = lo + 8
   int qpos[2];
@@ -309,9 +326,10 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const bool ok = p < n_pairs;
     qpos[hr] = ok ? qpos0 + p / g : -1;
     qbase[hr] = ok ? static_cast<int64_t>(start + p / g) * tok_stride +
-                         static_cast<int64_t>(h * g + p % g) * HD
+                         static_cast<int64_t>(h * g + p % g) * hd
                    : -1;
   }
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
   uint32_t qf[kQSteps][4];
 #pragma unroll
   for (int kt = 0; kt < kQSteps; ++kt)
@@ -319,8 +337,13 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int r = 0; r < 4; ++r) {
       const int64_t base = qbase[r & 1];
       const int col = kt * 16 + 2 * tq + (r & 2 ? 8 : 0);
-      qf[kt][r] = base < 0 ? 0u
-                           : *reinterpret_cast<const uint32_t*>(q + base + col);
+      uint32_t val = 0u;
+      if (base >= 0 && col < hd) {
+        const __nv_bfloat16* src = q + base + col;
+        val = even ? *reinterpret_cast<const uint32_t*>(src)
+                   : pack_bf16(src[0], col + 1 < hd ? src[1] : zero);
+      }
+      qf[kt][r] = val;
     }
 
   float o[kOTiles][4];
@@ -335,21 +358,40 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kVecs = HD / 8;       // 16-byte vectors per position
   for (int kv0 = 0; kv0 < kv_end; kv0 += kMmaBK) {
     __syncthreads();  // the previous tile's K and V are consumed
-    for (int e = tid; e < kMmaBK * kVecs; e += kThreads) {
-      const int c = e / kVecs;
-      const int d8 = (e % kVecs) * 8;
-      const int pos = kv0 + c;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (pos < kv_end) {
-        const int64_t page = pt[pos / ps];
-        const int64_t off =
-            ((page * ps + pos % ps) * kvh + h) * static_cast<int64_t>(HD) +
-            d8;
-        kv = *reinterpret_cast<const uint4*>(k_pages + off);
-        vv = *reinterpret_cast<const uint4*>(v_pages + off);
+    if (vec16) {
+      for (int e = tid; e < kMmaBK * kVecs; e += kThreads) {
+        const int c = e / kVecs;
+        const int d8 = (e % kVecs) * 8;
+        const int pos = kv0 + c;
+        uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+        if (pos < kv_end && d8 < hd) {
+          const int64_t page = pt[pos / ps];
+          const int64_t off =
+              ((page * ps + pos % ps) * kvh + h) * static_cast<int64_t>(hd) +
+              d8;
+          kv = *reinterpret_cast<const uint4*>(k_pages + off);
+          vv = *reinterpret_cast<const uint4*>(v_pages + off);
+        }
+        *reinterpret_cast<uint4*>(&ks[c * kStride + d8]) = kv;
+        *reinterpret_cast<uint4*>(&vs[c * kStride + d8]) = vv;
       }
-      *reinterpret_cast<uint4*>(&ks[c * kStride + d8]) = kv;
-      *reinterpret_cast<uint4*>(&vs[c * kStride + d8]) = vv;
+    } else {
+      for (int e = tid; e < kMmaBK * HD; e += kThreads) {
+        const int c = e / HD;
+        const int d = e % HD;
+        const int pos = kv0 + c;
+        __nv_bfloat16 kv = zero, vv = zero;
+        if (pos < kv_end && d < hd) {
+          const int64_t page = pt[pos / ps];
+          const int64_t off =
+              ((page * ps + pos % ps) * kvh + h) * static_cast<int64_t>(hd) +
+              d;
+          kv = k_pages[off];
+          vv = v_pages[off];
+        }
+        ks[c * kStride + d] = kv;
+        vs[c * kStride + d] = vv;
+      }
     }
     __syncthreads();
     if (!warp_live) continue;  // warp-uniform; the next sync is at the top
@@ -416,7 +458,7 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* v0 = &vs[(kk * 16 + 2 * tq) * kStride + gq];
+      const __nv_bfloat16* v0 = &vs[(kk * 16 + 2 * tq) * kStride + c0 + gq];
 #pragma unroll
       for (int nt = 0; nt < kOTiles; ++nt) {
         const __nv_bfloat16* vr = v0 + nt * 8;
@@ -433,11 +475,18 @@ ragged_paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const float denom = l[hr] == 0.f ? 1.f : l[hr];
     // out and q share the [T, nh, hd] layout, so the row's q offset is
     // its output offset
-    __nv_bfloat16* dst = out + qbase[hr] + 2 * tq;
+    __nv_bfloat16* dst = out + qbase[hr];
 #pragma unroll
-    for (int nt = 0; nt < kOTiles; ++nt)
-      *reinterpret_cast<uint32_t*>(dst + nt * 8) =
-          pack_bf16(o[nt][2 * hr] / denom, o[nt][2 * hr + 1] / denom);
+    for (int nt = 0; nt < kOTiles; ++nt) {
+      const int col = c0 + nt * 8 + 2 * tq;
+      const float lo = o[nt][2 * hr] / denom, hi = o[nt][2 * hr + 1] / denom;
+      if (even && col < hd) {
+        *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(lo, hi);
+      } else {
+        if (col < hd) dst[col] = __float2bfloat16(lo);
+        if (col + 1 < hd) dst[col + 1] = __float2bfloat16(hi);
+      }
+    }
   }
 }
 
@@ -446,16 +495,17 @@ cudaError_t launch_mma(const void* q, const void* k_pages,
                        const void* v_pages, void* out, const int* q_lens,
                        const int* cu_q, const int* page_tables,
                        const int* ctx_lens, int n_tokens, int nh, int kvh,
-                       int ps, int n_rows, int maxp, int max_q, float scale,
-                       cudaStream_t stream) {
+                       int hd, int ps, int n_rows, int maxp, int max_q,
+                       float scale, cudaStream_t stream) {
   const int g = nh / kvh;
-  const dim3 grid((max_q * g + kRows - 1) / kRows, n_rows, kvh);
+  const dim3 grid((max_q * g + kRows - 1) / kRows, n_rows,
+                  kvh * col_blocks<HD>());
   ragged_paged_attention_mma_kernel<HD><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pages),
       static_cast<const __nv_bfloat16*>(v_pages),
       static_cast<__nv_bfloat16*>(out), q_lens, cu_q, page_tables, ctx_lens,
-      n_tokens, nh, kvh, ps, maxp, max_q, scale);
+      n_tokens, nh, kvh, hd, ps, maxp, max_q, scale);
   return cudaGetLastError();
 }
 
@@ -464,7 +514,7 @@ cudaError_t launch_scalar(const void* q, const void* k_pages,
                           const void* v_pages, void* out, const int* q_lens,
                           const int* cu_q, const int* page_tables,
                           const int* ctx_lens, int n_tokens, int nh, int kvh,
-                          int ps, int n_rows, int maxp, int max_q,
+                          int hd, int ps, int n_rows, int maxp, int max_q,
                           float scale, cudaStream_t stream) {
   auto kernel = ragged_paged_attention_fp32_kernel<HD>;
   const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
@@ -477,7 +527,8 @@ cudaError_t launch_scalar(const void* q, const void* k_pages,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k_pages),
       static_cast<const float*>(v_pages), static_cast<float*>(out), q_lens,
-      cu_q, page_tables, ctx_lens, n_tokens, nh, kvh, ps, maxp, max_q, scale);
+      cu_q, page_tables, ctx_lens, n_tokens, nh, kvh, hd, ps, maxp, max_q,
+      scale);
   return cudaGetLastError();
 }
 
@@ -486,8 +537,9 @@ cudaError_t launch_scalar(const void* q, const void* k_pages,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64 or 128.  The output
-// must be zeroed by the caller; the kernel allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: 1 to 256, run by the
+// template width 32, 64, 128 or 256 at or above it.  The output must be
+// zeroed by the caller; the kernel allocates nothing.
 int hetu_ragged_paged_attention(const void* q, const void* k_pages,
                                 const void* v_pages, void* out,
                                 const void* q_lens, const void* cu_q,
@@ -496,28 +548,29 @@ int hetu_ragged_paged_attention(const void* q, const void* k_pages,
                                 int ps, int n_rows, int maxp, int max_q,
                                 float scale, int dtype, void* stream) {
   if (kvh <= 0 || nh % kvh != 0 || max_q < 1 || ps < 1 || maxp < 1 ||
-      n_rows > 65535 || kvh > 65535)
+      n_rows > 65535 || kvh > 32767 || head_dim < 1 || head_dim > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* ql = static_cast<const int*>(q_lens);
   const auto* cu = static_cast<const int*>(cu_q);
   const auto* ptab = static_cast<const int*>(page_tables);
   const auto* cl = static_cast<const int*>(ctx_lens);
   auto st = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto hd) {
-    constexpr int HD = decltype(hd)::value;
+  auto launch = [&](auto width) {
+    constexpr int HD = decltype(width)::value;
     return dtype == 0
                ? launch_scalar<HD>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
-                                   n_tokens, nh, kvh, ps, n_rows, maxp,
-                                   max_q, scale, st)
+                                   n_tokens, nh, kvh, head_dim, ps, n_rows,
+                                   maxp, max_q, scale, st)
                : launch_mma<HD>(q, k_pages, v_pages, out, ql, cu, ptab, cl,
-                                n_tokens, nh, kvh, ps, n_rows, maxp, max_q,
-                                scale, st);
+                                n_tokens, nh, kvh, head_dim, ps, n_rows, maxp,
+                                max_q, scale, st);
   };
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 || dtype == 1) {
-    if (head_dim == 32) err = launch(std::integral_constant<int, 32>{});
-    if (head_dim == 64) err = launch(std::integral_constant<int, 64>{});
-    if (head_dim == 128) err = launch(std::integral_constant<int, 128>{});
+    if (head_dim <= 32) err = launch(std::integral_constant<int, 32>{});
+    else if (head_dim <= 64) err = launch(std::integral_constant<int, 64>{});
+    else if (head_dim <= 128) err = launch(std::integral_constant<int, 128>{});
+    else err = launch(std::integral_constant<int, 256>{});
   }
   return static_cast<int>(err);
 }

@@ -20,9 +20,9 @@ Two implementations of each function:
   (kernels 1-4 of the JAX package).  Every kernel runs on the tensor cores
   in every type: bf16 ``mma.sync`` for bf16 q/k/v, 3xTF32 for fp32 q/k
   (the mixed forward's P.V on bf16 ``mma.sync``).  The kernels take head
-  dims 32, 64 and 128; the wrappers zero-pad any other head dim up to 128
-  to the next of those (``_pad_heads``) and slice the results back, which
-  is exact.  Each wrapper counts its launches in ``.launches`` and, of
+  dims 32, 64, 128 and 256; the wrappers zero-pad any other head dim up
+  to 256 to the next of those (``_pad_heads``) and slice the results
+  back, which is exact.  Each wrapper counts its launches in ``.launches`` and, of
   those, the tensor-core ones (as the library reports them) in
   ``.tensor_core_launches`` and the 3xTF32 ones in ``.tf32_launches``.
 
@@ -38,6 +38,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from ..csrc.build import KERNEL_HEAD_DIMS
 
 LOG2E = 1.4426950408889634
 
@@ -174,18 +176,17 @@ def flash_bwd_reference(q, k, v, out, lse, do, scale: float, causal: bool,
 _KERNEL_DTYPES = {(torch.float32, torch.float32): 0,
                   (torch.bfloat16, torch.bfloat16): 1,
                   (torch.float32, torch.bfloat16): 2}
-_KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
 def _kernel_head_dim(name: str, d: int) -> int:
     """The kernels' head dim that ``d`` is padded to: the smallest of
-    ``_KERNEL_HEAD_DIMS`` that holds it; raises ``ValueError`` above."""
-    for width in _KERNEL_HEAD_DIMS:
+    ``KERNEL_HEAD_DIMS`` that holds it; raises ``ValueError`` above."""
+    for width in KERNEL_HEAD_DIMS:
         if d <= width:
             return width
     raise ValueError(f"{name}: head_dim {d} not supported; the kernels take "
-                     f"head dims 1 to {_KERNEL_HEAD_DIMS[-1]} (padded to one "
-                     f"of {_KERNEL_HEAD_DIMS})")
+                     f"head dims 1 to {KERNEL_HEAD_DIMS[-1]} (padded to one "
+                     f"of {KERNEL_HEAD_DIMS})")
 
 
 def _pad_heads(width: int, *xs: torch.Tensor):

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from ..core.device import sm_count
+from ..csrc.build import KERNEL_HEAD_DIMS
 
 
 def _check_shapes(q, k_pages, v_pages, page_tables, seq_lens):
@@ -88,7 +89,6 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (32, 64, 128)
 _HEADS_PER_BLOCK = 4          # kHeads of the kernel
 _MIN_SPLIT_LEN = 128          # KV positions a slice holds at least
 
@@ -121,8 +121,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     """The CUDA kernel (the plain version's contract, except that a
     request with ``seq_len == 0`` gives a zero row instead of NaN).
     Every tensor must lie on one CUDA device; q, k_pages and v_pages share
-    a dtype (bf16 or fp32), head_dim is 32, 64 or 128, and the metadata
-    is int32.  ``paged_attention_cuda.launches`` counts the launches."""
+    a dtype (bf16 or fp32), head_dim is 1 to 256 (the pool is read in
+    place, never padded), and the metadata is int32.  ``paged_attention_cuda.launches`` counts the launches."""
     b, nh, hd, ps, kvh = _check_shapes(q, k_pages, v_pages, page_tables,
                                        seq_lens)
     maxp = page_tables.shape[1]
@@ -137,14 +137,16 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"q/k_pages/v_pages must share a dtype in "
                          f"{list(_KERNEL_DTYPES)}, got {q.dtype}, "
                          f"{k_pages.dtype}, {v_pages.dtype}")
-    if hd not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_KERNEL_HEAD_DIMS}")
+    if not 1 <= hd <= KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {hd} not supported; the kernel takes "
+                         f"1 to {KERNEL_HEAD_DIMS[-1]}")
     for name, x in (("page_tables", page_tables), ("seq_lens", seq_lens)):
         if x.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {x.dtype}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("paged_attention_cuda needs contiguous tensors")
-    # a lane reads hd / 32 elements of q, K and V as one vector
+    # a lane reads its elements of q, K and V as one vector where the head
+    # dim allows
     if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
         raise ValueError("paged_attention_cuda needs q, k_pages and v_pages "
                          "aligned to 16 bytes")

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..core.device import sm_count
+from ..csrc.build import KERNEL_HEAD_DIMS
 
 # finite mask value of the TPU kernels (-0.7 * float32 max): masked
 # scores stay finite, so a fully-masked row never produces NaN
@@ -135,7 +136,6 @@ def ragged_paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
 def _kernel_lib():
@@ -159,7 +159,8 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                 ) -> torch.Tensor:
     """The CUDA kernel (same contract as the plain version).  Every
     tensor must lie on one CUDA device; q, k_pages and v_pages share a
-    dtype (bf16 or fp32) and the metadata is int32.  The output is
+    dtype (bf16 or fp32), the head dim is 1 to 256 (the pool is read in
+    place, never padded) and the metadata is int32.  The output is
     allocated zeroed here and the kernel writes only real tokens.
     ``ragged_paged_attention_cuda.launches`` counts the launches."""
     t, nh, hd, ps, kvh, s = _check_ragged_shapes(
@@ -176,8 +177,9 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"q/k_pages/v_pages must share a dtype in "
                          f"{list(_KERNEL_DTYPES)}, got {q.dtype}, "
                          f"{k_pages.dtype}, {v_pages.dtype}")
-    if hd not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_KERNEL_HEAD_DIMS}")
+    if not 1 <= hd <= KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {hd} not supported; the kernel takes "
+                         f"1 to {KERNEL_HEAD_DIMS[-1]}")
     for name, x in zip(("q_lens", "cu_q", "page_tables", "ctx_lens"),
                        tensors[3:]):
         if x.dtype != torch.int32:
@@ -185,8 +187,9 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("ragged_paged_attention_cuda needs contiguous "
                          "tensors")
-    # the bf16 kernel reads K/V in 16-byte vectors and q in 4-byte words;
-    # a misaligned address would fault asynchronously, at a later sync
+    # the bf16 kernel reads K/V rows in 16-byte vectors and q in 4-byte
+    # words where the head dim allows; a misaligned address would fault
+    # asynchronously, at a later sync
     if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
         raise ValueError("ragged_paged_attention_cuda needs q, k_pages and "
                          "v_pages aligned to 16 bytes")
@@ -388,8 +391,10 @@ def latent_ragged_paged_attention_cuda(
         scale_pages: Optional[torch.Tensor] = None,
         quant: Optional[str] = None,
         latent_dim: Optional[int] = None) -> torch.Tensor:
-    """The CUDA latent kernel (same contract as the plain version).
-    Every tensor must lie on one CUDA device.  ``q`` is fp32 (the absorbed
+    """The CUDA latent kernel (same contract as the plain version), on
+    the TF32 tensor cores in split terms (two for bf16 and int8 pages,
+    three for fp32 and 4-bit ones).  Every tensor must lie on one CUDA
+    device.  ``q`` is fp32 (the absorbed
     query is fp32 by construction); unquantized ``c_pages`` and
     ``r_pages`` share a dtype (bf16 or fp32); int8 and 4-bit pages come
     with fp32 ``scale_pages`` and no rope stream.  ``d_c`` and ``d_r`` are

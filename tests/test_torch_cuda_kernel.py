@@ -30,6 +30,14 @@ CASES = [
     # head dim 32 (the LLaMA config of __graft_entry__: 8 heads of 32)
     ([1, 5, 0, 6], [13, 10, 0, 6], 3, 8, 4, 2, 32, 8),
     ([40, 1, 3], [40, 130, 3], 3, 64, 8, 8, 32, 40),
+    # head dims read in place at a wider template width: 80 and 96 (at
+    # 128), 256 (two column halves), 100 (rows not on 16-byte boundaries)
+    # and 67 (odd: element loads)
+    ([1, 5, 0, 6], [13, 10, 0, 6], 3, 8, 4, 2, 80, 8),
+    ([40, 1, 3], [40, 130, 3], 3, 64, 8, 4, 96, 40),
+    ([1, 1, 0, 37], [300, 64, 0, 200], 5, 64, 8, 2, 256, 64),
+    ([3, 0, 0, 7], [20, 0, 0, 7], 4, 8, 8, 2, 100, 8),
+    ([1, 5, 0, 6], [13, 10, 0, 6], 3, 8, 4, 2, 67, 8),
 ]
 
 
@@ -111,6 +119,14 @@ def test_kernel_rejects_mixed_dtypes(cuda_device):
         ragged_paged_attention_cuda(*bad, max_q=max_q)
 
 
+def test_kernel_refuses_head_dims_above_256(cuda_device):
+    args, max_q, _ = _inputs(CASES[0], torch.float32, cuda_device)
+    wide = tuple(torch.zeros(x.shape[:-1] + (264,), device=cuda_device)
+                 for x in args[:3])
+    with pytest.raises(ValueError, match="head_dim 264 not supported"):
+        ragged_paged_attention_cuda(*wide, *args[3:], max_q=max_q)
+
+
 def test_kernel_rejects_misaligned_pages(cuda_device):
     """A contiguous view 8 bytes into its storage is refused before the
     launch, not left to fault at a later sync."""
@@ -156,6 +172,13 @@ FLASH_CASES = [
     (2, 130, 130, 3, 32, False, None, 0),
     (1, 200, 200, 2, 96, True, None, 0),
     (1, 64, 192, 2, 96, True, "tuple", 128),
+    # head dim 256 natively (two column halves), 200 zero-padded to 256
+    (1, 200, 200, 2, 256, True, None, 0),
+    (2, 128, 128, 2, 256, True, "array", 0),
+    (1, 200, 136, 2, 256, True, None, -40),
+    (2, 130, 130, 3, 256, False, None, 0),
+    (1, 200, 200, 2, 200, True, None, 0),
+    (1, 64, 192, 2, 200, True, "tuple", 128),
 ]
 
 
@@ -304,9 +327,9 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q, k, v, do, *_ = _flash_inputs(FLASH_CASES[0], "fp32", cuda_device)
     with pytest.raises(ValueError, match="dtypes"):
         fa.flash_fwd_cuda(q.half(), k.half(), v.half(), 0.1, True)
-    # head dims up to 128 are padded to the kernels' 32, 64 or 128
-    wide = q.new_zeros(q.shape[:3] + (256,))
-    with pytest.raises(ValueError, match="head_dim 256 not supported"):
+    # head dims up to 256 are padded to the kernels' 32, 64, 128 or 256
+    wide = q.new_zeros(q.shape[:3] + (264,))
+    with pytest.raises(ValueError, match="head_dim 264 not supported"):
         fa.flash_fwd_cuda(wide, wide, wide, 0.1, True)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
@@ -452,6 +475,14 @@ PAGED_CASES = [
     ([1, 8, 2], 2, 4, 10, 2, 64),                # g = 5: two head chunks
     ([300, 64, 0, 1000, 513], 16, 64, 32, 8, 128),     # split KV axis
     ([70, 129], 3, 64, 24, 2, 64),               # g = 12: three head chunks
+    # head dims read in place at a wider template width: 80, 96, 256, 100
+    # (rows not on vector boundaries: element loads) and 67 (odd)
+    ([13, 5, 24], 3, 8, 8, 2, 80),
+    ([300, 64, 0, 1000, 513], 16, 64, 8, 2, 96),       # split KV axis
+    ([9, 17, 0, 1], 3, 8, 4, 4, 256),
+    ([300, 64, 0, 1000, 513], 16, 64, 8, 8, 256),      # split KV axis
+    ([19, 8], 4, 8, 4, 2, 100),
+    ([1, 8, 2], 2, 4, 10, 2, 67),
 ]
 
 
@@ -510,10 +541,11 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
                                       cuda_device)
     with pytest.raises(ValueError, match="share a dtype"):
         pa.paged_attention_cuda(q.bfloat16(), kp, vp, pt, sl)
-    with pytest.raises(ValueError, match="head_dim 16"):
-        pa.paged_attention_decode(q[..., :16].contiguous(),
-                                  kp[..., :16].contiguous(),
-                                  vp[..., :16].contiguous(), pt, sl)
+    # head dims 1 to 256 run; above, the wrapper refuses
+    wide = (torch.zeros(x.shape[:-1] + (264,), device=cuda_device)
+            for x in (q, kp, vp))
+    with pytest.raises(ValueError, match="head_dim 264 not supported"):
+        pa.paged_attention_decode(*wide, pt, sl)
     with pytest.raises(ValueError, match="must be int32"):
         pa.paged_attention_cuda(q, kp, vp, pt.long(), sl)
     with pytest.raises(ValueError, match="contiguous"):

@@ -248,21 +248,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     with pytest.raises(ValueError, match="one CUDA device"):
         pfa.flash_fwd_cuda(tq, tk, tv, 0.125, True)
-    # head dims up to 128 are padded to the kernels' 32, 64 or 128; above,
-    # the wrappers refuse before they look at the device
-    wide = tq.new_zeros(tq.shape[:3] + (256,))
-    with pytest.raises(ValueError, match="head_dim 256 not supported"):
+    # head dims up to 256 are padded to the kernels' 32, 64, 128 or 256;
+    # above, the wrappers refuse before they look at the device
+    wide = tq.new_zeros(tq.shape[:3] + (264,))
+    with pytest.raises(ValueError, match="head_dim 264 not supported"):
         pfa.flash_fwd_cuda(wide, wide, wide, 0.125, True)
     with pytest.raises(ValueError, match="dtypes"):
         pfa.flash_fwd_cuda(tq.bfloat16(), tk, tv, 0.125, True)
 
 
 # ---------------------------------------------------------------------------
-# head dims the kernels do not take natively: zero-padded to 32, 64 or 128
+# head dims the kernels do not take natively: zero-padded to 32, 64, 128
+# or 256
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kernel", ["forward", "fused", "split"])
-@pytest.mark.parametrize("d", [16, 32, 96])
+@pytest.mark.parametrize("d", [16, 32, 80, 96, 200, 256])
 def test_head_padding_is_exact_against_jax_kernels(d, kernel):
     """The CUDA wrappers' head-pad transform (``_pad_heads`` to
     ``_kernel_head_dim``, the kernel, ``_unpad_heads``) run around the
@@ -276,7 +277,7 @@ def test_head_padding_is_exact_against_jax_kernels(d, kernel):
     segs = _segments("tuple", b, s, s)
     scale = 1.0 / np.sqrt(d)
     width = pfa._kernel_head_dim("test", d)
-    assert width == {16: 32, 32: 32, 96: 128}[d]
+    assert width == {16: 32, 32: 32, 80: 128, 96: 128, 200: 256, 256: 256}[d]
     jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
     jo, jl = jfa._flash_fwd(jq, jk, jv, scale, True, _to_jax(segs), 0)
     tq, tk, tv, tdo = pfa._pad_heads(width,

@@ -14,7 +14,9 @@ functions and their counterparts in the port:
   logits within 1e-4, greedy tokens equal;
 - the engine on mixed traffic: greedy tokens equal to the JAX engine's
   and to the port's own ``generate``; quantized pages deterministic;
-- the pool's latent layouts, tags and byte counts.
+- the pool's latent layouts, tags and byte counts;
+- the latent kernel's tensor-core arithmetic, emulated: split TF32 terms
+  within the card's 1e-4 (1 + |want|) gate, one-term TF32 over it.
 """
 import importlib
 
@@ -487,3 +489,104 @@ def test_pool_layouts_tags_and_bytes():
         PagedKVPool(latent_dim=15, quant="nf4", **kw)  # odd width
     with pytest.raises(ValueError, match="int8|nf4"):
         PagedKVPool(latent_dim=16, quant="fp4", **kw)
+
+
+# ---------------------------------------------------------------------------
+# the latent kernel's tensor-core arithmetic (csrc/latent_ragged_paged_
+# attention.cu): split TF32 terms against the card's fp32 gate
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """x rounded to TF32 as the kernel rounds its operands: to nearest on
+    10 mantissa bits, ties away from zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_terms(a, b, terms, b_exact):
+    """a @ b from TF32 parts of fp32 ``a``: ``terms`` 2 (a_lo.b + a_hi.b,
+    for a ``b`` exact in TF32), 3 (lo.hi + hi.lo + hi.hi) or 1 (hi.hi)."""
+    ah, al = _split(a)
+    if terms == 1:
+        return ah @ (b if b_exact else _tf32(b))
+    if b_exact:
+        return al @ b + ah @ b
+    bh, bl = _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+# (name, nh, d_c, d_r, query tokens, context, softmax scale): phase 9's
+# GPT-2 widths (a 64-token chunk at the end of a 900-token context) and a
+# few rows of its Llama-3-8B MLA widths (d_c 512, d_r 64 for unquantized
+# pages; quantized pools carry no rope stream)
+LATENT_TF32_WIDTHS = [("gpt2_mla", 12, 256, 0, 64, 900, 64 ** -0.5),
+                      ("llama3_8b_mla", 32, 512, 64, 4, 3000, 192 ** -0.5)]
+# the kernel's terms by page kind: bf16 latents and int8 codes are exact in
+# TF32, nf4 codebook values and fp32 latents are not
+LATENT_TERMS = {"bf16": 2, "int8": 2, "nf4": 3, "fp32": 3}
+
+
+def _latent_tf32_ratio(kind, width, terms, seed=0):
+    """Largest |got - want| over the card's latent gate, 1e-4 (1 + |want|),
+    for the kernel's arithmetic in ``terms`` TF32 terms: S = Q K^T on the
+    bare page values (int8 codes, nf4 codebook entries) with each cached
+    token's scale (scale / 127 for int8, the absmax for nf4) folded into
+    its score column, the softmax in fp32, P times the folded scale by V;
+    ``want`` is the softmax of the exactly dequantized keys in fp64."""
+    _, nh, d_c, d_r, n, ctx, scale = width
+    if kind in ("int8", "nf4"):
+        d_r = 0
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(n * nh, d_c + d_r).astype(np.float32))
+    lat = torch.from_numpy(rng.randn(ctx, d_c).astype(np.float32))
+    cs = torch.ones(ctx)
+    if kind in ("int8", "nf4"):
+        codes, absmax = port_quant.quantize_rows(lat, kind)
+        deq = port_quant.dequantize_rows(codes, absmax, kind, d_c)
+        sc = torch.where(absmax > 0, absmax, torch.ones_like(absmax))[:, 0]
+        if kind == "int8":
+            kv, cs = codes.float(), sc / 127.0
+        else:
+            idx = torch.stack([(codes >> 4).long(), (codes & 0xF).long()],
+                              -1).reshape(ctx, d_c)
+            kv, cs = torch.from_numpy(port_quant.NF4_CODE)[idx], sc
+    else:
+        deq = lat.bfloat16().float() if kind == "bf16" else lat
+        kv = deq
+    keys, want_keys = kv, deq
+    if d_r:
+        rope = torch.from_numpy(rng.randn(ctx, d_r).astype(np.float32))
+        rope = rope.bfloat16().float() if kind == "bf16" else rope
+        keys = torch.cat([kv, rope], -1)
+        want_keys = torch.cat([deq, rope], -1)
+    qpos = (ctx - n + torch.arange(n)).repeat_interleave(nh)
+    visible = torch.arange(ctx)[None] <= qpos[:, None]
+    s = (q.double() @ want_keys.double().T * scale).masked_fill(
+        ~visible, float("-inf"))
+    want = (torch.softmax(s, -1) @ deq.double()).float()
+    exact = LATENT_TERMS[kind] == 2
+    s = _mm_terms(q, keys.T, terms, exact) * cs[None] * scale
+    s = s.masked_fill(~visible, -0.7 * float(np.finfo(np.float32).max))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    got = _mm_terms(p * cs[None], kv, terms, exact) / p.sum(-1, keepdim=True)
+    return float(((got - want).abs() / (1e-4 * (1 + want.abs()))).max())
+
+
+@pytest.mark.parametrize("width", LATENT_TF32_WIDTHS,
+                         ids=[w[0] for w in LATENT_TF32_WIDTHS])
+@pytest.mark.parametrize("kind", sorted(LATENT_TERMS))
+def test_latent_split_tf32_meets_the_gate_and_one_term_does_not(kind,
+                                                               width):
+    """The kernel's terms (two for bf16 and int8 pages, three for nf4 and
+    fp32) stay far inside the card's 1e-4 (1 + |want|) gate; one-term
+    TF32 (every product cut to hi.hi, the planted ``tf32_1term_latent``)
+    is over it.  The TF32 parts are summed here by fp32 CPU products, not
+    by the tensor cores' accumulator, whose bit loss over long chains
+    shows only on the card (chip_smoke.py, phase 9)."""
+    assert _latent_tf32_ratio(kind, width, LATENT_TERMS[kind]) <= 0.1
+    assert _latent_tf32_ratio(kind, width, 1) > 1.0

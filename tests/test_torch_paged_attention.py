@@ -54,6 +54,25 @@ def test_plain_version_matches_jax_reference_and_pallas(case):
     np.testing.assert_allclose(got, pal, **TOL)
 
 
+@pytest.mark.parametrize("hd", [80, 96, 256])
+@pytest.mark.parametrize("case", ["gqa_shuffled", "one_token_contexts"])
+def test_plain_version_matches_jax_at_wide_head_dims(case, hd):
+    """Head dims that the card's kernel runs at a wider template width (80
+    and 96 at 128) or at its widest (256)."""
+    nh, kvh, _, ps, num_pages, pt, seq_lens = CASES[case]
+    rng = np.random.RandomState(2)
+    arrays = (rng.randn(len(seq_lens), nh, hd).astype(np.float32),
+              rng.randn(num_pages, ps, kvh, hd).astype(np.float32),
+              rng.randn(num_pages, ps, kvh, hd).astype(np.float32),
+              np.asarray(pt, np.int32), np.asarray(seq_lens, np.int32))
+    got = paged_attention_reference(*map(torch.from_numpy, arrays)).numpy()
+    jargs = tuple(map(jnp.asarray, arrays))
+    assert got.shape == arrays[0].shape
+    np.testing.assert_allclose(got, np.asarray(jax_reference(*jargs)), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jax_pallas(*jargs, interpret=True)), **TOL)
+
+
 def test_plain_version_matches_dense_attention_per_request():
     """Gathering through the page table equals dense attention over each
     request's true history (the oracle of tests/test_serving.py), with a

@@ -71,6 +71,23 @@ def test_plain_version_matches_jax_reference_and_pallas(case):
     assert not got[~real].any(), "padding tokens must stay 0"
 
 
+# head dims that the card's kernel runs at a wider template width (80 and 96
+# at 128) or at its widest (256), reading the pool in place
+@pytest.mark.parametrize("hd", [80, 96, 256])
+@pytest.mark.parametrize("case", [CASES[0], CASES[1], CASES[5]])
+def test_plain_version_matches_jax_at_wide_head_dims(case, hd):
+    arrays, max_q, real = _inputs(case, hd=hd, seed=1)
+    got = ragged_paged_attention_reference(
+        *map(torch.from_numpy, arrays), max_q=max_q).numpy()
+    jargs = tuple(map(jnp.asarray, arrays))
+    ref = np.asarray(jax_reference(*jargs, max_q=max_q))
+    pal = np.asarray(jax_pallas(*jargs, max_q=max_q, interpret=True))
+    assert got.shape[-1] == hd
+    np.testing.assert_allclose(got[real], ref[real], **TOL)
+    np.testing.assert_allclose(got[real], pal[real], **TOL)
+    assert not got[~real].any(), "padding tokens must stay 0"
+
+
 def test_dispatcher_runs_plain_version_for_cpu_tensors():
     arrays, max_q, _ = _inputs(CASES[0])
     t = tuple(map(torch.from_numpy, arrays))
