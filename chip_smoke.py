@@ -10,15 +10,21 @@ Phases, each printing one JSON line:
    flash kernel's dynamic shared memory and blocks an SM; every flash
    kernel (the forward, dq and the dk/dv template, split and fused, in
    every type mix, bf16 and 3xTF32, at head dims 32, 64, 128 and 256)
-   runs on the tensor cores, and no kernel of the port may spill;
+   runs on the tensor cores, the wide route (head dims above 256) is built
+   in every type mix, the ragged kernel at every template width (and the
+   wide one) in both types, the paged decode kernel in both, and no kernel
+   of the port may spill;
 3. kernel_vs_plain: the ragged paged attention kernel against its plain
    PyTorch version at the serving shapes of Llama-3-8B (nh 32, kvh 8,
    hd 128, page 64, bf16): a 512-token prefill chunk over a context of
-   many pages, decode rows up to 4096 tokens of context, padding rows, a
-   partial last page and trash-page table slots; times both with CUDA
-   events; then a smaller batch at head dims 32 (nh 8, kvh 8), 80, 96,
-   100 and 256, which the kernel reads in place at a template width at or
-   above them, in bf16 and fp32;
+   many pages, decode rows up to 4096 tokens of context (split over the
+   KV axis by the decode core: the slice count and each part's bytes are
+   printed), padding rows, a partial last page and trash-page table slots;
+   times both with CUDA events (the kernel also by CUDA-graph replay,
+   ``device_ms``); then a smaller batch at head dims 32 (nh
+   8, kvh 8), 80, 96, 100, 256, 264 and 512, which the kernel reads in
+   place (at a template width at or above them up to 256, through the
+   decode core above), in bf16 and fp32;
 4. main_path: the serving ``Engine`` at Llama-3-8B widths (all 32
    layers, random bf16 weights from seed 0) serves 8 requests, one of
    them sampled and two sharing a 1024-token header through the prefix
@@ -34,8 +40,10 @@ Phases, each printing one JSON line:
    all-bf16 q/k/v the LLaMA path and its peers feed, GPT-2 widths (b 4,
    s 1024, h 12, d 64, every type mix) -- and on small masked cases
    (segment-id tuples, causal offsets, sq != sk, fully-masked rows,
-   s = 1000; head dims 64, 128, 32 and 256, and 96 and 200 through the
-   wrappers' zero padding to 128 and 256); times
+   s = 1000; head dims 64, 128, 32 and 256, 96 and 200 through the
+   wrappers' zero padding to 128 and 256, and 320 and 512 on the wide
+   route, 320 padded to 384), and times the wide route at head dim 512;
+   times
    each kernel, its plain version and PyTorch's own attention
    (``scaled_dot_product_attention`` on all-bf16 and on all-fp32 inputs,
    only as a yardstick; it takes no mixed types) with CUDA events around
@@ -65,8 +73,9 @@ Phases, each printing one JSON line:
 10. paged_decode_vs_plain: the paged decode kernel against its plain
     version at Llama-3-8B's shapes (nh 32, kvh 8, hd 128, page 64), batch
     8 and 64, contexts 1 to 4096 with one empty request and partial last
-    pages, bf16 and fp32; times both; small batches at head dims 80, 96,
-    100 and 256 (read in place at a template width at or above them);
+    pages, bf16 and fp32 (the kernel launches the decode core, split over
+    the KV axis); times both; small batches at head dims 80, 96, 100, 256,
+    264 and 512 (read in place);
     then ``ops.paged_attention_decode`` itself is driven for 8 decode
     steps of 32 layers at batch 8;
 11. mla_main_path: phase 4's traffic on Llama-3-8B's widths in the MLA
@@ -111,8 +120,11 @@ from hetu_tpu_torch.models import (GPTConfig, GPTLMHeadModel,
                                    mla_config, mla_state_from)
 from hetu_tpu_torch.models.convert import load_state, random_state, state_numpy
 from hetu_tpu_torch.models.generate import generate
+from hetu_tpu_torch.core.device import sm_count
 from hetu_tpu_torch.ops import flash_attention as fa
-from hetu_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+from hetu_tpu_torch.ops.kv_split import core_splits
+from hetu_tpu_torch.ops.paged_attention import (decode_core_info,
+                                                paged_attention_cuda,
                                                 paged_attention_reference)
 from hetu_tpu_torch.ops.quantization import quantize_rows
 from hetu_tpu_torch.ops.ragged_paged_attention import (
@@ -217,6 +229,16 @@ FLASH_KERNELS = {
     *(("flash_bwd_dkv_mma_kernel", hd, None) for hd in FLASH_HEAD_DIMS),
     *(("flash_bwd_dkv_tf32_kernel", hd, types) for hd in FLASH_HEAD_DIMS
       for types in ("fp32/fp32", "fp32/bf16"))}
+# the wide route's kernels (head dims above 256), in every type mix
+FLASH_WIDE_KERNELS = {(kernel, types) for kernel in (
+    "flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
+    "flash_bwd_dkv_wide_kernel") for types in ("fp32/fp32", "bf16/bf16",
+                                               "fp32/bf16")}
+# the ragged kernel's template widths (0: above 256, through the decode
+# core) and types, and the paged decode kernel's types
+RAGGED_KERNELS = {(hd, bf16) for hd in (0, 32, 64, 128, 256)
+                  for bf16 in (False, True)}
+PAGED_KERNELS = {False, True}
 # the flash type codes of ops/flash_attention.py
 FLASH_CODES = {"fp32/fp32": 0, "bf16/bf16": 1, "fp32/bf16": 2}
 
@@ -226,8 +248,8 @@ def _template_types(head):
     or None where it has no type arguments.  A repeated __nv_bfloat16 is
     mangled as a substitution (S<n>_); the 3xTF32 dk/dv template names
     v's type alone (its q/k are fp32)."""
-    m = re.search(r"ILi\d+E(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\w*?_)",
-                  head)
+    m = re.search(r"I(?:Li\d+E)?(f|13__nv_bfloat16)(f|13__nv_bfloat16|"
+                  r"S\w*?_)", head)
     if m:
         return "/".join("fp32" if t == "f" else "bf16" for t in m.groups())
     m = re.search(r"dkv_tf32_kernelILi\d+E(f|13__nv_bfloat16)Lb", head)
@@ -288,13 +310,28 @@ def phase_build():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": report, "flash_occupancy": flash_occupancy()})
     flash = [e for e in report["flash_attention"]["entries"]
-             if e["kernel"].startswith("flash_")]
+             if e["kernel"].startswith("flash_")
+             and "_wide_" not in e["kernel"]]
     got = {(e["kernel"], e["head_dim"], e["types"]) for e in flash}
     if len(flash) != 48 or got != FLASH_KERNELS:
         raise AssertionError(
             f"the tensor-core flash kernels (forward, dq, and dk/dv fused "
             f"and split, in every type mix, at head dims 32, 64, 128 and "
             f"256) must all be built: {flash}")
+    wide = [(e["kernel"], e["types"])
+            for e in report["flash_attention"]["entries"]
+            if "_wide_" in e["kernel"]]
+    if len(wide) != 9 or set(wide) != FLASH_WIDE_KERNELS:
+        raise AssertionError(f"the wide flash kernels (forward, dq, dk/dv "
+                             f"in every type mix) must all be built: {wide}")
+    ragged = [(e["head_dim"] or 0, e["bf16"])
+              for e in report["ragged_paged_attention"]["entries"]]
+    paged = [e["bf16"] for e in report["paged_attention"]["entries"]]
+    if sorted(ragged) != sorted(RAGGED_KERNELS) or \
+            sorted(paged) != sorted(PAGED_KERNELS):
+        raise AssertionError(f"the ragged kernel at every template width "
+                             f"and the paged decode kernel, in bf16 and "
+                             f"fp32, must all be built: {ragged}, {paged}")
     spills = [(name, e["kernel"], e["template_ints"], e["types"])
               for name, r in report.items() for e in r["entries"]
               if e["spill_stores"] or e["spill_loads"]]
@@ -344,9 +381,10 @@ RAGGED_FP32_TOL = 2e-5
 
 # head dims of phase 3's small batches: 32 (the LLaMA config of
 # ``__graft_entry__``, nh 8, kvh 8), and 80, 96, 100 and 256 (nh 8, kvh 2),
-# which the kernel runs at the template width at or above them
+# which the kernel runs at the template width at or above them, and 264
+# and 512, whose every token runs through the decode core
 RAGGED_SMALL_HEAD_DIMS = {32: (8, 8), 80: (8, 2), 96: (8, 2), 100: (8, 2),
-                          256: (8, 2)}
+                          256: (8, 2), 264: (8, 2), 512: (8, 2)}
 
 
 def ragged_small_batch(hd, nh, kvh):
@@ -399,15 +437,26 @@ def ragged_small_batch(hd, nh, kvh):
             "hd": hd, "ps": ps, **out}
 
 
-def phase_kernel():
-    nh, kvh, hd, ps, max_q, maxp = 32, 8, 128, 64, 512, 128
+# phase 3's batch: the engine's layout of Llama-3-8B's serving shapes, 8
+# decode slots (6 live, contexts 1 to 4096), then one 512-token chunk slot
+RAGGED_SHAPES = {"nh": 32, "kvh": 8, "hd": 128, "ps": 64, "max_q": 512,
+                 "maxp": 128}
+RAGGED_Q_LENS = [1, 1, 1, 1, 1, 1, 0, 0, 512]
+RAGGED_CTX_LENS = [4096, 3001, 1500, 65, 64, 1, 0, 0, 3000]
+# the slots of the two padding rows (tokens 6 and 7) belong to no row
+RAGGED_CU = [0, 1, 2, 3, 4, 5, 6, 7, 8, 520]
+
+
+def ragged_serving_batch():
+    """Phase 3's batch on the card (bf16 from seed 0): the kernel's
+    arguments, and ``cu_q`` and the token count."""
+    nh, kvh, hd, ps, maxp = (RAGGED_SHAPES[k] for k in
+                             ("nh", "kvh", "hd", "ps", "maxp"))
     dev = torch.device("cuda")
-    # the engine's layout: 8 decode slots, then one 512-token chunk slot
-    q_lens = [1, 1, 1, 1, 1, 1, 0, 0, 512]
-    ctx_lens = [4096, 3001, 1500, 65, 64, 1, 0, 0, 3000]
+    q_lens, ctx_lens = RAGGED_Q_LENS, RAGGED_CTX_LENS
     rows = len(q_lens)
-    cu = np.asarray([0, 1, 2, 3, 4, 5, 6, 7, 8, 520], np.int32)
-    t = 520
+    cu = np.asarray(RAGGED_CU, np.int32)
+    t = int(cu[-1])
     num_pages = 1024
     rng = np.random.RandomState(0)
     perm = rng.permutation(np.arange(1, num_pages))
@@ -431,14 +480,38 @@ def phase_kernel():
         return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
 
     args = (q, kp, vp, i32(q_lens), i32(cu), i32(pt), i32(ctx_lens))
+    return args, cu, t
+
+
+def ragged_serving_gate():
+    """Phase 3's gate on its batch without raising: each live row's error
+    over the bf16 limit, the max abs error and the nonzero padding
+    outputs (``planted_faults`` reads it for the decode core's faults)."""
+    args, cu, t = ragged_serving_batch()
+    max_q = RAGGED_SHAPES["max_q"]
     got = ragged_paged_attention_cuda(*args, max_q=max_q)
     torch.cuda.synchronize()
     want = ragged_paged_attention_reference(*args, max_q=max_q)
-    real = torch.zeros(t, dtype=torch.bool, device=dev)
-    for i in range(rows):
-        real[int(cu[i]):int(cu[i]) + q_lens[i]] = True
-    ratios, err = bf16_agreement(got, want, cu, q_lens)
-    pad_nonzero = int(torch.count_nonzero(got[~real]).item())
+    real = torch.zeros(t, dtype=torch.bool, device=got.device)
+    for i, n in enumerate(RAGGED_Q_LENS):
+        real[int(cu[i]):int(cu[i]) + n] = True
+    ratios, err = bf16_agreement(got, want, cu, RAGGED_Q_LENS)
+    return ratios, err, int(torch.count_nonzero(got[~real]).item())
+
+
+def phase_kernel():
+    nh, kvh, hd, ps, max_q, maxp = (RAGGED_SHAPES[k] for k in (
+        "nh", "kvh", "hd", "ps", "max_q", "maxp"))
+    dev = torch.device("cuda")
+    q_lens, ctx_lens = RAGGED_Q_LENS, RAGGED_CTX_LENS
+    rows = len(q_lens)
+    args, cu, t = ragged_serving_batch()
+    q, kp, vp = args[:3]
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    ratios, err, pad_nonzero = ragged_serving_gate()
     if not max(ratios) <= 1.0:
         raise AssertionError(
             f"kernel vs plain: error over the bf16 limit by {max(ratios)} "
@@ -451,6 +524,13 @@ def phase_kernel():
     plain_ms = cuda_time_ms(lambda: ragged_paged_attention_reference(
         *args, max_q=max_q), warmup=1, iters=3)
     work = ragged_work(q_lens, ctx_lens, maxp, nh, kvh, hd, 2)
+    # the decode core's KV split at these shapes (the wrapper's count) and
+    # the slices each decode row reads
+    n_splits = core_splits(sm_count(dev), rows, kvh, nh // kvh, maxp * ps)
+    core = decode_core_info(hd, torch.bfloat16, ps, kvh, maxp, n_splits)
+    core.update(n_splits=n_splits, live_slices=[
+        -(-c // core["split_len"]) if q == 1 else 0
+        for q, c in zip(q_lens, ctx_lens)])
     # the same batch split: its decode rows alone, its chunk alone
     parts = {}
     for part, keep in (("decode_rows", lambda i: i < 8),
@@ -458,15 +538,21 @@ def phase_kernel():
         ql = [q if keep(i) else 0 for i, q in enumerate(q_lens)]
         pargs = (q, kp, vp, i32(ql)) + args[4:]
         pw = ragged_work(ql, ctx_lens, maxp, nh, kvh, hd, 2)
+        call = lambda: ragged_paged_attention_cuda(  # noqa: E731
+            *pargs, max_q=max_q)
         parts[part] = {
-            "ms": cuda_time_ms(lambda: ragged_paged_attention_cuda(
-                *pargs, max_q=max_q), warmup=3, iters=20),
-            "bound_ms": pw["bound_ms"], "bound_by": pw["bound_by"]}
+            "ms": cuda_time_ms(call, warmup=3, iters=20),
+            "device_ms": graph_ms(call, iters=20),
+            "bound_ms": pw["bound_ms"], "bound_by": pw["bound_by"],
+            "bytes": pw["bytes"], "flops": pw["flops"]}
     out = {"max_abs_err": err,
            "limit": f"|got - want| <= {BF16_REL} * |want| + "
                     f"{BF16_RMS_FLOOR} * rms(want over the row)",
            "err_over_limit_by_row": ratios, "parts": parts,
-           "padding_nonzero": pad_nonzero, "ms": ms, "plain_ms": plain_ms,
+           "decode_core": core,
+           "padding_nonzero": pad_nonzero, "ms": ms,
+           "device_ms": graph_ms(lambda: ragged_paged_attention_cuda(
+               *args, max_q=max_q), iters=20), "plain_ms": plain_ms,
            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
            "bytes": work["bytes"], "flops": work["flops"],
            "library_ms": None,
@@ -887,7 +973,7 @@ def phase_flash():
             torch.cuda.empty_cache()
     # small masked cases: every kernel, every type mix; head dims 32 and
     # 256 (the kernels' own), 96 and 200 (zero-padded to 128 and 256 by
-    # the wrappers)
+    # the wrappers), 512 and 320 (the wide route, 320 padded to 384)
     small = []
     for b, sq, sk, h, d, seg, offset in (
             (1, 64, 192, 2, 64, "tuple", 128),
@@ -901,7 +987,11 @@ def phase_flash():
             (2, 128, 128, 2, 256, "masked", 0),
             (1, 1000, 1000, 2, 256, "offset", -24),
             (1, 64, 192, 2, 200, "tuple", 128),
-            (1, 1000, 1000, 2, 200, None, 0)):
+            (1, 1000, 1000, 2, 200, None, 0),
+            (2, 128, 128, 2, 512, "masked", 0),
+            (1, 300, 300, 2, 512, "offset", -24),
+            (1, 64, 192, 2, 320, "tuple", 128),
+            (1, 300, 300, 2, 320, None, 0)):
         for types in FLASH_TYPES:
             q, k, v, do = flash_inputs(b, sq, sk, h, d, types, seed=2)
             segs = None
@@ -933,8 +1023,48 @@ def phase_flash():
                           "types": types, "empty_rows_nonzero": empty,
                           "err_over_limit": {n: r[0] for n, r in res.items()}})
     emit({"phase": "flash_vs_plain", "shapes": shapes, "small_cases": small,
-          "library": lib})
+          "library": lib, "wide_route": flash_wide_times()})
     return shapes
+
+
+# the wide route's timed shape: head dim 512, causal
+FLASH_WIDE_ATTN = (1, 1024, 4, 512)
+
+
+def flash_wide_times():
+    """The four flash kernels on the wide route at ``FLASH_WIDE_ATTN`` in
+    bf16 and fp32: each kernel's time (CUDA events around the calls) beside
+    its bound and the plain version's, checked against the plain versions
+    first.  A simple route, timed but not tuned."""
+    b, s, h, d = FLASH_WIDE_ATTN
+    out = {}
+    for types in ("bf16", "fp32"):
+        q, k, v, do = flash_inputs(b, s, s, h, d, types, seed=3)
+        scale = d ** -0.5
+        res, (ro, rl, delta), _ = check_flash(q, k, v, do,
+                                              tag=f"wide {types}")
+        calls = {
+            "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, scale, True),
+            "flash_bwd_fused": lambda: fa.flash_bwd_fused_cuda(
+                q, k, v, ro, rl, do, scale, True),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(
+                q, k, v, do, rl, delta, scale, True),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
+                q, k, v, do, rl, delta, scale, True)}
+        plain = {"fwd": cuda_time_ms(lambda: fa.flash_fwd_reference(
+            q, k, v, scale, True), warmup=1, iters=2),
+            "bwd": cuda_time_ms(lambda: fa.flash_bwd_reference(
+                q, k, v, ro, rl, do, scale, True), warmup=1, iters=2)}
+        out[types] = {name: {
+            "ms": cuda_time_ms(fn, warmup=1, iters=3),
+            "plain_ms": plain["fwd" if name == "flash_fwd" else "bwd"],
+            "err_over_limit": res[name][0],
+            **flash_work(name, b, s, s, h, d, q.dtype, v.dtype)}
+            for name, fn in calls.items()}
+        del q, k, v, do, ro, rl, delta
+        torch.cuda.empty_cache()
+    return {"shape": dict(zip(("b", "s", "h", "d"), FLASH_WIDE_ATTN)),
+            **out}
 
 
 # ---------------------------------------------------------------------------
@@ -1366,14 +1496,16 @@ def paged_agreement(got, want, seq_lens, dtype):
 
 
 # (seq_lens, nh, kvh, head dim) of phase 10's small batches: head dims the
-# kernel runs at the template width at or above them, 100 with rows off
-# the vector boundaries; seq_len 0, partial pages, and the longer batch
-# split over the KV axis
+# decode core reads in place, 100 with rows off the 16-byte boundaries, 264
+# and 512 past 256; seq_len 0, partial pages, and the longer batches split
+# over the KV axis
 PAGED_SMALL_CASES = [([13, 5, 0, 24], 8, 2, 80),
                      ([300, 64, 0, 1000, 513], 8, 2, 96),
                      ([19, 8, 1], 4, 2, 100),
                      ([9, 17, 0, 1], 4, 4, 256),
-                     ([300, 64, 0, 1000, 513], 8, 8, 256)]
+                     ([300, 64, 0, 1000, 513], 8, 8, 256),
+                     ([9, 17, 0, 1], 4, 4, 264),
+                     ([300, 64, 0, 1000, 513], 8, 2, 512)]
 
 
 def paged_small_head_dims():
@@ -1430,10 +1562,15 @@ def phase_paged_decode():
                     f"over the limit by {ratio} (max abs {err}), {empty} "
                     f"nonzero outputs of the empty request")
             cases[f"batch{batch}/{name}"] = {
+                "n_splits": core_splits(sm_count(args[0].device), batch, kvh,
+                                        nh // kvh,
+                                        args[3].shape[1] * args[1].shape[1]),
                 "max_abs_err": err, "err_over_limit": ratio,
                 "empty_request_nonzero": empty,
                 "ms": cuda_time_ms(lambda: paged_attention_cuda(*args),
                                    warmup=3, iters=20),
+                "device_ms": graph_ms(lambda: paged_attention_cuda(*args),
+                                      iters=20),
                 "plain_ms": cuda_time_ms(
                     lambda: paged_attention_reference(*args),
                     warmup=1, iters=3),
@@ -1674,7 +1811,8 @@ def main():
         "launches": main_out["kernel_launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": None}]
+        "bound_by": kern["bound_by"], "library_ms": None,
+        "device_ms": kern["device_ms"]}]
     # each flash kernel at the main path's shape where it runs most: the
     # LLaMA layer-0 mix for the forward and the split backward, GPT-2 for
     # the fused backward; launches over both training runs
@@ -1715,7 +1853,8 @@ def main():
             "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            **({"device_ms": r["device_ms"]} if "device_ms" in r else {})})
     if not all(r["launches"] > 0 for r in rows):
         raise AssertionError(f"a kernel of the path was never launched: "
                              f"{[(r['name'], r['launches']) for r in rows]}")

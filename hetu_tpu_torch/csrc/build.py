@@ -5,13 +5,13 @@ library with a plain C interface under ``csrc/_build/`` (listed in
 ``.gitignore``), at first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -I csrc -o _build/<name>-<hash>.so
-         <name>.cu
+         -Xcompiler -fPIC -Xptxas -v -DHETU_COLUMN_SLICE=128 -I csrc
+         -o _build/<name>-<hash>.so <name>.cu
 
 Sources share the headers of this directory (``mma_bf16.cuh``,
-``mma_tf32.cuh``).  The file name carries a hash of the source, every
-header and the flags, so an edited source or header never loads a stale
-library.  ``build()`` starts one ``nvcc`` per source, all at once, and
+``mma_tf32.cuh``, ``paged_decode.cuh``).  The file name carries a hash of
+the source, every header and the flags, so an edited source or header
+never loads a stale library.  ``build()`` starts one ``nvcc`` per source, all at once, and
 returns what ``-Xptxas -v`` reported (registers, shared memory, spills)
 for each; the report is kept beside the library
 (``<name>-<hash>.ptxas.txt``) for later calls.
@@ -34,10 +34,17 @@ SOURCES = {"ragged_paged_attention": "ragged_paged_attention.cu",
                "latent_ragged_paged_attention.cu",
            "paged_attention": "paged_attention.cu"}
 # head dims the attention kernels are instantiated at (their template HD);
-# the wrappers run a head dim of 1 to 256 at the next of these at or above it
+# the flash wrappers run a head dim of 1 to 256 at the next of these at or
+# above it, and a wider one on the wide route, zero-padded to a multiple of
+# COLUMN_SLICE; the ragged and paged decode kernels read any head dim in
+# place
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+# output columns a block of an attention kernel accumulates at most
+# (``kColSlice`` of ``mma_bf16.cuh``, which takes it from this flag)
+COLUMN_SLICE = 128
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DHETU_COLUMN_SLICE={COLUMN_SLICE}"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -27,9 +27,10 @@
 // :502); every product accumulates in fp32.  Types: q/k/do/out share one
 // type and v may differ: (fp32, fp32, fp32), (bf16, bf16, bf16) and (fp32,
 // fp32, bf16), the last being what the bf16 LLaMA model feeds (its rotary
-// tables are fp32).  Head dims 32, 64, 128, 256 (ops/flash_attention.py
-// pads any other head dim up to 256 with zero columns to the next of
-// them).
+// tables are fp32).  Head dims 32, 64, 128, 256 on the tensor cores
+// (ops/flash_attention.py pads any other head dim up to 256 with zero
+// columns to the next of them), and multiples of 128 above 256 on the wide
+// route at the end of this file (the wrappers pad wider head dims to one).
 //
 // What bounds them on an H100 (989 TFLOP/s bf16 tensor cores, 495 TF32,
 // so 165 for an fp32 product in 3xTF32; 3.35 TB/s): causal attention does
@@ -1596,7 +1597,7 @@ struct Tag {
 // fp32 q/k (fp32 or bf16 v) every entry in 3xTF32 (the mixed forward's P.V
 // on bf16 mma.sync).
 constexpr int kEntryFwd = 0, kEntryDq = 1, kEntryDkv = 2;
-constexpr int kRouteBf16 = 1, kRouteTf32 = 2;
+constexpr int kRouteCudaCores = 0, kRouteBf16 = 1, kRouteTf32 = 2;
 
 // Calls f(int_constant<HD>, Tag<TQ>, Tag<TV>) for the supported head dims and
 // type codes (0: all fp32, 1: all bf16, 2: fp32 q/k with bf16 v).
@@ -1653,6 +1654,365 @@ cudaError_t with_dkv_kernel(int fused, G&& g) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the wide route: head dims above 256, multiples of kColSlice (the wrappers
+// zero-pad to one), in every type mix
+// ---------------------------------------------------------------------------
+//
+// Right rather than fast: CUDA-core FMA with fp32 accumulation, the
+// reference's roundings (q * scale * log2(e) to q's type, p to v's type
+// before p.v and to do's type before p^T.do, ds to q's type).  One warp owns
+// one query row (forward, dq) or one key row (dk/dv) with its q and dO (or
+// K and V) rows in shared memory in fp32, so that no head dim is too wide
+// for a block; S and dP are summed along the whole head dim, 16 bytes at a
+// time, by the lane that owns the other side's row (32 keys or queries at a
+// time, one a lane), and the block's blockIdx.z picks the kColSlice output
+// columns it accumulates, 4 a lane (S and dP are formed again by each
+// slice).
+
+constexpr int kWideRows = kMmaThreads / 32;  // rows of a block: one a warp
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) {
+  return __bfloat162float(x);
+}
+
+// x rounded to T, as a float
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+// the 16-byte piece at p (8 bf16 or 4 fp32 values) in fp32
+__device__ __forceinline__ void load_piece(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+__device__ __forceinline__ void load_piece(const bf16* p, float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// four consecutive values at p (8-byte aligned for bf16, 16 for fp32)
+__device__ __forceinline__ void load4(const float* p, float* f) {
+  load_piece(p, f);
+}
+
+__device__ __forceinline__ void load4(const bf16* p, float* f) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  f[0] = __uint_as_float(v.x << 16);
+  f[1] = __uint_as_float(v.x & 0xffff0000u);
+  f[2] = __uint_as_float(v.y << 16);
+  f[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void store4(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float* f) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+}
+
+// sum over d of a[d] * row[d]: a in shared memory (fp32, 16-byte aligned),
+// row in device memory, 16 bytes at a time
+template <typename T>
+__device__ __forceinline__ float dot_row(const float* a, const T* row,
+                                         int d) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  float s = 0.f;
+  for (int c = 0; c < d; c += kPer) {
+    float f[kPer];
+    load_piece(row + c, f);
+#pragma unroll
+    for (int i = 0; i < kPer; i += 4) {
+      const float4 av = *reinterpret_cast<const float4*>(a + c + i);
+      s = fmaf(av.x, f[i], s);
+      s = fmaf(av.y, f[i + 1], s);
+      s = fmaf(av.z, f[i + 2], s);
+      s = fmaf(av.w, f[i + 3], s);
+    }
+  }
+  return s;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Kernel 1 on the wide route: warp w owns q row blockIdx.x * 4 + w.
+template <typename TQ, typename TV>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_wide_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                      const TV* __restrict__ v, TQ* __restrict__ out,
+                      float* __restrict__ lse, const int* __restrict__ q_seg,
+                      const int* __restrict__ kv_seg, int sq, int sk, int nh,
+                      int d, float scale_log2, int causal, int offset) {
+  extern __shared__ float4 wide_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWideRows + warp;
+  if (row >= sq) return;  // the block shares no barrier
+  const int b = blockIdx.y / nh;
+  const int h = blockIdx.y % nh;
+  const int col0 = blockIdx.z * kColSlice + 4 * lane;
+  const int64_t tok = static_cast<int64_t>(nh) * d;
+  float* q_s = reinterpret_cast<float*>(wide_smem) + warp * d;
+  const TQ* qr = q + (static_cast<int64_t>(b) * sq + row) * tok +
+                 static_cast<int64_t>(h) * d;
+  for (int c = lane; c < d; c += 32)
+    q_s[c] = round_to<TQ>(to_float(qr[c]) * scale_log2);
+  __syncwarp();
+  const TQ* kb = k + static_cast<int64_t>(b) * sk * tok +
+                 static_cast<int64_t>(h) * d;
+  const TV* vb = v + static_cast<int64_t>(b) * sk * tok +
+                 static_cast<int64_t>(h) * d + col0;
+  const int qid = q_seg != nullptr ? q_seg[static_cast<int64_t>(b) * sq + row]
+                                   : 0;
+  const int* ks = kv_seg != nullptr ? kv_seg + static_cast<int64_t>(b) * sk
+                                    : nullptr;
+  const int kv_end = causal ? min(sk, max(0, row + offset + 1)) : sk;
+  float m = -INFINITY, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j0 = 0; j0 < kv_end; j0 += 32) {
+    const int j = j0 + lane;
+    const bool ok = j < kv_end && (ks == nullptr || ks[j] == qid);
+    const float s = ok ? dot_row(q_s, kb + j * tok, d) : -INFINITY;
+    const float mx = warp_max(s);
+    if (mx == -INFINITY) continue;  // no key of these 32 is visible
+    const float m_new = fmaxf(m, mx);
+    const float alpha = exp2f(m - m_new);
+    const float p = ok ? exp2f(s - m_new) : 0.f;
+    l = l * alpha + warp_sum(p);
+    m = m_new;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] *= alpha;
+    const int n = min(32, kv_end - j0);
+    for (int jj = 0; jj < n; ++jj) {
+      const float pj = __shfl_sync(0xffffffffu, p, jj);
+      if (pj == 0.f) continue;
+      const float pr = round_to<TV>(pj);
+      float vv[4];
+      load4(vb + (j0 + jj) * tok, vv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] = fmaf(pr, vv[c], acc[c]);
+    }
+  }
+  const float inv = l == 0.f ? 0.f : 1.f / l;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc[c] *= inv;
+  store4(out + (static_cast<int64_t>(b) * sq + row) * tok +
+             static_cast<int64_t>(h) * d + col0,
+         acc);
+  if (blockIdx.z == 0 && lane == 0)
+    lse[(static_cast<int64_t>(b) * nh + h) * sq + row] =
+        l == 0.f ? -INFINITY : (m + log2f(l)) * kLn2;
+}
+
+// Kernel 3 on the wide route: warp w owns q row blockIdx.x * 4 + w; its q
+// (scaled, rounded) and dO rows sit in shared memory.
+template <typename TQ, typename TV>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_wide_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                         const TV* __restrict__ v,
+                         const TQ* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         TQ* __restrict__ dq, const int* __restrict__ q_seg,
+                         const int* __restrict__ kv_seg, int sq, int sk,
+                         int nh, int d, float scale, int causal, int offset) {
+  extern __shared__ float4 wide_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWideRows + warp;
+  if (row >= sq) return;
+  const int b = blockIdx.y / nh;
+  const int h = blockIdx.y % nh;
+  const int col0 = blockIdx.z * kColSlice + 4 * lane;
+  const int64_t tok = static_cast<int64_t>(nh) * d;
+  const int64_t at = (static_cast<int64_t>(b) * sq + row) * tok +
+                     static_cast<int64_t>(h) * d;
+  const float ls = lse[(static_cast<int64_t>(b) * nh + h) * sq + row];
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (ls != -INFINITY) {  // a row that sees no key has dq = 0
+    float* q_s = reinterpret_cast<float*>(wide_smem) + 2 * warp * d;
+    float* do_s = q_s + d;
+    for (int c = lane; c < d; c += 32) {
+      q_s[c] = round_to<TQ>(to_float(q[at + c]) * scale * kLog2e);
+      do_s[c] = to_float(dout[at + c]);
+    }
+    __syncwarp();
+    const float l2 = ls * kLog2e;
+    const float dlt = delta[(static_cast<int64_t>(b) * sq + row) * nh + h];
+    const TQ* kb = k + static_cast<int64_t>(b) * sk * tok +
+                   static_cast<int64_t>(h) * d;
+    const TV* vb = v + static_cast<int64_t>(b) * sk * tok +
+                   static_cast<int64_t>(h) * d;
+    const int qid =
+        q_seg != nullptr ? q_seg[static_cast<int64_t>(b) * sq + row] : 0;
+    const int* ks = kv_seg != nullptr
+                        ? kv_seg + static_cast<int64_t>(b) * sk
+                        : nullptr;
+    const int kv_end = causal ? min(sk, max(0, row + offset + 1)) : sk;
+    for (int j0 = 0; j0 < kv_end; j0 += 32) {
+      const int j = j0 + lane;
+      float ds = 0.f;
+      if (j < kv_end && (ks == nullptr || ks[j] == qid)) {
+        const float p = exp2f(dot_row(q_s, kb + j * tok, d) - l2);
+        const float dp = dot_row(do_s, vb + j * tok, d);
+        ds = round_to<TQ>(p * (dp - dlt));
+      }
+      const int n = min(32, kv_end - j0);
+      for (int jj = 0; jj < n; ++jj) {
+        const float dsj = __shfl_sync(0xffffffffu, ds, jj);
+        if (dsj == 0.f) continue;
+        float kk[4];
+        load4(kb + (j0 + jj) * tok + col0, kk);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[c] = fmaf(dsj, kk[c], acc[c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc[c] *= scale;
+  store4(dq + at + col0, acc);
+}
+
+// Kernels 4 (and 2, as the wrapper runs it above 256) on the wide route:
+// warp w owns key row blockIdx.x * 4 + w; its K and V rows sit in shared
+// memory, and the lanes walk the q rows that can see it, 32 at a time.
+template <typename TQ, typename TV>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_wide_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                          const TV* __restrict__ v,
+                          const TQ* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          TQ* __restrict__ dk, TV* __restrict__ dv,
+                          const int* __restrict__ q_seg,
+                          const int* __restrict__ kv_seg, int sq, int sk,
+                          int nh, int d, float scale, int causal,
+                          int offset) {
+  extern __shared__ float4 wide_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int key = blockIdx.x * kWideRows + warp;
+  if (key >= sk) return;
+  const int b = blockIdx.y / nh;
+  const int h = blockIdx.y % nh;
+  const int col0 = blockIdx.z * kColSlice + 4 * lane;
+  const int64_t tok = static_cast<int64_t>(nh) * d;
+  const int64_t at = (static_cast<int64_t>(b) * sk + key) * tok +
+                     static_cast<int64_t>(h) * d;
+  float* k_s = reinterpret_cast<float*>(wide_smem) + 2 * warp * d;
+  float* v_s = k_s + d;
+  for (int c = lane; c < d; c += 32) {
+    k_s[c] = to_float(k[at + c]);
+    v_s[c] = to_float(v[at + c]);
+  }
+  __syncwarp();
+  const float scale_log2 = scale * kLog2e;
+  const TQ* qb = q + static_cast<int64_t>(b) * sq * tok +
+                 static_cast<int64_t>(h) * d;
+  const TQ* db = dout + static_cast<int64_t>(b) * sq * tok +
+                 static_cast<int64_t>(h) * d;
+  const float* lb = lse + (static_cast<int64_t>(b) * nh + h) * sq;
+  const float* tb = delta + static_cast<int64_t>(b) * sq * nh + h;
+  const int kid =
+      kv_seg != nullptr ? kv_seg[static_cast<int64_t>(b) * sk + key] : 0;
+  const int* qs = q_seg != nullptr ? q_seg + static_cast<int64_t>(b) * sq
+                                   : nullptr;
+  float dk_acc[4] = {0.f, 0.f, 0.f, 0.f}, dv_acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i0 = causal ? max(0, key - offset) : 0; i0 < sq; i0 += 32) {
+    const int i = i0 + lane;
+    float pr = 0.f, ds = 0.f;
+    if (i < sq && (qs == nullptr || qs[i] == kid) && lb[i] != -INFINITY) {
+      const TQ* qr = qb + i * tok;
+      float s = 0.f;
+      for (int c = 0; c < d; c += 4) {
+        float f[4];
+        load4(qr + c, f);
+        const float4 kv = *reinterpret_cast<const float4*>(k_s + c);
+        s = fmaf(round_to<TQ>(f[0] * scale_log2), kv.x, s);
+        s = fmaf(round_to<TQ>(f[1] * scale_log2), kv.y, s);
+        s = fmaf(round_to<TQ>(f[2] * scale_log2), kv.z, s);
+        s = fmaf(round_to<TQ>(f[3] * scale_log2), kv.w, s);
+      }
+      const float p = exp2f(s - lb[i] * kLog2e);
+      const float dp = dot_row(v_s, db + i * tok, d);
+      pr = round_to<TQ>(p);
+      ds = round_to<TQ>(p * (dp - tb[static_cast<int64_t>(i) * nh]));
+    }
+    const int n = min(32, sq - i0);
+    for (int ii = 0; ii < n; ++ii) {
+      const float pj = __shfl_sync(0xffffffffu, pr, ii);
+      const float dsj = __shfl_sync(0xffffffffu, ds, ii);
+      if (pj == 0.f && dsj == 0.f) continue;
+      float qq[4], dd[4];
+      load4(qb + (i0 + ii) * tok + col0, qq);
+      load4(db + (i0 + ii) * tok + col0, dd);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dv_acc[c] = fmaf(pj, dd[c], dv_acc[c]);
+        dk_acc[c] = fmaf(dsj, round_to<TQ>(qq[c] * scale_log2), dk_acc[c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) dk_acc[c] /= kLog2e;
+  store4(dk + at + col0, dk_acc);
+  store4(dv + at + col0, dv_acc);
+}
+
+// Calls f(Tag<TQ>, Tag<TV>) for the type codes of `dispatch`.
+template <typename F>
+cudaError_t dispatch_types(int dtypes, F&& f) {
+  if (dtypes == 0) return f(Tag<float>{}, Tag<float>{});
+  if (dtypes == 1) return f(Tag<bf16>{}, Tag<bf16>{});
+  if (dtypes == 2) return f(Tag<float>{}, Tag<bf16>{});
+  return cudaErrorInvalidValue;
+}
+
+// a head dim the wide route takes
+bool wide_head_dim(int head_dim) {
+  return head_dim > 256 && head_dim % kColSlice == 0;
+}
+
+// launches a wide kernel: 4 rows a block, rows_smem fp32 values of
+// shared memory per row
+template <typename K, typename... Args>
+cudaError_t launch_wide(K kernel, int rows, int nbh, int head_dim,
+                        int rows_smem, cudaStream_t st, Args... args) {
+  const int smem = kWideRows * rows_smem * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((rows + kWideRows - 1) / kWideRows, nbh,
+                  col_slices(head_dim));
+  kernel<<<grid, kMmaThreads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1663,7 +2023,8 @@ extern "C" {
 // [b, sq, h] fp32; q_seg [b, sq] and kv_seg [b, sk] int32, or both null.
 // dtypes: 0 = fp32 q/k/v, 1 = bf16 q/k/v, 2 = fp32 q/k with bf16 v
 // (out/do/dq in q's type, dk in k's, dv in v's).  head_dim 32, 64, 128 or
-// 256.
+// 256 on the tensor cores, or a multiple of 128 above 256 on the wide
+// route.
 
 int hetu_flash_fwd(const void* q, const void* k, const void* v, void* out,
                    void* lse, const void* q_seg, const void* kv_seg, int b,
@@ -1671,6 +2032,18 @@ int hetu_flash_fwd(const void* q, const void* k, const void* v, void* out,
                    int causal, int offset, int dtypes, void* stream) {
   if (bad_shape(b, sq, sk, nh)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  if (wide_head_dim(head_dim))
+    return static_cast<int>(dispatch_types(dtypes, [&](auto tq, auto tv) {
+      using TQ = typename decltype(tq)::type;
+      using TV = typename decltype(tv)::type;
+      return launch_wide(flash_fwd_wide_kernel<TQ, TV>, sq, b * nh, head_dim,
+                         head_dim, st, static_cast<const TQ*>(q),
+                         static_cast<const TQ*>(k), static_cast<const TV*>(v),
+                         static_cast<TQ*>(out), static_cast<float*>(lse),
+                         static_cast<const int*>(q_seg),
+                         static_cast<const int*>(kv_seg), sq, sk, nh,
+                         head_dim, scale * kLog2e, causal, offset);
+    }));
   return static_cast<int>(dispatch(head_dim, dtypes, [&](auto hd, auto tq,
                                                          auto tv) {
     constexpr int HD = decltype(hd)::value;
@@ -1699,6 +2072,19 @@ int hetu_flash_bwd_dq(const void* q, const void* k, const void* v,
                       int causal, int offset, int dtypes, void* stream) {
   if (bad_shape(b, sq, sk, nh)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  if (wide_head_dim(head_dim))
+    return static_cast<int>(dispatch_types(dtypes, [&](auto tq, auto tv) {
+      using TQ = typename decltype(tq)::type;
+      using TV = typename decltype(tv)::type;
+      return launch_wide(
+          flash_bwd_dq_wide_kernel<TQ, TV>, sq, b * nh, head_dim,
+          2 * head_dim, st, static_cast<const TQ*>(q),
+          static_cast<const TQ*>(k), static_cast<const TV*>(v),
+          static_cast<const TQ*>(dout), static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<TQ*>(dq),
+          static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+          sq, sk, nh, head_dim, scale, causal, offset);
+    }));
   return static_cast<int>(dispatch(head_dim, dtypes, [&](auto hd, auto tq,
                                                          auto tv) {
     constexpr int HD = decltype(hd)::value;
@@ -1731,6 +2117,24 @@ int hetu_flash_bwd_dkv(const void* q, const void* k, const void* v,
                        int offset, int dtypes, int fused, void* stream) {
   if (bad_shape(b, sq, sk, nh)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  if (wide_head_dim(head_dim)) {
+    // the wide route has no fused kernel: the wrapper runs kernel 2 there
+    // as the split kernels 3 and 4, which compute the same dq, dk and dv
+    if (fused) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(dispatch_types(dtypes, [&](auto tq, auto tv) {
+      using TQ = typename decltype(tq)::type;
+      using TV = typename decltype(tv)::type;
+      return launch_wide(
+          flash_bwd_dkv_wide_kernel<TQ, TV>, sk, b * nh, head_dim,
+          2 * head_dim, st, static_cast<const TQ*>(q),
+          static_cast<const TQ*>(k), static_cast<const TV*>(v),
+          static_cast<const TQ*>(dout), static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<TQ*>(dk),
+          static_cast<TV*>(dv), static_cast<const int*>(q_seg),
+          static_cast<const int*>(kv_seg), sq, sk, nh, head_dim, scale,
+          causal, offset);
+    }));
+  }
   return static_cast<int>(dispatch(head_dim, dtypes, [&](auto hd, auto tq,
                                                          auto tv) {
     constexpr int HD = decltype(hd)::value;
@@ -1758,12 +2162,13 @@ int hetu_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // The route `entry` (0: hetu_flash_fwd, 1: hetu_flash_bwd_dq, 2:
 // hetu_flash_bwd_dkv) takes for these type codes and head dim: 1 bf16
-// tensor cores, 2 3xTF32 tensor cores; -1 if it takes none.
+// tensor cores, 2 3xTF32 tensor cores, 0 the CUDA cores (the wide route,
+// head dims above 256); -1 if it takes none.
 int hetu_flash_uses_tensor_cores(int entry, int head_dim, int dtypes) {
-  if (entry < kEntryFwd || entry > kEntryDkv ||
-      (head_dim != 32 && head_dim != 64 && head_dim != 128 &&
-       head_dim != 256) || dtypes < 0 ||
-      dtypes > 2)
+  if (entry < kEntryFwd || entry > kEntryDkv || dtypes < 0 || dtypes > 2)
+    return -1;
+  if (wide_head_dim(head_dim)) return kRouteCudaCores;
+  if (head_dim != 32 && head_dim != 64 && head_dim != 128 && head_dim != 256)
     return -1;
   // type code 1 is the (bf16, bf16) pair of `dispatch`, 0 and 2 have fp32 q
   return dtypes == 1 ? kRouteBf16 : kRouteTf32;

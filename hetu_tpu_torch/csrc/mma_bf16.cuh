@@ -143,18 +143,29 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Output columns (of O, dQ or dK/dV) that a block of an attention kernel
-// accumulates: all HD up to 128; at HD 256 one half of them, picked by
-// blockIdx.z (col_blocks() blocks along z), so that the accumulators keep
-// the registers of HD 128, while S and dP are still formed over all HD
-// columns from shared memory (each half forms them again).
+// accumulates: a slice of at most kColSlice columns, picked by blockIdx.z.
+// The template widths (HD 32 to 256) hold all HD up to 128 and one half at
+// 256 (col_blocks() blocks along z), so that the accumulators keep the
+// registers of HD 128, while S and dP are still formed over all HD columns
+// from shared memory (each slice forms them again).  Wider head dims (the
+// flash kernels' wide route) take col_slices(d) slices of kColSlice
+// columns each.  kColSlice is csrc/build.py's COLUMN_SLICE, passed to nvcc
+// as HETU_COLUMN_SLICE.
+constexpr int kColSlice = HETU_COLUMN_SLICE;
+static_assert(kColSlice == 128, "the register plans assume 128-column slices");
+
 template <int HD>
 __host__ __device__ constexpr int out_cols() {
-  return HD > 128 ? HD / 2 : HD;
+  return HD > kColSlice ? kColSlice : HD;
 }
 
 template <int HD>
 __host__ __device__ constexpr int col_blocks() {
   return HD / out_cols<HD>();
+}
+
+__host__ __device__ constexpr int col_slices(int d) {
+  return (d + kColSlice - 1) / kColSlice;
 }
 
 }  // namespace

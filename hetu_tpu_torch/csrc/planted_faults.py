@@ -1,6 +1,6 @@
-"""Planted faults in the flash-attention kernels and in the latent ragged
-paged attention kernel, against the gates of ``chip_smoke.py``'s phases
-6 and 9.
+"""Planted faults in the flash-attention kernels, in the latent ragged
+paged attention kernel and in the split-KV decode core, against the gates
+of ``chip_smoke.py``'s phases 6, 9, 3 and 10.
 
     python -m hetu_tpu_torch.csrc.planted_faults     (on the card, from
                                                      the repository root)
@@ -42,6 +42,20 @@ The latent faults, in the tensor-core latent kernel:
   decode rows reach 4096 tokens, the GPT-2-width ones 1024);
 - ``tf32_1term_latent``: every latent product (Q K^T and P V, every page
   kind) cut to its hi.hi term, one-term TF32 (touches every batch).
+
+The decode-core faults, in ``paged_decode.cuh``, which the ragged kernel's
+decode rows and the paged decode kernel share (each mutant header is
+inlined into copies of both sources); phase 3's gate (the serving batch)
+and phase 10's (batches 8 and 64, bf16 and fp32) must both refuse each:
+
+- ``split_merge``: the merge of a split item drops its last live slice;
+- ``kv_ring``: the ring's copies are skipped for tiles at or past position
+  2048, so those stages are read without their copy ever landing (they
+  hold the tile of four tiles before, or whatever shared memory held: a
+  NaN output reads as an infinite error);
+- ``decode_group``: the last query head of a group is scored with its
+  neighbour's query row (the group's head mapping off by one), so its
+  output attends with the wrong head.
 
 Prints one JSON line per fault and shape; exits non-zero if a gate
 misses a fault.
@@ -167,6 +181,36 @@ def _latent_mutants(src: str):
             "tf32_1term_latent": one_term}
 
 
+def _core_mutants(header: str):
+    """``paged_decode.cuh`` with each decode-core fault."""
+    def sub(old, new):
+        if header.count(old) != 1:
+            raise ValueError(f"{old!r} is not in the header once")
+        return header.replace(old, new)
+    return {
+        # the loop that sums the slices' weighted outputs
+        "split_merge": sub("for (int sl = 0; sl < n_live; ++sl)\n      a = ",
+                           "for (int sl = 0; sl < n_live - 1; ++sl)\n"
+                           "      a = "),
+        "kv_ring": sub("    if (kv0 < end) {",
+                       "    if (kv0 < end && kv0 < 2048) {"),
+        # in the scalar loop's q and in mma's A operand
+        "decode_group": sub("core_float(q[hh * hd + d])",
+                            "core_float(q[(hh == nq - 1 && nq > 1 ? hh - 1 "
+                            ": hh) * hd + d])").replace(
+            "(q)[r * hd + d]",
+            "(q)[(r == nq - 1 && nq > 1 ? r - 1 : r) * hd + d]")}
+
+
+def _with_header(src: str, header: str) -> str:
+    """``src`` with ``#include "paged_decode.cuh"`` replaced by ``header``
+    (its ``#pragma once`` dropped)."""
+    inc = '#include "paged_decode.cuh"'
+    if inc not in src:
+        raise ValueError(f"{inc} not found")
+    return src.replace(inc, header.replace("#pragma once\n", ""))
+
+
 def _build_mutants(texts: dict) -> dict:
     """Builds each ``{name: source}`` under ``csrc/_build/``, one ``nvcc``
     per mutant, all at once; returns ``{name: library path}``."""
@@ -212,6 +256,57 @@ def _latent_faults(cs):
             if hit != (case in touched[fault]):
                 missed.append(f"{fault} {case}")
     build._LOADED[name] = real
+    return missed
+
+
+def _core_faults(cs):
+    """The ragged and paged decode kernels, clean and with each decode-core
+    fault, against phase 3's and phase 10's gates; returns the gates that
+    missed (every fault touches both, the clean kernels neither)."""
+    import torch
+    names = ("ragged_paged_attention", "paged_attention")
+    real = {n: build.load_library(n) for n in names}
+    with open(os.path.join(build.CSRC, "paged_decode.cuh")) as f:
+        header = f.read()
+    texts = {}
+    for fault, mutated in _core_mutants(header).items():
+        for n in names:
+            with open(os.path.join(build.CSRC, build.SOURCES[n])) as f:
+                texts[f"{fault}-{n}"] = _with_header(f.read(), mutated)
+    libs = _build_mutants(texts)
+    missed = []
+    for fault in ("clean", *_core_mutants(header)):
+        for n in names:
+            build._LOADED[n] = real[n] if fault == "clean" else \
+                ctypes.CDLL(libs[f"{fault}-{n}"])
+        ratios, _, pad = cs.ragged_serving_gate()
+        gates = {"phase3": max(ratios)}
+        for batch in (8, 64):
+            for dname, dtype in (("bf16", torch.bfloat16),
+                                 ("fp32", torch.float32)):
+                args, seq_lens, _ = cs.paged_inputs(batch, dtype, seed=batch)
+                got = cs.paged_attention_cuda(*args)
+                torch.cuda.synchronize()
+                want = cs.paged_attention_reference(*args)
+                gates[f"phase10/batch{batch}/{dname}"] = cs.paged_agreement(
+                    got, want, seq_lens, dtype)[0]
+                del args, got, want
+        torch.cuda.empty_cache()
+        # a NaN output (stages read that no copy ever wrote) reads as an
+        # infinite error, as the gates refuse it
+        gates = {g: r if r == r else float("inf") for g, r in gates.items()}
+        print(json.dumps({"fault": fault, "err_over_limit": gates,
+                          "padding_nonzero": pad}), flush=True)
+        hits = {g: r > 1.0 for g, r in gates.items()}
+        if fault == "clean":
+            missed += [f"clean {g}" for g, hit in hits.items() if hit]
+        else:
+            if not hits["phase3"]:
+                missed.append(f"{fault} phase3")
+            if not any(hit for g, hit in hits.items() if g != "phase3"):
+                missed.append(f"{fault} phase10")
+    for n in names:
+        build._LOADED[n] = real[n]
     return missed
 
 
@@ -265,6 +360,7 @@ def main() -> int:
                 missed.append(f"{name} train oracle gpt2_widths")
     build._LOADED["flash_attention"] = real
     missed += _latent_faults(cs)
+    missed += _core_faults(cs)
     if missed:
         print(f"gates missed: {missed}", file=sys.stderr)
         return 1

@@ -17,14 +17,18 @@ Two implementations of each function:
   the CPU path.
 - ``flash_fwd_cuda``, ``flash_bwd_fused_cuda``, ``flash_bwd_dq_cuda`` and
   ``flash_bwd_dkv_cuda``: the CUDA kernels of ``csrc/flash_attention.cu``
-  (kernels 1-4 of the JAX package).  Every kernel runs on the tensor cores
-  in every type: bf16 ``mma.sync`` for bf16 q/k/v, 3xTF32 for fp32 q/k
-  (the mixed forward's P.V on bf16 ``mma.sync``).  The kernels take head
-  dims 32, 64, 128 and 256; the wrappers zero-pad any other head dim up
-  to 256 to the next of those (``_pad_heads``) and slice the results
-  back, which is exact.  Each wrapper counts its launches in ``.launches`` and, of
-  those, the tensor-core ones (as the library reports them) in
-  ``.tensor_core_launches`` and the 3xTF32 ones in ``.tf32_launches``.
+  (kernels 1-4 of the JAX package).  At head dims up to 256 every kernel
+  runs on the tensor cores in every type: bf16 ``mma.sync`` for bf16
+  q/k/v, 3xTF32 for fp32 q/k (the mixed forward's P.V on bf16
+  ``mma.sync``), at head dims 32, 64, 128 and 256; the wrappers zero-pad
+  any other head dim up to 256 to the next of those (``_pad_heads``) and
+  slice the results back, which is exact.  Above 256 the wide route runs
+  (CUDA-core FMA, fp32 accumulation, any multiple of ``COLUMN_SLICE``
+  columns; wider head dims are zero-padded to the next multiple), where
+  the fused backward runs as the split dq and dk/dv kernels.  Each wrapper
+  counts its launches in ``.launches`` and, of those, the tensor-core ones
+  (as the library reports them) in ``.tensor_core_launches`` and the
+  3xTF32 ones in ``.tf32_launches``.
 
 ``_flash_fwd`` and ``_flash_bwd`` dispatch on the tensors' device: the
 plain versions for CPU tensors, the kernels for CUDA tensors, with no
@@ -39,7 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..csrc.build import KERNEL_HEAD_DIMS
+from ..csrc.build import COLUMN_SLICE, KERNEL_HEAD_DIMS
 
 LOG2E = 1.4426950408889634
 
@@ -178,15 +182,14 @@ _KERNEL_DTYPES = {(torch.float32, torch.float32): 0,
                   (torch.float32, torch.bfloat16): 2}
 
 
-def _kernel_head_dim(name: str, d: int) -> int:
+def _kernel_head_dim(d: int) -> int:
     """The kernels' head dim that ``d`` is padded to: the smallest of
-    ``KERNEL_HEAD_DIMS`` that holds it; raises ``ValueError`` above."""
+    ``KERNEL_HEAD_DIMS`` that holds it, and above the widest the next
+    multiple of ``COLUMN_SLICE`` (the wide route)."""
     for width in KERNEL_HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"{name}: head_dim {d} not supported; the kernels take "
-                     f"head dims 1 to {KERNEL_HEAD_DIMS[-1]} (padded to one "
-                     f"of {KERNEL_HEAD_DIMS})")
+    return -(-d // COLUMN_SLICE) * COLUMN_SLICE
 
 
 def _pad_heads(width: int, *xs: torch.Tensor):
@@ -232,7 +235,7 @@ def _kernel_lib():
 def _check_kernel_inputs(name: str, q, k, v, same_as_q=(), fp32=()):
     """Validates what every kernel needs and returns ``(b, sq, sk, h, d,
     the kernels' head dim d is padded to, type code)``; raises
-    ``ValueError`` on anything it does not take."""
+    ``ValueError`` on anything it does not take (every head dim runs)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q, k, v must be [b, s, h, d]")
     b, sq, h, d = q.shape
@@ -248,7 +251,7 @@ def _check_kernel_inputs(name: str, q, k, v, same_as_q=(), fp32=()):
             f"not supported; the kernels take (float32, float32, float32), "
             f"(bfloat16, bfloat16, bfloat16) and (float32, float32, "
             f"bfloat16)")
-    width = _kernel_head_dim(name, d)
+    width = _kernel_head_dim(d)
     for x in same_as_q:
         if tuple(x.shape) != tuple(q.shape) or x.dtype != q.dtype:
             raise ValueError(f"{name}: out/do must match q's shape and "
@@ -298,7 +301,8 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 
 # the C entry each wrapper calls, as hetu_flash_uses_tensor_cores numbers
-# them, and the routes it reports
+# them, and the tensor-core routes it reports (0 is the wide route's CUDA
+# cores)
 _ENTRY_FWD, _ENTRY_DQ, _ENTRY_DKV = 0, 1, 2
 _ROUTE_BF16, _ROUTE_TF32 = 1, 2
 
@@ -358,13 +362,37 @@ def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
                          segment_ids=None, causal_offset: int = 0):
     """Kernel 2, the fused backward: ``(dq, dk, dv)``.  dq is summed
     across KV tiles with fp32 atomics into a zeroed workspace allocated
-    here, then cast to q's dtype."""
+    here, then cast to q's dtype.  Above head dim 256 (the wide route,
+    which has no fused kernel) it runs as the split kernels 3 and 4 with
+    delta from one torch op: the two routes compute the same dq, dk and
+    dv."""
     b, sq, sk, h, d0, d, code = _check_kernel_inputs(
         "flash_bwd_fused_cuda", q, k, v, same_as_q=(out, do), fp32=(lse,))
     segs, qs_ptr, ks_ptr = _segment_pointers(
         "flash_bwd_fused_cuda", segment_ids, b, sq, sk, q.device)
     q, k, v, out, do = _pad_heads(d, q, k, v, out, do)
     lib = _kernel_lib()
+    if d > KERNEL_HEAD_DIMS[-1]:
+        delta = torch.einsum("bshd,bshd->bsh", do.float(), out.float())
+        dq = torch.empty_like(q)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.hetu_flash_bwd_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), qs_ptr,
+                ks_ptr, b, sq, sk, h, d, float(scale), int(bool(causal)),
+                int(causal_offset), code, stream)
+            _raise_on(err, lib, "flash attention fused backward (dq)")
+            err = lib.hetu_flash_bwd_dkv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
+                dk.data_ptr(), dv.data_ptr(), qs_ptr, ks_ptr, b, sq, sk, h,
+                d, float(scale), int(bool(causal)), int(causal_offset), code,
+                0, stream)
+        _raise_on(err, lib, "flash attention fused backward (dk/dv)")
+        _count_launch(flash_bwd_fused_cuda, lib, _ENTRY_DKV, d, code)
+        return _unpad_heads(d0, dq, dk, dv)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -482,7 +510,7 @@ def _flash_bwd(scale, causal, segment_ids, res, g, causal_offset=0):
         raise ValueError(f"no flash attention for device {q.device}")
     d = q.shape[-1]
     use_fused = _use_fused(k.shape[1], d, k.dtype)
-    q, k, v, out, do = _pad_heads(_kernel_head_dim("flash_attention", d),
+    q, k, v, out, do = _pad_heads(_kernel_head_dim(d),
                                   q, k, v, out, do.to(q.dtype).contiguous())
     if use_fused:
         return _unpad_heads(d, *flash_bwd_fused_cuda(

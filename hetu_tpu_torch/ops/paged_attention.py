@@ -12,10 +12,12 @@ Two implementations:
 - ``paged_attention_reference``: the plain PyTorch version, a gather of
   the page table and masked dense fp32 attention (``-inf`` mask).  It
   runs wherever its tensors are and is the CPU path.
-- ``paged_attention_cuda``: the CUDA kernel (``csrc/paged_attention.cu``)
-  for CUDA tensors.  Where the two differ: a request with ``seq_len ==
-  0`` gives a zero row from the kernel (the TPU kernel's contract) and
-  NaN from the plain version's all-masked softmax.
+- ``paged_attention_cuda``: the CUDA kernel (``csrc/paged_attention.cu``,
+  a launcher of the split-KV decode core ``csrc/paged_decode.cuh`` that the
+  ragged kernel's decode rows share) for CUDA tensors.  Where the two
+  differ: a request with ``seq_len == 0`` gives a zero row from the
+  kernel (the TPU kernel's contract) and NaN from the plain version's
+  all-masked softmax.
 
 ``paged_attention_decode`` dispatches on the tensors' device: the plain
 version for CPU tensors, the kernel for CUDA tensors.  A kernel that
@@ -29,7 +31,8 @@ from typing import Optional
 import torch
 
 from ..core.device import sm_count
-from ..csrc.build import KERNEL_HEAD_DIMS
+from .kv_split import (CORE_HEADS, core_splits, core_workspace,
+                       zeros_with_tickets)
 
 
 def _check_shapes(q, k_pages, v_pages, page_tables, seq_lens):
@@ -89,8 +92,6 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEADS_PER_BLOCK = 4          # kHeads of the kernel
-_MIN_SPLIT_LEN = 128          # KV positions a slice holds at least
 
 
 def _kernel_lib():
@@ -98,19 +99,33 @@ def _kernel_lib():
     lib = load_library("paged_attention")
     fn = lib.hetu_paged_attention_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.hetu_decode_core_info.argtypes = (
+            [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 4)
+        lib.hetu_decode_core_info.restype = ctypes.c_int
         lib.hetu_cuda_error_string.argtypes = [ctypes.c_int]
         lib.hetu_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _kv_splits(device, blocks: int, capacity: int) -> int:
-    """Slices of the KV axis: enough blocks for four per SM, none shorter
-    than ``_MIN_SPLIT_LEN`` positions of the page table's capacity."""
-    want = -(-4 * sm_count(device) // blocks)
-    return max(1, min(want, capacity // _MIN_SPLIT_LEN))
+def decode_core_info(head_dim: int, dtype: torch.dtype, page_size: int,
+                     kvh: int, max_pages: int, n_splits: int) -> dict:
+    """The decode core's geometry for these shapes, as the library computes
+    it: positions a ring stage (``tile``), bytes a row of a stage
+    (``row_bytes``), KV positions a slice (``split_len``) and a block's
+    dynamic shared memory; only ``chip_smoke.py`` prints it.  Needs the
+    built library (a CUDA machine)."""
+    lib = _kernel_lib()
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = lib.hetu_decode_core_info(head_dim, _KERNEL_DTYPES[dtype],
+                                    page_size, kvh, max_pages, n_splits,
+                                    *map(ctypes.byref, out))
+    if err != 0:
+        raise RuntimeError(f"decode core info: cudaError {err}")
+    return dict(zip(("tile", "row_bytes", "split_len", "smem_bytes"),
+                    (x.value for x in out)))
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
@@ -121,8 +136,12 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     """The CUDA kernel (the plain version's contract, except that a
     request with ``seq_len == 0`` gives a zero row instead of NaN).
     Every tensor must lie on one CUDA device; q, k_pages and v_pages share
-    a dtype (bf16 or fp32), head_dim is 1 to 256 (the pool is read in
-    place, never padded), and the metadata is int32.  ``paged_attention_cuda.launches`` counts the launches."""
+    a dtype (bf16 or fp32), the metadata is int32, and any head dim runs
+    (the pool is read in place, never padded).  The KV axis is split into
+    as many slices as the shapes and the SM count call for
+    (``kv_split.core_splits``), merged in the kernel by the last slice of
+    a request to finish.  ``paged_attention_cuda.launches`` counts the
+    launches."""
     b, nh, hd, ps, kvh = _check_shapes(q, k_pages, v_pages, page_tables,
                                        seq_lens)
     maxp = page_tables.shape[1]
@@ -137,39 +156,31 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"q/k_pages/v_pages must share a dtype in "
                          f"{list(_KERNEL_DTYPES)}, got {q.dtype}, "
                          f"{k_pages.dtype}, {v_pages.dtype}")
-    if not 1 <= hd <= KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"head_dim {hd} not supported; the kernel takes "
-                         f"1 to {KERNEL_HEAD_DIMS[-1]}")
     for name, x in (("page_tables", page_tables), ("seq_lens", seq_lens)):
         if x.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {x.dtype}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("paged_attention_cuda needs contiguous tensors")
-    # a lane reads its elements of q, K and V as one vector where the head
-    # dim allows
+    # K/V rows are copied in 16-byte (or 4-byte) pieces where the head dim
+    # allows
     if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
         raise ValueError("paged_attention_cuda needs q, k_pages and v_pages "
                          "aligned to 16 bytes")
     lib = _kernel_lib()
-    out = torch.empty_like(q)
     if b == 0:
-        return out
-    chunks = -(-(nh // kvh) // _HEADS_PER_BLOCK)
-    n_splits = _kv_splits(q.device, b * kvh * chunks, maxp * ps)
-    ws_acc = ws_ml = None
-    if n_splits > 1:
-        ws_acc = torch.empty((b, nh, n_splits, hd), dtype=torch.float32,
-                             device=q.device)
-        ws_ml = torch.empty((b, nh, n_splits, 2), dtype=torch.float32,
-                            device=q.device)
+        return torch.empty_like(q)
+    g = nh // kvh
+    n_splits = core_splits(sm_count(q.device), b, kvh, g, maxp * ps)
+    out, tickets = zeros_with_tickets(q, b * kvh * -(-g // CORE_HEADS))
+    # ws stays alive until the launch is enqueued
+    ws, ws_acc, ws_ml = core_workspace(b, nh, n_splits, hd, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.hetu_paged_attention_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             out.data_ptr(),
-            ws_acc.data_ptr() if ws_acc is not None else None,
-            ws_ml.data_ptr() if ws_ml is not None else None,
-            page_tables.data_ptr(), seq_lens.data_ptr(),
+            ws_acc, ws_ml, tickets, page_tables.data_ptr(),
+            seq_lens.data_ptr(),
             b, nh, kvh, hd, ps, maxp, n_splits, float(scale),
             _KERNEL_DTYPES[q.dtype], stream)
     if err != 0:

@@ -23,7 +23,9 @@ Two implementations with that contract:
   per-row gather of the page table and masked fp32 attention.  It runs
   wherever its tensors are and is the CPU path.
 - ``ragged_paged_attention_cuda``: the CUDA kernel
-  (``csrc/ragged_paged_attention.cu``) for CUDA tensors.
+  (``csrc/ragged_paged_attention.cu``) for CUDA tensors: decode rows
+  through the split-KV decode core (``csrc/paged_decode.cuh``), prefill
+  chunks on the tensor cores (bf16) or in scalar fp32, any head dim.
 
 ``ragged_paged_attention`` dispatches on the tensors' device: the plain
 version for CPU tensors, the kernel for CUDA tensors.  A kernel that
@@ -54,7 +56,8 @@ import numpy as np
 import torch
 
 from ..core.device import sm_count
-from ..csrc.build import KERNEL_HEAD_DIMS
+from .kv_split import (CORE_HEADS, core_splits, core_workspace, kv_splits,
+                       zeros_with_tickets)
 
 # finite mask value of the TPU kernels (-0.7 * float32 max): masked
 # scores stay finite, so a fully-masked row never produces NaN
@@ -143,7 +146,7 @@ def _kernel_lib():
     lib = load_library("ragged_paged_attention")
     fn = lib.hetu_ragged_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.hetu_cuda_error_string.argtypes = [ctypes.c_int]
@@ -159,9 +162,13 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                 ) -> torch.Tensor:
     """The CUDA kernel (same contract as the plain version).  Every
     tensor must lie on one CUDA device; q, k_pages and v_pages share a
-    dtype (bf16 or fp32), the head dim is 1 to 256 (the pool is read in
-    place, never padded) and the metadata is int32.  The output is
-    allocated zeroed here and the kernel writes only real tokens.
+    dtype (bf16 or fp32), the metadata is int32, and any head dim runs
+    (the pool is read in place, never padded).  One launch: the decode
+    rows (q_len 1) split over the KV axis into as many slices as the
+    shapes and the SM count call for (``kv_split.core_splits``, never the
+    rows' values), merged in the kernel by the last slice to finish; the
+    other rows unsplit.  The output is allocated zeroed here and the
+    kernel writes only real tokens.
     ``ragged_paged_attention_cuda.launches`` counts the launches."""
     t, nh, hd, ps, kvh, s = _check_ragged_shapes(
         q, k_pages, v_pages, q_lens, cu_q, page_tables, ctx_lens, max_q)
@@ -177,9 +184,6 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"q/k_pages/v_pages must share a dtype in "
                          f"{list(_KERNEL_DTYPES)}, got {q.dtype}, "
                          f"{k_pages.dtype}, {v_pages.dtype}")
-    if not 1 <= hd <= KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"head_dim {hd} not supported; the kernel takes "
-                         f"1 to {KERNEL_HEAD_DIMS[-1]}")
     for name, x in zip(("q_lens", "cu_q", "page_tables", "ctx_lens"),
                        tensors[3:]):
         if x.dtype != torch.int32:
@@ -187,24 +191,28 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("ragged_paged_attention_cuda needs contiguous "
                          "tensors")
-    # the bf16 kernel reads K/V rows in 16-byte vectors and q in 4-byte
+    # K/V rows are read in 16-byte vectors (or 4-byte words) and q in 4-byte
     # words where the head dim allows; a misaligned address would fault
     # asynchronously, at a later sync
     if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
         raise ValueError("ragged_paged_attention_cuda needs q, k_pages and "
                          "v_pages aligned to 16 bytes")
     lib = _kernel_lib()
-    out = torch.zeros_like(q)
     if s == 0 or t == 0:
-        return out
+        return torch.zeros_like(q)
+    g = nh // kvh
+    n_splits = core_splits(sm_count(q.device), s, kvh, g, maxp * ps)
+    out, tickets = zeros_with_tickets(q, s * kvh * -(-g // CORE_HEADS))
+    # ws stays alive until the launch is enqueued
+    ws, ws_acc, ws_ml = core_workspace(s, nh, n_splits, hd, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.hetu_ragged_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             out.data_ptr(), q_lens.data_ptr(), cu_q.data_ptr(),
             page_tables.data_ptr(), ctx_lens.data_ptr(),
-            t, nh, kvh, hd, ps, s, maxp, int(max_q), float(scale),
-            _KERNEL_DTYPES[q.dtype], stream)
+            ws_acc, ws_ml, tickets, t, nh, kvh, hd, ps, s, maxp, int(max_q),
+            n_splits, float(scale), _KERNEL_DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             "ragged paged attention kernel failed: "
@@ -359,15 +367,8 @@ _LATENT_MAX_WIDTH = 640       # d_c + d_r: q and K tiles in shared memory
 _LATENT_SPLIT_PAIRS = 128     # kSplitPairs: rows this short split the KV axis
 _LATENT_MIN_SPLIT_LEN = 128   # KV positions a slice holds at least
 _LATENT_MAX_SPLITS = 16
-
-
-def _latent_kv_splits(device, n_rows: int, capacity: int) -> int:
-    """Slices of the KV axis for the short (decode) rows: two blocks per SM
-    if every row is short, none shorter than ``_LATENT_MIN_SPLIT_LEN``
-    positions of the page table's capacity."""
-    want = 2 * sm_count(device) // n_rows
-    return max(1, min(want, capacity // _LATENT_MIN_SPLIT_LEN,
-                      _LATENT_MAX_SPLITS))
+# slices for two blocks per SM if every row is short
+_LATENT_BLOCKS_PER_SM = 2
 
 
 def _latent_kernel_lib():
@@ -476,7 +477,10 @@ def latent_ragged_paged_attention_cuda(
         return out
     from .quantization import _CODES
     code = (ctypes.c_float * 16)(*_CODES.get(quant, _CODES["nf4"]).tolist())
-    n_splits = _latent_kv_splits(q.device, s, maxp * ps)
+    n_splits = kv_splits(sm_count(q.device), s, maxp * ps,
+                         per_sm=_LATENT_BLOCKS_PER_SM,
+                         min_len=_LATENT_MIN_SPLIT_LEN,
+                         most=_LATENT_MAX_SPLITS)
     ws_acc = ws_ml = None
     if n_splits > 1:
         ws_acc = torch.empty((s, _LATENT_SPLIT_PAIRS, n_splits, d_c),

@@ -38,6 +38,21 @@ CASES = [
     ([1, 1, 0, 37], [300, 64, 0, 200], 5, 64, 8, 2, 256, 64),
     ([3, 0, 0, 7], [20, 0, 0, 7], 4, 8, 8, 2, 100, 8),
     ([1, 5, 0, 6], [13, 10, 0, 6], 3, 8, 4, 2, 67, 8),
+    # decode-heavy batches through the split-KV decode core: many slices
+    # (capacity 4096: 16 slices of 256 on an H100), q_len 1 beside a chunk,
+    # contexts on slice edges (256, 257) and page edges (64, 65, 320 inside
+    # the second slice), one slice (a pool of 16 positions)
+    ([1, 1, 1, 1, 0, 1, 40], [4096, 256, 257, 65, 0, 320, 300], 64, 64, 32,
+     8, 128, 64),
+    ([1, 1, 1, 1, 1, 1], [4096, 3001, 1500, 64, 1, 2048], 64, 64, 32, 8, 128,
+     1),
+    ([1, 1], [13, 5], 2, 8, 8, 2, 64, 8),
+    # head dims above 256 (every token through the decode core), and 300
+    # (rows on 8-byte, not 16-byte, boundaries in bf16)
+    ([1, 5, 0, 6], [13, 10, 0, 6], 3, 8, 4, 2, 264, 8),
+    ([1, 1, 0, 37], [300, 64, 0, 200], 5, 64, 8, 2, 320, 64),
+    ([40, 1, 3], [40, 130, 3], 3, 64, 8, 4, 512, 40),
+    ([1, 1, 0, 37], [300, 64, 0, 200], 5, 64, 8, 2, 300, 64),
 ]
 
 
@@ -120,11 +135,16 @@ def test_kernel_rejects_mixed_dtypes(cuda_device):
 
 
 def test_kernel_refuses_head_dims_above_256(cuda_device):
-    args, max_q, _ = _inputs(CASES[0], torch.float32, cuda_device)
-    wide = tuple(torch.zeros(x.shape[:-1] + (264,), device=cuda_device)
-                 for x in args[:3])
-    with pytest.raises(ValueError, match="head_dim 264 not supported"):
-        ragged_paged_attention_cuda(*wide, *args[3:], max_q=max_q)
+    """Head dims above 256 are no longer refused (fault F1 closed): 264
+    runs through the decode core and agrees with the plain version."""
+    case = CASES[0][:6] + (264, CASES[0][7])
+    args, max_q, mask = _inputs(case, torch.float32, cuda_device)
+    got = ragged_paged_attention_cuda(*args, max_q=max_q)
+    torch.cuda.synchronize()
+    want = ragged_paged_attention_reference(*args, max_q=max_q)
+    assert got.shape[-1] == 264
+    mask = mask.to(cuda_device)
+    assert (got - want).abs()[mask].max().item() <= 2e-5
 
 
 def test_kernel_rejects_misaligned_pages(cuda_device):
@@ -179,7 +199,16 @@ FLASH_CASES = [
     (2, 130, 130, 3, 256, False, None, 0),
     (1, 200, 200, 2, 200, True, None, 0),
     (1, 64, 192, 2, 200, True, "tuple", 128),
+    # the wide route: 512 and 320 (padded to 384), 264 and 300 (padded to
+    # 384, 300 off the 8-element boundary)
+    (1, 200, 200, 2, 512, True, None, 0),
+    (2, 128, 128, 2, 512, True, "masked", 0),
+    (1, 200, 136, 2, 320, True, None, -40),
+    (1, 64, 192, 2, 320, True, "tuple", 128),
+    (2, 130, 130, 3, 264, False, None, 0),
+    (1, 100, 300, 2, 300, True, None, 200),
 ]
+WIDE = 256     # above this head dim the wide route runs, on the CUDA cores
 
 
 def _flash_inputs(case, dtypes, device, seed=0):
@@ -282,11 +311,13 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
     if case[7] < 0:
         assert torch.count_nonzero(out[:, :-case[7]]).item() == 0
         assert bool((lse[:, :, :-case[7]] == float("-inf")).all())
-    # every kernel launches on the tensor cores in every type mix: bf16
-    # mma.sync for bf16 q/k/v, 3xTF32 for fp32 q/k
-    tf32 = int(dtypes != "bf16")
+    # up to head dim 256 every kernel launches on the tensor cores in every
+    # type mix: bf16 mma.sync for bf16 q/k/v, 3xTF32 for fp32 q/k; above,
+    # on the wide route's CUDA cores
+    wide = case[4] > WIDE
+    tc, tf32 = int(not wide), int(dtypes != "bf16" and not wide)
     assert [(w.launches - a, w.tensor_core_launches - t, w.tf32_launches - f)
-            for w, (a, t, f) in zip(wrappers, n0)] == [(1, 1, tf32)] * 4
+            for w, (a, t, f) in zip(wrappers, n0)] == [(1, tc, tf32)] * 4
 
 
 def test_flash_dispatch_takes_the_byte_rule_on_cuda(cuda_device):
@@ -327,10 +358,11 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q, k, v, do, *_ = _flash_inputs(FLASH_CASES[0], "fp32", cuda_device)
     with pytest.raises(ValueError, match="dtypes"):
         fa.flash_fwd_cuda(q.half(), k.half(), v.half(), 0.1, True)
-    # head dims up to 256 are padded to the kernels' 32, 64, 128 or 256
+    # every head dim runs: 264 on the wide route (padded to 384), cut back
     wide = q.new_zeros(q.shape[:3] + (264,))
-    with pytest.raises(ValueError, match="head_dim 264 not supported"):
-        fa.flash_fwd_cuda(wide, wide, wide, 0.1, True)
+    out, lse = fa.flash_fwd_cuda(wide, wide, wide, 0.1, True)
+    assert out.shape == wide.shape and not out.any()
+    assert torch.isfinite(lse).all()
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
                           k, v, 0.1, True)
@@ -483,6 +515,17 @@ PAGED_CASES = [
     ([300, 64, 0, 1000, 513], 16, 64, 8, 8, 256),      # split KV axis
     ([19, 8], 4, 8, 4, 2, 100),
     ([1, 8, 2], 2, 4, 10, 2, 67),
+    # batches of 1, 8 and 64 at Llama-3-8B's shapes (16 KV slices of 256 on
+    # an H100 at batch 1 and 8, 3 at 64): slice edges (256, 257), page
+    # edges (64, 65), an empty request
+    ([4096], 64, 64, 32, 8, 128),
+    ([4096, 256, 257, 65, 0, 64, 1, 3001], 64, 64, 32, 8, 128),
+    ([(613 * i) % 4097 for i in range(64)], 64, 64, 32, 8, 128),
+    # head dims above 256, and 300 (rows on 8-byte boundaries in bf16)
+    ([13, 5, 0, 24], 3, 8, 8, 2, 264),
+    ([300, 64, 0, 1000, 513], 16, 64, 8, 2, 320),
+    ([300, 64, 0, 1000, 513], 16, 64, 8, 8, 512),
+    ([19, 8, 1], 4, 8, 4, 2, 300),
 ]
 
 
@@ -541,11 +584,11 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
                                       cuda_device)
     with pytest.raises(ValueError, match="share a dtype"):
         pa.paged_attention_cuda(q.bfloat16(), kp, vp, pt, sl)
-    # head dims 1 to 256 run; above, the wrapper refuses
-    wide = (torch.zeros(x.shape[:-1] + (264,), device=cuda_device)
-            for x in (q, kp, vp))
-    with pytest.raises(ValueError, match="head_dim 264 not supported"):
-        pa.paged_attention_decode(*wide, pt, sl)
+    # every head dim runs (264: past 256, read in place)
+    wide = [torch.zeros(x.shape[:-1] + (264,), device=cuda_device)
+            for x in (q, kp, vp)]
+    out = pa.paged_attention_decode(*wide, pt, sl)
+    assert out.shape == wide[0].shape and not out.any()
     with pytest.raises(ValueError, match="must be int32"):
         pa.paged_attention_cuda(q, kp, vp, pt.long(), sl)
     with pytest.raises(ValueError, match="contiguous"):

@@ -248,10 +248,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     with pytest.raises(ValueError, match="one CUDA device"):
         pfa.flash_fwd_cuda(tq, tk, tv, 0.125, True)
-    # head dims up to 256 are padded to the kernels' 32, 64, 128 or 256;
-    # above, the wrappers refuse before they look at the device
+    # every head dim runs on the card (above 256 on the wide route), so a
+    # wide one on the CPU is refused for its device alone
     wide = tq.new_zeros(tq.shape[:3] + (264,))
-    with pytest.raises(ValueError, match="head_dim 264 not supported"):
+    with pytest.raises(ValueError, match="one CUDA device"):
         pfa.flash_fwd_cuda(wide, wide, wide, 0.125, True)
     with pytest.raises(ValueError, match="dtypes"):
         pfa.flash_fwd_cuda(tq.bfloat16(), tk, tv, 0.125, True)
@@ -259,11 +259,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 # ---------------------------------------------------------------------------
 # head dims the kernels do not take natively: zero-padded to 32, 64, 128
-# or 256
+# or 256, and above 256 to a multiple of 128 (the wide route)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kernel", ["forward", "fused", "split"])
-@pytest.mark.parametrize("d", [16, 32, 80, 96, 200, 256])
+@pytest.mark.parametrize("d", [16, 32, 80, 96, 200, 256, 320, 512])
 def test_head_padding_is_exact_against_jax_kernels(d, kernel):
     """The CUDA wrappers' head-pad transform (``_pad_heads`` to
     ``_kernel_head_dim``, the kernel, ``_unpad_heads``) run around the
@@ -271,13 +271,15 @@ def test_head_padding_is_exact_against_jax_kernels(d, kernel):
     unpadded inputs, at the same tolerances as above (forward 1e-4,
     backward 1e-3): zero columns change no score, and the scale stays that
     of the true head dim.  The backward gets the padded forward's own out
-    and lse, padded again, as ``_Flash`` hands them on."""
+    and lse, padded again, as ``_Flash`` hands them on.  320 is padded to
+    384 and 512 kept, in 128-column slices of the wide route."""
     b, s, h = 2, 96, 2
     q, k, v, do = _inputs(b, s, s, h, d, seed=5)
     segs = _segments("tuple", b, s, s)
     scale = 1.0 / np.sqrt(d)
-    width = pfa._kernel_head_dim("test", d)
-    assert width == {16: 32, 32: 32, 80: 128, 96: 128, 200: 256, 256: 256}[d]
+    width = pfa._kernel_head_dim(d)
+    assert width == {16: 32, 32: 32, 80: 128, 96: 128, 200: 256, 256: 256,
+                     320: 384, 512: 512}[d]
     jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
     jo, jl = jfa._flash_fwd(jq, jk, jv, scale, True, _to_jax(segs), 0)
     tq, tk, tv, tdo = pfa._pad_heads(width,

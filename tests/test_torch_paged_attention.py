@@ -7,6 +7,8 @@ partial last pages, shuffled page tables with trash-page tails).
 Tolerance: fp32, rtol = atol = 2e-5 (the three differ only in the order
 of fp32 sums).
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,11 +56,11 @@ def test_plain_version_matches_jax_reference_and_pallas(case):
     np.testing.assert_allclose(got, pal, **TOL)
 
 
-@pytest.mark.parametrize("hd", [80, 96, 256])
+@pytest.mark.parametrize("hd", [80, 96, 256, 264, 320, 512])
 @pytest.mark.parametrize("case", ["gqa_shuffled", "one_token_contexts"])
 def test_plain_version_matches_jax_at_wide_head_dims(case, hd):
-    """Head dims that the card's kernel runs at a wider template width (80
-    and 96 at 128) or at its widest (256)."""
+    """Head dims that the card's decode core reads in place, in 16-byte
+    chunks (80, 96, 256) and past 256 (264, 320, 512)."""
     nh, kvh, _, ps, num_pages, pt, seq_lens = CASES[case]
     rng = np.random.RandomState(2)
     arrays = (rng.randn(len(seq_lens), nh, hd).astype(np.float32),
@@ -139,3 +141,181 @@ def test_shape_checks_raise_the_same_errors(which, match):
     with pytest.raises(ValueError, match=match) as port_err:
         paged_attention_reference(*map(torch.from_numpy, bad))
     assert str(port_err.value) == str(jax_err.value)
+
+
+# ---------------------------------------------------------------------------
+# the split-KV decode core (csrc/paged_decode.cuh): its arithmetic emulated
+# in plain torch, and the one split helper
+# ---------------------------------------------------------------------------
+
+from hetu_tpu.ops.ragged_paged_attention import (  # noqa: E402
+    ragged_paged_attention_reference as jax_ragged_reference)
+from hetu_tpu_torch.ops.kv_split import (  # noqa: E402
+    CORE_HEADS, CORE_MIN_SPLIT_LEN, core_splits, kv_splits,
+    zeros_with_tickets)
+from hetu_tpu_torch.ops.ragged_paged_attention import (  # noqa: E402
+    DEFAULT_MASK_VALUE, ragged_paged_attention_reference)
+
+H100_SMS = 132
+
+
+def _core_geometry(hd, itemsize, capacity, n_splits):
+    """(positions a ring stage, KV positions a slice) as ``core_geometry``
+    of csrc/paged_decode.cuh computes them: rows padded to 64 bytes past a
+    multiple of 128, the largest tile up to 32 whose 4 stages of K and V
+    fit 96 KB, slices of ceil(capacity / n_splits) rounded up to tiles."""
+    chunks = -(-hd * itemsize // 16)
+    ld = (chunks * 16 + 63) // 128 * 128 + 64
+    tile = 32
+    while tile > 1 and 4 * 2 * tile * ld > 96 * 1024:
+        tile //= 2
+    return tile, -(-(-(-capacity // n_splits)) // tile) * tile
+
+
+def _core_emulation(q, k, v, n_pos, tile, split_len, scale):
+    """The decode core's arithmetic for one item: q [g, hd] against the
+    first n_pos rows of the item's gathered k/v [capacity, hd], all fp32.
+    The KV axis is cut into slices of ``split_len``; each slice runs the
+    online softmax over tiles of ``tile`` positions into (max, sum,
+    unnormalized output), slices past the context give nothing, and the
+    live slices are merged (one live slice is written directly, none
+    gives 0)."""
+    states = []
+    for begin in range(0, n_pos, split_len):
+        end = min(n_pos, begin + split_len)
+        m = torch.full((q.shape[0],), DEFAULT_MASK_VALUE)
+        l = torch.zeros(q.shape[0])
+        acc = torch.zeros_like(q)
+        for kv0 in range(begin, end, tile):
+            kv1 = min(kv0 + tile, end)
+            s = (q @ k[kv0:kv1].T) * scale
+            m_new = torch.maximum(m, s.max(-1).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[:, None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[:, None] + p @ v[kv0:kv1]
+            m = m_new
+        states.append((m, l, acc))
+    if not states:
+        return torch.zeros_like(q)
+    if len(states) == 1:
+        m, l, acc = states[0]
+        return acc / l[:, None]
+    mm = torch.stack([st[0] for st in states]).max(0).values
+    w = [torch.exp(st[0] - mm) for st in states]
+    l = sum(st[1] * wi for st, wi in zip(states, w))
+    acc = sum(st[2] * wi[:, None] for st, wi in zip(states, w))
+    return acc / l[:, None]
+
+
+# the item's context, named by what it exercises (ps 16, capacity 4096:
+# 16 slices of 256 positions, tiles of 32)
+CORE_CONTEXTS = {"empty": 0, "one": 1, "slice_edge": 256,
+                 "past_slice_edge": 257, "page_edge_in_slice": 256 + 48,
+                 "longest": 4096, "empty_trailing_slices": 100}
+
+
+@pytest.mark.parametrize("ctx", sorted(CORE_CONTEXTS),
+                         ids=sorted(CORE_CONTEXTS))
+def test_decode_core_emulation_matches_plain_versions_and_jax(ctx):
+    """The core's slices and merge, emulated, against the paged and ragged
+    plain versions and the JAX references (decode rows of q_len 1), fp32
+    within 2e-5 (the order of fp32 sums).  Context 0 gives the zero row of
+    the TPU kernel's contract (the Pallas kernel in interpret mode, on a
+    small pool), where the plain versions' all-masked softmax gives NaN or
+    a mean."""
+    n_pos = CORE_CONTEXTS[ctx]
+    nh, kvh, hd, ps = 8, 2, 32, 16
+    g = nh // kvh
+    others = [1, 700, 4096]
+    seq_lens = [n_pos] + others
+    maxp = 4096 // ps
+    rng = np.random.RandomState(7)
+    num_pages = 1 + sum(-(-c // ps) for c in seq_lens)
+    perm = rng.permutation(np.arange(1, num_pages))
+    pt = np.zeros((len(seq_lens), maxp), np.int32)
+    k0 = 0
+    for i, c in enumerate(seq_lens):
+        need = -(-c // ps)
+        pt[i, :need] = perm[k0:k0 + need]
+        k0 += need
+    q = rng.randn(len(seq_lens), nh, hd).astype(np.float32)
+    kp = rng.randn(num_pages, ps, kvh, hd).astype(np.float32)
+    vp = rng.randn(num_pages, ps, kvh, hd).astype(np.float32)
+    sl = np.asarray(seq_lens, np.int32)
+    n_splits = core_splits(H100_SMS, len(seq_lens), kvh, g, maxp * ps)
+    tile, split_len = _core_geometry(hd, 4, maxp * ps, n_splits)
+    assert (tile, split_len) == (32, 256)
+    scale = hd ** -0.5
+    emu = np.zeros_like(q)
+    for b in range(len(seq_lens)):
+        kk = torch.from_numpy(kp[pt[b]].reshape(-1, kvh, hd))
+        vv = torch.from_numpy(vp[pt[b]].reshape(-1, kvh, hd))
+        for h in range(kvh):
+            emu[b, h * g:(h + 1) * g] = _core_emulation(
+                torch.from_numpy(q[b, h * g:(h + 1) * g]), kk[:, h],
+                vv[:, h], seq_lens[b], tile, split_len, scale).numpy()
+    live = sl > 0
+    arrays = (q, kp, vp, pt, sl)
+    want = paged_attention_reference(*map(torch.from_numpy, arrays)).numpy()
+    np.testing.assert_allclose(emu[live], want[live], **TOL)
+    jargs = tuple(map(jnp.asarray, arrays))
+    np.testing.assert_allclose(emu[live], np.asarray(jax_reference(*jargs))
+                               [live], **TOL)
+    # the same requests as decode rows of the ragged contract
+    cu = np.arange(len(seq_lens) + 1, dtype=np.int32)
+    rargs = (q, kp, vp, np.ones(len(seq_lens), np.int32), cu, pt, sl)
+    rag = ragged_paged_attention_reference(
+        *map(torch.from_numpy, rargs), max_q=1).numpy()
+    np.testing.assert_allclose(emu[live], rag[live], **TOL)
+    np.testing.assert_allclose(
+        emu[live], np.asarray(jax_ragged_reference(
+            *map(jnp.asarray, rargs), max_q=1))[live], **TOL)
+    if not live.all():
+        assert not emu[~live].any()
+        # the TPU kernel's zero row, on a pool of 4 pages a request
+        small = (q[:1], kp, vp, pt[:1, :4], sl[:1])
+        pal = np.asarray(jax_pallas(*map(jnp.asarray, small),
+                                    interpret=True))
+        np.testing.assert_array_equal(pal, np.zeros_like(pal))
+
+
+@pytest.mark.parametrize("sms,blocks,capacity,per_sm,min_len,most", [
+    (132, 72, 8192, 8, 256, None),       # phase 3's batch: 9 rows x 8 heads
+    (132, 64, 4096, 8, 256, None),       # paged decode, batch 8
+    (132, 512, 4096, 8, 256, None),      # paged decode, batch 64
+    (132, 9, 8192, 2, 128, 16),          # the latent kernel's rows
+    (132, 4, 100, 8, 256, None),         # a pool shorter than one slice
+    (1, 10 ** 6, 10 ** 6, 8, 256, None),  # more blocks than the card holds
+    (132, 1, 10 ** 6, 8, 256, 64),       # capped by `most`
+])
+def test_kv_splits_takes_shapes_and_keeps_slices_long(
+        sms, blocks, capacity, per_sm, min_len, most):
+    """The one split helper of the three wrappers: plain ints in, at least
+    one slice out, and no slice shorter than its minimum (unless the pool
+    itself is); the decode core's wrapper form gives the same."""
+    n = kv_splits(sms, blocks, capacity, per_sm=per_sm, min_len=min_len,
+                  most=most)
+    assert type(n) is int and n >= 1
+    assert n == 1 or capacity // n >= min_len
+    assert most is None or n <= most
+    assert n <= max(1, -(-per_sm * sms // blocks))
+    if (per_sm, min_len, most) == (8, CORE_MIN_SPLIT_LEN, None) and \
+            blocks % 2 == 0:
+        # core_splits: a block per (item, KV head, CORE_HEADS query heads
+        # of the group): here items of 2 KV heads of CORE_HEADS heads each
+        assert core_splits(sms, blocks // 2, 2, CORE_HEADS, capacity) == n
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 5, 7), torch.bfloat16),
+                                         ((4, 32, 128), torch.float32)])
+def test_zeros_with_tickets_gives_a_zeroed_output_and_tickets(shape, dtype):
+    """One zeroed buffer: the output of ``like``'s shape, then 11 int32
+    tickets at a 16-byte-aligned address past the output's bytes."""
+    like = torch.ones(shape, dtype=dtype)
+    out, tickets = zeros_with_tickets(like, 11)
+    assert out.shape == shape and out.dtype == dtype and out.is_contiguous()
+    assert not out.any()
+    assert tickets % 16 == 0
+    assert tickets >= out.data_ptr() + out.numel() * out.element_size()
+    assert ctypes.string_at(tickets, 4 * 11) == bytes(4 * 11)

@@ -72,8 +72,9 @@ def test_plain_version_matches_jax_reference_and_pallas(case):
 
 
 # head dims that the card's kernel runs at a wider template width (80 and 96
-# at 128) or at its widest (256), reading the pool in place
-@pytest.mark.parametrize("hd", [80, 96, 256])
+# at 128) or at its widest (256), and above 256 through the decode core
+# (264, 320, 512), reading the pool in place
+@pytest.mark.parametrize("hd", [80, 96, 256, 264, 320, 512])
 @pytest.mark.parametrize("case", [CASES[0], CASES[1], CASES[5]])
 def test_plain_version_matches_jax_at_wide_head_dims(case, hd):
     arrays, max_q, real = _inputs(case, hd=hd, seed=1)
