@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
    flash kernel's dynamic shared memory and blocks an SM; every flash
    kernel (the forward, dq and the dk/dv template, split and fused, in
    every type mix, bf16 and 3xTF32, at head dims 32, 64, 128 and 256)
-   runs on the tensor cores, the wide route (head dims above 256) is built
+   runs on the tensor cores (the bf16 forward and dk/dv template at 64 and
+   128 on wgmma with TMA), the wide route (head dims above 256) is built
    in every type mix, the ragged kernel at every template width (and the
    wide one) in both types, the paged decode kernel in both, and no kernel
    of the port may spill;
@@ -49,7 +50,8 @@ Phases, each printing one JSON line:
    only as a yardstick; it takes no mixed types) with CUDA events around
    the calls, host work included, and the kernels and SDPA's forward
    also around replays of a CUDA graph of one call (``device_ms``, the
-   device's time alone);
+   device's time alone), SDPA's backward by the kernel times
+   ``torch.profiler`` reads (``library_device_ms``);
 7. train_main_path: ``graph("define_and_run")`` -> placeholders ->
    ``GPTLMHeadModel`` -> ``AdamOptimizer(lr=3e-4).minimize`` ->
    ``g.run(loss, [loss, train_op], feeds, num_micro_batches=2)`` for six
@@ -58,7 +60,8 @@ Phases, each printing one JSON line:
    random bf16 weights; the loss must fall and each flash kernel launch
    once per layer, micro-batch and step on the backward the byte rule
    picks, every launch a tensor-core kernel on its route (3xTF32 for the
-   LLaMA path's fp32 and mixed attention, bf16 for GPT-2)
+   LLaMA path's fp32 and mixed attention; for GPT-2 the forward and the
+   fused backward on wgmma, ``wgmma_launches``)
    (``train_profile`` then reads two more steps with
    ``torch.profiler``);
 8. train_oracle: 2-layer fp32 models at both widths train three steps on
@@ -217,16 +220,25 @@ def phase_device():
 
 
 # the flash kernels, all on the tensor cores: (kernel, head dim, q/k and v
-# types); the bf16 dk/dv template has no type arguments, the 3xTF32 one
-# only v's (q/k are fp32); split and fused instantiations of the dk/dv
-# templates share a key, so phase 2 also counts 48
+# types); the bf16 forward and dk/dv template run on wgmma at head dims 64
+# and 128 and on mma.sync at 32 and 256, and these bf16 kernels have no
+# type arguments, the 3xTF32 dk/dv template only v's (q/k are fp32); split
+# and fused instantiations of the dk/dv templates share a key, so phase 2
+# also counts 48
 FLASH_HEAD_DIMS = (32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128)
 FLASH_KERNELS = {
-    *((kernel, hd, types) for kernel in ("flash_fwd_mma_kernel",
-                                         "flash_bwd_dq_mma_kernel")
-      for hd in FLASH_HEAD_DIMS for types in ("fp32/fp32", "bf16/bf16",
-                                              "fp32/bf16")),
-    *(("flash_bwd_dkv_mma_kernel", hd, None) for hd in FLASH_HEAD_DIMS),
+    *(("flash_bwd_dq_mma_kernel", hd, types) for hd in FLASH_HEAD_DIMS
+      for types in ("fp32/fp32", "bf16/bf16", "fp32/bf16")),
+    *(("flash_fwd_mma_kernel", hd, types) for hd in FLASH_HEAD_DIMS
+      for types in ("fp32/fp32", "fp32/bf16")),
+    *(("flash_fwd_mma_kernel", hd, "bf16/bf16") for hd in FLASH_HEAD_DIMS
+      if hd not in WGMMA_HEAD_DIMS),
+    *(("flash_bwd_dkv_mma_kernel", hd, None) for hd in FLASH_HEAD_DIMS
+      if hd not in WGMMA_HEAD_DIMS),
+    *((kernel, hd, None) for kernel in ("flash_fwd_wgmma_kernel",
+                                        "flash_bwd_dkv_wgmma_kernel")
+      for hd in WGMMA_HEAD_DIMS),
     *(("flash_bwd_dkv_tf32_kernel", hd, types) for hd in FLASH_HEAD_DIMS
       for types in ("fp32/fp32", "fp32/bf16"))}
 # the wide route's kernels (head dims above 256), in every type mix
@@ -317,7 +329,8 @@ def phase_build():
         raise AssertionError(
             f"the tensor-core flash kernels (forward, dq, and dk/dv fused "
             f"and split, in every type mix, at head dims 32, 64, 128 and "
-            f"256) must all be built: {flash}")
+            f"256; the bf16 forward and dk/dv on wgmma at 64 and 128) must "
+            f"all be built: {flash}")
     wide = [(e["kernel"], e["types"])
             for e in report["flash_attention"]["entries"]
             if "_wide_" in e["kernel"]]
@@ -902,12 +915,33 @@ def check_flash(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
     return res, plain, kernel_outs
 
 
+def kernel_device_ms(fn, iters=5):
+    """Device time of one call of ``fn``: the self device time of every
+    CUDA kernel it launches, summed by ``torch.profiler`` over ``iters``
+    calls (after one warm-up call) and divided by ``iters``.  For work that
+    does not capture in a CUDA graph of its own."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    return us / 1e3 / iters
+
+
 def library_times(b, s, h, d, types, seed=5):
     """PyTorch's own attention at this shape on ``types`` ("bf16" or
     "fp32", its default backend with TF32 off; only as a yardstick: the
     port never calls it): forward, and ``torch.autograd.grad`` through it
-    for the backward.  SDPA takes no (fp32, fp32, bf16) q/k/v, so the
-    mixed rows have no library time."""
+    for the backward; device times by CUDA-graph replay (forward) and by
+    the profiler's kernel times (backward).  SDPA takes no (fp32, fp32,
+    bf16) q/k/v, so the mixed rows have no library time."""
     q, k, v, do = flash_inputs(b, s, s, h, d, types, seed)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -917,13 +951,15 @@ def library_times(b, s, h, d, types, seed=5):
     def fwd():
         return sdpa(qt, kt, vt, is_causal=True)
 
+    def bwd():
+        return torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)
+
     # the backward does not capture in a graph of its own (autograd runs it
-    # against the forward's stream), so it has no device time here
+    # against the forward's stream): its device time is the profiler's
     return {"fwd_ms": cuda_time_ms(fwd, warmup=3, iters=20),
-            "bwd_ms": cuda_time_ms(lambda: torch.autograd.grad(
-                out, (qg, kg, vg), dot, retain_graph=True),
-                warmup=3, iters=20),
-            "fwd_device_ms": graph_ms(fwd, iters=20)}
+            "bwd_ms": cuda_time_ms(bwd, warmup=3, iters=20),
+            "fwd_device_ms": graph_ms(fwd, iters=20),
+            "bwd_device_ms": kernel_device_ms(bwd)}
 
 
 def phase_flash():
@@ -965,6 +1001,9 @@ def phase_flash():
                     else plain_bwd,
                     "library_ms": None if yard is None else
                     yard["fwd_ms" if name == "flash_fwd" else "bwd_ms"],
+                    "library_device_ms": None if yard is None else
+                    yard["fwd_device_ms" if name == "flash_fwd"
+                         else "bwd_device_ms"],
                     "max_abs_err": res[name][1],
                     "err_over_limit": res[name][0], **work}
             row["single_key_rows"] = outs["single_key_rows"]
@@ -1147,6 +1186,7 @@ def phase_train(name, steps=6, micro=2):
     wrappers = flash_wrappers()
     for fn in wrappers.values():
         fn.launches = fn.tensor_core_launches = fn.tf32_launches = 0
+        fn.wgmma_launches = 0
     losses, step_s = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -1161,6 +1201,7 @@ def phase_train(name, steps=6, micro=2):
     launches = {n: fn.launches for n, fn in wrappers.items()}
     tensor_core = {n: fn.tensor_core_launches for n, fn in wrappers.items()}
     tf32 = {n: fn.tf32_launches for n, fn in wrappers.items()}
+    wgmma = {n: fn.wgmma_launches for n, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{name}: losses {losses} not finite and falling")
@@ -1175,16 +1216,21 @@ def phase_train(name, steps=6, micro=2):
             "flash_bwd_dkv": 0 if fused else each}
     if launches != want:
         raise AssertionError(f"{name}: flash launches {launches} != {want}")
-    # every launch runs on the tensor cores: bf16 mma.sync for all-bf16
-    # attention (GPT-2), 3xTF32 for the LLaMA path's fp32 and mixed
-    # attention (the mixed forward's P.V on bf16)
+    # every launch runs on the tensor cores: for all-bf16 attention
+    # (GPT-2) the forward and the dk/dv template on wgmma at head dims 64
+    # and 128, dq on bf16 mma.sync; 3xTF32 for the LLaMA path's fp32 and
+    # mixed attention (the mixed forward's P.V on bf16)
     bf16 = k_dtype == torch.bfloat16
+    on_wgmma = bf16 and fa._kernel_head_dim(cfg.head_dim) in WGMMA_HEAD_DIMS
     want_tc = dict(want)
     want_tf32 = {n: 0 if bf16 else c for n, c in want_tc.items()}
-    if tensor_core != want_tc or tf32 != want_tf32:
+    want_wgmma = {n: c if on_wgmma and n != "flash_bwd_dq" else 0
+                  for n, c in want_tc.items()}
+    if tensor_core != want_tc or tf32 != want_tf32 or wgmma != want_wgmma:
         raise AssertionError(f"{name}: tensor-core flash launches "
-                             f"{tensor_core} (3xTF32 {tf32}) != {want_tc} "
-                             f"(3xTF32 {want_tf32})")
+                             f"{tensor_core} (3xTF32 {tf32}, wgmma {wgmma}) "
+                             f"!= {want_tc} (3xTF32 {want_tf32}, wgmma "
+                             f"{want_wgmma})")
     steady = step_s[1:]
     out = {"config": name, "params": n_params, "layers": cfg.num_layers,
            "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
@@ -1194,6 +1240,7 @@ def phase_train(name, steps=6, micro=2):
            "tokens_per_s": batch * seq / float(np.mean(steady)),
            "peak_memory_bytes": peak, "flash_launches": launches,
            "tensor_core_launches": tensor_core, "tf32_launches": tf32,
+           "wgmma_launches": wgmma,
            "backward": "fused" if fused else "split"}
     emit({"phase": "train_main_path", **out})
     emit({"phase": "train_profile", "config": name,
@@ -1823,7 +1870,8 @@ def main():
     for name, at in where.items():
         r = flash[at][name]
         # the all-bf16 and the all-fp32 readings at both training shapes
-        keys = ("ms", "device_ms", "bound_ms", "library_ms", "max_abs_err")
+        keys = ("ms", "device_ms", "bound_ms", "library_ms",
+                "library_device_ms", "max_abs_err")
         bf16, fp32 = ({shape: {k: flash[f"{shape}/{types}"][name][k]
                                for k in keys}
                        for shape in ("llama", "gpt2")}
@@ -1833,6 +1881,7 @@ def main():
             "source": "hetu_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name], "types": at,
             "launches": sum(t["flash_launches"][name] for t in train),
+            "wgmma_launches": sum(t["wgmma_launches"][name] for t in train),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -9,7 +9,11 @@ library with a plain C interface under ``csrc/_build/`` (listed in
          -o _build/<name>-<hash>.so <name>.cu
 
 Sources share the headers of this directory (``mma_bf16.cuh``,
-``mma_tf32.cuh``, ``paged_decode.cuh``).  The file name carries a hash of
+``mma_tf32.cuh``, ``wgmma_bf16.cuh``, ``paged_decode.cuh``).  The flash
+library's wgmma kernels read tiles through TMA tensor maps, which it
+encodes with the driver's ``cuTensorMapEncodeTiled`` found at run time
+through ``cudaGetDriverEntryPoint``, so nothing beyond the runtime is
+linked.  The file name carries a hash of
 the source, every header and the flags, so an edited source or header
 never loads a stale library.  ``build()`` starts one ``nvcc`` per source, all at once, and
 returns what ``-Xptxas -v`` reported (registers, shared memory, spills)

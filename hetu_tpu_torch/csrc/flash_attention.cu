@@ -3,15 +3,17 @@
 //
 // Replaces the four Pallas TPU kernels of
 // hetu_tpu/ops/pallas/flash_attention.py:
-//   flash_fwd_mma_kernel                      <- :178 `_fwd_kernel`
+//   flash_fwd_wgmma_kernel / flash_fwd_mma_kernel  <- :178 `_fwd_kernel`
 //       (`_flash_fwd`)
-//   flash_bwd_dkv_mma_kernel<..., true> / flash_bwd_dkv_tf32_kernel<...,
-//       true>                                 <- :325 `_bwd_fused_kernel`
+//   flash_bwd_dkv_wgmma_kernel<HD, true> / flash_bwd_dkv_mma_kernel<HD,
+//       true> / flash_bwd_dkv_tf32_kernel<..., true>
+//                                             <- :325 `_bwd_fused_kernel`
 //       (`_flash_bwd_fused`)
 //   flash_bwd_dq_mma_kernel                   <- :466 `_bwd_dq_kernel`
 //       (`_flash_bwd_split`)
-//   flash_bwd_dkv_mma_kernel<..., false> / flash_bwd_dkv_tf32_kernel<...,
-//       false>                                <- :510 `_bwd_dkv_kernel`
+//   flash_bwd_dkv_wgmma_kernel<HD, false> / flash_bwd_dkv_mma_kernel<HD,
+//       false> / flash_bwd_dkv_tf32_kernel<..., false>
+//                                             <- :510 `_bwd_dkv_kernel`
 //       (`_flash_bwd_split`)
 // Same functions: q [b, sq, h, d], k/v [b, sk, h, d] (equal head counts),
 // scores q.k * scale taken as base-2 logits (scale * log2(e) folded into
@@ -41,24 +43,51 @@
 // operations.
 //
 // What the design does about it:
-//  - One block owns one (batch, head) and one tile of 64 rows, and loops
-//    over the other axis itself: the forward and dq over KV tiles (their
-//    TPU grids carried that loop in VMEM scratch), dk/dv and the fused
-//    kernel over q tiles.  Tiles wholly above the causal diagonal are
-//    never loaded, as the TPU kernels skip them (`run`, :237): the
-//    forward and dq stop the KV loop at the tile's last visible key, dk/dv
-//    start the q loop at the first q row that sees the KV tile.  Any sq
-//    and sk: the ragged edge is masked.  Tiles are read in place from
-//    [b, s, h, d] with a stride of h*d between tokens; out/dq/dk/dv are
-//    written in that layout.
+//  - Routes.  bf16 q/k/v at head dims 64 and 128: the forward and the
+//    dk/dv template (split and fused) on Hopper's wgmma, fed by TMA
+//    through an mbarrier ring by a producer warpgroup (the "wgmma
+//    kernels" section; wgmma_bf16.cuh); dq and the other widths on bf16
+//    mma.sync; fp32 q/k on 3xTF32 mma.sync; above 256 the wide route.
+//  - The wgmma kernels.  A block is three warpgroups: two consumers and a
+//    producer, whose registers go to the consumers by setmaxnreg (224 and
+//    56 a thread).  Tiles are 64-column halves of 128-byte rows in the
+//    128-byte swizzle TMA writes, read in place by TMA from [b, s, h, d]
+//    through a 4-D tensor map (rows past s come back as zeros), and read
+//    by wgmma from shared memory through descriptors, K-major or (V, dO,
+//    Q and K as the second operand of P.V, P^T.dO, dS^T.Q, dS.K) MN-major
+//    with the transpose bit.  The forward: 128 q rows a block (64 a
+//    consumer), K/V tiles of 128 keys in a ring of 2 (d 128) or 3 (d 64)
+//    stages; S = Q K^T, the online softmax in registers, P as the register
+//    A operand of O += P V.  The dk/dv template: 128 keys a block (64 a
+//    consumer, dK and dV in registers), q tiles of 64 rows (Q, dO, O for
+//    the fused kernel) in a ring of 2 stages; the producer's other three
+//    warps scale Q and, fused, compute delta = rowsum(dO * O) in fp64 from
+//    the tiles before the consumers see them; S^T and dP^T on wgmma, P^T
+//    and dS^T as register A operands of dV += P^T dO and dK += dS^T Q;
+//    fused, dS^T goes to shared memory (swizzled, two buffers) for dQ_part
+//    = dS K over the block's 128 keys, half the head columns a consumer,
+//    added into dq_acc with 8-byte atomics.  Where a q row sees one key,
+//    dP^T - delta cancels to the rounding of two sums, which the fused
+//    kernel's dq carries: its dP^T adds the k-steps' products in fp32
+//    (wgmma_ss_sum), as a chain of wgmma keeps fewer bits.
+//  - The mma.sync kernels: one block owns one (batch, head) and one tile
+//    of 64 rows, and loops over the other axis itself: the forward and dq
+//    over KV tiles (their TPU grids carried that loop in VMEM scratch),
+//    dk/dv and the fused kernel over q tiles, 4 warps of 16 rows each.
+//  - Both: tiles wholly above the causal diagonal are never loaded, as
+//    the TPU kernels skip them (`run`, :237): the forward and dq stop the
+//    KV loop at the tile's last visible key, dk/dv start the q loop at
+//    the first q row that sees the KV tile; blocks with the longest loops
+//    start first.  Any sq and sk: the ragged edge is masked.  Masks are
+//    applied only to tiles that cross the diagonal or an edge, or with
+//    segments.  out/dq/dk/dv are written in [b, s, h, d].
 //  - Fused backward: the TPU kept dk/dv for the whole sequence in VMEM per
 //    (batch, head); here a block owns one KV tile's dk/dv in registers,
 //    loops over the q tiles, computes delta = rowsum(do * o) itself and
 //    adds its share of dq into an fp32 workspace with atomics (summed in
 //    an order that changes from run to run).  The split kernels are
 //    deterministic and take delta from one torch op outside.
-//  - Every kernel runs on the tensor cores with mma.sync, 4 warps of 16
-//    rows each.  bf16 operands: m16n8k16 with fp32 accumulation
+//  - mma.sync details.  bf16 operands: m16n8k16 with fp32 accumulation
 //    (mma_bf16.cuh).  fp32 operands: 3xTF32 (mma_tf32.cuh), each product
 //    as three m16n8k8 TF32 products of the operands' high and low parts,
 //    which keeps about 21 of fp32's 24 mantissa bits (errors near 1e-6 of
@@ -73,31 +102,37 @@
 //    Q/dO/lse/delta (dk/dv) tile is copied by cp.async into a second
 //    buffer while the current one is multiplied, rows past sq/sk
 //    zero-filled.  S, dP and the accumulators stay in registers, and P and
-//    dS feed the next product straight from the S registers; masks are
-//    applied only to tiles (dq: 32- or 64-key chunks) that cross the
-//    diagonal or an edge, or with segments.  The bf16 forward keeps Q's
-//    fragments in registers; the others read Q and dO from shared memory
-//    for each tile.  dq (d 128) and the bf16 dk/dv (d 128) work through a
-//    tile in column chunks of 32 so that S and dP fit beside the
-//    accumulators without spills; the fused kernels stage dS in shared
-//    memory for dQ = dS.K and add dQ with 8-byte vector atomics.  3xTF32
-//    sums chain at most a tile (S) or two k-steps (P.V, dS.K, P^T.dO,
-//    dS^T.Q; dP: one) in the tensor cores' accumulator and are added in
-//    fp32 (mma_tf32.cuh).  fp32 tiles are twice the bytes of bf16 ones: at
-//    d 128 the fp32/mixed forward takes 32-key KV tiles, the dq one 32-key
+//    dS feed the next product straight from the S registers.  The bf16
+//    forward keeps Q's fragments in registers; the others read Q and dO
+//    from shared memory for each tile.  dq (d 128) and the bf16 dk/dv (d
+//    256) work through a tile in column chunks of 32 so that S and dP fit
+//    beside the accumulators without spills; the fused kernels stage dS in
+//    shared memory for dQ = dS.K and add dQ with 8-byte vector atomics;
+//    dP is summed from products over k = 8 added in fp32.  3xTF32 sums
+//    chain at most a tile (S) or two k-steps (P.V, dS.K, P^T.dO, dS^T.Q;
+//    dP: one) in the tensor cores' accumulator and are added in fp32
+//    (mma_tf32.cuh).  fp32 tiles are twice the bytes of bf16 ones: at d
+//    128 the fp32/mixed forward takes 32-key KV tiles, the dq one 32-key
 //    buffer (fwd_kv_tile, dq_kv_tile) and the dk/dv template 16-row q
 //    tiles (dkv_tf32_rows), so that two blocks fit an SM.
-//  - Not yet: wgmma with TMA and warp specialisation.
+//  - What bounds the wgmma kernels now (H100, PERF.md): the forward runs
+//    at about half its bound at the Llama shape; the backward kernels
+//    wait on their own wgmma groups (each consumer's products of a tile
+//    depend on one another, and two consumers hide little of it), the
+//    fused one also on its dQ atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <initializer_list>
 #include <type_traits>
+#include <utility>
 
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -105,11 +140,12 @@ constexpr int kB = 64;           // rows of a q tile and of a KV tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// the number of `tile`-key tiles that q rows [q0, q0 + 64) can see
+// the number of `tile`-key tiles that q rows [q0, q0 + rows) can see
 __device__ __forceinline__ int kv_tiles_for(int q0, int sq, int sk, int causal,
-                                            int offset, int tile = kB) {
+                                            int offset, int tile = kB,
+                                            int rows = kB) {
   int kv_end = sk;
-  if (causal) kv_end = min(sk, min(q0 + kB, sq) - 1 + offset + 1);
+  if (causal) kv_end = min(sk, min(q0 + rows, sq) - 1 + offset + 1);
   return kv_end > 0 ? (kv_end + tile - 1) / tile : 0;
 }
 
@@ -267,9 +303,10 @@ constexpr int fwd_mma_smem_bytes() {
 // softmax in base 2 on the accumulator registers (row max and sum over
 // the 4 lanes of a row group), and O += P V with P straight from the S
 // registers.
-// bf16 q/k/v: m16n8k16; q * scale * log2(e) is rounded to bf16 once (the
-// reference's :274) and its A fragments stay in registers; P is rounded to
-// bf16 (v's type, :249).
+// bf16 q/k/v (head dims 32 and 256; 64 and 128 take
+// flash_fwd_wgmma_kernel): m16n8k16; q * scale * log2(e) is rounded to
+// bf16 once (the reference's :274) and its A fragments stay in registers;
+// P is rounded to bf16 (v's type, :249).
 // fp32 q/k: S in 3xTF32, with q * scale * log2(e) in fp32 (:274 rounds to
 // q's type) in shared memory, its fragments split for each tile (their
 // high and low parts would take 4 * HD / 8 registers); P.V in 3xTF32 for
@@ -883,7 +920,8 @@ constexpr int dkv_mma_smem_bytes() {
          6 * kB * 4;
 }
 
-// The dk/dv template (kernel 4, and kernel 2 with kFused) on bf16 q/k/v.
+// The dk/dv template (kernel 4, and kernel 2 with kFused) on bf16 q/k/v
+// at head dims 32 and 256 (64 and 128 take flash_bwd_dkv_wgmma_kernel).
 // One block per (batch * head, 64-key tile); warp w owns keys 16w .. 16w+15
 // and their dK and dV accumulators in registers.  The q tiles that see the
 // key tile stream through two buffers by cp.async (Q, dO, lse, delta and q
@@ -1584,6 +1622,665 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// wgmma kernels: kernel 1 and the dk/dv template (kernels 2, 4) on bf16
+// q/k/v at head dims 64 and 128 (wgmma_bf16.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;                 // a warpgroup
+constexpr int kWgmmaThreads = 3 * kWgThreads;   // two consumers, a producer
+constexpr int kConsumerWarps = 8;
+// registers a thread after setmaxnreg: 2 x 128 x 224 + 128 x 56 = 64512
+// of the SM's 65536
+constexpr int kConsumerRegs = 224;
+constexpr int kProducerRegs = 56;
+
+// threadIdx.x / 128, which the compiler sees to be the same across a warp
+// (so that setmaxnreg's branches are warp-uniform to it)
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
+}
+
+// the head dims the wgmma kernels take (bf16 q/k/v)
+template <int HD, typename TQ, typename TV>
+__host__ __device__ constexpr bool wgmma_route() {
+  return (HD == 64 || HD == 128) && std::is_same<TQ, bf16>::value &&
+         std::is_same<TV, bf16>::value;
+}
+
+// TMA boxes of rows [row0, row0 + rows) of head h of batch b into a
+// swizzled [rows][HD] tile at dst (HD / 64 column halves)
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, int rows,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int row0, int h,
+                                         int b) {
+#pragma unroll
+  for (int half = 0; half < HD / 64; ++half)
+#pragma unroll
+    for (int r = 0; r < rows; r += kBoxRows)
+      tma_load_4d(dst + (half * rows + r) * kSwizzleBytes, map, bar,
+                  64 * half, h, row0 + r, b);
+}
+
+// K-major operand of k-step kk (head columns 16 kk ..): rows r0 .. r0 + 63
+// (or all N rows) of a swizzled [rows][HD] tile at shared address `tile`
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int rows,
+                                                 int r0, int kk) {
+  return wgmma_desc(tile,
+                    ((kk / 4) * rows + r0) * kSwizzleBytes + (kk % 4) * 32,
+                    16);
+}
+
+// MN-major operand of k-step kk (tile rows 16 kk ..), its M or N axis
+// along the columns from byte `col` of the first column half
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int rows,
+                                                  int kk, int col = 0) {
+  return wgmma_desc(tile, kk * 16 * kSwizzleBytes + col,
+                    rows * kSwizzleBytes);
+}
+
+// q * scale * log2(e) rounded to bf16, in place, for the 16-byte chunks
+// first, first + step, ... below n of a swizzled tile (elementwise, so the
+// swizzle does not matter)
+__device__ __forceinline__ void scale_chunks(uint8_t* tile, int first,
+                                             int n, int step, float mul) {
+  for (int e = first; e < n; e += step) {
+    uint4* p = reinterpret_cast<uint4*>(tile) + e;
+    uint4 u = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      w[i] = pack_bf16(f.x * mul, f.y * mul);
+    }
+    *p = u;
+  }
+}
+
+// the bf16 pairs of accumulator d as the A operand of k-step kk of the
+// next product (columns 16 kk .. of d become that product's k)
+template <int N>
+__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4],
+                                           const float (&d)[N], int kk) {
+  a[0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+template <int HD>
+struct FwdWgmma {
+  static constexpr int kBM = 128;  // q rows a block, 64 a consumer group
+  static constexpr int kBN = 128;  // keys a KV tile
+  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kQ = kBM * HD * 2;   // bytes of the Q tile
+  static constexpr int kKV = kBN * HD * 2;  // of a K or a V tile
+  // Q, the K and V ring, q_full + full and empty a stage, alignment
+  static constexpr int kSmem =
+      kQ + 2 * kStages * kKV + (1 + 2 * kStages) * 8 + kSwizzleAtom;
+};
+
+// Kernel 1 on bf16 q/k/v at head dims 64 and 128.  One block per (batch *
+// head, 128-row q tile), longest rows first: warpgroups 0 and 1 consume,
+// each owning 64 q rows (warp w of a group rows 16w ..), warpgroup 2
+// produces.  The producer's first thread loads Q once and streams the
+// K and V tiles (128 keys) by TMA into a ring of kStages stages, each with
+// a "full" mbarrier (the TMA bytes) and an "empty" one (the 8 consumer
+// warps); the rest of its group only gives its registers up.  A consumer
+// group rounds its Q rows to bf16 after scaling them by scale * log2(e)
+// (the reference's :274) in place, then per KV tile: S = Q K^T (wgmma,
+// both operands K-major in shared memory), the mask only where the tile
+// crosses the diagonal or an edge or segments are given, the online
+// softmax in base 2 on the accumulator registers (a row over the 4 lanes
+// of a quad: two shuffles), P rounded to bf16 (v's type, :249) into
+// wgmma's register A operand, O += P V with V MN-major (the transpose
+// bit), and the stage released.  Tiles wholly above a group's part of the
+// diagonal are waited for and released without products.
+template <int HD>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       bf16* __restrict__ out, float* __restrict__ lse,
+                       const int* __restrict__ q_seg,
+                       const int* __restrict__ kv_seg, int sq, int sk,
+                       int nh, float scale_log2, int causal, int offset) {
+  using C = FwdWgmma<HD>;
+  constexpr int kBM = C::kBM, kBN = C::kBN, kStages = C::kStages;
+  extern __shared__ __align__(128) uint8_t smem_fwd_wg[];
+  uint8_t* q_s = align_atom(smem_fwd_wg);
+  uint8_t* k_s = q_s + C::kQ;
+  uint8_t* v_s = k_s + kStages * C::kKV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * C::kKV);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // longest rows first
+  const int b = blockIdx.y / nh;
+  const int h = blockIdx.y % nh;
+  const int n_kv = kv_tiles_for(q0, sq, sk, causal, offset, kBN, kBM);
+  const int wg = warpgroup_index();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * kWgThreads && n_kv > 0) {
+      mbar_arrive_expect_tx(q_full, C::kQ);
+      tma_tile<HD>(q_s, kBM, &tm_q, q_full, q0, h, b);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * C::kKV);
+        tma_tile<HD>(k_s + s * C::kKV, kBN, &tm_k, &full[s], t * kBN, h, b);
+        tma_tile<HD>(v_s + s * C::kKV, kBN, &tm_v, &full[s], t * kBN, h, b);
+      }
+    }
+  } else {
+    // consumers
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % kWgThreads;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int gq = lane >> 2;
+    const int tq = lane & 3;
+    const int row0 = q0 + 64 * wg;  // the group's first q row
+    const int64_t tok = static_cast<int64_t>(nh) * HD;
+    const int* ksb = kv_seg != nullptr ? kv_seg + static_cast<int64_t>(b) * sk
+                                       : nullptr;
+    // the lane's two rows
+    int rows[2], qsg[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      rows[hr] = row0 + 16 * warp + gq + 8 * hr;
+      qsg[hr] = (q_seg != nullptr && rows[hr] < sq)
+                    ? q_seg[static_cast<int64_t>(b) * sq + rows[hr]] : 0;
+    }
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+
+    if (n_kv > 0) {
+      mbar_wait(q_full, 0);
+#pragma unroll
+      for (int half = 0; half < HD / 64; ++half)
+        scale_chunks(q_s + (half * kBM + 64 * wg) * kSwizzleBytes, tid,
+                     64 * 8, kWgThreads, scale_log2);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, kWgThreads);
+    }
+
+    for (int t = 0; t < n_kv; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      const int k0 = t * kBN;
+      if (row0 < sq && !(causal && k0 > row0 + 63 + offset)) {
+        const uint32_t q_sa = smem_addr(q_s);
+        const uint32_t kt = smem_addr(k_s + s * C::kKV);
+        const uint32_t vt = smem_addr(v_s + s * C::kKV);
+        float sc[kBN / 2];
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<kBN, 0, 0>(sc, desc_k_major(q_sa, kBM, 64 * wg, kk),
+                              desc_k_major(kt, kBN, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        if (ksb != nullptr || k0 + kBN > sk ||
+            (causal && k0 + kBN - 1 > row0 + offset)) {
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int col = k0 + 8 * j + 2 * tq + (i & 1);
+              bool ok = col < sk;
+              if (causal) ok = ok && col <= rows[i >> 1] + offset;
+              if (ksb != nullptr) ok = ok && qsg[i >> 1] == ksb[col];
+              sc[4 * j + i] = ok ? sc[4 * j + i] : -INFINITY;
+            }
+        }
+
+        float alpha[2];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float mx = m[hr];
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j)
+            mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hr], sc[4 * j + 2 * hr + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          // a row that has seen no key yet keeps m = -inf, p = 0, alpha = 0
+          const float m_use = mx == -INFINITY ? 0.f : mx;
+          alpha[hr] = exp2f(m[hr] - m_use);
+          m[hr] = mx;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j) {
+            sc[4 * j + 2 * hr] = exp2f(sc[4 * j + 2 * hr] - m_use);
+            sc[4 * j + 2 * hr + 1] = exp2f(sc[4 * j + 2 * hr + 1] - m_use);
+            sum += sc[4 * j + 2 * hr] + sc[4 * j + 2 * hr + 1];
+          }
+          l[hr] = l[hr] * alpha[hr] + sum;
+        }
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          o[4 * j] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+        uint32_t p[kBN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) a_from_acc(p[kk], sc, kk);
+        wgmma_fence();
+        fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          wgmma_rs<HD, 1>(o, p[kk], desc_mn_major(vt, kBN, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float lsum = l[hr];
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      const int row = rows[hr];
+      if (row >= sq) continue;
+      const bool no_key = lsum == 0.f;
+      const float inv = no_key ? 0.f : 1.f / lsum;
+      bf16* dst = out + (static_cast<int64_t>(b) * sq + row) * tok + h * HD +
+                  2 * tq;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        store2(dst + 8 * j, o[4 * j + 2 * hr] * inv,
+               o[4 * j + 2 * hr + 1] * inv);
+      if (tq == 0)
+        lse[(static_cast<int64_t>(b) * nh + h) * sq + row] =
+            no_key ? -INFINITY : (m[hr] + log2f(lsum)) * kLn2;
+    }
+  }
+}
+
+template <int HD, bool kFused>
+struct DkvWgmma {
+  static constexpr int kBN = 128;  // keys a block, 64 a consumer group
+  static constexpr int kBM = 64;   // q rows a tile
+  static constexpr int kStages = 2;
+  // q rows a chunk of S^T and dP^T: the whole tile, but 32 in the fused
+  // kernel at d 128, whose dP^T takes two more accumulators (each
+  // k-step's product apart) beside the 128 registers of dK and dV
+  static constexpr int kQC = HD == 128 && kFused ? 32 : 64;
+  static constexpr int kKV = kBN * HD * 2;     // bytes of K or of V
+  static constexpr int kQT = kBM * HD * 2;     // of a Q, dO or O tile
+  static constexpr int kTiles = kFused ? 3 : 2;  // Q, dO (and O) a stage
+  static constexpr int kDs = kBN * kBM * 2;    // a dS^T buffer (fused)
+  static constexpr int kRowVals = 3 * kBM * 4;  // lse2, delta, q ids
+  // delta in fp64 a stage (fused)
+  static constexpr int kDelta64 = kFused ? kBM * 8 : 0;
+  // K, V; the stages' tiles; two dS^T buffers; the stages' row values and
+  // fp64 delta; kv_full, then full, ready and empty a stage; alignment
+  static constexpr int kSmem =
+      2 * kKV + kStages * kTiles * kQT + (kFused ? 2 * kDs : 0) +
+      kStages * (kRowVals + kDelta64) + (1 + 3 * kStages) * 8 + kSwizzleAtom;
+};
+
+// The dk/dv template (kernel 4, and kernel 2 with kFused) on bf16 q/k/v at
+// head dims 64 and 128.  One block per (batch * head, 128-key tile):
+// warpgroups 0 and 1 consume, each owning 64 keys (warp w of a group keys
+// 16w ..) and their dK and dV accumulators in registers; warpgroup 2
+// produces.  Its first warp loads K and V once and streams the q tiles
+// that see the block's keys (64 rows: Q, dO, and O with kFused) by TMA into
+// a ring of kStages stages, its lanes writing each tile's lse (base 2,
+// +inf where a row sees no key or lies past sq, so that p = 0 there),
+// delta (split) and q ids beside it; its other three warps wait for each
+// tile, scale Q by scale * log2(e) and round it to bf16 in place (the
+// reference's :405), with kFused compute delta = rowsum(dO * O) in fp64
+// from the tiles, and release the tile to the consumers ("ready").  Per q
+// tile a consumer group, all products on wgmma: S^T = K Q^T and dP^T =
+// V dO^T (both operands K-major); P^T = exp2(S^T - lse2), masked only
+// where the tile crosses the diagonal or an edge or segments are given,
+// rounded to bf16 (do's type, :377); dS^T = P^T (dP^T - delta) in fp32,
+// rounded to bf16 (q's type, :383); dV += P^T dO and dK += dS^T Q with P^T
+// and dS^T as register A operands and dO, Q MN-major.  With kFused each
+// group stores its dS^T rows (swizzled) in one of two buffers, fences the
+// async proxy and meets the other group; then dQ_part = dS K over all 128
+// keys, each group half of the head columns (dS MN-major from the buffer,
+// K MN-major), is added into the fp32 dq_acc with 8-byte atomics.  dK is
+// divided by log2(e) and dQ multiplied by scale.
+template <int HD, bool kFused>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_o,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv,
+                           const int* __restrict__ q_seg,
+                           const int* __restrict__ kv_seg, int sq, int sk,
+                           int nh, float scale, int causal, int offset) {
+  using C = DkvWgmma<HD, kFused>;
+  constexpr int kBN = C::kBN, kBM = C::kBM, kStages = C::kStages;
+  constexpr int kQT = C::kQT;
+  constexpr int kQC = C::kQC;
+  extern __shared__ __align__(128) uint8_t smem_dkv_wg[];
+  uint8_t* k_s = align_atom(smem_dkv_wg);
+  uint8_t* v_s = k_s + C::kKV;
+  uint8_t* st_s = v_s + C::kKV;  // stage s: Q, dO (, O) at s * kTiles * kQT
+  uint8_t* ds_s = st_s + kStages * C::kTiles * kQT;  // [2][128 keys][64 q]
+  float* rv_s = reinterpret_cast<float*>(ds_s + (kFused ? 2 * C::kDs : 0));
+  double* dl64_s = reinterpret_cast<double*>(rv_s + kStages * 3 * kBM);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(dl64_s) + kStages * C::kDelta64);
+  uint64_t* full = kv_full + 1;
+  uint64_t* ready = full + kStages;
+  uint64_t* empty = ready + kStages;
+
+  const int k0 = blockIdx.x * kBN;
+  const int b = blockIdx.y / nh;
+  const int h = blockIdx.y % nh;
+  const int first = first_q_tile(k0, causal, offset, kBM) * kBM;
+  const int n_q = first < sq ? (sq - first + kBM - 1) / kBM : 0;
+  const int wg = warpgroup_index();
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&ready[s], 3 * 32);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (warp == 0) {
+      if (n_q > 0 && lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * C::kKV);
+        tma_tile<HD>(k_s, kBN, &tm_k, kv_full, k0, h, b);
+        tma_tile<HD>(v_s, kBN, &tm_v, kv_full, k0, h, b);
+      }
+      const float* lseb = lse + (static_cast<int64_t>(b) * nh + h) * sq;
+      for (int it = 0; it < n_q; ++it) {
+        const int s = it % kStages;
+        const int q0 = first + it * kBM;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        float* rv = rv_s + s * 3 * kBM;
+        for (int i = lane; i < kBM; i += 32) {
+          const int row = q0 + i;
+          const bool live = row < sq;
+          const float ls = live ? lseb[row] : -INFINITY;
+          rv[i] = ls == -INFINITY ? INFINITY : ls * kLog2e;
+          if (!kFused)
+            rv[kBM + i] = live ? delta[(static_cast<int64_t>(b) * sq + row) *
+                                           nh + h]
+                               : 0.f;
+          if (q_seg != nullptr)
+            reinterpret_cast<int*>(rv)[2 * kBM + i] =
+                live ? q_seg[static_cast<int64_t>(b) * sq + row] : 0;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], C::kTiles * kQT);
+          uint8_t* tile = st_s + s * C::kTiles * kQT;
+          tma_tile<HD>(tile, kBM, &tm_q, &full[s], q0, h, b);
+          tma_tile<HD>(tile + kQT, kBM, &tm_do, &full[s], q0, h, b);
+          if (kFused)
+            tma_tile<HD>(tile + 2 * kQT, kBM, &tm_o, &full[s], q0, h, b);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    } else {
+      // warps 1-3: scale Q (and with kFused compute delta) a tile at a time
+      const int t = tid - 32;  // 0 .. 95
+      for (int it = 0; it < n_q; ++it) {
+        const int s = it % kStages;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        uint8_t* tile = st_s + s * C::kTiles * kQT;
+        scale_chunks(tile, t, kQT / 16, 3 * 32, scale * kLog2e);
+        if (kFused && t < kBM) {
+          // row t's 16-byte chunks of dO and O sit at the same places in
+          // both swizzled tiles
+          // four partial sums, so that the fp64 adds do not wait on
+          // each other
+          double part[4] = {0., 0., 0., 0.};
+#pragma unroll 2
+          for (int c = 0; c < HD / 8; ++c) {
+            const int off = ((c / 8) * kBM + t) * kSwizzleBytes + (c % 8) * 16;
+            const uint4 du = *reinterpret_cast<const uint4*>(tile + kQT + off);
+            const uint4 ou =
+                *reinterpret_cast<const uint4*>(tile + 2 * kQT + off);
+            const uint32_t* dw = reinterpret_cast<const uint32_t*>(&du);
+            const uint32_t* ow = reinterpret_cast<const uint32_t*>(&ou);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 a = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&dw[j]));
+              const float2 c2 = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&ow[j]));
+              part[j] += static_cast<double>(a.x) * c2.x +
+                         static_cast<double>(a.y) * c2.y;
+            }
+          }
+          dl64_s[s * kBM + t] = (part[0] + part[1]) + (part[2] + part[3]);
+        }
+        fence_proxy_async();
+        mbar_arrive(&ready[s]);
+      }
+    }
+  } else {
+    // consumers
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int gq = lane >> 2;
+    const int tq = lane & 3;
+    const int kw0 = k0 + 64 * wg;  // the group's first key
+    const int64_t tok = static_cast<int64_t>(nh) * HD;
+    const int64_t qoff = static_cast<int64_t>(b) * sq * tok + h * HD;
+    const int64_t koff = static_cast<int64_t>(b) * sk * tok + h * HD;
+    // the lane's two keys
+    int kj[2], ksg[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      kj[hr] = kw0 + 16 * warp + gq + 8 * hr;
+      ksg[hr] = (kv_seg != nullptr && kj[hr] < sk)
+                    ? kv_seg[static_cast<int64_t>(b) * sk + kj[hr]] : 0;
+    }
+    const uint32_t k_sa = smem_addr(k_s);
+    const uint32_t v_sa = smem_addr(v_s);
+    float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    if (n_q > 0) mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < n_q; ++it) {
+      const int s = it % kStages;
+      const int q0 = first + it * kBM;
+      mbar_wait(&ready[s], (it / kStages) & 1);
+      const uint32_t qt = smem_addr(st_s + s * C::kTiles * kQT);
+      const uint32_t dot = qt + kQT;
+      const float* l2s = rv_s + s * 3 * kBM;
+      const float* dls = l2s + kBM;
+      const double* dl64 = dl64_s + s * kBM;
+      const int* qss = reinterpret_cast<const int*>(l2s + 2 * kBM);
+      const bool live = kw0 < sk && !(causal && kw0 > q0 + kBM - 1 + offset);
+      const bool masked = q_seg != nullptr || q0 + kBM > sq ||
+                          kw0 + 64 > sk || (causal && kw0 + 63 > q0 + offset);
+      uint8_t* dsb = ds_s + (it & 1) * C::kDs;
+#pragma unroll
+      for (int c0 = 0; c0 < kBM; c0 += kQC) {
+        uint32_t ds16[kQC / 16][4];
+        if (live) {
+          float st[kQC / 2], dpt[kQC / 2];
+#pragma unroll
+          for (int i = 0; i < kQC / 2; ++i) st[i] = dpt[i] = 0.f;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_ss<kQC, 0, 0>(st, desc_k_major(k_sa, kBN, 64 * wg, kk),
+                                desc_k_major(qt, kBM, c0, kk), kk > 0);
+          if constexpr (kFused) {
+            wgmma_commit();
+            // where a q row sees one key, dP^T - delta cancels to the
+            // rounding of two sums, which the fused kernel's dq carries
+            // into that row: the k-steps' products of dP^T are added in
+            // fp32 and delta comes in fp64
+            wgmma_ss_sum<kQC, HD / 16>(
+                dpt,
+                [&](int kk) { return desc_k_major(v_sa, kBN, 64 * wg, kk); },
+                [&](int kk) { return desc_k_major(dot, kBM, c0, kk); });
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk)
+              wgmma_ss<kQC, 0, 0>(dpt, desc_k_major(v_sa, kBN, 64 * wg, kk),
+                                  desc_k_major(dot, kBM, c0, kk), kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+          }
+          fence_regs(st);
+          fence_regs(dpt);
+#pragma unroll
+          for (int j = 0; j < kQC / 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int c = c0 + 8 * j + 2 * tq + (i & 1);  // q row
+              bool ok = true;
+              if (masked) {
+                const int key = kj[i >> 1];
+                ok = q0 + c < sq && key < sk;
+                if (causal) ok = ok && key <= q0 + c + offset;
+                if (q_seg != nullptr) ok = ok && qss[c] == ksg[i >> 1];
+              }
+              const float p = ok ? exp2f(st[4 * j + i] - l2s[c]) : 0.f;
+              st[4 * j + i] = p;
+              float dm;
+              if constexpr (kFused)
+                dm = static_cast<float>(dpt[4 * j + i] - dl64[c]);
+              else
+                dm = dpt[4 * j + i] - dls[c];
+              dpt[4 * j + i] = p * dm;
+            }
+          uint32_t p16[kQC / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < kQC / 16; ++kk) {
+            a_from_acc(p16[kk], st, kk);
+            a_from_acc(ds16[kk], dpt, kk);
+          }
+          wgmma_fence();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+#pragma unroll
+          for (int kk = 0; kk < kQC / 16; ++kk)
+            wgmma_rs<HD, 1>(dv_acc, p16[kk],
+                            desc_mn_major(dot, kBM, c0 / 16 + kk), 1);
+#pragma unroll
+          for (int kk = 0; kk < kQC / 16; ++kk)
+            wgmma_rs<HD, 1>(dk_acc, ds16[kk],
+                            desc_mn_major(qt, kBM, c0 / 16 + kk), 1);
+          wgmma_commit();
+          // the fused kernel's registers hold no second chunk in flight
+          if constexpr (kFused) wgmma_wait<0>();
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < kQC / 16; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) ds16[kk][r] = 0u;
+        }
+        if constexpr (kFused) {
+          // this group's dS^T rows (keys 64 wg ..) into buffer it % 2,
+          // swizzled as TMA would write a [128][64] bf16 tile
+#pragma unroll
+          for (int j = 0; j < kQC / 8; ++j)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int kr = 64 * wg + 16 * warp + gq + 8 * hr;
+              const int cb = (c0 + 8 * j + 2 * tq) * 2;  // the q column
+              *reinterpret_cast<uint32_t*>(
+                  dsb + kr * kSwizzleBytes + (((cb >> 4) ^ (kr & 7)) << 4) +
+                  (cb & 15)) = ds16[j >> 1][(j & 1) * 2 + hr];
+            }
+        }
+      }
+
+      float dq[HD / 4];
+      if constexpr (kFused) {
+        fence_proxy_async();
+        named_bar_sync(1, 2 * kWgThreads);
+#pragma unroll
+        for (int i = 0; i < HD / 4; ++i) dq[i] = 0.f;
+        wgmma_fence();
+        // the group's head columns: a column half at d 128, 32 columns of
+        // the one half at d 64
+        const int col = HD == 128 ? wg * kBN * kSwizzleBytes : wg * 64;
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          wgmma_ss<HD / 2, 1, 1>(dq, desc_mn_major(smem_addr(dsb), kBN, kk),
+                                 desc_mn_major(k_sa, kBN, kk, col), kk > 0);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if constexpr (kFused) {
+        fence_regs(dq);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = q0 + 16 * warp + gq + 8 * hr;
+          if (i >= sq) continue;
+          float* dst = dq_acc + qoff + static_cast<int64_t>(i) * tok +
+                       wg * (HD / 2) + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < HD / 16; ++j)
+            add2(dst + 8 * j, dq[4 * j + 2 * hr] * scale,
+                 dq[4 * j + 2 * hr + 1] * scale);
+        }
+      }
+    }
+
+    // dk was accumulated against q * scale * log2(e): divide the log2(e) out
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (kj[hr] >= sk) continue;
+      const int64_t row = koff + static_cast<int64_t>(kj[hr]) * tok + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        store2(dk + row + 8 * j, dk_acc[4 * j + 2 * hr] / kLog2e,
+               dk_acc[4 * j + 2 * hr + 1] / kLog2e);
+        store2(dv + row + 8 * j, dv_acc[4 * j + 2 * hr],
+               dv_acc[4 * j + 2 * hr + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1593,11 +2290,90 @@ struct Tag {
 };
 
 // The C entries, as hetu_flash_uses_tensor_cores numbers them, and the
-// routes their kernels take: bf16 q/k/v run every entry on bf16 mma.sync,
-// fp32 q/k (fp32 or bf16 v) every entry in 3xTF32 (the mixed forward's P.V
-// on bf16 mma.sync).
+// routes their kernels take: bf16 q/k/v run the forward and the dk/dv
+// template on wgmma at head dims 64 and 128 and on bf16 mma.sync at 32 and
+// 256, and dq on bf16 mma.sync; fp32 q/k (fp32 or bf16 v) every entry in
+// 3xTF32 (the mixed forward's P.V on bf16 mma.sync).
 constexpr int kEntryFwd = 0, kEntryDq = 1, kEntryDkv = 2;
-constexpr int kRouteCudaCores = 0, kRouteBf16 = 1, kRouteTf32 = 2;
+constexpr int kRouteCudaCores = 0, kRouteBf16 = 1, kRouteTf32 = 2,
+              kRouteWgmma = 3;
+
+// the tensor maps of the wgmma kernels' bf16 [b, s, h, HD] operands
+template <int HD>
+cudaError_t encode_maps(std::initializer_list<std::pair<CUtensorMap*,
+                                                        const void*>> q_side,
+                        std::initializer_list<std::pair<CUtensorMap*,
+                                                        const void*>> kv_side,
+                        int b, int sq, int sk, int nh) {
+  for (const auto& m : q_side) {
+    const cudaError_t err = encode_bshd(m.first, m.second, b, sq, nh, HD);
+    if (err != cudaSuccess) return err;
+  }
+  for (const auto& m : kv_side) {
+    const cudaError_t err = encode_bshd(m.first, m.second, b, sk, nh, HD);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int HD>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             void* out, void* lse, const void* q_seg,
+                             const void* kv_seg, int b, int sq, int sk,
+                             int nh, float scale_log2, int causal,
+                             int offset, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_maps<HD>({{&tq, q}}, {{&tk, k}, {&tv, v}}, b, sq,
+                                    sk, nh);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_wgmma_kernel<HD>;
+  constexpr int smem = FwdWgmma<HD>::kSmem;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int kBM = FwdWgmma<HD>::kBM;
+  const dim3 grid((sq + kBM - 1) / kBM, b * nh);
+  kernel<<<grid, kWgmmaThreads, smem, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse),
+      static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), sq,
+      sk, nh, scale_log2, causal, offset);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* out, const void* dout,
+                             const void* lse, const void* delta,
+                             void* dq_acc, void* dk, void* dv,
+                             const void* q_seg, const void* kv_seg, int b,
+                             int sq, int sk, int nh, float scale, int causal,
+                             int offset, int fused, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, to, tdo;
+  // the split kernel reads no O: its map repeats dO's
+  cudaError_t err = encode_maps<HD>(
+      {{&tq, q}, {&tdo, dout}, {&to, fused ? out : dout}},
+      {{&tk, k}, {&tv, v}}, b, sq, sk, nh);
+  if (err != cudaSuccess) return err;
+  auto launch = [&](auto kernel, int smem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    constexpr int kBN = DkvWgmma<HD, true>::kBN;
+    const dim3 grid((sk + kBN - 1) / kBN, b * nh);
+    kernel<<<grid, kWgmmaThreads, smem, st>>>(
+        tq, tk, tv, to, tdo, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dq_acc),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), sq,
+        sk, nh, scale, causal, offset);
+    return cudaGetLastError();
+  };
+  if (fused)
+    return launch(flash_bwd_dkv_wgmma_kernel<HD, true>,
+                  DkvWgmma<HD, true>::kSmem);
+  return launch(flash_bwd_dkv_wgmma_kernel<HD, false>,
+                DkvWgmma<HD, false>::kSmem);
+}
 
 // Calls f(int_constant<HD>, Tag<TQ>, Tag<TV>) for the supported head dims and
 // type codes (0: all fp32, 1: all bf16, 2: fp32 q/k with bf16 v).
@@ -1639,7 +2415,13 @@ bool bad_shape(int b, int sq, int sk, int nh) {
 // kernel 2 over 4).
 template <int HD, typename TQ, typename TV, typename G>
 cudaError_t with_dkv_kernel(int fused, G&& g) {
-  if constexpr (std::is_same<TQ, bf16>::value) {
+  if constexpr (wgmma_route<HD, TQ, TV>()) {
+    if (fused)
+      return g(flash_bwd_dkv_wgmma_kernel<HD, true>, kWgmmaThreads,
+               DkvWgmma<HD, true>::kSmem);
+    return g(flash_bwd_dkv_wgmma_kernel<HD, false>, kWgmmaThreads,
+             DkvWgmma<HD, false>::kSmem);
+  } else if constexpr (std::is_same<TQ, bf16>::value) {
     if (fused)
       return g(flash_bwd_dkv_mma_kernel<HD, true>, kMmaThreads,
                dkv_mma_smem_bytes<HD, true>());
@@ -2049,19 +2831,25 @@ int hetu_flash_fwd(const void* q, const void* k, const void* v, void* out,
     constexpr int HD = decltype(hd)::value;
     using TQ = typename decltype(tq)::type;
     using TV = typename decltype(tv)::type;
-    auto kernel = flash_fwd_mma_kernel<HD, TQ, TV>;
-    constexpr int smem = fwd_mma_smem_bytes<HD, TQ, TV>();
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((sq + kB - 1) / kB, b * nh, col_blocks<HD>());
-    kernel<<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const TQ*>(q), static_cast<const TQ*>(k),
-        static_cast<const TV*>(v), static_cast<TQ*>(out),
-        static_cast<float*>(lse), static_cast<const int*>(q_seg),
-        static_cast<const int*>(kv_seg), sq, sk, nh, scale * kLog2e, causal,
-        offset);
-    return cudaGetLastError();
+    if constexpr (wgmma_route<HD, TQ, TV>()) {
+      return launch_fwd_wgmma<HD>(q, k, v, out, lse, q_seg, kv_seg, b, sq,
+                                  sk, nh, scale * kLog2e, causal, offset,
+                                  st);
+    } else {
+      auto kernel = flash_fwd_mma_kernel<HD, TQ, TV>;
+      constexpr int smem = fwd_mma_smem_bytes<HD, TQ, TV>();
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((sq + kB - 1) / kB, b * nh, col_blocks<HD>());
+      kernel<<<grid, kMmaThreads, smem, st>>>(
+          static_cast<const TQ*>(q), static_cast<const TQ*>(k),
+          static_cast<const TV*>(v), static_cast<TQ*>(out),
+          static_cast<float*>(lse), static_cast<const int*>(q_seg),
+          static_cast<const int*>(kv_seg), sq, sk, nh, scale * kLog2e,
+          causal, offset);
+      return cudaGetLastError();
+    }
   }));
 }
 
@@ -2140,30 +2928,37 @@ int hetu_flash_bwd_dkv(const void* q, const void* k, const void* v,
     constexpr int HD = decltype(hd)::value;
     using TQ = typename decltype(tq)::type;
     using TV = typename decltype(tv)::type;
-    const dim3 grid((sk + kB - 1) / kB, b * nh, col_blocks<HD>());
-    return with_dkv_kernel<HD, TQ, TV>(
-        fused, [&](auto kernel, int threads, int smem) {
-          cudaError_t err = cudaFuncSetAttribute(
-              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-          if (err != cudaSuccess) return err;
-          kernel<<<grid, threads, smem, st>>>(
-              static_cast<const TQ*>(q), static_cast<const TQ*>(k),
-              static_cast<const TV*>(v), static_cast<const TQ*>(out),
-              static_cast<const TQ*>(dout), static_cast<const float*>(lse),
-              static_cast<const float*>(delta), static_cast<float*>(dq_acc),
-              static_cast<TQ*>(dk), static_cast<TV*>(dv),
-              static_cast<const int*>(q_seg),
-              static_cast<const int*>(kv_seg), sq, sk, nh, scale, causal,
-              offset);
-          return cudaGetLastError();
-        });
+    if constexpr (wgmma_route<HD, TQ, TV>()) {
+      return launch_dkv_wgmma<HD>(q, k, v, out, dout, lse, delta, dq_acc, dk,
+                                  dv, q_seg, kv_seg, b, sq, sk, nh, scale,
+                                  causal, offset, fused, st);
+    } else {
+      const dim3 grid((sk + kB - 1) / kB, b * nh, col_blocks<HD>());
+      return with_dkv_kernel<HD, TQ, TV>(
+          fused, [&](auto kernel, int threads, int smem) {
+            cudaError_t err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (err != cudaSuccess) return err;
+            kernel<<<grid, threads, smem, st>>>(
+                static_cast<const TQ*>(q), static_cast<const TQ*>(k),
+                static_cast<const TV*>(v), static_cast<const TQ*>(out),
+                static_cast<const TQ*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<float*>(dq_acc),
+                static_cast<TQ*>(dk), static_cast<TV*>(dv),
+                static_cast<const int*>(q_seg),
+                static_cast<const int*>(kv_seg), sq, sk, nh, scale, causal,
+                offset);
+            return cudaGetLastError();
+          });
+    }
   }));
 }
 
 // The route `entry` (0: hetu_flash_fwd, 1: hetu_flash_bwd_dq, 2:
 // hetu_flash_bwd_dkv) takes for these type codes and head dim: 1 bf16
-// tensor cores, 2 3xTF32 tensor cores, 0 the CUDA cores (the wide route,
-// head dims above 256); -1 if it takes none.
+// mma.sync tensor cores, 2 3xTF32 tensor cores, 3 wgmma (bf16 forward and
+// dk/dv at head dims 64 and 128), 0 the CUDA cores (the wide route, head
+// dims above 256); -1 if it takes none.
 int hetu_flash_uses_tensor_cores(int entry, int head_dim, int dtypes) {
   if (entry < kEntryFwd || entry > kEntryDkv || dtypes < 0 || dtypes > 2)
     return -1;
@@ -2171,7 +2966,9 @@ int hetu_flash_uses_tensor_cores(int entry, int head_dim, int dtypes) {
   if (head_dim != 32 && head_dim != 64 && head_dim != 128 && head_dim != 256)
     return -1;
   // type code 1 is the (bf16, bf16) pair of `dispatch`, 0 and 2 have fp32 q
-  return dtypes == 1 ? kRouteBf16 : kRouteTf32;
+  if (dtypes != 1) return kRouteTf32;
+  return entry != kEntryDq && (head_dim == 64 || head_dim == 128)
+             ? kRouteWgmma : kRouteBf16;
 }
 
 // The dynamic shared memory bytes and the blocks an SM of the kernel that
@@ -2194,9 +2991,14 @@ int hetu_flash_kernel_info(int entry, int head_dim, int dtypes, int fused,
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks_per_sm, kernel, threads, smem);
     };
-    if (entry == kEntryFwd)
-      return info(flash_fwd_mma_kernel<HD, TQ, TV>, kMmaThreads,
-                  fwd_mma_smem_bytes<HD, TQ, TV>());
+    if (entry == kEntryFwd) {
+      if constexpr (wgmma_route<HD, TQ, TV>())
+        return info(flash_fwd_wgmma_kernel<HD>, kWgmmaThreads,
+                    FwdWgmma<HD>::kSmem);
+      else
+        return info(flash_fwd_mma_kernel<HD, TQ, TV>, kMmaThreads,
+                    fwd_mma_smem_bytes<HD, TQ, TV>());
+    }
     if (entry == kEntryDq)
       return info(flash_bwd_dq_mma_kernel<HD, TQ, TV>, kMmaThreads,
                   dq_mma_smem_bytes<HD, TQ, TV>());

@@ -18,8 +18,10 @@ Two implementations of each function:
 - ``flash_fwd_cuda``, ``flash_bwd_fused_cuda``, ``flash_bwd_dq_cuda`` and
   ``flash_bwd_dkv_cuda``: the CUDA kernels of ``csrc/flash_attention.cu``
   (kernels 1-4 of the JAX package).  At head dims up to 256 every kernel
-  runs on the tensor cores in every type: bf16 ``mma.sync`` for bf16
-  q/k/v, 3xTF32 for fp32 q/k (the mixed forward's P.V on bf16
+  runs on the tensor cores in every type: for bf16 q/k/v the forward and
+  the dk/dv template (split and fused) on Hopper's ``wgmma`` fed by TMA at
+  head dims 64 and 128 and on bf16 ``mma.sync`` at 32 and 256, dq on bf16
+  ``mma.sync``; 3xTF32 for fp32 q/k (the mixed forward's P.V on bf16
   ``mma.sync``), at head dims 32, 64, 128 and 256; the wrappers zero-pad
   any other head dim up to 256 to the next of those (``_pad_heads``) and
   slice the results back, which is exact.  Above 256 the wide route runs
@@ -27,8 +29,9 @@ Two implementations of each function:
   columns; wider head dims are zero-padded to the next multiple), where
   the fused backward runs as the split dq and dk/dv kernels.  Each wrapper
   counts its launches in ``.launches`` and, of those, the tensor-core ones
-  (as the library reports them) in ``.tensor_core_launches`` and the
-  3xTF32 ones in ``.tf32_launches``.
+  (as the library reports them) in ``.tensor_core_launches``, the 3xTF32
+  ones in ``.tf32_launches`` and the ``wgmma`` ones in
+  ``.wgmma_launches``.
 
 ``_flash_fwd`` and ``_flash_bwd`` dispatch on the tensors' device: the
 plain versions for CPU tensors, the kernels for CUDA tensors, with no
@@ -302,18 +305,22 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 # the C entry each wrapper calls, as hetu_flash_uses_tensor_cores numbers
 # them, and the tensor-core routes it reports (0 is the wide route's CUDA
-# cores)
+# cores): bf16 mma.sync, 3xTF32, bf16 wgmma
 _ENTRY_FWD, _ENTRY_DQ, _ENTRY_DKV = 0, 1, 2
-_ROUTE_BF16, _ROUTE_TF32 = 1, 2
+_ROUTE_BF16, _ROUTE_TF32, _ROUTE_WGMMA = 1, 2, 3
 
 
 def _count_launch(wrapper, lib, entry: int, d: int, code: int) -> None:
+    """Adds one launch to ``wrapper``'s counts, on the route the library
+    reports for this entry, head dim and type code."""
     wrapper.launches += 1
     route = lib.hetu_flash_uses_tensor_cores(entry, d, code)
-    if route in (_ROUTE_BF16, _ROUTE_TF32):
+    if route in (_ROUTE_BF16, _ROUTE_TF32, _ROUTE_WGMMA):
         wrapper.tensor_core_launches += 1
     if route == _ROUTE_TF32:
         wrapper.tf32_launches += 1
+    if route == _ROUTE_WGMMA:
+        wrapper.wgmma_launches += 1
 
 
 def _kernel_info(entry: int, head_dim: int, code: int, fused: bool = False):
@@ -356,6 +363,7 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool, segment_ids=None,
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.tensor_core_launches = 0
 flash_fwd_cuda.tf32_launches = 0
+flash_fwd_cuda.wgmma_launches = 0
 
 
 def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
@@ -411,6 +419,7 @@ def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
 flash_bwd_fused_cuda.launches = 0
 flash_bwd_fused_cuda.tensor_core_launches = 0
 flash_bwd_fused_cuda.tf32_launches = 0
+flash_bwd_fused_cuda.wgmma_launches = 0
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
@@ -442,6 +451,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.tensor_core_launches = 0
 flash_bwd_dq_cuda.tf32_launches = 0
+flash_bwd_dq_cuda.wgmma_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
@@ -472,6 +482,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.tensor_core_launches = 0
 flash_bwd_dkv_cuda.tf32_launches = 0
+flash_bwd_dkv_cuda.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -207,8 +207,19 @@ FLASH_CASES = [
     (1, 64, 192, 2, 320, True, "tuple", 128),
     (2, 130, 130, 3, 264, False, None, 0),
     (1, 100, 300, 2, 300, True, None, 200),
+    # bf16 on wgmma at head dims 64 and 128 (the other types on 3xTF32):
+    # sq and sk off the 128-row tiles, sq != sk with a causal offset,
+    # segment tuples with rows that see no key, rows before a negative
+    # offset that see none
+    (1, 300, 200, 2, 64, True, None, -150),
+    (2, 200, 328, 2, 128, True, "tuple", 128),
+    (1, 192, 320, 3, 64, True, "masked", 128),
+    (2, 72, 200, 2, 128, True, "masked", 128),
+    (1, 129, 257, 2, 128, False, None, 0),
+    (3, 257, 130, 2, 64, True, None, -3),
 ]
 WIDE = 256     # above this head dim the wide route runs, on the CUDA cores
+WGMMA_HEAD_DIMS = (64, 128)  # bf16 forward and dk/dv on wgmma
 
 
 def _flash_inputs(case, dtypes, device, seed=0):
@@ -264,8 +275,8 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
     bf16 = dtypes != "fp32"
     wrappers = (fa.flash_fwd_cuda, fa.flash_bwd_fused_cuda,
                 fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
-    n0 = [(w.launches, w.tensor_core_launches, w.tf32_launches)
-          for w in wrappers]
+    n0 = [(w.launches, w.tensor_core_launches, w.tf32_launches,
+           w.wgmma_launches) for w in wrappers]
     out, lse = fa.flash_fwd_cuda(q, k, v, scale, causal, segs, off)
     torch.cuda.synchronize()
     assert fa.flash_fwd_cuda.launches == n0[0][0] + 1
@@ -312,12 +323,46 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
         assert torch.count_nonzero(out[:, :-case[7]]).item() == 0
         assert bool((lse[:, :, :-case[7]] == float("-inf")).all())
     # up to head dim 256 every kernel launches on the tensor cores in every
-    # type mix: bf16 mma.sync for bf16 q/k/v, 3xTF32 for fp32 q/k; above,
-    # on the wide route's CUDA cores
+    # type mix: for bf16 q/k/v the forward and dk/dv (split and fused) on
+    # wgmma at (padded) head dims 64 and 128, dq and the other widths on
+    # bf16 mma.sync; 3xTF32 for fp32 q/k; above, on the wide route's CUDA
+    # cores
     wide = case[4] > WIDE
     tc, tf32 = int(not wide), int(dtypes != "bf16" and not wide)
-    assert [(w.launches - a, w.tensor_core_launches - t, w.tf32_launches - f)
-            for w, (a, t, f) in zip(wrappers, n0)] == [(1, tc, tf32)] * 4
+    wg = int(dtypes == "bf16" and
+             fa._kernel_head_dim(case[4]) in WGMMA_HEAD_DIMS)
+    assert [(w.launches - a, w.tensor_core_launches - t,
+             w.tf32_launches - f, w.wgmma_launches - g)
+            for w, (a, t, f, g) in zip(wrappers, n0)] == \
+        [(1, tc, tf32, wg), (1, tc, tf32, wg), (1, tc, tf32, 0),
+         (1, tc, tf32, wg)]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 384])
+def test_flash_route_codes_and_kernel_info(cuda_device, d):
+    """The library reports route 3 (wgmma) for the bf16 forward and dk/dv
+    at head dims 64 and 128, bf16 mma.sync (1) for dq and the other
+    widths, 3xTF32 (2) for fp32 q/k, the wide route (0) above 256; the
+    wgmma kernels take 384 threads' worth of shared memory for one block
+    an SM."""
+    lib = fa._kernel_lib()
+    for code in (0, 1, 2):
+        for entry in (fa._ENTRY_FWD, fa._ENTRY_DQ, fa._ENTRY_DKV):
+            route = lib.hetu_flash_uses_tensor_cores(entry, d, code)
+            if d > WIDE:
+                want = 0
+            elif code != 1:
+                want = 2
+            elif entry != fa._ENTRY_DQ and d in WGMMA_HEAD_DIMS:
+                want = 3
+            else:
+                want = 1
+            assert route == want, (entry, d, code)
+    if d in WGMMA_HEAD_DIMS:
+        for entry, fused in ((fa._ENTRY_FWD, False), (fa._ENTRY_DKV, False),
+                             (fa._ENTRY_DKV, True)):
+            smem, blocks = fa._kernel_info(entry, d, 1, fused)
+            assert blocks == 1 and 64 * 1024 < smem <= 227 * 1024
 
 
 def test_flash_dispatch_takes_the_byte_rule_on_cuda(cuda_device):

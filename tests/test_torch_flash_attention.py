@@ -257,6 +257,41 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pfa.flash_fwd_cuda(tq.bfloat16(), tk, tv, 0.125, True)
 
 
+@pytest.mark.parametrize("route,counts", [
+    (0, (1, 0, 0, 0)),     # the wide route's CUDA cores
+    (1, (1, 1, 0, 0)),     # bf16 mma.sync
+    (2, (1, 1, 1, 0)),     # 3xTF32
+    (3, (1, 1, 0, 1)),     # bf16 wgmma
+    (-1, (1, 0, 0, 0)),    # no route (never launched by the wrappers)
+])
+def test_count_launch_follows_the_route_the_library_reports(route, counts):
+    """``_count_launch`` adds one launch and counts it on the route that
+    ``hetu_flash_uses_tensor_cores`` reports for the entry, head dim and
+    type code (here a stand-in library, on the CPU)."""
+    asked = []
+
+    class Lib:
+        def hetu_flash_uses_tensor_cores(self, entry, d, code):
+            asked.append((entry, d, code))
+            return route
+
+    def wrapper():
+        pass
+    wrapper.launches = wrapper.tensor_core_launches = 0
+    wrapper.tf32_launches = wrapper.wgmma_launches = 0
+    pfa._count_launch(wrapper, Lib(), pfa._ENTRY_DKV, 128, 1)
+    assert asked == [(pfa._ENTRY_DKV, 128, 1)]
+    assert (wrapper.launches, wrapper.tensor_core_launches,
+            wrapper.tf32_launches, wrapper.wgmma_launches) == counts
+
+
+def test_every_wrapper_counts_wgmma_launches():
+    for fn in (pfa.flash_fwd_cuda, pfa.flash_bwd_fused_cuda,
+               pfa.flash_bwd_dq_cuda, pfa.flash_bwd_dkv_cuda):
+        assert fn.wgmma_launches >= 0
+        assert fn.wgmma_launches <= fn.tensor_core_launches <= fn.launches
+
+
 # ---------------------------------------------------------------------------
 # head dims the kernels do not take natively: zero-padded to 32, 64, 128
 # or 256, and above 256 to a multiple of 128 (the wide route)

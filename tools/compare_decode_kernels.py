@@ -159,12 +159,15 @@ def summary(lines):
     return out
 
 
-def main(roots, out=None) -> int:
+def main(roots, out=None, script=__file__, summarize=summary) -> int:
+    """Runs ``script --one ROOT`` for each root in turn (``script``'s own
+    measurements, ``summarize`` its summary of them); every JSON line goes
+    to ``out`` with the run and checkout beside it."""
     failed = 0
     with open(out or os.devnull, "a") as log:
         for run, root in enumerate(roots):
             proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--one", root],
+                [sys.executable, os.path.abspath(script), "--one", root],
                 capture_output=True, text=True)
             lines = []
             for text in proc.stdout.splitlines():
@@ -178,7 +181,7 @@ def main(roots, out=None) -> int:
             log.flush()
             print(json.dumps({"run": run, "checkout": root,
                               "exit": proc.returncode,
-                              **summary(lines)}), flush=True)
+                              **summarize(lines)}), flush=True)
             if proc.returncode:
                 failed += 1
                 print(proc.stderr[-4000:], file=sys.stderr, flush=True)
