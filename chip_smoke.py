@@ -10,8 +10,8 @@ Phases, each printing one JSON line:
    flash kernel's dynamic shared memory and blocks an SM; every flash
    kernel (the forward, dq and the dk/dv template, split and fused, in
    every type mix, bf16 and 3xTF32, at head dims 32, 64, 128 and 256)
-   runs on the tensor cores (the bf16 forward and dk/dv template at 64 and
-   128 on wgmma with TMA), the wide route (head dims above 256) is built
+   runs on the tensor cores (the bf16 forward, dq and dk/dv template at 64
+   and 128 on wgmma with TMA), the wide route (head dims above 256) is built
    in every type mix, the ragged kernel at every template width (and the
    wide one) in both types, the paged decode kernel in both, and no kernel
    of the port may spill;
@@ -61,7 +61,8 @@ Phases, each printing one JSON line:
    once per layer, micro-batch and step on the backward the byte rule
    picks, every launch a tensor-core kernel on its route (3xTF32 for the
    LLaMA path's fp32 and mixed attention; for GPT-2 the forward and the
-   fused backward on wgmma, ``wgmma_launches``)
+   fused backward on wgmma, ``wgmma_launches``; neither path runs the bf16
+   split dq, whose row of the kernel table says so)
    (``train_profile`` then reads two more steps with
    ``torch.profiler``);
 8. train_oracle: 2-layer fp32 models at both widths train three steps on
@@ -135,6 +136,7 @@ from hetu_tpu_torch.ops.ragged_paged_attention import (
     latent_ragged_paged_attention_reference, ragged_paged_attention_cuda,
     ragged_paged_attention_reference)
 from hetu_tpu_torch.serving import Engine
+from tools.sdpa_times import sdpa_times
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_TF32_FLOPS = 495e12     # dense TF32 tensor-core peak, H100 SXM
@@ -220,23 +222,24 @@ def phase_device():
 
 
 # the flash kernels, all on the tensor cores: (kernel, head dim, q/k and v
-# types); the bf16 forward and dk/dv template run on wgmma at head dims 64
-# and 128 and on mma.sync at 32 and 256, and these bf16 kernels have no
-# type arguments, the 3xTF32 dk/dv template only v's (q/k are fp32); split
-# and fused instantiations of the dk/dv templates share a key, so phase 2
-# also counts 48
+# types); the bf16 forward, dq and dk/dv template run on wgmma at head dims
+# 64 and 128 and on mma.sync at 32 and 256, and the wgmma kernels and the
+# bf16 dk/dv template have no type arguments, the 3xTF32 dk/dv template
+# only v's (q/k are fp32); split and fused instantiations of the dk/dv
+# templates share a key, so phase 2 also counts 48
 FLASH_HEAD_DIMS = (32, 64, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128)
 FLASH_KERNELS = {
-    *(("flash_bwd_dq_mma_kernel", hd, types) for hd in FLASH_HEAD_DIMS
-      for types in ("fp32/fp32", "bf16/bf16", "fp32/bf16")),
-    *(("flash_fwd_mma_kernel", hd, types) for hd in FLASH_HEAD_DIMS
-      for types in ("fp32/fp32", "fp32/bf16")),
-    *(("flash_fwd_mma_kernel", hd, "bf16/bf16") for hd in FLASH_HEAD_DIMS
-      if hd not in WGMMA_HEAD_DIMS),
+    *((kernel, hd, types) for kernel in ("flash_fwd_mma_kernel",
+                                         "flash_bwd_dq_mma_kernel")
+      for hd in FLASH_HEAD_DIMS for types in ("fp32/fp32", "fp32/bf16")),
+    *((kernel, hd, "bf16/bf16") for kernel in ("flash_fwd_mma_kernel",
+                                               "flash_bwd_dq_mma_kernel")
+      for hd in FLASH_HEAD_DIMS if hd not in WGMMA_HEAD_DIMS),
     *(("flash_bwd_dkv_mma_kernel", hd, None) for hd in FLASH_HEAD_DIMS
       if hd not in WGMMA_HEAD_DIMS),
     *((kernel, hd, None) for kernel in ("flash_fwd_wgmma_kernel",
+                                        "flash_bwd_dq_wgmma_kernel",
                                         "flash_bwd_dkv_wgmma_kernel")
       for hd in WGMMA_HEAD_DIMS),
     *(("flash_bwd_dkv_tf32_kernel", hd, types) for hd in FLASH_HEAD_DIMS
@@ -270,9 +273,21 @@ def _template_types(head):
     return None
 
 
+# the routes hetu_flash_uses_tensor_cores reports
+FLASH_ROUTES = {0: "cuda_cores", 1: "mma.sync", 2: "3xtf32", 3: "wgmma"}
+
+
+def flash_route(entry, head_dim, types):
+    """The route the library reports for C entry ``entry`` (0 forward, 1
+    dq, 2 dk/dv) at this head dim and type mix."""
+    return FLASH_ROUTES[fa._kernel_lib().hetu_flash_uses_tensor_cores(
+        entry, head_dim, FLASH_CODES[types])]
+
+
 def flash_occupancy():
-    """Dynamic shared memory and blocks an SM of every flash kernel the
-    entries launch, as the card's occupancy calculator reports them."""
+    """Route, dynamic shared memory and blocks an SM of every flash kernel
+    the entries launch, as the library and the card's occupancy calculator
+    report them."""
     rows = []
     for entry, name in enumerate(("forward", "dq", "dk/dv")):
         for fused in ((False, True) if entry == 2 else (False,)):
@@ -281,6 +296,7 @@ def flash_occupancy():
                     smem, blocks = fa._kernel_info(entry, hd, code, fused)
                     rows.append({"entry": name + (" fused" if fused else ""),
                                  "head_dim": hd, "types": types,
+                                 "route": flash_route(entry, hd, types),
                                  "smem_bytes": smem, "blocks_per_sm": blocks})
     return rows
 
@@ -329,8 +345,8 @@ def phase_build():
         raise AssertionError(
             f"the tensor-core flash kernels (forward, dq, and dk/dv fused "
             f"and split, in every type mix, at head dims 32, 64, 128 and "
-            f"256; the bf16 forward and dk/dv on wgmma at 64 and 128) must "
-            f"all be built: {flash}")
+            f"256; the bf16 forward, dq and dk/dv on wgmma at 64 and 128) "
+            f"must all be built: {flash}")
     wide = [(e["kernel"], e["types"])
             for e in report["flash_attention"]["entries"]
             if "_wide_" in e["kernel"]]
@@ -897,6 +913,11 @@ def flash_ratios(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
                               bf16_qk or (i == 2 and bf16_v), FP32_BWD_TOL)
               for g, i in zip(outs, picks[name])]
         res[name] = (max(r[0] for r in rs), max(r[1] for r in rs))
+    # and the kernels' own there, which the gates hold against 0
+    for name, dq in (("fused", got["flash_bwd_fused"][0]),
+                     ("split", got["flash_bwd_dq"][0])):
+        single[f"{name}_dq_max_abs"] = dq[one].float().abs().max().item() \
+            if one.any() else 0.0
     kernel_outs = {"out": out, "lse": lse,
                    "dq_fused": got["flash_bwd_fused"][0],
                    "dq_split": got["flash_bwd_dq"][0],
@@ -915,51 +936,15 @@ def check_flash(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
     return res, plain, kernel_outs
 
 
-def kernel_device_ms(fn, iters=5):
-    """Device time of one call of ``fn``: the self device time of every
-    CUDA kernel it launches, summed by ``torch.profiler`` over ``iters``
-    calls (after one warm-up call) and divided by ``iters``.  For work that
-    does not capture in a CUDA graph of its own."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-    return us / 1e3 / iters
-
-
-def library_times(b, s, h, d, types, seed=5):
+def library_times(b, s, h, d, types, seed=1):
     """PyTorch's own attention at this shape on ``types`` ("bf16" or
     "fp32", its default backend with TF32 off; only as a yardstick: the
-    port never calls it): forward, and ``torch.autograd.grad`` through it
-    for the backward; device times by CUDA-graph replay (forward) and by
-    the profiler's kernel times (backward).  SDPA takes no (fp32, fp32,
-    bf16) q/k/v, so the mixed rows have no library time."""
-    q, k, v, do = flash_inputs(b, s, s, h, d, types, seed)
-    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-    out = sdpa(qg, kg, vg, is_causal=True)
-
-    def fwd():
-        return sdpa(qt, kt, vt, is_causal=True)
-
-    def bwd():
-        return torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)
-
-    # the backward does not capture in a graph of its own (autograd runs it
-    # against the forward's stream): its device time is the profiler's
-    return {"fwd_ms": cuda_time_ms(fwd, warmup=3, iters=20),
-            "bwd_ms": cuda_time_ms(bwd, warmup=3, iters=20),
-            "fwd_device_ms": graph_ms(fwd, iters=20),
-            "bwd_device_ms": kernel_device_ms(bwd)}
+    port never calls it), on the inputs phase 6 gives the kernels (seed 1):
+    ``tools/sdpa_times.py``, which ``tools/compare_flash_kernels.py``
+    reads too.  SDPA takes no (fp32, fp32, bf16) q/k/v, so the mixed rows
+    have no library time."""
+    return sdpa_times(*flash_inputs(b, s, s, h, d, types, seed),
+                      graph_ms=graph_ms, events_ms=cuda_time_ms)
 
 
 def phase_flash():
@@ -1217,15 +1202,14 @@ def phase_train(name, steps=6, micro=2):
     if launches != want:
         raise AssertionError(f"{name}: flash launches {launches} != {want}")
     # every launch runs on the tensor cores: for all-bf16 attention
-    # (GPT-2) the forward and the dk/dv template on wgmma at head dims 64
-    # and 128, dq on bf16 mma.sync; 3xTF32 for the LLaMA path's fp32 and
-    # mixed attention (the mixed forward's P.V on bf16)
+    # (GPT-2) every kernel on wgmma at head dims 64 and 128; 3xTF32 for the
+    # LLaMA path's fp32 and mixed attention (the mixed forward's P.V on
+    # bf16)
     bf16 = k_dtype == torch.bfloat16
     on_wgmma = bf16 and fa._kernel_head_dim(cfg.head_dim) in WGMMA_HEAD_DIMS
     want_tc = dict(want)
     want_tf32 = {n: 0 if bf16 else c for n, c in want_tc.items()}
-    want_wgmma = {n: c if on_wgmma and n != "flash_bwd_dq" else 0
-                  for n, c in want_tc.items()}
+    want_wgmma = {n: c if on_wgmma else 0 for n, c in want_tc.items()}
     if tensor_core != want_tc or tf32 != want_tf32 or wgmma != want_wgmma:
         raise AssertionError(f"{name}: tensor-core flash launches "
                              f"{tensor_core} (3xTF32 {tf32}, wgmma {wgmma}) "
@@ -1862,12 +1846,20 @@ def main():
         "device_ms": kern["device_ms"]}]
     # each flash kernel at the main path's shape where it runs most: the
     # LLaMA layer-0 mix for the forward and the split backward, GPT-2 for
-    # the fused backward; launches over both training runs
+    # the fused backward; launches over both training runs, also by route
+    # (the bf16 split dq, on wgmma, is launched by neither: 0 there), and
+    # the route each type mix takes at these head dims
     where = {"flash_fwd": "llama/fp32_qk_bf16_v",
              "flash_bwd_dq": "llama/fp32_qk_bf16_v",
              "flash_bwd_dkv": "llama/fp32_qk_bf16_v",
              "flash_bwd_fused": "gpt2/bf16"}
+    entries = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2,
+               "flash_bwd_fused": 2}
     for name, at in where.items():
+        wgmma = sum(t["wgmma_launches"][name] for t in train)
+        tf32 = sum(t["tf32_launches"][name] for t in train)
+        mma = sum(t["tensor_core_launches"][name] for t in train) - \
+            wgmma - tf32
         r = flash[at][name]
         # the all-bf16 and the all-fp32 readings at both training shapes
         keys = ("ms", "device_ms", "bound_ms", "library_ms",
@@ -1881,7 +1873,14 @@ def main():
             "source": "hetu_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name], "types": at,
             "launches": sum(t["flash_launches"][name] for t in train),
-            "wgmma_launches": sum(t["wgmma_launches"][name] for t in train),
+            "wgmma_launches": wgmma,
+            "launches_by_route": {"wgmma": wgmma, "3xtf32": tf32,
+                                  "mma.sync": mma},
+            "routes": {f"{shape}/{types}": flash_route(entries[name], d,
+                                                       types)
+                       for shape, d in (("llama", LLAMA_ATTN[3]),
+                                        ("gpt2", GPT2_ATTN[3]))
+                       for types in FLASH_CODES},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -9,7 +9,8 @@
 //       true> / flash_bwd_dkv_tf32_kernel<..., true>
 //                                             <- :325 `_bwd_fused_kernel`
 //       (`_flash_bwd_fused`)
-//   flash_bwd_dq_mma_kernel                   <- :466 `_bwd_dq_kernel`
+//   flash_bwd_dq_wgmma_kernel / flash_bwd_dq_mma_kernel
+//                                             <- :466 `_bwd_dq_kernel`
 //       (`_flash_bwd_split`)
 //   flash_bwd_dkv_wgmma_kernel<HD, false> / flash_bwd_dkv_mma_kernel<HD,
 //       false> / flash_bwd_dkv_tf32_kernel<..., false>
@@ -43,10 +44,10 @@
 // operations.
 //
 // What the design does about it:
-//  - Routes.  bf16 q/k/v at head dims 64 and 128: the forward and the
-//    dk/dv template (split and fused) on Hopper's wgmma, fed by TMA
+//  - Routes.  bf16 q/k/v at head dims 64 and 128: the forward, dq and
+//    the dk/dv template (split and fused) on Hopper's wgmma, fed by TMA
 //    through an mbarrier ring by a producer warpgroup (the "wgmma
-//    kernels" section; wgmma_bf16.cuh); dq and the other widths on bf16
+//    kernels" section; wgmma_bf16.cuh); the other widths on bf16
 //    mma.sync; fp32 q/k on 3xTF32 mma.sync; above 256 the wide route.
 //  - The wgmma kernels.  A block is three warpgroups: two consumers and a
 //    producer, whose registers go to the consumers by setmaxnreg (224 and
@@ -58,18 +59,22 @@
 //    with the transpose bit.  The forward: 128 q rows a block (64 a
 //    consumer), K/V tiles of 128 keys in a ring of 2 (d 128) or 3 (d 64)
 //    stages; S = Q K^T, the online softmax in registers, P as the register
-//    A operand of O += P V.  The dk/dv template: 128 keys a block (64 a
-//    consumer, dK and dV in registers), q tiles of 64 rows (Q, dO, O for
-//    the fused kernel) in a ring of 2 stages; the producer's other three
-//    warps scale Q and, fused, compute delta = rowsum(dO * O) in fp64 from
-//    the tiles before the consumers see them; S^T and dP^T on wgmma, P^T
-//    and dS^T as register A operands of dV += P^T dO and dK += dS^T Q;
-//    fused, dS^T goes to shared memory (swizzled, two buffers) for dQ_part
-//    = dS K over the block's 128 keys, half the head columns a consumer,
-//    added into dq_acc with 8-byte atomics.  Where a q row sees one key,
-//    dP^T - delta cancels to the rounding of two sums, which the fused
-//    kernel's dq carries: its dP^T adds the k-steps' products in fp32
-//    (wgmma_ss_sum), as a chain of wgmma keeps fewer bits.
+//    A operand of O += P V.  dq in the forward's shape: 128 q rows a
+//    block, Q and dO loaded once, K/V tiles of 128 keys in the ring, taken
+//    in chunks of 64 keys; S = Q K^T and dP = dO V^T on wgmma, dS as the
+//    register A operand of dQ += dS K.  The dk/dv template: 128 keys a
+//    block (64 a consumer, dK and dV in registers), q tiles of 64 rows
+//    (Q, dO, O for the fused kernel) in a ring of 2 stages; the producer's
+//    other three warps scale Q and, fused, compute delta = rowsum(dO * O)
+//    in fp64 from the tiles before the consumers see them; S^T and dP^T
+//    on wgmma, P^T and dS^T as register A operands of dV += P^T dO and dK
+//    += dS^T Q; fused, dS^T goes to shared memory (swizzled, two buffers)
+//    for dQ_part = dS K over the block's 128 keys, half the head columns
+//    a consumer, added into dq_acc with 8-byte atomics.  Where a q row
+//    sees one key, dP - delta cancels to the rounding of two sums, which
+//    dq carries: the fused kernel's dP^T and dq's dP add the k-steps'
+//    products in fp32 (wgmma_ss_sum), as a chain of wgmma keeps fewer
+//    bits.
 //  - The mma.sync kernels: one block owns one (batch, head) and one tile
 //    of 64 rows, and loops over the other axis itself: the forward and dq
 //    over KV tiles (their TPU grids carried that loop in VMEM scratch),
@@ -117,9 +122,9 @@
 //    tiles (dkv_tf32_rows), so that two blocks fit an SM.
 //  - What bounds the wgmma kernels now (H100, PERF.md): the forward runs
 //    at about half its bound at the Llama shape; the backward kernels
-//    wait on their own wgmma groups (each consumer's products of a tile
-//    depend on one another, and two consumers hide little of it), the
-//    fused one also on its dQ atomics.
+//    (dq and the dk/dv template) wait on their own wgmma groups (each
+//    consumer's products of a tile depend on one another, and two
+//    consumers hide little of it), the fused one also on its dQ atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,6 +144,15 @@ namespace {
 constexpr int kB = 64;           // rows of a q tile and of a KV tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x by the special function unit, results below 2^-126 flushed to 0 (a
+// probability that small adds nothing a bf16 product can carry); exp2f
+// rescales around each call for them
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // the number of `tile`-key tiles that q rows [q0, q0 + rows) can see
 __device__ __forceinline__ int kv_tiles_for(int q0, int sq, int sk, int causal,
@@ -602,8 +616,10 @@ constexpr int dq_mma_smem_bytes() {
                        tile_ld<HD, TV>() * static_cast<int>(sizeof(TV)) + 4);
 }
 
-// Kernel 3, dq of the split backward, in the forward's shape: one block
-// per (batch * head, 64-row q tile), longest rows first; warp w owns q rows
+// Kernel 3, dq of the split backward, on mma.sync (bf16 q/k/v at head dims
+// 32 and 256, fp32 q/k at every head dim; bf16 at 64 and 128 runs
+// flash_bwd_dq_wgmma_kernel), in the forward's shape: one block per
+// (batch * head, 64-row q tile), longest rows first; warp w owns q rows
 // 16w .. 16w+15 and their dQ accumulators in registers.  Q (scaled by scale
 // * log2(e) in q's type, :564) and dO come with the first KV tile and stay
 // in shared memory; the next K/V tile is in flight by cp.async while the
@@ -1622,8 +1638,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma kernels: kernel 1 and the dk/dv template (kernels 2, 4) on bf16
-// q/k/v at head dims 64 and 128 (wgmma_bf16.cuh)
+// wgmma kernels: kernels 1 and 3 and the dk/dv template (kernels 2, 4) on
+// bf16 q/k/v at head dims 64 and 128 (wgmma_bf16.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 128;                 // a warpgroup
@@ -2280,6 +2296,268 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+template <int HD>
+struct DqWgmma {
+  static constexpr int kBM = 128;  // q rows a block, 64 a consumer group
+  static constexpr int kBN = 128;  // keys a KV stage
+  // keys a chunk of S and dP: S and dP's two chains take 32 registers each,
+  // the dS operand of the dQ product in flight 16, beside dQ's HD / 2
+  static constexpr int kKC = 64;
+  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kQ = kBM * HD * 2;   // bytes of the Q or the dO tile
+  static constexpr int kKV = kBN * HD * 2;  // of a K or a V stage
+  // Q, dO, the K and V ring, q_full + full and empty a stage, alignment
+  static constexpr int kSmem =
+      2 * kQ + 2 * kStages * kKV + (1 + 2 * kStages) * 8 + kSwizzleAtom;
+};
+
+// Kernel 3, dq of the split backward, on bf16 q/k/v at head dims 64 and
+// 128; replaces hetu_tpu/ops/pallas/flash_attention.py:466 `_bwd_dq_kernel`
+// (`_flash_bwd_split`, :560).  Bound by operations: three products per
+// visible (query, key) pair, S = Q K^T, dP = dO V^T and dQ = dS K, 0.417 ms
+// on the bf16 tensor cores at the Llama-3-8B training shape (b 2, s 4096,
+// h 32, d 128, causal), against about 0.3 GB of q/k/v/do/dq traffic.
+// The forward's shape (flash_fwd_wgmma_kernel): one block per (batch *
+// head, 128-row q tile), longest rows first; warpgroups 0 and 1 consume,
+// each owning 64 q rows and their dQ accumulator in registers, warpgroup 2
+// produces.  Its first thread loads Q and dO once and streams the K and V
+// tiles (128 keys) by TMA into a ring of kStages stages ("full" and
+// "empty" mbarriers), up to the tile's last visible key; the rest of its
+// group only gives its registers up, so that no consumer spends registers
+// or instructions on addresses, and a K/V tile is read from L2 once per
+// 128 q rows.  A consumer group scales its Q rows by scale * log2(e) and
+// rounds them to bf16 in place (the reference's :564), reads its rows'
+// lse (base 2, +inf where a row sees no key or lies past sq, so that p = 0
+// there), delta and q ids once, then per 64-key chunk of a stage: S = Q
+// K^T and dP = dO V^T (wgmma, all operands K-major), issued together;
+// P = exp2(S - lse2), masked only where the chunk crosses the diagonal or
+// an edge or segments are given; dS = P (dP - delta) in fp32, rounded to
+// bf16 (q's type, :502) into wgmma's register A operand; dQ += dS K with K
+// MN-major (the transpose bit), as the forward's O += P V.  The dQ product
+// stays in flight behind the next chunk's S and dP, so that a chunk costs
+// one wait, and a stage is released once that wait has passed.  A query
+// row that sees one key has dS = 0 exactly, where dP - delta cancels to
+// the rounding of the two sums: one wgmma chain over the head dim keeps
+// too few bits for that, so dP - delta is two chains over alternate
+// k-steps, the first started at -delta, added in fp32.  Chunks wholly
+// above the group's part of the diagonal or past sk are skipped.  dQ is
+// multiplied by scale and stored in bf16; rows that see no key get dq = 0
+// exactly.  A chunk of 64 keys keeps S, both dP chains and the dS operand
+// in flight beside the 64 dQ registers of d 128 under the consumers'
+// setmaxnreg budget without spills.
+template <int HD>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq,
+                          const int* __restrict__ q_seg,
+                          const int* __restrict__ kv_seg, int sq, int sk,
+                          int nh, float scale, int causal, int offset) {
+  using C = DqWgmma<HD>;
+  constexpr int kBM = C::kBM, kBN = C::kBN, kKC = C::kKC;
+  constexpr int kStages = C::kStages;
+  extern __shared__ __align__(128) uint8_t smem_dq_wg[];
+  uint8_t* q_s = align_atom(smem_dq_wg);
+  uint8_t* do_s = q_s + C::kQ;
+  uint8_t* k_s = do_s + C::kQ;
+  uint8_t* v_s = k_s + kStages * C::kKV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * C::kKV);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // longest rows first
+  const int b = blockIdx.y / nh;
+  const int h = blockIdx.y % nh;
+  const int n_kv = kv_tiles_for(q0, sq, sk, causal, offset, kBN, kBM);
+  const int wg = warpgroup_index();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * kWgThreads && n_kv > 0) {
+      mbar_arrive_expect_tx(q_full, 2 * C::kQ);
+      tma_tile<HD>(q_s, kBM, &tm_q, q_full, q0, h, b);
+      tma_tile<HD>(do_s, kBM, &tm_do, q_full, q0, h, b);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * C::kKV);
+        tma_tile<HD>(k_s + s * C::kKV, kBN, &tm_k, &full[s], t * kBN, h, b);
+        tma_tile<HD>(v_s + s * C::kKV, kBN, &tm_v, &full[s], t * kBN, h, b);
+      }
+    }
+  } else {
+    // consumers
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % kWgThreads;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int gq = lane >> 2;
+    const int tq = lane & 3;
+    const int row0 = q0 + 64 * wg;  // the group's first q row
+    const int64_t tok = static_cast<int64_t>(nh) * HD;
+    const int* ksb = kv_seg != nullptr ? kv_seg + static_cast<int64_t>(b) * sk
+                                       : nullptr;
+    // the lane's two rows: lse in base 2, delta and q ids
+    int rows[2], qsg[2];
+    float l2[2], dlt[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 16 * warp + gq + 8 * hr;
+      const bool live = row < sq;
+      const float ls =
+          live ? lse[(static_cast<int64_t>(b) * nh + h) * sq + row] : -INFINITY;
+      rows[hr] = row;
+      l2[hr] = ls == -INFINITY ? INFINITY : ls * kLog2e;
+      dlt[hr] = live ? delta[(static_cast<int64_t>(b) * sq + row) * nh + h]
+                     : 0.f;
+      qsg[hr] = (q_seg != nullptr && live)
+                    ? q_seg[static_cast<int64_t>(b) * sq + row] : 0;
+    }
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+    if (n_kv > 0) {
+      mbar_wait(q_full, 0);
+#pragma unroll
+      for (int half = 0; half < HD / 64; ++half)
+        scale_chunks(q_s + (half * kBM + 64 * wg) * kSwizzleBytes, tid,
+                     64 * 8, kWgThreads, scale * kLog2e);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, kWgThreads);
+    }
+    const uint32_t q_sa = smem_addr(q_s);
+    const uint32_t do_sa = smem_addr(do_s);
+    // dS of the chunk whose dQ product is in flight (wgmma reads its
+    // register A operand until the next wait), and the stage that product
+    // reads, or -1
+    uint32_t ds16[kKC / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ds16[kk][r] = 0u;
+    int pending = -1;
+
+    for (int t = 0; t < n_kv; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      const int k0 = t * kBN;
+      // causal tiles past the group's part of the diagonal come last
+      if (row0 >= sq || (causal && k0 > row0 + 63 + offset)) {
+        if (pending >= 0) {
+          wgmma_wait<0>();
+          fence_regs(ds16);
+          fence_regs(acc);
+          if (lane == 0) mbar_arrive(&empty[pending]);
+          pending = -1;
+        }
+        if (lane == 0) mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t kt = smem_addr(k_s + s * C::kKV);
+      const uint32_t vt = smem_addr(v_s + s * C::kKV);
+#pragma unroll
+      for (int c0 = 0; c0 < kBN; c0 += kKC) {
+        const int j0 = k0 + c0;
+        if (j0 >= sk || (causal && j0 > row0 + 63 + offset)) continue;
+        // S = Q K^T; dP - delta = dO V^T - delta in two chains of wgmma
+        // over alternate k-steps, the first started at -delta, added in
+        // fp32
+        float sc[kKC / 2], dp[2][kKC / 2];
+#pragma unroll
+        for (int i = 0; i < kKC / 2; ++i) {
+          sc[i] = 0.f;
+          dp[0][i] = -dlt[(i >> 1) & 1];
+          dp[1][i] = 0.f;
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<kKC, 0, 0>(sc, desc_k_major(q_sa, kBM, 64 * wg, kk),
+                              desc_k_major(kt, kBN, c0, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<kKC, 0, 0>(dp[kk & 1],
+                              desc_k_major(do_sa, kBM, 64 * wg, kk),
+                              desc_k_major(vt, kBN, c0, kk), 1);
+        wgmma_commit();
+        // also completes the previous chunk's dQ product
+        wgmma_wait<0>();
+        fence_regs(ds16);
+        fence_regs(acc);
+        fence_regs(sc);
+        fence_regs(dp[0]);
+        fence_regs(dp[1]);
+        if (pending >= 0 && pending != s) {
+          if (lane == 0) mbar_arrive(&empty[pending]);
+        }
+
+        // S = -inf where masked, then, without a branch, dS = P (dP -
+        // delta) with P = exp2(S - lse2)
+        if (ksb != nullptr || j0 + kKC > sk ||
+            (causal && j0 + kKC - 1 > row0 + offset)) {
+#pragma unroll
+          for (int j = 0; j < kKC / 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int col = j0 + 8 * j + 2 * tq + (i & 1);
+              bool ok = col < sk;
+              if (causal) ok = ok && col <= rows[i >> 1] + offset;
+              if (ksb != nullptr) ok = ok && qsg[i >> 1] == ksb[col];
+              if (!ok) sc[4 * j + i] = -INFINITY;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < kKC / 2; ++i)
+          dp[0][i] = exp2_ftz(sc[i] - l2[(i >> 1) & 1]) * (dp[0][i] + dp[1][i]);
+#pragma unroll
+        for (int kk = 0; kk < kKC / 16; ++kk) a_from_acc(ds16[kk], dp[0], kk);
+        // dQ += dS K, left in flight behind the next chunk's S and dP
+        wgmma_fence();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < kKC / 16; ++kk)
+          wgmma_rs<HD, 1>(acc, ds16[kk], desc_mn_major(kt, kBN, c0 / 16 + kk),
+                          1);
+        wgmma_commit();
+        pending = s;
+      }
+    }
+    if (pending >= 0) {
+      wgmma_wait<0>();
+      fence_regs(ds16);
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[pending]);
+    }
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = rows[hr];
+      if (row >= sq) continue;
+      bf16* dst = dq + (static_cast<int64_t>(b) * sq + row) * tok + h * HD +
+                  2 * tq;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        store2(dst + 8 * j, acc[4 * j + 2 * hr] * scale,
+               acc[4 * j + 2 * hr + 1] * scale);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -2290,10 +2568,10 @@ struct Tag {
 };
 
 // The C entries, as hetu_flash_uses_tensor_cores numbers them, and the
-// routes their kernels take: bf16 q/k/v run the forward and the dk/dv
-// template on wgmma at head dims 64 and 128 and on bf16 mma.sync at 32 and
-// 256, and dq on bf16 mma.sync; fp32 q/k (fp32 or bf16 v) every entry in
-// 3xTF32 (the mixed forward's P.V on bf16 mma.sync).
+// routes their kernels take: bf16 q/k/v run every entry on wgmma at head
+// dims 64 and 128 and on bf16 mma.sync at 32 and 256; fp32 q/k (fp32 or
+// bf16 v) every entry in 3xTF32 (the mixed forward's P.V on bf16
+// mma.sync).
 constexpr int kEntryFwd = 0, kEntryDq = 1, kEntryDkv = 2;
 constexpr int kRouteCudaCores = 0, kRouteBf16 = 1, kRouteTf32 = 2,
               kRouteWgmma = 3;
@@ -2373,6 +2651,32 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                   DkvWgmma<HD, true>::kSmem);
   return launch(flash_bwd_dkv_wgmma_kernel<HD, false>,
                 DkvWgmma<HD, false>::kSmem);
+}
+
+template <int HD>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, const void* q_seg,
+                            const void* kv_seg, int b, int sq, int sk, int nh,
+                            float scale, int causal, int offset,
+                            cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_maps<HD>({{&tq, q}, {&tdo, dout}},
+                                    {{&tk, k}, {&tv, v}}, b, sq, sk, nh);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_dq_wgmma_kernel<HD>;
+  constexpr int smem = DqWgmma<HD>::kSmem;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int kBM = DqWgmma<HD>::kBM;
+  const dim3 grid((sq + kBM - 1) / kBM, b * nh);
+  kernel<<<grid, kWgmmaThreads, smem, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq),
+      static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), sq,
+      sk, nh, scale, causal, offset);
+  return cudaGetLastError();
 }
 
 // Calls f(int_constant<HD>, Tag<TQ>, Tag<TV>) for the supported head dims and
@@ -2878,19 +3182,26 @@ int hetu_flash_bwd_dq(const void* q, const void* k, const void* v,
     constexpr int HD = decltype(hd)::value;
     using TQ = typename decltype(tq)::type;
     using TV = typename decltype(tv)::type;
-    auto kernel = flash_bwd_dq_mma_kernel<HD, TQ, TV>;
-    constexpr int smem = dq_mma_smem_bytes<HD, TQ, TV>();
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((sq + kB - 1) / kB, b * nh, col_blocks<HD>());
-    kernel<<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const TQ*>(q), static_cast<const TQ*>(k),
-        static_cast<const TV*>(v), static_cast<const TQ*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<TQ*>(dq), static_cast<const int*>(q_seg),
-        static_cast<const int*>(kv_seg), sq, sk, nh, scale, causal, offset);
-    return cudaGetLastError();
+    if constexpr (wgmma_route<HD, TQ, TV>()) {
+      return launch_dq_wgmma<HD>(q, k, v, dout, lse, delta, dq, q_seg,
+                                 kv_seg, b, sq, sk, nh, scale, causal, offset,
+                                 st);
+    } else {
+      auto kernel = flash_bwd_dq_mma_kernel<HD, TQ, TV>;
+      constexpr int smem = dq_mma_smem_bytes<HD, TQ, TV>();
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((sq + kB - 1) / kB, b * nh, col_blocks<HD>());
+      kernel<<<grid, kMmaThreads, smem, st>>>(
+          static_cast<const TQ*>(q), static_cast<const TQ*>(k),
+          static_cast<const TV*>(v), static_cast<const TQ*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<TQ*>(dq), static_cast<const int*>(q_seg),
+          static_cast<const int*>(kv_seg), sq, sk, nh, scale, causal,
+          offset);
+      return cudaGetLastError();
+    }
   }));
 }
 
@@ -2956,9 +3267,9 @@ int hetu_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // The route `entry` (0: hetu_flash_fwd, 1: hetu_flash_bwd_dq, 2:
 // hetu_flash_bwd_dkv) takes for these type codes and head dim: 1 bf16
-// mma.sync tensor cores, 2 3xTF32 tensor cores, 3 wgmma (bf16 forward and
-// dk/dv at head dims 64 and 128), 0 the CUDA cores (the wide route, head
-// dims above 256); -1 if it takes none.
+// mma.sync tensor cores, 2 3xTF32 tensor cores, 3 wgmma (every bf16 entry
+// at head dims 64 and 128), 0 the CUDA cores (the wide route, head dims
+// above 256); -1 if it takes none.
 int hetu_flash_uses_tensor_cores(int entry, int head_dim, int dtypes) {
   if (entry < kEntryFwd || entry > kEntryDkv || dtypes < 0 || dtypes > 2)
     return -1;
@@ -2967,8 +3278,7 @@ int hetu_flash_uses_tensor_cores(int entry, int head_dim, int dtypes) {
     return -1;
   // type code 1 is the (bf16, bf16) pair of `dispatch`, 0 and 2 have fp32 q
   if (dtypes != 1) return kRouteTf32;
-  return entry != kEntryDq && (head_dim == 64 || head_dim == 128)
-             ? kRouteWgmma : kRouteBf16;
+  return head_dim == 64 || head_dim == 128 ? kRouteWgmma : kRouteBf16;
 }
 
 // The dynamic shared memory bytes and the blocks an SM of the kernel that
@@ -2999,9 +3309,14 @@ int hetu_flash_kernel_info(int entry, int head_dim, int dtypes, int fused,
         return info(flash_fwd_mma_kernel<HD, TQ, TV>, kMmaThreads,
                     fwd_mma_smem_bytes<HD, TQ, TV>());
     }
-    if (entry == kEntryDq)
-      return info(flash_bwd_dq_mma_kernel<HD, TQ, TV>, kMmaThreads,
-                  dq_mma_smem_bytes<HD, TQ, TV>());
+    if (entry == kEntryDq) {
+      if constexpr (wgmma_route<HD, TQ, TV>())
+        return info(flash_bwd_dq_wgmma_kernel<HD>, kWgmmaThreads,
+                    DqWgmma<HD>::kSmem);
+      else
+        return info(flash_bwd_dq_mma_kernel<HD, TQ, TV>, kMmaThreads,
+                    dq_mma_smem_bytes<HD, TQ, TV>());
+    }
     return with_dkv_kernel<HD, TQ, TV>(fused, info);
   }));
 }

@@ -21,7 +21,8 @@ kernels (or page kinds) a fault touches.  The flash faults:
   its bf16 mma.sync instantiations (head dims 32 and 256, read at d 256),
   or in its fp32 and mixed (3xTF32) ones;
 - ``mask_dq_mma`` and ``mask_dq_tf32``: the same in the tensor-core dq
-  kernel;
+  kernel, in its bf16 mma.sync instantiations (head dims 32 and 256, read
+  at d 256), or in its fp32 and mixed (3xTF32) ones;
 - ``mask_dkv_mma`` and ``mask_dkv_tf32``: the same in the tensor-core
   dk/dv template (split and fused), in its bf16 mma.sync instantiations
   (read at d 256), or in its fp32 and mixed (3xTF32) ones;
@@ -35,9 +36,9 @@ kernels (or page kinds) a fault touches.  The flash faults:
   phase 6's gates, phase 8's training oracle at GPT-2 widths (its fused
   fp32 backward) must refuse it.
 
-The faults of the wgmma kernels (the bf16 forward and dk/dv template at
-head dims 64 and 128), against phase 6's bf16 gates at the Llama and GPT-2
-shapes:
+The faults of the wgmma kernels (the bf16 forward, dq and dk/dv template
+at head dims 64 and 128), against phase 6's bf16 gates at the Llama and
+GPT-2 shapes:
 
 - ``swizzle_wgmma``: TMA writes the tiles unswizzled while every wgmma
   descriptor reads them in the 128-byte swizzle (``wgmma_bf16.cuh``; the
@@ -45,17 +46,18 @@ shapes:
   in its tile: a descriptor naming a narrower swizzle would read past
   shared memory instead);
 - ``stale_stage``: the producer completes a stage's "full" barrier without
-  loading it for K/V tiles (forward) or q tiles (dk/dv) at or past 2048,
+  loading it for K/V tiles (forward, dq) or q tiles (dk/dv) at or past 2048,
   so the consumers read what the stage held kStages tiles before; a
   consumer that skipped its wait would read a stage whose load may or may
   not have landed, a race no gate can be held to, so the fault makes the
   staleness certain (and cannot hang: every barrier still completes);
-- ``transpose_v`` and ``transpose_do``: the transpose bit dropped on V in
-  the forward's P V, or on dO in the dk/dv template's P^T dO, for the
-  first k-step of a tile (whose operand, read K-major, still lies inside
-  the tile; later k-steps would read past it);
-- ``mask_fwd_wgmma`` and ``mask_dkv_wgmma``: the causal mask skipped on
-  the tiles that cross the diagonal.
+- ``transpose_v``, ``transpose_do`` and ``transpose_k``: the transpose bit
+  dropped on V in the forward's P V, on dO in the dk/dv template's P^T dO,
+  or on K in dq's dS K, for the first k-step of a tile (whose operand, read
+  K-major, still lies inside the tile; later k-steps would read past it);
+- ``mask_fwd_wgmma``, ``mask_dq_wgmma`` and ``mask_dkv_wgmma``: the causal
+  mask skipped on the tiles (dq: the 64-key chunks) that cross the
+  diagonal.
 
 The latent faults, in the tensor-core latent kernel:
 
@@ -115,7 +117,9 @@ def _mutants(src: str):
     fwd_wg = ("flash_fwd_wgmma_kernel(const __grid_constant__",
               "struct DkvWgmma")
     dkv_wg = ("flash_bwd_dkv_wgmma_kernel(const __grid_constant__",
-              "// launchers")
+              "struct DqWgmma")
+    dq_wg = ("flash_bwd_dq_wgmma_kernel(const __grid_constant__",
+             "// launchers")
     fwd_mask = "if (causal) ok = ok && j <= row + offset;"
     dq_mask = "if (causal) ok = ok && j <= wrow0 + gq + 8 * (i >> 1) + offset;"
     out = {
@@ -134,14 +138,15 @@ def _mutants(src: str):
                                               f"+ offset + {on};"))
     out["tf32_1term_dkv"] = _one_term(src, "template <int kNT, int kSteps",
                                       "// wgmma kernels:")
-    out["stale_stage"] = _within(
-        _within(src, *fwd_wg,
-                "        mbar_arrive_expect_tx(&full[s], 2 * C::kKV);",
-                "        if (t * kBN >= 2048) {\n"
+    # the forward's and dq's producers load K/V tiles alike
+    kv_load = "        mbar_arrive_expect_tx(&full[s], 2 * C::kKV);"
+    stale_kv = ("        if (t * kBN >= 2048) {\n"
                 "          mbar_arrive(&full[s]);\n"
                 "          continue;\n"
-                "        }\n"
-                "        mbar_arrive_expect_tx(&full[s], 2 * C::kKV);"),
+                "        }\n" + kv_load)
+    out["stale_stage"] = _within(
+        _within(_within(src, *fwd_wg, kv_load, stale_kv), *dq_wg, kv_load,
+                stale_kv),
         *dkv_wg, "if (lane == 0) {\n          mbar_arrive_expect_tx",
         "if (lane == 0 && q0 < 2048) {\n          mbar_arrive_expect_tx")
     # the first k-step only: read K-major, an operand spans HD rows of 128
@@ -155,8 +160,14 @@ def _mutants(src: str):
         "if (c0 + kk == 0) wgmma_rs<HD, 0>(dv_acc, p16[0], "
         "desc_mn_major(dot, kBM, 0), 1); else wgmma_rs<HD, 1>(dv_acc, "
         "p16[kk],")
+    out["transpose_k"] = _within(
+        src, *dq_wg, "wgmma_rs<HD, 1>(acc, ds16[kk],",
+        "if (c0 + kk == 0) wgmma_rs<HD, 0>(acc, ds16[0], "
+        "desc_mn_major(kt, kBN, 0), 1); else wgmma_rs<HD, 1>(acc, ds16[kk],")
     out["mask_fwd_wgmma"] = _within(
         src, *fwd_wg, "(causal && k0 + kBN - 1 > row0 + offset)", "false")
+    out["mask_dq_wgmma"] = _within(
+        src, *dq_wg, "(causal && j0 + kKC - 1 > row0 + offset)", "false")
     out["mask_dkv_wgmma"] = _within(
         src, *dkv_wg, "(causal && kw0 + 63 > q0 + offset)", "false")
     return out
@@ -200,30 +211,34 @@ def _one_term(src: str, start: str, end: str) -> str:
 def _touched(fault: str, tag: str, s: int):
     """The kernels that ``fault`` changes at shape ``tag`` (sequence
     length ``s``): every kernel runs on the tensor cores; bf16 q/k/v run
-    the forward and the dk/dv template on wgmma at head dims 64 and 128
-    (the Llama and GPT-2 shapes) and on ``mma.sync`` at 256 (``d256``),
-    and dq on ``mma.sync``; fp32 q/k run 3xTF32; the dk/dv template serves
-    the split dk/dv and the fused backward."""
+    the forward, dq and the dk/dv template on wgmma at head dims 64 and
+    128 (the Llama and GPT-2 shapes) and on ``mma.sync`` at 256
+    (``d256``); fp32 q/k run 3xTF32; the dk/dv template serves the split
+    dk/dv and the fused backward."""
     bf16 = tag.endswith("/bf16")
-    mma = tag.startswith("d256/")   # bf16 mma.sync forward and dk/dv
-    wg = bf16 and not mma           # bf16 wgmma forward and dk/dv
+    mma = tag.startswith("d256/")   # bf16 mma.sync kernels
+    wg = bf16 and not mma           # bf16 wgmma kernels
+    dq = ("flash_bwd_dq",)
     dkv = ("flash_bwd_dkv", "flash_bwd_fused")
     tf32_dkv = () if bf16 else dkv
     return {"clean": (),
             "q_tile": tf32_dkv if s > 2048 else (),
             "mask_fwd_mma": ("flash_fwd",) if mma else (),
             "mask_fwd_tf32": () if bf16 else ("flash_fwd",),
-            "mask_dq_mma": ("flash_bwd_dq",) if bf16 else (),
-            "mask_dq_tf32": () if bf16 else ("flash_bwd_dq",),
+            "mask_dq_mma": dq if mma else (),
+            "mask_dq_tf32": () if bf16 else dq,
             "mask_dkv_mma": dkv if mma else (),
             "mask_dkv_tf32": tf32_dkv,
             "tf32_1term_dkv": tf32_dkv,
             "prefetch": ("flash_fwd",) if s > 2048 and not bf16 else (),
-            "swizzle_wgmma": ("flash_fwd", *dkv) if wg else (),
-            "stale_stage": ("flash_fwd", *dkv) if wg and s > 2048 else (),
+            "swizzle_wgmma": ("flash_fwd", *dq, *dkv) if wg else (),
+            "stale_stage": ("flash_fwd", *dq, *dkv) if wg and s > 2048
+            else (),
             "transpose_v": ("flash_fwd",) if wg else (),
             "transpose_do": dkv if wg else (),
+            "transpose_k": dq if wg else (),
             "mask_fwd_wgmma": ("flash_fwd",) if wg else (),
+            "mask_dq_wgmma": dq if wg else (),
             "mask_dkv_wgmma": dkv if wg else (),
             }[fault]
 
@@ -403,7 +418,7 @@ def main() -> int:
               ("llama/fp32", cs.LLAMA_ATTN, "fp32"),
               ("llama/bf16", cs.LLAMA_ATTN, "bf16"),
               ("gpt2/bf16", cs.GPT2_ATTN, "bf16"),
-              # the bf16 mma.sync forward and dk/dv (head dims 32 and 256)
+              # the bf16 mma.sync kernels (head dims 32 and 256)
               ("d256/bf16", (1, 1024, 2, 256), "bf16"))
     with open(os.path.join(build.CSRC, "wgmma_bf16.cuh")) as f:
         wgmma_header = f.read()

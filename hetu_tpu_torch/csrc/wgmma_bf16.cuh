@@ -174,6 +174,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// the same for register A operands, which an asynchronous wgmma reads until
+// its group is waited for: fenced after the wait, they stay in place until
+// then
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[m][r]) :: "memory");
+}
+
 // D (+)= A B over k = 16: A (64 x 16) and B (16 x N) from shared memory
 // (SS) or A from registers (RS); TA / TB the transpose (MN-major) bits;
 // scale_d = 0 overwrites D.

@@ -18,10 +18,10 @@ Two implementations of each function:
 - ``flash_fwd_cuda``, ``flash_bwd_fused_cuda``, ``flash_bwd_dq_cuda`` and
   ``flash_bwd_dkv_cuda``: the CUDA kernels of ``csrc/flash_attention.cu``
   (kernels 1-4 of the JAX package).  At head dims up to 256 every kernel
-  runs on the tensor cores in every type: for bf16 q/k/v the forward and
-  the dk/dv template (split and fused) on Hopper's ``wgmma`` fed by TMA at
-  head dims 64 and 128 and on bf16 ``mma.sync`` at 32 and 256, dq on bf16
-  ``mma.sync``; 3xTF32 for fp32 q/k (the mixed forward's P.V on bf16
+  runs on the tensor cores in every type: for bf16 q/k/v every kernel
+  (the forward, dq and the dk/dv template, split and fused) on Hopper's
+  ``wgmma`` fed by TMA at head dims 64 and 128 and on bf16 ``mma.sync`` at
+  32 and 256; 3xTF32 for fp32 q/k (the mixed forward's P.V on bf16
   ``mma.sync``), at head dims 32, 64, 128 and 256; the wrappers zero-pad
   any other head dim up to 256 to the next of those (``_pad_heads``) and
   slice the results back, which is exact.  Above 256 the wide route runs

@@ -219,7 +219,7 @@ FLASH_CASES = [
     (3, 257, 130, 2, 64, True, None, -3),
 ]
 WIDE = 256     # above this head dim the wide route runs, on the CUDA cores
-WGMMA_HEAD_DIMS = (64, 128)  # bf16 forward and dk/dv on wgmma
+WGMMA_HEAD_DIMS = (64, 128)  # every bf16 flash kernel on wgmma
 
 
 def _flash_inputs(case, dtypes, device, seed=0):
@@ -323,9 +323,9 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
         assert torch.count_nonzero(out[:, :-case[7]]).item() == 0
         assert bool((lse[:, :, :-case[7]] == float("-inf")).all())
     # up to head dim 256 every kernel launches on the tensor cores in every
-    # type mix: for bf16 q/k/v the forward and dk/dv (split and fused) on
-    # wgmma at (padded) head dims 64 and 128, dq and the other widths on
-    # bf16 mma.sync; 3xTF32 for fp32 q/k; above, on the wide route's CUDA
+    # type mix: for bf16 q/k/v the forward, dq and dk/dv (split and fused)
+    # on wgmma at (padded) head dims 64 and 128, the other widths on bf16
+    # mma.sync; 3xTF32 for fp32 q/k; above, on the wide route's CUDA
     # cores
     wide = case[4] > WIDE
     tc, tf32 = int(not wide), int(dtypes != "bf16" and not wide)
@@ -334,14 +334,13 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
     assert [(w.launches - a, w.tensor_core_launches - t,
              w.tf32_launches - f, w.wgmma_launches - g)
             for w, (a, t, f, g) in zip(wrappers, n0)] == \
-        [(1, tc, tf32, wg), (1, tc, tf32, wg), (1, tc, tf32, 0),
-         (1, tc, tf32, wg)]
+        [(1, tc, tf32, wg)] * 4
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 256, 384])
 def test_flash_route_codes_and_kernel_info(cuda_device, d):
-    """The library reports route 3 (wgmma) for the bf16 forward and dk/dv
-    at head dims 64 and 128, bf16 mma.sync (1) for dq and the other
+    """The library reports route 3 (wgmma) for the bf16 forward, dq and
+    dk/dv at head dims 64 and 128, bf16 mma.sync (1) for the other
     widths, 3xTF32 (2) for fp32 q/k, the wide route (0) above 256; the
     wgmma kernels take 384 threads' worth of shared memory for one block
     an SM."""
@@ -353,16 +352,63 @@ def test_flash_route_codes_and_kernel_info(cuda_device, d):
                 want = 0
             elif code != 1:
                 want = 2
-            elif entry != fa._ENTRY_DQ and d in WGMMA_HEAD_DIMS:
+            elif d in WGMMA_HEAD_DIMS:
                 want = 3
             else:
                 want = 1
             assert route == want, (entry, d, code)
     if d in WGMMA_HEAD_DIMS:
-        for entry, fused in ((fa._ENTRY_FWD, False), (fa._ENTRY_DKV, False),
-                             (fa._ENTRY_DKV, True)):
+        for entry, fused in ((fa._ENTRY_FWD, False), (fa._ENTRY_DQ, False),
+                             (fa._ENTRY_DKV, False), (fa._ENTRY_DKV, True)):
             smem, blocks = fa._kernel_info(entry, d, 1, fused)
             assert blocks == 1 and 64 * 1024 < smem <= 227 * 1024
+
+
+# the split dq kernel's edges on wgmma (bf16, head dims 64 and 128): sq
+# off the 128-row q tile with row 0 seeing one key; sq != sk with a causal
+# offset and (q_ids, kv_ids) segments, where the first q row of the second
+# segment sees one key; rows before a negative offset that see no key,
+# then one that sees one; segment ids that no key has; packed documents,
+# whose first rows see one key each
+DQ_EDGE_CASES = [
+    (1, 300, 300, 2, 128, True, None, 0),
+    (2, 200, 328, 2, 64, True, "tuple", 128),
+    (2, 200, 136, 2, 128, True, None, -40),
+    (1, 192, 320, 3, 64, True, "masked", 128),
+    (2, 256, 256, 2, 128, True, "array", 0),
+]
+
+
+@pytest.mark.parametrize("case", DQ_EDGE_CASES)
+def test_flash_dq_wgmma_single_key_and_empty_rows(cuda_device, case):
+    """The bf16 split dq on wgmma: every row within the bf16 gate of the
+    plain version; a query row that sees exactly one key has dq = 0
+    exactly (p = 1, dp = delta), and there the kernel is held against 0
+    within 2**-16 of dq's RMS (the plain version's own fp32 noise there is
+    about that size); rows that see no key give dq = 0 exactly."""
+    q, k, v, do, segs, causal, off, scale = _flash_inputs(case, "bf16",
+                                                          cuda_device)
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    ro, rl = fa.flash_fwd_reference(q, k, v, scale, causal, segs, off)
+    delta = torch.einsum("bshd,bshd->bsh", do.float(), ro.float())
+    n0 = fa.flash_bwd_dq_cuda.wgmma_launches
+    got = fa.flash_bwd_dq_cuda(q, k, v, do, rl, delta, scale, causal, segs,
+                               off)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq_cuda.wgmma_launches == n0 + 1
+    want = fa.flash_bwd_reference(q, k, v, ro, rl, do, scale, causal, segs,
+                                  off)[0]
+    split = fa._split_segments(segs, sq, sk)
+    seen = torch.stack([fa._visible(i, sq, sk, causal, off, split,
+                                    cuda_device).sum(dim=1)
+                        for i in range(b)])
+    one, none = seen == 1, seen == 0
+    assert one.any()
+    floor = 2.0 ** -16 * want.float().pow(2).mean().sqrt().item()
+    assert got[one].float().abs().max().item() <= floor
+    assert torch.count_nonzero(got[none]).item() == 0
+    keep = ~(one | none)
+    _assert_close(got[keep], want[keep], (-1,), True, 1e-3, "dq")
 
 
 def test_flash_dispatch_takes_the_byte_rule_on_cuda(cuda_device):

@@ -103,9 +103,19 @@ def test_forward_matches_jax_kernel(case):
         assert np.all(po.numpy()[:, case[2] // 2:] == 0)
 
 
-@pytest.mark.parametrize("kernel", ["fused", "split"])
-@pytest.mark.parametrize("case", FWD_CASES[:6], ids=[c[0] for c in
-                                                     FWD_CASES[:6]])
+# the split backward's cases besides FWD_CASES[:6]: the tile edges of the
+# card's split dq kernel, whose blocks take 128 q rows (three of them at s
+# 384, one row past a 64-row half and a ragged tile at sq 200) at head dims
+# 64 and 128
+SPLIT_CASES = [c for c in FWD_CASES if c[0] in ("s384_three_blocks",
+                                                "d128")] + [
+    ("causal_s200", 1, 200, 200, 2, 64, True, None, 0)]
+BWD_CASES = [pytest.param(c, k, id=f"{c[0]}-{k}")
+             for c in FWD_CASES[:6] for k in ("fused", "split")] + [
+    pytest.param(c, "split", id=f"{c[0]}-split") for c in SPLIT_CASES]
+
+
+@pytest.mark.parametrize("case,kernel", BWD_CASES)
 def test_backward_matches_jax_kernels(case, kernel):
     q, k, v, do, segs, causal, offset, scale = _case(case)
     jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))

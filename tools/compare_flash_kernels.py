@@ -14,10 +14,14 @@ around the wrapper's calls (``ms``, host work included), by the replays of
 a CUDA graph of one call (``device_ms``) and by the host's time a call
 enqueued back to back (``host_us``); beside them, at each shape and the
 same for every checkout, PyTorch's ``scaled_dot_product_attention``
-forward (graph replay) and backward (``torch.profiler`` kernel time), and
-the one torch op that computes the split backward's delta; then phase 7's
-GPT-2 training run (step time, launches by route, profile) as that
-checkout defines it.  Standard output gets one summary line per run, with
+forward (graph replay) and backward (``torch.profiler`` kernel time, in
+all and by kernel name) by ``tools/sdpa_times.py``, the checkout's own
+``chip_smoke.library_times`` on the same inputs, the one torch op that
+computes the split backward's delta, and the split backward's total
+(delta op, dq and dk/dv); dq on its other routes (fp32 and mixed q/k/v at
+the Llama shape, bf16 at head dims 256 and 32) by graph replay; then
+phase 7's GPT-2 training run (step time, launches by route, profile) as
+that checkout defines it.  Standard output gets one summary line per run, with
 the card's name and power limit; with ``--out FILE`` every JSON line also
 goes to FILE, with the checkout beside it.  Needs a CUDA device.
 """
@@ -27,36 +31,24 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import compare_decode_kernels as decode  # noqa: E402
+from sdpa_times import sdpa_times  # noqa: E402
 
 SHAPES = {"llama": (2, 4096, 32, 128), "gpt2": (4, 1024, 12, 64)}
 
 
-def library(cs, torch, q, k, v, do):
-    """SDPA's device times on these inputs (a yardstick only), and the
-    delta op's."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-    out = sdpa(qg, kg, vg, is_causal=True)
-    prof = {"activities": [torch.profiler.ProfilerActivity.CPU,
-                           torch.profiler.ProfilerActivity.CUDA]}
-
-    def bwd():
-        return torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)
-
-    bwd()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(**prof) as p:
-        for _ in range(5):
-            bwd()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0)
-             for e in p.key_averages()
-             if str(e.device_type).endswith("CUDA"))
-    o = out.detach().transpose(1, 2).contiguous()
-    return {"sdpa_fwd_device_ms": cs.graph_ms(
-                lambda: sdpa(qt, kt, vt, is_causal=True), iters=20),
-            "sdpa_bwd_device_ms": us / 1e3 / 5,
+def library(cs, torch, shape, q, k, v, do, o):
+    """SDPA's times on these inputs (a yardstick only), by this tool's
+    ``sdpa_times`` (the function ``chip_smoke.py`` reads too) for every
+    checkout; beside it the checkout's own ``chip_smoke.library_times`` on
+    the same inputs (seed 1), so that one call reads both scripts' SDPA
+    backward; and the delta op's device time."""
+    sdpa = sdpa_times(q, k, v, do, graph_ms=cs.graph_ms,
+                      events_ms=cs.cuda_time_ms)
+    smoke = cs.library_times(*shape, "bf16", seed=1)
+    return {"sdpa_fwd_device_ms": sdpa["fwd_device_ms"],
+            "sdpa_bwd_device_ms": sdpa["bwd_device_ms"],
+            "sdpa_bwd_kernels": sdpa["bwd_kernels"],
+            "smoke_sdpa_bwd_device_ms": smoke["bwd_device_ms"],
             "delta_op_device_ms": cs.graph_ms(
                 lambda: torch.einsum("bshd,bshd->bsh", do.float(),
                                      o.float()), iters=20)}
@@ -95,11 +87,34 @@ def one(root: str) -> None:
                            "bound_ms": cs.flash_work(
                                kernel, b, s, s, h, d, q.dtype,
                                v.dtype)["bound_ms"]}
-        out["library"] = library(cs, torch, q, k, v, do)
+        out["library"] = library(cs, torch, (b, s, h, d), q, k, v, do, ro)
+        # the bf16 split backward: the delta op, dq and dk/dv
+        out["split_bwd_device_ms"] = (
+            out["library"]["delta_op_device_ms"] +
+            out["flash_bwd_dq"]["device_ms"] +
+            out["flash_bwd_dkv"]["device_ms"])
         print(json.dumps({"phase": "compare_flash", "shape": name, **out}),
               flush=True)
         del q, k, v, do, ro, rl, delta
         torch.cuda.empty_cache()
+    # dq on its other routes: 3xTF32 (fp32 and mixed q/k/v) and bf16
+    # mma.sync (head dims 32 and 256)
+    other = {}
+    for name, (b, s, h, d), types in (
+            ("llama/fp32", SHAPES["llama"], "fp32"),
+            ("llama/fp32_qk_bf16_v", SHAPES["llama"], "fp32_qk_bf16_v"),
+            ("d256/bf16", (1, 4096, 8, 256), "bf16"),
+            ("d32/bf16", (4, 1024, 8, 32), "bf16")):
+        q, k, v, do = cs.flash_inputs(b, s, s, h, d, types, seed=1)
+        scale = d ** -0.5
+        o, lse = fa.flash_fwd_cuda(q, k, v, scale, True)
+        delta = torch.einsum("bshd,bshd->bsh", do.float(), o.float())
+        other[name] = cs.graph_ms(lambda: fa.flash_bwd_dq_cuda(
+            q, k, v, do, lse, delta, scale, True), iters=10)
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "compare_flash", "shape": "dq_other_routes",
+                      "device_ms": other}), flush=True)
     cs.phase_train("gpt2_small")
 
 
@@ -112,7 +127,8 @@ def summary(lines):
             out["device"] = obj["nvidia_smi"]
         elif phase == "compare_flash":
             out[obj["shape"]] = {
-                k: ({m: round(x, 4) for m, x in v.items()}
+                k: ({m: round(x, 4) for m, x in v.items()
+                     if isinstance(x, float)}
                     if isinstance(v, dict) else v)
                 for k, v in obj.items() if k not in ("phase", "shape")}
         elif phase == "train_main_path":
