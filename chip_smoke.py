@@ -29,11 +29,19 @@ Phases, each printing one JSON line:
 4. main_path: the serving ``Engine`` at Llama-3-8B widths (all 32
    layers, random bf16 weights from seed 0) serves 8 requests, one of
    them sampled and two sharing a 1024-token header through the prefix
-   cache, and must launch the kernel 32 times per unified step;
+   cache, and must launch the kernel 32 times per unified step; the
+   engine replays captured CUDA graphs (``core/capture.py``): the
+   warm-up request captures them, ``compile_count`` (at most
+   ``2**prefill_rows``) must not change over the measured run; the
+   sampler's device time over the step's logits, argmax against the
+   sampled path that the captured step always takes
+   (``sample_head_ms``);
    ``step_profile`` then reads where a step's device time goes
-   (``torch.profiler`` over two more requests);
-5. oracle: a 2-layer fp32 model at the same widths, where the engine's
-   temperature-0 tokens must equal the port's dense ``generate``;
+   (``torch.profiler`` over two more requests) and must see the kernel
+   by name 32 times per replayed step;
+5. oracle: a 2-layer fp32 model at the same widths, where the captured
+   engine's temperature-0 tokens must equal an eager engine's
+   (``capture.eager()``) and the port's dense ``generate``;
 6. flash_vs_plain: the four flash-attention kernels (forward, fused
    backward, split dq and dk/dv backward) against their plain PyTorch
    versions at the training path's shapes -- Llama-3-8B widths (b 2,
@@ -62,18 +70,22 @@ Phases, each printing one JSON line:
    picks, every launch a tensor-core kernel on its route (3xTF32 for the
    LLaMA path's fp32 and mixed attention; for GPT-2 the forward and the
    fused backward on wgmma, ``wgmma_launches``; neither path runs the bf16
-   split dq, whose row of the kernel table says so)
-   (``train_profile`` then reads two more steps with
-   ``torch.profiler``);
+   split dq, whose row of the kernel table says so); the step is
+   captured at the first run and replayed (one plan, one graph), and
+   ``train_profile`` then reads two more steps with ``torch.profiler``,
+   which must see each flash kernel by name once per layer, micro-batch
+   and step;
 8. train_oracle: 2-layer fp32 models at both widths train three steps on
-   the card (kernels) and on the CPU (plain versions) from the same
-   weights and batches; losses and parameters must agree;
+   the card (kernels, captured step) and on the CPU (plain versions,
+   eager) from the same weights and batches; losses and parameters must
+   agree;
 9. latent_kernel_vs_plain: the latent (MLA) ragged paged attention kernel
    (TF32 tensor cores, split terms) against its plain version at the
    serving shapes of Llama-3-8B's widths in the MLA layout (nh 32, d_c
    512, d_r 64, page 64, bf16 pages; the batch of phase 3), then at GPT-2
    small's (nh 12, d_c 256, no rope) with bf16, int8 and nf4 pages written
-   by ``quantize_rows``; times both;
+   by ``quantize_rows``; times both (the kernel also by CUDA-graph
+   replay, ``device_ms``);
 10. paged_decode_vs_plain: the paged decode kernel against its plain
     version at Llama-3-8B's shapes (nh 32, kvh 8, hd 128, page 64), batch
     8 and 64, contexts 1 to 4096 with one empty request and partial last
@@ -85,13 +97,15 @@ Phases, each printing one JSON line:
 11. mla_main_path: phase 4's traffic on Llama-3-8B's widths in the MLA
     layout (``mla_config(llama3_8b_config(), 512, 64)``, all 32 layers,
     random bf16 weights from seed 0): the latent kernel 32 times per
-    unified step, the full-head kernel never; then a ``step_profile``;
+    unified step, the full-head kernel never, replayed as in phase 4;
+    then a ``step_profile``;
 12. mla_quant_path: GPT-2 small's widths with ``kv_latent_dim=256`` and
     ``page_quant="int8"``, then ``"nf4"``: every request finishes, two
     fresh engines give equal tokens, 12 launches per unified step;
 13. mla_oracle: 2-layer fp32 MLA models at both widths (one converted
     from a full-head state by ``mla_state_from``), where the engine's
-    temperature-0 tokens must equal the port's dense ``generate``;
+    temperature-0 tokens must equal the port's dense ``generate``, and
+    a captured engine's an eager one's;
 14. graft_entry: the LLaMA configuration of ``__graft_entry__.entry()``
     (vocab 1024, hidden 256, 4 layers, 8 heads of head dim 32, seq 128,
     batch 4, fp32) trains three steps on the card and on the CPU from the
@@ -117,6 +131,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import hetu_tpu_torch as ht
+from hetu_tpu_torch.core import capture
 from hetu_tpu_torch.csrc.build import build
 import hetu_tpu_torch.ops as port_ops
 from hetu_tpu_torch.models import (GPTConfig, GPTLMHeadModel,
@@ -134,7 +149,7 @@ from hetu_tpu_torch.ops.quantization import quantize_rows
 from hetu_tpu_torch.ops.ragged_paged_attention import (
     latent_ragged_paged_attention_cuda,
     latent_ragged_paged_attention_reference, ragged_paged_attention_cuda,
-    ragged_paged_attention_reference)
+    ragged_paged_attention_reference, sample_rows)
 from hetu_tpu_torch.serving import Engine
 from tools.sdpa_times import sdpa_times
 
@@ -595,24 +610,9 @@ def phase_kernel():
     return out
 
 
-def profile_steps(eng, rng, v):
-    """Where a serving step's device time goes: ``torch.profiler`` over
-    the steps that serve two more requests (a 1000-token prompt in two
-    chunks beside a decoding one), after the measured run.  Sums the
-    CUDA kernels' own times by name; the idle share is 1 - busy / wall,
-    with the profiler's own host cost inside the wall time."""
-    eng.add_request(rng.randint(1, v, size=100).tolist(), 24)
-    eng.add_request(rng.randint(1, v, size=1000).tolist(), 8)
-    steps = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        while eng.has_work:
-            eng.step()
-            steps += 1
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+def device_kernels(prof):
+    """``[(self device us, kernel name, calls)]`` of a profile's CUDA
+    kernels, largest first."""
     kernels = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -621,14 +621,70 @@ def profile_steps(eng, rng, v):
         if us is None:
             us = e.self_cuda_time_total
         kernels.append((us, e.key, e.count))
-    kernels.sort(reverse=True)
+    return sorted(kernels, reverse=True)
+
+
+def profiled_window(run):
+    """Runs the window ``run()`` twice: unprofiled, for its wall time, then
+    under ``torch.profiler``, for its kernels.  Returns ``(unprofiled wall
+    s, profiled wall s, kernels, run()'s result under the profiler)``.
+    The profiler's own host cost inflates a replayed step several times
+    over, so the idle share is read against the unprofiled wall."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    return plain, time.perf_counter() - t0, device_kernels(prof), out
+
+
+def profile_steps(eng, rng, v, check=True):
+    """Where a serving step's device time goes, after the measured run:
+    the steps that serve two more requests (a 1000-token prompt in two
+    chunks beside a decoding one), run once unprofiled and once under
+    ``torch.profiler`` on fresh prompts of the same lengths
+    (``profiled_window``).  Sums the CUDA kernels' own times by name;
+    the idle share is 1 - busy / the unprofiled wall.  The steps replay
+    captured CUDA graphs, so (with ``check``) the device must show the
+    layout's attention kernel by name once per layer and unified step in
+    the profiled window: the replays launch it (the wrappers' counters
+    only add what the capture counted)."""
+    def window():
+        calls0 = eng.executable_calls
+        eng.add_request(rng.randint(1, v, size=100).tolist(), 24)
+        eng.add_request(rng.randint(1, v, size=1000).tolist(), 8)
+        steps = 0
+        while eng.has_work:
+            eng.step()
+            steps += 1
+        return steps, eng.executable_calls - calls0
+
+    plain, wall, kernels, (steps, unified) = profiled_window(window)
     busy = sum(k[0] for k in kernels) / 1e6
     attn = sum(k[0] for k in kernels
                if "ragged_paged_attention" in k[1]) / 1e6
-    return {"steps": steps, "wall_s": wall, "device_busy_s": busy,
-            "idle_share": (1.0 - busy / wall) if busy else None,
+    mla = eng.cfg.is_mla
+    seen = sum(n for _, k, n in kernels
+               if "ragged_paged_attention_kernel" in k
+               and ("latent_" in k) == mla)
+    if check and seen != eng.cfg.num_layers * unified:
+        raise AssertionError(
+            f"the profile saw the {'latent ' if mla else ''}ragged kernel "
+            f"{seen} times in {unified} replayed unified steps of "
+            f"{eng.cfg.num_layers} layers")
+    return {"steps": steps, "unified_steps": unified,
+            "attention_kernel_calls": seen, "unprofiled_wall_s": plain,
+            "wall_s": wall, "device_busy_s": busy,
+            "idle_share": (1.0 - busy / plain) if busy else None,
+            "profiled_idle_share": (1.0 - busy / wall) if busy else None,
             "attention_s": attn,
             "attention_share_of_busy": attn / busy if busy else None,
+            "compile_count": eng.compile_count,
             "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": n}
                     for us, k, n in kernels[:8]]}
 
@@ -659,6 +715,46 @@ def serve_mix(eng, prompts, late_prompt, new=32):
     return reqs
 
 
+def sample_head_ms(rows, vocab):
+    """Device time (CUDA-graph replay) of ``sample_rows`` over ``[rows,
+    vocab]`` fp32 logits, greedy rows only: the argmax path an eager step
+    takes when no row samples, and the sort-based sampled path the
+    captured step always takes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    logits = torch.randn(rows, vocab, generator=gen, device="cuda")
+    zf = torch.zeros(rows, dtype=torch.float32, device="cuda")
+    zi = torch.zeros(rows, dtype=torch.int32, device="cuda")
+    return {path: graph_ms(lambda: sample_rows(logits, zf, zf, zi, zi, zi,
+                                               sampled=sampled), iters=20)
+            for path, sampled in (("argmax", False), ("sampled", True))}
+
+
+def check_compile_count(eng, before, what):
+    """The engine replays captured graphs: at most ``2**prefill_rows`` of
+    them (one a live chunk-slot mask), none captured since ``before``
+    was read, and ``metrics_summary`` reports the same count."""
+    most = 2 ** eng.scheduler.prefill_rows
+    now = eng.compile_count
+    if not 1 <= now <= most or now != before or \
+            eng.metrics_summary()["compile_count"] != now:
+        raise AssertionError(f"{what}: compile_count {before} -> {now} "
+                             f"(at most {most}, and stable)")
+
+
+def eager_tokens(state, cfg, prompts, new, **kw):
+    """Temperature-0 tokens of ``prompts`` from a fresh engine run
+    eagerly on the card (``capture.eager()``): what a captured engine's
+    tokens must equal."""
+    eng = Engine(state, cfg, device="cuda", **kw)
+    with capture.eager():
+        reqs = [eng.add_request(p, new) for p in prompts]
+        eng.run()
+    if eng.compile_count:
+        raise AssertionError("an eager engine captured a graph")
+    return [r.out_tokens for r in reqs]
+
+
 def phase_main_path(cfg, phase, model, counter, other_counter):
     """Serves phase 4's traffic at ``cfg``; ``counter`` is the attention
     kernel this layout must launch once per layer and unified step,
@@ -675,11 +771,16 @@ def phase_main_path(cfg, phase, model, counter, other_counter):
     v = cfg.vocab_size
     mix = make_mix(rng, v, [32, 3000, 700, 1500, 64, 2200, 400],
                    header_len=1024, tail=200)       # 16 whole header pages
-    # warm-up outside the measured run: one short request
+    # warm-up outside the measured run: one short request, whose prefill
+    # step and decode step capture the two graphs (decode + chunk, decode
+    # only) the measured run replays
+    t1 = time.perf_counter()
     eng.add_request(rng.randint(1, v, size=16).tolist(), 2)
     eng.run()
     torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t1
     calls0 = eng.executable_calls
+    compiled = eng.compile_count
     torch.cuda.reset_peak_memory_stats()
     counter.launches = other_counter.launches = 0
     t0 = time.perf_counter()
@@ -701,10 +802,14 @@ def phase_main_path(cfg, phase, model, counter, other_counter):
             f"kernel launches {launches} != {cfg.num_layers} x {calls} "
             f"unified steps, or the other layout's kernel ran "
             f"({other_counter.launches} launches)")
+    check_compile_count(eng, compiled, phase)
     ttfts = sorted(r.first_token_time - r.submit_time for r in reqs)
     out = {"model": model, "params": n_params, "layers": cfg.num_layers,
            "kv_bytes_per_token": eng.pool.kv_bytes_per_token,
-           "setup_s": setup_s, "requests": len(reqs),
+           "setup_s": setup_s, "warmup_and_capture_s": warmup_s,
+           "compile_count": eng.compile_count,
+           "compile_count_in_summary": summary["compile_count"],
+           "requests": len(reqs),
            "prompt_tokens": [len(r.prompt) for r in reqs],
            "generated_tokens": len(toks), "wall_s": wall,
            "tokens_per_s": len(toks) / wall,
@@ -714,6 +819,7 @@ def phase_main_path(cfg, phase, model, counter, other_counter):
            "prefix_cache_tokens_saved":
                summary["prefix_cache_tokens_saved"],
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "sample_head_ms": sample_head_ms(eng.n_rows, v),
            "sampled_tokens": reqs[3].out_tokens[:8]}
     emit({"phase": phase, **out})
     emit({"phase": "step_profile", "of": phase,
@@ -732,8 +838,8 @@ def phase_oracle():
     rng = np.random.RandomState(1)
     prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist()
                for n in (300, 17, 129)]
-    eng = Engine(state, cfg, num_pages=64, page_size=64, max_batch=4,
-                 chunk_size=128, device="cuda")
+    kw = dict(num_pages=64, page_size=64, max_batch=4, chunk_size=128)
+    eng = Engine(state, cfg, device="cuda", **kw)
     reqs = [eng.add_request(p, 8) for p in prompts]
     eng.run()
     want = [generate(state, cfg, [p], 8, device="cuda")[0, len(p):]
@@ -741,8 +847,15 @@ def phase_oracle():
     got = [r.out_tokens for r in reqs]
     if got != want:
         raise AssertionError(f"engine {got} != generate {want}")
+    check_compile_count(eng, eng.compile_count, "oracle")
+    eager = eager_tokens(state, cfg, prompts, 8, **kw)
+    if eager != got:
+        raise AssertionError(f"captured engine {got} != eager engine "
+                             f"{eager}")
     emit({"phase": "oracle", "layers": 2, "dtype": "float32",
-          "requests": len(prompts), "equal": True, "tokens": got})
+          "requests": len(prompts), "equal": True,
+          "captured_equals_eager": True, "compile_count": eng.compile_count,
+          "tokens": got})
 
 
 # ---------------------------------------------------------------------------
@@ -1121,33 +1234,34 @@ def seeded_batch(vocab, batch, seq, seed):
     return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
 
 
-def profile_train(g, loss, train_op, feeds, steps=2):
-    """Where a training step's device time goes: ``torch.profiler`` over
-    ``steps`` more steps; kernel time by name and the idle share (1 -
-    busy / wall, the profiler's own host cost inside the wall)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def profile_train(g, loss, train_op, feeds, flash_per_step, steps=2,
+                  check=True):
+    """Where a training step's device time goes: ``steps`` more steps,
+    unprofiled and then under ``torch.profiler`` (``profiled_window``);
+    kernel time by name and the idle share (1 - busy / the unprofiled
+    wall).  The steps replay the captured graph, so (with ``check``) the
+    device must show each flash kernel by name as often as
+    ``flash_per_step`` (kernel name prefix -> launches a step) says."""
+    def window():
         for _ in range(steps):
             g.run(loss, [loss, train_op], feeds, num_micro_batches=2)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    kernels = []
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels.append((us, e.key, e.count))
-    kernels.sort(reverse=True)
+
+    plain, wall, kernels, _ = profiled_window(window)
     busy = sum(k[0] for k in kernels) / 1e6
     flash = sum(k[0] for k in kernels if "flash_" in k[1]) / 1e6
+    seen = {name: sum(n for _, k, n in kernels if name in k)
+            for name in flash_per_step}
+    want = {name: c * steps for name, c in flash_per_step.items()}
+    if check and seen != want:
+        raise AssertionError(f"the profile saw flash kernels {seen} in "
+                             f"{steps} replayed steps, want {want}")
     gemm = sum(k[0] for k in kernels
                if any(t in k[1] for t in ("gemm", "nvjet", "xmma"))) / 1e6
-    return {"steps": steps, "wall_s": wall, "device_busy_s": busy,
-            "idle_share": (1.0 - busy / wall) if busy else None,
+    return {"steps": steps, "unprofiled_wall_s": plain, "wall_s": wall,
+            "device_busy_s": busy,
+            "idle_share": (1.0 - busy / plain) if busy else None,
+            "profiled_idle_share": (1.0 - busy / wall) if busy else None,
+            "flash_kernel_calls": seen,
             "flash_attention_s": flash, "matmul_s": gemm,
             "flash_share_of_busy": flash / busy if busy else None,
             "matmul_share_of_busy": gemm / busy if busy else None,
@@ -1215,6 +1329,10 @@ def phase_train(name, steps=6, micro=2):
                              f"{tensor_core} (3xTF32 {tf32}, wgmma {wgmma}) "
                              f"!= {want_tc} (3xTF32 {want_tf32}, wgmma "
                              f"{want_wgmma})")
+    # one plan, captured once at the first step and replayed after it
+    if len(g._plan_pool) != 1 or g.compile_count != 1:
+        raise AssertionError(f"{name}: {len(g._plan_pool)} plans, "
+                             f"{g.compile_count} captured graphs")
     steady = step_s[1:]
     out = {"config": name, "params": n_params, "layers": cfg.num_layers,
            "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
@@ -1225,10 +1343,15 @@ def phase_train(name, steps=6, micro=2):
            "peak_memory_bytes": peak, "flash_launches": launches,
            "tensor_core_launches": tensor_core, "tf32_launches": tf32,
            "wgmma_launches": wgmma,
-           "backward": "fused" if fused else "split"}
+           "backward": "fused" if fused else "split",
+           "compile_count": g.compile_count}
     emit({"phase": "train_main_path", **out})
+    per_step = cfg.num_layers * micro
     emit({"phase": "train_profile", "config": name,
-          **profile_train(g, loss, train_op, feeds)})
+          **profile_train(g, loss, train_op, feeds, {
+              "flash_fwd_": per_step,
+              "flash_bwd_dq_": 0 if fused else per_step,
+              "flash_bwd_dkv_": per_step})})
     del g, ids, labels, model, loss, train_op, feeds
     gc.collect()
     torch.cuda.empty_cache()
@@ -1416,11 +1539,15 @@ def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
     c_bytes = c_pages.shape[-1] * c_pages.element_size()
     work = latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, 2,
                        kind)
+    # the metadata on the card once, so that one call can be captured
+    meta = [i32(a) for a in (q_lens, cu, pt, ctx_lens)]
     out = {"max_abs_err": err, "err_over_limit": ratio,
            "limit": f"|got - want| <= {PAGED_FP32_TOL} * (1 + |want|)",
            "padding_nonzero": pad_nonzero,
            "ms": cuda_time_ms(lambda: run(latent_ragged_paged_attention_cuda,
                                           q_lens), warmup=2, iters=5),
+           "device_ms": graph_ms(lambda: latent_ragged_paged_attention_cuda(
+               q, c_pages, r_pages, *meta, **kw), iters=20),
            "plain_ms": cuda_time_ms(lambda: run(
                latent_ragged_paged_attention_reference, q_lens),
                warmup=1, iters=2),
@@ -1680,6 +1807,7 @@ def phase_mla_quant():
                 raise AssertionError(
                     f"{quant}: latent launches {launches} != "
                     f"{cfg.num_layers} x {calls} unified steps")
+            check_compile_count(eng, eng.compile_count, quant)
             runs.append(toks)
             summary = eng.metrics_summary()
             ttfts = sorted(r.first_token_time - r.submit_time for r in reqs)
@@ -1692,6 +1820,7 @@ def phase_mla_quant():
             "kv_bytes_per_token": eng.pool.kv_bytes_per_token,
             "page_dtype": str(eng.pool.k_pages[0].dtype),
             "prefix_cache_hits": summary["prefix_cache_hits"],
+            "compile_count": summary["compile_count"],
             "wall_s": wall, "tokens_per_s": 32 * len(reqs) / wall,
             "ttft_p50_s": float(np.percentile(ttfts, 50)),
             "two_engines_equal": True}
@@ -1723,8 +1852,8 @@ def phase_mla_oracle():
         prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist()
                    for n in lens]
         latent_ragged_paged_attention_cuda.launches = 0
-        eng = Engine(state, cfg, num_pages=64, page_size=64, max_batch=4,
-                     chunk_size=128, device="cuda")
+        kw = dict(num_pages=64, page_size=64, max_batch=4, chunk_size=128)
+        eng = Engine(state, cfg, device="cuda", **kw)
         reqs = [eng.add_request(p, 8) for p in prompts]
         eng.run()
         want = [generate(state, cfg, [p], 8, device="cuda")[0, len(p):]
@@ -1736,7 +1865,13 @@ def phase_mla_oracle():
                 cfg.num_layers * eng.executable_calls:
             raise AssertionError(f"{name}: the latent kernel did not run "
                                  f"once per layer and step")
-        report[name] = {"equal": True, "tokens": got,
+        check_compile_count(eng, eng.compile_count, name)
+        eager = eager_tokens(state, cfg, prompts, 8, **kw)
+        if eager != got:
+            raise AssertionError(f"{name}: captured engine {got} != eager "
+                                 f"engine {eager}")
+        report[name] = {"equal": True, "captured_equals_eager": True,
+                        "compile_count": eng.compile_count, "tokens": got,
                         "d_c": cfg.kv_latent_dim, "d_r": cfg.rope_dim}
         del eng, state
         torch.cuda.empty_cache()
@@ -1796,12 +1931,14 @@ def phase_graft_entry(steps=3, micro=2):
     if serve_launches != cfg16.num_layers * eng.executable_calls:
         raise AssertionError(f"graft entry bf16: {serve_launches} ragged "
                              f"launches for {eng.executable_calls} steps")
+    check_compile_count(eng, eng.compile_count, "graft entry bf16")
     emit({"phase": "graft_entry", "head_dim": cfg.head_dim,
           "train": {"dtype": "float32", "batch": 4, "seq": 128,
                     "steps": steps, "flash_launches": launches,
                     "tf32_launches": tf32, **train},
           "serve": {"dtype": "bfloat16", "requests": len(prompts),
                     "equal": True, "tokens": got,
+                    "compile_count": eng.compile_count,
                     "ragged_launches": serve_launches}})
     del eng, state
     torch.cuda.empty_cache()

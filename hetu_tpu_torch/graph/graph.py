@@ -18,7 +18,16 @@ JAX package's semantics:
 
 The plan (the topological order for one set of fetches, feed shapes,
 micro-batch count and run level) is cached in ``_plan_pool``.  Autodiff
-is ``torch.autograd.grad`` over the executed forward.  Meshes, strategy
+is ``torch.autograd.grad`` over the executed forward.
+
+On the card the step is compiled, as the JAX package jits it once per
+plan: each plan keeps static feed buffers that ``run`` copies the feeds
+into, and a ``core.capture.CapturedStep`` whose first call runs the
+whole step (every micro-batch's forward and ``torch.autograd.grad``, the
+accumulation and the optimizer update) eagerly and captures it in one
+CUDA graph; later calls replay it and return clones of its fetches.  The
+graph's dropout generator is registered with each graph, so every replay
+draws fresh masks.  On the CPU the step runs eagerly.  Meshes, strategy
 switching, shape buckets, the numeric sentry and the run levels other
 than the default (update) and ``COMPUTE_ONLY`` are ported in later
 slices and raise ``NotImplementedError``.
@@ -32,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..core import capture
 from ..core.device import resolve_device
 from .tensor import Tensor
 
@@ -154,14 +164,27 @@ class Graph:
         raise ValueError(f"{t.name} has no stored value; fetch it via run()")
 
     def reset_variable(self, t: Tensor, value) -> None:
-        """Overwrite a variable's value (cast to its dtype and device)."""
+        """Overwrite a variable's value (cast to its dtype and device),
+        in place where the variable has storage of its shape and dtype,
+        so that captured steps keep reading it."""
         data = value if isinstance(value, torch.Tensor) \
             else torch.from_numpy(np.array(value))
         if tuple(data.shape) != t.shape:
             raise ValueError(f"value for {t.name} has shape "
                              f"{tuple(data.shape)}, expected {t.shape}")
+        cur = self._var_data.get(t.id)
+        if cur is not None and cur.dtype == t.dtype and \
+                tuple(cur.shape) == t.shape:
+            with torch.no_grad():
+                cur.copy_(data.detach())
+            return
         self._var_data[t.id] = data.detach().to(
             device=self.device, dtype=t.dtype).clone()
+        self._storage_replaced()
+
+    def _storage_replaced(self) -> None:
+        """A variable's storage was replaced: steps captured over the old
+        one are dropped (``DefineAndRunGraph`` holds them)."""
 
     @property
     def trainable_variables(self) -> List[Tensor]:
@@ -254,14 +277,36 @@ class Graph:
                     env.pop(tid, None)
 
 
+class _Plan:
+    """A plan-pool entry: the topological order, the frees, and on the
+    card the static feed buffers and the captured step."""
+
+    __slots__ = ("order", "frees", "feeds", "step")
+
+    def __init__(self, order: List[OpNode], frees: List[List[int]]):
+        self.order, self.frees = order, frees
+        self.feeds: Dict[int, torch.Tensor] = {}
+        self.step: Optional[capture.CapturedStep] = None
+
+
 class DefineAndRunGraph(Graph):
     """Symbolic graph with a plan pool."""
 
     def __init__(self, name: str = "define_and_run", device="cuda",
                  seed: int = 0):
         super().__init__(name, device, seed)
-        self._plan_pool: Dict[Tuple, Tuple[List[OpNode],
-                                           List[List[int]]]] = {}
+        self._plan_pool: Dict[Tuple, _Plan] = {}
+        self._captures = capture.StepCache("training step")
+
+    def _storage_replaced(self) -> None:
+        for entry in self._plan_pool.values():
+            entry.step = None
+        self._captures.clear()
+
+    @property
+    def compile_count(self) -> int:
+        """CUDA graphs captured (one a plan); 0 on the CPU."""
+        return self._captures.captured
 
     def switch_strategy(self, *args, **kwargs):
         raise NotImplementedError("switch_strategy (hot switching) is ported "
@@ -295,15 +340,30 @@ class DefineAndRunGraph(Graph):
                 raise ValueError(
                     f"batch {t.shape[0]} of {t.name} not divisible by "
                     f"{num_micro_batches} micro-batches")
-            feeds[t] = torch.as_tensor(
-                v if isinstance(v, torch.Tensor) else np.asarray(v),
-                dtype=t.dtype, device=self.device)
+            feeds[t] = v if isinstance(v, torch.Tensor) else np.asarray(v)
         return feeds
+
+    def _feed_tensors(self, feeds: Dict[Tensor, Any], entry: _Plan,
+                      static: bool) -> Dict[Tensor, torch.Tensor]:
+        """The feeds as tensors of their placeholders' dtypes on the
+        graph's device: new tensors, or with ``static`` copied into the
+        plan's static buffers (allocated at its first run)."""
+        if not static:
+            return {t: torch.as_tensor(v, dtype=t.dtype, device=self.device)
+                    for t, v in feeds.items()}
+        out = {}
+        for t, v in feeds.items():
+            buf = entry.feeds.get(t.id)
+            if buf is None:
+                buf = entry.feeds[t.id] = torch.empty(
+                    t.shape, dtype=t.dtype, device=self.device)
+            buf.copy_(torch.as_tensor(v, dtype=t.dtype))
+            out[t] = buf
+        return out
 
     def _plan(self, fetches: List[Tensor], feeds: Dict[Tensor, Any],
               num_micro_batches: int, run_level: RunLevel,
-              update_node: Optional[OpNode]
-              ) -> Tuple[List[OpNode], List[List[int]]]:
+              update_node: Optional[OpNode]) -> _Plan:
         feed_sig = tuple(sorted((t.id, t.shape) for t in feeds))
         key = (tuple(t.id for t in fetches), feed_sig, num_micro_batches,
                run_level, update_node.id if update_node is not None else None)
@@ -318,7 +378,7 @@ class DefineAndRunGraph(Graph):
                 if node.op_type == "placeholder" and \
                         node.outputs[0].id not in fed:
                     raise ValueError(f"placeholder {node.name} not fed")
-            plan = (plan, self._frees(plan, [t.id for t in targets]))
+            plan = _Plan(plan, self._frees(plan, [t.id for t in targets]))
             self._plan_pool[key] = plan
         return plan
 
@@ -328,9 +388,29 @@ class DefineAndRunGraph(Graph):
             save_checkpoint: bool = False):
         """``run(loss, fetches, feed_dict, num_micro_batches)`` or
         ``run(fetches, feed_dict=...)``: values of ``fetches`` (torch
-        tensors), ``None`` at the position of an optimizer update."""
+        tensors), ``None`` at the position of an optimizer update.  On
+        the card the step of each plan is captured at its first run and
+        replayed after that (the fetches are clones of the graph's
+        outputs); on the CPU, and on the card under ``capture.eager()``,
+        it runs eagerly."""
+        if cur_strategy_id not in (None, 0):
+            raise NotImplementedError(
+                "strategy switching (cur_strategy_id) is ported with the "
+                "multi-GPU mesh (ROADMAP queue 1, items 10-14)")
+        if save_checkpoint:
+            raise NotImplementedError(
+                "checkpoints are ported in a later slice (safetensors_io)")
         if fetches is None:
             fetches = loss_or_fetches
+        return self._run(fetches, feed_dict, num_micro_batches, run_level,
+                         static=self.device.type == "cuda")
+
+    def _run(self, fetches, feed_dict, num_micro_batches, run_level,
+             static: bool):
+        """``run`` with the choice of feed buffers: ``static`` copies the
+        feeds into the plan's static buffers and runs the step body over
+        them, captured on the card unless ``capture.eager()`` is open,
+        eagerly on the CPU."""
         if not isinstance(fetches, (list, tuple)):
             fetches = [fetches]
         fetches = list(fetches)
@@ -341,13 +421,6 @@ class DefineAndRunGraph(Graph):
                 f"run level {run_level.value!r} is ported with the "
                 f"persistent-gradient slice; this slice runs 'update' and "
                 f"'compute_only'")
-        if cur_strategy_id not in (None, 0):
-            raise NotImplementedError(
-                "strategy switching (cur_strategy_id) is ported with the "
-                "multi-GPU mesh (ROADMAP queue 1, items 10-14)")
-        if save_checkpoint:
-            raise NotImplementedError(
-                "checkpoints are ported in a later slice (safetensors_io)")
         M = int(num_micro_batches)
         if M < 1:
             raise ValueError(f"num_micro_batches must be >= 1, got {M}")
@@ -362,11 +435,45 @@ class DefineAndRunGraph(Graph):
                 real_fetches.append(f)
         if run_level == RunLevel.COMPUTE_ONLY:
             update_node = None
-        plan, frees = self._plan(real_fetches, feeds, M, run_level,
-                                 update_node)
+        entry = self._plan(real_fetches, feeds, M, run_level, update_node)
         for t in self._var_tensors.values():
             self._materialize_var(t)
+        feeds = self._feed_tensors(feeds, entry, static)
 
+        def body():
+            return self._step(entry, feeds, M, real_fetches, update_node)
+
+        if static and self.device.type == "cuda" and not capture.is_eager():
+            if entry.step is None:
+                entry.step = self._captures.get(
+                    id(entry), body, self._generators(entry))
+            fetch_vals = [v.clone() for v in entry.step()]
+        else:
+            fetch_vals = body()
+        out: List[Optional[torch.Tensor]] = list(fetch_vals)
+        for i in update_positions:
+            out.insert(i, None)
+        return out
+
+    def _generators(self, entry: _Plan) -> List[torch.Generator]:
+        """The generators the plan's dropout ops draw from, which its
+        captured graph must advance on every replay."""
+        gens = {id(n.attrs["generator"]): n.attrs["generator"]
+                for n in entry.order if n.op_type == "dropout"
+                and n.attrs.get("generator") is not None}
+        if gens and not capture.can_capture_generators():
+            raise RuntimeError(
+                "dropout > 0 in a captured training step needs "
+                "torch.cuda.CUDAGraph.register_generator_state, which this "
+                "torch lacks: a captured graph would replay one frozen mask")
+        return list(gens.values())
+
+    def _step(self, entry: _Plan, feeds: Dict[Tensor, torch.Tensor],
+              M: int, real_fetches: List[Tensor],
+              update_node: Optional[OpNode]) -> List[torch.Tensor]:
+        """One step over ``feeds``: every micro-batch's forward and
+        gradients, the accumulation and the update; the fetch values."""
+        plan, frees = entry.order, entry.frees
         xs = update_node.attrs["xs"] if update_node is not None else []
         loss_t = update_node.attrs["grad_node"].attrs["loss"] \
             if update_node is not None else None
@@ -413,10 +520,7 @@ class DefineAndRunGraph(Graph):
                 for g in grads:
                     g.div_(M)
             update_node.attrs["optimizer"]._apply_updates(self, xs, grads)
-        out: List[Optional[torch.Tensor]] = list(fetch_vals)
-        for i in update_positions:
-            out.insert(i, None)
-        return out
+        return fetch_vals
 
 
 def _owned(grads: List[torch.Tensor]) -> List[torch.Tensor]:

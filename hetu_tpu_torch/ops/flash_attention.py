@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.capture import launch_counter
 from ..csrc.build import COLUMN_SLICE, KERNEL_HEAD_DIMS
 
 LOG2E = 1.4426950408889634
@@ -310,6 +311,11 @@ _ENTRY_FWD, _ENTRY_DQ, _ENTRY_DKV = 0, 1, 2
 _ROUTE_BF16, _ROUTE_TF32, _ROUTE_WGMMA = 1, 2, 3
 
 
+# the launch counters of every flash wrapper
+_COUNTS = ("launches", "tensor_core_launches", "tf32_launches",
+           "wgmma_launches")
+
+
 def _count_launch(wrapper, lib, entry: int, d: int, code: int) -> None:
     """Adds one launch to ``wrapper``'s counts, on the route the library
     reports for this entry, head dim and type code."""
@@ -360,10 +366,7 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool, segment_ids=None,
     return _unpad_heads(d0, out)[0], lse
 
 
-flash_fwd_cuda.launches = 0
-flash_fwd_cuda.tensor_core_launches = 0
-flash_fwd_cuda.tf32_launches = 0
-flash_fwd_cuda.wgmma_launches = 0
+launch_counter(flash_fwd_cuda, *_COUNTS)
 
 
 def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
@@ -416,10 +419,7 @@ def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
     return _unpad_heads(d0, dq_acc.to(q.dtype), dk, dv)
 
 
-flash_bwd_fused_cuda.launches = 0
-flash_bwd_fused_cuda.tensor_core_launches = 0
-flash_bwd_fused_cuda.tf32_launches = 0
-flash_bwd_fused_cuda.wgmma_launches = 0
+launch_counter(flash_bwd_fused_cuda, *_COUNTS)
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
@@ -448,10 +448,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
     return _unpad_heads(d0, dq)[0]
 
 
-flash_bwd_dq_cuda.launches = 0
-flash_bwd_dq_cuda.tensor_core_launches = 0
-flash_bwd_dq_cuda.tf32_launches = 0
-flash_bwd_dq_cuda.wgmma_launches = 0
+launch_counter(flash_bwd_dq_cuda, *_COUNTS)
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
@@ -479,10 +476,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
     return _unpad_heads(d0, dk, dv)
 
 
-flash_bwd_dkv_cuda.launches = 0
-flash_bwd_dkv_cuda.tensor_core_launches = 0
-flash_bwd_dkv_cuda.tf32_launches = 0
-flash_bwd_dkv_cuda.wgmma_launches = 0
+launch_counter(flash_bwd_dkv_cuda, *_COUNTS)
 
 
 # ---------------------------------------------------------------------------

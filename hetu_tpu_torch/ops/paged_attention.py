@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from ..core.capture import launch_counter
 from ..core.device import sm_count
 from .kv_split import (CORE_HEADS, core_splits, core_workspace,
                        zeros_with_tickets)
@@ -191,7 +192,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
-paged_attention_cuda.launches = 0
+launch_counter(paged_attention_cuda)
 
 
 def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,

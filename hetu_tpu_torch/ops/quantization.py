@@ -18,6 +18,7 @@ not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -40,7 +41,10 @@ NF4_CODE = np.array(
 _CODES = {"fp4": FP4_CODE, "nf4": NF4_CODE}
 
 
-def _codebook(quant: str, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _codebook(quant: str, device: torch.device) -> torch.Tensor:
+    """The codebook on ``device``, copied there once: a captured serving
+    step reads this tensor and issues no host copy."""
     return torch.from_numpy(_CODES[quant]).to(device)
 
 

@@ -50,11 +50,13 @@ The module also holds the serving step's on-device sampler
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..core.capture import launch_counter
 from ..core.device import sm_count
 from .kv_split import (CORE_HEADS, core_splits, core_workspace, kv_splits,
                        zeros_with_tickets)
@@ -221,7 +223,7 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
-ragged_paged_attention_cuda.launches = 0
+launch_counter(ragged_paged_attention_cuda)
 
 
 def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -371,6 +373,15 @@ _LATENT_MAX_SPLITS = 16
 _LATENT_BLOCKS_PER_SM = 2
 
 
+@functools.lru_cache(maxsize=None)
+def _latent_codebook(quant: Optional[str]):
+    """The 16 codebook floats the latent kernel takes by value (kind 3
+    reads them; other kinds pass nf4's): built once a kind, so a captured
+    step launches with the same table as an eager one."""
+    from .quantization import _CODES
+    return (ctypes.c_float * 16)(*_CODES.get(quant, _CODES["nf4"]).tolist())
+
+
 def _latent_kernel_lib():
     from ..csrc.build import load_library
     lib = load_library("latent_ragged_paged_attention")
@@ -475,8 +486,7 @@ def latent_ragged_paged_attention_cuda(
     out = torch.zeros((t, nh, d_c), dtype=torch.float32, device=q.device)
     if s == 0 or t == 0:
         return out
-    from .quantization import _CODES
-    code = (ctypes.c_float * 16)(*_CODES.get(quant, _CODES["nf4"]).tolist())
+    code = _latent_codebook(quant)
     n_splits = kv_splits(sm_count(q.device), s, maxp * ps,
                          per_sm=_LATENT_BLOCKS_PER_SM,
                          min_len=_LATENT_MIN_SPLIT_LEN,
@@ -508,7 +518,7 @@ def latent_ragged_paged_attention_cuda(
     return out
 
 
-latent_ragged_paged_attention_cuda.launches = 0
+launch_counter(latent_ragged_paged_attention_cuda)
 
 
 def latent_ragged_paged_attention(

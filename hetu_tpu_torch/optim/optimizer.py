@@ -7,7 +7,10 @@ new arrays; the update math is the same).  Adam keeps fp32 moments,
 applies bias correction, computes the update in fp32 and casts it to the
 parameter's dtype; ``AdamOptimizer`` adds an L2 weight decay to the
 gradient, ``AdamWOptimizer`` a decoupled one.  ``max_grad_norm`` clips
-by the global fp32 norm first.  ZeRO, flat state, explicit gradient
+by the global fp32 norm first.  The whole update runs on the device, the
+step count included (an fp32 tensor, as the JAX optimizer keeps ``step``
+in its state), so a captured training step replays it with the right
+bias correction every time.  ZeRO, flat state, explicit gradient
 communication, lr schedules and the numeric sentry come with later
 slices and raise ``NotImplementedError``.
 """
@@ -79,6 +82,32 @@ class Optimizer:
                        grads: List[torch.Tensor]) -> None:
         raise NotImplementedError
 
+    def state_dict(self) -> Dict[str, Any]:
+        """A copy of the optimizer's state: its tensors (the step count,
+        per-variable moments keyed by variable id) cloned."""
+        def copy(v):
+            if isinstance(v, dict):
+                return {k: copy(x) for k, x in v.items()}
+            return v.clone() if isinstance(v, torch.Tensor) else v
+        return copy(self._state)
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Resume from :meth:`state_dict`.  Values are copied into the
+        tensors this optimizer already holds, so a captured step keeps
+        reading them; new entries are taken as clones."""
+        def load(dst, src):
+            for k, v in src.items():
+                cur = dst.get(k)
+                if isinstance(v, dict):
+                    load(dst.setdefault(k, {}), v)
+                elif isinstance(cur, torch.Tensor) and \
+                        cur.shape == v.shape and cur.dtype == v.dtype:
+                    cur.copy_(v)
+                else:
+                    dst[k] = v.clone() if isinstance(v, torch.Tensor) else v
+        with torch.no_grad():
+            load(self._state, state)
+
 
 class AdamOptimizer(Optimizer):
     """Adam with fp32 moments (L2 weight decay on the gradient)."""
@@ -97,12 +126,15 @@ class AdamOptimizer(Optimizer):
         grads = self._clip_grads(grads)
         st = self._state
         if not st:
-            st.update(step=0, m={}, v={})
-        st["step"] += 1
+            dev = graph.device
+            st.update(step=torch.zeros((), dtype=torch.float32, device=dev),
+                      betas=torch.tensor([self.beta1, self.beta2],
+                                         dtype=torch.float32, device=dev),
+                      m={}, v={})
         b1, b2, lr, wd = self.beta1, self.beta2, self.lr, self.weight_decay
-        step = torch.tensor(float(st["step"]), dtype=torch.float32)
-        bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** step)
-        bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** step)
+        step = st["step"].add_(1.0)
+        # bias corrections in fp32 on the device, from the step tensor
+        bc1, bc2 = 1.0 - st["betas"] ** step
         for t, grad in zip(xs, grads):
             p = graph._var_data[t.id]
             m = st["m"].get(t.id)

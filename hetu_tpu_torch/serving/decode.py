@@ -28,11 +28,24 @@ kernel splits the rows over a ladder of page-window sizes
 path runs the ragged plain version over all rows, as it does for the
 full-head layout.
 
+The step receives its metadata as numpy arrays and packs them into one
+static host buffer (pinned on the card), copied into one static device
+buffer of the same layout; nothing branches on a device tensor's value.
 Where JAX skips an idle chunk slot with ``lax.cond`` on a device value,
-the port decides on the host: the step receives its metadata as numpy
-arrays, uploads them in one copy, and skips a chunk slot whose host-side
-``q_len`` is 0 (and the padding tail of a live one) in Python.  Nothing
-branches on a device tensor's value.
+the port decides on the host, in two ways:
+
+- On the card the step is compiled (``core/capture.py``): a body of
+  fixed shapes, captured in one CUDA graph per **live chunk-slot mask**
+  (at most ``2**prefill_rows`` graphs) and replayed after that.  A live
+  chunk slot is computed at its full ``chunk`` width, as JAX's
+  ``lax.cond`` branch is; an idle one is not computed and its tokens
+  stay 0.  Sampling always takes the sampled path, whose
+  ``torch.where`` gives temperature-0 rows exactly the greedy token.
+- On the CPU the step stays eager: it computes only the live tokens of
+  a live chunk slot and skips the sort of ``sample_rows`` when no row
+  samples.
+
+Padding tokens write to the trash page either way.
 """
 from __future__ import annotations
 
@@ -41,6 +54,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core import capture
+from ..core.device import resolve_device
 from ..core.dtype import torch_dtype
 from ..models.generate import (_act, _lm_head, _linear, _norm_apply,
                                _Params, _rotary_tables)
@@ -80,17 +95,26 @@ def _rope_tok(x, cos_g, sin_g):
         x.dtype)
 
 
-def build_unified_step_fn(cfg: GPTConfig, max_seqs: int, chunk: int,
-                          prefill_rows: int, max_pages: int,
-                          page_size: int, device=None, page_quant=None):
-    """Build THE serving step: one ragged prefill+decode call.
 
-    fn(params,
-       tokens [T], token_pos [T], token_page [T], token_off [T],
-       q_lens [rows], cu_q [rows+1], page_tables [rows, max_pages],
-       ctx_lens [rows], temps [rows], top_ps [rows], top_ks [rows],
-       seeds [rows],                      # numpy (int32 / float32)
-       k_pages, v_pages)                  # per-layer page tensors
+
+# the packed metadata, in the order of the static buffers: name, rows
+# (None: the token axis), and whether it holds float32 bits
+_PACKED = (("tokens", None), ("token_pos", None), ("token_page", None),
+           ("token_off", None), ("q_lens", 0), ("cu_q", 1),
+           ("page_tables", 0), ("ctx_lens", 0), ("top_ks", 0),
+           ("seeds", 0), ("last", 0), ("temps", 0), ("top_ps", 0))
+_FLOAT_FIELDS = ("temps", "top_ps")
+
+
+class UnifiedStep:
+    """THE serving step: one ragged prefill+decode call.
+
+    step(params,
+         tokens [T], token_pos [T], token_page [T], token_off [T],
+         q_lens [rows], cu_q [rows+1], page_tables [rows, max_pages],
+         ctx_lens [rows], temps [rows], top_ps [rows], top_ks [rows],
+         seeds [rows],                      # numpy (int32 / float32)
+         k_pages, v_pages)                  # per-layer page tensors
       -> next_tokens [rows] int32 on the device
 
     where ``rows = max_seqs + prefill_rows`` and ``T = max_seqs +
@@ -98,61 +122,134 @@ def build_unified_step_fn(cfg: GPTConfig, max_seqs: int, chunk: int,
     last query token.  ``k_pages``/``v_pages`` are updated in place.
     ``page_quant`` ("int8" or "nf4") stores an MLA config's latents as
     per-token absmax codes.
-    """
-    if prefill_rows < 1:
-        raise ValueError(f"prefill_rows must be >= 1, got {prefill_rows}")
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-    check_serving_config(cfg)
-    c = cfg
-    if page_quant is not None and (not c.is_mla or c.rope_dim):
-        raise ValueError("page_quant requires the latent (MLA) layout "
-                         "with rope_dim == 0")
-    t_tokens = max_seqs + prefill_rows * chunk
-    n_rows = max_seqs + prefill_rows
-    cdt = torch_dtype("bfloat16" if c.dtype == "bfloat16" else "float32")
-    cos, sin = (_rotary_tables(c, max_pages * page_size, device)
-                if c.position == "rotary" else (None, None))
-    hd, nh, nkv = c.head_dim, c.num_heads, c.kv_heads
-    chunk_starts = [(max_seqs + r, max_seqs + r * chunk)
-                    for r in range(prefill_rows)]
 
-    def region_map(f, h, q_lens):
-        """Apply the row-wise map ``f`` over the decode slots and over
-        the live tokens of each chunk slot; idle tokens stay 0."""
-        dec = f(h[:max_seqs])
-        out = dec.new_zeros((t_tokens, dec.shape[-1]))
-        out[:max_seqs] = dec
-        for row, start in chunk_starts:
-            n = int(q_lens[row])
-            if n:
-                out[start:start + n] = f(h[start:start + n])
+    On the card the step replays the CUDA graph of its live chunk-slot
+    mask (captured at the first step with that mask, bound to the params
+    and pages of the first call); the returned tokens are the graph's
+    output, which the next step overwrites.  ``fixed`` runs the same
+    fixed-shape body eagerly on any device.
+    """
+
+    def __init__(self, cfg: GPTConfig, max_seqs: int, chunk: int,
+                 prefill_rows: int, max_pages: int, page_size: int,
+                 device=None, page_quant=None):
+        if prefill_rows < 1:
+            raise ValueError(f"prefill_rows must be >= 1, got {prefill_rows}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        check_serving_config(cfg)
+        if page_quant is not None and (not cfg.is_mla or cfg.rope_dim):
+            raise ValueError("page_quant requires the latent (MLA) layout "
+                             "with rope_dim == 0")
+        self.cfg, self.page_quant = cfg, page_quant
+        self.max_seqs, self.chunk = max_seqs, chunk
+        self.device = resolve_device(device)
+        self.n_tokens = max_seqs + prefill_rows * chunk
+        self.n_rows = max_seqs + prefill_rows
+        self._cdt = torch_dtype("bfloat16" if cfg.dtype == "bfloat16"
+                                else "float32")
+        self._cos, self._sin = (
+            _rotary_tables(cfg, max_pages * page_size, self.device)
+            if cfg.position == "rotary" else (None, None))
+        # (row, first token) of each chunk slot
+        self._chunk_starts = [(max_seqs + r, max_seqs + r * chunk)
+                              for r in range(prefill_rows)]
+        shapes = {None: (self.n_tokens,), 0: (self.n_rows,),
+                  1: (self.n_rows + 1,)}
+        shapes = {name: ((self.n_rows, max_pages) if name == "page_tables"
+                         else shapes[rows]) for name, rows in _PACKED}
+        size = sum(int(np.prod(s)) for s in shapes.values())
+        on_card = self.device.type == "cuda"
+        # the static buffers: numpy writes into the host one, one copy
+        # moves it, and the body reads views of the device one
+        self._host = torch.zeros(size, dtype=torch.int32,
+                                 pin_memory=on_card)
+        self._host_np = self._host.numpy()
+        self._buf = torch.zeros(size, dtype=torch.int32, device=self.device)
+        self._slices, self._views, off = [], {}, 0
+        for name, _ in _PACKED:
+            n = int(np.prod(shapes[name]))
+            view = self._buf[off:off + n].view(shapes[name])
+            self._views[name] = view.view(torch.float32) \
+                if name in _FLOAT_FIELDS else view
+            self._slices.append(slice(off, off + n))
+            off += n
+        self._copied = None           # the event after the last upload
+        self._graphs = capture.StepCache("unified serving step")
+        self._bound = None
+
+    # -- host packing ----------------------------------------------------
+
+    def _pack(self, tokens, token_pos, token_page, token_off, q_lens, cu_q,
+              page_tables, ctx_lens, temps, top_ps, top_ks, seeds):
+        """Writes the step's metadata into the static host buffer and
+        copies it to the device buffer (``non_blocking`` from pinned
+        memory on the card)."""
+        # per-row last TRUE query token (the row's sampling position)
+        last = np.clip(cu_q[:self.n_rows] + np.maximum(q_lens, 1) - 1, 0,
+                       self.n_tokens - 1)
+        arrays = {"tokens": tokens, "token_pos": token_pos,
+                  "token_page": token_page, "token_off": token_off,
+                  "q_lens": q_lens, "cu_q": cu_q,
+                  "page_tables": page_tables, "ctx_lens": ctx_lens,
+                  "top_ks": top_ks, "seeds": seeds, "last": last,
+                  "temps": temps, "top_ps": top_ps}
+        if self._copied is not None:
+            self._copied.synchronize()     # the last upload has read it
+        for (name, _), where in zip(_PACKED, self._slices):
+            a = arrays[name]
+            a = np.ascontiguousarray(a, np.float32).view(np.int32) \
+                if name in _FLOAT_FIELDS else np.asarray(a)
+            self._host_np[where] = a.reshape(-1)
+        self._buf.copy_(self._host, non_blocking=True)
+        if self.device.type == "cuda":
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+    # -- the device body -------------------------------------------------
+
+    def _region_map(self, f, h, spans):
+        """Apply the row-wise map ``f`` over the token ``spans`` [(start,
+        length)] (``None``: every token); other tokens stay 0."""
+        if spans is None:
+            return f(h)
+        out = None
+        for start, n in spans:
+            y = f(h[start:start + n])
+            if out is None:
+                out = y.new_zeros((self.n_tokens, y.shape[-1]))
+            out[start:start + n] = y
         return out
 
-    def full_head_attention(p, i, h, q_lens, kp, vp, m: _StepMeta):
-        qkv = region_map(lambda hh: _linear(p, i, "attn.qkv", hh), h, q_lens)
+    def _full_head_attention(self, p, i, h, spans, kp, vp, m: _StepMeta):
+        c, t = self.cfg, self.n_tokens
+        hd, nh, nkv = c.head_dim, c.num_heads, c.kv_heads
+        qkv = self._region_map(lambda hh: _linear(p, i, "attn.qkv", hh), h,
+                               spans)
         q_size, kv_size = nh * hd, nkv * hd
-        q = qkv[:, :q_size].reshape(t_tokens, nh, hd)
-        k = qkv[:, q_size:q_size + kv_size].reshape(t_tokens, nkv, hd)
-        v = qkv[:, q_size + kv_size:].reshape(t_tokens, nkv, hd)
+        q = qkv[:, :q_size].reshape(t, nh, hd)
+        k = qkv[:, q_size:q_size + kv_size].reshape(t, nkv, hd)
+        v = qkv[:, q_size + kv_size:].reshape(t, nkv, hd)
         if c.position == "rotary":
             q = _rope_tok(q, m.cos, m.sin)
             k = _rope_tok(k, m.cos, m.sin)
         # KV page scatter, in place: JAX donates the page buffers and
         # scatters into the returned arrays instead
-        kp.index_put_((m.token_page, m.token_off), k.to(cdt))
-        vp.index_put_((m.token_page, m.token_off), v.to(cdt))
+        kp.index_put_((m.token_page, m.token_off), k.to(self._cdt))
+        vp.index_put_((m.token_page, m.token_off), v.to(self._cdt))
         attn = ragged_paged_attention(
             q.to(kp.dtype).contiguous(), kp, vp, m.q_lens, m.cu_q,
-            m.page_tables, m.ctx_lens, max_q=chunk)
-        return attn.reshape(t_tokens, nh * hd)
+            m.page_tables, m.ctx_lens, max_q=self.chunk)
+        return attn.reshape(t, nh * hd)
 
-    def mla_attention(p, i, h, q_lens, kp, vp, m: _StepMeta):
+    def _mla_attention(self, p, i, h, spans, kp, vp, m: _StepMeta):
+        c, t, page_quant = self.cfg, self.n_tokens, self.page_quant
+        hd, nh = c.head_dim, c.num_heads
         d_c, d_r = c.kv_latent_dim, c.rope_dim
-        qh = region_map(lambda hh: _linear(p, i, "attn.q", hh), h,
-                        q_lens).reshape(t_tokens, nh, hd + d_r)
-        kv = region_map(lambda hh: _linear(p, i, "attn.kv_a", hh), h,
-                        q_lens)                           # [T, d_c + d_r]
+        qh = self._region_map(lambda hh: _linear(p, i, "attn.q", hh), h,
+                              spans).reshape(t, nh, hd + d_r)
+        kv = self._region_map(lambda hh: _linear(p, i, "attn.kv_a", hh), h,
+                              spans)                      # [T, d_c + d_r]
         c_kv = kv[:, :d_c]
         # absorption: fold k_up into q, so scores are MQA dot products
         # against the latent stream
@@ -169,72 +266,131 @@ def build_unified_step_fn(cfg: GPTConfig, max_seqs: int, chunk: int,
             kp.index_put_(where, codes[:, None, :])
             vp.index_put_(where, absmax[:, None, :])
         else:
-            kp.index_put_(where, c_kv[:, None, :].to(cdt))
+            kp.index_put_(where, c_kv[:, None, :].to(self._cdt))
             if d_r:
-                vp.index_put_(where, k_rope.to(cdt))
+                vp.index_put_(where, k_rope.to(self._cdt))
         o_lat = latent_ragged_paged_attention(
             q_cat.contiguous(), kp,
             None if (page_quant or not d_r) else vp, m.q_lens, m.cu_q,
-            m.page_tables, m.ctx_lens, max_q=chunk, softmax_scale=(hd + d_r) ** -0.5,
+            m.page_tables, m.ctx_lens, max_q=self.chunk,
+            softmax_scale=(hd + d_r) ** -0.5,
             scale_pages=vp if page_quant else None, quant=page_quant,
             latent_dim=d_c)
         # the v_up fold: one up-projection per QUERY token; cached tokens
         # are never decompressed
         attn = torch.einsum("thc,hdc->thd", o_lat,
                             p.layer(i, "attn.v_up.weight").float())
-        return attn.reshape(t_tokens, nh * hd)
-
-    attention = mla_attention if c.is_mla else full_head_attention
+        return attn.reshape(t, nh * hd)
 
     @torch.no_grad()
-    def run(params, tokens, token_pos, token_page, token_off, q_lens,
-            cu_q, page_tables, ctx_lens, temps, top_ps, top_ks, seeds,
-            k_pages, v_pages):
+    def _forward(self, params, k_pages, v_pages, spans, sampled: bool):
+        """The step over the packed device buffer: the layers over the
+        token ``spans`` (``_region_map``), then one sample a row."""
+        c, b = self.cfg, self._views
         p = _params_view(c, params)
-        dev = k_pages[0].device
-        # per-row last TRUE query token (the row's sampling position)
-        last = np.clip(cu_q[:n_rows] + np.maximum(q_lens, 1) - 1, 0,
-                       t_tokens - 1).astype(np.int32)
-        host = [tokens, token_pos, token_page, token_off, q_lens, cu_q,
-                page_tables, ctx_lens, top_ks, seeds, last,
-                temps.view(np.int32), top_ps.view(np.int32)]
-        buf = torch.from_numpy(np.concatenate(
-            [np.ascontiguousarray(a, np.int32).ravel() for a in host]))
-        buf = buf.to(dev)                      # one host-to-device copy
-        views, off = [], 0
-        for a in host:
-            views.append(buf[off:off + a.size].view(a.shape))
-            off += a.size
-        (tok_d, pos_d, page_d, off_d, ql_d, cu_d, pt_d, cl_d, tk_d,
-         sd_d, last_d, temps_d, tps_d) = views
-        temps_d = temps_d.view(torch.float32)
-        tps_d = tps_d.view(torch.float32)
-        pos_l = pos_d.long()
-        meta = _StepMeta(page_d.long(), off_d.long(), ql_d, cu_d, pt_d, cl_d,
-                         *((cos[pos_l], sin[pos_l])
+        cdt = self._cdt
+        pos_l = b["token_pos"].long()
+        meta = _StepMeta(b["token_page"].long(), b["token_off"].long(),
+                         b["q_lens"], b["cu_q"], b["page_tables"],
+                         b["ctx_lens"],
+                         *((self._cos[pos_l], self._sin[pos_l])
                            if c.position == "rotary" else (None, None)))
-
-        x = p("wte.weight")[tok_d.long()].to(cdt)            # [T, H]
+        attention = self._mla_attention if c.is_mla \
+            else self._full_head_attention
+        x = p("wte.weight")[b["tokens"].long()].to(cdt)         # [T, H]
         if c.position == "learned":
             x = x + p("wpe")[pos_l].to(x.dtype)
         for i in range(c.num_layers):
             h = _norm_apply(c, p.layer(i, "ln_1.weight"),
                             p.layer(i, "ln_1.bias"), x)
-            attn = attention(p, i, h, q_lens, k_pages[i], v_pages[i],
+            attn = attention(p, i, h, spans, k_pages[i], v_pages[i],
                              meta).to(x.dtype)
-            x = x + region_map(
-                lambda aa, i=i: _linear(p, i, "attn.out", aa), attn, q_lens)
+            x = x + self._region_map(
+                lambda aa, i=i: _linear(p, i, "attn.out", aa), attn, spans)
             h = _norm_apply(c, p.layer(i, "ln_2.weight"),
                             p.layer(i, "ln_2.bias"), x)
-            x = x + region_map(
+            x = x + self._region_map(
                 lambda hh, i=i: _linear(
                     p, i, "mlp.down", _act(c, _linear(p, i, "mlp.up", hh))),
-                h, q_lens)
+                h, spans)
         # the final norm is row-wise: norm only the rows' last tokens
         xl = _norm_apply(c, p("ln_f.weight"), p("ln_f.bias"),
-                         x[last_d.long()])
-        logits = _lm_head(p, xl)                             # [rows, V]
-        return sample_rows(logits, temps_d, tps_d, tk_d, sd_d, cl_d,
-                           sampled=bool((temps > 0).any()))
+                         x[b["last"].long()])
+        logits = _lm_head(p, xl)                                 # [rows, V]
+        return sample_rows(logits, b["temps"], b["top_ps"], b["top_ks"],
+                           b["seeds"], b["ctx_lens"], sampled=sampled)
 
-    return run
+    def _fixed_spans(self, live):
+        """The spans of the fixed-shape body for the live chunk-slot mask
+        ``live``: the decode slots and every live slot at full width,
+        adjacent spans merged; ``None`` when that is every token."""
+        spans = [[0, self.max_seqs]]
+        for on, (_, start) in zip(live, self._chunk_starts):
+            if not on:
+                continue
+            if spans[-1][0] + spans[-1][1] == start:
+                spans[-1][1] += self.chunk
+            else:
+                spans.append([start, self.chunk])
+        if spans == [[0, self.n_tokens]]:
+            return None
+        return [tuple(s) for s in spans]
+
+    def _live(self, q_lens):
+        return tuple(bool(q_lens[row]) for row, _ in self._chunk_starts)
+
+    def _body(self, params, k_pages, v_pages, live):
+        return self._forward(params, k_pages, v_pages,
+                             self._fixed_spans(live), sampled=True)
+
+    # -- entry points ----------------------------------------------------
+
+    def fixed(self, params, *arrays):
+        """The fixed-shape body run eagerly, on any device: ``arrays``
+        are the twelve metadata arrays and the page tensors, as for a
+        call.  The captured graphs record this body."""
+        *meta, k_pages, v_pages = arrays
+        self._pack(*meta)
+        return self._body(params, k_pages, v_pages, self._live(meta[4]))
+
+    def __call__(self, params, *arrays):
+        *meta, k_pages, v_pages = arrays
+        q_lens, temps = meta[4], meta[8]
+        if self.device.type == "cpu":
+            self._pack(*meta)
+            spans = [(0, self.max_seqs)] + [
+                (start, int(q_lens[row])) for row, start in self._chunk_starts
+                if q_lens[row]]
+            return self._forward(params, k_pages, v_pages, spans,
+                                 sampled=bool((temps > 0).any()))
+        if capture.is_eager():
+            return self.fixed(params, *arrays)
+        if self._bound is None:
+            self._bound = (params, k_pages, v_pages)
+        elif not all(a is b for a, b in zip(self._bound,
+                                            (params, k_pages, v_pages))):
+            raise ValueError("the captured unified step is bound to the "
+                             "params and pages of its first call")
+        self._pack(*meta)
+        live = self._live(q_lens)
+        step = self._graphs.get(live, lambda: self._body(
+            params, k_pages, v_pages, live))
+        return step()
+
+    @property
+    def compile_count(self) -> int:
+        """Graphs captured on the card (at most ``2**prefill_rows``, one a
+        live chunk-slot mask); 1 on the CPU, where the step is not
+        compiled."""
+        if self.device.type == "cpu":
+            return 1
+        return self._graphs.captured
+
+
+def build_unified_step_fn(cfg: GPTConfig, max_seqs: int, chunk: int,
+                          prefill_rows: int, max_pages: int,
+                          page_size: int, device=None,
+                          page_quant=None) -> UnifiedStep:
+    """Build THE serving step (:class:`UnifiedStep`)."""
+    return UnifiedStep(cfg, max_seqs, chunk, prefill_rows, max_pages,
+                       page_size, device=device, page_quant=page_quant)

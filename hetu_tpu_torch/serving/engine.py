@@ -19,7 +19,10 @@ too, and the engine only ever reads back ``[rows]`` int32 token ids.
 The engine runs on ``device`` (default ``"cuda"``; it raises when no
 card is present unless ``device="cpu"`` is asked for).  The tensors'
 device decides the attention path: the CUDA kernel on the card, the
-plain version on the CPU.
+plain version on the CPU.  On the card the unified step is compiled, as
+the JAX engine jits it: each step fills the step's static buffers and
+replays the CUDA graph of its live chunk-slot mask (``compile_count``
+graphs, captured at first use); on the CPU it runs eagerly.
 
 Prefix reuse (``serving/prefix_cache.py``, on by default) and the
 metrics (``utils/metrics.py``) are as in the JAX engine.  An MLA config
@@ -237,9 +240,22 @@ class Engine:
 
     @property
     def executable_calls(self) -> int:
-        """Unified-step invocations (a plain counter, so it stays right
-        under ``metrics=False``)."""
+        """Unified-step invocations, replayed or eager (a plain counter,
+        so it stays right under ``metrics=False``)."""
         return self._calls
+
+    @property
+    def compile_count(self) -> int:
+        """Compiled programs of the unified step: on the card the CUDA
+        graphs captured so far, on the CPU 1 (the step runs eagerly, and
+        the JAX engine's fallback counts one per built executable).  A
+        capture beyond the expected ones (a silent recompile) shows up
+        here.  The JAX engine compiles ONE program, whose ``lax.cond``
+        skips an idle chunk slot on the device; a CUDA graph cannot
+        branch, so the port captures one graph per live chunk-slot mask
+        and chooses it on the host: at most ``2**prefill_rows`` (2 at
+        ``prefill_rows=1``: decode only, and decode beside a chunk)."""
+        return self._step_fn.compile_count
 
     # -- admission / lifecycle -----------------------------------------------
 
@@ -432,6 +448,7 @@ class Engine:
             out[k] = h.summary()
         out["ttft_buckets"] = self.histograms["ttft"].bucket_counts()
         out["tbt_buckets"] = self.histograms["tbt"].bucket_counts()
+        out["compile_count"] = self.compile_count
         out["executable_calls"] = self.executable_calls
         hits = self.counters["prefix_cache_hits"].value
         miss = self.counters["prefix_cache_misses"].value

@@ -687,3 +687,151 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
                                 kp, vp, pt, sl)
     with pytest.raises(ValueError, match="one CUDA device"):
         pa.paged_attention_cuda(q.cpu(), kp, vp, pt, sl)
+
+
+# ---------------------------------------------------------------------------
+# compiled steps: the captured serving and training steps against the same
+# steps run eagerly on the card (core/capture.py)
+# ---------------------------------------------------------------------------
+
+import contextlib  # noqa: E402
+
+import hetu_tpu_torch as ht  # noqa: E402
+from hetu_tpu_torch.core import capture  # noqa: E402
+from hetu_tpu_torch.models import (GPTConfig, GPTLMHeadModel,  # noqa: E402
+                                   mla_config)
+from hetu_tpu_torch.models.convert import (load_state,  # noqa: E402
+                                           random_state, state_numpy)
+from hetu_tpu_torch.ops.ragged_paged_attention import (  # noqa: E402
+    latent_ragged_paged_attention_cuda)
+from hetu_tpu_torch.serving import Engine  # noqa: E402
+
+TINY_LLAMA = dict(vocab_size=97, hidden_size=128, num_layers=2, num_heads=4,
+                  num_kv_heads=2, max_seq_len=128, sp=False, dropout=0.0,
+                  position="rotary", norm="rmsnorm", activation="swiglu")
+TINY_GPT2 = dict(vocab_size=97, hidden_size=128, num_layers=2, num_heads=4,
+                 max_seq_len=128, sp=False, dropout=0.0, position="learned",
+                 norm="layernorm", activation="gelu")
+
+
+def _serve_waves(cfg, state, eager):
+    """Two waves of temperature-0 traffic (prompts longer than a chunk,
+    decode-only steps) on one engine; tokens, compile counts after each
+    wave, and the attention kernel's launches against the steps."""
+    rng = np.random.RandomState(3)
+    counter = latent_ragged_paged_attention_cuda if cfg.is_mla \
+        else ragged_paged_attention_cuda
+    eng = Engine(state, cfg, num_pages=32, page_size=16, max_batch=3,
+                 chunk_size=16, device="cuda")
+    counter.launches = 0
+    out, counts = [], []
+    with capture.eager() if eager else contextlib.nullcontext():
+        for lens in ((40, 5, 17), (9, 33)):
+            reqs = [eng.add_request(rng.randint(1, 97, size=n).tolist(), 6)
+                    for n in lens]
+            eng.run()
+            out += [r.out_tokens for r in reqs]
+            counts.append(eng.compile_count)
+    torch.cuda.synchronize()
+    return out, counts, counter.launches, eng.executable_calls
+
+
+@pytest.mark.parametrize("layout", ["full_head", "mla"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_serving_step_equals_eager(cuda_device, dtype, layout):
+    cfg = GPTConfig(**TINY_LLAMA, dtype=dtype)
+    if layout == "mla":
+        cfg = mla_config(cfg, kv_latent_dim=32, kv_rope_dim=8)
+    state = random_state(cfg, seed=0, device="cuda", std=0.3)
+    want, eager_counts, eager_launches, eager_calls = _serve_waves(
+        cfg, state, eager=True)
+    got, counts, launches, calls = _serve_waves(cfg, state, eager=False)
+    assert got == want
+    assert eager_counts == [0, 0]
+    # one graph per live chunk-slot mask: decode-only and decode + chunk
+    assert counts == [2, 2]
+    assert launches == cfg.num_layers * calls
+    assert eager_launches == cfg.num_layers * eager_calls
+
+
+def _trainer(kw, dtype, seed=0):
+    with ht.graph("define_and_run", create_new=True, device="cuda",
+                  seed=seed) as g:
+        ids = ht.placeholder("int32", (4, 64), name="input_ids")
+        labels = ht.placeholder("int32", (4, 64), name="labels")
+        model = GPTLMHeadModel(GPTConfig(**kw, dtype=dtype))
+        loss = model(ids, labels)
+        train_op = ht.optim.AdamOptimizer(lr=1e-3).minimize(loss)
+    return g, ids, labels, model, loss, train_op
+
+
+def _train_steps(kw, dtype, eager, init=None, steps=3):
+    g, ids, labels, model, loss, train_op = _trainer(kw, dtype)
+    if init is not None:
+        load_state(model, init)
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, 97, (4, 64)).astype(np.int32)
+    y = rng.randint(0, 97, (4, 64)).astype(np.int32)
+    fwd = fa.flash_fwd_cuda
+    fwd.launches = 0
+    losses = []
+    with capture.eager() if eager else contextlib.nullcontext():
+        for _ in range(steps):
+            l, _u = g.run(loss, [loss, train_op], {ids: x, labels: y},
+                          num_micro_batches=2)
+            losses.append(float(l))
+    return (losses, state_numpy(model), fwd.launches, len(g._plan_pool),
+            g.compile_count)
+
+
+@pytest.mark.parametrize("which,dtype", [("llama", "float32"),
+                                         ("gpt2", "bfloat16")])
+def test_captured_training_step_equals_eager(cuda_device, which, dtype):
+    kw = TINY_LLAMA if which == "llama" else TINY_GPT2
+    init = state_numpy(_trainer(kw, dtype)[3])
+    want, want_w, eager_launches, _, eager_graphs = _train_steps(
+        kw, dtype, eager=True, init=init)
+    got, got_w, launches, plans, graphs = _train_steps(
+        kw, dtype, eager=False, init=init)
+    assert got == want and np.isfinite(got).all() and got[-1] < got[0]
+    for name in want_w:
+        np.testing.assert_array_equal(got_w[name], want_w[name],
+                                      err_msg=name)
+    assert plans == 1 and graphs == 1 and eager_graphs == 0
+    assert launches == eager_launches == kw["num_layers"] * 2 * 3
+
+
+def test_captured_dropout_draws_fresh_masks(cuda_device):
+    """dropout 0.1: every replay draws new masks (a forward-only plan
+    gives a new loss each run), and the captured runs give the eager
+    runs' losses from the same generator seed."""
+    kw = dict(TINY_GPT2, dropout=0.1)
+    if not capture.can_capture_generators():
+        g, ids, labels, _, loss, _ = _trainer(kw, "float32")
+        x = np.ones((4, 64), np.int32)
+        with pytest.raises(RuntimeError, match="frozen mask"):
+            g.run([loss], feed_dict={ids: x, labels: x})
+        return
+    runs = {}
+    init = None
+    for eager in (True, False):
+        g, ids, labels, model, loss, train_op = _trainer(kw, "float32")
+        # materializing the seeded init draws from the graph's generator
+        # on both sides, so both start their masks from one state
+        weights = state_numpy(model)
+        init = weights if init is None else init
+        load_state(model, init)
+        x = np.random.RandomState(2).randint(0, 97, (4, 64)).astype(np.int32)
+        feeds = {ids: x, labels: x}
+        with capture.eager() if eager else contextlib.nullcontext():
+            fwd = [float(g.run([loss], feed_dict=feeds)[0])
+                   for _ in range(3)]
+            trained = [float(g.run(loss, [loss, train_op], feeds,
+                                   num_micro_batches=2)[0])
+                       for _ in range(3)]
+        runs[eager] = fwd, trained, g.compile_count
+    (ef, et, eg), (cf, ct, cg) = runs[True], runs[False]
+    assert len(set(cf)) == 3 and len(set(ct)) == 3
+    assert eg == 0 and cg == 2
+    np.testing.assert_allclose(cf, ef, rtol=1e-6)
+    np.testing.assert_allclose(ct, et, rtol=1e-6)

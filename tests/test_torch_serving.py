@@ -203,7 +203,8 @@ _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|hetu_tpu)\b"
 
 
 def test_port_sources_import_no_jax_and_no_jax_package():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "compare_compiled_step.py")]
     for root, _, names in os.walk(os.path.join(REPO, "hetu_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
