@@ -80,12 +80,14 @@ Phases, each printing one JSON line:
    eager) from the same weights and batches; losses and parameters must
    agree;
 9. latent_kernel_vs_plain: the latent (MLA) ragged paged attention kernel
-   (TF32 tensor cores, split terms) against its plain version at the
-   serving shapes of Llama-3-8B's widths in the MLA layout (nh 32, d_c
-   512, d_r 64, page 64, bf16 pages; the batch of phase 3), then at GPT-2
-   small's (nh 12, d_c 256, no rope) with bf16, int8 and nf4 pages written
-   by ``quantize_rows``; times both (the kernel also by CUDA-graph
-   replay, ``device_ms``);
+   against its plain version at the serving shapes of Llama-3-8B's widths
+   in the MLA layout (nh 32, d_c 512, d_r 64, page 64, bf16 pages; the
+   batch of phase 3), then at GPT-2 small's (nh 12, d_c 256, no rope)
+   with bf16, int8 and nf4 pages written by ``quantize_rows``; each case
+   names its route and must launch once on it (bf16 pages on wgmma in two
+   bf16 terms, the others on the TF32 tensor cores in split terms); times
+   both (the kernel also by CUDA-graph replay, ``device_ms``, and the
+   Llama batch's decode rows and chunk row apart, both ways);
 10. paged_decode_vs_plain: the paged decode kernel against its plain
     version at Llama-3-8B's shapes (nh 32, kvh 8, hd 128, page 64), batch
     8 and 64, contexts 1 to 4096 with one empty request and partial last
@@ -97,11 +99,14 @@ Phases, each printing one JSON line:
 11. mla_main_path: phase 4's traffic on Llama-3-8B's widths in the MLA
     layout (``mla_config(llama3_8b_config(), 512, 64)``, all 32 layers,
     random bf16 weights from seed 0): the latent kernel 32 times per
-    unified step, the full-head kernel never, replayed as in phase 4;
-    then a ``step_profile``;
+    unified step, every launch on the wgmma route (``wgmma_launches``),
+    the full-head kernel never, replayed as in phase 4; then a
+    ``step_profile``, which must see the wgmma kernel by name 32 times a
+    step;
 12. mla_quant_path: GPT-2 small's widths with ``kv_latent_dim=256`` and
     ``page_quant="int8"``, then ``"nf4"``: every request finishes, two
-    fresh engines give equal tokens, 12 launches per unified step;
+    fresh engines give equal tokens, 12 launches per unified step, none
+    on the wgmma route;
 13. mla_oracle: 2-layer fp32 MLA models at both widths (one converted
     from a full-head state by ``mla_state_from``), where the engine's
     temperature-0 tokens must equal the port's dense ``generate``, and
@@ -148,7 +153,8 @@ from hetu_tpu_torch.ops.paged_attention import (decode_core_info,
 from hetu_tpu_torch.ops.quantization import quantize_rows
 from hetu_tpu_torch.ops.ragged_paged_attention import (
     latent_ragged_paged_attention_cuda,
-    latent_ragged_paged_attention_reference, ragged_paged_attention_cuda,
+    latent_ragged_paged_attention_reference, latent_route,
+    latent_wgmma_info, ragged_paged_attention_cuda,
     ragged_paged_attention_reference, sample_rows)
 from hetu_tpu_torch.serving import Engine
 from tools.sdpa_times import sdpa_times
@@ -269,6 +275,9 @@ FLASH_WIDE_KERNELS = {(kernel, types) for kernel in (
 RAGGED_KERNELS = {(hd, bf16) for hd in (0, 32, 64, 128, 256)
                   for bf16 in (False, True)}
 PAGED_KERNELS = {False, True}
+# kernel 6's wgmma route (bf16 pages), templated on a consumer group's
+# column chunks of 64
+LATENT_WGMMA_KERNEL = "latent_ragged_paged_attention_wgmma_kernel"
 # the flash type codes of ops/flash_attention.py
 FLASH_CODES = {"fp32/fp32": 0, "bf16/bf16": 1, "fp32/bf16": 2}
 
@@ -376,6 +385,13 @@ def phase_build():
         raise AssertionError(f"the ragged kernel at every template width "
                              f"and the paged decode kernel, in bf16 and "
                              f"fp32, must all be built: {ragged}, {paged}")
+    latent_wg = sorted(e["template_ints"][0] for e in
+                       report["latent_ragged_paged_attention"]["entries"]
+                       if e["kernel"] == LATENT_WGMMA_KERNEL)
+    if latent_wg != [1, 2, 3, 4]:
+        raise AssertionError(f"the latent wgmma kernel must be built for 1-4 "
+                             f"column chunks a consumer group (d_c 64-512): "
+                             f"{latent_wg}")
     spills = [(name, e["kernel"], e["template_ints"], e["types"])
               for name, r in report.items() for e in r["entries"]
               if e["spill_stores"] or e["spill_loads"]]
@@ -643,6 +659,18 @@ def profiled_window(run):
     return plain, time.perf_counter() - t0, device_kernels(prof), out
 
 
+def attention_kernel(eng):
+    """The name of the attention kernel ``eng``'s unified step launches:
+    the ragged kernel, or for MLA the latent kernel of its pages' route."""
+    pool = eng.pool
+    if pool.latent_dim is None:
+        return "ragged_paged_attention_kernel"
+    if latent_route(pool.quant, pool.k_pages[0].dtype, pool.latent_dim,
+                    pool.rope_dim, pool.page_size, eng.n_rows) == "wgmma":
+        return LATENT_WGMMA_KERNEL
+    return "latent_ragged_paged_attention_kernel"
+
+
 def profile_steps(eng, rng, v, check=True):
     """Where a serving step's device time goes, after the measured run:
     the steps that serve two more requests (a 1000-token prompt in two
@@ -653,7 +681,8 @@ def profile_steps(eng, rng, v, check=True):
     captured CUDA graphs, so (with ``check``) the device must show the
     layout's attention kernel by name once per layer and unified step in
     the profiled window: the replays launch it (the wrappers' counters
-    only add what the capture counted)."""
+    only add what the capture counted), by its name
+    (``attention_kernel``)."""
     def window():
         calls0 = eng.executable_calls
         eng.add_request(rng.randint(1, v, size=100).tolist(), 24)
@@ -664,20 +693,20 @@ def profile_steps(eng, rng, v, check=True):
             steps += 1
         return steps, eng.executable_calls - calls0
 
+    kernel = attention_kernel(eng)
+    name = re.compile(rf"(?<!\w){kernel}\b")
     plain, wall, kernels, (steps, unified) = profiled_window(window)
+    seen = sum(n for _, k, n in kernels if name.search(k))
+    if check and seen != eng.cfg.num_layers * unified:
+        raise AssertionError(
+            f"the profile saw {kernel} {seen} times in {unified} replayed "
+            f"unified steps of {eng.cfg.num_layers} layers; the window's "
+            f"kernels: {[(k[:90], n) for _, k, n in kernels]}")
     busy = sum(k[0] for k in kernels) / 1e6
     attn = sum(k[0] for k in kernels
                if "ragged_paged_attention" in k[1]) / 1e6
-    mla = eng.cfg.is_mla
-    seen = sum(n for _, k, n in kernels
-               if "ragged_paged_attention_kernel" in k
-               and ("latent_" in k) == mla)
-    if check and seen != eng.cfg.num_layers * unified:
-        raise AssertionError(
-            f"the profile saw the {'latent ' if mla else ''}ragged kernel "
-            f"{seen} times in {unified} replayed unified steps of "
-            f"{eng.cfg.num_layers} layers")
     return {"steps": steps, "unified_steps": unified,
+            "attention_kernel": kernel,
             "attention_kernel_calls": seen, "unprofiled_wall_s": plain,
             "wall_s": wall, "device_busy_s": busy,
             "idle_share": (1.0 - busy / plain) if busy else None,
@@ -757,8 +786,10 @@ def eager_tokens(state, cfg, prompts, new, **kw):
 
 def phase_main_path(cfg, phase, model, counter, other_counter):
     """Serves phase 4's traffic at ``cfg``; ``counter`` is the attention
-    kernel this layout must launch once per layer and unified step,
-    ``other_counter`` the one it must never launch."""
+    kernel this layout must launch once per layer and unified step (on
+    the wgmma route every time where ``attention_kernel`` names the
+    latent wgmma kernel), ``other_counter`` the one it must never
+    launch."""
     t0 = time.perf_counter()
     state = random_state(cfg, seed=0, device="cuda")
     n_params = sum(v.numel() for v in state.values())
@@ -767,6 +798,7 @@ def phase_main_path(cfg, phase, model, counter, other_counter):
                  device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    wgmma = attention_kernel(eng) == LATENT_WGMMA_KERNEL
     rng = np.random.RandomState(0)
     v = cfg.vocab_size
     mix = make_mix(rng, v, [32, 3000, 700, 1500, 64, 2200, 400],
@@ -783,10 +815,13 @@ def phase_main_path(cfg, phase, model, counter, other_counter):
     compiled = eng.compile_count
     torch.cuda.reset_peak_memory_stats()
     counter.launches = other_counter.launches = 0
+    if wgmma:
+        counter.wgmma_launches = 0
     t0 = time.perf_counter()
     reqs = serve_mix(eng, *mix)
     wall = time.perf_counter() - t0
     launches = counter.launches
+    wgmma_launches = counter.wgmma_launches if wgmma else None
     calls = eng.executable_calls - calls0
     summary = eng.metrics_summary()
     if not all(r.state == "finished" and len(r.out_tokens) == 32
@@ -802,6 +837,9 @@ def phase_main_path(cfg, phase, model, counter, other_counter):
             f"kernel launches {launches} != {cfg.num_layers} x {calls} "
             f"unified steps, or the other layout's kernel ran "
             f"({other_counter.launches} launches)")
+    if wgmma and wgmma_launches != launches:
+        raise AssertionError(f"{wgmma_launches} of {launches} latent "
+                             f"launches on the wgmma route")
     check_compile_count(eng, compiled, phase)
     ttfts = sorted(r.first_token_time - r.submit_time for r in reqs)
     out = {"model": model, "params": n_params, "layers": cfg.num_layers,
@@ -815,6 +853,7 @@ def phase_main_path(cfg, phase, model, counter, other_counter):
            "tokens_per_s": len(toks) / wall,
            "ttft_p50_s": float(np.percentile(ttfts, 50)),
            "unified_steps": calls, "kernel_launches": launches,
+           **({"wgmma_launches": wgmma_launches} if wgmma else {}),
            "prefix_cache_hits": summary["prefix_cache_hits"],
            "prefix_cache_tokens_saved":
                summary["prefix_cache_tokens_saved"],
@@ -1439,11 +1478,14 @@ LATENT_CU = [0, 1, 2, 3, 4, 5, 6, 7, 8, 520]
 
 
 # TF32 products that fp32 q or p takes against latent pages of each kind
-# to the reference's accuracy: bf16 values and int8 codes are exact in TF32
-# (int8's scale/127 is folded into the scores and into P in fp32), so only
-# the fp32 side splits (2); fp32 values and nf4's codebook values are not,
-# so both split (3)
+# to the reference's accuracy: int8 codes are exact in TF32 (int8's
+# scale/127 is folded into the scores and into P in fp32), so only the fp32
+# side splits (2); fp32 values and nf4's codebook values are not, so both
+# split (3).  bf16 pages are priced by the wgmma route's scheme instead:
+# fp32 q and p in two bf16 terms against the exact bf16 values, at the bf16
+# rate (LATENT_BF16_TERMS)
 LATENT_TERMS = {"bf16": 2, "int8": 2, "nf4": 3, "fp32": 3}
+LATENT_BF16_TERMS = 2
 
 
 def latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, r_bytes,
@@ -1451,9 +1493,10 @@ def latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, r_bytes,
     """Bytes the function must move (the pages each live row spans, q in,
     out), operations over the causally visible (query, key) pairs, and the
     least time an H100 could take for the arithmetic the reference defines
-    (fp32 q and p by the latent pages of ``kind`` in ``LATENT_TERMS[kind]``
-    TF32 products, q by the rope pages as ``product_rate``), with the bf16
-    tensor-core figure beside it."""
+    (fp32 q and p by bf16 pages and their rope keys in two bf16 terms at
+    989 TFLOP/s; by the latent pages of the other kinds in
+    ``LATENT_TERMS[kind]`` TF32 products, q by the rope pages as
+    ``product_rate``), with the one-term bf16 figure beside it."""
     quantized = kind in ("int8", "nf4")
     per_pos = c_bytes + d_r * r_bytes + (4 if quantized else 0)
     kv_bytes = sum(-(-c // ps) * ps * per_pos
@@ -1466,9 +1509,13 @@ def latent_work(q_lens, ctx_lens, ps, nh, d_c, d_r, c_bytes, r_bytes,
     t_bytes = (kv_bytes + qo_bytes) / H100_BYTES_PER_S
     # q.c and p.c on the latent pages, q.r on the bf16 rope pages
     r_as = torch.bfloat16 if r_bytes == 2 else torch.float32
-    t_ops = 2 * nh * pairs * (
-        2 * d_c * LATENT_TERMS[kind] / H100_TF32_FLOPS
-        + d_r / product_rate(torch.float32, r_as))
+    if kind == "bf16":
+        t_ops = 2 * nh * pairs * (2 * d_c + d_r) * LATENT_BF16_TERMS / \
+            H100_BF16_FLOPS
+    else:
+        t_ops = 2 * nh * pairs * (
+            2 * d_c * LATENT_TERMS[kind] / H100_TF32_FLOPS
+            + d_r / product_rate(torch.float32, r_as))
     return {"bytes": kv_bytes + qo_bytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1519,8 +1566,16 @@ def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
         return fn(q, c_pages, r_pages, i32(ql), i32(cu), i32(pt),
                   i32(ctx_lens), **kw)
 
-    got = run(latent_ragged_paged_attention_cuda, q_lens)
+    fn = latent_ragged_paged_attention_cuda
+    before = (fn.launches, fn.wgmma_launches)
+    got = run(fn, q_lens)
     torch.cuda.synchronize()
+    route = latent_route(quant, c_pages.dtype, d_c, d_r, ps, rows)
+    on_wgmma = fn.wgmma_launches - before[1]
+    if fn.launches - before[0] != 1 or on_wgmma != (route == "wgmma"):
+        raise AssertionError(f"{name}: one launch on the {route} route "
+                             f"expected, got {fn.launches - before[0]} "
+                             f"({on_wgmma} on wgmma)")
     want = run(latent_ragged_paged_attention_reference, q_lens)
     real = torch.zeros(t, dtype=torch.bool, device=dev)
     for i in range(rows):
@@ -1530,7 +1585,7 @@ def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
     err = d[real].max().item()
     pad_nonzero = int(torch.count_nonzero(got[~real]).item())
     if not check:
-        return {"max_abs_err": err, "err_over_limit": ratio}
+        return {"max_abs_err": err, "err_over_limit": ratio, "route": route}
     if not ratio <= 1.0 or not torch.isfinite(got).all():
         raise AssertionError(f"latent kernel vs plain, {name}: error over "
                              f"the fp32 limit by {ratio} (max abs {err})")
@@ -1541,7 +1596,8 @@ def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
                        kind)
     # the metadata on the card once, so that one call can be captured
     meta = [i32(a) for a in (q_lens, cu, pt, ctx_lens)]
-    out = {"max_abs_err": err, "err_over_limit": ratio,
+    out = {"route": route, "wgmma_launches": on_wgmma,
+           "max_abs_err": err, "err_over_limit": ratio,
            "limit": f"|got - want| <= {PAGED_FP32_TOL} * (1 + |want|)",
            "padding_nonzero": pad_nonzero,
            "ms": cuda_time_ms(lambda: run(latent_ragged_paged_attention_cuda,
@@ -1556,17 +1612,22 @@ def latent_case(name, nh, d_c, d_r, hd, ctx_lens, maxp, num_pages, kind,
                       "d_c": d_c, "d_r": d_r, "ps": ps, "max_q": max_q,
                       "maxp": maxp, "pages": kind}}
     if time_parts:
-        # the same batch split: its decode rows alone, its chunk alone
+        # the same batch split: its decode rows alone, its chunk alone,
+        # each also by CUDA-graph replay
         out["parts"] = {}
         for part, keep in (("decode_rows", lambda i: i < 8),
                            ("chunk_row", lambda i: i == 8)):
             ql = [n if keep(i) else 0 for i, n in enumerate(q_lens)]
             pw = latent_work(ql, ctx_lens, ps, nh, d_c, d_r, c_bytes, 2,
                              kind)
+            pmeta = [i32(a) for a in (ql, cu, pt, ctx_lens)]
             out["parts"][part] = {
                 "ms": cuda_time_ms(lambda: run(
                     latent_ragged_paged_attention_cuda, ql),
                     warmup=2, iters=5),
+                "device_ms": graph_ms(
+                    lambda: latent_ragged_paged_attention_cuda(
+                        q, c_pages, r_pages, *pmeta, **kw), iters=20),
                 "bound_ms": pw["bound_ms"], "bound_by": pw["bound_by"]}
     return out
 
@@ -1587,9 +1648,13 @@ def phase_latent_kernel():
         cases[name] = latent_case(name, *shape,
                                   time_parts=name.startswith("llama"))
         torch.cuda.empty_cache()
+    smem, blocks = latent_wgmma_info(512, 64, len(LATENT_Q_LENS))
     emit({"phase": "latent_kernel_vs_plain",
-          "kernel": {"latent_ragged_paged_attention": cases}})
-    return cases["llama3_8b_mla/bf16"]
+          "kernel": {"latent_ragged_paged_attention": cases},
+          "wgmma_route": {"smem_bytes": smem, "blocks_per_sm": blocks,
+                          "sms": sm_count(torch.device("cuda"))}})
+    return {**cases["llama3_8b_mla/bf16"], "wgmma_smem_bytes": smem,
+            "wgmma_blocks_per_sm": blocks}
 
 
 def paged_work(seq_lens, nh, kvh, hd, dtype):
@@ -1788,6 +1853,7 @@ def phase_mla_quant():
             mix = make_mix(rng, v, [32, 900, 300, 500, 64, 700, 400],
                            header_len=256, tail=100)
             latent_ragged_paged_attention_cuda.launches = 0
+            latent_ragged_paged_attention_cuda.wgmma_launches = 0
             ragged_paged_attention_cuda.launches = 0
             t0 = time.perf_counter()
             reqs = serve_mix(eng, *mix)
@@ -1803,10 +1869,12 @@ def phase_mla_quant():
                 raise AssertionError(f"{quant}: token id outside the "
                                      f"vocabulary")
             if launches != cfg.num_layers * calls or \
-                    ragged_paged_attention_cuda.launches:
+                    ragged_paged_attention_cuda.launches or \
+                    latent_ragged_paged_attention_cuda.wgmma_launches:
                 raise AssertionError(
                     f"{quant}: latent launches {launches} != "
-                    f"{cfg.num_layers} x {calls} unified steps")
+                    f"{cfg.num_layers} x {calls} unified steps, or some on "
+                    f"the wgmma route (quantized pages take mma.sync)")
             check_compile_count(eng, eng.compile_count, quant)
             runs.append(toks)
             summary = eng.metrics_summary()
@@ -1852,6 +1920,7 @@ def phase_mla_oracle():
         prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist()
                    for n in lens]
         latent_ragged_paged_attention_cuda.launches = 0
+        latent_ragged_paged_attention_cuda.wgmma_launches = 0
         kw = dict(num_pages=64, page_size=64, max_batch=4, chunk_size=128)
         eng = Engine(state, cfg, device="cuda", **kw)
         reqs = [eng.add_request(p, 8) for p in prompts]
@@ -1862,9 +1931,11 @@ def phase_mla_oracle():
         if got != want:
             raise AssertionError(f"{name}: engine {got} != generate {want}")
         if latent_ragged_paged_attention_cuda.launches != \
-                cfg.num_layers * eng.executable_calls:
+                cfg.num_layers * eng.executable_calls or \
+                latent_ragged_paged_attention_cuda.wgmma_launches:
             raise AssertionError(f"{name}: the latent kernel did not run "
-                                 f"once per layer and step")
+                                 f"once per layer and step on the mma.sync "
+                                 f"route (fp32 pages)")
         check_compile_count(eng, eng.compile_count, name)
         eager = eager_tokens(state, cfg, prompts, 8, **kw)
         if eager != got:
@@ -1969,7 +2040,7 @@ def main():
         "Llama-3-8B widths in the MLA layout (kv_latent_dim 512, "
         "kv_rope_dim 64), random bf16 weights (seed 0)",
         latent_ragged_paged_attention_cuda, ragged_paged_attention_cuda)
-    phase_mla_quant()
+    quant = phase_mla_quant()
     phase_mla_oracle()
     phase_graft_entry()
     rows = [{
@@ -2040,6 +2111,19 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             **({"device_ms": r["device_ms"]} if "device_ms" in r else {})})
+    # kernel 6: its launches by route (phase 11 on wgmma, the quantized
+    # pages of phase 12 on mma.sync), its parts and the route's occupancy
+    lat = next(r for r in rows if r["name"] == "latent_ragged_paged_attention")
+    lat.update({
+        "kernel_route": latent["route"],
+        "launches_by_route": {
+            "wgmma": mla_out["wgmma_launches"],
+            "mma.sync": mla_out["kernel_launches"] -
+            mla_out["wgmma_launches"]},
+        "quant_path_launches": {"mma.sync": sum(
+            q["kernel_launches"] for q in quant.values())},
+        **{k: latent[k] for k in ("parts", "wgmma_smem_bytes",
+                                  "wgmma_blocks_per_sm")}})
     if not all(r["launches"] > 0 for r in rows):
         raise AssertionError(f"a kernel of the path was never launched: "
                              f"{[(r['name'], r['launches']) for r in rows]}")

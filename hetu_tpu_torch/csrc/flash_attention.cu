@@ -145,15 +145,6 @@ constexpr int kB = 64;           // rows of a q tile and of a KV tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// 2^x by the special function unit, results below 2^-126 flushed to 0 (a
-// probability that small adds nothing a bf16 product can carry); exp2f
-// rescales around each call for them
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // the number of `tile`-key tiles that q rows [q0, q0 + rows) can see
 __device__ __forceinline__ int kv_tiles_for(int q0, int sq, int sk, int causal,
                                             int offset, int tile = kB,
@@ -1676,23 +1667,6 @@ __device__ __forceinline__ void tma_tile(uint8_t* dst, int rows,
     for (int r = 0; r < rows; r += kBoxRows)
       tma_load_4d(dst + (half * rows + r) * kSwizzleBytes, map, bar,
                   64 * half, h, row0 + r, b);
-}
-
-// K-major operand of k-step kk (head columns 16 kk ..): rows r0 .. r0 + 63
-// (or all N rows) of a swizzled [rows][HD] tile at shared address `tile`
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int rows,
-                                                 int r0, int kk) {
-  return wgmma_desc(tile,
-                    ((kk / 4) * rows + r0) * kSwizzleBytes + (kk % 4) * 32,
-                    16);
-}
-
-// MN-major operand of k-step kk (tile rows 16 kk ..), its M or N axis
-// along the columns from byte `col` of the first column half
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int rows,
-                                                  int kk, int col = 0) {
-  return wgmma_desc(tile, kk * 16 * kSwizzleBytes + col,
-                    rows * kSwizzleBytes);
 }
 
 // q * scale * log2(e) rounded to bf16, in place, for the 16-byte chunks

@@ -2,8 +2,8 @@
 paged attention kernel and in the split-KV decode core, against the gates
 of ``chip_smoke.py``'s phases 6, 9, 3 and 10.
 
-    python -m hetu_tpu_torch.csrc.planted_faults     (on the card, from
-                                                     the repository root)
+    python -m hetu_tpu_torch.csrc.planted_faults [flash] [latent] [core]
+        (on the card, from the repository root; every group by default)
 
 Each fault is a text replacement in a copy of a kernel's source written
 under ``csrc/_build/`` (the checkout's own sources stay as they are),
@@ -59,15 +59,29 @@ GPT-2 shapes:
   mask skipped on the tiles (dq: the 64-key chunks) that cross the
   diagonal.
 
-The latent faults, in the tensor-core latent kernel:
+The latent faults, against phase 9's gate on each of its batches.  In
+the mma.sync route (int8 and nf4 pages in phase 9):
 
 - ``nf4_nibbles``: the two 4-bit codes of a byte swapped when the latent
   kernel dequantizes packed pages (touches the nf4 pages only);
 - ``last_page``: the last page of a decode row whose context is longer
-  than 1024 tokens dropped (touches the Llama-width batch only: its
-  decode rows reach 4096 tokens, the GPT-2-width ones 1024);
+  than 512 tokens dropped (touches the int8 and nf4 batches, whose decode
+  rows reach 1024 tokens);
 - ``tf32_1term_latent``: every latent product (Q K^T and P V, every page
-  kind) cut to its hi.hi term, one-term TF32 (touches every batch).
+  kind) cut to its hi.hi term, one-term TF32 (touches int8 and nf4).
+
+In the wgmma route (the bf16 batches at Llama-3-8B and GPT-2 MLA widths):
+
+- ``bf16_1term_latent``: the lo term of q and of p dropped (one bf16
+  term, ``bf16_terms``);
+- ``mask_latent_wgmma``: the causal mask skipped on the chunk row's
+  diagonal tiles (a query sees the keys after it up to its item's last
+  query); touches the GPT-2-width batch only: at nh 32 an item of 32
+  pairs is one query, whose KV range already ends at its diagonal;
+In the merge kernel that both routes share:
+
+- ``merge_latent``: the merge of a split decode row drops its last live
+  KV slice (touches every batch: each splits its decode rows).
 
 The decode-core faults, in ``paged_decode.cuh``, which the ragged kernel's
 decode rows and the paged decode kernel share (each mutant header is
@@ -176,7 +190,7 @@ def _mutants(src: str):
 def _wgmma_header_mutants(src: str, header: str):
     """``src`` with ``wgmma_bf16.cuh`` inlined, for the faults that live in
     the header."""
-    old = "CU_TENSOR_MAP_SWIZZLE_128B,"  # how TMA writes the tiles
+    old = "CU_TENSOR_MAP_SWIZZLE_128B;"  # how TMA writes the tiles
     if header.count(old) != 1:
         raise ValueError(f"{old!r} is not in the header once")
     inc = '#include "wgmma_bf16.cuh"'
@@ -184,7 +198,7 @@ def _wgmma_header_mutants(src: str, header: str):
         raise ValueError(f"{inc} not found")
     return {"swizzle_wgmma": src.replace(
         inc, header.replace("#pragma once\n", "").replace(
-            old, "CU_TENSOR_MAP_SWIZZLE_NONE,"))}
+            old, "CU_TENSOR_MAP_SWIZZLE_NONE;"))}
 
 
 def _one_term(src: str, start: str, end: str) -> str:
@@ -258,7 +272,7 @@ def _latent_mutants(src: str):
         raise ValueError(f"{old!r} not found")
     last_page = src.replace(
         old, "const int kv_end = min(qpos0 + last_pair / nh + 1, maxp * ps)"
-             " - ((qlen_row == 1 && qpos0 >= 1024) ? ps : 0);")
+             " - ((qlen_row == 1 && qpos0 >= 512) ? ps : 0);")
     # latent_mma, through which every product goes, reduced to hi.hi
     one_term = _within(
         src, "latent_mma(float* c", "// the B operand bits",
@@ -269,8 +283,24 @@ def _latent_mutants(src: str):
         "    mma_tf32_1688(c, a_hi, b_hi[0], b_hi[1]);\n"
         "  }\n",
         "  mma_tf32_1688(c, a_hi, b_hi[0], b_hi[1]);\n")
+    # the wgmma route: bf16_terms, through which q and p go, keeps hi only
+    wg_one_term = _within(
+        src, "void bf16_terms(float x0", "// Items are",
+        "lo = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));",
+        "lo = 0u;")
+    wg_mask = _within(
+        src, "latent_ragged_paged_attention_wgmma_kernel(", "wgmma_smem_bytes",
+        "if (!(pos < kv_stop && pos <= qp)) v = -INFINITY;",
+        "if (!(pos < kv_stop)) v = -INFINITY;")
+    merge = _within(
+        src, "latent_merge_kernel(const float*", "template <int NT, int KIND>",
+        "latent_live_slices(latent_kv_end(w, pair / kBM, nh, cap), "
+        "split_len);",
+        "latent_live_slices(latent_kv_end(w, pair / kBM, nh, cap), "
+        "split_len) - 1;")
     return {"nf4_nibbles": nibbles, "last_page": last_page,
-            "tf32_1term_latent": one_term}
+            "tf32_1term_latent": one_term, "bf16_1term_latent": wg_one_term,
+            "mask_latent_wgmma": wg_mask, "merge_latent": merge}
 
 
 def _core_mutants(header: str):
@@ -331,9 +361,18 @@ def _latent_faults(cs):
     name = "latent_ragged_paged_attention"
     with open(os.path.join(build.CSRC, build.SOURCES[name])) as f:
         src = f.read()
+    # bf16 pages run the wgmma route, int8 and nf4 the mma.sync one
+    wg = tuple(c for c in cs.LATENT_CASES if c.endswith("/bf16"))
+    mma = tuple(c for c in cs.LATENT_CASES if not c.endswith("/bf16"))
     touched = {"clean": (), "nf4_nibbles": ("gpt2_mla/nf4",),
-               "last_page": ("llama3_8b_mla/bf16",),
-               "tf32_1term_latent": tuple(cs.LATENT_CASES)}
+               "last_page": mma, "tf32_1term_latent": mma,
+               "bf16_1term_latent": wg,
+               # every batch splits its decode rows, on both routes
+               "merge_latent": tuple(cs.LATENT_CASES),
+               # at nh 32 an item of 32 pairs is one query, whose range
+               # already ends at its diagonal: only nh 12 (three queries
+               # an item) can tell
+               "mask_latent_wgmma": ("gpt2_mla/bf16",)}
     missed = []
     real = build.load_library(name)
     libs = _build_mutants(_latent_mutants(src))
@@ -402,14 +441,38 @@ def _core_faults(cs):
     return missed
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
+    groups = set(sys.argv[1:] if argv is None else argv) or \
+        {"flash", "latent", "core"}
+    if not groups <= {"flash", "latent", "core"}:
+        print(f"planted_faults: unknown groups {sorted(groups)} (flash, "
+              f"latent, core)", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("planted_faults: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    missed = []
+    if "flash" in groups:
+        missed += _flash_faults(cs)
+    if "latent" in groups:
+        missed += _latent_faults(cs)
+    if "core" in groups:
+        missed += _core_faults(cs)
+    if missed:
+        print(f"gates missed: {missed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _flash_faults(cs):
+    """The flash kernels, clean and with each fault, at the shapes of
+    phase 6 (and phase 8's oracle for ``tf32_1term_dkv``); returns the
+    gates that missed."""
+    import torch
     with open(os.path.join(build.CSRC, build.SOURCES["flash_attention"])) as f:
         src = f.read()
     missed = []
@@ -456,12 +519,7 @@ def main() -> int:
             if rep["within_limits"]:
                 missed.append(f"{name} train oracle gpt2_widths")
     build._LOADED["flash_attention"] = real
-    missed += _latent_faults(cs)
-    missed += _core_faults(cs)
-    if missed:
-        print(f"gates missed: {missed}", file=sys.stderr)
-        return 1
-    return 0
+    return missed
 
 
 if __name__ == "__main__":

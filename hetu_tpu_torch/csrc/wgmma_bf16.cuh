@@ -45,6 +45,15 @@ __device__ __forceinline__ uint8_t* align_atom(uint8_t* p) {
   return p + ((kSwizzleAtom - (a % kSwizzleAtom)) % kSwizzleAtom);
 }
 
+// 2^x by the special function unit, results below 2^-126 flushed to 0 (a
+// probability that small adds nothing a bf16 product can carry); exp2f
+// rescales around each call for them
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------------------
 // mbarriers, named barriers, fences
 // ---------------------------------------------------------------------------
@@ -124,6 +133,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-D tensor map at coordinates (c0 innermost, c1): the same
+// completion and zero fill as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -150,6 +171,34 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t base, uint32_t off,
       : "r"(base), "r"(off), "r"(((lbo >> 4) & 0x3FFF) << 16),
         "r"(((sbo >> 4) & 0x3FFF) | (1u << 30)));
   return d;
+}
+
+// K-major operand of k-step kk (columns 16 kk ..): rows r0 .. r0 + 63 (or
+// all N rows) of a swizzled [rows][HD] tile at shared address `tile`
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int rows,
+                                                 int r0, int kk) {
+  return wgmma_desc(tile,
+                    ((kk / 4) * rows + r0) * kSwizzleBytes + (kk % 4) * 32,
+                    16);
+}
+
+// MN-major operand of k-step kk (tile rows 16 kk ..), its M or N axis
+// along the columns from byte `col` of the first column half (the
+// transpose bit: V of P.V, whose reduction axis runs down the rows)
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int rows,
+                                                  int kk, int col = 0) {
+  return wgmma_desc(tile, kk * 16 * kSwizzleBytes + col,
+                    rows * kSwizzleBytes);
+}
+
+// descriptor d moved on by `bytes` (a multiple of 16 that keeps the
+// operand inside the same 256 KB of shared memory), added where the wgmma
+// needs it, as wgmma_desc is built
+__device__ __forceinline__ uint64_t desc_plus(uint64_t d, uint32_t bytes) {
+  uint64_t r;
+  asm volatile("add.s64 %0, %1, %2;\n"
+               : "=l"(r) : "l"(d), "l"(static_cast<uint64_t>(bytes >> 4)));
+  return r;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -389,6 +438,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// how TMA writes every tile: the 128-byte swizzle that the descriptors read
+constexpr CUtensorMapSwizzle kTmaSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+
 // rows of a TMA box: every box is 64 rows of 64 bf16 columns (8 KB)
 constexpr int kBoxRows = 64;
 constexpr int kBoxBytes = kBoxRows * kSwizzleBytes;
@@ -412,7 +464,30 @@ cudaError_t encode_bshd(CUtensorMap* map, const void* ptr, int b, int s,
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        kTmaSwizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a bf16 pool read as rows: 2-D over (width, rows),
+// `width` a multiple of 64 contiguous values a row, boxes of 64 columns
+// and `box_rows` rows, 128-byte swizzle; a row coordinate at or past `rows`
+// reads as zeros.  Built on the host and passed to a kernel by value
+// (__grid_constant__), so a captured launch keeps its own copy.
+cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int64_t rows,
+                        int width, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(width) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        kTmaSwizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

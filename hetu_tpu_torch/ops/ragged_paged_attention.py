@@ -42,7 +42,9 @@ scores are MQA dot products in latent space and the output stays latent
 ``latent_ragged_paged_attention`` dispatches like the full-head entry
 point: the plain version for CPU tensors, the CUDA kernel
 (``csrc/latent_ragged_paged_attention.cu``) for CUDA tensors, no
-fallback.
+fallback; :func:`latent_route` names the kernel's route (wgmma for bf16
+pages at the widths, page sizes and batches it covers, split TF32
+``mma.sync`` otherwise).
 
 The module also holds the serving step's on-device sampler
 (``sample_rows``).
@@ -371,6 +373,28 @@ _LATENT_MIN_SPLIT_LEN = 128   # KV positions a slice holds at least
 _LATENT_MAX_SPLITS = 16
 # slices for two blocks per SM if every row is short
 _LATENT_BLOCKS_PER_SM = 2
+# the wgmma route (bf16 pages): a persistent block an SM walks items of 32
+# pairs; the decode rows' slices are sized for about two items a block,
+# none shorter than 8 KV tiles of 32 positions
+_LATENT_WGMMA_ITEMS_PER_SM = 2
+_LATENT_WGMMA_MIN_SPLIT_LEN = 256
+_LATENT_WGMMA_MAX_SPLITS = 32
+_LATENT_WGMMA_MAX_ROWS = 1024     # kWgMaxRows: rows a block keeps offsets of
+
+
+def latent_route(quant: Optional[str], dtype: torch.dtype, d_c: int,
+                 d_r: int, page_size: int, rows: int) -> str:
+    """The kernel route of a latent batch: ``"wgmma"`` for bf16 pages with
+    ``d_c`` a multiple of 64 up to 512 and ``d_r`` 0 or 64 (bf16 terms on
+    Hopper's wgmma, TMA page loads), a page size that is a multiple of 8
+    (the TMA boxes of 8, 16 or 32 positions lie inside a page) and at most
+    1024 rows (the item offsets a block keeps), else ``"mma.sync"``
+    (split TF32 terms).  A function of these six alone."""
+    if quant is None and dtype == torch.bfloat16 and d_c % 64 == 0 and \
+            64 <= d_c <= 512 and d_r in (0, 64) and page_size % 8 == 0 \
+            and rows <= _LATENT_WGMMA_MAX_ROWS:
+        return "wgmma"
+    return "mma.sync"
 
 
 @functools.lru_cache(maxsize=None)
@@ -390,9 +414,30 @@ def _latent_kernel_lib():
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        wg = lib.hetu_latent_wgmma_attention
+        wg.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                       + [ctypes.c_float, ctypes.c_void_p])
+        wg.restype = ctypes.c_int
+        info = lib.hetu_latent_wgmma_info
+        info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        info.restype = ctypes.c_int
         lib.hetu_cuda_error_string.argtypes = [ctypes.c_int]
         lib.hetu_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def latent_wgmma_info(d_c: int, d_r: int, n_rows: int):
+    """The wgmma route's dynamic shared memory (bytes) and blocks an SM at
+    these widths and rows, as the kernel's launcher and the card's
+    occupancy calculator give them (on the card only)."""
+    lib = _latent_kernel_lib()
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = lib.hetu_latent_wgmma_info(d_c, d_r, n_rows, ctypes.byref(smem),
+                                     ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"hetu_latent_wgmma_info: "
+                           f"{lib.hetu_cuda_error_string(err).decode()}")
+    return smem.value, blocks.value
 
 
 def latent_ragged_paged_attention_cuda(
@@ -403,18 +448,22 @@ def latent_ragged_paged_attention_cuda(
         scale_pages: Optional[torch.Tensor] = None,
         quant: Optional[str] = None,
         latent_dim: Optional[int] = None) -> torch.Tensor:
-    """The CUDA latent kernel (same contract as the plain version), on
-    the TF32 tensor cores in split terms (two for bf16 and int8 pages,
-    three for fp32 and 4-bit ones).  Every tensor must lie on one CUDA
-    device.  ``q`` is fp32 (the absorbed
+    """The CUDA latent kernel (same contract as the plain version).  Every
+    tensor must lie on one CUDA device.  ``q`` is fp32 (the absorbed
     query is fp32 by construction); unquantized ``c_pages`` and
     ``r_pages`` share a dtype (bf16 or fp32); int8 and 4-bit pages come
     with fp32 ``scale_pages`` and no rope stream.  ``d_c`` and ``d_r`` are
     multiples of 4 with ``d_c <= 512`` and ``d_c + d_r <= 640``; other
-    widths raise.  The output is allocated zeroed here and the kernel
-    writes only real tokens; rows of at most 128 (token, head) pairs
-    (decode rows) are split over the KV axis through an fp32 workspace.
-    ``latent_ragged_paged_attention_cuda.launches`` counts the launches."""
+    widths raise.  :func:`latent_route` picks the kernel: bf16 pages at
+    ``d_c`` a multiple of 64 and ``d_r`` 0 or 64, pages of a multiple of 8
+    positions and at most 1024 rows run on wgmma in two bf16 terms of q
+    and p; every other kind, width, page size and batch on the TF32
+    tensor cores in split terms (two for bf16 and int8 pages,
+    three for fp32 and 4-bit ones).  The output is allocated zeroed here
+    and the kernel writes only real tokens; rows of at most 128 (token,
+    head) pairs (decode rows) are split over the KV axis through an fp32
+    workspace.  ``latent_ragged_paged_attention_cuda.launches`` counts the
+    launches, ``.wgmma_launches`` those on the wgmma route."""
     nh, ps, d_c, d_r = _check_latent_shapes(q, c_pages, r_pages, quant,
                                             latent_dim)
     if q.dim() != 3:
@@ -482,9 +531,16 @@ def latent_ragged_paged_attention_cuda(
            if x is not None):
         raise ValueError("latent_ragged_paged_attention_cuda needs q, "
                          "c_pages and r_pages aligned to 16 bytes")
+    wgmma = latent_route(quant, c_pages.dtype, d_c, d_r, ps, s) == "wgmma"
     lib = _latent_kernel_lib()
     out = torch.zeros((t, nh, d_c), dtype=torch.float32, device=q.device)
     if s == 0 or t == 0:
+        return out
+    if wgmma:
+        _latent_wgmma_launch(lib, q, c_pages, r_pages, out, q_lens, cu_q,
+                             page_tables, ctx_lens, max_q, softmax_scale)
+        latent_ragged_paged_attention_cuda.launches += 1
+        latent_ragged_paged_attention_cuda.wgmma_launches += 1
         return out
     code = _latent_codebook(quant)
     n_splits = kv_splits(sm_count(q.device), s, maxp * ps,
@@ -518,7 +574,42 @@ def latent_ragged_paged_attention_cuda(
     return out
 
 
-launch_counter(latent_ragged_paged_attention_cuda)
+def _latent_wgmma_launch(lib, q, c_pages, r_pages, out, q_lens, cu_q,
+                         page_tables, ctx_lens, max_q, softmax_scale):
+    """One launch of the wgmma route on checked tensors (a persistent
+    block an SM; the split rows merged by a second kernel)."""
+    s, maxp = page_tables.shape
+    n_pages, ps, _, d_c = c_pages.shape
+    d_r = r_pages.shape[-1] if r_pages is not None else 0
+    sms = sm_count(q.device)
+    n_splits = kv_splits(sms, s, maxp * ps,
+                         per_sm=_LATENT_WGMMA_ITEMS_PER_SM,
+                         min_len=_LATENT_WGMMA_MIN_SPLIT_LEN,
+                         most=_LATENT_WGMMA_MAX_SPLITS)
+    ws = ws_acc = ws_ml = None
+    if n_splits > 1:
+        # one buffer: ws_acc [S, 128, n_splits, d_c], then ws_ml [.., 2]
+        rows = s * _LATENT_SPLIT_PAIRS * n_splits
+        ws = torch.empty(rows * (d_c + 2), dtype=torch.float32,
+                         device=q.device)
+        ws_acc, ws_ml = ws.data_ptr(), ws.data_ptr() + rows * d_c * 4
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hetu_latent_wgmma_attention(
+            q.data_ptr(), c_pages.data_ptr(),
+            r_pages.data_ptr() if r_pages is not None else None,
+            out.data_ptr(), q_lens.data_ptr(), cu_q.data_ptr(),
+            page_tables.data_ptr(), ctx_lens.data_ptr(), ws_acc, ws_ml,
+            q.shape[0], q.shape[1], d_c, d_r, ps, n_pages, s, maxp,
+            int(max_q), n_splits, sms, float(softmax_scale), stream)
+    if err != 0:
+        raise RuntimeError(
+            "latent ragged paged attention kernel (wgmma) failed: "
+            f"{lib.hetu_cuda_error_string(err).decode()} (cudaError {err})")
+
+
+launch_counter(latent_ragged_paged_attention_cuda, "launches",
+               "wgmma_launches")
 
 
 def latent_ragged_paged_attention(

@@ -214,7 +214,8 @@ def test_every_kernel_wrapper_registers_its_launch_counters():
     want = {fa.flash_fwd_cuda: flash, fa.flash_bwd_fused_cuda: flash,
             fa.flash_bwd_dq_cuda: flash, fa.flash_bwd_dkv_cuda: flash,
             rpa.ragged_paged_attention_cuda: ("launches",),
-            rpa.latent_ragged_paged_attention_cuda: ("launches",),
+            rpa.latent_ragged_paged_attention_cuda: ("launches",
+                                                     "wgmma_launches"),
             pa.paged_attention_cuda: ("launches",)}
     for fn, names in want.items():
         assert registered.get(fn) == names, fn.__name__

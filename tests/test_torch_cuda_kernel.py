@@ -584,6 +584,113 @@ def test_latent_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
             *args[3:], **{**kw, "quant": "int8"})
 
 
+# the wgmma route (bf16 pages, d_c a multiple of 64 up to 512, d_r 0 or
+# 64): head counts 12 and 32; contexts 0 (a padding row), 1, page edges (64,
+# 65, 128) and 4096 (decode rows split into many slices); a chunk beside
+# decode rows; page size 8 (boxes of 8 positions) and 16; a 4-token row
+# whose first queries see nothing of the last slice; odd d_c / 64
+WGMMA_CASES = [
+    ([1, 1, 1, 1, 0, 1, 40], [4096, 64, 65, 1, 0, 128, 300], 64, 64, 32, 512,
+     64, 64),
+    ([1, 1, 1, 1, 0, 1, 40], [4096, 64, 65, 1, 0, 128, 300], 64, 64, 12, 256,
+     0, 64),
+    ([1, 2, 4, 1], [500, 130, 257, 1], 8, 64, 12, 256, 0, 8),
+    ([3, 0, 0, 7], [20, 0, 0, 7], 4, 8, 12, 256, 0, 8),
+    ([1, 5, 0, 6], [13, 10, 0, 6], 3, 16, 32, 512, 64, 8),
+    ([40, 1, 3], [40, 130, 3], 3, 64, 12, 192, 64, 40),
+    ([1, 1, 37], [300, 64, 200], 5, 64, 5, 64, 0, 64),
+    ([1, 1, 37], [300, 64, 200], 5, 64, 4, 448, 64, 64),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_latent_wgmma_route_matches_plain_version(cuda_device, case):
+    """bf16 pages at the covered widths launch the wgmma kernel (and only
+    it) and meet the fp32 gate: q and p in two bf16 terms, exact bf16
+    pages, fp32 sums."""
+    d_c, d_r = case[5], case[6]
+    assert rpa.latent_route(None, torch.bfloat16, d_c, d_r, case[3],
+                            len(case[0])) == "wgmma"
+    args, kw, mask = _latent_inputs(case, "bf16", cuda_device)
+    fn = rpa.latent_ragged_paged_attention_cuda
+    before = (fn.launches, fn.wgmma_launches)
+    got = rpa.latent_ragged_paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.wgmma_launches) == (before[0] + 1, before[1] + 1)
+    want = rpa.latent_ragged_paged_attention_reference(*args, **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    over = ((got - want).abs() - 1e-4 * (1 + want.abs()))[mask]
+    assert over.max().item() <= 0, over.max().item()
+    assert torch.count_nonzero(got[~mask]).item() == 0
+    # deterministic: the same inputs give the same bits
+    again = rpa.latent_ragged_paged_attention(*args, **kw)
+    assert torch.equal(again, got)
+
+
+# every other page kind and width, and bf16 pages at covered widths that
+# the wgmma route does not take: page sizes 4, 12 and 2 (TMA boxes of 8
+# positions would cross pages), and more rows than a block keeps item
+# offsets of
+MMA_SYNC_CASES = [
+    (kind, ([1, 5, 0, 6], [13, 10, 0, 6], 3, 8, 4, d_c, d_r, 8))
+    for kind, d_c, d_r in [("bf16", 16, 4), ("bf16", 128, 32),
+                           ("bf16", 576, 0), ("fp32", 256, 0),
+                           ("int8", 256, 0), ("nf4", 256, 0)]] + [
+    ("bf16", ([1, 1, 0, 1, 40], [300, 64, 0, 1, 129], 76, 4, 32, 512, 64,
+              40)),
+    ("bf16", ([1, 1, 0, 1, 40], [300, 64, 0, 1, 129], 26, 12, 12, 256, 0,
+              40)),
+    ("bf16", ([1, 2, 4, 1], [13, 10, 5, 1], 7, 2, 12, 256, 0, 4)),
+    ("bf16", ([1] * 1025, [3] * 1025, 1, 8, 4, 64, 0, 1)),
+]
+
+
+@pytest.mark.parametrize(
+    "kind,case", MMA_SYNC_CASES,
+    ids=[f"{k}-dc{c[5]}-dr{c[6]}-ps{c[3]}-rows{len(c[0])}"
+         for k, c in MMA_SYNC_CASES])
+def test_latent_other_kinds_and_widths_stay_on_mma_sync(cuda_device, kind,
+                                                        case):
+    """Every other page kind, width, page size and batch runs the split
+    TF32 kernel (the wgmma counter does not move) and meets the fp32
+    gate, with the padding tokens zero."""
+    quant, dtype = LATENT_KINDS[kind]
+    dtype = dtype or (torch.int8 if quant == "int8" else torch.uint8)
+    d_c, d_r = case[5], case[6]
+    assert rpa.latent_route(quant, dtype, d_c, d_r, case[3],
+                            len(case[0])) == "mma.sync"
+    if d_c > 512:
+        return  # not covered by either route: refused below
+    args, kw, mask = _latent_inputs(case, kind, cuda_device)
+    fn = rpa.latent_ragged_paged_attention_cuda
+    before = (fn.launches, fn.wgmma_launches)
+    got = rpa.latent_ragged_paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.wgmma_launches) == (before[0] + 1, before[1])
+    want = rpa.latent_ragged_paged_attention_reference(*args, **kw)
+    over = ((got - want).abs() - 1e-4 * (1 + want.abs()))[mask]
+    assert over.max().item() <= 0, over.max().item()
+    assert torch.count_nonzero(got[~mask]).item() == 0
+
+
+def test_latent_wgmma_route_refuses_what_it_does_not_take(cuda_device):
+    # a pool that is not 16-byte aligned
+    args, kw, _ = _latent_inputs(WGMMA_CASES[3], "bf16", cuda_device)
+    c_pages = args[1]
+    shifted = torch.empty(c_pages.numel() + 4, dtype=c_pages.dtype,
+                          device=cuda_device)[4:].view(c_pages.shape)
+    shifted.copy_(c_pages)
+    assert shifted.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        rpa.latent_ragged_paged_attention_cuda(args[0], shifted, *args[2:],
+                                               **kw)
+    # the latent's width is not the absorbed query's
+    with pytest.raises(ValueError, match="absorbed q width"):
+        rpa.latent_ragged_paged_attention_cuda(
+            args[0][..., :192].contiguous(), *args[1:], **kw)
+
+
 # ---------------------------------------------------------------------------
 # paged decode attention, kernel 7 (csrc/paged_attention.cu)
 # ---------------------------------------------------------------------------

@@ -590,3 +590,106 @@ def test_latent_split_tf32_meets_the_gate_and_one_term_does_not(kind,
     shows only on the card (chip_smoke.py, phase 9)."""
     assert _latent_tf32_ratio(kind, width, LATENT_TERMS[kind]) <= 0.1
     assert _latent_tf32_ratio(kind, width, 1) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# the wgmma route's arithmetic (bf16 pages): q and p in bf16 terms
+# ---------------------------------------------------------------------------
+
+def _bf16_terms(x, terms):
+    """fp32 ``x`` as ``terms`` bf16 terms (hi = bf16(x), lo = bf16(x -
+    hi)), each rounded to nearest, as the kernel's ``bf16_terms``."""
+    hi = x.bfloat16().float()
+    if terms == 1:
+        return [hi]
+    return [hi, (x - hi).bfloat16().float()]
+
+
+def _stacked_product(a, b, terms, halves):
+    """a @ b as the wgmma route forms it: the bf16 terms of ``a`` stacked
+    as the rows of one product (each term's product exact, summed over
+    the k-steps in fp32), the terms of a row added first (its hi row plus
+    its lo row), then the ``halves`` (each consumer group's share of the
+    reduction axis) added in fp32."""
+    parts = torch.tensor_split(torch.arange(a.shape[1]), halves)
+    total = None
+    for idx in parts:
+        t = None
+        for term in _bf16_terms(a[:, idx], terms):
+            p = (term.double() @ b[idx].double()).float()
+            t = p if t is None else t + p
+        total = t if total is None else total + t
+    return total
+
+
+def _latent_bf16_ratio(width, terms, seed=0):
+    """Largest |got - want| over the card's latent gate, 1e-4 (1 + |want|),
+    for bf16 pages in the wgmma route's arithmetic: S = Q K^T with q in
+    ``terms`` bf16 terms (stacked rows; the two consumer groups' halves
+    of the width added in fp32), the online softmax in base 2 in fp32,
+    P V with p in ``terms`` bf16 terms; ``want`` is the fp64 softmax of
+    the same bf16 keys."""
+    _, nh, d_c, d_r, n, ctx, scale = width
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(n * nh, d_c + d_r).astype(np.float32))
+    lat = torch.from_numpy(rng.randn(ctx, d_c).astype(np.float32))
+    keys = lat.bfloat16().float()
+    vals = keys
+    if d_r:
+        rope = torch.from_numpy(rng.randn(ctx, d_r).astype(np.float32))
+        keys = torch.cat([keys, rope.bfloat16().float()], -1)
+    qpos = (ctx - n + torch.arange(n)).repeat_interleave(nh)
+    visible = torch.arange(ctx)[None] <= qpos[:, None]
+    s = (q.double() @ keys.double().T * scale).masked_fill(
+        ~visible, float("-inf"))
+    want = (torch.softmax(s, -1) @ vals.double()).float()
+    s2 = _stacked_product(q, keys.T, terms, 2) * (scale * 1.4426950408889634)
+    s2 = s2.masked_fill(~visible, float("-inf"))
+    p = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+    got = _stacked_product(p, vals, terms, 1) / p.sum(-1, keepdim=True)
+    return float(((got - want).abs() / (1e-4 * (1 + want.abs()))).max())
+
+
+# phase 9's bf16 widths (LATENT_TF32_WIDTHS) and a decode row over 4096
+# positions at its Llama-3-8B MLA widths
+LATENT_BF16_WIDTHS = LATENT_TF32_WIDTHS + [
+    ("llama3_8b_mla_decode", 32, 512, 64, 1, 4096, 192 ** -0.5)]
+
+
+@pytest.mark.parametrize("width", LATENT_BF16_WIDTHS,
+                         ids=[w[0] for w in LATENT_BF16_WIDTHS])
+def test_latent_bf16_terms_meet_the_gate_and_one_term_does_not(width):
+    """The wgmma route's two bf16 terms of q and p (exact bf16 pages and
+    rope keys) stay within 0.15 of the card's 1e-4 (1 + |want|) gate; one
+    bf16 term (the planted ``bf16_1term_latent``) is over it.  Each
+    term's product is exact here (fp64) and summed in fp32; the card's
+    accumulator chains show only there (chip_smoke.py, phase 9)."""
+    assert _latent_bf16_ratio(width, 2) <= 0.15
+    assert _latent_bf16_ratio(width, 1) > 1.0
+
+
+@pytest.mark.parametrize("quant,dtype,d_c,d_r,ps,rows,route", [
+    (None, torch.bfloat16, 512, 64, 64, 9, "wgmma"),
+    (None, torch.bfloat16, 256, 0, 16, 9, "wgmma"),
+    (None, torch.bfloat16, 64, 0, 8, 1, "wgmma"),
+    (None, torch.bfloat16, 448, 64, 64, 1024, "wgmma"),
+    (None, torch.bfloat16, 576, 0, 64, 9, "mma.sync"),
+    (None, torch.bfloat16, 96, 0, 64, 9, "mma.sync"),
+    (None, torch.bfloat16, 128, 32, 64, 9, "mma.sync"),
+    (None, torch.bfloat16, 16, 4, 64, 9, "mma.sync"),
+    (None, torch.float32, 512, 64, 64, 9, "mma.sync"),
+    ("int8", torch.int8, 256, 0, 64, 9, "mma.sync"),
+    ("nf4", torch.uint8, 256, 0, 64, 9, "mma.sync"),
+    (None, torch.bfloat16, 512, 64, 4, 9, "mma.sync"),
+    (None, torch.bfloat16, 512, 64, 12, 9, "mma.sync"),
+    (None, torch.bfloat16, 256, 0, 1, 9, "mma.sync"),
+    (None, torch.bfloat16, 512, 64, 64, 1025, "mma.sync")])
+def test_latent_route_by_kind_and_width(quant, dtype, d_c, d_r, ps, rows,
+                                        route):
+    """The latent kernel's route is a function of the page kind, the
+    widths, the page size and the row count alone: bf16 pages at d_c a
+    multiple of 64 up to 512 and d_r 0 or 64, pages of a multiple of 8
+    positions and at most 1024 rows on wgmma, everything else on the split
+    TF32 kernel."""
+    from hetu_tpu_torch.ops.ragged_paged_attention import latent_route
+    assert latent_route(quant, dtype, d_c, d_r, ps, rows) == route

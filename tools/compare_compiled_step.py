@@ -50,6 +50,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
+from tools.smi import clocks  # noqa: E402
 from hetu_tpu_torch.core import capture  # noqa: E402
 from hetu_tpu_torch.models import (llama3_8b_config,  # noqa: E402
                                    mla_config)
@@ -63,27 +64,6 @@ def emit(obj):
     line = json.dumps(obj)
     print(line, flush=True)
     _out.append(line)
-
-
-@contextlib.contextmanager
-def clocks(into: dict):
-    """Samples ``nvidia-smi``'s SM clock and power draw every 250 ms
-    while the context is open; writes min/median/max into ``into``."""
-    proc = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "250"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    try:
-        yield
-    finally:
-        proc.terminate()
-        text, _ = proc.communicate(timeout=30)
-        rows = [[float(x) for x in line.split(",")]
-                for line in text.splitlines() if line.count(",") == 1]
-        for i, name in enumerate(("sm_clock_mhz", "power_w")):
-            vals = sorted(r[i] for r in rows)
-            into[name] = ([vals[0], float(np.median(vals)), vals[-1]]
-                          if vals else None)
 
 
 # what each reading keeps of chip_smoke's profile of its window
