@@ -117,18 +117,55 @@ Phases, each printing one JSON line:
     same weights, within phase 8's limits, through the 3xTF32 flash
     forward and fused backward at head dim 32; the same widths in bf16
     serve three requests through ``Engine`` (the ragged kernel at head dim
-    32), whose temperature-0 tokens must equal ``generate``.
+    32), whose temperature-0 tokens must equal ``generate``;
+15. train_entry: ``main`` of ``examples/train_gpt_torch.py`` at its
+    defaults (GPT-2 small's widths: vocab 50304, hidden 768, 12 layers, 12
+    heads, seq 1024) in bf16, global batch 8, 20 steps on the native
+    loader (its core built with ``g++``, the seconds printed) over a token
+    file from seed 0 (uniform over 64 ids: the default stream, uniform
+    over the whole vocabulary, leaves nothing to learn), saving the weights
+    (``save_model``); the loss must fall, every flash launch on wgmma; a run
+    resumed with ``--load`` must start at the saved weights' loss on its
+    first batch (1e-3) and away from a fresh model's; ms/step, tokens/s
+    (``StepProfiler``) and peak memory printed;
+16. train_recipe: the same model and widths, one seeded batch, each
+    variant against its parent in this run: recompute (``nothing_saveable``
+    and ``dots_saveable``, captured) and ``cpu_offload`` (uncaptured) give
+    the plain step's loss and gradients (the bf16 row limit), recompute
+    launches every flash forward twice and its step peaks lower (each
+    variant's step peak and the mean of 3 more steps printed); a
+    GradScaler's skip inside a captured replay (an infinity written into
+    an embedding element the step reads) leaves parameters, Adam's
+    moments and step bitwise unchanged and halves the scale, and the next
+    replay updates; SGD with momentum and Adafactor train 6 steps from the
+    same weights; the fused cross entropy's chunk products take fp32
+    results of bf16 operands (``torch.mm(out_dtype=)``), the op on the
+    fused step's hidden states and head holds an fp32 cross entropy of
+    the fp32 product (loss and each 64-token group's loss within 2e-6,
+    dx and dw within 4e-3) and a planted route that rounds the chunk
+    logits to bf16 must fail those limits; the fused step's loss is
+    within 1e-3 of the fp32 cross entropy of the plain step's logits, its
+    gradients as close to an fp32 model's as the plain step's (1.25x),
+    its step peak lower;
+    AdamW on a cosine lr, captured, equals an eager run (1e-4) with each
+    replay's lr read back from the device; a checkpoint saved after 4 steps
+    and loaded into a fresh graph gives steps 5-6 within 1e-4.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero; without a CUDA device it exits non-zero before
 printing any result.
 """
+import contextlib
 import gc
+import importlib.util
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -157,6 +194,7 @@ from hetu_tpu_torch.ops.ragged_paged_attention import (
     latent_wgmma_info, ragged_paged_attention_cuda,
     ragged_paged_attention_reference, sample_rows)
 from hetu_tpu_torch.serving import Engine
+from hetu_tpu_torch.utils import checkpoint as ht_ckpt
 from tools.sdpa_times import sdpa_times
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
@@ -193,6 +231,12 @@ BF16_RMS_FLOOR = 1.0 / 32
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def note(*parts):
+    """A progress note on stderr (the results stay on the phase lines)."""
+    print(*[p if isinstance(p, str) else json.dumps(p) for p in parts],
+          file=sys.stderr, flush=True)
 
 
 def cuda_time_ms(fn, warmup=2, iters=10):
@@ -2015,6 +2059,594 @@ def phase_graft_entry(steps=3, micro=2):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the training entry point and its recipe (phases 15 and 16)
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# examples/train_gpt_torch.py at its defaults (GPT-2 small's widths: vocab
+# 50304, hidden 768, 12 layers, 12 heads, seq 1024) in bf16, global batch 8
+ENTRY_ARGS = ["--bf16", "--global-batch", "8"]
+ENTRY_STEPS = 20
+ENTRY_LAYERS = 12            # the entry point's default depth
+# the token file the phase writes: seed 0, uniform over 64 ids of the
+# vocabulary.  The entry point's default stream is uniform over all 50304
+# ids, which no model predicts better than uniformly (a loss of ln 50304
+# = 10.83, where bf16 losses are 2**-4 apart), and a model on random
+# weights starts close to that, so a falling loss needs a learnable
+# stream
+ENTRY_VOCAB_USED = 64
+
+
+def entry_tokens(path):
+    """64 batches of 8 x 1024 tokens, from seed 0, over ENTRY_VOCAB_USED
+    ids of GPT-2 small's vocabulary."""
+    rng = np.random.RandomState(0)
+    ids = rng.choice(50304, ENTRY_VOCAB_USED, replace=False)
+    np.save(path, ids[rng.randint(0, ENTRY_VOCAB_USED, 8 * 1024 * 64)]
+            .astype(np.int32))
+
+
+def load_entry():
+    """``examples/train_gpt_torch.py`` as a module (its ``main``)."""
+    spec = importlib.util.spec_from_file_location(
+        "train_gpt_torch", os.path.join(ROOT, "examples",
+                                        "train_gpt_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reset_flash_counts():
+    for fn in flash_wrappers().values():
+        fn.launches = fn.tensor_core_launches = fn.tf32_launches = 0
+        fn.wgmma_launches = 0
+
+
+def flash_counts():
+    """Each flash wrapper's launches since ``reset_flash_counts``, also by
+    route."""
+    return {n: {"launches": fn.launches,
+                "by_route": {"wgmma": fn.wgmma_launches,
+                             "3xtf32": fn.tf32_launches,
+                             "mma.sync": fn.tensor_core_launches -
+                             fn.wgmma_launches - fn.tf32_launches}}
+            for n, fn in flash_wrappers().items()}
+
+
+def phase_train_entry():
+    """Phase 15: ``main`` of ``examples/train_gpt_torch.py`` trains
+    ``ENTRY_STEPS`` steps on the native loader, saves, and resumes; the
+    resumed run's first loss must equal the saved weights' loss on that
+    batch (1e-3) and differ from a fresh model's."""
+    from hetu_tpu_torch.csrc.build import load_dataloader_core
+    t0 = time.perf_counter()
+    if load_dataloader_core() is None:
+        raise AssertionError("the dataloader core did not build")
+    core_s = time.perf_counter() - t0
+    entry = load_entry()
+    tmp = tempfile.mkdtemp(prefix="train_entry_")
+    path = os.path.join(tmp, "gpt2_small.safetensors")
+    data = os.path.join(tmp, "tokens.npy")
+    entry_tokens(data)
+    args = ENTRY_ARGS + ["--data", data]
+    try:
+        reset_flash_counts()
+        run = entry.main(args + ["--steps", str(ENTRY_STEPS),
+                                 "--save", path])
+        launches = flash_counts()
+        resumed = entry.main(args + ["--steps", "2", "--load", path])
+        fresh = entry.main(args + ["--steps", "2"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = run["losses"]
+    if run["loader"] != "native" or not np.isfinite(losses).all() or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train_entry: loader {run['loader']}, "
+                             f"losses {losses} not finite and falling")
+    # every layer's attention once a step, plus the forward that reads the
+    # saved weights' loss; on the wgmma route in bf16 at head dim 64
+    per = ENTRY_LAYERS * ENTRY_STEPS
+    want = {"flash_fwd": per + ENTRY_LAYERS, "flash_bwd_fused": per,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    got = {n: c["launches"] for n, c in launches.items()}
+    on_wgmma = {n: c["by_route"]["wgmma"] for n, c in launches.items()}
+    if got != want or on_wgmma != want:
+        raise AssertionError(f"train_entry: flash launches {launches}, "
+                             f"want {want} on wgmma")
+    r0, f0, saved = resumed["losses"][0], fresh["losses"][0], \
+        run["saved_first_batch_loss"]
+    if not abs(r0 - saved) <= 1e-3 or not abs(r0 - f0) > 1e-3:
+        raise AssertionError(f"train_entry: resumed first loss {r0}, saved "
+                             f"weights' {saved}, fresh model's {f0}")
+    out = {"config": run["config"], "steps": ENTRY_STEPS,
+           "loader": run["loader"], "loader_core_build_s": core_s,
+           "ms_per_step": run["ms_per_step"],
+           "tokens_per_s": run["tokens_per_s"],
+           "timed_steps": run["timed_steps"],
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "peak_memory_bytes": run["peak_memory_bytes"],
+           "compile_count": run["compile_count"],
+           "flash_launches": launches,
+           "saved_first_batch_loss": saved, "resumed_first_loss": r0,
+           "fresh_first_loss": f0,
+           "data": f"seed 0, uniform over {ENTRY_VOCAB_USED} ids"}
+    emit({"phase": "train_entry", **out})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class GradCatcher(ht.optim.Optimizer):
+    """An update that changes nothing and keeps the gradients of its eager
+    run (a step's first call; the capture after it keeps nothing)."""
+
+    def __init__(self):
+        super().__init__(lr=0.0)
+        self.grads = None
+
+    def _apply_updates(self, graph, xs, grads, keep=None):
+        if not (torch.cuda.is_available() and
+                torch.cuda.is_current_stream_capturing()):
+            self.grads = [g.detach().clone() for g in grads]
+
+
+def grad_agreement(got, want):
+    """The largest |got - want| over the bf16 row limit (``BF16_REL`` of
+    the value plus ``BF16_RMS_FLOOR`` of the row's RMS, rows along the
+    last dim) across every gradient; at most 1 passes."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        b2 = b.reshape(-1, b.shape[-1]) if b.ndim else b.reshape(1, 1)
+        a2 = a.reshape(b2.shape)
+        rms = b2.pow(2).mean(-1, keepdim=True).sqrt()
+        lim = BF16_REL * b2.abs() + BF16_RMS_FLOOR * rms
+        ratio = (a2 - b2).abs() / lim.clamp_min(1e-30)
+        worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def step_ms(run):
+    """Mean host time of 3 more calls of ``run`` (the step's first calls
+    done), the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / 3
+
+
+def step_memory(run):
+    """``run()``'s peak device memory: (peak bytes, peak above what was
+    allocated before it)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak, peak - base, out
+
+
+# phase 16's model and batch: GPT-2 small's widths in bf16, one seeded
+# batch of the entry point's global batch and sequence
+RECIPE_BATCH, RECIPE_SEQ = 8, 1024
+RECIPE_STEPS = 6
+RECIPE_SGD_LR = 0.01
+RECIPE_ADAFACTOR_LR = 1e-2
+# The fused cross entropy's own gate: its loss, dx and dw on the step's
+# hidden states and head against an fp32 cross entropy of the fp32
+# product.  Its chunk products are exact products of bf16 values summed
+# in fp32, so its loss differs from the reference by the order of fp32
+# sums; dx and dw end in bf16 (about 2**-9 of each value, 1.7e-3 of the
+# norm).  Rounding the chunk logits to bf16 instead errs by up to 2**-9
+# of each logit: at random weights' logits (below 1) that is lost in dx
+# and dw's own rounding and, in the mean over 8192 tokens, in errors of
+# either sign, so the loss is also held in groups of 64 tokens, each the
+# op's sum over the group, where that error stands 10-100 times above
+# the limit.
+FUSED_CE_GROUP = 64
+FUSED_CE_LOSS_REL = 2e-6
+FUSED_CE_GRAD_REL = 4e-3
+
+
+def recipe_trainer(cfg, make_opts, init=None):
+    """A GPT graph with one update op per optimizer of ``make_opts()``
+    over the same loss; ``init`` (a state dict) is loaded."""
+    with ht.graph("define_and_run", create_new=True, device="cuda",
+                  seed=0) as g:
+        ids = ht.parallel_placeholder("int32", (RECIPE_BATCH, RECIPE_SEQ),
+                                      name="input_ids")
+        labels = ht.parallel_placeholder("int32", (RECIPE_BATCH, RECIPE_SEQ),
+                                         name="labels")
+        model = GPTLMHeadModel(cfg)
+        loss = model(ids, labels)
+        opts = make_opts()
+        ops_ = [o[0].minimize(loss, grad_scaler=o[1]) for o in opts]
+    if init is not None:
+        load_state(model, init)
+    return g, ids, labels, model, loss, [o[0] for o in opts], ops_
+
+
+def grad_rel_errors(got, want):
+    """Per tensor, ||got - want|| / ||want|| (Frobenius, fp32)."""
+    return [float((a.float() - b.float()).norm() /
+                  b.float().norm().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def recipe_variants(cfg, x, y):
+    """One graph with four update ops over one loss: a gradient catcher
+    (the plain step, recompute under both policies, offload), Adam with a
+    GradScaler, SGD with momentum, Adafactor."""
+    scaler = ht.GradScaler(init_scale=1024.0, growth_interval=1000)
+    g, ids, labels, model, loss, opts, ops_ = recipe_trainer(
+        cfg, lambda: [
+            (GradCatcher(), None),
+            (ht.optim.AdamOptimizer(lr=1e-4), scaler),
+            (ht.optim.SGDOptimizer(lr=RECIPE_SGD_LR, momentum=0.9), None),
+            (ht.optim.AdafactorOptimizer(lr=RECIPE_ADAFACTOR_LR), None)])
+    feeds = {ids: x, labels: y}
+    with ht.graph(g):
+        logits_t = model.logits(ids)
+    catcher = opts[0]
+    init = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    variants = {}
+    for name, ctx in (
+            ("plain", contextlib.nullcontext),
+            ("recompute_nothing_saveable", lambda: ht.recompute(graph=g)),
+            ("recompute_dots_saveable",
+             lambda: ht.recompute("dots_saveable", graph=g)),
+            ("cpu_offload", lambda: ht.cpu_offload(graph=g))):
+        reset_flash_counts()
+
+        def two_steps():
+            with ctx():
+                return [float(g.run(loss, [loss, ops_[0]], feeds)[0])
+                        for _ in range(2)]
+        peak, above, ls = step_memory(two_steps)
+        launches = flash_counts()
+        with ctx():
+            ms = step_ms(lambda: g.run(loss, [loss, ops_[0]], feeds))
+        variants[name] = {"losses": ls, "peak_memory_bytes": peak,
+                          "step_peak_above_resting_bytes": above,
+                          "step_ms": ms, "captured": g.last_run_captured,
+                          "flash_launches": launches,
+                          "grads": catcher.grads}
+    plain = variants["plain"]
+    for name, v in variants.items():
+        v["grad_err_over_limit"] = grad_agreement(v["grads"], plain["grads"])
+        v["loss_rel_diff"] = abs(v["losses"][0] - plain["losses"][0]) / \
+            abs(plain["losses"][0])
+        note("train_recipe", name, {k: z for k, z in v.items()
+                                    if k != "grads"})
+        if name != "plain":
+            del v["grads"]
+    # recompute: the plain step's gradients, every attention forward run
+    # twice, less memory; offload: the plain step's loss and gradients
+    for name in ("recompute_nothing_saveable", "recompute_dots_saveable",
+                 "cpu_offload"):
+        v = variants[name]
+        fwd = v["flash_launches"]["flash_fwd"]["launches"]
+        want_fwd = plain["flash_launches"]["flash_fwd"]["launches"] * (
+            1 if name == "cpu_offload" else 2)
+        bad = [v["grad_err_over_limit"] > 1.0, v["loss_rel_diff"] > 1e-3,
+               fwd != want_fwd, v["losses"][1] != v["losses"][0],
+               name != "cpu_offload" and not v["captured"],
+               name == "cpu_offload" and v["captured"],
+               name != "cpu_offload" and
+               not v["step_peak_above_resting_bytes"] <
+               plain["step_peak_above_resting_bytes"]]
+        if any(bad):
+            raise AssertionError(
+                f"train_recipe {name}: {bad} "
+                f"{ {k: z for k, z in v.items() if k != 'grads'} }")
+    if plain["flash_launches"]["flash_fwd"]["launches"] != \
+            2 * cfg.num_layers:
+        raise AssertionError(f"train_recipe: plain flash launches "
+                             f"{plain['flash_launches']}")
+    # the plain step's loss is a bf16 number (its logits, log-softmax and
+    # mean are bf16: 2**-4 apart near 11); the same logits' cross entropy
+    # in fp32 is the fused loss's reference
+    (lg,) = g.run([logits_t], feed_dict=feeds)
+    plain_fp32_loss = float(torch.nn.functional.cross_entropy(
+        lg.float().reshape(-1, lg.shape[-1]),
+        torch.as_tensor(y, device=lg.device).long().reshape(-1)))
+    del lg
+
+    # -- GradScaler: an overflow inside a captured replay ----------------
+    # A scale overflows only gradients above 1 (bf16 keeps fp32's range,
+    # and a scale tops out at 3.4e38; a scale of 3e38 overflows the scaled
+    # loss, not gradients below 1), so the overflow is forced in the
+    # forward: one embedding
+    # element of a token in the batch is set to infinity, written in place
+    # into the tensor the captured step reads, and the loss and every
+    # gradient turn non-finite.  Restoring it makes the next step finite.
+    st = scaler.init_state("cuda")
+    adam = opts[1]
+    scaler_losses = [float(g.run(loss, [loss, ops_[1]], feeds)[0])
+                     for _ in range(2)]          # capture, then a replay
+    wte = model.transformer.wte.weight.get_data()
+    tok = int(x[0, 0])
+    orig = wte[tok, 0].clone()
+    with torch.no_grad():
+        wte[tok, 0] = float("inf")
+    before = ({n: v.clone() for n, v in model.state_dict().items()},
+              {k: {t: v.clone() for t, v in adam._state[k].items()}
+               for k in ("m", "v")}, adam._state["step"].clone())
+    scale_before = float(st["scale"])
+    overflow_loss = float(g.run(loss, [loss, ops_[1]], feeds)[0])
+    unchanged = all(torch.equal(v, before[0][n])
+                    for n, v in model.state_dict().items()) and all(
+        torch.equal(adam._state[k][t], v) for k in ("m", "v")
+        for t, v in before[1][k].items()) and \
+        torch.equal(adam._state["step"], before[2])
+    scale_after = float(st["scale"])
+    with torch.no_grad():
+        wte[tok, 0] = orig
+    finite_loss = float(g.run(loss, [loss, ops_[1]], feeds)[0])
+    updated = not any(torch.equal(v, before[0][n])
+                      for n, v in model.state_dict().items()
+                      if n.endswith("lm_head.weight"))
+    step_after = float(adam._state["step"])
+    del before
+    scaler_out = {"losses": scaler_losses, "overflow_loss": overflow_loss,
+                  "skip_left_state_bitwise_unchanged": unchanged,
+                  "scale_before": scale_before,
+                  "scale_after_overflow": scale_after,
+                  "next_loss": finite_loss, "next_step_updated": updated,
+                  "adam_step_after": step_after,
+                  "captured": g.last_run_captured}
+    note("train_recipe", "grad_scaler", scaler_out)
+    if not (unchanged and scale_after == scale_before / 2 and updated and
+            step_after == 3.0 and np.isfinite(scaler_losses).all() and
+            not np.isfinite(overflow_loss) and np.isfinite(finite_loss) and
+            g.last_run_captured):
+        raise AssertionError(f"train_recipe GradScaler: {scaler_out}")
+
+    # -- SGD (momentum 0.9) and Adafactor from the initial weights:
+    # RECIPE_STEPS steps each, the loss falling --------------------------
+    others = {}
+    for name, op in (("sgd", ops_[2]), ("adafactor", ops_[3])):
+        load_state(model, init)
+        ls = [float(g.run(loss, [loss, op], feeds)[0])
+              for _ in range(RECIPE_STEPS)]
+        others[name] = ls
+        note("train_recipe", name, ls)
+        if not np.isfinite(ls).all() or not ls[-1] < ls[0]:
+            raise AssertionError(f"train_recipe {name}: losses {ls}")
+    return init, variants, plain_fp32_loss, scaler_out, others
+
+
+def recipe_grads(cfg, x, y, init, **overrides):
+    """Loss and gradients of ``cfg`` (with ``overrides``) from ``init``:
+    two calls of a catcher step (a capture and a replay), and the step's
+    hidden states (the final norm's output) and LM head."""
+    c = GPTConfig(**{**cfg.__dict__, **overrides})
+    g, ids, labels, model, loss, opts, ops_ = recipe_trainer(
+        c, lambda: [(GradCatcher(), None)], init=init)
+    feeds = {ids: x, labels: y}
+    with ht.graph(g):
+        hidden_t = model.transformer(ids)
+    reset_flash_counts()
+
+    def two_steps():
+        return [float(g.run(loss, [loss, ops_[0]], feeds)[0])
+                for _ in range(2)]
+    peak, above, ls = step_memory(two_steps)
+    launches = flash_counts()
+    ms = step_ms(lambda: g.run(loss, [loss, ops_[0]], feeds))
+    captured = g.last_run_captured
+    (hidden,) = g.run([hidden_t], feed_dict=feeds)
+    head = model.lm_head if model.lm_head is not None else \
+        model.transformer.wte
+    return {"losses": ls, "peak_memory_bytes": peak,
+            "step_peak_above_resting_bytes": above, "step_ms": ms,
+            "captured": captured, "flash_launches": launches,
+            "grads": opts[0].grads,
+            "hidden": hidden.reshape(-1, hidden.shape[-1]),
+            "head": head.weight.get_data().detach().clone()}
+
+
+def fused_ce_op_readings(x, w, y):
+    """The fused cross entropy's relative errors on ``x`` [n, h] and
+    ``w`` [vocab, h] (bf16) against an fp32 ``F.cross_entropy`` of
+    ``x.float() @ w.float().T``: the loss, the worst ``FUSED_CE_GROUP``
+    token group's loss (the op's sum over the group), dx and dw
+    (Frobenius).  Also for a planted fault, the chunk products' logits
+    rounded to bf16 (a bf16 ``torch.mm``), which the gate must refuse."""
+    from unittest import mock
+    from hetu_tpu_torch.ops import fused_ce
+    y = torch.as_tensor(y, device=x.device).long().reshape(-1)
+    xf = x.float().requires_grad_(True)
+    wf = w.float().requires_grad_(True)
+    per_token = torch.nn.functional.cross_entropy(xf @ wf.t(), y,
+                                                  reduction="none")
+    per_token.mean().backward()
+    ref_loss = per_token.mean().detach()
+    ref_groups = per_token.detach().reshape(-1, FUSED_CE_GROUP).sum(1)
+    ref_dx, ref_dw = xf.grad, wf.grad
+    del xf, wf, per_token
+
+    def readings():
+        xb = x.detach().clone().requires_grad_(True)
+        wb = w.detach().clone().requires_grad_(True)
+        loss = fused_ce.fused_linear_cross_entropy(xb, wb, y)
+        loss.backward()
+        with torch.no_grad():
+            groups = torch.stack([
+                fused_ce.fused_linear_cross_entropy(a, w, b, reduction="sum")
+                for a, b in zip(x.reshape(-1, FUSED_CE_GROUP, x.shape[-1]),
+                                y.reshape(-1, FUSED_CE_GROUP))])
+        dx_err, dw_err = grad_rel_errors([xb.grad, wb.grad], [ref_dx, ref_dw])
+        return {"loss_rel_err": float((loss.detach() - ref_loss).abs() /
+                                      ref_loss),
+                "group_loss_max_rel_err": float(
+                    ((groups - ref_groups).abs() / ref_groups.abs()).max()),
+                "dx_rel_err": dx_err, "dw_rel_err": dw_err}
+
+    def within(r):
+        return r["loss_rel_err"] <= FUSED_CE_LOSS_REL and \
+            r["group_loss_max_rel_err"] <= FUSED_CE_LOSS_REL and \
+            r["dx_rel_err"] <= FUSED_CE_GRAD_REL and \
+            r["dw_rel_err"] <= FUSED_CE_GRAD_REL
+
+    out = {"op": readings()}
+    with mock.patch.object(fused_ce, "_mm32",
+                           lambda a, b: torch.mm(a, b).float()):
+        out["planted_bf16_logits"] = readings()
+    out["limits"] = {"loss_rel": FUSED_CE_LOSS_REL,
+                     "group": FUSED_CE_GROUP, "grad_rel": FUSED_CE_GRAD_REL}
+    out["op_within"] = within(out["op"])
+    out["planted_refused"] = not within(out["planted_bf16_logits"])
+    return out
+
+
+def recipe_schedule_and_resume(cfg, x, y, init):
+    """AdamW on a cosine lr: captured against eager over RECIPE_STEPS
+    steps, the lr each step applied read back from the device; the eager
+    run saves a checkpoint two steps before the end, and a fresh graph
+    loads it and takes the last two steps captured."""
+    steps = RECIPE_STEPS
+    sched = ht.optim.cosine_schedule(3e-4, 2, steps, 3e-5)
+    tmp = tempfile.mkdtemp(prefix="train_recipe_")
+    runs = {}
+    try:
+        for mode in ("captured", "eager", "resumed"):
+            g, ids, labels, model, loss, opts, ops_ = recipe_trainer(
+                cfg, lambda: [(ht.optim.AdamWOptimizer(
+                    lr=sched, weight_decay=0.01), None)],
+                init=init if mode != "resumed" else None)
+            opt = opts[0]
+            first = 0
+            if mode == "resumed":
+                first = ht_ckpt.load_checkpoint(model, opt, tmp,
+                                                verify_exempt=True)["step"]
+            ls, lrs = [], []
+            with capture.eager() if mode == "eager" else \
+                    contextlib.nullcontext():
+                for i in range(first, steps):
+                    ls.append(float(g.run(loss, [loss, ops_[0]],
+                                          {ids: x, labels: y})[0]))
+                    # the lr the step just applied, read from the device
+                    lrs.append(float(opt._lr_at(opt._state["step"])))
+                    if mode == "eager" and i + 1 == steps - 2:
+                        ht_ckpt.save_checkpoint(model, opt, tmp, step=i + 1)
+            runs[mode] = {"losses": ls, "lrs": lrs,
+                          "compile_count": g.compile_count}
+            note("train_recipe", mode, runs[mode])
+            del g, ids, labels, model, loss, opts, ops_, opt
+            gc.collect()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return sched, runs
+
+
+def phase_train_recipe():
+    """Phase 16: the recipe around the entry point's step at GPT-2 small's
+    widths, each variant against its parent in this run (see the module
+    docstring)."""
+    cfg = GPTConfig(vocab_size=50304, dtype="bfloat16")
+    steps = RECIPE_STEPS
+    x, y = seeded_batch(cfg.vocab_size, RECIPE_BATCH, RECIPE_SEQ, seed=0)
+    init, variants, plain_fp32_loss, scaler_out, others = recipe_variants(
+        cfg, x, y)
+    gc.collect()
+    plain = variants["plain"]
+
+    # -- fused cross entropy against the plain step ----------------------
+    # The op itself is held to an fp32 cross entropy on the step's own
+    # hidden states and head (``fused_ce_op_readings``), its chunk
+    # products must take fp32 results of bf16 operands, and a planted
+    # bf16-logits route must fail the same limits.  The steps: the two
+    # bf16 steps round in different places (the plain step's logits,
+    # log-softmax and their gradient in bf16; the fused op's in fp32), so
+    # their gradients differ by more than the bf16 row limit allows, and
+    # the bf16 body's rounding dominates both; each step's gradients are
+    # held to an fp32 model's on the same weights, the fused step's about
+    # as closely as the plain step's (1.25x its relative error), and the
+    # row limit against the plain step is reported.
+    fused = recipe_grads(cfg, x, y, init, fused_lm_ce=True)
+    from hetu_tpu_torch.ops.fused_ce import product_route
+    op_check = fused_ce_op_readings(fused.pop("hidden"), fused.pop("head"),
+                                    y)
+    gc.collect()
+    ref = recipe_grads(cfg, x, y, init, dtype="float32")
+    del ref["hidden"], ref["head"]
+    e_plain = grad_rel_errors(plain["grads"], ref["grads"])
+    e_fused = grad_rel_errors(fused["grads"], ref["grads"])
+    ratio = max(f / max(p, 1e-30) for f, p in zip(e_fused, e_plain))
+    fused.update(
+        plain_loss_fp32_of_bf16_logits=plain_fp32_loss,
+        fp32_model_loss=ref["losses"][0],
+        loss_rel_diff=abs(fused["losses"][0] - plain_fp32_loss) /
+        abs(plain_fp32_loss),
+        loss_diff_to_plain_bf16=abs(fused["losses"][0] -
+                                    plain["losses"][0]),
+        grad_rel_err_vs_fp32={"fused_max": max(e_fused),
+                              "plain_max": max(e_plain),
+                              "worst_ratio_fused_over_plain": ratio},
+        grad_err_over_row_limit_vs_plain=grad_agreement(fused["grads"],
+                                                        plain["grads"]),
+        chunk_products=product_route(torch.bfloat16, "cuda"),
+        op_vs_fp32=op_check,
+        logits_bytes=RECIPE_BATCH * RECIPE_SEQ * cfg.vocab_size * 2,
+        logits_fp32_bytes=RECIPE_BATCH * RECIPE_SEQ * cfg.vocab_size * 4)
+    del fused["grads"], ref["grads"]
+    note("train_recipe", "fused_ce", fused)
+    # the loss within 1e-3 of the fp32 cross entropy of the plain step's
+    # logits, and so within one bf16 step (2**-4 near 11, at most 2**-3
+    # for a loss of 16 and more) of the bf16 one
+    if fused["chunk_products"] != "mm_out_dtype" \
+            or not op_check["op_within"] or not op_check["planted_refused"] \
+            or fused["loss_rel_diff"] > 1e-3 or ratio > 1.25 \
+            or fused["loss_diff_to_plain_bf16"] > 2.0 ** -3 \
+            or not fused["step_peak_above_resting_bytes"] < \
+            plain["step_peak_above_resting_bytes"]:
+        raise AssertionError(f"train_recipe fused CE: {fused}, plain step "
+                             f"peak {plain['step_peak_above_resting_bytes']}")
+    gc.collect()
+
+    # -- a cosine lr, captured against eager, and a checkpoint resume ----
+    sched, runs = recipe_schedule_and_resume(cfg, x, y, init)
+    want_lrs = [float(sched(float(i))) for i in range(1, steps + 1)]
+    cap, eag, res = runs["captured"], runs["eager"], runs["resumed"]
+    sched_rel = max(abs(a - b) / abs(b)
+                    for a, b in zip(cap["losses"], eag["losses"]))
+    resume_rel = max(abs(a - b) / abs(b)
+                     for a, b in zip(res["losses"], cap["losses"][-2:]))
+    sched_out = {"captured": cap, "eager": eag, "want_lrs": want_lrs,
+                 "loss_rel_diff": sched_rel}
+    resume_out = {"resumed_losses": res["losses"], "at_step": steps - 2,
+                  "uninterrupted_losses": cap["losses"][-2:],
+                  "loss_rel_diff": resume_rel,
+                  "compile_count": res["compile_count"]}
+    if sched_rel > 1e-4 or len(set(cap["lrs"])) != steps or \
+            np.abs(np.array(cap["lrs"]) - want_lrs).max() > \
+            1e-6 * max(want_lrs) or cap["lrs"] != eag["lrs"] or \
+            cap["compile_count"] != 1 or \
+            not cap["losses"][-1] < cap["losses"][0]:
+        raise AssertionError(f"train_recipe cosine schedule: {sched_out}")
+    if resume_rel > 1e-4:
+        raise AssertionError(f"train_recipe checkpoint resume: {resume_out}")
+    del plain["grads"]
+    out = {"config": {"vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
+                      "layers": cfg.num_layers, "heads": cfg.num_heads,
+                      "seq": RECIPE_SEQ, "global_batch": RECIPE_BATCH,
+                      "dtype": cfg.dtype},
+           "variants": variants, "fused_ce": fused,
+           "grad_scaler": scaler_out, "sgd_losses": others["sgd"],
+           "adafactor_losses": others["adafactor"],
+           "cosine_schedule": sched_out, "checkpoint_resume": resume_out}
+    emit({"phase": "train_recipe", **out})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2043,6 +2675,8 @@ def main():
     quant = phase_mla_quant()
     phase_mla_oracle()
     phase_graft_entry()
+    phase_train_entry()
+    phase_train_recipe()
     rows = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/ragged_paged_attention.cu",

@@ -18,11 +18,19 @@ Training reads as in the JAX package::
     with ht.graph("define_and_run", device="cuda") as g:
         ids = ht.parallel_placeholder("int32", (8, 1024))
         ...
+
+and so does the recipe around it: ``ht.autocast``, ``ht.GradScaler``,
+``ht.recompute``, ``ht.cpu_offload``, the lr schedules and optimizers of
+``optim``, ``data.Dataloader`` and ``utils.checkpoint``; the training
+entry point is ``examples/train_gpt_torch.py``.
 """
 from . import optim
 from .core.device import resolve_device
 from .core.dtype import torch_dtype
 from .graph import graph, parallel_placeholder, placeholder
+from .graph.amp import GradScaler, autocast
+from .graph.recompute import cpu_offload, recompute
 
-__all__ = ["graph", "optim", "parallel_placeholder", "placeholder",
+__all__ = ["GradScaler", "autocast", "cpu_offload", "graph", "optim",
+           "parallel_placeholder", "placeholder", "recompute",
            "resolve_device", "torch_dtype"]

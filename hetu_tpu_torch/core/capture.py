@@ -33,6 +33,7 @@ eagerly there.
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import traceback
 from typing import Any, Callable, Dict, List, Sequence, Tuple
@@ -147,6 +148,13 @@ class CapturedStep:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = _read_counters()
+        # Python's collector must not run inside the capture: freeing an
+        # unreachable object that holds another CUDA graph destroys that
+        # graph, a call a capture refuses (it invalidates the capture).
+        # A recompute region runs Python in the captured backward.
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 outputs = self.body()
@@ -155,6 +163,8 @@ class CapturedStep:
                 f"capturing the {self.name} failed at {_where(exc)}: "
                 f"{type(exc).__name__}: {exc}") from exc
         finally:
+            if was_enabled:
+                gc.enable()
             after = _read_counters()
             for (fn, n) in after:
                 setattr(fn, n, before.get((fn, n), 0))

@@ -19,6 +19,11 @@ never loads a stale library.  ``build()`` starts one ``nvcc`` per source, all at
 returns what ``-Xptxas -v`` reported (registers, shared memory, spills)
 for each; the report is kept beside the library
 (``<name>-<hash>.ptxas.txt``) for later calls.
+
+The host-side dataloader core (``dataloader.cc``, a copy of the JAX
+package's) is C++ without CUDA: ``load_dataloader_core()`` compiles it
+with ``g++`` into the same directory at first use and returns ``None``
+when no compiler can build it.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, Optional
 
@@ -120,4 +126,57 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(build([name])[name]["so"])
         _LOADED[name] = lib
+    return lib
+
+
+# -- the host dataloader core (g++, plain C interface) ----------------------
+
+GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+_CORE_LOCK = threading.Lock()
+_CORE: Dict[str, Optional[ctypes.CDLL]] = {}
+
+
+def _build_core() -> Optional[ctypes.CDLL]:
+    """``g++`` (the JAX package's flags) on ``dataloader.cc`` into
+    ``_build/dataloader-<hash>.so`` unless built, then load it; ``None``
+    when ``g++`` is missing or fails."""
+    src = os.path.join(CSRC, "dataloader.cc")
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    so = os.path.join(BUILD_DIR, f"dataloader-{h.hexdigest()[:16]}.so")
+    try:
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, src], check=True,
+                           capture_output=True, timeout=120)
+            os.replace(tmp, so)
+        return ctypes.CDLL(so)
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def load_dataloader_core() -> Optional[ctypes.CDLL]:
+    """The prefetching dataloader core with its C signatures set, or
+    ``None`` when it cannot be built."""
+    with _CORE_LOCK:
+        if "lib" not in _CORE:
+            _CORE["lib"] = _build_core()
+    lib = _CORE["lib"]
+    if lib is not None and not getattr(lib, "_hetu_sigs_set", False):
+        lib.hetu_loader_create.restype = ctypes.c_void_p
+        lib.hetu_loader_create.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_uint64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32]
+        lib.hetu_loader_num_batches.restype = ctypes.c_int64
+        lib.hetu_loader_num_batches.argtypes = [ctypes.c_void_p]
+        lib.hetu_loader_next.restype = ctypes.c_int32
+        lib.hetu_loader_next.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.hetu_loader_reset.restype = None
+        lib.hetu_loader_reset.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        lib.hetu_loader_destroy.restype = None
+        lib.hetu_loader_destroy.argtypes = [ctypes.c_void_p]
+        lib._hetu_sigs_set = True
     return lib

@@ -1,0 +1,146 @@
+"""Dataloader with native background prefetching and dp-rank sharding.
+
+Counterpart of the reference's C++ prefetching loader
+(``hetu/graph/data/dataloader.h:18`` — worker queue, shuffle, drop_last,
+``set_dp_rank`` dp sharding at ``dataloader.h:116``) and its Python
+wrappers (``python/hetu/utils/data/``).
+
+Two paths:
+- **native**: fixed-stride sample matrices (contiguous 2-D numpy arrays)
+  stream through the C++ core (``hetu_tpu_torch/csrc/dataloader.cc``, a
+  copy of the JAX package's, built with ``g++`` at first use) which
+  assembles batches on a background thread;
+- **python**: arbitrary map-style datasets batched in-process.
+
+Both yield numpy batches; dp sharding hands each rank a disjoint
+``rank::nrank`` slice of the sample set.  The same seed gives the JAX
+package's batches on either path (the native core shuffles with
+``std::mt19937_64``, the python path with ``np.random.RandomState``).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Iterator, Optional, Sequence, Union
+
+import numpy as np
+
+from ..csrc.build import load_dataloader_core
+from .dataset import Dataset, TensorDataset
+
+
+class Dataloader:
+    def __init__(self, dataset: Union[Dataset, np.ndarray],
+                 batch_size: int, shuffle: bool = False,
+                 drop_last: bool = True, seed: int = 0,
+                 queue_size: int = 2, use_native: Optional[bool] = None):
+        if isinstance(dataset, np.ndarray):
+            dataset = TensorDataset(dataset)
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.queue_size = queue_size
+        self._dp_rank, self._dp_nrank = 0, 1
+        self._epoch = 0
+
+        self._native_mat: Optional[np.ndarray] = None
+        self._lib = None
+        self._handle = None
+        self._handle_key = None
+        if use_native is not False:
+            lib = load_dataloader_core()  # probe before materializing
+            if lib is not None:
+                mat = self._native_matrix(dataset)
+                if mat is not None:
+                    self._native_mat = mat
+                    self._lib = lib
+        if use_native is True and self._lib is None:
+            raise RuntimeError("native dataloader requested but "
+                               "unavailable (need a contiguous 2-D array "
+                               "dataset and a working g++)")
+
+    @staticmethod
+    def _native_matrix(dataset) -> Optional[np.ndarray]:
+        """The native path needs one contiguous fixed-stride matrix."""
+        if isinstance(dataset, TensorDataset) and len(dataset.arrays) == 1:
+            a = dataset.arrays[0]
+            if a.ndim == 2 and a.flags["C_CONTIGUOUS"]:
+                return a
+        if hasattr(dataset, "as_matrix"):
+            return np.ascontiguousarray(dataset.as_matrix())
+        return None
+
+    # -- reference API: dp sharding (dataloader.h set_dp_rank) -------------
+
+    def set_dp_rank(self, dp_rank: int, dp_nrank: int) -> "Dataloader":
+        assert 0 <= dp_rank < dp_nrank
+        self._dp_rank, self._dp_nrank = dp_rank, dp_nrank
+        return self
+
+    @property
+    def num_samples(self) -> int:
+        n = len(self.dataset)
+        return (n - self._dp_rank + self._dp_nrank - 1) // self._dp_nrank
+
+    def __len__(self) -> int:
+        if self.drop_last:
+            return self.num_samples // self.batch_size
+        return (self.num_samples + self.batch_size - 1) // self.batch_size
+
+    # -- iteration ---------------------------------------------------------
+
+    def __iter__(self) -> Iterator:
+        self._epoch += 1
+        seed = self.seed + self._epoch
+        if self._lib is not None:
+            yield from self._iter_native(seed)
+        else:
+            yield from self._iter_python(seed)
+
+    def _iter_native(self, seed):
+        mat = self._native_mat
+        # one persistent handle; epochs restart via the core's reset (dp
+        # sharding changes require a rebuild)
+        key = (self._dp_rank, self._dp_nrank)
+        if self._handle is not None and self._handle_key != key:
+            self._lib.hetu_loader_destroy(self._handle)
+            self._handle = None
+        if self._handle is None:
+            self._handle = self._lib.hetu_loader_create(
+                mat.ctypes.data_as(ctypes.c_void_p), mat.shape[0],
+                mat.strides[0], self.batch_size, self.queue_size,
+                int(self.shuffle), seed, int(self.drop_last),
+                self._dp_rank, self._dp_nrank)
+            self._handle_key = key
+        else:
+            self._lib.hetu_loader_reset(self._handle, seed)
+        out = np.empty((self.batch_size, mat.shape[1]), mat.dtype)
+        while True:
+            rows = self._lib.hetu_loader_next(
+                self._handle, out.ctypes.data_as(ctypes.c_void_p))
+            if rows == 0:
+                return
+            yield out[:rows].copy()
+
+    def __del__(self):
+        if getattr(self, "_handle", None) is not None and \
+                self._lib is not None:
+            self._lib.hetu_loader_destroy(self._handle)
+            self._handle = None
+
+    def _iter_python(self, seed):
+        idx = np.arange(self._dp_rank, len(self.dataset), self._dp_nrank)
+        if self.shuffle:
+            np.random.RandomState(seed).shuffle(idx)
+        bs = self.batch_size
+        for s in range(0, len(idx), bs):
+            chunk = idx[s:s + bs]
+            if len(chunk) < bs and self.drop_last:
+                return
+            samples = [self.dataset[int(i)] for i in chunk]
+            if isinstance(samples[0], tuple):
+                yield tuple(np.stack([s[j] for s in samples])
+                            for j in range(len(samples[0])))
+            else:
+                yield np.stack(samples)

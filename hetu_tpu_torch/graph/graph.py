@@ -27,13 +27,23 @@ whole step (every micro-batch's forward and ``torch.autograd.grad``, the
 accumulation and the optimizer update) eagerly and captures it in one
 CUDA graph; later calls replay it and return clones of its fetches.  The
 graph's dropout generator is registered with each graph, so every replay
-draws fresh masks.  On the CPU the step runs eagerly.  Meshes, strategy
-switching, shape buckets, the numeric sentry and the run levels other
-than the default (update) and ``COMPUTE_ONLY`` are ported in later
+draws fresh masks.  On the CPU the step runs eagerly.
+
+The recipe around the step: a ``GradScaler`` passed to ``minimize``
+scales the loss, unscales the gradients and skips a non-finite step on
+the device (``graph.amp``); ``recompute`` runs the forward as checkpointed
+regions and ``cpu_offload`` under ``save_on_cpu`` (``graph.recompute``).
+The plan key holds the recompute policy and the offload flag, as the JAX
+package's does; an offloaded plan runs uncaptured.  ``run(...,
+save_checkpoint=True)`` is accepted and, as in the JAX package, does
+nothing: checkpoints are written by ``utils.checkpoint``.  Meshes,
+strategy switching, shape buckets, the numeric sentry and the run levels
+other than the default (update) and ``COMPUTE_ONLY`` are ported in later
 slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import enum
 import itertools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -278,13 +288,18 @@ class Graph:
 
 
 class _Plan:
-    """A plan-pool entry: the topological order, the frees, and on the
-    card the static feed buffers and the captured step."""
+    """A plan-pool entry: the topological order, the frees, the recompute
+    regions and the ops they keep (``None``: no recompute), whether the
+    forward offloads what it saves, and on the card the static feed
+    buffers and the captured step."""
 
-    __slots__ = ("order", "frees", "feeds", "step")
+    __slots__ = ("order", "frees", "regions", "saved", "offload", "feeds",
+                 "step")
 
-    def __init__(self, order: List[OpNode], frees: List[List[int]]):
+    def __init__(self, order: List[OpNode], frees: List[List[int]],
+                 regions=None, saved=None, offload: bool = False):
         self.order, self.frees = order, frees
+        self.regions, self.saved, self.offload = regions, saved, offload
         self.feeds: Dict[int, torch.Tensor] = {}
         self.step: Optional[capture.CapturedStep] = None
 
@@ -297,6 +312,9 @@ class DefineAndRunGraph(Graph):
         super().__init__(name, device, seed)
         self._plan_pool: Dict[Tuple, _Plan] = {}
         self._captures = capture.StepCache("training step")
+        self._recompute_policy: Optional[str] = None
+        self._offload = False
+        self.last_run_captured = False
 
     def _storage_replaced(self) -> None:
         for entry in self._plan_pool.values():
@@ -364,21 +382,29 @@ class DefineAndRunGraph(Graph):
     def _plan(self, fetches: List[Tensor], feeds: Dict[Tensor, Any],
               num_micro_batches: int, run_level: RunLevel,
               update_node: Optional[OpNode]) -> _Plan:
+        from .recompute import regions, resolve_policy
         feed_sig = tuple(sorted((t.id, t.shape) for t in feeds))
         key = (tuple(t.id for t in fetches), feed_sig, num_micro_batches,
-               run_level, update_node.id if update_node is not None else None)
+               run_level, update_node.id if update_node is not None else None,
+               # recompute/offload change the step that is captured
+               self._recompute_policy, self._offload)
         plan = self._plan_pool.get(key)
         if plan is None:
             targets = list(fetches)
             if update_node is not None:
                 targets.append(update_node.attrs["grad_node"].attrs["loss"])
-            plan = self._topo_from(targets)
+            order = self._topo_from(targets)
             fed = {t.id for t in feeds}
-            for node in plan:
+            for node in order:
                 if node.op_type == "placeholder" and \
                         node.outputs[0].id not in fed:
                     raise ValueError(f"placeholder {node.name} not fed")
-            plan = _Plan(plan, self._frees(plan, [t.id for t in targets]))
+            keep = [t.id for t in targets]
+            saved = None if self._offload else \
+                resolve_policy(self._recompute_policy)
+            plan = _Plan(order, self._frees(order, keep),
+                         None if saved is None else regions(order, keep),
+                         saved, self._offload)
             self._plan_pool[key] = plan
         return plan
 
@@ -397,9 +423,6 @@ class DefineAndRunGraph(Graph):
             raise NotImplementedError(
                 "strategy switching (cur_strategy_id) is ported with the "
                 "multi-GPU mesh (ROADMAP queue 1, items 10-14)")
-        if save_checkpoint:
-            raise NotImplementedError(
-                "checkpoints are ported in a later slice (safetensors_io)")
         if fetches is None:
             fetches = loss_or_fetches
         return self._run(fetches, feed_dict, num_micro_batches, run_level,
@@ -443,7 +466,9 @@ class DefineAndRunGraph(Graph):
         def body():
             return self._step(entry, feeds, M, real_fetches, update_node)
 
-        if static and self.device.type == "cuda" and not capture.is_eager():
+        self.last_run_captured = static and self.device.type == "cuda" \
+            and not capture.is_eager() and not entry.offload
+        if self.last_run_captured:
             if entry.step is None:
                 entry.step = self._captures.get(
                     id(entry), body, self._generators(entry))
@@ -473,12 +498,21 @@ class DefineAndRunGraph(Graph):
               update_node: Optional[OpNode]) -> List[torch.Tensor]:
         """One step over ``feeds``: every micro-batch's forward and
         gradients, the accumulation and the update; the fetch values."""
+        from .amp import check_finite
+        from .recompute import offload_context
         plan, frees = entry.order, entry.frees
         xs = update_node.attrs["xs"] if update_node is not None else []
         loss_t = update_node.attrs["grad_node"].attrs["loss"] \
             if update_node is not None else None
+        scaler = update_node.attrs.get("grad_scaler") \
+            if update_node is not None else None
+        if scaler is not None and not scaler.enabled:
+            scaler = None
+        sst = scaler.init_state(self.device) if scaler is not None else None
         needs_grad = update_node is not None or any(
             n.op_type == "gradients" for n in plan)
+        offload = (lambda: offload_context(self.device)) \
+            if entry.offload and needs_grad else contextlib.nullcontext
         fetch_vals: List[Optional[torch.Tensor]] = [None] * len(real_fetches)
         grads: Optional[List[torch.Tensor]] = None
         for mb in range(M):
@@ -490,14 +524,22 @@ class DefineAndRunGraph(Graph):
             leaves = [env[t.id] for t in xs]
             for t, val in feeds.items():
                 env[t.id] = val.chunk(M)[mb] if t.ndim else val
-            with torch.set_grad_enabled(needs_grad):
-                self._eval(plan, env, frees)
+            with torch.set_grad_enabled(needs_grad), offload():
+                if entry.regions is not None and needs_grad:
+                    self._eval_regions(entry, env)
+                else:
+                    self._eval(plan, env, frees)
                 if update_node is not None:
                     lv = env.pop(loss_t.id)
-                    g = torch.autograd.grad(lv.sum() if lv.ndim else lv,
-                                            leaves, allow_unused=True)
+                    obj = lv.sum() if lv.ndim else lv
+                    if scaler is not None:
+                        obj = scaler.scale_loss(obj, sst)
+                        lv = scaler.unscale_loss(obj, sst)
+                    g = torch.autograd.grad(obj, leaves, allow_unused=True)
                     g = [torch.zeros_like(x) if gi is None else gi
                          for x, gi in zip(leaves, g)]
+                    if scaler is not None:
+                        g = scaler.unscale_grads(g, sst)
                     if grads is None:
                         grads = _owned(g) if M > 1 else g
                     else:
@@ -519,8 +561,28 @@ class DefineAndRunGraph(Graph):
             if M > 1:
                 for g in grads:
                     g.div_(M)
-            update_node.attrs["optimizer"]._apply_updates(self, xs, grads)
+            # a scaler skips the update (parameters and optimizer state)
+            # on overflow, then grows or backs off its scale
+            finite = check_finite(grads) if scaler is not None else None
+            update_node.attrs["optimizer"]._apply_updates(self, xs, grads,
+                                                          keep=finite)
+            if scaler is not None:
+                scaler.update_state(sst, finite)
         return fetch_vals
+
+    def _eval_regions(self, entry: _Plan, env: Dict[int, torch.Tensor]
+                      ) -> None:
+        """``_eval`` of the plan region by region, each under
+        ``torch.utils.checkpoint`` (``graph.recompute``)."""
+        from .recompute import run_region
+        plan, frees = entry.order, entry.frees
+        for r in entry.regions:
+            run_region(r, lambda local, r=r: self._eval(
+                plan[r.start:r.end], local, frees[r.start:r.end]),
+                env, entry.saved)
+            for i in range(r.start, r.end):
+                for tid in frees[i]:
+                    env.pop(tid, None)
 
 
 def _owned(grads: List[torch.Tensor]) -> List[torch.Tensor]:

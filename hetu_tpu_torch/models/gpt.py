@@ -245,9 +245,6 @@ def check_training_config(cfg: GPTConfig) -> None:
         raise NotImplementedError(
             "context parallelism (cp_axis) is ported with the multi-GPU "
             "mesh (ROADMAP queue 1, items 10-14)")
-    if cfg.fused_lm_ce:
-        raise NotImplementedError(
-            "fused_lm_ce is ported in a later slice (fused cross entropy)")
 
 
 def _norm(config: GPTConfig, name: str):
@@ -420,7 +417,17 @@ class GPTLMHeadModel(nn.Module):
 
     def forward(self, input_ids, labels=None, seq_len: Optional[int] = None,
                 segment_ids=None):
-        """``segment_ids``: [b, s] packed document ids."""
+        """``segment_ids``: [b, s] packed document ids.  With
+        ``fused_lm_ce`` the head and the loss are one chunked op
+        (``ops.fused_lm_cross_entropy``), the tied head included."""
+        c = self.config
+        if labels is not None and c.fused_lm_ce:
+            x = self.transformer(input_ids, seq_len,
+                                 segment_ids=segment_ids)
+            w = self.lm_head.weight if self.lm_head is not None \
+                else self.transformer.wte.weight
+            return ops.fused_lm_cross_entropy(x, w, labels,
+                                              ignore_index=-100)
         logits = self.logits(input_ids, seq_len, segment_ids=segment_ids)
         if labels is None:
             return logits

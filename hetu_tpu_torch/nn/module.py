@@ -6,13 +6,20 @@
 ``forward`` records ops on the graph.  ``named_parameters`` walks the
 attribute paths, so ``state_dict()`` keys are the JAX package's
 (``transformer.h.0.attn.qkv.weight``); values are the graph's current
-tensors.
+tensors, then the buffers.
+
+The rest of the JAX Module surface comes from ``torch.nn.Module``:
+``add_module``, ``named_modules``/``modules``, ``train``/``eval`` (the
+``training`` flag that ``Dropout`` reads), ``apply`` and
+``named_buffers``.  ``register_buffer`` also takes numpy arrays, which
+become CPU tensors, as the JAX package's buffers are host arrays.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Any, Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..graph.tensor import Tensor
@@ -50,19 +57,43 @@ class Module(torch.nn.Module):
         for _, p in self.named_parameters(recurse=recurse):
             yield p
 
+    def register_buffer(self, name: str, tensor, persistent: bool = True
+                        ) -> None:
+        if tensor is not None and not isinstance(tensor, torch.Tensor):
+            tensor = torch.as_tensor(np.asarray(tensor))
+        super().register_buffer(name, tensor, persistent)
+
     def state_dict(self) -> "OrderedDict[str, torch.Tensor]":
-        """Attribute-path name -> the parameter's current value."""
-        return OrderedDict((name, p.get_data().detach())
-                           for name, p in self.named_parameters())
+        """Attribute-path name -> the parameter's current value, then the
+        buffers."""
+        out = OrderedDict((name, p.get_data().detach())
+                          for name, p in self.named_parameters())
+        for name, b in self.named_buffers():
+            out[name] = b
+        return out
+
+    def _set_buffer(self, path: str, value) -> None:
+        mod_path, _, leaf = path.rpartition(".")
+        mod = self.get_submodule(mod_path) if mod_path else self
+        cur = mod._buffers[leaf]
+        if not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value))
+        mod._buffers[leaf] = value.to(device=cur.device, dtype=cur.dtype)
 
     def load_state_dict(self, state: Dict[str, Any], strict: bool = True):
         """Writes ``state`` (tensors or numpy arrays, under the names of
-        ``state_dict``) into the graph's variables; with ``strict`` a
-        missing or unexpected name raises ``KeyError``."""
+        ``state_dict``) into the graph's variables and the buffers; with
+        ``strict`` a missing or unexpected name raises ``KeyError``."""
         missing, loaded = [], set()
         for name, p in self.named_parameters():
             if name in state:
                 p.graph.reset_variable(p, state[name])
+                loaded.add(name)
+            elif strict:
+                missing.append(name)
+        for name, _ in self.named_buffers():
+            if name in state:
+                self._set_buffer(name, state[name])
                 loaded.add(name)
             elif strict:
                 missing.append(name)

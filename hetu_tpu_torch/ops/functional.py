@@ -6,7 +6,9 @@ records a node whose impl is that same function, as the JAX package's
 JAX package's numerics: dtype promotion across operands (fp32 with bf16
 gives fp32, where ``torch.matmul`` alone would refuse), layer norm in x's
 dtype, RMS norm in fp32 cast back, GELU with the tanh approximation, and
-log-softmax in the logits' dtype.
+log-softmax in the logits' dtype.  An op recorded under
+``graph.amp.autocast`` gets its casts folded into its impl here, as the
+JAX package's ``_op`` does.
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..graph import amp
 from ..graph.tensor import Tensor
 from .attention import sdpa
+from .fused_ce import fused_linear_cross_entropy
 
 
 def _graph_of(*xs):
@@ -28,6 +32,8 @@ def _graph_of(*xs):
 
 
 def _op(op_type: str, impl, inputs: Sequence[Any], attrs=None, name=""):
+    if amp._autocast_stack:
+        impl = amp.wrap_impl(op_type, impl)
     g = _graph_of(*inputs)
     if g is None:
         dev = next((x.device for x in inputs if isinstance(x, torch.Tensor)),
@@ -211,6 +217,31 @@ def softmax_cross_entropy(logits, target, reduction="mean",
                {"reduction": reduction, "ignore_index": ignore_index})
 
 
+def fused_lm_cross_entropy(x, weight, labels, ignore_index=-100,
+                           num_chunks: int = 8, reduction: str = "mean"):
+    """LM-head matmul + CE fused, the logits never whole
+    (``ops.fused_ce``).  x: [b, s, h] or [n, h]; weight: [vocab, h];
+    labels match x's leading dims."""
+    def _impl(x, w, lbl, ignore_index=-100, num_chunks=8,
+              reduction="mean"):
+        n = 1
+        for d in x.shape[:-1]:
+            n *= d
+        return fused_linear_cross_entropy(
+            x.reshape(n, x.shape[-1]), w, lbl.reshape(n), ignore_index,
+            num_chunks, reduction)
+
+    return _op("fused_lm_cross_entropy", _impl, [x, weight, labels],
+               {"ignore_index": ignore_index, "num_chunks": num_chunks,
+                "reduction": reduction})
+
+
+def check_finite(x):
+    """1.0 (fp32) when every element of ``x`` is finite, else 0.0."""
+    return _op("check_finite",
+               lambda v: torch.isfinite(v).all().to(torch.float32), [x])
+
+
 # ---------------------------------------------------------------------------
 # normalization
 # ---------------------------------------------------------------------------
@@ -310,7 +341,8 @@ def attention(q, k, v, causal=True, softmax_scale=None, use_flash=None,
                 "use_flash": use_flash})
 
 
-__all__ = ["add", "attention", "dropout", "embedding_lookup",
+__all__ = ["add", "attention", "check_finite", "dropout",
+           "embedding_lookup", "fused_lm_cross_entropy",
            "gelu", "getitem", "layer_norm", "linear", "matmul", "mul",
            "reduce_sum", "repeat_kv", "reshape", "rms_norm", "rotary_embed",
            "softmax_cross_entropy", "swiglu"]

@@ -1,5 +1,5 @@
-"""Per-row absmax quantization: int8 / nf4 / fp4 (PyTorch port of the row
-functions of ``hetu_tpu.ops.quantization``).
+"""Absmax quantization: int8 / nf4 / fp4 (PyTorch port of
+``hetu_tpu.ops.quantization``).
 
 ``quantize_rows`` quantizes ``[..., d]`` vectors with one absmax scale
 per row, so a paged KV pool can keep one scale per cached token (the
@@ -13,13 +13,14 @@ package's, because KV pages and checkpoints carry them:
   distances (fp4 holds ``0.0`` and ``-0.0`` at indices 0 and 8), and pack
   two to a byte with the even element in the high nibble.
 
-The blockwise ``quantize_4bit`` / ``quantize_int8`` of the JAX module are
-not ported yet.
+The blockwise ``quantize_4bit`` / ``quantize_int8`` flatten the tensor,
+zero-pad it to whole blocks and keep one absmax a block (the layout of
+the checkpoints' quantized save); their codes follow the same rules.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,3 +91,67 @@ def dequantize_rows(codes: torch.Tensor, absmax: torch.Tensor, quant: str,
         idx = torch.stack([hi, lo], dim=-1).reshape(*codes.shape[:-1], d)
         return (code[idx] * scale).to(dtype)
     raise ValueError(f"unknown row quant {quant!r}")
+
+
+# ---------------------------------------------------------------------------
+# blockwise (the checkpoints' quantized save)
+# ---------------------------------------------------------------------------
+
+def _blocked(x: torch.Tensor, blocksize: int) -> torch.Tensor:
+    flat = x.reshape(-1)
+    pad = (-flat.shape[0]) % blocksize
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, blocksize)
+
+
+def _numel(shape: Sequence[int]) -> int:
+    return int(np.prod(shape)) if len(shape) else 1
+
+
+def quantize_4bit(x, quant_type: str = "nf4", blocksize: int = 64
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise 4-bit quantize.  Returns (packed uint8 of length
+    ceil(n/2), absmax per block as float32)."""
+    x = torch.as_tensor(x).to(torch.float32)
+    blocks = _blocked(x, blocksize)
+    absmax = blocks.abs().amax(dim=1)
+    scale = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
+    code = _codebook(quant_type, x.device)
+    idx = torch.argmin(((blocks / scale[:, None])[..., None] - code).abs(),
+                       dim=-1).to(torch.uint8).reshape(-1)
+    return (idx[0::2] << 4) | idx[1::2], absmax
+
+
+def dequantize_4bit(packed, absmax, shape, quant_type: str = "nf4",
+                    blocksize: int = 64, dtype=torch.float32
+                    ) -> torch.Tensor:
+    """Inverse of :func:`quantize_4bit` (original ``shape`` required)."""
+    packed = torch.as_tensor(packed)
+    absmax = torch.as_tensor(absmax)
+    code = _codebook(quant_type, packed.device)
+    idx = torch.stack([(packed >> 4).long(), (packed & 0xF).long()],
+                      dim=1).reshape(-1)
+    scale = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
+    vals = code[idx].reshape(-1, blocksize) * scale[:, None]
+    return vals.reshape(-1)[:_numel(shape)].reshape(tuple(shape)).to(dtype)
+
+
+def quantize_int8(x, blocksize: int = 256
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise symmetric int8 absmax quantize -> (int8 codes, absmax)."""
+    x = torch.as_tensor(x).to(torch.float32)
+    blocks = _blocked(x, blocksize)
+    absmax = blocks.abs().amax(dim=1)
+    scale = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(blocks / scale[:, None] * 127.0), -127, 127)
+    return q.to(torch.int8).reshape(-1), absmax
+
+
+def dequantize_int8(q, absmax, shape, blocksize: int = 256,
+                    dtype=torch.float32) -> torch.Tensor:
+    q = torch.as_tensor(q).to(torch.float32).reshape(-1, blocksize)
+    absmax = torch.as_tensor(absmax)
+    scale = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
+    vals = q / 127.0 * scale[:, None]
+    return vals.reshape(-1)[:_numel(shape)].reshape(tuple(shape)).to(dtype)

@@ -942,3 +942,99 @@ def test_captured_dropout_draws_fresh_masks(cuda_device):
     assert eg == 0 and cg == 2
     np.testing.assert_allclose(cf, ef, rtol=1e-6)
     np.testing.assert_allclose(ct, et, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the training recipe in a captured step: a GradScaler skip and a
+# scheduled lr inside replays, recompute (graph/amp.py, graph/recompute.py)
+# ---------------------------------------------------------------------------
+
+def _recipe_trainer(kw, make_opt, scaler=None, init=None):
+    with ht.graph("define_and_run", create_new=True, device="cuda") as g:
+        ids = ht.placeholder("int32", (4, 64), name="input_ids")
+        labels = ht.placeholder("int32", (4, 64), name="labels")
+        model = GPTLMHeadModel(GPTConfig(**kw, dtype="bfloat16"))
+        loss = model(ids, labels)
+        opt = make_opt()
+        op = opt.minimize(loss, grad_scaler=scaler)
+    if init is not None:
+        load_state(model, init)
+    x = np.random.RandomState(5).randint(0, 97, (4, 64)).astype(np.int32)
+    return g, model, opt, lambda: g.run(loss, [loss, op],
+                                        {ids: x, labels: x})[0]
+
+
+def test_captured_scaler_skip_and_scheduled_lr(cuda_device):
+    """One captured step replayed: the lr of each replay is the schedule's
+    at that replay's step; an infinity written into an embedding element
+    the step reads makes a replay skip (parameters, Adam's moments and
+    step bitwise unchanged, the scale halved); restored, the next replay
+    updates.  The captured losses equal an eager run's."""
+    sched = ht.optim.cosine_schedule(1e-3, 2, 6, 1e-4)
+    make = lambda: ht.optim.AdamOptimizer(lr=sched)   # noqa: E731
+    init = state_numpy(_recipe_trainer(TINY_GPT2, make)[1])
+    runs = {}
+    for eager in (True, False):
+        scaler = ht.GradScaler(init_scale=256.0, growth_interval=100)
+        g, model, opt, step = _recipe_trainer(TINY_GPT2, make, scaler, init)
+        losses, lrs = [], []
+        with capture.eager() if eager else contextlib.nullcontext():
+            for i in range(5):
+                if i == 3:
+                    wte = model.transformer.wte.weight.get_data()
+                    keep = wte[0, 0].clone()
+                    with torch.no_grad():
+                        wte[0, 0] = float("inf")
+                    before = ({n: v.clone()
+                               for n, v in model.state_dict().items()},
+                              {t: m.clone() for t, m in opt._state["m"].items()},
+                              {t: v.clone() for t, v in opt._state["v"].items()},
+                              opt._state["step"].clone())
+                losses.append(float(step()))
+                lrs.append(float(opt._lr_at(opt._state["step"])))
+                if i == 3:
+                    assert all(torch.equal(v, before[0][n])
+                               for n, v in model.state_dict().items())
+                    assert all(torch.equal(m, before[1][t])
+                               for t, m in opt._state["m"].items())
+                    assert all(torch.equal(v, before[2][t])
+                               for t, v in opt._state["v"].items())
+                    assert torch.equal(opt._state["step"], before[3])
+                    assert scaler.scale == 128.0
+                    with torch.no_grad():
+                        wte[0, 0] = keep
+        runs[eager] = losses, lrs, g.compile_count, float(opt._state["step"])
+    (el, elr, eg, es), (cl, clr, cg, cs) = runs[True], runs[False]
+    assert eg == 0 and cg == 1 and es == cs == 4.0
+    assert not np.isfinite(cl[3]) and np.isfinite(cl[4])
+    assert clr == elr and clr[3] == clr[2]
+    np.testing.assert_allclose(clr[:3], [float(sched(float(s)))
+                                         for s in (1, 2, 3)], rtol=1e-6)
+    np.testing.assert_allclose(np.array(cl)[[0, 1, 2, 4]],
+                               np.array(el)[[0, 1, 2, 4]], rtol=1e-6)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_captured_recompute_equals_the_plain_step(cuda_device, dropout):
+    """Captured steps under ``recompute`` (both policies): the plain
+    step's losses and weights, every attention forward run twice; with
+    dropout the recomputation reuses the forward's masks."""
+    kw = dict(TINY_GPT2, dropout=dropout)
+    make = lambda: ht.optim.AdamOptimizer(lr=1e-3)   # noqa: E731
+    init = state_numpy(_recipe_trainer(kw, make)[1])
+    runs = {}
+    for policy in (None, "nothing_saveable", "dots_saveable"):
+        g, model, opt, step = _recipe_trainer(kw, make, init=init)
+        fa.flash_fwd_cuda.launches = 0
+        with ht.recompute(policy, graph=g) if policy else \
+                contextlib.nullcontext():
+            losses = [float(step()) for _ in range(3)]
+        runs[policy] = (losses, state_numpy(model),
+                        fa.flash_fwd_cuda.launches, g.compile_count)
+    base, base_w, base_fwd, _ = runs[None]
+    assert base_fwd == TINY_GPT2["num_layers"] * 3
+    for policy in ("nothing_saveable", "dots_saveable"):
+        losses, w, fwd, graphs = runs[policy]
+        assert losses == base and graphs == 1 and fwd == 2 * base_fwd
+        for n in base_w:
+            np.testing.assert_array_equal(w[n], base_w[n], err_msg=n)
