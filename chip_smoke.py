@@ -47,7 +47,10 @@ Phases, each printing one JSON line:
    versions at the training path's shapes -- Llama-3-8B widths (b 2,
    s 4096, h 32, d 128) with the (fp32, fp32, bf16), all-fp32 and
    all-bf16 q/k/v the LLaMA path and its peers feed, GPT-2 widths (b 4,
-   s 1024, h 12, d 64, every type mix) -- and on small masked cases
+   s 1024, h 12, d 64, every type mix), BERT-base's attention (b 16,
+   s 512, h 12, d 64, not causal; bf16 and fp32, phase 17's route, its
+   bound over every pair and SDPA non-causal beside it) -- and on small
+   masked cases, not causal too,
    (segment-id tuples, causal offsets, sq != sk, fully-masked rows,
    s = 1000; head dims 64, 128, 32 and 256, 96 and 200 through the
    wrappers' zero padding to 128 and 256, and 320 and 512 on the wide
@@ -149,7 +152,29 @@ Phases, each printing one JSON line:
     its step peak lower;
     AdamW on a cosine lr, captured, equals an eager run (1e-4) with each
     replay's lr read back from the device; a checkpoint saved after 4 steps
-    and loaded into a fresh graph gives steps 5-6 within 1e-4.
+    and loaded into a fresh graph gives steps 5-6 within 1e-4;
+17. bert_pretrain: ``graph("define_and_run")`` -> placeholders ->
+    ``BertForPreTraining`` at BERT-Base Uncased's published widths (vocab
+    30522, hidden 768, 12 layers, 12 heads, intermediate 3072, 512
+    positions, 2 segment types; random weights from seed 0, nothing cut)
+    -> ``AdamOptimizer(lr=1e-5).minimize`` -> ``g.run(loss, [loss,
+    train_op], feeds, num_micro_batches=2)``, seq 512, global batch 32 of
+    seed-0 masked-LM and next-sentence data, six captured steps in fp32
+    (TF32 off), then six built under ``ht.autocast("bfloat16")``: ms a
+    step, tokens/s, peak memory, idle share, top kernels; the loss must
+    fall, every flash launch be non-causal, 12 forward and 12 fused
+    backward launches a micro-batch, on 3xTF32 in fp32 and on wgmma
+    (``flash_fwd_wgmma_kernel<64>``, ``flash_bwd_dkv_wgmma_kernel<64,
+    true>`` by name in the profile) in bf16; then a 2-layer fp32 BERT at
+    the same widths (seq 128, batch 4) trains three steps on the card and
+    on the CPU within phase 8's limits;
+18. small_models: ``SimpleCNN`` and ``resnet18`` on CIFAR-10 shapes
+    (batch 128), ``RNNLanguageModel`` with LSTM and GRU cells at the
+    medium setting of Zaremba et al. 2014 (vocab 10000, hidden 650, 2
+    layers, 35 steps, batch 20), ``WDL``, ``DeepFM`` and ``DCN`` in
+    Criteo's layout (26 fields over 1,000,000 ids, dim 16, 13 dense,
+    batch 2048) train three captured Adam steps each; the loss must fall
+    and BatchNorm's running statistics stay at their defaults.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -176,10 +201,14 @@ import hetu_tpu_torch as ht
 from hetu_tpu_torch.core import capture
 from hetu_tpu_torch.csrc.build import build
 import hetu_tpu_torch.ops as port_ops
-from hetu_tpu_torch.models import (GPTConfig, GPTLMHeadModel,
+from hetu_tpu_torch.models import (DCN, WDL, BertConfig, BertForPreTraining,
+                                   DeepFM, GPTConfig, GPTLMHeadModel,
+                                   RNNLanguageModel, SimpleCNN, ctr_loss,
                                    llama3_8b_config, llama_config,
-                                   mla_config, mla_state_from)
-from hetu_tpu_torch.models.convert import load_state, random_state, state_numpy
+                                   mla_config, mla_state_from, resnet18)
+from hetu_tpu_torch.models.convert import (load_module_state, load_state,
+                                           module_state_numpy, random_state,
+                                           state_numpy)
 from hetu_tpu_torch.models.generate import generate
 from hetu_tpu_torch.core.device import sm_count
 from hetu_tpu_torch.ops import flash_attention as fa
@@ -953,6 +982,7 @@ FLASH_TYPES = {"fp32_qk_bf16_v": (torch.float32, torch.bfloat16),
                "bf16": (torch.bfloat16, torch.bfloat16)}
 LLAMA_ATTN = (2, 4096, 32, 128)    # b (one micro-batch), s, h, d
 GPT2_ATTN = (4, 1024, 12, 64)
+BERT_ATTN = (16, 512, 12, 64)      # BERT-base, one micro-batch, not causal
 # fp32 agreement, |got - want| <= tol * (1 + |want|): sums in another
 # order over up to 4096 keys (forward), and over 4096 queries of products
 # of products (backward)
@@ -1132,15 +1162,16 @@ def check_flash(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
     return res, plain, kernel_outs
 
 
-def library_times(b, s, h, d, types, seed=1):
+def library_times(b, s, h, d, types, seed=1, causal=True):
     """PyTorch's own attention at this shape on ``types`` ("bf16" or
     "fp32", its default backend with TF32 off; only as a yardstick: the
-    port never calls it), on the inputs phase 6 gives the kernels (seed 1):
-    ``tools/sdpa_times.py``, which ``tools/compare_flash_kernels.py``
-    reads too.  SDPA takes no (fp32, fp32, bf16) q/k/v, so the mixed rows
-    have no library time."""
+    port never calls it), on the inputs phase 6 gives the kernels (seed 1),
+    causal or not: ``tools/sdpa_times.py``, which
+    ``tools/compare_flash_kernels.py`` reads too.  SDPA takes no (fp32,
+    fp32, bf16) q/k/v, so the mixed rows have no library time."""
     return sdpa_times(*flash_inputs(b, s, s, h, d, types, seed),
-                      graph_ms=graph_ms, events_ms=cuda_time_ms)
+                      graph_ms=graph_ms, events_ms=cuda_time_ms,
+                      causal=causal)
 
 
 def phase_flash():
@@ -1149,32 +1180,37 @@ def phase_flash():
     lib = {"llama/bf16": library_times(*LLAMA_ATTN, "bf16"),
            "llama/fp32": library_times(*LLAMA_ATTN, "fp32"),
            "gpt2/bf16": library_times(*GPT2_ATTN, "bf16"),
-           "gpt2/fp32": library_times(*GPT2_ATTN, "fp32")}
+           "gpt2/fp32": library_times(*GPT2_ATTN, "fp32"),
+           "bert/bf16": library_times(*BERT_ATTN, "bf16", causal=False),
+           "bert/fp32": library_times(*BERT_ATTN, "fp32", causal=False)}
     shapes = {}
-    for shape_name, (b, s, h, d), mixes in (
-            ("llama", LLAMA_ATTN, ("fp32_qk_bf16_v", "fp32", "bf16")),
-            ("gpt2", GPT2_ATTN, ("bf16", "fp32_qk_bf16_v", "fp32"))):
+    for shape_name, (b, s, h, d), mixes, causal in (
+            ("llama", LLAMA_ATTN, ("fp32_qk_bf16_v", "fp32", "bf16"), True),
+            ("gpt2", GPT2_ATTN, ("bf16", "fp32_qk_bf16_v", "fp32"), True),
+            ("bert", BERT_ATTN, ("bf16", "fp32"), False)):
         for types in mixes:
             q, k, v, do = flash_inputs(b, s, s, h, d, types, seed=1)
             scale = d ** -0.5
             res, (ro, rl, delta), outs = check_flash(
-                q, k, v, do, tag=f"{shape_name}/{types}")
+                q, k, v, do, causal, tag=f"{shape_name}/{types}")
             plain_fwd = cuda_time_ms(lambda: fa.flash_fwd_reference(
-                q, k, v, scale, True), warmup=1, iters=2)
+                q, k, v, scale, causal), warmup=1, iters=2)
             plain_bwd = cuda_time_ms(lambda: fa.flash_bwd_reference(
-                q, k, v, ro, rl, do, scale, True), warmup=1, iters=2)
+                q, k, v, ro, rl, do, scale, causal), warmup=1, iters=2)
             calls = {
-                "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, scale, True),
+                "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, scale,
+                                                       causal),
                 "flash_bwd_fused": lambda: fa.flash_bwd_fused_cuda(
-                    q, k, v, ro, rl, do, scale, True),
+                    q, k, v, ro, rl, do, scale, causal),
                 "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(
-                    q, k, v, do, rl, delta, scale, True),
+                    q, k, v, do, rl, delta, scale, causal),
                 "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
-                    q, k, v, do, rl, delta, scale, True)}
-            row = {}
+                    q, k, v, do, rl, delta, scale, causal)}
+            row = {"causal": causal}
             yard = lib.get(f"{shape_name}/{types}")
             for name, fn in calls.items():
-                work = flash_work(name, b, s, s, h, d, q.dtype, v.dtype)
+                work = flash_work(name, b, s, s, h, d, q.dtype, v.dtype,
+                                  causal)
                 row[name] = {
                     "ms": cuda_time_ms(fn, warmup=2, iters=5),
                     "device_ms": graph_ms(fn, iters=5),
@@ -1193,25 +1229,31 @@ def phase_flash():
             torch.cuda.empty_cache()
     # small masked cases: every kernel, every type mix; head dims 32 and
     # 256 (the kernels' own), 96 and 200 (zero-padded to 128 and 256 by
-    # the wrappers), 512 and 320 (the wide route, 320 padded to 384)
+    # the wrappers), 512 and 320 (the wide route, 320 padded to 384);
+    # not causal (BERT's route) at head dims 64 and 128, with a fully
+    # masked half, segment tuples and sq != sk
     small = []
-    for b, sq, sk, h, d, seg, offset in (
-            (1, 64, 192, 2, 64, "tuple", 128),
-            (2, 128, 128, 2, 128, "masked", 0),
-            (1, 1000, 1000, 2, 128, None, 0),
-            (1, 1000, 1000, 2, 64, "offset", -24),
-            (2, 128, 128, 8, 32, "masked", 0),
-            (1, 1000, 1000, 8, 32, "offset", -24),
-            (1, 64, 192, 2, 96, "tuple", 128),
-            (1, 1000, 1000, 2, 96, None, 0),
-            (2, 128, 128, 2, 256, "masked", 0),
-            (1, 1000, 1000, 2, 256, "offset", -24),
-            (1, 64, 192, 2, 200, "tuple", 128),
-            (1, 1000, 1000, 2, 200, None, 0),
-            (2, 128, 128, 2, 512, "masked", 0),
-            (1, 300, 300, 2, 512, "offset", -24),
-            (1, 64, 192, 2, 320, "tuple", 128),
-            (1, 300, 300, 2, 320, None, 0)):
+    for b, sq, sk, h, d, seg, offset, causal in (
+            (2, 128, 128, 2, 64, "masked", 0, False),
+            (1, 300, 300, 2, 64, None, 0, False),
+            (1, 64, 192, 2, 128, "tuple", 0, False),
+            (1, 200, 136, 2, 128, None, 0, False),
+            (1, 64, 192, 2, 64, "tuple", 128, True),
+            (2, 128, 128, 2, 128, "masked", 0, True),
+            (1, 1000, 1000, 2, 128, None, 0, True),
+            (1, 1000, 1000, 2, 64, "offset", -24, True),
+            (2, 128, 128, 8, 32, "masked", 0, True),
+            (1, 1000, 1000, 8, 32, "offset", -24, True),
+            (1, 64, 192, 2, 96, "tuple", 128, True),
+            (1, 1000, 1000, 2, 96, None, 0, True),
+            (2, 128, 128, 2, 256, "masked", 0, True),
+            (1, 1000, 1000, 2, 256, "offset", -24, True),
+            (1, 64, 192, 2, 200, "tuple", 128, True),
+            (1, 1000, 1000, 2, 200, None, 0, True),
+            (2, 128, 128, 2, 512, "masked", 0, True),
+            (1, 300, 300, 2, 512, "offset", -24, True),
+            (1, 64, 192, 2, 320, "tuple", 128, True),
+            (1, 300, 300, 2, 320, None, 0, True)):
         for types in FLASH_TYPES:
             q, k, v, do = flash_inputs(b, sq, sk, h, d, types, seed=2)
             segs = None
@@ -1223,10 +1265,10 @@ def phase_flash():
                 if seg == "masked":
                     qi[:, sq // 2:] = 7          # ids that no key has
                 segs = (qi, kv)
-            res, _, got = check_flash(q, k, v, do, True, segs, offset,
+            res, _, got = check_flash(q, k, v, do, causal, segs, offset,
                                       tag=f"small {seg} {types}")
             empty = 0
-            if seg == "masked" or offset < 0:
+            if seg == "masked" or (causal and offset < 0):
                 # rows that see no key: out = 0, lse = -inf, dq = 0 exactly
                 rows = slice(sq // 2, None) if seg == "masked" \
                     else slice(0, -offset)
@@ -1239,7 +1281,8 @@ def phase_flash():
                                          f"values of the empty rows are not "
                                          f"out = 0, lse = -inf, dq = 0")
             small.append({"b": b, "sq": sq, "sk": sk, "h": h, "d": d,
-                          "segments": seg, "causal_offset": offset,
+                          "causal": causal, "segments": seg,
+                          "causal_offset": offset,
                           "types": types, "empty_rows_nonzero": empty,
                           "err_over_limit": {n: r[0] for n, r in res.items()}})
     emit({"phase": "flash_vs_plain", "shapes": shapes, "small_cases": small,
@@ -1345,6 +1388,7 @@ def profile_train(g, loss, train_op, feeds, flash_per_step, steps=2,
             "idle_share": (1.0 - busy / plain) if busy else None,
             "profiled_idle_share": (1.0 - busy / wall) if busy else None,
             "flash_kernel_calls": seen,
+            "flash_kernels": {k: n for _, k, n in kernels if "flash_" in k},
             "flash_attention_s": flash, "matmul_s": gemm,
             "flash_share_of_busy": flash / busy if busy else None,
             "matmul_share_of_busy": gemm / busy if busy else None,
@@ -1366,9 +1410,7 @@ def phase_train(name, steps=6, micro=2):
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     wrappers = flash_wrappers()
-    for fn in wrappers.values():
-        fn.launches = fn.tensor_core_launches = fn.tf32_launches = 0
-        fn.wgmma_launches = 0
+    reset_flash_counts()
     losses, step_s = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -1465,11 +1507,17 @@ def train_oracle_case(name, cfg, batch, seq, steps=3, micro=2, lr=1e-6,
             load_state(model, init)
         t0 = time.perf_counter()
         losses = [float(g.run(loss, [loss, train_op], {ids: x, labels: y},
-                              num_micro_batches=micro)[0])
+                              num_micro_batches=BERT_MICRO)[0])
                   for _ in range(steps)]
         runs[dev] = (losses, state_numpy(model), time.perf_counter() - t0)
         del g, model
         gc.collect()
+    return oracle_report(name, runs, init, lr, steps, check)
+
+
+def oracle_report(name, runs, init, lr, steps, check):
+    """``train_oracle_case``'s limits over ``runs`` (device -> (losses,
+    final state, seconds)) from the weights ``init``."""
     (lc, pc, tc), (lg, pg, tg) = runs["cpu"], runs["cuda"]
     loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
     upd_rel, max_abs = 0.0, 0.0
@@ -2099,18 +2147,19 @@ def load_entry():
 
 def reset_flash_counts():
     for fn in flash_wrappers().values():
-        fn.launches = fn.tensor_core_launches = fn.tf32_launches = 0
-        fn.wgmma_launches = 0
+        for name in fa._COUNTS:
+            setattr(fn, name, 0)
 
 
 def flash_counts():
     """Each flash wrapper's launches since ``reset_flash_counts``, also by
-    route."""
+    route, and the causal ones among them."""
     return {n: {"launches": fn.launches,
                 "by_route": {"wgmma": fn.wgmma_launches,
                              "3xtf32": fn.tf32_launches,
                              "mma.sync": fn.tensor_core_launches -
-                             fn.wgmma_launches - fn.tf32_launches}}
+                             fn.wgmma_launches - fn.tf32_launches},
+                "causal": fn.causal_launches}
             for n, fn in flash_wrappers().items()}
 
 
@@ -2647,6 +2696,309 @@ def phase_train_recipe():
     return out
 
 
+# ---------------------------------------------------------------------------
+# BERT-base pre-training and the small models (phases 17 and 18)
+# ---------------------------------------------------------------------------
+
+# BERT-Base Uncased at its published widths (Devlin et al. 2019, Google's
+# bert_config.json): BertConfig's defaults, vocab 30522, hidden 768, 12
+# layers, 12 heads, intermediate 3072, 512 positions, 2 segment types.
+# Nothing is cut.  Seq 512, global batch 32 in 2 micro-batches.
+BERT_BATCH, BERT_SEQ, BERT_MICRO, BERT_STEPS = 32, 512, 2, 6
+# Adam without warmup: at 1e-4 (BERT's peak, reached after 10,000 warmup
+# steps in its recipe) the 12-layer post-norm stack's loss climbs in the
+# first steps on the card (11.19 -> 15.65 in fp32); 1e-5 falls from the
+# first step
+BERT_LR = 1e-5
+BERT_MASK_ID = 103           # [MASK] in BERT-Base Uncased's vocabulary
+BERT_MLM_RATE = 0.15
+# phase 17's oracle: a 2-layer fp32 BERT at BERT-base's widths, batch 4 of
+# seq 128, 3 steps at a small lr, so that the updates stay in the range
+# where card and CPU agree step for step
+BERT_ORACLE_LAYERS, BERT_ORACLE_BATCH, BERT_ORACLE_SEQ = 2, 4, 128
+BERT_ORACLE_STEPS, BERT_ORACLE_LR = 3, 1e-6
+# the flash kernels each dtype must run, as the profiler names them: fp32
+# q/k/v on 3xTF32, bf16 (the attention op under autocast) on wgmma
+BERT_KERNELS = {
+    "float32": (r"flash_fwd_mma_kernel<64, float, float>",
+                r"flash_bwd_dkv_tf32_kernel<64, float, (true|\(bool\)1)>"),
+    "bfloat16": (r"flash_fwd_wgmma_kernel<64>",
+                 r"flash_bwd_dkv_wgmma_kernel<64, (true|\(bool\)1)>")}
+
+
+def bert_batch(vocab, batch, seq, seed=0):
+    """Pre-training data from numpy seed ``seed``: ids uniform over the
+    vocabulary, segment 0 for the first half of each sequence and 1 for
+    the second, 15 % of positions masked ([MASK] in the input, the
+    original id as the MLM label, -100 elsewhere), next-sentence labels
+    0/1."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+    tt = np.zeros((batch, seq), np.int32)
+    tt[:, seq // 2:] = 1
+    masked = rng.rand(batch, seq) < BERT_MLM_RATE
+    mlm = np.where(masked, ids, -100).astype(np.int32)
+    ids = np.where(masked, BERT_MASK_ID, ids).astype(np.int32)
+    nsp = rng.randint(0, 2, (batch,)).astype(np.int32)
+    return ids, tt, mlm, nsp
+
+
+def build_bert(cfg, batch, seq, device, lr, bf16=False, seed=0):
+    """``BertForPreTraining(cfg)`` on a define-and-run graph, built under
+    ``ht.autocast("bfloat16")`` with ``bf16``, and Adam: ``(graph,
+    placeholders, model, loss, train op)``."""
+    with ht.graph("define_and_run", create_new=True, device=device,
+                  seed=seed) as g:
+        phs = [ht.parallel_placeholder("int32", (batch, seq), name=n)
+               for n in ("input_ids", "token_type_ids", "mlm_labels")]
+        phs.append(ht.parallel_placeholder("int32", (batch,),
+                                           name="nsp_labels"))
+        with ht.autocast("bfloat16", enabled=bf16):
+            model = BertForPreTraining(cfg)
+            loss = model(*phs)
+        train_op = ht.optim.AdamOptimizer(lr=lr).minimize(loss)
+    return g, phs, model, loss, train_op
+
+
+def bert_pretrain(bf16):
+    """One dtype of phase 17: ``BERT_STEPS`` captured steps, their
+    readings and gates."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BertConfig()
+    dtype = "bfloat16" if bf16 else "float32"
+    t0 = time.perf_counter()
+    g, phs, model, loss, train_op = build_bert(cfg, BERT_BATCH, BERT_SEQ,
+                                               "cuda", BERT_LR, bf16)
+    n_params = sum(p.get_data().numel() for p in model.parameters())
+    feeds = dict(zip(phs, bert_batch(cfg.vocab_size, BERT_BATCH, BERT_SEQ)))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def step():
+        return g.run(loss, [loss, train_op], feeds,
+                     num_micro_batches=BERT_MICRO)
+
+    reset_flash_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(BERT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        l, upd = step()
+        losses.append(float(l))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        if upd is not None:
+            raise AssertionError("the update op's fetch is not None")
+    counts = flash_counts()
+    launches = {n: c["launches"] for n, c in counts.items()}
+    by_route = {n: c["by_route"] for n, c in counts.items()}
+    causal = {n: c["causal"] for n, c in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bert {dtype}: losses {losses} not finite "
+                             f"and falling")
+    # 12 layers, each one forward and one fused backward a micro-batch: the
+    # byte rule 2 * 512 * 64 * (4 + itemsize) <= 4 MiB picks the fused
+    # backward in both dtypes; 2 micro-batches a step
+    per_step = cfg.num_layers * BERT_MICRO
+    each = per_step * BERT_STEPS
+    want = {"flash_fwd": each, "flash_bwd_fused": each, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    if not fa._use_fused(BERT_SEQ, cfg.head_dim,
+                         torch.bfloat16 if bf16 else torch.float32):
+        raise AssertionError("the byte rule does not pick the fused "
+                             "backward at BERT's shape")
+    route = "wgmma" if bf16 else "3xtf32"
+    on_route = {n: r[route] for n, r in by_route.items()}
+    if launches != want or on_route != want or any(causal.values()):
+        raise AssertionError(f"bert {dtype}: flash launches {launches}, "
+                             f"{by_route}, causal {causal}; want {want} on "
+                             f"{route}, none causal")
+    if len(g._plan_pool) != 1 or g.compile_count != 1:
+        raise AssertionError(f"bert {dtype}: {len(g._plan_pool)} plans, "
+                             f"{g.compile_count} captured graphs")
+    prof = profile_train(g, loss, train_op, feeds, {
+        "flash_fwd_": per_step, "flash_bwd_dq_": 0,
+        "flash_bwd_dkv_": per_step})
+    for pattern in BERT_KERNELS[dtype]:
+        seen = sum(n for k, n in prof["flash_kernels"].items()
+                   if re.search(pattern, k))
+        if seen != per_step * prof["steps"]:
+            raise AssertionError(f"bert {dtype}: the profile saw {seen} "
+                                 f"launches of {pattern} in "
+                                 f"{prof['steps']} steps, want "
+                                 f"{per_step * prof['steps']}: "
+                                 f"{prof['flash_kernels']}")
+    steady = step_s[1:]
+    out = {"config": "bert_base_uncased", "dtype": dtype,
+           "autocast": "bfloat16" if bf16 else None, "params": n_params,
+           "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_heads, "ffn": cfg.ffn_size,
+           "vocab": cfg.vocab_size, "global_batch": BERT_BATCH,
+           "seq": BERT_SEQ, "micro_batches": BERT_MICRO, "lr": BERT_LR,
+           "setup_s": setup_s, "losses": losses, "step_s": step_s,
+           "ms_per_step": 1e3 * float(np.mean(steady)),
+           "tokens_per_s": BERT_BATCH * BERT_SEQ / float(np.mean(steady)),
+           "peak_memory_bytes": peak, "peak_above_start_bytes": peak - base,
+           "flash_launches": launches, "flash_launches_by_route": by_route,
+           "causal_flash_launches": causal,
+           "compile_count": g.compile_count, "profile": prof}
+    del g, phs, model, loss, train_op, feeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_oracle():
+    """A 2-layer fp32 BERT at BERT-base's widths trains
+    ``BERT_ORACLE_STEPS`` steps on the CPU (plain versions) and on the card
+    (kernels, captured step) from the same weights and batch, within phase
+    8's limits (``oracle_report``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, seq = BERT_ORACLE_BATCH, BERT_ORACLE_SEQ
+    steps, lr = BERT_ORACLE_STEPS, BERT_ORACLE_LR
+    cfg = BertConfig(num_layers=BERT_ORACLE_LAYERS)
+    data = bert_batch(cfg.vocab_size, batch, seq, seed=1)
+    runs, init = {}, None
+    for dev in ("cpu", "cuda"):
+        g, phs, model, loss, train_op = build_bert(cfg, batch, seq, dev, lr,
+                                                   seed=1)
+        if init is None:
+            init = module_state_numpy(model)
+        else:
+            load_module_state(model, init)
+        feeds = dict(zip(phs, data))
+        t0 = time.perf_counter()
+        losses = [float(g.run(loss, [loss, train_op], feeds,
+                              num_micro_batches=BERT_MICRO)[0])
+                  for _ in range(steps)]
+        runs[dev] = (losses, module_state_numpy(model),
+                     time.perf_counter() - t0)
+        del g, model
+        gc.collect()
+    return {"layers": BERT_ORACLE_LAYERS, "seq": seq, "batch": batch,
+            "steps": steps, "lr": lr, **oracle_report("bert_base_2_layers", runs, init, lr,
+                                      steps, True)}
+
+
+def phase_bert_pretrain():
+    """Phase 17: BERT-base pre-training in fp32 and under bf16 autocast,
+    then its card-against-CPU oracle."""
+    out = {"float32": bert_pretrain(bf16=False),
+           "bfloat16": bert_pretrain(bf16=True)}
+    emit({"phase": "bert_pretrain", **out, "oracle": bert_oracle()})
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 18's models, with the sizes their sources give them: CIFAR-10
+# images (batch 128, 3x32x32, 10 classes); the medium LSTM of Zaremba et
+# al. 2014 (vocab 10000, hidden 650, 2 layers, 35 steps, batch 20), also
+# with GRU cells; Criteo's layout (26 sparse fields over one shared table
+# of 1,000,000 ids, embedding dim 16, 13 dense features, batch 2048)
+SMALL_STEPS = 3
+SMALL_LR = 1e-4
+CIFAR = {"batch": 128, "shape": (3, 32, 32), "classes": 10}
+PTB_MEDIUM = {"vocab": 10000, "hidden": 650, "layers": 2, "seq": 35,
+              "batch": 20}
+CRITEO = {"fields": 26, "vocab": 1_000_000, "dim": 16, "dense": 13,
+          "batch": 2048}
+
+
+def small_model_cases():
+    """name -> (make model, [(dtype, array)] batch, loss(model, *phs))."""
+    rng = np.random.RandomState(0)
+    b = CIFAR["batch"]
+    images = [("float32", rng.randn(b, *CIFAR["shape"]).astype(np.float32)),
+              ("int32", rng.randint(0, CIFAR["classes"], (b,))
+               .astype(np.int32))]
+    toks = rng.randint(0, PTB_MEDIUM["vocab"],
+                       (PTB_MEDIUM["batch"], PTB_MEDIUM["seq"] + 1))
+    text = [("int32", toks[:, :-1].astype(np.int32)),
+            ("int32", toks[:, 1:].astype(np.int32))]
+    n = CRITEO["batch"]
+    clicks = [("int32", rng.randint(0, CRITEO["vocab"],
+                                    (n, CRITEO["fields"])).astype(np.int32)),
+              ("float32", np.log1p(rng.exponential(
+                  4.0, (n, CRITEO["dense"]))).astype(np.float32)),
+              ("float32", (rng.rand(n) < 0.25).astype(np.float32))]
+    ctr_args = (CRITEO["fields"], CRITEO["vocab"], CRITEO["dim"],
+                CRITEO["dense"])
+
+    def labelled(model, *phs):
+        return model(*phs)
+
+    def ctr(model, ids, dense, y):
+        return ctr_loss(model(ids, dense), y)
+    lm = (PTB_MEDIUM["vocab"], PTB_MEDIUM["hidden"])
+    return {
+        "simple_cnn": (lambda: SimpleCNN(CIFAR["classes"]), images,
+                       labelled),
+        "resnet18": (lambda: resnet18(CIFAR["classes"]), images, labelled),
+        "lstm_lm": (lambda: RNNLanguageModel(
+            *lm, "lstm", PTB_MEDIUM["layers"]), text, labelled),
+        "gru_lm": (lambda: RNNLanguageModel(
+            *lm, "gru", PTB_MEDIUM["layers"]), text, labelled),
+        "wdl": (lambda: WDL(*ctr_args), clicks, ctr),
+        "deepfm": (lambda: DeepFM(*ctr_args), clicks, ctr),
+        "dcn": (lambda: DCN(*ctr_args), clicks, ctr)}
+
+
+def phase_small_models():
+    """Phase 18: each model trains ``SMALL_STEPS`` Adam steps on the card
+    through the graph (captured after the first); the loss must fall, and
+    BatchNorm's running statistics stay at their defaults, as under the
+    JAX package's define-and-run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, (make, batch, loss_fn) in small_model_cases().items():
+        t0 = time.perf_counter()
+        with ht.graph("define_and_run", create_new=True, device="cuda",
+                      seed=0) as g:
+            phs = [ht.placeholder(dt, a.shape) for dt, a in batch]
+            model = make()
+            loss = loss_fn(model, *phs)
+            train_op = ht.optim.AdamOptimizer(lr=SMALL_LR).minimize(loss)
+        feeds = {p: a for p, (_, a) in zip(phs, batch)}
+        losses, step_s = [], []
+        for _ in range(SMALL_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(g.run(loss, [loss, train_op], feeds)[0]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: losses {losses} not finite and "
+                                 f"falling")
+        stats = {k: v for k, v in module_state_numpy(model).items()
+                 if k.endswith(("running_mean", "running_var"))}
+        moved = [k for k, v in stats.items()
+                 if not np.array_equal(v, np.zeros_like(v) if
+                                       k.endswith("mean") else np.ones_like(v))]
+        if moved or g.compile_count != 1:
+            raise AssertionError(f"{name}: running statistics {moved} moved "
+                                 f"in define-and-run steps, or "
+                                 f"{g.compile_count} captured graphs")
+        out[name] = {"params": sum(p.get_data().numel()
+                                   for p in model.parameters()),
+                     "batch": [list(a.shape) for _, a in batch],
+                     "losses": losses, "step_s": step_s,
+                     "last_step_ms": 1e3 * step_s[-1],
+                     "batchnorm_buffers_unchanged": len(stats),
+                     "compile_count": g.compile_count,
+                     "wall_s": time.perf_counter() - t0}
+        del g, phs, model, loss, train_op, feeds
+        gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "small_models", "steps": SMALL_STEPS, "lr": SMALL_LR,
+          "cifar10": CIFAR, "ptb_medium": PTB_MEDIUM, "criteo": CRITEO,
+          **out})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2677,6 +3029,8 @@ def main():
     phase_graft_entry()
     phase_train_entry()
     phase_train_recipe()
+    bert = phase_bert_pretrain()
+    phase_small_models()
     rows = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -2697,11 +3051,19 @@ def main():
              "flash_bwd_fused": "gpt2/bf16"}
     entries = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2,
                "flash_bwd_fused": 2}
+    # phase 17's BERT runs (not causal) add their launches to the rows
+    bert_runs = list(bert.values())
     for name, at in where.items():
-        wgmma = sum(t["wgmma_launches"][name] for t in train)
-        tf32 = sum(t["tf32_launches"][name] for t in train)
-        mma = sum(t["tensor_core_launches"][name] for t in train) - \
-            wgmma - tf32
+        wgmma = sum(t["wgmma_launches"][name] for t in train) + \
+            sum(b["flash_launches_by_route"][name]["wgmma"]
+                for b in bert_runs)
+        tf32 = sum(t["tf32_launches"][name] for t in train) + \
+            sum(b["flash_launches_by_route"][name]["3xtf32"]
+                for b in bert_runs)
+        mma = sum(t["tensor_core_launches"][name] - t["wgmma_launches"][name]
+                  - t["tf32_launches"][name] for t in train) + \
+            sum(b["flash_launches_by_route"][name]["mma.sync"]
+                for b in bert_runs)
         r = flash[at][name]
         # the all-bf16 and the all-fp32 readings at both training shapes
         keys = ("ms", "device_ms", "bound_ms", "library_ms",
@@ -2710,11 +3072,19 @@ def main():
                                for k in keys}
                        for shape in ("llama", "gpt2")}
                       for types in ("bf16", "fp32"))
+        # BERT-base's attention, not causal (phase 6)
+        noncausal = {"shape": dict(zip(("b", "s", "h", "d"), BERT_ATTN)),
+                     **{types: {k: flash[f"bert/{types}"][name][k]
+                                for k in keys + ("plain_ms", "bound_by")}
+                        for types in ("bf16", "fp32")}}
         rows.append({
             "name": name, "route": "cuda",
             "source": "hetu_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name], "types": at,
-            "launches": sum(t["flash_launches"][name] for t in train),
+            "launches": sum(t["flash_launches"][name] for t in train) +
+            sum(b["flash_launches"][name] for b in bert_runs),
+            "noncausal_launches": sum(b["flash_launches"][name]
+                                      for b in bert_runs),
             "wgmma_launches": wgmma,
             "launches_by_route": {"wgmma": wgmma, "3xtf32": tf32,
                                   "mma.sync": mma},
@@ -2726,7 +3096,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"], "bf16": bf16, "fp32": fp32})
+            "device_ms": r["device_ms"], "bf16": bf16, "fp32": fp32,
+            "noncausal": noncausal})
     # the latent kernel at the MLA engine's unified-step batch, the paged
     # decode kernel at the engine's decode batch of 8 in bf16; no PyTorch
     # call attends through a page table, so no library time

@@ -19,18 +19,32 @@ Training reads as in the JAX package::
         ids = ht.parallel_placeholder("int32", (8, 1024))
         ...
 
-and so does the recipe around it: ``ht.autocast``, ``ht.GradScaler``,
+and so do models built from ``nn``'s layers (``nn.Linear``,
+``nn.Conv2d``, ``nn.Sequential``, ...) and ``ops.functional``'s ops, the
+models of ``models`` (GPT/LLaMA, BERT, CNNs, RNNs, CTR), and the recipe
+around them: ``ht.autocast``, ``ht.GradScaler``,
 ``ht.recompute``, ``ht.cpu_offload``, the lr schedules and optimizers of
 ``optim``, ``data.Dataloader`` and ``utils.checkpoint``; the training
 entry point is ``examples/train_gpt_torch.py``.
 """
-from . import optim
+from . import nn, optim
 from .core.device import resolve_device
 from .core.dtype import torch_dtype
-from .graph import graph, parallel_placeholder, placeholder
+from .graph import (parallel_parameter, parallel_placeholder, parameter,
+                    placeholder)
 from .graph.amp import GradScaler, autocast
+from .graph.ctor import (ConstantInitializer, HeNormalInitializer,
+                         HeUniformInitializer, NormalInitializer,
+                         ProvidedInitializer, TruncatedNormalInitializer,
+                         UniformInitializer, XavierNormalInitializer,
+                         XavierUniformInitializer)
+from .graph.graph import graph
 from .graph.recompute import cpu_offload, recompute
 
-__all__ = ["GradScaler", "autocast", "cpu_offload", "graph", "optim",
-           "parallel_placeholder", "placeholder", "recompute",
+__all__ = ["ConstantInitializer", "GradScaler", "HeNormalInitializer",
+           "HeUniformInitializer", "NormalInitializer", "ProvidedInitializer",
+           "TruncatedNormalInitializer", "UniformInitializer",
+           "XavierNormalInitializer", "XavierUniformInitializer", "autocast",
+           "cpu_offload", "graph", "nn", "optim", "parallel_parameter",
+           "parallel_placeholder", "parameter", "placeholder", "recompute",
            "resolve_device", "torch_dtype"]

@@ -41,6 +41,23 @@ class ConstantInitializer(Initializer):
         return torch.full(shape, self.value, dtype=dtype, device=graph.device)
 
 
+def _uniform(shape, lo, hi, dtype, gen, device):
+    x = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return (lo + (hi - lo) * x).to(dtype)
+
+
+class UniformInitializer(Initializer):
+    """Uniform on ``(-lr, lr)``, or on ``lr = (lo, hi)``."""
+
+    def __init__(self, lr: Union[float, Sequence[float]] = 0.1, seed=None):
+        self.range = (-lr, lr) if np.isscalar(lr) else tuple(lr)
+        self.seed = seed
+
+    def __call__(self, shape, dtype, graph):
+        return _uniform(shape, *self.range, dtype, self._generator(graph),
+                        graph.device)
+
+
 class NormalInitializer(Initializer):
     def __init__(self, mean: float = 0.0, stddev: float = 0.01, seed=None):
         self.mean, self.stddev, self.seed = mean, stddev, seed
@@ -51,6 +68,34 @@ class NormalInitializer(Initializer):
         return (self.mean + self.stddev * x).to(dtype)
 
 
+class TruncatedNormalInitializer(NormalInitializer):
+    """Normal(mean, stddev) cut at two standard deviations, as
+    ``jax.random.truncated_normal(-2, 2)``: draws outside are drawn
+    again."""
+
+    def __call__(self, shape, dtype, graph):
+        gen = self._generator(graph)
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=graph.device)
+        out = x.abs() > 2.0
+        while bool(out.any()):
+            x[out] = torch.randn(int(out.sum()), generator=gen,
+                                 dtype=torch.float32, device=graph.device)
+            out = x.abs() > 2.0
+        return (self.mean + self.stddev * x).to(dtype)
+
+
+class XavierUniformInitializer(Initializer):
+    def __init__(self, gain: float = 1.0, seed=None):
+        self.gain, self.seed = gain, seed
+
+    def __call__(self, shape, dtype, graph):
+        fan_in, fan_out = _fans(shape)
+        limit = self.gain * float(np.sqrt(6.0 / (fan_in + fan_out)))
+        return _uniform(shape, -limit, limit, dtype, self._generator(graph),
+                        graph.device)
+
+
 class XavierNormalInitializer(Initializer):
     def __init__(self, gain: float = 1.0, seed=None):
         self.gain, self.seed = gain, seed
@@ -58,6 +103,29 @@ class XavierNormalInitializer(Initializer):
     def __call__(self, shape, dtype, graph):
         fan_in, fan_out = _fans(shape)
         std = self.gain * float(np.sqrt(2.0 / (fan_in + fan_out)))
+        x = torch.randn(shape, generator=self._generator(graph),
+                        dtype=torch.float32, device=graph.device)
+        return (std * x).to(dtype)
+
+
+class HeUniformInitializer(Initializer):
+    def __init__(self, seed=None):
+        self.seed = seed
+
+    def __call__(self, shape, dtype, graph):
+        fan_in, _ = _fans(shape)
+        limit = float(np.sqrt(6.0 / fan_in))
+        return _uniform(shape, -limit, limit, dtype, self._generator(graph),
+                        graph.device)
+
+
+class HeNormalInitializer(Initializer):
+    def __init__(self, seed=None):
+        self.seed = seed
+
+    def __call__(self, shape, dtype, graph):
+        fan_in, _ = _fans(shape)
+        std = float(np.sqrt(2.0 / fan_in))
         x = torch.randn(shape, generator=self._generator(graph),
                         dtype=torch.float32, device=graph.device)
         return (std * x).to(dtype)

@@ -124,8 +124,12 @@ class Graph:
         return t
 
     def make_op(self, op_type: str, impl: Callable, inputs: Sequence[Any],
-                attrs: Optional[Dict[str, Any]] = None,
-                name: str = "") -> Union[Tensor, List[Tensor]]:
+                attrs: Optional[Dict[str, Any]] = None, name: str = "",
+                num_outputs: int = 1) -> Union[Tensor, List[Tensor]]:
+        """Records ``impl`` over ``inputs``; its outputs' shapes and dtypes
+        come from running it on ``meta`` tensors.  One output Tensor, or
+        the list of them where ``num_outputs`` > 1 (or the impl returns
+        several)."""
         attrs = dict(attrs or {})
         in_tensors = [self.as_tensor(x) for x in inputs]
         node = OpNode(op_type, impl, in_tensors, attrs, name)
@@ -140,8 +144,9 @@ class Graph:
                    graph=self)
             for i, o in enumerate(flat)]
         self.ops.append(node)
-        return node.outputs if isinstance(out, (tuple, list)) \
-            else node.outputs[0]
+        if num_outputs == 1 and len(node.outputs) == 1:
+            return node.outputs[0]
+        return node.outputs
 
     # -- variables / placeholders --------------------------------------------
 

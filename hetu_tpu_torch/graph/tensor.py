@@ -68,16 +68,54 @@ class Tensor:
     def __radd__(self, other):
         return self._ops().add(other, self)
 
+    def __sub__(self, other):
+        return self._ops().sub(self, other)
+
+    def __rsub__(self, other):
+        return self._ops().sub(other, self)
+
     def __mul__(self, other):
         return self._ops().mul(self, other)
 
     def __rmul__(self, other):
         return self._ops().mul(other, self)
 
+    def __truediv__(self, other):
+        return self._ops().div(self, other)
+
+    def __rtruediv__(self, other):
+        return self._ops().div(other, self)
+
+    def __neg__(self):
+        return self._ops().neg(self)
+
+    def __pow__(self, e):
+        return self._ops().pow(self, e)
+
+    def __matmul__(self, other):
+        return self._ops().matmul(self, other)
+
+    def __getitem__(self, idx):
+        return self._ops().getitem(self, idx)
+
     def reshape(self, *shape):
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
             shape = tuple(shape[0])
         return self._ops().reshape(self, shape)
+
+    def transpose(self, *perm):
+        if len(perm) == 1 and isinstance(perm[0], (list, tuple)):
+            perm = tuple(perm[0])
+        return self._ops().transpose(self, perm or None)
+
+    def sum(self, axis=None, keepdims=False):
+        return self._ops().reduce_sum(self, axis, keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._ops().reduce_mean(self, axis, keepdims)
+
+    def to(self, dtype):
+        return self._ops().cast(self, dtype)
 
     def __repr__(self) -> str:
         return (f"Tensor(name={self.name!r}, shape={self.shape}, "

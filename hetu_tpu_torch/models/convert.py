@@ -9,6 +9,10 @@ full-width model never passes through host numpy (nor, for an MLA
 config, through one SVD per layer).  Both return tensors under the normalised names (``h0.attn...``).
 ``load_state`` writes such a dict into the training model
 (``GPTLMHeadModel``) and ``state_numpy`` reads it back out.
+``load_module_state`` and ``module_state_numpy`` do the same for any
+module of the port under the JAX package's ``state_dict()`` names
+(attribute paths, buffers such as BatchNorm's running statistics
+included), unnormalised.
 """
 from __future__ import annotations
 
@@ -109,3 +113,41 @@ def state_numpy(model) -> Dict[str, np.ndarray]:
     feeds ``state_from_numpy`` and so the serving ``Engine`` and
     ``generate``."""
     return {_Params._norm(n): p.numpy() for n, p in model.named_parameters()}
+
+
+def load_module_state(model, state: Dict[str, object]) -> None:
+    """Writes a ``hetu_tpu`` ``state_dict()`` (numpy arrays or tensors
+    under the attribute-path names) into a port module of the same
+    config: the parameters into its graph's variables (cast to their
+    dtypes), the buffers in place of its own.  A missing or extra name
+    raises ``KeyError``, a shape that differs ``ValueError``, before
+    anything is written."""
+    params = dict(model.named_parameters())
+    bufs = dict(model.named_buffers())
+    missing = sorted((set(params) | set(bufs)) - set(state))
+    unexpected = sorted(set(state) - set(params) - set(bufs))
+    if missing or unexpected:
+        raise KeyError(f"missing={missing} unexpected={unexpected}")
+    for name, value in state.items():
+        want = params[name].shape if name in params \
+            else tuple(bufs[name].shape)
+        got = tuple(value.shape) if hasattr(value, "shape") \
+            else np.shape(value)
+        if got != tuple(want):
+            raise ValueError(f"{name}: shape {got}, the module's is "
+                             f"{tuple(want)}")
+    for name, p in params.items():
+        p.graph.reset_variable(p, state[name])
+    for name in bufs:
+        model._set_buffer(name, state[name])
+
+
+def module_state_numpy(model) -> Dict[str, np.ndarray]:
+    """A port module's parameters and buffers as numpy under the
+    attribute-path names (the JAX package's ``state_dict()`` keys); bf16
+    and fp16 widen to fp32."""
+    out = {n: p.numpy() for n, p in model.named_parameters()}
+    for n, b in model.named_buffers():
+        out[n] = b.detach().float().cpu().numpy() \
+            if b.is_floating_point() else b.detach().cpu().numpy()
+    return out

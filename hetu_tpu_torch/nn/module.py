@@ -103,11 +103,43 @@ class Module(torch.nn.Module):
         return missing, unexpected
 
 
+class Sequential(Module):
+    """Applies its modules in order; built from modules, or from one
+    ``OrderedDict`` of named modules."""
+
+    def __init__(self, *modules: Module):
+        super().__init__()
+        if len(modules) == 1 and isinstance(modules[0], OrderedDict):
+            for name, m in modules[0].items():
+                self.add_module(name, m)
+        else:
+            for i, m in enumerate(modules):
+                self.add_module(str(i), m)
+
+    def forward(self, x):
+        for m in self._modules.values():
+            x = m(x)
+        return x
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, idx: int):
+        return list(self._modules.values())[idx]
+
+
 class ModuleList(Module):
     def __init__(self, modules=()):
         super().__init__()
         for i, m in enumerate(modules):
             self.add_module(str(i), m)
+
+    def append(self, module: Module) -> "ModuleList":
+        self.add_module(str(len(self._modules)), module)
+        return self
 
     def __iter__(self):
         return iter(self._modules.values())
@@ -117,3 +149,25 @@ class ModuleList(Module):
 
     def __getitem__(self, idx):
         return list(self._modules.values())[idx]
+
+
+class ModuleDict(Module):
+    def __init__(self, modules: Optional[Dict[str, Module]] = None):
+        super().__init__()
+        for name, m in (modules or {}).items():
+            self.add_module(name, m)
+
+    def __getitem__(self, key: str) -> Module:
+        return self._modules[key]
+
+    def __setitem__(self, key: str, module: Module) -> None:
+        self.add_module(key, module)
+
+    def keys(self):
+        return self._modules.keys()
+
+    def items(self):
+        return self._modules.items()
+
+    def values(self):
+        return self._modules.values()

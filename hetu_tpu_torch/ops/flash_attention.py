@@ -31,7 +31,7 @@ Two implementations of each function:
   counts its launches in ``.launches`` and, of those, the tensor-core ones
   (as the library reports them) in ``.tensor_core_launches``, the 3xTF32
   ones in ``.tf32_launches`` and the ``wgmma`` ones in
-  ``.wgmma_launches``.
+  ``.wgmma_launches``; the causal ones also in ``.causal_launches``.
 
 ``_flash_fwd`` and ``_flash_bwd`` dispatch on the tensors' device: the
 plain versions for CPU tensors, the kernels for CUDA tensors, with no
@@ -313,13 +313,17 @@ _ROUTE_BF16, _ROUTE_TF32, _ROUTE_WGMMA = 1, 2, 3
 
 # the launch counters of every flash wrapper
 _COUNTS = ("launches", "tensor_core_launches", "tf32_launches",
-           "wgmma_launches")
+           "wgmma_launches", "causal_launches")
 
 
-def _count_launch(wrapper, lib, entry: int, d: int, code: int) -> None:
+def _count_launch(wrapper, lib, entry: int, d: int, code: int,
+                  causal: bool = False) -> None:
     """Adds one launch to ``wrapper``'s counts, on the route the library
-    reports for this entry, head dim and type code."""
+    reports for this entry, head dim and type code, and to its causal
+    ones when ``causal``."""
     wrapper.launches += 1
+    if causal:
+        wrapper.causal_launches += 1
     route = lib.hetu_flash_uses_tensor_cores(entry, d, code)
     if route in (_ROUTE_BF16, _ROUTE_TF32, _ROUTE_WGMMA):
         wrapper.tensor_core_launches += 1
@@ -362,7 +366,7 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool, segment_ids=None,
             lse.data_ptr(), qs_ptr, ks_ptr, b, sq, sk, h, d, float(scale),
             int(bool(causal)), int(causal_offset), code, stream)
     _raise_on(err, lib, "flash attention forward")
-    _count_launch(flash_fwd_cuda, lib, _ENTRY_FWD, d, code)
+    _count_launch(flash_fwd_cuda, lib, _ENTRY_FWD, d, code, causal)
     return _unpad_heads(d0, out)[0], lse
 
 
@@ -402,7 +406,8 @@ def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
                 d, float(scale), int(bool(causal)), int(causal_offset), code,
                 0, stream)
         _raise_on(err, lib, "flash attention fused backward (dk/dv)")
-        _count_launch(flash_bwd_fused_cuda, lib, _ENTRY_DKV, d, code)
+        _count_launch(flash_bwd_fused_cuda, lib, _ENTRY_DKV, d, code,
+                      causal)
         return _unpad_heads(d0, dq, dk, dv)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -415,7 +420,7 @@ def flash_bwd_fused_cuda(q, k, v, out, lse, do, scale: float, causal: bool,
             float(scale), int(bool(causal)), int(causal_offset), code, 1,
             stream)
     _raise_on(err, lib, "flash attention fused backward")
-    _count_launch(flash_bwd_fused_cuda, lib, _ENTRY_DKV, d, code)
+    _count_launch(flash_bwd_fused_cuda, lib, _ENTRY_DKV, d, code, causal)
     return _unpad_heads(d0, dq_acc.to(q.dtype), dk, dv)
 
 
@@ -444,7 +449,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
             b, sq, sk, h, d, float(scale), int(bool(causal)),
             int(causal_offset), code, stream)
     _raise_on(err, lib, "flash attention dq backward")
-    _count_launch(flash_bwd_dq_cuda, lib, _ENTRY_DQ, d, code)
+    _count_launch(flash_bwd_dq_cuda, lib, _ENTRY_DQ, d, code, causal)
     return _unpad_heads(d0, dq)[0]
 
 
@@ -472,7 +477,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
             dv.data_ptr(), qs_ptr, ks_ptr, b, sq, sk, h, d, float(scale),
             int(bool(causal)), int(causal_offset), code, 0, stream)
     _raise_on(err, lib, "flash attention dk/dv backward")
-    _count_launch(flash_bwd_dkv_cuda, lib, _ENTRY_DKV, d, code)
+    _count_launch(flash_bwd_dkv_cuda, lib, _ENTRY_DKV, d, code, causal)
     return _unpad_heads(d0, dk, dv)
 
 

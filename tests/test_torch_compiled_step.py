@@ -210,7 +210,7 @@ def test_eager_switch_nests_and_restores():
 def test_every_kernel_wrapper_registers_its_launch_counters():
     registered = {fn: names for fn, names in capture._COUNTERS}
     flash = ("launches", "tensor_core_launches", "tf32_launches",
-             "wgmma_launches")
+             "wgmma_launches", "causal_launches")
     want = {fa.flash_fwd_cuda: flash, fa.flash_bwd_fused_cuda: flash,
             fa.flash_bwd_dq_cuda: flash, fa.flash_bwd_dkv_cuda: flash,
             rpa.ragged_paged_attention_cuda: ("launches",),

@@ -217,6 +217,9 @@ FLASH_CASES = [
     (2, 72, 200, 2, 128, True, "masked", 128),
     (1, 129, 257, 2, 128, False, None, 0),
     (3, 257, 130, 2, 64, True, None, -3),
+    # BERT-base's non-causal attention (s 512, 12 heads of 64), the batch
+    # cut from 16 to 2
+    (2, 512, 512, 12, 64, False, None, 0),
 ]
 WIDE = 256     # above this head dim the wide route runs, on the CUDA cores
 WGMMA_HEAD_DIMS = (64, 128)  # every bf16 flash kernel on wgmma

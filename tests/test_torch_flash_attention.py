@@ -295,6 +295,25 @@ def test_count_launch_follows_the_route_the_library_reports(route, counts):
             wrapper.tf32_launches, wrapper.wgmma_launches) == counts
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_count_launch_counts_causal_launches_apart(causal):
+    """A causal launch adds one to ``causal_launches`` too, so a path's
+    non-causal launches are ``launches - causal_launches``."""
+    class Lib:
+        def hetu_flash_uses_tensor_cores(self, entry, d, code):
+            return 3
+
+    def wrapper():
+        pass
+    for name in pfa._COUNTS:
+        setattr(wrapper, name, 0)
+    pfa._count_launch(wrapper, Lib(), pfa._ENTRY_FWD, 64, 1, causal)
+    assert (wrapper.launches, wrapper.causal_launches) == (1, int(causal))
+    for fn in (pfa.flash_fwd_cuda, pfa.flash_bwd_fused_cuda,
+               pfa.flash_bwd_dq_cuda, pfa.flash_bwd_dkv_cuda):
+        assert hasattr(fn, "causal_launches")
+
+
 def test_every_wrapper_counts_wgmma_launches():
     for fn in (pfa.flash_fwd_cuda, pfa.flash_bwd_fused_cuda,
                pfa.flash_bwd_dq_cuda, pfa.flash_bwd_dkv_cuda):
