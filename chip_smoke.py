@@ -174,7 +174,28 @@ Phases, each printing one JSON line:
     layers, 35 steps, batch 20), ``WDL``, ``DeepFM`` and ``DCN`` in
     Criteo's layout (26 fields over 1,000,000 ids, dim 16, 13 dense,
     batch 2048) train three captured Adam steps each; the loss must fall
-    and BatchNorm's running statistics stay at their defaults.
+    and BatchNorm's running statistics stay at their defaults;
+19. graph_layer: GPT-2 small's widths (as phase 15: vocab 50304, hidden
+    768, 12 layers, 12 heads, seq 1024, untied head, bf16, Adam lr 3e-4,
+    random weights from seed 0) through the graph layer: (a) placeholders
+    of a ``SymbolicDim("batch")`` on ``set_shape_buckets([4, 8],
+    pad_values={labels: -100})``, 12 captured steps at batch sizes drawn
+    from seed 0 over 1-8: ``compile_count`` and the plan count 2, 144
+    forward and 144 fused launches, the first padded step's loss within
+    1e-3 of the same rows run unpadded at their size (``capture.eager()``,
+    the same weights), a replayed step's ms at each bucket; (b) 3
+    ``run_level="grad"`` runs then an ``update`` run at batch 8: the
+    weights still during the GRAD runs, two captured plans of 12 forward
+    and 12 fused launches each, the accumulator zeroed, the update within
+    1 % of one Adam step on the fp32 sum of the four runs' gradients
+    (phase 8's update rule), a replayed GRAD run's ms; (c) the forward at
+    batch 4 in ``graph("eager")``, op by op: 12 forward launches, the
+    logits within the bf16 row limit of a define-and-run
+    ``COMPUTE_ONLY`` run's, its host ms; (d) ``graph("define_by_run")``:
+    ``get_or_compute(logits)`` launches 12 forwards, ``get_or_compute(
+    loss)`` on a loss built from those logits none (the cache), its loss
+    within 1e-3 of (c)'s define-and-run loss, and after ``invalidate()``
+    and a new ``feed`` 12 again.  Every flash launch on wgmma.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -2999,6 +3020,332 @@ def phase_small_models():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the graph layer at GPT-2 small's widths (phase 19)
+# ---------------------------------------------------------------------------
+
+GRAPH_SEQ, GRAPH_LR, GRAPH_STEPS = 1024, 3e-4, 12
+GRAPH_BUCKETS = [4, 8]
+GRAPH_GRAD_RUNS, GRAPH_GRAD_BATCH, GRAPH_EAGER_BATCH = 3, 8, 4
+
+
+def graph_trainer(cfg, init, batch, buckets=None):
+    """A define-and-run GPT graph over placeholders of ``(batch,
+    GRAPH_SEQ)`` (``batch`` may be a ``SymbolicDim``), Adam, the weights
+    ``init`` (``None``: its own, from the graph's seed 0); with
+    ``buckets`` the labels pad with -100."""
+    with ht.graph("define_and_run", create_new=True, device="cuda",
+                  seed=0) as g:
+        ids = ht.parallel_placeholder("int32", (batch, GRAPH_SEQ),
+                                      name="input_ids")
+        labels = ht.parallel_placeholder("int32", (batch, GRAPH_SEQ),
+                                         name="labels")
+        model = GPTLMHeadModel(cfg)
+        loss = model(ids, labels)
+        train_op = ht.optim.AdamOptimizer(lr=GRAPH_LR).minimize(loss)
+        if buckets is not None:
+            g.set_shape_buckets(buckets, pad_values={labels: -100})
+    if init is not None:
+        load_state(model, init)
+    return g, ids, labels, model, loss, train_op
+
+
+def flash_launch_counts():
+    """The forward's and the fused backward's launches since
+    ``reset_flash_counts``; every flash launch must have run on the wgmma
+    route (bf16 at head dim 64)."""
+    counts = flash_counts()
+    if any(c["by_route"]["wgmma"] != c["launches"] for c in counts.values()):
+        raise AssertionError(f"graph_layer: flash launches off the wgmma "
+                             f"route: {counts}")
+    return {n: c["launches"] for n, c in counts.items()
+            if n in ("flash_fwd", "flash_bwd_fused")}
+
+
+def plan_launches(entry):
+    """The flash launches a captured plan adds on each replay."""
+    names = {fn: n for n, fn in flash_wrappers().items()}
+    return {names[fn]: c for (fn, attr), c in entry.step.launches.items()
+            if fn in names and attr == "launches"}
+
+
+def graph_buckets(cfg):
+    """(a): a symbolic batch over buckets [4, 8], 12 captured steps at
+    batch sizes drawn from seed 0 over 1-8; a padded step's loss against
+    the same rows unpadded at their own size.  Returns the readings and
+    the model's first weights (random, seed 0), which (b)-(d) start
+    from."""
+    sizes = [int(b) for b in np.random.RandomState(0).randint(1, 9,
+                                                               GRAPH_STEPS)]
+    if not set(GRAPH_BUCKETS) <= set(sizes) or \
+            set(sizes) <= set(GRAPH_BUCKETS):
+        raise AssertionError(f"graph_layer: sizes {sizes} miss a bucket or "
+                             f"an unbucketed size")
+    g, ids, labels, model, loss, op = graph_trainer(
+        cfg, None, ht.SymbolicDim("batch"), GRAPH_BUCKETS)
+    init = state_numpy(model)
+    reset_flash_counts()
+    losses, host_ms, padded = [], [], None
+    for i, b in enumerate(sizes):
+        x, y = seeded_batch(cfg.vocab_size, b, GRAPH_SEQ, seed=100 + i)
+        if padded is None and b not in GRAPH_BUCKETS:
+            # the weights before the first padded step, for its reference
+            padded = {"step": i, "batch": b, "x": x, "y": y,
+                      "weights": state_numpy(model)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(g.run(loss, [loss, op], {ids: x, labels: y})[0]))
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = flash_launch_counts()
+    want = {"flash_fwd": 12 * GRAPH_STEPS, "flash_bwd_fused": 12 * GRAPH_STEPS}
+    compile_count, plans = g.compile_count, len(g._plan_pool)
+    bucket_ms = {}
+    for b in GRAPH_BUCKETS:
+        x, y = seeded_batch(cfg.vocab_size, b, GRAPH_SEQ, seed=200 + b)
+        bucket_ms[b] = step_ms(lambda: g.run(loss, [loss, op],
+                                             {ids: x, labels: y}))
+    if g.compile_count != compile_count:
+        raise AssertionError("graph_layer: the timed steps captured again")
+    del g, model, op
+    gc.collect()
+    # the same rows, unpadded, at their own size, from the same weights
+    b = padded["batch"]
+    g, ids, labels, model, loss, op = graph_trainer(cfg, padded["weights"],
+                                                    b)
+    with capture.eager():
+        exact = float(g.run(loss, [loss, op], {ids: padded["x"],
+                                               labels: padded["y"]})[0])
+    del g, model, op
+    gc.collect()
+    got = losses[padded["step"]]
+    out = {"batch_sizes": sizes, "buckets": GRAPH_BUCKETS,
+           "losses": losses, "host_ms": host_ms,
+           "compile_count": compile_count, "plans": plans,
+           "flash_launches": launches,
+           "step_ms_at_bucket": {str(k): v for k, v in bucket_ms.items()},
+           "padded_step": {"step": padded["step"], "batch": b,
+                           "bucket": min(x for x in GRAPH_BUCKETS if x >= b),
+                           "loss": got, "exact_size_loss": exact,
+                           "rel_diff": abs(got - exact) / abs(exact)}}
+    if compile_count != 2 or plans != 2 or launches != want or \
+            not np.isfinite(losses).all() or \
+            out["padded_step"]["rel_diff"] > 1e-3:
+        raise AssertionError(f"graph_layer buckets: {out}, want launches "
+                             f"{want}")
+    return out, init
+
+
+def graph_grad_update(cfg, init):
+    """(b): 3 GRAD runs then an UPDATE at batch 8, captured, against one
+    eager Adam step on the sum of the four runs' gradients, summed as the
+    run levels define it: in the parameters' dtype, the GRAD runs' in
+    order and the UPDATE run's added to that sum.  The same step on the
+    fp32 sum is reported beside it: Adam's first step moves an element by
+    about lr times the sign of its gradient, so where the four gradients
+    nearly cancel the bf16 sum's rounding flips that sign."""
+    batches = [seeded_batch(cfg.vocab_size, GRAPH_GRAD_BATCH, GRAPH_SEQ,
+                            seed=300 + i)
+               for i in range(GRAPH_GRAD_RUNS + 1)]
+    g, ids, labels, model, loss, op = graph_trainer(cfg, init,
+                                                    GRAPH_GRAD_BATCH)
+    params = [p.get_data() for p in model.parameters()]
+    start = [p.clone() for p in params]
+    reset_flash_counts()
+    grad_ms, still, losses = [], True, []
+    for i, (x, y) in enumerate(batches):
+        level = "grad" if i < GRAPH_GRAD_RUNS else "update"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(g.run(loss, [loss, op], {ids: x, labels: y},
+                                  run_level=level)[0]))
+        torch.cuda.synchronize()
+        if level == "grad":
+            grad_ms.append((time.perf_counter() - t0) * 1e3)
+            still &= all(torch.equal(a, b) for a, b in zip(params, start))
+    launches = flash_launch_counts()
+    by_plan = {e.level.value: plan_launches(e) for e in g._plan_pool.values()
+               if e.step is not None}
+    zeroed = all(float(a.abs().max()) == 0 for a in g._grad_accum.values())
+    got = state_numpy(model)
+    compile_count = g.compile_count
+    del g, model, op, params, start
+    gc.collect()
+    # the reference: each run's gradients (eager), summed, then one Adam
+    # step of the same optimizer code on fresh copies of the weights
+    with ht.graph("define_and_run", create_new=True, device="cuda",
+                  seed=0) as rg:
+        rids = ht.parallel_placeholder("int32", (GRAPH_GRAD_BATCH,
+                                                 GRAPH_SEQ))
+        rlab = ht.parallel_placeholder("int32", (GRAPH_GRAD_BATCH,
+                                                 GRAPH_SEQ))
+        rmodel = GPTLMHeadModel(cfg)
+        rloss = rmodel(rids, rlab)
+        xs = [p for _, p in rmodel.named_parameters()]
+        grads = ht.gradients(rloss, xs)
+    load_state(rmodel, init)
+    runs = []
+    with capture.eager():
+        for x, y in batches:
+            runs.append(rg.run(grads, feed_dict={rids: x, rlab: y}))
+    total = [v.clone() for v in runs[0]]
+    for gv in runs[1:-1]:
+        for a, v in zip(total, gv):
+            a.add_(v)
+    sums = {"param_dtype": [v + a for v, a in zip(runs[-1], total)],
+            "fp32": [sum(gv[i].float() for gv in runs)
+                     for i in range(len(xs))]}
+    del runs, total
+    upd_rel = {}
+    for kind, total in sums.items():
+        load_state(rmodel, init)
+        ht.optim.AdamOptimizer(lr=GRAPH_LR)._apply_updates(rg, xs, total)
+        want = state_numpy(rmodel)
+        upd_rel[kind] = max(
+            float(np.linalg.norm(got[k] - want[k])) /
+            max(float(np.linalg.norm(want[k] - init[k])), 1e-30)
+            for k in want)
+    del rg, rmodel, sums, total, grads, xs, want
+    gc.collect()
+    out = {"batch": GRAPH_GRAD_BATCH, "grad_runs": GRAPH_GRAD_RUNS,
+           "losses": losses, "grad_run_host_ms": grad_ms,
+           "replayed_grad_run_ms": float(np.mean(grad_ms[1:])),
+           "weights_still_during_grad_runs": still,
+           "accumulator_zeroed": zeroed, "compile_count": compile_count,
+           "captured_plans": by_plan, "flash_launches": launches,
+           "update_rel_diff_vs_summed_gradient_step": upd_rel}
+    per_run = {"flash_fwd": 12, "flash_bwd_fused": 12}
+    if not still or not zeroed or compile_count != 2 or \
+            upd_rel["param_dtype"] > 1e-2 or \
+            by_plan != {"grad": per_run, "update": per_run} or \
+            launches != {k: 4 * v for k, v in per_run.items()}:
+        raise AssertionError(f"graph_layer grad/update: {out}")
+    return out
+
+
+def graph_eager_and_by_run(cfg, init):
+    """(c) the forward at batch 4 in an eager graph, op by op, against a
+    define-and-run COMPUTE_ONLY run; (d) a define-by-run graph's logits
+    and then its loss from the cached logits, then a new feed."""
+    b = GRAPH_EAGER_BATCH
+    (x, y), (x2, y2) = (seeded_batch(cfg.vocab_size, b, GRAPH_SEQ, seed=s)
+                        for s in (400, 401))
+    # the define-and-run reference: logits and loss of one plan
+    with ht.graph("define_and_run", create_new=True, device="cuda",
+                  seed=0) as g:
+        ids = ht.parallel_placeholder("int32", (b, GRAPH_SEQ))
+        lab = ht.parallel_placeholder("int32", (b, GRAPH_SEQ))
+        model = GPTLMHeadModel(cfg)
+        logits_t = model.logits(ids)
+        loss_t = ht.nn.vocab_parallel_cross_entropy(logits_t, lab,
+                                                    ignore_index=-100)
+    load_state(model, init)
+    want_logits, want_loss = g.run([logits_t, loss_t], feed_dict={
+        ids: x, lab: y}, run_level="compute_only")
+    want_loss = float(want_loss)
+    del g, model
+    # (c) eager
+    with ht.graph("eager", create_new=True, device="cuda") as eg:
+        emodel = GPTLMHeadModel(cfg)
+        load_state(emodel, init)
+        xt = torch.from_numpy(x).cuda()
+        runs = []
+        for _ in range(2):          # the first pays the host's first calls
+            reset_flash_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_ops = len(eg.ops)
+            logits = emodel.logits(xt)
+            torch.cuda.synchronize()
+            runs.append({"host_ms": (time.perf_counter() - t0) * 1e3,
+                         "ops": len(eg.ops) - n_ops,
+                         "flash_launches": flash_launch_counts()})
+        eager_logits = logits.get_data()
+    eager_err = grad_agreement([eager_logits], [want_logits])
+    del eg, emodel, logits, eager_logits, want_logits
+    gc.collect()
+    # (d) define-by-run
+    with ht.graph("define_by_run", create_new=True, device="cuda",
+                  seed=0) as dg:
+        dids = ht.parallel_placeholder("int32", (b, GRAPH_SEQ))
+        dlab = ht.parallel_placeholder("int32", (b, GRAPH_SEQ))
+        dmodel = GPTLMHeadModel(cfg)
+        dlogits = dmodel.logits(dids)
+        dloss = ht.nn.vocab_parallel_cross_entropy(dlogits, dlab,
+                                                   ignore_index=-100)
+    load_state(dmodel, init)
+    dg.feed(dids, x)
+    dg.feed(dlab, y)
+    reads, first = [], None
+    for name, t in (("logits", dlogits), ("loss_from_cache", dloss),
+                    ("loss_after_invalidate", dloss)):
+        if name == "loss_after_invalidate":
+            dg.invalidate()
+            dg.feed(dids, x2)
+            dg.feed(dlab, y2)
+        reset_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = dg.get_or_compute(t)
+        torch.cuda.synchronize()
+        first = v if first is None else first
+        reads.append({"fetch": name, "host_ms": (time.perf_counter() - t0)
+                      * 1e3, "flash_launches": flash_launch_counts(),
+                      **({"loss": float(v)} if v.ndim == 0 else {})})
+    # the recomputation read the new feed: new logits in the cache
+    new_logits = not torch.equal(first, dg._computed[dlogits.id])
+    del dg, dmodel, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = {"batch": b, "runs": runs, "host_ms": runs[1]["host_ms"],
+             "logits_err_over_bf16_row_limit": eager_err,
+             "define_and_run_loss": want_loss}
+    by_run = {"batch": b, "reads": reads,
+              "new_feed_gave_new_logits": new_logits}
+    layers = {"flash_fwd": 12, "flash_bwd_fused": 0}
+    none = {"flash_fwd": 0, "flash_bwd_fused": 0}
+    if any(r["flash_launches"] != layers for r in runs) or eager_err > 1 \
+            or [r["flash_launches"] for r in reads] != [layers, none,
+                                                        layers] \
+            or abs(reads[1]["loss"] - want_loss) > 1e-3 * abs(want_loss) \
+            or not np.isfinite(reads[2]["loss"]) or not new_logits:
+        raise AssertionError(f"graph_layer eager {eager}, define-by-run "
+                             f"{by_run}")
+    return eager, by_run
+
+
+def phase_graph_layer():
+    """Phase 19: the graph layer on GPT-2 small's widths (see the module
+    docstring)."""
+    cfg = GPTConfig(vocab_size=50304, dtype="bfloat16")
+    t0 = time.perf_counter()
+    buckets, init = graph_buckets(cfg)
+    note("graph_layer", "buckets", buckets)
+    grad = graph_grad_update(cfg, init)
+    note("graph_layer", "grad_then_update", grad)
+    eager, by_run = graph_eager_and_by_run(cfg, init)
+    note("graph_layer", "eager", eager)
+    note("graph_layer", "define_by_run", by_run)
+    launches = {n: buckets["flash_launches"][n] + grad["flash_launches"][n]
+                + sum(r["flash_launches"][n] for r in eager["runs"])
+                + sum(r["flash_launches"][n] for r in by_run["reads"])
+                for n in ("flash_fwd", "flash_bwd_fused")}
+    out = {"config": {"vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
+                      "layers": cfg.num_layers, "heads": cfg.num_heads,
+                      "seq": GRAPH_SEQ, "dtype": cfg.dtype,
+                      "lr": GRAPH_LR, "weights": "random, seed 0"},
+           "compile_count": buckets["compile_count"],
+           "step_ms_at_bucket": buckets["step_ms_at_bucket"],
+           "replayed_grad_run_ms": grad["replayed_grad_run_ms"],
+           "eager_forward_host_ms": eager["host_ms"],
+           "flash_launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    emit({"phase": "graph_layer", **out})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3031,6 +3378,7 @@ def main():
     phase_train_recipe()
     bert = phase_bert_pretrain()
     phase_small_models()
+    graph = phase_graph_layer()
     rows = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -3051,12 +3399,15 @@ def main():
              "flash_bwd_fused": "gpt2/bf16"}
     entries = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2,
                "flash_bwd_fused": 2}
-    # phase 17's BERT runs (not causal) add their launches to the rows
+    # phase 17's BERT runs (not causal) and phase 19's graph layer add
+    # their launches to the rows
     bert_runs = list(bert.values())
+    graph_launches = {n: graph["flash_launches"].get(n, 0)
+                      for n in where}
     for name, at in where.items():
         wgmma = sum(t["wgmma_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["wgmma"]
-                for b in bert_runs)
+                for b in bert_runs) + graph_launches[name]
         tf32 = sum(t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["3xtf32"]
                 for b in bert_runs)
@@ -3082,9 +3433,11 @@ def main():
             "source": "hetu_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name], "types": at,
             "launches": sum(t["flash_launches"][name] for t in train) +
-            sum(b["flash_launches"][name] for b in bert_runs),
+            sum(b["flash_launches"][name] for b in bert_runs) +
+            graph_launches[name],
             "noncausal_launches": sum(b["flash_launches"][name]
                                       for b in bert_runs),
+            "graph_layer_launches": graph_launches[name],
             "wgmma_launches": wgmma,
             "launches_by_route": {"wgmma": wgmma, "3xtf32": tf32,
                                   "mma.sync": mma},

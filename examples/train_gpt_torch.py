@@ -140,7 +140,8 @@ def main(argv=None) -> dict:
     loader = Dataloader(ds, batch_size=args.global_batch, shuffle=True)
 
     batch_shape = (args.global_batch, args.seq_len)
-    with ht.graph("define_and_run", create_new=True, device=dev) as g:
+    with ht.graph("define_and_run", create_new=True, device=dev,
+                  seed=0) as g:
         ids = ht.parallel_placeholder("int32", batch_shape,
                                       name="input_ids")
         labels = ht.parallel_placeholder("int32", batch_shape, name="labels")

@@ -25,6 +25,22 @@ The port captures the same steps in ``torch.cuda.CUDAGraph``s:
   the tests and ``tools/compare_compiled_step.py`` use it to hold the
   captured steps against the eager ones.
 
+The training step's run levels follow the JAX package's (its jitted
+step takes the gradient sums as an input and returns them): a GRAD run
+adds its gradients (the mean over its micro-batches) into the graph's
+gradient accumulator and updates nothing; the UPDATE run after it
+applies its own gradients plus the accumulated sum -- a sum over runs,
+not a mean -- and zeroes the sums; COMPUTE_ONLY runs the fetches alone.
+Under capture the accumulator is static storage, allocated at the
+graph's first GRAD run, before any capture that reads it: the captured
+GRAD plan adds into it in place, and the captured UPDATE plan reads it
+and zeroes it inside its capture (storage allocated per run would be
+frozen into the first capture).  An update plan keys on whether the
+accumulator exists, so one captured before the first GRAD run is not
+replayed after it.  Each shape bucket of ``set_shape_buckets`` is one
+plan, and so one captured graph, whose static feed buffers have the
+bucket's shape.
+
 A capture that fails raises, naming the step and the line of the port
 that issued the refused operation; there is no fallback to the eager
 path.  On the CPU nothing is captured: the callers run their bodies

@@ -1,10 +1,14 @@
 """Tensor constructors: placeholders and parameters (counterpart of
 ``hetu_tpu.graph.ctor``).
 
-Initializers draw on the graph's device from the graph's seeded
-``torch.Generator`` (or their own, when given a ``seed``), in the order
-the variables were created.  The draws are not the JAX package's: tests
-that compare the two carry weights across (``models.convert``).  At one
+Initializers draw on the graph's device.  One given a ``seed`` draws
+from its own generator; otherwise, in a graph built with a ``seed``,
+from the graph's init generator, in the order the variables are
+materialized; otherwise from the process-wide init stream, as in the JAX
+package: each variable takes the stream's next seed when it is created,
+so the weights follow creation order, and ``set_seed`` resets the
+stream.  The draws are not the JAX package's (no threefry): tests that
+compare the two carry weights across (``models.convert``).  At one
 device a partition spec may be ``None`` or all ``None``; sharded specs
 come with the multi-GPU slice.
 """
@@ -18,16 +22,33 @@ import torch
 from .graph import Graph, get_default_graph
 from .tensor import Tensor
 
+# the process-wide init stream: the last seed handed out (``set_seed``
+# sets it; the next variable takes seed + 1)
+_seed_counter = [0]
+
+
+def _next_seed() -> int:
+    _seed_counter[0] += 1
+    return _seed_counter[0]
+
 
 class Initializer:
-    def __call__(self, shape, dtype: torch.dtype,
-                 graph: Graph) -> torch.Tensor:
+    """``init(shape, dtype, graph, stream_seed=None)``: a tensor on the
+    graph's device.  ``stream_seed`` is the init stream's seed for the
+    variable, where the initializer has no ``seed`` and the graph no
+    init generator."""
+
+    def __call__(self, shape, dtype: torch.dtype, graph: Graph,
+                 stream_seed: Optional[int] = None) -> torch.Tensor:
         raise NotImplementedError
 
-    def _generator(self, graph: Graph) -> torch.Generator:
+    def _generator(self, graph: Graph,
+                   stream_seed: Optional[int]) -> torch.Generator:
         seed = getattr(self, "seed", None)
         if seed is None:
-            return graph.generator
+            if graph.init_generator is not None:
+                return graph.init_generator
+            seed = _next_seed() if stream_seed is None else stream_seed
         gen = torch.Generator(device=graph.device)
         gen.manual_seed(int(seed))
         return gen
@@ -37,7 +58,7 @@ class ConstantInitializer(Initializer):
     def __init__(self, value: float = 0.0):
         self.value = value
 
-    def __call__(self, shape, dtype, graph):
+    def __call__(self, shape, dtype, graph, stream_seed=None):
         return torch.full(shape, self.value, dtype=dtype, device=graph.device)
 
 
@@ -53,17 +74,17 @@ class UniformInitializer(Initializer):
         self.range = (-lr, lr) if np.isscalar(lr) else tuple(lr)
         self.seed = seed
 
-    def __call__(self, shape, dtype, graph):
-        return _uniform(shape, *self.range, dtype, self._generator(graph),
-                        graph.device)
+    def __call__(self, shape, dtype, graph, stream_seed=None):
+        return _uniform(shape, *self.range, dtype,
+                        self._generator(graph, stream_seed), graph.device)
 
 
 class NormalInitializer(Initializer):
     def __init__(self, mean: float = 0.0, stddev: float = 0.01, seed=None):
         self.mean, self.stddev, self.seed = mean, stddev, seed
 
-    def __call__(self, shape, dtype, graph):
-        x = torch.randn(shape, generator=self._generator(graph),
+    def __call__(self, shape, dtype, graph, stream_seed=None):
+        x = torch.randn(shape, generator=self._generator(graph, stream_seed),
                         dtype=torch.float32, device=graph.device)
         return (self.mean + self.stddev * x).to(dtype)
 
@@ -73,8 +94,8 @@ class TruncatedNormalInitializer(NormalInitializer):
     ``jax.random.truncated_normal(-2, 2)``: draws outside are drawn
     again."""
 
-    def __call__(self, shape, dtype, graph):
-        gen = self._generator(graph)
+    def __call__(self, shape, dtype, graph, stream_seed=None):
+        gen = self._generator(graph, stream_seed)
         x = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=graph.device)
         out = x.abs() > 2.0
@@ -89,21 +110,21 @@ class XavierUniformInitializer(Initializer):
     def __init__(self, gain: float = 1.0, seed=None):
         self.gain, self.seed = gain, seed
 
-    def __call__(self, shape, dtype, graph):
+    def __call__(self, shape, dtype, graph, stream_seed=None):
         fan_in, fan_out = _fans(shape)
         limit = self.gain * float(np.sqrt(6.0 / (fan_in + fan_out)))
-        return _uniform(shape, -limit, limit, dtype, self._generator(graph),
-                        graph.device)
+        return _uniform(shape, -limit, limit, dtype,
+                        self._generator(graph, stream_seed), graph.device)
 
 
 class XavierNormalInitializer(Initializer):
     def __init__(self, gain: float = 1.0, seed=None):
         self.gain, self.seed = gain, seed
 
-    def __call__(self, shape, dtype, graph):
+    def __call__(self, shape, dtype, graph, stream_seed=None):
         fan_in, fan_out = _fans(shape)
         std = self.gain * float(np.sqrt(2.0 / (fan_in + fan_out)))
-        x = torch.randn(shape, generator=self._generator(graph),
+        x = torch.randn(shape, generator=self._generator(graph, stream_seed),
                         dtype=torch.float32, device=graph.device)
         return (std * x).to(dtype)
 
@@ -112,21 +133,21 @@ class HeUniformInitializer(Initializer):
     def __init__(self, seed=None):
         self.seed = seed
 
-    def __call__(self, shape, dtype, graph):
+    def __call__(self, shape, dtype, graph, stream_seed=None):
         fan_in, _ = _fans(shape)
         limit = float(np.sqrt(6.0 / fan_in))
-        return _uniform(shape, -limit, limit, dtype, self._generator(graph),
-                        graph.device)
+        return _uniform(shape, -limit, limit, dtype,
+                        self._generator(graph, stream_seed), graph.device)
 
 
 class HeNormalInitializer(Initializer):
     def __init__(self, seed=None):
         self.seed = seed
 
-    def __call__(self, shape, dtype, graph):
+    def __call__(self, shape, dtype, graph, stream_seed=None):
         fan_in, _ = _fans(shape)
         std = float(np.sqrt(2.0 / fan_in))
-        x = torch.randn(shape, generator=self._generator(graph),
+        x = torch.randn(shape, generator=self._generator(graph, stream_seed),
                         dtype=torch.float32, device=graph.device)
         return (std * x).to(dtype)
 
@@ -135,7 +156,7 @@ class ProvidedInitializer(Initializer):
     def __init__(self, data):
         self.data = data
 
-    def __call__(self, shape, dtype, graph):
+    def __call__(self, shape, dtype, graph, stream_seed=None):
         arr = torch.as_tensor(np.asarray(self.data), device=graph.device)
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"provided data shape {tuple(arr.shape)} != "
@@ -179,8 +200,18 @@ def parameter(init: Union[Initializer, Any], shape: Sequence = None,
         init = ProvidedInitializer(data)
     t = Tensor(shape, dtype or "float32", name=name or "param", graph=g,
                trainable=trainable)
-    g.add_variable(t, lambda: init(t.shape, t.dtype, g))
+    if t.is_symbolic:
+        raise ValueError(f"parameter {t.name} has symbolic dims {t.shape}; "
+                         f"a variable's shape is static")
+    # a random initializer takes the init stream's next seed now, in
+    # creation order, unless it or the graph has its own
+    stream_seed = _next_seed() if hasattr(init, "seed") and \
+        init.seed is None and g.init_generator is None else None
+    g.add_variable(t, lambda: init(t.shape, t.dtype, g, stream_seed))
     return t
+
+
+variable = parameter
 
 
 def parallel_placeholder(dtype, global_shape: Sequence, ds_hierarchy=None,

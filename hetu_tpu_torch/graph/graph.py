@@ -1,33 +1,71 @@
-"""Define-and-run graph (counterpart of ``hetu_tpu.graph.graph``).
+"""Graphs of the port (counterpart of ``hetu_tpu.graph.graph``).
 
-Under ``with graph("define_and_run", device=...)`` the ops of
-``hetu_tpu_torch.ops.functional`` record ``OpNode``s whose impls are
-plain torch functions; shapes and dtypes come from running each impl on
-``device="meta"`` tensors (the counterpart of ``jax.eval_shape``).
-``DefineAndRunGraph.run(loss, fetches, feed_dict, num_micro_batches)``
-then executes the recorded DAG eagerly on the graph's device, with the
-JAX package's semantics:
+Three kinds, as in the JAX package, opened with ``with graph(kind,
+device=...)``:
 
-- the feeds are split into ``num_micro_batches`` along dim 0 (0-d feeds
-  are replicated); gradients of the (summed) loss accumulate over the
-  micro-batches in the parameters' dtype and are divided by M;
-- scalar fetches are averaged over the micro-batches, others keep the
-  last micro-batch's value;
-- the optimizer updates once, and the update op's position in the fetch
-  list returns ``None`` (fetch arity is preserved).
+- ``EagerGraph`` (``"eager"``): every op runs on the graph's device as
+  it is made, and its output Tensors keep their values
+  (``get_tensor_value``); the values give the shapes, with no meta-tensor
+  pass.  Outside any ``graph(...)`` block
+  ``get_default_graph()`` is a default eager graph on ``"cuda"``.
+- ``DefineByRunGraph`` (``"define_by_run"``): ops record; values come
+  on demand from ``get_or_compute``, which caches every intermediate it
+  computes (never a variable's value: updates stay visible); ``feed``
+  binds a placeholder and ``invalidate`` drops the cache.
+- ``DefineAndRunGraph`` (``"define_and_run"``): the ops of
+  ``hetu_tpu_torch.ops.functional`` record ``OpNode``s whose impls are
+  plain torch functions; shapes and dtypes come from running each impl
+  on ``device="meta"`` tensors (the counterpart of ``jax.eval_shape``;
+  an unbound symbolic dim of an input is first bound to 16, as there).
+  ``run(loss, fetches, feed_dict, num_micro_batches)`` then executes
+  the recorded DAG on the graph's device, with the JAX package's
+  semantics:
 
-The plan (the topological order for one set of fetches, feed shapes,
+  - the feeds are split into ``num_micro_batches`` along dim 0 (0-d
+    feeds are replicated); gradients of the (summed) loss accumulate
+    over the micro-batches in the parameters' dtype and are divided by M;
+  - scalar fetches are averaged over the micro-batches, others keep the
+    last micro-batch's value;
+  - the optimizer updates once, and the update op's position in the
+    fetch list returns ``None`` (fetch arity is preserved).
+
+Shape plans: a placeholder's shape may hold ``SymbolicDim``s.  Each run
+binds them from the fed shapes (a derived dim is checked against its
+expression when its leaves were bound by the same feeds) and keys its
+plan by the fed shapes.  ``set_shape_buckets`` pads the feeds on the host
+along every symbolic dim up to a bucket (a sorted list of sizes, or an
+int alignment), with ``pad_values`` per placeholder (the loss's ignore
+index for labels), so that the plan pool holds one plan a bucket.
+
+The plan (the topological order for one set of fetches, fed shapes,
 micro-batch count and run level) is cached in ``_plan_pool``.  Autodiff
-is ``torch.autograd.grad`` over the executed forward.
+is ``torch.autograd.grad`` over the executed forward.  Run levels
+(``run_level=``, or the ambient ``with run_level(...)``): ``TOPO``
+returns the plan's ops in order, ``ALLOC`` materializes the variables
+and returns ``[]``, ``COMPUTE_ONLY`` runs the fetches without the
+update, ``GRAD`` adds this run's gradients (the mean over its
+micro-batches) into the graph's persistent accumulator
+(``_grad_accum``) and does not update, and ``UPDATE`` (the default)
+applies its own gradients plus the accumulated sum -- a sum over runs,
+not a mean -- and zeroes the accumulator.
 
 On the card the step is compiled, as the JAX package jits it once per
-plan: each plan keeps static feed buffers that ``run`` copies the feeds
-into, and a ``core.capture.CapturedStep`` whose first call runs the
-whole step (every micro-batch's forward and ``torch.autograd.grad``, the
-accumulation and the optimizer update) eagerly and captures it in one
-CUDA graph; later calls replay it and return clones of its fetches.  The
-graph's dropout generator is registered with each graph, so every replay
-draws fresh masks.  On the CPU the step runs eagerly.
+plan: each plan keeps static feed buffers at its fed (bucketed) shapes
+that ``run`` copies the feeds into, and a ``core.capture.CapturedStep``
+whose first call runs the whole step (every micro-batch's forward and
+``torch.autograd.grad``, the accumulation and the optimizer update)
+eagerly and captures it in one CUDA graph; later calls replay it and
+return clones of its fetches.  So each bucket is one captured graph.
+The gradient accumulator is static storage that the GRAD and UPDATE
+plans read and write in place; it is allocated at the first GRAD run,
+and the update plans key on it.  The graph's dropout generator is
+registered with each graph, so every replay draws fresh masks.  On the
+CPU the step runs eagerly.
+
+Seeds: a graph built with ``seed=`` seeds its initializers' stream and
+its dropout generator with it; one built without draws its dropout seed
+from a process-wide stream, and its initializers draw from the
+process-wide init stream (``graph.ctor``), both reset by ``set_seed``.
 
 The recipe around the step: a ``GradScaler`` passed to ``minimize``
 scales the loss, unscales the gradients and skips a non-finite step on
@@ -37,9 +75,8 @@ The plan key holds the recompute policy and the offload flag, as the JAX
 package's does; an offloaded plan runs uncaptured.  ``run(...,
 save_checkpoint=True)`` is accepted and, as in the JAX package, does
 nothing: checkpoints are written by ``utils.checkpoint``.  Meshes,
-strategy switching, shape buckets, the numeric sentry and the run levels
-other than the default (update) and ``COMPUTE_ONLY`` are ported in later
-slices and raise ``NotImplementedError``.
+strategy switching and the numeric sentry are ported in later slices
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,9 +90,13 @@ import torch
 
 from ..core import capture
 from ..core.device import resolve_device
-from .tensor import Tensor
+from .tensor import DerivedDim, SymbolicDim, Tensor
 
 _op_ids = itertools.count()
+
+# the stream a graph built without a seed draws its dropout seed from:
+# ``set_seed`` reseeds this one, never numpy's process-global RNG
+_GRAPH_SEED_STREAM = [np.random.RandomState()]
 
 
 class RunLevel(enum.Enum):
@@ -89,7 +130,8 @@ class OpNode:
 class Graph:
     """Op/tensor registry, variable storage and the evaluator."""
 
-    def __init__(self, name: str = "graph", device="cuda", seed: int = 0):
+    def __init__(self, name: str = "graph", device="cuda",
+                 seed: Optional[int] = None):
         self.name = name
         self.device = resolve_device(device)
         self.ops: List[OpNode] = []
@@ -97,8 +139,23 @@ class Graph:
         self._var_tensors: Dict[int, Tensor] = {}
         self._placeholders: Dict[int, Tensor] = {}
         self._consts: Dict[int, Tuple[Any, Tensor]] = {}
+        # the persistent gradient sums of GRAD runs, by variable id
+        self._grad_accum: Dict[int, torch.Tensor] = {}
+        # symbolic dims a model baked at build time: id -> (dim, value,
+        # who baked it)
+        self._baked_dims: Dict[int, Tuple[SymbolicDim, int, str]] = {}
+        # dropout draws from ``generator``; initializers without a seed of
+        # their own from ``init_generator``, or with no graph seed from the
+        # process-wide init stream (``ctor``)
+        if seed is None:
+            self._rng_seed = int(_GRAPH_SEED_STREAM[0].randint(0, 2**31 - 1))
+            self.init_generator: Optional[torch.Generator] = None
+        else:
+            self._rng_seed = int(seed)
+            self.init_generator = torch.Generator(device=self.device)
+            self.init_generator.manual_seed(int(seed))
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+        self.generator.manual_seed(self._rng_seed)
 
     # -- construction -----------------------------------------------------------
 
@@ -127,26 +184,46 @@ class Graph:
                 attrs: Optional[Dict[str, Any]] = None, name: str = "",
                 num_outputs: int = 1) -> Union[Tensor, List[Tensor]]:
         """Records ``impl`` over ``inputs``; its outputs' shapes and dtypes
-        come from running it on ``meta`` tensors.  One output Tensor, or
-        the list of them where ``num_outputs`` > 1 (or the impl returns
-        several)."""
+        come from running it on ``meta`` tensors (an eager graph runs it
+        on the values instead).  One output Tensor, or the list of them
+        where ``num_outputs`` > 1 (or the impl returns several)."""
         attrs = dict(attrs or {})
         in_tensors = [self.as_tensor(x) for x in inputs]
         node = OpNode(op_type, impl, in_tensors, attrs, name)
-        metas = [torch.empty(t.shape, dtype=t.dtype, device="meta")
-                 for t in in_tensors]
-        with torch.no_grad():
-            out = impl(*metas, **attrs)
-        flat = list(out) if isinstance(out, (tuple, list)) else [out]
+        # an unbound symbolic dim gets a provisional 16: recorded shapes
+        # are advisory, the run's come from the feeds (shape plans)
+        for t in in_tensors:
+            for d in t.shape:
+                if isinstance(d, SymbolicDim) and not d.is_bound:
+                    d.set(16)
+        flat = self._shape_pass(node)
         node.outputs = [
             Tensor(o.shape, o.dtype, producer=node,
                    name=f"{node.name}:{i}" if len(flat) > 1 else node.name,
                    graph=self)
             for i, o in enumerate(flat)]
         self.ops.append(node)
+        self._post_make_op(node, flat)
         if num_outputs == 1 and len(node.outputs) == 1:
             return node.outputs[0]
         return node.outputs
+
+    def _shape_pass(self, node: OpNode) -> List[torch.Tensor]:
+        """The op's outputs on ``meta`` tensors (shapes and dtypes only)."""
+        metas = [torch.empty(t.concrete_shape(), dtype=t.dtype,
+                             device="meta") for t in node.inputs]
+        with torch.no_grad():
+            out = node.impl(*metas, **node.attrs)
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    def _post_make_op(self, node: OpNode,
+                      outputs: List[torch.Tensor]) -> None:
+        """Called with each op made and what ``_shape_pass`` gave."""
+
+    def bake_dim(self, dim: SymbolicDim, value: int, by: str) -> None:
+        """Records that ``by`` (a model) built its ops for ``dim`` =
+        ``value``: a run whose feeds bind ``dim`` otherwise raises."""
+        self._baked_dims[id(dim)] = (dim, int(value), by)
 
     # -- variables / placeholders --------------------------------------------
 
@@ -184,12 +261,12 @@ class Graph:
         so that captured steps keep reading it."""
         data = value if isinstance(value, torch.Tensor) \
             else torch.from_numpy(np.array(value))
-        if tuple(data.shape) != t.shape:
+        if tuple(data.shape) != t.concrete_shape():
             raise ValueError(f"value for {t.name} has shape "
                              f"{tuple(data.shape)}, expected {t.shape}")
         cur = self._var_data.get(t.id)
         if cur is not None and cur.dtype == t.dtype and \
-                tuple(cur.shape) == t.shape:
+                tuple(cur.shape) == tuple(data.shape):
             with torch.no_grad():
                 cur.copy_(data.detach())
             return
@@ -292,18 +369,113 @@ class Graph:
                     env.pop(tid, None)
 
 
-class _Plan:
-    """A plan-pool entry: the topological order, the frees, the recompute
-    regions and the ops they keep (``None``: no recompute), whether the
-    forward offloads what it saves, and on the card the static feed
-    buffers and the captured step."""
+class EagerGraph(Graph):
+    """Immediate execution: each op runs on the graph's device as it is
+    made, and its outputs keep their values."""
 
-    __slots__ = ("order", "frees", "regions", "saved", "offload", "feeds",
-                 "step")
+    def as_tensor(self, value) -> Tensor:
+        t = super().as_tensor(value)
+        if t._data is None and t.producer is not None and \
+                t.producer.op_type == "constant":
+            t.set_data(t.producer.attrs["value"])
+        return t
+
+    def _value_of(self, t: Tensor) -> torch.Tensor:
+        if t._data is not None:
+            return t._data
+        if t.id in self._var_tensors:
+            return self._materialize_var(t)
+        env: Dict[int, torch.Tensor] = {}
+        for vt in self._var_tensors.values():
+            env[vt.id] = self._materialize_var(vt)
+        plan = self._topo_from([t])
+        for node in plan:
+            for o in node.outputs:
+                if o._data is not None:
+                    env[o.id] = o._data
+        self._eval(plan, env)
+        return env[t.id]
+
+    def _shape_pass(self, node: OpNode) -> List[torch.Tensor]:
+        """The op itself, on the inputs' values: its results give the
+        shapes (a meta-tensor pass would cost more host time than the
+        op)."""
+        out = node.impl(*[self._value_of(t) for t in node.inputs],
+                        **node.attrs)
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    def _post_make_op(self, node: OpNode,
+                      outputs: List[torch.Tensor]) -> None:
+        for t, v in zip(node.outputs, outputs):
+            t.set_data(v)
+
+    def get_tensor_value(self, t: Tensor) -> torch.Tensor:
+        if t._data is not None:
+            return t._data
+        return super().get_tensor_value(t)
+
+    def next_rng_tensor(self) -> Tensor:
+        """A fresh (2,) int32 key from the graph's generator each call."""
+        key = torch.randint(0, 2**31 - 1, (2,), generator=self.generator,
+                            device=self.device, dtype=torch.int32)
+        return self.as_tensor(key)
+
+
+class DefineByRunGraph(Graph):
+    """Ops record as in a define-and-run graph; values materialize on
+    demand (:meth:`get_or_compute`), each computed intermediate cached, so
+    that later fetches reuse them instead of running upstream again."""
+
+    def __init__(self, name: str = "define_by_run", device="cuda",
+                 seed: Optional[int] = None):
+        super().__init__(name, device, seed)
+        self._computed: Dict[int, torch.Tensor] = {}
+
+    def get_or_compute(self, t: Tensor) -> torch.Tensor:
+        if t.id in self._computed:
+            return self._computed[t.id]
+        env: Dict[int, torch.Tensor] = dict(self._computed)
+        for vt in self._var_tensors.values():
+            env.setdefault(vt.id, self._materialize_var(vt))
+        with torch.no_grad():
+            self._eval(self._topo_from([t]), env)
+        # variable values stay out of the cache: updates and
+        # reset_variable must reach later fetches
+        self._computed.update({k: v for k, v in env.items()
+                               if k not in self._var_tensors})
+        return env[t.id]
+
+    def feed(self, t: Tensor, value) -> None:
+        """Binds a placeholder's value for later ``get_or_compute``."""
+        self._computed[t.id] = torch.as_tensor(
+            value if isinstance(value, torch.Tensor) else np.asarray(value),
+            dtype=t.dtype, device=self.device)
+
+    def invalidate(self) -> None:
+        """Drops every cached value (the variables stay)."""
+        self._computed.clear()
+
+    def get_tensor_value(self, t: Tensor) -> torch.Tensor:
+        if t.id in self._computed:
+            return self._computed[t.id]
+        if t.id in self._var_tensors:
+            return super().get_tensor_value(t)
+        return self.get_or_compute(t)
+
+
+class _Plan:
+    """A plan-pool entry: the topological order, the frees, the run level,
+    the recompute regions and the ops they keep (``None``: no recompute),
+    whether the forward offloads what it saves, and on the card the
+    static feed buffers and the captured step."""
+
+    __slots__ = ("order", "frees", "level", "regions", "saved", "offload",
+                 "feeds", "step")
 
     def __init__(self, order: List[OpNode], frees: List[List[int]],
-                 regions=None, saved=None, offload: bool = False):
-        self.order, self.frees = order, frees
+                 level: "RunLevel", regions=None, saved=None,
+                 offload: bool = False):
+        self.order, self.frees, self.level = order, frees, level
         self.regions, self.saved, self.offload = regions, saved, offload
         self.feeds: Dict[int, torch.Tensor] = {}
         self.step: Optional[capture.CapturedStep] = None
@@ -313,12 +485,17 @@ class DefineAndRunGraph(Graph):
     """Symbolic graph with a plan pool."""
 
     def __init__(self, name: str = "define_and_run", device="cuda",
-                 seed: int = 0):
+                 seed: Optional[int] = None):
         super().__init__(name, device, seed)
         self._plan_pool: Dict[Tuple, _Plan] = {}
         self._captures = capture.StepCache("training step")
         self._recompute_policy: Optional[str] = None
         self._offload = False
+        self._shape_buckets: Union[None, int, List[int]] = None
+        self._bucket_pad_values: Dict[int, Any] = {}
+        # every derived dim seen in a fed or placeholder shape: stale
+        # provisional overrides are cleared on all of them at each bind
+        self._derived_dims: Dict[int, DerivedDim] = {}
         self.last_run_captured = False
 
     def _storage_replaced(self) -> None:
@@ -336,33 +513,153 @@ class DefineAndRunGraph(Graph):
                                   "with the multi-GPU mesh (ROADMAP queue "
                                   "1, items 10-14)")
 
-    def set_shape_buckets(self, *args, **kwargs):
-        raise NotImplementedError("shape buckets come with symbolic dims, "
-                                  "in a later slice")
-
     def inject_numeric_fault(self, *args, **kwargs):
         raise NotImplementedError("the numeric sentry is ported in a later "
                                   "slice (resilience)")
 
-    def _check_feeds(self, feed_dict: Dict[Tensor, Any],
-                     num_micro_batches: int) -> Dict[Tensor, torch.Tensor]:
+    # -- shape buckets ----------------------------------------------------
+
+    def set_shape_buckets(self, buckets, pad_values=None) -> None:
+        """Pads the feeds along every symbolic dim up to a bucket, so that
+        varying shapes reuse plans (and on the card captured graphs).
+
+        ``buckets``: a sorted list of sizes, or an int alignment (round up
+        to a multiple).  ``pad_values`` maps placeholders to their fill
+        (default 0; the loss's ignore index for labels, so that the pad
+        positions drop out of the loss)."""
+        if isinstance(buckets, int):
+            self._shape_buckets = buckets
+        else:
+            self._shape_buckets = sorted(int(b) for b in buckets)
+            if not self._shape_buckets:
+                raise ValueError("shape bucket list must be non-empty")
+        self._bucket_pad_values = {
+            (t.id if isinstance(t, Tensor) else t): v
+            for t, v in (pad_values or {}).items()}
+
+    def _bucket_dim(self, size: int) -> int:
+        b = self._shape_buckets
+        if isinstance(b, int):
+            return ((size + b - 1) // b) * b
+        for cand in b:
+            if cand >= size:
+                return cand
+        raise ValueError(
+            f"feed dim {size} exceeds the largest shape bucket {b[-1]}")
+
+    def _bucket_feeds(self, feeds: Dict[Tensor, Any]) -> Dict[Tensor, Any]:
+        """The feeds padded up to their buckets along symbolic dims (numpy
+        feeds on the host, as the JAX package pads them)."""
+        out = {}
+        for t, v in feeds.items():
+            shape = tuple(v.shape)
+            pads = [(0, self._bucket_dim(shape[i]) - shape[i])
+                    if isinstance(d, SymbolicDim) and i < len(shape)
+                    else (0, 0) for i, d in enumerate(t.shape)]
+            if any(p[1] for p in pads):
+                fill = self._bucket_pad_values.get(t.id, 0)
+                if isinstance(v, torch.Tensor):
+                    flat = [n for p in reversed(pads) for n in p]
+                    v = torch.nn.functional.pad(v, flat, value=fill)
+                else:
+                    v = np.pad(v, pads, constant_values=fill)
+            out[t] = v
+        return out
+
+    # -- symbolic dims ------------------------------------------------------
+
+    @staticmethod
+    def _leaf_dims(dim) -> List[SymbolicDim]:
+        out, stack = [], [dim]
+        while stack:
+            d = stack.pop()
+            if isinstance(d, DerivedDim):
+                stack.extend(p for p in d._parents
+                             if isinstance(p, SymbolicDim))
+            elif isinstance(d, SymbolicDim):
+                out.append(d)
+        return out
+
+    @staticmethod
+    def _derived_nodes(dim) -> List[DerivedDim]:
+        """Every derived dim on the expression DAG rooted at ``dim``: an
+        override must clear along the whole path, or a nested dim reads a
+        stale intermediate."""
+        out, stack = [], [dim]
+        while stack:
+            d = stack.pop()
+            if isinstance(d, DerivedDim):
+                out.append(d)
+                stack.extend(p for p in d._parents
+                             if isinstance(p, SymbolicDim))
+        return out
+
+    def _bind_symbolic_dims(self, feeds: Dict[Tensor, Any]) -> None:
+        """Checks each feed's rank and static dims and binds the symbolic
+        ones.  Leaves bind first; a derived dim is then checked against
+        its expression where every leaf was bound by these feeds and no
+        buckets pad them, else bound provisionally."""
+        derived, fresh = [], set()
+        for t, v in feeds.items():
+            shape = tuple(np.shape(v)) if not isinstance(v, torch.Tensor) \
+                else tuple(v.shape)
+            if len(shape) != len(t.shape):
+                raise ValueError(f"feed for {t.name} has rank {len(shape)}, "
+                                 f"expected {len(t.shape)} ({t.shape})")
+            for dim, d in zip(t.shape, shape):
+                if isinstance(dim, DerivedDim):
+                    derived.append((t, dim, d))
+                elif isinstance(dim, SymbolicDim):
+                    dim.set(d)
+                    fresh.add(id(dim))
+                elif int(dim) != d:
+                    raise ValueError(f"feed for {t.name} has shape {shape}, "
+                                     f"expected {t.shape}")
+        # clear the provisional overrides of every derived dim reachable
+        # from these feeds and the placeholders: a stale one must not
+        # shadow the expression once its leaves are rebound
+        for t in itertools.chain(feeds, self._placeholders.values()):
+            for dim in t.shape:
+                if isinstance(dim, DerivedDim):
+                    for node in self._derived_nodes(dim):
+                        self._derived_dims[id(node)] = node
+        for node in self._derived_dims.values():
+            node.clear_override()
+        seen: Dict[int, int] = {}
+        for t, dim, d in derived:
+            prev = seen.get(id(dim))
+            if prev is not None and prev != d:
+                raise ValueError(f"conflicting feeds for derived dim "
+                                 f"{dim.name}: {prev} vs {d} (tensor "
+                                 f"{t.name})")
+            seen[id(dim)] = d
+            if self._shape_buckets is None and dim.is_bound and all(
+                    id(leaf) in fresh for leaf in self._leaf_dims(dim)):
+                if dim.get() != d:
+                    raise ValueError(
+                        f"feed for {t.name} gives derived dim {dim.name} "
+                        f"= {d}, but its expression evaluates to "
+                        f"{dim.get()}")
+            else:
+                dim.set(d)      # provisional (unbound leaves, buckets)
+        for dim, value, by in self._baked_dims.values():
+            if dim.is_bound and dim.get() != value:
+                raise ValueError(
+                    f"{by} was built for {dim.name} = {value} and bakes "
+                    f"that length into its ops, as the JAX package's "
+                    f"does; the feeds give {dim.get()}")
+
+    # -- feeds and plans ----------------------------------------------------
+
+    def _check_feeds(self, feed_dict: Dict[Tensor, Any]
+                     ) -> Dict[Tensor, Any]:
+        """The feeds by placeholder: torch tensors as they are, anything
+        else as a numpy array."""
         feeds = {}
         for t, v in feed_dict.items():
             if not isinstance(t, Tensor) or t.id not in self._placeholders:
                 raise ValueError(f"feed key {t!r} is not a placeholder of "
                                  f"this graph")
-            shape = tuple(v.shape) if isinstance(v, torch.Tensor) \
-                else np.shape(v)
-            if len(shape) != t.ndim:
-                raise ValueError(f"feed for {t.name} has rank {len(shape)}, "
-                                 f"expected {t.ndim} ({t.shape})")
-            if tuple(shape) != t.shape:
-                raise ValueError(f"feed for {t.name} has shape "
-                                 f"{tuple(shape)}, expected {t.shape}")
-            if t.ndim and t.shape[0] % num_micro_batches:
-                raise ValueError(
-                    f"batch {t.shape[0]} of {t.name} not divisible by "
-                    f"{num_micro_batches} micro-batches")
             feeds[t] = v if isinstance(v, torch.Tensor) else np.asarray(v)
         return feeds
 
@@ -370,7 +667,8 @@ class DefineAndRunGraph(Graph):
                       static: bool) -> Dict[Tensor, torch.Tensor]:
         """The feeds as tensors of their placeholders' dtypes on the
         graph's device: new tensors, or with ``static`` copied into the
-        plan's static buffers (allocated at its first run)."""
+        plan's static buffers (allocated at its first run, at the fed
+        shapes its key holds)."""
         if not static:
             return {t: torch.as_tensor(v, dtype=t.dtype, device=self.device)
                     for t, v in feeds.items()}
@@ -379,7 +677,7 @@ class DefineAndRunGraph(Graph):
             buf = entry.feeds.get(t.id)
             if buf is None:
                 buf = entry.feeds[t.id] = torch.empty(
-                    t.shape, dtype=t.dtype, device=self.device)
+                    tuple(v.shape), dtype=t.dtype, device=self.device)
             buf.copy_(torch.as_tensor(v, dtype=t.dtype))
             out[t] = buf
         return out
@@ -388,9 +686,16 @@ class DefineAndRunGraph(Graph):
               num_micro_batches: int, run_level: RunLevel,
               update_node: Optional[OpNode]) -> _Plan:
         from .recompute import regions, resolve_policy
-        feed_sig = tuple(sorted((t.id, t.shape) for t in feeds))
+        feed_sig = tuple(sorted((t.id, tuple(v.shape))
+                                for t, v in feeds.items()))
+        # the accumulator entries an update plan reads (GRAD runs create
+        # them): a plan captured before they existed does not read them
+        accum = tuple(x.id for x in update_node.attrs["xs"]
+                      if x.id in self._grad_accum) \
+            if update_node is not None else ()
         key = (tuple(t.id for t in fetches), feed_sig, num_micro_batches,
                run_level, update_node.id if update_node is not None else None,
+               accum,
                # recompute/offload change the step that is captured
                self._recompute_policy, self._offload)
         plan = self._plan_pool.get(key)
@@ -407,7 +712,7 @@ class DefineAndRunGraph(Graph):
             keep = [t.id for t in targets]
             saved = None if self._offload else \
                 resolve_policy(self._recompute_policy)
-            plan = _Plan(order, self._frees(order, keep),
+            plan = _Plan(order, self._frees(order, keep), run_level,
                          None if saved is None else regions(order, keep),
                          saved, self._offload)
             self._plan_pool[key] = plan
@@ -419,8 +724,9 @@ class DefineAndRunGraph(Graph):
             save_checkpoint: bool = False):
         """``run(loss, fetches, feed_dict, num_micro_batches)`` or
         ``run(fetches, feed_dict=...)``: values of ``fetches`` (torch
-        tensors), ``None`` at the position of an optimizer update.  On
-        the card the step of each plan is captured at its first run and
+        tensors), ``None`` at the position of an optimizer update.
+        ``run_level`` defaults to the ambient :class:`run_level`.  On the
+        card the step of each plan is captured at its first run and
         replayed after that (the fetches are clones of the graph's
         outputs); on the CPU, and on the card under ``capture.eager()``,
         it runs eagerly."""
@@ -442,17 +748,24 @@ class DefineAndRunGraph(Graph):
         if not isinstance(fetches, (list, tuple)):
             fetches = [fetches]
         fetches = list(fetches)
-        run_level = RunLevel(run_level) if isinstance(run_level, str) \
-            else (run_level or RunLevel.UPDATE)
-        if run_level not in (RunLevel.UPDATE, RunLevel.COMPUTE_ONLY):
-            raise NotImplementedError(
-                f"run level {run_level.value!r} is ported with the "
-                f"persistent-gradient slice; this slice runs 'update' and "
-                f"'compute_only'")
+        if run_level is None:
+            run_level = _run_level_ctx._current
+        run_level = RunLevel(run_level)
+        if run_level == RunLevel.TOPO:
+            return self._topo_from([f for f in fetches
+                                    if isinstance(f, Tensor)])
         M = int(num_micro_batches)
         if M < 1:
             raise ValueError(f"num_micro_batches must be >= 1, got {M}")
-        feeds = self._check_feeds(dict(feed_dict or {}), M)
+        feeds = self._check_feeds(dict(feed_dict or {}))
+        if self._shape_buckets is not None:
+            feeds = self._bucket_feeds(feeds)
+        self._bind_symbolic_dims(feeds)
+        for t, v in feeds.items():
+            if t.ndim and v.shape[0] % M:
+                raise ValueError(
+                    f"batch {v.shape[0]} of {t.name} not divisible by "
+                    f"{M} micro-batches")
 
         update_node, real_fetches, update_positions = None, [], []
         for i, f in enumerate(fetches):
@@ -461,11 +774,18 @@ class DefineAndRunGraph(Graph):
                 update_positions.append(i)
             else:
                 real_fetches.append(f)
-        if run_level == RunLevel.COMPUTE_ONLY:
+        if run_level in (RunLevel.COMPUTE_ONLY, RunLevel.ALLOC):
             update_node = None
-        entry = self._plan(real_fetches, feeds, M, run_level, update_node)
         for t in self._var_tensors.values():
             self._materialize_var(t)
+        if run_level == RunLevel.ALLOC:
+            return []
+        if run_level == RunLevel.GRAD and update_node is not None:
+            for x in update_node.attrs["xs"]:
+                if x.id not in self._grad_accum:
+                    self._grad_accum[x.id] = torch.zeros_like(
+                        self._var_data[x.id])
+        entry = self._plan(real_fetches, feeds, M, run_level, update_node)
         feeds = self._feed_tensors(feeds, entry, static)
 
         def body():
@@ -566,6 +886,15 @@ class DefineAndRunGraph(Graph):
             if M > 1:
                 for g in grads:
                     g.div_(M)
+            accum = [self._grad_accum.get(x.id) for x in xs]
+            if entry.level == RunLevel.GRAD:
+                # GRAD: add to the persistent sums, update nothing
+                for a, g in zip(accum, grads):
+                    a.add_(g)
+                return fetch_vals
+            # UPDATE: this run's gradients plus the sums of the GRAD runs
+            # before it, which it then zeroes
+            grads = [g if a is None else g + a for g, a in zip(grads, accum)]
             # a scaler skips the update (parameters and optimizer state)
             # on overflow, then grows or backs off its scale
             finite = check_finite(grads) if scaler is not None else None
@@ -573,6 +902,9 @@ class DefineAndRunGraph(Graph):
                                                           keep=finite)
             if scaler is not None:
                 scaler.update_state(sst, finite)
+            for a in accum:
+                if a is not None:
+                    a.zero_()
         return fetch_vals
 
     def _eval_regions(self, entry: _Plan, env: Dict[int, torch.Tensor]
@@ -610,27 +942,35 @@ def _owned(grads: List[torch.Tensor]) -> List[torch.Tensor]:
 _graph_stack: List[Graph] = []
 _default_graphs: Dict[str, Graph] = {}
 
+_KINDS = {"eager": EagerGraph, "define_by_run": DefineByRunGraph,
+          "define_and_run": DefineAndRunGraph}
+
 
 def get_default_graph() -> Graph:
-    """The innermost graph of the ``graph(...)`` contexts."""
-    if not _graph_stack:
-        raise RuntimeError("no graph is active; build under "
-                           "`with graph('define_and_run', device=...)`")
-    return _graph_stack[-1]
+    """The innermost graph of the ``graph(...)`` contexts; outside them a
+    default eager graph on ``"cuda"`` (which raises without a card)."""
+    if _graph_stack:
+        return _graph_stack[-1]
+    if "eager" not in _default_graphs:
+        _default_graphs["eager"] = EagerGraph("default_eager", "cuda")
+    return _default_graphs["eager"]
 
 
 class graph:
-    """``with graph("define_and_run", device="cuda") as g:`` context.
+    """``with graph("define_and_run", device="cuda") as g:`` context;
+    ``kind`` is ``"eager"``, ``"define_by_run"`` or ``"define_and_run"``.
 
     ``device`` (default ``"cuda"``) holds the variables and feeds and
-    raises without a card unless ``"cpu"`` is asked for.  Without
-    ``create_new`` the graph is cached per (prefix, kind, device), as the
-    JAX package caches per (prefix, kind)."""
+    raises without a card unless ``"cpu"`` is asked for.  ``seed`` seeds
+    the graph's initializers and dropout (default: the process-wide
+    streams of ``set_seed``).  Without ``create_new`` the graph is cached
+    per (prefix, kind, device), as the JAX package caches per (prefix,
+    kind)."""
 
     def __init__(self, kind: Union[str, Graph] = "define_and_run",
                  create_new: bool = False, prefix: str = "default",
                  num_strategy: int = -1, mesh=None, device="cuda",
-                 seed: int = 0):
+                 seed: Optional[int] = None):
         if mesh is not None or num_strategy > 1:
             raise NotImplementedError(
                 "meshes and multiple strategies are ported with the "
@@ -638,14 +978,13 @@ class graph:
         if isinstance(kind, Graph):
             self.g = kind
             return
-        if kind != "define_and_run":
-            raise NotImplementedError(
-                f"{kind!r} graphs are ported in a later slice; this slice "
-                f"has 'define_and_run'")
+        if kind not in _KINDS:
+            raise ValueError(f"unknown graph kind {kind!r}; have "
+                             f"{sorted(_KINDS)}")
         dev = resolve_device(device)
         key = f"{prefix}_{kind}_{dev}"
         if create_new or key not in _default_graphs:
-            g = DefineAndRunGraph(key, dev, seed)
+            g = _KINDS[kind](key, dev, seed)
             if not create_new:
                 _default_graphs[key] = g
             self.g = g
@@ -658,3 +997,23 @@ class graph:
 
     def __exit__(self, *exc):
         _graph_stack.pop()
+
+
+class run_level:
+    """``with run_level("grad"):`` sets the run level that
+    ``DefineAndRunGraph.run`` takes when it is given none."""
+    _current = RunLevel.UPDATE
+
+    def __init__(self, level: Union[str, RunLevel]):
+        self.level = RunLevel(level)
+
+    def __enter__(self):
+        self.prev = run_level._current
+        run_level._current = self.level
+        return self
+
+    def __exit__(self, *exc):
+        run_level._current = self.prev
+
+
+_run_level_ctx = run_level

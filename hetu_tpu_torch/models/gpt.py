@@ -18,6 +18,7 @@ import numpy as np
 from .. import nn
 from ..ops import functional as ops
 from ..graph.ctor import NormalInitializer, parallel_parameter
+from ..graph.tensor import SymbolicDim
 
 
 @dataclass
@@ -361,6 +362,26 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
+def _bake_seq_len(input_ids, dim: SymbolicDim) -> int:
+    """The length a symbolic sequence dim binds now.  The model bakes it
+    into its reshapes and its position and rotary tables, as the JAX
+    package's ``GPTModel.forward`` does (``seq_len.get()`` at build
+    time): an unbound dim raises here, and a run whose feeds bind the
+    dim to another length raises in the graph (``Graph.bake_dim``).  A
+    symbolic batch dim stays free."""
+    if not dim.is_bound:
+        raise ValueError(
+            f"GPTModel bakes the sequence length into its reshapes and its "
+            f"position and rotary tables when it is built, as the JAX "
+            f"package's does, but symbolic dim {dim.name!r} is unbound: "
+            f"give the placeholder a static length or a bound dim "
+            f"(SymbolicDim({dim.name!r}, length))")
+    n = dim.get()
+    if input_ids.graph is not None:
+        input_ids.graph.bake_dim(dim, n, "GPTModel")
+    return n
+
+
 class GPTModel(nn.Module):
     """Embeddings, blocks and the final norm."""
 
@@ -383,6 +404,8 @@ class GPTModel(nn.Module):
                 segment_ids=None):
         if seq_len is None:
             seq_len = input_ids.shape[-1]
+            if isinstance(seq_len, SymbolicDim):
+                seq_len = _bake_seq_len(input_ids, seq_len)
         x = self.wte(input_ids)
         if self.config.position == "learned":
             x = x + ops.getitem(self.wpe, slice(0, seq_len))

@@ -12,6 +12,7 @@ import torch
 
 from ..graph.ctor import (ConstantInitializer, HeUniformInitializer,
                           NormalInitializer, UniformInitializer, parameter)
+from ..graph.tensor import Tensor
 from ..ops import functional as ops
 from .module import Module
 
@@ -94,12 +95,12 @@ class BatchNorm2d(Module):
 
     Training normalizes with the batch statistics.  The running
     statistics move (by ``momentum``, towards the biased batch variance,
-    as in the JAX package) only when the forward runs at once, on a
-    concrete batch inside ``ops.functional.run_at_once()`` (or with no
-    graph at all): a forward recorded on a define-and-run graph, and so
-    its runs and captured replays, leaves them as they are.  For such
-    loops call :meth:`update_stats` with fetched batch statistics
-    (``ops.batch_norm_stats``)."""
+    as in the JAX package) when the forward runs at once: in an eager
+    graph (``graph("eager")``), as the JAX package's eager graph moves
+    them, or on torch tensors with no graph.  A forward recorded on a
+    define-and-run graph, and so its runs and captured replays, leaves
+    them as they are; for such loops call :meth:`update_stats` with
+    fetched batch statistics (``ops.batch_norm_stats``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, dtype=None, name: str = "bn"):
@@ -126,7 +127,9 @@ class BatchNorm2d(Module):
             out = ops.batch_norm(x, self.weight, self.bias, training=True,
                                  eps=self.eps)
             mean, var = ops.batch_norm_stats(x)
-            if isinstance(mean, torch.Tensor):     # ran at once
+            if isinstance(mean, Tensor) and mean._data is not None:
+                self.update_stats(mean._data, var._data)    # eager graph
+            elif isinstance(mean, torch.Tensor):            # no graph
                 self.update_stats(mean, var)
             return out
         # host arrays, as the JAX package's buffers are: constants of a

@@ -1,14 +1,14 @@
 """The op library (counterpart of ``hetu_tpu.ops.functional``).
 
 Each op is a torch function on tensors.  Given a graph ``Tensor`` it
-records a node whose impl is that same function, as the JAX package's
-``_op`` does; given torch tensors it runs at once.  Inside
-:func:`run_at_once` an op whose graph inputs are all variables runs at
-once too, on the variables' current values and the graph's device: a
-module called on a concrete batch so runs its forward eagerly (as the
-JAX package's eager graph does, and ``BatchNorm2d`` then moves its
-running statistics).  Outside it a torch tensor beside a variable is a
-constant of a recorded node.  The impls keep the JAX package's
+makes a node of that tensor's graph whose impl is that same function,
+as the JAX package's ``_op`` does: a define-and-run or define-by-run
+graph records it, an eager graph (``graph("eager")``) runs it at once
+on its device and keeps the value on the output Tensor, so a module
+called on a concrete batch there runs its forward eagerly (and
+``BatchNorm2d`` moves its running statistics).  A torch tensor beside a
+graph Tensor is a constant of the node.  Given only torch tensors an op
+runs at once and returns torch tensors.  The impls keep the JAX package's
 numerics: dtype promotion across operands (fp32 with bf16 gives fp32,
 where ``torch.matmul`` alone would refuse), layer norm in x's dtype, RMS
 norm in fp32 cast back, GELU with the tanh approximation, log-softmax in
@@ -22,7 +22,6 @@ kernels, so they are ``torch.nn.functional``'s here.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -44,29 +43,6 @@ def _graph_of(*xs):
     return None
 
 
-_at_once = [0]
-
-
-@contextlib.contextmanager
-def run_at_once():
-    """Ops on graph variables (and concrete values) run at once inside the
-    block instead of being recorded, on the graph's device."""
-    _at_once[0] += 1
-    try:
-        yield
-    finally:
-        _at_once[0] -= 1
-
-
-def _runs_now(g, inputs) -> bool:
-    """True where no graph records the op: no graph input, or, inside
-    :func:`run_at_once`, graph inputs that are all variables."""
-    if g is None:
-        return True
-    return _at_once[0] > 0 and all(
-        x.id in g._var_tensors for x in inputs if isinstance(x, Tensor))
-
-
 # 64-bit host values narrow as in JAX without x64 (``Graph.as_tensor``)
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 
@@ -84,15 +60,13 @@ def _op(op_type: str, impl, inputs: Sequence[Any], attrs=None, name="",
     if amp._autocast_stack:
         impl = amp.wrap_impl(op_type, impl)
     g = _graph_of(*inputs)
-    if not _runs_now(g, inputs):
+    if g is not None:
         return g.make_op(op_type, impl, inputs, attrs or {}, name,
                          num_outputs=num_outputs)
-    vals = [g.get_tensor_value(x) if isinstance(x, Tensor) else x
-            for x in inputs]
-    dev = g.device if g is not None else next(
-        (x.device for x in vals if isinstance(x, torch.Tensor)), None)
+    dev = next((x.device for x in inputs if isinstance(x, torch.Tensor)),
+               None)
     args = [x.to(dev) if isinstance(x, torch.Tensor) else _host_value(x, dev)
-            for x in vals]
+            for x in inputs]
     out = impl(*args, **(attrs or {}))
     if num_outputs == 1 and isinstance(out, (tuple, list)) and len(out) == 1:
         return out[0]

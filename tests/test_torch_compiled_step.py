@@ -21,8 +21,13 @@ the same seeded weights (built by the JAX model, carried across with
   launch counters, the dropout generators, the refused-operation report.
 
 The card tests of the same steps (captured against eager) are in
-``tests/test_torch_cuda_kernel.py``.
+``tests/test_torch_cuda_kernel.py``; those of the graph layer's plans
+are here, marked ``cuda`` (they skip without a card): a captured GRAD
+plan and UPDATE plan sharing the gradient accumulator, and one captured
+graph a shape bucket.  On a card machine without JAX, ``python -m pytest
+--noconftest -m cuda tests/test_torch_compiled_step.py`` runs them alone.
 """
+import contextlib
 import dataclasses
 import importlib
 
@@ -30,11 +35,15 @@ import numpy as np
 import pytest
 import torch
 
-import hetu_tpu as jht
-from hetu_tpu import optim as joptim
-from hetu_tpu.models import GPTConfig as JaxGPTConfig
-from hetu_tpu.models import GPTLMHeadModel as JaxGPTLMHeadModel
-from hetu_tpu.models.gpt import mla_state_from as jax_mla_state_from
+try:
+    import hetu_tpu as jht
+    from hetu_tpu import optim as joptim
+    from hetu_tpu.models import GPTConfig as JaxGPTConfig
+    from hetu_tpu.models import GPTLMHeadModel as JaxGPTLMHeadModel
+    from hetu_tpu.models.gpt import mla_state_from as jax_mla_state_from
+    JaxEngine = importlib.import_module("hetu_tpu.serving.engine").Engine
+except ImportError:     # a card machine without JAX: the cuda cases only
+    jht = None
 import hetu_tpu_torch as ht
 from hetu_tpu_torch import optim
 from hetu_tpu_torch.core import capture
@@ -47,8 +56,6 @@ from hetu_tpu_torch.ops import paged_attention as pa
 from hetu_tpu_torch.ops import ragged_paged_attention as rpa
 from hetu_tpu_torch.serving import Engine
 from hetu_tpu_torch.serving.decode import UnifiedStep
-
-JaxEngine = importlib.import_module("hetu_tpu.serving.engine").Engine
 
 CFG_KW = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=4,
               max_seq_len=64, sp=False, dropout=0.0)
@@ -391,3 +398,93 @@ def test_dropout_plans_name_their_generator(monkeypatch):
     monkeypatch.setattr(capture, "can_capture_generators", lambda: False)
     with pytest.raises(RuntimeError, match="frozen mask"):
         g._generators(entry)
+
+
+# ---------------------------------------------------------------------------
+# the graph layer's plans on the card (skip without one)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _card_trainer(batch=(4, 64), buckets=None, init=None):
+    """A tiny fp32 GPT-2 on the card (its weights ``init``, else its own
+    from seed 0) with an SGD update op."""
+    with ht.graph("define_and_run", create_new=True, device="cuda",
+                  seed=0) as g:
+        ids = ht.placeholder("int32", batch, name="input_ids")
+        labels = ht.placeholder("int32", batch, name="labels")
+        model = GPTLMHeadModel(GPTConfig(**GPT2, dtype="float32"))
+        loss = model(ids, labels)
+        train_op = optim.SGDOptimizer(lr=0.5).minimize(loss)
+        if buckets is not None:
+            g.set_shape_buckets(buckets, pad_values={labels: -100})
+    if init is not None:
+        load_state(model, init)
+    return g, ids, labels, model, loss, train_op
+
+
+@pytest.mark.cuda
+def test_captured_grad_and_update_plans_share_the_accumulator(cuda_device):
+    """3 GRAD runs and an UPDATE, twice over, captured: two CUDA graphs
+    (the GRAD plan and the UPDATE plan), the weights of the same runs
+    under ``capture.eager()`` bitwise, the weights still during the GRAD
+    runs, and the accumulator's storage kept and zeroed by each UPDATE
+    replay."""
+    rng = np.random.RandomState(6)
+    toks = [rng.randint(0, 97, (4, 65)).astype(np.int32) for _ in range(8)]
+    init = state_numpy(_card_trainer()[3])
+    runs = {}
+    for eager in (True, False):
+        g, ids, labels, model, loss, op = _card_trainer(init=init)
+        ptrs, still = set(), True
+        with capture.eager() if eager else contextlib.nullcontext():
+            for i, t in enumerate(toks):
+                level = "update" if i % 4 == 3 else "grad"
+                before = state_numpy(model) if level == "grad" else None
+                g.run(loss, [loss, op], {ids: t[:, :-1], labels: t[:, 1:]},
+                      run_level=level)
+                if before is not None:
+                    after = state_numpy(model)
+                    still &= all(np.array_equal(before[k], after[k])
+                                 for k in before)
+                ptrs |= {a.data_ptr() for a in g._grad_accum.values()}
+                if level == "update":
+                    assert all(float(a.abs().max()) == 0
+                               for a in g._grad_accum.values())
+        assert still and len(ptrs) == len(g._grad_accum)
+        runs[eager] = state_numpy(model), g.compile_count, len(g._plan_pool)
+    (want, eg, ep), (got, cg, cp) = runs[True], runs[False]
+    assert (eg, ep) == (0, 2) and (cg, cp) == (2, 2)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.cuda
+def test_one_captured_graph_a_bucket(cuda_device):
+    """A symbolic batch on buckets [2, 4] (labels padded with -100):
+    batches 1, 2, 3, 4, 2, 1 capture two graphs, and the losses are the
+    eager runs'."""
+    rng = np.random.RandomState(7)
+    sizes = (1, 2, 3, 4, 2, 1)
+    toks = [rng.randint(0, 97, (b, 65)).astype(np.int32) for b in sizes]
+    init = state_numpy(_card_trainer()[3])
+    runs = {}
+    for eager in (True, False):
+        batch = (ht.SymbolicDim("batch"), 64)
+        g, ids, labels, model, loss, op = _card_trainer(batch, [2, 4], init)
+        with capture.eager() if eager else contextlib.nullcontext():
+            losses = [float(g.run(loss, [loss, op],
+                                  {ids: t[:, :-1], labels: t[:, 1:]})[0])
+                      for t in toks]
+        shapes = sorted(tuple(b.shape) for e in g._plan_pool.values()
+                        for b in e.feeds.values())
+        runs[eager] = losses, g.compile_count, shapes
+    (want, eg, _), (got, cg, shapes) = runs[True], runs[False]
+    assert eg == 0 and cg == 2
+    assert shapes == [(2, 64), (2, 64), (4, 64), (4, 64)]
+    assert got == want and np.isfinite(got).all()

@@ -8,10 +8,9 @@ parameter and floating input, in fp32, within ``TOL`` = 1e-5.  Also:
 ``Sequential``/``ModuleList``/``ModuleDict`` names, the initializers'
 shapes and ranges (their draws differ: the port draws from a
 ``torch.Generator``), dropout's mask, and ``BatchNorm2d``'s running
-statistics -- moved by an eager forward (``ops.functional.run_at_once``)
-exactly as the JAX package's
-eager graph moves them (biased batch variance), left as they are by a
-define-and-run step and its runs.
+statistics -- moved by a forward in an eager graph exactly as the JAX
+package's eager graph moves them (biased batch variance), left as they
+are by a define-and-run step and its runs.
 """
 import importlib
 from collections import OrderedDict
@@ -269,12 +268,9 @@ def test_batchnorm_eager_updates_running_stats_as_jax_eager():
         jbn = jnn.BatchNorm2d(3, momentum=0.2)
         jout = [jbn(x).numpy() for _ in range(2)]
         jstate = {k: np.asarray(v) for k, v in jbn.state_dict().items()}
-    with ht.graph("define_and_run", create_new=True, device="cpu") as g:
+    with ht.graph("eager", create_new=True, device="cpu") as g:
         bn = pnn.BatchNorm2d(3, momentum=0.2)
-        n_ops = len(g.ops)
-        with pops.run_at_once():
-            out = [bn(torch.from_numpy(x)) for _ in range(2)]
-        assert len(g.ops) == n_ops            # nothing recorded
+        out = [bn(torch.from_numpy(x)).get_data() for _ in range(2)]
         state = module_state_numpy(bn)
     for a, b in zip(out, jout):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL,
@@ -296,8 +292,8 @@ def test_batchnorm_eager_updates_running_stats_as_jax_eager():
     with jht.graph("eager", create_new=True):
         jeval = jbn(x).numpy()
     bn.eval()
-    with pops.run_at_once():
-        peval = bn(torch.from_numpy(x))
+    with ht.graph(g):
+        peval = bn(torch.from_numpy(x)).get_data()
     np.testing.assert_allclose(peval.numpy(),
                                np.asarray(jeval), rtol=TOL, atol=TOL)
 

@@ -432,24 +432,30 @@ def test_constructors(fn):
 
 
 def test_module_on_a_concrete_batch_runs_eagerly_only_when_asked():
-    """Inside ``run_at_once`` a layer called on a torch tensor runs at
-    once on its variables' current values (the graph records nothing);
-    outside it, and on a placeholder, it records."""
+    """In an eager graph a layer called on a torch tensor runs at once on
+    its variables' current values (its output Tensor keeps the value);
+    in a define-and-run graph it records, on a torch tensor as on a
+    placeholder."""
     x = _f32(4, 6)
+    with ht.graph("eager", create_new=True, device="cpu") as eg:
+        elin = ht.nn.Linear(6, 3)
+        y = elin(torch.from_numpy(x))
+        assert y._data is not None and isinstance(y.get_data(),
+                                                  torch.Tensor)
+        ew, eb = elin.weight.numpy(), elin.bias.numpy()
     with ht.graph("define_and_run", create_new=True, device="cpu") as g:
         lin = ht.nn.Linear(6, 3)
         before = len(g.ops)
-        with pops.run_at_once():
-            y = lin(torch.from_numpy(x))
-        assert isinstance(y, torch.Tensor) and len(g.ops) == before
         rec = lin(torch.from_numpy(x))
         assert not isinstance(rec, torch.Tensor) and len(g.ops) > before
+        assert rec._data is None
         ph = ht.placeholder("float32", (4, 6))
         t = lin(ph)
         assert not isinstance(t, torch.Tensor)
+        g.reset_variable(lin.weight, ew)
+        g.reset_variable(lin.bias, eb)
         ref, got = g.run([t, rec], feed_dict={ph: x})
-    w, b = lin.weight.numpy(), lin.bias.numpy()
-    np.testing.assert_allclose(y.numpy(), x @ w.T + b, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(y.numpy(), x @ ew.T + eb, rtol=TOL, atol=TOL)
     np.testing.assert_array_equal(y.numpy(), ref.numpy())
     np.testing.assert_array_equal(got.numpy(), ref.numpy())
 
