@@ -126,6 +126,37 @@ def llama3_8b_config(**kw) -> GPTConfig:
     return llama_config(**base)
 
 
+def draft_config(cfg: GPTConfig, num_layers: int) -> GPTConfig:
+    """A shallow draft-model config for speculative decoding
+    (``serving/spec.py``): the target's vocab, embedding and head
+    geometry, with only the layer count reduced."""
+    if not 1 <= num_layers <= cfg.num_layers:
+        raise ValueError(
+            f"draft num_layers must be in [1, {cfg.num_layers}] (the "
+            f"target's layer count), got {num_layers}")
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=int(num_layers))
+
+
+def draft_state_from(state, cfg: GPTConfig, num_layers: int):
+    """A truncated draft ``(state, config)`` from a target checkpoint:
+    the first ``num_layers`` blocks plus the shared embeddings, final
+    norm and head.  The draft's state holds the target's own arrays or
+    tensors (references, not copies), so an engine serving both uploads
+    them once."""
+    from .generate import _Params
+    dcfg = draft_config(cfg, num_layers)
+    keep = {}
+    for k, v in state.items():
+        nk = _Params._norm(k)
+        if nk.startswith("h"):
+            idx = nk[1:].split(".", 1)[0]
+            if idx.isdigit() and int(idx) >= num_layers:
+                continue
+        keep[k] = v
+    return keep, dcfg
+
+
 def mla_config(cfg: GPTConfig, kv_latent_dim: int,
                kv_rope_dim: Optional[int] = None) -> GPTConfig:
     """The MLA twin of a full-head config: identical everywhere except
@@ -337,12 +368,12 @@ class ParallelMLP(nn.Module):
         h = self.up(x)
         if self.activation == "swiglu":
             h = ops.swiglu(h)
-        elif self.activation == "gelu":
-            h = ops.gelu(h)
+        elif self.activation == "silu":
+            h = ops.silu(h)
+        elif self.activation == "relu":
+            h = ops.relu(h)
         else:
-            raise NotImplementedError(
-                f"activation {self.activation!r}: this slice has gelu and "
-                f"swiglu")
+            h = ops.gelu(h)
         out = self.down(h)
         if self.dropout is not None:
             out = self.dropout(out)

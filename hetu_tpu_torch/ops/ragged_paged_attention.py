@@ -47,7 +47,8 @@ pages at the widths, page sizes and batches it covers, split TF32
 ``mma.sync`` otherwise).
 
 The module also holds the serving step's on-device sampler
-(``sample_rows``).
+(``sample_rows``) and the speculative verify head beside it
+(``speculative_verify_head``), plain torch ops like the JAX head.
 """
 from __future__ import annotations
 
@@ -720,3 +721,52 @@ def sample_row(logits, temp, top_p, top_k, seed, ctx) -> torch.Tensor:
                        as1(top_p, torch.float32), as1(top_k, torch.int32),
                        as1(seed, torch.int32), as1(ctx, torch.int32),
                        sampled=temp > 0)[0]
+
+
+# ---------------------------------------------------------------------------
+# verify-row sampling head (speculative decoding)
+# ---------------------------------------------------------------------------
+#
+# A verify row feeds ``[last committed token, d_1, ..., d_K]`` through the
+# unified step as a chunk row.  Verify position j's logits emit the token
+# at absolute sequence index ``ctx - spec_len + j``; the head draws that
+# position's choice from the ONE row sampler above, keyed by that index
+# exactly as a decode row at that index is, and accepts ``d_{j+1}`` iff it
+# equals the choice.  At temperature 0 the choice is the argmax a decode
+# step would commit; sampled, accepting iff a draw ``X ~ p`` equals the
+# greedy draft is the coupled form of leftover-distribution rejection
+# sampling for a point-mass draft (accept with probability ``p(d)``, and
+# ``X`` given rejection follows ``p`` without ``d``).  Either way the
+# emitted tokens are those non-speculative serving emits.
+
+
+def speculative_verify_head(vlogits, draft_next, spec_lens, temps, top_ps,
+                            top_ks, seeds, ctx_lens, sampled: bool):
+    """Batched accept/reject over verify rows (R rows, K = the static
+    draft length):
+
+    - ``vlogits [R, K, V]`` fp32: logits at the row's first K query
+      positions (position j verifies the draft fed at j + 1);
+    - ``draft_next [R, K]`` int32: the draft token fed at j + 1;
+    - ``spec_lens [R]``: staged drafts per row (0: not a verify row,
+      ``accepted`` is 0);
+    - ``temps``/``top_ps``/``top_ks``/``seeds`` ``[R]``: the rows'
+      sampling parameters; ``ctx_lens [R]``: context including this
+      step's tokens; ``sampled``: whether any row samples (as for
+      :func:`sample_rows`).
+
+    Returns ``(accepted [R], alt [R, K])`` int32: the longest accepted
+    prefix (at most ``spec_len``) and each position's own choice;
+    ``alt[r, accepted[r]]`` is the bonus token after a rejection, and on
+    full acceptance the caller's last-position sample is the bonus."""
+    r, k, v = vlogits.shape
+    ar = torch.arange(k, device=vlogits.device)
+    idx = ctx_lens[:, None] - spec_lens[:, None] + ar[None, :]   # [R, K]
+    rep = lambda a: a.repeat_interleave(k)                      # noqa: E731
+    choice = sample_rows(vlogits.reshape(r * k, v), rep(temps),
+                         rep(top_ps), rep(top_ks), rep(seeds),
+                         idx.reshape(-1), sampled=sampled).reshape(r, k)
+    live = ar[None, :] < spec_lens[:, None]
+    accepted = torch.cumprod(((choice == draft_next) & live).to(torch.int32),
+                             dim=1).sum(dim=1)
+    return accepted.to(torch.int32), choice

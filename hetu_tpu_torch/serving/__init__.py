@@ -10,14 +10,25 @@ batching engine driving one unified ragged prefill+decode step.
                           temperature=0.8, top_p=0.95, seed=7)
     outputs = eng.run()            # {req_id: generated token list}
 
-The cluster plane and speculative decoding come with later slices.
+Speculative decoding with a truncated self-draft::
+
+    from hetu_tpu_torch.models import draft_state_from
+    from hetu_tpu_torch.serving import SpecConfig
+
+    eng = Engine(state, cfg,
+                 spec=SpecConfig(*draft_state_from(state, cfg, 2), k=4))
+
+The draft proposes ``k`` greedy tokens a decode-ready request, the step
+verifies them as ragged verify rows; temperature-0 output equals the
+non-speculative engine's.  The cluster plane comes with a later slice.
 """
 from .engine import Engine
 from .kv_pool import TRASH_PAGE, PagedKVPool
 from .prefix_cache import CacheEntry, PrefixCache
 from .request import FINISHED, RUNNING, WAITING, Request, RequestQueue
 from .scheduler import Scheduler
+from .spec import SpecConfig, SpecDecoder
 
 __all__ = ["Engine", "PagedKVPool", "TRASH_PAGE", "PrefixCache",
            "CacheEntry", "Request", "RequestQueue", "Scheduler",
-           "WAITING", "RUNNING", "FINISHED"]
+           "WAITING", "RUNNING", "FINISHED", "SpecConfig", "SpecDecoder"]

@@ -1,11 +1,13 @@
 """The unified serving step: ragged prefill + decode in one call (port
-of ``hetu_tpu.serving.decode.build_unified_step_fn`` for the dense,
-non-speculative configurations: full-head and MLA).
+of ``hetu_tpu.serving.decode.build_unified_step_fn`` for the dense
+configurations, full-head and MLA, speculative or not).
 
 Token-axis layout (fixed by the engine)::
 
     [0 .. max_seqs)                    decode slots, 1 token each
     [max_seqs .. max_seqs + R*chunk)   R = prefill_rows chunk slots
+    [.. + max_seqs*(spec_k+1))         spec mode: one verify slot of
+                                       spec_k + 1 tokens per sequence
 
 Every layer runs the projections and the MLP over the token axis,
 scatters each token's k/v into its page at ``(token_page, token_off)``
@@ -14,6 +16,15 @@ scatters each token's k/v into its page at ``(token_page, token_off)``
 which launches the CUDA kernel for CUDA tensors and runs the plain
 version for CPU tensors.  Sampling is on the device (``sample_rows``);
 the engine reads back ``[rows]`` int32 token ids, never logits.
+
+In spec mode (``spec_k > 0``) a verify row feeds the last committed
+token and its drafts; it is a chunk row to the attention, which attends
+``max(chunk, spec_k + 1)`` tokens a row (``max_q``), so a verify row
+wider than a chunk is attended whole.  The verify head
+(``speculative_verify_head``) reads the logits at the row's first
+``spec_k`` positions and returns the accepted prefix length; its logits
+come from the same LM-head call as the rows' own samples.  A row with no
+drafts gets ``accepted`` 0 and its own sample, as in the non-spec step.
 
 An MLA config (``cfg.is_mla``) stores ONE latent stream per layer: the
 ``q`` and ``kv_a`` projections run over the token axis, ``k_up`` is
@@ -36,14 +47,17 @@ the port decides on the host, in two ways:
 
 - On the card the step is compiled (``core/capture.py``): a body of
   fixed shapes, captured in one CUDA graph per **live chunk-slot mask**
-  (at most ``2**prefill_rows`` graphs) and replayed after that.  A live
-  chunk slot is computed at its full ``chunk`` width, as JAX's
-  ``lax.cond`` branch is; an idle one is not computed and its tokens
-  stay 0.  Sampling always takes the sampled path, whose
+  and, in spec mode, whether the verify region is live (at most
+  ``2**prefill_rows`` graphs, ``2**(prefill_rows + 1)`` in spec mode)
+  and replayed after that.  A live chunk slot is computed at its full
+  ``chunk`` width, as JAX's ``lax.cond`` branch is, and a live verify
+  region whole, as JAX computes it unconditionally; an idle one is not
+  computed and its tokens stay 0, and an idle verify region skips the
+  verify head.  Sampling always takes the sampled path, whose
   ``torch.where`` gives temperature-0 rows exactly the greedy token.
 - On the CPU the step stays eager: it computes only the live tokens of
-  a live chunk slot and skips the sort of ``sample_rows`` when no row
-  samples.
+  a live chunk slot or verify row and skips the sort of
+  ``sample_rows`` when no row samples.
 
 Padding tokens write to the trash page either way.
 """
@@ -63,7 +77,8 @@ from ..models.gpt import GPTConfig, check_serving_config
 from ..ops.quantization import quantize_rows
 from ..ops.ragged_paged_attention import (latent_ragged_paged_attention,
                                           ragged_paged_attention,
-                                          sample_rows)
+                                          sample_rows,
+                                          speculative_verify_head)
 
 
 class _StepMeta(NamedTuple):
@@ -102,7 +117,8 @@ def _rope_tok(x, cos_g, sin_g):
 _PACKED = (("tokens", None), ("token_pos", None), ("token_page", None),
            ("token_off", None), ("q_lens", 0), ("cu_q", 1),
            ("page_tables", 0), ("ctx_lens", 0), ("top_ks", 0),
-           ("seeds", 0), ("last", 0), ("temps", 0), ("top_ps", 0))
+           ("seeds", 0), ("spec_lens", 0), ("last", 0), ("temps", 0),
+           ("top_ps", 0))
 _FLOAT_FIELDS = ("temps", "top_ps")
 
 
@@ -114,38 +130,52 @@ class UnifiedStep:
          q_lens [rows], cu_q [rows+1], page_tables [rows, max_pages],
          ctx_lens [rows], temps [rows], top_ps [rows], top_ks [rows],
          seeds [rows],                      # numpy (int32 / float32)
+         [spec_lens [rows],]                # spec mode only
          k_pages, v_pages)                  # per-layer page tensors
       -> next_tokens [rows] int32 on the device
+         (spec mode: (next_tokens, accepted [rows] int32))
 
-    where ``rows = max_seqs + prefill_rows`` and ``T = max_seqs +
-    prefill_rows * chunk``.  Every row gets a next-token sample at its
-    last query token.  ``k_pages``/``v_pages`` are updated in place.
-    ``page_quant`` ("int8" or "nf4") stores an MLA config's latents as
-    per-token absmax codes.
+    where ``rows = max_seqs + prefill_rows (+ max_seqs)`` and ``T =
+    max_seqs + prefill_rows * chunk (+ max_seqs * (spec_k + 1))``.
+    Every row gets a next-token sample at its last query token; a live
+    verify row's token is the bonus token (the first rejection's
+    alternative, or its last position's sample on full acceptance).
+    ``k_pages``/``v_pages`` are updated in place.  ``page_quant``
+    ("int8" or "nf4") stores an MLA config's latents as per-token absmax
+    codes.
 
-    On the card the step replays the CUDA graph of its live chunk-slot
-    mask (captured at the first step with that mask, bound to the params
-    and pages of the first call); the returned tokens are the graph's
-    output, which the next step overwrites.  ``fixed`` runs the same
+    On the card the step replays the CUDA graph of its live mask
+    (captured at the first step with that mask, bound to the params and
+    pages of the first call); the returned tensors are the graph's
+    outputs, which the next step overwrites.  ``fixed`` runs the same
     fixed-shape body eagerly on any device.
     """
 
     def __init__(self, cfg: GPTConfig, max_seqs: int, chunk: int,
                  prefill_rows: int, max_pages: int, page_size: int,
-                 device=None, page_quant=None):
+                 device=None, page_quant=None, spec_k: int = 0):
         if prefill_rows < 1:
             raise ValueError(f"prefill_rows must be >= 1, got {prefill_rows}")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         check_serving_config(cfg)
         if page_quant is not None and (not cfg.is_mla or cfg.rope_dim):
             raise ValueError("page_quant requires the latent (MLA) layout "
                              "with rope_dim == 0")
         self.cfg, self.page_quant = cfg, page_quant
-        self.max_seqs, self.chunk = max_seqs, chunk
+        self.max_seqs, self.chunk, self.spec_k = max_seqs, chunk, spec_k
         self.device = resolve_device(device)
-        self.n_tokens = max_seqs + prefill_rows * chunk
-        self.n_rows = max_seqs + prefill_rows
+        # a verify row is attended whole even when wider than a chunk
+        self.max_q = max(chunk, spec_k + 1)
+        verify_rows = max_seqs if spec_k else 0
+        self.n_tokens = max_seqs + prefill_rows * chunk \
+            + verify_rows * (spec_k + 1)
+        self.n_rows = max_seqs + prefill_rows + verify_rows
+        # first verify row and first verify token
+        self._v0 = max_seqs + prefill_rows
+        self._vstart = max_seqs + prefill_rows * chunk
         self._cdt = torch_dtype("bfloat16" if cfg.dtype == "bfloat16"
                                 else "float32")
         self._cos, self._sin = (
@@ -181,7 +211,8 @@ class UnifiedStep:
     # -- host packing ----------------------------------------------------
 
     def _pack(self, tokens, token_pos, token_page, token_off, q_lens, cu_q,
-              page_tables, ctx_lens, temps, top_ps, top_ks, seeds):
+              page_tables, ctx_lens, temps, top_ps, top_ks, seeds,
+              spec_lens=None):
         """Writes the step's metadata into the static host buffer and
         copies it to the device buffer (``non_blocking`` from pinned
         memory on the card)."""
@@ -192,7 +223,9 @@ class UnifiedStep:
                   "token_page": token_page, "token_off": token_off,
                   "q_lens": q_lens, "cu_q": cu_q,
                   "page_tables": page_tables, "ctx_lens": ctx_lens,
-                  "top_ks": top_ks, "seeds": seeds, "last": last,
+                  "top_ks": top_ks, "seeds": seeds,
+                  "spec_lens": np.zeros(self.n_rows, np.int32)
+                  if spec_lens is None else spec_lens, "last": last,
                   "temps": temps, "top_ps": top_ps}
         if self._copied is not None:
             self._copied.synchronize()     # the last upload has read it
@@ -239,7 +272,7 @@ class UnifiedStep:
         vp.index_put_((m.token_page, m.token_off), v.to(self._cdt))
         attn = ragged_paged_attention(
             q.to(kp.dtype).contiguous(), kp, vp, m.q_lens, m.cu_q,
-            m.page_tables, m.ctx_lens, max_q=self.chunk)
+            m.page_tables, m.ctx_lens, max_q=self.max_q)
         return attn.reshape(t, nh * hd)
 
     def _mla_attention(self, p, i, h, spans, kp, vp, m: _StepMeta):
@@ -272,7 +305,7 @@ class UnifiedStep:
         o_lat = latent_ragged_paged_attention(
             q_cat.contiguous(), kp,
             None if (page_quant or not d_r) else vp, m.q_lens, m.cu_q,
-            m.page_tables, m.ctx_lens, max_q=self.chunk,
+            m.page_tables, m.ctx_lens, max_q=self.max_q,
             softmax_scale=(hd + d_r) ** -0.5,
             scale_pages=vp if page_quant else None, quant=page_quant,
             latent_dim=d_c)
@@ -283,9 +316,11 @@ class UnifiedStep:
         return attn.reshape(t, nh * hd)
 
     @torch.no_grad()
-    def _forward(self, params, k_pages, v_pages, spans, sampled: bool):
+    def _forward(self, params, k_pages, v_pages, spans, sampled: bool,
+                 verify: bool = False):
         """The step over the packed device buffer: the layers over the
-        token ``spans`` (``_region_map``), then one sample a row."""
+        token ``spans`` (``_region_map``), then one sample a row, and
+        with ``verify`` the verify head over the verify rows."""
         c, b = self.cfg, self._views
         p = _params_view(c, params)
         cdt = self._cdt
@@ -314,55 +349,110 @@ class UnifiedStep:
                     p, i, "mlp.down", _act(c, _linear(p, i, "mlp.up", hh))),
                 h, spans)
         # the final norm is row-wise: norm only the rows' last tokens
-        xl = _norm_apply(c, p("ln_f.weight"), p("ln_f.bias"),
-                         x[b["last"].long()])
-        logits = _lm_head(p, xl)                                 # [rows, V]
-        return sample_rows(logits, b["temps"], b["top_ps"], b["top_ks"],
-                           b["seeds"], b["ctx_lens"], sampled=sampled)
+        # (and the verify rows' first spec_k tokens: one LM-head call)
+        picks = b["last"].long()
+        if verify:
+            k, nv = self.spec_k, self.n_rows - self._v0
+            starts = b["cu_q"][self._v0:self.n_rows].long()
+            widx = (starts[:, None] + torch.arange(
+                k, device=starts.device)[None, :]).clamp(
+                0, self.n_tokens - 1)                            # [R, K]
+            picks = torch.cat([picks, widx.reshape(-1)])
+        xl = _norm_apply(c, p("ln_f.weight"), p("ln_f.bias"), x[picks])
+        logits = _lm_head(p, xl)                       # [rows (+ R*K), V]
+        nr = self.n_rows
+        next_tokens = sample_rows(logits[:nr], b["temps"], b["top_ps"],
+                                  b["top_ks"], b["seeds"], b["ctx_lens"],
+                                  sampled=sampled)
+        if not self.spec_k:
+            return next_tokens
+        accepted = torch.zeros_like(next_tokens)
+        if not verify:
+            return next_tokens, accepted
+        v0, sl = self._v0, slice(self._v0, nr)
+        # verify position j's logits check the draft fed at j + 1
+        draft_next = b["tokens"][(widx + 1).clamp(0, self.n_tokens - 1)]
+        spec_lens = b["spec_lens"][sl]
+        acc, alt = speculative_verify_head(
+            logits[nr:].reshape(nv, k, -1), draft_next, spec_lens,
+            b["temps"][sl], b["top_ps"][sl], b["top_ks"][sl],
+            b["seeds"][sl], b["ctx_lens"][sl], sampled=sampled)
+        # the bonus token: the first rejection's alternative, or on full
+        # acceptance the row's own last-position sample, whose sampling
+        # index ctx_lens is the emitted token's index
+        bonus = alt.gather(1, acc.clamp(max=k - 1).long()[:, None])[:, 0]
+        next_tokens = torch.cat([next_tokens[:v0], torch.where(
+            acc < spec_lens, bonus, next_tokens[sl])])
+        accepted = torch.cat([accepted[:v0], acc])
+        return next_tokens, accepted
 
     def _fixed_spans(self, live):
-        """The spans of the fixed-shape body for the live chunk-slot mask
-        ``live``: the decode slots and every live slot at full width,
-        adjacent spans merged; ``None`` when that is every token."""
+        """The spans of the fixed-shape body for the live mask ``live``
+        (one flag a chunk slot, then in spec mode one for the verify
+        region): the decode slots and every live slot or region at full
+        width, adjacent spans merged; ``None`` when that is every
+        token."""
+        regions = [(start, self.chunk) for _, start in self._chunk_starts]
+        if self.spec_k:
+            regions.append((self._vstart, self.n_tokens - self._vstart))
         spans = [[0, self.max_seqs]]
-        for on, (_, start) in zip(live, self._chunk_starts):
+        for on, (start, width) in zip(live, regions):
             if not on:
                 continue
             if spans[-1][0] + spans[-1][1] == start:
-                spans[-1][1] += self.chunk
+                spans[-1][1] += width
             else:
-                spans.append([start, self.chunk])
+                spans.append([start, width])
         if spans == [[0, self.n_tokens]]:
             return None
         return [tuple(s) for s in spans]
 
     def _live(self, q_lens):
-        return tuple(bool(q_lens[row]) for row, _ in self._chunk_starts)
+        live = tuple(bool(q_lens[row]) for row, _ in self._chunk_starts)
+        if self.spec_k:
+            live += (bool(np.any(q_lens[self._v0:])),)
+        return live
 
     def _body(self, params, k_pages, v_pages, live):
         return self._forward(params, k_pages, v_pages,
-                             self._fixed_spans(live), sampled=True)
+                             self._fixed_spans(live), sampled=True,
+                             verify=bool(self.spec_k and live[-1]))
+
+    def _meta_len(self, meta):
+        want = 13 if self.spec_k else 12
+        if len(meta) != want:
+            raise TypeError(f"the unified step takes {want} metadata "
+                            f"arrays and the pages, got {len(meta)}")
 
     # -- entry points ----------------------------------------------------
 
     def fixed(self, params, *arrays):
         """The fixed-shape body run eagerly, on any device: ``arrays``
-        are the twelve metadata arrays and the page tensors, as for a
-        call.  The captured graphs record this body."""
+        are the metadata arrays (twelve, thirteen in spec mode) and the
+        page tensors, as for a call.  The captured graphs record this
+        body."""
         *meta, k_pages, v_pages = arrays
+        self._meta_len(meta)
         self._pack(*meta)
         return self._body(params, k_pages, v_pages, self._live(meta[4]))
 
     def __call__(self, params, *arrays):
         *meta, k_pages, v_pages = arrays
-        q_lens, temps = meta[4], meta[8]
+        self._meta_len(meta)
+        q_lens, cu_q, temps = meta[4], meta[5], meta[8]
         if self.device.type == "cpu":
             self._pack(*meta)
+            rows = list(self._chunk_starts)
+            if self.spec_k:
+                rows += [(row, int(cu_q[row]))
+                         for row in range(self._v0, self.n_rows)]
             spans = [(0, self.max_seqs)] + [
-                (start, int(q_lens[row])) for row, start in self._chunk_starts
+                (start, int(q_lens[row])) for row, start in rows
                 if q_lens[row]]
-            return self._forward(params, k_pages, v_pages, spans,
-                                 sampled=bool((temps > 0).any()))
+            return self._forward(
+                params, k_pages, v_pages, spans,
+                sampled=bool((temps > 0).any()),
+                verify=bool(self.spec_k and np.any(q_lens[self._v0:])))
         if capture.is_eager():
             return self.fixed(params, *arrays)
         if self._bound is None:
@@ -380,8 +470,8 @@ class UnifiedStep:
     @property
     def compile_count(self) -> int:
         """Graphs captured on the card (at most ``2**prefill_rows``, one a
-        live chunk-slot mask); 1 on the CPU, where the step is not
-        compiled."""
+        live chunk-slot mask; ``2**(prefill_rows + 1)`` in spec mode); 1
+        on the CPU, where the step is not compiled."""
         if self.device.type == "cpu":
             return 1
         return self._graphs.captured
@@ -389,8 +479,9 @@ class UnifiedStep:
 
 def build_unified_step_fn(cfg: GPTConfig, max_seqs: int, chunk: int,
                           prefill_rows: int, max_pages: int,
-                          page_size: int, device=None,
-                          page_quant=None) -> UnifiedStep:
+                          page_size: int, device=None, page_quant=None,
+                          spec_k: int = 0) -> UnifiedStep:
     """Build THE serving step (:class:`UnifiedStep`)."""
     return UnifiedStep(cfg, max_seqs, chunk, prefill_rows, max_pages,
-                       page_size, device=device, page_quant=page_quant)
+                       page_size, device=device, page_quant=page_quant,
+                       spec_k=spec_k)

@@ -1,6 +1,6 @@
 """Continuous-batching inference engine over the paged KV pool (port of
-``hetu_tpu.serving.engine`` for the dense, non-speculative
-configurations: full-head and MLA latent pages).
+``hetu_tpu.serving.engine`` for the dense configurations: full-head and
+MLA latent pages, speculative or not).
 
 Every ``step()`` admits arrived requests, packs ALL live work (prefill
 chunks + decode tokens) into one ragged token batch, runs the unified
@@ -28,9 +28,27 @@ Prefix reuse (``serving/prefix_cache.py``, on by default) and the
 metrics (``utils/metrics.py``) are as in the JAX engine.  An MLA config
 (``cfg.is_mla``) gets latent pages, with a decoupled rope stream for
 rotary configs and, under ``page_quant="int8"|"nf4"`` (learned-position
-configs), per-token absmax codes.  Speculative decoding, the host KV
-tier, meshes, the tracer and the analysis tap come with later slices of
-the port; the options that select them raise ``NotImplementedError``.
+configs), per-token absmax codes.
+
+Speculative decoding (``serving/spec.py``, ``Engine(spec=SpecConfig(
+...))``): a shallow draft model proposes ``k`` greedy tokens for each
+decode-ready request every step; the scheduler packs them as dedicated
+``k + 1``-token verify rows and the step's verify head returns the
+accepted prefix length and a bonus token a row, so up to ``k + 1``
+tokens commit a call; temperature-0 output equals the non-speculative
+engine's, and a sampled row draws what it would draw without drafts.
+Rejected positions leave stale KV past the rewound ``pos``; the next
+burst or re-prefill writes them before anything reads them (a row's
+``ctx_len`` never reaches past its written extent).
+
+The tensors' device picks the attention: the kernels on the card, their
+plain versions on the CPU.  ``use_kernel`` may be left out, or name what
+the device runs (``True`` on the card, ``False`` on the CPU); any other
+value raises ``ValueError``, so no option sends the card to the plain
+version or asks the CPU for a kernel it has not got.  The host
+KV tier, meshes, a shared ``step_fn``, the tracer and the analysis tap
+come with later slices of the port (ROADMAP queue 1 items 9-18); the
+options that select them raise ``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -49,14 +67,24 @@ from .kv_pool import TRASH_PAGE, PagedKVPool
 from .prefix_cache import PrefixCache
 from .request import FINISHED, RUNNING, Request, RequestQueue
 from .scheduler import Scheduler
+from .spec import SpecConfig, SpecDecoder
 
 # default Prometheus-style latency bounds (seconds) for ttft/tbt
 DEFAULT_LATENCY_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                            10.0)
 
-_LATER_SLICES = {"spec": "speculative decoding",
-                 "host_tier": "SLO traffic plane (host KV tier)",
-                 "mesh": "parallelism (sharded KV pool)"}
+# options of later slices: what each selects, and its ROADMAP item
+_LATER_SLICES = {
+    "host_tier": "the host KV tier comes with the SLO traffic plane "
+                 "(ROADMAP queue 1 item 9)",
+    "mesh": "a sharded KV pool comes with the multi-GPU mesh (ROADMAP "
+            "queue 1 items 10-14)",
+    "step_fn": "replicas sharing one compiled step come with the cluster "
+               "plane (ROADMAP queue 1 item 9)",
+    "tracer": "the engine's tracer comes with the runtime planes "
+              "(ROADMAP queue 1 item 15)",
+    "analysis_tap": "the analysis tap comes with the analysis plane "
+                    "(ROADMAP queue 1 item 18)"}
 
 
 class Engine:
@@ -64,25 +92,39 @@ class Engine:
                  num_pages: int = 64, page_size: int = 64,
                  max_batch: int = 8, max_model_len: Optional[int] = None,
                  chunk_size: Optional[int] = 64, prefill_rows: int = 1,
+                 mesh=None, use_kernel: Optional[bool] = None,
                  metrics: bool = True,
                  latency_buckets: Optional[Sequence[float]] = None,
                  time_fn: Optional[Callable[[], float]] = None,
+                 name: str = "serving", analysis_tap: bool = False,
                  prefix_cache: bool = True, debug: bool = False,
-                 device="cuda", spec=None, page_quant=None,
-                 host_tier=None, mesh=None):
-        for name, val in (("spec", spec), ("host_tier", host_tier),
-                          ("mesh", mesh)):
+                 tracer=None, step_fn: Optional[Callable] = None,
+                 spec: Optional[SpecConfig] = None, page_quant=None,
+                 host_tier=None, device="cuda"):
+        for opt, val in (("host_tier", host_tier), ("mesh", mesh),
+                         ("step_fn", step_fn), ("tracer", tracer),
+                         ("analysis_tap", analysis_tap)):
             if val is not None and val is not False:
                 raise NotImplementedError(
-                    f"Engine({name}=...) is ported with the "
-                    f"{_LATER_SLICES[name]} slice")
+                    f"Engine({opt}=...): {_LATER_SLICES[opt]}")
+        if spec is not None and not isinstance(spec, SpecConfig):
+            raise TypeError(f"spec must be a SpecConfig, got "
+                            f"{type(spec).__name__}")
         check_serving_config(cfg)
         if page_quant is not None and not cfg.is_mla:
             raise ValueError("page_quant requires an MLA config "
                              "(kv_latent_dim set)")
         self.cfg = cfg
+        self.name = name
         self.page_quant = page_quant
         self.device = resolve_device(device)
+        # the tensors' device picks kernel or plain version
+        self.use_kernel = self.device.type == "cuda"
+        if use_kernel is not None and bool(use_kernel) != self.use_kernel:
+            raise ValueError(
+                f"Engine(use_kernel={use_kernel!r}) on a {self.device.type} "
+                f"device: the device picks the attention (the CUDA kernels "
+                f"on the card, their plain versions on the CPU)")
         self.params = _Params(state, cfg, self.device).s
         if max_model_len is None:
             max_model_len = (num_pages - 1) * page_size
@@ -123,6 +165,11 @@ class Engine:
                           "prefix_cache_hits", "prefix_cache_misses",
                           "prefix_cache_tokens_saved",
                           "prefix_cache_evictions",
+                          # speculative decoding: draft tokens proposed
+                          # and accepted (committed), bonus tokens of
+                          # verify rows (zero on non-spec engines)
+                          "spec_proposed", "spec_accepted",
+                          "spec_bonus_tokens",
                           "admitted_interactive", "admitted_standard",
                           "admitted_batch", "preempted_interactive",
                           "preempted_standard", "preempted_batch")}
@@ -140,16 +187,38 @@ class Engine:
             "request_latency": make_instrument("histogram",
                                                "request_latency", m),
         }
+        # speculative decoding: the draft proposes spec_k greedy tokens
+        # a decode-ready request; the scheduler packs them as verify rows
+        self.spec: Optional[SpecDecoder] = None
+        self.spec_k = 0
+        if spec is not None:
+            self.spec_k = int(spec.k)
+            # the draft's state holds the target's own values: hand it
+            # the tensors already made of them
+            uploaded = {id(v): self.params[_Params._norm(k)]
+                        for k, v in state.items()}
+            self.spec = SpecDecoder(spec, cfg, self.scheduler.max_batch,
+                                    self.max_model_len, self.spec_k,
+                                    device=self.device, uploaded=uploaded)
+            self.scheduler.verify_slots = self.scheduler.max_batch
+            self.scheduler.spec_width = self.spec_k + 1
         s, r, ck = (self.scheduler.max_batch, self.scheduler.prefill_rows,
                     self.scheduler.chunk)
         self._step_fn = build_unified_step_fn(
             cfg, s, ck, r, self.max_pages_per_seq, page_size,
-            device=self.device, page_quant=page_quant)
-        self.n_rows = s + r
-        self.n_tokens = s + r * ck
-        self._cu_q = np.concatenate([np.arange(s, dtype=np.int32),
-                                     s + ck * np.arange(r + 1,
-                                                        dtype=np.int32)])
+            device=self.device, page_quant=page_quant, spec_k=self.spec_k)
+        # the layout: decode slots, chunk slots, then (spec mode) one
+        # (k+1)-wide verify slot a sequence
+        vr = s if self.spec is not None else 0
+        vk = self.spec_k + 1
+        self.n_rows = s + r + vr
+        self.n_tokens = s + r * ck + vr * vk
+        cu = np.concatenate([np.arange(s, dtype=np.int32),
+                             s + ck * np.arange(r + 1, dtype=np.int32)])
+        if vr:
+            cu = np.concatenate([cu[:-1], s + r * ck + vk * np.arange(
+                vr + 1, dtype=np.int32)])
+        self._cu_q = cu                       # [rows + 1], layout-fixed
 
     # -- submission ----------------------------------------------------------
 
@@ -188,10 +257,73 @@ class Engine:
         self.queue.push(req)
         return req
 
+    def adopt_request(self, prompt: Sequence[int],
+                      generated: Sequence[int], max_new_tokens: int,
+                      pages: Optional[Sequence[int]] = None,
+                      pos: int = 0, temperature: float = 0.0,
+                      top_k: int = 0, top_p: float = 0.0, seed: int = 0,
+                      eos_token_id: Optional[int] = None,
+                      arrival_time: Optional[float] = None,
+                      stream_cb: Optional[Callable] = None,
+                      slo_class: str = "standard") -> Request:
+        """Admit a MID-FLIGHT request: ``generated`` tokens already
+        sampled elsewhere and, optionally, ``pages`` of THIS engine's pool
+        already holding KV for positions ``[0, pos)`` (a prefill handed
+        over by another engine).  It rides the normal admission path;
+        a preemption re-prefills the whole accumulated sequence, which
+        gives the same continuation.  Sampling parameters must be the
+        original request's."""
+        prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        generated = [int(t) for t in
+                     np.asarray(generated, np.int64).reshape(-1)]
+        if not prompt:
+            raise ValueError("empty prompt")
+        if len(generated) >= max_new_tokens:
+            raise ValueError("request already finished: "
+                             f"{len(generated)} >= {max_new_tokens}")
+        total = len(prompt) + int(max_new_tokens)
+        if total > self.max_model_len:
+            raise ValueError(
+                f"prompt+max_new_tokens = {total} exceeds max_model_len "
+                f"{self.max_model_len}")
+        if self.pool.pages_for(total) > self.pool.num_usable:
+            raise ValueError(
+                f"request needs {self.pool.pages_for(total)} pages; pool "
+                f"has {self.pool.num_usable} — it could never run")
+        pages = list(pages or ())
+        pos = int(pos)
+        if pos > len(prompt) + len(generated):
+            raise ValueError(f"pos {pos} past the accumulated tokens")
+        if pos and len(pages) < self.pool.pages_for(pos):
+            raise ValueError(
+                f"pages cover {len(pages) * self.pool.page_size} tokens "
+                f"but pos is {pos}")
+        now = self._now()
+        req = Request(req_id=self._next_id, prompt=prompt,
+                      max_new_tokens=int(max_new_tokens),
+                      temperature=float(temperature), top_k=int(top_k),
+                      top_p=float(top_p), seed=int(seed),
+                      eos_token_id=eos_token_id,
+                      arrival_time=now if arrival_time is None
+                      else float(arrival_time), stream_cb=stream_cb,
+                      slo_class=slo_class)
+        req.tokens = prompt + generated
+        req.out_tokens = list(generated)
+        req.pages = pages
+        req.pos = pos
+        req.submit_time = max(now, req.arrival_time)
+        self._next_id += 1
+        self.queue.push(req)
+        return req
+
     # -- loop ----------------------------------------------------------------
 
     def _now(self) -> float:
         return self._time_fn()
+
+    def set_tracer(self, tracer) -> None:
+        raise NotImplementedError(
+            f"Engine.set_tracer: {_LATER_SLICES['tracer']}")
 
     @property
     def has_work(self) -> bool:
@@ -205,12 +337,18 @@ class Engine:
         for req in self.scheduler.admit(self.queue, self.running, now):
             self._start(req)
         live = [r for r in self.running if r.state == RUNNING]
+        if self.spec is not None:
+            self._stage_spec(live)
         kept, evicted = self.scheduler.ensure_decode_pages(live)
         for req in evicted:
             self.running.remove(req)
             self.queue.push(req)
             self.counters["preemptions"].inc()
             self.counters[f"preempted_{req.slo_class}"].inc()
+            if self.spec is not None:
+                # the draft cache is stale: resuming re-prefills a fresh
+                # slot, and slot holders stay a subset of the running
+                self.spec.release(req)
         rows = self.scheduler.pack(kept)
         produced = self._run_unified(rows) if rows else 0
         if self.debug:
@@ -246,16 +384,22 @@ class Engine:
 
     @property
     def compile_count(self) -> int:
-        """Compiled programs of the unified step: on the card the CUDA
-        graphs captured so far, on the CPU 1 (the step runs eagerly, and
-        the JAX engine's fallback counts one per built executable).  A
-        capture beyond the expected ones (a silent recompile) shows up
-        here.  The JAX engine compiles ONE program, whose ``lax.cond``
-        skips an idle chunk slot on the device; a CUDA graph cannot
-        branch, so the port captures one graph per live chunk-slot mask
-        and chooses it on the host: at most ``2**prefill_rows`` (2 at
-        ``prefill_rows=1``: decode only, and decode beside a chunk)."""
-        return self._step_fn.compile_count
+        """Compiled programs: on the card the CUDA graphs captured so far,
+        on the CPU one per built program (the steps run eagerly, and the
+        JAX engine's fallback counts one per built executable): 1, or 4
+        in spec mode (the unified step and the draft's three programs).
+        A capture beyond the expected ones (a silent recompile) shows up
+        here.  The JAX engine compiles ONE unified program, whose
+        ``lax.cond`` skips an idle chunk slot on the device; a CUDA graph
+        cannot branch, so the port captures one graph per live chunk-slot
+        mask (and, in spec mode, live verify region) and chooses it on
+        the host: at most ``2**prefill_rows`` (2 at ``prefill_rows=1``:
+        decode only, and decode beside a chunk), in spec mode
+        ``2**(prefill_rows + 1)`` plus the draft's propose graph."""
+        n = self._step_fn.compile_count
+        if self.spec is not None:
+            n += self.spec.compile_count
+        return n
 
     # -- admission / lifecycle -----------------------------------------------
 
@@ -316,9 +460,12 @@ class Engine:
             self.pool.free(req.pages[req.shared_pages:])
             if self.prefix_cache is not None and req.shared_pages:
                 self.prefix_cache.release(req)
+            if self.spec is not None:
+                self.spec.release(req)
             req.pages = []
             req.shared_pages = 0
             req.cached_tokens = 0
+            req.spec_drafts = []
             req.pos = 0
             req.state = FINISHED          # terminal, but never collected
         self.queue.clear()
@@ -329,13 +476,43 @@ class Engine:
                 self.prefix_cache.check_invariants()
         return [r.req_id for r in victims]
 
+    def _stage_spec(self, live: List[Request]) -> None:
+        """Draft-propose for every decode-ready request with at least 2
+        tokens left to emit: ONE batched draft call a step, the drafts
+        staged on the requests for the scheduler to pack as verify
+        rows."""
+        cands = []
+        k_effs: Dict[int, int] = {}
+        for r in sorted(live, key=lambda r: (r.arrival_time, r.req_id)):
+            if r.state != RUNNING or r.spec_drafts or r.done:
+                continue
+            if len(r.tokens) - r.pos != 1:
+                continue               # mid-prefill: nothing to draft
+            k_eff = min(self.spec_k, r.max_new_tokens - r.n_generated - 1)
+            if k_eff < 1:
+                continue               # last token: a plain decode
+            cands.append(r)
+            k_effs[r.req_id] = k_eff
+        if not cands:
+            return
+        drafts = self.spec.stage(cands, k_effs)
+        total = 0
+        for r in cands:
+            r.spec_drafts = drafts.get(r.req_id, [])
+            total += len(r.spec_drafts)
+        self.counters["spec_proposed"].inc(total)
+
     # -- the unified step ----------------------------------------------------
 
     def _pack_arrays(self, rows: List[Tuple[Request, int, int]]):
         """Host-side marshalling of the packed step: flat token arrays +
-        per-row ragged descriptors + per-row sampling params."""
+        per-row ragged descriptors + per-row sampling params.  A verify
+        row's fed tokens are the committed tail plus its staged drafts
+        (``qlen = 1 + spec_len``), written through the same per-token KV
+        write plan as any prefill chunk."""
         t, nr = self.n_tokens, self.n_rows
         ps = self.pool.page_size
+        vbase = self.scheduler.max_batch + self.scheduler.prefill_rows
         tokens = np.zeros(t, np.int32)
         token_pos = np.zeros(t, np.int32)
         token_page = np.full(t, TRASH_PAGE, np.int32)
@@ -348,10 +525,13 @@ class Engine:
         top_ps = np.zeros(nr, np.float32)
         top_ks = np.zeros(nr, np.int32)
         seeds = np.zeros(nr, np.int32)
+        spec_lens = np.zeros(nr, np.int32)
         for req, qlen, row in rows:
             start = int(self._cu_q[row])
             pos = np.arange(req.pos, req.pos + qlen)
-            tokens[start:start + qlen] = req.tokens[req.pos:req.pos + qlen]
+            verify = row >= vbase and bool(req.spec_drafts)
+            seq = req.tokens + req.spec_drafts if verify else req.tokens
+            tokens[start:start + qlen] = seq[req.pos:req.pos + qlen]
             token_pos[start:start + qlen] = pos
             pages = np.asarray(req.pages, np.int32)
             token_page[start:start + qlen] = pages[pos // ps]
@@ -363,28 +543,48 @@ class Engine:
             top_ps[row] = req.top_p
             top_ks[row] = req.top_k
             seeds[row] = req.seed
-        return (tokens, token_pos, token_page, token_off, q_lens,
-                self._cu_q, page_tables, ctx_lens, temps, top_ps, top_ks,
-                seeds)
+            if verify:
+                spec_lens[row] = len(req.spec_drafts)
+        arrays = (tokens, token_pos, token_page, token_off, q_lens,
+                  self._cu_q, page_tables, ctx_lens, temps, top_ps, top_ks,
+                  seeds)
+        return arrays + (spec_lens,) if self.spec is not None else arrays
 
     def _run_unified(self, rows: List[Tuple[Request, int, int]]) -> int:
         s = self.scheduler.max_batch
+        vbase = s + self.scheduler.prefill_rows
+        for req, qlen, row in rows:
+            if row < vbase and req.spec_drafts:
+                # packed outside a verify slot: this row commits a token
+                # the drafts never saw, so they are stale
+                req.spec_drafts = []
         t0 = self._now()
-        next_tokens = self._step_fn(self.params, *self._pack_arrays(rows),
-                                    self.pool.k_pages, self.pool.v_pages)
+        out = self._step_fn(self.params, *self._pack_arrays(rows),
+                            self.pool.k_pages, self.pool.v_pages)
+        if self.spec is not None:
+            next_tokens, accepted = out
+            accs = accepted.cpu().numpy()
+        else:
+            next_tokens = out
         toks = next_tokens.cpu().numpy()        # [rows] int32, ever
         dt = self._now() - t0
         self._calls += 1
         self.counters["step_calls"].inc()
+        # classify by slot, not q_len: a verify row is neither
         n_decode = sum(1 for _, _, row in rows if row < s)
         if n_decode:
             self.counters["decode_steps"].inc()
-        self.counters["prefill_chunks"].inc(len(rows) - n_decode)
+        self.counters["prefill_chunks"].inc(
+            sum(1 for _, _, row in rows if s <= row < vbase))
         produced = 0
         for req, qlen, row in rows:
             pre = max(0, min(qlen, req.prompt_len - req.pos))
             if pre:
                 self.counters["prefill_tokens"].inc(pre)
+            if row >= vbase and req.spec_drafts:
+                produced += self._commit_verify(req, int(accs[row]),
+                                                int(toks[row]), dt)
+                continue
             req.pos += qlen
             if req.pos == len(req.tokens):      # row reached its tip:
                 self._emit(req, int(toks[row]))  # commit the sample
@@ -392,6 +592,33 @@ class Engine:
                 self._observe_token(req, dt)
                 self._maybe_finish(req)
         return produced
+
+    def _commit_verify(self, req: Request, accepted: int, bonus: int,
+                       dt: float) -> int:
+        """Commit a verify row: the accepted draft prefix plus the bonus
+        token, capped by ``max_new_tokens`` and EOS, then rewind ``pos``
+        to the accepted boundary.  The fed positions past it hold stale
+        KV, which the next burst (or a re-prefill) writes before anything
+        reads it.  Returns 1 if the request emitted, else 0."""
+        drafts = req.spec_drafts
+        n0 = len(req.tokens)
+        committed = emitted = 0
+        for i, tok in enumerate(drafts[:accepted] + [bonus]):
+            if req.n_generated >= req.max_new_tokens:
+                break
+            self._emit(req, tok)
+            emitted += 1
+            committed += i < accepted
+            self._observe_token(req, dt)
+            if req.eos_token_id is not None and tok == req.eos_token_id:
+                break
+        req.pos = n0 + committed
+        req.spec_drafts = []
+        self.counters["spec_accepted"].inc(committed)
+        if emitted > committed:
+            self.counters["spec_bonus_tokens"].inc()
+        self._maybe_finish(req)
+        return 1 if emitted else 0
 
     def _observe_token(self, req: Request, dt: float) -> None:
         now = self._now()
@@ -417,6 +644,9 @@ class Engine:
     def _maybe_finish(self, req: Request) -> None:
         if not req.done:
             return
+        if self.spec is not None:
+            self.spec.release(req)
+            req.spec_drafts = []
         if self.prefix_cache is not None:
             self.prefix_cache.on_finish(req)
         else:
@@ -441,6 +671,27 @@ class Engine:
         insts.update(self.histograms)
         return render_prometheus(insts)
 
+    def reset_metrics(self) -> None:
+        """Zero every counter, gauge and histogram, and the step and call
+        counts (the compiled steps and all request state stay), so a
+        reading can leave out the first, capturing steps.
+        ``compile_count`` does not reset: compiles are lifetime state."""
+        self.steps = 0
+        self._calls = 0
+        for d in (self.counters, self.gauges, self.histograms):
+            for k, inst in list(d.items()):
+                if inst.__class__.__name__ == "_NullInstrument":
+                    continue
+                kw = {"buckets": list(inst.buckets)} \
+                    if getattr(inst, "buckets", None) else {}
+                d[k] = make_instrument(inst.__class__.__name__.lower(), k,
+                                       True, **kw)
+        if self.gauges["kv_bytes_per_token"].__class__.__name__ \
+                != "_NullInstrument":
+            # layout-static: re-seed rather than read 0 until a step
+            self.gauges["kv_bytes_per_token"].set(
+                self.pool.kv_bytes_per_token)
+
     def metrics_summary(self) -> Dict[str, Any]:
         out = {k: c.value for k, c in self.counters.items()}
         out.update({k: g.value for k, g in self.gauges.items()})
@@ -454,4 +705,12 @@ class Engine:
         miss = self.counters["prefix_cache_misses"].value
         out["prefix_cache_hit_rate"] = hits / max(hits + miss, 1.0)
         out["prefix_cache_pages"] = self.pool.cached_pages
+        # speculative decoding since the last reset: the draft hit rate,
+        # and drafts plus bonus tokens committed a call of the step
+        prop = self.counters["spec_proposed"].value
+        acc = self.counters["spec_accepted"].value
+        out["spec_accept_rate"] = acc / max(prop, 1.0)
+        out["accepted_per_step"] = (
+            (acc + self.counters["spec_bonus_tokens"].value) /
+            max(self.counters["step_calls"].value, 1.0))
         return out

@@ -240,6 +240,14 @@ class PagedKVPool:
     def cached_pages(self) -> int:
         return len(self._cached)
 
+    def refcount(self, pg: int) -> int:
+        """0 = free, 1 = exclusively owned (allocated, or cached with no
+        sharer), 1+n = cached and shared by n live requests.  A KV write
+        plan may only target refcount-1 ALLOCATED pages."""
+        if pg in self._cached:
+            return 1 + self._cached[pg]
+        return 1 if pg in self._allocated else 0
+
     def cache_page(self, pg: int) -> None:
         """allocated -> cached (refcount 0), read-only from here."""
         if pg not in self._allocated:
@@ -271,6 +279,20 @@ class PagedKVPool:
         del self._cached[pg]
         self._free.append(pg)
         self.event_log.append((protocol_seq(), "uncache", [pg]))
+
+    def reset(self, clear_pages: bool = False) -> None:
+        """Return the pool to its post-construction allocator state.  The
+        rebuilt free list excludes the reserved trash page 0.
+        ``clear_pages`` also zeroes the page storage, in place, so a
+        captured step bound to these tensors stays valid (the JAX pool
+        installs fresh zero arrays instead)."""
+        self._free = list(range(self.num_pages - 1, 0, -1))
+        self._allocated = set()
+        self._cached = {}
+        self.event_log = [(protocol_seq(), "reset", [])]
+        if clear_pages:
+            for p in self.k_pages + self.v_pages:
+                p.zero_()
 
     def check_invariants(self, force: bool = False) -> None:
         """Allocator bookkeeping invariants (see
@@ -316,3 +338,22 @@ class PagedKVPool:
             return (1, self.latent_dim, self.rope_dim,
                     _QUANT_CODES[self.quant], self.dtype.itemsize)
         return (0, self.kv_heads, self.head_dim, 0, self.dtype.itemsize)
+
+    def set_pages(self, k_pages, v_pages) -> None:
+        """Install new per-layer page contents.  They are copied into the
+        pool's own tensors, which keep their identity: a captured serving
+        step stays bound to the tensors of its first call, so it reads the
+        new contents at its next replay.  Raises ``ValueError`` unless
+        every tensor matches its page tensor's shape and dtype."""
+        new = (tuple(k_pages), tuple(v_pages))
+        for have, got in zip((self.k_pages, self.v_pages), new):
+            if len(got) != len(have) or any(
+                    g.shape != h.shape or g.dtype != h.dtype
+                    for g, h in zip(got, have)):
+                raise ValueError(
+                    "set_pages: the new pages must match the pool's "
+                    f"{len(have)} tensors of shape "
+                    f"{tuple(have[0].shape)} and dtype {have[0].dtype}")
+        for have, got in zip((self.k_pages, self.v_pages), new):
+            for h, g in zip(have, got):
+                h.copy_(g)

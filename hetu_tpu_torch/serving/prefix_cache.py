@@ -27,17 +27,63 @@ cached are freed as duplicates; the partial tail page is freed.
 calls :meth:`evict` through its reclaim hook when the free list runs
 dry, so cache reclamation happens before recompute preemption.
 
-The cluster digest and the host-tier restore of the JAX module come
-with the cluster and SLO slices of the port.
+**Content-chained digest.**  Entry ids are private to one cache, so
+the prefix key two caches compute alike from token content alone is a
+chain of 64-bit blake2b hashes (:func:`chain_hash`), its root salted
+with the pool's ``layout_tag``: :meth:`PrefixCache.digest` exports
+``{chain_hash: depth + 1}`` and :func:`token_chain_hashes` computes the
+same keys for a prompt.  The hashes are pure Python over token ids, so
+they are the JAX package's bit for bit.  :meth:`PrefixCache.restore`
+re-inserts a page refetched from a host tier (the engine's host tier
+comes with the SLO slice of the port).
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from .kv_pool import PagedKVPool
 
 ROOT = -1                       # parent id of a first-page entry
+
+#: seed of the content-chained digest hashes (the "hash of the empty
+#: prefix")
+ROOT_HASH = 0x9E3779B97F4A7C15
+
+
+def chain_hash(parent_hash: int, page_tokens: Sequence[int]) -> int:
+    """Content-chained 64-bit page hash ``H(parent_hash, tokens)``:
+    blake2b over the parent hash (8 bytes, little-endian) and the page's
+    token ids as int64.  Equal chain hashes imply equal full token
+    prefixes up to 64-bit collision odds."""
+    h = hashlib.blake2b(digest_size=8)
+    h.update(int(parent_hash).to_bytes(8, "little", signed=False))
+    h.update(np.asarray(list(page_tokens), np.int64).tobytes())
+    return int.from_bytes(h.digest(), "little")
+
+
+def token_chain_hashes(tokens: Sequence[int], page_size: int,
+                       max_pages: Optional[int] = None,
+                       layout: Sequence[int] = ()) -> List[int]:
+    """The chain hashes of every FULL page prefix of ``tokens`` (at most
+    ``max_pages``; by default capped at ``(len - 1) // page_size`` like
+    :meth:`PrefixCache.match`).  ``result[i]`` keys the prefix
+    ``tokens[:(i+1)*page_size]``.  ``layout`` (a pool's ``layout_tag``)
+    salts the root, so caches of different page layouts share no keys;
+    an empty layout keeps the unsalted chain."""
+    ps = int(page_size)
+    n = max(0, len(tokens) - 1) // ps
+    if max_pages is not None:
+        n = min(n, int(max_pages))
+    out: List[int] = []
+    h = chain_hash(ROOT_HASH, layout) if len(layout) else ROOT_HASH
+    for i in range(n):
+        h = chain_hash(h, tokens[i * ps:(i + 1) * ps])
+        out.append(h)
+    return out
 
 
 @dataclass
@@ -118,11 +164,50 @@ class PrefixCache:
         self._next_id = 0
         self._tick = 0
 
+    def __len__(self) -> int:
+        return len(self._index)
+
     @property
     def evictable_pages(self) -> int:
         """Pages an eviction sweep could reclaim right now: exactly the
         refcount-0 entries."""
         return sum(1 for e in self._index.values() if e.refs == 0)
+
+    @property
+    def version(self) -> Tuple[int, int]:
+        """Change stamp for digest memoization: ``_next_id`` moves on
+        every insertion and the index size on every eviction (a dedup'd
+        re-insert changes neither, and the digest stays the same)."""
+        return (self._next_id, len(self._index))
+
+    def digest(self) -> Dict[int, int]:
+        """``{chain_hash: depth + 1}`` for every cached page, the chain
+        rooted at the pool's ``layout_tag`` (as ``token_chain_hashes(...,
+        layout=pool.layout_tag)``).  Computed parents first, so each hash
+        extends its parent's."""
+        hashes: Dict[int, int] = {}        # eid -> chain hash
+        out: Dict[int, int] = {}
+        root = chain_hash(ROOT_HASH, self.pool.layout_tag)
+        for e in sorted(self._index.values(), key=lambda e: e.depth):
+            h = chain_hash(root if e.parent == ROOT else hashes[e.parent],
+                           e.tokens)
+            hashes[e.eid] = h
+            out[h] = e.depth + 1
+        return out
+
+    def chain_hash_of(self, e: CacheEntry) -> int:
+        """The entry's layout-salted chain hash (the key :meth:`digest`
+        exports), from its parent links."""
+        chain: List[Tuple[int, ...]] = []
+        cur: Optional[CacheEntry] = e
+        while cur is not None:
+            chain.append(cur.tokens)
+            cur = self._by_id.get(cur.parent) if cur.parent != ROOT \
+                else None
+        h = chain_hash(ROOT_HASH, self.pool.layout_tag)
+        for tokens in reversed(chain):
+            h = chain_hash(h, tokens)
+        return h
 
     # -- lookup / attach -----------------------------------------------------
 
@@ -184,17 +269,7 @@ class PrefixCache:
                 self.pool.free([page])      # duplicate content
                 parent = have.eid
                 continue
-            self.pool.cache_page(page)
-            self._tick += 1
-            e = CacheEntry(eid=self._next_id, parent=parent,
-                           tokens=key[1], page=page, depth=i,
-                           last_use=self._tick)
-            self._next_id += 1
-            self._index[key] = e
-            self._by_id[e.eid] = e
-            if parent != ROOT:
-                self._by_id[parent].children += 1
-            parent = e.eid
+            parent = self._insert(key, page, i).eid
             inserted += 1
         tail = req.pages[full:]
         if tail:
@@ -225,6 +300,40 @@ class PrefixCache:
         if e.parent != ROOT:
             self._by_id[e.parent].children -= 1
         self.pool.uncache_page(e.page)
+
+    # -- host-tier restore ---------------------------------------------------
+
+    def _insert(self, key: Tuple[int, Tuple[int, ...]], page: int,
+                depth: int) -> CacheEntry:
+        """A new refcount-0 entry for ``page`` under ``key``."""
+        parent = key[0]
+        self.pool.cache_page(page)
+        self._tick += 1
+        e = CacheEntry(eid=self._next_id, parent=parent, tokens=key[1],
+                       page=page, depth=depth, last_use=self._tick)
+        self._next_id += 1
+        self._index[key] = e
+        self._by_id[e.eid] = e
+        if parent != ROOT:
+            self._by_id[parent].children += 1
+        return e
+
+    def restore(self, parent: int, tokens: Sequence[int], page: int,
+                depth: int) -> CacheEntry:
+        """Re-insert a page refetched from a host tier: ``page`` is
+        allocated and already holds the bytes; it becomes a refcount-0
+        entry under ``parent`` as if :meth:`on_finish` had inserted it.
+        The key must be absent."""
+        key = (parent, tuple(tokens))
+        if key in self._index:
+            raise ValueError(f"restore of already-cached page at "
+                             f"depth {depth}")
+        return self._insert(key, page, depth)
+
+    def clear(self) -> None:
+        """Evict everything evictable (attached entries survive: live
+        requests still read their pages)."""
+        self.evict(len(self._index))
 
     # -- invariants ----------------------------------------------------------
 

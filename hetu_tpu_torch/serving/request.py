@@ -46,6 +46,13 @@ class Request:
     # cache on the most recent start.
     shared_pages: int = 0
     cached_tokens: int = 0
+    # speculative decoding (serving/spec.py): greedy draft proposals
+    # staged for the next packed step.  Non-empty only in a spec engine
+    # while the request is decode-ready; the scheduler packs ``1 +
+    # len(spec_drafts)`` tokens as a verify row, and the engine clears
+    # the list once the verify commits (or when the drafts are dropped:
+    # preemption, a page squeeze).
+    spec_drafts: List[int] = field(default_factory=list)
     pos: int = 0                 # KV entries committed (next write index)
     state: str = WAITING
     n_preemptions: int = 0

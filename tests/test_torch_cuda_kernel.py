@@ -864,6 +864,56 @@ def test_captured_serving_step_equals_eager(cuda_device, dtype, layout):
     assert eager_launches == cfg.num_layers * eager_calls
 
 
+def _serve_spec(cfg, state, eager, spec=True):
+    """Two waves of temperature-0 traffic on a spec engine (a 1-layer
+    self-draft, k 3; or without ``spec``): tokens, compile counts after
+    each wave, the attention kernel's launches and the calls."""
+    from hetu_tpu_torch.models import draft_state_from
+    from hetu_tpu_torch.serving import SpecConfig
+    rng = np.random.RandomState(3)
+    counter = latent_ragged_paged_attention_cuda if cfg.is_mla \
+        else ragged_paged_attention_cuda
+    eng = Engine(state, cfg, num_pages=32, page_size=16, max_batch=3,
+                 chunk_size=16, device="cuda",
+                 spec=SpecConfig(*draft_state_from(state, cfg, 1), k=3)
+                 if spec else None)
+    if spec:
+        assert eng.spec.own_bytes == 0
+    counter.launches = 0
+    out, counts = [], []
+    with capture.eager() if eager else contextlib.nullcontext():
+        for lens in ((40, 5, 17), (9, 33)):
+            reqs = [eng.add_request(rng.randint(1, 97, size=n).tolist(), 10)
+                    for n in lens]
+            eng.run()
+            out += [r.out_tokens for r in reqs]
+            counts.append(eng.compile_count)
+    torch.cuda.synchronize()
+    return (out, counts, counter.launches, eng.executable_calls,
+            eng.metrics_summary())
+
+
+@pytest.mark.parametrize("layout", ["full_head", "mla"])
+def test_captured_spec_engine_equals_eager_and_nonspec(cuda_device, layout):
+    """fp32 (TF32 off): the captured spec engine gives the eager spec
+    engine's tokens and the non-spec engine's; it captures one unified
+    graph a live mask (chunk slot, verify region: 4 at prefill_rows 1)
+    and the draft's propose graph, 5 in all, none in the second wave."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(**TINY_LLAMA, dtype="float32")
+    if layout == "mla":
+        cfg = mla_config(cfg, kv_latent_dim=32, kv_rope_dim=8)
+    state = random_state(cfg, seed=0, device="cuda", std=0.3)
+    want, eager_counts, _, _, _ = _serve_spec(cfg, state, eager=True)
+    got, counts, launches, calls, m = _serve_spec(cfg, state, eager=False)
+    plain, _, _, _, _ = _serve_spec(cfg, state, eager=False, spec=False)
+    assert got == want == plain
+    assert eager_counts == [0, 0]
+    assert counts == [5, 5]
+    assert launches == cfg.num_layers * calls
+    assert m["spec_accepted"] > 0 and m["compile_count"] == 5
+
+
 def _trainer(kw, dtype, seed=0):
     with ht.graph("define_and_run", create_new=True, device="cuda",
                   seed=seed) as g:

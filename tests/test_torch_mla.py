@@ -438,10 +438,13 @@ def test_page_quant_refusals(mla, mla_rot):
                               page_quant="nf4")
     pcfg = _port_cfg(jcfg)
     pstate = state_from_numpy(jstate, pcfg, device="cpu")
-    for kw in (dict(spec=object()), dict(host_tier=True),
-               dict(mesh=object())):
+    for kw in (dict(host_tier=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             Engine(pstate, pcfg, device="cpu", **kw)
+    # speculative decoding is served (tests/test_torch_spec_decode.py);
+    # what is not a SpecConfig is refused
+    with pytest.raises(TypeError, match="SpecConfig"):
+        Engine(pstate, pcfg, device="cpu", spec=object())
 
 
 # ---------------------------------------------------------------------------

@@ -170,11 +170,27 @@ def test_pool_and_cache_invariants_catch_corruption():
 
 
 def test_later_slices_are_refused(tiny):
+    """The options of later slices raise ``NotImplementedError`` naming
+    their ROADMAP item; ``name`` is taken, and ``use_kernel`` only where
+    it names what the device runs (the plain versions on the CPU)."""
     cfg, st = tiny
-    for kw in (dict(spec=object()), dict(host_tier=True),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
+    for kw, item in ((dict(host_tier=True), "item 9"),
+                     (dict(mesh=object()), "items 10-14"),
+                     (dict(step_fn=lambda *a: None), "item 9"),
+                     (dict(tracer=object()), "item 15"),
+                     (dict(analysis_tap=True), "item 18")):
+        with pytest.raises(NotImplementedError, match=item):
             Engine(st, cfg, device="cpu", **kw)
+    eng = Engine(st, cfg, device="cpu", name="replica0", use_kernel=False,
+                 analysis_tap=False)
+    assert eng.name == "replica0" and not eng.use_kernel
+    assert not Engine(st, cfg, device="cpu").use_kernel
+    with pytest.raises(ValueError, match="use_kernel"):
+        Engine(st, cfg, device="cpu", use_kernel=True)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        eng.set_tracer(object())
+    with pytest.raises(TypeError, match="SpecConfig"):
+        Engine(st, cfg, device="cpu", spec=object())
     # quantized pages exist only in the MLA layout, which this config
     # does not have
     with pytest.raises(ValueError, match="MLA"):
@@ -182,6 +198,53 @@ def test_later_slices_are_refused(tiny):
     with pytest.raises(NotImplementedError, match="MoE"):
         Engine(st, GPTConfig(**{**CFG_KW, "num_experts": 2}),
                device="cpu")
+
+
+def test_adopt_request_continues_as_generate_and_as_jax():
+    """A request adopted mid-flight (prompt plus tokens generated
+    elsewhere, no pages) re-prefills and continues exactly as an
+    uninterrupted run, as the JAX engine's adoption does; its checks
+    refuse what could never run."""
+    state = _build_state(JaxGPTConfig(**CFG_KW), seed=11)
+    cfg = GPTConfig(**CFG_KW)
+    pst = state_from_numpy(state, cfg, device="cpu")
+    prompt = [5, 17, 2, 9, 33, 12]
+    full = generate(pst, cfg, [prompt], 10, device="cpu")[0, 6:].tolist()
+    kw = dict(num_pages=16, page_size=8, max_batch=2, debug=True)
+    eng = Engine(pst, cfg, device="cpu", **kw)
+    req = eng.adopt_request(prompt, full[:4], 10)
+    assert req.out_tokens == full[:4] and req.pos == 0
+    eng.run()
+    assert req.out_tokens == full
+    jeng = JaxEngine(state, JaxGPTConfig(**CFG_KW), use_kernel=False, **kw)
+    jreq = jeng.adopt_request(prompt, full[:4], 10)
+    jeng.run()
+    assert jreq.out_tokens == req.out_tokens
+    with pytest.raises(ValueError, match="already finished"):
+        eng.adopt_request(prompt, full, 10)
+    with pytest.raises(ValueError, match="pages cover"):
+        eng.adopt_request(prompt, full[:2], 10, pages=[], pos=4)
+    with pytest.raises(ValueError, match="past the accumulated"):
+        eng.adopt_request(prompt, full[:2], 10, pos=9)
+
+
+def test_reset_metrics_keeps_the_compiled_step(tiny):
+    cfg, st = tiny
+    eng = Engine(st, cfg, num_pages=16, page_size=8, max_batch=2,
+                 device="cpu", latency_buckets=[0.5, 2.0])
+    eng.add_request([1, 2, 3], 3)
+    eng.run()
+    eng.reset_metrics()
+    m = eng.metrics_summary()
+    assert m["tokens_generated"] == m["step_calls"] == 0
+    assert eng.steps == eng.executable_calls == 0
+    assert m["ttft"]["count"] == 0 and list(m["ttft_buckets"]) == \
+        ["0.5", "2.0", "+Inf"]
+    assert m["compile_count"] == 1
+    assert m["kv_bytes_per_token"] == eng.pool.kv_bytes_per_token
+    eng.add_request([4, 5], 2)
+    eng.run()
+    assert eng.metrics_summary()["tokens_generated"] == 2
 
 
 def test_engine_without_cpu_device_raises_here(tiny):
