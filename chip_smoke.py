@@ -224,7 +224,38 @@ Phases, each printing one JSON line:
     widths, 2 layers, fp32, the target as its own draft: tokens equal to
     a non-spec engine's and ``generate``'s, and a step that attends only
     ``chunk`` tokens a row (a planted fault) must give others.  Some
-    draft must be accepted over the phase.
+    draft must be accepted over the phase;
+21. cluster: the cluster and SLO plane at Llama-3-8B widths (all 32
+    layers, random weights from seed 0), phase 4's traffic, pools of 160
+    pages of 64 (the traffic holds about 9.8k tokens), ``max_model_len``
+    4096.  (a) ``EngineCluster`` of 2 replicas, ``policy="prefix"``, fp32
+    (TF32 off) then bf16, on the monolithic engine's weights (the cluster
+    uploads none again: peak memory with 1 and with 2 replicas, which must
+    differ by less than a weight copy) and one shared unified step
+    (graphs per pool 2 after a warm-up, unchanged by the run): 1
+    replica's tokens equal the monolithic engine's in both types (the
+    same batches); 2 replicas' fp32 tokens equal, bf16 greedy tokens
+    part only at near ties, both tokens within ``SPEC_TIE_LIMIT`` of the
+    largest logit of an fp32 forward of the same weights (the bf16
+    forward's gaps beside it), the header's two users on one replica
+    (the late prompt routed by a 16-page digest match), kernel 5 once a
+    layer and replica step, tokens/s of the fleet and the monolithic
+    engine, the router's decisions.  (b) Disaggregated, 1 prefill and 1
+    decode replica, fp32: every request's pages through the
+    ``LocalPageTransport`` and adopted by the decode replica, tokens
+    equal; the payload bytes, each transfer's measured ``wall_s`` beside
+    the H100 model's ``predicted_s``.  (c) Replica 1 killed after 8 steps
+    of the run, fp32: its requests re-placed, the completed set whole,
+    tokens equal, ``check_cluster_invariants`` after every step.  (d) One
+    bf16 engine over a host KV tier with a pool of 56 pages: the
+    header's pages evicted to the host and refetched for the late prompt
+    (16 pages, its start at 1024 cached tokens), tokens against a
+    160-page engine by (a)'s bf16 rule, in the full-head layout (kernel 5) and
+    in phase 11's MLA layout (kernel 6 on wgmma); each record's
+    ``wall_s`` beside its ``predicted_s``.  (e) ``Autoscaler`` over 2
+    replicas on the JAX suite's mixed-class trace (synthetic clock):
+    a scale-down and a scale-up, tokens equal a static fleet's, no class
+    inversion.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -232,6 +263,7 @@ script exits non-zero; without a CUDA device it exits non-zero before
 printing any result.
 """
 import contextlib
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -274,7 +306,10 @@ from hetu_tpu_torch.ops.ragged_paged_attention import (
     latent_ragged_paged_attention_reference, latent_route,
     latent_wgmma_info, ragged_paged_attention_cuda,
     ragged_paged_attention_reference, sample_rows)
-from hetu_tpu_torch.serving import Engine, SpecConfig
+from hetu_tpu_torch.fault import check_cluster_invariants
+from hetu_tpu_torch.obs import SpanTracer
+from hetu_tpu_torch.serving import Engine, EngineCluster, SpecConfig
+from hetu_tpu_torch.serving.slo import SLO_CLASSES, Autoscaler
 from hetu_tpu_torch.utils import checkpoint as ht_ckpt
 from tools.sdpa_times import sdpa_times
 
@@ -3547,11 +3582,11 @@ def count_verify_rows(eng, counter):
                 counter.launches - before
         return produced
 
-    def counted_commit(req, accepted, bonus, dt):
+    def counted_commit(req, accepted, bonus, t0, dt):
         whole = accepted == len(req.spec_drafts)
         tally["verify_rows_accepted_whole" if whole
               else "verify_rows_cut_short"] += 1
-        return commit(req, accepted, bonus, dt)
+        return commit(req, accepted, bonus, t0, dt)
 
     eng._run_unified, eng._commit_verify = counted_run, counted_commit
     return tally
@@ -3929,6 +3964,520 @@ def phase_spec_decode():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the cluster and SLO plane (phase 21)
+# ---------------------------------------------------------------------------
+
+# phase 4's traffic (8 prompts, the late one, 32 new tokens each) holds
+# about 9.8k tokens: 155 pages of 64 a pool, plus the trash page
+CLUSTER_PAGES = 160
+CLUSTER_MAX_MODEL_LEN = 4096
+CLUSTER_NEW = 32
+CLUSTER_SHAPE = dict(page_size=64, max_batch=8, chunk_size=512,
+                     prefill_rows=1, max_model_len=CLUSTER_MAX_MODEL_LEN)
+# (c): the replica killed after this many cluster steps of the run
+CLUSTER_KILL_STEP = 8
+# (d): a pool too small to keep the header cached past the other
+# requests (the largest needs 48 pages), with the host tier under it
+HOST_TIER_PAGES = 56
+# (e): the JAX suite's autoscale trace (tests/test_slo.py _mixed_trace:
+# 8 prompts of 4-11 tokens over the three classes, one arrival a clock
+# step, 6 new tokens) after 10 idle steps, on a synthetic clock
+AUTOSCALE = dict(min_replicas=1, backlog_high=4, backlog_low=0,
+                 hysteresis_steps=2, cooldown_steps=3, ttft_target=None)
+AUTOSCALE_IDLE_STEPS = 10
+AUTOSCALE_NEW = 6
+
+
+def cluster_engine_kw(num_pages=CLUSTER_PAGES):
+    return dict(CLUSTER_SHAPE, num_pages=num_pages, device="cuda")
+
+
+def drive(obj, each=None, limit=5000):
+    """Steps an engine or cluster until it is idle, calling ``each`` after
+    every step."""
+    n = 0
+    while obj.has_work:
+        obj.step()
+        if each is not None:
+            each(obj)
+        n += 1
+        if n > limit:
+            raise AssertionError("did not drain")
+
+
+def serve_cluster_mix(cl, prompts, late_prompt, each=None):
+    """``serve_mix`` through a cluster: phase 4's requests (one sampled),
+    then the late prompt once the header's first user has finished."""
+    reqs = [add_mix_request(cl, i, p, CLUSTER_NEW)
+            for i, p in enumerate(prompts)]
+    while not reqs[2].done:
+        cl.step()
+        if each is not None:
+            each(cl)
+    reqs.append(cl.add_request(late_prompt, CLUSTER_NEW))
+    drive(cl, each)
+    torch.cuda.synchronize()
+    return reqs
+
+
+def warm_replicas(cl, v):
+    """Two short requests, one a replica (least loaded), each a chunk step
+    then a decode-only step: every replica captures its two graphs."""
+    rng = np.random.RandomState(2)
+    for _ in cl.replicas:
+        cl.add_request(rng.randint(1, v, size=16).tolist(), 2)
+    drive(cl)
+    torch.cuda.synchronize()
+
+
+def launches_check(counter, calls, cfg, what):
+    if counter.launches != cfg.num_layers * calls:
+        raise AssertionError(f"{what}: {counter.launches} attention launches "
+                             f"in {calls} unified steps of {cfg.num_layers} "
+                             f"layers")
+
+
+def mono_run(state, cfg, mix, counter, what):
+    """Phase 4's traffic on one engine (warmed up first): its tokens and
+    tokens/s."""
+    eng = Engine(state, cfg, **cluster_engine_kw())
+    eng.add_request(np.random.RandomState(2).randint(
+        1, cfg.vocab_size, size=16).tolist(), 2)
+    eng.run()
+    torch.cuda.synchronize()
+    calls0, counter.launches = eng.executable_calls, 0
+    if cfg.is_mla:
+        counter.wgmma_launches = 0
+    t0 = time.perf_counter()
+    reqs = serve_mix(eng, *mix, new=CLUSTER_NEW)
+    wall = time.perf_counter() - t0
+    launches_check(counter, eng.executable_calls - calls0, cfg, what)
+    toks = [r.out_tokens for r in reqs]
+    out = {"tokens_per_s": sum(map(len, toks)) / wall, "wall_s": wall,
+           "unified_steps": eng.executable_calls - calls0,
+           "kernel_launches": counter.launches,
+           **({"wgmma_launches": counter.wgmma_launches} if cfg.is_mla
+              else {})}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, out
+
+
+def fleet_run(state, cfg, mix, counter, what, replicas=2, mode="replicated",
+              kill_at=None, tracer=None, inspect=None, **kw):
+    """Phase 4's traffic through an ``EngineCluster`` of ``replicas`` on
+    one card (warmed up first, every replica's graphs then pinned in
+    replicated mode): tokens and readings, with ``inspect(cluster)``'s
+    readings merged in.  ``kill_at``: the replica killed after that many
+    steps of the run, with ``check_cluster_invariants`` after every step.
+    The peak memory counts from the weights alone: what earlier runs
+    held is freed first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cl = EngineCluster(state, cfg, num_replicas=replicas, mode=mode,
+                       coordinator=False, tracer=tracer,
+                       **cluster_engine_kw(), **kw)
+    for r in cl.replicas:          # the cluster's own events only
+        r.engine.set_tracer(None)
+    pool_bytes = [r.engine.pool.page_bytes * r.engine.pool.num_pages
+                  for r in cl.replicas]
+    if mode == "replicated":
+        warm_replicas(cl, cfg.vocab_size)
+        graphs = [r.engine.compile_count for r in cl.replicas]
+        if graphs != [2] * replicas:
+            raise AssertionError(f"{what}: graphs per pool {graphs} after "
+                                 f"the warm-up, not 2 each")
+    calls0 = [r.engine.executable_calls for r in cl.replicas]
+    counter.launches = 0
+    steps = [0]
+
+    def each(c):
+        steps[0] += 1
+        if kill_at is not None:
+            check_cluster_invariants(c)
+            if steps[0] == kill_at:
+                c.kill_replica(1)
+
+    t0 = time.perf_counter()
+    reqs = serve_cluster_mix(cl, *mix, each=each)
+    wall = time.perf_counter() - t0
+    calls = sum(r.engine.executable_calls - c
+                for r, c in zip(cl.replicas, calls0))
+    launches_check(counter, calls, cfg, what)
+    if mode == "replicated" and kill_at is None:
+        graphs_after = [r.engine.compile_count for r in cl.replicas]
+        if graphs_after != graphs:
+            raise AssertionError(f"{what}: graphs per pool {graphs} -> "
+                                 f"{graphs_after} over the run")
+    if not {r.req_id for r in reqs} <= set(cl.finished) or cl.shed or \
+            not all(len(r.out_tokens) == CLUSTER_NEW for r in reqs):
+        raise AssertionError(f"{what}: the completed set is not whole")
+    ms = cl.metrics_summary()
+    toks = [r.out_tokens for r in reqs]
+    out = {"replicas": replicas, "mode": mode,
+           "tokens_per_s": sum(map(len, toks)) / wall, "wall_s": wall,
+           "unified_steps": calls, "kernel_launches": counter.launches,
+           "cluster_steps": steps[0],
+           "req_ids": [r.req_id for r in reqs],
+           "placement": [r.replica for r in reqs],
+           "prefill_replica": [r.prefill_replica for r in reqs],
+           "rerouted": [r.req_id for r in reqs if r.n_reroutes],
+           "graphs_per_pool": [r.engine.compile_count for r in cl.replicas],
+           "step_graphs": cl.replicas[0].engine._step_fn.compile_count,
+           "pool_bytes": pool_bytes,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "peak_over_weights_bytes":
+               torch.cuda.max_memory_allocated() - before,
+           "prefix_cache_hits": ms["prefix_cache_hits"],
+           "replica_deaths": ms["replica_deaths"],
+           "requests_rerouted": ms["requests_rerouted"],
+           "handoffs": ms["cluster_handoffs"],
+           "preemptions": ms["preemptions"],
+           **(inspect(cl) if inspect is not None else {})}
+    cl.close()
+    del cl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, out
+
+
+def route_decisions(tracer):
+    return [{k: e.attrs[k] for k in ("req", "replica", "reason",
+                                     "matched_pages")}
+            for e in tracer.events() if e.name == "route"]
+
+
+def tokens_rule(state, cfg, mix, got, want, what):
+    """fp32 tokens equal, the sampled request's too; bf16 greedy tokens
+    parting only at near ties, held in exact arithmetic: at each greedy
+    request's first difference an fp32 forward of the same weights (TF32
+    off) over the common prefix puts both tokens within
+    ``SPEC_TIE_LIMIT`` of its largest logit (the dense bf16 forward's
+    gaps printed beside it; the sampled request is held in fp32).  The
+    bf16 forward is no judge here: its own rounding moved a pair's gap
+    by 0.11 against the fp32 forward's (``tools/cluster_divergence.py``,
+    PERF.md).  Returns the differences, read."""
+    diffs = first_differences(got, want)
+    if diffs and cfg.dtype == "float32":
+        emit({"phase": "cluster_mismatch", "of": what,
+              "first_differences": diffs})
+        raise AssertionError(f"{what}: tokens differ from the monolithic "
+                             f"engine's at (request, position) {diffs}")
+    out = {"equal": not diffs, "first_differences": diffs,
+           "tokens_differing": sum(a != b for g, w in zip(got, want)
+                                   for a, b in zip(g, w))}
+    if not diffs:
+        return out
+    exact = ({k: v.float() for k, v in state.items()},
+             dataclasses.replace(cfg, dtype="float32"))
+    prompts = mix[0] + [mix[1]]
+    rows = []
+    for i, j in diffs:
+        if i == MIX_SAMPLED:
+            continue
+        prefix, toks = prompts[i] + want[i][:j], (want[i][j], got[i][j])
+        gaps, top = tie_gaps(*exact, prefix, toks)
+        bf16_gaps, bf16_top = tie_gaps(state, cfg, prefix, toks)
+        rows.append({"request": i, "position": j, "monolithic": toks[0],
+                     "other": toks[1], "fp32_gap_monolithic": gaps[0],
+                     "fp32_gap_other": gaps[1], "fp32_top": top["top"],
+                     "bf16_gap_monolithic": bf16_gaps[0],
+                     "bf16_gap_other": bf16_gaps[1]})
+    del exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["near_ties"] = rows
+    over = [r for r in rows if not max(r["fp32_gap_monolithic"],
+                                       r["fp32_gap_other"]) <= SPEC_TIE_LIMIT]
+    if over:
+        emit({"phase": "cluster_mismatch", "of": what,
+              "first_differences": diffs, "over_tie_limit": over})
+        raise AssertionError(f"{what}: tokens part from the monolithic "
+                             f"engine's off a near tie (limit "
+                             f"{SPEC_TIE_LIMIT}): {over}")
+    return out
+
+
+def cluster_replicated(cfg, mix):
+    """(a) for one dtype, and in fp32 (b), (c) and (e) on the same
+    weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counter = ragged_paged_attention_cuda
+    state = random_state(cfg, seed=0, device="cuda")
+    weight_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    what = f"cluster {cfg.dtype}"
+    want, mono = mono_run(state, cfg, mix, counter, f"{what} monolithic")
+    out = {"dtype": cfg.dtype, "weight_bytes": weight_bytes,
+           "monolithic": mono}
+    fp32 = cfg.dtype == "float32"
+    # one replica batches as the monolithic engine does: its tokens are
+    # the engine's exactly, in either type
+    got_1, one = fleet_run(state, cfg, mix, counter, f"{what}, 1 replica",
+                           replicas=1)
+    one["tokens_equal"] = got_1 == want
+    out["one_replica"] = one
+    note("cluster", "one replica", one)
+    if got_1 != want:
+        raise AssertionError(f"{what}, 1 replica: tokens differ from the "
+                             f"monolithic engine's at "
+                             f"{first_differences(got_1, want)}")
+    tracer = SpanTracer()
+    got, two = fleet_run(state, cfg, mix, counter, f"{what}, 2 replicas",
+                         tracer=tracer, policy="prefix")
+    two["router_decisions"] = route_decisions(tracer)
+    header_users = (two["req_ids"][2], two["req_ids"][-1])
+    if two["placement"][2] != two["placement"][-1] or \
+            two["prefix_cache_hits"] < 1:
+        raise AssertionError(f"{what}: the header's users {header_users} "
+                             f"landed on {two['placement']}, cache hits "
+                             f"{two['prefix_cache_hits']}")
+    late = next(d for d in two["router_decisions"]
+                if d["req"] == two["req_ids"][-1])
+    if late["reason"] != "prefix_hit" or late["matched_pages"] < 16:
+        raise AssertionError(f"{what}: the late prompt's route {late}")
+    two["tokens"] = tokens_rule(state, cfg, mix, got, want, what)
+    out["two_replicas"] = two
+    grow = two["peak_memory_bytes"] - one["peak_memory_bytes"]
+    out["peak_memory_two_minus_one_bytes"] = grow
+    if not grow < weight_bytes:
+        raise AssertionError(f"{what}: a second replica added {grow} bytes "
+                             f"of peak memory, a weight copy is "
+                             f"{weight_bytes}")
+    if fp32:
+        out["disaggregated"] = cluster_disaggregated(state, cfg, mix, want,
+                                                     counter)
+        note("cluster", "disaggregated", out["disaggregated"])
+        got_k, kill = fleet_run(state, cfg, mix, counter,
+                                f"{what}, killed replica",
+                                kill_at=CLUSTER_KILL_STEP, policy="prefix")
+        if kill["replica_deaths"] != 1 or not kill["rerouted"] or \
+                got_k != want:
+            raise AssertionError(f"{what}, killed replica: deaths "
+                                 f"{kill['replica_deaths']}, re-routed "
+                                 f"{kill['rerouted']}, tokens equal "
+                                 f"{got_k == want}")
+        kill["tokens_equal"] = True
+        out["killed_replica"] = kill
+        note("cluster", "killed replica", kill)
+        out["autoscaler"] = cluster_autoscale(state, cfg, counter)
+        note("cluster", "autoscaler", out["autoscaler"])
+    launches = sum(r["kernel_launches"] for r in (
+        mono, one, two, *([out["disaggregated"], out["killed_replica"]]
+                          if fp32 else [])))
+    if fp32:
+        launches += out["autoscaler"]["kernel_launches"]
+    out["kernel_launches"] = launches
+    return state, out
+
+
+def cluster_disaggregated(state, cfg, mix, want, counter):
+    """(b): 1 prefill and 1 decode replica: every request's pages through
+    the ``LocalPageTransport`` (its H100 model's ``predicted_s`` beside the
+    measured ``wall_s``), every request adopted by the decode replica,
+    tokens equal to the monolithic engine's."""
+    what = "cluster disaggregated float32"
+
+    def inspect(cl):
+        recs = cl.transport.records
+        return {"adoptions": [a["dst"] for a in cl._adoptions],
+                "total_payload_bytes": cl.transport.total_payload_bytes,
+                "total_wall_s": sum(r["wall_s"] for r in recs),
+                "total_predicted_s": cl.transport.total_predicted_s,
+                "model": cl.transport.cluster_spec.chip.name,
+                "records": [{k: r[k] for k in ("src", "dst", "pages",
+                                               "payload_bytes", "wall_s",
+                                               "predicted_s", "epoch")}
+                            for r in recs]}
+
+    got, out = fleet_run(state, cfg, mix, counter, what,
+                         mode="disaggregated", num_prefill=1,
+                         inspect=inspect)
+    n = len(mix[0]) + 1
+    if got != want or out["handoffs"] != n or \
+            out["adoptions"] != [1] * n or len(out["records"]) != n:
+        raise AssertionError(f"{what}: tokens equal {got == want}, handoffs "
+                             f"{out['handoffs']}, adoptions "
+                             f"{out['adoptions']}")
+    out["tokens_equal"] = True
+    return out
+
+
+def _mixed_trace(rng, n):
+    out = []
+    for i in range(n):
+        size = int(rng.randint(4, 12))
+        cls = SLO_CLASSES[int(rng.randint(3))]
+        out.append(([int(t) for t in rng.randint(1, 90, size=size)],
+                    cls, float(i)))
+    return out
+
+
+def autoscale_run(state, cfg, counter, autoscaler):
+    """(e)'s trace on 2 replicas, on a synthetic clock (one unit a
+    step), with ``autoscaler`` or a static fleet (``None``)."""
+    clock = [0.0]
+    cl = EngineCluster(state, cfg, num_replicas=2, coordinator=False,
+                       policy="load", max_queue_depth=2,
+                       autoscaler=autoscaler, time_fn=lambda: clock[0],
+                       **cluster_engine_kw())
+    trace = _mixed_trace(np.random.RandomState(11), 8)
+    states = []
+
+    def each(c):
+        clock[0] += 1.0
+        check_cluster_invariants(c)
+        states.append([(r.alive, r.draining) for r in c.replicas])
+
+    calls0 = [r.engine.executable_calls for r in cl.replicas]
+    counter.launches = 0
+    for _ in range(AUTOSCALE_IDLE_STEPS):
+        cl.step()
+        each(cl)
+    t0 = clock[0]
+    reqs = [cl.add_request(p, AUTOSCALE_NEW, arrival_time=t0 + arr,
+                           slo_class=c) for p, c, arr in trace]
+    drive(cl, each)
+    torch.cuda.synchronize()
+    calls = sum(r.engine.executable_calls - c
+                for r, c in zip(cl.replicas, calls0))
+    launches_check(counter, calls, cfg, "cluster autoscaler")
+    ms = cl.metrics_summary()
+    cl.close()
+    active = [sum(a and not d for a, d in s) for s in states]
+    return [r.out_tokens for r in reqs], {
+        "scale_ups": ms["scale_ups"], "scale_downs": ms["scale_downs"],
+        "class_inversions": ms["class_inversions"],
+        "requests": len(reqs), "steps": len(states),
+        "active_replicas_by_step": active,
+        "unified_steps": calls, "kernel_launches": counter.launches}
+
+
+def cluster_autoscale(state, cfg, counter):
+    """(e): the autoscaler takes the fleet from 2 to 1 replica on the idle
+    window and back to 2 under the trace; tokens equal a static fleet's,
+    no class inversion."""
+    got, auto = autoscale_run(state, cfg, counter, Autoscaler(**AUTOSCALE))
+    want, static = autoscale_run(state, cfg, counter, None)
+    if got != want or auto["scale_ups"] < 1 or auto["scale_downs"] < 1 or \
+            auto["class_inversions"] or static["scale_ups"] or \
+            static["scale_downs"]:
+        raise AssertionError(f"cluster autoscaler: tokens equal "
+                             f"{got == want}, {auto}, static {static}")
+    auto["tokens_equal_static_fleet"] = True
+    auto["kernel_launches"] += static["kernel_launches"]
+    auto["static_fleet"] = static
+    return auto
+
+
+def host_tier_run(state, cfg, mix, counter, what):
+    """(d): phase 4's traffic on one bf16 engine whose pool
+    (``HOST_TIER_PAGES``) cannot keep the header cached, over a host tier:
+    the header's pages go to the host and come back for the late prompt;
+    tokens against an engine whose pool evicts nothing, by (a)'s rule.
+    In the MLA layout every launch of both engines is on wgmma."""
+    want, ref = mono_run(state, cfg, mix, counter, f"{what} reference")
+    eng = Engine(state, cfg, host_tier=True,
+                 **cluster_engine_kw(HOST_TIER_PAGES))
+    counter.launches = 0
+    wgmma = attention_kernel(eng) == LATENT_WGMMA_KERNEL
+    if cfg.is_mla:
+        counter.wgmma_launches = 0
+    t0 = time.perf_counter()
+    reqs = serve_mix(eng, *mix, new=CLUSTER_NEW)
+    wall = time.perf_counter() - t0
+    launches_check(counter, eng.executable_calls, cfg, what)
+    if cfg.is_mla and (not wgmma or
+                       counter.wgmma_launches != counter.launches or
+                       ref["wgmma_launches"] != ref["kernel_launches"]):
+        raise AssertionError(f"{what}: {counter.wgmma_launches} of "
+                             f"{counter.launches} latent launches on wgmma, "
+                             f"the reference's {ref['wgmma_launches']} of "
+                             f"{ref['kernel_launches']}")
+    ht_ = eng.host_tier
+    recs = ht_.records
+    refetch = [r for r in recs if r["dir"] == "refetch"]
+    header_pages = 1024 // CLUSTER_SHAPE["page_size"]
+    late = reqs[-1]
+    if len(refetch) < header_pages or late.cached_tokens < 1024:
+        raise AssertionError(f"{what}: {len(refetch)} pages refetched, the "
+                             f"late prompt started at {late.cached_tokens} "
+                             f"cached tokens")
+    out = {"pool_pages": HOST_TIER_PAGES,
+           "pool_bytes": eng.pool.page_bytes * eng.pool.num_pages,
+           "page_bytes": eng.pool.page_bytes,
+           "attention_kernel": attention_kernel(eng),
+           "reference": ref, "wall_s": wall,
+           "tokens_per_s": sum(len(r.out_tokens) for r in reqs) / wall,
+           "unified_steps": eng.executable_calls,
+           "kernel_launches": counter.launches + ref["kernel_launches"],
+           **({"wgmma_launches": counter.wgmma_launches +
+               ref["wgmma_launches"]} if wgmma else {}),
+           "preemptions": eng.counters["preemptions"].value,
+           "evicted_pages": ht_.evictions, "refetched_pages": ht_.hits,
+           "refetch_bytes": ht_.refetch_bytes,
+           "late_prompt_cached_tokens": late.cached_tokens,
+           "model": ht_.transport.cluster_spec.chip.name,
+           "evict": {"records": sum(r["dir"] == "evict" for r in recs),
+                     "wall_s": sum(r["wall_s"] for r in recs
+                                   if r["dir"] == "evict"),
+                     "predicted_s": ht_.predicted_s("evict")},
+           "refetch_records": [{k: r[k] for k in ("pages", "payload_bytes",
+                                                  "wall_s", "predicted_s")}
+                               for r in refetch]}
+    out["tokens"] = tokens_rule(state, cfg, mix,
+                                [r.out_tokens for r in reqs], want, what)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cluster():
+    """Phase 21: the cluster and SLO plane (see the module docstring)."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    mix = make_mix(rng, 128256, [32, 3000, 700, 1500, 64, 2200, 400],
+                   header_len=1024, tail=200)
+    replicated, state = {}, None
+    for dtype in ("float32", "bfloat16"):
+        cfg = llama3_8b_config(dtype=dtype)
+        state = None                    # one dtype's weights at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, replicated[dtype] = cluster_replicated(cfg, mix)
+        note("cluster", dtype, {k: v for k, v in replicated[dtype].items()
+                                if k in ("monolithic", "two_replicas")})
+    host = {"full_head": host_tier_run(state, cfg, mix,
+                                       ragged_paged_attention_cuda,
+                                       "host tier full head bf16")}
+    note("cluster", "host tier full head", host["full_head"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla = mla_config(cfg, kv_latent_dim=512, kv_rope_dim=64)
+    state = random_state(mla, seed=0, device="cuda")
+    host["mla"] = host_tier_run(state, mla, mix,
+                                latent_ragged_paged_attention_cuda,
+                                "host tier MLA bf16")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"config": {"model": "Llama-3-8B widths, random weights (seed "
+                               "0), fp32 (TF32 off) then bf16",
+                      "requests": len(mix[0]) + 1,
+                      "new_tokens": CLUSTER_NEW,
+                      "pool_pages": CLUSTER_PAGES, **CLUSTER_SHAPE},
+           "replicated": replicated, "host_tier": host,
+           "nvidia_smi": smi_line(),
+           "wall_s": time.perf_counter() - t0}
+    emit({"phase": "cluster", **out})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3963,6 +4512,7 @@ def main():
     phase_small_models()
     graph = phase_graph_layer()
     spec = phase_spec_decode()
+    cluster = phase_cluster()
     # phase 20's measured runs, spec and non-spec, add their launches:
     # kernel 5 in the full-head runs, (d)'s and (c)'s, kernel 6 in the MLA
     # runs (bf16 pages on wgmma, fp32 pages on mma.sync)
@@ -3973,12 +4523,19 @@ def main():
         sum(spec["narrow_chunks"][run]["kernel_launches"] for run in runs)
     spec_mla = {d: sum(r[run]["kernel_launches"] for run in runs)
                 for d, r in spec["mla"].items()}
+    # phase 21's runs (a)-(e) add kernel 5's launches, (d)'s MLA run
+    # kernel 6's (on wgmma)
+    cluster_full = sum(r["kernel_launches"]
+                       for r in cluster["replicated"].values()) + \
+        cluster["host_tier"]["full_head"]["kernel_launches"]
+    cluster_mla = cluster["host_tier"]["mla"]
     rows = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "hetu_tpu/ops/ragged_paged_attention.py:142",
-        "launches": main_out["kernel_launches"] + spec_full,
+        "launches": main_out["kernel_launches"] + spec_full + cluster_full,
         "spec_decode_launches": spec_full,
+        "cluster_launches": cluster_full,
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": None,
@@ -4054,7 +4611,8 @@ def main():
             ("latent_ragged_paged_attention",
              "hetu_tpu_torch/csrc/latent_ragged_paged_attention.cu",
              "hetu_tpu/ops/ragged_paged_attention.py:420",
-             mla_out["kernel_launches"] + sum(spec_mla.values()), latent),
+             mla_out["kernel_launches"] + sum(spec_mla.values()) +
+             cluster_mla["kernel_launches"], latent),
             ("paged_attention_decode",
              "hetu_tpu_torch/csrc/paged_attention.cu",
              "hetu_tpu/ops/paged_attention.py:113", paged_launches, paged)):
@@ -4073,12 +4631,13 @@ def main():
         "launches_by_route": {
             "wgmma": mla_out["wgmma_launches"] + sum(
                 spec["mla"]["bfloat16"][run]["wgmma_launches"]
-                for run in runs),
+                for run in runs) + cluster_mla["wgmma_launches"],
             "mma.sync": mla_out["kernel_launches"] -
             mla_out["wgmma_launches"] + spec_mla["float32"]},
         "quant_path_launches": {"mma.sync": sum(
             q["kernel_launches"] for q in quant.values())},
         "spec_decode_launches": spec_mla,
+        "cluster_launches": {"wgmma": cluster_mla["wgmma_launches"]},
         "spec_decode_kernel": {d: r["spec"]["attention_kernel"]
                                for d, r in spec["mla"].items()},
         "spec_decode_rows_a_step": spec["mla"]["bfloat16"]["spec"][

@@ -1,0 +1,373 @@
+"""Low-overhead structured span tracer (the runtime trace plane; port of
+``hetu_tpu.obs.tracer``, pure Python).
+
+This module records what actually *happened* and when: nested
+wall-time spans, instant events, and retroactive complete spans, all
+carrying free-form attributes, buffered in a capped ring.  The JAX
+package's exporters (``obs/export.py``, ``obs/reconcile.py``) come to
+the port with the runtime planes; the events already carry what they
+read.
+
+Cost model, same pattern as ``utils.metrics``' no-op instruments: the
+module-global default tracer is a shared no-op (``NULL_TRACER``), every
+emission site in the engine and cluster guards on ``tracer.enabled``
+and every no-op method swallows its arguments, so disabled tracing
+costs a couple of attribute reads per *step*.  A real
+:class:`SpanTracer` can also be switched off in place
+(``tracer.enabled = False``) without losing its buffer.
+
+    from hetu_tpu_torch.obs import trace
+    with trace() as tr:
+        with tr.span("outer", track="work", phase=1):
+            tr.instant("milestone", done=3)
+    events = tr.events()
+
+Clocks: spans stamped through :meth:`SpanTracer.now` (``time.monotonic``
+unless a ``time_fn`` is injected).  Components with their own clock
+(e.g. ``serving.Engine(time_fn=...)``) pass explicit ``ts`` values so
+one consistent timeline survives synthetic test clocks.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, List, Optional
+
+__all__ = ["Span", "SpanTracer", "PrefixedTracer", "NULL_TRACER",
+           "NOOP_SPAN", "get_tracer", "install_tracer", "trace"]
+
+
+class Span:
+    """One finished-or-open event.  ``ph`` follows the chrome trace
+    phase letters: "X" complete span, "i" instant."""
+
+    __slots__ = ("name", "track", "ts", "dur", "ph", "attrs", "parent",
+                 "_tracer")
+
+    def __init__(self, name: str, track: str, ts: float,
+                 attrs: Dict[str, Any], parent: Optional[str] = None,
+                 tracer: Optional["SpanTracer"] = None, ph: str = "X"):
+        self.name = name
+        self.track = track
+        self.ts = float(ts)
+        self.dur: Optional[float] = None        # None while open / instant
+        self.ph = ph
+        self.attrs = attrs
+        self.parent = parent                    # parent span NAME (nesting)
+        self._tracer = tracer
+
+    def set(self, **attrs: Any) -> "Span":
+        self.attrs.update(attrs)
+        return self
+
+    @property
+    def end_ts(self) -> float:
+        return self.ts + (self.dur or 0.0)
+
+    # with tracer.span(...) as sp: ...
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._tracer is not None:
+            self._tracer.end(self)
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, track={self.track!r}, ts={self.ts}, "
+                f"dur={self.dur})")
+
+
+class _NoopSpan:
+    """Shared stand-in when tracing is disabled: absorbs everything."""
+
+    __slots__ = ()
+    name = track = parent = ""
+    ts = 0.0
+    dur: Optional[float] = None
+    ph = "X"
+    attrs: Dict[str, Any] = {}
+
+    def set(self, **attrs: Any) -> "_NoopSpan":
+        return self
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+NOOP_SPAN = _NoopSpan()
+
+
+class SpanTracer:
+    """Thread-safe span recorder with a capped ring buffer.
+
+    Per-thread open-span stacks give parent/child nesting without any
+    cross-thread coordination; finished events land in one shared deque
+    (capacity-capped — overflow drops the OLDEST events and counts them
+    in ``dropped``, so a long-running service never grows unbounded).
+    """
+
+    def __init__(self, capacity: int = 65536,
+                 time_fn: Optional[Callable[[], float]] = None):
+        self.enabled = True
+        self.capacity = int(capacity)
+        self._time = time_fn or time.monotonic
+        self._buf: deque = deque(maxlen=self.capacity)
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+        self.dropped = 0
+
+    # -- clock ---------------------------------------------------------------
+
+    def now(self) -> float:
+        return self._time()
+
+    # -- recording -----------------------------------------------------------
+
+    def _stack(self) -> List[Span]:
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
+
+    def begin(self, name: str, track: Optional[str] = None,
+              ts: Optional[float] = None, **attrs: Any) -> Span:
+        """Open a span; nest under the current thread's innermost open
+        span (inheriting its track unless one is given)."""
+        if not self.enabled:
+            return NOOP_SPAN
+        st = self._stack()
+        parent = st[-1] if st else None
+        if track is None:
+            track = parent.track if parent is not None \
+                else threading.current_thread().name
+        sp = Span(name, track, self.now() if ts is None else ts, attrs,
+                  parent=parent.name if parent is not None else None,
+                  tracer=self)
+        st.append(sp)
+        return sp
+
+    def end(self, span: Span, ts: Optional[float] = None,
+            **attrs: Any) -> None:
+        """Close ``span`` and commit it to the ring.  Out-of-order ends
+        pop (and discard) any spans opened after it on this thread;
+        ending an already-ended span is a no-op (so a ``finally`` can
+        close the outermost span unconditionally) — never raise from an
+        emission site."""
+        if not isinstance(span, Span) or span.dur is not None:
+            return                    # NOOP_SPAN / disabled / re-ended
+        st = self._stack()
+        if span in st:
+            while st and st.pop() is not span:
+                pass
+        end_ts = self.now() if ts is None else ts
+        span.dur = max(0.0, end_ts - span.ts)
+        if attrs:
+            span.attrs.update(attrs)
+        self._push(span)
+
+    def span(self, name: str, track: Optional[str] = None,
+             ts: Optional[float] = None, **attrs: Any) -> Span:
+        """``with tracer.span("phase"):`` — begin() returning the
+        context-managed span (its ``__exit__`` calls :meth:`end`)."""
+        return self.begin(name, track=track, ts=ts, **attrs)
+
+    def instant(self, name: str, track: Optional[str] = None,
+                ts: Optional[float] = None, **attrs: Any) -> None:
+        """A zero-duration point event."""
+        if not self.enabled:
+            return
+        if track is None:
+            st = self._stack()
+            track = st[-1].track if st else threading.current_thread().name
+        self._push(Span(name, track, self.now() if ts is None else ts,
+                        attrs, ph="i"))
+
+    def complete(self, name: str, ts: float, dur: float,
+                 track: Optional[str] = None, **attrs: Any) -> None:
+        """Commit a retroactive closed span (caller supplies both
+        endpoints — e.g. a queue-wait interval known only at admission)."""
+        if not self.enabled:
+            return
+        if track is None:
+            track = threading.current_thread().name
+        sp = Span(name, track, ts, attrs)
+        sp.dur = max(0.0, float(dur))
+        self._push(sp)
+
+    def _push(self, ev: Span) -> None:
+        with self._lock:
+            if len(self._buf) == self.capacity:
+                self.dropped += 1
+            self._buf.append(ev)
+
+    # -- reading -------------------------------------------------------------
+
+    def events(self) -> List[Span]:
+        """Snapshot of the committed events (insertion order)."""
+        with self._lock:
+            return list(self._buf)
+
+    def open_count(self) -> int:
+        """Open (un-ended) spans on the CALLING thread — 0 after a
+        well-bracketed trace."""
+        return len(self._stack())
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf.clear()
+            self.dropped = 0
+
+    def __len__(self) -> int:
+        return len(self._buf)
+
+
+class _NullTracer:
+    """Shared no-op tracer: the engine/train hot loops see
+    ``enabled == False`` and every method swallows its arguments — the
+    disabled path costs a guard, nothing else."""
+
+    enabled = False
+    capacity = 0
+    dropped = 0
+
+    def now(self) -> float:
+        return 0.0
+
+    def begin(self, name: str, track: Optional[str] = None,
+              ts: Optional[float] = None, **attrs: Any) -> _NoopSpan:
+        return NOOP_SPAN
+
+    def end(self, span, ts: Optional[float] = None, **attrs: Any) -> None:
+        pass
+
+    def span(self, name: str, track: Optional[str] = None,
+             ts: Optional[float] = None, **attrs: Any) -> _NoopSpan:
+        return NOOP_SPAN
+
+    def instant(self, name: str, track: Optional[str] = None,
+                ts: Optional[float] = None, **attrs: Any) -> None:
+        pass
+
+    def complete(self, name: str, ts: float, dur: float,
+                 track: Optional[str] = None, **attrs: Any) -> None:
+        pass
+
+    def events(self) -> List[Span]:
+        return []
+
+    def open_count(self) -> int:
+        return 0
+
+    def clear(self) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return 0
+
+
+class PrefixedTracer:
+    """A view onto another tracer that namespaces every track.
+
+    The serving cluster hands each replica engine
+    ``PrefixedTracer(shared, "r0/")`` so N engines' identically-named
+    tracks (``engine``, ``scheduler``, ``req 3``) land as distinct
+    ``r0/engine`` / ``r1/engine`` rows in ONE merged Perfetto trace —
+    the engines need no cluster awareness and the router's own
+    ``router`` track sits alongside.  Purely a pass-through otherwise:
+    ``enabled`` follows the base tracer live (toggling the shared
+    tracer toggles every replica view), events land in the base ring.
+    """
+
+    __slots__ = ("base", "prefix")
+
+    def __init__(self, base, prefix: str):
+        self.base = base
+        self.prefix = str(prefix)
+
+    @property
+    def enabled(self) -> bool:
+        return self.base.enabled
+
+    @property
+    def dropped(self) -> int:
+        return self.base.dropped
+
+    def _track(self, track: Optional[str]) -> Optional[str]:
+        return None if track is None else self.prefix + track
+
+    def now(self) -> float:
+        return self.base.now()
+
+    def begin(self, name: str, track: Optional[str] = None,
+              ts: Optional[float] = None, **attrs: Any):
+        return self.base.begin(name, track=self._track(track), ts=ts,
+                               **attrs)
+
+    def end(self, span, ts: Optional[float] = None, **attrs: Any) -> None:
+        self.base.end(span, ts=ts, **attrs)
+
+    def span(self, name: str, track: Optional[str] = None,
+             ts: Optional[float] = None, **attrs: Any):
+        return self.base.span(name, track=self._track(track), ts=ts,
+                              **attrs)
+
+    def instant(self, name: str, track: Optional[str] = None,
+                ts: Optional[float] = None, **attrs: Any) -> None:
+        self.base.instant(name, track=self._track(track), ts=ts, **attrs)
+
+    def complete(self, name: str, ts: float, dur: float,
+                 track: Optional[str] = None, **attrs: Any) -> None:
+        self.base.complete(name, ts, dur, track=self._track(track),
+                           **attrs)
+
+    def events(self) -> List[Span]:
+        return self.base.events()
+
+    def open_count(self) -> int:
+        return self.base.open_count()
+
+    def clear(self) -> None:
+        self.base.clear()
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+
+NULL_TRACER = _NullTracer()
+
+# process-global default consulted by every instrumented component
+# (serving.Engine, serving.cluster.EngineCluster)
+# unless an explicit tracer was injected
+_GLOBAL: List[Any] = [NULL_TRACER]
+
+
+def get_tracer():
+    """The ambient tracer (``NULL_TRACER`` unless one is installed)."""
+    return _GLOBAL[0]
+
+
+def install_tracer(tracer) -> Any:
+    """Install ``tracer`` as the ambient tracer (None restores the
+    no-op); returns the previous one so callers can restore it."""
+    prev = _GLOBAL[0]
+    _GLOBAL[0] = tracer if tracer is not None else NULL_TRACER
+    return prev
+
+
+@contextmanager
+def trace(capacity: int = 65536,
+          time_fn: Optional[Callable[[], float]] = None, tracer=None):
+    """``with trace() as tr:`` — install a fresh :class:`SpanTracer`
+    (or the one given) for the dynamic extent, restoring the previous
+    ambient tracer on exit."""
+    tr = tracer if tracer is not None else SpanTracer(capacity, time_fn)
+    prev = install_tracer(tr)
+    try:
+        yield tr
+    finally:
+        install_tracer(prev)

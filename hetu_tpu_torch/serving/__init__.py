@@ -20,7 +20,15 @@ Speculative decoding with a truncated self-draft::
 
 The draft proposes ``k`` greedy tokens a decode-ready request, the step
 verifies them as ragged verify rows; temperature-0 output equals the
-non-speculative engine's.  The cluster plane comes with a later slice.
+non-speculative engine's.
+
+N replicas behind one router, replicated or disaggregated (prefill
+replicas streaming KV pages to decode replicas), with the fault and SLO
+planes::
+
+    from hetu_tpu_torch.serving import EngineCluster
+
+    cl = EngineCluster(state, cfg, num_replicas=2, policy="prefix")
 """
 from .engine import Engine
 from .kv_pool import TRASH_PAGE, PagedKVPool
@@ -28,7 +36,9 @@ from .prefix_cache import CacheEntry, PrefixCache
 from .request import FINISHED, RUNNING, WAITING, Request, RequestQueue
 from .scheduler import Scheduler
 from .spec import SpecConfig, SpecDecoder
+from .cluster import EngineCluster
 
 __all__ = ["Engine", "PagedKVPool", "TRASH_PAGE", "PrefixCache",
            "CacheEntry", "Request", "RequestQueue", "Scheduler",
-           "WAITING", "RUNNING", "FINISHED", "SpecConfig", "SpecDecoder"]
+           "WAITING", "RUNNING", "FINISHED", "SpecConfig", "SpecDecoder",
+           "EngineCluster"]

@@ -1,0 +1,1041 @@
+"""The serving cluster plane: N engine replicas behind one front door
+(port of ``hetu_tpu.serving.cluster.cluster``).
+
+``EngineCluster`` runs N ``serving.Engine`` replicas wrapped as
+process-local hosts (``replica.py``), registered through the ``rpc``
+coordinator (heartbeat -> health), a prefix-aware router (``router.py``)
+spreading requests across them, and an optional **disaggregated** mode
+where dedicated prefill replicas compute prompt KV and stream the pages
+to dedicated decode replicas through a priced ``PageTransport``
+(``transport.py``).
+
+Two modes:
+
+* ``"replicated"`` (default): every replica serves prefill+decode; the
+  router places each request on the replica whose prefix cache holds
+  its longest prefix (digest lookup), falling back to least-loaded,
+  with per-replica queue-depth backpressure.
+* ``"disaggregated"``: the first ``num_prefill`` replicas ONLY prefill:
+  each request runs there with ``max_new_tokens=1`` (prefill and first
+  sampled token), then its KV pages are extracted to the host, priced
+  through the cost model's alpha-beta formulas, injected into a decode
+  replica's pool, and the request is ADOPTED mid-flight
+  (``Engine.adopt_request``) to continue decoding.  Temperature-0
+  output equals the monolithic engine's: the decode replica reads
+  byte-identical KV through the same kernel, and the position-keyed
+  sampler makes sampled modes replay exactly.
+
+One device copy of the weights serves the fleet: the cluster moves
+``state`` to the device once and hands the same tensors to every
+replica.  All replicas share ONE built unified step (identical shapes):
+on the card each replica's pool replays graphs of its own, captured
+into one shared graph memory pool.  A dead replica (missed heartbeats
+past the TTL, or an explicit :meth:`Replica.kill`) has its unfinished
+requests pulled back into the backlog and re-placed on survivors; no
+request is lost.
+
+Failure and consistency contract: a re-routed or preempted request
+replays from its accumulated tokens, so at temperature 0 (and under the
+seeded sampler) the final output is independent of deaths, handoffs,
+preemptions and placement.
+
+Fault plane (``hetu_tpu_torch/fault``): every death verdict bumps the
+replica's **fencing epoch**; placements, stream callbacks and handoff
+injections all carry the epoch they were made under, so a zombie
+(heartbeat stall while the engine keeps stepping), a revived
+TTL-expired replica, or a duplicated wire delivery can never
+double-deliver: stale completions are dropped in ``_collect_finished``
+(``stale_completions_dropped``), stale stream tokens are ignored at the
+callback, and handoff injection is idempotent by ``(request id, staging
+epoch)``.  Handoff attempts back off with a capped-exponential
+:class:`~hetu_tpu_torch.fault.RetryPolicy`, a staged handoff whose
+pinned destination dies mid-transfer is re-staged to a survivor
+(``handoffs_restaged``), and a request that every live replica has
+backpressured past its deadline is SHED with a retriable rejection
+(``requests_shed``).  A quarantined replica rejoins only through
+:meth:`readmit_replica`, which aborts its stale engine state first.
+Chaos injection (``EngineCluster(chaos=ChaosController(plan))``) drives
+all of it deterministically; every fault and every recovery action is a
+tracer instant.
+
+The records the analysis plane reads (``transport.records_for``,
+``_adoptions``, ``protocol_log``, ``chaos.injected``,
+``transport.extract_log``) are kept as plain attributes; registering
+them with executables waits for the analysis plane (ROADMAP queue 1
+item 18).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
+
+from ...core.device import resolve_device
+from ...fault.backoff import RetryPolicy
+from ...models.generate import _Params
+from ...obs.tracer import PrefixedTracer, get_tracer
+from ...utils.metrics import (make_instrument, merge_prometheus_texts,
+                              render_prometheus)
+from ..engine import Engine
+from ..kv_pool import protocol_seq
+from ..slo.backlog import ClassBacklog
+from ..slo.classes import SLO_CLASSES, class_rank
+from .replica import DECODE, PREFILL, UNIFIED, Replica
+from .router import Router
+from .transport import LocalPageTransport, PageTransport
+
+MODES = ("replicated", "disaggregated")
+
+
+@dataclass
+class ClusterRequest:
+    """One request as the CLUSTER sees it: stable identity across
+    placements (a death re-route or a prefill→decode handoff changes
+    which engine-level Request serves it, never which ClusterRequest
+    it is)."""
+    req_id: int
+    prompt: List[int]
+    max_new_tokens: int
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0
+    seed: int = 0
+    eos_token_id: Optional[int] = None
+    arrival_time: float = 0.0
+    submit_time: float = 0.0
+    # SLO class (serving.slo.classes): policy-only — decides who
+    # waits, sheds and scales, never what a surviving request computes
+    slo_class: str = "standard"
+
+    # runtime
+    out_tokens: List[int] = field(default_factory=list)
+    token_times: List[float] = field(default_factory=list)
+    replica: Optional[int] = None     # current owner (engine placement)
+    prefill_replica: Optional[int] = None
+    stage: str = ""                   # "" | prefill | final
+    handoff_pending: bool = False
+    n_reroutes: int = 0
+    finish_time: Optional[float] = None
+    # load shedding: a shed request is terminal but NOT completed — the
+    # rejection is retriable (the caller may resubmit when the fleet
+    # has headroom)
+    rejected: bool = False
+    reject_reason: str = ""
+
+    @property
+    def done(self) -> bool:
+        return self.finish_time is not None
+
+    @property
+    def rank(self) -> int:
+        return class_rank(self.slo_class)
+
+    @property
+    def first_token_time(self) -> Optional[float]:
+        return self.token_times[0] if self.token_times else None
+
+
+class _FollowTracer:
+    """Resolves the cluster's effective tracer at every use (injected
+    tracer, else the ambient global) — so ``obs.trace()`` around a
+    cluster run captures every replica without re-wiring engines."""
+
+    def __init__(self, cluster: "EngineCluster"):
+        self._cluster = cluster
+
+    def __getattr__(self, name):
+        return getattr(self._cluster.tracer, name)
+
+    def __len__(self) -> int:
+        return len(self._cluster.tracer)
+
+
+class EngineCluster:
+    def __init__(self, state: Dict[str, Any], cfg,
+                 num_replicas: int = 2, mode: str = "replicated",
+                 num_prefill: int = 1, name: str = "cluster",
+                 policy: str = "prefix",
+                 max_queue_depth: Optional[int] = None,
+                 heartbeat_interval: float = 0.25, ttl: float = 2.0,
+                 coordinator: bool = True,
+                 transport: Optional[PageTransport] = None,
+                 time_fn=None, tracer=None, seed: int = 0,
+                 metrics: bool = True, step_fn=None,
+                 chaos=None, retry: Optional[RetryPolicy] = None,
+                 request_deadline: Optional[float] = None,
+                 max_backlog: Optional[int] = None,
+                 autoscaler=None, device="cuda", **engine_kw):
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; have {MODES}")
+        if num_replicas < 1:
+            raise ValueError("need at least one replica")
+        if mode == "disaggregated":
+            if num_replicas < 2:
+                raise ValueError("disaggregated mode needs >= 2 replicas")
+            if not (1 <= num_prefill < num_replicas):
+                raise ValueError(
+                    f"num_prefill must be in [1, {num_replicas - 1}], "
+                    f"got {num_prefill}")
+        self.name = name
+        self.mode = mode
+        self.cfg = cfg
+        self._time = time_fn or time.monotonic
+        self._tracer = tracer
+        # fault plane: chaos injection + recovery policy.  The retry
+        # policy governs handoff re-attempts (capped exponential,
+        # deterministic jitter); request_deadline bounds how long a
+        # request may wait backpressured (backlog or staged handoff)
+        # before it degrades — sheds with a retriable rejection, or
+        # falls back to monolithic serving; max_backlog bounds the
+        # front-door queue (beyond it, arrivals shed immediately)
+        self.chaos = chaos
+        self.retry = retry if retry is not None else RetryPolicy()
+        self.request_deadline = None if request_deadline is None \
+            else float(request_deadline)
+        self.max_backlog = None if max_backlog is None \
+            else int(max_backlog)
+        # SLO traffic plane: the autoscaler (serving.slo.Autoscaler)
+        # rides the existing drain/kill/readmit lifecycle — its hook
+        # runs right after the health sweep each step
+        self.autoscaler = autoscaler
+        follow = _FollowTracer(self)
+        self.transport = transport if transport is not None \
+            else LocalPageTransport()
+
+        # -- replica plane: coordinator + N engines sharing one step and
+        # one device copy of the weights
+        params = _Params(state, cfg, resolve_device(device)).s
+        self.server = None
+        if coordinator:
+            from ...rpc.coordinator import (CoordinatorClient,
+                                            CoordinatorServer)
+            self.server = CoordinatorServer(world_size=num_replicas,
+                                            ttl=ttl).start()
+        roles = [UNIFIED] * num_replicas if mode == "replicated" else \
+            [PREFILL] * num_prefill + \
+            [DECODE] * (num_replicas - num_prefill)
+        self.replicas: List[Replica] = []
+        # one step for the whole fleet: the first engine builds it (or
+        # the caller injects one, e.g. a restart reusing the old fleet's)
+        shared_fn = step_fn
+        for i, role in enumerate(roles):
+            eng = Engine(params, cfg, name=f"{name}@r{i}",
+                         time_fn=self._time, metrics=metrics,
+                         tracer=PrefixedTracer(follow, f"r{i}/"),
+                         step_fn=shared_fn, device=device, **engine_kw)
+            if shared_fn is None:
+                shared_fn = eng._step_fn
+            client = None
+            if self.server is not None:
+                client = CoordinatorClient(self.server.address,
+                                           uid=f"{name}-r{i}", ttl=ttl)
+            self.replicas.append(Replica(
+                i, eng, role=role, client=client,
+                heartbeat_interval=heartbeat_interval))
+        self.router = Router(policy=policy,
+                             max_queue_depth=max_queue_depth,
+                             seed=seed, tracer=follow,
+                             time_fn=self._time)
+        self._next_id = 0
+        self.steps = 0
+        # class-aware front door: rank-major service, FIFO within a
+        # class, shed pressure falls lowest-class-first
+        self._backlog = ClassBacklog()
+        self._pending_handoffs: List[Dict[str, Any]] = []
+        # (replica idx, engine req id) -> (creq, stage, fence epoch):
+        # live ownership, stamped with the epoch it was placed under
+        self._placed: Dict = {}
+        self.requests: Dict[int, ClusterRequest] = {}
+        self.finished: Dict[int, ClusterRequest] = {}
+        self.shed: Dict[int, ClusterRequest] = {}
+        self._dead_handled: set = set()
+        # fencing epochs: bumped at every death verdict; anything
+        # stamped with an older epoch is stale and must be dropped
+        self._fence: Dict[int, int] = {r.idx: 0 for r in self.replicas}
+        # engine requests a fenced replica still owes us a (stale)
+        # completion for: (replica idx, engine req id) -> cluster req id
+        self._stale_expected: Dict = {}
+        # idempotent handoff injection: (cluster req id, staging epoch)
+        # pairs already landed — a duplicated delivery (retry after a
+        # lost ack, chaos dup) is dropped here, never adopted twice.
+        # Staging epochs come from one cluster-wide monotonic counter,
+        # so a request that re-enters the disaggregated path after a
+        # degrade can never collide with its own past key
+        self._injected: set = set()
+        self._stage_seq = 0
+        # mid-flight adoption audit trail (what the analysis plane's
+        # unfenced-handoff rule reads)
+        self._adoptions: List[Dict[str, Any]] = []
+        # cluster-plane protocol events (req.queued/stage/shed/finish,
+        # fence.bump/complete/stale_drop) for the analysis event
+        # stream — the control-plane half the engine logs can't see
+        self.protocol_log: List[Dict[str, Any]] = []
+        # reset-robust per-replica counter accumulation (see
+        # metrics_summary): replica -> counter -> (base, last_seen)
+        self._counter_acc: Dict[int, Dict[str, List[float]]] = \
+            {r.idx: {} for r in self.replicas}
+        m = metrics
+        self.counters = {k: make_instrument("counter", k, m) for k in
+                         ("requests_completed", "reroutes", "handoffs",
+                          "routed",
+                          # failure plane
+                          "replica_deaths", "handoff_retries",
+                          "handoffs_restaged", "requests_shed",
+                          "stale_completions_dropped",
+                          "duplicate_deliveries_dropped", "readmits",
+                          # SLO traffic plane: per-class sheds, the
+                          # inversion detector (a shed that favored a
+                          # lower class: 0 by construction), autoscaler
+                          # actions
+                          *(f"shed_{c}" for c in SLO_CLASSES),
+                          "class_inversions", "scale_ups",
+                          "scale_downs",
+                          # drain completions deferred because a
+                          # chaos-delayed handoff was still in flight
+                          # TO the draining replica
+                          "drains_deferred_inflight")}
+        self.histograms = {k: make_instrument("histogram", k, m) for k in
+                           ("ttft", "tbt", "request_latency",
+                            # per-class latency tails: the SLO targets
+                            # are per class, so the evidence must be too
+                            *(f"ttft_{c}" for c in SLO_CLASSES),
+                            *(f"tbt_{c}" for c in SLO_CLASSES))}
+        self.gauges = {"replicas_active":
+                       make_instrument("gauge", "replicas_active", m)}
+
+    # -- tracer --------------------------------------------------------------
+
+    @property
+    def tracer(self):
+        return self._tracer if self._tracer is not None else get_tracer()
+
+    # -- submission ----------------------------------------------------------
+
+    def add_request(self, prompt_ids: Sequence[int], max_new_tokens: int,
+                    temperature: float = 0.0, top_k: int = 0,
+                    top_p: float = 0.0, seed: int = 0,
+                    eos_token_id: Optional[int] = None,
+                    arrival_time: Optional[float] = None,
+                    slo_class: str = "standard") -> ClusterRequest:
+        prompt = [int(t) for t in prompt_ids]
+        if not prompt:
+            raise ValueError("empty prompt")
+        class_rank(slo_class)          # validate at the front door
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        # fail at the front door, not on a replica mid-route: every
+        # replica shares the same engine configuration, so one pool
+        # speaks for the fleet (the engines re-check at submission)
+        pool = self.replicas[0].engine.pool
+        total = len(prompt) + int(max_new_tokens)
+        if total > self.replicas[0].engine.max_model_len:
+            raise ValueError(
+                f"prompt+max_new_tokens = {total} exceeds max_model_len "
+                f"{self.replicas[0].engine.max_model_len}")
+        if pool.pages_for(total) > pool.num_usable:
+            raise ValueError(
+                f"request needs {pool.pages_for(total)} pages; each "
+                f"replica pool has {pool.num_usable} — it could never "
+                f"run anywhere")
+        now = self._time()
+        creq = ClusterRequest(
+            req_id=self._next_id, prompt=prompt,
+            max_new_tokens=int(max_new_tokens),
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p), seed=int(seed),
+            eos_token_id=eos_token_id,
+            arrival_time=now if arrival_time is None
+            else float(arrival_time), slo_class=slo_class)
+        creq.submit_time = max(now, creq.arrival_time)
+        self._next_id += 1
+        self.requests[creq.req_id] = creq
+        if self.max_backlog is not None \
+                and len(self._backlog) >= self.max_backlog:
+            # bounded backlog: graceful degradation instead of
+            # unbounded queue growth — the rejection is retriable.
+            # Class-aware: an arrival that STRICTLY outranks the
+            # worst queued entry displaces it (batch sheds before
+            # interactive is turned away); same-class pressure keeps
+            # the old shed-the-arrival FIFO behavior
+            victim = self._backlog.shed_candidate()
+            if victim is not None and victim.rank > creq.rank:
+                self._backlog.remove(victim)
+                self._shed(victim, "displaced", now)
+            else:
+                self._shed(creq, "backlog_full", now)
+                return creq
+        self._backlog.push(creq)
+        self.protocol_log.append({"ev": "req.queued",
+                                  "key": f"creq:{creq.req_id}",
+                                  "seq": protocol_seq()})
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("enqueue", track="router", ts=creq.submit_time,
+                       req=creq.req_id, prompt_tokens=len(prompt),
+                       slo_class=creq.slo_class,
+                       backlog=len(self._backlog))
+        return creq
+
+    def _shed(self, creq: ClusterRequest, reason: str,
+              now: float) -> None:
+        """Load shedding: mark ``creq`` terminally rejected (retriable
+        — the caller may resubmit) and count it.  Sheds only ever
+        happen at the front door (bounded backlog) or once the whole
+        live fleet has backpressured the request past its deadline."""
+        creq.rejected = True
+        creq.reject_reason = reason
+        creq.finish_time = now
+        self.shed[creq.req_id] = creq
+        self.protocol_log.append({"ev": "req.shed",
+                                  "key": f"creq:{creq.req_id}",
+                                  "seq": protocol_seq()})
+        self.counters["requests_shed"].inc()
+        self.counters[f"shed_{creq.slo_class}"].inc()
+        # inversion detector: shedding this class while a LOWER class
+        # sits in the backlog equally sheddable means the shed policy
+        # inverted the SLO order — by construction (shed_candidate /
+        # expired_head scan lowest-class-first) this never fires, and
+        # the tests hold the counter at 0
+        for _arr, _rid, q in self._backlog:
+            if q.rank <= creq.rank:
+                continue
+            if reason != "backpressured_past_deadline" \
+                    or (self.request_deadline is not None
+                        and q.arrival_time <= now
+                        and now - q.submit_time > self.request_deadline):
+                self.counters["class_inversions"].inc()
+                break
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("shed", track="router", ts=now, req=creq.req_id,
+                       reason=reason, retriable=True,
+                       slo_class=creq.slo_class,
+                       backlog=len(self._backlog))
+
+    # -- loop ----------------------------------------------------------------
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._backlog) or bool(self._pending_handoffs) \
+            or any(r.alive and r.engine.has_work for r in self.replicas)
+
+    def step(self) -> int:
+        """One cluster iteration: inject due chaos, health check
+        (re-route the dead replicas' work), route ready backlog, land
+        pending handoffs, step every serving engine.  Returns tokens
+        emitted this step (stale tokens from fenced replicas are
+        excluded — a zombie's engine still steps, exactly like a real
+        partitioned process, but its output is quarantined)."""
+        now = self._time()
+        if self.chaos is not None:
+            self.chaos.on_step(self, self.steps, now)
+        self._check_health()
+        if self.autoscaler is not None:
+            # after the health sweep: the controller must see death
+            # verdicts (a drain target that died mid-drain is already
+            # handled capacity, not a second kill)
+            self.autoscaler.on_step(self, self.steps, now)
+        self.gauges["replicas_active"].set(
+            sum(1 for r in self.replicas
+                if r.alive and r.serving and not r.draining))
+        self._sync_counters()
+        self._route_ready(now)
+        self._process_handoffs(now)
+        produced = 0
+        for r in self.replicas:
+            if not r.serving or not r.engine.has_work:
+                continue
+            if r.slow_until > self.steps:
+                continue               # straggler: this beat is skipped
+            out = r.engine.step()
+            if r.alive:
+                produced += out
+        self._collect_finished()
+        self.steps += 1
+        return produced
+
+    def run(self, max_steps: Optional[int] = None
+            ) -> Dict[int, List[int]]:
+        while self.has_work:
+            if max_steps is not None and self.steps >= max_steps:
+                break
+            if not any(r.alive for r in self.replicas):
+                raise RuntimeError("no live replicas but work remains")
+            self.step()
+        return {rid: list(c.out_tokens)
+                for rid, c in self.finished.items()}
+
+    # -- health / re-route ---------------------------------------------------
+
+    def _check_health(self) -> None:
+        dead_ranks: set = set()
+        if self.server is not None:
+            dead_ranks = set(self.server.dead_ranks())
+        for r in self.replicas:
+            if r.idx in self._dead_handled:
+                continue
+            # with a coordinator, death is DECLARED only by missed
+            # heartbeats past the TTL (the replica may have stopped
+            # serving well before the verdict lands — exactly a real
+            # crash); without one, the stopped process is its own proof
+            died = (r.rank is not None and r.rank in dead_ranks) \
+                or (self.server is None and not r.serving) \
+                or (not r.alive)
+            if not died:
+                continue
+            r.alive = False
+            self._dead_handled.add(r.idx)
+            # fence the epoch: anything this replica delivers from here
+            # on (it may be a zombie still stepping) is stale
+            self._fence[r.idx] += 1
+            self.protocol_log.append({"ev": "fence.bump",
+                                      "key": f"r{r.idx}",
+                                      "epoch": self._fence[r.idx],
+                                      "seq": protocol_seq()})
+            self.counters["replica_deaths"].inc()
+            tr = self.tracer
+            if tr.enabled:
+                tr.instant("replica_dead", track="router",
+                           ts=self._time(), replica=r.idx,
+                           fence_epoch=self._fence[r.idx],
+                           zombie=bool(r.serving))
+            for key in [k for k in self._placed if k[0] == r.idx]:
+                creq, _stage, _epoch = self._placed.pop(key)
+                # the fenced engine may still finish this request: owe
+                # it a stale-completion drop, never a second finish
+                self._stale_expected[key] = creq.req_id
+                if creq.done or creq.handoff_pending:
+                    # a staged handoff survives its source's death: the
+                    # pages are already extracted host-side
+                    continue
+                self.router.note_reroute(creq, r.idx)
+                creq.n_reroutes += 1
+                creq.replica = None
+                creq.stage = ""
+                creq.token_times = []
+                self.counters["reroutes"].inc()
+                self._backlog.push(creq)
+
+    # -- routing -------------------------------------------------------------
+
+    def _prefill_pool(self) -> List[Replica]:
+        if self.mode == "disaggregated":
+            pre = [r for r in self.replicas
+                   if r.role == PREFILL and r.alive]
+            if pre:
+                return pre
+            # every prefill replica died: the survivors serve requests
+            # end-to-end (monolithic degradation beats a dead cluster)
+        return list(self.replicas)
+
+    def _route_ready(self, now: float) -> None:
+        while True:
+            # rank-major head: an arrived interactive request always
+            # routes before an arrived batch one (FIFO within a class)
+            creq = self._backlog.peek_ready(now)
+            if creq is None:
+                break
+            rep = self.router.place(creq, self._prefill_pool())
+            if rep is None:
+                # whole fleet backpressured (placement failure is
+                # fleet-wide, not request-specific — a lower class
+                # could not place either).  Past the deadline requests
+                # shed lowest-class-first (batch before interactive),
+                # bounded wait, graceful degradation
+                victim = self._backlog.expired_head(
+                    now, self.request_deadline)
+                if victim is not None:
+                    self._backlog.remove(victim)
+                    self._shed(victim, "backpressured_past_deadline",
+                               now)
+                    continue
+                break
+            self._backlog.remove(creq)
+            self._submit(creq, rep, now)
+
+    def _submit(self, creq: ClusterRequest, rep: Replica,
+                now: float) -> None:
+        # a prefill stage only makes sense while a decode replica is
+        # alive to adopt the handoff — otherwise the placed replica
+        # serves the request end-to-end (so a dead decode fleet can't
+        # trap requests in a prefill→handoff→requeue loop)
+        has_decode = any(r.role == DECODE and r.alive
+                         for r in self.replicas)
+        stage = "prefill" if (self.mode == "disaggregated"
+                              and rep.role == PREFILL and has_decode
+                              and creq.max_new_tokens > 1) else "final"
+        mnt = 1 if stage == "prefill" else creq.max_new_tokens
+        epoch = self._fence[rep.idx]
+
+        def cb(ereq, tok, creq=creq, stage=stage, ridx=rep.idx,
+               epoch=epoch):
+            if self._fence[ridx] != epoch:
+                return         # fenced epoch: stale stream token
+            creq.token_times.append(self._time())
+            if stage == "prefill":
+                if creq.eos_token_id is not None \
+                        and int(tok) == creq.eos_token_id:
+                    return     # eos on the first token: no decode stage
+                self._stage_handoff(creq, ereq, ridx, int(tok))
+
+        ereq = rep.engine.add_request(
+            creq.prompt, mnt, temperature=creq.temperature,
+            top_k=creq.top_k, top_p=creq.top_p, seed=creq.seed,
+            eos_token_id=creq.eos_token_id, arrival_time=now,
+            stream_cb=cb, slo_class=creq.slo_class)
+        creq.replica = rep.idx
+        creq.stage = stage
+        if stage == "prefill":
+            creq.prefill_replica = rep.idx
+        self._placed[(rep.idx, ereq.req_id)] = (creq, stage, epoch)
+        self.counters["routed"].inc()
+
+    # -- disaggregated handoff ----------------------------------------------
+
+    def _stage_handoff(self, creq: ClusterRequest, ereq, src_idx: int,
+                       first_tok: int) -> None:
+        """Called from the prefill engine's emit path, while the pages
+        are still owned: extract them NOW (the engine retires them into
+        its prefix cache at finish), queue the injection."""
+        pool = self.replicas[src_idx].engine.pool
+        n = pool.pages_for(ereq.pos)
+        staged = self.transport.extract(pool, ereq.pages[:n])
+        creq.handoff_pending = True
+        epoch = self._next_stage_epoch()
+        self.protocol_log.append({"ev": "req.stage",
+                                  "key": f"creq:{creq.req_id}",
+                                  "epoch": epoch,
+                                  "seq": protocol_seq()})
+        self._pending_handoffs.append(
+            {"creq": creq, "staged": staged, "src": src_idx,
+             "first": int(first_tok), "pos": int(ereq.pos),
+             # recovery state: capped-exp backoff attempts, the staging
+             # epoch (fresh on every (re-)stage — the idempotency key's
+             # second half), and the in-flight pin (set while a delayed
+             # transfer has a destination + pages reserved)
+             "attempt": 0, "not_before": float("-inf"),
+             "epoch": epoch,
+             "dst": None, "dst_pages": None, "lands_at": None,
+             "redelivery": False})
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("handoff_staged", track="router",
+                       ts=self._time(), req=creq.req_id, src=src_idx,
+                       pages=int(staged["n_pages"]),
+                       payload_bytes=int(staged["payload_bytes"]))
+
+    def _next_stage_epoch(self) -> int:
+        self._stage_seq += 1
+        return self._stage_seq
+
+    def _retry_handoff(self, h: Dict[str, Any], now: float,
+                       still: List[Dict[str, Any]]) -> None:
+        """Schedule the next attempt: capped-exponential backoff with
+        deterministic per-request jitter (no bare spin retry)."""
+        self.counters["handoff_retries"].inc()
+        delay = self.retry.delay(h["attempt"], key=h["creq"].req_id)
+        h["attempt"] += 1
+        h["not_before"] = now + delay
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("handoff_retry", track="router", ts=now,
+                       req=h["creq"].req_id, attempt=h["attempt"],
+                       next_in=delay)
+        still.append(h)
+
+    def _degrade_to_local(self, creq: ClusterRequest, reason: str,
+                          now: float) -> None:
+        """Give up on the disaggregated path for this request: replay
+        it end-to-end on whatever still lives (the backlog router
+        decides — monolithic serving beats a trapped request)."""
+        creq.handoff_pending = False
+        creq.token_times = []
+        creq.n_reroutes += 1
+        self.counters["reroutes"].inc()
+        self._backlog.push(creq)
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("handoff_degraded", track="router", ts=now,
+                       req=creq.req_id, reason=reason)
+
+    def _process_handoffs(self, now: float) -> None:
+        still: List[Dict[str, Any]] = []
+        for h in self._pending_handoffs:
+            creq: ClusterRequest = h["creq"]
+            key = (creq.req_id, h["epoch"])
+            # idempotent injection: this (request, staging epoch) has
+            # already landed — a retried delivery whose ack was lost,
+            # or a chaos-duplicated packet.  Drop, never adopt twice.
+            if key in self._injected:
+                self.counters["duplicate_deliveries_dropped"].inc()
+                tr = self.tracer
+                if tr.enabled:
+                    tr.instant("duplicate_dropped", track="router",
+                               ts=now, req=creq.req_id,
+                               epoch=h["epoch"])
+                continue
+            if creq.done:
+                continue               # finished through another path
+            # -- in-flight (delayed) transfer: the destination is
+            # pinned and may die mid-transfer
+            if h["dst"] is not None:
+                dst = self.replicas[h["dst"]]
+                if not dst.alive:
+                    # destination died mid-transfer: re-stage to a
+                    # survivor.  The staged bytes are host-side, so the
+                    # transfer restarts under a NEW staging epoch (the
+                    # fence against the old delivery surfacing late).
+                    # The reserved pages go back to the dead pool's
+                    # free list — host bookkeeping, and a later
+                    # readmission must not inherit leaked pages
+                    if h["dst_pages"] is not None:
+                        dst.engine.pool.free(h["dst_pages"])
+                    h["epoch"] = self._next_stage_epoch()
+                    h["dst"] = None
+                    h["dst_pages"] = None
+                    h["lands_at"] = None
+                    h["attempt"] = 0
+                    h["not_before"] = float("-inf")
+                    self.counters["handoffs_restaged"].inc()
+                    tr = self.tracer
+                    if tr.enabled:
+                        tr.instant("handoff_restaged", track="router",
+                                   ts=now, req=creq.req_id,
+                                   dead_dst=dst.idx, epoch=h["epoch"])
+                elif now < h["lands_at"]:
+                    still.append(h)    # still on the wire
+                    continue
+                else:
+                    self._land_handoff(h, dst, h["dst_pages"], now)
+                    continue
+            # -- fresh attempt (possibly right after a re-stage)
+            if now < h["not_before"]:
+                still.append(h)        # backing off
+                continue
+            decode = [r for r in self.replicas
+                      if r.role == DECODE and r.alive]
+            if not decode:
+                # every decode replica died: degrade to monolithic
+                self._degrade_to_local(creq, "decode_fleet_empty", now)
+                continue
+            cands = self.router.candidates(decode)
+            if not cands:
+                # live decode fleet, all backpressured: bounded retry
+                if self.request_deadline is not None \
+                        and now - creq.submit_time > self.request_deadline:
+                    self._degrade_to_local(
+                        creq, "backpressured_past_deadline", now)
+                    continue
+                self._retry_handoff(h, now, still)
+                continue
+            rep = min(cands, key=lambda r: (r.outstanding_tokens(),
+                                            r.idx))
+            pool = rep.engine.pool
+            n = pool.pages_for(h["pos"])
+            pages = None
+            if n <= pool.num_usable:
+                pages = pool.alloc(n)
+                if pages is None:
+                    self._retry_handoff(h, now, still)  # pool full
+                    continue
+            # chaos seam: the wire's verdict for this attempt
+            verdict, vdur = ("ok", 0.0)
+            if self.chaos is not None and not h["redelivery"]:
+                verdict, vdur = self.chaos.handoff_verdict()
+            if verdict == "drop":
+                # the wire ate it: the staged copy is still host-side,
+                # release the reserved pages and back off
+                if pages is not None:
+                    pool.free(pages)
+                self._retry_handoff(h, now, still)
+                continue
+            if verdict == "delay":
+                # in flight: destination + pages pinned until it lands
+                h["dst"] = rep.idx
+                h["dst_pages"] = pages
+                h["lands_at"] = now + max(vdur, 0.0)
+                still.append(h)
+                continue
+            self._land_handoff(h, rep, pages, now)
+            if verdict == "dup":
+                # delivered but the ack was lost: the sender re-sends.
+                # The redelivery must hit the (req_id, epoch) dedup and
+                # be dropped — never adopted twice
+                dup = dict(h, redelivery=True, dst=None,
+                           dst_pages=None, lands_at=None)
+                still.append(dup)
+        self._pending_handoffs = still
+
+    def _land_handoff(self, h: Dict[str, Any], rep: Replica,
+                      pages, now: float) -> None:
+        """Inject the staged pages and ADOPT the request mid-flight on
+        ``rep`` — the single place a handoff becomes engine state, and
+        the single place the ``(request id, epoch)`` idempotency key is
+        written."""
+        creq: ClusterRequest = h["creq"]
+        pool = rep.engine.pool
+        if pages is not None:
+            rec = self.transport.inject(
+                pool, h["staged"], pages, src_replica=h["src"],
+                dst_replica=rep.idx, epoch=h["epoch"])
+            self.counters["handoffs"].inc()
+            tr = self.tracer
+            if tr.enabled:
+                tr.instant("handoff", track="router", ts=now,
+                           req=creq.req_id, src=h["src"],
+                           dst=rep.idx, pages=rec["pages"],
+                           payload_bytes=rec["payload_bytes"],
+                           predicted_wire_s=rec["predicted_s"],
+                           epoch=h["epoch"])
+            pos = h["pos"]
+        else:
+            # pages can NEVER fit this decode pool: degrade to a
+            # full re-prefill on the decode replica (correct, just
+            # not disaggregated for this one request)
+            pos = 0
+        fence = self._fence[rep.idx]
+        ereq = rep.engine.adopt_request(
+            creq.prompt, [h["first"]], creq.max_new_tokens,
+            pages=pages, pos=pos, temperature=creq.temperature,
+            top_k=creq.top_k, top_p=creq.top_p, seed=creq.seed,
+            eos_token_id=creq.eos_token_id, arrival_time=now,
+            stream_cb=self._final_cb(creq, rep.idx, fence),
+            slo_class=creq.slo_class)
+        self._injected.add((creq.req_id, h["epoch"]))
+        self._adoptions.append({"req_id": creq.req_id,
+                                "epoch": h["epoch"], "dst": rep.idx,
+                                "fence_epoch": fence,
+                                "seq": protocol_seq()})
+        creq.handoff_pending = False
+        creq.replica = rep.idx
+        creq.stage = "final"
+        self._placed[(rep.idx, ereq.req_id)] = (creq, "final", fence)
+
+    def _final_cb(self, creq: ClusterRequest, ridx: int, epoch: int):
+        def cb(ereq, tok, creq=creq, ridx=ridx, epoch=epoch):
+            if self._fence[ridx] != epoch:
+                return         # fenced epoch: stale stream token
+            creq.token_times.append(self._time())
+        return cb
+
+    # -- finish collection ---------------------------------------------------
+
+    def _collect_finished(self) -> None:
+        for r in self.replicas:
+            if not (r.alive or r.serving):
+                continue       # fully dead process: nothing new appears
+            for erid, ereq in list(r.engine.finished.items()):
+                ent = self._placed.pop((r.idx, erid), None)
+                if ent is None:
+                    # a fenced epoch's completion surfacing late (the
+                    # zombie kept stepping): drop it — the re-routed
+                    # copy owns the finish.  Anything else is simply
+                    # not cluster-placed (direct engine use)
+                    if self._stale_expected.pop((r.idx, erid),
+                                                None) is not None:
+                        del r.engine.finished[erid]
+                        self._drop_stale(r.idx, erid)
+                    continue
+                # collected: drain it from the engine so this scan
+                # stays O(new finishes), not O(requests ever served)
+                del r.engine.finished[erid]
+                creq, stage, epoch = ent
+                if epoch != self._fence[r.idx]:
+                    # belt-and-braces: a placement from a fenced epoch
+                    # that somehow survived the death sweep
+                    self._drop_stale(r.idx, erid)
+                    continue
+                if stage == "prefill" and creq.handoff_pending:
+                    # the decode stage owns the finish (staging always
+                    # precedes the prefill finish: the stream callback
+                    # runs inside the emit, before _maybe_finish)
+                    continue
+                if creq.done:
+                    # already completed elsewhere: never finish twice
+                    self._drop_stale(r.idx, erid)
+                    continue
+                # prefill stage without a staged handoff = eos on the
+                # first sampled token: the request IS complete
+                self._finish(creq, ereq)
+
+    def _drop_stale(self, ridx: int, erid: int) -> None:
+        self.protocol_log.append({"ev": "fence.stale_drop",
+                                  "key": f"r{ridx}",
+                                  "epoch": self._fence[ridx],
+                                  "seq": protocol_seq()})
+        self.counters["stale_completions_dropped"].inc()
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("stale_completion_dropped", track="router",
+                       ts=self._time(), replica=ridx, engine_req=erid,
+                       fence_epoch=self._fence[ridx])
+
+    def _finish(self, creq: ClusterRequest, ereq) -> None:
+        creq.out_tokens = list(ereq.out_tokens)
+        creq.finish_time = self._time()
+        self.finished[creq.req_id] = creq
+        if creq.replica is not None:
+            # the completion was accepted under the replica's CURRENT
+            # fence (_collect_finished dropped it otherwise) — record
+            # the acceptance so the fence machine can audit it
+            self.protocol_log.append(
+                {"ev": "fence.complete", "key": f"r{creq.replica}",
+                 "epoch": self._fence.get(creq.replica),
+                 "replica": f"r{creq.replica}",
+                 "seq": protocol_seq()})
+        self.protocol_log.append({"ev": "req.finish",
+                                  "key": f"creq:{creq.req_id}",
+                                  "seq": protocol_seq()})
+        self.counters["requests_completed"].inc()
+        if creq.token_times:
+            ttft = creq.token_times[0] - creq.submit_time
+            self.histograms["ttft"].observe(ttft)
+            self.histograms[f"ttft_{creq.slo_class}"].observe(ttft)
+            for a, b in zip(creq.token_times, creq.token_times[1:]):
+                self.histograms["tbt"].observe(b - a)
+                self.histograms[f"tbt_{creq.slo_class}"].observe(b - a)
+        self.histograms["request_latency"].observe(
+            creq.finish_time - creq.submit_time)
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("finish", track="router", ts=creq.finish_time,
+                       req=creq.req_id, replica=creq.replica,
+                       new_tokens=len(creq.out_tokens),
+                       reroutes=creq.n_reroutes)
+
+    # -- replica management --------------------------------------------------
+
+    def kill_replica(self, idx: int) -> None:
+        """Simulate (or administratively force) a replica death: stops
+        its heartbeat and serving immediately; the next :meth:`step`
+        re-routes its unfinished requests."""
+        self.replicas[idx].kill()
+
+    def readmit_replica(self, idx: int) -> None:
+        """Explicitly re-admit a quarantined replica.  Quarantine is
+        sticky by design: a TTL-expired replica that resumes
+        heartbeating must NOT race its own replacement back into the
+        candidate set — its fence epoch already advanced and its
+        in-flight work was re-routed.  Re-admission aborts whatever
+        stale engine state it still holds (pages freed, shared refs
+        released, nothing collected), drains its stale finished set,
+        restarts heartbeats, and only THEN clears the verdict; new
+        placements are stamped with the current (post-death) epoch, so
+        nothing it delivered from the fenced past can ever land."""
+        r = self.replicas[idx]
+        if r.alive:
+            return
+        for erid in r.engine.abort_all():
+            self._stale_expected.pop((idx, erid), None)
+        for erid in list(r.engine.finished):
+            if self._stale_expected.pop((idx, erid), None) is not None:
+                del r.engine.finished[erid]
+                self._drop_stale(idx, erid)
+        r.resurrect()
+        self._dead_handled.discard(idx)
+        self.counters["readmits"].inc()
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("replica_readmitted", track="router",
+                       ts=self._time(), replica=idx,
+                       fence_epoch=self._fence[idx])
+
+    def close(self) -> None:
+        for r in self.replicas:
+            r.close()
+        if self.server is not None:
+            self.server.stop()
+
+    def __enter__(self) -> "EngineCluster":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- aggregate metrics ---------------------------------------------------
+
+    def _replica_counter_total(self, r: Replica, key: str) -> float:
+        """Cumulative counter across the replica's resets: a current
+        value SMALLER than the last-seen one means ``reset_metrics``
+        ran — bank the last-seen total and keep counting, so the
+        cluster sum never double-counts nor loses a reset epoch.
+        :meth:`step` snapshots every counter BEFORE the engines run
+        (``_sync_counters``), so the monotonicity test can only miss a
+        reset raced by same-step regrowth — and counters only grow
+        inside the step, after the snapshot."""
+        cur = float(r.engine.counters[key].value)
+        acc = self._counter_acc[r.idx].setdefault(key, [0.0, 0.0])
+        if cur < acc[1]:
+            acc[0] += acc[1]
+        acc[1] = cur
+        return acc[0] + cur
+
+    def _sync_counters(self) -> None:
+        for r in self.replicas:
+            for key in r.engine.counters:
+                self._replica_counter_total(r, key)
+
+    def metrics_summary(self) -> Dict[str, Any]:
+        """Cluster-wide rollup: replica counters SUMMED (reset-robust),
+        cluster-level latency histograms, per-replica hit rates."""
+        out: Dict[str, Any] = {}
+        counter_keys = list(self.replicas[0].engine.counters)
+        for key in counter_keys:
+            out[key] = sum(self._replica_counter_total(r, key)
+                           for r in self.replicas)
+        hits = out.get("prefix_cache_hits", 0.0)
+        miss = out.get("prefix_cache_misses", 0.0)
+        out["prefix_cache_hit_rate"] = hits / max(hits + miss, 1.0)
+        for k, c in self.counters.items():
+            out[f"cluster_{k}"] = c.value
+        # failure-plane counters under their own names too (for
+        # dashboards): requests_rerouted is the reroutes counter
+        for k in ("replica_deaths", "handoff_retries",
+                  "handoffs_restaged", "requests_shed",
+                  "stale_completions_dropped",
+                  "duplicate_deliveries_dropped", "readmits",
+                  # SLO traffic plane
+                  *(f"shed_{c}" for c in SLO_CLASSES),
+                  "class_inversions", "scale_ups", "scale_downs"):
+            out[k] = self.counters[k].value
+        out["requests_rerouted"] = self.counters["reroutes"].value
+        out["replicas_active"] = self.gauges["replicas_active"].value
+        for k, h in self.histograms.items():
+            out[k] = h.summary()
+        out["replicas"] = len(self.replicas)
+        out["alive_replicas"] = sum(1 for r in self.replicas if r.alive)
+        out["backlog"] = len(self._backlog)
+        out["backlog_by_class"] = self._backlog.depth_by_class()
+        out["pending_handoffs"] = len(self._pending_handoffs)
+        out["shed"] = len(self.shed)
+        out["per_replica"] = {
+            f"r{r.idx}": {
+                "alive": r.alive, "role": r.role,
+                "queue_depth": r.queue_depth(),
+                "outstanding_tokens": r.outstanding_tokens(),
+                "cached_pages": r.engine.pool.cached_pages,
+                "prefix_cache_hit_rate":
+                    r.engine.metrics_summary()["prefix_cache_hit_rate"],
+            } for r in self.replicas}
+        out["handoff_payload_bytes"] = getattr(
+            self.transport, "total_payload_bytes", 0)
+        out["handoff_predicted_s"] = getattr(
+            self.transport, "total_predicted_s", 0.0)
+        return out
+
+    def metrics_text(self) -> str:
+        """One Prometheus exposition for the fleet: every replica's
+        ``Engine.metrics_text()`` merged under a ``replica`` label
+        (``utils.metrics.merge_prometheus_texts``), plus the cluster's
+        own counters (routing, handoffs, and the failure plane —
+        replica_deaths / handoff_retries / handoffs_restaged /
+        requests_shed / stale_completions_dropped) and latency
+        histograms under ``replica="router"``."""
+        insts: Dict[str, Any] = {}
+        insts.update(self.counters)
+        insts.update(self.histograms)
+        insts.update(self.gauges)
+        texts = {f"r{r.idx}": r.engine.metrics_text()
+                 for r in self.replicas}
+        texts["router"] = render_prometheus(insts)
+        return merge_prometheus_texts(texts, label="replica")

@@ -1,0 +1,165 @@
+"""Prefix-aware request router over N engine replicas (port of
+``hetu_tpu.serving.cluster.router``, pure Python).
+
+Placement policy (the vLLM/SGLang cache-aware trick, riding the prefix
+cache's chained page hashes):
+
+1. **Longest cached prefix** — every replica exports its live prefix
+   cache as a compact content-chained digest
+   (:meth:`hetu_tpu_torch.serving.prefix_cache.PrefixCache.digest`); the
+   router hashes the candidate request's page-aligned prefixes the same
+   way (:func:`~hetu_tpu_torch.serving.prefix_cache.token_chain_hashes`) and
+   places it on the replica holding the deepest match — that replica
+   skips the matched prefill entirely (copy-on-write attach), which is
+   where the TTFT win comes from.
+2. **Least loaded** — no replica holds any prefix (or the policy is
+   ``"load"``): place on the replica with the fewest outstanding
+   tokens (remaining prefill + remaining decode over its queue and
+   running set).  Ties break on replica index for determinism.
+3. **Backpressure** — replicas at ``max_queue_depth`` (queued + running
+   requests) are not candidates; when every live replica is saturated
+   the request stays in the cluster backlog and the router re-tries
+   next step.  A ``"random"`` policy (seeded) is the baseline
+   prefix-aware routing must beat.
+
+Every placement emits a tracer instant on the ``router`` track carrying
+the decision *and its reason* (matched pages per replica, outstanding
+tokens, queue depths), so the merged Perfetto timeline shows why each
+request landed where it did next to the per-replica engine rows.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..prefix_cache import token_chain_hashes
+
+POLICIES = ("prefix", "load", "random")
+
+
+def match_pages_from_hashes(hashes: Sequence[int],
+                            digest: Dict[int, int]) -> int:
+    """How many leading FULL pages a replica digest holds, given the
+    request's precomputed chain hashes: walk page by page and stop at
+    the first miss (a deeper entry without its parent chain is a
+    different prefix — the chain property makes the early stop
+    exact)."""
+    matched = 0
+    for i, h in enumerate(hashes):
+        if digest.get(h) == i + 1:
+            matched = i + 1
+        else:
+            break
+    return matched
+
+
+def digest_match_pages(tokens: Sequence[int], page_size: int,
+                       digest: Dict[int, int],
+                       layout: Sequence[int] = ()) -> int:
+    """:func:`match_pages_from_hashes` over freshly-hashed ``tokens``
+    (the router hashes once per placement and probes every replica
+    with the same list).  ``layout`` must be the replica pool's
+    ``layout_tag`` — digests are ROOT-salted by layout, so unsalted
+    hashes never match a live digest."""
+    return match_pages_from_hashes(
+        token_chain_hashes(tokens, page_size, layout=layout), digest)
+
+
+class Router:
+    """Stateless-per-decision placement over live replicas; the cluster
+    owns the backlog and calls :meth:`place` per ready request."""
+
+    def __init__(self, policy: str = "prefix",
+                 max_queue_depth: Optional[int] = None,
+                 seed: int = 0, tracer=None, time_fn=None):
+        if policy not in POLICIES:
+            raise ValueError(f"unknown policy {policy!r}; have {POLICIES}")
+        self.policy = policy
+        self.max_queue_depth = max_queue_depth
+        self._rng = np.random.RandomState(seed)
+        self._tracer = tracer
+        self._time = time_fn or (lambda: 0.0)
+        self.decisions = 0
+
+    # -- candidate filtering -------------------------------------------------
+
+    def candidates(self, replicas: List[Any]) -> List[Any]:
+        """Live replicas with queue headroom (the backpressure gate)."""
+        out = []
+        for r in replicas:
+            if not r.alive:
+                continue
+            if getattr(r, "draining", False):
+                continue       # autoscaler drain: no new placements
+            if self.max_queue_depth is not None \
+                    and r.queue_depth() >= self.max_queue_depth:
+                continue
+            out.append(r)
+        return out
+
+    # -- placement -----------------------------------------------------------
+
+    def place(self, creq, replicas: List[Any]) -> Optional[Any]:
+        """Choose a replica for ``creq`` (a cluster request), or None
+        when every live replica is backpressured.  Emits the routing
+        decision as a ``route`` tracer instant with the full reasoning
+        payload."""
+        cands = self.candidates(replicas)
+        if not cands:
+            return None
+        matches: Dict[int, int] = {}
+        if self.policy == "random":
+            chosen = cands[int(self._rng.randint(len(cands)))]
+            reason = "random"
+        else:
+            if self.policy == "prefix":
+                # hash once per distinct (page_size, layout): a mixed
+                # fleet — latent next to full-head replicas, or mixed
+                # quantization — probes each replica with hashes salted
+                # for ITS layout, so a cross-layout digest can never
+                # produce a phantom prefix hit
+                groups: Dict[Tuple[Any, ...], List[Any]] = {}
+                for r in cands:
+                    pool = r.engine.pool
+                    groups.setdefault(
+                        (pool.page_size, pool.layout_tag), []).append(r)
+                for (page_size, tag), rs in groups.items():
+                    hashes = token_chain_hashes(creq.prompt, page_size,
+                                                layout=tag)
+                    for r in rs:
+                        matches[r.idx] = match_pages_from_hashes(
+                            hashes, r.digest())
+            best_depth = max(matches.values()) if matches else 0
+            if best_depth > 0:
+                top = [r for r in cands if matches[r.idx] == best_depth]
+                chosen = min(top, key=lambda r: (r.outstanding_tokens(),
+                                                 r.idx))
+                reason = "prefix_hit"
+            else:
+                chosen = min(cands, key=lambda r: (r.outstanding_tokens(),
+                                                   r.idx))
+                reason = "least_loaded"
+        self.decisions += 1
+        tr = self._tracer
+        if tr is not None and tr.enabled:
+            tr.instant(
+                "route", track="router", ts=self._time(),
+                req=creq.req_id, replica=chosen.idx, reason=reason,
+                matched_pages=matches.get(chosen.idx, 0),
+                prompt_tokens=len(creq.prompt),
+                per_replica_match={f"r{i}": m for i, m in matches.items()},
+                per_replica_load={f"r{r.idx}": r.outstanding_tokens()
+                                  for r in cands},
+                per_replica_queue={f"r{r.idx}": r.queue_depth()
+                                   for r in cands})
+        return chosen
+
+    def note_reroute(self, creq, dead_idx: int) -> None:
+        """Trace a death-triggered re-route: the cluster pulls the
+        request back into the backlog and the next :meth:`place` call
+        decides its new home."""
+        tr = self._tracer
+        if tr is not None and tr.enabled:
+            tr.instant("reroute", track="router", ts=self._time(),
+                       req=creq.req_id, dead_replica=dead_idx)

@@ -48,8 +48,9 @@ the port decides on the host, in two ways:
 - On the card the step is compiled (``core/capture.py``): a body of
   fixed shapes, captured in one CUDA graph per **live chunk-slot mask**
   and, in spec mode, whether the verify region is live (at most
-  ``2**prefill_rows`` graphs, ``2**(prefill_rows + 1)`` in spec mode)
-  and replayed after that.  A live chunk slot is computed at its full
+  ``2**prefill_rows`` graphs, ``2**(prefill_rows + 1)`` in spec mode),
+  for each engine's pool that the step serves, and replayed after
+  that.  A live chunk slot is computed at its full
   ``chunk`` width, as JAX's ``lax.cond`` branch is, and a live verify
   region whole, as JAX computes it unconditionally; an idle one is not
   computed and its tokens stay 0, and an idle verify region skips the
@@ -144,10 +145,15 @@ class UnifiedStep:
     ("int8" or "nf4") stores an MLA config's latents as per-token absmax
     codes.
 
-    On the card the step replays the CUDA graph of its live mask
-    (captured at the first step with that mask, bound to the params and
-    pages of the first call); the returned tensors are the graph's
-    outputs, which the next step overwrites.  ``fixed`` runs the same
+    On the card the step replays the CUDA graph of its binding and live
+    mask, captured at the first step with that pair; the returned
+    tensors are the graph's outputs, which the next step of that graph
+    overwrites.  A binding is the params and page tensors of a call (by
+    identity): identically shaped engines (cluster replicas) share one
+    step object, with its static buffers, rotary tables and body, and
+    each engine's pool gets its own graphs.  All the graphs share one
+    memory pool and one side stream, and replay one at a time, so N
+    replicas do not reserve N activation pools.  ``fixed`` runs the same
     fixed-shape body eagerly on any device.
     """
 
@@ -167,6 +173,9 @@ class UnifiedStep:
         self.cfg, self.page_quant = cfg, page_quant
         self.max_seqs, self.chunk, self.spec_k = max_seqs, chunk, spec_k
         self.device = resolve_device(device)
+        # what an engine sharing this step must match
+        self.layout = (cfg, max_seqs, chunk, prefill_rows, max_pages,
+                       page_size, page_quant, spec_k, self.device)
         # a verify row is attended whole even when wider than a chunk
         self.max_q = max(chunk, spec_k + 1)
         verify_rows = max_seqs if spec_k else 0
@@ -206,7 +215,8 @@ class UnifiedStep:
             off += n
         self._copied = None           # the event after the last upload
         self._graphs = capture.StepCache("unified serving step")
-        self._bound = None
+        # the bindings seen so far: (params, k_pages, v_pages)
+        self._bindings = []
 
     # -- host packing ----------------------------------------------------
 
@@ -455,23 +465,35 @@ class UnifiedStep:
                 verify=bool(self.spec_k and np.any(q_lens[self._v0:])))
         if capture.is_eager():
             return self.fixed(params, *arrays)
-        if self._bound is None:
-            self._bound = (params, k_pages, v_pages)
-        elif not all(a is b for a, b in zip(self._bound,
-                                            (params, k_pages, v_pages))):
-            raise ValueError("the captured unified step is bound to the "
-                             "params and pages of its first call")
+        bound = self._binding(params, k_pages, v_pages)
         self._pack(*meta)
         live = self._live(q_lens)
-        step = self._graphs.get(live, lambda: self._body(
+        step = self._graphs.get((bound, live), lambda: self._body(
             params, k_pages, v_pages, live))
         return step()
 
+    def _binding(self, params, k_pages, v_pages) -> int:
+        """The index of the binding ``(params, k_pages, v_pages)``, by
+        identity, added at its first call."""
+        for i, b in enumerate(self._bindings):
+            if b[0] is params and b[1] is k_pages and b[2] is v_pages:
+                return i
+        self._bindings.append((params, k_pages, v_pages))
+        return len(self._bindings) - 1
+
+    def graphs_for(self, k_pages) -> int:
+        """Graphs captured for the pool whose per-layer k page tensors
+        are ``k_pages`` (one engine's share of the step's graphs)."""
+        ids = {i for i, b in enumerate(self._bindings) if b[1] is k_pages}
+        return sum(s.captured for (i, _), s in self._graphs.steps.items()
+                   if i in ids)
+
     @property
     def compile_count(self) -> int:
-        """Graphs captured on the card (at most ``2**prefill_rows``, one a
-        live chunk-slot mask; ``2**(prefill_rows + 1)`` in spec mode); 1
-        on the CPU, where the step is not compiled."""
+        """Graphs captured on the card over every binding (at most
+        ``2**prefill_rows`` a binding, one a live chunk-slot mask;
+        ``2**(prefill_rows + 1)`` in spec mode); 1 on the CPU, where the
+        step is not compiled."""
         if self.device.type == "cpu":
             return 1
         return self._graphs.captured

@@ -45,10 +45,24 @@ The tensors' device picks the attention: the kernels on the card, their
 plain versions on the CPU.  ``use_kernel`` may be left out, or name what
 the device runs (``True`` on the card, ``False`` on the CPU); any other
 value raises ``ValueError``, so no option sends the card to the plain
-version or asks the CPU for a kernel it has not got.  The host
-KV tier, meshes, a shared ``step_fn``, the tracer and the analysis tap
-come with later slices of the port (ROADMAP queue 1 items 9-18); the
-options that select them raise ``NotImplementedError`` naming the item.
+version or asks the CPU for a kernel it has not got.
+
+``step_fn`` lets identically shaped engines (cluster replicas) share ONE
+built step (``decode.UnifiedStep``): its static buffers and body, and on
+the card one graph memory pool, each engine's pool replaying graphs of
+its own (``compile_count`` counts this engine's).  ``host_tier`` (a
+``serving.slo.HostTier``, ``True`` or a page capacity) stages evicted
+cached pages to host RAM and refetches them, priced, when a prompt
+chains onto them.  Under a tracer (``tracer=`` or the ambient one of
+``obs.install_tracer``) every request gets a lifecycle timeline on its
+own track (``enqueue``/``adopt``, ``queued``/``running`` segments that
+tile submit to finish across preemptions, ``admit``,
+``prefix_cache_hit``, ``prefill_chunk`` spans, ``token`` instants,
+``preempt``, ``finish``), beside the scheduler's ``pack`` decision and a
+``unified_step`` span per call, under the JAX engine's names.  Meshes and
+the analysis tap come with later slices of the port (ROADMAP queue 1
+items 10-14 and 18); the options that select them raise
+``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -61,8 +75,9 @@ from ..core.device import resolve_device
 from ..core.dtype import torch_dtype
 from ..models.generate import _Params
 from ..models.gpt import GPTConfig, check_serving_config
+from ..obs.tracer import get_tracer
 from ..utils.metrics import make_instrument, render_prometheus
-from .decode import build_unified_step_fn
+from .decode import UnifiedStep, build_unified_step_fn
 from .kv_pool import TRASH_PAGE, PagedKVPool
 from .prefix_cache import PrefixCache
 from .request import FINISHED, RUNNING, Request, RequestQueue
@@ -75,14 +90,8 @@ DEFAULT_LATENCY_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
 
 # options of later slices: what each selects, and its ROADMAP item
 _LATER_SLICES = {
-    "host_tier": "the host KV tier comes with the SLO traffic plane "
-                 "(ROADMAP queue 1 item 9)",
     "mesh": "a sharded KV pool comes with the multi-GPU mesh (ROADMAP "
             "queue 1 items 10-14)",
-    "step_fn": "replicas sharing one compiled step come with the cluster "
-               "plane (ROADMAP queue 1 item 9)",
-    "tracer": "the engine's tracer comes with the runtime planes "
-              "(ROADMAP queue 1 item 15)",
     "analysis_tap": "the analysis tap comes with the analysis plane "
                     "(ROADMAP queue 1 item 18)"}
 
@@ -101,9 +110,7 @@ class Engine:
                  tracer=None, step_fn: Optional[Callable] = None,
                  spec: Optional[SpecConfig] = None, page_quant=None,
                  host_tier=None, device="cuda"):
-        for opt, val in (("host_tier", host_tier), ("mesh", mesh),
-                         ("step_fn", step_fn), ("tracer", tracer),
-                         ("analysis_tap", analysis_tap)):
+        for opt, val in (("mesh", mesh), ("analysis_tap", analysis_tap)):
             if val is not None and val is not False:
                 raise NotImplementedError(
                     f"Engine({opt}=...): {_LATER_SLICES[opt]}")
@@ -116,6 +123,9 @@ class Engine:
                              "(kv_latent_dim set)")
         self.cfg = cfg
         self.name = name
+        # None follows the ambient tracer (obs.install_tracer), the shared
+        # no-op by default; every emission site guards on ``enabled``
+        self._tracer = tracer
         self.page_quant = page_quant
         self.device = resolve_device(device)
         # the tensors' device picks kernel or plain version
@@ -172,11 +182,15 @@ class Engine:
                           "spec_bonus_tokens",
                           "admitted_interactive", "admitted_standard",
                           "admitted_batch", "preempted_interactive",
-                          "preempted_standard", "preempted_batch")}
+                          "preempted_standard", "preempted_batch",
+                          # the host KV tier's page moves (zero without
+                          # one, so the cluster's merged view is uniform)
+                          "host_evictions", "host_hits",
+                          "host_refetch_bytes")}
         self.gauges = {k: make_instrument("gauge", k, m) for k in
                        ("batch_occupancy", "page_utilization",
                         "queue_depth", "kv_bytes_per_token",
-                        "kv_bytes_in_use")}
+                        "kv_bytes_in_use", "host_pages")}
         self.gauges["kv_bytes_per_token"].set(self.pool.kv_bytes_per_token)
         lb = list(latency_buckets if latency_buckets is not None
                   else DEFAULT_LATENCY_BUCKETS)
@@ -187,6 +201,21 @@ class Engine:
             "request_latency": make_instrument("histogram",
                                                "request_latency", m),
         }
+        # the host-RAM tier for cold cached pages: a HostTier, True
+        # (defaults) or an int page capacity
+        self.host_tier = None
+        if host_tier:
+            if self.prefix_cache is None:
+                raise ValueError("host_tier requires prefix_cache=True")
+            from .slo.host_tier import HostTier
+            ht = host_tier if isinstance(host_tier, HostTier) else (
+                HostTier() if host_tier is True
+                else HostTier(int(host_tier)))
+            ht.bind(self.pool, self.prefix_cache,
+                    counters=self.counters, gauges=self.gauges,
+                    tracer_fn=lambda: self.tracer,
+                    time_fn=self._time_fn)
+            self.host_tier = ht
         # speculative decoding: the draft proposes spec_k greedy tokens
         # a decode-ready request; the scheduler packs them as verify rows
         self.spec: Optional[SpecDecoder] = None
@@ -204,15 +233,25 @@ class Engine:
             self.scheduler.spec_width = self.spec_k + 1
         s, r, ck = (self.scheduler.max_batch, self.scheduler.prefill_rows,
                     self.scheduler.chunk)
-        self._step_fn = build_unified_step_fn(
-            cfg, s, ck, r, self.max_pages_per_seq, page_size,
-            device=self.device, page_quant=page_quant, spec_k=self.spec_k)
         # the layout: decode slots, chunk slots, then (spec mode) one
         # (k+1)-wide verify slot a sequence
         vr = s if self.spec is not None else 0
         vk = self.spec_k + 1
         self.n_rows = s + r + vr
         self.n_tokens = s + r * ck + vr * vk
+        layout = (cfg, s, ck, r, self.max_pages_per_seq, page_size,
+                  page_quant, self.spec_k, self.device)
+        if step_fn is None:
+            step_fn = build_unified_step_fn(*layout[:6], device=self.device,
+                                            page_quant=page_quant,
+                                            spec_k=self.spec_k)
+        elif not isinstance(step_fn, UnifiedStep) or \
+                step_fn.layout != layout:
+            raise ValueError(
+                f"step_fn: {type(step_fn).__name__} is not a unified step "
+                f"built for this engine's layout ({self.n_rows} rows, "
+                f"{self.n_tokens} tokens)")
+        self._step_fn = step_fn
         cu = np.concatenate([np.arange(s, dtype=np.int32),
                              s + ck * np.arange(r + 1, dtype=np.int32)])
         if vr:
@@ -253,8 +292,17 @@ class Engine:
                       else float(arrival_time), stream_cb=stream_cb,
                       slo_class=slo_class)
         req.submit_time = max(now, req.arrival_time)
+        req.trace_t0 = req.submit_time      # queued segment opens here
         self._next_id += 1
         self.queue.push(req)
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("enqueue", track=f"req {req.req_id}",
+                       ts=req.submit_time, req=req.req_id,
+                       prompt_tokens=len(prompt),
+                       max_new_tokens=int(max_new_tokens),
+                       slo_class=req.slo_class,
+                       queue_depth=len(self.queue))
         return req
 
     def adopt_request(self, prompt: Sequence[int],
@@ -310,10 +358,20 @@ class Engine:
         req.tokens = prompt + generated
         req.out_tokens = list(generated)
         req.pages = pages
+        req.peak_pages = len(pages)
         req.pos = pos
         req.submit_time = max(now, req.arrival_time)
+        req.trace_t0 = req.submit_time
         self._next_id += 1
         self.queue.push(req)
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("adopt", track=f"req {req.req_id}",
+                       ts=req.submit_time, req=req.req_id,
+                       prompt_tokens=len(prompt),
+                       generated_tokens=len(generated), pos=pos,
+                       handoff_pages=len(pages),
+                       queue_depth=len(self.queue))
         return req
 
     # -- loop ----------------------------------------------------------------
@@ -321,9 +379,17 @@ class Engine:
     def _now(self) -> float:
         return self._time_fn()
 
+    @property
+    def tracer(self):
+        """The effective tracer: the injected one, else the ambient
+        global (``obs.NULL_TRACER``, the no-op, unless one is
+        installed)."""
+        return self._tracer if self._tracer is not None else get_tracer()
+
     def set_tracer(self, tracer) -> None:
-        raise NotImplementedError(
-            f"Engine.set_tracer: {_LATER_SLICES['tracer']}")
+        """Swap the engine's tracer live (None follows the ambient one
+        again)."""
+        self._tracer = tracer
 
     @property
     def has_work(self) -> bool:
@@ -334,6 +400,7 @@ class Engine:
         into ONE ragged batch, run the unified step.  Returns the number
         of tokens emitted."""
         now = self._now()
+        tr = self.tracer
         for req in self.scheduler.admit(self.queue, self.running, now):
             self._start(req)
         live = [r for r in self.running if r.state == RUNNING]
@@ -349,7 +416,24 @@ class Engine:
                 # the draft cache is stale: resuming re-prefills a fresh
                 # slot, and slot holders stay a subset of the running
                 self.spec.release(req)
+            t = self._now()
+            if tr.enabled:
+                # the running segment ends here; a queued one opens at
+                # the same instant (gapless state tiling)
+                tr.complete("running", req.trace_t0, t - req.trace_t0,
+                            track=f"req {req.req_id}", req=req.req_id)
+                tr.instant("preempt", track=f"req {req.req_id}", ts=t,
+                           req=req.req_id,
+                           n_preemptions=req.n_preemptions,
+                           pos_lost=len(req.tokens))
+            req.trace_t0 = t
         rows = self.scheduler.pack(kept)
+        if tr.enabled and rows:
+            tr.instant("pack", track="scheduler", ts=self._now(),
+                       running=len(self.running),
+                       queue_depth=len(self.queue),
+                       free_pages=self.pool.free_pages,
+                       **self.scheduler.slot_mix(rows))
         produced = self._run_unified(rows) if rows else 0
         if self.debug:
             self.pool.check_invariants()
@@ -363,6 +447,8 @@ class Engine:
         self.gauges["kv_bytes_in_use"].set(
             (self.pool.num_usable - self.pool.free_pages)
             * self.pool.page_bytes)
+        if self.host_tier is not None:
+            self.gauges["host_pages"].set(self.host_tier.host_pages)
         return produced
 
     def run(self, max_steps: Optional[int] = None
@@ -389,14 +475,16 @@ class Engine:
         JAX engine's fallback counts one per built executable): 1, or 4
         in spec mode (the unified step and the draft's three programs).
         A capture beyond the expected ones (a silent recompile) shows up
-        here.  The JAX engine compiles ONE unified program, whose
+        here.  Replicas sharing one step each count the graphs of their
+        own pool.  The JAX engine compiles ONE unified program, whose
         ``lax.cond`` skips an idle chunk slot on the device; a CUDA graph
         cannot branch, so the port captures one graph per live chunk-slot
         mask (and, in spec mode, live verify region) and chooses it on
         the host: at most ``2**prefill_rows`` (2 at ``prefill_rows=1``:
         decode only, and decode beside a chunk), in spec mode
         ``2**(prefill_rows + 1)`` plus the draft's propose graph."""
-        n = self._step_fn.compile_count
+        n = self._step_fn.graphs_for(self.pool.k_pages) \
+            if self.device.type == "cuda" else 1
         if self.spec is not None:
             n += self.spec.compile_count
         return n
@@ -409,6 +497,11 @@ class Engine:
         freed = self.prefix_cache.evict(n)
         if freed:
             self.counters["prefix_cache_evictions"].inc(freed)
+            tr = self.tracer
+            if tr.enabled:
+                tr.instant("prefix_cache_evict", track="engine",
+                           ts=self._now(), pages_freed=freed,
+                           pages_wanted=n)
         return freed
 
     def _start(self, req: Request) -> None:
@@ -418,6 +511,12 @@ class Engine:
         looked_up = self.prefix_cache is not None and req.pos == 0 \
             and not req.pages
         if looked_up:
+            if self.host_tier is not None:
+                # extend the device cache's match with host-tier pages
+                # first: restored pages join the index, so the acquire
+                # below attaches the deeper chain (a dry pool stops the
+                # restore; the suffix recomputes like any miss)
+                self.host_tier.refetch(req.tokens)
             entries = self.prefix_cache.acquire(req)
             if entries:
                 req.pages = [e.page for e in entries]
@@ -426,7 +525,14 @@ class Engine:
                 req.cached_tokens = req.pos
         need = self.pool.pages_for(len(req.tokens)) - len(req.pages)
         pages = self.pool.alloc(need)
+        tr = self.tracer
         if pages is None:
+            if tr.enabled:
+                # stays queued: the open queued segment keeps running
+                tr.instant("admit_defer", track=f"req {req.req_id}",
+                           ts=self._now(), req=req.req_id,
+                           pages_needed=need,
+                           free_pages=self.pool.free_pages)
             # admission over-committed: roll back the cache attach and
             # retry next step (counters untouched: the same start)
             if looked_up:
@@ -446,9 +552,29 @@ class Engine:
             else:
                 self.counters["prefix_cache_misses"].inc()
         req.pages = req.pages + pages
+        req.peak_pages = max(req.peak_pages, len(req.pages))
         req.state = RUNNING
         self.counters[f"admitted_{req.slo_class}"].inc()
         self.running.append(req)
+        t = self._now()
+        if tr.enabled:
+            # close the queued segment and open running at the same
+            # instant; the admission carries its page math
+            tr.complete("queued", req.trace_t0, t - req.trace_t0,
+                        track=f"req {req.req_id}", req=req.req_id,
+                        preemptions=req.n_preemptions)
+            tr.instant("admit", track=f"req {req.req_id}", ts=t,
+                       req=req.req_id, pages_granted=need,
+                       pages_total=len(req.pages),
+                       cached_pages=req.shared_pages,
+                       free_pages=self.pool.free_pages,
+                       batch=len(self.running))
+            if looked_up and req.shared_pages:
+                tr.instant("prefix_cache_hit", track=f"req {req.req_id}",
+                           ts=t, req=req.req_id,
+                           cached_tokens=req.cached_tokens,
+                           shared_pages=req.shared_pages)
+        req.trace_t0 = t
 
     def abort_all(self) -> List[int]:
         """Abort every queued + running request: owned pages return to
@@ -495,12 +621,19 @@ class Engine:
             k_effs[r.req_id] = k_eff
         if not cands:
             return
-        drafts = self.spec.stage(cands, k_effs)
+        tr = self.tracer
+        t0 = self._now()
+        drafts = self.spec.stage(cands, k_effs, tracer=tr, now=t0)
+        dt = self._now() - t0
         total = 0
         for r in cands:
             r.spec_drafts = drafts.get(r.req_id, [])
             total += len(r.spec_drafts)
         self.counters["spec_proposed"].inc(total)
+        if tr.enabled and total:
+            tr.complete("draft", t0, dt, track="engine",
+                        requests=len(cands), proposed=total,
+                        k=self.spec_k)
 
     # -- the unified step ----------------------------------------------------
 
@@ -570,6 +703,11 @@ class Engine:
         dt = self._now() - t0
         self._calls += 1
         self.counters["step_calls"].inc()
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("unified_step", t0, dt, track="engine",
+                        exec=f"{self.name}/unified", rows=len(rows),
+                        tokens=int(sum(q for _, q, _ in rows)))
         # classify by slot, not q_len: a verify row is neither
         n_decode = sum(1 for _, _, row in rows if row < s)
         if n_decode:
@@ -581,20 +719,27 @@ class Engine:
             pre = max(0, min(qlen, req.prompt_len - req.pos))
             if pre:
                 self.counters["prefill_tokens"].inc(pre)
+                if tr.enabled:
+                    tr.complete("prefill_chunk", t0, dt,
+                                track=f"req {req.req_id}",
+                                req=req.req_id, q_len=qlen,
+                                prefill_tokens=pre, pos=req.pos,
+                                budget_slice=qlen,
+                                cached_skip=req.cached_tokens)
             if row >= vbase and req.spec_drafts:
                 produced += self._commit_verify(req, int(accs[row]),
-                                                int(toks[row]), dt)
+                                                int(toks[row]), t0, dt)
                 continue
             req.pos += qlen
             if req.pos == len(req.tokens):      # row reached its tip:
                 self._emit(req, int(toks[row]))  # commit the sample
                 produced += 1
-                self._observe_token(req, dt)
+                self._observe_token(req, row < s, dt)
                 self._maybe_finish(req)
         return produced
 
     def _commit_verify(self, req: Request, accepted: int, bonus: int,
-                       dt: float) -> int:
+                       t0: float, dt: float) -> int:
         """Commit a verify row: the accepted draft prefix plus the bonus
         token, capped by ``max_new_tokens`` and EOS, then rewind ``pos``
         to the accepted boundary.  The fed positions past it hold stale
@@ -609,7 +754,7 @@ class Engine:
             self._emit(req, tok)
             emitted += 1
             committed += i < accepted
-            self._observe_token(req, dt)
+            self._observe_token(req, False, dt)
             if req.eos_token_id is not None and tok == req.eos_token_id:
                 break
         req.pos = n0 + committed
@@ -617,11 +762,27 @@ class Engine:
         self.counters["spec_accepted"].inc(committed)
         if emitted > committed:
             self.counters["spec_bonus_tokens"].inc()
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("verify", t0, dt, track=f"req {req.req_id}",
+                        req=req.req_id, proposed=len(drafts),
+                        accepted=accepted, committed=emitted)
+            tr.instant("spec_accept", track=f"req {req.req_id}",
+                       ts=self._now(), req=req.req_id, n=committed,
+                       bonus=int(emitted > committed))
         self._maybe_finish(req)
         return 1 if emitted else 0
 
-    def _observe_token(self, req: Request, dt: float) -> None:
+    def _observe_token(self, req: Request, decode_slot: bool,
+                       dt: float) -> None:
+        """Latency bookkeeping and the trace instant of ONE emitted
+        token."""
+        tr = self.tracer
         now = self._now()
+        if tr.enabled:
+            tr.instant("token", track=f"req {req.req_id}", ts=now,
+                       req=req.req_id, n=req.n_generated,
+                       decode_slot=bool(decode_slot))
         if req.first_token_time is None:
             req.first_token_time = now
             self.histograms["ttft"].observe(now - req.submit_time)
@@ -654,6 +815,17 @@ class Engine:
         req.pages = []
         req.state = FINISHED
         req.finish_time = self._now()
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("running", req.trace_t0,
+                        req.finish_time - req.trace_t0,
+                        track=f"req {req.req_id}", req=req.req_id)
+            tr.instant("finish", track=f"req {req.req_id}",
+                       ts=req.finish_time, req=req.req_id,
+                       new_tokens=req.n_generated,
+                       preemptions=req.n_preemptions,
+                       peak_pages=req.peak_pages)
+        req.trace_t0 = req.finish_time
         if req in self.running:
             self.running.remove(req)
         self.finished[req.req_id] = req

@@ -163,6 +163,12 @@ class PrefixCache:
         self._attached: Dict[int, List[CacheEntry]] = {}
         self._next_id = 0
         self._tick = 0
+        # host-tier hook (serving/slo/host_tier.py): called with
+        # (entry, chain_hash) just BEFORE an evicted page returns to the
+        # free list, while the page is still cached and its parent chain
+        # still indexed (leaf-first eviction), so the hook can stage its
+        # bytes to host RAM under its chain hash
+        self.on_evict = None
 
     def __len__(self) -> int:
         return len(self._index)
@@ -295,6 +301,8 @@ class PrefixCache:
         return freed
 
     def _remove(self, e: CacheEntry) -> None:
+        if self.on_evict is not None:
+            self.on_evict(e, self.chain_hash_of(e))
         del self._index[(e.parent, e.tokens)]
         del self._by_id[e.eid]
         if e.parent != ROOT:

@@ -182,6 +182,7 @@ class Scheduler:
                                       - len(req.pages))
                 if got is not None:
                     req.pages.extend(got)
+                    req.peak_pages = max(req.peak_pages, len(req.pages))
                     break
                 if req.spec_drafts:
                     req.spec_drafts = []   # shed the burst, keep running

@@ -1,0 +1,229 @@
+"""Host-RAM tier for cold prefix-cache pages: evict to host, refetch on
+a digest hit (port of ``hetu_tpu.serving.slo.host_tier``).
+
+When the prefix cache's LRU sweep reclaims a refcount-0 page, the page's
+bytes are staged to host RAM through
+:meth:`~hetu_tpu_torch.serving.cluster.transport.PageTransport.extract`
+(the same host-staging primitive the disaggregation wire uses), keyed by
+the page's layout-salted content chain hash, instead of being dropped.
+A later request whose prompt chains onto a host-tier page refetches it
+through :meth:`~hetu_tpu_torch.serving.cluster.transport.PageTransport.inject`
+(bit-exact, layout-checked, written in place into the pool's own page
+tensors) and the page re-enters the device cache index as if it had
+never left (:meth:`~hetu_tpu_torch.serving.prefix_cache.PrefixCache.restore`).
+
+**Every page move is priced.**  Evicts and refetches each append a
+record carrying a CommEdge-shaped claim (tag ``host_offload``) and the
+alpha-beta predicted seconds of the cost model's one
+:func:`~hetu_tpu_torch.planner.cost_model.collective_time` (its
+point-to-point rate, as the JAX package prices it), beside the measured
+``wall_s`` of the move (the port also times the evict's extract, where
+the JAX package records 0).
+
+**Correctness.**  A refetch only ever extends an EXACT in-index match
+and re-verifies the stored token slice against the prompt at every
+page, and the injected bytes are the evicted bytes verbatim, so
+temperature-0 outputs equal a never-evicted run's.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional
+
+from ..kv_pool import protocol_seq
+from ..prefix_cache import ROOT, token_chain_hashes
+
+
+class HostTier:
+    """LRU host-RAM store of evicted prefix-cache pages, one engine's
+    pool each (staging is layout-specific).  Wire it with
+    :meth:`bind`; the engine does this when constructed with
+    ``host_tier=...``."""
+
+    def __init__(self, capacity_pages: int = 256, cluster_spec=None,
+                 transport=None):
+        if transport is None:
+            from ..cluster.transport import LocalPageTransport
+            transport = LocalPageTransport(cluster_spec)
+        self.transport = transport
+        self.capacity_pages = int(capacity_pages)
+        # chain_hash -> {"staged", "tokens", "depth"}; insertion order
+        # doubles as the LRU order (move_to_end on every touch)
+        self._store: "OrderedDict[int, Dict[str, Any]]" = OrderedDict()
+        #: priced page-move records (dir: evict|refetch); the analysis
+        #: plane's ``host-offload-unpriced`` rule reads them (item 18)
+        self.records: List[Dict[str, Any]] = []
+        self._epoch = 0
+        self.pool = None
+        self.cache = None
+        self._counters: Optional[Dict[str, Any]] = None
+        self._gauges: Optional[Dict[str, Any]] = None
+        self._tracer_fn = None
+        self._time_fn = lambda: 0.0
+        # lifetime counts (plain ints — survive engine metric resets)
+        self.evictions = 0
+        self.hits = 0
+        self.refetch_bytes = 0
+        self.drops = 0           # capacity evictions OF the host tier
+
+    # -- wiring ---------------------------------------------------------------
+
+    def bind(self, pool, cache, counters=None, gauges=None,
+             tracer_fn=None, time_fn=None) -> None:
+        """Attach to one engine's pool + prefix cache: installs the
+        cache's ``on_evict`` hook.  ``counters``/``gauges`` are the
+        engine's instrument dicts (looked up by key at use time, so
+        ``reset_metrics`` swapping the instruments stays safe)."""
+        self.pool = pool
+        self.cache = cache
+        self._counters = counters
+        self._gauges = gauges
+        self._tracer_fn = tracer_fn
+        if time_fn is not None:
+            self._time_fn = time_fn
+        cache.on_evict = self._on_evict
+
+    @property
+    def host_pages(self) -> int:
+        return len(self._store)
+
+    @property
+    def total_payload_bytes(self) -> int:
+        return sum(r["payload_bytes"] for r in self.records)
+
+    def predicted_s(self, direction: Optional[str] = None) -> float:
+        return sum(r["predicted_s"] for r in self.records
+                   if direction is None or r["dir"] == direction)
+
+    # -- evict path (the cache's on_evict hook) -------------------------------
+
+    def _on_evict(self, entry, h: int) -> None:
+        """Stage an evicted page's bytes to host RAM, keyed by its
+        layout-salted chain hash.  Called by ``PrefixCache._remove``
+        while the page is still cached, so extract reads real KV."""
+        staged = self.transport.extract(self.pool, [entry.page])
+        self._store[h] = {"staged": staged,
+                          "tokens": tuple(entry.tokens),
+                          "depth": int(entry.depth)}
+        self._store.move_to_end(h)
+        while len(self._store) > self.capacity_pages:
+            self._store.popitem(last=False)   # coldest falls off the end
+            self.drops += 1
+        self.evictions += 1
+        rec = self._price("evict", 1, int(staged["payload_bytes"]), h,
+                          wall_s=float(staged["wall_s"]))
+        self.records.append(rec)
+        if self._counters is not None:
+            self._counters["host_evictions"].inc()
+        if self._gauges is not None:
+            self._gauges["host_pages"].set(len(self._store))
+        tr = self._tracer_fn() if self._tracer_fn is not None else None
+        if tr is not None and tr.enabled:
+            tr.instant("host_evict", track="router", ts=self._time_fn(),
+                       depth=int(entry.depth),
+                       payload_bytes=int(staged["payload_bytes"]),
+                       host_pages=len(self._store))
+
+    # -- refetch path (engine _start, before cache acquire) -------------------
+
+    def refetch(self, tokens) -> int:
+        """Extend the device cache's exact match for ``tokens`` with
+        host-tier pages: for each continuation page whose chain hash
+        (and token slice) is stored, allocate a device page, inject the
+        staged bytes, and :meth:`~PrefixCache.restore` it — the
+        caller's subsequent ``acquire`` then attaches the deeper chain
+        through the normal path.  Returns pages restored; stops at the
+        first miss, verification failure, or a dry pool (recompute
+        fallback — never an error).
+
+        Restored (and matched-prefix) entries are PINNED for the
+        duration: the pool ``alloc`` here can itself trigger the LRU
+        sweep, which must not evict the chain mid-restore."""
+        if self.cache is None or not self._store:
+            return 0
+        ps = self.pool.page_size
+        entries = self.cache.match(tokens)
+        hashes = token_chain_hashes(tokens, ps,
+                                    layout=self.pool.layout_tag)
+        depth0 = len(entries)
+        if depth0 >= len(hashes):
+            return 0
+        parent = entries[-1].eid if entries else ROOT
+        pinned = []
+
+        def pin(e):
+            e.refs += 1
+            self.pool.share_page(e.page)
+            pinned.append(e)
+
+        for e in entries:
+            pin(e)
+        restored = 0
+        try:
+            for i in range(depth0, len(hashes)):
+                item = self._store.get(hashes[i])
+                if item is None:
+                    break
+                slice_ = tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
+                if item["tokens"] != slice_ or item["depth"] != i:
+                    break                      # hash collision guard
+                got = self.pool.alloc(1)
+                if got is None:
+                    break                      # pool dry: recompute
+                self._epoch += 1
+                wire = self.transport.inject(
+                    self.pool, item["staged"], got,
+                    src_replica=-1, dst_replica=-1, epoch=self._epoch)
+                e = self.cache.restore(parent, slice_, got[0], i)
+                pin(e)
+                parent = e.eid
+                del self._store[hashes[i]]     # back on device: one copy
+                restored += 1
+                payload = int(item["staged"]["payload_bytes"])
+                self.hits += 1
+                self.refetch_bytes += payload
+                rec = self._price("refetch", 1, payload, hashes[i],
+                                  wall_s=float(wire["wall_s"]))
+                self.records.append(rec)
+                if self._counters is not None:
+                    self._counters["host_hits"].inc()
+                    self._counters["host_refetch_bytes"].inc(payload)
+                if self._gauges is not None:
+                    self._gauges["host_pages"].set(len(self._store))
+                tr = self._tracer_fn() if self._tracer_fn is not None \
+                    else None
+                if tr is not None and tr.enabled:
+                    tr.instant("host_refetch", track="router",
+                               ts=self._time_fn(), depth=i,
+                               payload_bytes=payload,
+                               host_pages=len(self._store))
+        finally:
+            for e in pinned:
+                e.refs -= 1
+                self.pool.unshare_page(e.page)
+        return restored
+
+    # -- pricing --------------------------------------------------------------
+
+    def _price(self, direction: str, n_pages: int, payload_bytes: int,
+               chain_h: int, wall_s: float = 0.0) -> Dict[str, Any]:
+        """The priced edge claim, shaped like the disaggregation wire's
+        (``LocalPageTransport._price``) with tag ``host_offload``: one
+        vocabulary, one ``collective_time`` implementation."""
+        from ...planner.cost_model import collective_time
+        src, dst = (("device_pool", "host_tier")
+                    if direction == "evict"
+                    else ("host_tier", "device_pool"))
+        edge = {"kind": "ppermute", "tensor": "kv_pages",
+                "producer": src, "consumer": dst,
+                "src_spec": src, "dst_spec": dst, "axes": ("host",),
+                "payload_bytes": int(payload_bytes), "count": 1,
+                "tag": "host_offload", "origin": "declared"}
+        predicted_s = collective_time("ppermute", float(payload_bytes),
+                                      2, self.transport.cluster_spec)
+        return {"dir": direction, "pages": int(n_pages),
+                "payload_bytes": int(payload_bytes),
+                "page_bytes": int(self.pool.page_bytes),
+                "chain_hash": int(chain_h), "edge": edge,
+                "predicted_s": float(predicted_s),
+                "wall_s": float(wall_s), "seq": protocol_seq()}

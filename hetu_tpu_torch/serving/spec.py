@@ -341,11 +341,13 @@ class SpecDecoder:
             self._free.append(slot)
             self._valid.pop(req.req_id, None)
 
-    def stage(self, cands, k_effs: Dict[int, int]) -> Dict[int, List[int]]:
+    def stage(self, cands, k_effs: Dict[int, int], tracer=None,
+              now: float = 0.0) -> Dict[int, List[int]]:
         """Prefill stale slots, then ONE batched propose over every
         candidate: ``{req_id: drafts}``, each truncated to its
         ``k_eff``.  ``cands`` are decode-ready requests (``len(tokens) -
-        pos == 1``)."""
+        pos == 1``).  Under an enabled ``tracer`` each draft prefill is a
+        ``draft_prefill`` instant at ``now`` on the request's track."""
         staged = []
         for req in cands:
             slot = self._ensure_slot(req)
@@ -361,6 +363,10 @@ class SpecDecoder:
                         torch.from_numpy(toks).to(self.device))
                     self.compiled["draft_insert"](pk, pv, slot)
                     self.prefills += 1
+                    if tracer is not None and tracer.enabled:
+                        tracer.instant("draft_prefill",
+                                       track=f"req {req.req_id}", ts=now,
+                                       req=req.req_id, tokens=n - 1)
                 self._valid[req.req_id] = True
         if not staged:
             return {}

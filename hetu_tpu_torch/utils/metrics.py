@@ -2,7 +2,8 @@
 engine uses): monotonically increasing counters, point-in-time gauges
 and latency histograms, with a shared no-op fallback so the engine's
 loop pays nothing when metrics are disabled, plus Prometheus text
-exposition."""
+exposition and the merge of several expositions under one label (the
+serving cluster's view of its replicas)."""
 from __future__ import annotations
 
 from collections import deque
@@ -182,4 +183,58 @@ def render_prometheus(instruments: Dict[str, object]) -> str:
                 lines.append(f'{name}_bucket{{le="{le_txt}"}} {int(c)}')
             lines.append(f"{name}_sum {_prom_value(inst.total)}")
             lines.append(f"{name}_count {int(inst.count)}")
+    return "\n".join(lines) + "\n" if lines else ""
+
+
+def merge_prometheus_texts(texts: Dict[str, str],
+                           label: str = "replica") -> str:
+    """Merge several Prometheus expositions into one, tagging every
+    sample with ``label="<key>"`` — the cluster's ``metrics_text()``
+    merges per-replica ``Engine.metrics_text()`` outputs this way, so
+    one scrape endpoint serves the whole replica fleet and dashboards
+    slice by the ``replica`` label.
+
+    Samples are regrouped per metric (one ``# TYPE`` line per metric
+    name, first-seen kind wins, then every labeled sample), which keeps
+    the output a valid exposition: Prometheus requires all samples of a
+    metric to be contiguous under its single TYPE header."""
+    import re
+    sample_re = re.compile(
+        r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})?\s+(.*)$")
+    kinds: Dict[str, str] = {}
+    samples: Dict[str, List[str]] = {}
+    order: List[str] = []
+    for key, text in texts.items():
+        tag = f'{_prom_name(label)}="{key}"'
+        for line in (text or "").splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith("#"):
+                parts = line.split()
+                if len(parts) >= 4 and parts[1] == "TYPE":
+                    kinds.setdefault(parts[2], parts[3])
+                continue
+            m = sample_re.match(line)
+            if m is None:
+                continue
+            name, labels, value = m.groups()
+            inner = (labels or "{}")[1:-1]
+            labels = "{" + (f"{inner},{tag}" if inner else tag) + "}"
+            # histogram series (_bucket/_sum/_count) group under the
+            # base metric's TYPE header, like the scrape format expects
+            base = name
+            for suffix in ("_bucket", "_sum", "_count"):
+                if name.endswith(suffix) and name[:-len(suffix)] in kinds:
+                    base = name[:-len(suffix)]
+                    break
+            if base not in samples:
+                samples[base] = []
+                order.append(base)
+            samples[base].append(f"{name}{labels} {value}")
+    lines: List[str] = []
+    for base in order:
+        if base in kinds:
+            lines.append(f"# TYPE {base} {kinds[base]}")
+        lines.extend(samples[base])
     return "\n".join(lines) + "\n" if lines else ""

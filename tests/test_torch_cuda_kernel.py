@@ -944,6 +944,59 @@ def _train_steps(kw, dtype, eager, init=None, steps=3):
             g.compile_count)
 
 
+@pytest.mark.parametrize("layout", ["full_head", "mla"])
+def test_shared_step_replays_each_engines_own_pages(cuda_device, layout):
+    """Two engines of one layout share ONE built step (``step_fn=``), as
+    cluster replicas do, stepping in turn on different traffic: each
+    engine's graphs replay its own pool's pages (tokens equal to the same
+    traffic on an engine of its own, eager), each engine counts its own
+    two graphs and the step four, and a two-replica ``EngineCluster``
+    equals a monolithic engine."""
+    from hetu_tpu_torch.serving import EngineCluster
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(**TINY_LLAMA, dtype="float32")
+    if layout == "mla":
+        cfg = mla_config(cfg, kv_latent_dim=32, kv_rope_dim=8)
+    state = random_state(cfg, seed=0, device="cuda", std=0.3)
+    kw = dict(num_pages=32, page_size=16, max_batch=3, chunk_size=16)
+    rng = np.random.RandomState(5)
+    traffic = [[rng.randint(1, 97, size=n).tolist() for n in lens]
+               for lens in ((40, 5, 17), (9, 33, 21))]
+    want = []
+    for prompts in traffic:
+        eng = Engine(state, cfg, device="cuda", **kw)
+        with capture.eager():
+            reqs = [eng.add_request(p, 6) for p in prompts]
+            eng.run()
+        want.append([r.out_tokens for r in reqs])
+    a = Engine(state, cfg, device="cuda", **kw)
+    b = Engine(state, cfg, device="cuda", step_fn=a._step_fn, **kw)
+    assert b._step_fn is a._step_fn
+    got = []
+    for eng, prompts in ((a, traffic[0]), (b, traffic[1])):
+        got.append([eng.add_request(p, 6) for p in prompts])
+    while a.has_work or b.has_work:          # the replicas step in turn
+        for eng in (a, b):
+            if eng.has_work:
+                eng.step()
+    torch.cuda.synchronize()
+    assert [[r.out_tokens for r in reqs] for reqs in got] == want
+    assert a.compile_count == b.compile_count == 2
+    assert a._step_fn.compile_count == 4
+    prompts = traffic[0] + traffic[1]
+    mono = Engine(state, cfg, device="cuda", **kw)
+    mreqs = [mono.add_request(p, 6) for p in prompts]
+    mono.run()
+    cl = EngineCluster(state, cfg, num_replicas=2, coordinator=False,
+                       policy="load", device="cuda", **kw)
+    creqs = [cl.add_request(p, 6) for p in prompts]
+    cl.run()
+    cl.close()
+    assert {r.replica for r in creqs} == {0, 1}
+    assert [r.out_tokens for r in creqs] == [r.out_tokens for r in mreqs]
+    assert [r.engine.compile_count for r in cl.replicas] == [2, 2]
+
+
 @pytest.mark.parametrize("which,dtype", [("llama", "float32"),
                                          ("gpt2", "bfloat16")])
 def test_captured_training_step_equals_eager(cuda_device, which, dtype):

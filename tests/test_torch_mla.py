@@ -438,9 +438,12 @@ def test_page_quant_refusals(mla, mla_rot):
                               page_quant="nf4")
     pcfg = _port_cfg(jcfg)
     pstate = state_from_numpy(jstate, pcfg, device="cpu")
-    for kw in (dict(host_tier=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            Engine(pstate, pcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(pstate, pcfg, device="cpu", mesh=object())
+    # the host KV tier is served in the latent layout too (its round
+    # trips are held in tests/test_torch_slo.py)
+    assert Engine(pstate, pcfg, device="cpu",
+                  host_tier=True).host_tier is not None
     # speculative decoding is served (tests/test_torch_spec_decode.py);
     # what is not a SpecConfig is refused
     with pytest.raises(TypeError, match="SpecConfig"):

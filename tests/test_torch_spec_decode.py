@@ -23,9 +23,10 @@ with ``state_from_numpy``; vocab 97, hidden 32, 2 layers, fp32.
   ``alt`` equal on greedy rows), ``draft_state_from`` (the same keys and
   arrays) and the draft's proposals.
 
-Not ported here: the rewind-leak lint tests of ``tests/test_spec_decode.py``
-wait for the analysis plane (ROADMAP queue 1 item 18), and its cluster
-exposition test for the cluster plane (item 9).
+The cluster exposition test of ``tests/test_spec_decode.py`` is ported
+here (spec engines as cluster replicas, counters merged).  Not ported:
+its rewind-leak lint tests wait for the analysis plane (ROADMAP queue 1
+item 18).
 """
 import dataclasses
 import importlib
@@ -417,6 +418,46 @@ def test_spec_metrics_and_reset(gpt):
     assert eng.steps == eng.executable_calls == 0
     assert m["compile_count"] == 4          # lifetime state: not reset
     assert m["kv_bytes_per_token"] == eng.pool.kv_bytes_per_token
+
+
+def test_spec_counters_in_cluster_merged_exposition(gpt):
+    """The cluster plane passes spec straight through: counters sum in
+    metrics_summary and appear per replica in the merged Prometheus
+    exposition; a replica reset zeroes its samples while the cluster sum
+    banks the pre-reset epoch."""
+    from hetu_tpu_torch.serving import EngineCluster
+    _, state, cfg, dstate, dcfg = gpt
+    clock = [0.0]
+    cl = EngineCluster(state, cfg, num_replicas=2, name="spec_cl_t",
+                       num_pages=16, page_size=8, max_batch=4,
+                       chunk_size=8, time_fn=lambda: clock[0],
+                       ttl=3600.0, spec=SpecConfig(dstate, dcfg, k=3),
+                       device="cpu")
+    try:
+        r1 = cl.add_request([5, 17, 2, 9, 1, 4, 8], max_new_tokens=6)
+        r2 = cl.add_request([3, 2, 1, 9], max_new_tokens=6)
+        guard = 0
+        while cl.has_work:
+            cl.step()
+            clock[0] += 1.0
+            guard += 1
+            assert guard < 200
+        for r in (r1, r2):
+            assert r.out_tokens == _solo(state, cfg, r.prompt, 6)
+        ms = cl.metrics_summary()
+        assert ms["spec_proposed"] > 0
+        text = cl.metrics_text()
+        assert "spec_proposed" in text and 'replica="r0"' in text
+        for rep in cl.replicas:
+            rep.engine.reset_metrics()
+            assert rep.engine.metrics_summary()["spec_proposed"] == 0
+        for line in cl.metrics_text().splitlines():
+            if line.startswith("spec_proposed{"):
+                assert line.rstrip().endswith(" 0")
+        assert cl.metrics_summary()["spec_proposed"] == \
+            ms["spec_proposed"]
+    finally:
+        cl.close()
 
 
 class _Fixed:
