@@ -255,7 +255,34 @@ Phases, each printing one JSON line:
     ``wall_s`` beside its ``predicted_s``.  (e) ``Autoscaler`` over 2
     replicas on the JAX suite's mixed-class trace (synthetic clock):
     a scale-down and a scale-up, tokens equal a static fleet's, no class
-    inversion.
+    inversion;
+22. mesh: the multi-GPU mesh on the one card.  The port's ``Launcher``
+    starts 2 rank processes of this script once (``--mesh-rank``); each
+    joins by ``rpc.distributed_init`` (gloo: NCCL refuses two ranks on
+    one device) and builds each configuration in turn on its mesh, from
+    the seed-0 weights and one seeded batch, each held against the same
+    configuration trained in this process (captured, no mesh).  (a)
+    fp32 (TF32 off), GPT-2 widths at 2 layers (vocab 50304, seq 256,
+    global batch 4, 2 micro-batches, 3 Adam steps at phase 8's lr): dp 2;
+    dp 2 with ZeRO 1, 2 and 3; tp 2; tp 2 with sp; dp 2 with the fp32
+    grad-comm transport and flat state; losses within 1e-4 and the
+    gathered weights' updates within 1 % (phase 8's limits).  (b) bf16 at
+    GPT-2 small's full widths (12 layers, seq 1024, global batch 8, 6
+    steps): dp 2 with ZeRO 2, and tp 2 with sp; (c) Llama-3-8B widths at
+    2 layers (seq 4096, global batch 2, 3 steps), tp 2 with sp: losses
+    falling and at every step within ``MESH_LOSS_LIMITS`` of one
+    process's: (b)'s bf16 losses (one loss path in every layout) at most
+    one bf16 spacing apart and equal at step 1, (c)'s fp32 losses within
+    2 % (phase 8's update rule is (a)'s: bf16 rounding alone parts the
+    layouts' bf16 weights by most of an update).  Every
+    rank's flash launches a layer, micro-batch and step, on wgmma in (b)
+    at 6 local heads under tp, on 3xTF32 in (a) and (c) (the split dq and
+    dk/dv at 16 local heads in (c)); ms a step, the backend, whether the
+    step was captured (never, over gloo), each rank's ``comm_stats``
+    summary.  (d) A mesh of size 1 on NCCL in this process: captured,
+    its losses equal the run's without a mesh.  A failing or hanging
+    rank fails the phase (every wait has a timeout; the launcher kills
+    the group).
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -3298,6 +3325,11 @@ def graph_grad_update(cfg, init):
         if level == "grad":
             grad_ms.append((time.perf_counter() - t0) * 1e3)
             still &= all(torch.equal(a, b) for a, b in zip(params, start))
+        if i == GRAPH_GRAD_RUNS - 1:
+            # the GRAD runs' sums, to tell a wrong GRAD replay from a
+            # wrong UPDATE when the update misses
+            accum = [g._grad_accum.get(p.id) for p in model.parameters()]
+            accum = [None if a is None else a.clone() for a in accum]
     launches = flash_launch_counts()
     by_plan = {e.level.value: plan_launches(e) for e in g._plan_pool.values()
                if e.step is not None}
@@ -3327,19 +3359,26 @@ def graph_grad_update(cfg, init):
     for gv in runs[1:-1]:
         for a, v in zip(total, gv):
             a.add_(v)
+    grad_sum_rel = max(
+        float((a.float() - t.float()).norm()) /
+        max(float(t.float().norm()), 1e-30)
+        for a, t in zip(accum, total) if a is not None)
+    del accum
     sums = {"param_dtype": [v + a for v, a in zip(runs[-1], total)],
             "fp32": [sum(gv[i].float() for gv in runs)
                      for i in range(len(xs))]}
     del runs, total
-    upd_rel = {}
+    upd_rel, worst = {}, []
     for kind, total in sums.items():
         load_state(rmodel, init)
         ht.optim.AdamOptimizer(lr=GRAPH_LR)._apply_updates(rg, xs, total)
         want = state_numpy(rmodel)
-        upd_rel[kind] = max(
-            float(np.linalg.norm(got[k] - want[k])) /
-            max(float(np.linalg.norm(want[k] - init[k])), 1e-30)
-            for k in want)
+        rel = {k: float(np.linalg.norm(got[k] - want[k])) /
+               max(float(np.linalg.norm(want[k] - init[k])), 1e-30)
+               for k in want}
+        upd_rel[kind] = max(rel.values())
+        if kind == "param_dtype":
+            worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
     del rg, rmodel, sums, total, grads, xs, want
     gc.collect()
     out = {"batch": GRAPH_GRAD_BATCH, "grad_runs": GRAPH_GRAD_RUNS,
@@ -3348,7 +3387,9 @@ def graph_grad_update(cfg, init):
            "weights_still_during_grad_runs": still,
            "accumulator_zeroed": zeroed, "compile_count": compile_count,
            "captured_plans": by_plan, "flash_launches": launches,
-           "update_rel_diff_vs_summed_gradient_step": upd_rel}
+           "update_rel_diff_vs_summed_gradient_step": upd_rel,
+           "update_rel_diff_worst": worst,
+           "grad_sum_rel_diff_after_grad_runs": grad_sum_rel}
     per_run = {"flash_fwd": 12, "flash_bwd_fused": 12}
     if not still or not zeroed or compile_count != 2 or \
             upd_rel["param_dtype"] > 1e-2 or \
@@ -4478,6 +4519,385 @@ def phase_cluster():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the multi-GPU mesh (phase 22)
+# ---------------------------------------------------------------------------
+
+# ranks of phase 22's group (two processes on the one card, over gloo)
+MESH_RANKS = 2
+# seconds a collective of the ranks may take, and the whole group
+MESH_COLLECTIVE_TIMEOUT = 300.0
+MESH_GROUP_TIMEOUT = 900.0
+# (b) and (c): a rank's losses against the one-process run, at every
+# step (``mesh_loss_gaps``).  (b)'s are bf16 numbers in both runs (one
+# loss path), so they are equal or whole bf16 spacings apart
+# (``bf16_steps``): at most one, and none at step 1 (the same weights
+# and batch).  (c)'s LLaMA carries fp32 activations after layer 0 (its
+# fp32 rotary tables), so its losses are fp32: a relative gap, which
+# stays meaningful as the memorised batch's loss nears 0.
+MESH_LOSS_LIMITS = {"gpt2_small_bf16": ("bf16_steps", 1),
+                    "llama3_8b_2_layers": ("relative", 2e-2)}
+MESH_ENV_JOB = "HETU_MESH_JOB"
+
+
+def bf16_steps(a, b):
+    """``|a - b|`` in units of the bf16 spacing at the larger of the two
+    magnitudes (0.0625 from 8 to 16): 1.0 for neighbouring bf16
+    numbers."""
+    m = max(abs(a), abs(b))
+    if m == 0:
+        return 0.0
+    return float(abs(a - b) / 2.0 ** (np.floor(np.log2(m)) - 7))
+
+
+def mesh_loss_gaps(name, losses, ref_losses):
+    """(b) and (c)'s losses against one process's: (unit, limit, the gap
+    at each step, whether they hold ``MESH_LOSS_LIMITS``)."""
+    unit, limit = MESH_LOSS_LIMITS[name]
+    gaps = [bf16_steps(a, b) if unit == "bf16_steps" else
+            abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    ok = bool(max(gaps) <= limit and
+              (unit != "bf16_steps" or gaps[0] == 0))
+    return unit, limit, gaps, ok
+
+
+def mesh_config(name):
+    """A phase-22 configuration: the model's config fields, global batch,
+    seq, steps, lr and micro-batches (plain data: the ranks get it in
+    their job file)."""
+    if name == "gpt2_fp32_2_layers":            # (a): phase 8's limits
+        cfg, batch, seq, steps, lr, micro = (
+            GPTConfig(vocab_size=50304, num_layers=2, dtype="float32"), 4,
+            256, ORACLE_STEPS, ORACLE_LR, 2)
+    elif name == "gpt2_small_bf16":             # (b), the entry's widths
+        cfg, batch, seq, steps, lr, micro = (
+            GPTConfig(vocab_size=50304, dtype="bfloat16"), 8, 1024, 6,
+            3e-4, 2)
+    elif name == "llama3_8b_2_layers":          # (c)
+        cfg, batch, seq, steps, lr, micro = (
+            llama3_8b_config(num_layers=2), 2, 4096, 3, 3e-4, 1)
+    else:
+        raise ValueError(name)
+    return {"name": name, "cfg": dataclasses.asdict(cfg), "batch": batch,
+            "seq": seq, "steps": steps, "lr": lr, "micro": micro}
+
+
+# (a) fp32 layouts, (b) bf16 at GPT-2 small, (c) Llama-3-8B widths:
+# (name, config, mesh, sp, optimizer options)
+MESH_CASES = [
+    ("dp2", "gpt2_fp32_2_layers", {"dp": 2}, False, {}),
+    ("dp2_zero1", "gpt2_fp32_2_layers", {"dp": 2}, False, {"zero": 1}),
+    ("dp2_zero2", "gpt2_fp32_2_layers", {"dp": 2}, False, {"zero": 2}),
+    ("dp2_zero3", "gpt2_fp32_2_layers", {"dp": 2}, False, {"zero": 3}),
+    ("tp2", "gpt2_fp32_2_layers", {"tp": 2}, False, {}),
+    ("tp2_sp", "gpt2_fp32_2_layers", {"tp": 2}, True, {}),
+    ("dp2_flat_fp32", "gpt2_fp32_2_layers", {"dp": 2}, False,
+     {"zero": 2, "grad_comm": "fp32", "flat_state": True}),
+    ("dp2_zero2", "gpt2_small_bf16", {"dp": 2}, False, {"zero": 2}),
+    ("tp2_sp", "gpt2_small_bf16", {"tp": 2}, True, {}),
+    ("tp2_sp", "llama3_8b_2_layers", {"tp": 2}, True, {}),
+]
+
+
+def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False):
+    """A ``mesh_config`` trained from the seed-0 init on one seeded batch,
+    on ``mesh`` or in one process: losses, ms a step (steps 2 on), the
+    run's flash launches by wrapper and route, the collectives
+    (``comm_stats``), and with ``weights`` the initial and final global
+    weights (numpy, fp32)."""
+    from hetu_tpu_torch.parallel import P, comm
+    name = spec["name"]
+    cfg = GPTConfig(**{**spec["cfg"], "sp": sp})
+    batch, seq, steps = spec["batch"], spec["seq"], spec["steps"]
+    lr, micro = spec["lr"], spec["micro"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = P("dp", None) if mesh is not None else None
+    with ht.graph("define_and_run", create_new=True, mesh=mesh, seed=0,
+                  device=mesh.device if mesh is not None else "cuda") as g:
+        ids = ht.parallel_placeholder("int32", (batch, seq), pspec=spec)
+        labels = ht.parallel_placeholder("int32", (batch, seq), pspec=spec)
+        model = GPTLMHeadModel(cfg)
+        loss = model(ids, labels)
+        train_op = ht.optim.AdamOptimizer(lr=lr, **(opt_kw or {})).minimize(
+            loss)
+    g.run([], run_level="alloc")
+
+    def gathered():
+        return {_Params._norm(n):
+                g.global_value(p).float().cpu().numpy().copy()
+                for n, p in model.named_parameters()}
+    init = gathered() if weights else None
+    x, y = seeded_batch(cfg.vocab_size, batch, seq, seed=2)
+    reset_flash_counts()
+    losses, step_s = [], []
+    with comm.comm_stats() as st:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            l, _ = g.run(loss, [loss, train_op], {ids: x, labels: y},
+                         num_micro_batches=micro)
+            losses.append(float(l))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    out = {"config": name, "dtype": cfg.dtype, "global_batch": batch,
+           "seq": seq, "steps": steps, "micro_batches": micro, "lr": lr,
+           "losses": losses, "step_s": step_s,
+           "ms_per_step": 1e3 * float(np.mean(step_s[1:])),
+           "captured": g.last_run_captured, "compile_count": g.compile_count,
+           "flash": flash_counts(), "comm": st.summary(),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    if weights:
+        out["init"], out["final"] = init, gathered()
+    del g, model, ids, labels, loss, train_op
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_flash_want(cfg, seq, steps, micro):
+    """A rank's flash launches over a run: every layer once a micro-batch
+    and step, the backward by the byte rule on the first layer's k (fp32
+    for an fp32 model and for the LLaMA path, whose fp32 rotary tables
+    promote q/k)."""
+    k_dtype = torch.float32 if cfg.position == "rotary" or \
+        cfg.dtype == "float32" else torch.bfloat16
+    fused = fa._use_fused(seq, cfg.head_dim, k_dtype)
+    each = cfg.num_layers * micro * steps
+    return {"flash_fwd": each, "flash_bwd_fused": each if fused else 0,
+            "flash_bwd_dq": 0 if fused else each,
+            "flash_bwd_dkv": 0 if fused else each}
+
+
+def mesh_rank_main():
+    """One rank of phase 22's group (run by the port's ``Launcher``): joins
+    through ``rpc.distributed_init``, builds each configuration of the job
+    on its mesh in turn, writes its readings."""
+    from hetu_tpu_torch.parallel import create_mesh
+    from hetu_tpu_torch.rpc import distributed_init
+    from hetu_tpu_torch.rpc.launcher import ENV_COORD
+    with open(os.environ[MESH_ENV_JOB]) as f:
+        job = json.load(f)
+    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "1")))
+    client = distributed_init(os.environ[ENV_COORD], job["ranks"],
+                              device="cuda", timeout=MESH_COLLECTIVE_TIMEOUT)
+    refs = {}
+    results = []
+    for case, spec, shape, sp, opt_kw in job["cases"]:
+        mesh = create_mesh(shape, device="cuda")
+        name = spec["name"]
+        weights = name in job["weights"]
+        r = mesh_train(spec, mesh, sp, opt_kw, weights=weights)
+        r.update(case=case, mesh=shape, sp=sp, opt=opt_kw,
+                 backend=mesh.backend, rank=client.rank)
+        if weights:
+            if client.rank == 0:
+                if name not in refs:
+                    refs[name] = {k: dict(np.load(
+                        f"{job['ref']}.{name}.{k}.npz"))
+                        for k in ("init", "final")}
+                r["weights"] = mesh_weight_report(refs[name], r)
+            del r["init"], r["final"]
+        results.append(r)
+    with open(job["out"] + f".{client.rank}.json", "w") as f:
+        json.dump(results, f)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    client.exit()
+
+
+def mesh_weight_report(ref, got):
+    """Phase 8's update rule over the gathered weights: every tensor's
+    update within 1 % of the one-process update, no element further than
+    2 * lr * steps from it; both runs start from the same draw of the
+    seed-0 init."""
+    upd_rel, max_abs, init_abs = 0.0, 0.0, 0.0
+    for k, want in ref["final"].items():
+        init_abs = max(init_abs, float(np.abs(got["init"][k] -
+                                              ref["init"][k]).max()))
+        diff = np.abs(got["final"][k] - want)
+        max_abs = max(max_abs, float(diff.max()))
+        moved = float(np.linalg.norm(want - ref["init"][k]))
+        if moved > 0:
+            upd_rel = max(upd_rel, float(np.linalg.norm(diff)) / moved)
+    if init_abs:
+        raise AssertionError(f"the mesh run starts {init_abs} from the "
+                             f"one-process run's weights")
+    return {"param_update_rel_diff": upd_rel, "param_max_abs_diff": max_abs,
+            "init_max_abs_diff": init_abs}
+
+
+def mesh_runs(cases, compare=()):
+    """The one-process run of every configuration of ``cases`` (``[case,
+    mesh_config(...), mesh shape, sp, optimizer options]``), then the
+    cases on the rank group: (one-process readings by configuration,
+    each rank's readings).  For the configurations in ``compare`` rank 0
+    also holds its gathered weights against the one-process run's."""
+    refs = {}
+    tmp = tempfile.mkdtemp(prefix="hetu_mesh_")
+    try:
+        for spec in {c[1]["name"]: c[1] for c in cases}.values():
+            name = spec["name"]
+            refs[name] = mesh_train(spec, weights=name in compare)
+            if name in compare:
+                for k in ("init", "final"):
+                    np.savez(os.path.join(tmp, f"ref.{name}.{k}.npz"),
+                             **refs[name].pop(k))
+        note("mesh", "one-process runs", {
+            n: {k: r[k] for k in ("losses", "ms_per_step", "captured")}
+            for n, r in refs.items()})
+        runs = mesh_group(cases, tmp, compare)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return refs, runs
+
+
+def mesh_group(cases, tmp, compare=()):
+    """``cases`` on ``MESH_RANKS`` rank processes of this script, started
+    once by the port's ``Launcher``; each rank's readings.  A failing or
+    hanging rank fails the phase: the monitor has a timeout and the
+    launcher kills the group."""
+    from hetu_tpu_torch.rpc import Launcher
+    job = os.path.join(tmp, "job.json")
+    out = os.path.join(tmp, "out")
+    with open(job, "w") as f:
+        json.dump({"ranks": MESH_RANKS, "cases": cases, "out": out,
+                   "ref": os.path.join(tmp, "ref"),
+                   "weights": sorted(compare)}, f)
+    # the ranks' host threads: a share of the cores each (the card does
+    # the arithmetic; more threads only spin against each other)
+    threads = str(max(1, (os.cpu_count() or 2) // (2 * MESH_RANKS)))
+    with Launcher([sys.executable, os.path.abspath(__file__), "--mesh-rank"],
+                  num_workers=MESH_RANKS,
+                  env={MESH_ENV_JOB: job, "OMP_NUM_THREADS": threads}) as lau:
+        ok = lau.monitor(poll=0.2, timeout=MESH_GROUP_TIMEOUT)
+    if ok != MESH_RANKS:
+        raise AssertionError(f"mesh ranks failed: {lau.events}")
+    runs = []
+    for r in range(MESH_RANKS):
+        with open(out + f".{r}.json") as f:
+            runs.append(json.load(f))
+    return runs
+
+
+def mesh_nccl_size1(ref):
+    """(d) A mesh of size 1 on NCCL (a process group of one rank in this
+    process): the step is captured and its losses equal the run with no
+    mesh."""
+    import socket
+    import torch.distributed as dist
+    from hetu_tpu_torch.parallel import create_mesh, init_process_group
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    backend = init_process_group(0, 1, f"tcp://127.0.0.1:{port}",
+                                 device="cuda", timeout=60.0)
+    try:
+        mesh = create_mesh({"dp": 1}, device="cuda")
+        r = mesh_train(mesh_config("gpt2_fp32_2_layers"), mesh)
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl" or mesh.backend != "nccl" or not r["captured"] or \
+            r["losses"] != ref["losses"]:
+        raise AssertionError(f"size-1 NCCL mesh: backend {backend}, "
+                             f"captured {r['captured']}, losses "
+                             f"{r['losses']} != {ref['losses']}")
+    return {"backend": backend, "captured": r["captured"],
+            "compile_count": r["compile_count"], "losses": r["losses"],
+            "ms_per_step": r["ms_per_step"]}
+
+
+def phase_mesh():
+    """Phase 22: the multi-GPU mesh on the one card (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    refs, runs = mesh_runs([[case, mesh_config(name), shape, sp, kw]
+                            for case, name, shape, sp, kw in MESH_CASES],
+                           compare={"gpt2_fp32_2_layers"})
+    layouts = []
+    for i, (case, name, shape, sp, opt_kw) in enumerate(MESH_CASES):
+        ref = refs[name]
+        per_rank = [rk[i] for rk in runs]
+        r0 = per_rank[0]
+        spec = mesh_config(name)
+        cfg = GPTConfig(**spec["cfg"])
+        lr, steps = spec["lr"], spec["steps"]
+        tp = shape.get("tp", 1)
+        want = mesh_flash_want(cfg, spec["seq"], steps, spec["micro"])
+        row = {"layout": case, "config": name, "mesh": shape, "sp": sp,
+               "opt": opt_kw, "backend": r0["backend"],
+               "captured": r0["captured"], "losses": r0["losses"],
+               "one_process_losses": ref["losses"],
+               "ms_per_step": r0["ms_per_step"],
+               "one_process_ms_per_step": ref["ms_per_step"],
+               "local_heads": cfg.num_heads // tp,
+               "comm_by_rank": [r["comm"] for r in per_rank],
+               "flash_by_rank": [{k: v["launches"] for k, v in
+                                  r["flash"].items()} for r in per_rank],
+               "flash_routes_by_rank": [{k: v["by_route"] for k, v in
+                                         r["flash"].items()}
+                                        for r in per_rank],
+               "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
+                                             for r in per_rank]}
+        if any(r["losses"] != r0["losses"] for r in per_rank):
+            raise AssertionError(f"{case}/{name}: ranks' losses differ")
+        if r0["backend"] != "gloo" or r0["captured"]:
+            raise AssertionError(f"{case}/{name}: backend {r0['backend']}, "
+                                 f"captured {r0['captured']}")
+        for r in per_rank:
+            got = {k: v["launches"] for k, v in r["flash"].items()}
+            if got != want:
+                raise AssertionError(f"{case}/{name} rank {r['rank']}: "
+                                     f"flash launches {got} != {want}")
+            route = "wgmma" if cfg.dtype == "bfloat16" and \
+                cfg.position != "rotary" else "3xtf32"
+            for k, v in r["flash"].items():
+                if v["by_route"][route] != v["launches"]:
+                    raise AssertionError(f"{case}/{name}: {k} launches "
+                                         f"off the {route} route: {v}")
+        if name == "gpt2_fp32_2_layers":
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(r0["losses"], ref["losses"]))
+            row.update(loss_rel_diff=rel, **r0["weights"])
+            if rel > 1e-4 or r0["weights"]["param_update_rel_diff"] > 1e-2 \
+                    or r0["weights"]["param_max_abs_diff"] > \
+                    2 * lr * steps:
+                raise AssertionError(f"{case}: against one process {row}")
+        else:
+            unit, limit, gaps, ok = mesh_loss_gaps(name, r0["losses"],
+                                                   ref["losses"])
+            row["loss_gap"] = {"unit": unit, "limit": limit,
+                               "by_step": gaps}
+        note("mesh", case, name, {k: row[k] for k in (
+            "losses", "one_process_losses", "ms_per_step",
+            "one_process_ms_per_step") if k in row}, row.get("loss_gap"))
+        if "loss_gap" in row and (
+                not ok or not r0["losses"][-1] < r0["losses"][0]):
+            raise AssertionError(f"{case}/{name}: losses {r0['losses']} "
+                                 f"against one process {ref['losses']}: "
+                                 f"{row['loss_gap']}")
+        layouts.append(row)
+    size1 = mesh_nccl_size1(refs["gpt2_fp32_2_layers"])
+    launches = {k: sum(fl[k] for row in layouts
+                       for fl in row["flash_by_rank"])
+                for k in flash_wrappers()}
+    by_route = {k: {route: sum(fl[k][route] for row in layouts
+                               for fl in row["flash_routes_by_rank"])
+                    for route in ("wgmma", "3xtf32", "mma.sync")}
+                for k in flash_wrappers()}
+    out = {"ranks": MESH_RANKS, "layouts": layouts, "nccl_size1": size1,
+           "flash_launches_by_route": by_route,
+           "one_process": {n: {k: r[k] for k in ("losses", "ms_per_step",
+                                                  "captured")}
+                           for n, r in refs.items()},
+           "flash_launches": launches, "nvidia_smi": smi_line(),
+           "wall_s": time.perf_counter() - t0}
+    emit({"phase": "mesh", **out})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4513,6 +4933,7 @@ def main():
     graph = phase_graph_layer()
     spec = phase_spec_decode()
     cluster = phase_cluster()
+    mesh = phase_mesh()
     # phase 20's measured runs, spec and non-spec, add their launches:
     # kernel 5 in the full-head runs, (d)'s and (c)'s, kernel 6 in the MLA
     # runs (bf16 pages on wgmma, fp32 pages on mma.sync)
@@ -4552,18 +4973,21 @@ def main():
              "flash_bwd_fused": "gpt2/bf16"}
     entries = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2,
                "flash_bwd_fused": 2}
-    # phase 17's BERT runs (not causal) and phase 19's graph layer add
-    # their launches to the rows
+    # phase 17's BERT runs (not causal), phase 19's graph layer and phase
+    # 22's ranks add their launches to the rows
     bert_runs = list(bert.values())
     graph_launches = {n: graph["flash_launches"].get(n, 0)
                       for n in where}
+    mesh_launches = mesh["flash_launches"]
+    mesh_routes = mesh["flash_launches_by_route"]
     for name, at in where.items():
         wgmma = sum(t["wgmma_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["wgmma"]
-                for b in bert_runs) + graph_launches[name]
+                for b in bert_runs) + graph_launches[name] + \
+            mesh_routes[name]["wgmma"]
         tf32 = sum(t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["3xtf32"]
-                for b in bert_runs)
+                for b in bert_runs) + mesh_routes[name]["3xtf32"]
         mma = sum(t["tensor_core_launches"][name] - t["wgmma_launches"][name]
                   - t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["mma.sync"]
@@ -4587,10 +5011,12 @@ def main():
             "replaces": FLASH_REPLACES[name], "types": at,
             "launches": sum(t["flash_launches"][name] for t in train) +
             sum(b["flash_launches"][name] for b in bert_runs) +
-            graph_launches[name],
+            graph_launches[name] + mesh_launches[name],
             "noncausal_launches": sum(b["flash_launches"][name]
                                       for b in bert_runs),
             "graph_layer_launches": graph_launches[name],
+            "mesh_launches": mesh_launches[name],
+            "mesh_launches_by_route": mesh_routes[name],
             "wgmma_launches": wgmma,
             "launches_by_route": {"wgmma": wgmma, "3xtf32": tf32,
                                   "mma.sync": mma},
@@ -4655,4 +5081,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--mesh-rank"]:
+        mesh_rank_main()
+        sys.exit(0)
     sys.exit(main())

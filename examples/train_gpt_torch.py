@@ -8,8 +8,6 @@ on a define-and-run graph (captured once in a CUDA graph on the card),
 ``load_model``, and the same log line.  ``--device`` (default ``cuda``)
 picks the device.  As in the JAX script the loader takes its native core
 when it builds and its python path otherwise; ``main`` reports which.
-The parallel layouts, tracing and the planner come with later slices:
-their flags raise ``NotImplementedError`` naming the ROADMAP item.
 
 On the CPU (tiny widths)::
 
@@ -23,12 +21,30 @@ On the card, GPT-2 small's widths (the defaults)::
 ``main(argv)`` runs the loop and returns its readings (losses, ms/step,
 tokens/s, peak memory, the loader used), so scripts and tests can call
 it.
+
+Parallel layouts, with the JAX script's meaning: ``--dp``, ``--tp``,
+``--sp``, ``--zero``, ``--grad-comm``, ``--flat-state`` and
+``--ds-config`` (its dp, tp and ZeRO level).  When ``dp * tp > 1`` and
+the process is not a rank, ``main`` launches ``dp * tp`` ranks of this
+script through ``rpc.Launcher`` (one card: ranks share it over gloo),
+each joins by ``rpc.distributed_init`` and trains its shard of a mesh
+``{"dp": dp, "tp": tp}``; rank 0 prints the step lines, and ``main``
+returns its readings::
+
+  python examples/train_gpt_torch.py --device cpu --dp 2 --zero 2 \
+      --steps 4 --hidden 64 --layers 2 --heads 4 --seq-len 32 \
+      --vocab-size 256 --global-batch 4
+
+Pipelines (``--pp``), the planner and tracing are later slices: their
+flags raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -80,17 +96,15 @@ def parse_args(argv=None):
     # the port's own
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--launch-timeout", type=float, default=3600.0,
+                   help="seconds the launched ranks may run")
     return p.parse_args(argv)
 
 
 def check_supported(args) -> None:
     """Refuses, by name, the flags of slices still to be ported."""
-    later = {"items 10-14 (the multi-GPU mesh)": [
-        ("--dp", args.dp > 1), ("--tp", args.tp > 1), ("--pp", args.pp > 1),
-        ("--sp", args.sp), ("--grad-comm", args.grad_comm is not None),
-        ("--flat-state", args.flat_state), ("--zero", args.zero > 0),
-        ("--ds-config", args.ds_config is not None)],
-        "item 16 (the planner)": [("--auto-parallel", args.auto_parallel),
+    later = {"item 11 (pipelines)": [("--pp", args.pp > 1)],
+             "item 16 (the planner)": [("--auto-parallel", args.auto_parallel),
                                   ("--calibrate", args.calibrate)],
         "item 15 (tracing)": [("--trace-out", args.trace_out is not None)]}
     for item, flags in later.items():
@@ -106,9 +120,50 @@ def tput_fmt(tokens_per_s: float) -> str:
     return f"{tokens_per_s / 1e3:.1f}k tok/s"
 
 
+def layout(args):
+    """(dp, tp, zero) of the run: the flags, or a ds_parallel_config's."""
+    dp, tp, zero = args.dp, args.tp, args.zero
+    if args.ds_config:
+        from hetu_tpu_torch.utils.ds_config import parse_layout
+        with open(args.ds_config) as f:
+            dp, tp, pp, cfg_zero = parse_layout(json.load(f))
+        if pp > 1:
+            raise NotImplementedError("--ds-config with pp > 1: pipelines "
+                                      "are ported with ROADMAP queue 1 "
+                                      "item 11 (pipelines)")
+        zero = max(zero, int(cfg_zero))
+    return dp, tp, zero
+
+
+def launch(argv, ranks: int, timeout: float) -> dict:
+    """Runs this script as ``ranks`` processes through the port's
+    launcher; rank 0's readings."""
+    from hetu_tpu_torch.rpc import Launcher
+    fd, out = tempfile.mkstemp(prefix="train_gpt_", suffix=".json")
+    os.close(fd)
+    try:
+        with Launcher([sys.executable, os.path.abspath(__file__)] +
+                      list(argv), num_workers=ranks,
+                      env={"HETU_TRAIN_RESULT": out}) as lau:
+            ok = lau.monitor(poll=0.1, timeout=timeout)
+        if ok != ranks:
+            raise RuntimeError(f"{ranks - ok} of {ranks} ranks failed: "
+                               f"{lau.events}")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        os.remove(out)
+
+
 def main(argv=None) -> dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     check_supported(args)
+    dp, tp, zero = layout(args)
+    ranks = dp * tp
+    from hetu_tpu_torch.rpc.launcher import ENV_COORD
+    if ranks > 1 and ENV_COORD not in os.environ:
+        return launch(argv, ranks, args.launch_timeout)
     import torch
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import optim
@@ -120,16 +175,29 @@ def main(argv=None) -> dict:
     from hetu_tpu_torch.utils.checkpoint import load_model, save_model
 
     log = get_logger("train_gpt")
-    dev = ht.resolve_device(args.device)
+    mesh, rank = None, 0
+    if ranks > 1:
+        from hetu_tpu_torch.parallel import create_mesh
+        from hetu_tpu_torch.rpc import distributed_init
+        client = distributed_init(os.environ[ENV_COORD], ranks,
+                                  device=args.device)
+        mesh = create_mesh({"dp": dp, "tp": tp}, device=args.device)
+        rank = client.rank
+        dev = mesh.device
+    else:
+        dev = ht.resolve_device(args.device)
     mk = llama_config if args.model == "llama" else GPTConfig
     cfg = mk(vocab_size=args.vocab_size, hidden_size=args.hidden,
              num_layers=args.layers, num_heads=args.heads,
-             max_seq_len=args.seq_len, sp=False,
+             max_seq_len=args.seq_len, sp=args.sp,
              dtype="bfloat16" if args.bf16 else "float32")
-    micro = args.micro_batch or args.global_batch
-    num_micro = max(1, args.global_batch // micro)
+    # as the JAX script: a micro-batch a dp rank, the global batch split
+    # into num_micro of them
+    micro = args.micro_batch or max(1, args.global_batch // dp)
+    num_micro = max(1, args.global_batch // (micro * dp))
 
     # data: token stream -> fixed windows through the prefetching loader
+    # (every rank reads the whole global batch; the graph slices its rows)
     if args.data:
         tokens = np.load(args.data)
     else:
@@ -140,17 +208,22 @@ def main(argv=None) -> dict:
     loader = Dataloader(ds, batch_size=args.global_batch, shuffle=True)
 
     batch_shape = (args.global_batch, args.seq_len)
-    with ht.graph("define_and_run", create_new=True, device=dev,
+    spec = ht.P("dp", None) if mesh is not None else None
+    with ht.graph("define_and_run", create_new=True, device=dev, mesh=mesh,
                   seed=0) as g:
-        ids = ht.parallel_placeholder("int32", batch_shape,
+        ids = ht.parallel_placeholder("int32", batch_shape, pspec=spec,
                                       name="input_ids")
-        labels = ht.parallel_placeholder("int32", batch_shape, name="labels")
+        labels = ht.parallel_placeholder("int32", batch_shape, pspec=spec,
+                                         name="labels")
         model = GPTLMHeadModel(cfg)
         loss = model(ids, labels)
-        train_op = optim.AdamOptimizer(lr=args.lr).minimize(loss)
+        train_op = optim.AdamOptimizer(
+            lr=args.lr, zero=zero, grad_comm=args.grad_comm,
+            flat_state=args.flat_state).minimize(loss)
     if args.load:
         load_model(model, args.load)
-        log.info("resumed from %s", args.load)
+        if rank == 0:
+            log.info("resumed from %s", args.load)
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -172,12 +245,14 @@ def main(argv=None) -> dict:
                             num_micro_batches=num_micro)
             losses.append(out[0])
             step += 1
-            if step % args.log_every == 0 or step == args.steps:
+            if rank == 0 and (step % args.log_every == 0 or
+                              step == args.steps):
                 st = sp_prof.stats()
                 tput = (args.global_batch * args.seq_len
                         / st["mean"]) if st["mean"] else 0.0
                 print(f"step {step:5d} | loss {float(out[0]):.4f} | "
-                      f"{st['mean'] * 1e3:.1f} ms/step | {tput_fmt(tput)}")
+                      f"{st['mean'] * 1e3:.1f} ms/step | {tput_fmt(tput)}",
+                      flush=True)
     st = sp_prof.stats()
     result = {
         "steps": step, "losses": [float(v) for v in losses],
@@ -188,6 +263,11 @@ def main(argv=None) -> dict:
         "peak_memory_bytes": device_memory_stats(dev)["peak_bytes_in_use"],
         "loader": "native" if loader._lib is not None else "python",
         "micro_batches": num_micro, "compile_count": g.compile_count,
+        "captured": g.last_run_captured,
+        "layout": {"dp": dp, "tp": tp, "sp": args.sp, "zero": zero,
+                   "grad_comm": args.grad_comm,
+                   "flat_state": args.flat_state,
+                   "backend": mesh.backend if mesh is not None else None},
         "config": {"model": args.model, "vocab": cfg.vocab_size,
                    "hidden": cfg.hidden_size, "layers": cfg.num_layers,
                    "heads": cfg.num_heads, "seq": args.seq_len,
@@ -200,8 +280,17 @@ def main(argv=None) -> dict:
                       run_level=RunLevel.COMPUTE_ONLY)
         result["saved_first_batch_loss"] = float(l0)
         save_model(model, args.save)
-        print(f"saved to {args.save} | loss {float(l0):.4f} on the first "
-              f"batch")
+        if rank == 0:
+            print(f"saved to {args.save} | loss {float(l0):.4f} on the "
+                  f"first batch")
+    if mesh is not None:
+        import torch.distributed as dist
+        if rank == 0 and os.environ.get("HETU_TRAIN_RESULT"):
+            with open(os.environ["HETU_TRAIN_RESULT"], "w") as f:
+                json.dump(result, f)
+        dist.barrier()
+        dist.destroy_process_group()
+        client.exit()
     return result
 
 

@@ -36,8 +36,14 @@ cache, and ``graph("define_and_run")`` records and runs plans, with
 levels (``RunLevel``, ``run_level``).  Outside a block
 ``get_default_graph()`` is an eager graph on ``"cuda"``.  ``set_seed``
 resets the initializers' and the graphs' dropout seed streams.
+
+Meshes are SPMD by process (``parallel``): after
+``rpc.distributed_init`` (or ``parallel.init_process_group``) each rank
+builds ``graph(mesh=create_mesh({"dp": 2, "tp": 2}))`` over its local
+shards; ``examples/train_gpt_torch.py --dp 2 --tp 2`` launches the ranks
+itself.
 """
-from . import nn, optim
+from . import nn, optim, parallel
 from .core.device import (Device, DeviceGroup, DeviceGroupUnion, DeviceType,
                           resolve_device)
 from .core.dtype import (DataType, bfloat16, bool_, float4, float16, float32,
@@ -55,6 +61,8 @@ from .graph.ctor import (ConstantInitializer, HeNormalInitializer,
                          XavierUniformInitializer)
 from .graph.graph import graph
 from .graph.recompute import cpu_offload, recompute
+from .parallel import (DistributedStates, DistributedStatesHierarchy,
+                       DistributedStatesUnion, P, create_mesh)
 
 
 def gradients(loss, xs):
@@ -81,6 +89,8 @@ def set_seed(seed: int) -> None:
 
 
 __all__ = ["ConstantInitializer", "DataType", "DefineAndRunGraph",
+           "DistributedStates", "DistributedStatesHierarchy",
+           "DistributedStatesUnion", "P", "create_mesh", "parallel",
            "DefineByRunGraph", "Device", "DeviceGroup", "DeviceGroupUnion",
            "DeviceType", "EagerGraph", "GradScaler", "Graph",
            "HeNormalInitializer", "HeUniformInitializer", "NormalInitializer",

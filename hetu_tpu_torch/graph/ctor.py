@@ -8,9 +8,16 @@ materialized; otherwise from the process-wide init stream, as in the JAX
 package: each variable takes the stream's next seed when it is created,
 so the weights follow creation order, and ``set_seed`` resets the
 stream.  The draws are not the JAX package's (no threefry): tests that
-compare the two carry weights across (``models.convert``).  At one
-device a partition spec may be ``None`` or all ``None``; sharded specs
-come with the multi-GPU slice.
+compare the two carry weights across (``models.convert``).
+
+On a graph with a mesh (``graph(mesh=...)``) a ``parallel_parameter``
+holds the rank's shard of its global shape: its initializer draws the
+global value from the stream and the rank keeps its slice, so that
+every layout starts from the same weights, as in the JAX package, whose
+initializers are global.  ``blocks`` (the port's own) names the blocks of
+a fused dim 0 that are split one by one (``[q | k | v]``).  A
+``parallel_placeholder`` has the rank's local shape; ``run`` takes the
+global feed and slices it.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import numpy as np
 import torch
 
 from .graph import Graph, get_default_graph
-from .tensor import Tensor
+from .tensor import SymbolicDim, Tensor
 
 # the process-wide init stream: the last seed handed out (``set_seed``
 # sets it; the next variable takes seed + 1)
@@ -173,12 +180,22 @@ def _fans(shape):
     return shape[1] * receptive, shape[0] * receptive
 
 
-def _check_pspec(pspec, what: str) -> None:
-    if pspec is not None and any(e is not None for e in pspec):
-        raise NotImplementedError(
-            f"{what}: sharded partition specs ({pspec!r}) are ported with "
-            f"the multi-GPU mesh (ROADMAP queue 1, items 10-14); at one "
-            f"device use None")
+def _local_shape(g: Graph, global_shape: Sequence, pspec) -> tuple:
+    """The rank's shape of ``global_shape`` under ``pspec`` on the graph's
+    mesh; a symbolic dim stays as it is (the feed binds its local size)."""
+    from ..parallel.mesh import dim_split
+    out = []
+    for d, size in enumerate(global_shape):
+        entry = pspec[d] if pspec is not None and d < len(pspec) else None
+        n, _ = dim_split(entry, g.mesh)
+        if isinstance(size, SymbolicDim) or n == 1:
+            out.append(size)
+        elif int(size) % n:
+            raise ValueError(f"dim {d} of {tuple(global_shape)} is not "
+                             f"divisible by {n} shards ({pspec!r})")
+        else:
+            out.append(int(size) // n)
+    return tuple(out)
 
 
 def placeholder(dtype=None, shape: Sequence = (), name: str = "",
@@ -217,25 +234,41 @@ variable = parameter
 def parallel_placeholder(dtype, global_shape: Sequence, ds_hierarchy=None,
                          pspec=None, name: str = "",
                          graph: Optional[Graph] = None) -> Tensor:
-    """A placeholder at one device: ``pspec`` must be ``None`` or all
-    ``None``."""
+    """A placeholder of the rank's shard of ``global_shape`` under
+    ``pspec`` (the whole shape without a mesh); ``run`` takes the global
+    feed and slices it."""
+    g = graph or get_default_graph()
+    t = placeholder(dtype, _local_shape(g, global_shape, pspec), name, g)
+    t.pspec, t.global_shape = pspec, tuple(global_shape)
     if ds_hierarchy is not None:
-        raise NotImplementedError("ds_hierarchy annotations are ported "
-                                  "with the multi-GPU mesh (ROADMAP queue "
-                                  "1, items 10-14)")
-    _check_pspec(pspec, "parallel_placeholder")
-    return placeholder(dtype, global_shape, name, graph)
+        t.set_ds_hierarchy(ds_hierarchy)
+    return t
 
 
 def parallel_parameter(init: Union[Initializer, Any], global_shape: Sequence,
                        ds_hierarchy=None, pspec=None, dtype=None,
                        name: str = "", trainable: bool = True,
-                       graph: Optional[Graph] = None) -> Tensor:
-    """A parameter at one device: ``pspec`` must be ``None`` or all
-    ``None``."""
+                       graph: Optional[Graph] = None,
+                       blocks: Optional[Sequence[int]] = None) -> Tensor:
+    """A parameter holding the rank's shard of ``global_shape`` under
+    ``pspec`` (the whole value without a mesh).  The initializer draws
+    the global value and the rank keeps its slice; ``blocks`` (sizes
+    summing to dim 0) splits a fused dim 0 block by block."""
+    from ..parallel.mesh import take_shard
+    g = graph or get_default_graph()
+    if not isinstance(init, Initializer):
+        data = np.asarray(init)
+        global_shape = data.shape if global_shape is None else global_shape
+        init = ProvidedInitializer(data)
+    gshape = tuple(int(d) for d in global_shape)
+    t = Tensor(_local_shape(g, gshape, pspec), dtype or "float32",
+               name=name or "param", graph=g, trainable=trainable)
+    stream_seed = _next_seed() if hasattr(init, "seed") and \
+        init.seed is None and g.init_generator is None else None
+    g.add_variable(t, lambda: take_shard(
+        init(gshape, t.dtype, g, stream_seed), pspec, g.mesh, blocks))
+    t.pspec, t.global_shape = pspec, gshape
+    t.shard_blocks = tuple(blocks) if blocks else None
     if ds_hierarchy is not None:
-        raise NotImplementedError("ds_hierarchy annotations are ported "
-                                  "with the multi-GPU mesh (ROADMAP queue "
-                                  "1, items 10-14)")
-    _check_pspec(pspec, "parallel_parameter")
-    return parameter(init, global_shape, dtype, name, trainable, graph=graph)
+        t.set_ds_hierarchy(ds_hierarchy)
+    return t

@@ -74,9 +74,26 @@ regions and ``cpu_offload`` under ``save_on_cpu`` (``graph.recompute``).
 The plan key holds the recompute policy and the offload flag, as the JAX
 package's does; an offloaded plan runs uncaptured.  ``run(...,
 save_checkpoint=True)`` is accepted and, as in the JAX package, does
-nothing: checkpoints are written by ``utils.checkpoint``.  Meshes,
-strategy switching and the numeric sentry are ported in later slices
-and raise ``NotImplementedError``.
+nothing: checkpoints are written by ``utils.checkpoint``.
+
+Meshes (``graph(mesh=...)``, ``parallel.create_mesh``): SPMD by process.
+Every rank builds the same graph over its local shapes: a
+``parallel_placeholder`` has the rank's shard of its global shape, and
+``run`` takes the global feed and slices it (dim 0 micro-batch first: the
+feed splits into the micro-batches, and each is sharded over its axis,
+as the JAX package feeds a dp-sharded batch); a ``parallel_parameter``
+holds the rank's shard and ``reset_variable`` takes the global value.
+The layers issue their collectives as ops (``nn.parallel``); the
+optimizer syncs the gradients over the data-parallel axis (a mean) and
+scalar fetches are averaged over it, so that a fetched loss is the
+global one.  ``global_value(t)`` gathers a variable (every rank calls
+it).  Variables a ZeRO-3 optimizer shards over dp are stored as the
+rank's dim-0 chunk and gathered at the start of each micro-batch by an
+all-gather whose backward reduce-scatters.  On NCCL the step is captured
+as the one-device step is; no collective of gloo can enter a CUDA graph,
+so under gloo the step runs eagerly (``last_run_captured``).  Strategy
+switching (ROADMAP item 13) and the numeric sentry are ported in later
+slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -131,8 +148,9 @@ class Graph:
     """Op/tensor registry, variable storage and the evaluator."""
 
     def __init__(self, name: str = "graph", device="cuda",
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, mesh=None):
         self.name = name
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.ops: List[OpNode] = []
         self._var_data: Dict[int, torch.Tensor] = {}
@@ -141,6 +159,12 @@ class Graph:
         self._consts: Dict[int, Tuple[Any, Tensor]] = {}
         # the persistent gradient sums of GRAD runs, by variable id
         self._grad_accum: Dict[int, torch.Tensor] = {}
+        # variables stored as their rank's dim-0 chunk over a mesh axis
+        # (ZeRO-3): variable id -> axis
+        self._storage_axis: Dict[int, str] = {}
+        # optimizers whose working parameters may lag their state (flat
+        # ZeRO-3): called before a variable's global value is read
+        self._materializers: List[Callable] = []
         # symbolic dims a model baked at build time: id -> (dim, value,
         # who baked it)
         self._baked_dims: Dict[int, Tuple[SymbolicDim, int, str]] = {}
@@ -246,9 +270,76 @@ class Graph:
 
     def _materialize_var(self, t: Tensor) -> torch.Tensor:
         if t.id not in self._var_data:
-            val = t.producer.attrs["init_fn"]()
-            self._var_data[t.id] = val.to(device=self.device, dtype=t.dtype)
+            val = self._stored_chunk(t, t.producer.attrs["init_fn"]())
+            self._var_data[t.id] = val.to(device=self.device,
+                                          dtype=t.dtype).contiguous()
         return self._var_data[t.id]
+
+    # -- values over a mesh ---------------------------------------------------
+
+    def _stored_chunk(self, t: Tensor, local: torch.Tensor) -> torch.Tensor:
+        """The part of the rank's shard that the rank stores: all of it,
+        or under ZeRO-3 its dim-0 chunk over the storage axis."""
+        axis = self._storage_axis.get(t.id)
+        if axis is None:
+            return local
+        n, i = self.mesh.axis_size(axis), self.mesh.axis_index(axis)
+        return local.chunk(n, 0)[i]
+
+    def _local_of_global(self, t: Tensor, value):
+        """The rank's stored part of a variable's global value."""
+        if self.mesh is not None and t.global_shape is not None and \
+                tuple(value.shape) == tuple(t.global_shape):
+            from ..parallel.mesh import take_shard
+            value = take_shard(value, t.pspec, self.mesh, t.shard_blocks)
+        elif tuple(value.shape) != t.concrete_shape():
+            raise ValueError(f"value for {t.name} has shape "
+                             f"{tuple(value.shape)}, expected "
+                             f"{t.global_shape or t.shape}")
+        return self._stored_chunk(t, value)
+
+    def store_sharded(self, t: Tensor, axis: str) -> None:
+        """Stores ``t`` as the rank's dim-0 chunk over ``axis`` from now
+        on (ZeRO-3; ``run`` gathers it at each use)."""
+        if t.id in self._storage_axis:
+            return
+        cur = self._var_data.get(t.id)
+        self._storage_axis[t.id] = axis
+        if cur is not None:
+            self._var_data[t.id] = self._stored_chunk(t, cur).clone()
+            self._storage_replaced()
+
+    def global_value(self, t: Tensor) -> torch.Tensor:
+        """A variable's global value on every rank: its stored part
+        gathered over the storage axis (ZeRO-3), then over each axis of its
+        spec, fused blocks put back in order.  Every rank of the mesh must
+        call it (the gathers are collectives)."""
+        for fn in self._materializers:
+            fn(self)
+        return self.gather_global(t, self.get_tensor_value(t).detach(),
+                                  self._storage_axis.get(t.id))
+
+    def gather_global(self, t: Tensor, val: torch.Tensor,
+                      chunk_axis: Optional[str] = None) -> torch.Tensor:
+        """The global value of ``t``'s layout from the rank's part ``val``
+        (its shard, or under ``chunk_axis`` that shard's dim-0 chunk): an
+        optimizer state is laid out as its parameter.  A collective."""
+        from ..parallel import comm
+        from ..parallel.mesh import entry_axes, unblock
+        mesh = self.mesh
+        if mesh is None:
+            return val
+        if chunk_axis is not None:
+            val = comm.all_gather(val, chunk_axis, 0, mesh)
+        for d, entry in enumerate(t.pspec or ()):
+            axes = [a for a in entry_axes(entry) if mesh.axis_size(a) > 1]
+            for a in reversed(axes):     # the inner axis first
+                val = comm.all_gather(val, a, d, mesh)
+            n = int(np.prod([mesh.axis_size(a) for a in axes])) if axes \
+                else 1
+            if d == 0 and t.shard_blocks and n > 1:
+                val = unblock(val, n, t.shard_blocks)
+        return val
 
     def get_tensor_value(self, t: Tensor) -> torch.Tensor:
         if t.id in self._var_tensors:
@@ -258,12 +349,11 @@ class Graph:
     def reset_variable(self, t: Tensor, value) -> None:
         """Overwrite a variable's value (cast to its dtype and device),
         in place where the variable has storage of its shape and dtype,
-        so that captured steps keep reading it."""
+        so that captured steps keep reading it.  On a mesh ``value`` is the
+        global value (the rank keeps its shard), as in the JAX package."""
         data = value if isinstance(value, torch.Tensor) \
             else torch.from_numpy(np.array(value))
-        if tuple(data.shape) != t.concrete_shape():
-            raise ValueError(f"value for {t.name} has shape "
-                             f"{tuple(data.shape)}, expected {t.shape}")
+        data = self._local_of_global(t, data)
         cur = self._var_data.get(t.id)
         if cur is not None and cur.dtype == t.dtype and \
                 tuple(cur.shape) == tuple(data.shape):
@@ -427,8 +517,8 @@ class DefineByRunGraph(Graph):
     that later fetches reuse them instead of running upstream again."""
 
     def __init__(self, name: str = "define_by_run", device="cuda",
-                 seed: Optional[int] = None):
-        super().__init__(name, device, seed)
+                 seed: Optional[int] = None, mesh=None):
+        super().__init__(name, device, seed, mesh)
         self._computed: Dict[int, torch.Tensor] = {}
 
     def get_or_compute(self, t: Tensor) -> torch.Tensor:
@@ -485,8 +575,8 @@ class DefineAndRunGraph(Graph):
     """Symbolic graph with a plan pool."""
 
     def __init__(self, name: str = "define_and_run", device="cuda",
-                 seed: Optional[int] = None):
-        super().__init__(name, device, seed)
+                 seed: Optional[int] = None, mesh=None):
+        super().__init__(name, device, seed, mesh)
         self._plan_pool: Dict[Tuple, _Plan] = {}
         self._captures = capture.StepCache("training step")
         self._recompute_policy: Optional[str] = None
@@ -510,8 +600,7 @@ class DefineAndRunGraph(Graph):
 
     def switch_strategy(self, *args, **kwargs):
         raise NotImplementedError("switch_strategy (hot switching) is ported "
-                                  "with the multi-GPU mesh (ROADMAP queue "
-                                  "1, items 10-14)")
+                                  "in ROADMAP queue 1 item 13")
 
     def inject_numeric_fault(self, *args, **kwargs):
         raise NotImplementedError("the numeric sentry is ported in a later "
@@ -732,8 +821,8 @@ class DefineAndRunGraph(Graph):
         it runs eagerly."""
         if cur_strategy_id not in (None, 0):
             raise NotImplementedError(
-                "strategy switching (cur_strategy_id) is ported with the "
-                "multi-GPU mesh (ROADMAP queue 1, items 10-14)")
+                "strategy switching (cur_strategy_id) is ported in ROADMAP "
+                "queue 1 item 13 (hot switching)")
         if fetches is None:
             fetches = loss_or_fetches
         return self._run(fetches, feed_dict, num_micro_batches, run_level,
@@ -760,6 +849,8 @@ class DefineAndRunGraph(Graph):
         feeds = self._check_feeds(dict(feed_dict or {}))
         if self._shape_buckets is not None:
             feeds = self._bucket_feeds(feeds)
+        if self.mesh is not None:
+            feeds = {t: self._shard_feed(t, v, M) for t, v in feeds.items()}
         self._bind_symbolic_dims(feeds)
         for t, v in feeds.items():
             if t.ndim and v.shape[0] % M:
@@ -792,7 +883,8 @@ class DefineAndRunGraph(Graph):
             return self._step(entry, feeds, M, real_fetches, update_node)
 
         self.last_run_captured = static and self.device.type == "cuda" \
-            and not capture.is_eager() and not entry.offload
+            and not capture.is_eager() and not entry.offload \
+            and not self._gloo_mesh()
         if self.last_run_captured:
             if entry.step is None:
                 entry.step = self._captures.get(
@@ -804,6 +896,103 @@ class DefineAndRunGraph(Graph):
         for i in update_positions:
             out.insert(i, None)
         return out
+
+    def _gloo_mesh(self) -> bool:
+        """No gloo collective can enter a CUDA graph: a step over a gloo
+        mesh of several ranks runs eagerly."""
+        return self.mesh is not None and self.mesh.size > 1 and \
+            self.mesh.backend == "gloo"
+
+    def _shard_feed(self, t: Tensor, v, M: int):
+        """The rank's part of the global feed ``v`` of ``t`` under its
+        spec.  A sharded dim 0 splits into the ``M`` micro-batches first
+        and each is sharded, so that micro-batch ``mb`` of the rank is its
+        shard of the global micro-batch ``mb``."""
+        from ..parallel.mesh import dim_split
+        if t.pspec is None:
+            return v
+        shape = tuple(v.shape)
+        if t.global_shape is not None:
+            want = [d for d in t.global_shape]
+            if len(shape) != len(want) or any(
+                    not isinstance(w, SymbolicDim) and int(w) != g
+                    for w, g in zip(want, shape)):
+                raise ValueError(f"feed for {t.name} has shape {shape}, "
+                                 f"expected the global shape "
+                                 f"{tuple(t.global_shape)}")
+        for d, entry in enumerate(t.pspec):
+            n, i = dim_split(entry, self.mesh)
+            if n == 1:
+                continue
+            size = shape[d]
+            if d == 0 and M > 1:
+                if size % (M * n):
+                    raise ValueError(
+                        f"batch {size} of {t.name} not divisible by {M} "
+                        f"micro-batches of {n} shards")
+                w = size // M // n
+                v = v.reshape((M, size // M) + tuple(shape[1:]))
+                v = v[:, i * w:(i + 1) * w].reshape(
+                    (M * w,) + tuple(shape[1:]))
+            else:
+                if size % n:
+                    raise ValueError(f"dim {d} of the feed for {t.name} "
+                                     f"({size}) not divisible by {n}")
+                w = size // n
+                idx = (slice(None),) * d + (slice(i * w, (i + 1) * w),)
+                v = v[idx]
+            shape = tuple(v.shape)
+        return v
+
+    def _gather_stored(self, needs_grad: bool) -> Dict[int, Tuple]:
+        """Variables stored as dp chunks (ZeRO-3) gathered once a step:
+        variable id -> (chunk leaf, the gathered value, a leaf of it that
+        every micro-batch reads).  The gather is an autograd all-gather
+        whose backward reduce-scatters (a mean over the axis, as the
+        gradient sync is); ``_scatter_stored`` runs that backward once on
+        the gradient accumulated over the micro-batches."""
+        if not self._storage_axis:
+            return {}
+        from ..parallel import comm
+        out = {}
+        with comm.comm_tag("param_gather"), torch.set_grad_enabled(
+                needs_grad):
+            for tid, axis in self._storage_axis.items():
+                chunk = self._var_data[tid]
+                if needs_grad:
+                    chunk = chunk.detach().requires_grad_(True)
+                    full = comm.gather_from_group(chunk, axis, 0, self.mesh,
+                                                  grad_op="mean")
+                    out[tid] = (chunk, full,
+                                full.detach().requires_grad_(True))
+                else:
+                    full = comm.all_gather(chunk, axis, 0, self.mesh)
+                    out[tid] = (chunk, full, full)
+        return out
+
+    def _scatter_stored(self, xs: Sequence[Tensor],
+                        grads: List[torch.Tensor], stored) -> List:
+        """Gradients of the gathered ZeRO-3 variables carried back onto
+        their chunks through the gathers' backward (a reduce-scatter)."""
+        if not stored:
+            return grads
+        from ..parallel import comm
+        out = []
+        with comm.comm_tag("grad_sync"):
+            for t, g in zip(xs, grads):
+                if t.id in stored:
+                    chunk, full, _ = stored[t.id]
+                    g = torch.autograd.grad(full, chunk, grad_outputs=g)[0]
+                out.append(g)
+        return out
+
+    def _all_finite(self, finite: torch.Tensor) -> torch.Tensor:
+        """A device bool true on every rank only when it is true on all."""
+        from ..parallel import comm
+        f = finite.to(torch.float32).reshape(1)
+        for a in self.mesh.axis_names:
+            f = comm.all_reduce(f, a, "min", self.mesh)
+        return f[0] > 0
 
     def _generators(self, entry: _Plan) -> List[torch.Generator]:
         """The generators the plan's dropout ops draw from, which its
@@ -834,18 +1023,23 @@ class DefineAndRunGraph(Graph):
         if scaler is not None and not scaler.enabled:
             scaler = None
         sst = scaler.init_state(self.device) if scaler is not None else None
+        if update_node is not None:
+            update_node.attrs["optimizer"]._before_step(self, xs)
         needs_grad = update_node is not None or any(
             n.op_type == "gradients" for n in plan)
         offload = (lambda: offload_context(self.device)) \
             if entry.offload and needs_grad else contextlib.nullcontext
         fetch_vals: List[Optional[torch.Tensor]] = [None] * len(real_fetches)
         grads: Optional[List[torch.Tensor]] = None
+        stored = self._gather_stored(needs_grad)
         for mb in range(M):
             env: Dict[int, torch.Tensor] = {}
             for tid, val in self._var_data.items():
                 env[tid] = val.detach().requires_grad_(True) \
                     if needs_grad and self._var_tensors[tid].trainable \
                     else val
+            for tid, (_, _, full) in stored.items():
+                env[tid] = full
             leaves = [env[t.id] for t in xs]
             for t, val in feeds.items():
                 env[t.id] = val.chunk(M)[mb] if t.ndim else val
@@ -882,10 +1076,18 @@ class DefineAndRunGraph(Graph):
             del env, leaves
         if M > 1:
             fetch_vals = [v / M if v.ndim == 0 else v for v in fetch_vals]
+        dp_axis = update_node.attrs["optimizer"].dp_axis \
+            if update_node is not None else "dp"
+        if self.mesh is not None and self.mesh.axis_size(dp_axis) > 1:
+            from ..parallel import comm
+            with comm.comm_tag("scalar_fetch"):
+                fetch_vals = [comm.all_reduce(v, dp_axis, "mean", self.mesh)
+                              if v.ndim == 0 else v for v in fetch_vals]
         if update_node is not None:
             if M > 1:
                 for g in grads:
                     g.div_(M)
+            grads = self._scatter_stored(xs, grads, stored)
             accum = [self._grad_accum.get(x.id) for x in xs]
             if entry.level == RunLevel.GRAD:
                 # GRAD: add to the persistent sums, update nothing
@@ -898,6 +1100,8 @@ class DefineAndRunGraph(Graph):
             # a scaler skips the update (parameters and optimizer state)
             # on overflow, then grows or backs off its scale
             finite = check_finite(grads) if scaler is not None else None
+            if finite is not None and self.mesh is not None:
+                finite = self._all_finite(finite)
             update_node.attrs["optimizer"]._apply_updates(self, xs, grads,
                                                           keep=finite)
             if scaler is not None:
@@ -960,8 +1164,10 @@ class graph:
     """``with graph("define_and_run", device="cuda") as g:`` context;
     ``kind`` is ``"eager"``, ``"define_by_run"`` or ``"define_and_run"``.
 
-    ``device`` (default ``"cuda"``) holds the variables and feeds and
-    raises without a card unless ``"cpu"`` is asked for.  ``seed`` seeds
+    ``device`` (default ``"cuda"``, or the mesh's device) holds the
+    variables and feeds and raises without a card unless ``"cpu"`` is
+    asked for.  ``mesh`` (``parallel.create_mesh``) makes the graph SPMD
+    over its ranks.  ``seed`` seeds
     the graph's initializers and dropout (default: the process-wide
     streams of ``set_seed``).  Without ``create_new`` the graph is cached
     per (prefix, kind, device), as the JAX package caches per (prefix,
@@ -969,22 +1175,25 @@ class graph:
 
     def __init__(self, kind: Union[str, Graph] = "define_and_run",
                  create_new: bool = False, prefix: str = "default",
-                 num_strategy: int = -1, mesh=None, device="cuda",
+                 num_strategy: int = -1, mesh=None, device=None,
                  seed: Optional[int] = None):
-        if mesh is not None or num_strategy > 1:
+        if num_strategy > 1:
             raise NotImplementedError(
-                "meshes and multiple strategies are ported with the "
-                "multi-GPU mesh (ROADMAP queue 1, items 10-14)")
+                "multiple strategies (hot switching) are ported in ROADMAP "
+                "queue 1 item 13")
         if isinstance(kind, Graph):
             self.g = kind
             return
         if kind not in _KINDS:
             raise ValueError(f"unknown graph kind {kind!r}; have "
                              f"{sorted(_KINDS)}")
+        if device is None:
+            device = mesh.device if mesh is not None else "cuda"
         dev = resolve_device(device)
-        key = f"{prefix}_{kind}_{dev}"
+        key = f"{prefix}_{kind}_{dev}" + \
+            (f"_mesh{id(mesh)}" if mesh is not None else "")
         if create_new or key not in _default_graphs:
-            g = _KINDS[kind](key, dev, seed)
+            g = _KINDS[kind](key, dev, seed, mesh)
             if not create_new:
                 _default_graphs[key] = g
             self.g = g
@@ -993,9 +1202,13 @@ class graph:
 
     def __enter__(self) -> Graph:
         _graph_stack.append(self.g)
+        if self.g.mesh is not None:
+            self.g.mesh.__enter__()
         return self.g
 
     def __exit__(self, *exc):
+        if self.g.mesh is not None:
+            self.g.mesh.__exit__(*exc)
         _graph_stack.pop()
 
 

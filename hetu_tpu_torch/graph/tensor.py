@@ -162,6 +162,48 @@ class Tensor:
         self.trainable = trainable
         # the value of an op of an eager graph (EagerGraph)
         self._data: Optional[torch.Tensor] = None
+        # sharding over the graph's mesh (``parallel_placeholder`` and
+        # ``parallel_parameter``): the spec, the global shape the local one
+        # is a shard of, the blocks of a fused dim 0, the DS annotation
+        self.pspec = None
+        self.global_shape: Optional[Tuple[int, ...]] = None
+        self.shard_blocks: Optional[Tuple[int, ...]] = None
+        self.ds_hierarchy = None
+
+    # -- sharding annotation ----------------------------------------------------
+
+    @property
+    def ds_union(self):
+        if self.ds_hierarchy is None or self.ds_hierarchy.size() == 0:
+            return None
+        return self.ds_hierarchy.get(0)
+
+    @property
+    def distributed_states(self):
+        u = self.ds_union
+        return u.get_default_ds() if u is not None else None
+
+    def set_ds_hierarchy(self, ds_hierarchy) -> None:
+        """Annotates the tensor with a DS (a ``DistributedStates``, a
+        union, a hierarchy or a list of them), as the JAX package's
+        ``Tensor.set_ds_hierarchy``; the layout itself comes from the
+        ``pspec``."""
+        from ..parallel.dstates import (DistributedStates,
+                                        DistributedStatesHierarchy,
+                                        DistributedStatesUnion)
+        if isinstance(ds_hierarchy, DistributedStatesHierarchy):
+            self.ds_hierarchy = ds_hierarchy
+        elif isinstance(ds_hierarchy, DistributedStatesUnion):
+            self.ds_hierarchy = DistributedStatesHierarchy([ds_hierarchy])
+        elif isinstance(ds_hierarchy, DistributedStates):
+            self.ds_hierarchy = DistributedStatesHierarchy(
+                [DistributedStatesUnion([ds_hierarchy])])
+        elif isinstance(ds_hierarchy, (list, tuple)):
+            self.ds_hierarchy = DistributedStatesHierarchy(
+                [u if isinstance(u, DistributedStatesUnion)
+                 else DistributedStatesUnion([u]) for u in ds_hierarchy])
+        else:
+            raise TypeError(f"bad ds annotation: {ds_hierarchy!r}")
 
     @property
     def ndim(self) -> int:

@@ -12,7 +12,11 @@ config, through one SVD per layer).  Both return tensors under the normalised na
 ``load_module_state`` and ``module_state_numpy`` do the same for any
 module of the port under the JAX package's ``state_dict()`` names
 (attribute paths, buffers such as BatchNorm's running statistics
-included), unnormalised.
+included), unnormalised.  ``shard_state`` gives a rank of a
+tensor-parallel mesh its shard of a state dict (``param_layout``: the
+fused ``[q|k|v]`` and SwiGLU weights split block by block, as the
+model's parameters are) and ``gather_state`` puts the shards back
+together, so both packages start from one JAX state dict.
 """
 from __future__ import annotations
 
@@ -151,3 +155,96 @@ def module_state_numpy(model) -> Dict[str, np.ndarray]:
         out[n] = b.detach().float().cpu().numpy() \
             if b.is_floating_point() else b.detach().cpu().numpy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# a state dict's shards over a tensor-parallel mesh
+# ---------------------------------------------------------------------------
+
+def param_layout(cfg: GPTConfig, tp_axis: Optional[str] = None
+                 ) -> Dict[str, tuple]:
+    """Name -> (partition spec, blocks of a fused dim 0) of every weight
+    of the training model (``GPTLMHeadModel``), under the normalised
+    names: what its ``parallel_parameter``s declare."""
+    from ..parallel.mesh import P
+    tp = tp_axis or cfg.tp_axis
+    H, hd = cfg.hidden_size, cfg.head_dim
+    q, kv = cfg.num_heads * hd, cfg.kv_heads * hd
+    bias = cfg.activation == "gelu"
+    up_blocks = (cfg.ffn_size,) * 2 if cfg.activation == "swiglu" else None
+    out = {"wte.weight": (P(tp, None), None)}
+    if cfg.position == "learned":
+        out["wpe"] = (P(), None)
+    norm_keys = ("weight", "bias") if cfg.norm == "layernorm" else \
+        ("weight",)
+    for i in range(cfg.num_layers):
+        for n in ("ln_1", "ln_2"):
+            for k in norm_keys:
+                out[f"h{i}.{n}.{k}"] = (P(), None)
+        out[f"h{i}.attn.qkv.weight"] = (P(tp, None), (q, kv, kv))
+        out[f"h{i}.attn.out.weight"] = (P(None, tp), None)
+        out[f"h{i}.mlp.up.weight"] = (P(tp, None), up_blocks)
+        out[f"h{i}.mlp.down.weight"] = (P(None, tp), None)
+        if bias:
+            out[f"h{i}.attn.qkv.bias"] = (P(tp), (q, kv, kv))
+            out[f"h{i}.attn.out.bias"] = (P(), None)
+            out[f"h{i}.mlp.up.bias"] = (P(tp), up_blocks)
+            out[f"h{i}.mlp.down.bias"] = (P(), None)
+    for k in norm_keys:
+        out[f"ln_f.{k}"] = (P(), None)
+    if not cfg.tie_embeddings:
+        out["lm_head.weight"] = (P(tp, None), None)
+    return out
+
+
+class _Position:
+    """A mesh position: the three attributes the shard helpers read."""
+
+    def __init__(self, shape: Dict[str, int], coords: Dict[str, int]):
+        self.axis_names = tuple(shape)
+        self.shape, self.coords = dict(shape), dict(coords)
+
+
+def shard_state(state: Dict[str, np.ndarray], cfg: GPTConfig,
+                mesh_shape: Dict[str, int], coords: Dict[str, int]
+                ) -> Dict[str, np.ndarray]:
+    """The rank at ``coords`` of a mesh of ``mesh_shape``: its shard of a
+    global state dict (either naming convention; normalised names out),
+    the fused ``[q|k|v]`` and SwiGLU weights split block by block."""
+    from ..parallel.mesh import take_shard
+    layout = param_layout(cfg)
+    pos = _Position(mesh_shape, coords)
+    out = {}
+    for k, v in state.items():
+        name = _Params._norm(k)
+        spec, blocks = layout[name]
+        out[name] = take_shard(np.asarray(v), spec, pos, blocks)
+    return out
+
+
+def gather_state(shards: Dict[tuple, Dict[str, np.ndarray]],
+                 cfg: GPTConfig, mesh_shape: Dict[str, int]
+                 ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`shard_state`: the global state dict from the
+    shards of every position (``{tuple(coords.items()): shard dict}``)."""
+    from ..parallel.mesh import shard_pieces
+    layout = param_layout(cfg)
+    out: Dict[str, np.ndarray] = {}
+    for key, shard in shards.items():
+        pos = _Position(mesh_shape, dict(key))
+        for name, piece in shard.items():
+            spec, blocks = layout[name]
+            if name not in out:
+                gshape = [d * n for d, n in zip(
+                    piece.shape, _ways(spec, mesh_shape, piece.ndim))]
+                out[name] = np.zeros(gshape, piece.dtype)
+            for g, loc in shard_pieces(out[name].shape, spec, pos, blocks):
+                out[name][g] = piece[loc]
+    return out
+
+
+def _ways(spec, mesh_shape, ndim):
+    from ..parallel.mesh import dim_split
+    full = _Position(mesh_shape, {a: 0 for a in mesh_shape})
+    return [dim_split(spec[d] if d < len(spec) else None, full)[0]
+            for d in range(ndim)]

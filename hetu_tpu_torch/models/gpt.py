@@ -6,6 +6,17 @@ state dict carries across unchanged.  Serving and ``generate`` need only
 the config; ``GPTLMHeadModel`` and its blocks are the training model,
 built from ``hetu_tpu_torch.nn`` modules on a define-and-run graph, with
 the JAX package's parameter names.
+
+On a graph with a mesh the model is tensor parallel over ``tp_axis``
+(Megatron-LM's layout): attention runs on ``num_heads // tp`` local
+heads, and the fused ``attn.qkv`` weight is split block by block, so
+that each rank holds its q heads, its k heads and its v heads (a
+contiguous shard of the fused dim would hand rank 0 all of q and part of
+k); SwiGLU's fused ``mlp.up`` is split by its two halves the same way.
+With ``sp`` the residual stream between the blocks is split over the
+sequence.  GQA needs ``kv_heads`` divisible by tp: the JAX package also
+takes ``kv_heads < tp`` (it repeats before sharding), which the port
+refuses by name (ROADMAP queue 1 item 10b).
 """
 from __future__ import annotations
 
@@ -255,7 +266,8 @@ def check_serving_config(cfg: GPTConfig) -> None:
     with a later slice and is refused by name."""
     if cfg.num_experts > 0:
         raise NotImplementedError(
-            "MoE layers (num_experts > 0) are ported in the MoE slice")
+            "MoE layers (num_experts > 0) are ported in ROADMAP queue 1 "
+            "item 14 (MoE)")
 
 
 # ---------------------------------------------------------------------------
@@ -263,47 +275,69 @@ def check_serving_config(cfg: GPTConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def check_training_config(cfg: GPTConfig) -> None:
-    """The training model is the dense, single-device one.  MLA is a
-    serving layout that no package trains (``ValueError``); the layouts
-    still to be ported are refused by name."""
+    """The training model is the dense one.  MLA is a serving layout that
+    no package trains (``ValueError``); the layouts still to be ported are
+    refused by name."""
     if cfg.is_mla:
         raise ValueError(
             "MLA (kv_latent_dim) is a decode/serving cache layout; "
             "train full-head and convert with models.gpt.mla_state_from")
     if cfg.num_experts > 0:
         raise NotImplementedError(
-            "MoE layers (num_experts > 0) are ported in the MoE slice")
+            "MoE layers (num_experts > 0) are ported in ROADMAP queue 1 "
+            "item 14 (MoE)")
     if cfg.cp_axis:
         raise NotImplementedError(
-            "context parallelism (cp_axis) is ported with the multi-GPU "
-            "mesh (ROADMAP queue 1, items 10-14)")
+            "context parallelism (cp_axis) is ported in ROADMAP queue 1 "
+            "item 12")
+
+
+def _check_tp(c: GPTConfig, tp: int) -> None:
+    """The widths a tensor-parallel degree must divide."""
+    if tp == 1:
+        return
+    if c.kv_heads < tp:
+        raise NotImplementedError(
+            f"GQA with kv_heads ({c.kv_heads}) < tp ({tp}) is not ported: "
+            f"the JAX package repeats the kv heads before sharding them "
+            f"(ROADMAP queue 1 item 10b)")
+    for what, n in (("num_heads", c.num_heads), ("kv_heads", c.kv_heads),
+                    ("ffn size", c.ffn_size), ("vocab_size", c.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{what} {n} is not divisible by tp={tp}")
 
 
 def _norm(config: GPTConfig, name: str):
+    kw = dict(sp=config.sp, dp_axis=config.dp_axis, tp_axis=config.tp_axis,
+              dtype=config.dtype, name=name)
     if config.norm == "rmsnorm":
-        return nn.ParallelRMSNorm(config.hidden_size, dtype=config.dtype,
-                               name=name)
-    return nn.ParallelLayerNorm(config.hidden_size, dtype=config.dtype,
-                                name=name)
+        return nn.ParallelRMSNorm(config.hidden_size, **kw)
+    return nn.ParallelLayerNorm(config.hidden_size, **kw)
 
 
 class ParallelAttentionBlock(nn.Module):
     """Self-attention: fused QKV projection, rotary (LLaMA), GQA
-    expansion, attention and the output projection."""
+    expansion, attention and the output projection, on the rank's
+    ``num_heads // tp`` heads."""
 
     def __init__(self, config: GPTConfig, layer_idx: int = 0):
         super().__init__()
         check_training_config(config)
         c = self.config = config
+        tp = nn.parallel.axis_size_here(c.tp_axis)
+        _check_tp(c, tp)
+        self.heads, self.kv_heads = c.num_heads // tp, c.kv_heads // tp
         q_size = c.num_heads * c.head_dim
         kv_size = c.kv_heads * c.head_dim
         self.qkv = nn.ColumnParallelLinear(
             c.hidden_size, q_size + 2 * kv_size, bias=(c.activation == "gelu"),
+            dp_axis=c.dp_axis, tp_axis=c.tp_axis, sp=c.sp,
+            blocks=(q_size, kv_size, kv_size),
             dtype=c.dtype, init=NormalInitializer(0.0, c.init_std),
             name=f"h{layer_idx}.attn.qkv")
         self.out = nn.RowParallelLinear(
-            q_size, c.hidden_size, bias=(c.activation == "gelu"),
-            dtype=c.dtype,
+            q_size, c.hidden_size, bias=(c.activation == "gelu"), sp=c.sp,
+            dp_axis=c.dp_axis, tp_axis=c.tp_axis, dtype=c.dtype,
             init=NormalInitializer(0.0, c.init_std / math.sqrt(2 * c.num_layers)),
             name=f"h{layer_idx}.attn.out")
         self.dropout = nn.Dropout(c.dropout) if c.dropout else None
@@ -325,21 +359,22 @@ class ParallelAttentionBlock(nn.Module):
     def forward(self, x, seq_len: int, segment_ids=None):
         c = self.config
         qkv = self.qkv(x)
-        q_size = c.num_heads * c.head_dim
-        kv_size = c.kv_heads * c.head_dim
+        nh, kvh = self.heads, self.kv_heads
+        q_size = nh * c.head_dim
+        kv_size = kvh * c.head_dim
         q = ops.getitem(qkv, (Ellipsis, slice(0, q_size)))
         k = ops.getitem(qkv, (Ellipsis, slice(q_size, q_size + kv_size)))
         v = ops.getitem(qkv, (Ellipsis, slice(q_size + kv_size, None)))
-        q = q.reshape((-1, seq_len, c.num_heads, c.head_dim))
-        k = k.reshape((-1, seq_len, c.kv_heads, c.head_dim))
-        v = v.reshape((-1, seq_len, c.kv_heads, c.head_dim))
+        q = q.reshape((-1, seq_len, nh, c.head_dim))
+        k = k.reshape((-1, seq_len, kvh, c.head_dim))
+        v = v.reshape((-1, seq_len, kvh, c.head_dim))
         if c.position == "rotary":
             cos, sin = self._rotary(seq_len)
             q = ops.rotary_embed(q, cos, sin)
             k = ops.rotary_embed(k, cos, sin)
-        if c.kv_heads != c.num_heads:
-            k = ops.repeat_kv(k, c.num_heads // c.kv_heads)
-            v = ops.repeat_kv(v, c.num_heads // c.kv_heads)
+        if kvh != nh:
+            k = ops.repeat_kv(k, nh // kvh)
+            v = ops.repeat_kv(v, nh // kvh)
         attn = ops.attention(q, k, v, causal=True, segment_ids=segment_ids)
         out = self.out(attn.reshape((-1, seq_len, q_size)))
         if self.dropout is not None:
@@ -352,13 +387,17 @@ class ParallelMLP(nn.Module):
         super().__init__()
         c = config
         mult = 2 if c.activation == "swiglu" else 1
+        # SwiGLU's halves split one by one: each rank keeps its part of
+        # both, which ``ops.swiglu`` pairs up
         self.up = nn.ColumnParallelLinear(
             c.hidden_size, c.ffn_size * mult, bias=(c.activation == "gelu"),
+            dp_axis=c.dp_axis, tp_axis=c.tp_axis, sp=c.sp,
+            blocks=(c.ffn_size,) * mult if mult > 1 else None,
             dtype=c.dtype, init=NormalInitializer(0.0, c.init_std),
             name=f"h{layer_idx}.mlp.up")
         self.down = nn.RowParallelLinear(
             c.ffn_size, c.hidden_size, bias=(c.activation == "gelu"),
-            dtype=c.dtype,
+            sp=c.sp, dp_axis=c.dp_axis, tp_axis=c.tp_axis, dtype=c.dtype,
             init=NormalInitializer(0.0, c.init_std / math.sqrt(2 * c.num_layers)),
             name=f"h{layer_idx}.mlp.down")
         self.activation = c.activation
@@ -420,9 +459,11 @@ class GPTModel(nn.Module):
         super().__init__()
         check_training_config(config)
         c = self.config = config
+        _check_tp(c, nn.parallel.axis_size_here(c.tp_axis))
         self.wte = nn.VocabParallelEmbedding(
-            c.vocab_size, c.hidden_size, dtype=c.dtype,
-            init=NormalInitializer(0.0, c.init_std), name="wte")
+            c.vocab_size, c.hidden_size, dp_axis=c.dp_axis, tp_axis=c.tp_axis,
+            dtype=c.dtype, init=NormalInitializer(0.0, c.init_std),
+            name="wte")
         if c.position == "learned":
             self.wpe = parallel_parameter(
                 NormalInitializer(0.0, c.init_std),
@@ -442,6 +483,9 @@ class GPTModel(nn.Module):
             x = x + ops.getitem(self.wpe, slice(0, seq_len))
         if self.drop is not None:
             x = self.drop(x)
+        if self.config.sp:
+            # sequence parallel: the residual stream is split over tp
+            x = nn.parallel.split_seq(x, self.config.tp_axis)
         for block in self.h:
             x = block(x, seq_len, segment_ids=segment_ids)
         return self.ln_f(x)
@@ -459,13 +503,18 @@ class GPTLMHeadModel(nn.Module):
             self.lm_head = None
         else:
             self.lm_head = nn.ColumnParallelLinear(
-                c.hidden_size, c.vocab_size, bias=False, dtype=c.dtype,
+                c.hidden_size, c.vocab_size, bias=False, dp_axis=c.dp_axis,
+                tp_axis=c.tp_axis, sp=c.sp, dtype=c.dtype,
                 init=NormalInitializer(0.0, c.init_std), name="lm_head")
 
     def logits(self, input_ids, seq_len: Optional[int] = None,
                segment_ids=None):
+        """The logits, split over tp on the vocab (whole without tp)."""
+        c = self.config
         x = self.transformer(input_ids, seq_len, segment_ids=segment_ids)
         if self.lm_head is None:
+            x = nn.parallel.gather_seq(x, c.tp_axis) if c.sp \
+                else nn.parallel.copy_to(x, c.tp_axis)
             return ops.matmul(x, self.transformer.wte.weight, trans_b=True)
         return self.lm_head(x)
 
@@ -476,15 +525,21 @@ class GPTLMHeadModel(nn.Module):
         (``ops.fused_lm_cross_entropy``), the tied head included."""
         c = self.config
         if labels is not None and c.fused_lm_ce:
+            if nn.parallel.axis_size_here(c.tp_axis) > 1:
+                raise NotImplementedError(
+                    "fused_lm_ce over a vocab split by tp is not ported "
+                    "(ROADMAP queue 1 item 10b)")
             x = self.transformer(input_ids, seq_len,
                                  segment_ids=segment_ids)
             w = self.lm_head.weight if self.lm_head is not None \
                 else self.transformer.wte.weight
-            return ops.fused_lm_cross_entropy(x, w, labels,
+            loss = ops.fused_lm_cross_entropy(x, w, labels,
                                               ignore_index=-100)
+            return nn.parallel.dp_mean_loss(loss, labels, -100, c.dp_axis)
         logits = self.logits(input_ids, seq_len, segment_ids=segment_ids)
         if labels is None:
             return logits
         return nn.vocab_parallel_cross_entropy(
-            logits, labels, ignore_index=-100)
+            logits, labels, dp_axis=c.dp_axis, tp_axis=c.tp_axis,
+            ignore_index=-100)
 

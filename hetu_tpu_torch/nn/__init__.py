@@ -1,14 +1,16 @@
 """Modules of the port (``hetu_tpu.nn`` counterpart): the containers, the
-standard layers and the model-parallel layers at one device."""
+standard layers and the model-parallel layers (TP, SP, vocab-parallel)
+over the graph's mesh."""
 from .layers import (AvgPool2d, BatchNorm2d, BCELoss, Conv2d,
                      CrossEntropyLoss, Dropout, Embedding, GELU, GeLU,
                      Identity, KLDivLoss, LayerNorm, LeakyReLU, Linear,
                      MaxPool2d, MSELoss, NLLLoss, ReLU, RMSNorm, Sigmoid, SiLU,
                      Softmax, Tanh)
 from .module import Module, ModuleDict, ModuleList, Sequential
-from .parallel import (ColumnParallelLinear, ParallelLayerNorm,
-                       ParallelRMSNorm, RowParallelLinear,
-                       VocabParallelEmbedding, sharded,
+from .parallel import (ColumnParallelLinear, ParallelEmbedding,
+                       ParallelLayerNorm, ParallelRMSNorm, RowParallelLinear,
+                       VocabParallelEmbedding, config2ds,
+                       parallel_data_provider, sharded,
                        vocab_parallel_cross_entropy)
 
 __all__ = [
@@ -18,6 +20,7 @@ __all__ = [
     "SiLU", "Tanh", "Sigmoid", "LeakyReLU", "Softmax",
     "NLLLoss", "CrossEntropyLoss", "MSELoss", "BCELoss", "KLDivLoss",
     "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
-    "ParallelLayerNorm", "ParallelRMSNorm", "vocab_parallel_cross_entropy",
-    "sharded",
+    "ParallelEmbedding", "ParallelLayerNorm", "ParallelRMSNorm",
+    "vocab_parallel_cross_entropy", "sharded", "config2ds",
+    "parallel_data_provider",
 ]

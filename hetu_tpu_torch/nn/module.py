@@ -65,8 +65,14 @@ class Module(torch.nn.Module):
 
     def state_dict(self) -> "OrderedDict[str, torch.Tensor]":
         """Attribute-path name -> the parameter's current value, then the
-        buffers."""
-        out = OrderedDict((name, p.get_data().detach())
+        buffers.  On a mesh of several ranks the values are global
+        (``Graph.global_value``: every rank calls it)."""
+        def value(p):
+            mesh = getattr(p.graph, "mesh", None)
+            if mesh is not None and mesh.size > 1:
+                return p.graph.global_value(p)
+            return p.get_data().detach()
+        out = OrderedDict((name, value(p))
                           for name, p in self.named_parameters())
         for name, b in self.named_buffers():
             out[name] = b

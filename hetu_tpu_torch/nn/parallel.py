@@ -1,55 +1,198 @@
-"""Model-parallel layers at one device (counterpart of
+"""Model-parallel layers: TP, SP and vocab-parallel (counterpart of
 ``hetu_tpu.nn.parallel``).
 
-The layers keep the JAX package's constructor arguments (``dp_axis``,
-``tp_axis``, ``seq_axis``, ``sp``) and parameter names, so a model reads
-the same; at one device the partition annotations are identities
-(``sharded`` returns its input).  Sharding over several cards comes with
-the multi-GPU mesh (ROADMAP queue 1, items 10-14).
+The JAX layers annotate parameters and activations with
+``PartitionSpec``s and let GSPMD insert the collectives.  Here each rank
+holds its shard (``parallel_parameter`` slices the global value) and the
+layers issue the collectives themselves, as Megatron-LM's do, through
+the autograd pairs of ``parallel.comm``:
+
+- ``ColumnParallelLinear``: W split along out over tp.  The input enters
+  by ``copy_to_group`` (its gradient summed over tp) or, with ``sp``,
+  gathered over the sequence (backward reduce-scatter);
+  ``gather_output`` gathers the features.
+- ``RowParallelLinear``: W split along in; the partial product is
+  all-reduced over tp, or with ``sp`` reduce-scattered onto sequence
+  shards; the bias is added after.
+- ``VocabParallelEmbedding``: a masked local lookup plus an all-reduce
+  over tp; ``ParallelEmbedding`` splits the hidden dim (its output stays
+  split).
+- ``ParallelLayerNorm`` / ``ParallelRMSNorm`` with ``sp``: each rank
+  normalizes its sequence shard, so each weight's gradient is summed over
+  tp.
+- ``vocab_parallel_cross_entropy``: max and sum-exp all-reduced over tp,
+  the target's logit picked by its owner; the mean over the valid tokens
+  (``ignore_index``) is a global one, a sum and a count reduced over dp.
+  Every layout, one device included, runs the same reduction: the sum in
+  fp32, the result in the logits' dtype.
+
+On a graph without a mesh, or on an axis of size 1, each layer is the
+one-device layer, op for op.  Parameter names and constructor arguments
+are the JAX package's; ``ColumnParallelLinear`` takes ``sp`` (the JAX
+layer reads it from its input's sharding) and ``blocks`` (a fused
+``[q | k | v]`` or SwiGLU weight is split block by block).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from ..ops import functional as ops
 from ..graph.ctor import (ConstantInitializer, Initializer,
                           NormalInitializer, XavierNormalInitializer,
                           parallel_parameter)
+from ..graph.graph import get_default_graph
+from ..parallel import comm
+from ..parallel.dstates import (DUPLICATE, NULL_HETERO_DIM,
+                                DistributedStates, DistributedStatesUnion)
+from ..parallel.mesh import P
 from .module import Module
 
 
 def sharded(t, pspec=None, tag: Optional[str] = None):
-    """The identity at one device."""
+    """The identity: in the JAX package a sharding constraint that GSPMD
+    reads; here each layer moves its data itself."""
     return t
 
 
+def _mesh_of(x):
+    g = getattr(x, "graph", None)
+    mesh = getattr(g, "mesh", None) if g is not None else None
+    return mesh if mesh is not None else comm.current_mesh()
+
+
+def axis_size_here(axis: Optional[str]) -> int:
+    """The size of ``axis`` on the mesh of the graph being built (1
+    without one)."""
+    mesh = getattr(get_default_graph(), "mesh", None) \
+        if axis is not None else None
+    return 1 if mesh is None else mesh.axis_size(axis)
+
+
+def _active(x, axis: Optional[str]):
+    """The mesh when ``axis`` has more than one rank on it, else None."""
+    mesh = _mesh_of(x)
+    return mesh if axis and mesh is not None and \
+        mesh.axis_size(axis) > 1 else None
+
+
+def _comm_op(name: str, fn, x, mesh, **attrs):
+    """A collective as a graph op (or at once on a torch tensor)."""
+    return ops._op(name, fn, [x], {"mesh": mesh, **attrs})
+
+
+def copy_to(x, axis: str):
+    """Identity forward; the gradient is summed over ``axis``."""
+    mesh = _active(x, axis)
+    if mesh is None:
+        return x
+    return _comm_op("copy_to_group", lambda v, mesh, axis:
+                    comm.copy_to_group(v, axis, mesh), x, mesh, axis=axis)
+
+
+def reduce_from(x, axis: str, grad_scale: float = 1):
+    """All-reduce (sum) forward; the gradient passes through."""
+    mesh = _active(x, axis)
+    if mesh is None:
+        return x
+    return _comm_op("reduce_from_group", lambda v, mesh, axis, grad_scale:
+                    comm.reduce_from_group(v, axis, mesh, grad_scale), x,
+                    mesh, axis=axis, grad_scale=grad_scale)
+
+
+def gather_seq(x, axis: str, dim: int = 1):
+    """All-gather along the sequence; the backward reduce-scatters."""
+    mesh = _active(x, axis)
+    if mesh is None:
+        return x
+    return _comm_op("sp_gather", lambda v, mesh, axis, dim:
+                    comm.gather_from_group(v, axis, dim, mesh), x, mesh,
+                    axis=axis, dim=dim)
+
+
+def scatter_seq(x, axis: str, dim: int = 1):
+    """Reduce-scatter onto sequence shards; the backward all-gathers."""
+    mesh = _active(x, axis)
+    if mesh is None:
+        return x
+    return _comm_op("sp_reduce_scatter", lambda v, mesh, axis, dim:
+                    comm.reduce_scatter_to_group(v, axis, dim, mesh), x,
+                    mesh, axis=axis, dim=dim)
+
+
+def split_seq(x, axis: str, dim: int = 1):
+    """This rank's sequence shard of a replicated value; the backward
+    all-gathers."""
+    mesh = _active(x, axis)
+    if mesh is None:
+        return x
+    return _comm_op("sp_split", lambda v, mesh, axis, dim:
+                    comm.split_to_group(v, axis, dim, mesh), x, mesh,
+                    axis=axis, dim=dim)
+
+
+def gather_features(x, axis: str):
+    """All-gather the last dim; the backward keeps this rank's slice."""
+    mesh = _active(x, axis)
+    if mesh is None:
+        return x
+    return _comm_op("tp_gather_output", lambda v, mesh, axis:
+                    comm.gather_output(v, axis, -1, mesh), x, mesh,
+                    axis=axis)
+
+
+def _blocks_ok(blocks, tp: int, name: str) -> None:
+    for b in blocks or ():
+        if b % tp:
+            raise ValueError(f"{name}: block {b} of {tuple(blocks)} is not "
+                             f"divisible by tp={tp}")
+
+
 class ColumnParallelLinear(Module):
-    """Y = X W^T (+ b), W [out, in]."""
+    """Y = X W^T (+ b), W [out, in] split along out over ``tp_axis``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  gather_output: bool = False, dp_axis: str = "dp",
                  tp_axis: str = "tp", seq_axis: Optional[str] = None,
                  dtype=None, init: Optional[Initializer] = None,
-                 name: str = "colp"):
+                 name: str = "colp", sp: bool = False,
+                 blocks: Optional[Sequence[int]] = None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
+        self.gather_output, self.sp = gather_output, sp
+        self.dp_axis, self.tp_axis, self.seq_axis = dp_axis, tp_axis, \
+            seq_axis
+        _blocks_ok(blocks, axis_size_here(tp_axis), name)
         self.weight = parallel_parameter(
             init or XavierNormalInitializer(), (out_features, in_features),
-            dtype=dtype, name=f"{name}.weight")
+            pspec=P(tp_axis, None), dtype=dtype, name=f"{name}.weight",
+            blocks=blocks)
         if bias:
             self.bias = parallel_parameter(
-                ConstantInitializer(0.0), (out_features,), dtype=dtype,
-                name=f"{name}.bias")
+                ConstantInitializer(0.0), (out_features,), pspec=P(tp_axis),
+                dtype=dtype, name=f"{name}.bias", blocks=blocks)
         else:
             self.register_parameter("bias", None)
 
+    def ds(self, num_devices: int, tp: int) -> DistributedStates:
+        return DistributedStates(num_devices,
+                                 {0: tp, DUPLICATE: num_devices // tp},
+                                 order=[-1, 0])
+
     def forward(self, x):
-        return ops.linear(x, self.weight, self.bias, trans_b=True)
+        x = gather_seq(x, self.tp_axis) if self.sp \
+            else copy_to(x, self.tp_axis)
+        out = ops.linear(x, self.weight, self.bias, trans_b=True)
+        return gather_features(out, self.tp_axis) if self.gather_output \
+            else out
 
 
 class RowParallelLinear(Module):
-    """Y = X W^T, then + b (the bias is added after the product, as after
-    the tensor-parallel reduction in the JAX package)."""
+    """Y = X W^T, W [out, in] split along in over ``tp_axis``; the partial
+    product is all-reduced, or with ``sp`` reduce-scattered onto sequence
+    shards, and the bias added after."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  sp: bool = False, dp_axis: str = "dp", tp_axis: str = "tp",
@@ -57,24 +200,67 @@ class RowParallelLinear(Module):
                  init: Optional[Initializer] = None, name: str = "rowp"):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
+        self.sp = sp
+        self.dp_axis, self.tp_axis, self.seq_axis = dp_axis, tp_axis, \
+            seq_axis
         self.weight = parallel_parameter(
             init or XavierNormalInitializer(), (out_features, in_features),
-            dtype=dtype, name=f"{name}.weight")
+            pspec=P(None, tp_axis), dtype=dtype, name=f"{name}.weight")
         if bias:
             self.bias = parallel_parameter(
-                ConstantInitializer(0.0), (out_features,), dtype=dtype,
-                name=f"{name}.bias")
+                ConstantInitializer(0.0), (out_features,), pspec=P(),
+                dtype=dtype, name=f"{name}.bias")
         else:
             self.register_parameter("bias", None)
 
+    def ds(self, num_devices: int, tp: int) -> DistributedStates:
+        return DistributedStates(num_devices,
+                                 {1: tp, DUPLICATE: num_devices // tp},
+                                 order=[-1, 1])
+
     def forward(self, x):
         out = ops.linear(x, self.weight, None, trans_b=True)
+        out = scatter_seq(out, self.tp_axis) if self.sp \
+            else reduce_from(out, self.tp_axis)
         if self.bias is not None:
-            out = out + self.bias
+            # with sp each rank adds the bias to its own rows: its
+            # gradient is summed over tp
+            out = out + (copy_to(self.bias, self.tp_axis) if self.sp
+                         else self.bias)
         return out
 
 
+class ParallelEmbedding(Module):
+    """Embedding split along the hidden dim; the output stays split on
+    it."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 dp_axis: str = "dp", tp_axis: str = "tp", dtype=None,
+                 init: Optional[Initializer] = None, name: str = "embed"):
+        super().__init__()
+        self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
+        self.dp_axis, self.tp_axis = dp_axis, tp_axis
+        self.weight = parallel_parameter(
+            init or NormalInitializer(0.0, 0.02),
+            (num_embeddings, embedding_dim), pspec=P(None, tp_axis),
+            dtype=dtype, name=f"{name}.weight")
+
+    def forward(self, ids):
+        return ops.embedding_lookup(self.weight, ids)
+
+
+def _vocab_lookup(table, ids, start=0):
+    local = ids.long() - start
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = torch.nn.functional.embedding(
+        torch.where(inside, local, torch.zeros_like(local)), table)
+    return rows * inside[..., None].to(rows.dtype)
+
+
 class VocabParallelEmbedding(Module):
+    """Embedding split along the vocab: each rank looks up the ids in its
+    range (zero rows elsewhere) and the rows are summed over tp."""
+
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  dp_axis: str = "dp", tp_axis: str = "tp",
                  seq_axis: Optional[str] = None, dtype=None,
@@ -82,15 +268,33 @@ class VocabParallelEmbedding(Module):
                  name: str = "vocab_embed"):
         super().__init__()
         self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
+        self.dp_axis, self.tp_axis, self.seq_axis = dp_axis, tp_axis, \
+            seq_axis
         self.weight = parallel_parameter(
             init or NormalInitializer(0.0, 0.02),
-            (num_embeddings, embedding_dim), dtype=dtype, name=f"{name}.weight")
+            (num_embeddings, embedding_dim), pspec=P(tp_axis, None),
+            dtype=dtype, name=f"{name}.weight")
+
+    def ds(self, num_devices: int, tp: int) -> DistributedStates:
+        return DistributedStates(num_devices,
+                                 {0: tp, DUPLICATE: num_devices // tp},
+                                 order=[-1, 0])
 
     def forward(self, ids):
-        return ops.embedding_lookup(self.weight, ids)
+        mesh = _active(self.weight, self.tp_axis)
+        if mesh is None:
+            return ops.embedding_lookup(self.weight, ids)
+        start = mesh.axis_index(self.tp_axis) * \
+            (self.num_embeddings // mesh.axis_size(self.tp_axis))
+        rows = ops._op("vocab_parallel_lookup", _vocab_lookup,
+                       [self.weight, ids], {"start": start})
+        return reduce_from(rows, self.tp_axis)
 
 
 class ParallelLayerNorm(Module):
+    """LayerNorm; with ``sp`` each rank normalizes its sequence shard and
+    the weights' gradients are summed over tp."""
+
     def __init__(self, normalized_shape, sp: bool = False,
                  dp_axis: str = "dp", tp_axis: str = "tp",
                  seq_axis: Optional[str] = None, eps: float = 1e-5,
@@ -98,29 +302,101 @@ class ParallelLayerNorm(Module):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
-        self.eps = eps
+        self.sp, self.eps = sp, eps
+        self.dp_axis, self.tp_axis, self.seq_axis = dp_axis, tp_axis, \
+            seq_axis
         self.weight = parallel_parameter(ConstantInitializer(1.0),
-                                         tuple(normalized_shape), dtype=dtype,
-                                         name=f"{name}.weight")
+                                         tuple(normalized_shape), pspec=P(),
+                                         dtype=dtype, name=f"{name}.weight")
         self.bias = parallel_parameter(ConstantInitializer(0.0),
-                                       tuple(normalized_shape), dtype=dtype,
-                                       name=f"{name}.bias")
+                                       tuple(normalized_shape), pspec=P(),
+                                       dtype=dtype, name=f"{name}.bias")
 
     def forward(self, x):
-        return ops.layer_norm(x, self.weight, self.bias, self.eps)
+        w, b = self.weight, self.bias
+        if self.sp:
+            w, b = copy_to(w, self.tp_axis), copy_to(b, self.tp_axis)
+        return ops.layer_norm(x, w, b, self.eps)
 
 
 class ParallelRMSNorm(Module):
+    """RMSNorm with sequence-parallel support (as ``ParallelLayerNorm``)."""
+
     def __init__(self, dim: int, sp: bool = False, dp_axis: str = "dp",
                  tp_axis: str = "tp", seq_axis: Optional[str] = None,
                  eps: float = 1e-6, dtype=None, name: str = "rmsnorm"):
         super().__init__()
-        self.eps = eps
+        self.sp, self.eps = sp, eps
+        self.dp_axis, self.tp_axis, self.seq_axis = dp_axis, tp_axis, \
+            seq_axis
         self.weight = parallel_parameter(ConstantInitializer(1.0), (dim,),
-                                         dtype=dtype, name=f"{name}.weight")
+                                         pspec=P(), dtype=dtype,
+                                         name=f"{name}.weight")
 
     def forward(self, x):
-        return ops.rms_norm(x, self.weight, self.eps)
+        w = copy_to(self.weight, self.tp_axis) if self.sp else self.weight
+        return ops.rms_norm(x, w, self.eps)
+
+
+def _vocab_parallel_ce(lg, target, mesh=None, tp_axis="tp", start=0,
+                       ignore_index=None):
+    """Per-token cross entropy of vocab-sharded logits: the log-sum-exp
+    from the max and the sum of exps reduced over tp, the target's logit
+    from its owner.  Computed in fp32 and returned in the logits' dtype,
+    as one device's log-softmax is."""
+    dtype = lg.dtype
+    lg = lg.float()
+    if lg.is_meta:
+        return lg.new_empty(lg.shape[:-1], dtype=dtype)
+    m = comm.all_reduce(lg.detach().amax(-1), tp_axis, "max", mesh)
+    s = comm.reduce_from_group(torch.exp(lg - m[..., None]).sum(-1),
+                               tp_axis, mesh)
+    t = target.long()
+    local = t - start
+    inside = (local >= 0) & (local < lg.shape[-1])
+    picked = torch.gather(lg, -1, torch.where(inside, local, 0)[..., None])
+    picked = comm.reduce_from_group(picked[..., 0] * inside, tp_axis, mesh)
+    loss = (torch.log(s) + m - picked).to(dtype)
+    if ignore_index is not None:
+        loss = loss * (t != ignore_index)
+    return loss
+
+
+def _global_mean(loss_sum, count, mesh, dp_axis):
+    """The global mean from a local sum and count: both summed over dp;
+    the sum's backward is scaled by dp because the optimizer averages the
+    gradients over dp."""
+    dp = mesh.axis_size(dp_axis) if mesh is not None else 1
+    if dp > 1:
+        loss_sum = comm.reduce_from_group(loss_sum, dp_axis, mesh,
+                                          grad_scale=dp)
+        count = comm.all_reduce(count, dp_axis, "sum", mesh)
+    return loss_sum / torch.clamp_min(count, 1)
+
+
+def _ce_reduce(loss, target, mesh=None, dp_axis="dp", reduction="mean",
+               ignore_index=None):
+    """The batch's loss from per-token losses, one path for every layout
+    (``mesh`` None is dp 1): the sum accumulates in fp32 and is summed
+    over dp, and the result has the losses' dtype, rounded as one
+    device's ``sum`` or ``mean`` rounds it.  With ``ignore_index`` the
+    mean is over the valid tokens of the global batch (their count
+    summed over dp), never a mean of means."""
+    if loss.is_meta or reduction == "none":
+        return loss if reduction == "none" else loss.new_empty(())
+    dp = mesh.axis_size(dp_axis) if mesh is not None else 1
+    total = loss.float().sum()
+    if dp > 1:
+        # the backward scales by dp: the optimizer averages over dp
+        total = comm.reduce_from_group(total, dp_axis, mesh, grad_scale=dp)
+    if reduction == "sum":
+        return total.to(loss.dtype)
+    if ignore_index is None:
+        return (total / (loss.numel() * dp)).to(loss.dtype)
+    count = (target != ignore_index).sum()
+    if dp > 1:
+        count = comm.all_reduce(count, dp_axis, "sum", mesh)
+    return total.to(loss.dtype) / torch.clamp_min(count, 1)
 
 
 def vocab_parallel_cross_entropy(logits, target, dp_axis: str = "dp",
@@ -128,6 +404,82 @@ def vocab_parallel_cross_entropy(logits, target, dp_axis: str = "dp",
                                  seq_axis: Optional[str] = None,
                                  reduction: str = "mean",
                                  ignore_index: Optional[int] = None):
-    """Softmax cross entropy over the whole vocabulary."""
-    return ops.softmax_cross_entropy(logits, target, reduction=reduction,
-                                     ignore_index=ignore_index)
+    """Softmax cross entropy over the whole vocabulary of logits split
+    over ``tp_axis``; ``mean`` runs over the valid tokens of the global
+    batch.  Every layout, one device included, takes the per-token
+    losses in the logits' dtype and then one reduction."""
+    mesh = _mesh_of(logits)
+    tp = mesh.axis_size(tp_axis) if mesh is not None else 1
+    if tp > 1:
+        start = mesh.axis_index(tp_axis) * logits.shape[-1]
+        loss = ops._op("vocab_parallel_cross_entropy", _vocab_parallel_ce,
+                       [logits, target],
+                       {"mesh": mesh, "tp_axis": tp_axis, "start": start,
+                        "ignore_index": ignore_index})
+    else:
+        loss = ops.softmax_cross_entropy(logits, target, reduction="none",
+                                         ignore_index=ignore_index)
+    return ops._op("dp_loss_reduce", _ce_reduce, [loss, target],
+                   {"mesh": mesh, "dp_axis": dp_axis, "reduction": reduction,
+                    "ignore_index": ignore_index})
+
+
+def dp_mean_loss(loss, target, ignore_index: Optional[int],
+                 dp_axis: str = "dp"):
+    """A loss that is the mean over the rank's valid tokens, made the
+    mean over the global batch's (a sum and a count over dp)."""
+    mesh = _active(loss, dp_axis)
+    if mesh is None:
+        return loss
+
+    def _impl(l, t, mesh=None, dp_axis="dp", ignore_index=None):
+        if l.is_meta:
+            return l
+        count = (t != ignore_index).sum().to(l.dtype) \
+            if ignore_index is not None else \
+            torch.tensor(float(t.numel()), device=l.device)
+        return _global_mean(l * torch.clamp_min(count, 1), count, mesh,
+                            dp_axis)
+    return ops._op("dp_loss_mean", _impl, [loss, target],
+                   {"mesh": mesh, "dp_axis": dp_axis,
+                    "ignore_index": ignore_index})
+
+
+# ---------------------------------------------------------------------------
+# host-side data slicing and the JSON ds config IR (reference config2ds)
+# ---------------------------------------------------------------------------
+
+def parallel_data_provider(global_data: np.ndarray, ds: DistributedStates,
+                           device_index: int) -> np.ndarray:
+    """The local shard of a global host array."""
+    return global_data[ds.local_slice(global_data.shape, device_index)]
+
+
+def config2ds(config: Dict) -> Tuple[DistributedStatesUnion, List[List[int]]]:
+    """One JSON ds config entry as a DS union and its device-id groups.
+    Keys: ``type`` (placeholder|variable), ``split`` {dim: [counts a
+    union]}, ``dup`` [counts], ``device_group_union`` [[ids...]],
+    ``zero``."""
+    ds_list, dg_list = [], []
+    if config["type"] == "placeholder":
+        hetero_dim = 0
+    elif config["type"] == "variable":
+        hetero_dim = -1
+    else:
+        raise ValueError(f"unsupported type {config['type']!r}")
+    hetero_sum = len(config["device_group_union"])
+    if hetero_sum == 1:
+        hetero_dim = NULL_HETERO_DIM
+    for i in range(hetero_sum):
+        num_devices = len(config["device_group_union"][i]) * hetero_sum
+        split = {int(k): v[i] for k, v in config.get("split", {}).items()}
+        states = {DUPLICATE: config["dup"][i], **split}
+        zero = False
+        if config["type"] == "placeholder":
+            order = sorted(split.keys()) + [-1]
+        else:
+            order = [-1] + sorted(split.keys())
+            zero = bool(config.get("zero", False))
+        ds_list.append(DistributedStates(num_devices, states, order, zero))
+        dg_list.append(list(config["device_group_union"][i]))
+    return DistributedStatesUnion(ds_list, hetero_dim), dg_list

@@ -870,8 +870,8 @@ def parallel_attention(q, k, v, causal=True, softmax_scale=None,
             f"parallel_attention requires a graph mesh with axis "
             f"{cp_axis!r}; got mesh={mesh}. Use ops.attention for non-CP "
             f"runs instead of silently dropping context parallelism. "
-            f"Meshes and the ring and Ulysses attention come with ROADMAP "
-            f"queue 1 item 12.")
+            f"The ring and Ulysses attention come with ROADMAP queue 1 "
+            f"item 12.")
     if cp_impl not in ("ring", "ulysses"):
         raise ValueError(f"cp_impl must be 'ring' or 'ulysses', "
                          f"got {cp_impl!r}")

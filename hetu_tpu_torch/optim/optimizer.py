@@ -31,9 +31,39 @@ Checkpoints carry the JAX package's state keys: ``checkpoint_state`` and
 ``load_checkpoint_state`` map between them and this optimizer's tensors
 (``opt.step`` int32 for Adam's fp32 step count, no ``opt.betas``;
 Adafactor's optax leaves by index, ``opt.optax@@leafNNNN``, in the order
-of optax's state tree).  ZeRO, flat state, explicit gradient
-communication and the numeric sentry come with later slices and raise
-``NotImplementedError``.
+of optax's state tree).  On a mesh they hold global values (every rank
+calls them).
+
+On a graph with a mesh whose ``dp_axis`` has more than one rank, the
+update first syncs the gradients over it, a mean (the loss's own dp sum
+is scaled to match, ``nn.parallel``):
+
+- ``zero=0``: coalesced all-reduce in size-capped buckets
+  (``comm.all_reduce_coalesced``, tag ``grad_sync``), over the transport
+  ``grad_comm`` names (``None`` is ``"fp32"``: one all-reduce a bucket,
+  elementwise the same as one a tensor).
+- ``zero=1``: the same sync; the states hold the rank's dim-0 chunk of
+  each parameter whose dim 0 is free of other axes and divisible by dp
+  (the JAX package's rule); the rank updates that chunk and the
+  parameter is all-gathered over dp (tag ``param_comm``).
+- ``zero=2``: those parameters' gradients are reduce-scattered instead.
+- ``zero=3``: those parameters are stored dp-sharded at rest
+  (``Graph.store_sharded``) and gathered at each use by an all-gather
+  whose backward reduce-scatters; nothing is gathered after the update.
+- ``flat_state=True`` (with ``grad_comm`` and ``zero`` 1-3, no parameter
+  split by a mesh axis): the fp32 master and the moments live in flat per-bucket
+  buffers of the coalesced reduce-scatter's geometry
+  (``optim.flat_state``): a reduce-scatter chain a bucket, the local
+  chunk's update, and a gather of the updated parameters in their dtype
+  (``param_comm``), or under ZeRO-3 a gather of the working parameters
+  from the master before the step (``param_gather``).
+
+``max_grad_norm`` clips by the global norm: each piece's squares summed
+over the axes it is split over (tp for a tp-sharded parameter, dp for a
+chunk), so that every parameter counts once.  Adafactor's factored
+statistics are not sharded: under ZeRO it syncs the whole gradient and
+updates whole parameters, and it refuses ``flat_state`` (ROADMAP queue
+1 item 10b).  The numeric sentry comes with a later slice.
 """
 from __future__ import annotations
 
@@ -58,10 +88,25 @@ class Optimizer:
         self.zero = int(zero)
         if not 0 <= self.zero <= 3:
             raise ValueError(f"zero level must be 0..3, got {zero}")
-        if self.zero or grad_comm is not None or flat_state:
-            raise NotImplementedError(
-                "ZeRO (zero > 0), flat_state and grad_comm are ported with "
-                "the multi-GPU mesh (ROADMAP queue 1, items 10-14)")
+        from ..parallel.comm import GRAD_COMM_TRANSPORTS
+        if grad_comm is not None and grad_comm not in GRAD_COMM_TRANSPORTS:
+            raise ValueError(f"grad_comm must be None or one of "
+                             f"{GRAD_COMM_TRANSPORTS}, got {grad_comm!r}")
+        self.grad_comm = grad_comm
+        self.bucket_mb = float(bucket_mb)
+        if self.bucket_mb <= 0:
+            raise ValueError(f"bucket_mb must be > 0, got {bucket_mb}")
+        self.flat_state = bool(flat_state)
+        if self.flat_state:
+            if grad_comm is None:
+                raise ValueError(
+                    "flat_state=True needs the explicit grad-comm path: "
+                    "pass grad_comm='fp32'|'bf16'|'int8'")
+            if self.zero not in (1, 2, 3):
+                raise ValueError(
+                    f"flat_state=True needs dp-sharded state (ZeRO 1/2) or "
+                    f"fully sharded params (ZeRO 3); got zero={self.zero}")
+        self._flat = None          # the FlatStateLayout in use
         if sentry:
             raise NotImplementedError(
                 "the numeric sentry is ported in a later slice (resilience)")
@@ -80,6 +125,13 @@ class Optimizer:
         xs = list(var_list or self.params or g.trainable_variables)
         if not xs:
             raise ValueError("no trainable variables to optimize")
+        self._graph = g
+        if self.flat_state and self.zero >= 3:
+            g._materializers.append(self.materialize_flat_params)
+        if self.zero >= 3 and not self.flat_state and self._shards_state:
+            for t in xs:
+                if self._chunked(g, t):
+                    g.store_sharded(t, self.dp_axis)
         grads = g.make_gradients(loss, xs)
         node = OpNode("update", None, grads,
                       {"optimizer": self, "grad_node": grads[0].producer,
@@ -106,19 +158,238 @@ class Optimizer:
         new = new.to(dst.dtype)
         dst.copy_(new if keep is None else torch.where(keep, new, dst))
 
-    def _clip_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Global-norm clip across all parameter grads (fp32 norm)."""
-        if self.max_grad_norm is None:
-            return grads
-        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                              for g in grads))
-        scale = torch.clamp(self.max_grad_norm / (norm + 1e-6), max=1.0)
-        return [(g.float() * scale).to(g.dtype) for g in grads]
+    # -- the data-parallel sync (ZeRO) ----------------------------------------
 
+    # whether ZeRO shards this optimizer's state (Adafactor's factored
+    # statistics are not sharded)
+    _shards_state = True
+
+    def _dp(self, graph) -> int:
+        mesh = getattr(graph, "mesh", None)
+        return mesh.axis_size(self.dp_axis) if mesh is not None else 1
+
+    def _chunked(self, graph, t: Tensor) -> bool:
+        """Whether ZeRO splits ``t`` over dp along dim 0: the JAX
+        package's rule (dim 0 free of other axes, divisible by dp)."""
+        from ..parallel.mesh import entry_axes, spec_axes
+        dp = self._dp(graph)
+        if dp == 1 or not t.shape:
+            return False
+        mesh = graph.mesh
+        spec = t.pspec or ()
+        if self.dp_axis in spec_axes(spec):
+            return False
+        if spec and any(mesh.axis_size(a) > 1 for a in entry_axes(spec[0])):
+            return False
+        return int(t.shape[0]) % dp == 0
+
+    def _split_axes(self, graph, t: Tensor) -> frozenset:
+        from ..parallel.mesh import spec_axes
+        mesh = graph.mesh
+        if mesh is None:
+            return frozenset()
+        return frozenset(a for a in spec_axes(t.pspec)
+                         if mesh.axis_size(a) > 1)
+
+    def _sync(self, graph, xs: Sequence[Tensor], grads: List[torch.Tensor]):
+        """The gradients synced over dp, as the pieces this rank updates:
+        ``(tensor, parameter or its dim-0 chunk, gradient, axes the piece
+        is split over, gathered after the update)``."""
+        from ..parallel import comm
+        dp = self._dp(graph)
+        if dp == 1:
+            return [(t, graph._var_data[t.id], g, self._split_axes(graph, t),
+                     False) for t, g in zip(xs, grads)]
+        mesh, axis = graph.mesh, self.dp_axis
+        zero = self.zero if self._shards_state else 0
+        stored = graph._storage_axis
+        chunked = [t.id not in stored and zero >= 1 and
+                   self._chunked(graph, t) for t in xs]
+        scatter = [c and zero >= 2 for c in chunked]
+        out = list(grads)
+        with comm.comm_tag("grad_sync"):
+            idx = [i for i, t in enumerate(xs)
+                   if t.id not in stored and not scatter[i]]
+            if idx:
+                red = comm.all_reduce_coalesced(
+                    [grads[i] for i in idx], axis, op="mean",
+                    bucket_mb=self.bucket_mb,
+                    transport=self.grad_comm or "fp32", mesh=mesh)
+                for i, r in zip(idx, red):
+                    out[i] = r
+            for i in range(len(xs)):
+                if scatter[i]:
+                    out[i] = comm.reduce_scatter(grads[i], axis, 0, "mean",
+                                                 mesh)
+        k = mesh.axis_index(axis)
+        pieces = []
+        for i, (t, g) in enumerate(zip(xs, out)):
+            p = graph._var_data[t.id]
+            axes = self._split_axes(graph, t)
+            if t.id in stored:
+                pieces.append((t, p, g, axes | {axis}, False))
+            elif chunked[i]:
+                if not scatter[i]:
+                    g = g.chunk(dp, 0)[k]
+                pieces.append((t, p.chunk(dp, 0)[k], g, axes | {axis}, True))
+            else:
+                pieces.append((t, p, g, axes, False))
+        return pieces
+
+    def _regather(self, graph, pieces) -> None:
+        """ZeRO-1/2: every rank's updated chunk back into the parameter."""
+        from ..parallel import comm
+        with comm.comm_tag("param_comm"):
+            for t, view, _, _, gather in pieces:
+                if gather:
+                    graph._var_data[t.id].copy_(comm.all_gather(
+                        view.contiguous(), self.dp_axis, 0, graph.mesh))
+
+    def _clip(self, graph, pieces):
+        """Global-norm clip (fp32 norm): each piece's squares summed over
+        the axes it is split over, so that every parameter counts once."""
+        if self.max_grad_norm is None:
+            return pieces
+        from ..parallel import comm
+        sums: Dict[frozenset, Any] = {}
+        for _, _, g, axes, _ in pieces:
+            sums[axes] = sums.get(axes, 0) + torch.sum(torch.square(
+                g.float()))
+        total = 0
+        with comm.comm_tag("clip"):
+            for axes in sorted(sums, key=sorted):
+                v = sums[axes]
+                for a in sorted(axes):
+                    v = comm.all_reduce(v, a, "sum", graph.mesh)
+                total = total + v
+        scale = torch.clamp(self.max_grad_norm / (torch.sqrt(total) + 1e-6),
+                            max=1.0)
+        return [(t, p, (g.float() * scale).to(g.dtype), axes, gather)
+                for t, p, g, axes, gather in pieces]
+
+    @torch.no_grad()
     def _apply_updates(self, graph, xs: Sequence[Tensor],
                        grads: List[torch.Tensor],
                        keep: Optional[torch.Tensor] = None) -> None:
+        """Sync over dp, clip, update the rank's pieces, regather."""
+        if self.flat_state and self._dp(graph) > 1:
+            return self._flat_apply(graph, xs, grads, keep)
+        pieces = self._clip(graph, self._sync(graph, xs, grads))
+        self._update(graph, [(t, p, g) for t, p, g, _, _ in pieces], keep)
+        self._regather(graph, pieces)
+
+    def _update(self, graph, pieces, keep: Optional[torch.Tensor]) -> None:
+        """The update of ``(tensor, parameter piece, gradient)`` pieces,
+        state keyed by tensor id and shaped as the piece."""
         raise NotImplementedError
+
+    def _before_step(self, graph, xs: Sequence[Tensor]) -> None:
+        """Runs before a step's forward: flat ZeRO-3 gathers the working
+        parameters from the fp32 master chunks."""
+        if self.flat_state and self.zero >= 3 and self._dp(graph) > 1:
+            self._flat_init(graph, xs)
+            self.materialize_flat_params(graph)
+
+    def materialize_flat_params(self, graph) -> None:
+        """Flat ZeRO-3: the working parameters gathered from the master
+        chunks when an update has made them stale (``Graph.global_value``
+        calls it before reading; every rank calls it)."""
+        if not getattr(self, "_params_stale", True) or \
+                "flat_master" not in self._state:
+            return
+        from ..parallel import comm
+        full = comm.all_gather_coalesced(
+            self._state["flat_master"], self._flat.comm_layout(),
+            self.dp_axis, tag="param_gather", mesh=graph.mesh)
+        with torch.no_grad():
+            for tid, v in full.items():
+                graph._var_data[tid].copy_(v)
+        self._params_stale = False
+
+    # -- flat dp-sharded state -----------------------------------------------
+
+    def _flat_slots(self) -> Sequence[str]:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not take flat_state=True (ROADMAP "
+            f"queue 1 item 10b)")
+
+    def _flat_update(self, p, slots, g, step, lr):
+        """Elementwise update of fp32 chunks: (master, {slot: chunk},
+        gradient, step, lr) -> (new master, {slot: new chunk})."""
+        raise NotImplementedError
+
+    def _flat_init(self, graph, xs):
+        """The flat layout, and the master and slot chunks of this rank
+        (from the parameters, or a checkpoint's per-parameter state)."""
+        from .flat_state import FlatStateLayout, sync_order
+        mesh = graph.mesh
+        split = [t.name for t in xs if self._split_axes(graph, t)]
+        if split:
+            raise ValueError(f"flat_state needs parameters that no mesh "
+                             f"axis splits (the JAX package's pure-dp "
+                             f"rule); split: {split[:3]}")
+        dp, k = mesh.axis_size(self.dp_axis), mesh.axis_index(self.dp_axis)
+        if self._flat is None:
+            self._flat = FlatStateLayout(
+                [(t.id, tuple(graph._var_data[t.id].shape),
+                  graph._var_data[t.id].dtype) for t in sync_order(xs)],
+                dp, self.bucket_mb)
+        lay, st = self._flat, self._state
+        if "flat_master" not in st:
+            dev = graph.device
+            pending = st.pop("pending", {})
+            vals = {t.id: graph._var_data[t.id] for t in xs}
+            st["flat_master"] = [f.chunk(dp)[k].clone()
+                                 for f in lay.pack(vals)]
+            for slot in self._flat_slots():
+                given = pending.get(slot, {})
+                full = {t.id: given.get(t.id, torch.zeros(
+                    graph._var_data[t.id].shape, device=dev)) for t in xs}
+                st[f"flat_{slot}"] = [f.chunk(dp)[k].clone()
+                                      for f in lay.pack(full)]
+            st.setdefault("step", self._zeros_step(dev))
+            for key, val in self._fixed_state(dev).items():
+                st.setdefault(key, val)
+        return lay
+
+    def _flat_apply(self, graph, xs, grads, keep) -> None:
+        """The reduce-scatter-only sync: a reduce-scatter chain a bucket,
+        the local chunk's update, and (ZeRO-1/2) the updated parameters
+        gathered in their dtype."""
+        from ..parallel import comm
+        from .flat_state import sync_order
+        lay = self._flat_init(graph, xs)
+        mesh, axis, st = graph.mesh, self.dp_axis, self._state
+        gmap = {t.id: g for t, g in zip(xs, grads)}
+        chunks, clay = comm.reduce_scatter_coalesced(
+            {t.id: gmap[t.id] for t in sync_order(xs)}, axis, op="mean",
+            bucket_mb=self.bucket_mb, transport=self.grad_comm, mesh=mesh)
+        if self.max_grad_norm is not None:
+            sq = sum(torch.sum(torch.square(c)) for c in chunks)
+            with comm.comm_tag("clip"):
+                sq = comm.all_reduce(sq, axis, "sum", mesh)
+            scale = torch.clamp(self.max_grad_norm / (torch.sqrt(sq) + 1e-6),
+                                max=1.0)
+            chunks = [c * scale for c in chunks]
+        step = st["step"] + 1.0
+        lr = self._lr_at(step)
+        slots = self._flat_slots()
+        for bi, g in enumerate(chunks):
+            master = st["flat_master"][bi]
+            new_p, new_slots = self._flat_update(
+                master, {s_: st[f"flat_{s_}"][bi] for s_ in slots}, g, step,
+                lr)
+            for s_ in slots:
+                self._commit(st[f"flat_{s_}"][bi], new_slots[s_], keep)
+            self._commit(master, new_p, keep)
+        self._commit(st["step"], step, keep)
+        if self.zero < 3:
+            full = comm.all_gather_coalesced(st["flat_master"], clay, axis,
+                                             tag="param_comm", mesh=mesh)
+            for tid, v in full.items():
+                graph._var_data[tid].copy_(v)
+        else:
+            self._params_stale = True
 
     def _zeros_step(self, device) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float32, device=device)
@@ -154,16 +425,41 @@ class Optimizer:
     # per-parameter state slots and their dtype (None: the parameter's)
     _SLOTS: Dict[str, Optional[torch.dtype]] = {}
 
+    def _piece_chunked(self, graph, t: Tensor) -> bool:
+        """Whether ``t``'s state holds the rank's dp chunk (ZeRO >= 1)."""
+        return self.zero >= 1 and self._shards_state and \
+            self._chunked(graph, t)
+
+    def _mesh_graph(self):
+        g = getattr(self, "_graph", None)
+        mesh = getattr(g, "mesh", None)
+        return g if mesh is not None and mesh.size > 1 else None
+
     def checkpoint_state(self, tid_to_name: Dict[int, str]
                          ) -> Dict[str, torch.Tensor]:
         """The state under the JAX package's checkpoint keys (without the
-        ``opt.`` prefix): ``step`` as int32, ``<slot>.<param name>``."""
+        ``opt.`` prefix): ``step`` as int32, ``<slot>.<param name>``.  On a
+        mesh the values are global (gathered: every rank calls it)."""
         st = self._state
         if not st:
             return {}
         out = {"step": st["step"].to(torch.int32)}
+        g = self._mesh_graph()
+        if g is not None and "flat_master" in st:
+            from ..parallel import comm
+            for slot in self._flat_slots():
+                full = [comm.all_gather(c, self.dp_axis, 0, g.mesh)
+                        for c in st[f"flat_{slot}"]]
+                for tid, val in self._flat.unpack(full).items():
+                    out[f"{slot}.{tid_to_name.get(tid, str(tid))}"] = val
+            return out
         for slot in self._SLOTS:
             for tid, val in st.get(slot, {}).items():
+                if g is not None:
+                    t = g._var_tensors[tid]
+                    val = g.gather_global(
+                        t, val, self.dp_axis
+                        if self._piece_chunked(g, t) else None)
                 out[f"{slot}.{tid_to_name.get(tid, str(tid))}"] = val
         return out
 
@@ -173,6 +469,7 @@ class Optimizer:
         """Loads ``entries`` (keys as :meth:`checkpoint_state` writes them)
         into this optimizer's tensors, in place where they exist."""
         state: Dict[str, Any] = {}
+        g = self._mesh_graph()
         for key, val in entries.items():
             slot, _, pname = key.partition(".")
             if key == "step":
@@ -180,10 +477,32 @@ class Optimizer:
             elif slot in self._SLOTS and pname in name_to_param:
                 p = name_to_param[pname]
                 dt = self._SLOTS[slot] or p.dtype
+                if g is not None:
+                    val = self._state_piece(g, p, val)
                 state.setdefault(slot, {})[p.id] = val.to(device=device,
                                                           dtype=dt)
         state.update(self._fixed_state(device))
+        if self.flat_state and g is not None:
+            # the flat buffers are packed again at the next step, from the
+            # loaded parameters and these per-parameter slots
+            for key in [k for k in self._state if k.startswith("flat_")]:
+                del self._state[key]
+            state["pending"] = {slot: state.pop(slot) for slot in
+                                self._SLOTS if slot in state}
+            self._state.pop("pending", None)
+            g._storage_replaced()
         self.load_state_dict(state)
+
+    def _state_piece(self, graph, t: Tensor, val: torch.Tensor):
+        """The rank's part of a state's global value, laid out as the
+        parameter's (and under ZeRO its dp chunk)."""
+        from ..parallel.mesh import take_shard
+        val = take_shard(val, t.pspec, graph.mesh, t.shard_blocks)
+        if self._piece_chunked(graph, t) and not self.flat_state:
+            mesh = graph.mesh
+            val = val.chunk(mesh.axis_size(self.dp_axis), 0)[
+                mesh.axis_index(self.dp_axis)]
+        return val
 
     def _fixed_state(self, device) -> Dict[str, torch.Tensor]:
         """State tensors that hold hyper-parameters, not training
@@ -201,16 +520,23 @@ class SGDOptimizer(Optimizer):
         self.nesterov = nesterov
         self._SLOTS = {"velocity": None} if momentum != 0.0 else {}
 
-    @torch.no_grad()
-    def _apply_updates(self, graph, xs, grads, keep=None):
-        grads = self._clip_grads(grads)
+    def _flat_slots(self):
+        return ("velocity",) if self.momentum != 0.0 else ()
+
+    def _flat_update(self, p, slots, g, step, lr):
+        if self.momentum == 0.0:
+            return p - lr * g, {}
+        v = self.momentum * slots["velocity"] + g
+        upd = g + self.momentum * v if self.nesterov else v
+        return p - lr * upd, {"velocity": v}
+
+    def _update(self, graph, pieces, keep=None):
         st = self._state
         if "step" not in st:
             st["step"] = self._zeros_step(graph.device)
         step = st["step"] + 1.0
         lr = self._lr_at(step)
-        for t, grad in zip(xs, grads):
-            p = graph._var_data[t.id]
+        for t, p, grad in pieces:
             g = grad.to(p.dtype)
             if self.momentum == 0.0:
                 upd = g
@@ -243,9 +569,24 @@ class AdamOptimizer(Optimizer):
         return {"betas": torch.tensor([self.beta1, self.beta2],
                                       dtype=torch.float32, device=device)}
 
-    @torch.no_grad()
-    def _apply_updates(self, graph, xs, grads, keep=None):
-        grads = self._clip_grads(grads)
+    def _flat_slots(self):
+        return ("m", "v")
+
+    def _flat_update(self, p, slots, g, step, lr):
+        # the per-piece math on fp32 chunks; padding lanes have g == 0 and
+        # p == 0, so every term stays 0 there
+        b1, b2, wd = self.beta1, self.beta2, self.weight_decay
+        bc1, bc2 = 1.0 - self._state["betas"] ** step
+        if wd and not self.decoupled_weight_decay:
+            g = g + wd * p
+        m = slots["m"] * b1 + g * (1 - b1)
+        v = slots["v"] * b2 + (g * g) * (1 - b2)
+        upd = (m / bc1).mul_(lr).div_((v / bc2).sqrt_().add_(self.eps))
+        if wd and self.decoupled_weight_decay:
+            upd.add_(p * (lr * wd))
+        return p - upd, {"m": m, "v": v}
+
+    def _update(self, graph, pieces, keep=None):
         st = self._state
         if "step" not in st:
             dev = graph.device
@@ -257,8 +598,7 @@ class AdamOptimizer(Optimizer):
         lr = self._lr_at(step)
         # bias corrections in fp32 on the device, from the step tensor
         bc1, bc2 = 1.0 - st["betas"] ** step
-        for t, grad in zip(xs, grads):
-            p = graph._var_data[t.id]
+        for t, p, grad in pieces:
             m = st["m"].get(t.id)
             if m is None:
                 m = st["m"][t.id] = torch.zeros(p.shape, dtype=torch.float32,
@@ -292,8 +632,8 @@ class AdamWOptimizer(AdamOptimizer):
 
 class AdafactorOptimizer(Optimizer):
     """Adafactor (Shazeer & Stern 2018) with optax's defaults and
-    semantics, on the per-parameter path (``flat_state`` is refused with
-    the other multi-GPU options).  ``lr=None`` (the default) leaves the
+    semantics, on the per-parameter path (``flat_state`` is refused, and
+    under ZeRO the state stays whole).  ``lr=None`` (the default) leaves the
     lr out of the chain, as optax does; a schedule sees the 1-based
     step."""
 
@@ -304,6 +644,8 @@ class AdafactorOptimizer(Optimizer):
                  multiply_by_parameter_scale: bool = True,
                  max_grad_norm: Optional[float] = None, **kw):
         super().__init__(params, lr, max_grad_norm=max_grad_norm, **kw)
+        if self.flat_state:
+            self._flat_slots()          # refused by name
         self.min_dim_size_to_factor = int(min_dim_size_to_factor)
         self.decay_rate = float(decay_rate)
         self.clipping_threshold = clipping_threshold
@@ -356,9 +698,10 @@ class AdafactorOptimizer(Optimizer):
                                               device=dev)
         return st
 
-    @torch.no_grad()
-    def _apply_updates(self, graph, xs, grads, keep=None):
-        grads = self._clip_grads(grads)
+    _shards_state = False
+
+    def _update(self, graph, pieces, keep=None):
+        xs = [t for t, _, _ in pieces]
         st = self._ensure(graph, xs)
         t_ = (st["count"] + 1).float()
         decay_t = 1.0 - t_ ** (-self.decay_rate)
@@ -368,8 +711,7 @@ class AdafactorOptimizer(Optimizer):
             lr = self.lr(st["sched_count"] + 1)
         elif self.lr is not None:
             lr = self.lr
-        for t, grad in zip(xs, grads):
-            p_store = graph._var_data[t.id]
+        for t, p_store, grad in pieces:
             p = p_store.float()
             g = grad.float()
             v_row, v_col, v = (st["v_row"][t.id], st["v_col"][t.id],

@@ -1,0 +1,27 @@
+"""The multi-GPU mesh (port of ``hetu_tpu.parallel``, its core): the
+sharding spec (``dstates``), process-group meshes (``mesh``) and the
+collectives with their accounting (``comm``).  Pipelines, context
+parallelism and hot switching are ROADMAP queue 1 items 11-13."""
+from . import comm, dstates
+from .dstates import (DUPLICATE, NULL_HETERO_DIM, PARTIAL,
+                      DistributedStates, DistributedStatesHierarchy,
+                      DistributedStatesUnion, SplitPattern, deduce_comm_kind,
+                      predict_flat_update_collectives,
+                      predict_grad_comm_collectives,
+                      predict_update_step_collectives)
+from .mesh import (AXIS_CP, AXIS_DP, AXIS_EP, AXIS_PP, AXIS_TP, Mesh, P,
+                   PartitionSpec, choose_backend, create_mesh,
+                   ds_from_partition_spec, ds_to_mesh_and_spec,
+                   init_process_group, mesh_axis_size, single_device_mesh)
+
+__all__ = [
+    "DUPLICATE", "PARTIAL", "NULL_HETERO_DIM",
+    "DistributedStates", "DistributedStatesUnion",
+    "DistributedStatesHierarchy", "SplitPattern", "deduce_comm_kind",
+    "dstates", "comm", "predict_grad_comm_collectives",
+    "predict_flat_update_collectives", "predict_update_step_collectives",
+    "AXIS_DP", "AXIS_CP", "AXIS_TP", "AXIS_PP", "AXIS_EP",
+    "Mesh", "P", "PartitionSpec", "choose_backend", "create_mesh",
+    "init_process_group", "single_device_mesh", "mesh_axis_size",
+    "ds_to_mesh_and_spec", "ds_from_partition_spec",
+]

@@ -8,10 +8,11 @@ lines over TCP on localhost.  The server is the one central process;
 worker liveness is tracked by heartbeat timestamps, which the serving
 cluster reads as its replicas' health (``dead_ranks``).
 
-The multi-host bootstrap (``distributed_init``: the rendezvous that
-hands ``torch.distributed`` its address, world size and rank, and the
-host-level barrier of ``parallel.comm``) comes with the multi-GPU mesh
-(ROADMAP queue 1 item 10).
+``distributed_init`` is the bootstrap of a mesh: the rendezvous through
+the coordinator hands ``torch.distributed`` its address (rank 0 binds a
+free port and commits ``host:port``, the counterpart of the JAX
+package's ``commit_jax_coordinator``), world size and rank, and then
+routes ``parallel.comm.barrier`` through the coordinator.
 """
 from __future__ import annotations
 
@@ -357,6 +358,19 @@ class CoordinatorClient:
         except OSError:
             pass
 
+    # -- torch.distributed rendezvous ---------------------------------------
+
+    def commit_torch_coordinator(self, address: str) -> None:
+        """Rank 0 publishes the ``host:port`` of ``torch.distributed``'s
+        store (the JAX package's ``commit_jax_coordinator``)."""
+        self.put("torch/coordinator", address)
+
+    def get_torch_coordinator(self, timeout: float = 60.0) -> str:
+        addr = self.get("torch/coordinator", timeout=timeout)
+        if addr is None:
+            raise TimeoutError("torch.distributed address not published")
+        return addr
+
     def start_heartbeat_thread(self, interval: float = 2.0
                                ) -> threading.Event:
         """Background heartbeat (the reference workers ping inside their
@@ -391,3 +405,53 @@ class CoordinatorClient:
         threading.Thread(target=loop, daemon=True).start()
         return stop
 
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def distributed_init(server_address: str, num_hosts: int, device="cuda",
+                     uid: Optional[str] = None,
+                     dist_port: Optional[int] = None,
+                     timeout: float = 60.0,
+                     hostname: Optional[str] = None) -> CoordinatorClient:
+    """Bootstrap of a multi-process run (the JAX package's
+    ``distributed_init``): connect to the coordinator (the rank is the
+    connection order), publish this rank's host name and card count, let
+    rank 0 publish a free ``host:port``, and join ``torch.distributed``
+    there as one of ``num_hosts`` processes (one rank each).  From every
+    rank's record ``parallel.mesh.init_process_group`` picks the backend
+    (NCCL when each host has a card a rank) and the card (``cuda:{local
+    rank}``).  ``hostname`` names the host (``socket.gethostname()`` by
+    default).  ``timeout`` bounds the rendezvous and every collective.
+    Then ``parallel.comm.barrier`` goes through the coordinator."""
+    import torch
+
+    from ..parallel import comm
+    from ..parallel.mesh import init_process_group
+    client = CoordinatorClient(server_address, uid=uid, hostname=hostname)
+    rank = client.connect()
+    client.start_heartbeat_thread()
+    cards = torch.cuda.device_count() \
+        if torch.device(device).type == "cuda" else 0
+    client.commit_device_info([client.hostname, cards])
+    if rank == 0:
+        host = server_address.rsplit(":", 1)[0]
+        if host not in ("127.0.0.1", "localhost"):
+            host = socket.gethostname()
+        client.commit_torch_coordinator(f"{host}:{dist_port or _free_port()}")
+    client.barrier("hosts", world_size=num_hosts, timeout=timeout)
+    hosts = [client.get_device_info(r) for r in range(num_hosts)]
+    addr = client.get_torch_coordinator(timeout=timeout)
+    init_process_group(rank, num_hosts, f"tcp://{addr}", device=device,
+                       timeout=timeout, hosts=hosts)
+    client.barrier("init", world_size=num_hosts, timeout=timeout)
+    if client.world_size is None:
+        client.world_size = num_hosts
+    comm.set_coordinator(client)
+    return client

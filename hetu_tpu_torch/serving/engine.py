@@ -59,10 +59,10 @@ own track (``enqueue``/``adopt``, ``queued``/``running`` segments that
 tile submit to finish across preemptions, ``admit``,
 ``prefix_cache_hit``, ``prefill_chunk`` spans, ``token`` instants,
 ``preempt``, ``finish``), beside the scheduler's ``pack`` decision and a
-``unified_step`` span per call, under the JAX engine's names.  Meshes and
-the analysis tap come with later slices of the port (ROADMAP queue 1
-items 10-14 and 18); the options that select them raise
-``NotImplementedError`` naming the item.
+``unified_step`` span per call, under the JAX engine's names.  A
+tensor-parallel engine (a mesh) and the analysis tap come with later
+slices of the port (ROADMAP queue 1 items 19 and 18); the options that
+select them raise ``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -90,8 +90,8 @@ DEFAULT_LATENCY_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
 
 # options of later slices: what each selects, and its ROADMAP item
 _LATER_SLICES = {
-    "mesh": "a sharded KV pool comes with the multi-GPU mesh (ROADMAP "
-            "queue 1 items 10-14)",
+    "mesh": "a tensor-parallel engine with a sharded KV pool comes with "
+            "ROADMAP queue 1 item 19 (tensor-parallel serving)",
     "analysis_tap": "the analysis tap comes with the analysis plane "
                     "(ROADMAP queue 1 item 18)"}
 

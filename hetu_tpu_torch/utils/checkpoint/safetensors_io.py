@@ -3,7 +3,8 @@
 
 * ``save_model`` / ``load_model``: the whole model in one file, with an
   optional cast (``dtype=``) or blockwise 4-bit save (``quantize=`` fp4 /
-  nf4, packed codes plus a ``<name>.absmax`` sidecar).
+  nf4, packed codes plus a ``<name>.absmax`` sidecar); on a mesh every
+  rank gathers and rank 0 writes.
 * ``save_split`` / ``load_split``: tensors split along dim 0 into
   ``num_shards`` files (one file without it) plus an ``index.json`` with
   each slice's offsets; ``save_split_async`` writes on a background
@@ -25,9 +26,21 @@ a multiple of 8, then the bytes.  bf16 and fp16 tensors are stored as
 ``U16`` with the real dtype in the metadata (``<key>.dtype``), as the
 JAX package stores them.  Values load as CPU ``torch`` tensors.
 
-One process writes (the multi-process split and its barrier come with
-the multi-GPU mesh, ROADMAP queue 1, items 10-14); the chaos seams of the
-JAX module (``arm_kill_mid_write``) wait for the fault plane (item 15).
+On a mesh of several ranks (the model's graph has one),
+``save_checkpoint`` is the multi-process split: every rank writes its
+own file, ``model_<rank>-of-<world>.safetensors``, with the slices of the
+parameters it holds (each slice once: the rank at coordinate 0 of every
+axis the slice is replicated over writes it, fused blocks as one slice a
+block, all at their global offsets) and an ``index.<rank>.json``; rank 0
+adds the optimizer's state (``checkpoint_state`` gathers it: every rank
+calls it), then after a barrier (through the coordinator when one is
+registered, ``parallel.comm.barrier``) merges the indices into
+``index.json``, and after another writes the marker.  With
+``num_shards`` rank 0 writes the gathered global values alone.  Loading
+reads global values, and each rank keeps its shard.  A background save
+from several processes and the chaos seams of the JAX module
+(``arm_kill_mid_write``) wait for the runtime planes (ROADMAP queue 1
+item 15).
 """
 from __future__ import annotations
 
@@ -162,6 +175,8 @@ def save_model(model, path: str, dtype: Optional[str] = None,
     {"fp4","nf4"} writes packed-4bit + per-block absmax sidecars.
     """
     state = model.state_dict() if hasattr(model, "state_dict") else dict(model)
+    if _writer_rank(model) != 0:
+        return                  # rank 0 writes the gathered values
     meta: Dict[str, str] = {"format": "hetu_tpu"}
     out: Dict[str, np.ndarray] = {}
     for name, arr in state.items():
@@ -184,6 +199,14 @@ def save_model(model, path: str, dtype: Optional[str] = None,
         out[name] = _encode(name, t, meta)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     write_safetensors(path, out, meta)
+
+
+def _writer_rank(model) -> int:
+    """This process's rank on the model's mesh (0 without one)."""
+    params = getattr(model, "parameters", None)
+    p = next(iter(params()), None) if callable(params) else None
+    mesh = getattr(getattr(p, "graph", None), "mesh", None)
+    return mesh.rank if mesh is not None else 0
 
 
 def _read_file(path: str) -> Dict[str, torch.Tensor]:
@@ -354,6 +377,92 @@ def load_split(dirpath: str, names: Optional[list] = None
 # full checkpoint (model + optimizer + step)
 # ---------------------------------------------------------------------------
 
+def _merge_indices(dirpath: str, pcount: int) -> Dict[str, Any]:
+    merged: Dict[str, Any] = {"tensors": {}, "num_files": 0}
+    for i in range(pcount):
+        with open(os.path.join(dirpath, f"index.{i}.json")) as f:
+            part = json.load(f)
+        merged["num_files"] = max(merged["num_files"], part["num_files"])
+        for name, ent in part["tensors"].items():
+            if name not in merged["tensors"]:
+                merged["tensors"][name] = {"shape": ent["shape"],
+                                           "dtype": ent["dtype"],
+                                           "slices": []}
+            merged["tensors"][name]["slices"].extend(ent["slices"])
+    _atomic_json(os.path.join(dirpath, "index.json"), merged)
+    return merged
+
+
+def _rank_pieces(graph, t, value: torch.Tensor):
+    """The slices of variable ``t`` this rank writes: (global slices, the
+    piece) for each, or none where a rank of lower coordinate holds the
+    same slice."""
+    from ...parallel.mesh import dim_split, shard_pieces, spec_axes
+    mesh = graph.mesh
+    spec = list(t.pspec or ()) + [None] * (len(t.global_shape) -
+                                           len(t.pspec or ()))
+    chunk = graph._storage_axis.get(t.id)
+    if chunk is not None:
+        spec[0] = chunk                 # ZeRO-3: dim 0 free of other axes
+    used = spec_axes(spec)
+    if any(mesh.coords[a] for a in mesh.axis_names if a not in used):
+        return []
+    blocks = t.shard_blocks if chunk is None and spec and \
+        dim_split(spec[0], mesh)[0] > 1 else None
+    return [(g, value[l]) for g, l in
+            shard_pieces(t.global_shape, spec, mesh, blocks)]
+
+
+def _save_ranks(model, graph, state: Dict[str, Any], dirpath: str) -> None:
+    """The multi-process split: this rank's file and index, the barrier,
+    rank 0's merge."""
+    from ...parallel import comm
+    mesh = graph.mesh
+    rank, world = mesh.rank, mesh.size
+    fname = _file(rank, world)
+    tensors: Dict[str, np.ndarray] = {}
+    meta: Dict[str, str] = {}
+    index: Dict[str, Any] = {"tensors": {}, "num_files": world}
+    for fn in graph._materializers:
+        fn(graph)
+    for name, p in model.named_parameters():
+        val = _to_host(graph.get_tensor_value(p))
+        ent = {"shape": list(p.global_shape or p.shape),
+               "dtype": _dtype_name(val), "slices": []}
+        for k, (gsl, piece) in enumerate(_rank_pieces(graph, p, val)):
+            key = f"{name}@@{k}"
+            tensors[key] = _encode(key, piece.contiguous(), meta)
+            ent["slices"].append({"file": fname, "key": key, "offsets": [
+                [s_.start, s_.stop] for s_ in gsl]})
+        if ent["slices"]:
+            index["tensors"][name] = ent
+    if rank == 0:
+        for name, v in state.items():
+            t = _to_host(v)
+            key = f"{name}@@0"
+            tensors[key] = _encode(key, t, meta)
+            index["tensors"][name] = {
+                "shape": list(t.shape), "dtype": _dtype_name(t),
+                "slices": [{"file": fname, "key": key,
+                            "offsets": [[0, d] for d in t.shape]}]}
+    write_safetensors(os.path.join(dirpath, fname), tensors,
+                      {"format": "hetu_tpu_split", **meta})
+    _atomic_json(os.path.join(dirpath, f"index.{rank}.json"), index)
+    name = f"ckpt:{os.path.abspath(dirpath)}"
+    comm.barrier(name=name, timeout=1800.0)
+    if rank == 0:
+        for fn in os.listdir(dirpath):
+            parts = fn.split(".")
+            if fn.startswith("index.") and len(parts) == 3 and \
+                    parts[1].isdigit() and int(parts[1]) >= world:
+                os.remove(os.path.join(dirpath, fn))
+        merged = _merge_indices(dirpath, world)
+        _prune_stale_shards(dirpath, {sl["file"] for ent in
+                                      merged["tensors"].values()
+                                      for sl in ent["slices"]})
+    comm.barrier(name=name + ":merged", timeout=1800.0)
+
+
 def save_checkpoint(model, optimizer, dirpath: str, step: int = 0,
                     num_shards: Optional[int] = None,
                     extra: Optional[Dict[str, Any]] = None,
@@ -363,17 +472,28 @@ def save_checkpoint(model, optimizer, dirpath: str, step: int = 0,
     ``dirpath``; with ``background`` the files are written on a thread
     (call ``.wait()`` on the returned handle)."""
     os.makedirs(dirpath, exist_ok=True)
+    params = dict(model.named_parameters())
+    graph = next(iter(params.values())).graph if params else None
+    mesh = getattr(graph, "mesh", None)
+    ranks = mesh is not None and mesh.size > 1
+    if ranks and background:
+        raise NotImplementedError(
+            "a background save from several processes comes with ROADMAP "
+            "queue 1 item 15 (the runtime planes)")
     state: Dict[str, Any] = {}
-    for name, p in model.named_parameters():
-        state[name] = p.graph.get_tensor_value(p)
+    if not ranks or num_shards is not None:
+        for name, p in params.items():
+            state[name] = graph.global_value(p) if ranks \
+                else p.graph.get_tensor_value(p)
     for name, b in model.named_buffers():
         state[name] = b
     if optimizer is not None:
-        tid_to_name = {p.id: n for n, p in model.named_parameters()}
+        tid_to_name = {p.id: n for n, p in params.items()}
         for key, val in optimizer.checkpoint_state(tid_to_name).items():
             state[f"opt.{key}"] = val
     marker = os.path.join(dirpath, "trainer_state.json")
-    if os.path.exists(marker):
+    lead = not ranks or mesh.rank == 0
+    if os.path.exists(marker) and lead:
         # a re-save drops the old marker first: a crash mid-write must not
         # leave a marker that vouches for mixed-step tensor files
         os.remove(marker)
@@ -381,6 +501,21 @@ def save_checkpoint(model, optimizer, dirpath: str, step: int = 0,
     def _write_marker():
         # the commit marker, only after the tensors are on disk
         _atomic_json(marker, {"step": int(step), "extra": extra or {}})
+
+    if ranks:
+        from ...parallel import comm
+        if num_shards is None:
+            _save_ranks(model, graph, state, dirpath)
+        else:
+            if lead:
+                save_split(state, dirpath, num_shards=num_shards)
+            comm.barrier(name=f"ckpt:{os.path.abspath(dirpath)}",
+                         timeout=1800.0)
+        if lead:
+            _write_marker()
+        comm.barrier(name=f"ckpt:{os.path.abspath(dirpath)}:marker",
+                     timeout=1800.0)
+        return None
 
     if background:
         return save_split_async(state, dirpath, num_shards=num_shards,

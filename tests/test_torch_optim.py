@@ -157,6 +157,12 @@ def test_scheduled_lr_reads_the_device_step():
 
 
 def test_refusals_of_later_slices():
-    for kw in (dict(zero=1), dict(flat_state=True), dict(grad_comm="bf16")):
-        with pytest.raises(NotImplementedError, match="items 10-14"):
-            optim.AdafactorOptimizer(**kw)
+    """ZeRO and the grad-comm transports are taken (their tests:
+    tests/test_torch_parallel.py); flat Adafactor is refused by name,
+    and flat state without a transport as in the JAX package."""
+    for kw in (dict(zero=1), dict(zero=2), dict(grad_comm="bf16")):
+        optim.AdafactorOptimizer(**kw)
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        optim.AdafactorOptimizer(zero=2, flat_state=True, grad_comm="fp32")
+    with pytest.raises(ValueError, match="grad-comm"):
+        optim.AdafactorOptimizer(zero=2, flat_state=True)

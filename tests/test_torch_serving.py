@@ -177,7 +177,7 @@ def test_later_slices_are_refused(tiny):
     is taken, and ``use_kernel`` only where it names what the device
     runs (the plain versions on the CPU)."""
     cfg, st = tiny
-    for kw, item in ((dict(mesh=object()), "items 10-14"),
+    for kw, item in ((dict(mesh=object()), "item 19"),
                      (dict(analysis_tap=True), "item 18")):
         with pytest.raises(NotImplementedError, match=item):
             Engine(st, cfg, device="cpu", **kw)

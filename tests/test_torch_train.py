@@ -308,18 +308,20 @@ def test_probe_refusals():
     with pytest.raises(ValueError, match="unknown dtype"):
         with ht.graph("define_and_run", create_new=True, device="cpu"):
             ht.placeholder("float8", (2, 2))
-    with pytest.raises(NotImplementedError, match="the multi-GPU mesh"):
-        with ht.graph("define_and_run", create_new=True, device="cpu"):
-            ht.parallel_placeholder("int32", (8, 16), pspec=("dp", None))
+    # without a mesh a partition spec shards nothing (meshes:
+    # tests/test_torch_parallel.py)
     with ht.graph("define_and_run", create_new=True, device="cpu"):
+        t = ht.parallel_placeholder("int32", (8, 16), pspec=("dp", None))
+        assert t.shape == (8, 16)
         ht.parallel_placeholder("int32", (8, 16), pspec=(None, None))
-    with pytest.raises(NotImplementedError, match="the multi-GPU mesh"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         ht.graph("define_and_run", create_new=True, device="cpu",
-                 mesh=object())
-    with pytest.raises(NotImplementedError, match="the multi-GPU mesh"):
-        optim.AdamOptimizer(lr=1e-3, zero=1)
+                 num_strategy=2)
+    with pytest.raises(ValueError, match="flat_state"):
+        optim.AdamOptimizer(lr=1e-3, zero=0, flat_state=True,
+                            grad_comm="fp32")
     with ht.graph("define_and_run", create_new=True, device="cpu") as g:
-        with pytest.raises(NotImplementedError, match="the multi-GPU mesh"):
+        with pytest.raises(NotImplementedError, match="item 13"):
             g.switch_strategy(None)
         with pytest.raises(NotImplementedError, match="sentry"):
             g.inject_numeric_fault("grad_nan")

@@ -5,8 +5,10 @@ CPU at a tiny size.
 and resumes from them; from one JAX-saved weight file, on the same
 synthetic batches through the native loaders, its losses equal those of
 the JAX package's ``examples/train_gpt.py`` (fp32, within 1e-4 at the
-printed four decimals); every flag of a later slice raises
-``NotImplementedError`` naming its ROADMAP item.  A last test imports the
+printed four decimals); the mesh layouts (``--dp 2 --zero 2``, ``--tp
+2 --sp``, flat state) launch two gloo ranks and match the one-process
+losses; every flag of a later slice raises ``NotImplementedError``
+naming its ROADMAP item.  A last test imports the
 port with ``jax``, ``hetu_tpu``, ``safetensors`` and ``ml_dtypes``
 blocked.
 """
@@ -93,16 +95,50 @@ def test_losses_equal_the_jax_entry_point(entry, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dp", "2"], "items 10-14"), (["--tp", "2"], "items 10-14"),
-    (["--pp", "2"], "items 10-14"), (["--sp"], "items 10-14"),
-    (["--grad-comm", "bf16"], "items 10-14"),
-    (["--flat-state"], "items 10-14"), (["--zero", "1"], "items 10-14"),
-    (["--ds-config", "x.json"], "items 10-14"),
+    (["--pp", "2"], "item 11"),
     (["--auto-parallel"], "item 16"), (["--calibrate"], "item 16"),
     (["--trace-out", "t.json"], "item 15")])
 def test_flags_of_later_slices_raise(entry, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         entry.main(TINY + ["--steps", "1"] + flags)
+
+
+@pytest.fixture(scope="module")
+def single(entry, tmp_path_factory):
+    """The one-process run the mesh layouts are held against (the
+    weights from one saved file: every layout starts from them)."""
+    path = str(tmp_path_factory.mktemp("entry_mesh") / "w.safetensors")
+    r = entry.main(TINY + ["--steps", "1", "--save", path])
+    return path, entry.main(TINY + ["--steps", "4", "--load", path])
+
+
+@pytest.mark.parametrize("flags", [["--dp", "2", "--zero", "2"],
+                                   ["--tp", "2", "--sp"],
+                                   ["--dp", "2", "--grad-comm", "fp32",
+                                    "--flat-state", "--zero", "1"]])
+def test_mesh_layouts_launch_ranks_and_match_one_process(entry, single,
+                                                         flags):
+    """``dp * tp > 1`` launches the ranks through the port's launcher;
+    rank 0's losses equal the one-process run's (fp32, 2e-5)."""
+    path, want = single
+    got = entry.main(TINY + ["--steps", "4", "--load", path,
+                             "--launch-timeout", "120"] + flags)
+    assert got["layout"]["backend"] == "gloo" and not got["captured"]
+    assert got["steps"] == 4 and len(got["losses"]) == 4
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=0,
+                               atol=2e-5)
+
+
+def test_ds_config_gives_the_layout(entry, tmp_path):
+    from hetu_tpu_torch.utils.ds_config import (generate_gpt_3d_config,
+                                                save_ds_config)
+    path = str(tmp_path / "ds.json")
+    save_ds_config(generate_gpt_3d_config(2, 2, 2, 1), path)
+    args = entry.parse_args(TINY + ["--ds-config", path])
+    assert entry.layout(args) == (2, 2, 1)
+    save_ds_config(generate_gpt_3d_config(2, 1, 1, 2), path)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        entry.layout(entry.parse_args(TINY + ["--ds-config", path]))
 
 
 def test_the_port_imports_without_jax_or_safetensors():

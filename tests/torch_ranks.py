@@ -1,0 +1,321 @@
+"""Rank processes of a gloo group on the CPU, for the port's multi-process
+tests (tests/test_torch_comm.py, tests/test_torch_parallel.py,
+tests/test_torch_rpc_launch.py).
+
+``run_ranks(case, world, args, tmp)`` starts ``world`` fresh interpreters
+running this file (``python tests/torch_ranks.py RANK WORLD INIT CASE
+ARGS OUT``), each joining a gloo group through a ``file://`` rendezvous
+under ``tmp`` with a 60 s collective timeout and one intra-op thread,
+runs ``CASES[case](rank, world, **args)`` and pickles its result.  The
+parent waits up to ``timeout`` seconds, kills every rank on a timeout or
+a failure, and raises with the ranks' error output.  The ranks import
+the port and never JAX.
+"""
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_ranks(case, world, args, tmp, timeout=150.0):
+    """``CASES[case]`` on ``world`` gloo ranks; their results in rank
+    order."""
+    tmp = str(tmp)
+    init = os.path.join(tmp, f"init_{case}_{world}_{time.time_ns()}")
+    arg_path = os.path.join(tmp, f"args_{case}_{world}.pkl")
+    with open(arg_path, "wb") as f:
+        pickle.dump(args, f)
+    outs = [os.path.join(tmp, f"out_{case}_{world}_{r}.pkl")
+            for r in range(world)]
+    logs = [open(os.path.join(tmp, f"log_{case}_{world}_{r}.txt"), "w+")
+            for r in range(world)]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(r), str(world), init,
+         case, arg_path, outs[r]], cwd=REPO, env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.time() + timeout
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited with {procs[bad[0]].poll()}"
+                break
+            if time.time() > deadline:
+                failed = f"timed out after {timeout} s"
+                break
+            time.sleep(0.05)
+        if failed is None and any(p.returncode != 0 for p in procs):
+            failed = f"exit codes {[p.returncode for p in procs]}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    if failed is not None:
+        text = []
+        for r, f in enumerate(logs):
+            f.seek(0)
+            text.append(f"--- rank {r}\n{f.read()[-3000:]}")
+        raise AssertionError(f"{case} on {world} ranks: {failed}\n" +
+                             "\n".join(text))
+    for f in logs:
+        f.close()
+    results = []
+    for o in outs:
+        with open(o, "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# the cases (run inside the ranks)
+# ---------------------------------------------------------------------------
+
+def case_collectives(rank, world, mesh_shape, inputs):
+    """Each plain and coalesced collective over axis ``x`` of a mesh of
+    ``mesh_shape``, on this rank's input, and the autograd pairs'
+    forward values and input gradients."""
+    import torch
+    from hetu_tpu_torch.parallel import comm, create_mesh
+    mesh = create_mesh(mesh_shape, device="cpu")
+    n = mesh.axis_size("x")
+    x = torch.from_numpy(inputs[rank])
+    out = {}
+    with mesh, comm.comm_stats() as st:
+        out["all_reduce"] = comm.all_reduce(x, "x").numpy()
+        out["all_reduce_max"] = comm.all_reduce(x, "x", "max").numpy()
+        out["all_reduce_mean"] = comm.all_reduce(x, "x", "mean").numpy()
+        out["all_gather0"] = comm.all_gather(x, "x", 0).numpy()
+        out["all_gather1"] = comm.all_gather(x, "x", 1).numpy()
+        out["reduce_scatter"] = comm.reduce_scatter(x, "x", 0).numpy()
+        out["all_to_all"] = comm.all_to_all(x, "x", 0, 1).numpy()
+        out["broadcast"] = comm.broadcast(x, "x", root=1).numpy()
+        out["reduce"] = comm.reduce(x, "x", root=0).numpy()
+        out["ring_shift"] = comm.ring_shift(x, "x", 1).numpy()
+        out["partial_reduce"] = comm.partial_reduce(
+            x, "x", comm.axis_index("x") % 2 == 0).numpy()
+        uneven = [[0], list(range(1, n))]
+        out["split_all_reduce"] = comm.split_all_reduce(
+            x, "x", uneven).numpy()
+        out["split_all_gather"] = comm.split_all_gather(
+            x, "x", 0, uneven).numpy()
+        out["split_reduce_scatter"] = comm.split_reduce_scatter(
+            x, "x", 0, uneven).numpy()
+        grads = {"a": x[:3].clone(), "b": x[3:].reshape(-1).clone()}
+        for tr in ("fp32", "bf16", "int8"):
+            red = comm.all_reduce_coalesced(grads, "x", op="mean",
+                                            transport=tr, block=4)
+            out[f"coalesced_{tr}"] = {k: v.numpy() for k, v in red.items()}
+            chunks, lay = comm.reduce_scatter_coalesced(
+                grads, "x", op="sum", transport=tr, block=4)
+            full = comm.all_gather_coalesced(chunks, lay, "x", transport=tr,
+                                             block=4)
+            out[f"rs_ag_{tr}"] = {k: v.numpy() for k, v in full.items()}
+        v = x.clone().requires_grad_(True)
+        pairs = {
+            "copy_to_group": lambda t: comm.copy_to_group(t, "x"),
+            "reduce_from_group": lambda t: comm.reduce_from_group(t, "x"),
+            "gather_from_group": lambda t: comm.gather_from_group(t, "x", 0),
+            "reduce_scatter_to_group":
+                lambda t: comm.reduce_scatter_to_group(t, "x", 0),
+            "split_to_group": lambda t: comm.split_to_group(t, "x", 0),
+            "gather_output": lambda t: comm.gather_output(t, "x", 1)}
+        for name, fn in pairs.items():
+            y = fn(v)
+            w = torch.arange(y.numel(), dtype=torch.float32).reshape(
+                y.shape) / 7.0
+            (g,) = torch.autograd.grad((y * w).sum(), v)
+            out[f"pair_{name}"] = (y.detach().numpy(), g.numpy())
+    out["records"] = [tuple(r) for r in st.records]
+    return out
+
+
+def case_many(rank, world, jobs):
+    """Several cases in one launch: ``jobs`` is a list of (case name,
+    kwargs); their results in order."""
+    return [CASES[c](rank, world, **kw) for c, kw in jobs]
+
+
+def _dist_state(state_path):
+    data = np.load(state_path)
+    return {k: data[k] for k in data.files}
+
+
+def case_train(rank, world, state_path, batch_path, cfg_kw, layouts,
+               steps=3, lr=1e-3, micro=2):
+    """Each layout trains ``steps`` Adam steps of the tiny model from the
+    given (JAX) state on the global batch: (losses, gathered weights)."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.models.convert import load_state
+    from hetu_tpu_torch.models.generate import _Params
+    from hetu_tpu_torch.parallel import P, comm, create_mesh
+    state = _dist_state(state_path)
+    b = np.load(batch_path)
+    x, y = b["x"], b["y"]
+    out = {}
+    for name, shape, sp, opt_kw in layouts:
+        mesh = create_mesh(shape, device="cpu")
+        with ht.graph("define_and_run", create_new=True, mesh=mesh,
+                      seed=0) as g:
+            ids = ht.parallel_placeholder("int32", x.shape,
+                                          pspec=P("dp", None), name="ids")
+            labels = ht.parallel_placeholder("int32", y.shape,
+                                             pspec=P("dp", None),
+                                             name="labels")
+            model = GPTLMHeadModel(GPTConfig(**cfg_kw, sp=sp))
+            loss = model(ids, labels)
+            train_op = optim.AdamOptimizer(lr=lr, **opt_kw).minimize(loss)
+        load_state(model, state)
+        losses = []
+        with comm.comm_stats() as st:
+            for _ in range(steps):
+                l, _ = g.run(loss, [loss, train_op], {ids: x, labels: y},
+                             num_micro_batches=micro)
+                losses.append(float(l))
+        weights = {_Params._norm(n): g.global_value(p).numpy()
+                   for n, p in model.named_parameters()}
+        out[name] = {"losses": losses,
+                     "weights": weights if rank == 0 else None,
+                     "records": [tuple(r) for r in st.records],
+                     "captured": g.last_run_captured}
+    return out
+
+
+def case_train_many(rank, world, jobs):
+    """``case_train`` for each named job."""
+    return {name: case_train(rank, world, **kw) for name, kw in jobs.items()}
+
+
+def case_stats(rank, world, mesh_shape, entries, layouts, bucket_mb=4.0):
+    """One update of an optimizer per layout over the ``dp`` axis of a
+    mesh of ``mesh_shape``, with the collectives recorded: the gradients
+    are random tensors of ``entries`` (name, shape, dtype)."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.parallel import P, comm, create_mesh
+    out = {}
+    for name, opt_kw in layouts:
+        mesh = create_mesh(mesh_shape, device="cpu")
+        with ht.graph("define_and_run", create_new=True, mesh=mesh,
+                      seed=0) as g:
+            xs = [ht.parallel_parameter(
+                ht.NormalInitializer(0.0, 0.02), shape, dtype=dt, name=n)
+                for n, shape, dt in entries]
+            opt = optim.AdamOptimizer(lr=1e-3, bucket_mb=bucket_mb,
+                                      **opt_kw)
+            opt._graph = g
+        for t in xs:
+            g._materialize_var(t)
+        rng = np.random.RandomState(rank)
+        grads = [torch.from_numpy(rng.standard_normal(
+            t.concrete_shape()).astype(np.float32)).to(t.dtype) for t in xs]
+        with comm.comm_stats() as st:
+            opt._before_step(g, xs)
+            opt._apply_updates(g, xs, grads)
+        out[name] = [tuple(r) for r in st.records]
+    return out
+
+
+def case_ce(rank, world, mesh_shape, logits, labels):
+    """``vocab_parallel_cross_entropy`` of this rank's shard of the
+    global logits (rows over dp, vocab over tp) for each dtype: the
+    loss, its dtype and the shard's gradient."""
+    import torch
+    from hetu_tpu_torch import nn
+    from hetu_tpu_torch.parallel import create_mesh
+    mesh = create_mesh(mesh_shape, device="cpu")
+    dp, tp = mesh.axis_size("dp"), mesh.axis_size("tp")
+    i, j = mesh.axis_index("dp"), mesh.axis_index("tp")
+    rows, vocab = logits.shape[0] // dp, logits.shape[-1] // tp
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        lg = torch.from_numpy(
+            logits[i * rows:(i + 1) * rows, :, j * vocab:(j + 1) * vocab]
+        ).to(getattr(torch, dt)).requires_grad_(True)
+        t = torch.from_numpy(labels[i * rows:(i + 1) * rows])
+        with mesh:
+            loss = nn.vocab_parallel_cross_entropy(lg, t, ignore_index=-100)
+        (g,) = torch.autograd.grad(loss, lg)
+        out[dt] = (float(loss), str(loss.dtype), g.float().numpy())
+    return out
+
+
+def case_checkpoint(rank, world, cfg_kw, mesh_shape, save_dir,
+                    state_path=None, load_dir=None, opt_kw=None):
+    """The tiny model from ``state_path`` or a checkpoint (``load_dir``),
+    one Adam step on a fixed batch, a split checkpoint saved from every
+    rank: the step's loss and the gathered weights after it."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.models.convert import load_state
+    from hetu_tpu_torch.models.generate import _Params
+    from hetu_tpu_torch.parallel import P, create_mesh
+    from hetu_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    mesh = create_mesh(mesh_shape, device="cpu")
+    x, y = checkpoint_batch(cfg_kw["vocab_size"])
+    with ht.graph("define_and_run", create_new=True, mesh=mesh, seed=0) as g:
+        ids = ht.parallel_placeholder("int32", x.shape, pspec=P("dp", None))
+        labels = ht.parallel_placeholder("int32", y.shape,
+                                         pspec=P("dp", None))
+        model = GPTLMHeadModel(GPTConfig(**cfg_kw))
+        loss = model(ids, labels)
+        opt = optim.AdamOptimizer(lr=1e-3, **(opt_kw or {}))
+        train_op = opt.minimize(loss)
+    if load_dir is not None:
+        load_checkpoint(model, opt, load_dir, verify_exempt=True)
+    else:
+        load_state(model, _dist_state(state_path))
+    l, _ = g.run(loss, [loss, train_op], {ids: x, labels: y})
+    save_checkpoint(model, opt, save_dir, step=1)
+    return {"loss": float(l),
+            "weights": {_Params._norm(n): g.global_value(p).numpy()
+                        for n, p in model.named_parameters()}}
+
+
+def checkpoint_batch(vocab):
+    x = (np.arange(4 * 8, dtype=np.int32).reshape(4, 8) * 7) % vocab
+    return x, x[:, ::-1].copy()
+
+
+CASES = {"collectives": case_collectives, "train_many": case_train_many,
+         "many": case_many,
+         "stats": case_stats, "checkpoint": case_checkpoint, "ce": case_ce}
+
+
+def main(argv):
+    rank, world = int(argv[1]), int(argv[2])
+    init, case, arg_path, out = argv[3], argv[4], argv[5], argv[6]
+    sys.path.insert(0, REPO)
+    import torch
+    torch.set_num_threads(1)
+    from hetu_tpu_torch.parallel import init_process_group
+    init_process_group(rank, world, f"file://{init}", device="cpu",
+                       timeout=60.0)
+    with open(arg_path, "rb") as f:
+        args = pickle.load(f)
+    result = CASES[case](rank, world, **args)
+    with open(out + ".tmp", "wb") as f:
+        pickle.dump(result, f)
+    os.replace(out + ".tmp", out)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv)
