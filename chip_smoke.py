@@ -282,7 +282,40 @@ Phases, each printing one JSON line:
     summary.  (d) A mesh of size 1 on NCCL in this process: captured,
     its losses equal the run's without a mesh.  A failing or hanging
     rank fails the phase (every wait has a timeout; the launcher kills
-    the group).
+    the group);
+23. pipeline: pipelines on the one card.  (a) fp32 (TF32 off), GPT-2
+    widths at 4 layers (seq 256, global batch 8 in 4 micro-batches,
+    phase 8's steps and lr): ``GPTPipelineModel`` at pp 2 (on a spare
+    axis) and pp 2 x tp 2 on 4 rank processes of ``mesh_rank_main``
+    (gloo), against the one-process ``GPTPipelineModel(num_stages=1)``
+    and the plain ``GPTLMHeadModel`` on the same weights (carried by
+    ``models.convert``), both captured: losses within 1e-4 and the
+    gathered weights' updates within 1 % (phase 8's limits); every
+    rank's flash launches ``M + S - 1`` ticks of its layers forward,
+    recomputed and backward a step, on 3xTF32, and ``M + S - 2`` staged
+    hops each way (the last tick's carries nothing read and is left
+    out), one collect and one input-gradient all-reduce over pp a step.
+    (b) ``examples/train_gpt_torch.py --pp 2 --bf16 --global-batch 8
+    --micro-batch 2`` at GPT-2 small's widths, 4 steps, its 2 stage ranks
+    started by the port's ``Launcher`` (each runs the entry point's
+    ``main`` as a rank): losses within
+    ``PIPE_ENTRY_LOSS_STEPS`` bf16 spacings of the one-process entry
+    point's from the same saved weights and token file, falling; each
+    rank's flash launches exactly the tick count above on wgmma, and the
+    hops and collects as in (a); ms a step by rank beside the one-process
+    step.  (c) ``MPMDGPT`` at GPT-2 small's widths in bf16 (8
+    micro-batches of 1 x 1024, 3 Adam steps): ``[[3, 3, 3, 3]]`` under
+    1f1b and gpipe (equal at step 1, 1f1b's stash peaks <= 4 against
+    gpipe's 8 and fewer bytes), ``[[2, 4, 3, 3]]`` and ``[[12]]``, each
+    within ``MPMD_LOSS_REL`` of one stage's losses, its ``p2p_log`` equal
+    to the schedule's ``p2p_events`` and its flash launches (recompute
+    included) on wgmma; one more step of 1f1b and of ``[[12]]`` under
+    ``torch.profiler`` gives the device's idle share.  ``[[12]]`` is
+    held against the plain ``GPTLMHeadModel`` on the same weights
+    (``gather_state`` under the plain names): in fp32 (TF32 off, phase
+    8's steps and lr) losses within 1e-4 and updates within 1 %; in
+    bf16 the step-1 loss within ``MPMD_PLAIN_BF16_STEPS`` bf16 spacings
+    of the plain bf16 model's.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -335,6 +368,8 @@ from hetu_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention_reference, sample_rows)
 from hetu_tpu_torch.fault import check_cluster_invariants
 from hetu_tpu_torch.obs import SpanTracer
+from hetu_tpu_torch.parallel.schedule import (
+    generate_gpipe_schedule, generate_pipedream_flush_schedule)
 from hetu_tpu_torch.serving import Engine, EngineCluster, SpecConfig
 from hetu_tpu_torch.serving.slo import SLO_CLASSES, Autoscaler
 from hetu_tpu_torch.utils import checkpoint as ht_ckpt
@@ -4599,17 +4634,28 @@ MESH_CASES = [
 ]
 
 
-def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False):
+def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False,
+               init_state=None, batch_xy=None):
     """A ``mesh_config`` trained from the seed-0 init on one seeded batch,
     on ``mesh`` or in one process: losses, ms a step (steps 2 on), the
     run's flash launches by wrapper and route, the collectives
-    (``comm_stats``), and with ``weights`` the initial and final global
-    weights (numpy, fp32)."""
+    (``comm_stats``, also counted by kind, tag and axis), and with
+    ``weights`` the initial and final global weights (numpy, fp32, under
+    the plain model's normalised names).  A spec with ``"pipeline"``
+    builds ``GPTPipelineModel`` with the mesh's pp stages (1 without one),
+    its ``micro`` micro-batches running through the pipeline;
+    ``init_state`` (plain names) replaces the seed-0 init, ``batch_xy``
+    (ids, labels) the seeded batch."""
+    from hetu_tpu_torch.models.convert import (load_state, pipeline_state,
+                                               plain_state)
+    from hetu_tpu_torch.models.gpt_pipeline import GPTPipelineModel
     from hetu_tpu_torch.parallel import P, comm
     name = spec["name"]
     cfg = GPTConfig(**{**spec["cfg"], "sp": sp})
     batch, seq, steps = spec["batch"], spec["seq"], spec["steps"]
     lr, micro = spec["lr"], spec["micro"]
+    piped = spec.get("pipeline", False)
+    stages = mesh.axis_size("pp") if piped and mesh is not None else 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = P("dp", None) if mesh is not None else None
@@ -4617,18 +4663,29 @@ def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False):
                   device=mesh.device if mesh is not None else "cuda") as g:
         ids = ht.parallel_placeholder("int32", (batch, seq), pspec=spec)
         labels = ht.parallel_placeholder("int32", (batch, seq), pspec=spec)
-        model = GPTLMHeadModel(cfg)
-        loss = model(ids, labels)
+        if piped:
+            model = GPTPipelineModel(cfg, num_stages=stages)
+            loss = model(ids, labels, num_micro_batches=micro)
+        else:
+            model = GPTLMHeadModel(cfg)
+            loss = model(ids, labels)
         train_op = ht.optim.AdamOptimizer(lr=lr, **(opt_kw or {})).minimize(
             loss)
     g.run([], run_level="alloc")
+    if init_state is not None:
+        if piped:
+            model.load_state_dict(pipeline_state(init_state, cfg, stages))
+        else:
+            load_state(model, init_state)
 
     def gathered():
-        return {_Params._norm(n):
-                g.global_value(p).float().cpu().numpy().copy()
-                for n, p in model.named_parameters()}
+        got = {n: g.global_value(p).float().cpu().numpy().copy()
+               for n, p in model.named_parameters()}
+        return plain_state(got, cfg) if piped else \
+            {_Params._norm(n): v for n, v in got.items()}
     init = gathered() if weights else None
-    x, y = seeded_batch(cfg.vocab_size, batch, seq, seed=2)
+    x, y = batch_xy if batch_xy is not None else \
+        seeded_batch(cfg.vocab_size, batch, seq, seed=2)
     reset_flash_counts()
     losses, step_s = [], []
     with comm.comm_stats() as st:
@@ -4636,22 +4693,33 @@ def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False):
             torch.cuda.synchronize()
             t = time.perf_counter()
             l, _ = g.run(loss, [loss, train_op], {ids: x, labels: y},
-                         num_micro_batches=micro)
+                         num_micro_batches=1 if piped else micro)
             losses.append(float(l))
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t)
     out = {"config": name, "dtype": cfg.dtype, "global_batch": batch,
            "seq": seq, "steps": steps, "micro_batches": micro, "lr": lr,
            "losses": losses, "step_s": step_s,
-           "ms_per_step": 1e3 * float(np.mean(step_s[1:])),
+           "ms_per_step": 1e3 * float(np.mean(step_s[1:] or step_s)),
            "captured": g.last_run_captured, "compile_count": g.compile_count,
            "flash": flash_counts(), "comm": st.summary(),
+           "comm_by_tag": comm_by_tag(st.records),
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     if weights:
         out["init"], out["final"] = init, gathered()
     del g, model, ids, labels, loss, train_op
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def comm_by_tag(records):
+    """Collective records counted by ``kind|tag|axis``, and whether
+    staged."""
+    out = {}
+    for r in records:
+        key = f"{r.kind}|{r.tag}|{r.axis}" + ("|staged" if r.staged else "")
+        out[key] = out.get(key, 0) + 1
     return out
 
 
@@ -4753,29 +4821,31 @@ def mesh_runs(cases, compare=()):
     return refs, runs
 
 
-def mesh_group(cases, tmp, compare=()):
-    """``cases`` on ``MESH_RANKS`` rank processes of this script, started
-    once by the port's ``Launcher``; each rank's readings.  A failing or
+def mesh_group(cases, tmp, compare=(), ranks=MESH_RANKS,
+               flag="--mesh-rank", **fields):
+    """``cases`` on ``ranks`` rank processes of this script (``flag``
+    picks their main), started once by the port's ``Launcher``; each
+    rank's readings.  ``fields`` go into the job file.  A failing or
     hanging rank fails the phase: the monitor has a timeout and the
     launcher kills the group."""
     from hetu_tpu_torch.rpc import Launcher
     job = os.path.join(tmp, "job.json")
     out = os.path.join(tmp, "out")
     with open(job, "w") as f:
-        json.dump({"ranks": MESH_RANKS, "cases": cases, "out": out,
+        json.dump({"ranks": ranks, "cases": cases, "out": out,
                    "ref": os.path.join(tmp, "ref"),
-                   "weights": sorted(compare)}, f)
+                   "weights": sorted(compare), **fields}, f)
     # the ranks' host threads: a share of the cores each (the card does
     # the arithmetic; more threads only spin against each other)
-    threads = str(max(1, (os.cpu_count() or 2) // (2 * MESH_RANKS)))
-    with Launcher([sys.executable, os.path.abspath(__file__), "--mesh-rank"],
-                  num_workers=MESH_RANKS,
+    threads = str(max(1, (os.cpu_count() or 2) // (2 * ranks)))
+    with Launcher([sys.executable, os.path.abspath(__file__), flag],
+                  num_workers=ranks,
                   env={MESH_ENV_JOB: job, "OMP_NUM_THREADS": threads}) as lau:
         ok = lau.monitor(poll=0.2, timeout=MESH_GROUP_TIMEOUT)
-    if ok != MESH_RANKS:
+    if ok != ranks:
         raise AssertionError(f"mesh ranks failed: {lau.events}")
     runs = []
-    for r in range(MESH_RANKS):
+    for r in range(ranks):
         with open(out + f".{r}.json") as f:
             runs.append(json.load(f))
     return runs
@@ -4898,6 +4968,502 @@ def phase_mesh():
     return out
 
 
+# ---------------------------------------------------------------------------
+# pipelines (phase 23)
+# ---------------------------------------------------------------------------
+
+# (a) fp32 GPT-2 widths at 4 layers, seq 256, global batch 8 in 4
+# micro-batches, phase 8's steps and lr: pp 2 (on a spare axis, so the
+# group's 4 ranks run it twice) and pp 2 x tp 2, each against the
+# one-process pipeline model and the plain model from the same weights
+PIPE_ORACLE_RANKS = 4
+PIPE_ORACLE_LAYOUTS = [("pp2", {"r": 2, "pp": 2}),
+                       ("pp2_tp2", {"pp": 2, "tp": 2})]
+# (b) the entry point at GPT-2 small's widths: 2 stage ranks, global batch
+# 8 in 4 micro-batches of 2, 4 steps
+PIPE_ENTRY_RANKS = 2
+PIPE_ENTRY_STEPS = 4
+PIPE_ENTRY_ARGS = ENTRY_ARGS + ["--micro-batch", "2"]
+# (b)'s bf16 losses against the one-process entry point's, in bf16
+# spacings (``bf16_steps``), at step 1 and at the steps after it: equal
+# at all 4 steps in the first card runs (PERF.md, phase 23), so equal at
+# step 1 (the same weights and batch) and at most one spacing after (a
+# loss near a rounding midpoint may round either way)
+PIPE_ENTRY_LOSS_STEPS = (0, 1)
+# (c) MPMDGPT at GPT-2 small's widths in bf16: global batch 8 as 8
+# micro-batches of 1 over phase 15's 64 ids, 3 Adam steps; layouts
+# against one stage within one bf16 rounding of the loss, relative
+MPMD_LAYOUTS = [("1f1b", [[3, 3, 3, 3]], "1f1b"),
+                ("gpipe", [[3, 3, 3, 3]], "gpipe"),
+                ("hetero", [[2, 4, 3, 3]], "1f1b"),
+                ("one_stage", [[12]], "1f1b")]
+MPMD_MICRO, MPMD_STEPS, MPMD_LR = 8, 3, 3e-4
+MPMD_LOSS_REL = 2.0 ** -8
+# the layouts whose extra step is profiled (device idle share)
+MPMD_PROFILED = ("1f1b", "one_stage")
+# (c)'s bf16 [[12]] step-1 loss (fp32) against the plain bf16 model's
+# (rounded to bf16) on the same weights, in bf16 spacings: rounding alone
+# parts them by up to half a spacing
+MPMD_PLAIN_BF16_STEPS = 1
+
+
+def pipe_oracle_config():
+    """(a)'s configuration, in ``mesh_config``'s form."""
+    return {"name": "gpt2_fp32_4_layers_pp",
+            "cfg": dataclasses.asdict(GPTConfig(vocab_size=50304,
+                                                num_layers=4,
+                                                dtype="float32")),
+            "batch": 8, "seq": 256, "steps": ORACLE_STEPS, "lr": ORACLE_LR,
+            "micro": 4, "pipeline": True}
+
+
+def pipe_flash_want(num_layers, stages, micro, steps, fused):
+    """A pipeline rank's flash launches: every tick runs the stage's
+    layers forward, again in the backward's recompute, and backward
+    (``M + S - 1`` ticks a step, bubbles included)."""
+    each = (micro + stages - 1) * (num_layers // stages) * steps
+    return {"flash_fwd": 2 * each, "flash_bwd_fused": each if fused else 0,
+            "flash_bwd_dq": 0 if fused else each,
+            "flash_bwd_dkv": 0 if fused else each}
+
+
+def pipe_hops(by_tag, micro, stages, steps):
+    """A rank's pipeline collectives against the port's
+    ``spmd_hop_schedule``: ``M + S - 2`` hops each way a step, staged
+    through host memory (gloo, CUDA tensors), one collect and one
+    all-reduce of the input's gradient over pp.  Returns the counts."""
+    from hetu_tpu_torch.parallel.pipeline import spmd_hop_schedule
+    sched = spmd_hop_schedule(micro, stages, with_aux=False)
+    hops = by_tag.get("ppermute|pipeline/hop|pp|staged", 0)
+    collect = by_tag.get("all_reduce|pipeline/collect|pp", 0)
+    grad_in = by_tag.get("all_reduce||pp", 0)
+    want = (2 * sched.count(("ppermute", "pipeline/hop")) * steps,
+            sched.count(("all_reduce", "pipeline/collect")) * steps, steps)
+    if (hops, collect, grad_in) != want:
+        raise AssertionError(f"pipeline collectives {by_tag}: hops, "
+                             f"collects, input-gradient reduces "
+                             f"{(hops, collect, grad_in)} != {want}")
+    return {"hops": hops, "collects": collect, "input_grad_reduces": grad_in}
+
+
+def pipe_oracle():
+    """(a): the one-process pipeline model and the plain model (from its
+    weights) in this process, captured, then the layouts on
+    ``PIPE_ORACLE_RANKS`` ranks of ``mesh_rank_main``: losses within 1e-4
+    of both and the gathered weights' updates within 1 % of the
+    one-process pipeline's (phase 8's rule)."""
+    spec = pipe_oracle_config()
+    name = spec["name"]
+    cfg = GPTConfig(**spec["cfg"])
+    ref = mesh_train(spec, weights=True)
+    plain = mesh_train({**spec, "pipeline": False}, weights=True,
+                       init_state=ref["init"])
+    one = {"pipeline_losses": ref["losses"], "plain_losses": plain["losses"],
+           "pipeline_ms_per_step": ref["ms_per_step"],
+           "plain_ms_per_step": plain["ms_per_step"],
+           "captured": [ref["captured"], plain["captured"]],
+           **{f"plain_{k}": v for k, v in
+              mesh_weight_report(ref, plain).items()}}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(plain["losses"],
+                                                  ref["losses"]))
+    if rel > 1e-4 or one["plain_param_update_rel_diff"] > 1e-2 or \
+            not all(one["captured"]):
+        raise AssertionError(f"pipeline oracle: one-process pipeline "
+                             f"against the plain model {one}")
+    tmp = tempfile.mkdtemp(prefix="hetu_pipe_")
+    try:
+        for k in ("init", "final"):
+            np.savez(os.path.join(tmp, f"ref.{name}.{k}.npz"), **ref[k])
+        cases = [[case, spec, shape, False, {}]
+                 for case, shape in PIPE_ORACLE_LAYOUTS]
+        runs = mesh_group(cases, tmp, {name}, ranks=PIPE_ORACLE_RANKS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fused = fa._use_fused(spec["seq"], cfg.head_dim, torch.float32)
+    layouts = []
+    for i, (case, shape) in enumerate(PIPE_ORACLE_LAYOUTS):
+        per_rank = [rk[i] for rk in runs]
+        r0 = per_rank[0]
+        want = pipe_flash_want(cfg.num_layers, shape["pp"], spec["micro"],
+                               spec["steps"], fused)
+        for r in per_rank:
+            got = {k: v["launches"] for k, v in r["flash"].items()}
+            off = {k: v["launches"] - v["by_route"]["3xtf32"]
+                   for k, v in r["flash"].items()}
+            if got != want or any(off.values()):
+                raise AssertionError(f"pipeline {case} rank {r['rank']}: "
+                                     f"flash {r['flash']}, want {want} on "
+                                     f"3xtf32")
+            hops = pipe_hops(r["comm_by_tag"], spec["micro"], shape["pp"],
+                             spec["steps"])
+        rels = [max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], w))
+                for w in (ref["losses"], plain["losses"])]
+        row = {"layout": case, "mesh": shape, "losses": r0["losses"],
+               "loss_rel_diff_pipeline": rels[0],
+               "loss_rel_diff_plain": rels[1], **r0["weights"],
+               "ms_per_step_by_rank": [r["ms_per_step"] for r in per_rank],
+               "comm_by_rank": [r["comm"] for r in per_rank],
+               "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
+                                             for r in per_rank],
+               "flash_launches_per_rank": want, "collectives_per_rank": hops,
+               "backend": r0["backend"], "captured": r0["captured"]}
+        note("pipeline", "oracle", case, {k: row[k] for k in (
+            "losses", "loss_rel_diff_pipeline", "loss_rel_diff_plain",
+            "param_update_rel_diff", "ms_per_step_by_rank")})
+        if any(r["losses"] != r0["losses"] for r in per_rank) or \
+                max(rels) > 1e-4 or r0["weights"][
+                    "param_update_rel_diff"] > 1e-2 or \
+                r0["weights"]["param_max_abs_diff"] > \
+                2 * spec["lr"] * spec["steps"] or r0["captured"]:
+            raise AssertionError(f"pipeline {case}: {row}")
+        layouts.append(row)
+    return {"config": name, "one_process": one, "layouts": layouts,
+            "ranks": PIPE_ORACLE_RANKS,
+            "flash": flash_totals(r["flash"] for rk in runs for r in rk)}
+
+
+def flash_totals(runs):
+    """Flash launches summed over runs' ``flash_counts``: by wrapper, and
+    by wrapper and route."""
+    total = {k: {"launches": 0, "by_route": {"wgmma": 0, "3xtf32": 0,
+                                             "mma.sync": 0}}
+             for k in flash_wrappers()}
+    for fl in runs:
+        for k, v in fl.items():
+            total[k]["launches"] += v["launches"]
+            for route, n in v["by_route"].items():
+                total[k]["by_route"][route] += n
+    return total
+
+
+def pipe_entry_rank_main():
+    """One stage rank of (b), started by the port's ``Launcher``: runs the
+    entry point's ``main`` as a rank (it joins the group itself), with
+    the flash counters and the collectives recorded, and writes them with
+    its readings."""
+    from hetu_tpu_torch.parallel import comm
+    from hetu_tpu_torch.rpc.launcher import ENV_RANK
+    with open(os.environ[MESH_ENV_JOB]) as f:
+        job = json.load(f)
+    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "1")))
+    entry = load_entry()
+    reset_flash_counts()
+    with comm.comm_stats() as st:
+        r = entry.main(job["argv"])
+    rank = int(os.environ[ENV_RANK])
+    r.update(rank=rank, flash=flash_counts(), comm=st.summary(),
+             comm_by_tag=comm_by_tag(st.records))
+    with open(job["out"] + f".{rank}.json", "w") as f:
+        json.dump(r, f)
+
+
+def pipe_entry():
+    """(b): ``examples/train_gpt_torch.py --pp 2`` at GPT-2 small's widths
+    in bf16 through the launcher, against the one-process entry point
+    from the same weights and batches."""
+    entry = load_entry()
+    tmp = tempfile.mkdtemp(prefix="hetu_pipe_entry_")
+    data = os.path.join(tmp, "tokens.npy")
+    init = os.path.join(tmp, "init.safetensors")
+    entry_tokens(data)
+    args = PIPE_ENTRY_ARGS + ["--data", data]
+    try:
+        entry.main(args + ["--steps", "1", "--save", init])
+        one = entry.main(args + ["--steps", str(PIPE_ENTRY_STEPS),
+                                 "--load", init])
+        argv = args + ["--steps", str(PIPE_ENTRY_STEPS), "--load", init,
+                       "--pp", str(PIPE_ENTRY_RANKS)]
+        runs = mesh_group([], tmp, ranks=PIPE_ENTRY_RANKS,
+                          flag="--pipe-entry-rank", argv=argv)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = next(r for r in runs if r["rank"] == 0)
+    M = r0["micro_batches"]
+    want = pipe_flash_want(ENTRY_LAYERS, PIPE_ENTRY_RANKS, M,
+                           PIPE_ENTRY_STEPS,
+                           fa._use_fused(1024, 64, torch.bfloat16))
+    per_rank = []
+    for r in sorted(runs, key=lambda r: r["rank"]):
+        got = {k: v["launches"] for k, v in r["flash"].items()}
+        wg = {k: v["by_route"]["wgmma"] for k, v in r["flash"].items()}
+        if got != want or wg != want:
+            raise AssertionError(f"pipeline entry rank {r['rank']}: flash "
+                                 f"{r['flash']}, want {want} on wgmma")
+        per_rank.append({
+            "rank": r["rank"], "ms_per_step": r["ms_per_step"],
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "collectives": pipe_hops(r["comm_by_tag"], M, PIPE_ENTRY_RANKS,
+                                     PIPE_ENTRY_STEPS),
+            "comm": r["comm"], "flash": r["flash"]})
+    gaps = [bf16_steps(a, b) for a, b in zip(r0["losses"], one["losses"])]
+    out = {"argv": argv, "layout": r0["layout"], "micro_batches": M,
+           "losses": r0["losses"], "one_process_losses": one["losses"],
+           "loss_gap_bf16_steps": gaps,
+           "one_process_ms_per_step": one["ms_per_step"],
+           "one_process_captured": one["captured"],
+           "one_process_peak_memory_bytes": one["peak_memory_bytes"],
+           "flash_launches_per_rank": want, "ranks": per_rank}
+    note("pipeline", "entry", {k: out[k] for k in (
+        "losses", "one_process_losses", "loss_gap_bf16_steps")},
+        [r["ms_per_step"] for r in per_rank], one["ms_per_step"])
+    if r0["layout"]["backend"] != "gloo" or r0["captured"] or \
+            gaps[0] > PIPE_ENTRY_LOSS_STEPS[0] or \
+            max(gaps) > PIPE_ENTRY_LOSS_STEPS[1] or \
+            not np.isfinite(r0["losses"]).all() or \
+            not r0["losses"][-1] < r0["losses"][0]:
+        raise AssertionError(f"pipeline entry: {out}")
+    out["flash"] = flash_totals(r["flash"] for r in per_rank)
+    return out
+
+
+def mpmd_batch(cfg):
+    """(c)'s batch: ``MPMD_MICRO`` rows of 1024 tokens over phase 15's
+    learnable stream of 64 ids (a falling loss in 3 steps)."""
+    rng = np.random.RandomState(0)
+    ids = rng.choice(cfg.vocab_size, ENTRY_VOCAB_USED, replace=False)
+    toks = ids[rng.randint(0, ENTRY_VOCAB_USED, (MPMD_MICRO, 1025))]
+    return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
+
+
+def mpmd_run(cfg, layers, schedule, profile=False):
+    """(c): one ``MPMDGPT`` layout trained ``MPMD_STEPS`` Adam steps on
+    ``mpmd_batch``: losses, ms a step, the stash peaks and bytes, the
+    controller's seconds, peak memory (and the steps' peak above what was
+    allocated before them), the flash launches and the p2p log against
+    the schedule's events.  With ``profile``, one more step runs
+    unprofiled and then under ``torch.profiler`` (``profiled_window``,
+    after the launches are read): its device busy time and idle share
+    beside the controller's share of the unprofiled wall."""
+    from hetu_tpu_torch.models.gpt_mpmd import MPMDGPT
+    from hetu_tpu_torch.parallel.pipeline_mpmd import MPMDAdam
+    from hetu_tpu_torch.parallel.schedule import p2p_events
+    model = MPMDGPT(cfg, stage_layers=layers, schedule=schedule, seed=0)
+    opt = MPMDAdam(model.runtime, lr=MPMD_LR)
+    x, y = mpmd_batch(cfg)
+
+    def step():
+        loss, grads, st = model.train_step(
+            model.split_micro_batches(x, y, [MPMD_MICRO]))
+        opt.apply(grads)
+        return loss, st
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    losses, step_s, stats = [], [], None
+    for _ in range(MPMD_STEPS):
+        t = time.perf_counter()
+        loss, stats = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    S = len(layers[0])
+    by_stage = [[] for _ in range(S)]
+    for kind, fb, _, s, m, peer in model.runtime.p2p_log:
+        by_stage[s].append((kind, fb, m, peer))
+    gen = generate_pipedream_flush_schedule if schedule == "1f1b" \
+        else generate_gpipe_schedule
+    want_events = [[tuple(e) for e in st]
+                   for st in p2p_events(gen(S, MPMD_MICRO))]
+    out = {"stage_layers": layers, "schedule": schedule, "losses": losses,
+           "ms_per_step": 1e3 * float(np.mean(step_s[1:])),
+           "stash_peak": stats.stash_peak,
+           "stash_peak_bytes": stats.stash_peak_bytes,
+           "controller_ms": 1e3 * stats.controller_seconds,
+           "sync_ms": 1e3 * stats.sync_seconds,
+           "num_tasks": stats.num_tasks,
+           "p2p_log_equals_events": by_stage == want_events,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "step_peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "flash": flash_counts()}
+    if profile:
+        ctrl = []      # the controller's seconds, the unprofiled step first
+
+        def window():
+            ctrl.append(step()[1].controller_seconds)
+
+        plain, wall, kernels, _, _ = profiled_window(window)
+        busy = sum(k[0] for k in kernels) / 1e6
+        out["profile"] = {
+            "unprofiled_wall_s": plain, "wall_s": wall,
+            "device_busy_s": busy,
+            "idle_share": 1.0 - busy / plain if busy else None,
+            "controller_share_of_wall": ctrl[0] / plain,
+            "kernels": sum(k[2] for k in kernels),
+            "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": n}
+                    for us, k, n in kernels[:6]]}
+        if not busy:
+            raise AssertionError(f"mpmd {layers} {schedule}: the profile "
+                                 f"shows no device time")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mpmd_flash_want(layers, steps, dtype):
+    """An MPMD run's launches: a non-last stage's layers run forward, then
+    again in the backward's recompute; the last stage's once, fused with
+    its backward; every layer backward once."""
+    fwd = sum(2 * n for n in layers[:-1]) + layers[-1]
+    each = MPMD_MICRO * steps
+    bwd = sum(layers) * each
+    fused = fa._use_fused(1024, 64, dtype)
+    return {"flash_fwd": fwd * each, "flash_bwd_fused": bwd if fused else 0,
+            "flash_bwd_dq": 0 if fused else bwd,
+            "flash_bwd_dkv": 0 if fused else bwd}
+
+
+def mpmd_plain_state(state, cfg):
+    """An ``MPMDGPT.gather_state`` snapshot (``layerN``, ``wte``, ``wpe``,
+    ``ln_f``, ``head``) under the plain model's normalised names."""
+    names = {"ln1": "ln_1", "ln2": "ln_2", "qkv": "attn.qkv",
+             "attn_out": "attn.out", "mlp_up": "mlp.up",
+             "mlp_down": "mlp.down"}
+    out = {"wte.weight": state["wte"], "ln_f.weight": state["ln_f"]["g"]}
+    if "b" in state["ln_f"]:
+        out["ln_f.bias"] = state["ln_f"]["b"]
+    if "wpe" in state:
+        out["wpe"] = state["wpe"]
+    if "head" in state:
+        out["lm_head.weight"] = state["head"]
+    for i in range(cfg.num_layers):
+        for k, v in state[f"layer{i}"].items():
+            if isinstance(v, dict):
+                out[f"h{i}.{names[k]}.weight"] = v["g"]
+                if "b" in v:
+                    out[f"h{i}.{names[k]}.bias"] = v["b"]
+            elif k.endswith("_b"):
+                out[f"h{i}.{names[k[:-2]]}.bias"] = v
+            else:
+                out[f"h{i}.{names[k]}.weight"] = v
+    return out
+
+
+def mpmd_plain_oracle():
+    """(c)'s ``[[12]]`` against the plain ``GPTLMHeadModel`` on the same
+    weights (``gather_state`` under the plain names, ``load_state``) and
+    ``mpmd_batch``: in fp32 (TF32 off), phase 8's steps and lr, losses
+    within 1e-4 and the gathered updates within 1 % (phase 8's rule);
+    the bf16 plain model's step-1 loss from the same weights, for the
+    bf16 ``[[12]]`` run's (``MPMD_PLAIN_BF16_STEPS``)."""
+    from hetu_tpu_torch.models.gpt_mpmd import MPMDGPT
+    from hetu_tpu_torch.parallel.pipeline_mpmd import MPMDAdam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=50304, dtype="float32")
+    x, y = mpmd_batch(cfg)
+    model = MPMDGPT(cfg, stage_layers=[[cfg.num_layers]], seed=0)
+    opt = MPMDAdam(model.runtime, lr=ORACLE_LR)
+    init = mpmd_plain_state(model.gather_state(), cfg)
+    reset_flash_counts()
+    losses = []
+    for _ in range(ORACLE_STEPS):
+        loss, grads, _ = model.train_step(
+            model.split_micro_batches(x, y, [MPMD_MICRO]))
+        opt.apply(grads)
+        losses.append(float(loss))
+    final = mpmd_plain_state(model.gather_state(), cfg)
+    flash = flash_counts()
+    del model, opt, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = mpmd_flash_want([cfg.num_layers], ORACLE_STEPS, torch.float32)
+    got = {k: v["launches"] for k, v in flash.items()}
+    if got != want:
+        raise AssertionError(f"mpmd fp32 oracle: flash {flash}, want "
+                             f"{want}")
+    spec = {"name": "gpt2_small_fp32_mpmd_oracle",
+            "cfg": dataclasses.asdict(cfg), "batch": MPMD_MICRO,
+            "seq": 1024, "steps": ORACLE_STEPS, "lr": ORACLE_LR,
+            "micro": MPMD_MICRO}
+    plain = mesh_train(spec, weights=True, init_state=init,
+                       batch_xy=(x, y))
+    report = mesh_weight_report(plain, {"init": init, "final": final})
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"]))
+    out = {"losses": losses, "plain_losses": plain["losses"],
+           "loss_rel_diff": rel, **report,
+           "plain_ms_per_step": plain["ms_per_step"]}
+    if rel > 1e-4 or report["param_update_rel_diff"] > 1e-2 or \
+            report["param_max_abs_diff"] > 2 * ORACLE_LR * ORACLE_STEPS:
+        raise AssertionError(f"mpmd [[12]] against the plain model: {out}")
+    bf16 = mesh_train({**spec, "cfg": dataclasses.asdict(
+        GPTConfig(vocab_size=50304, dtype="bfloat16")), "steps": 1},
+        init_state=init, batch_xy=(x, y))
+    out["plain_bf16_step1_loss"] = bf16["losses"][0]
+    return out, flash
+
+
+def pipe_mpmd():
+    """(c): ``MPMDGPT`` on the one card (every stage ``cuda:0``)."""
+    oracle, oracle_flash = mpmd_plain_oracle()
+    cfg = GPTConfig(vocab_size=50304, dtype="bfloat16")
+    runs = {name: mpmd_run(cfg, layers, sched,
+                           profile=name in MPMD_PROFILED)
+            for name, layers, sched in MPMD_LAYOUTS}
+    ref = runs["one_stage"]["losses"]
+    for name, layers, _ in MPMD_LAYOUTS:
+        r = runs[name]
+        want = mpmd_flash_want(layers[0], MPMD_STEPS, torch.bfloat16)
+        got = {k: v["launches"] for k, v in r["flash"].items()}
+        wg = {k: v["by_route"]["wgmma"] for k, v in r["flash"].items()}
+        r["loss_rel_diff"] = max(abs(a - b) / abs(b)
+                                 for a, b in zip(r["losses"], ref))
+        if got != want or wg != want or not r["p2p_log_equals_events"] or \
+                r["loss_rel_diff"] > MPMD_LOSS_REL or \
+                not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"mpmd {name}: {r}, want flash {want}")
+        note("pipeline", "mpmd", name, r["losses"], r["ms_per_step"],
+             r["stash_peak"], r["stash_peak_bytes"],
+             r.get("profile", {}).get("idle_share"))
+    # the bf16 [[12]] run's step-1 loss (fp32, from bf16 logits) against
+    # the plain bf16 model's (rounded to bf16) on the same weights
+    oracle["bf16_step1_gap_steps"] = bf16_steps(
+        ref[0], oracle["plain_bf16_step1_loss"])
+    note("pipeline", "mpmd", "plain", {k: oracle[k] for k in (
+        "loss_rel_diff", "param_update_rel_diff", "bf16_step1_gap_steps")})
+    if oracle["bf16_step1_gap_steps"] > MPMD_PLAIN_BF16_STEPS:
+        raise AssertionError(f"mpmd bf16 [[12]] step-1 loss {ref[0]} "
+                             f"against the plain model's: {oracle}")
+    # the same forward at step 1; after it the flash backward's atomic dq
+    # sums may part the two in the last bits
+    a, b = runs["1f1b"], runs["gpipe"]
+    S = len(MPMD_LAYOUTS[0][1][0])
+    if a["losses"][0] != b["losses"][0] or \
+            b["loss_rel_diff"] > MPMD_LOSS_REL or max(a["stash_peak"]) > S or \
+            max(b["stash_peak"]) != MPMD_MICRO or \
+            not max(a["stash_peak_bytes"]) < max(b["stash_peak_bytes"]):
+        raise AssertionError(f"mpmd 1f1b {a} against gpipe {b}")
+    return {"config": "GPT-2 small widths (vocab 50304), bf16, seq 1024",
+            "micro_batches": MPMD_MICRO, "steps": MPMD_STEPS,
+            "layouts": {n: {k: v for k, v in r.items() if k != "flash"}
+                        for n, r in runs.items()},
+            "plain_oracle": oracle,
+            "flash": flash_totals([oracle_flash] +
+                                  [r["flash"] for r in runs.values()])}
+
+
+def phase_pipeline():
+    """Phase 23: pipelines on the one card (see the module docstring)."""
+    t0 = time.perf_counter()
+    out, wall = {}, {}
+    for part, fn in (("oracle", pipe_oracle), ("entry", pipe_entry),
+                     ("mpmd", pipe_mpmd)):
+        t = time.perf_counter()
+        out[part] = fn()
+        wall[part] = time.perf_counter() - t
+    out["part_wall_s"] = wall
+    total = flash_totals(out[k].pop("flash") for k in ("oracle", "entry",
+                                                       "mpmd"))
+    out.update(flash_launches={k: v["launches"] for k, v in total.items()},
+               flash_launches_by_route={k: v["by_route"]
+                                        for k, v in total.items()},
+               nvidia_smi=smi_line(), wall_s=time.perf_counter() - t0)
+    emit({"phase": "pipeline", **out})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4934,6 +5500,7 @@ def main():
     spec = phase_spec_decode()
     cluster = phase_cluster()
     mesh = phase_mesh()
+    pipe = phase_pipeline()
     # phase 20's measured runs, spec and non-spec, add their launches:
     # kernel 5 in the full-head runs, (d)'s and (c)'s, kernel 6 in the MLA
     # runs (bf16 pages on wgmma, fp32 pages on mma.sync)
@@ -4973,21 +5540,24 @@ def main():
              "flash_bwd_fused": "gpt2/bf16"}
     entries = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2,
                "flash_bwd_fused": 2}
-    # phase 17's BERT runs (not causal), phase 19's graph layer and phase
-    # 22's ranks add their launches to the rows
+    # phase 17's BERT runs (not causal), phase 19's graph layer, phase
+    # 22's ranks and phase 23's pipelines add their launches to the rows
     bert_runs = list(bert.values())
     graph_launches = {n: graph["flash_launches"].get(n, 0)
                       for n in where}
     mesh_launches = mesh["flash_launches"]
     mesh_routes = mesh["flash_launches_by_route"]
+    pipe_launches = pipe["flash_launches"]
+    pipe_routes = pipe["flash_launches_by_route"]
     for name, at in where.items():
         wgmma = sum(t["wgmma_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["wgmma"]
                 for b in bert_runs) + graph_launches[name] + \
-            mesh_routes[name]["wgmma"]
+            mesh_routes[name]["wgmma"] + pipe_routes[name]["wgmma"]
         tf32 = sum(t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["3xtf32"]
-                for b in bert_runs) + mesh_routes[name]["3xtf32"]
+                for b in bert_runs) + mesh_routes[name]["3xtf32"] + \
+            pipe_routes[name]["3xtf32"]
         mma = sum(t["tensor_core_launches"][name] - t["wgmma_launches"][name]
                   - t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["mma.sync"]
@@ -5011,12 +5581,14 @@ def main():
             "replaces": FLASH_REPLACES[name], "types": at,
             "launches": sum(t["flash_launches"][name] for t in train) +
             sum(b["flash_launches"][name] for b in bert_runs) +
-            graph_launches[name] + mesh_launches[name],
+            graph_launches[name] + mesh_launches[name] + pipe_launches[name],
             "noncausal_launches": sum(b["flash_launches"][name]
                                       for b in bert_runs),
             "graph_layer_launches": graph_launches[name],
             "mesh_launches": mesh_launches[name],
             "mesh_launches_by_route": mesh_routes[name],
+            "pipeline_launches": pipe_launches[name],
+            "pipeline_launches_by_route": pipe_routes[name],
             "wgmma_launches": wgmma,
             "launches_by_route": {"wgmma": wgmma, "3xtf32": tf32,
                                   "mma.sync": mma},
@@ -5083,5 +5655,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--mesh-rank"]:
         mesh_rank_main()
+        sys.exit(0)
+    if sys.argv[1:] == ["--pipe-entry-rank"]:
+        pipe_entry_rank_main()
         sys.exit(0)
     sys.exit(main())

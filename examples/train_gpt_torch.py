@@ -23,20 +23,25 @@ tokens/s, peak memory, the loader used), so scripts and tests can call
 it.
 
 Parallel layouts, with the JAX script's meaning: ``--dp``, ``--tp``,
-``--sp``, ``--zero``, ``--grad-comm``, ``--flat-state`` and
-``--ds-config`` (its dp, tp and ZeRO level).  When ``dp * tp > 1`` and
-the process is not a rank, ``main`` launches ``dp * tp`` ranks of this
-script through ``rpc.Launcher`` (one card: ranks share it over gloo),
-each joins by ``rpc.distributed_init`` and trains its shard of a mesh
-``{"dp": dp, "tp": tp}``; rank 0 prints the step lines, and ``main``
-returns its readings::
+``--pp``, ``--sp``, ``--zero``, ``--grad-comm``, ``--flat-state`` and
+``--ds-config`` (its dp, tp, pp and ZeRO level).  When ``dp * tp * pp >
+1`` and the process is not a rank, ``main`` launches ``dp * tp * pp``
+ranks of this script through ``rpc.Launcher`` (one card: ranks share it
+over gloo), each joins by ``rpc.distributed_init`` and trains its shard
+of a mesh ``{"dp": dp, "tp": tp}``, or with ``--pp`` of ``{"pp": pp,
+"dp": dp, "tp": tp}`` with a ``GPTPipelineModel`` of ``pp`` stages (the
+global batch's micro-batches run through the pipeline, so ``g.run``
+takes one); rank 0 prints the step lines, and ``main`` returns its
+readings::
 
   python examples/train_gpt_torch.py --device cpu --dp 2 --zero 2 \
       --steps 4 --hidden 64 --layers 2 --heads 4 --seq-len 32 \
       --vocab-size 256 --global-batch 4
+  python examples/train_gpt_torch.py --pp 2 --bf16 --global-batch 8 \
+      --micro-batch 2                       # 2 stage ranks on one card
 
-Pipelines (``--pp``), the planner and tracing are later slices: their
-flags raise ``NotImplementedError`` naming the ROADMAP item.
+The planner and tracing are later slices: their flags raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -103,10 +108,10 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     """Refuses, by name, the flags of slices still to be ported."""
-    later = {"item 11 (pipelines)": [("--pp", args.pp > 1)],
-             "item 16 (the planner)": [("--auto-parallel", args.auto_parallel),
-                                  ("--calibrate", args.calibrate)],
-        "item 15 (tracing)": [("--trace-out", args.trace_out is not None)]}
+    later = {"item 16 (the planner)": [("--auto-parallel", args.auto_parallel),
+                                       ("--calibrate", args.calibrate)],
+             "item 15 (tracing)": [("--trace-out",
+                                    args.trace_out is not None)]}
     for item, flags in later.items():
         for flag, used in flags:
             if used:
@@ -121,18 +126,31 @@ def tput_fmt(tokens_per_s: float) -> str:
 
 
 def layout(args):
-    """(dp, tp, zero) of the run: the flags, or a ds_parallel_config's."""
-    dp, tp, zero = args.dp, args.tp, args.zero
+    """(dp, tp, pp, zero) of the run: the flags, or a
+    ds_parallel_config's."""
+    dp, tp, pp, zero = args.dp, args.tp, args.pp, args.zero
     if args.ds_config:
         from hetu_tpu_torch.utils.ds_config import parse_layout
         with open(args.ds_config) as f:
             dp, tp, pp, cfg_zero = parse_layout(json.load(f))
-        if pp > 1:
-            raise NotImplementedError("--ds-config with pp > 1: pipelines "
-                                      "are ported with ROADMAP queue 1 "
-                                      "item 11 (pipelines)")
         zero = max(zero, int(cfg_zero))
-    return dp, tp, zero
+    return dp, tp, pp, zero
+
+
+def load_weights(model, path: str, cfg, pp: int) -> None:
+    """``--load``: a file saved by this layout's model, or by the other
+    one, carried across (the plain model's layers <-> the pipeline's
+    stacked blocks, ``models.convert``)."""
+    from hetu_tpu_torch.models.convert import (load_state, pipeline_state,
+                                               plain_state)
+    from hetu_tpu_torch.utils.checkpoint import read_model
+    state = read_model(path)
+    if set(state) != {n for n, _ in model.named_parameters()}:
+        if pp == 1:
+            load_state(model, plain_state(state, cfg))
+            return
+        state = pipeline_state(state, cfg, pp)
+    model.load_state_dict(state)
 
 
 def launch(argv, ranks: int, timeout: float) -> dict:
@@ -159,8 +177,8 @@ def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     check_supported(args)
-    dp, tp, zero = layout(args)
-    ranks = dp * tp
+    dp, tp, pp, zero = layout(args)
+    ranks = dp * tp * pp
     from hetu_tpu_torch.rpc.launcher import ENV_COORD
     if ranks > 1 and ENV_COORD not in os.environ:
         return launch(argv, ranks, args.launch_timeout)
@@ -170,9 +188,10 @@ def main(argv=None) -> dict:
     from hetu_tpu_torch.data import Dataloader, GPTSeqDataset
     from hetu_tpu_torch.graph import RunLevel
     from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel, llama_config
+    from hetu_tpu_torch.models.gpt_pipeline import GPTPipelineModel
     from hetu_tpu_torch.utils import (StepProfiler, device_memory_stats,
                                       get_logger)
-    from hetu_tpu_torch.utils.checkpoint import load_model, save_model
+    from hetu_tpu_torch.utils.checkpoint import save_model
 
     log = get_logger("train_gpt")
     mesh, rank = None, 0
@@ -181,7 +200,9 @@ def main(argv=None) -> dict:
         from hetu_tpu_torch.rpc import distributed_init
         client = distributed_init(os.environ[ENV_COORD], ranks,
                                   device=args.device)
-        mesh = create_mesh({"dp": dp, "tp": tp}, device=args.device)
+        shape = {"pp": pp, "dp": dp, "tp": tp} if pp > 1 else \
+            {"dp": dp, "tp": tp}
+        mesh = create_mesh(shape, device=args.device)
         rank = client.rank
         dev = mesh.device
     else:
@@ -215,19 +236,25 @@ def main(argv=None) -> dict:
                                       name="input_ids")
         labels = ht.parallel_placeholder("int32", batch_shape, pspec=spec,
                                          name="labels")
-        model = GPTLMHeadModel(cfg)
-        loss = model(ids, labels)
+        if pp > 1:
+            # the micro-batches run through the pipeline's ticks
+            model = GPTPipelineModel(cfg, num_stages=pp)
+            loss = model(ids, labels, num_micro_batches=num_micro)
+        else:
+            model = GPTLMHeadModel(cfg)
+            loss = model(ids, labels)
         train_op = optim.AdamOptimizer(
             lr=args.lr, zero=zero, grad_comm=args.grad_comm,
             flat_state=args.flat_state).minimize(loss)
     if args.load:
-        load_model(model, args.load)
+        load_weights(model, args.load, cfg, pp)
         if rank == 0:
             log.info("resumed from %s", args.load)
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     sp_prof = StepProfiler(warmup=2)
+    run_micro = 1 if pp > 1 else num_micro
     losses, first = [], None
     step = 0
     while step < args.steps:
@@ -242,7 +269,7 @@ def main(argv=None) -> dict:
                 first = (x, y)
             with sp_prof:
                 out = g.run(loss, [loss, train_op], {ids: x, labels: y},
-                            num_micro_batches=num_micro)
+                            num_micro_batches=run_micro)
             losses.append(out[0])
             step += 1
             if rank == 0 and (step % args.log_every == 0 or
@@ -264,7 +291,8 @@ def main(argv=None) -> dict:
         "loader": "native" if loader._lib is not None else "python",
         "micro_batches": num_micro, "compile_count": g.compile_count,
         "captured": g.last_run_captured,
-        "layout": {"dp": dp, "tp": tp, "sp": args.sp, "zero": zero,
+        "layout": {"dp": dp, "tp": tp, "pp": pp, "sp": args.sp,
+                   "zero": zero,
                    "grad_comm": args.grad_comm,
                    "flat_state": args.flat_state,
                    "backend": mesh.backend if mesh is not None else None},
@@ -276,7 +304,7 @@ def main(argv=None) -> dict:
         # the saved weights' loss on the run's first batch: what a run
         # resumed from the file sees at its first step
         (l0,) = g.run([loss], feed_dict={ids: first[0], labels: first[1]},
-                      num_micro_batches=num_micro,
+                      num_micro_batches=run_micro,
                       run_level=RunLevel.COMPUTE_ONLY)
         result["saved_first_batch_loss"] = float(l0)
         save_model(model, args.save)

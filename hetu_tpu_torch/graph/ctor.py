@@ -249,11 +249,13 @@ def parallel_parameter(init: Union[Initializer, Any], global_shape: Sequence,
                        ds_hierarchy=None, pspec=None, dtype=None,
                        name: str = "", trainable: bool = True,
                        graph: Optional[Graph] = None,
-                       blocks: Optional[Sequence[int]] = None) -> Tensor:
+                       blocks: Optional[Sequence[int]] = None,
+                       blocks_dim: int = 0) -> Tensor:
     """A parameter holding the rank's shard of ``global_shape`` under
     ``pspec`` (the whole value without a mesh).  The initializer draws
     the global value and the rank keeps its slice; ``blocks`` (sizes
-    summing to dim 0) splits a fused dim 0 block by block."""
+    summing to dim ``blocks_dim``) splits a fused dim block by block.  A
+    ``pp`` entry keeps the rank's pipeline stage of a stacked weight."""
     from ..parallel.mesh import take_shard
     g = graph or get_default_graph()
     if not isinstance(init, Initializer):
@@ -266,9 +268,11 @@ def parallel_parameter(init: Union[Initializer, Any], global_shape: Sequence,
     stream_seed = _next_seed() if hasattr(init, "seed") and \
         init.seed is None and g.init_generator is None else None
     g.add_variable(t, lambda: take_shard(
-        init(gshape, t.dtype, g, stream_seed), pspec, g.mesh, blocks))
+        init(gshape, t.dtype, g, stream_seed), pspec, g.mesh, blocks,
+        blocks_dim))
     t.pspec, t.global_shape = pspec, gshape
     t.shard_blocks = tuple(blocks) if blocks else None
+    t.shard_blocks_dim = int(blocks_dim)
     if ds_hierarchy is not None:
         t.set_ds_hierarchy(ds_hierarchy)
     return t

@@ -291,7 +291,8 @@ class Graph:
         if self.mesh is not None and t.global_shape is not None and \
                 tuple(value.shape) == tuple(t.global_shape):
             from ..parallel.mesh import take_shard
-            value = take_shard(value, t.pspec, self.mesh, t.shard_blocks)
+            value = take_shard(value, t.pspec, self.mesh, t.shard_blocks,
+                               t.shard_blocks_dim)
         elif tuple(value.shape) != t.concrete_shape():
             raise ValueError(f"value for {t.name} has shape "
                              f"{tuple(value.shape)}, expected "
@@ -312,7 +313,8 @@ class Graph:
     def global_value(self, t: Tensor) -> torch.Tensor:
         """A variable's global value on every rank: its stored part
         gathered over the storage axis (ZeRO-3), then over each axis of its
-        spec, fused blocks put back in order.  Every rank of the mesh must
+        spec (a stacked weight's ``pp`` stages among them), fused blocks
+        put back in order.  Every rank of the mesh must
         call it (the gathers are collectives)."""
         for fn in self._materializers:
             fn(self)
@@ -337,8 +339,8 @@ class Graph:
                 val = comm.all_gather(val, a, d, mesh)
             n = int(np.prod([mesh.axis_size(a) for a in axes])) if axes \
                 else 1
-            if d == 0 and t.shard_blocks and n > 1:
-                val = unblock(val, n, t.shard_blocks)
+            if d == t.shard_blocks_dim and t.shard_blocks and n > 1:
+                val = unblock(val, n, t.shard_blocks, d)
         return val
 
     def get_tensor_value(self, t: Tensor) -> torch.Tensor:

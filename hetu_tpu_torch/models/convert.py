@@ -17,6 +17,11 @@ tensor-parallel mesh its shard of a state dict (``param_layout``: the
 fused ``[q|k|v]`` and SwiGLU weights split block by block, as the
 model's parameters are) and ``gather_state`` puts the shards back
 together, so both packages start from one JAX state dict.
+``pipeline_state`` stacks a plain model's layers into
+``GPTPipelineModel``'s ``[stages, layers, ...]`` blocks and
+``plain_state`` undoes it; the JAX ``GPTPipelineModel``'s
+``state_dict()`` has the port's names and loads through
+``load_module_state``.
 """
 from __future__ import annotations
 
@@ -248,3 +253,81 @@ def _ways(spec, mesh_shape, ndim):
     full = _Position(mesh_shape, {a: 0 for a in mesh_shape})
     return [dim_split(spec[d] if d < len(spec) else None, full)[0]
             for d in range(ndim)]
+
+
+# ---------------------------------------------------------------------------
+# the pipeline model's stacked blocks <-> the plain model's layers
+# ---------------------------------------------------------------------------
+
+# pipeline (``GPTPipelineModel``) block weight -> the plain model's name
+# within layer i (``h{i}.<name>``)
+_STACKED_NAMES = {
+    "ln1": "ln_1.weight", "ln1_b": "ln_1.bias",
+    "qkv": "attn.qkv.weight", "qkv_b": "attn.qkv.bias",
+    "attn_out": "attn.out.weight", "attn_out_b": "attn.out.bias",
+    "ln2": "ln_2.weight", "ln2_b": "ln_2.bias",
+    "mlp_up": "mlp.up.weight", "mlp_up_b": "mlp.up.bias",
+    "mlp_down": "mlp.down.weight", "mlp_down_b": "mlp.down.bias"}
+# the weights outside the blocks: pipeline name -> plain name
+_OUTER_NAMES = {"wte.weight": "wte.weight", "wpe": "wpe",
+                "ln_f.weight": "ln_f.weight", "ln_f.bias": "ln_f.bias",
+                "lm_head": "lm_head.weight"}
+
+
+def _numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().float().cpu().numpy()
+    return np.asarray(v)
+
+
+def pipeline_state(state: Dict[str, object], cfg: GPTConfig,
+                   num_stages: int) -> Dict[str, np.ndarray]:
+    """A plain model's global state dict (``GPTLMHeadModel``, either
+    naming convention) as ``GPTPipelineModel``'s of ``num_stages``
+    stages: each layer's weights stacked ``[S, L/S, ...]`` under
+    ``blk_<name>``.  A tied model's head is its embedding."""
+    flat = {_Params._norm(k): _numpy(v) for k, v in state.items()}
+    L = cfg.num_layers
+    if L % num_stages:
+        raise ValueError(f"{L} layers not divisible into {num_stages} "
+                         f"stages")
+    out = {}
+    for pname, name in _OUTER_NAMES.items():
+        if name in flat:
+            out[pname] = flat.pop(name)
+    if "lm_head" not in out:
+        out["lm_head"] = out["wte.weight"].copy()
+    for key, name in _STACKED_NAMES.items():
+        rows = [flat.pop(f"h{i}.{name}", None) for i in range(L)]
+        if all(r is None for r in rows):
+            continue
+        st = np.stack(rows, 0)
+        out[f"blk_{key}"] = st.reshape((num_stages, L // num_stages) +
+                                       st.shape[1:])
+    if flat:
+        raise KeyError(f"unexpected={sorted(flat)}")
+    return out
+
+
+def plain_state(state: Dict[str, object], cfg: GPTConfig
+                ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`pipeline_state`: a ``GPTPipelineModel``
+    state dict (stacked ``blk_<name>``) as ``GPTLMHeadModel``'s, under
+    the normalised names (a tied config drops the head)."""
+    flat = {k: _numpy(v) for k, v in state.items()}
+    out = {}
+    for pname, name in _OUTER_NAMES.items():
+        if pname in flat:
+            out[name] = flat.pop(pname)
+    if cfg.tie_embeddings:
+        out.pop("lm_head.weight", None)
+    for key, name in _STACKED_NAMES.items():
+        st = flat.pop(f"blk_{key}", None)
+        if st is None:
+            continue
+        st = st.reshape((cfg.num_layers,) + st.shape[2:])
+        for i in range(cfg.num_layers):
+            out[f"h{i}.{name}"] = st[i]
+    if flat:
+        raise KeyError(f"unexpected={sorted(flat)}")
+    return out

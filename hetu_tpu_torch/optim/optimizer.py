@@ -497,7 +497,8 @@ class Optimizer:
         """The rank's part of a state's global value, laid out as the
         parameter's (and under ZeRO its dp chunk)."""
         from ..parallel.mesh import take_shard
-        val = take_shard(val, t.pspec, graph.mesh, t.shard_blocks)
+        val = take_shard(val, t.pspec, graph.mesh, t.shard_blocks,
+                         t.shard_blocks_dim)
         if self._piece_chunked(graph, t) and not self.flat_state:
             mesh = graph.mesh
             val = val.chunk(mesh.axis_size(self.dp_axis), 0)[

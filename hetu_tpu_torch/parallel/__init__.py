@@ -1,7 +1,9 @@
 """The multi-GPU mesh (port of ``hetu_tpu.parallel``, its core): the
-sharding spec (``dstates``), process-group meshes (``mesh``) and the
-collectives with their accounting (``comm``).  Pipelines, context
-parallelism and hot switching are ROADMAP queue 1 items 11-13."""
+sharding spec (``dstates``), process-group meshes (``mesh``), the
+collectives with their accounting (``comm``), and the pipelines: the
+schedules (``schedule``), the SPMD pipeline over a ``pp`` axis
+(``pipeline``) and the MPMD runtime (``pipeline_mpmd``).  Context
+parallelism and hot switching are ROADMAP queue 1 items 12-13."""
 from . import comm, dstates
 from .dstates import (DUPLICATE, NULL_HETERO_DIM, PARTIAL,
                       DistributedStates, DistributedStatesHierarchy,

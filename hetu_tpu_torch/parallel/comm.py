@@ -23,8 +23,10 @@ Inside a forward the layers use the autograd pairs of Megatron-LM:
 :func:`reduce_from_group` (all-reduce, backward identity),
 :func:`gather_from_group` (all-gather, backward reduce-scatter),
 :func:`reduce_scatter_to_group` (reduce-scatter, backward all-gather),
-:func:`split_to_group` (this rank's slice, backward all-gather) and
-:func:`gather_output` (all-gather, backward this rank's slice).  On
+:func:`split_to_group` (this rank's slice, backward all-gather),
+:func:`gather_output` (all-gather, backward this rank's slice) and
+:func:`permute_group` (a ``ppermute`` whose backward is the inverse
+permutation: the pipeline's stage hop).  On
 ``meta`` tensors (the graph's shape pass) they return the shapes alone.
 
 Accounting: while a :func:`comm_stats` scope is open, every collective
@@ -558,6 +560,27 @@ class _SplitToGroup(torch.autograd.Function):
         return all_gather(g, ctx.axis, ctx.dim, ctx.mesh), None, None, None
 
 
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, perm):
+        ctx.axis, ctx.mesh = axis, mesh
+        ctx.inverse = [(d, s) for s, d in perm]
+        ctx.tag = current_comm_tag()
+        return ppermute(x, axis, perm, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        # recorded under the forward's tag: the reverse hop of a
+        # ``pipeline/hop`` is one too
+        saved = list(_TAG_STACK)
+        _TAG_STACK[:] = [ctx.tag] if ctx.tag else []
+        try:
+            out = ppermute(g.contiguous(), ctx.axis, ctx.inverse, ctx.mesh)
+        finally:
+            _TAG_STACK[:] = saved
+        return out, None, None, None
+
+
 def _active(axis: str, mesh) -> bool:
     return mesh is not None and mesh.axis_size(axis) > 1
 
@@ -606,6 +629,20 @@ def reduce_scatter_to_group(x: torch.Tensor, axis: str, dim: int,
     if not _active(axis, mesh):
         return x
     return _ReduceScatterToGroup.apply(x, axis, mesh, dim % x.ndim)
+
+
+def permute_group(x: torch.Tensor, axis: str,
+                  perm: Sequence[Tuple[int, int]],
+                  mesh=None) -> torch.Tensor:
+    """:func:`ppermute` with a backward: the gradient travels the
+    inverse permutation (the transpose XLA derives for the JAX package's
+    ``lax.ppermute``), recorded as a ``ppermute`` under the forward's
+    :func:`comm_tag`.  Staged through host memory on a gloo mesh of CUDA
+    tensors, both ways (``GLOO_CUDA_STAGED``)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if x.is_meta or not _active(axis, mesh):
+        return ppermute(x, axis, perm, mesh)
+    return _PPermute.apply(x, axis, mesh, [tuple(p) for p in perm])
 
 
 def split_to_group(x: torch.Tensor, axis: str, dim: int,

@@ -24,7 +24,8 @@ lacks counts as replication, as the JAX graph drops it
 slice a global value into a rank's shard; ``blocks`` splits a fused dim
 (``[q | k | v]``, SwiGLU's two halves) block by block, so that a rank
 holds its part of every block rather than one contiguous run of the
-fused dim.
+fused dim (dim 0 of a layer's weight, ``blocks_dim`` 2 of the pipeline's
+stacked ``[stages, layers, rows, h]`` weights).
 """
 from __future__ import annotations
 
@@ -265,10 +266,11 @@ def local_shape(global_shape: Sequence[int], pspec, mesh) -> Tuple[int, ...]:
 
 
 def shard_pieces(global_shape: Sequence[int], pspec, mesh,
-                 blocks: Optional[Sequence[int]] = None):
+                 blocks: Optional[Sequence[int]] = None,
+                 blocks_dim: int = 0):
     """The rank's shard as pieces of the global value: a list of
     ``(global slices, local slices)``.  ``blocks`` (sizes summing to dim
-    0) splits dim 0 block by block: one piece a block."""
+    ``blocks_dim``) splits that dim block by block: one piece a block."""
     shape = tuple(int(s) for s in global_shape)
     loc = local_shape(shape, pspec, mesh)
     base_g, base_l = [], []
@@ -279,11 +281,12 @@ def shard_pieces(global_shape: Sequence[int], pspec, mesh,
         base_l.append(slice(0, loc[d]))
     if not blocks or not shape:
         return [(tuple(base_g), tuple(base_l))]
-    entry = pspec[0] if pspec else None
+    bd = blocks_dim
+    entry = pspec[bd] if pspec is not None and bd < len(pspec) else None
     n, i = dim_split(entry, mesh)
-    if sum(blocks) != shape[0]:
-        raise ValueError(f"blocks {tuple(blocks)} do not sum to dim 0 of "
-                         f"{shape}")
+    if sum(blocks) != shape[bd]:
+        raise ValueError(f"blocks {tuple(blocks)} do not sum to dim {bd} "
+                         f"of {shape}")
     pieces, g0, l0 = [], 0, 0
     for b in blocks:
         if b % n:
@@ -292,37 +295,38 @@ def shard_pieces(global_shape: Sequence[int], pspec, mesh,
         w = b // n
         gs = list(base_g)
         ls = list(base_l)
-        gs[0] = slice(g0 + i * w, g0 + (i + 1) * w)
-        ls[0] = slice(l0, l0 + w)
+        gs[bd] = slice(g0 + i * w, g0 + (i + 1) * w)
+        ls[bd] = slice(l0, l0 + w)
         pieces.append((tuple(gs), tuple(ls)))
         g0, l0 = g0 + b, l0 + w
     return pieces
 
 
-def take_shard(x, pspec, mesh, blocks: Optional[Sequence[int]] = None):
+def take_shard(x, pspec, mesh, blocks: Optional[Sequence[int]] = None,
+               blocks_dim: int = 0):
     """The rank's shard of the global value ``x`` (numpy or torch)."""
     if all(dim_split(e, mesh)[0] == 1 for e in (pspec or ())):
         return x
-    pieces = shard_pieces(tuple(x.shape), pspec, mesh, blocks)
+    pieces = shard_pieces(tuple(x.shape), pspec, mesh, blocks, blocks_dim)
     if len(pieces) == 1:
         return x[pieces[0][0]]
     parts = [x[g] for g, _ in pieces]
     if isinstance(x, torch.Tensor):
-        return torch.cat(parts, 0)
-    return np.concatenate(parts, 0)
+        return torch.cat(parts, blocks_dim)
+    return np.concatenate(parts, blocks_dim)
 
 
-def unblock(gathered: torch.Tensor, n: int, blocks: Sequence[int]
-            ) -> torch.Tensor:
-    """Dim 0 gathered over ``n`` shards of a blocked layout (each shard's
-    part of every block, shard after shard) back into the global
+def unblock(gathered: torch.Tensor, n: int, blocks: Sequence[int],
+            dim: int = 0) -> torch.Tensor:
+    """Dim ``dim`` gathered over ``n`` shards of a blocked layout (each
+    shard's part of every block, shard after shard) back into the global
     order (every shard's part of block 0, then of block 1, ...)."""
-    per = gathered.shape[0] // n
-    shards = gathered.split(per, 0)
+    per = gathered.shape[dim] // n
+    shards = gathered.split(per, dim)
     widths = [b // n for b in blocks]
-    cols = [s.split(widths, 0) for s in shards]
+    cols = [s.split(widths, dim) for s in shards]
     return torch.cat([cols[i][b] for b in range(len(blocks))
-                      for i in range(n)], 0)
+                      for i in range(n)], dim)
 
 
 # ---------------------------------------------------------------------------

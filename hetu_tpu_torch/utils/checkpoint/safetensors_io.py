@@ -227,6 +227,12 @@ def _read_file(path: str) -> Dict[str, torch.Tensor]:
     return state
 
 
+def read_model(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict in a file ``save_model`` wrote (4-bit entries
+    dequantized)."""
+    return _read_file(path)
+
+
 def load_model(model, path: str, strict: bool = True):
     """Load a safetensors file into ``model`` (in place into its
     variables)."""
@@ -407,10 +413,11 @@ def _rank_pieces(graph, t, value: torch.Tensor):
     used = spec_axes(spec)
     if any(mesh.coords[a] for a in mesh.axis_names if a not in used):
         return []
+    bd = t.shard_blocks_dim
     blocks = t.shard_blocks if chunk is None and spec and \
-        dim_split(spec[0], mesh)[0] > 1 else None
+        dim_split(spec[bd], mesh)[0] > 1 else None
     return [(g, value[l]) for g, l in
-            shard_pieces(t.global_shape, spec, mesh, blocks)]
+            shard_pieces(t.global_shape, spec, mesh, blocks, bd)]
 
 
 def _save_ranks(model, graph, state: Dict[str, Any], dirpath: str) -> None:

@@ -8,7 +8,8 @@ the JAX package's ``examples/train_gpt.py`` (fp32, within 1e-4 at the
 printed four decimals); the mesh layouts (``--dp 2 --zero 2``, ``--tp
 2 --sp``, flat state) launch two gloo ranks and match the one-process
 losses; every flag of a later slice raises ``NotImplementedError``
-naming its ROADMAP item.  A last test imports the
+naming its ROADMAP item (the pipelined layouts are in
+``test_torch_pipeline_entry.py``).  A last test imports the
 port with ``jax``, ``hetu_tpu``, ``safetensors`` and ``ml_dtypes``
 blocked.
 """
@@ -95,7 +96,6 @@ def test_losses_equal_the_jax_entry_point(entry, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pp", "2"], "item 11"),
     (["--auto-parallel"], "item 16"), (["--calibrate"], "item 16"),
     (["--trace-out", "t.json"], "item 15")])
 def test_flags_of_later_slices_raise(entry, flags, item):
@@ -135,10 +135,10 @@ def test_ds_config_gives_the_layout(entry, tmp_path):
     path = str(tmp_path / "ds.json")
     save_ds_config(generate_gpt_3d_config(2, 2, 2, 1), path)
     args = entry.parse_args(TINY + ["--ds-config", path])
-    assert entry.layout(args) == (2, 2, 1)
+    assert entry.layout(args) == (2, 2, 1, 1)
     save_ds_config(generate_gpt_3d_config(2, 1, 1, 2), path)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        entry.layout(entry.parse_args(TINY + ["--ds-config", path]))
+    assert entry.layout(entry.parse_args(TINY + ["--ds-config", path])) \
+        == (1, 1, 2, 1)
 
 
 def test_the_port_imports_without_jax_or_safetensors():

@@ -292,7 +292,117 @@ def checkpoint_batch(vocab):
     return x, x[:, ::-1].copy()
 
 
+def case_permute(rank, world, perms):
+    """``comm.permute_group`` over axis ``x``: for each permutation the
+    forward value, ``gradcheck`` of the op (float64; every rank runs the
+    same perturbations, so the exchanges pair up), the gradient of a
+    weighted sum and the records."""
+    import torch
+    from hetu_tpu_torch.parallel import comm, create_mesh
+    mesh = create_mesh({"x": world}, device="cpu")
+    out = []
+    for perm in perms:
+        x = (torch.arange(6, dtype=torch.float64).reshape(3, 2) + 10 * rank
+             ).requires_grad_(True)
+        with comm.comm_stats() as st, comm.comm_tag("hop"):
+            y = comm.permute_group(x, "x", perm, mesh)
+            w = torch.full_like(y, float(rank + 1))
+            (g,) = torch.autograd.grad((y * w).sum(), x)
+        ok = torch.autograd.gradcheck(
+            lambda t: comm.permute_group(t, "x", perm, mesh), (x,))
+        out.append({"y": y.detach().numpy(), "grad": g.numpy(),
+                    "gradcheck": bool(ok),
+                    "records": [tuple(r) for r in st.records]})
+    return out
+
+
+def case_aux(rank, world, x, ws, micro):
+    """``pipeline_spmd`` with ``with_aux`` over the ``pp`` axis of ``{"r":
+    2, "pp": 2}``: stage ``s`` scales by ``ws[s]`` and reports its
+    output's sum; the output, the aux and the gradients of ``out.sum() +
+    aux`` for the input and the rank's stage weight."""
+    import torch
+    from hetu_tpu_torch.parallel import create_mesh
+    from hetu_tpu_torch.parallel.pipeline import pipeline_spmd
+    mesh = create_mesh({"r": 2, "pp": 2}, device="cpu")
+    s = mesh.axis_index("pp")
+    w = torch.tensor([[ws[s]]], dtype=torch.float64, requires_grad=True)
+    xx = torch.from_numpy(x).requires_grad_(True)
+
+    def stage_fn(p, v):
+        y = v * p["w"][0]
+        return y, y.sum()
+
+    out, aux = pipeline_spmd(stage_fn, {"w": w}, xx, micro, mesh,
+                             with_aux=True)
+    gx, gw = torch.autograd.grad(out.sum() + aux, [xx, w])
+    return {"out": out.detach().numpy(), "aux": float(aux.detach()),
+            "gx": gx.numpy(), "gw": float(gw[0, 0]), "stage": s}
+
+
+def case_pipeline(rank, world, state_path, batch_path, mk, layouts,
+                  steps=3, lr=1e-2):
+    """``GPTPipelineModel`` from a JAX pipeline model's state (pp 1,
+    stacked ``[1, L, ...]``) on each layout ``(name, mesh shape, config
+    overrides, micro-batches, optimizer options)``: the Adam losses, the
+    ``wte`` gradient of the first batch at the initial weights (local:
+    whole under dp 1), the gathered weights against the loaded ones, the
+    collectives of the first step, the gathered weights after the run
+    (rank 0) and, under ZeRO, the parameters it splits over dp."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.models import gpt as tgpt
+    from hetu_tpu_torch.models.convert import pipeline_state, plain_state
+    from hetu_tpu_torch.models.gpt_pipeline import GPTPipelineModel
+    from hetu_tpu_torch.parallel import P, comm, create_mesh
+    base = _dist_state(state_path)
+    b = np.load(batch_path)
+    x, y = b["x"], b["y"]
+    out = {}
+    for name, shape, cfg_kw, micro, opt_kw in layouts:
+        mesh = create_mesh(shape, device="cpu")
+        cfg = getattr(tgpt, mk["fn"])(**{**mk["kw"], **cfg_kw})
+        S = mesh.axis_size("pp")
+        with ht.graph("define_and_run", create_new=True, mesh=mesh,
+                      seed=0) as g:
+            ids = ht.parallel_placeholder("int32", x.shape,
+                                          pspec=P("dp", None), name="ids")
+            labels = ht.parallel_placeholder("int32", y.shape,
+                                             pspec=P("dp", None),
+                                             name="labels")
+            model = GPTPipelineModel(cfg, num_stages=S)
+            loss = model(ids, labels, num_micro_batches=micro)
+            (g_wte,) = ht.gradients(loss, [model.wte.weight])
+            train_op = optim.AdamOptimizer(lr=lr, **opt_kw).minimize(loss)
+        loaded = pipeline_state(plain_state(base, cfg), cfg, S)
+        model.load_state_dict(loaded)
+        # the gathered weights (every stage and tp block back in place)
+        init_diff = max(float(np.abs(v.numpy() - loaded[k]).max())
+                        for k, v in model.state_dict().items())
+        (wte_grad,) = g.run([g_wte], feed_dict={ids: x, labels: y})
+        losses, records = [], None
+        for i in range(steps):
+            with comm.comm_stats() as st:
+                l, _ = g.run(loss, [loss, train_op], {ids: x, labels: y})
+            losses.append(float(l))
+            if i == 0:
+                records = [tuple(r) for r in st.records]
+        state = {k: v.numpy() for k, v in model.state_dict().items()}
+        out[name] = {"losses": losses, "wte_grad": wte_grad.numpy(),
+                     "init_diff": init_diff,
+                     "records": records,
+                     "state": state if rank == 0 else None,
+                     "zero_chunked": sorted(
+                         n for n, p in model.named_parameters()
+                         if train_op.producer.attrs["optimizer"]._chunked(
+                             g, p)) if opt_kw.get("zero") else None}
+    return out
+
+
 CASES = {"collectives": case_collectives, "train_many": case_train_many,
+         "pipeline": case_pipeline, "permute": case_permute,
+         "aux": case_aux,
          "many": case_many,
          "stats": case_stats, "checkpoint": case_checkpoint, "ce": case_ce}
 
