@@ -316,6 +316,43 @@ Phases, each printing one JSON line:
     8's steps and lr) losses within 1e-4 and updates within 1 %; in
     bf16 the step-1 loss within ``MPMD_PLAIN_BF16_STEPS`` bf16 spacings
     of the plain bf16 model's.
+24. cp: context parallelism on the one card, each layout held against
+    the same configuration trained in this process (no mesh, captured)
+    from the seed-0 weights and one seeded batch.  (a) fp32 (TF32 off),
+    GPT-2 widths at 2 layers (phase 22's (a): seq 256, global batch 4 in
+    2 micro-batches, 3 Adam steps at phase 8's lr): the ring over
+    ``{"dp": 2, "cp": 2}`` with ZeRO-2 and over ``{"cp": 2, "tp": 2}``
+    with sp on 4 rank processes of ``mesh_rank_main``, the ring and
+    Ulysses over ``{"cp": 2}`` on (b)'s 2 ranks before its cases; losses
+    within 1e-4 and the gathered weights' updates within 1 % (phase 8's
+    limits).  (b) Llama-3-8B widths at 2
+    layers (vocab 128256, hidden 4096, 32 heads, 8 KV heads, FFN 14336,
+    bf16), one sequence of 8192 tokens (the config's ``max_seq_len``),
+    4096 a rank over ``{"cp": 2}`` on 2 ranks of ``--cp-rank``, the ring
+    and Ulysses, 3 Adam steps at lr 3e-4 (the cp gradient sum in 256 MB
+    buckets): losses falling and within ``MESH_LOSS_LIMITS``' 2 % of one
+    process at seq 8192.  Every rank's flash launches as the normal
+    causal ring gives them (rank i of cp runs i + 1 pairs a layer) or
+    one a layer under Ulysses, on 3xTF32, its ring hops (``ring/kv``,
+    ``ring/dkv``, staged) or all-to-alls (``ulysses``) counted.  (c) On
+    (b)'s ranks after training: ``ring_attention_sharded`` at (1, 4096
+    a rank, 32, 128), normal and sym, bf16 and fp32 q/k with bf16 v,
+    forward and gradients against the kernels over the whole sequence
+    in one process; ``profile_ring_breakdown`` of both patterns (comm,
+    attn, corr, grad ms a round).  In this process: kernels 1-4 at the
+    ring's launch shapes (a causal and a full pair 4096 x 4096; sym
+    head-causal 2048 x 2048, tail-causal 2048 x 4096 at offset 2048, COL
+    4096 x 2048, ROW 2048 x 4096; a full pair with (q_ids, kv_ids) whose
+    rows of a later document see no key: out 0, lse -inf, dq 0 exactly)
+    and over the whole 8192-token sequence (Ulysses' 16 heads a rank,
+    and the one-process run's 32) against their plain versions, the rows
+    that see one key against the fp64 plain version within
+    ``single_key_ulps``, with the forward and the backward timed beside
+    their bounds.  Ms a step by rank beside one process's,
+    comm bytes by kind and tag, flash launches by wrapper and route,
+    peak memory by rank.  The launches of (a) and (b) join the kernel
+    table's ``launches`` (``cp_launches``), (c)'s stand apart
+    (``cp_check_launches``).
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -1181,13 +1218,25 @@ BERT_ATTN = (16, 512, 12, 64)      # BERT-base, one micro-batch, not causal
 FP32_FWD_TOL = 1e-4
 FP32_BWD_TOL = 1e-3
 # rows whose exact value cancels to 0 leave only the order of two fp32
-# sums (the first causal row's dq: p = 1, dp = delta, ds = 0): they are
-# held to 2**-16 of the tensor's RMS, far below one bf16 ulp.  A query row
-# that sees exactly one key has dq = 0 exactly, and there the kernel's dq
-# is held against 0: on an H100 the plain version's own fp32 noise in that
-# row (1.04e-6 at the Llama shape in bf16) is above the floor (9.3e-7);
-# phase 6 prints both
+# sums: they are held to 2**-16 of the tensor's RMS, far below one bf16
+# ulp
 CANCEL_FLOOR = 2.0 ** -16
+
+
+def single_key_ulps(d):
+    """The rounding bound of dq on a query row that sees exactly one key,
+    in units of 2**-24 * scale * sum_d |do * v| * |k| (that key's v and
+    k).  There p = 1, out = v and dp = delta, so dq = 0 exactly; what is
+    left comes out of fp32 sums, each off by at most 2**-23 (a truncating
+    accumulator) of its |terms| a term: delta (d terms: 2d units), the
+    kernel's dP chain started at -delta (d + 1 terms summing to at most
+    twice delta's: 4(d + 1)), its products on 3xTF32 (3 * 2**-22 each in
+    fp32, 2**-22 with a bf16 v: 12d), times 1.1 for p (the bf16 kernels'
+    rounded q * scale moves it by a few percent) and dS's rounding:
+    under 24 (d + 1).  It holds for every draw of the inputs;
+    ``tools/single_key_rows.py`` reads the kernels, the plain version and
+    two faults of delta against it."""
+    return 24 * (d + 1)
 FLASH_REPLACES = {
     "flash_fwd": "hetu_tpu/ops/pallas/flash_attention.py:178",
     "flash_bwd_fused": "hetu_tpu/ops/pallas/flash_attention.py:325",
@@ -1278,6 +1327,41 @@ def single_key_rows(b, sq, sk, causal, segs, offset, device):
     return rows
 
 
+def single_key_fp64(q, k, v, do, one, causal, segs, offset, scale):
+    """The plain version in fp64 on the query rows of ``one`` ([b, sq]
+    bool, rows that see exactly one key): (dq there [n, h, d] from a
+    softmax over each row's visible keys, its out, delta and dS, all in
+    fp64; each element's bound ``single_key_ulps``)."""
+    b, sq, _, d = q.shape
+    sk = k.shape[1]
+    split = fa._split_segments(segs, sq, sk)
+    dq64, bound = [], []
+    unit = single_key_ulps(d) * 2.0 ** -24 * scale
+    for bi in range(b):
+        rows = one[bi].nonzero()[:, 0]
+        if not len(rows):
+            continue
+        mask = fa._visible(bi, sq, sk, causal, offset, split, q.device)
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device) \
+            if mask is None else mask
+        kd, vd = k[bi].double(), v[bi].double()              # [sk, h, d]
+        for r in rows.split(256):
+            m = mask[r]                                        # [n, sk]
+            qd, dod = q[bi, r].double(), do[bi, r].double()    # [n, h, d]
+            s = torch.einsum("nhd,khd->hnk", qd, kd) * scale
+            p = torch.softmax(s.masked_fill(~m[None], float("-inf")), -1)
+            o = torch.einsum("hnk,khd->nhd", p, vd)
+            dp = torch.einsum("nhd,khd->hnk", dod, vd)
+            delta = (dod * o).sum(-1).transpose(0, 1)          # [h, n]
+            ds = p * (dp - delta[..., None])
+            dq64.append(torch.einsum("hnk,khd->nhd", ds, kd) * scale)
+            j = m.int().argmax(-1)                             # its key
+            terms = (dod * vd[j]).abs().sum(-1, keepdim=True)  # [n, h, 1]
+            bound.append(unit * terms * kd[j].abs())
+            del s, p, dp, ds
+    return torch.cat(dq64), torch.cat(bound)
+
+
 def flash_ratios(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
     """Runs kernels 1-4 once on these inputs and holds each output against
     the plain versions: ``({kernel: (error over limit, max abs err)},
@@ -1306,16 +1390,21 @@ def flash_ratios(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
     res["flash_fwd"] = (max(r[0] for r in ratios), ratios[0][1])
     want = list(fa.flash_bwd_reference(q, k, v, ro, rl, do, scale, causal,
                                        segs, offset))
+    # dq of the rows that see one key is held against the fp64 plain
+    # version within its rounding bound (``single_key_ulps``), and left
+    # out of the bf16/fp32 rule below
     one = single_key_rows(q.shape[0], q.shape[1], k.shape[1], causal, segs,
                           offset, q.device)
-    # the plain version's own distance from the exact 0 there, beside the
-    # floor the gate allows such rows
-    single = {"rows": int(one.sum().item()),
-              "plain_dq_max_abs": want[0][one].abs().max().item()
-              if one.any() else 0.0,
-              "floor": CANCEL_FLOOR * want[0].float().pow(2).mean()
-              .sqrt().item()}
-    want[0][one] = 0
+    single = {"rows": int(one.sum().item())}
+    if one.any():
+        dq64, bound = single_key_fp64(q, k, v, do, one, causal, segs,
+                                      offset, scale)
+
+        def over_bound(dq):
+            err = (dq[one].double() - dq64).abs()
+            return (err / bound).max().item(), err.max().item()
+        single["bound_max"] = bound.max().item()
+        single["plain_over_bound"] = over_bound(want[0])[0]
     delta = torch.einsum("bshd,bshd->bsh", do.float(), ro.float())
     got = {"flash_bwd_fused": fa.flash_bwd_fused_cuda(
         q, k, v, ro, rl, do, scale, causal, segs, offset),
@@ -1327,15 +1416,15 @@ def flash_ratios(q, k, v, do, causal=True, segs=None, offset=0, tag=""):
     picks = {"flash_bwd_fused": (0, 1, 2), "flash_bwd_dq": (0,),
              "flash_bwd_dkv": (1, 2)}
     for name, outs in got.items():
-        rs = [flash_agreement(g, want[i], (3,),
-                              bf16_qk or (i == 2 and bf16_v), FP32_BWD_TOL)
-              for g, i in zip(outs, picks[name])]
+        rs = []
+        for g, i in zip(outs, picks[name]):
+            if i == 0 and one.any():
+                rs.append(over_bound(g))
+                single[f"{name}_over_bound"] = rs[-1][0]
+                g = torch.where(one[..., None, None], want[0], g)
+            rs.append(flash_agreement(g, want[i], (3,), bf16_qk or
+                                      (i == 2 and bf16_v), FP32_BWD_TOL))
         res[name] = (max(r[0] for r in rs), max(r[1] for r in rs))
-    # and the kernels' own there, which the gates hold against 0
-    for name, dq in (("fused", got["flash_bwd_fused"][0]),
-                     ("split", got["flash_bwd_dq"][0])):
-        single[f"{name}_dq_max_abs"] = dq[one].float().abs().max().item() \
-            if one.any() else 0.0
     kernel_outs = {"out": out, "lse": lse,
                    "dq_fused": got["flash_bwd_fused"][0],
                    "dq_split": got["flash_bwd_dq"][0],
@@ -4571,7 +4660,8 @@ MESH_GROUP_TIMEOUT = 900.0
 # fp32 rotary tables), so its losses are fp32: a relative gap, which
 # stays meaningful as the memorised batch's loss nears 0.
 MESH_LOSS_LIMITS = {"gpt2_small_bf16": ("bf16_steps", 1),
-                    "llama3_8b_2_layers": ("relative", 2e-2)}
+                    "llama3_8b_2_layers": ("relative", 2e-2),
+                    "llama3_8b_cp_8192": ("relative", 2e-2)}
 MESH_ENV_JOB = "HETU_MESH_JOB"
 
 
@@ -4611,6 +4701,9 @@ def mesh_config(name):
     elif name == "llama3_8b_2_layers":          # (c)
         cfg, batch, seq, steps, lr, micro = (
             llama3_8b_config(num_layers=2), 2, 4096, 3, 3e-4, 1)
+    elif name == "llama3_8b_cp_8192":           # phase 24 (b)
+        cfg, batch, seq, steps, lr, micro = (
+            llama3_8b_config(num_layers=2), 1, CP_SEQ, 3, 3e-4, 1)
     else:
         raise ValueError(name)
     return {"name": name, "cfg": dataclasses.asdict(cfg), "batch": batch,
@@ -4650,8 +4743,13 @@ def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False,
                                                plain_state)
     from hetu_tpu_torch.models.gpt_pipeline import GPTPipelineModel
     from hetu_tpu_torch.parallel import P, comm
+    t_case = time.perf_counter()
     name = spec["name"]
-    cfg = GPTConfig(**{**spec["cfg"], "sp": sp})
+    cfg_kw = {**spec["cfg"], "sp": sp}
+    if mesh is None or cfg_kw.get("cp_axis") not in mesh.axis_names:
+        # the one-process run of a context-parallel case
+        cfg_kw["cp_axis"] = None
+    cfg = GPTConfig(**cfg_kw)
     batch, seq, steps = spec["batch"], spec["seq"], spec["steps"]
     lr, micro = spec["lr"], spec["micro"]
     piped = spec.get("pipeline", False)
@@ -4687,6 +4785,7 @@ def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False,
     x, y = batch_xy if batch_xy is not None else \
         seeded_batch(cfg.vocab_size, batch, seq, seed=2)
     reset_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
     with comm.comm_stats() as st:
         for _ in range(steps):
@@ -4704,22 +4803,24 @@ def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False,
            "captured": g.last_run_captured, "compile_count": g.compile_count,
            "flash": flash_counts(), "comm": st.summary(),
            "comm_by_tag": comm_by_tag(st.records),
+           "comm_bytes_by_tag": comm_by_tag(st.records, nbytes=True),
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     if weights:
         out["init"], out["final"] = init, gathered()
+    out["case_wall_s"] = time.perf_counter() - t_case
     del g, model, ids, labels, loss, train_op
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def comm_by_tag(records):
-    """Collective records counted by ``kind|tag|axis``, and whether
-    staged."""
+def comm_by_tag(records, nbytes=False):
+    """Collective records counted (or with ``nbytes`` their payload bytes
+    summed) by ``kind|tag|axis``, and whether staged."""
     out = {}
     for r in records:
         key = f"{r.kind}|{r.tag}|{r.axis}" + ("|staged" if r.staged else "")
-        out[key] = out.get(key, 0) + 1
+        out[key] = out.get(key, 0) + (r.payload_bytes if nbytes else 1)
     return out
 
 
@@ -4737,10 +4838,11 @@ def mesh_flash_want(cfg, seq, steps, micro):
             "flash_bwd_dkv": 0 if fused else each}
 
 
-def mesh_rank_main():
+def mesh_rank_main(extra=None):
     """One rank of phase 22's group (run by the port's ``Launcher``): joins
     through ``rpc.distributed_init``, builds each configuration of the job
-    on its mesh in turn, writes its readings."""
+    on its mesh in turn, writes its readings; ``extra(job)``'s readings
+    follow them (phase 24's ring checks)."""
     from hetu_tpu_torch.parallel import create_mesh
     from hetu_tpu_torch.rpc import distributed_init
     from hetu_tpu_torch.rpc.launcher import ENV_COORD
@@ -4767,6 +4869,8 @@ def mesh_rank_main():
                 r["weights"] = mesh_weight_report(refs[name], r)
             del r["init"], r["final"]
         results.append(r)
+    if extra is not None:
+        results.append(extra(job))
     with open(job["out"] + f".{client.rank}.json", "w") as f:
         json.dump(results, f)
     import torch.distributed as dist
@@ -4796,12 +4900,13 @@ def mesh_weight_report(ref, got):
             "init_max_abs_diff": init_abs}
 
 
-def mesh_runs(cases, compare=()):
+def mesh_runs(cases, compare=(), **group_kw):
     """The one-process run of every configuration of ``cases`` (``[case,
     mesh_config(...), mesh shape, sp, optimizer options]``), then the
-    cases on the rank group: (one-process readings by configuration,
-    each rank's readings).  For the configurations in ``compare`` rank 0
-    also holds its gathered weights against the one-process run's."""
+    cases on the rank group (``group_kw`` to :func:`mesh_group`): (one-
+    process readings by configuration, each rank's readings).  For the
+    configurations in ``compare`` rank 0 also holds its gathered weights
+    against the one-process run's."""
     refs = {}
     tmp = tempfile.mkdtemp(prefix="hetu_mesh_")
     try:
@@ -4815,7 +4920,7 @@ def mesh_runs(cases, compare=()):
         note("mesh", "one-process runs", {
             n: {k: r[k] for k in ("losses", "ms_per_step", "captured")}
             for n, r in refs.items()})
-        runs = mesh_group(cases, tmp, compare)
+        runs = mesh_group(cases, tmp, compare, **group_kw)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return refs, runs
@@ -5464,6 +5569,368 @@ def phase_pipeline():
     return out
 
 
+# ---------------------------------------------------------------------------
+# context parallelism (phase 24)
+# ---------------------------------------------------------------------------
+
+CP_SEQ = 8192                  # Llama-3-8B's max_seq_len: (b)'s sequence
+CP_ATTN = (1, 4096, 32, 128)   # a rank's block of it over cp 2: (c)
+CP_RING = {"cp_axis": "cp", "cp_impl": "ring"}
+CP_ULYSSES = {"cp_axis": "cp", "cp_impl": "ulysses"}
+# (a) fp32 GPT-2 widths at 2 layers, phase 8's limits: the 4-rank
+# layouts on 4 ranks (dp 2 x cp 2 under ZeRO-2, whose cp sum acts on
+# the rank's half of each gradient), the cp 2 layouts on (b)'s 2 ranks
+# before its cases; (b) Llama-3-8B widths at 2 layers, one sequence of
+# 8192 tokens, on 2 ranks, its 3 GB of gradients summed over cp in 256
+# MB buckets (each gloo collective costs about 13 ms besides its bytes):
+# (case, config, mesh, sp, config overrides, optimizer options)
+CP_BUCKET_MB = 256
+CP_LAYOUTS_4 = [
+    ("dp2_cp2_ring_zero2", "gpt2_fp32_2_layers", {"dp": 2, "cp": 2},
+     False, CP_RING, {"zero": 2}),
+    ("cp2_tp2_sp_ring", "gpt2_fp32_2_layers", {"cp": 2, "tp": 2}, True,
+     CP_RING, {}),
+]
+CP_LAYOUTS_2 = [
+    ("cp2_ring", "gpt2_fp32_2_layers", {"cp": 2}, False, CP_RING, {}),
+    ("cp2_ulysses", "gpt2_fp32_2_layers", {"cp": 2}, False, CP_ULYSSES,
+     {}),
+    ("cp2_ring", "llama3_8b_cp_8192", {"cp": 2}, False, CP_RING,
+     {"bucket_mb": CP_BUCKET_MB}),
+    ("cp2_ulysses", "llama3_8b_cp_8192", {"cp": 2}, False, CP_ULYSSES,
+     {"bucket_mb": CP_BUCKET_MB}),
+]
+# (c): the kernels at the launch shapes (b) makes: the ring's on a block
+# of CP_ATTN (sym halves of 2048), both type mixes; over the whole
+# CP_SEQ, Ulysses' with the rank's 16 of the 32 heads in the LLaMA
+# path's mix, and with all 32 (the one-process run's, and the reference
+# of the sharded check on the ranks) in both: (name, sq, sk, heads,
+# causal, causal offset, segments, type mixes)
+_CS, _CH, _CN = CP_ATTN[1], CP_ATTN[1] // 2, CP_ATTN[2]
+CP_KERNEL_TYPES = ("bf16", "fp32_qk_bf16_v")
+CP_KERNEL_CASES = [
+    ("normal_causal_pair", _CS, _CS, _CN, True, 0, None, CP_KERNEL_TYPES),
+    ("normal_full_pair", _CS, _CS, _CN, False, 0, None, CP_KERNEL_TYPES),
+    ("sym_head_causal", _CH, _CH, _CN, True, 0, None, CP_KERNEL_TYPES),
+    ("sym_tail_causal", _CH, _CS, _CN, True, _CH, None, CP_KERNEL_TYPES),
+    ("sym_col", _CS, _CH, _CN, False, 0, None, CP_KERNEL_TYPES),
+    ("sym_row", _CH, _CS, _CN, False, 0, None, CP_KERNEL_TYPES),
+    # rank 1's block against rank 0's, documents ending at 3000 and 6000:
+    # the q rows of the third document see no key of this pair
+    ("ids_full_pair", _CS, _CS, _CN, False, 0, "docs", CP_KERNEL_TYPES),
+    ("ulysses_whole_seq", CP_SEQ, CP_SEQ, _CN // 2, True, 0, None,
+     ("fp32_qk_bf16_v",)),
+    ("whole_seq", CP_SEQ, CP_SEQ, _CN, True, 0, None, CP_KERNEL_TYPES),
+]
+# (c)'s draw of the inputs, not phase 6's: ``single_key_ulps`` holds for
+# every draw
+CP_KERNEL_SEED = 4
+
+
+def cp_cases(layouts):
+    """Phase 24's layouts as ``mesh_runs`` cases, the config carrying
+    its cp overrides (dropped by ``mesh_train`` in the one-process run)."""
+    out = []
+    for case, name, shape, sp, over, opt_kw in layouts:
+        spec = mesh_config(name)
+        out.append([case, {**spec, "cfg": {**spec["cfg"], **over}}, shape,
+                    sp, opt_kw])
+    return out
+
+
+def cp_flash_want(cfg, spec, shape, rank, impl):
+    """A rank's flash launches over a run: under the normal causal ring
+    rank ``i`` of cp runs ``i + 1`` pairs a layer (its own block causal,
+    the earlier ranks' full; later ranks' blocks are empty pairs), the
+    backward by the byte rule at the block's length; Ulysses one flash
+    over the whole sequence a layer.  Micro-batches and steps as
+    ``mesh_flash_want``."""
+    coords = dict(zip(shape, (int(c) for c in np.unravel_index(
+        rank, tuple(shape.values())))))
+    k_dtype = torch.float32 if cfg.position == "rotary" or \
+        cfg.dtype == "float32" else torch.bfloat16
+    seq, each = spec["seq"], cfg.num_layers * spec["micro"] * spec["steps"]
+    if impl == "ring":
+        n = each * (coords["cp"] + 1)
+        fused = fa._use_fused(seq // shape["cp"], cfg.head_dim, k_dtype)
+    else:
+        n = each
+        fused = fa._use_fused(seq, cfg.head_dim, k_dtype)
+    return {"flash_fwd": n, "flash_bwd_fused": n if fused else 0,
+            "flash_bwd_dq": 0 if fused else n,
+            "flash_bwd_dkv": 0 if fused else n}
+
+
+def cp_comm_want(cfg, spec, shape, impl):
+    """A rank's context-parallel collectives over a run, by
+    ``kind|tag|axis``: the ring's k and v hops (``cp - 1`` a layer
+    forward and as many backward; no segments, so no ids) and its dk, dv
+    hops (``cp`` a layer), staged through host memory on gloo; Ulysses'
+    four all-to-alls a layer each way."""
+    cp = shape["cp"]
+    each = cfg.num_layers * spec["micro"] * spec["steps"]
+    if impl == "ring":
+        return {"ppermute|ring/kv|cp|staged": each * 2 * (cp - 1) * 2,
+                "ppermute|ring/dkv|cp|staged": each * cp * 2}
+    return {"all_to_all|ulysses|cp": each * 8}
+
+
+def cp_rank_checks(job):
+    """(c) on each rank of (b)'s group, after the training cases:
+    ``ring_attention_sharded`` on the rank's block of ``CP_ATTN`` over
+    cp 2 (normal and sym, bf16 and the LLaMA path's fp32 q/k with bf16
+    v), forward and gradients against the kernels over the whole
+    sequence in one process (``fa._flash_fwd``/``_flash_bwd``; (c)'s
+    ``whole_seq`` case holds them against the plain versions at that
+    shape), by ``flash_agreement``; then ``profile_ring_breakdown`` of both patterns
+    on the mixed types.  Its launches are counted apart from the main
+    path's."""
+    from hetu_tpu_torch.parallel import create_mesh
+    from hetu_tpu_torch.parallel.ring_attention import (
+        profile_ring_breakdown, ring_attention_sharded)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh({"cp": 2}, device="cuda")
+    b, s_local, h, d = CP_ATTN
+    s, scale = 2 * s_local, d ** -0.5
+    blk = slice(mesh.axis_index("cp") * s_local,
+                (mesh.axis_index("cp") + 1) * s_local)
+    reset_flash_counts()
+    sharded, profile = {}, {}
+    for types in CP_KERNEL_TYPES:
+        q, k, v, do = flash_inputs(b, s, s, h, d, types, seed=3)
+        ro, rl = fa._flash_fwd(q, k, v, scale, True, None)
+        want = fa._flash_bwd(scale, True, None, (q, k, v, ro, rl), do)
+        bf16_qk = q.dtype == torch.bfloat16
+        bf16_v = v.dtype == torch.bfloat16
+        for pattern in ("normal", "sym"):
+            loc = [x[:, blk].contiguous().requires_grad_(True)
+                   for x in (q, k, v)]
+            t = time.perf_counter()
+            o = ring_attention_sharded(*loc, mesh, split_pattern=pattern)
+            got = torch.autograd.grad(o, loc, grad_outputs=do[:, blk]
+                                      .contiguous())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            ratios = {"out": flash_agreement(o.detach(), ro[:, blk], (3,),
+                                             bf16_v, FP32_FWD_TOL)}
+            for name, g, w, scaled in zip(
+                    ("dq", "dk", "dv"), got, want,
+                    (bf16_qk, bf16_qk, bf16_qk or bf16_v)):
+                ratios[name] = flash_agreement(g, w[:, blk], (3,), scaled,
+                                               FP32_BWD_TOL)
+            sharded[f"{types}/{pattern}"] = {
+                "err_over_limit": {n: r[0] for n, r in ratios.items()},
+                "max_abs_err": {n: r[1] for n, r in ratios.items()},
+                "fwd_bwd_wall_ms": 1e3 * wall}
+            del o, got, loc
+        if types == "fp32_qk_bf16_v":
+            for pattern in ("normal", "sym"):
+                rows = profile_ring_breakdown(
+                    *(x[:, blk].contiguous() for x in (q, k, v)), mesh,
+                    split_pattern=pattern, reps=3)
+                profile[pattern] = [
+                    {"round": r["round"],
+                     **{f"{c[:-2]}_ms": 1e3 * r[c] for c in
+                        ("comm_s", "attn_s", "corr_s", "grad_s")}}
+                    for r in rows]
+        del q, k, v, do, ro, rl, want
+        torch.cuda.empty_cache()
+    return {"rank": mesh.rank, "sharded": sharded, "profile": profile,
+            "check_launches": flash_counts()}
+
+
+def cp_kernel_checks():
+    """(c) in this process: kernels 1-4 at each ring launch shape of
+    ``CP_KERNEL_CASES`` in its type mixes against their plain versions
+    (``check_flash``), the rows of the ids pair that see no key exactly
+    out = 0, lse = -inf, dq = 0, and the forward and the backward the
+    byte rule picks timed beside their bounds.  The causal pairs' first
+    query row sees one key: its dq is held against the fp64 plain
+    version within ``single_key_ulps``."""
+    b, _, _, d = CP_ATTN
+    out = []
+    for name, sq, sk, h, causal, offset, seg, mixes in CP_KERNEL_CASES:
+        for types in mixes:
+            q, k, v, do = flash_inputs(b, sq, sk, h, d, types,
+                                       seed=CP_KERNEL_SEED)
+            segs, empty_rows = None, None
+            if seg == "docs":
+                qpos = torch.arange(sk, sk + sq, device="cuda")
+                kpos = torch.arange(sk, device="cuda")
+                q_ids = torch.where(qpos < 6000, 1, 2).to(torch.int32)
+                kv_ids = torch.where(kpos < 3000, 0, 1).to(torch.int32)
+                segs = (q_ids[None].contiguous(), kv_ids[None].contiguous())
+                empty_rows = qpos >= 6000
+            res, (ro, rl, delta), got = check_flash(
+                q, k, v, do, causal, segs, offset, tag=f"cp {name} {types}")
+            empty = None
+            if empty_rows is not None:
+                empty = sum(int(torch.count_nonzero(got[n][:, empty_rows])
+                                .item())
+                            for n in ("out", "dq_fused", "dq_split"))
+                empty += int((got["lse"][:, :, empty_rows] !=
+                              float("-inf")).sum().item())
+                if empty or not bool(empty_rows.any()):
+                    raise AssertionError(
+                        f"cp {name} {types}: {empty} values of the rows "
+                        f"that see no key are not out = 0, lse = -inf, "
+                        f"dq = 0")
+            scale = d ** -0.5
+            fused = fa._use_fused(sk, d, k.dtype)
+            fwd = cuda_time_ms(lambda: fa.flash_fwd_cuda(
+                q, k, v, scale, causal, segs, offset), warmup=1, iters=3)
+            if fused:
+                bwd = cuda_time_ms(lambda: fa.flash_bwd_fused_cuda(
+                    q, k, v, ro, rl, do, scale, causal, segs, offset),
+                    warmup=1, iters=3)
+            else:
+                bwd = cuda_time_ms(lambda: (fa.flash_bwd_dq_cuda(
+                    q, k, v, do, rl, delta, scale, causal, segs, offset),
+                    fa.flash_bwd_dkv_cuda(q, k, v, do, rl, delta, scale,
+                                          causal, segs, offset)),
+                    warmup=1, iters=3)
+            bwd_kernels = ("flash_bwd_fused",) if fused else \
+                ("flash_bwd_dq", "flash_bwd_dkv")
+            out.append({
+                "case": name, "types": types, "b": b, "sq": sq, "sk": sk,
+                "h": h, "d": d, "causal": causal, "causal_offset": offset,
+                "segments": seg, "backward": "fused" if fused else "split",
+                "err_over_limit": {n: r[0] for n, r in res.items()},
+                "max_abs_err": {n: r[1] for n, r in res.items()},
+                "single_key_rows": got["single_key_rows"],
+                "empty_rows_nonzero": empty,
+                "fwd_ms": fwd, "fwd_bound_ms": flash_work(
+                    "flash_fwd", b, sq, sk, h, d, q.dtype, v.dtype, causal,
+                    offset)["bound_ms"],
+                "bwd_ms": bwd, "bwd_bound_ms": sum(flash_work(
+                    n, b, sq, sk, h, d, q.dtype, v.dtype, causal,
+                    offset)["bound_ms"] for n in bwd_kernels)})
+            del q, k, v, do, ro, rl, delta, got
+            torch.cuda.empty_cache()
+    return out
+
+
+def cp_layout_rows(layouts, cases, refs, runs):
+    """Each layout against its one-process run: (a)'s fp32 losses within
+    1e-4 and gathered weights within phase 8's update rule, (b)'s by
+    ``MESH_LOSS_LIMITS`` and falling; every rank's flash launches and
+    context-parallel collectives as ``cp_flash_want``/``cp_comm_want``
+    say, on the 3xTF32 route; the readings by rank."""
+    rows = []
+    for i, ((case, name, shape, sp, over, _), c) in enumerate(
+            zip(layouts, cases)):
+        spec, ref = c[1], refs[name]
+        cfg = GPTConfig(**spec["cfg"])
+        per_rank = [rk[i] for rk in runs]
+        r0 = per_rank[0]
+        impl = over["cp_impl"]
+        row = {"layout": case, "config": name, "impl": impl, "mesh": shape,
+               "sp": sp, "backend": r0["backend"],
+               "captured": r0["captured"], "losses": r0["losses"],
+               "one_process_losses": ref["losses"],
+               "ms_per_step_by_rank": [r["ms_per_step"] for r in per_rank],
+               "one_process_ms_per_step": ref["ms_per_step"],
+               "case_wall_s_by_rank": [r["case_wall_s"] for r in per_rank],
+               "flash_by_rank": [{k: v["launches"] for k, v in
+                                  r["flash"].items()} for r in per_rank],
+               "flash_routes_by_rank": [{k: v["by_route"] for k, v in
+                                         r["flash"].items()}
+                                        for r in per_rank],
+               "comm_bytes_by_tag_by_rank": [r["comm_bytes_by_tag"]
+                                             for r in per_rank],
+               "comm_by_rank": [r["comm"] for r in per_rank],
+               "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
+                                             for r in per_rank],
+               "one_process_peak_memory_bytes": ref["peak_memory_bytes"]}
+        if any(r["losses"] != r0["losses"] for r in per_rank) or \
+                r0["backend"] != "gloo" or r0["captured"]:
+            raise AssertionError(f"cp {case}/{name}: {row}")
+        for r in per_rank:
+            want = cp_flash_want(cfg, spec, shape, r["rank"], impl)
+            got = {k: v["launches"] for k, v in r["flash"].items()}
+            off = {k: v["launches"] - v["by_route"]["3xtf32"]
+                   for k, v in r["flash"].items()}
+            if got != want or any(off.values()):
+                raise AssertionError(f"cp {case}/{name} rank {r['rank']}: "
+                                     f"flash {r['flash']}, want {want} on "
+                                     f"3xtf32")
+            comm_want = cp_comm_want(cfg, spec, shape, impl)
+            comm_got = {k: r["comm_by_tag"].get(k, 0) for k in comm_want}
+            if comm_got != comm_want:
+                raise AssertionError(f"cp {case}/{name} rank {r['rank']}: "
+                                     f"collectives {comm_got} != "
+                                     f"{comm_want}")
+        if name == "gpt2_fp32_2_layers":
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(r0["losses"], ref["losses"]))
+            row.update(loss_rel_diff=rel, **r0["weights"])
+            if rel > 1e-4 or r0["weights"]["param_update_rel_diff"] > 1e-2 \
+                    or r0["weights"]["param_max_abs_diff"] > \
+                    2 * spec["lr"] * spec["steps"]:
+                raise AssertionError(f"cp {case}: against one process {row}")
+        else:
+            unit, limit, gaps, ok = mesh_loss_gaps(name, r0["losses"],
+                                                   ref["losses"])
+            row["loss_gap"] = {"unit": unit, "limit": limit,
+                               "by_step": gaps}
+            if not ok or not r0["losses"][-1] < r0["losses"][0]:
+                raise AssertionError(f"cp {case}/{name}: losses "
+                                     f"{r0['losses']} against one process "
+                                     f"{ref['losses']}: {row['loss_gap']}")
+        note("cp", case, name, {k: row[k] for k in (
+            "losses", "one_process_losses", "ms_per_step_by_rank",
+            "one_process_ms_per_step", "peak_memory_bytes_by_rank")},
+            row.get("loss_gap"))
+        rows.append(row)
+    return rows
+
+
+def phase_cp():
+    """Phase 24: context parallelism on the one card (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    wall = {}
+    cases_4 = cp_cases(CP_LAYOUTS_4)
+    refs_4, runs_4 = mesh_runs(cases_4, compare={"gpt2_fp32_2_layers"},
+                               ranks=4)
+    layouts = cp_layout_rows(CP_LAYOUTS_4, cases_4, refs_4, runs_4)
+    wall["four_ranks"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    cases_2 = cp_cases(CP_LAYOUTS_2)
+    refs_2, runs_2 = mesh_runs(cases_2, compare={"gpt2_fp32_2_layers"},
+                               ranks=2, flag="--cp-rank")
+    layouts += cp_layout_rows(CP_LAYOUTS_2, cases_2, refs_2, runs_2)
+    extra = [rk[len(cases_2)] for rk in runs_2]
+    for x in extra:
+        for key, r in x["sharded"].items():
+            if not all(v <= 1.0 for v in r["err_over_limit"].values()):
+                raise AssertionError(f"cp sharded {key} rank {x['rank']}: "
+                                     f"{r}")
+    wall["two_ranks"] = time.perf_counter() - t
+    t = time.perf_counter()
+    reset_flash_counts()
+    kernels = cp_kernel_checks()
+    check_launches = flash_counts()
+    wall["kernels"] = time.perf_counter() - t
+    total = flash_totals(r["flash"] for rk in runs_4 + runs_2
+                         for r in rk if "flash" in r)
+    checks = flash_totals([check_launches] +
+                          [x["check_launches"] for x in extra])
+    out = {"layouts": layouts, "kernel_cases": kernels,
+           "sharded_by_rank": [{"rank": x["rank"], **x["sharded"]}
+                               for x in extra],
+           "ring_rounds_by_rank": [{"rank": x["rank"], **x["profile"]}
+                                   for x in extra],
+           "flash_launches": {k: v["launches"] for k, v in total.items()},
+           "flash_launches_by_route": {k: v["by_route"]
+                                       for k, v in total.items()},
+           "check_launches": {k: v["launches"] for k, v in checks.items()},
+           "part_wall_s": wall, "nvidia_smi": smi_line(),
+           "wall_s": time.perf_counter() - t0}
+    emit({"phase": "cp", **out})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -5501,6 +5968,7 @@ def main():
     cluster = phase_cluster()
     mesh = phase_mesh()
     pipe = phase_pipeline()
+    cpar = phase_cp()
     # phase 20's measured runs, spec and non-spec, add their launches:
     # kernel 5 in the full-head runs, (d)'s and (c)'s, kernel 6 in the MLA
     # runs (bf16 pages on wgmma, fp32 pages on mma.sync)
@@ -5541,7 +6009,9 @@ def main():
     entries = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2,
                "flash_bwd_fused": 2}
     # phase 17's BERT runs (not causal), phase 19's graph layer, phase
-    # 22's ranks and phase 23's pipelines add their launches to the rows
+    # 22's ranks, phase 23's pipelines and phase 24's context-parallel
+    # ranks add their launches to the rows (phase 24's launches against
+    # the plain versions stand apart, ``cp_check_launches``)
     bert_runs = list(bert.values())
     graph_launches = {n: graph["flash_launches"].get(n, 0)
                       for n in where}
@@ -5549,15 +6019,18 @@ def main():
     mesh_routes = mesh["flash_launches_by_route"]
     pipe_launches = pipe["flash_launches"]
     pipe_routes = pipe["flash_launches_by_route"]
+    cp_launches = cpar["flash_launches"]
+    cp_routes = cpar["flash_launches_by_route"]
     for name, at in where.items():
         wgmma = sum(t["wgmma_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["wgmma"]
                 for b in bert_runs) + graph_launches[name] + \
-            mesh_routes[name]["wgmma"] + pipe_routes[name]["wgmma"]
+            mesh_routes[name]["wgmma"] + pipe_routes[name]["wgmma"] + \
+            cp_routes[name]["wgmma"]
         tf32 = sum(t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["3xtf32"]
                 for b in bert_runs) + mesh_routes[name]["3xtf32"] + \
-            pipe_routes[name]["3xtf32"]
+            pipe_routes[name]["3xtf32"] + cp_routes[name]["3xtf32"]
         mma = sum(t["tensor_core_launches"][name] - t["wgmma_launches"][name]
                   - t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["mma.sync"]
@@ -5581,7 +6054,8 @@ def main():
             "replaces": FLASH_REPLACES[name], "types": at,
             "launches": sum(t["flash_launches"][name] for t in train) +
             sum(b["flash_launches"][name] for b in bert_runs) +
-            graph_launches[name] + mesh_launches[name] + pipe_launches[name],
+            graph_launches[name] + mesh_launches[name] + pipe_launches[name]
+            + cp_launches[name],
             "noncausal_launches": sum(b["flash_launches"][name]
                                       for b in bert_runs),
             "graph_layer_launches": graph_launches[name],
@@ -5589,6 +6063,9 @@ def main():
             "mesh_launches_by_route": mesh_routes[name],
             "pipeline_launches": pipe_launches[name],
             "pipeline_launches_by_route": pipe_routes[name],
+            "cp_launches": cp_launches[name],
+            "cp_launches_by_route": cp_routes[name],
+            "cp_check_launches": cpar["check_launches"][name],
             "wgmma_launches": wgmma,
             "launches_by_route": {"wgmma": wgmma, "3xtf32": tf32,
                                   "mma.sync": mma},
@@ -5658,5 +6135,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--pipe-entry-rank"]:
         pipe_entry_rank_main()
+        sys.exit(0)
+    if sys.argv[1:] == ["--cp-rank"]:
+        mesh_rank_main(extra=cp_rank_checks)
         sys.exit(0)
     sys.exit(main())

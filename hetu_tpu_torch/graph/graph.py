@@ -85,8 +85,10 @@ as the JAX package feeds a dp-sharded batch); a ``parallel_parameter``
 holds the rank's shard and ``reset_variable`` takes the global value.
 The layers issue their collectives as ops (``nn.parallel``); the
 optimizer syncs the gradients over the data-parallel axis (a mean) and
-scalar fetches are averaged over it, so that a fetched loss is the
-global one.  ``global_value(t)`` gathers a variable (every rank calls
+sums them over the axes the sequence is split over (``seq_axes``, context
+parallelism: each rank holds its tokens' part), and scalar fetches are
+averaged over dp and those axes, so that a fetched loss is the global
+one.  ``global_value(t)`` gathers a variable (every rank calls
 it).  Variables a ZeRO-3 optimizer shards over dp are stored as the
 rank's dim-0 chunk and gathered at the start of each micro-batch by an
 all-gather whose backward reduce-scatters.  On NCCL the step is captured
@@ -162,6 +164,11 @@ class Graph:
         # variables stored as their rank's dim-0 chunk over a mesh axis
         # (ZeRO-3): variable id -> axis
         self._storage_axis: Dict[int, str] = {}
+        # mesh axes besides dp that the step's data is split over (the
+        # sequence under context parallelism, ``nn.parallel.seq_shard``):
+        # the optimizer sums the gradients over them, scalar fetches
+        # average over them
+        self.seq_axes: set = set()
         # optimizers whose working parameters may lag their state (flat
         # ZeRO-3): called before a variable's global value is read
         self._materializers: List[Callable] = []
@@ -1080,11 +1087,12 @@ class DefineAndRunGraph(Graph):
             fetch_vals = [v / M if v.ndim == 0 else v for v in fetch_vals]
         dp_axis = update_node.attrs["optimizer"].dp_axis \
             if update_node is not None else "dp"
-        if self.mesh is not None and self.mesh.axis_size(dp_axis) > 1:
-            from ..parallel import comm
-            with comm.comm_tag("scalar_fetch"):
-                fetch_vals = [comm.all_reduce(v, dp_axis, "mean", self.mesh)
-                              if v.ndim == 0 else v for v in fetch_vals]
+        from ..parallel import comm
+        for axis in [dp_axis] + sorted(self.seq_axes):
+            if self.mesh is not None and self.mesh.axis_size(axis) > 1:
+                with comm.comm_tag("scalar_fetch"):
+                    fetch_vals = [comm.all_reduce(v, axis, "mean", self.mesh)
+                                  if v.ndim == 0 else v for v in fetch_vals]
         if update_node is not None:
             if M > 1:
                 for g in grads:

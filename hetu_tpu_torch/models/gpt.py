@@ -17,6 +17,20 @@ With ``sp`` the residual stream between the blocks is split over the
 sequence.  GQA needs ``kv_heads`` divisible by tp: the JAX package also
 takes ``kv_heads < tp`` (it repeats before sharding), which the port
 refuses by name (ROADMAP queue 1 item 10b).
+
+With ``cp_axis`` on a mesh whose cp axis has more than one rank the
+model is context parallel: each rank keeps its contiguous block of the
+sequence (cp outer, tp inner under ``sp``).  The JAX model is written in
+the global view (one rotary table and one ``wpe`` slice for the whole
+sequence, GSPMD splitting the activations); here the model takes the
+rank's block of the ids, the labels and the segment ids
+(``nn.parallel.seq_shard``; a placeholder fed with ``P("dp", "cp")``
+holds it already), the position rows and the rotary angles at the
+block's global positions, and attention through
+``ops.parallel_attention`` (the ring or Ulysses, ``cp_impl``).  The loss
+is the mean over the valid tokens of the global batch and sequence (its
+sum and count reduced over dp and cp), and the optimizer sums the
+gradients over cp (``Graph.seq_axes``).
 """
 from __future__ import annotations
 
@@ -286,10 +300,9 @@ def check_training_config(cfg: GPTConfig) -> None:
         raise NotImplementedError(
             "MoE layers (num_experts > 0) are ported in ROADMAP queue 1 "
             "item 14 (MoE)")
-    if cfg.cp_axis:
-        raise NotImplementedError(
-            "context parallelism (cp_axis) is ported in ROADMAP queue 1 "
-            "item 12")
+    if cfg.cp_impl not in ("ring", "ulysses"):
+        raise ValueError(f"cp_impl must be 'ring' or 'ulysses', "
+                         f"got {cfg.cp_impl!r}")
 
 
 def _check_tp(c: GPTConfig, tp: int) -> None:
@@ -305,6 +318,12 @@ def _check_tp(c: GPTConfig, tp: int) -> None:
                     ("ffn size", c.ffn_size), ("vocab_size", c.vocab_size)):
         if n % tp:
             raise ValueError(f"{what} {n} is not divisible by tp={tp}")
+
+
+def _cp(c: GPTConfig) -> int:
+    """The context-parallel degree of the graph being built (1 without
+    ``cp_axis`` or a mesh naming it)."""
+    return nn.parallel.axis_size_here(c.cp_axis) if c.cp_axis else 1
 
 
 def _norm(config: GPTConfig, name: str):
@@ -343,20 +362,25 @@ class ParallelAttentionBlock(nn.Module):
         self.dropout = nn.Dropout(c.dropout) if c.dropout else None
         self._rotary_cache = {}
 
-    def _rotary(self, seq_len: int):
-        """fp32 numpy tables [1, s, 1, d], as the JAX package keeps them:
-        they promote bf16 q/k to fp32."""
-        if seq_len not in self._rotary_cache:
+    def _rotary(self, seq_len: int, offset: int = 0):
+        """fp32 numpy tables [1, s, 1, d] of positions ``offset`` to
+        ``offset + seq_len - 1`` (the rank's block under cp), as the JAX
+        package keeps them: they promote bf16 q/k to fp32."""
+        key = (seq_len, offset)
+        if key not in self._rotary_cache:
             d = self.config.head_dim
             inv = 1.0 / (10000.0 ** (np.arange(0, d, 2, dtype=np.float32) / d))
-            ang = np.outer(np.arange(seq_len, dtype=np.float32), inv)
+            pos = np.arange(offset, offset + seq_len, dtype=np.float32)
+            ang = np.outer(pos, inv)
             emb = np.concatenate([ang, ang], axis=-1)
-            self._rotary_cache[seq_len] = (
+            self._rotary_cache[key] = (
                 np.cos(emb)[None, :, None, :].astype(np.float32),
                 np.sin(emb)[None, :, None, :].astype(np.float32))
-        return self._rotary_cache[seq_len]
+        return self._rotary_cache[key]
 
-    def forward(self, x, seq_len: int, segment_ids=None):
+    def forward(self, x, seq_len: int, segment_ids=None, pos_offset: int = 0):
+        """``seq_len`` is the length this rank holds (its block under cp),
+        ``pos_offset`` the global position of its first token."""
         c = self.config
         qkv = self.qkv(x)
         nh, kvh = self.heads, self.kv_heads
@@ -369,13 +393,20 @@ class ParallelAttentionBlock(nn.Module):
         k = k.reshape((-1, seq_len, kvh, c.head_dim))
         v = v.reshape((-1, seq_len, kvh, c.head_dim))
         if c.position == "rotary":
-            cos, sin = self._rotary(seq_len)
+            cos, sin = self._rotary(seq_len, pos_offset)
             q = ops.rotary_embed(q, cos, sin)
             k = ops.rotary_embed(k, cos, sin)
         if kvh != nh:
             k = ops.repeat_kv(k, nh // kvh)
             v = ops.repeat_kv(v, nh // kvh)
-        attn = ops.attention(q, k, v, causal=True, segment_ids=segment_ids)
+        if c.cp_axis:
+            attn = ops.parallel_attention(
+                q, k, v, causal=True, cp_axis=c.cp_axis,
+                batch_axis=c.dp_axis, head_axis=c.tp_axis,
+                segment_ids=segment_ids, cp_impl=c.cp_impl)
+        else:
+            attn = ops.attention(q, k, v, causal=True,
+                                 segment_ids=segment_ids)
         out = self.out(attn.reshape((-1, seq_len, q_size)))
         if self.dropout is not None:
             out = self.dropout(out)
@@ -427,8 +458,9 @@ class GPTBlock(nn.Module):
         self.ln_2 = _norm(config, f"h{layer_idx}.ln_2")
         self.mlp = ParallelMLP(config, layer_idx)
 
-    def forward(self, x, seq_len: int, segment_ids=None):
-        x = x + self.attn(self.ln_1(x), seq_len, segment_ids=segment_ids)
+    def forward(self, x, seq_len: int, segment_ids=None, pos_offset: int = 0):
+        x = x + self.attn(self.ln_1(x), seq_len, segment_ids=segment_ids,
+                          pos_offset=pos_offset)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -472,22 +504,47 @@ class GPTModel(nn.Module):
         self.h = nn.ModuleList([GPTBlock(c, i) for i in range(c.num_layers)])
         self.ln_f = _norm(config, "ln_f")
 
-    def forward(self, input_ids, seq_len: Optional[int] = None,
-                segment_ids=None):
+    def _block(self, input_ids, seq_len: Optional[int]):
+        """``(the length of this rank's block of the sequence, the global
+        position of its first token)``: the whole sequence and 0 without
+        cp.  ``seq_len`` is global, as in the JAX package."""
+        c = self.config
+        cp = _cp(c)
         if seq_len is None:
             seq_len = input_ids.shape[-1]
             if isinstance(seq_len, SymbolicDim):
                 seq_len = _bake_seq_len(input_ids, seq_len)
-        x = self.wte(input_ids)
+            if nn.parallel.seq_split_over(input_ids, c.cp_axis):
+                seq_len *= cp
+        if seq_len % cp:
+            raise ValueError(f"sequence length {seq_len} is not divisible "
+                             f"by cp={cp}")
+        local = seq_len // cp
+        return local, nn.parallel.axis_index_here(c.cp_axis) * local \
+            if cp > 1 else 0
+
+    def seq_local(self, t):
+        """This rank's block of a ``[b, s]`` input (ids, labels, segment
+        ids) under cp: ``t`` itself without cp or when it is fed split."""
+        cp_axis = self.config.cp_axis
+        return t if t is None or not cp_axis else \
+            nn.parallel.seq_shard(t, cp_axis)
+
+    def forward(self, input_ids, seq_len: Optional[int] = None,
+                segment_ids=None):
+        local, offset = self._block(input_ids, seq_len)
+        x = self.wte(self.seq_local(input_ids))
+        segment_ids = self.seq_local(segment_ids)
         if self.config.position == "learned":
-            x = x + ops.getitem(self.wpe, slice(0, seq_len))
+            x = x + ops.getitem(self.wpe, slice(offset, offset + local))
         if self.drop is not None:
             x = self.drop(x)
         if self.config.sp:
             # sequence parallel: the residual stream is split over tp
+            # (inside the rank's cp block)
             x = nn.parallel.split_seq(x, self.config.tp_axis)
         for block in self.h:
-            x = block(x, seq_len, segment_ids=segment_ids)
+            x = block(x, local, segment_ids=segment_ids, pos_offset=offset)
         return self.ln_f(x)
 
 
@@ -509,7 +566,8 @@ class GPTLMHeadModel(nn.Module):
 
     def logits(self, input_ids, seq_len: Optional[int] = None,
                segment_ids=None):
-        """The logits, split over tp on the vocab (whole without tp)."""
+        """The logits, split over tp on the vocab (whole without tp), of
+        the rank's block of the sequence under cp."""
         c = self.config
         x = self.transformer(input_ids, seq_len, segment_ids=segment_ids)
         if self.lm_head is None:
@@ -533,13 +591,16 @@ class GPTLMHeadModel(nn.Module):
                                  segment_ids=segment_ids)
             w = self.lm_head.weight if self.lm_head is not None \
                 else self.transformer.wte.weight
+            labels = self.transformer.seq_local(labels)
             loss = ops.fused_lm_cross_entropy(x, w, labels,
                                               ignore_index=-100)
-            return nn.parallel.dp_mean_loss(loss, labels, -100, c.dp_axis)
+            return nn.parallel.dp_mean_loss(loss, labels, -100, c.dp_axis,
+                                            seq_axis=c.cp_axis)
         logits = self.logits(input_ids, seq_len, segment_ids=segment_ids)
         if labels is None:
             return logits
         return nn.vocab_parallel_cross_entropy(
-            logits, labels, dp_axis=c.dp_axis, tp_axis=c.tp_axis,
+            logits, self.transformer.seq_local(labels),
+            dp_axis=c.dp_axis, tp_axis=c.tp_axis, seq_axis=c.cp_axis,
             ignore_index=-100)
 

@@ -189,6 +189,11 @@ def check_pipeline_config(cfg: GPTConfig, num_stages: int) -> None:
                          f"{num_stages} pipeline stages")
     if cfg.dropout:
         raise NotImplementedError("pipelined blocks do not support dropout")
+    if cfg.cp_axis:
+        raise NotImplementedError(
+            "GPTPipelineModel does not take cp_axis: its stages attend over "
+            "the whole sequence (the JAX pipeline model reads no cp_axis); "
+            "train context parallel with GPTLMHeadModel")
 
 
 class GPTPipelineModel(nn.Module):

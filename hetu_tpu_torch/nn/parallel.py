@@ -22,9 +22,20 @@ the autograd pairs of ``parallel.comm``:
   tp.
 - ``vocab_parallel_cross_entropy``: max and sum-exp all-reduced over tp,
   the target's logit picked by its owner; the mean over the valid tokens
-  (``ignore_index``) is a global one, a sum and a count reduced over dp.
-  Every layout, one device included, runs the same reduction: the sum in
-  fp32, the result in the logits' dtype.
+  (``ignore_index``) is a global one, a sum and a count reduced over dp
+  and over ``seq_axis`` (context parallelism).  Every layout, one device
+  included, runs the same reduction: the sum in fp32, the result in the
+  logits' dtype.
+
+Context parallelism (``seq_axis``, the model's ``cp_axis``): each rank
+holds its contiguous block of the sequence, taken by :func:`seq_shard`
+(no communication: ids and labels need no gradient), and every layer
+acts on that block; under ``sp`` the block is split again over tp (cp
+outer, tp inner, as the JAX layers declare ``P(dp, (cp, tp))``).  The
+layers take ``seq_axis`` as the JAX layers do and move nothing over it
+(the model passes it to the loss alone); the loss reduces over
+it, and the graph records it (``Graph.seq_axes``) so that the optimizer
+sums the gradients over it, each rank holding its tokens' part.
 
 On a graph without a mesh, or on an axis of size 1, each layer is the
 one-device layer, op for op.  Parameter names and constructor arguments
@@ -69,6 +80,44 @@ def axis_size_here(axis: Optional[str]) -> int:
     mesh = getattr(get_default_graph(), "mesh", None) \
         if axis is not None else None
     return 1 if mesh is None else mesh.axis_size(axis)
+
+
+def axis_index_here(axis: Optional[str]) -> int:
+    """This rank's index on ``axis`` of the graph being built's mesh."""
+    mesh = getattr(get_default_graph(), "mesh", None) \
+        if axis is not None else None
+    return 0 if mesh is None else mesh.axis_index(axis)
+
+
+def seq_split_over(t, axis: Optional[str]) -> bool:
+    """Whether the placeholder ``t`` is fed split over ``axis`` along its
+    sequence dim (dim 1, ``P("dp", "cp")``)."""
+    from ..parallel.mesh import entry_axes
+    spec = getattr(t, "pspec", None)
+    return bool(axis) and spec is not None and len(spec) > 1 and \
+        axis in entry_axes(spec[1])
+
+
+def seq_shard(x, axis: str, dim: int = 1):
+    """This rank's contiguous block of ``x``'s sequence over ``axis``
+    (``x`` itself at size 1, or when it is fed split over ``axis``).  A
+    slice, with no communication: the model takes it of ids, labels and
+    segment ids.  Records ``axis`` on the graph as one the data is split
+    over (``Graph.seq_axes``)."""
+    g = getattr(x, "graph", None) or get_default_graph()
+    mesh = getattr(g, "mesh", None)
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return x
+    g.seq_axes.add(axis)
+    if seq_split_over(x, axis):
+        return x
+    n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+    size = x.shape[dim]
+    if size % n:
+        raise ValueError(f"sequence dim {dim} of {tuple(x.shape)} is not "
+                         f"divisible by {axis}={n}")
+    w = size // n
+    return ops.getitem(x, (slice(None),) * dim + (slice(i * w, (i + 1) * w),))
 
 
 def _active(x, axis: Optional[str]):
@@ -362,40 +411,56 @@ def _vocab_parallel_ce(lg, target, mesh=None, tp_axis="tp", start=0,
     return loss
 
 
-def _global_mean(loss_sum, count, mesh, dp_axis):
-    """The global mean from a local sum and count: both summed over dp;
-    the sum's backward is scaled by dp because the optimizer averages the
-    gradients over dp."""
-    dp = mesh.axis_size(dp_axis) if mesh is not None else 1
-    if dp > 1:
-        loss_sum = comm.reduce_from_group(loss_sum, dp_axis, mesh,
-                                          grad_scale=dp)
-        count = comm.all_reduce(count, dp_axis, "sum", mesh)
+def _data_sizes(mesh, dp_axis, seq_axis):
+    """(dp, cp): the sizes of the axes the batch and the sequence are
+    split over (1 for an axis the mesh lacks)."""
+    if mesh is None:
+        return 1, 1
+    return mesh.axis_size(dp_axis), \
+        mesh.axis_size(seq_axis) if seq_axis else 1
+
+
+def _sum_over_data(total, count, mesh, dp_axis, seq_axis):
+    """A local sum and count summed over dp and cp.  The sum's backward
+    is scaled by dp, because the optimizer averages the gradients over
+    dp, and passes unscaled over cp, where it sums them."""
+    dp, cp = _data_sizes(mesh, dp_axis, seq_axis)
+    for axis, n, scale in ((dp_axis, dp, dp), (seq_axis, cp, 1)):
+        if n > 1:
+            total = comm.reduce_from_group(total, axis, mesh,
+                                           grad_scale=scale)
+            if count is not None:
+                count = comm.all_reduce(count, axis, "sum", mesh)
+    return total, count
+
+
+def _global_mean(loss_sum, count, mesh, dp_axis, seq_axis=None):
+    """The global mean from a local sum and count, both summed over dp
+    and cp."""
+    loss_sum, count = _sum_over_data(loss_sum, count, mesh, dp_axis,
+                                     seq_axis)
     return loss_sum / torch.clamp_min(count, 1)
 
 
 def _ce_reduce(loss, target, mesh=None, dp_axis="dp", reduction="mean",
-               ignore_index=None):
+               ignore_index=None, seq_axis=None):
     """The batch's loss from per-token losses, one path for every layout
     (``mesh`` None is dp 1): the sum accumulates in fp32 and is summed
-    over dp, and the result has the losses' dtype, rounded as one
+    over dp and cp, and the result has the losses' dtype, rounded as one
     device's ``sum`` or ``mean`` rounds it.  With ``ignore_index`` the
-    mean is over the valid tokens of the global batch (their count
-    summed over dp), never a mean of means."""
+    mean is over the valid tokens of the global batch and sequence (their
+    count summed over dp and cp), never a mean of means."""
     if loss.is_meta or reduction == "none":
         return loss if reduction == "none" else loss.new_empty(())
-    dp = mesh.axis_size(dp_axis) if mesh is not None else 1
-    total = loss.float().sum()
-    if dp > 1:
-        # the backward scales by dp: the optimizer averages over dp
-        total = comm.reduce_from_group(total, dp_axis, mesh, grad_scale=dp)
+    dp, cp = _data_sizes(mesh, dp_axis, seq_axis)
+    count = None if reduction == "sum" or ignore_index is None else \
+        (target != ignore_index).sum()
+    total, count = _sum_over_data(loss.float().sum(), count, mesh, dp_axis,
+                                  seq_axis)
     if reduction == "sum":
         return total.to(loss.dtype)
     if ignore_index is None:
-        return (total / (loss.numel() * dp)).to(loss.dtype)
-    count = (target != ignore_index).sum()
-    if dp > 1:
-        count = comm.all_reduce(count, dp_axis, "sum", mesh)
+        return (total / (loss.numel() * dp * cp)).to(loss.dtype)
     return total.to(loss.dtype) / torch.clamp_min(count, 1)
 
 
@@ -406,8 +471,9 @@ def vocab_parallel_cross_entropy(logits, target, dp_axis: str = "dp",
                                  ignore_index: Optional[int] = None):
     """Softmax cross entropy over the whole vocabulary of logits split
     over ``tp_axis``; ``mean`` runs over the valid tokens of the global
-    batch.  Every layout, one device included, takes the per-token
-    losses in the logits' dtype and then one reduction."""
+    batch and sequence (the rank's rows of ``logits`` and ``target`` its
+    block over ``seq_axis``).  Every layout, one device included, takes
+    the per-token losses in the logits' dtype and then one reduction."""
     mesh = _mesh_of(logits)
     tp = mesh.axis_size(tp_axis) if mesh is not None else 1
     if tp > 1:
@@ -421,28 +487,31 @@ def vocab_parallel_cross_entropy(logits, target, dp_axis: str = "dp",
                                          ignore_index=ignore_index)
     return ops._op("dp_loss_reduce", _ce_reduce, [loss, target],
                    {"mesh": mesh, "dp_axis": dp_axis, "reduction": reduction,
-                    "ignore_index": ignore_index})
+                    "ignore_index": ignore_index, "seq_axis": seq_axis})
 
 
 def dp_mean_loss(loss, target, ignore_index: Optional[int],
-                 dp_axis: str = "dp"):
+                 dp_axis: str = "dp", seq_axis: Optional[str] = None):
     """A loss that is the mean over the rank's valid tokens, made the
-    mean over the global batch's (a sum and a count over dp)."""
-    mesh = _active(loss, dp_axis)
-    if mesh is None:
+    mean over the global batch's and sequence's (a sum and a count over
+    dp and ``seq_axis``)."""
+    mesh = _mesh_of(loss)
+    dp, cp = _data_sizes(mesh, dp_axis, seq_axis)
+    if dp * cp == 1:
         return loss
 
-    def _impl(l, t, mesh=None, dp_axis="dp", ignore_index=None):
+    def _impl(l, t, mesh=None, dp_axis="dp", ignore_index=None,
+              seq_axis=None):
         if l.is_meta:
             return l
         count = (t != ignore_index).sum().to(l.dtype) \
             if ignore_index is not None else \
             torch.tensor(float(t.numel()), device=l.device)
         return _global_mean(l * torch.clamp_min(count, 1), count, mesh,
-                            dp_axis)
+                            dp_axis, seq_axis)
     return ops._op("dp_loss_mean", _impl, [loss, target],
                    {"mesh": mesh, "dp_axis": dp_axis,
-                    "ignore_index": ignore_index})
+                    "ignore_index": ignore_index, "seq_axis": seq_axis})
 
 
 # ---------------------------------------------------------------------------

@@ -861,25 +861,51 @@ def parallel_attention(q, k, v, causal=True, softmax_scale=None,
                        cp_axis: str = "cp", batch_axis: str = "dp",
                        head_axis: str = "tp", segment_ids=None,
                        cp_impl: str = "ring"):
-    """Context-parallel attention, the sequence sharded over ``cp_axis``
-    of the graph's mesh.  A cp axis of 1 is ``attention``."""
+    """Context-parallel attention (reference ParallelAttentionOp): q, k, v
+    are the rank's ``[b, s_local, h, d]`` blocks of a sequence split over
+    ``cp_axis`` of the graph's mesh (contiguous blocks, as the model
+    holds them); ``segment_ids`` the block's ``[b, s_local]`` document
+    ids (-1 pad), which ride the KV ring.
+
+    ``cp_impl``: "ring" (``parallel.ring_attention``: KV ring plus the
+    online LSE correction) or "ulysses" (``parallel.ulysses``: all-to-all
+    head scatter; a local head count cp does not divide is zero-padded).
+    A cp axis of 1 is ``attention``.  The op records ``cp_axis`` on the
+    graph as an axis the data is split over (``Graph.seq_axes``)."""
     g = _graph_of(q, k, v)
-    mesh = getattr(g, "mesh", None)
+    mesh = getattr(g, "mesh", None) if g is not None else None
+    if g is None:
+        from ..parallel.mesh import current_mesh
+        mesh = current_mesh()
     if mesh is None or cp_axis not in mesh.axis_names:
         raise ValueError(
             f"parallel_attention requires a graph mesh with axis "
             f"{cp_axis!r}; got mesh={mesh}. Use ops.attention for non-CP "
-            f"runs instead of silently dropping context parallelism. "
-            f"The ring and Ulysses attention come with ROADMAP queue 1 "
-            f"item 12.")
+            f"runs instead of silently dropping context parallelism.")
     if cp_impl not in ("ring", "ulysses"):
         raise ValueError(f"cp_impl must be 'ring' or 'ulysses', "
                          f"got {cp_impl!r}")
     if mesh.shape[cp_axis] == 1:
         return attention(q, k, v, causal=causal, softmax_scale=softmax_scale,
                          segment_ids=segment_ids)
-    raise NotImplementedError("ring and Ulysses attention over a cp axis "
-                              "come with ROADMAP queue 1 item 12")
+    if g is not None:
+        g.seq_axes.add(cp_axis)
+    from ..parallel.ring_attention import ring_attention_sharded
+    from ..parallel.ulysses import ulysses_attention_sharded
+    sharded_attn = ring_attention_sharded if cp_impl == "ring" \
+        else ulysses_attention_sharded
+
+    def _impl(q, k, v, segment_ids=None, causal=True, softmax_scale=None):
+        return sharded_attn(q, k, v, mesh, axis_name=cp_axis, causal=causal,
+                            softmax_scale=softmax_scale,
+                            batch_axis=batch_axis, head_axis=head_axis,
+                            segment_ids=segment_ids)
+    attrs = {"causal": causal, "softmax_scale": softmax_scale}
+    if segment_ids is None:
+        return _op("parallel_attention",
+                   lambda q, k, v, **kw: _impl(q, k, v, None, **kw),
+                   [q, k, v], attrs)
+    return _op("parallel_attention", _impl, [q, k, v, segment_ids], attrs)
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,8 @@ of optax's state tree).  On a mesh they hold global values (every rank
 calls them).
 
 On a graph with a mesh whose ``dp_axis`` has more than one rank, the
-update first syncs the gradients over it, a mean (the loss's own dp sum
-is scaled to match, ``nn.parallel``):
+update syncs the gradients over dp, a mean (the loss's own dp sum is
+scaled to match, ``nn.parallel``):
 
 - ``zero=0``: coalesced all-reduce in size-capped buckets
   (``comm.all_reduce_coalesced``, tag ``grad_sync``), over the transport
@@ -57,6 +57,16 @@ is scaled to match, ``nn.parallel``):
   chunk's update, and a gather of the updated parameters in their dtype
   (``param_comm``), or under ZeRO-3 a gather of the working parameters
   from the master before the step (``param_gather``).
+
+On a graph whose data is also split over a sequence axis (context
+parallelism, ``Graph.seq_axes``) each rank holds its tokens' part of
+every parameter's gradient: after the dp sync, the piece the rank
+updates (the whole gradient, or its dp chunk under ZeRO) is summed over
+that axis (coalesced all-reduces in the gradients' dtype, tag
+``grad_sync``), so that cp
+carries 1/dp of each chunked gradient under ZeRO.  ZeRO still
+chunks over dp alone, and the clip counts every parameter once (nothing
+is split over cp).
 
 ``max_grad_norm`` clips by the global norm: each piece's squares summed
 over the axes it is split over (tp for a tp-sharded parameter, dp for a
@@ -192,12 +202,14 @@ class Optimizer:
                          if mesh.axis_size(a) > 1)
 
     def _sync(self, graph, xs: Sequence[Tensor], grads: List[torch.Tensor]):
-        """The gradients synced over dp, as the pieces this rank updates:
-        ``(tensor, parameter or its dim-0 chunk, gradient, axes the piece
-        is split over, gathered after the update)``."""
+        """The gradients synced over dp and then over the sequence axes,
+        as the pieces this rank updates: ``(tensor, parameter or its dim-0
+        chunk, gradient, axes the piece is split over, gathered after the
+        update)``."""
         from ..parallel import comm
         dp = self._dp(graph)
         if dp == 1:
+            grads = self._sum_over_seq(graph, grads)
             return [(t, graph._var_data[t.id], g, self._split_axes(graph, t),
                      False) for t, g in zip(xs, grads)]
         mesh, axis = graph.mesh, self.dp_axis
@@ -234,7 +246,25 @@ class Optimizer:
                 pieces.append((t, p.chunk(dp, 0)[k], g, axes | {axis}, True))
             else:
                 pieces.append((t, p, g, axes, False))
-        return pieces
+        summed = self._sum_over_seq(graph, [g for _, _, g, _, _ in pieces])
+        return [(t, p, g, axes, gather) for (t, p, _, axes, gather), g
+                in zip(pieces, summed)]
+
+    def _sum_over_seq(self, graph, grads: List[torch.Tensor]
+                      ) -> List[torch.Tensor]:
+        """The rank's gradient pieces summed over the axes the sequence
+        is split over (coalesced all-reduces in their dtype, tag
+        ``grad_sync``)."""
+        from ..parallel import comm
+        mesh = graph.mesh
+        for axis in sorted(graph.seq_axes):
+            if mesh is None or mesh.axis_size(axis) == 1:
+                continue
+            with comm.comm_tag("grad_sync"):
+                grads = comm.all_reduce_coalesced(
+                    list(grads), axis, op="sum", bucket_mb=self.bucket_mb,
+                    mesh=mesh)
+        return list(grads)
 
     def _regather(self, graph, pieces) -> None:
         """ZeRO-1/2: every rank's updated chunk back into the parameter."""
@@ -271,7 +301,8 @@ class Optimizer:
     def _apply_updates(self, graph, xs: Sequence[Tensor],
                        grads: List[torch.Tensor],
                        keep: Optional[torch.Tensor] = None) -> None:
-        """Sync over dp, clip, update the rank's pieces, regather."""
+        """Sync over dp and the sequence axes, clip, update the rank's
+        pieces, regather."""
         if self.flat_state and self._dp(graph) > 1:
             return self._flat_apply(graph, xs, grads, keep)
         pieces = self._clip(graph, self._sync(graph, xs, grads))
@@ -353,8 +384,9 @@ class Optimizer:
         return lay
 
     def _flat_apply(self, graph, xs, grads, keep) -> None:
-        """The reduce-scatter-only sync: a reduce-scatter chain a bucket,
-        the local chunk's update, and (ZeRO-1/2) the updated parameters
+        """The reduce-scatter-only sync: a reduce-scatter chain a bucket
+        (its chunk then summed over the sequence axes), the local chunk's
+        update, and (ZeRO-1/2) the updated parameters
         gathered in their dtype."""
         from ..parallel import comm
         from .flat_state import sync_order
@@ -364,6 +396,7 @@ class Optimizer:
         chunks, clay = comm.reduce_scatter_coalesced(
             {t.id: gmap[t.id] for t in sync_order(xs)}, axis, op="mean",
             bucket_mb=self.bucket_mb, transport=self.grad_comm, mesh=mesh)
+        chunks = self._sum_over_seq(graph, chunks)
         if self.max_grad_norm is not None:
             sq = sum(torch.sum(torch.square(c)) for c in chunks)
             with comm.comm_tag("clip"):

@@ -2,8 +2,11 @@
 sharding spec (``dstates``), process-group meshes (``mesh``), the
 collectives with their accounting (``comm``), and the pipelines: the
 schedules (``schedule``), the SPMD pipeline over a ``pp`` axis
-(``pipeline``) and the MPMD runtime (``pipeline_mpmd``).  Context
-parallelism and hot switching are ROADMAP queue 1 items 12-13."""
+(``pipeline``) and the MPMD runtime (``pipeline_mpmd``), and context
+parallelism: ring attention (``ring_attention``) and Ulysses
+(``ulysses``).  Hot switching is ROADMAP queue 1 item 13.  As in the JAX
+package, the function ``ring_attention`` is exported under its module's
+name (``importlib.import_module`` reaches the module)."""
 from . import comm, dstates
 from .dstates import (DUPLICATE, NULL_HETERO_DIM, PARTIAL,
                       DistributedStates, DistributedStatesHierarchy,
@@ -15,6 +18,7 @@ from .mesh import (AXIS_CP, AXIS_DP, AXIS_EP, AXIS_PP, AXIS_TP, Mesh, P,
                    PartitionSpec, choose_backend, create_mesh,
                    ds_from_partition_spec, ds_to_mesh_and_spec,
                    init_process_group, mesh_axis_size, single_device_mesh)
+from .ring_attention import ring_attention, ring_attention_sharded
 
 __all__ = [
     "DUPLICATE", "PARTIAL", "NULL_HETERO_DIM",
@@ -26,4 +30,5 @@ __all__ = [
     "Mesh", "P", "PartitionSpec", "choose_backend", "create_mesh",
     "init_process_group", "single_device_mesh", "mesh_axis_size",
     "ds_to_mesh_and_spec", "ds_from_partition_spec",
+    "ring_attention", "ring_attention_sharded",
 ]

@@ -24,9 +24,11 @@ Inside a forward the layers use the autograd pairs of Megatron-LM:
 :func:`gather_from_group` (all-gather, backward reduce-scatter),
 :func:`reduce_scatter_to_group` (reduce-scatter, backward all-gather),
 :func:`split_to_group` (this rank's slice, backward all-gather),
-:func:`gather_output` (all-gather, backward this rank's slice) and
+:func:`gather_output` (all-gather, backward this rank's slice),
 :func:`permute_group` (a ``ppermute`` whose backward is the inverse
-permutation: the pipeline's stage hop).  On
+permutation: the pipeline's stage hop and the sym layout's exchange) and
+:func:`all_to_all_group` (an all-to-all whose backward swaps its two
+dims: Ulysses' head scatter).  On
 ``meta`` tensors (the graph's shape pass) they return the shapes alone.
 
 Accounting: while a :func:`comm_stats` scope is open, every collective
@@ -572,13 +574,37 @@ class _PPermute(torch.autograd.Function):
     def backward(ctx, g):
         # recorded under the forward's tag: the reverse hop of a
         # ``pipeline/hop`` is one too
-        saved = list(_TAG_STACK)
-        _TAG_STACK[:] = [ctx.tag] if ctx.tag else []
-        try:
+        with _tag_of_forward(ctx.tag):
             out = ppermute(g.contiguous(), ctx.axis, ctx.inverse, ctx.mesh)
-        finally:
-            _TAG_STACK[:] = saved
         return out, None, None, None
+
+
+@contextlib.contextmanager
+def _tag_of_forward(tag: str):
+    """The tag stack as a forward left it, for its backward's
+    collectives."""
+    saved = list(_TAG_STACK)
+    _TAG_STACK[:] = [tag] if tag else []
+    try:
+        yield
+    finally:
+        _TAG_STACK[:] = saved
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, split_dim, concat_dim):
+        ctx.axis, ctx.mesh, ctx.dims = axis, mesh, (split_dim, concat_dim)
+        ctx.tag = current_comm_tag()
+        return all_to_all(x, axis, split_dim, concat_dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        with _tag_of_forward(ctx.tag):
+            out = all_to_all(g.contiguous(), ctx.axis, concat_dim,
+                             split_dim, ctx.mesh)
+        return out, None, None, None, None
 
 
 def _active(axis: str, mesh) -> bool:
@@ -643,6 +669,18 @@ def permute_group(x: torch.Tensor, axis: str,
     if x.is_meta or not _active(axis, mesh):
         return ppermute(x, axis, perm, mesh)
     return _PPermute.apply(x, axis, mesh, [tuple(p) for p in perm])
+
+
+def all_to_all_group(x: torch.Tensor, axis: str, split_dim: int,
+                     concat_dim: int, mesh=None) -> torch.Tensor:
+    """:func:`all_to_all` with a backward: the gradient goes back by the
+    all-to-all that splits ``concat_dim`` and concatenates ``split_dim``
+    (its inverse)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if x.is_meta or not _active(axis, mesh):
+        return all_to_all(x, axis, split_dim, concat_dim, mesh)
+    return _AllToAll.apply(x, axis, mesh, split_dim % x.ndim,
+                           concat_dim % x.ndim)
 
 
 def split_to_group(x: torch.Tensor, axis: str, dim: int,

@@ -1,13 +1,47 @@
-"""Serving instruments (the part of ``hetu_tpu.utils.metrics`` the
-engine uses): monotonically increasing counters, point-in-time gauges
-and latency histograms, with a shared no-op fallback so the engine's
-loop pays nothing when metrics are disabled, plus Prometheus text
-exposition and the merge of several expositions under one label (the
-serving cluster's view of its replicas)."""
+"""Metrics (counterpart of ``hetu_tpu.utils.metrics``).
+
+``Metrics``: a step-keyed recorder of scalar series with JSONL
+persistence (the ring attention's per-round table is logged through
+it).  The serving instruments: monotonically increasing counters,
+point-in-time gauges and latency histograms, with a shared no-op
+fallback so the engine's loop pays nothing when metrics are disabled,
+plus Prometheus text exposition and the merge of several expositions
+under one label (the serving cluster's view of its replicas)."""
 from __future__ import annotations
 
-from collections import deque
-from typing import Dict, List, Optional
+import json
+import os
+from collections import defaultdict, deque
+from typing import Any, Dict, List, Optional
+
+
+class Metrics:
+    """Scalar time series: ``rec.log(step, loss=2.31)``, ``series(key)``;
+    with ``log_file`` every ``log`` call appends one JSON line."""
+
+    def __init__(self, log_file: Optional[str] = None):
+        self._series: Dict[str, List[tuple]] = defaultdict(list)
+        self._fh = None
+        if log_file:
+            os.makedirs(os.path.dirname(os.path.abspath(log_file)),
+                        exist_ok=True)
+            self._fh = open(log_file, "a")
+
+    def log(self, step: int, **values: Any) -> None:
+        clean = {k: float(v) for k, v in values.items()}
+        for k, v in clean.items():
+            self._series[k].append((int(step), v))
+        if self._fh is not None:
+            self._fh.write(json.dumps({"step": int(step), **clean}) + "\n")
+            self._fh.flush()
+
+    def series(self, key: str) -> List[tuple]:
+        return list(self._series.get(key, ()))
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
 
 
 def percentile_of(xs_sorted, p: float) -> float:

@@ -220,6 +220,12 @@ FLASH_CASES = [
     # BERT-base's non-causal attention (s 512, 12 heads of 64), the batch
     # cut from 16 to 2
     (2, 512, 512, 12, 64, False, None, 0),
+    # the ring's sym pairs on a block of 256 tokens: the tail half causal
+    # against the whole block at offset 128, COL (the kv head half), ROW
+    # (the q tail half, with a (q_ids, kv_ids) tuple)
+    (1, 128, 256, 2, 128, True, None, 128),
+    (1, 256, 128, 2, 128, False, None, 0),
+    (1, 128, 256, 2, 128, False, "tuple", 0),
 ]
 WIDE = 256     # above this head dim the wide route runs, on the CUDA cores
 WGMMA_HEAD_DIMS = (64, 128)  # every bf16 flash kernel on wgmma
@@ -338,6 +344,50 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtypes):
              w.tf32_launches - f, w.wgmma_launches - g)
             for w, (a, t, f, g) in zip(wrappers, n0)] == \
         [(1, tc, tf32, wg)] * 4
+
+
+@pytest.mark.parametrize("dtypes", ["bf16", "fp32_qk_bf16_v"])
+@pytest.mark.parametrize("pattern,kind", [
+    ("normal", 0), ("normal", 1), ("normal", 2), ("sym", 0), ("sym", 1),
+    ("sym", 2)])
+def test_ring_pairs_on_the_card_match_the_plain_versions(cuda_device,
+                                                         pattern, kind,
+                                                         dtypes):
+    """Each ring pair class (normal CAUSAL/FULL/EMPTY, sym CAUSAL_SYM/COL/
+    ROW) with travelling ids (q padding -1, kv padding -2), through the
+    kernels against the same pair on CPU tensors (the plain versions):
+    the forward, and the backward of both from the plain forward's out
+    and lse, so that each is checked on its own."""
+    import importlib
+    ra = importlib.import_module("hetu_tpu_torch.parallel.ring_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    case = (1, 256, 256, 2, 128, True, None, 0)
+    q, k, v, do, _, _, _, scale = _flash_inputs(case, dtypes, "cpu", seed=5)
+    q_ids = torch.from_numpy(np.repeat(np.arange(4), 64)[None]
+                             .astype(np.int32))
+    kv_ids = q_ids.clone()
+    q_ids[:, 250:] = -1
+    kv_ids[:, 240:] = -2
+    res, plain = {}, None
+    for dev in ("cpu", cuda_device):
+        t = [x.to(dev) for x in (q, k, v, do)]
+        segs = (q_ids.to(dev), kv_ids.to(dev))
+        o, lse = ra._pair_fwd(*t[:3], scale, kind, segs, pattern, True)
+        o = o.to(q.dtype)
+        if plain is None:
+            plain = (o, lse)
+        grads = ra._pair_bwd(*t[:3], t[3], plain[0].to(dev),
+                             plain[1].to(dev), scale, kind, segs, pattern,
+                             True)
+        torch.cuda.synchronize()
+        res[dev] = [x.cpu() for x in (o, lse, *grads)]
+    (o, lse, *g), (ro, rl, *rg) = res[cuda_device], res["cpu"]
+    bf16_qk, bf16_v = dtypes == "bf16", True
+    assert torch.equal(torch.isinf(lse), torch.isinf(rl))
+    _assert_close(o, ro, (3,), bf16_v, 1e-4, "out")
+    for name, a, b, bf in zip(("dq", "dk", "dv"), g, rg,
+                              (bf16_qk, bf16_qk, True)):
+        _assert_close(a, b, (3,), bf, 1e-3, name)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 256, 384])

@@ -1,6 +1,7 @@
 """Rank processes of a gloo group on the CPU, for the port's multi-process
 tests (tests/test_torch_comm.py, tests/test_torch_parallel.py,
-tests/test_torch_rpc_launch.py).
+tests/test_torch_rpc_launch.py, tests/test_torch_ring_attention.py,
+tests/test_torch_ulysses.py, tests/test_torch_cp_model.py).
 
 ``run_ranks(case, world, args, tmp)`` starts ``world`` fresh interpreters
 running this file (``python tests/torch_ranks.py RANK WORLD INIT CASE
@@ -11,6 +12,7 @@ parent waits up to ``timeout`` seconds, kills every rank on a timeout or
 a failure, and raises with the ranks' error output.  The ranks import
 the port and never JAX.
 """
+import json
 import os
 import pickle
 import subprocess
@@ -400,7 +402,170 @@ def case_pipeline(rank, world, state_path, batch_path, mk, layouts,
     return out
 
 
+def _block(mesh, axis, n_global):
+    """This rank's contiguous block of ``n_global`` over ``axis``."""
+    n = mesh.axis_size(axis)
+    i = mesh.axis_index(axis)
+    w = n_global // n
+    return slice(i * w, (i + 1) * w)
+
+
+def case_cp_attention(rank, world, jobs):
+    """Ring and Ulysses attention on this rank's shard of global ``[b, s,
+    h, d]`` inputs (the sequence over ``cp``, the batch over ``dp`` and
+    the heads over ``tp`` where the mesh has them): for each job the
+    rank's slices, its output and, with a cotangent ``do``, the
+    gradients of ``sum(out * do)``; a job that raises returns the
+    error's type and message."""
+    import torch
+    from hetu_tpu_torch.parallel import comm, create_mesh
+    from hetu_tpu_torch.parallel.ring_attention import ring_attention_sharded
+    from hetu_tpu_torch.parallel.ulysses import (ulysses_attention,
+                                                 ulysses_attention_sharded)
+    out = []
+    meshes = {}
+    for job in jobs:
+        key = tuple(sorted(job["mesh"].items()))
+        if key not in meshes:
+            meshes[key] = create_mesh(job["mesh"], device="cpu")
+        mesh = meshes[key]
+        b, s, h = job["q"].shape[:3]
+        hk = job["k"].shape[2]
+        bs = _block(mesh, "dp", b)
+        ss = _block(mesh, "cp", s)
+        hs, hks = _block(mesh, "tp", h), _block(mesh, "tp", hk)
+        dt = getattr(torch, job.get("dtype", "float32"))
+
+        def local(x, heads):
+            return torch.from_numpy(np.ascontiguousarray(
+                x[bs, ss, heads])).to(dt).requires_grad_(True)
+        q, k, v = local(job["q"], hs), local(job["k"], hks), \
+            local(job["v"], hks)
+        segs = job.get("segment_ids")
+        if segs is not None:
+            segs = torch.from_numpy(np.ascontiguousarray(segs[bs, ss]))
+        kw = dict(causal=job.get("causal", True), segment_ids=segs)
+        res = {"name": job["name"], "b": (bs.start, bs.stop),
+               "s": (ss.start, ss.stop), "h": (hs.start, hs.stop)}
+        try:
+            with comm.comm_stats() as st:
+                if job.get("impl", "ring") == "ring":
+                    o = ring_attention_sharded(
+                        q, k, v, mesh, split_pattern=job.get("pattern",
+                                                             "normal"),
+                        seq_lens=job.get("seq_lens"), **kw)
+                elif job["impl"] == "ulysses":
+                    o = ulysses_attention_sharded(q, k, v, mesh, **kw)
+                else:                       # the unpadded local op
+                    o = ulysses_attention(q, k, v, mesh=mesh, **kw)
+                res["out"] = o.detach().float().numpy()
+                res["dtype"] = str(o.dtype)
+                if job.get("do") is not None:
+                    do = torch.from_numpy(np.ascontiguousarray(
+                        job["do"][bs, ss, hs])).to(o.dtype)
+                    grads = torch.autograd.grad((o * do).sum(), [q, k, v])
+                    res["grads"] = [x.float().numpy() for x in grads]
+            res["records"] = [tuple(r) for r in st.records]
+        except Exception as e:          # the refusals the tests expect
+            res["error"] = (type(e).__name__, str(e))
+        out.append(res)
+    return out
+
+
+def case_ring_profile(rank, world, q, k, v, path):
+    """``profile_ring_breakdown`` on this rank's block (sym, causal) with
+    a ``Metrics`` recorder, then the ``HETU_TPU_RING_PROFILE`` hook inside
+    ``ring_attention_sharded``, called twice at one shape and once at
+    another: the rows, the recorder's series lengths, the profiled keys
+    and the lines of this rank's JSONL file."""
+    import importlib
+    import torch
+    from hetu_tpu_torch.parallel import create_mesh
+    from hetu_tpu_torch.utils.metrics import Metrics
+    ra = importlib.import_module("hetu_tpu_torch.parallel.ring_attention")
+    mesh = create_mesh({"cp": world}, device="cpu")
+    ss = _block(mesh, "cp", q.shape[1])
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(x[:, ss]))
+               for x in (q, k, v))
+    rec = Metrics()
+    rows = ra.profile_ring_breakdown(q, k, v, mesh, split_pattern="sym",
+                                     reps=1, metrics=rec)
+    os.environ["HETU_TPU_RING_PROFILE"] = "1"
+    os.environ["HETU_TPU_RING_PROFILE_BWD"] = "0"
+    os.environ["HETU_TPU_RING_PROFILE_FILE"] = path
+    ra._RING_PROFILED.clear()
+    ra.ring_attention_sharded(q, k, v, mesh)
+    ra.ring_attention_sharded(q, k, v, mesh)
+    keys_after_two = len(ra._RING_PROFILED)
+    half = slice(0, q.shape[1] // 2)
+    ra.ring_attention_sharded(q[:, half].contiguous(), k[:, half]
+                              .contiguous(), v[:, half].contiguous(), mesh)
+    with open(f"{path}.rank{mesh.rank}") as f:
+        lines = [json.loads(l) for l in f if l.strip()]
+    return {"rows": rows,
+            "series": {key: len(rec.series(key)) for key in (
+                "ring_comm_s", "ring_attn_s", "ring_corr_s", "ring_grad_s")},
+            "keys_after_two": keys_after_two,
+            "keys": len(ra._RING_PROFILED), "lines": lines}
+
+
+def case_cp_train(rank, world, state_path, batch_path, mk, layouts,
+                  steps=3, lr=1e-3):
+    """Each layout ``(name, mesh shape, config overrides, feed spec
+    ("dp" or "dp_cp"), packed segments, optimizer options)`` trains
+    ``steps`` Adam steps of the tiny model from the given (JAX) state on
+    the global batch: its losses, gathered weights (rank 0) and the
+    collectives of its first step."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.models import gpt as tgpt
+    from hetu_tpu_torch.models import GPTLMHeadModel
+    from hetu_tpu_torch.models.convert import load_state
+    from hetu_tpu_torch.models.generate import _Params
+    from hetu_tpu_torch.parallel import P, comm, create_mesh
+    state = _dist_state(state_path)
+    bt = np.load(batch_path)
+    x, y, segs = bt["x"], bt["y"], bt["segs"]
+    out = {}
+    for name, shape, cfg_kw, feed, packed, opt_kw in layouts:
+        mesh = create_mesh(shape, device="cpu")
+        spec = P("dp", "cp") if feed == "dp_cp" else P("dp", None)
+        cfg = getattr(tgpt, mk["fn"])(**{**mk["kw"], **cfg_kw})
+        with ht.graph("define_and_run", create_new=True, mesh=mesh,
+                      seed=0) as g:
+            ids = ht.parallel_placeholder("int32", x.shape, pspec=spec,
+                                          name="ids")
+            labels = ht.parallel_placeholder("int32", y.shape, pspec=spec,
+                                             name="labels")
+            feeds = {ids: x, labels: y}
+            seg_t = None
+            if packed:
+                seg_t = ht.parallel_placeholder("int32", segs.shape,
+                                                pspec=spec, name="segs")
+                feeds[seg_t] = segs
+            model = GPTLMHeadModel(cfg)
+            loss = model(ids, labels, segment_ids=seg_t)
+            train_op = optim.AdamOptimizer(lr=lr, **opt_kw).minimize(loss)
+        load_state(model, state)
+        losses, records = [], None
+        for i in range(steps):
+            with comm.comm_stats() as st:
+                l, _ = g.run(loss, [loss, train_op], feeds)
+            losses.append(float(l))
+            if i == 0:
+                records = [tuple(r) for r in st.records]
+        weights = {_Params._norm(n): g.global_value(p).numpy()
+                   for n, p in model.named_parameters()}
+        out[name] = {"losses": losses,
+                     "weights": weights if rank == 0 else None,
+                     "records": records,
+                     "seq_axes": sorted(g.seq_axes)}
+    return out
+
+
 CASES = {"collectives": case_collectives, "train_many": case_train_many,
+         "cp_attention": case_cp_attention, "ring_profile": case_ring_profile,
+         "cp_train": case_cp_train,
          "pipeline": case_pipeline, "permute": case_permute,
          "aux": case_aux,
          "many": case_many,
