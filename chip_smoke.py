@@ -267,9 +267,11 @@ Phases, each printing one JSON line:
     dp 2 with ZeRO 1, 2 and 3; tp 2; tp 2 with sp; dp 2 with the fp32
     grad-comm transport and flat state; losses within 1e-4 and the
     gathered weights' updates within 1 % (phase 8's limits).  (b) bf16 at
-    GPT-2 small's full widths (12 layers, seq 1024, global batch 8, 6
+    GPT-2 small's full widths (12 layers, seq 1024, global batch 8, 3
     steps): dp 2 with ZeRO 2, and tp 2 with sp; (c) Llama-3-8B widths at
-    2 layers (seq 4096, global batch 2, 3 steps), tp 2 with sp: losses
+    2 layers (seq 4096, global batch 2, 4 steps), tp 2 with sp for 2
+    steps, then hot-switched to dp 2 under ZeRO-2 for 2 (phase 25 (b)
+    reads this run): losses
     falling and at every step within ``MESH_LOSS_LIMITS`` of one
     process's: (b)'s bf16 losses (one loss path in every layout) at most
     one bf16 spacing apart and equal at step 1, (c)'s fp32 losses within
@@ -277,7 +279,7 @@ Phases, each printing one JSON line:
     layouts' bf16 weights by most of an update).  Every
     rank's flash launches a layer, micro-batch and step, on wgmma in (b)
     at 6 local heads under tp, on 3xTF32 in (a) and (c) (the split dq and
-    dk/dv at 16 local heads in (c)); ms a step, the backend, whether the
+    dk/dv at 16 local heads in (c), then 32); ms a step, the backend, whether the
     step was captured (never, over gloo), each rank's ``comm_stats``
     summary.  (d) A mesh of size 1 on NCCL in this process: captured,
     its losses equal the run's without a mesh.  A failing or hanging
@@ -323,13 +325,14 @@ Phases, each printing one JSON line:
     2 micro-batches, 3 Adam steps at phase 8's lr): the ring over
     ``{"dp": 2, "cp": 2}`` with ZeRO-2 and over ``{"cp": 2, "tp": 2}``
     with sp on 4 rank processes of ``mesh_rank_main``, the ring and
-    Ulysses over ``{"cp": 2}`` on (b)'s 2 ranks before its cases; losses
+    Ulysses over ``{"cp": 2}`` on (b)'s 2 ranks before its cases (phase
+    25 (a)'s cases follow on the 4 ranks' launch); losses
     within 1e-4 and the gathered weights' updates within 1 % (phase 8's
     limits).  (b) Llama-3-8B widths at 2
     layers (vocab 128256, hidden 4096, 32 heads, 8 KV heads, FFN 14336,
     bf16), one sequence of 8192 tokens (the config's ``max_seq_len``),
     4096 a rank over ``{"cp": 2}`` on 2 ranks of ``--cp-rank``, the ring
-    and Ulysses, 3 Adam steps at lr 3e-4 (the cp gradient sum in 256 MB
+    and Ulysses, 2 Adam steps at lr 3e-4 (the cp gradient sum in 256 MB
     buckets): losses falling and within ``MESH_LOSS_LIMITS``' 2 % of one
     process at seq 8192.  Every rank's flash launches as the normal
     causal ring gives them (rank i of cp runs i + 1 pairs a layer) or
@@ -353,6 +356,42 @@ Phases, each printing one JSON line:
     peak memory by rank.  The launches of (a) and (b) join the kernel
     table's ``launches`` (``cp_launches``), (c)'s stand apart
     (``cp_check_launches``).
+25. switch: hot switching (``DefineAndRunGraph.switch_strategy``,
+    ``parallel.switch``), each switched run held against the same
+    configuration trained in this process (no mesh, captured) from the
+    seed-0 weights.  (a) fp32 (TF32 off), GPT-2 widths at 2 layers (phase
+    22's (a), global batch 8 in 2 micro-batches, so that dp 4 takes a
+    row of each; 6 Adam steps at phase 8's lr) on 4 rank processes of
+    ``mesh_rank_main`` (phase 24's launch of 4 ranks) from ``{"dp": 4}``: flat ZeRO-2 switched after 3
+    steps to ``{"dp": 2}`` on ranks [2, 3] (the flat buffers re-packed
+    for the new dp; flat state takes no tp), and ZeRO-2 switched after 2
+    steps to ``{"dp": 2, "tp": 2}`` with sp and after 4 to ``{"dp": 2}``
+    on ranks [2, 3] (a subset; ranks 0-1 then hold nothing and take no
+    step): losses within 1e-4 and updates within 1 % (phase 8's limits),
+    every rank that holds a step the same loss; each switch's profile
+    counts the bytes its ranks sent and received (moved), the model's
+    parameters and Adam state (total) and the flat state (repack); each
+    layout's flash launches as one a layer, micro-batch and step on
+    3xTF32.  (b) Llama-3-8B widths at 2 layers (phase 22's (c), read from
+    its run; global batch 2, seq 4096, bf16 weights) on 2 ranks: 2 steps
+    under ``{"tp":
+    2}`` with sp, a switch to ``{"dp": 2}`` under ZeRO-2 (Adam's moments
+    move and chunk), 2 more steps; losses falling and within
+    ``MESH_LOSS_LIMITS``' 2 % of one process's 4 steps; the switch's wall,
+    moved and staged bytes, each rank's peak memory across it (their sum
+    within the card), each layout's ms a step and flash launches (16
+    local heads, then 32).  (c) On a size-1 NCCL mesh in this process:
+    3 captured steps, a switch onto an identity mesh, 3 more: the old
+    capture dropped and the plan captured again (``compile_count`` 1,
+    ``captures_total`` 2), the losses equal bitwise the same run taken
+    under ``capture.eager()``.  Then ``examples/train_malleus_torch.py``
+    at its defaults on 4 gloo ranks of the card: its own gates (losses
+    finite, continuous across the switch, falling), the measured
+    straggler ratios, the switch history and its ranks' flash launches.
+    The launches of (a) and the entry point join the kernel table's
+    ``launches`` (``switch_launches``, ``switch_entry_launches``; (b)'s are
+    phase 22's ``mesh_launches``).  Alone (``phase_switch()`` without
+    phases 22 and 24 before it) the phase starts its own launches.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -4661,6 +4700,7 @@ MESH_GROUP_TIMEOUT = 900.0
 # stays meaningful as the memorised batch's loss nears 0.
 MESH_LOSS_LIMITS = {"gpt2_small_bf16": ("bf16_steps", 1),
                     "llama3_8b_2_layers": ("relative", 2e-2),
+                    "llama3_8b_switch": ("relative", 2e-2),
                     "llama3_8b_cp_8192": ("relative", 2e-2)}
 MESH_ENV_JOB = "HETU_MESH_JOB"
 
@@ -4688,26 +4728,35 @@ def mesh_loss_gaps(name, losses, ref_losses):
 
 def mesh_config(name):
     """A phase-22 configuration: the model's config fields, global batch,
-    seq, steps, lr and micro-batches (plain data: the ranks get it in
-    their job file)."""
+    seq, steps, lr and micro-batches, and a switched one's switches
+    (plain data: the ranks get it in their job file)."""
+    extra = {}
     if name == "gpt2_fp32_2_layers":            # (a): phase 8's limits
         cfg, batch, seq, steps, lr, micro = (
             GPTConfig(vocab_size=50304, num_layers=2, dtype="float32"), 4,
             256, ORACLE_STEPS, ORACLE_LR, 2)
     elif name == "gpt2_small_bf16":             # (b), the entry's widths
         cfg, batch, seq, steps, lr, micro = (
-            GPTConfig(vocab_size=50304, dtype="bfloat16"), 8, 1024, 6,
+            GPTConfig(vocab_size=50304, dtype="bfloat16"), 8, 1024, 3,
             3e-4, 2)
     elif name == "llama3_8b_2_layers":          # (c)
         cfg, batch, seq, steps, lr, micro = (
             llama3_8b_config(num_layers=2), 2, 4096, 3, 3e-4, 1)
+    elif name == "gpt2_fp32_b8_switch":         # phase 25 (a)
+        cfg, batch, seq, steps, lr, micro = (
+            GPTConfig(vocab_size=50304, num_layers=2, dtype="float32"), 8,
+            256, SWITCH_STEPS, ORACLE_LR, 2)
+    elif name == "llama3_8b_switch":            # (c), phase 25 (b)
+        cfg, batch, seq, steps, lr, micro = (
+            llama3_8b_config(num_layers=2), 2, 4096, 4, 3e-4, 1)
+        extra["switches"] = SWITCH_FULL[4]
     elif name == "llama3_8b_cp_8192":           # phase 24 (b)
         cfg, batch, seq, steps, lr, micro = (
-            llama3_8b_config(num_layers=2), 1, CP_SEQ, 3, 3e-4, 1)
+            llama3_8b_config(num_layers=2), 1, CP_SEQ, 2, 3e-4, 1)
     else:
         raise ValueError(name)
     return {"name": name, "cfg": dataclasses.asdict(cfg), "batch": batch,
-            "seq": seq, "steps": steps, "lr": lr, "micro": micro}
+            "seq": seq, "steps": steps, "lr": lr, "micro": micro, **extra}
 
 
 # (a) fp32 layouts, (b) bf16 at GPT-2 small, (c) Llama-3-8B widths:
@@ -4723,7 +4772,10 @@ MESH_CASES = [
      {"zero": 2, "grad_comm": "fp32", "flat_state": True}),
     ("dp2_zero2", "gpt2_small_bf16", {"dp": 2}, False, {"zero": 2}),
     ("tp2_sp", "gpt2_small_bf16", {"tp": 2}, True, {}),
-    ("tp2_sp", "llama3_8b_2_layers", {"tp": 2}, True, {}),
+    # (c), which phase 25 (b) reads too: tp 2 sp for 2 steps, then a hot
+    # switch to dp 2 under ZeRO-2 for 2 more (``SWITCH_FULL``)
+    ("tp2_sp_to_dp2_zero2", "llama3_8b_switch", {"tp": 2}, True,
+     {"zero": 2}),
 ]
 
 
@@ -4738,13 +4790,20 @@ def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False,
     builds ``GPTPipelineModel`` with the mesh's pp stages (1 without one),
     its ``micro`` micro-batches running through the pipeline;
     ``init_state`` (plain names) replaces the seed-0 init, ``batch_xy``
-    (ids, labels) the seeded batch."""
+    (ids, labels) the seeded batch.  A spec's ``"switches"`` (``{"after":
+    step, "mesh": shape, "ranks": ranks or None}``) hot-switch the graph
+    and the optimizer on a mesh run (``switch_strategy``; the one-process
+    run takes none): each is read in ``switches`` (wall, the profile, the
+    rank's sent, received and staged bytes, its peak memory across the
+    switch), the flash launches and ms a step of each layout in
+    ``segments``; a rank outside a mesh takes no step (its loss None)."""
     from hetu_tpu_torch.models.convert import (load_state, pipeline_state,
                                                plain_state)
     from hetu_tpu_torch.models.gpt_pipeline import GPTPipelineModel
-    from hetu_tpu_torch.parallel import P, comm
+    from hetu_tpu_torch.parallel import P, comm, create_mesh
     t_case = time.perf_counter()
     name = spec["name"]
+    switch_list = spec.get("switches", [])
     cfg_kw = {**spec["cfg"], "sp": sp}
     if mesh is None or cfg_kw.get("cp_axis") not in mesh.axis_names:
         # the one-process run of a context-parallel case
@@ -4767,8 +4826,8 @@ def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False,
         else:
             model = GPTLMHeadModel(cfg)
             loss = model(ids, labels)
-        train_op = ht.optim.AdamOptimizer(lr=lr, **(opt_kw or {})).minimize(
-            loss)
+        opt = ht.optim.AdamOptimizer(lr=lr, **(opt_kw or {}))
+        train_op = opt.minimize(loss)
     g.run([], run_level="alloc")
     if init_state is not None:
         if piped:
@@ -4784,11 +4843,62 @@ def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False,
     init = gathered() if weights else None
     x, y = batch_xy if batch_xy is not None else \
         seeded_batch(cfg.vocab_size, batch, seq, seed=2)
+    switches = {s_["after"]: s_ for s_ in switch_list} \
+        if mesh is not None else {}
     reset_flash_counts()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_s = [], []
+    losses, step_s, done, segments = [], [], [], []
+
+    def segment(first):
+        """The flash launches and ms a step since the last boundary."""
+        now = flash_counts()
+        prev = segments[-1]["_counts"] if segments else None
+        launches = {k: {"launches": v["launches"] - (
+            prev[k]["launches"] if prev else 0), "by_route": {
+                r: n - (prev[k]["by_route"][r] if prev else 0)
+                for r, n in v["by_route"].items()}}
+            for k, v in now.items()}
+        times = [t for t in step_s[first:] if t is not None]
+        segments.append({"mesh": dict(g.mesh.shape) if g.mesh is not None
+                         else None, "ranks": list(g.mesh.ranks)
+                         if g.mesh is not None else None,
+                         "in_mesh": g.mesh is None or g.mesh.in_mesh,
+                         "steps": len(step_s) - first, "flash": launches,
+                         "ms_per_step": 1e3 * float(np.mean(
+                             times[1:] or times)) if times else None,
+                         "_counts": now})
     with comm.comm_stats() as st:
-        for _ in range(steps):
+        first = 0
+        for i in range(steps):
+            sw = switches.get(i)
+            if sw is not None:
+                segment(first)
+                first = i
+                new = create_mesh(sw["mesh"], device=mesh.device,
+                                  ranks=sw.get("ranks"))
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                prof = g.switch_strategy(new, optimizer=opt)
+                torch.cuda.synchronize()
+                done.append({"after": i, "mesh": sw["mesh"],
+                             "ranks": list(new.ranks),
+                             "wall_s": time.perf_counter() - t,
+                             "profile": prof.as_dict(),
+                             "sent_bytes": prof.sent_bytes,
+                             "recv_bytes": prof.recv_bytes,
+                             "staged_bytes": prof.staged_bytes,
+                             "memory_before_bytes": before,
+                             "memory_after_bytes":
+                             torch.cuda.memory_allocated(),
+                             "peak_memory_bytes":
+                             torch.cuda.max_memory_allocated(),
+                             "strategy": g.cur_strategy_id})
+            if g.mesh is not None and not g.mesh.in_mesh:
+                losses.append(None)
+                step_s.append(None)
+                continue
             torch.cuda.synchronize()
             t = time.perf_counter()
             l, _ = g.run(loss, [loss, train_op], {ids: x, labels: y},
@@ -4796,19 +4906,32 @@ def mesh_train(spec, mesh=None, sp=False, opt_kw=None, weights=False,
             losses.append(float(l))
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t)
+        if switches:
+            segment(first)
+    held = [t for t in step_s if t is not None]
     out = {"config": name, "dtype": cfg.dtype, "global_batch": batch,
            "seq": seq, "steps": steps, "micro_batches": micro, "lr": lr,
            "losses": losses, "step_s": step_s,
-           "ms_per_step": 1e3 * float(np.mean(step_s[1:] or step_s)),
+           "ms_per_step": 1e3 * float(np.mean(held[1:] or held))
+           if held else None,
            "captured": g.last_run_captured, "compile_count": g.compile_count,
+           "captures_total": g.captures_total,
+           "num_params": sum(int(np.prod(p.global_shape or p.shape))
+                             for _, p in model.named_parameters()),
            "flash": flash_counts(), "comm": st.summary(),
            "comm_by_tag": comm_by_tag(st.records),
            "comm_bytes_by_tag": comm_by_tag(st.records, nbytes=True),
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    if weights:
+    if switches:
+        for seg in segments:
+            seg.pop("_counts")
+        out.update(switches=done, segments=segments,
+                   holds_final=g.mesh.in_mesh and
+                   g.mesh.rank == g.mesh.ranks[0])
+    if weights and (g.mesh is None or g.mesh.in_mesh):
         out["init"], out["final"] = init, gathered()
     out["case_wall_s"] = time.perf_counter() - t_case
-    del g, model, ids, labels, loss, train_op
+    del g, model, ids, labels, loss, train_op, opt
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4861,13 +4984,14 @@ def mesh_rank_main(extra=None):
         r.update(case=case, mesh=shape, sp=sp, opt=opt_kw,
                  backend=mesh.backend, rank=client.rank)
         if weights:
-            if client.rank == 0:
+            if r.get("holds_final", client.rank == 0):
                 if name not in refs:
                     refs[name] = {k: dict(np.load(
                         f"{job['ref']}.{name}.{k}.npz"))
                         for k in ("init", "final")}
                 r["weights"] = mesh_weight_report(refs[name], r)
-            del r["init"], r["final"]
+            r.pop("init", None)
+            r.pop("final", None)
         results.append(r)
     if extra is not None:
         results.append(extra(job))
@@ -5054,6 +5178,11 @@ def phase_mesh():
                                  f"against one process {ref['losses']}: "
                                  f"{row['loss_gap']}")
         layouts.append(row)
+    # phase 25 (b) reads (c)'s switch from here
+    i = next(i for i, c in enumerate(MESH_CASES) if c[0] == SWITCH_FULL[0])
+    SHARED["switch_full"] = (mesh_config(MESH_CASES[i][1]),
+                             [rk[i] for rk in runs],
+                             refs[MESH_CASES[i][1]])
     size1 = mesh_nccl_size1(refs["gpt2_fp32_2_layers"])
     launches = {k: sum(fl[k] for row in layouts
                        for fl in row["flash_by_rank"])
@@ -5891,8 +6020,15 @@ def phase_cp():
     t0 = time.perf_counter()
     wall = {}
     cases_4 = cp_cases(CP_LAYOUTS_4)
-    refs_4, runs_4 = mesh_runs(cases_4, compare={"gpt2_fp32_2_layers"},
-                               ranks=4)
+    # phase 25 (a) rides on this launch of 4 ranks (after its cases)
+    sw_cases = switch_cases()
+    refs_4, runs_4 = mesh_runs(cases_4 + sw_cases,
+                               compare={"gpt2_fp32_2_layers",
+                                        sw_cases[0][1]["name"]}, ranks=4)
+    n4 = len(cases_4)
+    SHARED["switch_chains"] = (sw_cases, refs_4[sw_cases[0][1]["name"]],
+                               [rk[n4:] for rk in runs_4])
+    runs_4 = [rk[:n4] for rk in runs_4]
     layouts = cp_layout_rows(CP_LAYOUTS_4, cases_4, refs_4, runs_4)
     wall["four_ranks"] = time.perf_counter() - t0
     t = time.perf_counter()
@@ -5928,6 +6064,274 @@ def phase_cp():
            "part_wall_s": wall, "nvidia_smi": smi_line(),
            "wall_s": time.perf_counter() - t0}
     emit({"phase": "cp", **out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# hot switching (phase 25)
+# ---------------------------------------------------------------------------
+
+SWITCH_STEPS = 6
+SWITCH_RANKS = 4
+# (a): phase 22 (a)'s fp32 GPT-2 widths at 2 layers from {"dp": 4} on 4
+# ranks, global batch 8 in 2 micro-batches (dp 4 takes a row of each):
+# (case, sp, optimizer options, switches).  Flat state takes no parameter
+# a mesh axis splits (the pure-dp rule), so its chain stays on dp.
+SWITCH_CHAINS = [
+    ("flat_zero2_to_dp2_subset", False,
+     {"zero": 2, "grad_comm": "fp32", "flat_state": True},
+     [{"after": 3, "mesh": {"dp": 2}, "ranks": [2, 3]}]),
+    ("zero2_to_dp2_tp2_sp_to_dp2_subset", True, {"zero": 2},
+     [{"after": 2, "mesh": {"dp": 2, "tp": 2}, "ranks": None},
+      {"after": 4, "mesh": {"dp": 2}, "ranks": [2, 3]}]),
+]
+# (b): Llama-3-8B widths at 2 layers, tp 2 sp for 2 steps, then dp 2 under
+# ZeRO-2 (Adam's moments move and chunk) for 2 more, on 2 ranks
+SWITCH_FULL = ("tp2_sp_to_dp2_zero2", {"tp": 2}, True, {"zero": 2},
+               [{"after": 2, "mesh": {"dp": 2}, "ranks": None}])
+SWITCH_ENTRY_ARGS = ["--device", "cuda", "--launch-timeout", "500"]
+# what an earlier phase's launch ran for phase 25: (a)'s chains on phase
+# 24's 4 ranks, (b) as phase 22's (c); phase 25 alone runs its own
+SHARED = {}
+
+
+def switch_cases():
+    """(a)'s cases for ``mesh_rank_main`` from ``{"dp": 4}``."""
+    base = mesh_config("gpt2_fp32_b8_switch")
+    return [[case, dict(base, switches=sws), {"dp": 4}, sp, kw]
+            for case, sp, kw, sws in SWITCH_CHAINS]
+
+
+def switch_total_bytes(num_params, param_bytes, flat):
+    """The bytes a switch's profile counts: the parameters, Adam's fp32 m
+    and v (and the flat fp32 master), the step and the betas."""
+    return num_params * (param_bytes + 4 * (3 if flat else 2)) + 4 + 8
+
+
+def switch_rows(case, spec, per_rank, ref, flat):
+    """A switched case across its ranks: every held step's loss equal on
+    every rank, each switch's profile against the bytes its ranks sent
+    and received (moved), the model's state bytes (total) and the flat
+    state's (repack), each layout's flash launches on the 3xTF32 route."""
+    cfg = GPTConfig(**spec["cfg"])
+    n = ref["num_params"]
+    held = []
+    for j in range(spec["steps"]):
+        vals = {r["losses"][j] for r in per_rank
+                if r["losses"][j] is not None}
+        if len(vals) != 1:
+            raise AssertionError(f"{case}: step {j} losses {vals}")
+        held.append(vals.pop())
+    switches = []
+    for k, sw in enumerate(per_rank[0]["switches"]):
+        prof = sw["profile"]
+        sent = sum(r["switches"][k]["sent_bytes"] for r in per_rank)
+        recv = sum(r["switches"][k]["recv_bytes"] for r in per_rank)
+        want = {"moved_bytes": sent, "total_bytes": switch_total_bytes(
+                    n, torch.empty((), dtype=getattr(torch, cfg.dtype))
+                    .element_size(), flat),
+                "repack_bytes": n * 4 * 3 if flat else 0}
+        got = {key: prof[key] for key in want}
+        counts = [{key: v for key, v in r["switches"][k]["profile"].items()
+                   if key != "seconds"} for r in per_rank]
+        if got != want or recv != sent or \
+                any(c != counts[0] for c in counts):
+            raise AssertionError(f"{case} switch {k}: profile {prof} "
+                                 f"against {want} (received {recv})")
+        switches.append({
+            "after": sw["after"], "mesh": sw["mesh"], "ranks": sw["ranks"],
+            "profile": prof,
+            "wall_s_by_rank": [r["switches"][k]["wall_s"] for r in per_rank],
+            "sent_bytes_by_rank": [r["switches"][k]["sent_bytes"]
+                                   for r in per_rank],
+            "staged_bytes_by_rank": [r["switches"][k]["staged_bytes"]
+                                     for r in per_rank],
+            "peak_memory_bytes_by_rank": [r["switches"][k][
+                "peak_memory_bytes"] for r in per_rank]})
+    segments = []
+    for si, seg in enumerate(per_rank[0]["segments"]):
+        tp = seg["mesh"].get("tp", 1)
+        rows = [r["segments"][si] for r in per_rank
+                if r["segments"][si]["in_mesh"]]
+        want = mesh_flash_want(cfg, spec["seq"], rows[0]["steps"],
+                               spec["micro"])
+        for row in rows:
+            got = {k: v["launches"] for k, v in row["flash"].items()}
+            if got != want or any(v["by_route"]["3xtf32"] != v["launches"]
+                                  for v in row["flash"].values()):
+                raise AssertionError(f"{case} layout {seg['mesh']}: flash "
+                                     f"{row['flash']} against {want}")
+        segments.append({"mesh": seg["mesh"], "ranks": seg["ranks"],
+                         "local_heads": cfg.num_heads // tp,
+                         "steps": rows[0]["steps"],
+                         "ms_per_step_by_rank": [r["ms_per_step"]
+                                                 for r in rows],
+                         "flash_by_rank": [r["flash"] for r in rows]})
+    return held, switches, segments
+
+
+def switch_capture_check():
+    """(c) On a size-1 NCCL mesh in this process: three captured steps,
+    a switch onto an identity mesh (a new strategy id, the same layout),
+    three more steps; the old capture is dropped and the plan captured
+    again, and the losses equal bitwise the same six steps and switch
+    taken eagerly (``capture.eager()``)."""
+    import socket
+    import torch.distributed as dist
+    from hetu_tpu_torch.parallel import create_mesh, init_process_group
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    spec = dict(mesh_config("gpt2_fp32_2_layers"), steps=6,
+                switches=[{"after": 3, "mesh": {"dp": 1}, "ranks": None}])
+    backend = init_process_group(0, 1, f"tcp://127.0.0.1:{port}",
+                                 device="cuda", timeout=60.0)
+    try:
+        captured = mesh_train(spec, create_mesh({"dp": 1}, device="cuda"))
+        with capture.eager():
+            eager = mesh_train(spec, create_mesh({"dp": 1}, device="cuda"))
+    finally:
+        dist.destroy_process_group()
+    out = {"backend": backend, "captured": captured["captured"],
+           "compile_count": captured["compile_count"],
+           "captures_total": captured["captures_total"],
+           "eager_captures": eager["captures_total"],
+           "losses": captured["losses"], "eager_losses": eager["losses"],
+           "switch": captured["switches"][0]["profile"]}
+    if backend != "nccl" or not captured["captured"] or \
+            captured["compile_count"] != 1 or \
+            captured["captures_total"] != 2 or eager["captures_total"] or \
+            captured["losses"] != eager["losses"]:
+        raise AssertionError(f"capture after a switch: {out}")
+    return out
+
+
+def switch_entry():
+    """``examples/train_malleus_torch.py`` at the JAX script's defaults on
+    4 gloo ranks of the card from the launcher: its gates raise in the
+    ranks; rank 0's readings, with its flash launches."""
+    spec = importlib.util.spec_from_file_location(
+        "train_malleus_torch",
+        os.path.join(ROOT, "examples", "train_malleus_torch.py"))
+    entry = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(entry)
+    t = time.perf_counter()
+    # the ranks' host threads: a share of the cores each
+    threads = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 2) //
+                                            (2 * SWITCH_RANKS)))
+    try:
+        out = entry.main(SWITCH_ENTRY_ARGS)
+    finally:
+        if threads is None:
+            os.environ.pop("OMP_NUM_THREADS")
+        else:
+            os.environ["OMP_NUM_THREADS"] = threads
+    out["wall_s"] = time.perf_counter() - t
+    after = out["flash_launches"]["after_switch"]
+    if not out["switched"] or not out["history"] or \
+            not after["flash_fwd"]["launches"] or \
+            not after["flash_bwd_fused"]["launches"] or \
+            after["flash_fwd"]["launches"] <= \
+            out["flash_launches"]["before_switch"]["flash_fwd"]["launches"]:
+        raise AssertionError(f"malleus entry: {out}")
+    return out
+
+
+def phase_switch():
+    """Phase 25: hot switching (see the module docstring).  (a) and (b)
+    read phase 24's and phase 22's launches where those ran (their
+    launches count there: (b)'s in ``mesh_launches``), else run their
+    own."""
+    t0 = time.perf_counter()
+    if "switch_chains" in SHARED:
+        cases, ref, runs = SHARED["switch_chains"]
+        a_in = "phase 24's launch of 4 ranks"
+    else:
+        cases = switch_cases()
+        refs, runs = mesh_runs(cases, compare={cases[0][1]["name"]},
+                               ranks=SWITCH_RANKS)
+        ref = refs[cases[0][1]["name"]]
+        a_in = "its own launch"
+    base = cases[0][1]
+    lr, steps = base["lr"], base["steps"]
+    chains = []
+    for i, (case, sp, kw, sws) in enumerate(SWITCH_CHAINS):
+        per_rank = [rk[i] for rk in runs]
+        held, switches, segments = switch_rows(
+            case, cases[i][1], per_rank, ref, kw.get("flat_state", False))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(held, ref["losses"]))
+        weights = next(r["weights"] for r in per_rank if "weights" in r)
+        row = {"case": case, "sp": sp, "opt": kw, "losses": held,
+               "one_process_losses": ref["losses"], "loss_rel_diff": rel,
+               **weights, "switches": switches, "layouts": segments}
+        if rel > 1e-4 or weights["param_update_rel_diff"] > 1e-2 or \
+                weights["param_max_abs_diff"] > 2 * lr * steps:
+            raise AssertionError(f"{case}: against one process {row}")
+        note("switch", case, {"losses": held, "loss_rel_diff": rel,
+                              "update_rel": weights["param_update_rel_diff"]})
+        chains.append(row)
+    t_a = time.perf_counter() - t0
+    case, shape, sp, kw, sws = SWITCH_FULL
+    if "switch_full" in SHARED:
+        full, per_rank, fref = SHARED["switch_full"]
+        b_in = "phase 22's (c)"
+    else:
+        full = mesh_config("llama3_8b_switch")
+        frefs, fruns = mesh_runs([[case, full, shape, sp, kw]])
+        fref = frefs[full["name"]]
+        per_rank = [rk[0] for rk in fruns]
+        b_in = "its own launch"
+    held, switches, segments = switch_rows(case, full, per_rank, fref, False)
+    unit, limit, gaps, ok = mesh_loss_gaps(full["name"], held,
+                                           fref["losses"])
+    card = torch.cuda.get_device_properties(0).total_memory
+    peaks = switches[0]["peak_memory_bytes_by_rank"]
+    full_row = {"case": case, "mesh": shape, "sp": sp, "opt": kw,
+                "losses": held, "one_process_losses": fref["losses"],
+                "one_process_ms_per_step": fref["ms_per_step"],
+                "loss_gap": {"unit": unit, "limit": limit, "by_step": gaps},
+                "switch": switches[0], "layouts": segments,
+                "card_memory_bytes": card}
+    note("switch", case, {"losses": held, "loss_gap": gaps,
+                          "switch_wall_s": switches[0]["wall_s_by_rank"],
+                          "moved_bytes": switches[0]["profile"]
+                          ["moved_bytes"]})
+    if not ok or not held[-1] < held[0] or sum(peaks) > card:
+        raise AssertionError(f"{case}: {full_row}")
+    t_b = time.perf_counter() - t0 - t_a
+    capture_row = switch_capture_check()
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    entry = switch_entry()
+    launches = {k: 0 for k in flash_wrappers()}
+    by_route = {k: {route: 0 for route in ("wgmma", "3xtf32", "mma.sync")}
+                for k in flash_wrappers()}
+    for row in chains + ([full_row] if b_in == "its own launch" else []):
+        for seg in row["layouts"]:
+            for fl in seg["flash_by_rank"]:
+                for k, v in fl.items():
+                    launches[k] += v["launches"]
+                    for route, m in v["by_route"].items():
+                        by_route[k][route] += m
+    out = {"ranks": {"a": SWITCH_RANKS, "b": MESH_RANKS}, "chains": chains,
+           "full_width": full_row, "capture_after_switch": capture_row,
+           "ran_in": {"a": a_in, "b": b_in},
+           "entry": {k: entry[k] for k in (
+               "pre", "post", "ratios", "switched", "strategy", "mesh",
+               "ranks", "history", "flash_launches", "wall_s")},
+           "one_process": {n: {k: r[k] for k in ("losses", "ms_per_step",
+                                                  "captured")}
+                           for n, r in ((base["name"], ref),
+                                        (full["name"], fref))},
+           "flash_launches": launches, "flash_launches_by_route": by_route,
+           "entry_flash_launches": {
+               k: v["launches"] for k, v in
+               entry["flash_launches"]["after_switch"].items()},
+           "part_wall_s": {"a": t_a, "b": t_b, "c": t_c,
+                           "entry": entry["wall_s"]},
+           "nvidia_smi": smi_line(), "wall_s": time.perf_counter() - t0}
+    emit({"phase": "switch", **out})
     return out
 
 
@@ -5969,6 +6373,7 @@ def main():
     mesh = phase_mesh()
     pipe = phase_pipeline()
     cpar = phase_cp()
+    switch = phase_switch()
     # phase 20's measured runs, spec and non-spec, add their launches:
     # kernel 5 in the full-head runs, (d)'s and (c)'s, kernel 6 in the MLA
     # runs (bf16 pages on wgmma, fp32 pages on mma.sync)
@@ -6021,20 +6426,30 @@ def main():
     pipe_routes = pipe["flash_launches_by_route"]
     cp_launches = cpar["flash_launches"]
     cp_routes = cpar["flash_launches_by_route"]
+    # phase 25's ranks (3xTF32 at their fp32 and LLaMA widths) and the
+    # Malleus entry point's ranks (fp32, small: mma.sync, fused backward)
+    sw_launches = {k: switch["flash_launches"][k] +
+                   switch["entry_flash_launches"][k] for k in where}
+    sw_routes = switch["flash_launches_by_route"]
+    entry_fl = switch["entry"]["flash_launches"]["after_switch"]
     for name, at in where.items():
         wgmma = sum(t["wgmma_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["wgmma"]
                 for b in bert_runs) + graph_launches[name] + \
             mesh_routes[name]["wgmma"] + pipe_routes[name]["wgmma"] + \
-            cp_routes[name]["wgmma"]
+            cp_routes[name]["wgmma"] + sw_routes[name]["wgmma"] + \
+            entry_fl[name]["wgmma"]
         tf32 = sum(t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["3xtf32"]
                 for b in bert_runs) + mesh_routes[name]["3xtf32"] + \
-            pipe_routes[name]["3xtf32"] + cp_routes[name]["3xtf32"]
+            pipe_routes[name]["3xtf32"] + cp_routes[name]["3xtf32"] + \
+            sw_routes[name]["3xtf32"] + entry_fl[name]["3xtf32"]
         mma = sum(t["tensor_core_launches"][name] - t["wgmma_launches"][name]
                   - t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["mma.sync"]
-                for b in bert_runs)
+                for b in bert_runs) + sw_routes[name]["mma.sync"] + \
+            entry_fl[name]["tensor_core"] - entry_fl[name]["wgmma"] - \
+            entry_fl[name]["3xtf32"]
         r = flash[at][name]
         # the all-bf16 and the all-fp32 readings at both training shapes
         keys = ("ms", "device_ms", "bound_ms", "library_ms",
@@ -6055,7 +6470,7 @@ def main():
             "launches": sum(t["flash_launches"][name] for t in train) +
             sum(b["flash_launches"][name] for b in bert_runs) +
             graph_launches[name] + mesh_launches[name] + pipe_launches[name]
-            + cp_launches[name],
+            + cp_launches[name] + sw_launches[name],
             "noncausal_launches": sum(b["flash_launches"][name]
                                       for b in bert_runs),
             "graph_layer_launches": graph_launches[name],
@@ -6066,6 +6481,9 @@ def main():
             "cp_launches": cp_launches[name],
             "cp_launches_by_route": cp_routes[name],
             "cp_check_launches": cpar["check_launches"][name],
+            "switch_launches": sw_launches[name],
+            "switch_launches_by_route": sw_routes[name],
+            "switch_entry_launches": switch["entry_flash_launches"][name],
             "wgmma_launches": wgmma,
             "launches_by_route": {"wgmma": wgmma, "3xtf32": tf32,
                                   "mma.sync": mma},

@@ -250,29 +250,38 @@ def parallel_parameter(init: Union[Initializer, Any], global_shape: Sequence,
                        name: str = "", trainable: bool = True,
                        graph: Optional[Graph] = None,
                        blocks: Optional[Sequence[int]] = None,
-                       blocks_dim: int = 0) -> Tensor:
+                       blocks_dim: int = 0,
+                       units: Optional[Sequence[int]] = None) -> Tensor:
     """A parameter holding the rank's shard of ``global_shape`` under
     ``pspec`` (the whole value without a mesh).  The initializer draws
     the global value and the rank keeps its slice; ``blocks`` (sizes
-    summing to dim ``blocks_dim``) splits a fused dim block by block.  A
-    ``pp`` entry keeps the rank's pipeline stage of a stacked weight."""
-    from ..parallel.mesh import take_shard
+    summing to dim ``blocks_dim``) splits a fused dim block by block, and
+    ``units`` (heads a block) lets a block of fewer heads than shards
+    repeat over them.  A ``pp`` entry keeps the rank's pipeline stage of
+    a stacked weight.  The layout is read from the graph's mesh when the
+    value is made, so that a strategy switch re-derives it."""
+    from ..parallel.mesh import layout_shape, take_shard
     g = graph or get_default_graph()
     if not isinstance(init, Initializer):
         data = np.asarray(init)
         global_shape = data.shape if global_shape is None else global_shape
         init = ProvidedInitializer(data)
     gshape = tuple(int(d) for d in global_shape)
-    t = Tensor(_local_shape(g, gshape, pspec), dtype or "float32",
+    blocks = tuple(blocks) if blocks else None
+    units = tuple(units) if units and blocks else None
+    t = Tensor(layout_shape(gshape, pspec, g.mesh, blocks, blocks_dim,
+                            units) if g.mesh is not None
+               else _local_shape(g, gshape, pspec), dtype or "float32",
                name=name or "param", graph=g, trainable=trainable)
     stream_seed = _next_seed() if hasattr(init, "seed") and \
         init.seed is None and g.init_generator is None else None
     g.add_variable(t, lambda: take_shard(
-        init(gshape, t.dtype, g, stream_seed), pspec, g.mesh, blocks,
-        blocks_dim))
+        init(gshape, t.dtype, g, stream_seed), t.pspec, g.mesh, blocks,
+        blocks_dim, units))
     t.pspec, t.global_shape = pspec, gshape
-    t.shard_blocks = tuple(blocks) if blocks else None
+    t.shard_blocks = blocks
     t.shard_blocks_dim = int(blocks_dim)
+    t.shard_units = units
     if ds_hierarchy is not None:
         t.set_ds_hierarchy(ds_hierarchy)
     return t

@@ -93,9 +93,20 @@ it).  Variables a ZeRO-3 optimizer shards over dp are stored as the
 rank's dim-0 chunk and gathered at the start of each micro-batch by an
 all-gather whose backward reduce-scatters.  On NCCL the step is captured
 as the one-device step is; no collective of gloo can enter a CUDA graph,
-so under gloo the step runs eagerly (``last_run_captured``).  Strategy
-switching (ROADMAP item 13) and the numeric sentry are ported in later
-slices and raise ``NotImplementedError``.
+so under gloo the step runs eagerly (``last_run_captured``).
+
+Strategies (hot switching): ``switch_strategy(new_mesh, ...)`` moves the
+variables, the optimizer's state and any pending gradient sums onto a
+new mesh (``parallel.switch.SwitchExecGraph``) and activates a new
+strategy id (``cur_strategy_id``; ``num_strategy`` grows).  The recorded
+ops read the mesh they run on (``nn.parallel``), the placeholders' and
+variables' local shapes are derived again from their global shapes and
+specs, and every captured step of the old strategy is dropped: the next
+run of each plan captures again.  ``run(cur_strategy_id=k)`` selects a
+strategy whose mesh is the graph's current one.  A rank outside the new
+mesh holds nothing and takes no step (``mesh.in_mesh``); it still joins
+the next switch.  The numeric sentry is ported in a later slice and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -175,6 +186,12 @@ class Graph:
         # symbolic dims a model baked at build time: id -> (dim, value,
         # who baked it)
         self._baked_dims: Dict[int, Tuple[SymbolicDim, int, str]] = {}
+        # strategies (hot switching): the active id, how many the graph
+        # holds, the mesh of each, and the layers' checks of a new mesh
+        self.cur_strategy_id = 0
+        self.num_strategy = 1
+        self._strategy_meshes: Dict[int, Any] = {0: mesh}
+        self._strategy_checks: List[Callable] = []
         # dropout draws from ``generator``; initializers without a seed of
         # their own from ``init_generator``, or with no graph seed from the
         # process-wide init stream (``ctor``)
@@ -251,6 +268,15 @@ class Graph:
                       outputs: List[torch.Tensor]) -> None:
         """Called with each op made and what ``_shape_pass`` gave."""
 
+    def set_num_strategy(self, n: int) -> None:
+        self.num_strategy = int(n)
+
+    def add_strategy_check(self, fn: Callable) -> None:
+        """``fn(mesh)`` raises when the graph's model cannot run on
+        ``mesh``; ``switch_strategy`` calls every check before anything
+        moves."""
+        self._strategy_checks.append(fn)
+
     def bake_dim(self, dim: SymbolicDim, value: int, by: str) -> None:
         """Records that ``by`` (a model) built its ops for ``dim`` =
         ``value``: a run whose feeds bind ``dim`` otherwise raises."""
@@ -299,7 +325,7 @@ class Graph:
                 tuple(value.shape) == tuple(t.global_shape):
             from ..parallel.mesh import take_shard
             value = take_shard(value, t.pspec, self.mesh, t.shard_blocks,
-                               t.shard_blocks_dim)
+                               t.shard_blocks_dim, t.shard_units)
         elif tuple(value.shape) != t.concrete_shape():
             raise ValueError(f"value for {t.name} has shape "
                              f"{tuple(value.shape)}, expected "
@@ -347,7 +373,7 @@ class Graph:
             n = int(np.prod([mesh.axis_size(a) for a in axes])) if axes \
                 else 1
             if d == t.shard_blocks_dim and t.shard_blocks and n > 1:
-                val = unblock(val, n, t.shard_blocks, d)
+                val = unblock(val, n, t.shard_blocks, d, t.shard_units)
         return val
 
     def get_tensor_value(self, t: Tensor) -> torch.Tensor:
@@ -588,6 +614,7 @@ class DefineAndRunGraph(Graph):
         super().__init__(name, device, seed, mesh)
         self._plan_pool: Dict[Tuple, _Plan] = {}
         self._captures = capture.StepCache("training step")
+        self._captures_dropped = 0
         self._recompute_policy: Optional[str] = None
         self._offload = False
         self._shape_buckets: Union[None, int, List[int]] = None
@@ -600,16 +627,104 @@ class DefineAndRunGraph(Graph):
     def _storage_replaced(self) -> None:
         for entry in self._plan_pool.values():
             entry.step = None
+        self._captures_dropped += self._captures.captured
         self._captures.clear()
 
     @property
     def compile_count(self) -> int:
-        """CUDA graphs captured (one a plan); 0 on the CPU."""
+        """CUDA graphs captured (one a plan) and held; 0 on the CPU."""
         return self._captures.captured
 
-    def switch_strategy(self, *args, **kwargs):
-        raise NotImplementedError("switch_strategy (hot switching) is ported "
-                                  "in ROADMAP queue 1 item 13")
+    @property
+    def captures_total(self) -> int:
+        """CUDA graphs captured so far, those dropped since (a strategy
+        switch, replaced storage) included."""
+        return self._captures_dropped + self._captures.captured
+
+    def switch_strategy(self, new_mesh=None, pspec_overrides=None,
+                        optimizer=None, mode=None, dtype=None):
+        """Hot-switches the variables, ``optimizer``'s state and the
+        pending gradient sums to ``new_mesh`` (and ``pspec_overrides``:
+        variable -> new spec), and activates a new strategy id (the
+        reference's ``SwitchExecGraph::SwitchParams``).  Every rank of the
+        world calls it, those outside either mesh too.  Returns the
+        ``SwitchProfile``."""
+        from ..obs.tracer import get_tracer
+        from ..parallel.switch import SwitchExecGraph, SwitchMode
+        if new_mesh is None:
+            raise ValueError("switch_strategy needs the new mesh "
+                             "(parallel.create_mesh)")
+        if self.mesh is None:
+            raise ValueError("switch_strategy needs a graph built with a "
+                             "mesh (graph(mesh=...))")
+        for axis in sorted(self.seq_axes | {"cp"}):
+            if self.mesh.axis_size(axis) != new_mesh.axis_size(axis):
+                raise NotImplementedError(
+                    f"a switch that changes the sequence axis {axis!r} "
+                    f"({self.mesh.axis_size(axis)} -> "
+                    f"{new_mesh.axis_size(axis)}) is not ported: the model "
+                    f"takes its sequence block when it is built")
+        for check in self._strategy_checks:
+            check(new_mesh)
+        if self.mesh.in_mesh:
+            # ZeRO-3 flat keeps the working parameters stale between
+            # updates, and lazily made variables have no value yet
+            for fn in self._materializers:
+                fn(self)
+            for t in self._var_tensors.values():
+                self._materialize_var(t)
+        if mode is None:
+            mode = SwitchMode.ORIGIN_PARAM if optimizer is None \
+                else SwitchMode.ORIGIN_PARAM_AND_OPTIMIZER
+        tr = get_tracer()
+        sp = tr.begin("switch_strategy", track="train",
+                      from_strategy=self.cur_strategy_id) if tr.enabled \
+            else None
+        try:
+            prof = SwitchExecGraph(self, new_mesh, pspec_overrides, mode,
+                                   dtype).switch(optimizer)
+            self.cur_strategy_id = max(self._strategy_meshes) + 1
+            self._strategy_meshes[self.cur_strategy_id] = new_mesh
+            self.num_strategy = max(self.num_strategy,
+                                    self.cur_strategy_id + 1)
+            if sp is not None:
+                tr.end(sp, to_strategy=self.cur_strategy_id,
+                       **prof.as_dict())
+            return prof
+        finally:
+            if sp is not None:
+                tr.end(sp)
+
+    def _adopt_mesh(self, new_mesh) -> None:
+        """Points the graph and its recorded ops at ``new_mesh`` and
+        derives the placeholders' and variables' local shapes again; the
+        captured steps of the old mesh are dropped."""
+        from ..parallel import mesh as mesh_mod
+        from .ctor import _local_shape
+        old = self.mesh
+        for node in self.ops:
+            if node.attrs.get("mesh") is old and old is not None:
+                node.attrs["mesh"] = new_mesh
+        stack = mesh_mod._CURRENT
+        for i, m in enumerate(stack):
+            if m is old:
+                stack[i] = new_mesh
+        self.mesh = new_mesh
+        for t in itertools.chain(self._placeholders.values(),
+                                 self._var_tensors.values()):
+            if t.global_shape is None:
+                continue
+            if t.id in self._var_tensors:
+                t.shape = mesh_mod.layout_shape(
+                    t.global_shape, t.pspec, new_mesh, t.shard_blocks,
+                    t.shard_blocks_dim, t.shard_units)
+            else:
+                t.shape = tuple(_local_shape(self, t.global_shape, t.pspec))
+        # the old strategy's plans stay in the pool (keyed by its id), their
+        # feed buffers and captured steps released
+        for entry in self._plan_pool.values():
+            entry.feeds = {}
+        self._storage_replaced()
 
     def inject_numeric_fault(self, *args, **kwargs):
         raise NotImplementedError("the numeric sentry is ported in a later "
@@ -795,7 +910,9 @@ class DefineAndRunGraph(Graph):
                run_level, update_node.id if update_node is not None else None,
                accum,
                # recompute/offload change the step that is captured
-               self._recompute_policy, self._offload)
+               self._recompute_policy, self._offload,
+               # plans of a strategy stay in the pool after a switch
+               self.cur_strategy_id)
         plan = self._plan_pool.get(key)
         if plan is None:
             targets = list(fetches)
@@ -828,10 +945,21 @@ class DefineAndRunGraph(Graph):
         replayed after that (the fetches are clones of the graph's
         outputs); on the CPU, and on the card under ``capture.eager()``,
         it runs eagerly."""
-        if cur_strategy_id not in (None, 0):
-            raise NotImplementedError(
-                "strategy switching (cur_strategy_id) is ported in ROADMAP "
-                "queue 1 item 13 (hot switching)")
+        if cur_strategy_id is not None and \
+                cur_strategy_id != self.cur_strategy_id:
+            m = self._strategy_meshes.get(cur_strategy_id, False)
+            if m is False and not 0 <= cur_strategy_id < self.num_strategy:
+                raise ValueError(f"no strategy {cur_strategy_id}: the graph "
+                                 f"holds {self.num_strategy}")
+            if m is not False and m is not self.mesh:
+                raise ValueError(
+                    f"strategy {cur_strategy_id} runs on {m}, the values "
+                    f"live on {self.mesh}: switch_strategy moves them")
+            self.cur_strategy_id = cur_strategy_id
+        if self.mesh is not None and not getattr(self.mesh, "in_mesh", True):
+            raise ValueError(f"rank {self.mesh.rank} holds no position of "
+                             f"the graph's mesh {self.mesh.shape}: it takes "
+                             f"no step (mesh.in_mesh)")
         if fetches is None:
             fetches = loss_or_fetches
         return self._run(fetches, feed_dict, num_micro_batches, run_level,
@@ -1187,12 +1315,10 @@ class graph:
                  create_new: bool = False, prefix: str = "default",
                  num_strategy: int = -1, mesh=None, device=None,
                  seed: Optional[int] = None):
-        if num_strategy > 1:
-            raise NotImplementedError(
-                "multiple strategies (hot switching) are ported in ROADMAP "
-                "queue 1 item 13")
         if isinstance(kind, Graph):
             self.g = kind
+            if num_strategy >= 1:
+                self.g.set_num_strategy(num_strategy)
             return
         if kind not in _KINDS:
             raise ValueError(f"unknown graph kind {kind!r}; have "
@@ -1209,6 +1335,8 @@ class graph:
             self.g = g
         else:
             self.g = _default_graphs[key]
+        if num_strategy >= 1:
+            self.g.set_num_strategy(num_strategy)
 
     def __enter__(self) -> Graph:
         _graph_stack.append(self.g)

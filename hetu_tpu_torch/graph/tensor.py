@@ -164,12 +164,13 @@ class Tensor:
         self._data: Optional[torch.Tensor] = None
         # sharding over the graph's mesh (``parallel_placeholder`` and
         # ``parallel_parameter``): the spec, the global shape the local one
-        # is a shard of, the blocks of a fused dim and that dim, the DS
-        # annotation
+        # is a shard of, the blocks of a fused dim, that dim and the heads
+        # of each block, the DS annotation
         self.pspec = None
         self.global_shape: Optional[Tuple[int, ...]] = None
         self.shard_blocks: Optional[Tuple[int, ...]] = None
         self.shard_blocks_dim = 0
+        self.shard_units: Optional[Tuple[int, ...]] = None
         self.ds_hierarchy = None
 
     # -- sharding annotation ----------------------------------------------------

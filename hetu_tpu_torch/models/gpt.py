@@ -14,9 +14,13 @@ that each rank holds its q heads, its k heads and its v heads (a
 contiguous shard of the fused dim would hand rank 0 all of q and part of
 k); SwiGLU's fused ``mlp.up`` is split by its two halves the same way.
 With ``sp`` the residual stream between the blocks is split over the
-sequence.  GQA needs ``kv_heads`` divisible by tp: the JAX package also
-takes ``kv_heads < tp`` (it repeats before sharding), which the port
-refuses by name (ROADMAP queue 1 item 10b).
+sequence.  GQA with ``kv_heads < tp`` repeats the kv heads before they
+are sharded, as the JAX package does: each rank holds the kv head its q
+heads read (``kv_heads`` parts of the k and v blocks, each held by ``tp
+// kv_heads`` ranks, whose gradients are summed over them).  The local
+head counts are read from the mesh each op runs on, never fixed when
+the model is built, so that a strategy switch keeps the recorded model
+(``DefineAndRunGraph.switch_strategy``).
 
 With ``cp_axis`` on a mesh whose cp axis has more than one rank the
 model is context parallel: each rank keeps its contiguous block of the
@@ -306,18 +310,42 @@ def check_training_config(cfg: GPTConfig) -> None:
 
 
 def _check_tp(c: GPTConfig, tp: int) -> None:
-    """The widths a tensor-parallel degree must divide."""
+    """The widths a tensor-parallel degree must divide (``kv_heads``
+    below tp must divide it: the heads repeat over the ranks)."""
     if tp == 1:
         return
-    if c.kv_heads < tp:
-        raise NotImplementedError(
-            f"GQA with kv_heads ({c.kv_heads}) < tp ({tp}) is not ported: "
-            f"the JAX package repeats the kv heads before sharding them "
-            f"(ROADMAP queue 1 item 10b)")
-    for what, n in (("num_heads", c.num_heads), ("kv_heads", c.kv_heads),
+    if c.kv_heads < tp and tp % c.kv_heads:
+        raise ValueError(f"tp={tp} is not a multiple of kv_heads "
+                         f"{c.kv_heads}")
+    for what, n in (("num_heads", c.num_heads),
+                    ("kv_heads", c.kv_heads if c.kv_heads >= tp else tp),
                     ("ffn size", c.ffn_size), ("vocab_size", c.vocab_size)):
         if n % tp:
             raise ValueError(f"{what} {n} is not divisible by tp={tp}")
+
+
+def _check_layout(c: GPTConfig) -> None:
+    """``_check_tp`` now and against every mesh the graph switches to."""
+    _check_tp(c, nn.parallel.axis_size_here(c.tp_axis))
+    nn.parallel._check_strategy(
+        lambda mesh: _check_tp(c, mesh.axis_size(c.tp_axis)))
+
+
+def _qkv_heads(qkv, mesh=None, tp_axis="tp", heads=(1, 1), head_dim=1):
+    """q, k, v ``[b, s, h, d]`` of the rank's fused projection: its q
+    heads and the kv heads they read, the counts from the mesh the op
+    runs on."""
+    nh, kvh = heads
+    tp = mesh.axis_size(tp_axis) if mesh is not None else 1
+    hq, hk = nh // tp, max(kvh // tp, 1)
+    q, k, v = qkv.split([hq * head_dim, hk * head_dim, hk * head_dim], -1)
+    return tuple(x.unflatten(-1, (-1, head_dim)) for x in (q, k, v))
+
+
+def _repeat_like(kv, q):
+    """``kv``'s heads repeated up to ``q``'s count."""
+    n = q.shape[-2] // kv.shape[-2]
+    return kv if n == 1 else ops._repeat_kv(kv, n)
 
 
 def _cp(c: GPTConfig) -> int:
@@ -343,15 +371,14 @@ class ParallelAttentionBlock(nn.Module):
         super().__init__()
         check_training_config(config)
         c = self.config = config
-        tp = nn.parallel.axis_size_here(c.tp_axis)
-        _check_tp(c, tp)
-        self.heads, self.kv_heads = c.num_heads // tp, c.kv_heads // tp
+        _check_layout(c)
         q_size = c.num_heads * c.head_dim
         kv_size = c.kv_heads * c.head_dim
         self.qkv = nn.ColumnParallelLinear(
             c.hidden_size, q_size + 2 * kv_size, bias=(c.activation == "gelu"),
             dp_axis=c.dp_axis, tp_axis=c.tp_axis, sp=c.sp,
             blocks=(q_size, kv_size, kv_size),
+            units=(c.num_heads, c.kv_heads, c.kv_heads),
             dtype=c.dtype, init=NormalInitializer(0.0, c.init_std),
             name=f"h{layer_idx}.attn.qkv")
         self.out = nn.RowParallelLinear(
@@ -383,22 +410,18 @@ class ParallelAttentionBlock(nn.Module):
         ``pos_offset`` the global position of its first token."""
         c = self.config
         qkv = self.qkv(x)
-        nh, kvh = self.heads, self.kv_heads
-        q_size = nh * c.head_dim
-        kv_size = kvh * c.head_dim
-        q = ops.getitem(qkv, (Ellipsis, slice(0, q_size)))
-        k = ops.getitem(qkv, (Ellipsis, slice(q_size, q_size + kv_size)))
-        v = ops.getitem(qkv, (Ellipsis, slice(q_size + kv_size, None)))
-        q = q.reshape((-1, seq_len, nh, c.head_dim))
-        k = k.reshape((-1, seq_len, kvh, c.head_dim))
-        v = v.reshape((-1, seq_len, kvh, c.head_dim))
+        q, k, v = ops._op("qkv_heads", _qkv_heads, [qkv],
+                          {"mesh": nn.parallel._mesh_of(qkv),
+                           "tp_axis": c.tp_axis,
+                           "heads": (c.num_heads, c.kv_heads),
+                           "head_dim": c.head_dim}, num_outputs=3)
         if c.position == "rotary":
             cos, sin = self._rotary(seq_len, pos_offset)
             q = ops.rotary_embed(q, cos, sin)
             k = ops.rotary_embed(k, cos, sin)
-        if kvh != nh:
-            k = ops.repeat_kv(k, nh // kvh)
-            v = ops.repeat_kv(v, nh // kvh)
+        if c.kv_heads != c.num_heads:
+            k = ops._op("repeat_kv", _repeat_like, [k, q])
+            v = ops._op("repeat_kv", _repeat_like, [v, q])
         if c.cp_axis:
             attn = ops.parallel_attention(
                 q, k, v, causal=True, cp_axis=c.cp_axis,
@@ -407,7 +430,8 @@ class ParallelAttentionBlock(nn.Module):
         else:
             attn = ops.attention(q, k, v, causal=True,
                                  segment_ids=segment_ids)
-        out = self.out(attn.reshape((-1, seq_len, q_size)))
+        out = self.out(ops._op("merge_heads", lambda a: a.flatten(-2),
+                               [attn]))
         if self.dropout is not None:
             out = self.dropout(out)
         return out
@@ -491,7 +515,7 @@ class GPTModel(nn.Module):
         super().__init__()
         check_training_config(config)
         c = self.config = config
-        _check_tp(c, nn.parallel.axis_size_here(c.tp_axis))
+        _check_layout(c)
         self.wte = nn.VocabParallelEmbedding(
             c.vocab_size, c.hidden_size, dp_axis=c.dp_axis, tp_axis=c.tp_axis,
             dtype=c.dtype, init=NormalInitializer(0.0, c.init_std),
@@ -583,10 +607,12 @@ class GPTLMHeadModel(nn.Module):
         (``ops.fused_lm_cross_entropy``), the tied head included."""
         c = self.config
         if labels is not None and c.fused_lm_ce:
-            if nn.parallel.axis_size_here(c.tp_axis) > 1:
-                raise NotImplementedError(
-                    "fused_lm_ce over a vocab split by tp is not ported "
-                    "(ROADMAP queue 1 item 10b)")
+            def no_tp(mesh):
+                if mesh.axis_size(c.tp_axis) > 1:
+                    raise NotImplementedError(
+                        "fused_lm_ce over a vocab split by tp is not ported "
+                        "(ROADMAP queue 1 item 10b)")
+            nn.parallel._check_strategy(no_tp)
             x = self.transformer(input_ids, seq_len,
                                  segment_ids=segment_ids)
             w = self.lm_head.weight if self.lm_head is not None \

@@ -37,8 +37,15 @@ layers take ``seq_axis`` as the JAX layers do and move nothing over it
 it, and the graph records it (``Graph.seq_axes``) so that the optimizer
 sums the gradients over it, each rank holding its tokens' part.
 
-On a graph without a mesh, or on an axis of size 1, each layer is the
-one-device layer, op for op.  Parameter names and constructor arguments
+On a graph without a mesh each layer is the one-device layer, op for
+op.  On a graph with a mesh the layers record their collectives and
+their rank-dependent slicing whatever the axes' sizes are, and each op
+reads the sizes and the rank's coordinates from the mesh it runs on (a
+collective over an axis of size 1 is the identity): a strategy switch
+(``DefineAndRunGraph.switch_strategy``) hands the graph a new mesh, and
+the recorded ops follow it.  The checks a layout must pass are
+registered with the graph (``Graph.add_strategy_check``) and run
+against each new mesh before anything moves.  Parameter names and constructor arguments
 are the JAX package's; ``ColumnParallelLinear`` takes ``sp`` (the JAX
 layer reads it from its input's sharding) and ``blocks`` (a fused
 ``[q | k | v]`` or SwiGLU weight is split block by block).
@@ -121,10 +128,72 @@ def seq_shard(x, axis: str, dim: int = 1):
 
 
 def _active(x, axis: Optional[str]):
-    """The mesh when ``axis`` has more than one rank on it, else None."""
+    """The mesh the collective over ``axis`` is recorded on: the graph's
+    mesh whatever the axis' size (a switch may give it ranks), or on a
+    torch tensor the ambient mesh when the axis has ranks; else None."""
     mesh = _mesh_of(x)
-    return mesh if axis and mesh is not None and \
-        mesh.axis_size(axis) > 1 else None
+    if not axis or mesh is None:
+        return None
+    if getattr(x, "graph", None) is not None:
+        return mesh
+    return mesh if mesh.axis_size(axis) > 1 else None
+
+
+def _check_strategy(fn) -> None:
+    """Registers ``fn(mesh)`` with the graph being built: it raises when
+    the layer cannot run on ``mesh`` (checked now and at each switch)."""
+    g = get_default_graph()
+    mesh = getattr(g, "mesh", None)
+    if mesh is not None:
+        fn(mesh)
+        g.add_strategy_check(fn)
+
+
+class _RepeatedGradSum(torch.autograd.Function):
+    """The identity; the backward sums the gradient rows of the blocks
+    that repeat over ``axis`` over the ranks that hold the same part."""
+
+    @staticmethod
+    def forward(ctx, w, axis, mesh, blocks, units, dim):
+        ctx.args = (axis, mesh, blocks, units, dim)
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel.mesh import _block_split
+        axis, mesh, blocks, units, dim = ctx.args
+        n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+        g = g.clone()
+        off, parts = 0, []
+        for b, u in zip(blocks, units):
+            w, j = _block_split(b, n, i, u)
+            if u < n:
+                slots = g.new_zeros((u,) + tuple(g.narrow(dim, off, w).shape))
+                slots[j] = g.narrow(dim, off, w)
+                parts.append((off, w, j, slots))
+            off += w
+        flat = torch.cat([p[3].reshape(-1) for p in parts])
+        with comm.comm_tag("kv_repeat"):
+            flat = comm.all_reduce(flat, axis, "sum", mesh)
+        k = 0
+        for off, w, j, slots in parts:
+            got = flat[k:k + slots.numel()].view_as(slots)
+            g.narrow(dim, off, w).copy_(got[j])
+            k += slots.numel()
+        return g, None, None, None, None, None
+
+
+def _repeated_grad_sum(w, axis: str, blocks, units, dim: int = 0,
+                       mesh=None):
+    """Whether any block repeats over ``axis`` is read from the mesh the
+    op runs on (the identity when none does)."""
+    if w.is_meta or mesh is None:
+        return w
+    n = mesh.axis_size(axis)
+    if not any(0 < u < n for u in units):
+        return w
+    return _RepeatedGradSum.apply(w, axis, mesh, tuple(blocks),
+                                  tuple(units), dim)
 
 
 def _comm_op(name: str, fn, x, mesh, **attrs):
@@ -192,11 +261,14 @@ def gather_features(x, axis: str):
                     axis=axis)
 
 
-def _blocks_ok(blocks, tp: int, name: str) -> None:
-    for b in blocks or ():
-        if b % tp:
+def _blocks_ok(blocks, tp: int, name: str, units=None) -> None:
+    from ..parallel.mesh import _block_split
+    for k, b in enumerate(blocks or ()):
+        try:
+            _block_split(b, tp, 0, units[k] if units else None)
+        except ValueError:
             raise ValueError(f"{name}: block {b} of {tuple(blocks)} is not "
-                             f"divisible by tp={tp}")
+                             f"divisible by tp={tp}") from None
 
 
 class ColumnParallelLinear(Module):
@@ -207,23 +279,40 @@ class ColumnParallelLinear(Module):
                  tp_axis: str = "tp", seq_axis: Optional[str] = None,
                  dtype=None, init: Optional[Initializer] = None,
                  name: str = "colp", sp: bool = False,
-                 blocks: Optional[Sequence[int]] = None):
+                 blocks: Optional[Sequence[int]] = None,
+                 units: Optional[Sequence[int]] = None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.gather_output, self.sp = gather_output, sp
         self.dp_axis, self.tp_axis, self.seq_axis = dp_axis, tp_axis, \
             seq_axis
-        _blocks_ok(blocks, axis_size_here(tp_axis), name)
+        self.blocks = tuple(blocks) if blocks else None
+        self.units = tuple(units) if units and blocks else None
+        _blocks_ok(blocks, axis_size_here(tp_axis), name, self.units)
+        _check_strategy(lambda mesh: _blocks_ok(
+            blocks, mesh.axis_size(tp_axis), name, self.units))
         self.weight = parallel_parameter(
             init or XavierNormalInitializer(), (out_features, in_features),
             pspec=P(tp_axis, None), dtype=dtype, name=f"{name}.weight",
-            blocks=blocks)
+            blocks=blocks, units=self.units)
         if bias:
             self.bias = parallel_parameter(
                 ConstantInitializer(0.0), (out_features,), pspec=P(tp_axis),
-                dtype=dtype, name=f"{name}.bias", blocks=blocks)
+                dtype=dtype, name=f"{name}.bias", blocks=blocks,
+                units=self.units)
         else:
             self.register_parameter("bias", None)
+
+    def _repeated(self, w):
+        """``w`` through :func:`_repeated_grad_sum` where a block has
+        units (GQA's kv heads): ranks holding the same repeated head sum
+        its gradient."""
+        mesh = _active(w, self.tp_axis) if self.units else None
+        if w is None or mesh is None:
+            return w
+        return ops._op("repeated_grad_sum", _repeated_grad_sum, [w],
+                       {"mesh": mesh, "axis": self.tp_axis,
+                        "blocks": self.blocks, "units": self.units})
 
     def ds(self, num_devices: int, tp: int) -> DistributedStates:
         return DistributedStates(num_devices,
@@ -233,7 +322,8 @@ class ColumnParallelLinear(Module):
     def forward(self, x):
         x = gather_seq(x, self.tp_axis) if self.sp \
             else copy_to(x, self.tp_axis)
-        out = ops.linear(x, self.weight, self.bias, trans_b=True)
+        out = ops.linear(x, self._repeated(self.weight),
+                         self._repeated(self.bias), trans_b=True)
         return gather_features(out, self.tp_axis) if self.gather_output \
             else out
 
@@ -298,7 +388,12 @@ class ParallelEmbedding(Module):
         return ops.embedding_lookup(self.weight, ids)
 
 
-def _vocab_lookup(table, ids, start=0):
+def _vocab_lookup(table, ids, mesh=None, tp_axis="tp"):
+    """The rows of the rank's vocab range (its index on ``tp_axis`` of
+    the mesh the op runs on), zero rows elsewhere."""
+    if mesh.axis_size(tp_axis) == 1:
+        return torch.nn.functional.embedding(ids.long(), table)
+    start = mesh.axis_index(tp_axis) * table.shape[0]
     local = ids.long() - start
     inside = (local >= 0) & (local < table.shape[0])
     rows = torch.nn.functional.embedding(
@@ -333,10 +428,9 @@ class VocabParallelEmbedding(Module):
         mesh = _active(self.weight, self.tp_axis)
         if mesh is None:
             return ops.embedding_lookup(self.weight, ids)
-        start = mesh.axis_index(self.tp_axis) * \
-            (self.num_embeddings // mesh.axis_size(self.tp_axis))
         rows = ops._op("vocab_parallel_lookup", _vocab_lookup,
-                       [self.weight, ids], {"start": start})
+                       [self.weight, ids],
+                       {"mesh": mesh, "tp_axis": self.tp_axis})
         return reduce_from(rows, self.tp_axis)
 
 
@@ -387,12 +481,17 @@ class ParallelRMSNorm(Module):
         return ops.rms_norm(x, w, self.eps)
 
 
-def _vocab_parallel_ce(lg, target, mesh=None, tp_axis="tp", start=0,
+def _vocab_parallel_ce(lg, target, mesh=None, tp_axis="tp",
                        ignore_index=None):
     """Per-token cross entropy of vocab-sharded logits: the log-sum-exp
     from the max and the sum of exps reduced over tp, the target's logit
     from its owner.  Computed in fp32 and returned in the logits' dtype,
-    as one device's log-softmax is."""
+    as one device's log-softmax is.  At tp 1 (of the mesh the op runs
+    on) it is the one-device per-token loss."""
+    if mesh.axis_size(tp_axis) == 1:
+        return ops._softmax_ce(lg, target, reduction="none",
+                               ignore_index=ignore_index)
+    start = mesh.axis_index(tp_axis) * lg.shape[-1]
     dtype = lg.dtype
     lg = lg.float()
     if lg.is_meta:
@@ -474,19 +573,17 @@ def vocab_parallel_cross_entropy(logits, target, dp_axis: str = "dp",
     batch and sequence (the rank's rows of ``logits`` and ``target`` its
     block over ``seq_axis``).  Every layout, one device included, takes
     the per-token losses in the logits' dtype and then one reduction."""
-    mesh = _mesh_of(logits)
-    tp = mesh.axis_size(tp_axis) if mesh is not None else 1
-    if tp > 1:
-        start = mesh.axis_index(tp_axis) * logits.shape[-1]
+    mesh = _active(logits, tp_axis)
+    if mesh is not None:
         loss = ops._op("vocab_parallel_cross_entropy", _vocab_parallel_ce,
                        [logits, target],
-                       {"mesh": mesh, "tp_axis": tp_axis, "start": start,
+                       {"mesh": mesh, "tp_axis": tp_axis,
                         "ignore_index": ignore_index})
     else:
         loss = ops.softmax_cross_entropy(logits, target, reduction="none",
                                          ignore_index=ignore_index)
     return ops._op("dp_loss_reduce", _ce_reduce, [loss, target],
-                   {"mesh": mesh, "dp_axis": dp_axis, "reduction": reduction,
+                   {"mesh": _mesh_of(logits), "dp_axis": dp_axis, "reduction": reduction,
                     "ignore_index": ignore_index, "seq_axis": seq_axis})
 
 
@@ -497,12 +594,14 @@ def dp_mean_loss(loss, target, ignore_index: Optional[int],
     dp and ``seq_axis``)."""
     mesh = _mesh_of(loss)
     dp, cp = _data_sizes(mesh, dp_axis, seq_axis)
-    if dp * cp == 1:
+    if mesh is None or (dp * cp == 1 and
+                        getattr(loss, "graph", None) is None):
         return loss
 
     def _impl(l, t, mesh=None, dp_axis="dp", ignore_index=None,
               seq_axis=None):
-        if l.is_meta:
+        dp, cp = _data_sizes(mesh, dp_axis, seq_axis)
+        if l.is_meta or dp * cp == 1:
             return l
         count = (t != ignore_index).sum().to(l.dtype) \
             if ignore_index is not None else \

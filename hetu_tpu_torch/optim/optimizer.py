@@ -77,7 +77,7 @@ updates whole parameters, and it refuses ``flat_state`` (ROADMAP queue
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -282,9 +282,8 @@ class Optimizer:
             return pieces
         from ..parallel import comm
         sums: Dict[frozenset, Any] = {}
-        for _, _, g, axes, _ in pieces:
-            sums[axes] = sums.get(axes, 0) + torch.sum(torch.square(
-                g.float()))
+        for t, _, g, axes, _ in pieces:
+            sums[axes] = sums.get(axes, 0) + self._square_sum(graph, t, g)
         total = 0
         with comm.comm_tag("clip"):
             for axes in sorted(sums, key=sorted):
@@ -296,6 +295,30 @@ class Optimizer:
                             max=1.0)
         return [(t, p, (g.float() * scale).to(g.dtype), axes, gather)
                 for t, p, g, axes, gather in pieces]
+
+    @staticmethod
+    def _square_sum(graph, t: Tensor, g: torch.Tensor):
+        """The fp32 sum of squares of the rank's gradient piece, a block
+        that repeats over the ranks of its axis (GQA's kv heads under a tp
+        above their count) divided by its repeats, so that it counts
+        once when the sums are reduced over the axis."""
+        from ..parallel.mesh import _block_split, dim_split
+        sq = torch.square(g.float())
+        units = t.shard_units
+        if not units or graph.mesh is None:
+            return torch.sum(sq)
+        bd = t.shard_blocks_dim
+        n, i = dim_split((t.pspec or ())[bd] if len(t.pspec or ()) > bd
+                         else None, graph.mesh)
+        if not any(0 < u < n for u in units):
+            return torch.sum(sq)
+        total, off = 0, 0
+        for b, u in zip(t.shard_blocks, units):
+            w, _ = _block_split(b, n, i, u)
+            part = torch.sum(sq.narrow(bd, off, w))
+            total = total + (part / (n // u) if 0 < u < n else part)
+            off += w
+        return total
 
     @torch.no_grad()
     def _apply_updates(self, graph, xs: Sequence[Tensor],
@@ -531,7 +554,7 @@ class Optimizer:
         parameter's (and under ZeRO its dp chunk)."""
         from ..parallel.mesh import take_shard
         val = take_shard(val, t.pspec, graph.mesh, t.shard_blocks,
-                         t.shard_blocks_dim)
+                         t.shard_blocks_dim, t.shard_units)
         if self._piece_chunked(graph, t) and not self.flat_state:
             mesh = graph.mesh
             val = val.chunk(mesh.axis_size(self.dp_axis), 0)[
@@ -669,7 +692,11 @@ class AdafactorOptimizer(Optimizer):
     semantics, on the per-parameter path (``flat_state`` is refused, and
     under ZeRO the state stays whole).  ``lr=None`` (the default) leaves the
     lr out of the chain, as optax does; a schedule sees the 1-based
-    step."""
+    step.  On a mesh the factored dims come from the parameter's global
+    shape, and every mean (the factored row and column statistics, the
+    update clip's and the parameter scale's RMS) is taken over the whole
+    parameter: summed over the mesh axes that split the dims it reduces,
+    as the JAX package's global arrays give it."""
 
     def __init__(self, params=None, lr=None, min_dim_size_to_factor=128,
                  decay_rate: float = 0.8, clipping_threshold: float = 1.0,
@@ -698,10 +725,48 @@ class AdafactorOptimizer(Optimizer):
             return None
         return int(order[-2]), int(order[-1])
 
-    def _init_param_state(self, p: torch.Tensor):
-        """(v_row, v_col, v) of one parameter, fp32, as optax's init."""
+    @staticmethod
+    def _global_shape(t: Tensor, p: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(t.global_shape) if t.global_shape is not None \
+            else tuple(p.shape)
+
+    @staticmethod
+    def _split(graph, t: Tensor, ndim: int) -> List[Tuple[str, ...]]:
+        """For each dim of ``t``, the mesh axes of more than one rank that
+        split it."""
+        from ..parallel.mesh import entry_axes
+        mesh, spec = graph.mesh, tuple(t.pspec or ())
+        if mesh is None:
+            return [()] * ndim
+        return [tuple(a for a in entry_axes(spec[d])
+                      if mesh.axis_size(a) > 1) if d < len(spec) else ()
+                for d in range(ndim)]
+
+    @staticmethod
+    def _mean(x: torch.Tensor, dims, split, mesh, keepdim=False):
+        """The mean of ``x`` over ``dims`` (all dims for None) of the whole
+        tensor it is a shard of: summed over the axes ``split[d]`` that
+        split each reduced dim."""
+        dims = tuple(range(x.ndim)) if dims is None else tuple(dims)
+        axes = [a for d in dims for a in split[d]]
+        if not axes:
+            return x.mean(dim=dims, keepdim=keepdim) if len(dims) < x.ndim \
+                or keepdim else torch.mean(x)
+        from ..parallel import comm
+        total = x.sum(dim=dims, keepdim=keepdim)
+        n = int(np.prod([x.shape[d] for d in dims]))
+        with comm.comm_tag("adafactor_stats"):
+            for a in axes:
+                total = comm.all_reduce(total, a, "sum", mesh)
+                n *= mesh.axis_size(a)
+        return total / n
+
+    def _init_param_state(self, p: torch.Tensor, shape=None):
+        """(v_row, v_col, v) of one parameter, fp32, as optax's init; the
+        factored dims from ``shape`` (the global one; ``p``'s by
+        default)."""
         z1 = torch.zeros((1,), dtype=torch.float32, device=p.device)
-        dims = self._factored_dims(tuple(p.shape))
+        dims = self._factored_dims(tuple(shape or p.shape))
         if dims is None:
             return z1, z1.clone(), torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device)
@@ -726,7 +791,7 @@ class AdafactorOptimizer(Optimizer):
         for t in xs:
             p = graph._var_data[t.id]
             st["v_row"][t.id], st["v_col"][t.id], st["v"][t.id] = \
-                self._init_param_state(p)
+                self._init_param_state(p, self._global_shape(t, p))
             if self.momentum is not None:
                 st["ema"][t.id] = torch.zeros(p.shape, dtype=torch.float32,
                                               device=dev)
@@ -745,21 +810,32 @@ class AdafactorOptimizer(Optimizer):
             lr = self.lr(st["sched_count"] + 1)
         elif self.lr is not None:
             lr = self.lr
+        mesh = graph.mesh
         for t, p_store, grad in pieces:
             p = p_store.float()
             g = grad.float()
             v_row, v_col, v = (st["v_row"][t.id], st["v_col"][t.id],
                                st["v"][t.id])
+            split = self._split(graph, t, p.ndim)
+            if t.shard_units and any(split):
+                from ..parallel.mesh import dim_split
+                n = dim_split(t.pspec[t.shard_blocks_dim], mesh)[0]
+                if any(0 < u < n for u in t.shard_units):
+                    raise NotImplementedError(
+                        f"Adafactor on {t.name}, whose kv heads repeat over "
+                        f"the ranks of tp (kv_heads < tp)")
             grad_sqr = g * g + self.eps
-            dims = self._factored_dims(tuple(p.shape))
+            dims = self._factored_dims(self._global_shape(t, p))
             if dims is not None:
                 d1, d0 = dims
                 new_row = decay_t * v_row + (1.0 - decay_t) * \
-                    grad_sqr.mean(dim=d0)
+                    self._mean(grad_sqr, (d0,), split, mesh)
                 new_col = decay_t * v_col + (1.0 - decay_t) * \
-                    grad_sqr.mean(dim=d1)
+                    self._mean(grad_sqr, (d1,), split, mesh)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = new_row.mean(dim=reduced_d1, keepdim=True)
+                row_col_mean = self._mean(
+                    new_row, (reduced_d1,), split[:d0] + split[d0 + 1:],
+                    mesh, keepdim=True)
                 row_factor = (new_row / row_col_mean) ** -0.5
                 col_factor = new_col ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -770,12 +846,12 @@ class AdafactorOptimizer(Optimizer):
                 u = g * new_v ** -0.5
                 self._commit(v, new_v, keep)
             if self.clipping_threshold is not None:
-                rms = torch.sqrt(torch.mean(u * u))
+                rms = torch.sqrt(self._mean(u * u, None, split, mesh))
                 u = u / torch.clamp(rms / self.clipping_threshold, min=1.0)
             if lr is not None:
                 u = u * lr
             if self.multiply_by_parameter_scale:
-                rms = torch.sqrt(torch.mean(p * p))
+                rms = torch.sqrt(self._mean(p * p, None, split, mesh))
                 u = u * torch.clamp(rms, min=1e-3)
             if self.momentum is not None:
                 ema = st["ema"][t.id]

@@ -206,6 +206,14 @@ def _staged(mesh, kind: str, x: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and x.is_cuda and kind in GLOO_CUDA_STAGED
 
 
+def _group_order(m, axis: str):
+    """For each index along ``axis``, the process-group rank of the rank
+    there, or None where they coincide (a mesh over permuted ranks: a
+    process group orders its ranks by number)."""
+    fn = getattr(m, "group_order", None)
+    return fn(axis) if fn is not None else None
+
+
 def _host(x: torch.Tensor, staged: bool) -> torch.Tensor:
     return x.cpu() if staged else x
 
@@ -252,6 +260,9 @@ def all_gather(x: torch.Tensor, axis: str, gather_dim: int = 0,
     src = _host(x, staged).movedim(d, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=m.group(axis))
+    order = _group_order(m, axis)
+    if order is not None:           # the group's order into the axis'
+        out = out.view((n, -1) + tuple(out.shape[1:]))[order].flatten(0, 1)
     out = out.movedim(0, d)
     return out.to(x.device) if staged else out
 
@@ -276,6 +287,10 @@ def reduce_scatter(x: torch.Tensor, axis: str, scatter_dim: int = 0,
     staged = _staged(m, "reduce_scatter", x)
     _record("reduce_scatter", _nbytes(x), x.dtype, n, axis, staged)
     src = _host(x, staged).movedim(d, 0).contiguous()
+    order = _group_order(m, axis)
+    if order is not None:           # chunk i to the group rank at index i
+        inv = [order.index(j) for j in range(n)]
+        src = src.view((n, -1) + tuple(src.shape[1:]))[inv].flatten(0, 1)
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
     dist.reduce_scatter_tensor(out, src, group=m.group(axis))
     if op == "mean":
@@ -307,8 +322,13 @@ def all_to_all(x: torch.Tensor, axis: str, split_dim: int,
     src = _host(x, staged)
     chunks = src.chunk(n, sd)
     stacked = torch.stack(chunks, 0).contiguous()     # [n, ...chunk]
+    order = _group_order(m, axis)
+    if order is not None:
+        stacked = stacked[[order.index(j) for j in range(n)]].contiguous()
     out = torch.empty_like(stacked)
     dist.all_to_all_single(out, stacked, group=m.group(axis))
+    if order is not None:
+        out = out[order]
     out = torch.cat(list(out.unbind(0)), cd)
     return out.to(x.device) if staged else out
 

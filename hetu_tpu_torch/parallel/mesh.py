@@ -140,9 +140,17 @@ def init_process_group(rank: int, world_size: int, init_method: str,
 
 class Mesh:
     """A named mesh over the ranks of ``torch.distributed`` (or over one
-    process, where every axis has size 1 and no group is made)."""
+    process, where every axis has size 1 and no group is made).
 
-    def __init__(self, shape: Dict[str, int], device=None):
+    ``ranks`` (a permutation of the world's ranks, or of some of them)
+    puts rank ``ranks[i]`` at mesh position ``i``; by default rank ``r``
+    sits at position ``r`` and the mesh spans the world.  A rank outside
+    ``ranks`` gets a mesh that holds no position (``in_mesh`` false,
+    ``position`` None): it makes every group with the others and takes
+    part in no step."""
+
+    def __init__(self, shape: Dict[str, int], device=None,
+                 ranks: Optional[Sequence[int]] = None):
         import torch.distributed as dist
         self.axis_names: Tuple[str, ...] = tuple(shape.keys())
         self.shape: Dict[str, int] = {a: int(shape[a])
@@ -155,22 +163,35 @@ class Mesh:
                 f"a mesh of {self.size} ranks needs torch.distributed: call "
                 f"rpc.distributed_init or parallel.init_process_group first")
         world = dist.get_world_size() if live else 1
-        if live and world != self.size:
-            raise ValueError(f"mesh {self.shape} has {self.size} positions, "
-                             f"the process group {world} ranks")
         self.rank = dist.get_rank() if live else 0
+        if ranks is None:
+            if live and world != self.size:
+                raise ValueError(f"mesh {self.shape} has {self.size} "
+                                 f"positions, the process group {world} "
+                                 f"ranks")
+            ranks = range(self.size)
+        self.ranks: Tuple[int, ...] = tuple(int(r) for r in ranks)
+        if len(self.ranks) != self.size or \
+                len(set(self.ranks)) != self.size or \
+                any(not 0 <= r < world for r in self.ranks):
+            raise ValueError(f"ranks {list(self.ranks)} must be {self.size} "
+                             f"distinct ranks of the world's {world} for "
+                             f"mesh {self.shape}")
+        self.position: Optional[int] = self.ranks.index(self.rank) \
+            if self.rank in self.ranks else None
         self.backend: Optional[str] = dist.get_backend() if live else None
         sizes = tuple(self.shape.values())
         self.coords: Dict[str, int] = dict(zip(
             self.axis_names,
-            (int(c) for c in np.unravel_index(self.rank, sizes)))) \
-            if sizes else {}
+            (int(c) for c in np.unravel_index(self.position, sizes)))) \
+            if sizes and self.position is not None else {}
         self.device = rank_device(
             _LOCAL_RANK[0] if live and _LOCAL_RANK else self.rank,
             "cuda" if device is None else device)
         self._groups: Dict[str, object] = {}
         self._group_ranks: Dict[str, List[int]] = {}
-        grid = np.arange(self.size).reshape(sizes) if sizes else None
+        self._group_order: Dict[str, List[int]] = {}
+        grid = np.asarray(self.ranks).reshape(sizes) if sizes else None
         for i, a in enumerate(self.axis_names):
             if self.shape[a] == 1:
                 self._group_ranks[a] = [self.rank]
@@ -183,6 +204,16 @@ class Mesh:
                 if self.rank in ranks:
                     self._groups[a] = grp
                     self._group_ranks[a] = ranks
+                    if ranks != sorted(ranks):
+                        # a process group orders its ranks by number:
+                        # ``comm`` maps its order to the axis' order
+                        self._group_order[a] = [sorted(ranks).index(r)
+                                                for r in ranks]
+
+    @property
+    def in_mesh(self) -> bool:
+        """Whether this rank holds a position of the mesh."""
+        return self.position is not None
 
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -193,6 +224,11 @@ class Mesh:
     def group(self, axis: str):
         """This rank's process group along ``axis`` (``None`` at size 1)."""
         return self._groups.get(axis)
+
+    def group_order(self, axis: str) -> Optional[List[int]]:
+        """For each index along ``axis``, the process-group rank of the
+        rank there; None where they coincide (the line's ranks ascend)."""
+        return self._group_order.get(axis)
 
     def group_ranks(self, axis: str) -> List[int]:
         """The global ranks of this rank's group along ``axis``, in axis
@@ -211,10 +247,13 @@ class Mesh:
                 f"backend={self.backend}, device={self.device})")
 
 
-def create_mesh(shape: Dict[str, int], device=None) -> Mesh:
+def create_mesh(shape: Dict[str, int], device=None,
+                ranks: Optional[Sequence[int]] = None) -> Mesh:
     """A mesh with named axes over the processes of ``torch.distributed``
-    (``{"dp": 2, "tp": 2}``; later axes innermost)."""
-    return Mesh(shape, device)
+    (``{"dp": 2, "tp": 2}``; later axes innermost).  ``ranks`` lays
+    the mesh over those ranks, ``ranks[i]`` at position ``i`` (every
+    rank of the world calls it, those outside too)."""
+    return Mesh(shape, device, ranks)
 
 
 def single_device_mesh(device=None) -> Mesh:
@@ -249,7 +288,7 @@ def dim_split(entry, mesh) -> Tuple[int, int]:
         if mesh is None or a not in mesh.axis_names:
             continue
         s = mesh.shape[a]
-        n, i = n * s, i * s + mesh.coords[a]
+        n, i = n * s, i * s + mesh.coords.get(a, 0)
     return n, i
 
 
@@ -265,49 +304,77 @@ def local_shape(global_shape: Sequence[int], pspec, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def _block_split(b: int, n: int, i: int, unit: Optional[int]
+                 ) -> Tuple[int, int]:
+    """(width, index) of a rank's part of a block of ``b`` rows split
+    over ``n`` shards, ``i`` being the rank's shard.  A block of ``unit``
+    heads fewer than ``n`` is split over ``unit`` ways and each part held
+    by ``n // unit`` consecutive shards (GQA's kv heads under a tp above
+    their count: the heads repeated, then sharded)."""
+    if unit is not None and 0 < unit < n:
+        if n % unit:
+            raise ValueError(f"{n} shards do not divide into {unit} heads")
+        return b // unit, i // (n // unit)
+    if b % n:
+        raise ValueError(f"block {b} is not divisible by {n} shards")
+    return b // n, i
+
+
 def shard_pieces(global_shape: Sequence[int], pspec, mesh,
                  blocks: Optional[Sequence[int]] = None,
-                 blocks_dim: int = 0):
+                 blocks_dim: int = 0,
+                 units: Optional[Sequence[int]] = None):
     """The rank's shard as pieces of the global value: a list of
     ``(global slices, local slices)``.  ``blocks`` (sizes summing to dim
-    ``blocks_dim``) splits that dim block by block: one piece a block."""
+    ``blocks_dim``) splits that dim block by block: one piece a block;
+    ``units`` (heads a block) lets a block of fewer heads than shards
+    repeat over the shards (:func:`_block_split`)."""
     shape = tuple(int(s) for s in global_shape)
-    loc = local_shape(shape, pspec, mesh)
-    base_g, base_l = [], []
-    for d, size in enumerate(shape):
-        entry = pspec[d] if pspec is not None and d < len(pspec) else None
-        n, i = dim_split(entry, mesh)
-        base_g.append(slice(i * (size // n), (i + 1) * (size // n)))
-        base_l.append(slice(0, loc[d]))
-    if not blocks or not shape:
-        return [(tuple(base_g), tuple(base_l))]
     bd = blocks_dim
-    entry = pspec[bd] if pspec is not None and bd < len(pspec) else None
+    entry = pspec[bd] if blocks and pspec is not None and bd < len(pspec) \
+        else None
     n, i = dim_split(entry, mesh)
+    if not blocks or not shape or n == 1:
+        loc = local_shape(shape, pspec, mesh)
+        base_g, base_l = [], []
+        for d, size in enumerate(shape):
+            e = pspec[d] if pspec is not None and d < len(pspec) else None
+            m, j = dim_split(e, mesh)
+            base_g.append(slice(j * (size // m), (j + 1) * (size // m)))
+            base_l.append(slice(0, loc[d]))
+        return [(tuple(base_g), tuple(base_l))]
     if sum(blocks) != shape[bd]:
         raise ValueError(f"blocks {tuple(blocks)} do not sum to dim {bd} "
                          f"of {shape}")
+    rest = tuple(pspec[d] if d != bd and pspec is not None and d < len(pspec)
+                 else None for d in range(len(shape)))
+    base = shard_pieces(shape, rest, mesh)[0]
     pieces, g0, l0 = [], 0, 0
-    for b in blocks:
-        if b % n:
-            raise ValueError(f"block {b} of {tuple(blocks)} is not "
-                             f"divisible by {n} shards")
-        w = b // n
-        gs = list(base_g)
-        ls = list(base_l)
-        gs[bd] = slice(g0 + i * w, g0 + (i + 1) * w)
+    for k, b in enumerate(blocks):
+        try:
+            w, j = _block_split(b, n, i, units[k] if units else None)
+        except ValueError as e:
+            raise ValueError(f"blocks {tuple(blocks)}: {e}") from None
+        gs, ls = list(base[0]), list(base[1])
+        gs[bd] = slice(g0 + j * w, g0 + (j + 1) * w)
         ls[bd] = slice(l0, l0 + w)
         pieces.append((tuple(gs), tuple(ls)))
         g0, l0 = g0 + b, l0 + w
     return pieces
 
 
+def pieces_shape(pieces, ndim: int) -> Tuple[int, ...]:
+    """The local shape the pieces of :func:`shard_pieces` fill."""
+    return tuple(max(p[1][d].stop for p in pieces) for d in range(ndim))
+
+
 def take_shard(x, pspec, mesh, blocks: Optional[Sequence[int]] = None,
-               blocks_dim: int = 0):
+               blocks_dim: int = 0, units: Optional[Sequence[int]] = None):
     """The rank's shard of the global value ``x`` (numpy or torch)."""
     if all(dim_split(e, mesh)[0] == 1 for e in (pspec or ())):
         return x
-    pieces = shard_pieces(tuple(x.shape), pspec, mesh, blocks, blocks_dim)
+    pieces = shard_pieces(tuple(x.shape), pspec, mesh, blocks, blocks_dim,
+                          units)
     if len(pieces) == 1:
         return x[pieces[0][0]]
     parts = [x[g] for g, _ in pieces]
@@ -317,16 +384,34 @@ def take_shard(x, pspec, mesh, blocks: Optional[Sequence[int]] = None,
 
 
 def unblock(gathered: torch.Tensor, n: int, blocks: Sequence[int],
-            dim: int = 0) -> torch.Tensor:
+            dim: int = 0, units: Optional[Sequence[int]] = None
+            ) -> torch.Tensor:
     """Dim ``dim`` gathered over ``n`` shards of a blocked layout (each
     shard's part of every block, shard after shard) back into the global
-    order (every shard's part of block 0, then of block 1, ...)."""
+    order (every shard's part of block 0, then of block 1, ...).  A block
+    that ``units`` repeats over the shards is taken once a part."""
     per = gathered.shape[dim] // n
     shards = gathered.split(per, dim)
-    widths = [b // n for b in blocks]
-    cols = [s.split(widths, dim) for s in shards]
-    return torch.cat([cols[i][b] for b in range(len(blocks))
-                      for i in range(n)], dim)
+    parts = []
+    for k, b in enumerate(blocks):
+        unit = units[k] if units else None
+        w, _ = _block_split(b, n, 0, unit)
+        off = sum(_block_split(blocks[q], n, 0, units[q] if units else None)
+                  [0] for q in range(k))
+        step = n // unit if unit is not None and 0 < unit < n else 1
+        parts += [shards[i].narrow(dim, off, w) for i in range(0, n, step)]
+    return torch.cat(parts, dim)
+
+
+def layout_shape(global_shape: Sequence[int], pspec, mesh,
+                 blocks: Optional[Sequence[int]] = None, blocks_dim: int = 0,
+                 units: Optional[Sequence[int]] = None) -> Tuple[int, ...]:
+    """The rank's local shape of a value laid out by ``pspec`` and its
+    blocks (a block that repeats over the shards keeps more rows)."""
+    if not units:
+        return local_shape(global_shape, pspec, mesh)
+    return pieces_shape(shard_pieces(global_shape, pspec, mesh, blocks,
+                                     blocks_dim, units), len(global_shape))
 
 
 # ---------------------------------------------------------------------------

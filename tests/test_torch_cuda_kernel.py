@@ -432,18 +432,19 @@ DQ_EDGE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", DQ_EDGE_CASES)
-def test_flash_dq_wgmma_single_key_and_empty_rows(cuda_device, case):
-    """The bf16 split dq on wgmma: every row within the bf16 gate of the
-    plain version; a query row that sees exactly one key has dq = 0
-    exactly (p = 1, dp = delta), and there the kernel is held against 0
-    within 2**-16 of dq's RMS (the plain version's own fp32 noise there is
-    about that size); rows that see no key give dq = 0 exactly."""
+def _single_key_dq(case, device, delta_dtype=torch.float32):
+    """The bf16 split dq of ``case`` on wgmma (its delta rounded through
+    ``delta_dtype`` first), the plain version's dq, and the rows that see
+    one key and none.  On the rows that see one key, ``dq / bound`` of the
+    kernel against an fp64 plain version, the bound being
+    ``chip_smoke.single_key_ulps``: the largest ratio."""
+    from chip_smoke import single_key_fp64, single_key_rows
     q, k, v, do, segs, causal, off, scale = _flash_inputs(case, "bf16",
-                                                          cuda_device)
+                                                          device)
     b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
     ro, rl = fa.flash_fwd_reference(q, k, v, scale, causal, segs, off)
     delta = torch.einsum("bshd,bshd->bsh", do.float(), ro.float())
+    delta = delta.to(delta_dtype).float()
     n0 = fa.flash_bwd_dq_cuda.wgmma_launches
     got = fa.flash_bwd_dq_cuda(q, k, v, do, rl, delta, scale, causal, segs,
                                off)
@@ -451,17 +452,39 @@ def test_flash_dq_wgmma_single_key_and_empty_rows(cuda_device, case):
     assert fa.flash_bwd_dq_cuda.wgmma_launches == n0 + 1
     want = fa.flash_bwd_reference(q, k, v, ro, rl, do, scale, causal, segs,
                                   off)[0]
+    one = single_key_rows(b, sq, sk, causal, segs, off, device)
     split = fa._split_segments(segs, sq, sk)
     seen = torch.stack([fa._visible(i, sq, sk, causal, off, split,
-                                    cuda_device).sum(dim=1)
-                        for i in range(b)])
-    one, none = seen == 1, seen == 0
-    assert one.any()
-    floor = 2.0 ** -16 * want.float().pow(2).mean().sqrt().item()
-    assert got[one].float().abs().max().item() <= floor
+                                    device).sum(dim=1) for i in range(b)])
+    assert torch.equal(one, seen == 1) and one.any()
+    dq64, bound = single_key_fp64(q, k, v, do, one, causal, segs, off,
+                                  scale)
+    ratio = ((got[one].double() - dq64).abs() / bound).max().item()
+    return got, want, one, seen == 0, ratio
+
+
+@pytest.mark.parametrize("case", DQ_EDGE_CASES)
+def test_flash_dq_wgmma_single_key_and_empty_rows(cuda_device, case):
+    """The bf16 split dq on wgmma: every row within the bf16 gate of the
+    plain version; a query row that sees exactly one key (p = 1, dp =
+    delta, so dq = 0 up to rounding) within the derived rounding bound of
+    an fp64 plain version (``chip_smoke.single_key_ulps``, the smoke's
+    rule since it moved off a floor at the fp32 noise); rows that see no
+    key give dq = 0 exactly."""
+    got, want, one, none, ratio = _single_key_dq(case, cuda_device)
+    assert ratio <= 1.0
     assert torch.count_nonzero(got[none]).item() == 0
     keep = ~(one | none)
     _assert_close(got[keep], want[keep], (-1,), True, 1e-3, "dq")
+
+
+def test_flash_dq_single_key_bound_refuses_a_bf16_delta(cuda_device):
+    """The planted fault: the split dq fed delta rounded to bf16 (what a
+    kernel that kept delta in bf16 would read) leaves the single-key rows
+    over the bound, on the edge cases taken together."""
+    ratios = [_single_key_dq(case, cuda_device, torch.bfloat16)[4]
+              for case in DQ_EDGE_CASES]
+    assert max(ratios) > 1.0, ratios
 
 
 def test_flash_dispatch_takes_the_byte_rule_on_cuda(cuda_device):

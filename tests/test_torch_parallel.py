@@ -72,6 +72,9 @@ LAYOUTS = [
     ("dp2_flat_zero2_clip", {**R2, "dp": 2}, False,
      {"zero": 2, "grad_comm": "fp32", "flat_state": True,
       "max_grad_norm": CLIP}),
+    # tp above the LLaMA's 2 kv heads: the heads repeat over the ranks
+    ("tp4", {"tp": 4}, False, {}),
+    ("tp4_sp_clip", {"tp": 4}, True, {"max_grad_norm": CLIP}),
 ]
 ZERO_PEERS = ["dp2_zero1", "dp2_zero2", "dp2_zero3", "dp2_flat_zero2",
               "dp2_flat_zero3"]
@@ -268,9 +271,16 @@ def test_shard_state_is_what_each_rank_holds(model):
 
 
 def test_layouts_the_port_refuses_name_their_item():
+    # 2 kv heads at tp 4 build (item 10b): the kv heads repeat over the
+    # ranks, each holding its q head and the one kv head it reads
     pos = _Position({"tp": 4}, {"tp": 1})
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        _build(CONFIGS["llama"], pos)                  # 2 kv heads, tp 4
+    g, m = _build(CONFIGS["llama"], pos)
+    qkv = dict(m.named_parameters())["transformer.h.0.attn.qkv.weight"]
+    hd = BASE["hidden_size"] // BASE["num_heads"]
+    assert tuple(qkv.shape) == (3 * hd, BASE["hidden_size"])
+    with pytest.raises(ValueError, match="multiple of kv_heads"):
+        _build(dict(CONFIGS["llama"], num_heads=12, hidden_size=96,
+                    num_kv_heads=3), _Position({"tp": 4}, {"tp": 0}))
     with pytest.raises(NotImplementedError, match="item 10b"):
         _build(CONFIGS["gpt2"], _Position({"tp": 2}, {"tp": 0}),
                fused_lm_ce=True)

@@ -563,7 +563,222 @@ def case_cp_train(rank, world, state_path, batch_path, mk, layouts,
     return out
 
 
-CASES = {"collectives": case_collectives, "train_many": case_train_many,
+def _optimizer(optim, name, lr, kw):
+    return {"adam": optim.AdamOptimizer, "sgd": optim.SGDOptimizer,
+            "adafactor": optim.AdafactorOptimizer}[name](lr=lr, **kw)
+
+
+def case_switch(rank, world, state_path, batch_path, cfg_kw, runs,
+                lr=1e-3, micro=2):
+    """Each run ``(name, mesh shape, sp, (optimizer, kwargs), phases)``
+    builds the tiny model from the given (JAX) state on that mesh and
+    walks ``phases``: ``(steps, next mesh shape or None, ranks or None,
+    pending)``: trains ``steps`` steps, then (with ``pending``) adds one
+    GRAD run's gradients, then switches the graph to the next mesh over
+    ``ranks`` with the optimizer.  Returns each run's losses (None where
+    the rank held no position), its profiles and the plan's counts for
+    the same layouts, the switch's records, and the weights gathered by
+    the first rank of the last mesh."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.models.convert import load_state
+    from hetu_tpu_torch.models.generate import _Params
+    from hetu_tpu_torch.parallel import P, comm, create_mesh
+    state = _dist_state(state_path)
+    b = np.load(batch_path)
+    x, y = b["x"], b["y"]
+    out = {}
+    for name, shape, sp, (oname, okw), phases in runs:
+        mesh = create_mesh(shape, device="cpu")
+        with ht.graph("define_and_run", create_new=True, mesh=mesh,
+                      seed=0) as g:
+            ids = ht.parallel_placeholder("int32", x.shape,
+                                          pspec=P("dp", None), name="ids")
+            labels = ht.parallel_placeholder("int32", y.shape,
+                                             pspec=P("dp", None),
+                                             name="labels")
+            model = GPTLMHeadModel(GPTConfig(**cfg_kw, sp=sp))
+            loss = model(ids, labels)
+            opt = _optimizer(optim, oname, lr, okw)
+            train_op = opt.minimize(loss)
+        load_state(model, state)
+        feed = {ids: x, labels: y}
+        losses, profiles = [], []
+        with comm.comm_stats() as st:
+            for steps, nxt, ranks, pending in phases:
+                for _ in range(steps):
+                    if not g.mesh.in_mesh:
+                        losses.append(None)
+                        continue
+                    l, _ = g.run(loss, [loss, train_op], feed,
+                                 num_micro_batches=micro)
+                    losses.append(float(l))
+                if pending and g.mesh.in_mesh:
+                    g.run(loss, [loss, train_op], feed,
+                          num_micro_batches=micro, run_level="grad")
+                if nxt is not None:
+                    sid = g.cur_strategy_id
+                    prof = g.switch_strategy(
+                        create_mesh(nxt, device="cpu", ranks=ranks),
+                        optimizer=opt)
+                    assert g.cur_strategy_id == sid + 1
+                    profiles.append(prof.as_dict())
+        weights = None
+        if g.mesh.in_mesh:
+            weights = {_Params._norm(n): g.global_value(p).numpy()
+                       for n, p in model.named_parameters()}
+            if rank != g.mesh.ranks[0]:
+                weights = None
+        out[name] = {"losses": losses, "weights": weights,
+                     "profiles": profiles,
+                     "switch_records": [tuple(r) for r in st.records
+                                        if r.tag == "switch"],
+                     "num_strategy": g.num_strategy}
+    return out
+
+
+def case_switch_values(rank, world, x, jobs):
+    """``parallel.switch.switch_state`` of the global value ``x`` from
+    each job's source layout to its destination layout, ``(name, (mesh
+    shape, ranks, spec, blocks, units, chunk axis) twice, dtype)``: this
+    rank's result and what it should hold (its pieces of ``x``), and the
+    switch's records."""
+    import torch
+    from hetu_tpu_torch.parallel import comm
+    from hetu_tpu_torch.parallel.switch import (Entry, Layout,
+                                                SwitchProfile, switch_state)
+    out = {}
+    xt = torch.from_numpy(np.asarray(x))
+
+    def layout(d):
+        shape, ranks, spec, blocks, units, chunk = d
+        return Layout(shape, ranks, spec, blocks=blocks, units=units,
+                      chunk_axis=chunk)
+
+    def local(lay):
+        pieces = lay.pieces(xt.shape, rank)
+        if not pieces:
+            return None
+        buf = torch.zeros(lay.local_shape(xt.shape, rank), dtype=xt.dtype)
+        for gbox, lbox in pieces:
+            buf[tuple(slice(a, b) for a, b in lbox)] = \
+                xt[tuple(slice(a, b) for a, b in gbox)]
+        return buf
+
+    for name, src, dst, dtype in jobs:
+        src, dst = layout(src), layout(dst)
+        state = {} if local(src) is None else {"x": local(src)}
+        prof = SwitchProfile()
+        dt = getattr(torch, dtype) if dtype else None
+        with comm.comm_stats() as st:
+            got = switch_state(state, {"x": Entry(tuple(xt.shape), xt.dtype,
+                                                  src, dst)},
+                               dtype=dt, profile=prof, batch_bytes=64)["x"]
+        want = local(dst)
+        out[name] = {"got": None if got is None else got.float().numpy(),
+                     "dtype": None if got is None else str(got.dtype),
+                     "want": None if want is None else want.numpy(),
+                     "consumed": not state,
+                     "profile": prof.as_dict(),
+                     "sent": prof.sent_bytes, "recv": prof.recv_bytes,
+                     "records": [tuple(r) for r in st.records]}
+    return out
+
+
+def case_mesh_ranks(rank, world, layouts):
+    """A mesh over chosen ranks, ``(shape, ranks)`` each: this rank's
+    position, coordinates and groups, and over every axis an all-gather,
+    a reduce-scatter and an all-to-all of values that name their axis
+    index (what each rank gets, in axis order)."""
+    import torch
+    from hetu_tpu_torch.parallel import comm, create_mesh
+    out = []
+    for shape, ranks in layouts:
+        mesh = create_mesh(shape, device="cpu", ranks=ranks)
+        row = {"in_mesh": mesh.in_mesh, "position": mesh.position,
+               "coords": dict(mesh.coords), "groups": {}}
+        if mesh.in_mesh:
+            for a in mesh.axis_names:
+                n, i = mesh.axis_size(a), mesh.axis_index(a)
+                x = torch.full((n,), float(i))
+                row["groups"][a] = {
+                    "ranks": mesh.group_ranks(a),
+                    "gather": comm.all_gather(x[:1], a, 0, mesh).tolist(),
+                    "scatter": comm.reduce_scatter(
+                        torch.arange(float(n)) + 10 * i, a, 0, "sum",
+                        mesh).tolist(),
+                    "a2a": comm.all_to_all(torch.arange(float(n)) + 10 * i,
+                                           a, 0, 0, mesh).tolist()}
+        out.append(row)
+    return out
+
+
+def case_elastic(rank, world, state_path, jobs, batch=8, seq=16):
+    """Each job ``(name, mesh shape, solver kwargs, script)`` builds the
+    tiny GPT of tests/test_elastic.py from the given (JAX) state under an
+    elastic ``Trainer`` and plays ``script``: ``("train", n)``,
+    ``("retune", ratios or None)``, ``("env", ratios string)`` (the
+    straggler ratios every rank reads), ``("run", steps, interval)`` and
+    ``("tp_sharded",)``.  Returns what each step gave."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.elastic import StrategyModel, Trainer
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.models.convert import load_state
+    from hetu_tpu_torch.parallel import P, create_mesh
+    state = _dist_state(state_path)
+    out = {}
+    for name, shape, solver_kw, script in jobs:
+        cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                        num_heads=4, max_seq_len=seq, dtype="float32")
+        mesh = create_mesh(shape, device="cpu")
+        with ht.graph("define_and_run", create_new=True, mesh=mesh,
+                      seed=0) as g:
+            ids = ht.parallel_placeholder("int32", (batch, seq),
+                                          pspec=P("dp", None), name="ids")
+            labels = ht.parallel_placeholder("int32", (batch, seq),
+                                             pspec=P("dp", None),
+                                             name="labels")
+            model = GPTLMHeadModel(cfg)
+            loss = model(ids, labels)
+            opt = optim.AdamOptimizer(lr=1e-2)
+            train_op = opt.minimize(loss)
+        load_state(model, state)
+        IDS = np.random.RandomState(0).randint(0, 64, (batch, seq)).astype(
+            np.int32)
+        feed = {ids: IDS, labels: np.roll(IDS, -1, 1)}
+        trainer = Trainer(g, loss, train_op, opt, lambda step: feed,
+                          StrategyModel(num_devices=world, **solver_kw),
+                          num_micro_batches=2)
+        got = []
+        for op in script:
+            if op[0] == "train":
+                got.append(trainer.train_steps(op[1]))
+            elif op[0] == "retune":
+                got.append(trainer.retune(op[1]))
+            elif op[0] == "tp_candidates":
+                trainer.solver.tp_candidates = op[1]
+            elif op[0] == "env":
+                os.environ["HETU_TPU_STRAGGLER_RATIOS"] = op[1]
+            elif op[0] == "run":
+                got.append(trainer.run(op[1], profile_interval=op[2]))
+            elif op[0] == "tp_sharded":
+                got.append(any(tuple(t.shape) != tuple(t.global_shape)
+                               for t in g.trainable_variables
+                               if t.global_shape is not None))
+        os.environ.pop("HETU_TPU_STRAGGLER_RATIOS", None)
+        out[name] = {"got": got,
+                     "history": [h["strategy"] for h in trainer.history],
+                     "strategy": trainer.current_strategy.describe()
+                     if trainer.current_strategy else None,
+                     "mesh": dict(g.mesh.shape), "ranks": list(g.mesh.ranks)}
+    return out
+
+
+CASES = {"collectives": case_collectives, "switch": case_switch,
+         "elastic": case_elastic, "switch_values": case_switch_values,
+         "mesh_ranks": case_mesh_ranks, "train_many": case_train_many,
          "cp_attention": case_cp_attention, "ring_profile": case_ring_profile,
          "cp_train": case_cp_train,
          "pipeline": case_pipeline, "permute": case_permute,
