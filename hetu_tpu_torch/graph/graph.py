@@ -180,6 +180,12 @@ class Graph:
         # the optimizer sums the gradients over them, scalar fetches
         # average over them
         self.seq_axes: set = set()
+        # whether the running step routes each rank's own tokens alone
+        # (``Optimizer.dp_local_tokens``)
+        self.dp_local_tokens = False
+        # the MoE layers' dispatch bounds (``nn.moe.MoELayer``), for the
+        # static analysis of a later slice
+        self._moe_meta: List[Dict[str, Any]] = []
         # optimizers whose working parameters may lag their state (flat
         # ZeRO-3): called before a variable's global value is read
         self._materializers: List[Callable] = []
@@ -1044,7 +1050,10 @@ class DefineAndRunGraph(Graph):
         """The rank's part of the global feed ``v`` of ``t`` under its
         spec.  A sharded dim 0 splits into the ``M`` micro-batches first
         and each is sharded, so that micro-batch ``mb`` of the rank is its
-        shard of the global micro-batch ``mb``."""
+        shard of the global micro-batch ``mb``; a placeholder whose
+        ``feed_groups`` is ``n`` (fed to a model that splits each
+        micro-batch into ``n`` again, the SPMD pipeline) splits into ``M *
+        n``."""
         from ..parallel.mesh import dim_split
         if t.pspec is None:
             return v
@@ -1057,6 +1066,7 @@ class DefineAndRunGraph(Graph):
                 raise ValueError(f"feed for {t.name} has shape {shape}, "
                                  f"expected the global shape "
                                  f"{tuple(t.global_shape)}")
+        M = M * t.feed_groups
         for d, entry in enumerate(t.pspec):
             n, i = dim_split(entry, self.mesh)
             if n == 1:
@@ -1162,6 +1172,11 @@ class DefineAndRunGraph(Graph):
         sst = scaler.init_state(self.device) if scaler is not None else None
         if update_node is not None:
             update_node.attrs["optimizer"]._before_step(self, xs)
+        # the JAX package's explicit grad-comm region runs the model on
+        # each rank's tokens (nn.moe's gates read this)
+        self.dp_local_tokens = update_node is not None and \
+            update_node.attrs["optimizer"].dp_local_tokens(
+                self, real_fetches, loss_t, scaler)
         needs_grad = update_node is not None or any(
             n.op_type == "gradients" for n in plan)
         offload = (lambda: offload_context(self.device)) \

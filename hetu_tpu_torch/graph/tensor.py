@@ -172,6 +172,11 @@ class Tensor:
         self.shard_blocks_dim = 0
         self.shard_units: Optional[Tuple[int, ...]] = None
         self.ds_hierarchy = None
+        # a placeholder fed to a model that splits each of the run's
+        # micro-batches into ``feed_groups`` again (the SPMD pipeline):
+        # its sharded feed splits into that many groups first, so that a
+        # rank's part of each group is its shard of that group
+        self.feed_groups = 1
 
     # -- sharding annotation ----------------------------------------------------
 

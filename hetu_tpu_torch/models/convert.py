@@ -16,7 +16,8 @@ included), unnormalised.  ``shard_state`` gives a rank of a
 tensor-parallel mesh its shard of a state dict (``param_layout``: the
 fused ``[q|k|v]`` and SwiGLU weights split block by block, as the
 model's parameters are) and ``gather_state`` puts the shards back
-together, so both packages start from one JAX state dict.
+together, so both packages start from one JAX state dict (an MoE
+layer's experts split over ``cfg.ep_axis`` on dim 0, its gate whole).
 ``pipeline_state`` stacks a plain model's layers into
 ``GPTPipelineModel``'s ``[stages, layers, ...]`` blocks and
 ``plain_state`` undoes it; the JAX ``GPTPipelineModel``'s
@@ -52,10 +53,21 @@ def state_from_numpy(state: Dict[str, np.ndarray], cfg: GPTConfig,
     return out
 
 
+def _moe_shapes(cfg: GPTConfig, i: int) -> Dict[str, tuple]:
+    """Layer ``i``'s MoE weights: the gate and the stacked experts (with
+    their biases, as the JAX package's experts have them)."""
+    E, H, f = cfg.num_experts, cfg.hidden_size, cfg.ffn_size
+    pre = f"h{i}.mlp.moe"
+    return {f"{pre}.gate.wg": (E, H), f"{pre}.experts.w1": (E, H, f),
+            f"{pre}.experts.b1": (E, 1, f), f"{pre}.experts.w2": (E, f, H),
+            f"{pre}.experts.b2": (E, 1, H)}
+
+
 def state_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
     """Name -> shape of every weight the serving path reads (no
-    biases; norms are weight-only).  An MLA config has the
-    weight-absorbed attention schema in place of the fused qkv."""
+    biases but the MoE experts'; norms are weight-only).  An MLA config
+    has the weight-absorbed attention schema in place of the fused qkv;
+    an MoE layer the gate and experts in place of the MLP."""
     H, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
     hd, nh, kvh = cfg.head_dim, cfg.num_heads, cfg.kv_heads
     mult = 2 if cfg.activation == "swiglu" else 1
@@ -74,8 +86,11 @@ def state_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
         else:
             shapes[f"h{i}.attn.qkv.weight"] = ((nh + 2 * kvh) * hd, H)
         shapes[f"h{i}.attn.out.weight"] = (H, nh * hd)
-        shapes[f"h{i}.mlp.up.weight"] = (cfg.ffn_size * mult, H)
-        shapes[f"h{i}.mlp.down.weight"] = (H, cfg.ffn_size)
+        if cfg.is_moe_layer(i):
+            shapes.update(_moe_shapes(cfg, i))
+        else:
+            shapes[f"h{i}.mlp.up.weight"] = (cfg.ffn_size * mult, H)
+            shapes[f"h{i}.mlp.down.weight"] = (H, cfg.ffn_size)
     if not cfg.tie_embeddings:
         shapes["lm_head.weight"] = (V, H)
     return shapes
@@ -86,7 +101,8 @@ def random_state(cfg: GPTConfig, seed: int = 0, device="cuda",
                  dtype: Optional[torch.dtype] = None,
                  std: float = 0.02) -> Dict[str, torch.Tensor]:
     """Random weights drawn on ``device``: normal(0, ``std``) matrices,
-    ones for the norms, no biases.  ``dtype`` defaults to the config's."""
+    ones for the norms, zeros for the experts' biases (their
+    initializer's).  ``dtype`` defaults to the config's."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype if dtype is not None else cfg.dtype)
     gen = torch.Generator(device=dev)
@@ -95,6 +111,8 @@ def random_state(cfg: GPTConfig, seed: int = 0, device="cuda",
     for name, shape in state_shapes(cfg).items():
         if len(shape) == 1:
             out[name] = torch.ones(shape, dtype=dt, device=dev)
+        elif name.endswith((".b1", ".b2")):
+            out[name] = torch.zeros(shape, dtype=dt, device=dev)
         else:
             out[name] = torch.randn(shape, generator=gen, dtype=dt,
                                     device=dev).mul_(std)
@@ -188,11 +206,18 @@ def param_layout(cfg: GPTConfig, tp_axis: Optional[str] = None
                 out[f"h{i}.{n}.{k}"] = (P(), None)
         out[f"h{i}.attn.qkv.weight"] = (P(tp, None), (q, kv, kv))
         out[f"h{i}.attn.out.weight"] = (P(None, tp), None)
-        out[f"h{i}.mlp.up.weight"] = (P(tp, None), up_blocks)
-        out[f"h{i}.mlp.down.weight"] = (P(None, tp), None)
         if bias:
             out[f"h{i}.attn.qkv.bias"] = (P(tp), (q, kv, kv))
             out[f"h{i}.attn.out.bias"] = (P(), None)
+        if cfg.is_moe_layer(i):
+            # the experts split over ep on dim 0, the gate replicated
+            espec = P(cfg.ep_axis, None, None) if cfg.ep_axis else P()
+            for name in _moe_shapes(cfg, i):
+                out[name] = (P() if name.endswith(".wg") else espec, None)
+            continue
+        out[f"h{i}.mlp.up.weight"] = (P(tp, None), up_blocks)
+        out[f"h{i}.mlp.down.weight"] = (P(None, tp), None)
+        if bias:
             out[f"h{i}.mlp.up.bias"] = (P(tp), up_blocks)
             out[f"h{i}.mlp.down.bias"] = (P(), None)
     for k in norm_keys:
@@ -267,7 +292,10 @@ _STACKED_NAMES = {
     "attn_out": "attn.out.weight", "attn_out_b": "attn.out.bias",
     "ln2": "ln_2.weight", "ln2_b": "ln_2.bias",
     "mlp_up": "mlp.up.weight", "mlp_up_b": "mlp.up.bias",
-    "mlp_down": "mlp.down.weight", "mlp_down_b": "mlp.down.bias"}
+    "mlp_down": "mlp.down.weight", "mlp_down_b": "mlp.down.bias",
+    "moe_gate": "mlp.moe.gate.wg", "moe_w1": "mlp.moe.experts.w1",
+    "moe_b1": "mlp.moe.experts.b1", "moe_w2": "mlp.moe.experts.w2",
+    "moe_b2": "mlp.moe.experts.b2"}
 # the weights outside the blocks: pipeline name -> plain name
 _OUTER_NAMES = {"wte.weight": "wte.weight", "wpe": "wpe",
                 "ln_f.weight": "ln_f.weight", "ln_f.bias": "ln_f.bias",

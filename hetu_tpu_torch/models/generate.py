@@ -12,10 +12,14 @@ Weight layouts are the training layouts (``W [out, in]``,
 activation against fp32 weights computes in fp32.
 
 Supported configs: learned or rotary positions, layernorm/rmsnorm,
-gelu/swiglu/silu/relu MLPs, GQA, tied or untied lm_head, and MLA (one
+gelu/swiglu/silu/relu MLPs, GQA, tied or untied lm_head, MLA (one
 latent cache ``[b, max_len, 1, d_c]`` plus the decoupled rope key
-``[b, max_len, 1, d_r]`` per layer).  MoE configs come with a later
-slice of the port and raise.
+``[b, max_len, 1, d_r]`` per layer) and MoE layers.  An MoE layer routes
+each token to its top-k experts (gate logits in the model dtype, the
+softmax in fp32, ties toward the lower expert): a single new token (a
+decode step) takes the dense mix of every expert weighted by its gate
+(zero off the top k), a longer span (a prefill) the blocked group GEMM
+(``ops.moe_dispatch``), which drops no token.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..core.dtype import torch_dtype
-from .gpt import GPTConfig, check_serving_config
+from ..ops.moe_dispatch import blocked_group_gemm
+from .gpt import GPTConfig, check_serving_config, moe_activation
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -124,7 +129,74 @@ def _linear(p: _Params, i: int, part: str, x):
 
 
 def _mlp(cfg: GPTConfig, p: _Params, i: int, h):
+    """Layer ``i``'s feed-forward block: the dense MLP or the MoE layer."""
+    if cfg.is_moe_layer(i):
+        return _moe_mlp(cfg, p, i, h)
     return _linear(p, i, "mlp.down", _act(cfg, _linear(p, i, "mlp.up", h)))
+
+
+def _moe_params(p: _Params, i: int):
+    """Layer ``i``'s gate and experts: ``mlp.moe.*`` (module paths) or
+    ``moe.*`` (tensor names)."""
+    def moe_p(part):
+        v = p.layer(i, f"mlp.moe.{part}")
+        return v if v is not None else p.layer(i, f"moe.{part}")
+    return (moe_p("gate.wg"), moe_p("experts.w1"), moe_p("experts.b1"),
+            moe_p("experts.w2"), moe_p("experts.b2"))
+
+
+def _moe_route(cfg: GPTConfig, wg, x):
+    """Top-k routing shared by the dense and dispatched paths: the gate
+    logits in the model dtype, the softmax in fp32."""
+    from ..nn.moe import top_k
+    gates = torch.softmax((x @ wg.to(x.dtype).T).float(), -1)
+    topv, topi = top_k(gates, cfg.moe_top_k)               # [..., k]
+    return gates, topv, topi
+
+
+def _moe_act(cfg: GPTConfig):
+    from ..nn.moe import ACTIVATIONS
+    return ACTIVATIONS[moe_activation(cfg)]
+
+
+def _moe_mlp(cfg: GPTConfig, p: _Params, i: int, x):
+    """The MoE layer on ``x [b, s, H]``: for ``s == 1`` the dense mix of
+    all experts (each run on every token, its output weighted by the
+    token's gate, zero off the top k); for ``s > 1``
+    :func:`_moe_mlp_dispatched`."""
+    wg, w1, b1, w2, b2 = _moe_params(p, i)
+    if x.shape[1] > 1:
+        return _moe_mlp_dispatched(cfg, x, wg, w1, b1, w2, b2)
+    return _moe_dense_mix(cfg, x, wg, w1, b1, w2, b2)
+
+
+def _moe_dense_mix(cfg: GPTConfig, x, wg, w1, b1, w2, b2):
+    """Every expert on every token of ``x [..., H]``, mixed by the gates
+    of each token's top k."""
+    from ..nn.moe import _one_hot
+    shape = x.shape
+    xt = x.reshape(-1, shape[-1])
+    gates, topv, topi = _moe_route(cfg, wg, xt)
+    weights = torch.zeros_like(gates)
+    for j in range(cfg.moe_top_k):
+        weights = weights + topv[:, j:j + 1] * _one_hot(
+            topi[:, j], gates.shape[-1], gates.dtype)
+    dt = torch.promote_types(xt.dtype, w1.dtype)
+    h = _moe_act(cfg)(torch.matmul(xt.to(dt)[None], w1.to(dt)) + b1)
+    dt = torch.promote_types(h.dtype, w2.dtype)
+    y = torch.matmul(h.to(dt), w2.to(dt)) + b2             # [E, T, H]
+    out = torch.einsum("te,etd->td", weights, y.float())
+    return out.to(x.dtype).reshape(shape)
+
+
+def _moe_mlp_dispatched(cfg: GPTConfig, x, wg, w1, b1, w2, b2):
+    """The capacity-free dispatched MoE layer (a prefill): the blocked
+    group GEMM over the tokens of ``x [b, s, H]``, none dropped."""
+    b, s, d = x.shape
+    _, topv, topi = _moe_route(cfg, wg, x.reshape(b * s, d))
+    out = blocked_group_gemm(x.reshape(b * s, d), topi, topv, w1, b1, w2,
+                             b2, _moe_act(cfg))
+    return out.reshape(b, s, d).to(x.dtype)
 
 
 def _attn_step(cfg: GPTConfig, p: _Params, i: int, x, k_cache, v_cache,

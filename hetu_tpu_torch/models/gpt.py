@@ -35,6 +35,13 @@ block's global positions, and attention through
 is the mean over the valid tokens of the global batch and sequence (its
 sum and count reduced over dp and cp), and the optimizer sums the
 gradients over cp (``Graph.seq_axes``).
+
+With ``num_experts > 0`` every ``moe_every``-th block's MLP is
+``MoEMLP`` (``nn.moe``: a top-k gate and stacked experts, split over
+``ep_axis`` on a mesh that has it), and the loss adds ``moe_aux_coef``
+times each MoE block's balance loss, as the JAX model does; the fused
+LM-head cross entropy is then not taken.  MoE under context parallelism
+is refused (ROADMAP queue 1 item 14b).
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from .. import nn
 from ..ops import functional as ops
 from ..graph.ctor import NormalInitializer, parallel_parameter
 from ..graph.tensor import SymbolicDim
+from ..parallel import comm
 
 
 @dataclass
@@ -279,13 +287,21 @@ def mla_state_from(state, cfg: GPTConfig, kv_latent_dim: int,
     return out, ncfg
 
 
+def moe_activation(cfg: GPTConfig) -> str:
+    """The experts' activation: the config's, with SwiGLU mapped to its
+    SiLU (the stacked experts are not gated, as in the JAX package)."""
+    act = "silu" if cfg.activation == "swiglu" else cfg.activation
+    if act not in ("relu", "gelu", "silu"):
+        raise ValueError(
+            f"MoE experts do not support activation {cfg.activation!r}")
+    return act
+
+
 def check_serving_config(cfg: GPTConfig) -> None:
-    """The port serves dense configurations, full-head or MLA; MoE comes
-    with a later slice and is refused by name."""
+    """The port serves dense and MoE configurations, full-head or MLA; an
+    MoE config's experts need an activation they take."""
     if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers (num_experts > 0) are ported in ROADMAP queue 1 "
-            "item 14 (MoE)")
+        moe_activation(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -293,17 +309,14 @@ def check_serving_config(cfg: GPTConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def check_training_config(cfg: GPTConfig) -> None:
-    """The training model is the dense one.  MLA is a serving layout that
-    no package trains (``ValueError``); the layouts still to be ported are
-    refused by name."""
+    """MLA is a serving layout that no package trains (``ValueError``);
+    an MoE config's experts need an activation they take."""
     if cfg.is_mla:
         raise ValueError(
             "MLA (kv_latent_dim) is a decode/serving cache layout; "
             "train full-head and convert with models.gpt.mla_state_from")
     if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers (num_experts > 0) are ported in ROADMAP queue 1 "
-            "item 14 (MoE)")
+        moe_activation(cfg)
     if cfg.cp_impl not in ("ring", "ulysses"):
         raise ValueError(f"cp_impl must be 'ring' or 'ulysses', "
                          f"got {cfg.cp_impl!r}")
@@ -474,13 +487,63 @@ class ParallelMLP(nn.Module):
         return out
 
 
+def _gather_tokens(x, mesh=None, axis="tp"):
+    """The whole sequence of a block split over ``axis`` (dim 1); the
+    backward keeps this rank's block (every rank computes the same)."""
+    return comm.gather_output(x, axis, 1, mesh)
+
+
+def _no_moe_cp(c: GPTConfig):
+    def check(mesh):
+        if c.cp_axis and mesh.axis_size(c.cp_axis) > 1:
+            raise NotImplementedError(
+                "MoE layers under context parallelism (cp_axis over more "
+                "than one rank) are not ported: the gate routes the whole "
+                "sequence (ROADMAP queue 1 item 14b)")
+    return check
+
+
+class MoEMLP(nn.Module):
+    """The MoE feed-forward block (``nn.moe``'s layer, top-k gate): the
+    balance loss of the last forward stays on the module for the LM head.
+    Under ``sp`` the layer takes the whole sequence of the rank's batch
+    (gathered over tp, as the JAX layer reads the global view) and the
+    block keeps its own part of the output."""
+
+    def __init__(self, config: GPTConfig, layer_idx: int = 0):
+        super().__init__()
+        c = self.config = config
+        nn.parallel._check_strategy(_no_moe_cp(c))
+        self.moe = nn.make_moe_layer(
+            c.hidden_size, c.ffn_size, num_experts=c.num_experts,
+            gate_type="topk", k=c.moe_top_k,
+            capacity_factor=c.moe_capacity_factor,
+            activation=moe_activation(c), ep_axis=c.ep_axis, dtype=c.dtype,
+            name=f"h{layer_idx}.moe", dp_axis=c.dp_axis)
+        self.last_aux = None
+
+    def forward(self, x):
+        c = self.config
+        mesh = nn.parallel._active(x, c.tp_axis) if c.sp else None
+        if mesh is not None:
+            x = ops._op("moe_sp_gather", _gather_tokens, [x],
+                        {"mesh": mesh, "axis": c.tp_axis})
+        out, aux = self.moe(x)
+        if mesh is not None:
+            out = nn.parallel.split_seq(out, c.tp_axis)
+        self.last_aux = aux
+        return out
+
+
 class GPTBlock(nn.Module):
     def __init__(self, config: GPTConfig, layer_idx: int):
         super().__init__()
         self.ln_1 = _norm(config, f"h{layer_idx}.ln_1")
         self.attn = ParallelAttentionBlock(config, layer_idx)
         self.ln_2 = _norm(config, f"h{layer_idx}.ln_2")
-        self.mlp = ParallelMLP(config, layer_idx)
+        self.mlp = MoEMLP(config, layer_idx) \
+            if config.is_moe_layer(layer_idx) \
+            else ParallelMLP(config, layer_idx)
 
     def forward(self, x, seq_len: int, segment_ids=None, pos_offset: int = 0):
         x = x + self.attn(self.ln_1(x), seq_len, segment_ids=segment_ids,
@@ -606,7 +669,7 @@ class GPTLMHeadModel(nn.Module):
         ``fused_lm_ce`` the head and the loss are one chunked op
         (``ops.fused_lm_cross_entropy``), the tied head included."""
         c = self.config
-        if labels is not None and c.fused_lm_ce:
+        if labels is not None and c.fused_lm_ce and c.num_experts == 0:
             def no_tp(mesh):
                 if mesh.axis_size(c.tp_axis) > 1:
                     raise NotImplementedError(
@@ -625,8 +688,14 @@ class GPTLMHeadModel(nn.Module):
         logits = self.logits(input_ids, seq_len, segment_ids=segment_ids)
         if labels is None:
             return logits
-        return nn.vocab_parallel_cross_entropy(
+        loss = nn.vocab_parallel_cross_entropy(
             logits, self.transformer.seq_local(labels),
             dp_axis=c.dp_axis, tp_axis=c.tp_axis, seq_axis=c.cp_axis,
             ignore_index=-100)
+        if c.num_experts > 0 and c.moe_aux_coef:
+            for block in self.transformer.h:
+                if isinstance(block.mlp, MoEMLP) and \
+                        block.mlp.last_aux is not None:
+                    loss = loss + c.moe_aux_coef * block.mlp.last_aux
+        return loss
 

@@ -143,8 +143,10 @@ class MPMDGPT:
                  seed: int = 0, device="cuda"):
         if cfg.num_experts > 0:
             raise NotImplementedError(
-                "MoE layers (num_experts > 0) are ported in ROADMAP queue 1 "
-                "item 14 (MoE)")
+                "MPMDGPT builds no MoE blocks (num_experts > 0): the JAX "
+                "package's MPMD path has no MoE blocks either (its stages "
+                "hold no expert parameters); train MoE with GPTLMHeadModel "
+                "or GPTPipelineModel")
         self.cfg = cfg
         self.num_chunks = int(num_chunks)
         self.stage_layers = [list(sl) for sl in stage_layers]

@@ -17,9 +17,20 @@ parallelism inside a stage issues the collectives of ``nn.parallel``'s
 layers (Megatron-LM's column and row pairs, and with ``sp`` the
 sequence gather and reduce-scatter), as ``models.gpt`` does.
 
-Refused as in the JAX package: ``dropout`` and a layer count the stages
-do not divide.  MoE blocks (``num_experts > 0``) are ROADMAP queue 1
-item 14; GQA with ``kv_heads < tp`` is item 10b, as in ``models.gpt``.
+An MoE config (``num_experts > 0``, every layer MoE as in the JAX
+package) stacks ``moe_gate``, ``moe_w1``, ``moe_b1``, ``moe_w2`` and
+``moe_b2`` in place of the MLP's weights, the experts split over
+``cfg.ep_axis`` on their dim 2; :func:`_moe_mlp` is the JAX pipeline's
+GShard block (the dispatch and combine tensors cast to the activations'
+dtype), routed over the global micro-batch as ``nn.moe``'s gates route
+(the ids and labels are fed micro-batch by micro-batch, so that each
+rank's pipeline micro-batch is its shard of the global one), with the
+experts' outputs gathered over ep.  The balance loss comes out of
+``pipeline_spmd(with_aux=True)`` and joins the loss.
+
+Refused as in the JAX package: ``dropout``, a layer count the stages
+do not divide and an MoE stack with dense layers in it.  GQA with
+``kv_heads < tp`` is ROADMAP queue 1 item 10b, as in ``models.gpt``.
 """
 from __future__ import annotations
 
@@ -39,7 +50,8 @@ from ..ops.attention import sdpa
 from ..parallel import comm
 from ..parallel.mesh import P
 from ..parallel.pipeline import pipeline_spmd
-from .gpt import GPTConfig, _bake_seq_len, _check_tp, check_training_config
+from .gpt import (GPTConfig, _bake_seq_len, _check_tp, check_training_config,
+                  moe_activation)
 
 
 @functools.lru_cache(maxsize=32)
@@ -85,15 +97,48 @@ def _dropout(x, rate: float, gen: Optional[torch.Generator]):
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def _moe_mlp(params, h, *, cfg: GPTConfig, mesh=None, tokens=None):
+    """The MoE feed-forward block on ``h [b, s, H]`` (the JAX pipeline's:
+    the top-k gate, the dispatch and combine tensors cast to the
+    activations' dtype, the stacked experts): ``(out, l_aux)``.  The
+    gate routes the tokens of ``tokens`` (``nn.moe._Tokens``: the global
+    micro-batch under dp); under ``cfg.ep_axis`` the rank runs its
+    experts and the outputs are gathered over ep."""
+    from ..nn.moe import _experts_ffn, _Tokens, topk_gating_impl
+    c = cfg
+    b, s, hdim = h.shape
+    xt = h.reshape(-1, hdim)                                     # [T, d]
+    wg = params["moe_gate"]
+    dt = torch.promote_types(xt.dtype, wg.dtype)
+    logits = torch.matmul(xt.to(dt), wg.to(dt).t())
+    l_aux, combine, dispatch = topk_gating_impl(
+        logits, c.moe_top_k, c.moe_capacity_factor,
+        tokens(xt.shape[0]) if tokens is not None else _Tokens(xt.shape[0]))
+    dispatched = torch.einsum("tec,td->ecd", dispatch.to(xt.dtype), xt)
+    ep = c.ep_axis if c.ep_axis and mesh is not None and \
+        mesh.axis_size(c.ep_axis) > 1 else None
+    if ep:
+        dispatched = comm.split_to_group(dispatched, ep, 0, mesh)
+    eout = _experts_ffn(dispatched, params["moe_w1"], params["moe_b1"],
+                        params["moe_w2"], params["moe_b2"],
+                        moe_activation(c))
+    if ep:
+        eout = comm.gather_output(eout, ep, 0, mesh)
+    out = torch.einsum("tec,ecd->td", combine.to(eout.dtype), eout)
+    return out.reshape(b, s, hdim).to(h.dtype), l_aux
+
+
 def block_fn(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
              cfg: GPTConfig, mesh=None, gen: Optional[torch.Generator] = None,
-             ln_fp32: bool = False):
+             ln_fp32: bool = False, tokens=None):
     """One transformer block on tensors: LLaMA-style (rmsnorm, rotary,
     swiglu, no biases) or GPT-2-style (layernorm, learned positions,
     gelu, biases) by ``cfg``, GQA by ``cfg.num_kv_heads``.  ``params``:
     this layer's local weights (the rank's tp shard); ``x``: ``[b, s,
     h]``, split over tp along the sequence with ``cfg.sp``.  Returns
-    ``(x, aux)``, aux 0 (the MoE balance loss of a dense block).
+    ``(x, aux)``: aux the MoE balance loss (0 for a dense block), whose
+    gate routes ``tokens(n)`` (``nn.moe._Tokens``; None: the block's
+    own).
 
     RMSNorm runs in fp32, LayerNorm in ``x``'s dtype or, with
     ``ln_fp32`` (the MPMD model's arithmetic), in fp32.  ``gen`` draws
@@ -163,6 +208,15 @@ def block_fn(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         out = out + shared(params["attn_out_b"])
     x = x + _dropout(out, c.dropout, gen)
 
+    if "moe_w1" in params:
+        # the gate routes the whole sequence of the rank's micro-batch
+        h = norm(x, "ln2")
+        if sp:
+            h = comm.gather_output(h, ax, 1, mesh)
+        down, aux = _moe_mlp(params, h, cfg=c, mesh=mesh, tokens=tokens)
+        if sp:
+            down = comm.split_to_group(down, ax, 1, mesh)
+        return x + down, aux
     h = col_in(norm(x, "ln2"))
     up = proj(h, params["mlp_up"], params.get("mlp_up_b"))
     if c.activation == "swiglu":
@@ -189,6 +243,12 @@ def check_pipeline_config(cfg: GPTConfig, num_stages: int) -> None:
                          f"{num_stages} pipeline stages")
     if cfg.dropout:
         raise NotImplementedError("pipelined blocks do not support dropout")
+    if cfg.num_experts > 0 and any(not cfg.is_moe_layer(i)
+                                   for i in range(cfg.num_layers)):
+        # the stages stack homogeneous layers: every block must be MoE
+        raise NotImplementedError(
+            "pipelined MoE needs every layer MoE (moe_every=1); mixed "
+            "dense/MoE stacks use the MPMD path")
     if cfg.cp_axis:
         raise NotImplementedError(
             "GPTPipelineModel does not take cp_axis: its stages attend over "
@@ -272,25 +332,46 @@ class GPTPipelineModel(nn.Module):
         stacked("ln2", (h,), (None,), ones)
         if c.norm == "layernorm":
             stacked("ln2_b", (h,), (None,), zeros)
-        stacked("mlp_up", (up_rows, h), (c.tp_axis, None),
-                normal(c.init_std), up_blocks)
-        if biased:
-            stacked("mlp_up_b", (up_rows,), (c.tp_axis,), zeros, up_blocks)
-        stacked("mlp_down", (h, f), (None, c.tp_axis), normal(depth_std))
-        if biased:
-            stacked("mlp_down_b", (h,), (None,), zeros)
+        if c.num_experts > 0:
+            E, ep = c.num_experts, c.ep_axis
+            stacked("moe_gate", (E, h), (None, None), normal(c.init_std))
+            stacked("moe_w1", (E, h, f), (ep, None, None),
+                    normal(c.init_std))
+            stacked("moe_b1", (E, 1, f), (ep, None, None), zeros)
+            stacked("moe_w2", (E, f, h), (ep, None, None), normal(depth_std))
+            stacked("moe_b2", (E, 1, h), (ep, None, None), zeros)
+        else:
+            stacked("mlp_up", (up_rows, h), (c.tp_axis, None),
+                    normal(c.init_std), up_blocks)
+            if biased:
+                stacked("mlp_up_b", (up_rows,), (c.tp_axis,), zeros,
+                        up_blocks)
+            stacked("mlp_down", (h, f), (None, c.tp_axis),
+                    normal(depth_std))
+            if biased:
+                stacked("mlp_down_b", (h,), (None,), zeros)
 
     def _pipeline(self, x, *stacked, num_micro_batches=1, mesh=None):
+        from ..nn.moe import _Tokens
         c = self.config
         params = dict(zip(self._stacked, stacked))
+        moe = c.num_experts > 0
+        graph = self.lm_head.graph
+
+        def tokens(n):
+            return _Tokens(n, mesh, c.dp_axis, graph)
 
         def stage_fn(p, v):
+            aux = 0.0
             for i in range(self.layers_per_stage):
-                v, _ = block_fn({k: w[i] for k, w in p.items()}, v,
-                                cfg=c, mesh=mesh)
-            return v
+                v, a = block_fn({k: w[i] for k, w in p.items()}, v,
+                                cfg=c, mesh=mesh, tokens=tokens)
+                if moe:
+                    aux = aux + a
+            return (v, aux) if moe else v
 
-        return pipeline_spmd(stage_fn, params, x, num_micro_batches, mesh)
+        return pipeline_spmd(stage_fn, params, x, num_micro_batches, mesh,
+                             with_aux=moe)
 
     def forward(self, input_ids, labels=None, num_micro_batches: int = 1):
         c = self.config
@@ -303,19 +384,41 @@ class GPTPipelineModel(nn.Module):
             x = x + ops.getitem(self.wpe, slice(0, seq_len))
         if c.sp:
             x = nn.parallel.split_seq(x, c.tp_axis)
+        moe = c.num_experts > 0
+        # each rank's pipeline micro-batch is its shard of the global one,
+        # as in the JAX package's global view (the MoE gate routes it)
+        for t in (input_ids, labels):
+            if t is None:
+                continue
+            if t.producer is not None and \
+                    t.producer.op_type == "placeholder":
+                t.feed_groups = int(num_micro_batches)
+            elif moe and mesh is not None and \
+                    mesh.axis_size(c.dp_axis) > 1:
+                raise NotImplementedError(
+                    f"the MoE pipeline under {c.dp_axis!r} reads its ids "
+                    f"and labels from placeholders (their feeds split "
+                    f"micro-batch by micro-batch, so that the gate routes "
+                    f"the global micro-batch); {t.name} comes from "
+                    f"{t.producer.op_type!r}")
         x = ops._op("pipeline_transformer", self._pipeline,
                     [x, *self._stacked.values()],
                     {"num_micro_batches": int(num_micro_batches),
-                     "mesh": mesh})
+                     "mesh": mesh}, num_outputs=2 if moe else 1)
+        if moe:
+            x, aux = x
         x = self.ln_f(x)
         x = nn.parallel.gather_seq(x, c.tp_axis) if c.sp \
             else nn.parallel.copy_to(x, c.tp_axis)
         logits = ops.matmul(x, self.lm_head, trans_b=True)
         if labels is None:
             return logits
-        return nn.vocab_parallel_cross_entropy(
+        loss = nn.vocab_parallel_cross_entropy(
             logits, labels, dp_axis=c.dp_axis, tp_axis=c.tp_axis,
             ignore_index=-100)
+        if moe and c.moe_aux_coef:
+            loss = loss + c.moe_aux_coef * aux
+        return loss
 
 
 __all__ = ["GPTPipelineModel", "block_fn", "check_pipeline_config"]

@@ -1,12 +1,14 @@
 """Modules of the port (``hetu_tpu.nn`` counterpart): the containers, the
-standard layers and the model-parallel layers (TP, SP, vocab-parallel)
-over the graph's mesh."""
+standard layers, the model-parallel layers (TP, SP, vocab-parallel)
+over the graph's mesh and the mixture-of-experts layers (EP)."""
 from .layers import (AvgPool2d, BatchNorm2d, BCELoss, Conv2d,
                      CrossEntropyLoss, Dropout, Embedding, GELU, GeLU,
                      Identity, KLDivLoss, LayerNorm, LeakyReLU, Linear,
                      MaxPool2d, MSELoss, NLLLoss, ReLU, RMSNorm, Sigmoid, SiLU,
                      Softmax, Tanh)
 from .module import Module, ModuleDict, ModuleList, Sequential
+from .moe import (BalanceGate, Experts, HashGate, KTop1Gate, MoELayer,
+                  SAMGate, TopKGate, make_moe_layer)
 from .parallel import (ColumnParallelLinear, ParallelEmbedding,
                        ParallelLayerNorm, ParallelRMSNorm, RowParallelLinear,
                        VocabParallelEmbedding, config2ds,
@@ -23,4 +25,6 @@ __all__ = [
     "ParallelEmbedding", "ParallelLayerNorm", "ParallelRMSNorm",
     "vocab_parallel_cross_entropy", "sharded", "config2ds",
     "parallel_data_provider",
+    "MoELayer", "Experts", "TopKGate", "KTop1Gate", "HashGate", "SAMGate",
+    "BalanceGate", "make_moe_layer",
 ]

@@ -320,6 +320,43 @@ class Optimizer:
             off += w
         return total
 
+    def dp_local_tokens(self, graph, fetches: Sequence[Tensor],
+                        loss: Optional[Tensor], scaler=None) -> bool:
+        """Whether this optimizer's step runs the model on each rank's own
+        tokens, as the JAX package's explicit grad-comm region does: a
+        layer that routes over the batch (MoE's gates) then routes the
+        rank's tokens alone.  The region's conditions are the JAX graph's
+        (``_plan_explicit_grad_comm``): ``grad_comm`` set, no active loss
+        scaler, a mesh of the dp axis alone of more than one rank, ZeRO
+        below 3 or the flat layout, no variable split over dp, a loss that
+        is not a top-level ``reduce_sum``, no scalar fetch but the loss and
+        every other fetch split over dp.  Elsewhere the gate routes the
+        global batch, as the JAX package's GSPMD step does."""
+        mesh = getattr(graph, "mesh", None)
+        dpa = self.dp_axis
+
+        def refs_dp(spec) -> bool:
+            return any(dpa in (e if isinstance(e, tuple) else (e,))
+                       for e in (spec or ()) if e is not None)
+
+        if getattr(self, "grad_comm", None) is None or scaler is not None \
+                or mesh is None or tuple(mesh.axis_names) != (dpa,) or \
+                mesh.axis_size(dpa) <= 1 or \
+                (self.zero >= 3 and not getattr(self, "flat_state", False)):
+            return False
+        if any(refs_dp(t.pspec) for t in graph._var_tensors.values()):
+            return False
+        if loss is not None and loss.producer is not None and \
+                loss.producer.op_type == "reduce_sum":
+            return False
+        for t in fetches:
+            if len(t.shape) == 0:
+                if loss is not None and t.id != loss.id:
+                    return False
+            elif not refs_dp(t.pspec):
+                return False
+        return True
+
     @torch.no_grad()
     def _apply_updates(self, graph, xs: Sequence[Tensor],
                        grads: List[torch.Tensor],

@@ -63,8 +63,7 @@ def pipeline_spmd(stage_fn: Callable[[Any, torch.Tensor], Any],
 
     ``with_aux=True``: ``stage_fn`` returns ``(y, aux_scalar)``; the
     result is ``(out, aux)``, aux the micro-batch mean of the stages'
-    sums with the bubble ticks masked out (MoE's balance loss, ROADMAP
-    queue 1 item 14).
+    sums with the bubble ticks masked out (MoE's balance loss).
     """
     S = mesh.axis_size(PP) if mesh is not None else 1
     M = int(num_micro_batches)

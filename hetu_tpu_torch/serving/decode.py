@@ -1,5 +1,5 @@
 """The unified serving step: ragged prefill + decode in one call (port
-of ``hetu_tpu.serving.decode.build_unified_step_fn`` for the dense
+of ``hetu_tpu.serving.decode.build_unified_step_fn``: dense and MoE
 configurations, full-head and MLA, speculative or not).
 
 Token-axis layout (fixed by the engine)::
@@ -61,6 +61,12 @@ the port decides on the host, in two ways:
   ``sample_rows`` when no row samples.
 
 Padding tokens write to the trash page either way.
+
+An MoE layer takes the dense mix of every expert for the decode slots
+and the verify region, and the dispatched group GEMM for each chunk
+slot's tokens, one call a slot (``_region_map``'s ``f_chunk``), as the
+JAX step does; neither reads a device value on the host, so the step
+stays one captured graph a live mask.
 """
 from __future__ import annotations
 
@@ -72,8 +78,9 @@ import torch
 from ..core import capture
 from ..core.device import resolve_device
 from ..core.dtype import torch_dtype
-from ..models.generate import (_act, _lm_head, _linear, _norm_apply,
-                               _Params, _rotary_tables)
+from ..models.generate import (_act, _lm_head, _linear, _moe_dense_mix,
+                               _moe_mlp_dispatched, _moe_params,
+                               _norm_apply, _Params, _rotary_tables)
 from ..models.gpt import GPTConfig, check_serving_config
 from ..ops.quantization import quantize_rows
 from ..ops.ragged_paged_attention import (latent_ragged_paged_attention,
@@ -251,17 +258,44 @@ class UnifiedStep:
 
     # -- the device body -------------------------------------------------
 
-    def _region_map(self, f, h, spans):
+    def _region_map(self, f, h, spans, f_chunk=None):
         """Apply the row-wise map ``f`` over the token ``spans`` [(start,
-        length)] (``None``: every token); other tokens stay 0."""
+        length)] (``None``: every token); other tokens stay 0.
+        ``f_chunk`` takes each chunk slot's part of a span instead, one
+        call a slot (MoE: the dense mix for decode and verify tokens, the
+        dispatched group GEMM for a prefill chunk, as in the JAX step)."""
         if spans is None:
-            return f(h)
+            if f_chunk is None:
+                return f(h)
+            spans = [(0, self.n_tokens)]
+        if f_chunk is not None:
+            spans = self._cut_at_chunks(spans)
         out = None
-        for start, n in spans:
-            y = f(h[start:start + n])
+        for start, n, *chunk in spans:
+            y = (f_chunk if chunk and chunk[0] else f)(h[start:start + n])
             if out is None:
                 out = y.new_zeros((self.n_tokens, y.shape[-1]))
             out[start:start + n] = y
+        return out
+
+    def _cut_at_chunks(self, spans):
+        """``spans`` cut at the chunk slots' bounds: ``(start, length,
+        in a chunk slot)``."""
+        bounds = [(start, start + self.chunk)
+                  for _, start in self._chunk_starts]
+        out = []
+        for start, n in spans:
+            end = start + n
+            while start < end:
+                slot = next((b for b in bounds if b[0] <= start < b[1]),
+                            None)
+                if slot is not None:
+                    stop = min(end, slot[1])
+                else:
+                    stop = min([end] + [b[0] for b in bounds
+                                        if start < b[0] < end])
+                out.append((start, stop - start, slot is not None))
+                start = stop
         return out
 
     def _full_head_attention(self, p, i, h, spans, kp, vp, m: _StepMeta):
@@ -354,10 +388,18 @@ class UnifiedStep:
                 lambda aa, i=i: _linear(p, i, "attn.out", aa), attn, spans)
             h = _norm_apply(c, p.layer(i, "ln_2.weight"),
                             p.layer(i, "ln_2.bias"), x)
-            x = x + self._region_map(
-                lambda hh, i=i: _linear(
-                    p, i, "mlp.down", _act(c, _linear(p, i, "mlp.up", hh))),
-                h, spans)
+            if c.is_moe_layer(i):
+                wts = _moe_params(p, i)
+                x = x + self._region_map(
+                    lambda hh, w=wts: _moe_dense_mix(c, hh, *w), h, spans,
+                    f_chunk=lambda hh, w=wts: _moe_mlp_dispatched(
+                        c, hh[None], *w)[0])
+            else:
+                x = x + self._region_map(
+                    lambda hh, i=i: _linear(p, i, "mlp.down",
+                                            _act(c, _linear(p, i, "mlp.up",
+                                                            hh))),
+                    h, spans)
         # the final norm is row-wise: norm only the rows' last tokens
         # (and the verify rows' first spec_k tokens: one LM-head call)
         picks = b["last"].long()

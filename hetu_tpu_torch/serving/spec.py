@@ -72,7 +72,7 @@ import torch
 from ..core import capture
 from ..core.device import resolve_device
 from ..core.dtype import torch_dtype
-from ..models.generate import (_act, _as_tensor, _lm_head, _linear,
+from ..models.generate import (_as_tensor, _lm_head, _linear, _mlp,
                                _norm_apply, _Params, _rotary_tables,
                                decode_step)
 from ..models.gpt import GPTConfig, check_serving_config
@@ -295,8 +295,7 @@ class SpecDecoder:
                 x = x + _linear(p, i, "attn.out", o)
                 h = _norm_apply(c, p.layer(i, "ln_2.weight"),
                                 p.layer(i, "ln_2.bias"), x)
-                x = x + _linear(p, i, "mlp.down",
-                                _act(c, _linear(p, i, "mlp.up", h)))
+                x = x + _mlp(c, p, i, h[:, None, :])[:, 0]
             xf = _norm_apply(c, p("ln_f.weight"), p("ln_f.bias"), x)
             nxt = torch.argmax(_lm_head(p, xf), dim=-1)
             if step == 0:                  # warm-up: discard, rewind

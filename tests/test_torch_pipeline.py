@@ -247,7 +247,8 @@ def test_permute_group_gradient_is_the_inverse(runs, i, perm):
 
 @pytest.mark.parametrize("kw,exc,match", [
     ({"dropout": 0.1}, NotImplementedError, "dropout"),
-    ({"num_experts": 4}, NotImplementedError, "item 14"),
+    ({"num_experts": 4, "moe_every": 2}, NotImplementedError,
+     "every layer MoE"),
     ({"num_layers": 6}, ValueError, "not divisible")])
 def test_refusals(kw, exc, match):
     import hetu_tpu_torch as ht

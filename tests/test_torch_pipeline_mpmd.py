@@ -288,7 +288,8 @@ class _Sub:
     (lambda cfg: MPMDGPT(cfg, stage_layers=[[8]], device="cpu"
                          ).register_analysis("x", 2, 16), "item 18"),
     (lambda cfg: MPMDGPT(tgpt.llama_config(**_kw(num_experts=4)),
-                         stage_layers=[[8]], device="cpu"), "item 14")])
+                         stage_layers=[[8]], device="cpu"),
+     "MPMD path has no MoE blocks")])
 def test_refusals_name_their_item(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call(tgpt.llama_config(**_kw()))

@@ -171,7 +171,8 @@ def test_pool_and_cache_invariants_catch_corruption():
 
 def test_later_slices_are_refused(tiny):
     """The options of later slices (a mesh, the analysis tap) raise
-    ``NotImplementedError`` naming their ROADMAP item; ``host_tier``,
+    ``NotImplementedError`` naming their ROADMAP item; MoE configs serve;
+    ``host_tier``,
     ``step_fn`` and ``tracer`` are taken (their own tests use them,
     tests/test_torch_slo.py and tests/test_torch_cluster.py); ``name``
     is taken, and ``use_kernel`` only where it names what the device
@@ -195,9 +196,15 @@ def test_later_slices_are_refused(tiny):
     # does not have
     with pytest.raises(ValueError, match="MLA"):
         Engine(st, cfg, device="cpu", page_quant="int8")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Engine(st, GPTConfig(**{**CFG_KW, "num_experts": 2}),
-               device="cpu")
+    # MoE configs are taken (tests/test_torch_moe.py holds them to JAX):
+    # the engine's temperature-0 tokens equal generate's
+    mcfg = GPTConfig(**{**CFG_KW, "num_experts": 2})
+    mst = random_state(mcfg, seed=3, device="cpu", std=0.2)
+    meng = Engine(mst, mcfg, device="cpu")
+    req = meng.add_request([5, 17, 2, 9, 33], 4)
+    meng.run()
+    assert list(req.out_tokens) == generate(
+        mst, mcfg, [[5, 17, 2, 9, 33]], 4, device="cpu")[0, 5:].tolist()
 
 
 def test_adopt_request_continues_as_generate_and_as_jax():

@@ -332,9 +332,12 @@ def test_probe_refusals():
         assert g.run([], run_level="grad") == []
         with pytest.raises(ValueError, match="unknown graph kind"):
             ht.graph("define_by_value", create_new=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        with ht.graph("define_and_run", create_new=True, device="cpu"):
-            GPTLMHeadModel(GPTConfig(**CONFIGS["gpt2"], num_experts=2))
+    # MoE trains (tests/test_torch_moe.py holds it to JAX): its layers
+    # replace the MLP
+    with ht.graph("define_and_run", create_new=True, device="cpu"):
+        m = GPTLMHeadModel(GPTConfig(**CONFIGS["gpt2"], num_experts=2))
+        assert "transformer.h.1.mlp.moe.experts.w1" in dict(
+            m.named_parameters())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ht.graph("define_and_run", create_new=True)

@@ -200,6 +200,79 @@ def case_train_many(rank, world, jobs):
     return {name: case_train(rank, world, **kw) for name, kw in jobs.items()}
 
 
+GRAD_COMM_ROUTES = {
+    # name: (optimizer keywords, extra fetch, loss reduced by reduce_sum)
+    "loss": ({"grad_comm": "fp32"}, None, False),
+    "loss_and_ids": ({"grad_comm": "fp32"}, "ids", False),
+    "extra_scalar": ({"grad_comm": "fp32"}, "scalar", False),
+    "unsharded_fetch": ({"grad_comm": "fp32"}, "unsharded", False),
+    "sum_loss": ({"grad_comm": "fp32"}, None, True),
+    "no_grad_comm": ({}, None, False),
+    "zero3": ({"grad_comm": "fp32", "zero": 3}, None, False),
+}
+
+
+def grad_comm_graph(pkg, P, cfg_kw, shape, name, **graph_kw):
+    """A tiny MoE GPT on a dp mesh of ``pkg`` (the port or the JAX
+    package) built for the ``GRAD_COMM_ROUTES`` entry ``name``: (graph,
+    optimizer, loss, fetches, feeds as a function of (x, y))."""
+    opt_kw, extra, summed = GRAD_COMM_ROUTES[name]
+    ht, optim, GPTConfig, GPTLMHeadModel, F = pkg
+    with ht.graph("define_and_run", create_new=True, **graph_kw) as g:
+        ids = ht.parallel_placeholder("int32", shape, pspec=P("dp", None),
+                                      name="ids")
+        labels = ht.parallel_placeholder("int32", shape,
+                                         pspec=P("dp", None), name="labels")
+        model = GPTLMHeadModel(GPTConfig(**cfg_kw, sp=False))
+        loss = model(ids, labels)
+        if summed:
+            loss = F.reduce_sum(loss)
+        opt = optim.AdamOptimizer(lr=1e-2, **opt_kw)
+        op = opt.minimize(loss)
+        fetches, extra_feed = [loss], {}
+        if extra == "ids":
+            fetches.append(ids)
+        elif extra == "scalar":
+            fetches.append(loss * 1.0)
+        elif extra == "unsharded":
+            free = ht.placeholder("float32", (4,), name="free")
+            fetches.append(free)
+            extra_feed[free] = np.zeros(4, np.float32)
+    return g, model, opt, loss, fetches, op, \
+        lambda x, y: {ids: x, labels: y, **extra_feed}
+
+
+def case_grad_comm_routing(rank, world, state_path, batch_path, cfg_kw,
+                           micro=2):
+    """For each ``GRAD_COMM_ROUTES`` entry on a ``{"dp": world}`` mesh,
+    whether the optimizer's step routes each rank's tokens alone
+    (``Optimizer.dp_local_tokens``), and one step's loss for the entries
+    that fetch the loss alone or with another scalar."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.models.convert import load_state
+    from hetu_tpu_torch.ops import functional
+    from hetu_tpu_torch.parallel import P, create_mesh
+    state = _dist_state(state_path)
+    b = np.load(batch_path)
+    x, y = b["x"], b["y"]
+    out = {}
+    for name in GRAD_COMM_ROUTES:
+        mesh = create_mesh({"dp": world}, device="cpu")
+        g, model, opt, loss, fetches, op, feeds = grad_comm_graph(
+            (ht, optim, GPTConfig, GPTLMHeadModel, functional), P, cfg_kw,
+            x.shape, name, mesh=mesh, seed=0)
+        local = opt.dp_local_tokens(g, fetches, loss)
+        first = None
+        if name in ("loss", "extra_scalar"):
+            load_state(model, state)
+            first = float(g.run(loss, fetches + [op], feeds(x, y),
+                                num_micro_batches=micro)[0])
+        out[name] = {"local": local, "first_loss": first}
+    return out
+
+
 def case_stats(rank, world, mesh_shape, entries, layouts, bucket_mb=4.0):
     """One update of an optimizer per layout over the ``dp`` axis of a
     mesh of ``mesh_shape``, with the collectives recorded: the gradients
@@ -400,6 +473,27 @@ def case_pipeline(rank, world, state_path, batch_path, mk, layouts,
                          if train_op.producer.attrs["optimizer"]._chunked(
                              g, p)) if opt_kw.get("zero") else None}
     return out
+
+
+def case_pipeline_feed_refusal(rank, world, mk, shape, mesh_shape):
+    """A MoE ``GPTPipelineModel`` on a mesh with dp whose ids come from
+    another op than a placeholder: the refusal's words (None: built)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.models import gpt as tgpt
+    from hetu_tpu_torch.models.gpt_pipeline import GPTPipelineModel
+    from hetu_tpu_torch.ops import functional as F
+    from hetu_tpu_torch.parallel import P, create_mesh
+    mesh = create_mesh(mesh_shape, device="cpu")
+    cfg = getattr(tgpt, mk["fn"])(**mk["kw"])
+    with ht.graph("define_and_run", create_new=True, mesh=mesh, seed=0):
+        ids = ht.parallel_placeholder("int32", shape, pspec=P("dp", None),
+                                      name="ids")
+        model = GPTPipelineModel(cfg, num_stages=mesh.axis_size("pp"))
+        try:
+            model(F.reshape(ids, ids.shape), ids, num_micro_batches=2)
+        except NotImplementedError as e:
+            return str(e)
+    return None
 
 
 def _block(mesh, axis, n_global):
@@ -779,9 +873,11 @@ def case_elastic(rank, world, state_path, jobs, batch=8, seq=16):
 CASES = {"collectives": case_collectives, "switch": case_switch,
          "elastic": case_elastic, "switch_values": case_switch_values,
          "mesh_ranks": case_mesh_ranks, "train_many": case_train_many,
+         "grad_comm_routing": case_grad_comm_routing,
          "cp_attention": case_cp_attention, "ring_profile": case_ring_profile,
          "cp_train": case_cp_train,
          "pipeline": case_pipeline, "permute": case_permute,
+         "pipeline_feed_refusal": case_pipeline_feed_refusal,
          "aux": case_aux,
          "many": case_many,
          "stats": case_stats, "checkpoint": case_checkpoint, "ce": case_ce}
