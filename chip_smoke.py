@@ -426,6 +426,46 @@ Phases, each printing one JSON line:
     of (b), (c) and (d) join the kernel table's ``launches``
     (``moe_launches``).
 
+27. runtime_planes: (a) the numeric sentry in a captured step at
+    Llama-3-8B's widths (depth 32 -> 2, bf16, a batch of 2 x 4096, Adam
+    with ``sentry=True``): 6 seeded cursors clean, then the same 6 with a
+    ``grad_nan``, a ``grad_spike`` and (after the warm-up) a
+    ``loss_spike`` attempt fed before three of them; each poisoned step
+    leaves every variable, moment and the step counter ``torch.equal``
+    to its state before, the clean losses equal the clean run's bitwise,
+    ``compile_count`` and ``captures_total`` stay 1, and every step copies
+    one tensor to the host (``host_reads``) as a run without the sentry
+    does; the verdict lanes and ms a step with the sentry on and off.
+    (b) On phase 24's launch of 4 ranks (its own, alone): the
+    fault-tolerant trainer at GPT-2 small's widths (vocab 50257), depth
+    12 -> 2, bf16, flat ZeRO-2 with ``grad_comm="fp32"``, the sentry,
+    a generation every 4 steps, 2 kept, 16 steps, under ``FT_PLAN``:
+    ``grad_nan`` at 3 (skipped), ``loss_spike`` at 6 (rewound),
+    ``shard_corrupt`` at 9 (the restore falls back past it), the death
+    of rank 3 at 10 (a stopped heartbeat; recovered on dp 2) and
+    ``kill_mid_write`` at 11 (the generation of step 12 dies, 4 and 8
+    survive); the counters equal the JAX trainer's on the plan
+    (``FT_COUNTERS``, from tests/test_torch_ft.py), every rank returns
+    the same run; a fault-free reference follows the trainer's layouts
+    on the committed cursors (dp 4 to the death's resume step, a plain
+    checkpoint, dp 2 on the survivors from it): the losses equal its
+    bitwise before the death and within ``FT_LOSS_LIMIT`` (phase 22's one
+    bf16 step: the loss is a bf16 number) after; the final fp32 master
+    lies within ``FT_STATE_LIMIT`` of one generation's travel from its
+    (the distance the reference covers in its last ``FT_EVERY`` steps),
+    the step counters equal, and the trainer's master against the
+    reference's one generation back must fail that limit (the control);
+    MTTR and rebuild seconds, each generation's seconds and bytes, a
+    background save from the final layout's ranks, peak memory a rank.
+    (c) ``examples/train_gpt_torch.py --trace-out`` at phase 15's
+    configuration for 6 steps: the trace passes
+    ``obs.validate_chrome_trace`` and holds a ``train_step`` span a step;
+    ms a step traced and untraced; ``OpProfiler`` over one forward and
+    backward of GPT-2 small on the card: its top 10 op types and total
+    against the eager step's wall.  The flash launches of (a), (b) and
+    (c) join the kernel table's ``launches``
+    (``runtime_planes_launches``).
+
 Then the kernel table line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero; without a CUDA device it exits non-zero before
@@ -436,6 +476,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -2613,7 +2654,7 @@ class GradCatcher(ht.optim.Optimizer):
         super().__init__(lr=0.0)
         self.grads = None
 
-    def _apply_updates(self, graph, xs, grads, keep=None):
+    def _apply_updates(self, graph, xs, grads, keep=None, check=None):
         if not (torch.cuda.is_available() and
                 torch.cuda.is_current_stream_capturing()):
             self.grads = [g.detach().clone() for g in grads]
@@ -5027,6 +5068,13 @@ def mesh_rank_main(extra=None):
     refs = {}
     results = []
     for case, spec, shape, sp, opt_kw in job["cases"]:
+        if spec.get("kind") == "ft":
+            # phase 27 (b): the fault-tolerant trainer over the world
+            r = ft_rank(spec, opt_kw, os.path.join(
+                os.path.dirname(job["out"]), "ft_ck"))
+            r.update(case=case, rank=client.rank)
+            results.append(r)
+            continue
         mesh = create_mesh(shape, device="cuda")
         name = spec["name"]
         weights = name in job["weights"]
@@ -5084,7 +5132,8 @@ def mesh_runs(cases, compare=(), **group_kw):
     refs = {}
     tmp = tempfile.mkdtemp(prefix="hetu_mesh_")
     try:
-        for spec in {c[1]["name"]: c[1] for c in cases}.values():
+        for spec in {c[1]["name"]: c[1] for c in cases
+                     if c[1].get("kind") != "ft"}.values():
             name = spec["name"]
             refs[name] = mesh_train(spec, weights=name in compare)
             if name in compare:
@@ -6070,18 +6119,20 @@ def phase_cp():
     t0 = time.perf_counter()
     wall = {}
     cases_4 = cp_cases(CP_LAYOUTS_4)
-    # phase 25 (a) and phase 26 (d) ride on this launch of 4 ranks (after
-    # its cases)
+    # phase 25 (a), phase 26 (d) and phase 27 (b) ride on this launch of 4
+    # ranks (after its cases)
     sw_cases = switch_cases()
     ep_cases = moe_ep_cases()
-    refs_4, runs_4 = mesh_runs(cases_4 + sw_cases + ep_cases,
+    refs_4, runs_4 = mesh_runs(cases_4 + sw_cases + ep_cases + ft_cases(),
                                compare={"gpt2_fp32_2_layers",
                                         sw_cases[0][1]["name"],
                                         "gpt2_moe_fp32_2_layers"}, ranks=4)
-    n4, n_sw = len(cases_4), len(sw_cases)
+    n4, n_sw, n_ep = len(cases_4), len(sw_cases), len(ep_cases)
     SHARED["switch_chains"] = (sw_cases, refs_4[sw_cases[0][1]["name"]],
                                [rk[n4:n4 + n_sw] for rk in runs_4])
-    SHARED["moe_ep"] = (ep_cases, refs_4, [rk[n4 + n_sw:] for rk in runs_4])
+    SHARED["moe_ep"] = (ep_cases, refs_4,
+                        [rk[n4 + n_sw:n4 + n_sw + n_ep] for rk in runs_4])
+    SHARED["ft"] = [rk[n4 + n_sw + n_ep] for rk in runs_4]
     runs_4 = [rk[:n4] for rk in runs_4]
     layouts = cp_layout_rows(CP_LAYOUTS_4, cases_4, refs_4, runs_4)
     wall["four_ranks"] = time.perf_counter() - t0
@@ -6866,6 +6917,577 @@ def phase_moe():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the runtime planes (phase 27)
+# ---------------------------------------------------------------------------
+
+# (a): Llama-3-8B widths, depth 32 -> 2, bf16, a batch of 2 x 4096 tokens
+SENTRY_LAYERS, SENTRY_BATCH, SENTRY_SEQ, SENTRY_STEPS = 2, 2, 4096, 6
+SENTRY_OFF_STEPS = 3
+# the poisoned run: a poisoned attempt before clean step k (the loss spike
+# after the sentry's warm-up of 2 clean steps)
+SENTRY_POISON = {1: "grad_nan", 3: "grad_spike", 4: "loss_spike"}
+# the calls that copy a tensor to the host
+HOST_READS = ("item", "cpu", "tolist", "numpy", "__float__")
+
+# (b): GPT-2 small's widths (vocab 50257), depth 12 -> 2, bf16, flat
+# ZeRO-2, on phase 24's 4 ranks; the fault plan of tests/test_torch_ft.py
+FT_PLAN = [(3, "grad_nan", 0), (6, "loss_spike", 0), (9, "shard_corrupt", 0),
+           (10, "worker_death", 3), (11, "kill_mid_write", 0)]
+FT_STEPS, FT_EVERY, FT_KEEP, FT_TTL = 16, 4, 2, 3.0
+# the JAX trainer's counters on FT_PLAN (tests/test_torch_ft.py holds the
+# port's to them on 4 CPU devices)
+FT_COUNTERS = {"sentry_anomalies": 2, "steps_skipped": 2, "rewinds": 1,
+               "restore_fallbacks": 1, "emergency_flushes": 0,
+               "checkpoints_written": 4, "checkpoint_write_failures": 1,
+               "worker_recoveries": 1}
+# the loss is a bf16 number (2**-4 apart at 11): after the death the
+# losses hold phase 22's rule for bf16 GPT-2 small, one bf16 step
+FT_LOSS_LIMIT = MESH_LOSS_LIMITS["gpt2_small_bf16"]
+# the final fp32 master's distance from the reference's, in units of the
+# distance the reference travels in one generation (FT_EVERY steps): on
+# an H100 a sound run parts 0.028 (the fused flash backward's dQ atomics
+# add in no fixed order), the master against the reference's one
+# generation back 1.0
+FT_STATE_LIMIT = 0.25
+FT_RANKS = 4
+
+# (c): phase 15's configuration, traced, and the op profiler
+TRACE_STEPS = 6
+
+
+@contextlib.contextmanager
+def host_reads():
+    """Counts the calls that copy a CUDA tensor to the host."""
+    box = [0]
+    saved = {n: getattr(torch.Tensor, n) for n in HOST_READS}
+
+    def wrap(orig):
+        def read(t, *a, **k):
+            if t.is_cuda:
+                box[0] += 1
+            return orig(t, *a, **k)
+        return read
+    for n, orig in saved.items():
+        setattr(torch.Tensor, n, wrap(orig))
+    try:
+        yield box
+    finally:
+        for n, orig in saved.items():
+            setattr(torch.Tensor, n, orig)
+
+
+def held_tensors(g, opt):
+    """Every variable and optimizer tensor of the graph, by name."""
+    out = {("var", k): v for k, v in g._var_data.items()}
+
+    def walk(prefix, d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(prefix + (k,), v)
+            elif isinstance(v, torch.Tensor):
+                out[prefix + (k,)] = v
+            elif isinstance(v, list):
+                for i, t in enumerate(v):
+                    out[prefix + (k, i)] = t
+    walk(("opt",), opt._state)
+    return out
+
+
+class HostSnapshot:
+    """The bytes of a set of device tensors copied to one pinned host
+    buffer (the card has no room for a second copy of Adam's state at
+    Llama-3-8B widths), and a bitwise comparison against them, chunk by
+    chunk on the card."""
+
+    CHUNK = 1 << 28
+
+    def __init__(self, tensors):
+        self.sizes = {k: t.numel() * t.element_size()
+                      for k, t in tensors.items()}
+        self.host = torch.empty(sum(self.sizes.values()), dtype=torch.uint8,
+                                pin_memory=True)
+
+    @staticmethod
+    def _bytes(t):
+        return t.detach().reshape(-1).view(torch.uint8)
+
+    def take(self, tensors):
+        off = 0
+        for k, t in tensors.items():
+            n = self.sizes[k]
+            self.host[off:off + n].copy_(self._bytes(t), non_blocking=True)
+            off += n
+        torch.cuda.synchronize()
+
+    def changed(self, tensors):
+        """The names whose bytes differ from the snapshot."""
+        out, off = [], 0
+        for k, t in tensors.items():
+            n, b = self.sizes[k], self._bytes(t)
+            same = True
+            for lo in range(0, n, self.CHUNK):
+                hi = min(n, lo + self.CHUNK)
+                dev = self.host[off + lo:off + hi].to(b.device,
+                                                      non_blocking=True)
+                if not torch.equal(dev, b[lo:hi]):
+                    same = False
+                    break
+            if not same:
+                out.append(str(k))
+            off += n
+        return out
+
+
+def sentry_run(sentry, steps, poison=None):
+    """(a)'s run: ``steps`` Adam steps of Llama-3-8B's widths at 2 layers
+    on seeded cursors, captured; with ``poison`` a poisoned attempt (on a
+    batch of its own) before the clean steps it names, each held bitwise
+    against the state before it.  Each step's host reads are counted."""
+    cfg = llama3_8b_config(num_layers=SENTRY_LAYERS)
+    with ht.graph("define_and_run", create_new=True, device="cuda",
+                  seed=0) as g:
+        ids = ht.parallel_placeholder("int32", (SENTRY_BATCH, SENTRY_SEQ),
+                                      name="input_ids")
+        labels = ht.parallel_placeholder("int32", (SENTRY_BATCH, SENTRY_SEQ),
+                                         name="labels")
+        model = GPTLMHeadModel(cfg)
+        loss = model(ids, labels)
+        opt = ht.optim.AdamOptimizer(lr=3e-4, sentry=sentry)
+        train_op = opt.minimize(loss)
+    g.run([], run_level="alloc")
+
+    def one(x, y):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with host_reads() as box:
+            l, _ = g.run(loss, [loss, train_op], {ids: x, labels: y})
+            lv = float(l)
+            v = opt.sentry.last_verdict() if opt.sentry is not None else None
+        torch.cuda.synchronize()
+        return lv, v, box[0], time.perf_counter() - t
+
+    bad = seeded_batch(cfg.vocab_size, SENTRY_BATCH, SENTRY_SEQ, seed=99)
+    losses, step_s, reads, poisoned = [], [], [], []
+    graphs, snap = None, None
+    for k in range(steps):
+        if poison and k in poison:
+            kind = poison[k]
+            held = held_tensors(g, opt)
+            if snap is None:
+                snap = HostSnapshot(held)
+            t = time.perf_counter()
+            snap.take(held)
+            snap_s = time.perf_counter() - t
+            graphs_before = (g.compile_count, g.captures_total)
+            g.inject_numeric_fault(kind)
+            lv, v, n, dt = one(*bad)
+            t = time.perf_counter()
+            changed = snap.changed(held_tensors(g, opt))
+            rec = {"kind": kind, "before_clean_step": k, "loss": lv,
+                   "verdict": v, "tensors_held": len(held),
+                   "bytes_held": sum(snap.sizes.values()),
+                   "changed_tensors": changed, "host_reads": n,
+                   "ms": dt * 1e3, "snapshot_s": snap_s,
+                   "compare_s": time.perf_counter() - t,
+                   "graphs": [g.compile_count, g.captures_total]}
+            del held
+            poisoned.append(rec)
+            flag = {"grad_nan": "grad_nonfinite", "grad_spike": "grad_spike",
+                    "loss_spike": "loss_spike"}[kind]
+            if not (v["anomaly"] and v[flag]) or changed or \
+                    (g.compile_count, g.captures_total) != graphs_before:
+                raise AssertionError(f"sentry: the poisoned step {rec}")
+        x, y = seeded_batch(cfg.vocab_size, SENTRY_BATCH, SENTRY_SEQ,
+                            seed=100 + k)
+        lv, v, n, dt = one(x, y)
+        if v is not None and v["anomaly"]:
+            raise AssertionError(f"sentry: clean step {k} judged {v}")
+        losses.append(lv)
+        step_s.append(dt)
+        reads.append(n)
+        if graphs is None:
+            graphs = (g.compile_count, g.captures_total)
+        elif (g.compile_count, g.captures_total) != graphs:
+            raise AssertionError(f"sentry: graphs {graphs} -> "
+                                 f"{(g.compile_count, g.captures_total)}")
+    out = {"sentry": sentry, "losses": losses, "step_s": step_s,
+           "ms_per_step": 1e3 * float(np.mean(step_s[1:])),
+           "host_reads_a_step": reads, "poisoned": poisoned,
+           "compile_count": g.compile_count,
+           "captures_total": g.captures_total,
+           "plans": len(g._plan_pool), "captured": g.last_run_captured,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    note("runtime_planes", "sentry run", {k: out[k] for k in (
+        "sentry", "losses", "ms_per_step", "host_reads_a_step",
+        "peak_memory_bytes")})
+    del g, model, ids, labels, loss, train_op, opt, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def sentry_in_captured_step():
+    """(a): the clean run, the poisoned run on the same cursors and a run
+    without the sentry; the clean steps' losses bitwise equal, every
+    step one host read, one captured graph throughout."""
+    clean = sentry_run(True, SENTRY_STEPS)
+    chaos = sentry_run(True, SENTRY_STEPS, SENTRY_POISON)
+    off = sentry_run(False, SENTRY_OFF_STEPS)
+    if chaos["losses"] != clean["losses"]:
+        raise AssertionError(f"sentry: clean losses {chaos['losses']} != "
+                             f"{clean['losses']}")
+    for r in (clean, chaos, off):
+        if set(r["host_reads_a_step"]) != {1} or \
+                (r["compile_count"], r["captures_total"], r["plans"]) != \
+                (1, 1, 1) or not r["captured"]:
+            raise AssertionError(f"sentry: a step's host reads "
+                                 f"{r['host_reads_a_step']}, graphs "
+                                 f"{r['compile_count']}/"
+                                 f"{r['captures_total']}, plans "
+                                 f"{r['plans']}")
+    if any(p["host_reads"] != 1 for p in chaos["poisoned"]):
+        raise AssertionError("sentry: a poisoned step read the host more "
+                             "than once")
+    return {"config": "llama3_8b_2_layers", "layers": SENTRY_LAYERS,
+            "batch": SENTRY_BATCH, "seq": SENTRY_SEQ, "dtype": "bfloat16",
+            "losses": clean["losses"],
+            "poisoned": chaos["poisoned"],
+            "ms_per_step_sentry_on": clean["ms_per_step"],
+            "ms_per_step_poisoned_run": chaos["ms_per_step"],
+            "ms_per_step_sentry_off": off["ms_per_step"],
+            "host_reads_a_step": {"on": clean["host_reads_a_step"],
+                                  "off": off["host_reads_a_step"]},
+            "graphs": [chaos["compile_count"], chaos["captures_total"]],
+            "peak_memory_bytes": max(r["peak_memory_bytes"]
+                                     for r in (clean, chaos, off))}
+
+
+def ft_spec():
+    cfg = GPTConfig(vocab_size=50257, num_layers=2, dtype="bfloat16")
+    return {"name": "gpt2_small_2_layers_ft", "kind": "ft",
+            "cfg": dataclasses.asdict(cfg), "batch": 8, "seq": 1024,
+            "lr": 3e-4, "steps": FT_STEPS}
+
+
+def ft_cases():
+    """(b)'s case for ``mesh_rank_main``."""
+    return [["ft", ft_spec(), {"dp": FT_RANKS}, False,
+             {"zero": 2, "grad_comm": "fp32", "flat_state": True}]]
+
+
+def ft_rank(spec, opt_kw, ckdir):
+    """(b) in one rank: the fault-tolerant trainer over the world's ranks
+    under ``FT_PLAN`` (a worker a rank, heartbeats on a coordinator of
+    rank 0), a background save of the final layout, then a fault-free run
+    of the first layout on the committed cursors."""
+    import torch.distributed as dist
+    from hetu_tpu_torch.elastic import (FaultTolerantTrainer, TrainBuild,
+                                        WorkerMonitor)
+    from hetu_tpu_torch.fault import FaultEvent, FaultPlan
+    from hetu_tpu_torch.parallel import P, create_mesh
+    from hetu_tpu_torch.resilience import list_generations, verify_generation
+    from hetu_tpu_torch.resilience.generations import generation_dir
+    world = dist.get_world_size()
+    cfg = GPTConfig(**{**spec["cfg"], "sp": False})
+    batch, seq = spec["batch"], spec["seq"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+    def build(dp, ranks):
+        mesh = create_mesh({"dp": dp}, device="cuda", ranks=list(ranks)[:dp])
+        with ht.graph("define_and_run", create_new=True, mesh=mesh, seed=0,
+                      device=mesh.device) as g:
+            ids = ht.parallel_placeholder("int32", (batch, seq),
+                                          pspec=P("dp", None))
+            labels = ht.parallel_placeholder("int32", (batch, seq),
+                                             pspec=P("dp", None))
+            model = GPTLMHeadModel(cfg)
+            loss = model(ids, labels)
+            opt = ht.optim.AdamOptimizer(lr=spec["lr"], sentry=True,
+                                         **opt_kw)
+            train_op = opt.minimize(loss)
+        if mesh.in_mesh:
+            g.run([], run_level="alloc")
+
+        def step_fn(cursor):
+            x, y = seeded_batch(cfg.vocab_size, batch, seq, seed=500 + cursor)
+            out = g.run(loss, [loss, train_op], {ids: x, labels: y})
+            return float(out[0])
+        return TrainBuild(graph=g, model=model, optimizer=opt,
+                          step_fn=step_fn)
+
+    t0 = time.perf_counter()
+    mon = WorkerMonitor(world, list(range(world)), ttl=FT_TTL,
+                        heartbeat_interval=0.1)
+    tr = FaultTolerantTrainer(build, list(range(world)), monitor=mon,
+                              checkpoint_dir=ckdir,
+                              checkpoint_every=FT_EVERY,
+                              keep_checkpoints=FT_KEEP)
+    plan = FaultPlan(events=[FaultEvent(step=s, kind=k, target=t)
+                             for s, k, t in FT_PLAN])
+    losses = tr.train(FT_STEPS, fault_plan=plan)
+    train_s = time.perf_counter() - t0
+    out = {"losses": losses, "metrics": tr.metrics_summary(),
+           "recoveries": [{k: v for k, v in r.items()
+                           if k not in ("killed_at", "_t0")}
+                          for r in tr.recoveries],
+           "writes": tr.writes, "cursors": tr.committed_cursors(),
+           "burned": list(tr.burned_cursors), "dp": tr.dp,
+           "in_mesh": tr.build.graph.mesh.in_mesh,
+           "generations": {str(s): verify_generation(
+               generation_dir(ckdir, s))[0] for s in list_generations(ckdir)},
+           "attempts": tr.attempts, "train_s": train_s}
+    mon.close()
+    if dist.get_rank() == 0:
+        note("runtime_planes", "ft", {k: out[k] for k in (
+            "losses", "metrics", "dp", "generations", "train_s")})
+    # the multi-process background save of the final layout: the writer
+    # threads meet at the coordinator's barriers; the mesh's first rank,
+    # which writes the index and the marker last, reads the bytes
+    g = tr.build.graph
+    if g.mesh.in_mesh:
+        d = os.path.join(ckdir, "background")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        h = ht_ckpt.save_checkpoint(tr.build.model, tr.build.optimizer, d,
+                                    step=FT_STEPS, background=True)
+        returned = time.perf_counter() - t
+        h.wait(timeout=600)
+        out["background_save"] = {"returned_s": returned,
+                                  "seconds": time.perf_counter() - t}
+        if g.mesh.position == 0:
+            out["background_save"]["bytes"] = sum(
+                os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["flash"] = flash_counts()
+    # the fault-free reference on the committed cursors, along the
+    # trainer's layouts (its launches apart): the first layout up to the
+    # death's resume step, a plain checkpoint of it (no generation), the
+    # survivors' layout from that checkpoint to the end, its fp32 master
+    # kept one generation (FT_EVERY steps) before the end
+    death = [r for r in tr.recoveries if r["kind"] == "worker_death"]
+    pre = death[0]["resumed_from_step"] if death else len(out["cursors"])
+    ref = build(world, list(range(world)))
+    out["ref_losses"] = [ref.step_fn(c) for c in out["cursors"][:pre]]
+    if death:
+        d = os.path.join(ckdir, "reference")
+        ht_ckpt.save_checkpoint(ref.model, ref.optimizer, d, step=pre)
+        dist.barrier()
+        del ref
+        survivors = [r for r in range(world) if r not in death[0]["dead"]]
+        ref = build(tr.dp, survivors)
+        ht_ckpt.load_checkpoint(ref.model, ref.optimizer, d)
+    if ref.graph.mesh.in_mesh:
+        rest = out["cursors"][pre:]
+        out["ref_losses"] += [ref.step_fn(c) for c in rest[:-FT_EVERY]]
+        gen_before = [m.clone() for m in ref.optimizer._state["flat_master"]]
+        out["ref_losses"] += [ref.step_fn(c) for c in rest[-FT_EVERY:]]
+        # the final fp32 master against the reference's, in units of one
+        # generation's travel (the reference's last FT_EVERY steps): the
+        # card's atomics part them by rounding, a restore of another
+        # generation or a rewind that lost or kept steps by about one
+        mine = tr.build.optimizer._state["flat_master"]
+        theirs = ref.optimizer._state["flat_master"]
+
+        def sq(a, b):
+            return sum(float((x.double() - y.double()).pow(2).sum())
+                       for x, y in zip(a, b))
+        out["state"] = {
+            "chunks": len(mine),
+            "unequal": sum(not torch.equal(x, y)
+                           for x, y in zip(mine, theirs)),
+            "max_abs_diff": max(float((x.double() - y.double()).abs().max())
+                                for x, y in zip(mine, theirs)),
+            "sq_gap": sq(mine, theirs),
+            "sq_generation": sq(theirs, gen_before),
+            "sq_control": sq(mine, gen_before),
+            "step": [float(tr.build.optimizer._state["step"]),
+                     float(ref.optimizer._state["step"])]}
+        del gen_before
+    tr.close()
+    dist.barrier()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ft_rows(runs):
+    """(b)'s gates over the ranks' readings."""
+    first = runs[0]
+    for r in runs:
+        for key in ("losses", "metrics", "cursors", "burned", "dp"):
+            if r[key] != first[key]:
+                raise AssertionError(f"ft: rank {r['rank']} {key} "
+                                     f"{r[key]} != {first[key]}")
+    m = {k: first["metrics"][k] for k in FT_COUNTERS}
+    if m != FT_COUNTERS:
+        raise AssertionError(f"ft: counters {m} != JAX's {FT_COUNTERS}")
+    death = [rec for rec in first["recoveries"]
+             if rec["kind"] == "worker_death"]
+    if len(death) != 1 or death[0]["dp"] != 2:
+        raise AssertionError(f"ft: recoveries {first['recoveries']}")
+    pre = death[0]["resumed_from_step"]
+    got, want = first["losses"], first["ref_losses"]
+    if got[:pre] != want[:pre]:
+        raise AssertionError(f"ft: losses before the death {got[:pre]} != "
+                             f"{want[:pre]}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    steps = [bf16_steps(a, b) for a, b in zip(got, want)]
+    if len(got) != len(want) or not all(np.isfinite(got)) or \
+            max(steps) > FT_LOSS_LIMIT[1]:
+        raise AssertionError(f"ft: losses {got} against {want}: "
+                             f"{max(steps)} bf16 steps > {FT_LOSS_LIMIT}")
+    # the loss is too coarse to see a wrong restore (bf16, 2**-4 apart at
+    # 11, and lr 3e-4 barely moves it): the final fp32 master over the
+    # last mesh's ranks is held to the reference's, its gap within
+    # FT_STATE_LIMIT of one generation's travel, the step counters equal;
+    # the gate must fail the trainer's master against the reference's one
+    # generation back (the control)
+    states = [r["state"] for r in runs if "state" in r]
+    if len(states) != first["dp"]:
+        raise AssertionError(f"ft: {len(states)} ranks hold a state")
+    travel = sum(st["sq_generation"] for st in states)
+    gap = math.sqrt(sum(st["sq_gap"] for st in states) / travel)
+    control = math.sqrt(sum(st["sq_control"] for st in states) / travel)
+    if not gap <= FT_STATE_LIMIT < control or \
+            any(st["step"][0] != st["step"][1] for st in states):
+        raise AssertionError(f"ft: the final master {gap:.4g} generations "
+                             f"from the reference's (limit "
+                             f"{FT_STATE_LIMIT}, control {control:.4g}): "
+                             f"{states}")
+    if first["generations"].get("12") is not False or \
+            not all(first["generations"].get(s) for s in ("4", "8")):
+        raise AssertionError(f"ft: generations {first['generations']}")
+    return {"config": "gpt2_small_2_layers", "ranks": len(runs),
+            "plan": FT_PLAN, "losses": got, "ref_losses": want,
+            "max_rel_loss_gap": max(rel), "loss_gap_bf16_steps": steps,
+            "loss_limit": FT_LOSS_LIMIT, "bitwise_steps": pre,
+            "final_master_gap_generations": gap,
+            "control_gap_generations": control, "state_limit": FT_STATE_LIMIT,
+            "final_state": states,
+            "metrics": first["metrics"], "counters_jax": FT_COUNTERS,
+            "recoveries": [{k: rec.get(k) for k in
+                            ("kind", "reason", "dead", "resumed_from_step",
+                             "rewound_steps", "restore_fallbacks", "dp",
+                             "rebuild_s", "mttr_s")}
+                           for rec in first["recoveries"]],
+            "generation_writes": first["writes"],
+            "background_save": [r.get("background_save") for r in runs],
+            "generations": first["generations"],
+            "in_mesh": [r["in_mesh"] for r in runs],
+            "train_s": [r["train_s"] for r in runs],
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in runs]}
+
+
+def trace_and_profile():
+    """(c): ``examples/train_gpt_torch.py --trace-out`` at phase 15's
+    configuration (GPT-2 small, 12 layers, bf16) for TRACE_STEPS steps,
+    the same run untraced; then ``OpProfiler`` over one forward and
+    backward of the model on the card against the eager step's wall."""
+    from hetu_tpu_torch import obs
+    from hetu_tpu_torch.utils import OpProfiler
+    entry = load_entry()
+    tmp = tempfile.mkdtemp(prefix="trace_")
+    try:
+        data = os.path.join(tmp, "tokens.npy")
+        entry_tokens(data)
+        path = os.path.join(tmp, "trace.json")
+        args = ENTRY_ARGS + ["--data", data, "--steps", str(TRACE_STEPS),
+                             "--log-every", str(TRACE_STEPS)]
+        plain = entry.main(args)
+        traced = entry.main(args + ["--trace-out", path])
+        with open(path) as f:
+            doc = json.load(f)
+        obs.validate_chrome_trace(doc)
+        steps = sum(1 for e in doc["traceEvents"]
+                    if e["name"] == "train_step")
+        if steps != TRACE_STEPS or traced["trace"]["train_steps"] != steps:
+            raise AssertionError(f"trace: {steps} train_step spans, want "
+                                 f"{TRACE_STEPS}")
+        trace = {"events": traced["trace"]["events"],
+                 "train_step_spans": steps, "bytes": os.path.getsize(path),
+                 "ms_per_step_traced": traced["ms_per_step"],
+                 "ms_per_step_untraced": plain["ms_per_step"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg, batch, seq = train_config("gpt2_small")
+    with ht.graph("define_and_run", create_new=True, device="cuda",
+                  seed=0) as g:
+        ids = ht.parallel_placeholder("int32", (batch, seq))
+        labels = ht.parallel_placeholder("int32", (batch, seq))
+        model = GPTLMHeadModel(cfg)
+        loss = model(ids, labels)
+        grads = g.make_gradients(loss, g.trainable_variables)
+    g.run([], run_level="alloc")
+    x, y = seeded_batch(cfg.vocab_size, batch, seq, seed=0)
+    feeds = {ids: x, labels: y}
+    with capture.eager():
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            g.run([loss] + grads, feed_dict=feeds, run_level="compute_only")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+    prof = OpProfiler(g)
+    records = prof.profile([loss] + grads, feeds, warmup=1, iters=3)
+    if not records or records[-1]["op_type"] != "gradients":
+        raise AssertionError("op profiler: no backward record")
+    by_type = prof.by_type()
+    out = {"trace": trace, "op_profile": {
+        "ops": len(records), "total_ms": prof.total() * 1e3,
+        "eager_step_ms": 1e3 * float(np.mean(walls[1:])),
+        "top_types_ms": {k: v * 1e3 for k, v in
+                         list(by_type.items())[:10]},
+        "top_ops": prof.summary(top=10).splitlines()}}
+    del g, model, loss, grads, prof, records
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_runtime_planes():
+    """Phase 27: the runtime planes (see the module docstring).  (b)
+    reads phase 24's launch of 4 ranks where it ran, else starts its
+    own."""
+    t0 = time.perf_counter()
+    wall = {}
+    reset_flash_counts()
+    sentry = sentry_in_captured_step()
+    a_flash = flash_counts()
+    wall["a"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    if "ft" in SHARED:
+        runs = SHARED["ft"]
+        b_in = "phase 24's launch of 4 ranks"
+    else:
+        _, runs = mesh_runs(ft_cases(), ranks=FT_RANKS)
+        runs = [rk[0] for rk in runs]
+        b_in = "its own launch"
+    ft = ft_rows(runs)
+    wall["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    reset_flash_counts()
+    trace = trace_and_profile()
+    c_flash = flash_counts()
+    wall["c"] = time.perf_counter() - t
+    flash = flash_totals([a_flash, c_flash] + [r["flash"] for r in runs])
+    out = {"sentry": sentry, "fault_tolerant": ft, "ft_ran_in": b_in,
+           **trace,
+           "flash_launches": {k: v["launches"] for k, v in flash.items()},
+           "flash_launches_by_route": {k: v["by_route"]
+                                       for k, v in flash.items()},
+           "part_wall_s": wall, "nvidia_smi": smi_line(),
+           "wall_s": time.perf_counter() - t0}
+    emit({"phase": "runtime_planes", **out})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -6906,6 +7528,7 @@ def main():
     cpar = phase_cp()
     switch = phase_switch()
     moe = phase_moe()
+    planes = phase_runtime_planes()
     # phase 20's measured runs, spec and non-spec, add their launches:
     # kernel 5 in the full-head runs, (d)'s and (c)'s, kernel 6 in the MLA
     # runs (bf16 pages on wgmma, fp32 pages on mma.sync)
@@ -6969,25 +7592,28 @@ def main():
     # phase 26's training runs (b) and expert-parallel ranks (d), 3xTF32
     moe_launches = moe["flash_launches"]
     moe_routes = moe["flash_launches_by_route"]
+    # phase 27: (a) 3xTF32 (the Llama path), (b) and (c) on wgmma
+    rt_launches = planes["flash_launches"]
+    rt_routes = planes["flash_launches_by_route"]
     for name, at in where.items():
         wgmma = sum(t["wgmma_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["wgmma"]
                 for b in bert_runs) + graph_launches[name] + \
             mesh_routes[name]["wgmma"] + pipe_routes[name]["wgmma"] + \
             cp_routes[name]["wgmma"] + sw_routes[name]["wgmma"] + \
-            entry_fl[name]["wgmma"]
+            entry_fl[name]["wgmma"] + rt_routes[name]["wgmma"]
         tf32 = sum(t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["3xtf32"]
                 for b in bert_runs) + mesh_routes[name]["3xtf32"] + \
             pipe_routes[name]["3xtf32"] + cp_routes[name]["3xtf32"] + \
             sw_routes[name]["3xtf32"] + entry_fl[name]["3xtf32"] + \
-            moe_routes[name]["3xtf32"]
+            moe_routes[name]["3xtf32"] + rt_routes[name]["3xtf32"]
         mma = sum(t["tensor_core_launches"][name] - t["wgmma_launches"][name]
                   - t["tf32_launches"][name] for t in train) + \
             sum(b["flash_launches_by_route"][name]["mma.sync"]
                 for b in bert_runs) + sw_routes[name]["mma.sync"] + \
             entry_fl[name]["tensor_core"] - entry_fl[name]["wgmma"] - \
-            entry_fl[name]["3xtf32"]
+            entry_fl[name]["3xtf32"] + rt_routes[name]["mma.sync"]
         r = flash[at][name]
         # the all-bf16 and the all-fp32 readings at both training shapes
         keys = ("ms", "device_ms", "bound_ms", "library_ms",
@@ -7008,7 +7634,8 @@ def main():
             "launches": sum(t["flash_launches"][name] for t in train) +
             sum(b["flash_launches"][name] for b in bert_runs) +
             graph_launches[name] + mesh_launches[name] + pipe_launches[name]
-            + cp_launches[name] + sw_launches[name] + moe_launches[name],
+            + cp_launches[name] + sw_launches[name] + moe_launches[name]
+            + rt_launches[name],
             "noncausal_launches": sum(b["flash_launches"][name]
                                       for b in bert_runs),
             "graph_layer_launches": graph_launches[name],
@@ -7024,6 +7651,8 @@ def main():
             "switch_entry_launches": switch["entry_flash_launches"][name],
             "moe_launches": moe_launches[name],
             "moe_launches_by_route": moe_routes[name],
+            "runtime_planes_launches": rt_launches[name],
+            "runtime_planes_launches_by_route": rt_routes[name],
             "wgmma_launches": wgmma,
             "launches_by_route": {"wgmma": wgmma, "3xtf32": tf32,
                                   "mma.sync": mma},

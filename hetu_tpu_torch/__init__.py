@@ -43,7 +43,7 @@ builds ``graph(mesh=create_mesh({"dp": 2, "tp": 2}))`` over its local
 shards; ``examples/train_gpt_torch.py --dp 2 --tp 2`` launches the ranks
 itself.
 """
-from . import nn, optim, parallel
+from . import nn, obs, optim, parallel, resilience
 from .core.device import (Device, DeviceGroup, DeviceGroupUnion, DeviceType,
                           resolve_device)
 from .core.dtype import (DataType, bfloat16, bool_, float4, float16, float32,

@@ -1,25 +1,25 @@
 """Elastic training (Malleus; counterpart of ``hetu_tpu.elastic``):
-straggler profiling, the heterogeneity-aware strategy solver, and the
-SPMD ``Trainer`` that profiles, re-solves and hot-switches the graph
-between parallel layouts (``parallel.switch``).
+straggler profiling, the heterogeneity-aware strategy solver, the SPMD
+``Trainer`` that profiles, re-solves and hot-switches the graph between
+parallel layouts (``parallel.switch``), and the fault plane
+(``FaultTolerantTrainer``, ``TrainBuild``, ``WorkerMonitor``: checkpoint,
+detect, re-plan, verified restore, and the numeric sentry's ladder).
 
-The JAX package's fault plane (``FaultTolerantTrainer``, ``TrainBuild``,
-``WorkerMonitor``: ROADMAP queue 1 item 15, it needs ``resilience``) and
-its ``ElasticMPMDTrainer`` (item 11b: rank processes for a MPMD stage) are
-not ported; asking this package for them raises ``NotImplementedError``
-naming the item.
+The JAX package's ``ElasticMPMDTrainer`` (item 11b: rank processes for a
+MPMD stage) is not ported; asking this package for it raises
+``NotImplementedError`` naming the item.
 """
+from .ft import (TRAINER_COUNTERS, FaultTolerantTrainer, TrainBuild,
+                 WorkerMonitor, write_recovery_report)
 from .straggler import Straggler, StragglerWorkload
 from .strategy import Strategy, StrategyModel
 from .trainer import Trainer
 
-__all__ = ["Straggler", "StragglerWorkload", "Strategy", "StrategyModel",
-           "Trainer"]
+__all__ = ["FaultTolerantTrainer", "Straggler", "StragglerWorkload",
+           "Strategy", "StrategyModel", "TRAINER_COUNTERS", "TrainBuild",
+           "Trainer", "WorkerMonitor", "write_recovery_report"]
 
 _LATER = {
-    "FaultTolerantTrainer": "item 15 (the fault plane needs resilience)",
-    "TrainBuild": "item 15 (the fault plane needs resilience)",
-    "WorkerMonitor": "item 15 (the fault plane needs resilience)",
     "ElasticMPMDTrainer": "item 11b (rank processes for a MPMD stage)",
 }
 

@@ -16,9 +16,9 @@ The controller owns no RNG (all randomness lives in the seeded
 :class:`~hetu_tpu_torch.fault.plan.FaultPlan`) and the transport-attempt
 ordinal is a plain counter, so replaying a plan against a trace injects
 the same faults at the same instants.  The training-plane kinds
-(``TRAINING_KINDS``) are consumed only by a fault-tolerant trainer,
-which comes to the port with the runtime planes: a serving controller
-refuses them.
+(``TRAINING_KINDS``) are consumed only by the fault-tolerant trainer
+(``elastic.FaultTolerantTrainer``): a serving controller records them in
+its trace and audit log and ignores them, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -46,11 +46,6 @@ class ChaosController:
             self._apply(cluster, ev, now)
 
     def _apply(self, cluster, ev: FaultEvent, now: float) -> None:
-        if ev.kind in TRAINING_KINDS:
-            raise NotImplementedError(
-                f"fault kind {ev.kind!r}: the fault-tolerant trainer that "
-                f"consumes training-plane faults comes with the runtime "
-                f"planes (ROADMAP queue 1 item 15)")
         tr = cluster.tracer
         if tr.enabled:
             tr.instant("fault", track="chaos", ts=now, kind=ev.kind,
@@ -64,6 +59,12 @@ class ChaosController:
         if ev.kind == "coord_refuse":
             if cluster.server is not None:
                 cluster.server.refuse_for(float(ev.duration))
+            return
+        if ev.kind in TRAINING_KINDS:
+            # training-plane events (worker death, numeric sentry,
+            # checkpoint durability) reaching a serving cluster are a
+            # plan-authoring error; ignored rather than corrupt state
+            # (elastic.FaultTolerantTrainer consumes them)
             return
         r = cluster.replicas[ev.target]
         if ev.kind == "crash":

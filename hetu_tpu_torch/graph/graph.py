@@ -105,8 +105,25 @@ specs, and every captured step of the old strategy is dropped: the next
 run of each plan captures again.  ``run(cur_strategy_id=k)`` selects a
 strategy whose mesh is the graph's current one.  A rank outside the new
 mesh holds nothing and takes no step (``mesh.in_mesh``); it still joins
-the next switch.  The numeric sentry is ported in a later slice and
-raises ``NotImplementedError``.
+the next switch.
+
+The numeric sentry (``Optimizer(sentry=...)``, ``resilience.sentry``):
+an UPDATE plan of a sentried optimizer takes one more feed, an int32
+injection code (0 clean; ``inject_numeric_fault(kind)`` arms the next
+step's), fed through the plan's static buffers, so poisoned and clean
+steps replay one captured graph.  The step poisons the rank's loss and
+gradients by the code's factor (1.0 when clean), ANDs the verdict into
+the update's ``keep`` and returns the loss and the verdict as one vector;
+``run`` copies it to the host once and returns the loss as a host
+tensor, the verdict's copy beside it (``NumericSentry.last_verdict``).
+So a step makes one device-to-host copy with the sentry on, as the
+caller's read of the loss makes one with it off.
+
+Under a tracer (``obs.install_tracer``) ``run`` records a ``train_step``
+(or ``forward``) span on the ``train`` track with ``feed``,
+``executable`` and ``commit`` children, as the JAX package's does; the
+``executable`` span synchronizes the card when it is recorded, so its
+wall covers the step's device work.
 """
 from __future__ import annotations
 
@@ -597,11 +614,12 @@ class DefineByRunGraph(Graph):
 class _Plan:
     """A plan-pool entry: the topological order, the frees, the run level,
     the recompute regions and the ops they keep (``None``: no recompute),
-    whether the forward offloads what it saves, and on the card the
-    static feed buffers and the captured step."""
+    whether the forward offloads what it saves, on the card the static
+    feed buffers and the captured step, and under a numeric sentry the
+    loss's dtype (the step returns it packed with the verdict in fp32)."""
 
     __slots__ = ("order", "frees", "level", "regions", "saved", "offload",
-                 "feeds", "step")
+                 "feeds", "step", "loss_dtype")
 
     def __init__(self, order: List[OpNode], frees: List[List[int]],
                  level: "RunLevel", regions=None, saved=None,
@@ -610,6 +628,7 @@ class _Plan:
         self.regions, self.saved, self.offload = regions, saved, offload
         self.feeds: Dict[int, torch.Tensor] = {}
         self.step: Optional[capture.CapturedStep] = None
+        self.loss_dtype: Optional[torch.dtype] = None
 
 
 class DefineAndRunGraph(Graph):
@@ -629,6 +648,10 @@ class DefineAndRunGraph(Graph):
         # provisional overrides are cleared on all of them at each bind
         self._derived_dims: Dict[int, DerivedDim] = {}
         self.last_run_captured = False
+        # the numeric sentry's injection code: a scalar placeholder fed
+        # to UPDATE plans of a sentried optimizer, and the next value
+        self._sentry_tensor: Optional[Tensor] = None
+        self._sentry_next_code = 0
 
     def _storage_replaced(self) -> None:
         for entry in self._plan_pool.values():
@@ -732,9 +755,32 @@ class DefineAndRunGraph(Graph):
             entry.feeds = {}
         self._storage_replaced()
 
-    def inject_numeric_fault(self, *args, **kwargs):
-        raise NotImplementedError("the numeric sentry is ported in a later "
-                                  "slice (resilience)")
+    # -- numeric sentry ---------------------------------------------------
+
+    def _sentry_code_tensor(self) -> Tensor:
+        if self._sentry_tensor is None:
+            t = Tensor((), "int32", name="_sentry_code", graph=self)
+            self.add_placeholder(t)
+            self._sentry_tensor = t
+        return self._sentry_tensor
+
+    def inject_numeric_fault(self, kind: str) -> None:
+        """Arm a one-shot numeric fault for the NEXT UPDATE run
+        (``grad_nan``, ``grad_spike``, ``loss_spike``): the fed code makes
+        the step poison its own gradients or loss at the sentry's seam."""
+        from ..resilience.sentry import INJECT_CODES
+        if kind not in INJECT_CODES:
+            raise ValueError(f"unknown numeric fault {kind!r}; have "
+                             f"{sorted(INJECT_CODES)}")
+        self._sentry_next_code = INJECT_CODES[kind]
+
+    @staticmethod
+    def _sentry_for(update_node, run_level) -> Optional[Any]:
+        """The sentry of an UPDATE plan's optimizer, or None: one rule
+        for the feed, the plan and the step."""
+        if update_node is None or run_level != RunLevel.UPDATE:
+            return None
+        return getattr(update_node.attrs["optimizer"], "sentry", None)
 
     # -- shape buckets ----------------------------------------------------
 
@@ -977,6 +1023,7 @@ class DefineAndRunGraph(Graph):
         feeds into the plan's static buffers and runs the step body over
         them, captured on the card unless ``capture.eager()`` is open,
         eagerly on the CPU."""
+        from ..obs.tracer import get_tracer
         if not isinstance(fetches, (list, tuple)):
             fetches = [fetches]
         fetches = list(fetches)
@@ -986,6 +1033,25 @@ class DefineAndRunGraph(Graph):
         if run_level == RunLevel.TOPO:
             return self._topo_from([f for f in fetches
                                     if isinstance(f, Tensor)])
+        tr = get_tracer()
+        has_update = any(isinstance(f, Tensor) and f.producer is not None
+                         and f.producer.op_type == "update" for f in fetches)
+        step_sp = tr.begin(
+            "train_step" if has_update else "forward", track="train",
+            run_level=run_level.value, strategy=self.cur_strategy_id) \
+            if tr.enabled else None
+        try:
+            return self._run_plan(tr, fetches, feed_dict, num_micro_batches,
+                                  run_level, static)
+        finally:
+            if step_sp is not None:
+                tr.end(step_sp)
+
+    def _run_plan(self, tr, fetches, feed_dict, num_micro_batches,
+                  run_level, static: bool):
+        """The body of :meth:`_run`: the feeds, the plan, the step (or
+        its replay) and the fetches, each phase a span under a tracer."""
+        feed_sp = tr.begin("feed", track="train") if tr.enabled else None
         M = int(num_micro_batches)
         if M < 1:
             raise ValueError(f"num_micro_batches must be >= 1, got {M}")
@@ -1013,14 +1079,33 @@ class DefineAndRunGraph(Graph):
         for t in self._var_tensors.values():
             self._materialize_var(t)
         if run_level == RunLevel.ALLOC:
+            if feed_sp is not None:
+                tr.end(feed_sp)
             return []
         if run_level == RunLevel.GRAD and update_node is not None:
             for x in update_node.attrs["xs"]:
                 if x.id not in self._grad_accum:
                     self._grad_accum[x.id] = torch.zeros_like(
                         self._var_data[x.id])
+        sentry = self._sentry_for(update_node, run_level)
+        loss_pos = None
+        if sentry is not None:
+            loss_t = update_node.attrs["grad_node"].attrs["loss"]
+            loss_pos = next((i for i, f in enumerate(real_fetches)
+                             if f.id == loss_t.id), None)
+            if loss_pos is None:
+                raise ValueError(
+                    "numeric sentry needs the loss among the fetches (the "
+                    "verdict rides the loss's host copy): fetch "
+                    f"{loss_t.name} beside the update")
+            # a value, never a shape: an injection replays the same plan
+            feeds[self._sentry_code_tensor()] = np.asarray(
+                self._sentry_next_code, dtype=np.int32)
+            self._sentry_next_code = 0
         entry = self._plan(real_fetches, feeds, M, run_level, update_node)
         feeds = self._feed_tensors(feeds, entry, static)
+        if feed_sp is not None:
+            tr.end(feed_sp, n_feeds=len(feeds), micro_batches=M)
 
         def body():
             return self._step(entry, feeds, M, real_fetches, update_node)
@@ -1028,6 +1113,9 @@ class DefineAndRunGraph(Graph):
         self.last_run_captured = static and self.device.type == "cuda" \
             and not capture.is_eager() and not entry.offload \
             and not self._gloo_mesh()
+        exec_sp = tr.begin("executable", track="train",
+                           captured=self.last_run_captured) \
+            if tr.enabled else None
         if self.last_run_captured:
             if entry.step is None:
                 entry.step = self._captures.get(
@@ -1035,9 +1123,24 @@ class DefineAndRunGraph(Graph):
             fetch_vals = [v.clone() for v in entry.step()]
         else:
             fetch_vals = body()
+        if exec_sp is not None:
+            # the replay returns once it is launched: a recorded span
+            # waits for the device, so its wall is the step's
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            tr.end(exec_sp)
+        commit_sp = tr.begin("commit", track="train") if tr.enabled \
+            else None
         out: List[Optional[torch.Tensor]] = list(fetch_vals)
+        if loss_pos is not None:
+            # the step's one device-to-host copy: the loss and the verdict
+            host = out[loss_pos].cpu()
+            sentry._host_packet = host
+            out[loss_pos] = host[0].to(entry.loss_dtype)
         for i in update_positions:
             out.insert(i, None)
+        if commit_sp is not None:
+            tr.end(commit_sp)
         return out
 
     def _gloo_mesh(self) -> bool:
@@ -1228,6 +1331,16 @@ class DefineAndRunGraph(Graph):
             del env, leaves
         if M > 1:
             fetch_vals = [v / M if v.ndim == 0 else v for v in fetch_vals]
+        sentry = self._sentry_for(update_node, entry.level)
+        if sentry is not None:
+            # the chaos seam: the rank's own loss and gradients times the
+            # fed code's factor (1.0 when clean), before they are reduced,
+            # where a real silent fault would surface
+            code = feeds[self._sentry_tensor]
+            li = next(i for i, f in enumerate(real_fetches)
+                      if f.id == loss_t.id)
+            fetch_vals[li] = sentry.inject_loss(fetch_vals[li], code)
+            grads = sentry.inject_grads(grads, code)
         dp_axis = update_node.attrs["optimizer"].dp_axis \
             if update_node is not None else "dp"
         from ..parallel import comm
@@ -1255,13 +1368,22 @@ class DefineAndRunGraph(Graph):
             finite = check_finite(grads) if scaler is not None else None
             if finite is not None and self.mesh is not None:
                 finite = self._all_finite(finite)
-            update_node.attrs["optimizer"]._apply_updates(self, xs, grads,
-                                                          keep=finite)
+            # the sentry's verdict reads the reduced loss and the
+            # optimizer's global sum of squares; its ok is ANDed into keep
+            check = None
+            if sentry is not None:
+                loss_v = fetch_vals[li]
+                check = lambda sq: sentry.update(loss_v, sq)  # noqa: E731
+            update_node.attrs["optimizer"]._apply_updates(
+                self, xs, grads, keep=finite, check=check)
             if scaler is not None:
                 scaler.update_state(sst, finite)
             for a in accum:
                 if a is not None:
                     a.zero_()
+            if sentry is not None:
+                entry.loss_dtype = fetch_vals[li].dtype
+                fetch_vals[li] = sentry.packet(fetch_vals[li])
         return fetch_vals
 
     def _eval_regions(self, entry: _Plan, env: Dict[int, torch.Tensor]

@@ -1,0 +1,202 @@
+"""Trace exporters: Chrome trace-event JSON (Perfetto) + JSONL journal
+(counterpart of ``hetu_tpu.obs.export``; no JAX in the JAX module, so the
+port keeps its own copy over its own ``obs.tracer.Span``).
+
+Two formats over the same :class:`~hetu_tpu_torch.obs.tracer.Span` stream:
+
+* :func:`chrome_trace` — the Chrome trace-event format
+  (``{"traceEvents": [...]}``) loadable directly in Perfetto
+  (https://ui.perfetto.dev) or ``chrome://tracing``.  Each tracer
+  *track* becomes a named thread row — serving runs get one track per
+  request (``req N``) plus ``engine``/``scheduler`` rows, training runs
+  get per-phase ``train`` / ``pipeN/stageM`` rows.  Timestamps convert
+  to microseconds (the format's unit).
+* :func:`write_jsonl` — a flat one-event-per-line journal readable with
+  ``utils.metrics.load_jsonl`` (the repo's interchange format), for
+  continuous shipping / offline joins.
+
+Plus the serving-timeline views the examples and the gapless-timeline
+CI gate share: :func:`request_timelines` / :func:`timeline_summary`.
+"""
+from __future__ import annotations
+
+import json
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Sequence
+
+from .tracer import Span
+
+__all__ = ["chrome_trace", "write_chrome_trace", "events_to_jsonl",
+           "write_jsonl", "validate_chrome_trace", "request_timelines",
+           "timeline_summary"]
+
+
+def _jsonable(v: Any) -> Any:
+    """Attrs may carry numpy or torch scalars; coerce to plain JSON
+    types."""
+    if isinstance(v, (str, bool, int, float)) or v is None:
+        return v
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    try:
+        import numpy as np
+        if isinstance(v, np.integer):
+            return int(v)
+        if isinstance(v, np.floating):
+            return float(v)
+    except Exception:
+        pass
+    try:
+        return float(v)
+    except Exception:
+        return str(v)
+
+
+def chrome_trace(events: Sequence[Span], pid: int = 0,
+                 process_name: str = "hetu-tpu") -> Dict[str, Any]:
+    """Render events as a chrome-trace document.
+
+    Every emitted record (metadata included) carries ``pid``/``tid``/
+    ``ts``/``ph`` so schema validation is uniform; complete spans add
+    ``dur``.  Track rows keep first-appearance order via
+    ``thread_sort_index`` metadata, so Perfetto shows the engine row
+    above the per-request rows in arrival order.
+    """
+    out: List[Dict[str, Any]] = [
+        {"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+         "ts": 0, "args": {"name": process_name}}]
+    tids: "OrderedDict[str, int]" = OrderedDict()
+
+    def tid_for(track: str) -> int:
+        tid = tids.get(track)
+        if tid is None:
+            tid = tids[track] = len(tids) + 1
+            out.append({"ph": "M", "name": "thread_name", "pid": pid,
+                        "tid": tid, "ts": 0, "args": {"name": track}})
+            out.append({"ph": "M", "name": "thread_sort_index", "pid": pid,
+                        "tid": tid, "ts": 0, "args": {"sort_index": tid}})
+        return tid
+
+    for ev in sorted(events, key=lambda e: (e.ts, e.end_ts)):
+        rec: Dict[str, Any] = {
+            "name": ev.name, "cat": ev.track, "pid": pid,
+            "tid": tid_for(ev.track), "ts": round(ev.ts * 1e6, 3),
+            "args": {k: _jsonable(v) for k, v in ev.attrs.items()}}
+        if ev.ph == "i":
+            rec["ph"] = "i"
+            rec["s"] = "t"                     # thread-scoped instant
+        else:
+            rec["ph"] = "X"
+            rec["dur"] = round(max(ev.dur or 0.0, 0.0) * 1e6, 3)
+        out.append(rec)
+    return {"traceEvents": out, "displayTimeUnit": "ms"}
+
+
+def write_chrome_trace(events: Sequence[Span], path: str,
+                       pid: int = 0) -> Dict[str, Any]:
+    doc = chrome_trace(events, pid=pid)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return doc
+
+
+def validate_chrome_trace(doc: Dict[str, Any]) -> None:
+    """Schema check (raises AssertionError): every event has
+    pid/tid/ts/ph; complete events carry a non-negative dur; instants
+    carry a scope; metadata names are known."""
+    assert "traceEvents" in doc and isinstance(doc["traceEvents"], list)
+    for ev in doc["traceEvents"]:
+        for k in ("pid", "tid", "ts", "ph", "name"):
+            assert k in ev, f"event missing {k!r}: {ev}"
+        if ev["ph"] == "X":
+            assert "dur" in ev and ev["dur"] >= 0, ev
+        elif ev["ph"] == "i":
+            assert ev.get("s") in ("t", "p", "g"), ev
+        elif ev["ph"] == "M":
+            assert ev["name"] in ("process_name", "thread_name",
+                                  "thread_sort_index"), ev
+        else:
+            raise AssertionError(f"unknown phase {ev['ph']!r}")
+
+
+# -- JSONL journal -----------------------------------------------------------
+
+
+def events_to_jsonl(events: Sequence[Span]) -> List[Dict[str, Any]]:
+    """One flat dict per event, ``step``-keyed (emission index) so the
+    stream round-trips through ``utils.metrics.load_jsonl``."""
+    out = []
+    for i, ev in enumerate(events):
+        out.append({"step": i, "name": ev.name, "track": ev.track,
+                    "ph": ev.ph, "ts": ev.ts,
+                    "dur": ev.dur if ev.ph == "X" else None,
+                    "attrs": {k: _jsonable(v) for k, v in ev.attrs.items()}})
+    return out
+
+
+def write_jsonl(events: Sequence[Span], path: str) -> None:
+    with open(path, "w") as f:
+        for rec in events_to_jsonl(events):
+            f.write(json.dumps(rec) + "\n")
+
+
+# -- serving per-request timelines -------------------------------------------
+
+
+def request_timelines(events: Sequence[Span]
+                      ) -> Dict[int, List[Span]]:
+    """Group serving events by request: every event on a ``req N``
+    track (the engine stamps ``req`` in the attrs too), ordered by
+    start time.  At equal timestamps instants sort before the span
+    OPENING there (and stable sort keeps emission order among
+    instants), so a lifecycle reads enqueue -> queued -> admit -> ...
+    -> finish."""
+    by_req: Dict[int, List[Span]] = {}
+    for ev in events:
+        rid = ev.attrs.get("req")
+        if rid is None and ev.track.startswith("req "):
+            try:
+                rid = int(ev.track.split()[1])
+            except (IndexError, ValueError):
+                continue
+        if rid is None:
+            continue
+        by_req.setdefault(int(rid), []).append(ev)
+    for evs in by_req.values():
+        evs.sort(key=lambda e: (e.ts, 0 if e.ph == "i" else 1, e.end_ts))
+    return by_req
+
+
+def timeline_summary(events: Sequence[Span]) -> str:
+    """Human-readable per-request lifecycle table: queue wait, prefill
+    chunks, tokens, preemptions, speculative verify bursts and the draft
+    tokens accepted through them (``spec_accept`` instants), end-to-end
+    latency, all derived from the trace, not the engine.  The ``class``
+    column is the request's SLO class, read from its ``enqueue`` instant
+    (``-`` where it has none)."""
+    lines = [f"{'req':>4} {'class':>11} {'queued_s':>9} {'chunks':>6} "
+             f"{'tokens':>6} {'preempt':>7} {'verify':>6} "
+             f"{'spec_acc':>8} {'e2e_s':>8}  timeline"]
+    for rid, evs in sorted(request_timelines(events).items()):
+        queued = sum(e.dur or 0.0 for e in evs
+                     if e.ph == "X" and e.name == "queued")
+        chunks = sum(1 for e in evs if e.name == "prefill_chunk")
+        tokens = sum(1 for e in evs if e.name == "token")
+        preempt = sum(1 for e in evs if e.name == "preempt")
+        verify = sum(1 for e in evs if e.name == "verify")
+        spec_acc = sum(int(e.attrs.get("n", 0)) for e in evs
+                       if e.name == "spec_accept")
+        slo = next((e.attrs["slo_class"] for e in evs
+                    if e.name == "enqueue" and "slo_class" in e.attrs),
+                   "-")
+        t0 = min(e.ts for e in evs)
+        t1 = max(e.end_ts for e in evs)
+        path = "->".join(e.name for e in evs
+                         if e.name in ("enqueue", "admit", "preempt",
+                                       "finish"))
+        lines.append(f"{rid:>4} {slo:>11} {queued:>9.3f} {chunks:>6} "
+                     f"{tokens:>6} {preempt:>7} {verify:>6} "
+                     f"{spec_acc:>8} {t1 - t0:>8.3f}  {path}")
+    return "\n".join(lines)

@@ -3,24 +3,23 @@
 
 This module records what actually *happened* and when: nested
 wall-time spans, instant events, and retroactive complete spans, all
-carrying free-form attributes, buffered in a capped ring.  The JAX
-package's exporters (``obs/export.py``, ``obs/reconcile.py``) come to
-the port with the runtime planes; the events already carry what they
-read.
+carrying free-form attributes, buffered in a capped ring.
+``obs/export.py`` writes them as Chrome trace-event JSON (Perfetto) and
+a JSONL journal.
 
 Cost model, same pattern as ``utils.metrics``' no-op instruments: the
 module-global default tracer is a shared no-op (``NULL_TRACER``), every
-emission site in the engine and cluster guards on ``tracer.enabled``
-and every no-op method swallows its arguments, so disabled tracing
-costs a couple of attribute reads per *step*.  A real
+emission site (engine, cluster, graph, trainer) guards on
+``tracer.enabled`` and every no-op method swallows its arguments, so
+disabled tracing costs a couple of attribute reads per *step*.  A real
 :class:`SpanTracer` can also be switched off in place
 (``tracer.enabled = False``) without losing its buffer.
 
-    from hetu_tpu_torch.obs import trace
+    from hetu_tpu_torch.obs import chrome_trace, trace
     with trace() as tr:
         with tr.span("outer", track="work", phase=1):
             tr.instant("milestone", done=3)
-    events = tr.events()
+    json.dump(chrome_trace(tr.events()), open("trace.json", "w"))
 
 Clocks: spans stamped through :meth:`SpanTracer.now` (``time.monotonic``
 unless a ``time_fn`` is injected).  Components with their own clock
@@ -341,7 +340,8 @@ class PrefixedTracer:
 NULL_TRACER = _NullTracer()
 
 # process-global default consulted by every instrumented component
-# (serving.Engine, serving.cluster.EngineCluster)
+# (serving.Engine, serving.cluster.EngineCluster, DefineAndRunGraph.run,
+# switch_strategy, elastic.FaultTolerantTrainer)
 # unless an explicit tracer was injected
 _GLOBAL: List[Any] = [NULL_TRACER]
 

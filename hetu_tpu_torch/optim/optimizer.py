@@ -73,7 +73,15 @@ over the axes it is split over (tp for a tp-sharded parameter, dp for a
 chunk), so that every parameter counts once.  Adafactor's factored
 statistics are not sharded: under ZeRO it syncs the whole gradient and
 updates whole parameters, and it refuses ``flat_state`` (ROADMAP queue
-1 item 10b).  The numeric sentry comes with a later slice.
+1 item 10b).
+
+``sentry=`` (``True``, a ``SentryConfig`` or a ``NumericSentry``,
+``resilience.sentry``) checks every UPDATE step on the device: it reads
+the same fp32 pre-clip global sum of squares the clip reads (computed
+when either is on) and the dp-reduced loss, and its ``ok`` is ANDed into
+``keep``, so an anomalous step leaves parameters, moments, flat buffers,
+Adafactor's statistics, SGD's velocity and the step counter bitwise
+unchanged.  Its state lives on the sentry, beside the optimizer's.
 """
 from __future__ import annotations
 
@@ -117,9 +125,10 @@ class Optimizer:
                     f"flat_state=True needs dp-sharded state (ZeRO 1/2) or "
                     f"fully sharded params (ZeRO 3); got zero={self.zero}")
         self._flat = None          # the FlatStateLayout in use
-        if sentry:
-            raise NotImplementedError(
-                "the numeric sentry is ported in a later slice (resilience)")
+        # numeric sentry (resilience/sentry.py): True, a SentryConfig or a
+        # NumericSentry; its verdict is ANDed into the update's ``keep``
+        from ..resilience.sentry import as_sentry
+        self.sentry = as_sentry(sentry)
         self.dp_axis = dp_axis
         self.max_grad_norm = max_grad_norm
         self._state: Dict[str, Any] = {}
@@ -275,11 +284,10 @@ class Optimizer:
                     graph._var_data[t.id].copy_(comm.all_gather(
                         view.contiguous(), self.dp_axis, 0, graph.mesh))
 
-    def _clip(self, graph, pieces):
-        """Global-norm clip (fp32 norm): each piece's squares summed over
-        the axes it is split over, so that every parameter counts once."""
-        if self.max_grad_norm is None:
-            return pieces
+    def _grad_sq(self, graph, pieces) -> torch.Tensor:
+        """The fp32 global sum of squared gradients that the clip and the
+        sentry read: each piece's squares summed over the axes it is split
+        over, so that every parameter counts once."""
         from ..parallel import comm
         sums: Dict[frozenset, Any] = {}
         for t, _, g, axes, _ in pieces:
@@ -291,10 +299,24 @@ class Optimizer:
                 for a in sorted(axes):
                     v = comm.all_reduce(v, a, "sum", graph.mesh)
                 total = total + v
-        scale = torch.clamp(self.max_grad_norm / (torch.sqrt(total) + 1e-6),
+        return total
+
+    def _clip(self, pieces, sq):
+        """Global-norm clip (fp32 norm) by the sum of squares ``sq``."""
+        if self.max_grad_norm is None:
+            return pieces
+        scale = torch.clamp(self.max_grad_norm / (torch.sqrt(sq) + 1e-6),
                             max=1.0)
         return [(t, p, (g.float() * scale).to(g.dtype), axes, gather)
                 for t, p, g, axes, gather in pieces]
+
+    @staticmethod
+    def _checked(keep, check, sq):
+        """``keep`` ANDed with the sentry's verdict on ``sq``."""
+        if check is None:
+            return keep
+        ok = check(sq)
+        return ok if keep is None else keep & ok
 
     @staticmethod
     def _square_sum(graph, t: Tensor, g: torch.Tensor):
@@ -360,12 +382,18 @@ class Optimizer:
     @torch.no_grad()
     def _apply_updates(self, graph, xs: Sequence[Tensor],
                        grads: List[torch.Tensor],
-                       keep: Optional[torch.Tensor] = None) -> None:
+                       keep: Optional[torch.Tensor] = None,
+                       check=None) -> None:
         """Sync over dp and the sequence axes, clip, update the rank's
-        pieces, regather."""
+        pieces, regather.  ``check`` (the sentry's verdict: the global
+        sum of squares -> a device bool) is ANDed into ``keep``."""
         if self.flat_state and self._dp(graph) > 1:
-            return self._flat_apply(graph, xs, grads, keep)
-        pieces = self._clip(graph, self._sync(graph, xs, grads))
+            return self._flat_apply(graph, xs, grads, keep, check)
+        pieces = self._sync(graph, xs, grads)
+        sq = self._grad_sq(graph, pieces) \
+            if self.max_grad_norm is not None or check is not None else None
+        keep = self._checked(keep, check, sq)
+        pieces = self._clip(pieces, sq)
         self._update(graph, [(t, p, g) for t, p, g, _, _ in pieces], keep)
         self._regather(graph, pieces)
 
@@ -429,7 +457,11 @@ class Optimizer:
         if "flat_master" not in st:
             dev = graph.device
             pending = st.pop("pending", {})
-            vals = {t.id: graph._var_data[t.id] for t in xs}
+            # the checkpoint's fp32 master where it has one, else the
+            # parameters
+            master = pending.get("master", {})
+            vals = {t.id: master.get(t.id, graph._var_data[t.id])
+                    for t in xs}
             st["flat_master"] = [f.chunk(dp)[k].clone()
                                  for f in lay.pack(vals)]
             for slot in self._flat_slots():
@@ -443,7 +475,7 @@ class Optimizer:
                 st.setdefault(key, val)
         return lay
 
-    def _flat_apply(self, graph, xs, grads, keep) -> None:
+    def _flat_apply(self, graph, xs, grads, keep, check=None) -> None:
         """The reduce-scatter-only sync: a reduce-scatter chain a bucket
         (its chunk then summed over the sequence axes), the local chunk's
         update, and (ZeRO-1/2) the updated parameters
@@ -457,10 +489,14 @@ class Optimizer:
             {t.id: gmap[t.id] for t in sync_order(xs)}, axis, op="mean",
             bucket_mb=self.bucket_mb, transport=self.grad_comm, mesh=mesh)
         chunks = self._sum_over_seq(graph, chunks)
-        if self.max_grad_norm is not None:
+        if self.max_grad_norm is not None or check is not None:
+            # the global sum of squares over the scattered chunks (padding
+            # lanes add exact zeros), before the clip: clip and sentry
             sq = sum(torch.sum(torch.square(c)) for c in chunks)
             with comm.comm_tag("clip"):
                 sq = comm.all_reduce(sq, axis, "sum", mesh)
+            keep = self._checked(keep, check, sq)
+        if self.max_grad_norm is not None:
             scale = torch.clamp(self.max_grad_norm / (torch.sqrt(sq) + 1e-6),
                                 max=1.0)
             chunks = [c * scale for c in chunks]
@@ -539,8 +575,10 @@ class Optimizer:
         out = {"step": st["step"].to(torch.int32)}
         g = self._mesh_graph()
         if g is not None and "flat_master" in st:
+            # per parameter, so the state loads at any dp size; the fp32
+            # master rides as ``master.<param>``, as in the JAX package
             from ..parallel import comm
-            for slot in self._flat_slots():
+            for slot in ("master",) + tuple(self._flat_slots()):
                 full = [comm.all_gather(c, self.dp_axis, 0, g.mesh)
                         for c in st[f"flat_{slot}"]]
                 for tid, val in self._flat.unpack(full).items():
@@ -567,9 +605,12 @@ class Optimizer:
             slot, _, pname = key.partition(".")
             if key == "step":
                 state["step"] = val.to(device=device, dtype=torch.float32)
-            elif slot in self._SLOTS and pname in name_to_param:
+            elif pname in name_to_param and (
+                    slot in self._SLOTS or
+                    (slot == "master" and self.flat_state and g is not None)):
                 p = name_to_param[pname]
-                dt = self._SLOTS[slot] or p.dtype
+                dt = torch.float32 if slot == "master" \
+                    else self._SLOTS[slot] or p.dtype
                 if g is not None:
                     val = self._state_piece(g, p, val)
                 state.setdefault(slot, {})[p.id] = val.to(device=device,
@@ -581,7 +622,8 @@ class Optimizer:
             for key in [k for k in self._state if k.startswith("flat_")]:
                 del self._state[key]
             state["pending"] = {slot: state.pop(slot) for slot in
-                                self._SLOTS if slot in state}
+                                list(self._SLOTS) + ["master"]
+                                if slot in state}
             self._state.pop("pending", None)
             g._storage_replaced()
         self.load_state_dict(state)

@@ -33,14 +33,26 @@ parameters it holds (each slice once: the rank at coordinate 0 of every
 axis the slice is replicated over writes it, fused blocks as one slice a
 block, all at their global offsets) and an ``index.<rank>.json``; rank 0
 adds the optimizer's state (``checkpoint_state`` gathers it: every rank
-calls it), then after a barrier (through the coordinator when one is
-registered, ``parallel.comm.barrier``) merges the indices into
-``index.json``, and after another writes the marker.  With
-``num_shards`` rank 0 writes the gathered global values alone.  Loading
-reads global values, and each rank keeps its shard.  A background save
-from several processes and the chaos seams of the JAX module
-(``arm_kill_mid_write``) wait for the runtime planes (ROADMAP queue 1
-item 15).
+calls it), then after a barrier over the mesh's ranks (through the
+coordinator when one is registered, ``parallel.comm.barrier``; else a
+collective over the mesh) merges the indices into ``index.json``, and
+after another writes the marker.  With ``num_shards`` rank 0 writes the
+gathered global values alone.  Loading reads global values, and each
+rank keeps its shard.  A rank outside the mesh (``mesh.in_mesh`` false)
+holds nothing and takes no part.
+
+``background=True`` on a mesh is the multi-process background save: the
+host copy (and rank 0's gathered optimizer state) is made before it
+returns; the writer thread writes the rank's file and index and meets the
+other ranks at barriers through the registered ``CoordinatorClient``
+(``comm.set_coordinator``), never at a collective, which would
+interleave with the training thread's.  Without a coordinator it is
+refused, as in the JAX package.
+
+The chaos seam of the JAX module: ``arm_kill_mid_write(after_files)``
+makes the next write die (``WriterDeathError``) after that many files
+reached the disk, before the index and the marker: a half-written
+checkpoint that no manifest vouches for.
 """
 from __future__ import annotations
 
@@ -138,6 +150,16 @@ def _to_host(arr) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
         return arr.detach().cpu()
     return torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
+
+
+def _host_copy(arr) -> torch.Tensor:
+    """A host tensor no later in-place update reaches (a background save
+    writes it while training goes on): a device tensor's copy, a host
+    tensor's clone."""
+    t = _to_host(arr)
+    if isinstance(arr, torch.Tensor) and arr.device.type == "cpu":
+        t = t.clone()
+    return t
 
 
 def _encode(name: str, t: torch.Tensor, meta: Dict[str, str]) -> np.ndarray:
@@ -243,6 +265,62 @@ def load_model(model, path: str, strict: bool = True):
 # split save/load
 # ---------------------------------------------------------------------------
 
+class WriterDeathError(RuntimeError):
+    """A simulated death of the checkpoint writer (the ``kill_mid_write``
+    chaos verdict): raised between files, so the save never commits."""
+
+
+# the chaos hook consulted before every shard or index write; fault
+# injection arms it, normal operation leaves it None
+_WRITE_CHAOS: list = [None]
+
+
+def arm_kill_mid_write(after_files: int = 1) -> None:
+    """Arm the ``kill_mid_write`` verdict: the NEXT write dies after
+    ``after_files`` files have reached the disk, as a killed process
+    leaves a checkpoint.  One-shot: it disarms when it fires."""
+    box = [int(after_files)]
+
+    def hook(fname: str) -> None:
+        if box[0] <= 0:
+            _WRITE_CHAOS[0] = None
+            raise WriterDeathError(
+                f"chaos kill_mid_write: writer died before {fname}")
+        box[0] -= 1
+
+    _WRITE_CHAOS[0] = hook
+
+
+def disarm_kill_mid_write() -> None:
+    _WRITE_CHAOS[0] = None
+
+
+def _chaos_gate(fname: str) -> None:
+    if _WRITE_CHAOS[0] is not None:
+        _WRITE_CHAOS[0](fname)
+
+
+def _mesh_barrier(mesh, name: str, coordinator=None) -> None:
+    """A barrier over the ranks of ``mesh``: through the coordinator (the
+    given one or the registered one) counting the mesh's ranks, else a
+    world barrier when the mesh spans the world, else an all-reduce over
+    each of its axes in turn (every rank then waited for every other)."""
+    from ...parallel import comm
+    coord = coordinator if coordinator is not None else comm._COORDINATOR[0]
+    if coord is not None:
+        comm.barrier(coordinator=coord, name=name, world_size=mesh.size,
+                     timeout=1800.0)
+        return
+    import torch.distributed as dist
+    if dist.get_world_size() == mesh.size:
+        dist.barrier()
+        return
+    x = torch.zeros(1, device=mesh.device)
+    for a in mesh.axis_names:
+        if mesh.axis_size(a) > 1:
+            x = comm.all_reduce(x, a, "sum", mesh)
+
+
 def _file(i: int, n: int) -> str:
     return f"model_{i:05d}-of-{n:05d}.safetensors"
 
@@ -296,8 +374,10 @@ def _write_split(host: Dict[str, torch.Tensor], dirpath: str,
                                   "offsets": offs})
         index["tensors"][name] = ent
     for fname, tensors in files.items():
+        _chaos_gate(fname)
         write_safetensors(os.path.join(dirpath, fname), tensors,
                           {"format": "hetu_tpu_split", **metas[fname]})
+    _chaos_gate("index.json")
     _atomic_json(os.path.join(dirpath, "index.json"), index)
     _prune_stale_shards(dirpath, set(files))
 
@@ -338,14 +418,24 @@ def save_split_async(state: Dict[str, Any], dirpath: str,
     overwrites the device tensors in place); ``on_complete`` runs in the
     writer thread after a successful write."""
     os.makedirs(dirpath, exist_ok=True)
-    host = _host_state(state)
+    host = {k: _host_copy(v) for k, v in state.items()}
+
+    def _write():
+        _write_split(host, dirpath, num_shards)
+        if on_complete is not None:
+            on_complete()
+
+    return _start_writer(_write)
+
+
+def _start_writer(write) -> AsyncSaveHandle:
+    """``write()`` on a background thread; its error surfaces in
+    ``wait()``."""
     errbox: list = []
 
     def _run():
         try:
-            _write_split(host, dirpath, num_shards)
-            if on_complete is not None:
-                on_complete()
+            write()
         except BaseException as e:  # surfaced by wait()
             errbox.append(e)
 
@@ -420,12 +510,13 @@ def _rank_pieces(graph, t, value: torch.Tensor):
             shard_pieces(t.global_shape, spec, mesh, blocks, bd)]
 
 
-def _save_ranks(model, graph, state: Dict[str, Any], dirpath: str) -> None:
-    """The multi-process split: this rank's file and index, the barrier,
-    rank 0's merge."""
-    from ...parallel import comm
+def _rank_snapshot(model, graph, state: Dict[str, Any], copy=False):
+    """This rank's file of the multi-process split, on the host: (file
+    name, encoded tensors, metadata, index); ``copy`` makes every host
+    tensor a copy (a background save)."""
+    host = _host_copy if copy else _to_host
     mesh = graph.mesh
-    rank, world = mesh.rank, mesh.size
+    rank, world = mesh.position, mesh.size
     fname = _file(rank, world)
     tensors: Dict[str, np.ndarray] = {}
     meta: Dict[str, str] = {}
@@ -433,7 +524,7 @@ def _save_ranks(model, graph, state: Dict[str, Any], dirpath: str) -> None:
     for fn in graph._materializers:
         fn(graph)
     for name, p in model.named_parameters():
-        val = _to_host(graph.get_tensor_value(p))
+        val = host(graph.get_tensor_value(p))
         ent = {"shape": list(p.global_shape or p.shape),
                "dtype": _dtype_name(val), "slices": []}
         for k, (gsl, piece) in enumerate(_rank_pieces(graph, p, val)):
@@ -445,18 +536,27 @@ def _save_ranks(model, graph, state: Dict[str, Any], dirpath: str) -> None:
             index["tensors"][name] = ent
     if rank == 0:
         for name, v in state.items():
-            t = _to_host(v)
+            t = host(v)
             key = f"{name}@@0"
             tensors[key] = _encode(key, t, meta)
             index["tensors"][name] = {
                 "shape": list(t.shape), "dtype": _dtype_name(t),
                 "slices": [{"file": fname, "key": key,
                             "offsets": [[0, d] for d in t.shape]}]}
+    return fname, tensors, meta, index
+
+
+def _write_ranks(snap, dirpath: str, mesh, barrier) -> None:
+    """The multi-process split from a snapshot: this rank's file and
+    index, ``barrier()``, rank 0's merge, ``barrier()``."""
+    fname, tensors, meta, index = snap
+    rank, world = mesh.position, mesh.size
+    _chaos_gate(fname)
     write_safetensors(os.path.join(dirpath, fname), tensors,
                       {"format": "hetu_tpu_split", **meta})
+    _chaos_gate(f"index.{rank}.json")
     _atomic_json(os.path.join(dirpath, f"index.{rank}.json"), index)
-    name = f"ckpt:{os.path.abspath(dirpath)}"
-    comm.barrier(name=name, timeout=1800.0)
+    barrier("")
     if rank == 0:
         for fn in os.listdir(dirpath):
             parts = fn.split(".")
@@ -467,7 +567,7 @@ def _save_ranks(model, graph, state: Dict[str, Any], dirpath: str) -> None:
         _prune_stale_shards(dirpath, {sl["file"] for ent in
                                       merged["tensors"].values()
                                       for sl in ent["slices"]})
-    comm.barrier(name=name + ":merged", timeout=1800.0)
+    barrier(":merged")
 
 
 def save_checkpoint(model, optimizer, dirpath: str, step: int = 0,
@@ -478,15 +578,22 @@ def save_checkpoint(model, optimizer, dirpath: str, step: int = 0,
     """Save parameters, buffers, the optimizer's state and ``step`` to
     ``dirpath``; with ``background`` the files are written on a thread
     (call ``.wait()`` on the returned handle)."""
-    os.makedirs(dirpath, exist_ok=True)
     params = dict(model.named_parameters())
     graph = next(iter(params.values())).graph if params else None
     mesh = getattr(graph, "mesh", None)
     ranks = mesh is not None and mesh.size > 1
+    if mesh is not None and not mesh.in_mesh:
+        return None                  # the rank holds nothing of the mesh
+    coord = None
     if ranks and background:
-        raise NotImplementedError(
-            "a background save from several processes comes with ROADMAP "
-            "queue 1 item 15 (the runtime planes)")
+        from ...parallel import comm
+        coord = comm._COORDINATOR[0]
+        if coord is None:
+            raise RuntimeError(
+                "background save with multiple processes needs a "
+                "registered CoordinatorClient (comm.set_coordinator): the "
+                "collective barrier cannot run on the writer thread")
+    os.makedirs(dirpath, exist_ok=True)
     state: Dict[str, Any] = {}
     if not ranks or num_shards is not None:
         for name, p in params.items():
@@ -499,7 +606,7 @@ def save_checkpoint(model, optimizer, dirpath: str, step: int = 0,
         for key, val in optimizer.checkpoint_state(tid_to_name).items():
             state[f"opt.{key}"] = val
     marker = os.path.join(dirpath, "trainer_state.json")
-    lead = not ranks or mesh.rank == 0
+    lead = not ranks or mesh.position == 0
     if os.path.exists(marker) and lead:
         # a re-save drops the old marker first: a crash mid-write must not
         # leave a marker that vouches for mixed-step tensor files
@@ -510,18 +617,38 @@ def save_checkpoint(model, optimizer, dirpath: str, step: int = 0,
         _atomic_json(marker, {"step": int(step), "extra": extra or {}})
 
     if ranks:
-        from ...parallel import comm
+        name = f"ckpt:{os.path.abspath(dirpath)}"
+
+        def barrier(suffix):
+            _mesh_barrier(mesh, name + suffix, coordinator=coord)
+
+        if background:
+            # the host snapshot now (the next step overwrites the device
+            # tensors in place), the files and barriers on the writer
+            snap = _rank_snapshot(model, graph, state, copy=True) \
+                if num_shards is None else None
+            host = {k: _host_copy(v) for k, v in state.items()} \
+                if lead and num_shards is not None else None
+
+            def _write():
+                if snap is not None:
+                    _write_ranks(snap, dirpath, mesh, barrier)
+                elif lead:
+                    _write_split(host, dirpath, num_shards)
+                if lead:
+                    _write_marker()
+
+            return _start_writer(_write)
         if num_shards is None:
-            _save_ranks(model, graph, state, dirpath)
+            _write_ranks(_rank_snapshot(model, graph, state), dirpath, mesh,
+                         barrier)
         else:
             if lead:
                 save_split(state, dirpath, num_shards=num_shards)
-            comm.barrier(name=f"ckpt:{os.path.abspath(dirpath)}",
-                         timeout=1800.0)
+            barrier("")
         if lead:
             _write_marker()
-        comm.barrier(name=f"ckpt:{os.path.abspath(dirpath)}:marker",
-                     timeout=1800.0)
+        barrier(":marker")
         return None
 
     if background:
@@ -539,6 +666,13 @@ def load_checkpoint(model, optimizer, dirpath: str,
     package) into ``model`` and ``optimizer``; returns the trainer state
     (``{"step", "extra"}``).  ``verified`` / ``verify_exempt`` are
     recorded in :data:`RESTORE_LOG` as in the JAX package."""
+    params = dict(model.named_parameters())
+    mesh = getattr(next(iter(params.values())).graph, "mesh", None) \
+        if params else None
+    if mesh is not None and not mesh.in_mesh:
+        # the rank holds nothing of the mesh: nothing to load
+        with open(os.path.join(dirpath, "trainer_state.json")) as f:
+            return json.load(f)
     state = load_split(dirpath)
     model.load_state_dict({k: v for k, v in state.items()
                            if not k.startswith("opt.")}, strict=False)

@@ -11,15 +11,21 @@
 - :class:`MemoryProfiler` appends per-step snapshots to a JSONL log when
   ``HETU_TPU_MEMORY_PROFILE`` is set (the JAX package's variables).
 
-The per-op :class:`OpProfiler` replays a graph op by op; it is ported with
-the tracing slice (ROADMAP queue 1, item 15) and raises until then.
+- :class:`OpProfiler` replays a graph op by op on its device and times
+  each (per op, by type, by module group), as the JAX package's does:
+  each op runs once, then ``warmup`` more times (kernel builds and first
+  launches fall outside the timing), then ``iters`` timed runs between
+  two synchronizations of the card.  The ``gradients`` node (the whole
+  backward, ``torch.autograd.grad`` over the replayed forward) is one
+  record.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional
+from collections import defaultdict
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,12 +50,121 @@ def device_memory_stats(device=None) -> Dict[str, int]:
 
 
 class OpProfiler:
-    """Per-op eager replay of a graph; ported with the tracing slice."""
+    """Eager-replay op profiler: walks the graph in topological order,
+    running and timing each op alone, to attribute wall time per op, op
+    type and name group (the reference's per-op TimeCost and SubGraph
+    profile)."""
 
-    def __init__(self, graph=None):
-        raise NotImplementedError(
-            "OpProfiler (per-op replay) is ported with the tracing slice "
-            "(ROADMAP queue 1, item 15)")
+    def __init__(self, graph):
+        self.graph = graph
+        self.records: List[Dict[str, Any]] = []
+        # the last replay's values by tensor id (the fetched loss, the
+        # gradients), to hold the replay against ``graph.run``
+        self.values: Dict[int, Any] = {}
+
+    def _sync(self) -> None:
+        if self.graph.device.type == "cuda":
+            torch.cuda.synchronize(self.graph.device)
+
+    def profile(self, targets: Sequence, feed_dict: Dict,
+                warmup: int = 1, iters: int = 3) -> List[Dict[str, Any]]:
+        """Replay the ops ``targets`` need (fetch gradient tensors to
+        include the backward) on ``feed_dict``; returns the records
+        (``name``, ``op_type``, ``time`` in seconds a run, ``out_shapes``)."""
+        g = self.graph
+        targets = list(targets)
+        env: Dict[int, Any] = {}
+        for t, v in feed_dict.items():
+            env[t.id] = torch.as_tensor(np.asarray(v), dtype=t.dtype,
+                                        device=g.device)
+        topo = g._topo_from(targets)
+        needs_grad = any(n.op_type == "gradients" for n in topo)
+        records = []
+        with torch.set_grad_enabled(needs_grad):
+            for node in topo:
+                if node.op_type == "placeholder":
+                    continue
+                if node.op_type == "constant":
+                    env[node.outputs[0].id] = node.attrs["value"]
+                    continue
+                if node.op_type == "variable":
+                    for out in node.outputs:
+                        v = g._materialize_var(out)
+                        env[out.id] = v.detach().requires_grad_(True) \
+                            if needs_grad and out.trainable else v
+                    continue
+                if node.op_type == "update":
+                    continue        # the optimizer: run by graph.run
+                if any(t.id not in env for t in node.inputs):
+                    continue
+                run_once = self._runner(node, env)
+                out = run_once()
+                for _ in range(warmup):
+                    run_once()
+                self._sync()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    run_once()
+                self._sync()
+                dt = (time.perf_counter() - t0) / max(1, iters)
+                flat = out if isinstance(out, (tuple, list)) else [out]
+                for t, v in zip(node.outputs, flat):
+                    env[t.id] = v
+                records.append({
+                    "name": node.name or node.op_type,
+                    "op_type": node.op_type,
+                    "time": dt,
+                    "out_shapes": [tuple(t.shape) for t in node.outputs],
+                })
+        self.records = records
+        self.values = env
+        return records
+
+    @staticmethod
+    def _runner(node, env):
+        """One run of ``node`` over ``env``'s values."""
+        if node.op_type == "gradients":
+            loss = env[node.attrs["loss"].id]
+            xs = [env[x.id] for x in node.attrs["xs"]]
+
+            def run_grad():
+                gs = torch.autograd.grad(loss.sum() if loss.ndim else loss,
+                                         xs, retain_graph=True,
+                                         allow_unused=True)
+                return [torch.zeros_like(x) if gi is None else gi
+                        for x, gi in zip(xs, gs)]
+            return run_grad
+        args = [env[t.id] for t in node.inputs]
+        return lambda: node.impl(*args, **node.attrs)
+
+    # -- aggregations (reference SubGraph::profile) ---------------------------
+
+    def by_type(self) -> Dict[str, float]:
+        agg: Dict[str, float] = defaultdict(float)
+        for r in self.records:
+            agg[r["op_type"]] += r["time"]
+        return dict(sorted(agg.items(), key=lambda kv: -kv[1]))
+
+    def by_group(self, depth: int = 1) -> Dict[str, float]:
+        """Aggregate by name prefix (module path), e.g. 'blocks0' for
+        'blocks0.attn.qkv'."""
+        agg: Dict[str, float] = defaultdict(float)
+        for r in self.records:
+            parts = r["name"].split(".")
+            agg[".".join(parts[:depth])] += r["time"]
+        return dict(sorted(agg.items(), key=lambda kv: -kv[1]))
+
+    def total(self) -> float:
+        return sum(r["time"] for r in self.records)
+
+    def summary(self, top: int = 10) -> str:
+        lines = [f"{'op':<28}{'type':<22}{'ms':>8}"]
+        for r in sorted(self.records, key=lambda r: -r["time"])[:top]:
+            lines.append(f"{r['name'][:27]:<28}{r['op_type'][:21]:<22}"
+                         f"{r['time'] * 1e3:>8.3f}")
+        lines.append(f"total {self.total() * 1e3:.3f} ms over "
+                     f"{len(self.records)} ops")
+        return "\n".join(lines)
 
 
 class StepProfiler:

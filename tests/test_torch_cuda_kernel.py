@@ -1219,3 +1219,74 @@ def test_captured_recompute_equals_the_plain_step(cuda_device, dropout):
         assert losses == base and graphs == 1 and fwd == 2 * base_fwd
         for n in base_w:
             np.testing.assert_array_equal(w[n], base_w[n], err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# the numeric sentry in a captured training step
+# ---------------------------------------------------------------------------
+
+def _sentry_trainer():
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    with ht.graph("define_and_run", create_new=True, device="cuda",
+                  seed=0) as g:
+        ids = ht.placeholder("int32", (4, 64), name="input_ids")
+        labels = ht.placeholder("int32", (4, 64), name="labels")
+        model = GPTLMHeadModel(GPTConfig(
+            vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
+            max_seq_len=64, dtype="float32"))
+        loss = model(ids, labels)
+        opt = optim.AdamOptimizer(lr=1e-2, sentry=True)
+        op = opt.minimize(loss)
+    rng = np.random.RandomState(7)
+    toks = [rng.randint(0, 97, (4, 65)).astype(np.int32) for _ in range(5)]
+
+    def step(i):
+        l, _ = g.run(loss, [loss, op], {ids: toks[i][:, :-1],
+                                        labels: toks[i][:, 1:]})
+        return float(l)
+    return g, opt, step
+
+
+def _held(g, opt):
+    out = [v.clone() for v in g._var_data.values()]
+    for v in opt._state.values():
+        out += [x.clone() for x in (v.values() if isinstance(v, dict)
+                                    else [v])]
+    return out
+
+
+def test_sentry_poisoned_replay_leaves_no_residue(cuda_device):
+    """Each poisoned replay of the captured step (grad_nan, grad_spike)
+    leaves every variable, Adam moment and the step count ``torch.equal``
+    to its state before, captures nothing new, and copies one tensor to
+    the host, as a clean step does; the clean steps equal a run that
+    never saw the poison, bitwise."""
+    g, opt, step = _sentry_trainer()
+    losses = [step(0), step(1)]
+    assert (g.compile_count, g.captures_total) == (1, 1)
+    saved = torch.Tensor.cpu
+    reads = []
+
+    def cpu(t, *a, **k):
+        if t.is_cuda:
+            reads.append(1)
+        return saved(t, *a, **k)
+    for i, kind in ((2, "grad_nan"), (3, "grad_spike")):
+        before = _held(g, opt)
+        g.inject_numeric_fault(kind)
+        torch.Tensor.cpu = cpu
+        try:
+            step(i)
+        finally:
+            torch.Tensor.cpu = saved
+        v = opt.sentry.last_verdict()
+        assert v["anomaly"], v
+        assert all(torch.equal(a, b) for a, b in zip(before, _held(g, opt)))
+        assert (g.compile_count, g.captures_total) == (1, 1)
+    assert len(reads) == 2
+    losses.append(step(4))
+    g2, _, step2 = _sentry_trainer()
+    assert [step2(i) for i in (0, 1, 4)] == losses
+    assert g.last_run_captured and g2.compile_count == 1

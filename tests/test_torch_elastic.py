@@ -202,6 +202,13 @@ def test_trainer_hetero_error_policy():
     ("FaultTolerantTrainer", "item 15"), ("TrainBuild", "item 15"),
     ("WorkerMonitor", "item 15"), ("ElasticMPMDTrainer", "item 11b")])
 def test_unported_trainers_name_their_item(name, item):
+    """``ElasticMPMDTrainer`` still names its item; the fault plane of
+    item 15 is ported (tests/test_torch_ft.py): exported beside the JAX
+    package's names."""
+    if item == "item 15":
+        assert name in pel.__all__ and name in jel.__all__
+        assert getattr(pel, name) is getattr(pel.ft, name)
+        return
     with pytest.raises(NotImplementedError, match=item):
         getattr(pel, name)
     assert name not in pel.__all__

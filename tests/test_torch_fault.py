@@ -564,16 +564,24 @@ def test_chaos_run_matches_jax(model_state, shared_fn):
 
 
 def test_training_plane_faults_are_refused(model_state, shared_fn):
-    """A serving controller refuses the kinds only a trainer consumes,
-    naming the ROADMAP item of the fault-tolerant trainer."""
+    """A serving controller ignores the kinds only a trainer consumes (the
+    fault-tolerant trainer, tests/test_torch_ft.py), as the JAX
+    package's does: recorded in its audit log, no replica touched, the
+    request served."""
     state, cfg, _ = model_state
-    plan = FaultPlan(events=[FaultEvent(step=0, kind="grad_nan",
+    plan = FaultPlan(events=[FaultEvent(step=0, kind="grad_nan", target=0),
+                             FaultEvent(step=0, kind="worker_death",
                                         target=0)])
+    chaos = ChaosController(plan)
     cl = _make_cluster(state, cfg, shared_fn, num_replicas=1,
-                       name="f_train_kind", chaos=ChaosController(plan))
-    cl.add_request([1, 2, 3], 2, arrival_time=0.0)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cl.step()
+                       name="f_train_kind", chaos=chaos)
+    req = cl.add_request([1, 2, 3], 2, arrival_time=0.0)
+    cl.step()
+    assert [e["kind"] for e in chaos.injected] == ["grad_nan",
+                                                   "worker_death"]
+    assert all(r.alive for r in cl.replicas)
+    cl.run()
+    assert len(req.out_tokens) == 2
     cl.close()
 
 

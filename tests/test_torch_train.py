@@ -325,8 +325,12 @@ def test_probe_refusals():
     with ht.graph("define_and_run", create_new=True, device="cpu") as g:
         with pytest.raises(ValueError, match="new mesh"):
             g.switch_strategy(None)
-        with pytest.raises(NotImplementedError, match="sentry"):
-            g.inject_numeric_fault("grad_nan")
+        # the numeric sentry is ported (tests/test_torch_resilience.py):
+        # a known kind arms the next step's code, another is refused
+        g.inject_numeric_fault("grad_nan")
+        assert g._sentry_next_code == 1
+        with pytest.raises(ValueError, match="unknown numeric fault"):
+            g.inject_numeric_fault("bit_flip")
         # shape buckets and the grad run level are ported (test_torch_graph)
         g.set_shape_buckets([16, 32])
         assert g.run([], run_level="grad") == []

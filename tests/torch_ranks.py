@@ -1,7 +1,8 @@
 """Rank processes of a gloo group on the CPU, for the port's multi-process
 tests (tests/test_torch_comm.py, tests/test_torch_parallel.py,
 tests/test_torch_rpc_launch.py, tests/test_torch_ring_attention.py,
-tests/test_torch_ulysses.py, tests/test_torch_cp_model.py).
+tests/test_torch_ulysses.py, tests/test_torch_cp_model.py,
+tests/test_torch_resilience.py, tests/test_torch_ft.py).
 
 ``run_ranks(case, world, args, tmp)`` starts ``world`` fresh interpreters
 running this file (``python tests/torch_ranks.py RANK WORLD INIT CASE
@@ -870,6 +871,207 @@ def case_elastic(rank, world, state_path, jobs, batch=8, seq=16):
     return out
 
 
+FT_CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+              max_seq_len=16, dtype="float32", sp=False)
+
+
+def ft_build_fn(state, table, sentry=True, opt_kw=None, batch=8):
+    """The fault-tolerant trainer's ``build_fn`` of tests/test_torch_ft.py
+    and tests/test_torch_resilience.py: the tiny GPT from the given (JAX)
+    state on ``{"dp": dp}`` over ``ranks[:dp]``, Adam with flat ZeRO-2
+    and the sentry; ``step_fn(cursor)`` trains on ``table[cursor]``."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.elastic import TrainBuild
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.models.convert import load_state
+    from hetu_tpu_torch.parallel import P, create_mesh
+    kw = dict(lr=1e-2, zero=2, grad_comm="fp32", flat_state=True)
+    kw.update(opt_kw or {})
+
+    def build(dp, ranks):
+        mesh = create_mesh({"dp": dp}, device="cpu", ranks=list(ranks)[:dp])
+        with ht.graph("define_and_run", create_new=True, mesh=mesh,
+                      seed=0) as g:
+            ids = ht.parallel_placeholder("int32", (batch, 16),
+                                          pspec=P("dp", None), name="ids")
+            labels = ht.parallel_placeholder("int32", (batch, 16),
+                                             pspec=P("dp", None),
+                                             name="labels")
+            model = GPTLMHeadModel(GPTConfig(**FT_CFG))
+            loss = model(ids, labels)
+            opt = optim.AdamOptimizer(sentry=sentry, **kw)
+            train_op = opt.minimize(loss)
+        if mesh.in_mesh:
+            load_state(model, state)
+
+        def step_fn(cursor):
+            b = table[cursor][:batch]
+            out = g.run(loss, [loss, train_op],
+                        {ids: b, labels: np.roll(b, -1, axis=1)})
+            return float(out[0])
+
+        return TrainBuild(graph=g, model=model, optimizer=opt,
+                          step_fn=step_fn)
+    return build
+
+
+def _local_weights(model):
+    return {n: p.graph.get_tensor_value(p).detach().clone().numpy()
+            for n, p in model.named_parameters()}
+
+
+def case_ft(rank, world, state_path, table_path, ckdir, events, steps,
+            trainer_kw, ttl=3.0):
+    """The ``FaultTolerantTrainer`` on every rank with a ``WorkerMonitor``
+    of one worker a rank, under the fault plan ``events`` ((step, kind,
+    target) each); then a fault-free run of the world's layout on the
+    committed cursors.  Returns the losses, counters, recoveries, cursors,
+    the generations left on disk and the reference losses."""
+    from hetu_tpu_torch.elastic import (FaultTolerantTrainer, WorkerMonitor,
+                                        write_recovery_report)
+    from hetu_tpu_torch.fault import FaultEvent, FaultPlan
+    from hetu_tpu_torch.resilience import (list_generations,
+                                           verify_generation)
+    from hetu_tpu_torch.resilience.generations import generation_dir
+    state = _dist_state(state_path)
+    table = np.load(table_path)
+    build = ft_build_fn(state, table)
+    mon = WorkerMonitor(world, list(range(world)), ttl=ttl,
+                        heartbeat_interval=0.05)
+    tr = FaultTolerantTrainer(build, list(range(world)), monitor=mon,
+                              checkpoint_dir=ckdir, **trainer_kw)
+    plan = FaultPlan(events=[FaultEvent(step=s, kind=k, target=t)
+                             for s, k, t in events])
+    losses = tr.train(steps, fault_plan=plan)
+    out = {"losses": losses, "metrics": tr.metrics_summary(),
+           "metrics_text": tr.metrics_text(),
+           "recoveries": [{k: v for k, v in r.items()
+                           if not k.endswith("_s") and k not in
+                           ("killed_at", "_t0")} for r in tr.recoveries],
+           "mttr": [r.get("mttr_s") for r in tr.recoveries],
+           "cursors": tr.committed_cursors(),
+           "burned": list(tr.burned_cursors), "dp": tr.dp,
+           "in_mesh": tr.build.graph.mesh.in_mesh,
+           "ck_steps": list(tr._ck_steps),
+           "host_reads": tr.build.optimizer.sentry.host_reads
+           if tr.build.graph.mesh.in_mesh else None,
+           "attempts": tr.attempts,
+           "generations": {s: verify_generation(
+               generation_dir(ckdir, s))[0] for s in list_generations(ckdir)},
+           "report": write_recovery_report(
+               tr, os.path.join(ckdir, f"report.{rank}.json"))}
+    tr.close()
+    mon.close()
+    ref = build(world, list(range(world)))
+    out["ref_losses"] = [ref.step_fn(c) for c in out["cursors"]]
+    return out
+
+
+def case_sentry_flat(rank, world, state_path, table_path):
+    """tests/test_resilience.py's flat ZeRO-2 skip on ``world`` ranks: a
+    grad_spike at step 2 is skipped (the step counter stays), the clean
+    steps equal a run that never saw it, bitwise, in losses and weights."""
+    state = _dist_state(state_path)
+    table = np.load(table_path)
+    build = ft_build_fn(state, table, opt_kw={"max_grad_norm": 1.0})
+    b = build(world, list(range(world)))
+    st = b.optimizer._state
+    losses = [b.step_fn(0), b.step_fn(1)]
+    counters = [float(st["step"])]
+    b.graph.inject_numeric_fault("grad_spike")
+    spiked = b.step_fn(2)
+    verdict = b.optimizer.sentry.last_verdict()
+    counters.append(float(st["step"]))
+    losses.append(b.step_fn(3))
+    counters.append(float(st["step"]))
+    chaos = _local_weights(b.model)
+    ref = build(world, list(range(world)))
+    ref_losses = [ref.step_fn(c) for c in (0, 1, 3)]
+    same = all(np.array_equal(chaos[k], v)
+               for k, v in _local_weights(ref.model).items())
+    return {"losses": losses, "ref_losses": ref_losses, "spiked": spiked,
+            "verdict": verdict, "step_counter": counters,
+            "ref_step_counter": float(ref.optimizer._state["step"]),
+            "weights_bitwise": same}
+
+
+def case_sentry_agree(rank, world, state_path, table_path):
+    """Faults injected on ONE rank: a loss spike only rank 0's local loss
+    shows (x64, about half of which survives the dp mean), judged against
+    a factor 20 (the reduced loss fails: skipped, the EMA kept) and then
+    40 (it passes), and a NaN gradient on the last rank only.  Every rank
+    must take the same verdict and hold the same weights."""
+    import dataclasses
+    state = _dist_state(state_path)
+    table = np.load(table_path)
+    b = ft_build_fn(state, table)(world, list(range(world)))
+    sentry = b.optimizer.sentry
+    sentry.config = dataclasses.replace(sentry.config, loss_spike_factor=40.0)
+    for c in range(4):
+        b.step_fn(c)
+    verdicts = []
+    for c, kind, who, factor in ((4, "loss_spike", 0, 20.0),
+                                 (5, "loss_spike", 0, 40.0),
+                                 (6, "grad_nan", world - 1, 20.0)):
+        sentry.config = dataclasses.replace(sentry.config,
+                                            loss_spike_factor=factor)
+        if rank == who:
+            b.graph.inject_numeric_fault(kind)
+        b.step_fn(c)
+        verdicts.append(sentry.last_verdict())
+    return {"verdicts": verdicts,
+            "step_counter": float(b.optimizer._state["step"]),
+            "weights": _local_weights(b.model)}
+
+
+def case_bg_save(rank, world, state_path, table_path, out_dir,
+                 coordinator):
+    """A background save from every rank of a flat ZeRO-2 dp ``world``
+    model after 2 steps, a third step trained while it writes; with
+    ``coordinator`` the ranks' writer threads meet at the coordinator's
+    barriers, without one it is refused.  Returns the gathered weights at
+    the save and the error text."""
+    import torch.distributed as dist
+    from hetu_tpu_torch.parallel import comm
+    from hetu_tpu_torch.rpc.coordinator import (CoordinatorClient,
+                                                CoordinatorServer)
+    from hetu_tpu_torch.utils.checkpoint import save_checkpoint
+    state = _dist_state(state_path)
+    table = np.load(table_path)
+    b = ft_build_fn(state, table, sentry=False)(world, list(range(world)))
+    b.step_fn(0)
+    b.step_fn(1)
+    want = {n: b.graph.global_value(p).numpy().copy()
+            for n, p in b.model.named_parameters()}
+    server, client = None, None
+    if coordinator:
+        if rank == 0:
+            server = CoordinatorServer(world_size=world).start()
+        box = [server.address if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        client = CoordinatorClient(box[0], uid=f"rank{rank}")
+        client.connect()
+        client.world_size = world
+    comm.set_coordinator(client)
+    error = None
+    try:
+        h = save_checkpoint(b.model, b.optimizer, out_dir, step=2,
+                            background=True)
+        b.step_fn(2)                 # trains while the writer runs
+        h.wait(timeout=120)
+    except RuntimeError as e:
+        error = str(e)
+    finally:
+        comm.set_coordinator(None)
+    dist.barrier()
+    if client is not None:
+        client.close()
+    if server is not None:
+        server.stop()
+    return {"weights": want if rank == 0 else None, "error": error}
+
+
 CASES = {"collectives": case_collectives, "switch": case_switch,
          "elastic": case_elastic, "switch_values": case_switch_values,
          "mesh_ranks": case_mesh_ranks, "train_many": case_train_many,
@@ -880,7 +1082,9 @@ CASES = {"collectives": case_collectives, "switch": case_switch,
          "pipeline_feed_refusal": case_pipeline_feed_refusal,
          "aux": case_aux,
          "many": case_many,
-         "stats": case_stats, "checkpoint": case_checkpoint, "ce": case_ce}
+         "stats": case_stats, "checkpoint": case_checkpoint, "ce": case_ce,
+         "ft": case_ft, "sentry_flat": case_sentry_flat,
+         "sentry_agree": case_sentry_agree, "bg_save": case_bg_save}
 
 
 def main(argv):
